@@ -1,0 +1,213 @@
+// Fused 2-bit unpack + matmul for Hopper (sm_90a): kernel K1 of the port.
+//
+// Replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas and
+// ternary_matmul_pallas_stacked (the stacked variant collapses into this one:
+// the caller passes the zero-copy view packed[li]).
+//
+// Contract (K1's, not its TPU block structure): with u = T + 1 in {0,1,2}
+// unpacked from the plane-interleaved (K/4, n) int8 layout
+// (pt2tpu_torch/core/packing.py) and W = alpha*(u-1) + mu = alpha*u + (mu-alpha),
+//
+//   out[b, j] = sum_blk alpha[blk, j] * (x_blk . u_blk[:, j])
+//             + (mu[blk, j] - alpha[blk, j]) * sum(x_blk)
+//
+// accumulated in f32; alpha and mu are applied in f32. bf16 mode: x arrives
+// as bf16. W2A8 mode: x arrives normalised to |x| <= 127 (the wrapper's
+// normalize_rows_a8); the kernel rounds half-to-even (rintf, as jnp.round),
+// clips to [-127, 127], and the dot against u runs in int32. The wrapper
+// multiplies the output by the per-row scale.
+//
+// What bounds it: at decode batch sizes the work is reading the weights,
+// 0.25 B/weight of packed codes plus 4 B per (block, column) of bf16 alpha
+// and mu, so the kernel is bound by device-memory bytes. This first design
+// reads every packed byte exactly once per row tile and never writes a
+// dequantised weight: each thread loads 4 neighbouring bytes of a packed row
+// (one 32-bit load; 8 threads cover 32 contiguous bytes, a full sector), and
+// unpacks the 16 codes in registers with shifts and masks. The x chunk and
+// its per-block sums are staged in shared memory. The K loop runs inside the
+// block: the 32 thread rows split the packed rows of each scale block and
+// their partial sums are reduced in shared memory at the end, so no
+// cross-block reduction exists. Its dots run on the CUDA cores, not the
+// tensor cores; wgmma, TMA and a packed-byte ring are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TX = 8;              // threads across columns, 4 columns each
+constexpr int TY = 32;             // threads across the packed rows of a block
+constexpr int THREADS = TX * TY;   // 256
+constexpr int TN = TX * 4;         // output columns per thread block
+constexpr int CHUNK = 2048;        // x columns staged in shared memory per pass
+constexpr int MIN_BS = 16;         // smallest scale block the kernel takes
+
+template <bool A8> struct Acc { typedef float T; };
+template <> struct Acc<true> { typedef int T; };
+
+template <int TB, bool A8>
+__global__ void __launch_bounds__(THREADS)
+ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
+                      const int8_t* __restrict__ packed,        // (K/4, n)
+                      const __nv_bfloat16* __restrict__ alpha,  // (nb, n)
+                      const __nv_bfloat16* __restrict__ mu,     // (nb, n)
+                      float* __restrict__ out,                  // (B, n)
+                      int B, int K, int n, int bs) {
+  typedef typename Acc<A8>::T D;
+  // The x chunk (TB x ch bf16) and, after the K loop, the reduction buffer
+  // (TY x TB x TN f32) share one allocation: both are 4096 * TB bytes.
+  __shared__ __align__(16) unsigned char smem[TB * CHUNK * 2];
+  __shared__ float bsum[TB][CHUNK / MIN_BS];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int col0 = blockIdx.x * TN + tx * 4;
+  const int row0 = blockIdx.y * TB;
+  const int bs4 = bs / 4;
+  const int bpc = CHUNK / bs;
+  const int ch = bpc * bs;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  float acc[TB][4];
+#pragma unroll
+  for (int b = 0; b < TB; ++b)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[b][j] = 0.f;
+
+  for (int c0 = 0; c0 < K; c0 += ch) {
+    const int cols = min(ch, K - c0);
+    const int nblk = cols / bs;
+    __syncthreads();  // the previous pass is done with xs and bsum
+    for (int i = tid; i < TB * ch; i += THREADS) {
+      const int b = i / ch;
+      const int k = i - b * ch;
+      float v = 0.f;
+      if (row0 + b < B && k < cols) {
+        v = __bfloat162float(x[(size_t)(row0 + b) * K + c0 + k]);
+        if (A8) v = fminf(fmaxf(rintf(v), -127.f), 127.f);
+      }
+      xs[i] = __float2bfloat16(v);  // exact: v is bf16, or an integer <= 127
+    }
+    __syncthreads();
+    // Per-(row, block) sums of the staged x, one warp per sum.
+    for (int s = warp; s < TB * nblk; s += THREADS / 32) {
+      const int b = s / nblk;
+      const int blk = s - b * nblk;
+      const __nv_bfloat16* xr = xs + b * ch + blk * bs;
+      float t = 0.f;
+      for (int k = lane; k < bs; k += 32) t += __bfloat162float(xr[k]);
+#pragma unroll
+      for (int o = 16; o; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+      if (lane == 0) bsum[b][blk] = t;
+    }
+    __syncthreads();
+
+    for (int blk = 0; blk < nblk; ++blk) {
+      const int gblk = c0 / bs + blk;
+      D d[TB][4];
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[b][j] = 0;
+      for (int r = ty; r < bs4; r += TY) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            packed + (size_t)(gblk * bs4 + r) * n + col0);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          D u[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) u[j] = (D)((w >> (8 * j + 2 * p)) & 3u);
+          const __nv_bfloat16* xk = xs + blk * bs + p * bs4 + r;
+#pragma unroll
+          for (int b = 0; b < TB; ++b) {
+            const float xv = __bfloat162float(xk[b * ch]);
+            const D xd = (D)xv;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) d[b][j] += xd * u[j];
+          }
+        }
+      }
+      const size_t so = (size_t)gblk * n + col0;
+      float a[4], off[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[j] = __bfloat162float(alpha[so + j]);
+        off[j] = __bfloat162float(mu[so + j]) - a[j];
+      }
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[b][j] += a[j] * (float)d[b][j];
+          if (ty == 0) acc[b][j] += off[j] * bsum[b][blk];
+        }
+    }
+  }
+
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [TY][TB][TN]
+#pragma unroll
+  for (int b = 0; b < TB; ++b)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[(ty * TB + b) * TN + tx * 4 + j] = acc[b][j];
+  __syncthreads();
+  for (int o = tid; o < TB * TN; o += THREADS) {
+    const int b = o / TN;
+    const int c = o - b * TN;
+    float t = 0.f;
+#pragma unroll 8
+    for (int y = 0; y < TY; ++y) t += red[(y * TB + b) * TN + c];
+    if (row0 + b < B) out[(size_t)(row0 + b) * n + blockIdx.x * TN + c] = t;
+  }
+}
+
+template <int TB>
+void launch(bool a8, const void* x, const void* packed, const void* alpha,
+            const void* mu, void* out, int B, int K, int n, int bs,
+            cudaStream_t stream) {
+  dim3 grid(n / TN, (B + TB - 1) / TB);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* pp = static_cast<const int8_t*>(packed);
+  const __nv_bfloat16* ap = static_cast<const __nv_bfloat16*>(alpha);
+  const __nv_bfloat16* mp = static_cast<const __nv_bfloat16*>(mu);
+  float* op = static_cast<float*>(out);
+  if (a8)
+    ternary_matmul_kernel<TB, true><<<grid, THREADS, 0, stream>>>(
+        xp, pp, ap, mp, op, B, K, n, bs);
+  else
+    ternary_matmul_kernel<TB, false><<<grid, THREADS, 0, stream>>>(
+        xp, pp, ap, mp, op, B, K, n, bs);
+}
+
+}  // namespace
+
+// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// Returns cudaGetLastError() after the launch; 0 means launched.
+extern "C" int pt2_ternary_matmul(const void* x, const void* packed,
+                                  const void* alpha, const void* mu, void* out,
+                                  int B, int K, int n, int bs, int a8,
+                                  int device, void* stream) {
+  if (B < 1 || bs < MIN_BS || bs > CHUNK || bs % 4 != 0 || K % bs != 0 ||
+      n % TN != 0)
+    return (int)cudaErrorInvalidValue;
+  // This library links its own CUDA runtime: follow the caller's device.
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) {
+    const cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 1)
+    launch<1>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
+  else if (B == 2)
+    launch<2>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
+  else if (B <= 4)
+    launch<4>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
+  else
+    launch<8>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,46 @@
+"""Llama-family architecture configs (the llama entries of
+``pt2tpu.models.registry``)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .decoder import ModelConfig
+
+__all__ = ["get_config", "CONFIGS"]
+
+
+def _llama(name, dim, n_layers, n_heads, inter, n_kv=None, vocab=32000, **kw):
+    return ModelConfig(
+        family=name,
+        vocab_size=vocab,
+        dim=dim,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        intermediate=inter,
+        norm="rmsnorm",
+        pos="rope",
+        act="silu",
+        gated_mlp=True,
+        **kw,
+    )
+
+
+CONFIGS: Dict[str, ModelConfig] = {
+    "llama-2-7b": _llama("llama2", 4096, 32, 32, 11008),
+    "llama-2-13b": _llama("llama2", 5120, 40, 40, 13824),
+    "llama-3-8b": _llama(
+        "llama3", 4096, 32, 32, 14336, n_kv=8, vocab=128256, rope_theta=500000.0
+    ),
+    "tiny-llama": _llama("llama2", 64, 2, 4, 128, vocab=256, max_seq_len=128),
+    "tiny-llama-gqa": _llama(
+        "llama2", 64, 2, 4, 128, n_kv=2, vocab=256, max_seq_len=128
+    ),
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in CONFIGS:
+        return CONFIGS[name]
+    raise KeyError(f"unknown model config '{name}'; known: {sorted(CONFIGS)}")

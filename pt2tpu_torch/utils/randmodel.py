@@ -1,0 +1,142 @@
+"""Random ternary-quantized llama params, made directly on the device.
+
+Counterpart of ``pt2tpu.utils.randmodel``: the same layout, shapes and
+scale statistics, drawn from a ``torch.Generator`` (so not the JAX
+package's numbers). No 7B artifact ships with the repo; benchmarks and the
+chip smoke build their model this way.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.common import DenseLinear
+from ..models.decoder import ModelConfig, check_supported
+from ..ops.ternary_matmul import PackedTernaryLinear, make_packed_linear
+from ..quant.fold import pad_gateup_blocks
+from .device import resolve_device
+
+__all__ = ["random_ternary_linear", "random_ternary_params"]
+
+
+def random_ternary_linear(
+    gen: torch.Generator,
+    out_features: int,
+    in_features: int,
+    bias: bool = False,
+    perm_mode: str = "identity",  # "identity" | "folded"
+    device=None,
+) -> PackedTernaryLinear:
+    """One packed layer with random codes and plausible scales. ``gen`` must
+    live on ``device``. "folded" marks the layer input_folded (what the
+    fold emits for down)."""
+    if perm_mode not in ("identity", "folded"):
+        raise NotImplementedError(f"perm_mode {perm_mode!r} not ported (needs K3/K4)")
+    dev = resolve_device(device)
+    bs = min(128, in_features)
+    while in_features % bs != 0 and bs > 4:
+        bs //= 2
+    nb = in_features // bs
+    K = nb * bs
+    codes = torch.randint(-1, 2, (out_features, K), generator=gen, device=dev, dtype=torch.int8)
+    scale = 1.0 / math.sqrt(in_features)
+    alpha = scale * (0.8 + 0.4 * torch.rand((nb, out_features), generator=gen, device=dev))
+    mu = 0.02 * scale * torch.randn((nb, out_features), generator=gen, device=dev)
+    p = make_packed_linear(
+        codes=codes,
+        alpha=alpha,
+        mu=mu,
+        perm=torch.arange(K, dtype=torch.int32, device=dev),
+        bias=torch.zeros((out_features,), dtype=torch.float32, device=dev) if bias else None,
+        in_features=in_features,
+        block_size=bs,
+    )
+    if perm_mode == "folded":
+        p.input_folded = True
+    return p
+
+
+def _stack(layers):
+    """List of per-layer dicts -> one dict with a leading n_layers axis."""
+    out = {}
+    for k, v0 in layers[0].items():
+        vs = [lp[k] for lp in layers]
+        if v0 is None:
+            out[k] = None
+        elif isinstance(v0, PackedTernaryLinear):
+            out[k] = PackedTernaryLinear(
+                packed=torch.stack([v.packed for v in vs]),
+                alpha=torch.stack([v.alpha for v in vs]),
+                mu=torch.stack([v.mu for v in vs]),
+                perm=torch.stack([v.perm for v in vs]),
+                bias=None if v0.bias is None else torch.stack([v.bias for v in vs]),
+                in_features=v0.in_features,
+                identity_perm=v0.identity_perm,
+                input_folded=v0.input_folded,
+                out_folded=v0.out_folded,
+            )
+        else:
+            out[k] = torch.stack(vs)
+    return out
+
+
+def random_ternary_params(
+    cfg: ModelConfig,
+    seed: int = 0,
+    perm_mode: str = "identity",  # "identity" | "down"
+    device=None,
+):
+    """Full llama params with every projection pre-ternarized, in the fused
+    production layout (qkv / o / gateup / down: 4 K1 launches per layer),
+    bf16 dense parts, bf16 scales, 128-lane scale blocks.
+
+    ``perm_mode="down"`` is what the quantizer's default emits at
+    dim >= 640: identity perms on qkv/o/gateup, down input_folded, gateup
+    padded by :func:`pad_gateup_blocks`. Embedding and lm_head are dense.
+    """
+    check_supported(cfg)
+    if perm_mode not in ("identity", "down"):
+        raise NotImplementedError(f"perm_mode {perm_mode!r} not ported (needs K3/K4)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = torch.bfloat16
+    H, Hkv, hd, D, I = cfg.n_heads, cfg.kv_heads, cfg.hd, cfg.dim, cfg.intermediate
+    qbias = cfg.linear_bias or cfg.qkv_bias
+    params = {
+        "embed": (torch.randn((cfg.vocab_size, D), generator=gen, device=dev) * 0.02).to(dtype),
+        "emb_ln_w": None,
+        "emb_ln_b": None,
+        "pos_embed": None,
+        "lnf_w": torch.ones((D,), dtype=dtype, device=dev),
+        "lnf_b": None,
+        "lm_head": None if cfg.tie_embeddings else DenseLinear(
+            w=(torch.randn((cfg.vocab_size, D), generator=gen, device=dev) / D**0.5).to(dtype),
+        ),
+    }
+    shapes = {
+        "qkv": ((H + 2 * Hkv) * hd, D, qbias),
+        "o": (D, H * hd, cfg.linear_bias),
+        "down": (D, I, cfg.linear_bias),
+        "gateup": (2 * I, D, cfg.linear_bias),
+    }
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {
+            "ln1_w": torch.ones((D,), dtype=dtype, device=dev),
+            "ln1_b": None,
+            "ln2_w": torch.ones((D,), dtype=dtype, device=dev),
+            "ln2_b": None,
+            "q_norm_w": None,
+            "k_norm_w": None,
+            "post_attn_w": None,
+            "post_mlp_w": None,
+        }
+        for name, (o, i, has_bias) in sorted(shapes.items()):
+            pm = "folded" if (perm_mode == "down" and name == "down") else "identity"
+            lp[name] = random_ternary_linear(gen, o, i, has_bias, perm_mode=pm, device=dev)
+        layers.append(pad_gateup_blocks(lp))
+    params["layers"] = _stack(layers)
+    return params

@@ -1,0 +1,211 @@
+"""K1's plain version and the packed-linear apply of the port, held against
+the JAX package on the same inputs (CPU; JAX computes in f32 there).
+
+Tolerances: port-plain vs JAX-XLA differ only in f32 summation order, so
+they are held at 1e-5 (outputs are O(1)). The Pallas kernel in interpret
+mode rounds (mu - alpha) to bf16 before its f32 product with the block sums
+(pallas_ternary.py:159); that term's error is bounded per output by
+sum_blk |blocksum(x)| * |mu - alpha| * 2^-8 (bf16 unit roundoff), which is
+the tolerance used there, plus the same 1e-5 slack. The W2A8 dots are
+integer-exact on both sides, leaving only the f32 scale products.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pt2tpu.core import packing as jpack
+from pt2tpu.models import decoder as jdec
+from pt2tpu.ops import ternary_matmul as jtm
+from pt2tpu.ops.kernels import pallas_ternary as jpt
+from pt2tpu.utils import checkpoint as jckpt
+from pt2tpu.utils import randmodel as jrand
+from pt2tpu_torch.ops import ternary_matmul as ttm
+from pt2tpu_torch.ops.kernels import ternary as tk
+from pt2tpu_torch.utils.checkpoint import params_from_numpy
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def to_port(tree):
+    """A JAX parameter tree -> the port's, through the artifact's flat form."""
+    flat, structure = {}, {}
+    jckpt._flatten("", tree, flat, structure)
+    return params_from_numpy(structure, {k: np.asarray(v) for k, v in flat.items()}, "cpu")
+
+
+def _rand_packed(rng, n, K, bs=128):
+    T = rng.integers(-1, 2, size=(n, K)).astype(np.int8)
+    nb = K // bs
+    alpha = jnp.asarray(rng.normal(0.05, 0.01, size=(nb, n)), jnp.bfloat16)
+    mu = jnp.asarray(rng.normal(0.0, 0.01, size=(nb, n)), jnp.bfloat16)
+    packed = np.asarray(jpack.pack_ternary(jnp.asarray(T), block_size=bs))
+    return packed, alpha, mu
+
+
+def _t(a):
+    """numpy/JAX array -> torch tensor (bf16 through its bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+@pytest.mark.parametrize("B,K,n", [(1, 256, 128), (5, 384, 256), (70, 512, 128)])
+def test_plain_matches_xla(B, K, n):
+    rng = np.random.default_rng(K + B)
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    x = rng.normal(size=(B, K)).astype(np.float32)
+    want = np.asarray(jtm.ternary_matmul_xla(jnp.asarray(x), jnp.asarray(packed), alpha, mu))
+    got = tk.ternary_matmul_plain(_t(x), _t(packed), _t(alpha), _t(mu)).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def _offset_rounding_bound(x, alpha, mu, bs):
+    s = np.abs(x.reshape(x.shape[0], -1, bs).sum(-1))  # (B, nb)
+    off = np.abs(np.asarray(mu, np.float32) - np.asarray(alpha, np.float32))  # (nb, n)
+    return s @ off * 2.0**-8
+
+
+@pytest.mark.parametrize("B", [8, 80])  # telescoped (B <= 64) and masked mode
+def test_plain_matches_pallas_interpret(B):
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(B)
+    K, n = 384, 256
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    # bf16-representable x, so the kernel's cast to bf16 is exact
+    x = np.asarray(jnp.asarray(rng.normal(size=(B, K)), jnp.bfloat16).astype(jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas(
+            jnp.asarray(x), jnp.asarray(packed), alpha, mu, tile_n=128
+        ))
+    got = tk.ternary_matmul_plain(_t(x), _t(packed), _t(alpha), _t(mu)).numpy()
+    bound = _offset_rounding_bound(x, alpha, mu, 128) + 1e-5 * (1 + np.abs(want))
+    assert np.all(np.abs(got - want) <= bound)
+
+
+def test_plain_matches_pallas_stacked_interpret():
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(3)
+    K, n, B = 256, 128, 4
+    layers = [_rand_packed(rng, n, K) for _ in range(2)]
+    packed = np.stack([l[0] for l in layers])
+    alpha = jnp.stack([l[1] for l in layers])
+    mu = jnp.stack([l[2] for l in layers])
+    x = np.asarray(jnp.asarray(rng.normal(size=(B, K)), jnp.bfloat16).astype(jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_stacked(
+            jnp.asarray(x), jnp.asarray(packed), alpha, mu, 1, tile_n=128
+        ))
+    tp, ta, tm_ = _t(packed), _t(alpha), _t(mu)
+    got = tk.ternary_matmul_plain(_t(x), tp[1], ta[1], tm_[1]).numpy()
+    bound = _offset_rounding_bound(x, alpha[1], mu[1], 128) + 1e-5 * (1 + np.abs(want))
+    assert np.all(np.abs(got - want) <= bound)
+
+
+def test_normalize_rows_a8_bit_identical():
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(6, 256)).astype(np.float32)
+    x[2] = 0.0  # an all-zero row takes the 1e-12 floor
+    jn, jsx = jpt.normalize_rows_a8(jnp.asarray(x))
+    tn, tsx = tk.normalize_rows_a8(torch.from_numpy(x))
+    np.testing.assert_array_equal(_t(jn).float().numpy(), tn.float().numpy())
+    np.testing.assert_array_equal(np.asarray(jsx), tsx.numpy())
+
+
+@pytest.mark.parametrize("B", [1, 7])
+def test_plain_a8_matches_xla_a8(B):
+    rng = np.random.default_rng(20 + B)
+    K, n = 512, 256
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    x = rng.normal(size=(B, K)).astype(np.float32)
+    want = np.asarray(jtm.ternary_matmul_xla_a8(jnp.asarray(x), jnp.asarray(packed), alpha, mu))
+    got = tk.ternary_matmul_plain_a8(_t(x), _t(packed), _t(alpha), _t(mu)).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def _bias(p, seed):
+    b = np.random.default_rng(seed).normal(size=(p.out_features,)).astype(np.float32)
+    return dataclasses.replace(p, bias=jnp.asarray(b))
+
+
+CASES = {
+    # name: (out, in, perm_mode, with bias)
+    "identity": (256, 384, "identity", False),
+    "folded": (128, 256, "folded", True),
+    "ragged": (128, 200, "identity", True),  # 200 lanes -> bs 8, padded K
+    "ssr_cpu_gather": (128, 192, "ssr", False),
+}
+
+
+@pytest.mark.parametrize("impl", ["auto", "a8"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_linear_apply_matches_jax(case, impl):
+    o, i, pm, with_bias = CASES[case]
+    jp = jrand.random_ternary_linear(jax.random.PRNGKey(len(case)), o, i, perm_mode=pm)
+    if with_bias:
+        jp = _bias(jp, 1)
+    x = np.random.default_rng(2).normal(size=(3, 2, i)).astype(np.float32)
+    want = np.asarray(jtm.ternary_linear_apply(
+        jp, jnp.asarray(x), impl="xla" if impl == "auto" else "a8", out_dtype=jnp.float32
+    ))
+    tp = to_port(jp)
+    assert tp.identity_perm == jp.identity_perm and tp.input_folded == jp.input_folded
+    got = ttm.ternary_linear_apply(tp, torch.from_numpy(x), impl=impl, out_dtype=torch.float32)
+    assert tuple(got.shape) == (3, 2, o)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    # the explicit plain route computes the same as auto on the CPU
+    if impl == "auto":
+        plain = ttm.ternary_linear_apply(tp, torch.from_numpy(x), impl="plain",
+                                         out_dtype=torch.float32)
+        np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("impl", ["auto", "a8"])
+@pytest.mark.parametrize("pm", ["identity", "folded"])
+def test_linear_apply_stacked_matches_jax(pm, impl):
+    layers = [
+        _bias(jrand.random_ternary_linear(jax.random.PRNGKey(s), 128, 320, perm_mode=pm), s)
+        for s in (4, 5)
+    ]
+    jp = jdec.stack_layers(layers)
+    x = np.random.default_rng(6).normal(size=(5, 320)).astype(np.float32)
+    tp = to_port(jp)
+    for li in (0, 1):
+        want = np.asarray(jtm.ternary_linear_apply_stacked(
+            jp, jnp.asarray(x), jnp.int32(li), impl="xla" if impl == "auto" else "a8",
+            out_dtype=jnp.float32,
+        ))
+        got = ttm.ternary_linear_apply_stacked(tp, torch.from_numpy(x), li, impl=impl,
+                                               out_dtype=torch.float32)
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_apply_rejects_bad_input():
+    jp = jrand.random_ternary_linear(jax.random.PRNGKey(0), 128, 256)
+    tp = to_port(jp)
+    with pytest.raises(ValueError):
+        ttm.ternary_linear_apply(tp, torch.zeros((2, 100)))
+    with pytest.raises(ValueError):
+        ttm.ternary_linear_apply(tp, torch.zeros((2, 256)), impl="xla")
+
+
+def test_no_silent_route_off_the_cpu():
+    """A non-CPU tensor never takes the plain version: K1 refuses devices it
+    has no kernel for, and an SSR gather raises naming the missing kernels."""
+    jp = jrand.random_ternary_linear(jax.random.PRNGKey(1), 128, 192, perm_mode="ssr")
+    tp = to_port(jp)
+    x = torch.zeros((1, 192), device="meta")
+    with pytest.raises(NotImplementedError, match="K3/K4"):
+        ttm.ternary_linear_apply(tp, x)
+    with pytest.raises(ValueError, match="no K1"):
+        tk.ternary_matmul(torch.zeros((1, 256), device="meta"),
+                          torch.zeros((64, 128), dtype=torch.int8, device="meta"),
+                          torch.zeros((2, 128), device="meta"),
+                          torch.zeros((2, 128), device="meta"))
