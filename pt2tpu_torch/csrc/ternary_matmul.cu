@@ -1,8 +1,18 @@
-// Fused 2-bit unpack + matmul for Hopper (sm_90a): kernel K1 of the port.
+// Fused 2-bit unpack + matmul for Hopper (sm_90a): kernels K1 and K3 of the
+// port.
 //
-// Replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas and
+// K1 replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas and
 // ternary_matmul_pallas_stacked (the stacked variant collapses into this one:
 // the caller passes the zero-copy view packed[li]).
+//
+// K3 replaces ternary_matmul_pallas_igathered and its _stacked variant: the
+// SSR input gather fused into K1, out = x[:, perm] @ dequant(packed). It is
+// K1 with one change: the x chunk is staged in shared memory through the
+// indexed load x[b, perm[k]] (0 where perm[k] >= m), so the gathered
+// activations never go through device memory. In W2A8 mode the wrapper
+// normalises the rows of x before the gather (absmax does not depend on the
+// order of the columns). The TPU kernel builds a one-hot matrix from perm
+// and multiplies on the MXU; on Hopper the gather is the load itself.
 //
 // Contract (K1's, not its TPU block structure): with u = T + 1 in {0,1,2}
 // unpacked from the plane-interleaved (K/4, n) int8 layout
@@ -46,14 +56,17 @@ constexpr int MIN_BS = 16;         // smallest scale block the kernel takes
 template <bool A8> struct Acc { typedef float T; };
 template <> struct Acc<true> { typedef int T; };
 
-template <int TB, bool A8>
+template <int TB, bool A8, bool GATHER>
 __global__ void __launch_bounds__(THREADS)
-ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
+ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
+                      const int* __restrict__ perm,             // (K,) if GATHER
                       const int8_t* __restrict__ packed,        // (K/4, n)
                       const __nv_bfloat16* __restrict__ alpha,  // (nb, n)
                       const __nv_bfloat16* __restrict__ mu,     // (nb, n)
                       float* __restrict__ out,                  // (B, n)
-                      int B, int K, int n, int bs) {
+                      int B, int m, int K, int n, int bs) {
+  // x rows hold m values: m == K without GATHER; with GATHER lane k of the
+  // block's x chunk is x[b, perm[k]], or 0 for a pad lane (perm[k] >= m).
   typedef typename Acc<A8>::T D;
   // The x chunk (TB x ch bf16) and, after the K loop, the reduction buffer
   // (TY x TB x TN f32) share one allocation: both are 4096 * TB bytes.
@@ -87,7 +100,12 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
       const int k = i - b * ch;
       float v = 0.f;
       if (row0 + b < B && k < cols) {
-        v = __bfloat162float(x[(size_t)(row0 + b) * K + c0 + k]);
+        if (GATHER) {
+          const int p = perm[c0 + k];
+          if ((unsigned)p < (unsigned)m) v = __bfloat162float(x[(size_t)(row0 + b) * m + p]);
+        } else {
+          v = __bfloat162float(x[(size_t)(row0 + b) * K + c0 + k]);
+        }
         if (A8) v = fminf(fmaxf(rintf(v), -127.f), 127.f);
       }
       xs[i] = __float2bfloat16(v);  // exact: v is bf16, or an integer <= 127
@@ -165,22 +183,49 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
   }
 }
 
-template <int TB>
-void launch(bool a8, const void* x, const void* packed, const void* alpha,
-            const void* mu, void* out, int B, int K, int n, int bs,
-            cudaStream_t stream) {
+template <int TB, bool GATHER>
+void launch(bool a8, const void* x, const void* perm, const void* packed,
+            const void* alpha, const void* mu, void* out, int B, int m, int K,
+            int n, int bs, cudaStream_t stream) {
   dim3 grid(n / TN, (B + TB - 1) / TB);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const int* ip = static_cast<const int*>(perm);
   const int8_t* pp = static_cast<const int8_t*>(packed);
   const __nv_bfloat16* ap = static_cast<const __nv_bfloat16*>(alpha);
   const __nv_bfloat16* mp = static_cast<const __nv_bfloat16*>(mu);
   float* op = static_cast<float*>(out);
   if (a8)
-    ternary_matmul_kernel<TB, true><<<grid, THREADS, 0, stream>>>(
-        xp, pp, ap, mp, op, B, K, n, bs);
+    ternary_matmul_kernel<TB, true, GATHER><<<grid, THREADS, 0, stream>>>(
+        xp, ip, pp, ap, mp, op, B, m, K, n, bs);
   else
-    ternary_matmul_kernel<TB, false><<<grid, THREADS, 0, stream>>>(
-        xp, pp, ap, mp, op, B, K, n, bs);
+    ternary_matmul_kernel<TB, false, GATHER><<<grid, THREADS, 0, stream>>>(
+        xp, ip, pp, ap, mp, op, B, m, K, n, bs);
+}
+
+template <bool GATHER>
+int dispatch(const void* x, const void* perm, const void* packed,
+             const void* alpha, const void* mu, void* out, int B, int m, int K,
+             int n, int bs, int a8, int device, void* stream) {
+  if (B < 1 || m < 1 || bs < MIN_BS || bs > CHUNK || bs % 4 != 0 ||
+      K % bs != 0 || n % TN != 0)
+    return (int)cudaErrorInvalidValue;
+  // This library links its own CUDA runtime: follow the caller's device.
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) {
+    const cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool q = a8 != 0;
+  if (B == 1)
+    launch<1, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+  else if (B == 2)
+    launch<2, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+  else if (B <= 4)
+    launch<4, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+  else
+    launch<8, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -191,23 +236,17 @@ extern "C" int pt2_ternary_matmul(const void* x, const void* packed,
                                   const void* alpha, const void* mu, void* out,
                                   int B, int K, int n, int bs, int a8,
                                   int device, void* stream) {
-  if (B < 1 || bs < MIN_BS || bs > CHUNK || bs % 4 != 0 || K % bs != 0 ||
-      n % TN != 0)
-    return (int)cudaErrorInvalidValue;
-  // This library links its own CUDA runtime: follow the caller's device.
-  int cur = -1;
-  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) {
-    const cudaError_t e = cudaSetDevice(device);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 1)
-    launch<1>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
-  else if (B == 2)
-    launch<2>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
-  else if (B <= 4)
-    launch<4>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
-  else
-    launch<8>(a8 != 0, x, packed, alpha, mu, out, B, K, n, bs, s);
-  return (int)cudaGetLastError();
+  return dispatch<false>(x, nullptr, packed, alpha, mu, out, B, K, K, n, bs,
+                         a8, device, stream);
+}
+
+// K3: x is (B, m), perm is (K,) int32 (pt2tpu_torch/ops/kernels/ternary.py).
+extern "C" int pt2_ternary_matmul_igathered(const void* x, const void* perm,
+                                            const void* packed,
+                                            const void* alpha, const void* mu,
+                                            void* out, int B, int m, int K,
+                                            int n, int bs, int a8, int device,
+                                            void* stream) {
+  return dispatch<true>(x, perm, packed, alpha, mu, out, B, m, K, n, bs, a8,
+                        device, stream);
 }

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.ternary_matmul import PackedTernaryLinear
+from ..ops.ternary_matmul import PackedTernaryLinear, fused_mlp_apply, fused_mlp_ok
 from .common import DenseLinear, apply_linear, apply_rope, attention, causal_mask, rms_norm, rope_tables
 
 __all__ = [
@@ -205,6 +205,9 @@ def layer_forward(
     h = rms_norm(x, lp["ln2_w"], cfg.norm_eps)
     I = cfg.intermediate
     if lp.get("gateup") is not None:
+        if fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):
+            # One launch for the whole MLP: gather + gateup + act*mul + down (K2).
+            return x + fused_mlp_apply(lp["gateup"], lp["down"], h, cfg.act, layer_idx)
         gu = apply_linear(lp["gateup"], h, impl, layer_idx)
         # gate/up halves split at the STORED width: pad_gateup_blocks may
         # have widened each half past cfg.intermediate with zero columns.

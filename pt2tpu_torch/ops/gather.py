@@ -1,10 +1,12 @@
-"""SSR input gather: the index form of ``pt2tpu.ops.gather``.
+"""SSR input gather (counterpart of ``pt2tpu.ops.gather``).
 
-A layer quantized with SSR consumes its input in visit-lane order. The JAX
-package realises that gather as a packed one-hot kernel on the TPU (K4,
-``onehot_iota_pallas``) or fused into the matmul (K3). Neither is ported
-yet, so a :class:`PackedGather` is held for artifact compatibility and
-applied in its index form on the CPU only; on CUDA it raises.
+A layer quantized with SSR consumes its input in visit-lane order. Its
+permutation is stored as a :class:`PackedGather`: 2-bit one-hot planes (the
+artifact's bytes, which the JAX package's TPU kernel K5 streams) plus the
+index vector ``perm``. On CUDA the gather runs as kernel K4
+(``ops/kernels/gather.py``, an indexed load per lane) or fused into the
+projection as K3; on the CPU it takes the index form, as JAX does off the
+TPU.
 """
 
 from __future__ import annotations
@@ -12,18 +14,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
-__all__ = ["PackedGather", "apply_input_perm", "gather_apply"]
+from ..core.packing import pack_ternary
+from .kernels.gather import onehot_gather, onehot_gather_plain
 
-
-def apply_input_perm(x: torch.Tensor, perm: torch.Tensor, in_features: int) -> torch.Tensor:
-    """Index-form gather: (..., m) -> (..., K); pad lanes (perm == m) read 0.
-
-    A zero column is appended at index m so the per-block mu * sum(x_block)
-    term stays exact on ragged layers."""
-    x_pad = F.pad(x, (0, 1))
-    return torch.index_select(x_pad, -1, perm.to(device=x.device, dtype=torch.long))
+__all__ = ["PackedGather", "make_packed_gather", "gather_apply"]
 
 
 @dataclasses.dataclass
@@ -31,7 +26,8 @@ class PackedGather:
     """One feature permutation, packed as 2-bit one-hot planes.
 
     packed: (D//4, K) int8, D = in_features padded to 128 (optionally with a
-            leading stacked n_layers dim).
+            leading stacked n_layers dim). Column k is one-hot at row
+            perm[k]; all-zero for pad lanes.
     perm:   (K,) int32 visit lane -> original feature; pad lanes -> m.
     """
 
@@ -39,15 +35,39 @@ class PackedGather:
     perm: torch.Tensor
     in_features: int
 
+    @property
+    def out_lanes(self) -> int:
+        return self.packed.shape[-1]
 
-def gather_apply(g: PackedGather, x: torch.Tensor) -> torch.Tensor:
-    """Permute (..., m) features into visit-lane order (..., K)."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "K3/K4 not ported: the SSR input gather has no CUDA kernel yet"
-        )
-    if x.shape[-1] != g.in_features:
-        raise ValueError(
-            f"input features {x.shape[-1]} != gather in_features {g.in_features}"
-        )
-    return apply_input_perm(x, g.perm, g.in_features)
+
+def make_packed_gather(perm: torch.Tensor, in_features: int) -> PackedGather:
+    """Freeze a visit-lane permutation into the packed one-hot layout, on
+    perm's device, with the same bytes as ``pt2tpu.ops.gather.make_packed_gather``."""
+    K = perm.shape[0]
+    if K % 128 != 0:
+        raise ValueError(f"lane count {K} must be a multiple of 128")
+    D = -(-in_features // 128) * 128
+    p = perm.to(torch.long)
+    # codes in {-1, 0}: the pack layout stores T + 1, so the planes hold the
+    # one-hot {0, 1}. Pad lanes scatter into a spare column D that is dropped.
+    col = torch.where((p >= 0) & (p < in_features), p, torch.full_like(p, D))
+    codes = torch.full((K, D + 1), -1, dtype=torch.int8, device=perm.device)
+    codes.scatter_(1, col[:, None], 0)
+    return PackedGather(
+        packed=pack_ternary(codes[:, :D], block_size=128),
+        perm=perm.to(torch.int32),
+        in_features=in_features,
+    )
+
+
+def gather_apply(g: PackedGather, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Permute (..., m) features into visit-lane order (..., K): K4 on CUDA,
+    the index form on the CPU or with ``impl="plain"``."""
+    m = x.shape[-1]
+    if m != g.in_features:
+        raise ValueError(f"input features {m} != gather in_features {g.in_features}")
+    if g.perm.dim() != 1:
+        raise ValueError("a stacked gather needs its layer view (PackedTernaryLinear.layer)")
+    fn = onehot_gather_plain if impl == "plain" else onehot_gather
+    out = fn(x.reshape(-1, m), g.perm)
+    return out.reshape(*x.shape[:-1], out.shape[-1])

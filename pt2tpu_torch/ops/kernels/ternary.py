@@ -1,30 +1,42 @@
-"""K1: the fused 2-bit unpack + matmul, its plain version and its wrapper.
+"""The packed-ternary kernels K1, K3 and K2: plain versions and wrappers.
 
-``ternary_matmul`` is the one entry point. On a CUDA tensor it launches the
-hand-written kernel in ``csrc/ternary_matmul.cu`` (which replaces
-``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas`` and its
-``_stacked`` variant: a stacked layer is the zero-copy view ``packed[li]``)
-or raises; on a CPU tensor it runs the plain version below. There is no
-fallback from the kernel to the plain version.
+  * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul
+    (``csrc/ternary_matmul.cu``; replaces
+    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``).
+  * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
+    (same source; replaces ``ternary_matmul_pallas_igathered``).
+  * K2 ``ternary_mlp``: the whole gated MLP in one launch
+    (``csrc/ternary_mlp.cu``; replaces ``ternary_mlp_pallas``).
 
-The plain version repeats ``pt2tpu.ops.ternary_matmul.ternary_matmul_xla``:
+Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
+and runs the plain version beside it on a CPU tensor. There is no fallback
+from a kernel to its plain version. The ``_stacked`` TPU variants collapse
+into these: a stacked layer is the zero-copy view ``packed[li]``.
+
+The plain versions repeat ``pt2tpu.ops.ternary_matmul.ternary_matmul_xla``:
 unpack, one product per scale block, then the scales, all in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...core.packing import unpack_ternary
 from . import _build
+from .gather import onehot_gather_plain
 
 __all__ = [
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
+    "ternary_matmul_igathered",
+    "ternary_matmul_igathered_plain",
+    "ternary_mlp",
+    "ternary_mlp_plain",
     "normalize_rows_a8",
 ]
 
@@ -73,7 +85,86 @@ def ternary_matmul_plain_a8(
     return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
 
 
+def ternary_matmul_igathered_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    perm: torch.Tensor,  # (K,) visit lane -> feature; pad lanes -> m
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """out = x[:, perm] @ dequant(packed) in f32. W2A8 normalises the rows
+    before the gather, as ``ternary_matmul_pallas_igathered`` does (absmax
+    does not depend on the order of the columns)."""
+    if not a8:
+        return ternary_matmul_plain(onehot_gather_plain(x, perm), packed, alpha, mu, block_size)
+    xn, sx = normalize_rows_a8(x)
+    xq = torch.clamp(torch.round(onehot_gather_plain(xn, perm).float()), -127, 127)
+    return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
+
+
+def _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha, intermediate, block_size):
+    """The checks of ``pallas_ternary._mlp_common`` for the gated MLP.
+    Returns (Kg, half, nv, n): gate lanes [0, half), up lanes [half, 2*half),
+    nv = half // block_size visited k-blocks of down."""
+    Kg4, gu_n = gu_packed.shape[-2:]
+    Kg = Kg4 * 4
+    Kd4, n = dn_packed.shape[-2:]
+    bs, I = block_size, intermediate
+    if not (gu_n >= 2 * I and gu_n % (2 * bs) == 0):
+        if gu_n >= I and gu_n % bs == 0:
+            raise NotImplementedError("the ungated MLP (act(up) alone) is not ported")
+        raise ValueError(f"gateup width {gu_n} vs intermediate {I}")
+    half = gu_n // 2
+    if bs % 128 or gu_alpha.shape[-2] * bs != Kg or dn_alpha.shape[-2] * bs != Kd4 * 4:
+        raise ValueError(
+            f"bad shapes: gu {tuple(gu_packed.shape)}, dn {tuple(dn_packed.shape)}, bs {bs}"
+        )
+    if I % bs:
+        raise ValueError(f"intermediate {I} not a multiple of block {bs}")
+    nv = half // bs
+    if nv > dn_alpha.shape[-2]:
+        raise ValueError(f"gate-half blocks {nv} exceed down blocks {dn_alpha.shape[-2]}")
+    if n % 128:
+        raise ValueError(f"out_features {n} must be a multiple of 128")
+    return Kg, half, nv, n
+
+
+def ternary_mlp_plain(
+    x: torch.Tensor,  # (B, m) post-norm hidden, feature order
+    gu_perm: Optional[torch.Tensor],  # (Kg,) gateup's visit perm, or None
+    gu_packed: torch.Tensor,  # (Kg//4, 2*half): [gate | up], lanes in down's visit order
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    dn_packed: torch.Tensor,  # (Kd//4, n), Kd >= half (pad blocks zero-scaled)
+    dn_alpha: torch.Tensor,
+    dn_mu: torch.Tensor,
+    intermediate: int,
+    block_size: int = 128,
+) -> torch.Tensor:
+    """The whole gated silu MLP, (B, m) -> (B, n) f32, as
+    ``ternary_mlp_pallas`` computes it: the gather (or a zero pad to Kg),
+    gate and up at the stored half width, mid = silu(gate) * up in f32 cast
+    to x's dtype (the kernel's operand type), then down over its first
+    half // block_size blocks."""
+    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                  intermediate, block_size)
+    if gu_perm is not None:
+        xg = onehot_gather_plain(x, gu_perm)
+    else:
+        if x.shape[-1] > Kg:
+            raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
+        xg = F.pad(x, (0, Kg - x.shape[-1]))
+    bs = block_size
+    gate = ternary_matmul_plain(xg, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half], bs)
+    up = ternary_matmul_plain(xg, gu_packed[:, half:], gu_alpha[:, half:], gu_mu[:, half:], bs)
+    mid = (F.silu(gate) * up).to(x.dtype)
+    return ternary_matmul_plain(mid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
+
+
 _lib = None
+_mlp_lib = None
 
 
 def _kernel_lib():
@@ -83,11 +174,40 @@ def _kernel_lib():
         fn = lib.pt2_ternary_matmul
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_igathered
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(x, packed, alpha, mu, block_size):
+def _mlp_kernel_lib():
+    global _mlp_lib
+    if _mlp_lib is None:
+        lib = _build.load("ternary_mlp")
+        fn = lib.pt2_ternary_mlp
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _mlp_lib = lib
+    return _mlp_lib
+
+
+def _device_and_stream(x):
+    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return idx, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_perm(perm, x, K):
+    if perm.dtype != torch.int32:
+        raise TypeError(f"perm must be int32, got {perm.dtype}")
+    if perm.device != x.device or not perm.is_contiguous():
+        raise ValueError(f"perm must be contiguous on {x.device}")
+    if tuple(perm.shape) != (K,):
+        raise ValueError(f"perm {tuple(perm.shape)} does not match {K} lanes")
+
+
+def _check(x, packed, alpha, mu, block_size, m=None):
+    """Checks K1/K3's operands; x has m columns (K for K1)."""
     K4, n = packed.shape
     K = K4 * 4
     nb = alpha.shape[0]
@@ -101,7 +221,7 @@ def _check(x, packed, alpha, mu, block_size):
         raise TypeError(f"packed must be int8, got {packed.dtype}")
     if alpha.dtype != torch.bfloat16 or mu.dtype != torch.bfloat16:
         raise TypeError(f"the kernel takes bf16 scales, got {alpha.dtype}/{mu.dtype}")
-    if x.dim() != 2 or x.shape[1] != K:
+    if x.dim() != 2 or x.shape[1] != (K if m is None else m):
         raise ValueError(f"x {tuple(x.shape)} does not match packed {tuple(packed.shape)}")
     if tuple(alpha.shape) != (nb, n) or tuple(mu.shape) != (nb, n) or nb * block_size != K:
         raise ValueError(
@@ -148,9 +268,7 @@ def ternary_matmul(
         return out
     rc = _kernel_lib().pt2_ternary_matmul(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
-        out.data_ptr(), B, K, n, block_size, int(bool(a8)),
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
@@ -159,3 +277,113 @@ def ternary_matmul(
 
 
 ternary_matmul.launches = 0
+
+
+def ternary_matmul_igathered(
+    x: torch.Tensor,
+    perm: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """out = x[:, perm] @ dequant(packed): (B, m) x (K,) perm -> (B, n) f32.
+
+    CUDA: launches K3 (the gathered x is staged in shared memory only) and
+    counts it in ``ternary_matmul_igathered.launches``. CPU: the plain
+    version."""
+    if x.device.type == "cpu":
+        return ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, block_size, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K3 for device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, m), got {tuple(x.shape)}")
+    B, m = x.shape
+    _check(x, packed, alpha, mu, block_size, m=m)
+    K, n = packed.shape[0] * 4, packed.shape[1]
+    _check_perm(perm, x, K)
+    if a8:
+        xk, sx = normalize_rows_a8(x)  # before the gather: absmax ignores order
+    else:
+        xk = x.to(torch.bfloat16)
+    xk = xk.contiguous()
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    rc = _kernel_lib().pt2_ternary_matmul_igathered(
+        xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+        out.data_ptr(), B, m, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    ternary_matmul_igathered.launches += 1
+    return out * sx if a8 else out
+
+
+ternary_matmul_igathered.launches = 0
+
+
+def ternary_mlp(
+    x: torch.Tensor,
+    gu_perm: Optional[torch.Tensor],
+    gu_packed: torch.Tensor,
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    dn_packed: torch.Tensor,
+    dn_alpha: torch.Tensor,
+    dn_mu: torch.Tensor,
+    intermediate: int,
+    block_size: int = 128,
+) -> torch.Tensor:
+    """The whole gated silu MLP, (B, m) -> (B, n) f32 (see ternary_mlp_plain).
+
+    CUDA: launches K2 (its MLP kernel and the fixed-order sum of the
+    per-I-block partials) for B <= 64 rows in bf16 and counts it once in
+    ``ternary_mlp.launches``. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu,
+                                 dn_packed, dn_alpha, dn_mu, intermediate, block_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K2 for device {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= 64:
+        raise ValueError(f"K2 takes x (B, m) with 1 <= B <= 64, got {tuple(x.shape)}")
+    if block_size != 128:
+        raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
+    Kg, half, nv, n = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                  intermediate, block_size)
+    B, m = x.shape
+    for name, t, dt in (("gu_packed", gu_packed, torch.int8), ("gu_alpha", gu_alpha, torch.bfloat16),
+                        ("gu_mu", gu_mu, torch.bfloat16), ("dn_packed", dn_packed, torch.int8),
+                        ("dn_alpha", dn_alpha, torch.bfloat16), ("dn_mu", dn_mu, torch.bfloat16)):
+        if t.device != x.device or not t.is_contiguous() or t.dim() != 2:
+            raise ValueError(f"{name} must be a contiguous 2-D tensor on {x.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.data_ptr() % (4 if dt == torch.int8 else 8):
+            raise ValueError(f"{name} is not aligned for K2's vector loads")
+    if gu_alpha.shape != (Kg // 128, 2 * half) or gu_mu.shape != gu_alpha.shape:
+        raise ValueError(f"gateup scales {tuple(gu_alpha.shape)} do not match its planes")
+    if dn_alpha.shape != (dn_packed.shape[0] // 32, n) or dn_mu.shape != dn_alpha.shape:
+        raise ValueError(f"down scales {tuple(dn_alpha.shape)} do not match its planes")
+    if gu_perm is not None:
+        _check_perm(gu_perm, x, Kg)
+    elif m > Kg:
+        raise ValueError(f"x width {m} exceeds lane count {Kg}")
+    xk = x.to(torch.bfloat16).contiguous()
+    partial = torch.empty((nv, B, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    rc = _mlp_kernel_lib().pt2_ternary_mlp(
+        xk.data_ptr(), None if gu_perm is None else gu_perm.data_ptr(),
+        gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
+        dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), B, m, Kg, 2 * half, half,
+        dn_packed.shape[0] * 4, n, *_device_and_stream(x),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    ternary_mlp.launches += 1
+    return out
+
+
+ternary_mlp.launches = 0

@@ -8,11 +8,16 @@ Counterpart of ``pt2tpu.ops.ternary_matmul``. The weights stay packed as
 
 ``impl`` selects the route of every apply:
 
-  * ``"auto"`` — kernel K1 on CUDA (``ops/kernels/ternary.py``), its plain
-    version on the CPU;
+  * ``"auto"`` — the kernels on CUDA (``ops/kernels/``), their plain
+    versions on the CPU;
   * ``"a8"``   — the same in W2A8 mode (int8 activations);
-  * ``"plain"``— the plain version on any device: an explicit choice, the
+  * ``"plain"``— the plain versions on any device: an explicit choice, the
     counterpart of JAX's ``impl="xla"``, never a fallback.
+
+On CUDA a layer with an SSR gather runs K3 (gather fused into the matmul)
+for decode-size row counts (<= 64) and K4 then K1 otherwise, as the JAX
+package routes on the TPU; the whole MLP runs as K2 where
+:func:`fused_mlp_ok` holds.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core.packing import pack_ternary
-from .gather import PackedGather, apply_input_perm, gather_apply
+from .gather import PackedGather, gather_apply
+from .kernels.gather import onehot_gather_plain
 from .kernels.ternary import (
     normalize_rows_a8,
     ternary_matmul,
+    ternary_matmul_igathered,
     ternary_matmul_plain,
     ternary_matmul_plain_a8,
+    ternary_mlp,
 )
 
 __all__ = [
@@ -37,6 +45,8 @@ __all__ = [
     "make_packed_linear",
     "ternary_linear_apply",
     "ternary_linear_apply_stacked",
+    "fused_mlp_ok",
+    "fused_mlp_apply",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
     "normalize_rows_a8",
@@ -57,7 +67,7 @@ class PackedTernaryLinear:
       mu:     (nb, n) offset per (block, out_feature)
       perm:   (K,) int32 visit-lane -> original in_feature; pad lanes -> m
       bias:   (n,) or None
-      gather: optional PackedGather (SSR layouts; CPU only in this port)
+      gather: optional PackedGather (SSR layouts)
     """
 
     packed: torch.Tensor
@@ -135,15 +145,30 @@ def make_packed_linear(
     )
 
 
-def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int) -> torch.Tensor:
+def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int, impl: str) -> torch.Tensor:
     """Present activations in visit-lane order (B, K): fold / identity need
-    only a zero pad to K; a PackedGather or a perm needs the gather."""
+    only a zero pad to K; a PackedGather runs K4; a bare perm takes the index
+    form, as the JAX package's ``apply_input_perm`` (an XLA gather) does."""
     m = x2.shape[-1]
     if p.identity_perm or p.input_folded:
         return x2 if K == m else F.pad(x2, (0, K - m))
     if p.gather is not None:
-        return gather_apply(p.gather, x2)
-    return apply_input_perm(x2, p.perm, m)
+        return gather_apply(p.gather, x2, impl)
+    return onehot_gather_plain(x2, p.perm)
+
+
+def _fused_gather_ok(p: PackedTernaryLinear, x2: torch.Tensor, impl: str) -> bool:
+    """K3's route (``ternary_linear_apply`` of the JAX package on the TPU):
+    a gather to realise, decode-size rows, and the shapes its kernel takes."""
+    return (
+        impl != "plain"
+        and x2.device.type == "cuda"
+        and p.gather is not None
+        and not (p.identity_perm or p.input_folded)
+        and x2.shape[0] <= 64
+        and p.block_size % 128 == 0
+        and p.out_features % 128 == 0
+    )
 
 
 def ternary_linear_apply(
@@ -165,12 +190,15 @@ def ternary_linear_apply(
         raise ValueError(f"input features {m} != layer in_features {p.in_features}")
     x2 = x.reshape(-1, m)
     K = p.packed.shape[-2] * 4
-    xk = _input_lanes(p, x2, K)
     bs = p.block_size
-    if impl == "plain":
-        out = ternary_matmul_plain(xk, p.packed, p.alpha, p.mu, bs)
+    if _fused_gather_ok(p, x2, impl):
+        out = ternary_matmul_igathered(x2, p.perm, p.packed, p.alpha, p.mu, bs, a8=impl == "a8")
     else:
-        out = ternary_matmul(xk, p.packed, p.alpha, p.mu, bs, a8=impl == "a8")
+        xk = _input_lanes(p, x2, K, impl)
+        if impl == "plain":
+            out = ternary_matmul_plain(xk, p.packed, p.alpha, p.mu, bs)
+        else:
+            out = ternary_matmul(xk, p.packed, p.alpha, p.mu, bs, a8=impl == "a8")
     if p.bias is not None:
         out = out + p.bias.to(out.dtype)
     return out.to(out_dtype).reshape(*lead, p.out_features)
@@ -187,3 +215,66 @@ def ternary_linear_apply_stacked(
     slice is a view, so this is :func:`ternary_linear_apply` on
     ``p.layer(layer_idx)`` — one kernel serves both cases."""
     return ternary_linear_apply(p.layer(layer_idx), x, impl=impl, out_dtype=out_dtype)
+
+
+def fused_mlp_ok(gu, dn, impl: str, rows: int, device) -> bool:
+    """Routing predicate for the fused MLP kernel K2: the checks of
+    ``pt2tpu.ops.ternary_matmul.fused_mlp_ok`` one by one, with CUDA in the
+    place of the TPU, except that the port's K2 takes only the gated MLP
+    (gateup 2 x I wide). So on the CPU the MLP takes the two-call path, as
+    the JAX package does there."""
+    return torch.device(device).type == "cuda" and _fused_mlp_layout_ok(gu, dn, impl, rows)
+
+
+def _fused_mlp_layout_ok(gu, dn, impl: str, rows: int) -> bool:
+    """Everything in :func:`fused_mlp_ok` but the backend."""
+    if impl != "auto":  # W2A8 keeps the two-call path, as in the JAX package
+        return False
+    if not isinstance(gu, PackedTernaryLinear) or not isinstance(dn, PackedTernaryLinear):
+        return False
+    if rows > 64:  # prefill rows: keep the wide two-call path
+        return False
+    if gu.bias is not None or dn.bias is not None:
+        return False
+    if not dn.input_folded:
+        return False
+    if not (gu.gather is not None or gu.identity_perm or gu.input_folded):
+        return False
+    I = dn.in_features
+    bs = 128
+    if I % bs != 0 or dn.out_features % 128 != 0:
+        return False
+    if gu.out_features != 2 * I:  # JAX also takes I (ungated); K2 here does not
+        return False
+    if gu.block_size != bs or dn.block_size != bs:
+        return False
+    if gu.identity_perm or gu.input_folded:
+        # without a gather x is zero-padded straight to gateup's lane count
+        K = gu.packed.shape[-2] * 4
+        if -(-gu.in_features // 128) * 128 != K:
+            return False
+    return True
+
+
+def fused_mlp_apply(
+    gu: PackedTernaryLinear,
+    dn: PackedTernaryLinear,
+    x: torch.Tensor,
+    act: str,
+    layer_idx: Optional[int] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """One-call MLP: (..., m) -> (..., n) through K2 (its plain version on
+    the CPU). The caller has checked :func:`fused_mlp_ok`."""
+    if act != "silu":
+        raise NotImplementedError(f"fused MLP activation {act!r} is not ported")
+    if layer_idx is not None and gu.packed.dim() == 3:
+        gu, dn = gu.layer(layer_idx), dn.layer(layer_idx)
+    out_dtype = out_dtype or x.dtype
+    x2 = x.reshape(-1, x.shape[-1])
+    has_gather = not (gu.identity_perm or gu.input_folded)
+    out = ternary_mlp(
+        x2, gu.perm if has_gather else None, gu.packed, gu.alpha, gu.mu,
+        dn.packed, dn.alpha, dn.mu, intermediate=dn.in_features,
+    )
+    return out.to(out_dtype).reshape(*x.shape[:-1], dn.out_features)

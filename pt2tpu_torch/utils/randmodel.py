@@ -8,17 +8,20 @@ chip smoke build their model this way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..models.common import DenseLinear
 from ..models.decoder import ModelConfig, check_supported
+from ..ops.gather import PackedGather, make_packed_gather
 from ..ops.ternary_matmul import PackedTernaryLinear, make_packed_linear
 from ..quant.fold import pad_gateup_blocks
 from .device import resolve_device
 
-__all__ = ["random_ternary_linear", "random_ternary_params"]
+__all__ = ["random_ternary_linear", "random_ternary_params", "default_perm_mode"]
 
 
 def random_ternary_linear(
@@ -26,14 +29,15 @@ def random_ternary_linear(
     out_features: int,
     in_features: int,
     bias: bool = False,
-    perm_mode: str = "identity",  # "identity" | "folded"
+    perm_mode: str = "identity",  # "identity" | "ssr" | "folded"
     device=None,
 ) -> PackedTernaryLinear:
     """One packed layer with random codes and plausible scales. ``gen`` must
-    live on ``device``. "folded" marks the layer input_folded (what the
-    fold emits for down)."""
-    if perm_mode not in ("identity", "folded"):
-        raise NotImplementedError(f"perm_mode {perm_mode!r} not ported (needs K3/K4)")
+    live on ``device``. "ssr" draws a random permutation and attaches its
+    packed gather (what the fold emits for qkv/o/gateup); "folded" marks the
+    layer input_folded (what the fold emits for down)."""
+    if perm_mode not in ("identity", "ssr", "folded"):
+        raise ValueError(f"unknown perm_mode {perm_mode!r}")
     dev = resolve_device(device)
     bs = min(128, in_features)
     while in_features % bs != 0 and bs > 4:
@@ -44,18 +48,33 @@ def random_ternary_linear(
     scale = 1.0 / math.sqrt(in_features)
     alpha = scale * (0.8 + 0.4 * torch.rand((nb, out_features), generator=gen, device=dev))
     mu = 0.02 * scale * torch.randn((nb, out_features), generator=gen, device=dev)
+    if perm_mode == "ssr":
+        perm = torch.randperm(in_features, generator=gen, device=dev).to(torch.int32)
+        perm = F.pad(perm, (0, K - in_features), value=in_features)
+    else:
+        perm = torch.arange(K, dtype=torch.int32, device=dev)
     p = make_packed_linear(
         codes=codes,
         alpha=alpha,
         mu=mu,
-        perm=torch.arange(K, dtype=torch.int32, device=dev),
+        perm=perm,
         bias=torch.zeros((out_features,), dtype=torch.float32, device=dev) if bias else None,
         in_features=in_features,
         block_size=bs,
     )
-    if perm_mode == "folded":
+    if perm_mode == "ssr":
+        p = dataclasses.replace(
+            p, gather=make_packed_gather(p.perm, in_features), identity_perm=False
+        )
+    elif perm_mode == "folded":
         p.input_folded = True
     return p
+
+
+def default_perm_mode(cfg: ModelConfig) -> str:
+    """The layout the quantizer's default ssr_scope="auto" emits for this
+    width: SSR on down only from dim 640 up, full SSR below."""
+    return "down" if cfg.dim >= 640 else "ssr"
 
 
 def _stack(layers):
@@ -66,12 +85,18 @@ def _stack(layers):
         if v0 is None:
             out[k] = None
         elif isinstance(v0, PackedTernaryLinear):
+            g0 = v0.gather
             out[k] = PackedTernaryLinear(
                 packed=torch.stack([v.packed for v in vs]),
                 alpha=torch.stack([v.alpha for v in vs]),
                 mu=torch.stack([v.mu for v in vs]),
                 perm=torch.stack([v.perm for v in vs]),
                 bias=None if v0.bias is None else torch.stack([v.bias for v in vs]),
+                gather=None if g0 is None else PackedGather(
+                    packed=torch.stack([v.gather.packed for v in vs]),
+                    perm=torch.stack([v.gather.perm for v in vs]),
+                    in_features=g0.in_features,
+                ),
                 in_features=v0.in_features,
                 identity_perm=v0.identity_perm,
                 input_folded=v0.input_folded,
@@ -85,20 +110,23 @@ def _stack(layers):
 def random_ternary_params(
     cfg: ModelConfig,
     seed: int = 0,
-    perm_mode: str = "identity",  # "identity" | "down"
+    perm_mode: str = "identity",  # "identity" | "ssr" | "down"
     device=None,
 ):
     """Full llama params with every projection pre-ternarized, in the fused
-    production layout (qkv / o / gateup / down: 4 K1 launches per layer),
-    bf16 dense parts, bf16 scales, 128-lane scale blocks.
+    production layout (qkv / o / gateup / down), bf16 dense parts, bf16
+    scales, 128-lane scale blocks.
 
-    ``perm_mode="down"`` is what the quantizer's default emits at
-    dim >= 640: identity perms on qkv/o/gateup, down input_folded, gateup
-    padded by :func:`pad_gateup_blocks`. Embedding and lm_head are dense.
+    ``perm_mode="ssr"`` is the post-fold layout of a full-SSR model (what the
+    quantizer emits below dim 640, or at any width with ssr_scope="all"):
+    qkv/o/gateup carry packed gathers, down is input_folded.
+    ``perm_mode="down"`` is what it emits at dim >= 640: identity perms on
+    qkv/o/gateup, down input_folded. Gateup is padded by
+    :func:`pad_gateup_blocks`. Embedding and lm_head are dense.
     """
     check_supported(cfg)
-    if perm_mode not in ("identity", "down"):
-        raise NotImplementedError(f"perm_mode {perm_mode!r} not ported (needs K3/K4)")
+    if perm_mode not in ("identity", "ssr", "down"):
+        raise ValueError(f"unknown perm_mode {perm_mode!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -135,7 +163,9 @@ def random_ternary_params(
             "post_mlp_w": None,
         }
         for name, (o, i, has_bias) in sorted(shapes.items()):
-            pm = "folded" if (perm_mode == "down" and name == "down") else "identity"
+            pm = "identity"
+            if perm_mode in ("ssr", "down"):
+                pm = "folded" if name == "down" else ("ssr" if perm_mode == "ssr" else "identity")
             lp[name] = random_ternary_linear(gen, o, i, has_bias, perm_mode=pm, device=dev)
         layers.append(pad_gateup_blocks(lp))
     params["layers"] = _stack(layers)

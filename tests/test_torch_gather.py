@@ -1,0 +1,185 @@
+"""The SSR gather (K4) and the gather fused into the matmul (K3) of the port,
+held against the JAX package on the same numpy inputs (CPU).
+
+Tolerances: the gather copies values, so K4's plain version is held
+bit-exact against ``onehot_iota_pallas`` in interpret mode (a one-hot f32
+product is exact). K3's plain version against
+``ternary_matmul_pallas_igathered`` in interpret mode: 1e-5 of max|ref|,
+f32 summation order only. The scales are drawn so that mu - alpha is exact
+in bf16 (the Pallas kernel rounds that difference to the scale type), so no
+other rounding separates the two.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from pt2tpu.core import packing as jpack
+from pt2tpu.ops import gather as jgather
+from pt2tpu.ops import ternary_matmul as jtm
+from pt2tpu.ops.kernels import pallas_gather as jpg
+from pt2tpu.ops.kernels import pallas_ternary as jpt
+from pt2tpu.utils import checkpoint as jckpt
+from pt2tpu.utils import randmodel as jrand
+from pt2tpu_torch.ops import gather as tgather
+from pt2tpu_torch.ops import ternary_matmul as ttm
+from pt2tpu_torch.ops.kernels import gather as tkg
+from pt2tpu_torch.ops.kernels import ternary as tk
+from pt2tpu_torch.utils.checkpoint import params_from_numpy
+
+REL = 1e-5
+
+
+def _t(a):
+    """numpy/JAX array -> torch tensor (bf16 through its bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def ssr_perm(rng, m, K, interleave=False):
+    """A visit-lane perm over m features padded to K lanes with m; with
+    ``interleave`` the pad lanes sit among the valid ones (a ragged layer)."""
+    perm = np.concatenate([rng.permutation(m), np.full(K - m, m)]).astype(np.int32)
+    if interleave:
+        perm = rng.permutation(perm).astype(np.int32)
+    return perm
+
+
+def exact_scales(rng, nb, n):
+    """bf16 alpha = j / 256 and mu = k / 1024, so mu - alpha = (k - 4j) / 1024
+    with |k - 4j| < 256: exact in bf16."""
+    alpha = rng.integers(8, 40, size=(nb, n)) / 256.0
+    mu = rng.integers(-30, 31, size=(nb, n)) / 1024.0
+    return jnp.asarray(alpha, jnp.bfloat16), jnp.asarray(mu, jnp.bfloat16)
+
+
+def rand_layer(rng, K, n, bs=128):
+    T = rng.integers(-1, 2, size=(n, K)).astype(np.int8)
+    packed = np.asarray(jpack.pack_ternary(jnp.asarray(T), block_size=bs))
+    alpha, mu = exact_scales(rng, K // bs, n)
+    return packed, alpha, mu
+
+
+def bf16_values(rng, shape):
+    """f32 values that bf16 represents exactly (the kernels' operand type)."""
+    return np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16).astype(jnp.float32))
+
+
+def rel_err(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,K,interleave", [(256, 256, False), (200, 256, False),
+                                            (300, 512, True), (128, 2048, False)])
+def test_make_packed_gather_same_bytes(m, K, interleave):
+    perm = ssr_perm(np.random.default_rng(m + K), m, K, interleave)
+    want = jgather.make_packed_gather(jnp.asarray(perm), m)
+    got = tgather.make_packed_gather(torch.from_numpy(perm), m)
+    assert got.packed.dtype == torch.int8 and got.perm.dtype == torch.int32
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(got.perm.numpy(), np.asarray(want.perm))
+    assert got.out_lanes == want.out_lanes == K
+    assert got.in_features == m
+
+
+@pytest.mark.parametrize("rows,m,K", [(1, 256, 256), (5, 200, 384), (20, 384, 1024)])
+def test_gather_plain_bit_exact_vs_iota_interpret(rows, m, K):
+    rng = np.random.default_rng(rows)
+    perm = ssr_perm(rng, m, K, interleave=rows == 5)
+    x = rng.normal(size=(rows, m)).astype(np.float32)
+    D = -(-m // 128) * 128
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpg.onehot_iota_pallas(jnp.asarray(x), jnp.asarray(perm), D=D))
+    got = tkg.onehot_gather_plain(torch.from_numpy(x), torch.from_numpy(perm))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_plain_bit_exact_vs_iota_stacked_interpret():
+    rng = np.random.default_rng(11)
+    m, K, L = 256, 384, 3
+    perms = np.stack([ssr_perm(rng, m, K) for _ in range(L)])
+    x = rng.normal(size=(4, m)).astype(np.float32)
+    tperm = torch.from_numpy(perms)
+    for li in (0, 2):
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jpg.onehot_iota_pallas_stacked(
+                jnp.asarray(x), jnp.asarray(perms), li, D=m))
+        got = tkg.onehot_gather(torch.from_numpy(x), tperm[li])  # a view, as the port stacks
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_apply_matches_jax_index_form(dtype):
+    rng = np.random.default_rng(4)
+    m, K = 200, 256
+    perm = ssr_perm(rng, m, K, interleave=True)
+    x = bf16_values(rng, (2, 3, m))
+    jg = jgather.make_packed_gather(jnp.asarray(perm), m)
+    want = np.asarray(jgather.gather_apply(jg, jnp.asarray(x), impl="xla"))
+    tg = tgather.make_packed_gather(torch.from_numpy(perm), m)
+    for impl in ("auto", "plain"):
+        got = tgather.gather_apply(tg, torch.from_numpy(x).to(dtype), impl)
+        assert got.dtype == dtype and got.shape == (2, 3, K)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("B,m,K,n", [(1, 256, 256, 128), (4, 200, 256, 256), (16, 384, 512, 384)])
+def test_igathered_plain_matches_pallas_interpret(B, m, K, n, a8):
+    rng = np.random.default_rng(B + m + n)
+    packed, alpha, mu = rand_layer(rng, K, n)
+    perm = ssr_perm(rng, m, K, interleave=m == 200)
+    x = bf16_values(rng, (B, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered(
+            jnp.asarray(x), jnp.asarray(perm), jnp.asarray(packed), alpha, mu,
+            tile_n=128, blocks_per_step=1, a8=a8,
+        ))
+    got = tk.ternary_matmul_igathered_plain(
+        _t(x), _t(perm), _t(packed), _t(alpha), _t(mu), a8=a8).numpy()
+    assert got.shape == want.shape
+    assert rel_err(got, want) <= REL
+    # the wrapper on a CPU tensor is the plain version
+    wrapped = tk.ternary_matmul_igathered(_t(x), _t(perm), _t(packed), _t(alpha), _t(mu), a8=a8)
+    np.testing.assert_array_equal(wrapped.numpy(), got)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_igathered_plain_matches_pallas_stacked_interpret(a8):
+    rng = np.random.default_rng(21)
+    B, m, K, n, L = 3, 256, 256, 256, 2
+    layers = [rand_layer(rng, K, n) for _ in range(L)]
+    packed = np.stack([l[0] for l in layers])
+    alpha = jnp.stack([l[1] for l in layers])
+    mu = jnp.stack([l[2] for l in layers])
+    perms = np.stack([ssr_perm(rng, m, K) for _ in range(L)])
+    x = bf16_values(rng, (B, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered_stacked(
+            jnp.asarray(x), jnp.asarray(perms), jnp.asarray(packed), alpha, mu, 1,
+            tile_n=128, a8=a8,
+        ))
+    tp, ta, tm_, tperm = _t(packed), _t(alpha), _t(mu), _t(perms)
+    got = tk.ternary_matmul_igathered_plain(_t(x), tperm[1], tp[1], ta[1], tm_[1], a8=a8).numpy()
+    assert rel_err(got, want) <= REL
+
+
+def test_ssr_linear_apply_on_cpu_matches_jax():
+    """A full-SSR projection through the port's apply (gather then K1's plain
+    version on the CPU, as JAX takes its index gather off the TPU)."""
+    jl = jrand.random_ternary_linear(jax.random.PRNGKey(5), 256, 384, perm_mode="ssr")
+    flat, structure = {}, {}
+    jckpt._flatten("", {"p": jl}, flat, structure)
+    tl = params_from_numpy(structure, {k: np.asarray(v) for k, v in flat.items()}, "cpu")["p"]
+    assert tl.gather is not None and tl.gather.out_lanes == jl.gather.out_lanes
+    x = np.random.default_rng(5).normal(size=(3, 384)).astype(np.float32)
+    for impl, jimpl in (("auto", "xla"), ("a8", "a8"), ("plain", "xla")):
+        want = np.asarray(jtm.ternary_linear_apply(jl, jnp.asarray(x), impl=jimpl))
+        got = ttm.ternary_linear_apply(tl, torch.from_numpy(x), impl=impl).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

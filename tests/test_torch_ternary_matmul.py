@@ -197,13 +197,20 @@ def test_apply_rejects_bad_input():
 
 
 def test_no_silent_route_off_the_cpu():
-    """A non-CPU tensor never takes the plain version: K1 refuses devices it
-    has no kernel for, and an SSR gather raises naming the missing kernels."""
+    """A non-CPU tensor never takes the plain version: each kernel's wrapper
+    refuses devices it has no kernel for (an SSR layer reaches K4's)."""
     jp = jrand.random_ternary_linear(jax.random.PRNGKey(1), 128, 192, perm_mode="ssr")
     tp = to_port(jp)
     x = torch.zeros((1, 192), device="meta")
-    with pytest.raises(NotImplementedError, match="K3/K4"):
+    with pytest.raises(ValueError, match="no K4"):
         ttm.ternary_linear_apply(tp, x)
+    meta = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="no K3"):
+        tk.ternary_matmul_igathered(meta(1, 192), meta(256, dt=torch.int32),
+                                    meta(64, 128, dt=torch.int8), meta(2, 128), meta(2, 128))
+    with pytest.raises(ValueError, match="no K2"):
+        tk.ternary_mlp(meta(1, 256), None, meta(64, 512, dt=torch.int8), meta(2, 512),
+                       meta(2, 512), meta(64, 256, dt=torch.int8), meta(2, 256), meta(2, 256), 256)
     with pytest.raises(ValueError, match="no K1"):
         tk.ternary_matmul(torch.zeros((1, 256), device="meta"),
                           torch.zeros((64, 128), dtype=torch.int8, device="meta"),
