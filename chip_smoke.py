@@ -30,7 +30,23 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      without its gather and K1 falls by 2 launches per layer and step;
   6. times K1 at the llama-2-7b shapes and K4, K3 and K2 at the llama-3-8b
      shapes (B = 1 and 16; K4 also 512 rows) with cold weights, beside their
-     plain versions, a PyTorch yardstick and the memory bound.
+     plain versions, a PyTorch yardstick and the memory bound;
+  7. (the serving slice) holds K7, the decode attention, against its plain
+     version at llama-3-8b heads (32 / 8 KV) and llama-2-7b heads (32 / 32),
+     hd 128, B 1/4/8, M 256 and 2048, ragged valid lengths, bf16 and int8
+     KV; runs a 2-layer llama-3-8b ServeEngine ("down" layout, bf16 and int8
+     KV) with every kernel call held against its plain version; drives the
+     32-layer llama-3-8b "down" ServeEngine (8 slots, max_len 2048, 16
+     greedy requests with prompts of 64-512 ids and max_new 32-64) with bf16
+     and int8 KV at quantum 1 and 8, where K7's launches must be exactly 32
+     per decode step, plus a sampled pair of runs that must agree token for
+     token; profiles one engine decode step and times it with K7 on and off;
+     holds every answer of both KV types to TOKEN_TOL under a teacher-forced
+     plain forward of prompt + answer (int8: through an int8 cache) and runs
+     the int8 requests again with K7 off; serves 8 concurrent POSTs through
+     the HTTP ServingServer on 127.0.0.1, each answer held the same way; and
+     times K7 at B 8, M 2048 beside its plain version,
+     scaled_dot_product_attention and its bytes bound.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -72,6 +88,11 @@ TOKEN_TOL = 2e-2  # greedy pick must be a max of the plain logits within 2% of m
 # step. The kernels themselves are held per call at KERNEL_TOL on the route.
 A8_TOLS = (5e-2, 5e-2)
 COLD_BYTES = 150e6  # timing operands rotate over more than the 50 MB L2
+# K7 vs plain: the kernel rounds the unnormalised probabilities to bf16
+# relative to each chunk's maximum, the plain version relative to the row's
+# global maximum, so a p may land on the neighbouring bf16.
+ATTN_TOL = 1e-2
+ENGINE_M = 2048  # the engine's max_len (the JAX package's default)
 
 
 def fail(msg: str) -> None:
@@ -149,6 +170,39 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label):
     return out
 
 
+def profile_engine_step(eng, label):
+    """One engine decode step (quantum 1, every slot active) under
+    torch.profiler: device time by kernel and K7's share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and dt > 0:
+            rows.append((dt / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    k7_ms = sum(r[0] for r in rows if "decode_attention" in r[2])
+    out = {"device_ms": device_ms, "k7_ms": k7_ms,
+           "k7_share": k7_ms / device_ms if device_ms else 0.0,
+           "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:8]]}
+    print(f"one engine decode step, {label} (B=8, M=2048): device time {device_ms:.2f} ms, "
+          f"K7 {k7_ms:.3f} ms = {100 * out['k7_share']:.1f} % (profiler)")
+    for t in out["top"]:
+        print(f"  {t['ms']:8.3f} ms  x{t['count']:4d}  {t['name']}")
+    if not rows:
+        print("  torch.profiler saw no device time")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -158,6 +212,7 @@ def main() -> None:
     try:
         from pt2tpu_torch.models.registry import get_config
         from pt2tpu_torch.ops.kernels import _build
+        from pt2tpu_torch.ops.kernels import attention as k7
         from pt2tpu_torch.ops.kernels import gather as k4
         from pt2tpu_torch.ops.kernels import ternary as k1
     except ImportError as e:
@@ -177,10 +232,11 @@ def main() -> None:
     bw, bf16_peak = card_peaks(record["device"])
     t_start = time.perf_counter()
 
-    # launch counters of every kernel wrapper: K1, K3, K2, K4
+    # launch counters of every kernel wrapper: K1, K3, K2, K4, K7
     wrappers = {"ternary_matmul": k1.ternary_matmul,
                 "ternary_matmul_igathered": k1.ternary_matmul_igathered,
-                "ternary_mlp": k1.ternary_mlp, "onehot_gather": k4.onehot_gather}
+                "ternary_mlp": k1.ternary_mlp, "onehot_gather": k4.onehot_gather,
+                "decode_attention": k7.decode_attention}
 
     def zero_counts():
         for w in wrappers.values():
@@ -191,7 +247,7 @@ def main() -> None:
 
     # ---- build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
-    sources = ["ternary_matmul", "ternary_mlp", "onehot_gather"]
+    sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -333,7 +389,39 @@ def main() -> None:
           f"{errs['ternary_matmul_igathered']:.3e}); K2 vs plain: {nchecks['ternary_mlp']} checks "
           f"within {MLP_TOL} x max|ref| (max|err| {errs['ternary_mlp']:.3e})")
 
+    # ---- 2b. K7 vs its plain version: llama-3-8b and llama-2-7b heads,
+    # B 1/4/8, M 256 and the engine's 2048, ragged valid lengths
+    from pt2tpu_torch.serve.kvcache import quantize_i8
+
+    def attn_inputs(B, M, H, Hkv, quant, ragged=True, hd=128):
+        q = torch.randn((B, 1, H, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
+        v = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
+        lens = (torch.randint(1, M + 1, (B,), generator=g, device=dev) if ragged
+                else torch.full((B,), M, device=dev))
+        valid = torch.arange(M, device=dev)[None, :] < lens[:, None]
+        if not quant:
+            return q, k.bfloat16(), v.bfloat16(), valid, None, None
+        (k8, ks), (v8, vs) = quantize_i8(k), quantize_i8(v)
+        return q, k8, v8, valid, ks, vs
+
+    errs["decode_attention"] = 0.0
+    nchecks["decode_attention"] = 0
+    attn_scale = 1.0 / math.sqrt(128)
+    for H, Hkv in ((32, 8), (32, 32)):
+        for B in (1, 4, 8):
+            for M in (256, ENGINE_M):
+                for quant in (False, True):
+                    a = attn_inputs(B, M, H, Hkv, quant)
+                    held("decode_attention", f"K7 H={H} Hkv={Hkv} B={B} M={M} int8={quant}",
+                         k7.decode_attention(*a[:4], attn_scale, *a[4:]),
+                         k7.decode_attention_plain(*a[:4], attn_scale, *a[4:]), ATTN_TOL)
+                    del a
+    print(f"K7 vs plain: {nchecks['decode_attention']} checks within {ATTN_TOL} x max|ref| "
+          f"(max|err| {errs['decode_attention']:.3e})")
+
     # ---- 3. 2-layer models at full width through the kernels vs their reference
+    import pt2tpu_torch.models.common as tcommon
     import pt2tpu_torch.ops.gather as tgather
     import pt2tpu_torch.ops.ternary_matmul as ttm
 
@@ -344,7 +432,8 @@ def main() -> None:
     routed = {"ternary_matmul": (ttm, k1_plain, KERNEL_TOL),
               "ternary_matmul_igathered": (ttm, k1.ternary_matmul_igathered_plain, KERNEL_TOL),
               "ternary_mlp": (ttm, k1.ternary_mlp_plain, MLP_TOL),
-              "onehot_gather": (tgather, k4.onehot_gather_plain, 0.0)}
+              "onehot_gather": (tgather, k4.onehot_gather_plain, 0.0),
+              "decode_attention": (tcommon, k7.decode_attention_plain, ATTN_TOL)}
     per_call = dict.fromkeys(routed, 0)
 
     @contextlib.contextmanager
@@ -458,9 +547,50 @@ def main() -> None:
     record["model2"] = two_layer_check("llama-2-7b", "down", 1)
     c0 = counts()
     record["model2_8b_ssr"] = two_layer_check("llama-3-8b", "ssr", 3, ("auto", "a8"))
-    used = {k: v - c0[k] for k, v in counts().items()}
+    used = {k: v - c0[k] for k, v in counts().items() if k != "decode_attention"}
     if not all(used.values()):
         fail(f"2-layer llama-3-8b ssr did not launch every kernel: {used}")
+
+    # ---- 3b. a 2-layer llama-3-8b ServeEngine ("down" layout, 8 slots, max_len
+    # 2048, quantum 4): every K1 / K2 / K7 call held against its plain version
+    from pt2tpu_torch.serve.engine import ServeEngine, _bucket
+    from pt2tpu_torch.serve.sampling import SamplingConfig
+
+    gh = torch.Generator().manual_seed(7)  # host-side lengths
+
+    def host_ints(lo, hi, n):
+        return torch.randint(lo, hi + 1, (n,), generator=gh).tolist()
+
+    def make_prompts(cfg_, lens):
+        return [torch.randint(0, cfg_.vocab_size, (n,), generator=g, device=dev).cpu().numpy()
+                for n in lens]
+
+    cfg2 = get_config("llama-3-8b").with_(n_layers=2)
+    params2 = random_ternary_params(cfg2, seed=6, perm_mode="down", device=dev)
+    prompts2, news2 = make_prompts(cfg2, host_ints(20, 300, 12)), host_ints(8, 24, 12)
+    record["engine2"] = {}
+    for kvq in (False, True):
+        for k in per_call:
+            per_call[k] = 0
+        eng = ServeEngine(cfg2, params2, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
+                          decode_quantum=4)
+        reqs = [eng.submit(p, m) for p, m in zip(prompts2, news2)]
+        with swapped(each_call_checked):
+            eng.run()
+        checked = {k: v for k, v in per_call.items() if v}
+        if per_call["decode_attention"] != cfg2.n_layers * eng.stats["steps"]:
+            fail(f"2-layer engine int8={kvq}: K7 held {per_call['decode_attention']} times for "
+                 f"{eng.stats['steps']} decode steps")
+        if not all(r.done and len(r.out) == m and all(0 <= t < cfg2.vocab_size for t in r.out)
+                   for r, m in zip(reqs, news2)):
+            fail(f"2-layer engine int8={kvq}: a request did not finish with max_new valid tokens")
+        print(f"2-layer llama-3-8b ServeEngine (down, int8 KV={kvq}, 12 requests, "
+              f"{eng.stats['steps']} decode steps): every kernel call held against its plain "
+              f"version on the engine's activations {checked}")
+        record["engine2"]["int8" if kvq else "bf16"] = {"calls_checked": checked,
+                                                        "steps": eng.stats["steps"]}
+    del params2, eng
+    torch.cuda.empty_cache()
 
     # ---- 4./5. the main paths: 4 prompts x 128 ids, 32 new tokens
     B, Lp, new = 4, 128, 32
@@ -533,16 +663,15 @@ def main() -> None:
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     want_ssr = {
-        "auto": dict(ternary_matmul=4 * L, ternary_matmul_igathered=2 * L * steps,
+        "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_igathered=2 * L * steps,
                      ternary_mlp=L * steps, onehot_gather=3 * L),
-        "a8": dict(ternary_matmul=4 * L + L * steps, ternary_matmul_igathered=3 * L * steps,
-                   ternary_mlp=0, onehot_gather=3 * L),
+        "a8": dict(none, ternary_matmul=4 * L + L * steps,
+                   ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
     }
     runs = drive(cfg, params, "llama-3-8b ssr", ("auto", "a8"), want_ssr.get, prompts)
     record["main_path_8b_ssr"] = runs
-    for k in wrappers:
-        if k != "ternary_matmul":
-            main_launches[k] = sum(r["launches"][k] for r in runs.values())
+    for k in ("ternary_matmul_igathered", "ternary_mlp", "onehot_gather"):
+        main_launches[k] = sum(r["launches"][k] for r in runs.values())
     record["decode_step_8b_ssr"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                        "llama-3-8b ssr")
     del params
@@ -554,6 +683,234 @@ def main() -> None:
     want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_mlp=L * steps)
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
+
+    # ---- 5b. this slice's main path: the ServeEngine over the same 32-layer
+    # llama-3-8b "down" model, 8 slots, max_len 2048, 16 greedy requests
+    eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
+    eng_news = host_ints(32, 64, 16)
+
+    def engine_want(eng, prompts_, k7_on=True):
+        """Launches the routing implies: each admission prefills its bucket
+        (qkv, o through K1; the MLP through K2 at <= 64 rows, else K1 x2);
+        each decode step K1 x2 + K2 + K7 per layer (K7 none when it is off)."""
+        st = eng.stats["steps"]
+        k1n, k2n = 2 * L * st, L * st
+        for p in prompts_:
+            Lb = min(_bucket(len(p)), ENGINE_M)
+            k1n += 2 * L + (2 * L if Lb > 64 else 0)
+            k2n += L if Lb <= 64 else 0
+        return dict(none, ternary_matmul=k1n, ternary_mlp=k2n,
+                    decode_attention=L * st if k7_on else 0)
+
+    def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True):
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
+                          decode_quantum=quantum, seed=seed)
+        reqs = [eng.submit(p, m, sampling=sampling) for p, m in zip(prompts_, news_)]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = counts(), engine_want(eng, prompts_, k7_on)
+        if got != want:
+            fail(f"engine {label}: launches {got}, want {want}")
+        if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
+                   for r, m in zip(reqs, news_)):
+            fail(f"engine {label}: a request did not finish with max_new valid tokens")
+        st = dict(eng.stats)
+        n_tok = sum(len(r.out) for r in reqs)
+        res = {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+               "decode_tok_s": st["tokens"] / st["t_decode_s"], "steps": st["steps"],
+               "t_admit_s": st["t_admit_s"], "t_decode_s": st["t_decode_s"], "launches": got}
+        print(f"engine {label}: {len(reqs)} requests, {n_tok} tokens in {wall:.2f} s "
+              f"({res['tok_s']:.1f} tok/s; decode {res['decode_tok_s']:.1f} tok/s over "
+              f"t_decode_s {st['t_decode_s']:.2f} s, t_admit_s {st['t_admit_s']:.2f} s), "
+              f"{st['steps']} decode steps, launches {got} on {record['smi']}")
+        return res, [r.out for r in reqs]
+
+    record["engine"] = {}
+    outs = {}
+    k7_main = 0
+    for kvq in (False, True):
+        for quantum in (1, 8):
+            label = f"llama-3-8b down {'int8' if kvq else 'bf16'} KV quantum {quantum}"
+            res, outs[(kvq, quantum)] = run_engine(label, kvq, quantum, eng_prompts, eng_news)
+            record["engine"][label] = res
+            k7_main += res["launches"]["decode_attention"]
+        if outs[(kvq, 1)] != outs[(kvq, 8)]:
+            fail(f"engine int8={kvq}: quantum 8 tokens differ from quantum 1")
+    main_launches["decode_attention"] = k7_main
+    print("engine: quantum 8 token-identical to quantum 1 (bf16 and int8 KV)")
+
+    from pt2tpu_torch.models import decoder as tdec
+    from pt2tpu_torch.models.common import causal_mask
+
+    def set_k7(on):
+        tcommon.DECODE_ATTN_KERNEL = tcommon.INT8_DECODE_ATTN_KERNEL = on
+
+    def teacher_forced(prompt, ids, kvq):
+        """f32 logits at the answer's positions from one forward of prompt +
+        answer[:-1] through the plain routes (no kernel launches); with kvq
+        every layer writes an int8 cache and attends over its raw codes and
+        scales, as the engine's layers do."""
+        toks = torch.as_tensor(list(prompt) + list(ids[:-1]), device=dev)[None]
+        T = toks.shape[1]
+        with torch.inference_mode():
+            if not kvq:
+                logits = tdec.forward(cfg, params, toks, impl="plain")
+            else:
+                cache = init_cache(cfg, 1, T, quantized=True, device=dev)
+                h = tdec.embed_tokens(cfg, params, toks)
+                cos, sin = tdec.pos_tables(cfg, T, device=dev)
+                mask = causal_mask(T, T, device=dev)
+                for li in range(cfg.n_layers):
+                    h = tdec.layer_forward(cfg, tdec.layer_view(params["layers"], li), h, cos,
+                                           sin, mask, cache=cache, cache_pos=0, impl="plain",
+                                           layer_idx=li)
+                logits = tdec.unembed(cfg, params, h)
+        return logits[0, len(prompt) - 1 :].float()
+
+    def answers_held(label, prompts_, answers_, kvq, rivals=None):
+        """Each answer's greedy picks held to TOKEN_TOL under its teacher-forced
+        reference. With ``rivals`` (other streams for the same prompts), where
+        a rival first differs from the answer: the reference's logit margin
+        between the two picks there, over max|logit|. Returns (worst pick gap,
+        margins)."""
+        c0 = counts()
+        worst, margins = 0.0, []
+        for i, (p, ids) in enumerate(zip(prompts_, answers_)):
+            lf = teacher_forced(p, ids, kvq)
+            top = lf.abs().max(dim=1).values
+            picked = lf.gather(1, torch.as_tensor(ids, device=dev)[:, None])[:, 0]
+            worst = max(worst, ((lf.max(dim=1).values - picked) / top).max().item())
+            if rivals is not None and rivals[i] != ids:
+                j = next(n for n, (a, b) in enumerate(zip(ids, rivals[i])) if a != b)
+                margins.append(abs(lf[j, ids[j]] - lf[j, rivals[i][j]]).item() / top[j].item())
+            del lf
+        if counts() != c0:
+            fail(f"{label}: the teacher-forced reference launched a kernel")
+        if worst > TOKEN_TOL:
+            fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
+                 f"max|logit| (> {TOKEN_TOL})")
+        return worst, margins
+
+    # every engine answer (quantum 1) held under its teacher-forced reference:
+    # bf16 KV under the plain forward, int8 KV under a forward through an int8
+    # cache; where the int8 stream leaves the bf16 one, the bf16 reference's
+    # margin between the two picks there
+    record["engine_answers"] = {}
+    for kvq in (False, True):
+        kv = "int8" if kvq else "bf16"
+        worst, margins = answers_held(f"engine {kv} KV answers", eng_prompts, outs[(kvq, 1)], kvq,
+                                      rivals=outs[(not kvq, 1)])
+        record["engine_answers"][kv] = {"worst_pick_gap": worst, "first_split_margins": margins}
+        print(f"engine {kv} KV: every pick of 16 answers within {worst:.2e} of the "
+              f"teacher-forced {'int8-cache ' if kvq else ''}plain max (<= {TOKEN_TOL}); "
+              f"{16 - len(margins)}/16 streams equal to {'bf16' if kvq else 'int8'} KV's, "
+              f"where they split the reference margin between the two picks is "
+              f"{', '.join(f'{m:.2e}' for m in margins) or '-'} of max|logit|")
+
+    # the int8 requests again with K7 off (the plain int8 route): the same
+    # cache, attention without the kernel's int8 query
+    set_k7(False)
+    res, outs_off = run_engine("llama-3-8b down int8 KV quantum 8, K7 off (plain route)", True, 8,
+                               eng_prompts, eng_news, k7_on=False)
+    set_k7(True)
+    same_off = sum(a == b for a, b in zip(outs[(True, 8)], outs_off))
+    worst_off, _ = answers_held("engine int8 KV answers, K7 off", eng_prompts, outs_off, True)
+    res.update(same_as_k7=same_off, worst_pick_gap=worst_off)
+    record["engine"]["llama-3-8b down int8 KV quantum 8, K7 off"] = res
+    print(f"engine int8 KV, K7 off: {same_off}/16 streams equal to K7's; every pick within "
+          f"{worst_off:.2e} of the teacher-forced int8-cache plain max")
+    sc = SamplingConfig(temperature=0.8, top_k=50, top_p=0.95)
+    pair = [run_engine(f"llama-3-8b down bf16 KV quantum 8 sampled #{i}", False, 8,
+                       eng_prompts[:8], [32] * 8, sampling=sc, seed=1234)[1] for i in (1, 2)]
+    if pair[0] != pair[1]:
+        fail("two sampled engine runs with the same seed differ")
+    print("engine: two sampled runs (T 0.8, top-k 50, top-p 0.95, seed 1234) agree token for token")
+    record["engine_sampled_pair_equal"] = True
+
+    record["engine_step"] = {}
+    for kvq in (False, True):
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
+        for p in eng_prompts[:8]:
+            eng.submit(p, 1024)
+        eng.step()  # admits all 8; one decode step
+        eng.step()
+
+        def step_ms(n=6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng.step()  # ends in the fetch of the step's tokens
+            return (time.perf_counter() - t0) / n * 1e3
+
+        c0 = counts()["decode_attention"]
+        on1 = step_ms()
+        set_k7(False)
+        c1 = counts()["decode_attention"]
+        off1, off2 = step_ms(), step_ms()
+        if counts()["decode_attention"] != c1:
+            fail("the plain attention route launched K7")
+        set_k7(True)
+        on2 = step_ms()
+        if counts()["decode_attention"] - c0 != 12 * L:
+            fail("the engine's decode steps did not launch K7 once per layer")
+        valid = float(eng.positions.mean() + 1) / ENGINE_M
+        kv = "int8" if kvq else "bf16"
+        prof = profile_engine_step(eng, f"llama-3-8b down engine, {kv} KV")
+        rec = {"k7_on_ms": [on1, on2], "plain_ms": [off1, off2], "valid_share": valid, **prof}
+        record["engine_step"][kv] = rec
+        print(f"engine decode step, {kv} KV, 8 rows at positions {int(eng.positions.min())}-"
+              f"{int(eng.positions.max())} of {ENGINE_M} ({100 * valid:.1f} % of the slots "
+              f"valid): K7 on {on1:.2f} / {on2:.2f} ms, plain route {off1:.2f} / {off2:.2f} ms "
+              f"(on, off, off, on) on {record['smi']}")
+        del eng
+        torch.cuda.empty_cache()
+
+    # ---- 5c. the HTTP ServingServer over the same model: 8 concurrent POSTs,
+    # each answer held to TOKEN_TOL under a teacher-forced plain forward
+    import threading
+    import urllib.request
+
+    from pt2tpu_torch.serve.server import ServingServer
+
+    srv_prompts = make_prompts(cfg, host_ints(64, 256, 8))
+    srv_news = host_ints(16, 32, 8)
+    answers = [None] * 8
+    srv = ServingServer(cfg, params, host="127.0.0.1", port=0, max_batch=8,
+                        max_len=ENGINE_M).start()
+
+    def post(i):
+        body = json.dumps({"prompt_ids": srv_prompts[i].tolist(), "max_new": srv_news[i]})
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/generate",
+                                     data=body.encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answers[i] = (r.status, json.loads(r.read()))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=320)
+        srv_wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.stop()
+    if srv.error is not None or health["status"] != "ok":
+        fail(f"the server's engine failed: {srv.error}")
+    for i, ans in enumerate(answers):
+        if ans is None or ans[0] != 200 or len(ans[1]["ids"]) != srv_news[i]:
+            fail(f"server request {i}: answer {ans}")
+    worst, _ = answers_held("server answers", srv_prompts, [a[1]["ids"] for a in answers], False)
+    record["server"] = {"requests": 8, "wall_s": srv_wall, "worst_pick_gap": worst,
+                        "stats": health["stats"]}
+    print(f"ServingServer: 8 concurrent POSTs answered in {srv_wall:.2f} s; every pick within "
+          f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL})")
     del params
     torch.cuda.empty_cache()
     record["paths_s"] = time.perf_counter() - t_start
@@ -710,8 +1067,74 @@ def main() -> None:
         del xs, outs
     record["k4_timing"] = k4_detail
 
+    # K7 at the engine's point: B 8, M 2048, llama-3-8b heads, every slot
+    # valid (so the function needs the whole cache); C entry back to back,
+    # cache rotated over >= 150 MB. Library: scaled_dot_product_attention on
+    # the (B, heads, M, hd) layout it wants, made outside the timed call
+    # (int8: dequantise, then SDPA).
+    import torch.nn.functional as F
+
+    attn_lib = k7._kernel_lib()
+    B7, M7, H7, Hkv7, hd7 = 8, ENGINE_M, 32, 8, 128
+    chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7)
+    nchunk = -(-M7 // chunk)
+    part_acc = torch.empty((B7, H7, nchunk, hd7), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B7, H7, nchunk, 2), dtype=torch.float32, device=dev)
+    out7 = torch.empty((B7, 1, H7, hd7), dtype=torch.bfloat16, device=dev)
+    k7_detail = []
+    for quant in (False, True):
+        kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * (1 if quant else 2) + (
+            2 * B7 * M7 * Hkv7 * 4 if quant else 0)
+        copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
+        sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False) for _ in range(copies)]
+        q7 = sets[0][0]
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+        def kern(i):
+            _, kk, vv, vd, ks_, vs_ = sets[i % copies]
+            ok(attn_lib.pt2_decode_attention(
+                q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(),
+                ptr(ks_), ptr(vs_), part_acc.data_ptr(), part_ml.data_ptr(), out7.data_ptr(),
+                attn_scale, B7, M7, H7, Hkv7, hd7, chunk, int(quant), dix, stream), "K7")
+
+        ms = time_ms(kern, 50)
+        wrapper_ms = time_ms(lambda i: k7.decode_attention(
+            q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 50)
+        plain_ms = time_ms(lambda i: k7.decode_attention_plain(
+            q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 3)
+        qh = q7.transpose(1, 2).contiguous()  # (B, H, 1, hd)
+        lib_sets = []
+        for _, kk, vv, vd, ks_, vs_ in sets:
+            heads_first = lambda t: None if t is None else t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+            lib_sets.append((heads_first(kk), heads_first(vv), vd[:, None, None, :],
+                             heads_first(ks_), heads_first(vs_)))
+
+        def library(i):
+            kh, vh, mask, ksh, vsh = lib_sets[i % copies]
+            if quant:
+                kh, vh = (kh.float() * ksh).bfloat16(), (vh.float() * vsh).bfloat16()
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=attn_scale,
+                                                  enable_gqa=True)
+
+        lib_ms = time_ms(library, 20)
+        # the yardstick computes the same function: within K7's tolerance of plain
+        want = k7.decode_attention_plain(q7, *sets[0][1:4], attn_scale, *sets[0][4:]).float()
+        got = library(0).transpose(1, 2).float()
+        if not (got - want).abs().max().item() <= ATTN_TOL * want.abs().max().item():
+            fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant})")
+        nbytes = kv_bytes + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
+        d = row("K7", "int8" if quant else "bf16", B7, ms, plain_ms, lib_ms, nbytes,
+                4.0 * B7 * H7 * M7 * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7)
+        d["wrapper_ms"] = wrapper_ms
+        print(f"K7 {'int8' if quant else 'bf16'}: whole wrapper (checks, scratch) "
+              f"{wrapper_ms * 1e3:.1f} us per call")
+        k7_detail.append(d)
+        del sets, lib_sets
+    record["k7_timing"] = k7_detail
+
     # ---- the record: per kernel, one layer of one step of its main path
-    # (K1 / K3 / K2 at B = 1 decode; K4 at the 512-row prefill, 3 gathers)
+    # (K1 / K3 / K2 at B = 1 decode; K4 at the 512-row prefill, 3 gathers;
+    # K7 at the engine's B = 8, M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -735,6 +1158,9 @@ def main() -> None:
         entry("onehot_gather", "pt2tpu_torch/csrc/onehot_gather.cu",
               "pt2tpu/ops/kernels/pallas_gather.py:239",
               [d for d in k4_detail if d["B"] == 512], errs["onehot_gather"], mult=3),
+        entry("decode_attention", "pt2tpu_torch/csrc/decode_attention.cu",
+              "pt2tpu/ops/kernels/pallas_attention.py:249",
+              [d for d in k7_detail if d["shape"] == "bf16"], errs["decode_attention"]),
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start

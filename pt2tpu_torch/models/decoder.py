@@ -164,18 +164,20 @@ def layer_forward(
     cfg: ModelConfig,
     lp: Dict[str, Any],
     x: torch.Tensor,  # (B, L, D)
-    cos: torch.Tensor,  # (L, hd/2) tables for these positions
+    cos: torch.Tensor,  # (L, hd/2) or per-row (B, L, hd/2) tables
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],  # (L, Lkv) additive
     cache=None,  # serve.kvcache.KVCache, updated in place at layer_idx
-    cache_pos: Optional[int] = None,
+    cache_pos=None,  # int, or a (B,) tensor of per-row positions
     kv_valid: Optional[torch.Tensor] = None,  # (B, M) bool
     impl: str = "auto",
     layer_idx: Optional[int] = None,
 ) -> torch.Tensor:
     """One decoder layer. With ``cache`` the new k/v are written at
-    ``cache_pos`` of layer ``layer_idx`` and attention runs over the whole
-    cache; otherwise over the local sequence."""
+    ``cache_pos`` of layer ``layer_idx`` (one position for all rows, or a
+    position per row) and attention runs over the whole cache; an int8
+    cache hands its raw values and scales to attention. Without a cache,
+    attention runs over the local sequence."""
     B, L, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
 
@@ -194,9 +196,17 @@ def layer_forward(
     k = apply_rope(k, cos, sin)
 
     if cache is not None:
-        cache.write(layer_idx, k, v, cache_pos)
-        ck, cv = cache.read(layer_idx, q.dtype)
-        ctx = attention(q, ck, cv, mask, kv_valid, scale=cfg.attn_scale)
+        if isinstance(cache_pos, torch.Tensor):
+            cache.write_rows(layer_idx, k, v, cache_pos)
+        else:
+            cache.write(layer_idx, k, v, cache_pos)
+        if cache.quantized:
+            ck, cv, ks, vs = cache.read_raw(layer_idx)
+            ctx = attention(q, ck, cv, mask, kv_valid, scale=cfg.attn_scale,
+                            k_scale=ks, v_scale=vs)
+        else:
+            ck, cv = cache.read(layer_idx, q.dtype)
+            ctx = attention(q, ck, cv, mask, kv_valid, scale=cfg.attn_scale)
     else:
         ctx = attention(q, k, v, mask, scale=cfg.attn_scale)
 

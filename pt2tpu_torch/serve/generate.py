@@ -94,7 +94,8 @@ def greedy_generate(
     prefill_chunk: Optional[int] = None,  # None = auto; 0 = whole-prompt
 ) -> torch.Tensor:
     """Greedy decode ``max_new`` tokens after ``prompt`` on the device that
-    holds ``params``. Returns (B, max_new) int32 token ids."""
+    holds ``params``, with a bf16 or (``kv_quant``) int8 KV cache. Returns
+    (B, max_new) int32 token ids."""
     dec.check_supported(cfg)
     dev = params["embed"].device
     prompt = torch.as_tensor(prompt, device=dev).long()

@@ -68,6 +68,7 @@ def test_import_needs_no_cuda_or_triton():
     code = (
         "import sys, torch\n"
         "import pt2tpu_torch, pt2tpu_torch.cli, pt2tpu_torch.ops.kernels.ternary\n"
+        "import pt2tpu_torch.serve, pt2tpu_torch.ops.kernels.attention\n"
         "assert 'triton' not in sys.modules\n"
         "assert not torch.cuda.is_initialized()\n"
         "print('ok')\n"

@@ -1,4 +1,4 @@
-"""K1-K4 on the card against their plain versions. Needs an NVIDIA GPU;
+"""K1-K4 and K7 on the card against their plain versions. Needs an NVIDIA GPU;
 every test skips without one. This file imports neither JAX nor the JAX
 package, so on a machine without JAX it runs as
 
@@ -9,7 +9,9 @@ accumulate in f32 in different orders, so they agree to 1e-4 of the
 output's largest magnitude. K4 copies values: bit-exact. K2 rounds mid =
 silu(gate) * up to bf16 as its plain version does, but gate and up differ
 in their last f32 bits between the two, so a few mid values round to the
-neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3."""
+neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
+unnormalised probabilities to bf16 relative to each chunk's maximum, its
+plain version relative to the row's maximum: 1e-2 of max|out|."""
 
 import pytest
 import torch
@@ -17,13 +19,18 @@ import torch
 from pt2tpu_torch.core.packing import pack_ternary
 from pt2tpu_torch.models import decoder as tdec
 from pt2tpu_torch.models.registry import get_config
+from pt2tpu_torch.models import common as tcommon
+from pt2tpu_torch.ops.kernels import attention as tka
 from pt2tpu_torch.ops.kernels import gather as tkg
 from pt2tpu_torch.ops.kernels import ternary as tk
+from pt2tpu_torch.serve.engine import ServeEngine
 from pt2tpu_torch.serve.generate import greedy_generate
+from pt2tpu_torch.serve.kvcache import quantize_i8
 from pt2tpu_torch.utils.randmodel import random_ternary_params
 
 TOL = 1e-4
 MLP_TOL = 1e-3
+ATTN_TOL = 1e-2
 
 
 @pytest.fixture
@@ -255,3 +262,114 @@ def test_ssr_model_routes_through_k2_k3_k4(cuda_device, layout):
     else:  # prefill K1 x4; each step K1 x4
         want = [4 * L + 2 * 4 * L, 0, 0, 0]
     assert [b - a for a, b in zip(c1, c2)] == want
+
+
+def _attn_inputs(g, dev, B, M, H, Hkv, hd, quant):
+    """q, k, v, ragged kv_valid (every row keeps at least one slot) and, for
+    int8, the cache quantised as the KV cache quantises it."""
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
+    v = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
+    lens = torch.randint(1, M + 1, (B,), generator=g, device=dev)
+    valid = torch.arange(M, device=dev)[None, :] < lens[:, None]
+    if not quant:
+        return q, k.bfloat16(), v.bfloat16(), valid, None, None
+    (k8, ks), (v8, vs) = quantize_i8(k), quantize_i8(v)
+    return q, k8, v8, valid, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,M,H,Hkv,hd", [
+    (1, 256, 32, 8, 128), (4, 2048, 32, 8, 128), (8, 2048, 32, 32, 128), (3, 384, 8, 1, 128),
+    (2, 200, 16, 1, 128), (2, 640, 8, 4, 256), (5, 1000, 12, 4, 128),
+])
+def test_decode_attention_kernel_matches_plain(cuda_device, B, M, H, Hkv, hd, quant):
+    g = torch.Generator(device=cuda_device).manual_seed(B * M + H)
+    q, k, v, valid, ks, vs = _attn_inputs(g, cuda_device, B, M, H, Hkv, hd, quant)
+    before = tka.decode_attention.launches
+    got = tka.decode_attention(q, k, v, valid, 0.0883883, ks, vs)
+    torch.cuda.synchronize()
+    assert tka.decode_attention.launches == before + 1
+    want = tka.decode_attention_plain(q, k, v, valid, 0.0883883, ks, vs)
+    assert got.shape == want.shape == (B, 1, H, hd) and got.dtype == torch.bfloat16
+    assert _rel(got.float(), want.float()) <= ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_decode_attention_all_invalid_row_is_zero(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, valid, _, _ = _attn_inputs(g, cuda_device, 2, 256, 8, 2, 128, False)
+    valid[1] = False
+    got = tka.decode_attention(q, k, v, valid, 0.1)
+    assert got[1].abs().max().item() == 0.0 and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_decode_attention_wrapper_rejects(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, valid, _, _ = _attn_inputs(g, cuda_device, 2, 256, 8, 2, 128, False)
+    with pytest.raises(TypeError):  # f32 q
+        tka.decode_attention(q.float(), k, v, valid, 0.1)
+    with pytest.raises(ValueError):  # hd 64
+        tka.decode_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                             v[..., :64].contiguous(), valid, 0.1)
+    with pytest.raises(ValueError):  # one scale only
+        tka.decode_attention(q, k.to(torch.int8), v.to(torch.int8), valid, 0.1,
+                             torch.ones((2, 256, 2, 1), device=cuda_device), None)
+    with pytest.raises(ValueError):  # a non-contiguous cache
+        tka.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_engine_decode_routes_through_k7(cuda_device, kv_quant, monkeypatch):
+    """A 128-wide-head model on an engine of 128 positions (K7's shapes):
+    every decode step launches K7 once per layer, and every call agrees with
+    its plain version on the engine's own activations."""
+    cfg = get_config("tiny-llama").with_(dim=256, n_heads=2, n_kv_heads=1, intermediate=1024)
+    params = random_ternary_params(cfg, seed=6, perm_mode="down", device=cuda_device)
+    kernel = tka.decode_attention
+    calls = []
+
+    def held(*args, **kw):
+        got, want = kernel(*args, **kw), tka.decode_attention_plain(*args, **kw)
+        calls.append(_rel(got.float(), want.float()))
+        return got
+
+    monkeypatch.setattr(tcommon, "decode_attention", held)
+    eng = ServeEngine(cfg, params, max_batch=3, max_len=128, kv_quant=kv_quant, decode_quantum=4)
+    reqs = [eng.submit(torch.randint(0, cfg.vocab_size, (n,)).numpy(), 9) for n in (5, 40, 17, 3)]
+    before = kernel.launches
+    eng.run()
+    assert all(r.done and len(r.out) == 9 for r in reqs)
+    assert kernel.launches - before == cfg.n_layers * eng.stats["steps"] == len(calls)
+    assert max(calls) <= ATTN_TOL
+    monkeypatch.setattr(tcommon, "DECODE_ATTN_KERNEL", False)
+    monkeypatch.setattr(tcommon, "INT8_DECODE_ATTN_KERNEL", False)
+    before = kernel.launches
+    plain = ServeEngine(cfg, params, max_batch=3, max_len=128, kv_quant=kv_quant)
+    plain.submit(reqs[0].prompt, 9)
+    plain.run()
+    assert kernel.launches == before  # the flags off: the plain route
+
+
+@pytest.mark.cuda
+def test_attention_routes_only_head_widths_k7_takes(cuda_device):
+    """``supported`` (the TPU kernel's predicate) admits any hd % 128 == 0
+    and the route sends all of them to K7: the widths it is built for launch
+    it, any other raises rather than run the plain route on the card."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    for hd in (128, 256, 384):
+        q, k, v, valid, _, _ = _attn_inputs(g, cuda_device, 2, 256, 8, 2, hd, False)
+        assert tka.supported(256, hd, False)
+        before = tka.decode_attention.launches
+        if hd == 384:
+            with pytest.raises(NotImplementedError, match="hd=384"):
+                tcommon.attention(q, k, v, None, valid, scale=hd ** -0.5)
+            assert tka.decode_attention.launches == before
+            continue
+        out = tcommon.attention(q, k, v, None, valid, scale=hd ** -0.5)
+        assert tka.decode_attention.launches - before == 1
+        want = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5)
+        assert _rel(out.float(), want.float()) <= ATTN_TOL
