@@ -46,7 +46,24 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      the int8 requests again with K7 off; serves 8 concurrent POSTs through
      the HTTP ServingServer on 127.0.0.1, each answer held the same way; and
      times K7 at B 8, M 2048 beside its plain version,
-     scaled_dot_product_attention and its bytes bound.
+     scaled_dot_product_attention and its bytes bound;
+  8. (the packed-gather slice) holds K5, the packed one-hot gather x @ G,
+     bit-exact against its plain version and against K4 (llama-3-8b's
+     4096 -> 4096 gather, ragged and interleaved-pad perms, rows
+     1/2/4/8/16/64/512, stacked views), and K6, K5 as K1's prologue, within
+     KERNEL_TOL at llama-3-8b qkv / o / gateup and a ragged shape, B
+     1/2/4/8/16/64, bf16 and W2A8; runs the 2-layer llama-3-8b "ssr" model
+     under the P2 flags with every K5 / K6 call held against its plain
+     version; drives the 32-layer llama-3-8b "ssr" main path under the P1
+     flags (GATHER_KERNEL "packed": prefill through K5, no K4; tokens equal
+     to the default run's) and the P2 flags (also IGATHER_FUSED off,
+     FUSED_GATHER on: decode through K6, no K3), bf16 and W2A8, with exact
+     launch counts and every P2 answer held to TOKEN_TOL under its
+     teacher-forced reference; serves 16 requests through the 32-layer
+     "ssr" ServeEngine under the P2 flags (admission buckets <= 64 rows
+     through K6, decode K6 at B 8 and K7) with exact counts and every answer
+     held; and times K5 and K6 beside their plain versions, a PyTorch call
+     and their bytes bound.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -232,11 +249,12 @@ def main() -> None:
     bw, bf16_peak = card_peaks(record["device"])
     t_start = time.perf_counter()
 
-    # launch counters of every kernel wrapper: K1, K3, K2, K4, K7
+    # launch counters of every kernel wrapper: K1, K3, K2, K4, K7, K5, K6
     wrappers = {"ternary_matmul": k1.ternary_matmul,
                 "ternary_matmul_igathered": k1.ternary_matmul_igathered,
                 "ternary_mlp": k1.ternary_mlp, "onehot_gather": k4.onehot_gather,
-                "decode_attention": k7.decode_attention}
+                "decode_attention": k7.decode_attention, "onehot_matmul": k4.onehot_matmul,
+                "ternary_matmul_gathered": k1.ternary_matmul_gathered}
 
     def zero_counts():
         for w in wrappers.values():
@@ -247,7 +265,8 @@ def main() -> None:
 
     # ---- build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
-    sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention"]
+    sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
+               "onehot_matmul", "ternary_matmul_gathered"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -420,6 +439,51 @@ def main() -> None:
     print(f"K7 vs plain: {nchecks['decode_attention']} checks within {ATTN_TOL} x max|ref| "
           f"(max|err| {errs['decode_attention']:.3e})")
 
+    # ---- 2c. K5 bit-exact against its plain version and against K4; K6 vs
+    # its plain version: llama-3-8b gathers, ragged and interleaved-pad perms,
+    # several K chunks x several column groups
+    from pt2tpu_torch.ops.gather import make_packed_gather
+
+    for name in ("onehot_matmul", "ternary_matmul_gathered"):
+        errs[name], nchecks[name] = 0.0, 0
+    for m, K, inter in ((4096, 4096, False), (200, 256, True), (300, 512, True)):
+        perm = rand_perm(m, K, inter)
+        gp = make_packed_gather(perm, m).packed
+        for B in (1, 2, 4, 8, 16, 64, 512):
+            for dt in ((torch.bfloat16, torch.float32) if B in (4, 512) else (torch.bfloat16,)):
+                x = torch.randn((B, m), generator=g, device=dev).to(dt)
+                got = k4.onehot_matmul(x, gp)
+                held("onehot_matmul", f"K5 m={m} K={K} rows={B} {dt}", got,
+                     k4.onehot_matmul_plain(x, gp), 0.0)
+                held("onehot_matmul", f"K5 vs K4 m={m} K={K} rows={B} {dt}", got,
+                     k4.onehot_gather(x, perm), 0.0)
+    for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 384)]:
+        packed, alpha, mu = rand_layer(K, n)
+        gp = make_packed_gather(rand_perm(m, K, name == "ragged"), m).packed
+        for B in (1, 2, 4, 8, 16, 64):
+            x = torch.randn((B, m), generator=g, device=dev).bfloat16()
+            for a8 in (False, True):
+                held("ternary_matmul_gathered", f"K6 {name} B={B} a8={a8}",
+                     k1.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8),
+                     k1.ternary_matmul_gathered_plain(x, gp, packed, alpha, mu, a8=a8),
+                     KERNEL_TOL)
+    del packed, alpha, mu
+    gp, ga, gm = rand_layer(4096, 4096, L=2)
+    perms = [rand_perm(4096, 4096) for _ in range(2)]
+    gps = torch.stack([make_packed_gather(p, 4096).packed for p in perms])
+    x = torch.randn((4, 4096), generator=g, device=dev).bfloat16()
+    for li in (0, 1):
+        held("onehot_matmul", f"K5 planes[{li}]", k4.onehot_matmul(x, gps[li]),
+             k4.onehot_gather(x, perms[li]), 0.0)
+        held("ternary_matmul_gathered", f"K6 layer {li}",
+             k1.ternary_matmul_gathered(x, gps[li], gp[li], ga[li], gm[li]),
+             k1.ternary_matmul_gathered_plain(x, gps[li], gp[li], ga[li], gm[li]), KERNEL_TOL)
+    del gp, ga, gm, gps, x
+    torch.cuda.empty_cache()
+    print(f"K5 vs plain and vs K4: {nchecks['onehot_matmul']} checks bit-exact; K6 vs plain: "
+          f"{nchecks['ternary_matmul_gathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
+          f"{errs['ternary_matmul_gathered']:.3e})")
+
     # ---- 3. 2-layer models at full width through the kernels vs their reference
     import pt2tpu_torch.models.common as tcommon
     import pt2tpu_torch.ops.gather as tgather
@@ -433,8 +497,23 @@ def main() -> None:
               "ternary_matmul_igathered": (ttm, k1.ternary_matmul_igathered_plain, KERNEL_TOL),
               "ternary_mlp": (ttm, k1.ternary_mlp_plain, MLP_TOL),
               "onehot_gather": (tgather, k4.onehot_gather_plain, 0.0),
-              "decode_attention": (tcommon, k7.decode_attention_plain, ATTN_TOL)}
+              "decode_attention": (tcommon, k7.decode_attention_plain, ATTN_TOL),
+              "onehot_matmul": (tgather, k4.onehot_matmul_plain, 0.0),
+              "ternary_matmul_gathered": (ttm, k1.ternary_matmul_gathered_plain, KERNEL_TOL)}
     per_call = dict.fromkeys(routed, 0)
+
+    # the routing flags of the packed-gather slice: (GATHER_KERNEL,
+    # IGATHER_FUSED, FUSED_GATHER); P1 gathers with K5, P2 also fuses it as K6
+    P1, P2 = ("packed", True, False), ("packed", False, True)
+
+    @contextlib.contextmanager
+    def route_flags(flags):
+        saved = (tgather.GATHER_KERNEL, ttm.IGATHER_FUSED, ttm.FUSED_GATHER)
+        tgather.GATHER_KERNEL, ttm.IGATHER_FUSED, ttm.FUSED_GATHER = flags
+        try:
+            yield
+        finally:
+            tgather.GATHER_KERNEL, ttm.IGATHER_FUSED, ttm.FUSED_GATHER = saved
 
     @contextlib.contextmanager
     def swapped(make):
@@ -470,7 +549,7 @@ def main() -> None:
         """(impl, context) of the route a model run is held against."""
         return ("plain", contextlib.nullcontext()) if impl == "auto" else (impl, plain_versions())
 
-    def two_layer_check(name, layout, seed, impls=("auto",)):
+    def two_layer_check(name, layout, seed, impls=("auto",), roundtrip=True, tag=""):
         cfg2 = get_config(name).with_(n_layers=2)
         params2 = random_ternary_params(cfg2, seed=seed, perm_mode=layout, device=dev)
         prompt = torch.randint(0, cfg2.vocab_size, (4, 128), generator=g, device=dev)
@@ -511,7 +590,7 @@ def main() -> None:
                                                    cache, 128 + s, ref_impl)
             if counts() != c0:
                 fail(f"2-layer {name}: the reference route of {impl} launched a kernel")
-            print(f"2-layer {name} ({layout}) {impl}: every kernel call of prefill + 16 decode "
+            print(f"2-layer {name} ({layout}{tag}) {impl}: every kernel call of prefill + 16 decode "
                   f"steps held against its plain version on the same inputs {checked}; prefill "
                   f"logits vs reference ({ref_impl}{'' if impl == 'auto' else ', plain versions'}) "
                   f"rel L2 {rel:.3e} (<= {rel_tol}); 16 greedy tokens x 4: {agree}/64 equal to "
@@ -525,6 +604,10 @@ def main() -> None:
             rec[impl] = {"calls_checked": checked, "prefill_rel_l2": rel, "greedy_agree": agree,
                          "greedy_total": 64, "worst_pick_gap": worst}
             del cache, logits, lp
+        if not roundtrip:
+            del params2
+            torch.cuda.empty_cache()
+            return rec
         la = prefill_logits(params2, "auto")
         art = os.path.join(ROOT, "build", f"smoke_artifact_{layout}")
         ckpt.save_model(art, cfg2, params2)
@@ -547,9 +630,19 @@ def main() -> None:
     record["model2"] = two_layer_check("llama-2-7b", "down", 1)
     c0 = counts()
     record["model2_8b_ssr"] = two_layer_check("llama-3-8b", "ssr", 3, ("auto", "a8"))
-    used = {k: v - c0[k] for k, v in counts().items() if k != "decode_attention"}
+    used = {k: v - c0[k] for k, v in counts().items()
+            if k in ("ternary_matmul", "ternary_matmul_igathered", "ternary_mlp", "onehot_gather")}
     if not all(used.values()):
         fail(f"2-layer llama-3-8b ssr did not launch every kernel: {used}")
+    # the same model under the P2 flags: prefill through K5 + K1, decode K6
+    c0 = counts()
+    with route_flags(P2):
+        record["model2_8b_ssr_p2"] = two_layer_check("llama-3-8b", "ssr", 3, ("auto", "a8"),
+                                                     roundtrip=False, tag=", P2 flags")
+    used = {k: v - c0[k] for k, v in counts().items()}
+    if not (used["onehot_matmul"] and used["ternary_matmul_gathered"]) or \
+            used["onehot_gather"] or used["ternary_matmul_igathered"]:
+        fail(f"2-layer llama-3-8b ssr under P2 launched {used}")
 
     # ---- 3b. a 2-layer llama-3-8b ServeEngine ("down" layout, 8 slots, max_len
     # 2048, quantum 4): every K1 / K2 / K7 call held against its plain version
@@ -592,6 +685,63 @@ def main() -> None:
     del params2, eng
     torch.cuda.empty_cache()
 
+    from pt2tpu_torch.models import decoder as tdec
+    from pt2tpu_torch.models.common import causal_mask
+
+    def set_k7(on):
+        tcommon.DECODE_ATTN_KERNEL = tcommon.INT8_DECODE_ATTN_KERNEL = on
+
+    def teacher_forced(prompt, ids, kvq, impl="auto"):
+        """f32 logits at the answer's positions from one forward of prompt +
+        answer[:-1] through the plain routes (no kernel launches); with kvq
+        every layer writes an int8 cache and attends over its raw codes and
+        scales, as the engine's layers do. For W2A8 (``impl="a8"``) the
+        reference is the W2A8 route with every kernel swapped for its plain
+        version."""
+        toks = torch.as_tensor(list(prompt) + list(ids[:-1]), device=dev)[None]
+        T = toks.shape[1]
+        with torch.inference_mode():
+            if impl == "a8":
+                with plain_versions():
+                    logits = tdec.forward(cfg, params, toks, impl="a8")
+            elif not kvq:
+                logits = tdec.forward(cfg, params, toks, impl="plain")
+            else:
+                cache = init_cache(cfg, 1, T, quantized=True, device=dev)
+                h = tdec.embed_tokens(cfg, params, toks)
+                cos, sin = tdec.pos_tables(cfg, T, device=dev)
+                mask = causal_mask(T, T, device=dev)
+                for li in range(cfg.n_layers):
+                    h = tdec.layer_forward(cfg, tdec.layer_view(params["layers"], li), h, cos,
+                                           sin, mask, cache=cache, cache_pos=0, impl="plain",
+                                           layer_idx=li)
+                logits = tdec.unembed(cfg, params, h)
+        return logits[0, len(prompt) - 1 :].float()
+
+    def answers_held(label, prompts_, answers_, kvq, rivals=None, impl="auto"):
+        """Each answer's greedy picks held to TOKEN_TOL under its teacher-forced
+        reference. With ``rivals`` (other streams for the same prompts), where
+        a rival first differs from the answer: the reference's logit margin
+        between the two picks there, over max|logit|. Returns (worst pick gap,
+        margins)."""
+        c0 = counts()
+        worst, margins = 0.0, []
+        for i, (p, ids) in enumerate(zip(prompts_, answers_)):
+            lf = teacher_forced(p, ids, kvq, impl)
+            top = lf.abs().max(dim=1).values
+            picked = lf.gather(1, torch.as_tensor(ids, device=dev)[:, None])[:, 0]
+            worst = max(worst, ((lf.max(dim=1).values - picked) / top).max().item())
+            if rivals is not None and rivals[i] != ids:
+                j = next(n for n, (a, b) in enumerate(zip(ids, rivals[i])) if a != b)
+                margins.append(abs(lf[j, ids[j]] - lf[j, rivals[i][j]]).item() / top[j].item())
+            del lf
+        if counts() != c0:
+            fail(f"{label}: the teacher-forced reference launched a kernel")
+        if worst > TOKEN_TOL:
+            fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
+                 f"max|logit| (> {TOKEN_TOL})")
+        return worst, margins
+
     # ---- 4./5. the main paths: 4 prompts x 128 ids, 32 new tokens
     B, Lp, new = 4, 128, 32
     steps = new - 1  # decode steps after the prefill
@@ -614,7 +764,7 @@ def main() -> None:
                 fail(f"main path {label} {impl}: launches {got}, want {want}")
             if tuple(toks.shape) != (B, new) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
                 fail(f"main path {label} {impl}: bad tokens {tuple(toks.shape)}")
-            runs[impl] = {"wall_s": wall, "launches": got, "first_tokens": toks[:, :4].tolist()}
+            runs[impl] = {"wall_s": wall, "launches": got, "tokens": toks.tolist()}
         for impl in impls:
             with torch.inference_mode():
                 cache = init_cache(cfg, B, Lp + new, device=dev)
@@ -674,7 +824,91 @@ def main() -> None:
         main_launches[k] = sum(r["launches"][k] for r in runs.values())
     record["decode_step_8b_ssr"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                        "llama-3-8b ssr")
-    del params
+
+    # ---- 8. this slice's main paths, on the same model and prompts. P1
+    # (GATHER_KERNEL "packed"): the prefill gathers through K5 where K4 ran;
+    # decode as above. P2 (also IGATHER_FUSED off, FUSED_GATHER on): decode
+    # runs K6 where K3 ran (qkv and o; gateup too in W2A8)
+    default_tokens = {impl: r["tokens"] for impl, r in runs.items()}
+    record["main_path_8b_ssr_packed"] = {}
+    for flags_name, flags, fused in (("P1", P1, "ternary_matmul_igathered"),
+                                     ("P2", P2, "ternary_matmul_gathered")):
+        want_p = {
+            "auto": dict(none, ternary_matmul=4 * L, ternary_mlp=L * steps, onehot_matmul=3 * L,
+                         **{fused: 2 * L * steps}),
+            "a8": dict(none, ternary_matmul=4 * L + L * steps, onehot_matmul=3 * L,
+                       **{fused: 3 * L * steps}),
+        }
+        with route_flags(flags):
+            runs_p = drive(cfg, params, f"llama-3-8b ssr {flags_name}", ("auto", "a8"),
+                           want_p.get, prompts)
+        for impl, r in runs_p.items():
+            same = sum(a == b for a, b in zip(r["tokens"], default_tokens[impl]))
+            r["streams_equal_to_default"] = same
+            if flags_name == "P1" and same != B:
+                fail(f"P1 {impl}: {B - same} of {B} streams differ from the default ssr run "
+                     "(K5 is bit-exact to K4)")
+            if flags_name == "P2":
+                r["worst_pick_gap"], _ = answers_held(
+                    f"P2 {impl} answers", [p.tolist() for p in prompts], r["tokens"], False,
+                    impl=impl)
+                print(f"P2 {impl}: {same}/{B} streams equal to the default ssr run's; every pick "
+                      f"within {r['worst_pick_gap']:.2e} of the teacher-forced "
+                      f"{'W2A8 plain-version' if impl == 'a8' else 'plain'} max (<= {TOKEN_TOL})")
+        if flags_name == "P1":
+            print("P1: greedy tokens identical to the default ssr run's (bf16 and W2A8)")
+        record["main_path_8b_ssr_packed"][flags_name] = runs_p
+    with route_flags(P2):
+        record["decode_step_8b_ssr_p2"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                                              "llama-3-8b ssr, P2 flags")
+    for k in ("onehot_matmul", "ternary_matmul_gathered"):
+        main_launches[k] = sum(r["launches"][k] for rp in record["main_path_8b_ssr_packed"].values()
+                               for r in rp.values())
+
+    # run E: the ServeEngine over the same 32-layer "ssr" model under the P2
+    # flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one of
+    # exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV, quantum 1
+    e_lens = [64] + host_ints(65, 512, 15)
+    e_prompts, e_news = make_prompts(cfg, e_lens), host_ints(32, 64, 16)
+    with route_flags(P2):
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
+        reqs = [eng.submit(p, m) for p, m in zip(e_prompts, e_news)]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = eng.stats["steps"]
+    # an admission of <= 64 rows: K6 for qkv and o, K2 for the MLP; a longer
+    # one: K5 + K1 for qkv, o and gateup, K1 for down. Each decode step (B 8):
+    # K6 x2 + K2 + K7 per layer
+    short = sum(min(_bucket(n), ENGINE_M) <= 64 for n in e_lens)
+    want = dict(none, ternary_matmul_gathered=2 * L * (st + short), ternary_mlp=L * (st + short),
+                ternary_matmul=4 * L * (16 - short), onehot_matmul=3 * L * (16 - short),
+                decode_attention=L * st)
+    got = counts()
+    if got != want:
+        fail(f"engine ssr P2: launches {got}, want {want}")
+    if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
+               for r, m in zip(reqs, e_news)):
+        fail("engine ssr P2: a request did not finish with max_new valid tokens")
+    e_stats = dict(eng.stats)
+    e_tok = sum(len(r.out) for r in reqs)
+    worst, _ = answers_held("engine ssr P2 answers", e_prompts, [r.out for r in reqs], False)
+    record["engine_ssr_p2"] = {"wall_s": wall, "tokens": e_tok, "tok_s": e_tok / wall,
+                               "decode_tok_s": e_stats["tokens"] / e_stats["t_decode_s"],
+                               "steps": st, "t_admit_s": e_stats["t_admit_s"],
+                               "t_decode_s": e_stats["t_decode_s"], "launches": got,
+                               "short_admissions": short, "worst_pick_gap": worst}
+    for k in ("onehot_matmul", "ternary_matmul_gathered"):
+        main_launches[k] += got[k]
+    print(f"engine llama-3-8b ssr, P2 flags, bf16 KV, quantum 1: 16 requests, {e_tok} tokens in "
+          f"{wall:.2f} s ({e_tok / wall:.1f} tok/s; decode "
+          f"{record['engine_ssr_p2']['decode_tok_s']:.1f} tok/s; t_admit_s "
+          f"{e_stats['t_admit_s']:.2f} s), {st} decode steps, launches {got}; every pick within "
+          f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
+    del params, eng, reqs
     torch.cuda.empty_cache()
 
     # the same model in the "down" layout: K2 without its gather; K1 runs
@@ -684,8 +918,8 @@ def main() -> None:
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
 
-    # ---- 5b. this slice's main path: the ServeEngine over the same 32-layer
-    # llama-3-8b "down" model, 8 slots, max_len 2048, 16 greedy requests
+    # ---- 5b. the serving slice's main path: the ServeEngine over the same
+    # 32-layer llama-3-8b "down" model, 8 slots, max_len 2048, 16 greedy requests
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
@@ -742,58 +976,6 @@ def main() -> None:
             fail(f"engine int8={kvq}: quantum 8 tokens differ from quantum 1")
     main_launches["decode_attention"] = k7_main
     print("engine: quantum 8 token-identical to quantum 1 (bf16 and int8 KV)")
-
-    from pt2tpu_torch.models import decoder as tdec
-    from pt2tpu_torch.models.common import causal_mask
-
-    def set_k7(on):
-        tcommon.DECODE_ATTN_KERNEL = tcommon.INT8_DECODE_ATTN_KERNEL = on
-
-    def teacher_forced(prompt, ids, kvq):
-        """f32 logits at the answer's positions from one forward of prompt +
-        answer[:-1] through the plain routes (no kernel launches); with kvq
-        every layer writes an int8 cache and attends over its raw codes and
-        scales, as the engine's layers do."""
-        toks = torch.as_tensor(list(prompt) + list(ids[:-1]), device=dev)[None]
-        T = toks.shape[1]
-        with torch.inference_mode():
-            if not kvq:
-                logits = tdec.forward(cfg, params, toks, impl="plain")
-            else:
-                cache = init_cache(cfg, 1, T, quantized=True, device=dev)
-                h = tdec.embed_tokens(cfg, params, toks)
-                cos, sin = tdec.pos_tables(cfg, T, device=dev)
-                mask = causal_mask(T, T, device=dev)
-                for li in range(cfg.n_layers):
-                    h = tdec.layer_forward(cfg, tdec.layer_view(params["layers"], li), h, cos,
-                                           sin, mask, cache=cache, cache_pos=0, impl="plain",
-                                           layer_idx=li)
-                logits = tdec.unembed(cfg, params, h)
-        return logits[0, len(prompt) - 1 :].float()
-
-    def answers_held(label, prompts_, answers_, kvq, rivals=None):
-        """Each answer's greedy picks held to TOKEN_TOL under its teacher-forced
-        reference. With ``rivals`` (other streams for the same prompts), where
-        a rival first differs from the answer: the reference's logit margin
-        between the two picks there, over max|logit|. Returns (worst pick gap,
-        margins)."""
-        c0 = counts()
-        worst, margins = 0.0, []
-        for i, (p, ids) in enumerate(zip(prompts_, answers_)):
-            lf = teacher_forced(p, ids, kvq)
-            top = lf.abs().max(dim=1).values
-            picked = lf.gather(1, torch.as_tensor(ids, device=dev)[:, None])[:, 0]
-            worst = max(worst, ((lf.max(dim=1).values - picked) / top).max().item())
-            if rivals is not None and rivals[i] != ids:
-                j = next(n for n, (a, b) in enumerate(zip(ids, rivals[i])) if a != b)
-                margins.append(abs(lf[j, ids[j]] - lf[j, rivals[i][j]]).item() / top[j].item())
-            del lf
-        if counts() != c0:
-            fail(f"{label}: the teacher-forced reference launched a kernel")
-        if worst > TOKEN_TOL:
-            fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
-                 f"max|logit| (> {TOKEN_TOL})")
-        return worst, margins
 
     # every engine answer (quantum 1) held under its teacher-forced reference:
     # bf16 KV under the plain forward, int8 KV under a forward through an int8
@@ -920,6 +1102,8 @@ def main() -> None:
     lib = k1._kernel_lib()
     mlp_lib = k1._mlp_kernel_lib()
     gather_lib = k4._kernel_lib()
+    mm_lib = k4._mm_kernel_lib()
+    gathered_lib = k1._gathered_kernel_lib()
     stream = torch.cuda.current_stream().cuda_stream
     dix = dev.index or 0
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
@@ -1067,6 +1251,82 @@ def main() -> None:
         del xs, outs
     record["k4_timing"] = k4_detail
 
+    # K5 at the same 4096 -> 4096 gather (planes of 4 MB); library:
+    # torch.index_select. The products it must do are one per nonzero field.
+    k5_detail = []
+    gps = [make_packed_gather(p, m).packed for p in perms]
+    nnz = int(k4.onehot_planes(gps[0]).count_nonzero())
+    for B in (1, 16, 512):
+        per_call = m * K // 4 + 2 * B * m + 2 * B * K
+        copies = max(4, math.ceil(COLD_BYTES / per_call))
+        planes_c = [gps[i % 4] if i < 4 else gps[i % 4].clone() for i in range(copies)]
+        xs = [torch.randn((B, m), generator=g, device=dev).bfloat16() for _ in range(copies)]
+        outs = [torch.empty((B, K), dtype=torch.bfloat16, device=dev) for _ in range(copies)]
+        lperm = [p.long() for p in perms]
+
+        def kern(i):
+            c = i % copies
+            ok(mm_lib.pt2_onehot_matmul(xs[c].data_ptr(), planes_c[c].data_ptr(),
+                                        outs[c].data_ptr(), B, m, m // 4, K, 2, dix, stream), "K5")
+
+        ms = time_ms(kern, 50)
+        plain_ms = time_ms(lambda i: k4.onehot_matmul_plain(xs[i % copies], planes_c[i % copies]), 5)
+        lib_ms = time_ms(lambda i: torch.index_select(xs[i % copies], 1, lperm[i % copies % 4]), 50)
+        k5_detail.append(row("K5", "gather", B, ms, plain_ms, lib_ms, per_call, 2.0 * B * nnz,
+                             m=m, K=K))
+        del xs, outs, planes_c
+    record["k5_timing"] = k5_detail
+
+    # K6 at llama-3-8b qkv / o (K3's layers, with the planes in place of the
+    # perm); library: one dense bf16 matmul on pre-gathered x, as for K3
+    k6_detail, wrapper_detail = [], []
+    for name, m, K, n in SHAPES_8B:
+        wbytes = K * n // 4 + 4 * (K // 128) * n + m * K // 4
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        perms = [rand_perm(m, K) for _ in range(copies)]
+        layers = [rand_layer(K, n) + (make_packed_gather(p, m).packed, p) for p in perms]
+        nnz = int(k4.onehot_planes(layers[0][3]).count_nonzero())
+        dn = dense(K, n)
+        for B in (1, 16):
+            x = torch.randn((B, m), generator=g, device=dev).bfloat16()
+            partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=dev)
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+
+            def kern(i):
+                p, a, mu_, gpl, _ = layers[i % copies]
+                ok(gathered_lib.pt2_ternary_matmul_gathered(
+                    x.data_ptr(), gpl.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), B, m, m // 4, K, n, 0, dix, stream), "K6")
+
+            ms = time_ms(kern, 50)
+            plain_ms = time_ms(lambda i: k1.ternary_matmul_gathered_plain(
+                x, layers[i % copies][3], *layers[i % copies][:3]), 5)
+            xg = k4.onehot_matmul_plain(x, layers[0][3])
+            lib_ms = time_ms(lambda i: torch.matmul(xg, dn[i % len(dn)]), 50)
+            k6_detail.append(row("K6", name, B, ms, plain_ms, lib_ms,
+                                 wbytes + 2 * B * m + 4 * B * n, 2.0 * B * (K * n + nnz),
+                                 m=m, K=K, n=n))
+        # the whole Python wrappers of K3 and K6 back to back at the lockstep
+        # decode's B = 4 (checks, allocations, launches): K3, K6, K6, K3
+        x = torch.randn((4, m), generator=g, device=dev).bfloat16()
+
+        def k3w(i):
+            p, a, mu_, _, pm = layers[i % copies]
+            return k1.ternary_matmul_igathered(x, pm, p, a, mu_)
+
+        def k6w(i):
+            p, a, mu_, gpl, _ = layers[i % copies]
+            return k1.ternary_matmul_gathered(x, gpl, p, a, mu_)
+
+        w = [time_ms(k3w, 50), time_ms(k6w, 50), time_ms(k6w, 50), time_ms(k3w, 50)]
+        wrapper_detail.append({"shape": name, "B": 4, "k3_wrapper_ms": [w[0], w[3]],
+                               "k6_wrapper_ms": [w[1], w[2]]})
+        print(f"{name} B=4, whole wrapper per call: K3 {w[0] * 1e3:.1f} / {w[3] * 1e3:.1f} us, "
+              f"K6 {w[1] * 1e3:.1f} / {w[2] * 1e3:.1f} us (K3, K6, K6, K3)")
+        del layers, dn, perms
+    record["k6_timing"] = k6_detail
+    record["k3_k6_wrapper_timing"] = wrapper_detail
+
     # K7 at the engine's point: B 8, M 2048, llama-3-8b heads, every slot
     # valid (so the function needs the whole cache); C entry back to back,
     # cache rotated over >= 150 MB. Library: scaled_dot_product_attention on
@@ -1117,11 +1377,18 @@ def main() -> None:
                                                   enable_gqa=True)
 
         lib_ms = time_ms(library, 20)
-        # the yardstick computes the same function: within K7's tolerance of plain
-        want = k7.decode_attention_plain(q7, *sets[0][1:4], attn_scale, *sets[0][4:]).float()
+        # the yardstick computes the same function: within K7's tolerance of
+        # the plain version on the cache it attends over (int8: the cache
+        # dequantised to bf16, as the yardstick dequantises it)
+        _, kk, vv, vd, ks_, vs_ = sets[0]
+        if quant:
+            kk, vv = (kk.float() * ks_).bfloat16(), (vv.float() * vs_).bfloat16()
+        want = k7.decode_attention_plain(q7, kk, vv, vd, attn_scale).float()
         got = library(0).transpose(1, 2).float()
-        if not (got - want).abs().max().item() <= ATTN_TOL * want.abs().max().item():
-            fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant})")
+        err = (got - want).abs().max().item()
+        if not err <= ATTN_TOL * want.abs().max().item():
+            fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant}): max|err| "
+                 f"{err:.3e}, max|ref| {want.abs().max().item():.3e}")
         nbytes = kv_bytes + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
         d = row("K7", "int8" if quant else "bf16", B7, ms, plain_ms, lib_ms, nbytes,
                 4.0 * B7 * H7 * M7 * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7)
@@ -1133,8 +1400,9 @@ def main() -> None:
     record["k7_timing"] = k7_detail
 
     # ---- the record: per kernel, one layer of one step of its main path
-    # (K1 / K3 / K2 at B = 1 decode; K4 at the 512-row prefill, 3 gathers;
-    # K7 at the engine's B = 8, M = 2048 with a bf16 cache)
+    # (K1 / K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
+    # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
+    # M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1161,6 +1429,12 @@ def main() -> None:
         entry("decode_attention", "pt2tpu_torch/csrc/decode_attention.cu",
               "pt2tpu/ops/kernels/pallas_attention.py:249",
               [d for d in k7_detail if d["shape"] == "bf16"], errs["decode_attention"]),
+        entry("onehot_matmul", "pt2tpu_torch/csrc/onehot_matmul.cu",
+              "pt2tpu/ops/kernels/pallas_gather.py:127",
+              [d for d in k5_detail if d["B"] == 512], errs["onehot_matmul"], mult=3),
+        entry("ternary_matmul_gathered", "pt2tpu_torch/csrc/ternary_matmul_gathered.cu",
+              "pt2tpu/ops/kernels/pallas_ternary.py:443", b1(k6_detail),
+              errs["ternary_matmul_gathered"]),
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start

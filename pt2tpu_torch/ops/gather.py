@@ -2,23 +2,39 @@
 
 A layer quantized with SSR consumes its input in visit-lane order. Its
 permutation is stored as a :class:`PackedGather`: 2-bit one-hot planes (the
-artifact's bytes, which the JAX package's TPU kernel K5 streams) plus the
-index vector ``perm``. On CUDA the gather runs as kernel K4
-(``ops/kernels/gather.py``, an indexed load per lane) or fused into the
-projection as K3; on the CPU it takes the index form, as JAX does off the
-TPU.
+artifact's bytes) plus the index vector ``perm``. On CUDA the gather runs as
+kernel K4 (an indexed load per lane) or K5 (x @ G over the planes), as
+:data:`GATHER_KERNEL` selects (``ops/kernels/gather.py``), or fused into the
+projection as K3 or K6 (``ops/ternary_matmul.py``); on the CPU it takes the
+index form, as JAX does off the TPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 from ..core.packing import pack_ternary
-from .kernels.gather import onehot_gather, onehot_gather_plain
+from .kernels.gather import onehot_gather, onehot_gather_plain, onehot_matmul
 
-__all__ = ["PackedGather", "make_packed_gather", "gather_apply"]
+__all__ = ["PackedGather", "make_packed_gather", "gather_apply", "gather_kernel", "GATHER_KERNEL"]
+
+GATHER_KERNEL = os.environ.get("PT2TPU_GATHER", "iota")
+"""The CUDA gather kernel, read at each call (``pt2tpu.ops.gather``'s flag,
+same variable and default): "iota" runs K4, "packed" runs K5, which streams
+the packed one-hot planes."""
+
+
+def gather_kernel() -> str:
+    """The wrapper :data:`GATHER_KERNEL` names: "onehot_gather" (K4) or
+    "onehot_matmul" (K5)."""
+    if GATHER_KERNEL == "iota":
+        return "onehot_gather"
+    if GATHER_KERNEL == "packed":
+        return "onehot_matmul"
+    raise ValueError(f"GATHER_KERNEL must be 'iota' or 'packed', got {GATHER_KERNEL!r}")
 
 
 @dataclasses.dataclass
@@ -61,13 +77,19 @@ def make_packed_gather(perm: torch.Tensor, in_features: int) -> PackedGather:
 
 
 def gather_apply(g: PackedGather, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Permute (..., m) features into visit-lane order (..., K): K4 on CUDA,
-    the index form on the CPU or with ``impl="plain"``."""
+    """Permute (..., m) features into visit-lane order (..., K) in x's dtype:
+    on CUDA the kernel :func:`gather_kernel` names (K4 or K5), the index
+    form on the CPU or with ``impl="plain"``."""
     m = x.shape[-1]
     if m != g.in_features:
         raise ValueError(f"input features {m} != gather in_features {g.in_features}")
-    if g.perm.dim() != 1:
+    if g.perm.dim() != 1 or g.packed.dim() != 2:
         raise ValueError("a stacked gather needs its layer view (PackedTernaryLinear.layer)")
-    fn = onehot_gather_plain if impl == "plain" else onehot_gather
-    out = fn(x.reshape(-1, m), g.perm)
+    x2 = x.reshape(-1, m)
+    if impl == "plain" or x.device.type == "cpu":
+        out = onehot_gather_plain(x2, g.perm)
+    elif gather_kernel() == "onehot_matmul":
+        out = onehot_matmul(x2, g.packed)
+    else:
+        out = onehot_gather(x2, g.perm)
     return out.reshape(*x.shape[:-1], out.shape[-1])

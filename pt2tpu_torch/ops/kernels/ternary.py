@@ -1,10 +1,13 @@
-"""The packed-ternary kernels K1, K3 and K2: plain versions and wrappers.
+"""The packed-ternary kernels K1, K3, K6 and K2: plain versions and wrappers.
 
   * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul
     (``csrc/ternary_matmul.cu``; replaces
     ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``).
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
     (same source; replaces ``ternary_matmul_pallas_igathered``).
+  * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
+    the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
+    ``ternary_matmul_pallas_gathered``).
   * K2 ``ternary_mlp``: the whole gated MLP in one launch
     (``csrc/ternary_mlp.cu``; replaces ``ternary_mlp_pallas``).
 
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from ...core.packing import unpack_ternary
 from . import _build
-from .gather import onehot_gather_plain
+from .gather import onehot_gather_plain, onehot_matmul_plain
 
 __all__ = [
     "ternary_matmul",
@@ -35,6 +38,8 @@ __all__ = [
     "ternary_matmul_plain_a8",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
+    "ternary_matmul_gathered",
+    "ternary_matmul_gathered_plain",
     "ternary_mlp",
     "ternary_mlp_plain",
     "normalize_rows_a8",
@@ -104,6 +109,28 @@ def ternary_matmul_igathered_plain(
     return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
 
 
+def ternary_matmul_gathered_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    gpacked: torch.Tensor,  # (D//4, K) packed one-hot planes, D >= m
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """out = (x @ G) @ dequant(packed) in f32, as
+    ``ternary_matmul_pallas_gathered`` computes it: the gather is the f32
+    product with G's raw fields (``onehot_matmul_plain``). W2A8 normalises
+    the rows before the gather (absmax does not depend on the order of the
+    columns) and rounds the gathered values to int8."""
+    if not a8:
+        return ternary_matmul_plain(onehot_matmul_plain(x.float(), gpacked), packed, alpha, mu,
+                                    block_size)
+    xn, sx = normalize_rows_a8(x)
+    xq = torch.clamp(torch.round(onehot_matmul_plain(xn.float(), gpacked)), -127, 127)
+    return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
+
+
 def _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha, intermediate, block_size):
     """The checks of ``pallas_ternary._mlp_common`` for the gated MLP.
     Returns (Kg, half, nv, n): gate lanes [0, half), up lanes [half, 2*half),
@@ -165,6 +192,7 @@ def ternary_mlp_plain(
 
 _lib = None
 _mlp_lib = None
+_gathered_lib = None
 
 
 def _kernel_lib():
@@ -190,6 +218,17 @@ def _mlp_kernel_lib():
         fn.restype = ctypes.c_int
         _mlp_lib = lib
     return _mlp_lib
+
+
+def _gathered_kernel_lib():
+    global _gathered_lib
+    if _gathered_lib is None:
+        lib = _build.load("ternary_matmul_gathered")
+        fn = lib.pt2_ternary_matmul_gathered
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _gathered_lib = lib
+    return _gathered_lib
 
 
 def _device_and_stream(x):
@@ -322,6 +361,63 @@ def ternary_matmul_igathered(
 
 
 ternary_matmul_igathered.launches = 0
+
+
+def ternary_matmul_gathered(
+    x: torch.Tensor,
+    gpacked: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """out = (x @ G) @ dequant(packed): (B, m) x (D//4, K) planes -> (B, n) f32.
+
+    CUDA: launches K6 (the gathered x is staged in shared memory only; its
+    split-K partials are summed in a fixed order by a second kernel) for
+    1 <= B <= 64 rows and scale blocks of 128, and counts it once in
+    ``ternary_matmul_gathered.launches``. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return ternary_matmul_gathered_plain(x, gpacked, packed, alpha, mu, block_size, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K6 for device {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= 64:
+        raise ValueError(f"K6 takes x (B, m) with 1 <= B <= 64, got {tuple(x.shape)}")
+    if block_size != 128:
+        raise ValueError(f"K6 takes scale blocks of 128, got {block_size}")
+    B, m = x.shape
+    _check(x, packed, alpha, mu, block_size, m=m)
+    K, n = packed.shape[0] * 4, packed.shape[1]
+    if gpacked.dtype != torch.int8:
+        raise TypeError(f"the gather planes must be int8, got {gpacked.dtype}")
+    if gpacked.device != x.device or not gpacked.is_contiguous() or gpacked.data_ptr() % 4:
+        raise ValueError(f"the gather planes must be contiguous and 4-byte aligned on {x.device}")
+    if gpacked.dim() != 2 or gpacked.shape[1] != K or gpacked.shape[0] % 32 \
+            or m > gpacked.shape[0] * 4:
+        raise ValueError(f"gather planes {tuple(gpacked.shape)} do not match x width {m} and "
+                         f"{K} lanes")
+    if n % 128:
+        raise ValueError(f"K6 takes out_features divisible by 128, got {n}")
+    if a8:
+        xk, sx = normalize_rows_a8(x)  # before the gather: absmax ignores order
+    else:
+        xk = x.to(torch.bfloat16)
+    xk = xk.contiguous()
+    partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    rc = _gathered_kernel_lib().pt2_ternary_matmul_gathered(
+        xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), B, m, gpacked.shape[0], K, n, int(bool(a8)),
+        *_device_and_stream(x),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K6 launch failed: cudaError {rc}")
+    ternary_matmul_gathered.launches += 1
+    return out * sx if a8 else out
+
+
+ternary_matmul_gathered.launches = 0
 
 
 def ternary_mlp(

@@ -14,26 +14,30 @@ Counterpart of ``pt2tpu.ops.ternary_matmul``. The weights stay packed as
   * ``"plain"``— the plain versions on any device: an explicit choice, the
     counterpart of JAX's ``impl="xla"``, never a fallback.
 
-On CUDA a layer with an SSR gather runs K3 (gather fused into the matmul)
-for decode-size row counts (<= 64) and K4 then K1 otherwise, as the JAX
-package routes on the TPU; the whole MLP runs as K2 where
-:func:`fused_mlp_ok` holds.
+On CUDA a layer with an SSR gather runs, at decode-size row counts
+(<= 64), K3 (the gather fused into the matmul) or K6 (the packed one-hot
+gather as the matmul's prologue), and otherwise the gather (K4 or K5) then
+K1, as the JAX package routes on the TPU under the same flags
+(:func:`linear_route`); the whole MLP runs as K2 where :func:`fused_mlp_ok`
+holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.packing import pack_ternary
-from .gather import PackedGather, gather_apply
+from .gather import PackedGather, gather_apply, gather_kernel
 from .kernels.gather import onehot_gather_plain
 from .kernels.ternary import (
     normalize_rows_a8,
     ternary_matmul,
+    ternary_matmul_gathered,
     ternary_matmul_igathered,
     ternary_matmul_plain,
     ternary_matmul_plain_a8,
@@ -45,6 +49,7 @@ __all__ = [
     "make_packed_linear",
     "ternary_linear_apply",
     "ternary_linear_apply_stacked",
+    "linear_route",
     "fused_mlp_ok",
     "fused_mlp_apply",
     "ternary_matmul_plain",
@@ -54,6 +59,17 @@ __all__ = [
 ]
 
 IMPLS = ("auto", "a8", "plain")
+
+# The routing flags of ``pt2tpu.ops.ternary_matmul`` (same environment
+# variables and defaults), read at each call.
+IGATHER_FUSED = os.environ.get("PT2TPU_IGATHER_FUSED", "1") == "1"
+"""Run a gathered layer's decode-size rows through K3 (the gather as an
+indexed load inside the matmul)."""
+FUSED_GATHER = os.environ.get("PT2TPU_FUSED_GATHER", "0") == "1"
+"""With IGATHER_FUSED off, run them through K6 (x @ G as the matmul's
+prologue) instead of the gather kernel then K1."""
+FUSED_MLP = os.environ.get("PT2TPU_FUSED_MLP", "1") == "1"
+"""Allow the one-launch MLP kernel K2 where :func:`fused_mlp_ok` holds."""
 
 
 @dataclasses.dataclass
@@ -147,7 +163,8 @@ def make_packed_linear(
 
 def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int, impl: str) -> torch.Tensor:
     """Present activations in visit-lane order (B, K): fold / identity need
-    only a zero pad to K; a PackedGather runs K4; a bare perm takes the index
+    only a zero pad to K; a PackedGather runs its gather kernel (K4 or K5 on
+    CUDA); a bare perm takes the index
     form, as the JAX package's ``apply_input_perm`` (an XLA gather) does."""
     m = x2.shape[-1]
     if p.identity_perm or p.input_folded:
@@ -157,18 +174,30 @@ def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int, impl: str) ->
     return onehot_gather_plain(x2, p.perm)
 
 
-def _fused_gather_ok(p: PackedTernaryLinear, x2: torch.Tensor, impl: str) -> bool:
-    """K3's route (``ternary_linear_apply`` of the JAX package on the TPU):
-    a gather to realise, decode-size rows, and the shapes its kernel takes."""
-    return (
-        impl != "plain"
-        and x2.device.type == "cuda"
-        and p.gather is not None
-        and not (p.identity_perm or p.input_folded)
-        and x2.shape[0] <= 64
-        and p.block_size % 128 == 0
-        and p.out_features % 128 == 0
-    )
+def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
+                 device="cuda") -> Tuple[str, ...]:
+    """The kernels :func:`ternary_linear_apply` launches for ``rows`` rows of
+    layer ``p`` on ``device``, in launch order, by their wrappers' names; ()
+    where it runs plain versions (``impl="plain"`` or the CPU).
+
+    On CUDA this is the choice of the JAX package's ``ternary_linear_apply``
+    on the TPU: a layer with a gather to realise, at <= 64 rows and with the
+    shapes the fused kernels take, runs K3 if :data:`IGATHER_FUSED`, else K6
+    if :data:`FUSED_GATHER`; otherwise the gather kernel
+    (:func:`gather_kernel`: K4 or K5) and then K1. A layer without a gather
+    runs K1 alone (a bare perm is the index form, not a kernel)."""
+    dev = torch.device(device)
+    if impl == "plain" or dev.type == "cpu":
+        return ()
+    if p.identity_perm or p.input_folded or p.gather is None:
+        return ("ternary_matmul",)
+    if (dev.type == "cuda" and rows <= 64 and p.block_size % 128 == 0
+            and p.out_features % 128 == 0):
+        if IGATHER_FUSED:
+            return ("ternary_matmul_igathered",)
+        if FUSED_GATHER:
+            return ("ternary_matmul_gathered",)
+    return (gather_kernel(), "ternary_matmul")
 
 
 def ternary_linear_apply(
@@ -191,14 +220,18 @@ def ternary_linear_apply(
     x2 = x.reshape(-1, m)
     K = p.packed.shape[-2] * 4
     bs = p.block_size
-    if _fused_gather_ok(p, x2, impl):
-        out = ternary_matmul_igathered(x2, p.perm, p.packed, p.alpha, p.mu, bs, a8=impl == "a8")
+    a8 = impl == "a8"
+    route = linear_route(p, x2.shape[0], impl, x2.device)
+    if route == ("ternary_matmul_igathered",):
+        out = ternary_matmul_igathered(x2, p.perm, p.packed, p.alpha, p.mu, bs, a8=a8)
+    elif route == ("ternary_matmul_gathered",):
+        out = ternary_matmul_gathered(x2, p.gather.packed, p.packed, p.alpha, p.mu, bs, a8=a8)
     else:
         xk = _input_lanes(p, x2, K, impl)
         if impl == "plain":
             out = ternary_matmul_plain(xk, p.packed, p.alpha, p.mu, bs)
         else:
-            out = ternary_matmul(xk, p.packed, p.alpha, p.mu, bs, a8=impl == "a8")
+            out = ternary_matmul(xk, p.packed, p.alpha, p.mu, bs, a8=a8)
     if p.bias is not None:
         out = out + p.bias.to(out.dtype)
     return out.to(out_dtype).reshape(*lead, p.out_features)
@@ -221,9 +254,10 @@ def fused_mlp_ok(gu, dn, impl: str, rows: int, device) -> bool:
     """Routing predicate for the fused MLP kernel K2: the checks of
     ``pt2tpu.ops.ternary_matmul.fused_mlp_ok`` one by one, with CUDA in the
     place of the TPU, except that the port's K2 takes only the gated MLP
-    (gateup 2 x I wide). So on the CPU the MLP takes the two-call path, as
-    the JAX package does there."""
-    return torch.device(device).type == "cuda" and _fused_mlp_layout_ok(gu, dn, impl, rows)
+    (gateup 2 x I wide). So on the CPU, or with :data:`FUSED_MLP` off, the
+    MLP takes the two-call path, as the JAX package does there."""
+    return (FUSED_MLP and torch.device(device).type == "cuda"
+            and _fused_mlp_layout_ok(gu, dn, impl, rows))
 
 
 def _fused_mlp_layout_ok(gu, dn, impl: str, rows: int) -> bool:

@@ -1,4 +1,4 @@
-"""K1-K4 and K7 on the card against their plain versions. Needs an NVIDIA GPU;
+"""K1-K7 on the card against their plain versions. Needs an NVIDIA GPU;
 every test skips without one. This file imports neither JAX nor the JAX
 package, so on a machine without JAX it runs as
 
@@ -6,12 +6,16 @@ package, so on a machine without JAX it runs as
 
 Tolerances: K1 and K3 get the same bf16 inputs as their plain versions and
 accumulate in f32 in different orders, so they agree to 1e-4 of the
-output's largest magnitude. K4 copies values: bit-exact. K2 rounds mid =
+output's largest magnitude; so does K6 (the gather K5 computes, then K1's
+sum). K4 copies values and K5 sums one nonzero term per lane on a one-hot G:
+both bit-exact (K5 on other planes: 1e-6, f32 order). K2 rounds mid =
 silu(gate) * up to bf16 as its plain version does, but gate and up differ
 in their last f32 bits between the two, so a few mid values round to the
 neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
 unnormalised probabilities to bf16 relative to each chunk's maximum, its
 plain version relative to the row's maximum: 1e-2 of max|out|."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -20,6 +24,8 @@ from pt2tpu_torch.core.packing import pack_ternary
 from pt2tpu_torch.models import decoder as tdec
 from pt2tpu_torch.models.registry import get_config
 from pt2tpu_torch.models import common as tcommon
+from pt2tpu_torch.ops import gather as tgather
+from pt2tpu_torch.ops import ternary_matmul as ttm
 from pt2tpu_torch.ops.kernels import attention as tka
 from pt2tpu_torch.ops.kernels import gather as tkg
 from pt2tpu_torch.ops.kernels import ternary as tk
@@ -373,3 +379,191 @@ def test_attention_routes_only_head_widths_k7_takes(cuda_device):
         assert tka.decode_attention.launches - before == 1
         want = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5)
         assert _rel(out.float(), want.float()) <= ATTN_TOL
+
+
+# ---- K5 (the packed one-hot gather) and K6 (K5 as K1's prologue)
+def _planes(perm, m):
+    return tgather.make_packed_gather(perm, m).packed
+
+
+def _set_flags(monkeypatch, gather_kernel, igather_fused, fused_gather):
+    monkeypatch.setattr(tgather, "GATHER_KERNEL", gather_kernel)
+    monkeypatch.setattr(ttm, "IGATHER_FUSED", igather_fused)
+    monkeypatch.setattr(ttm, "FUSED_GATHER", fused_gather)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,m,K", [(1, 4096, 4096), (5, 200, 384), (40, 640, 1024),
+                                      (70, 300, 512), (512, 4096, 4096)])
+def test_onehot_matmul_kernel_bit_exact(cuda_device, rows, m, K, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + m + K)
+    perm = _perm(g, cuda_device, m, K, interleave=m in (200, 300))
+    gp = _planes(perm, m)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).to(dtype)
+    before = tkg.onehot_matmul.launches
+    got = tkg.onehot_matmul(x, gp)
+    torch.cuda.synchronize()
+    assert tkg.onehot_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (rows, K)
+    assert torch.equal(got, tkg.onehot_matmul_plain(x, gp))
+    assert torch.equal(got, tkg.onehot_gather(x, perm))  # K5 == K4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["few", "dense"])
+def test_onehot_matmul_kernel_is_x_at_g_for_any_planes(cuda_device, planes):
+    """Planes that are not a permutation are still x @ G (f32 order): "few"
+    (fields of 2, up to 3 ones in a column) takes K5's list of each lane's
+    fields, "dense" (half the fields set) its walk over G per row tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    m, D, K = 300, 384, 512
+    if planes == "dense":
+        codes = torch.randint(-1, 1, (K, D), generator=g, device=cuda_device, dtype=torch.int8)
+    else:
+        codes = torch.full((K, D), -1, device=cuda_device, dtype=torch.int8)
+        for _ in range(3):
+            codes[torch.arange(K, device=cuda_device),
+                  torch.randint(0, D, (K,), generator=g, device=cuda_device)] = 0
+    codes[::7, 5] = 1
+    gp = pack_ternary(codes, 128)
+    for rows in (1, 9, 70):
+        x = torch.randn((rows, m), generator=g, device=cuda_device)
+        got = tkg.onehot_matmul(x, gp)
+        assert _rel(got, tkg.onehot_matmul_plain(x, gp)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("B,m,K,n", [(1, 4096, 4096, 6144), (2, 4096, 4096, 4096),
+                                     (4, 200, 256, 256), (8, 4096, 4096, 28672),
+                                     (16, 640, 768, 384), (33, 512, 2048, 1152),
+                                     (64, 300, 512, 2176)])
+def test_gathered_kernel_matches_plain(cuda_device, B, m, K, n, a8):
+    g = torch.Generator(device=cuda_device).manual_seed(B + m + n)
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    gp = _planes(_perm(g, cuda_device, m, K, interleave=m in (200, 300)), m)
+    x = torch.randn((B, m), generator=g, device=cuda_device).bfloat16()
+    before = tk.ternary_matmul_gathered.launches
+    got = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+    torch.cuda.synchronize()
+    assert tk.ternary_matmul_gathered.launches == before + 1
+    want = tk.ternary_matmul_gathered_plain(x, gp, packed, alpha, mu, a8=a8)
+    assert got.shape == want.shape == (B, n) and _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_k5_k6_on_stacked_views(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    m, K, n, L = 384, 512, 256, 3
+    layers = [_layer(g, cuda_device, K, n, 128) for _ in range(L)]
+    packed, alpha, mu = (torch.stack([l[i] for l in layers]) for i in range(3))
+    perms = [_perm(g, cuda_device, m, K, interleave=True) for _ in range(L)]
+    gps = torch.stack([_planes(p, m) for p in perms])
+    x = torch.randn((4, m), generator=g, device=cuda_device).bfloat16()
+    for li in range(L):
+        assert torch.equal(tkg.onehot_matmul(x, gps[li]), tkg.onehot_gather(x, perms[li]))
+        got = tk.ternary_matmul_gathered(x, gps[li], packed[li], alpha[li], mu[li])
+        want = tk.ternary_matmul_gathered_plain(x, gps[li], *layers[li])
+        assert _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_k5_k6_wrappers_reject_what_their_kernels_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    perm = _perm(g, cuda_device, 256, 256)
+    gp = _planes(perm, 256)
+    x = torch.randn((4, 256), generator=g, device=cuda_device).bfloat16()
+    with pytest.raises(TypeError):  # K5: f16 x, int32 planes
+        tkg.onehot_matmul(x.half(), gp)
+    with pytest.raises(TypeError):
+        tkg.onehot_matmul(x, gp.int())
+    with pytest.raises(ValueError):  # K5: x wider than the planes' features
+        tkg.onehot_matmul(torch.zeros((4, 300), device=cuda_device).bfloat16(), gp)
+    with pytest.raises(ValueError):  # K5: lanes not a multiple of 128
+        tkg.onehot_matmul(x, gp[:, :96].contiguous())
+    packed, alpha, mu = _layer(g, cuda_device, 256, 128, 128)
+    with pytest.raises(ValueError):  # K6: more than 64 rows
+        tk.ternary_matmul_gathered(torch.zeros((65, 256), device=cuda_device).bfloat16(), gp,
+                                   packed, alpha, mu)
+    with pytest.raises(ValueError):  # K6: planes for another lane count
+        tk.ternary_matmul_gathered(x, _planes(_perm(g, cuda_device, 256, 384), 256),
+                                   packed, alpha, mu)
+    with pytest.raises(ValueError):  # K6: blocks of 64
+        p64, a64, m64 = _layer(g, cuda_device, 256, 128, 64)
+        tk.ternary_matmul_gathered(x, gp, p64, a64, m64, block_size=64)
+    with pytest.raises(TypeError):  # K6: f32 scales
+        tk.ternary_matmul_gathered(x, gp, packed, alpha.float(), mu.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["P1", "P2"])
+def test_no_fallback_when_k5_or_k6_cannot_launch(cuda_device, flags, monkeypatch):
+    """A layer whose planes K5 / K6 refuse raises on the route the flags
+    pick; nothing launches K4, K3 or K1 in its place, and the C entries
+    refuse what their wrappers would."""
+    _set_flags(monkeypatch, "packed", flags == "P1", flags == "P2")
+    cfg = get_config("tiny-llama").with_(dim=256, intermediate=1024)
+    params = random_ternary_params(cfg, seed=7, perm_mode="ssr", device=cuda_device)
+    lin = params["layers"]["qkv"].layer(0)
+    good = lin.gather.packed
+    # planes over 128 features for a 256-wide x: both wrappers refuse them
+    lin = dataclasses.replace(lin, gather=dataclasses.replace(lin.gather,
+                                                              packed=good[:32].contiguous()))
+    counts = lambda: (tk.ternary_matmul.launches, tk.ternary_matmul_igathered.launches,  # noqa: E731
+                      tkg.onehot_gather.launches, tkg.onehot_matmul.launches,
+                      tk.ternary_matmul_gathered.launches)
+    c0 = counts()
+    rows = 80 if flags == "P1" else 4  # P1: K5 at prefill rows; P2: K6 at decode rows
+    with pytest.raises(ValueError):
+        ttm.ternary_linear_apply(lin, torch.zeros((rows, 256), device=cuda_device).bfloat16())
+    assert counts() == c0
+    x = torch.zeros((4, 256), device=cuda_device).bfloat16()
+    out = torch.empty((4, 2048), device=cuda_device).bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    assert tkg._mm_kernel_lib().pt2_onehot_matmul(  # K = 96 lanes
+        x.data_ptr(), good.data_ptr(), out.data_ptr(), 4, 256, 64, 96, 2, dev,
+        stream) != 0
+    assert tk._gathered_kernel_lib().pt2_ternary_matmul_gathered(  # 65 rows
+        x.data_ptr(), good.data_ptr(), lin.packed.data_ptr(), lin.alpha.data_ptr(),
+        lin.mu.data_ptr(), out.data_ptr(), out.data_ptr(), 65, 256, 64, 2048, 768, 0, dev,
+        stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["P1", "P2"])
+def test_ssr_model_routes_through_k5_k6(cuda_device, flags, monkeypatch):
+    """The 256-wide "ssr" model of test_ssr_model_routes_through_k2_k3_k4
+    under GATHER_KERNEL "packed": the 80-row prefill gathers with K5, never
+    K4; decode runs K3 (P1) or K6 (P2) for qkv and o, K2 for the MLP, and
+    in W2A8 K3 / K6 for gateup too with K1 for down. P1's tokens equal the
+    default route's (K5 is bit-exact); every route stays within 1e-2 of
+    the plain logits."""
+    cfg = get_config("tiny-llama").with_(dim=256, intermediate=1024)
+    params = random_ternary_params(cfg, seed=4, perm_mode="ssr", device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    default = {impl: greedy_generate(cfg, params, tokens, 3, impl=impl) for impl in ("auto", "a8")}
+    _set_flags(monkeypatch, "packed", flags == "P1", flags == "P2")
+    counts = lambda: [tk.ternary_matmul.launches, tk.ternary_matmul_igathered.launches,  # noqa: E731
+                      tk.ternary_matmul_gathered.launches, tk.ternary_mlp.launches,
+                      tkg.onehot_gather.launches, tkg.onehot_matmul.launches]
+    L = cfg.n_layers
+    fused = "igathered" if flags == "P1" else "gathered"
+    for impl in ("auto", "a8"):
+        c0 = counts()
+        toks = greedy_generate(cfg, params, tokens, 3, impl=impl)  # 80-row prefill, 2 steps
+        got = dict(zip(["k1", "igathered", "gathered", "k2", "k4", "k5"],
+                       [b - a for a, b in zip(c0, counts())]))
+        # prefill K5 x3 + K1 x4 per layer; each step the fused gather for qkv
+        # and o, then K2 ("auto") or the fused gather for gateup + K1 (W2A8)
+        want = dict(k1=4 * L, igathered=0, gathered=0, k2=0, k4=0, k5=3 * L)
+        want[fused] = (2 if impl == "auto" else 3) * L * 2
+        want["k2" if impl == "auto" else "k1"] += L * 2
+        assert got == want, impl
+        if flags == "P1":
+            assert torch.equal(toks, default[impl])
+    with torch.inference_mode():
+        auto = tdec.forward(cfg, params, tokens[:, :20], impl="auto").float()  # 40 rows: K6 / K3
+        plain = tdec.forward(cfg, params, tokens[:, :20], impl="plain").float()
+    assert ((auto - plain).norm() / plain.norm()).item() <= 1e-2
