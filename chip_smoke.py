@@ -63,7 +63,18 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      "ssr" ServeEngine under the P2 flags (admission buckets <= 64 rows
      through K6, decode K6 at B 8 and K7) with exact counts and every answer
      held; and times K5 and K6 beside their plain versions, a PyTorch call
-     and their bytes bound.
+     and their bytes bound;
+  9. (K1's tensor-core slice) holds K1's mma.sync path
+     (csrc/ternary_matmul_tc.cu, routed by k1_path at bf16 rows >=
+     K1_TC_MIN_ROWS) against the plain version at the llama-2-7b and
+     llama-3-8b shapes, rows 16/17/64/100/128/512/1024, on packed[li] views
+     and with all-zero alpha blocks, with exact ternary_matmul.launches_tc
+     counts (W2A8 and decode rows launch it never); every 32-layer run above
+     holds launches_tc to its prefill launches (decode adds none); A/Bs
+     lockstep prefill tok/s (llama-2-7b) and the "down" engine's t_admit_s
+     with K1_TC_MIN_ROWS rebound above any row count for the "before" runs
+     (tc, CUDA cores, CUDA cores, tc, ...); and times both of K1's kernels
+     through their C entries at 1-512 rows beside dense torch.matmul.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -105,6 +116,7 @@ TOKEN_TOL = 2e-2  # greedy pick must be a max of the plain logits within 2% of m
 # step. The kernels themselves are held per call at KERNEL_TOL on the route.
 A8_TOLS = (5e-2, 5e-2)
 COLD_BYTES = 150e6  # timing operands rotate over more than the 50 MB L2
+K1_ROWS = (1, 2, 4, 8, 12, 16, 64, 128, 512)  # K1's timed rows: decode, then prefill
 # K7 vs plain: the kernel rounds the unnormalised probabilities to bf16
 # relative to each chunk's maximum, the plain version relative to the row's
 # global maximum, so a p may land on the neighbouring bf16.
@@ -259,14 +271,25 @@ def main() -> None:
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        k1.ternary_matmul.launches_tc = 0
 
     def counts():
-        return {name: w.launches for name, w in wrappers.items()}
+        """Every wrapper's launches; K1's tensor-core launches (also in
+        "ternary_matmul") apart as "ternary_matmul_tc"."""
+        c = {name: w.launches for name, w in wrappers.items()}
+        c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
+        return c
+
+    run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
+
+    def tally(c):
+        for k, v in c.items():
+            run_totals[k] += v
 
     # ---- build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
-               "onehot_matmul", "ternary_matmul_gathered"]
+               "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -282,15 +305,17 @@ def main() -> None:
     # ---- 1. K1 vs its plain version at the llama-2-7b shapes
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def rand_layer(K, n, L=None):
+    def rand_layer(K, n, L=None, gen=None):
+        gen = gen or g
         lead = () if L is None else (L,)
-        codes = torch.randint(-1, 2, lead + (n, K), generator=g, device=dev, dtype=torch.int8)
+        codes = torch.randint(-1, 2, lead + (n, K), generator=gen, device=dev, dtype=torch.int8)
         packed = (pack_ternary(codes) if L is None
                   else torch.stack([pack_ternary(c) for c in codes]))
         nb = K // 128
-        alpha = ((0.8 + 0.4 * torch.rand(lead + (nb, n), generator=g, device=dev))
+        alpha = ((0.8 + 0.4 * torch.rand(lead + (nb, n), generator=gen, device=dev))
                  / math.sqrt(K)).bfloat16()
-        mu = (0.02 / math.sqrt(K) * torch.randn(lead + (nb, n), generator=g, device=dev)).bfloat16()
+        mu = (0.02 / math.sqrt(K) * torch.randn(lead + (nb, n), generator=gen, device=dev)
+              ).bfloat16()
         return packed, alpha, mu
 
     def rand_perm(m, K, interleave=False):
@@ -302,8 +327,9 @@ def main() -> None:
             perm = perm[torch.randperm(K, generator=g, device=dev)]
         return perm.to(torch.int32)
 
-    max_err = 0.0
+    max_err = 0.0  # K1's CUDA-core kernel; its tensor-core kernel's in tc_err
     checks = 0
+    tc_err, tc_checks = 0.0, 0
     for name, K, n in SHAPES + SHAPES_8B_K1:
         packed, alpha, mu = rand_layer(K, n)
         for B in (1, 2, 4, 16, 512):
@@ -318,7 +344,10 @@ def main() -> None:
                 if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
                     fail(f"K1 {name} B={B} a8={a8}: max|err| {err:.3e} > "
                          f"{KERNEL_TOL} x max|ref| {scale:.3e}")
-                max_err = max(max_err, err)
+                if k1.k1_path(B, n, 128, a8) == "tc":
+                    tc_err = max(tc_err, err)
+                else:
+                    max_err = max(max_err, err)
                 checks += 1
     packed, alpha, mu = rand_layer(4096, 4096, L=2)
     x = torch.randn((16, 4096), generator=g, device=dev).bfloat16()
@@ -328,12 +357,65 @@ def main() -> None:
         err = (got - want).abs().max().item()
         if not err <= KERNEL_TOL * want.abs().max().item():
             fail(f"K1 on packed[{li}] view: max|err| {err:.3e}")
-        max_err = max(max_err, err)
+        tc_err = max(tc_err, err)
         checks += 1
     record["k1_checks"] = checks
     record["k1_max_abs_err"] = max_err
     print(f"K1 vs plain: {checks} checks (7 shapes x B 1/2/4/16/512 x bf16/a8 + 2 stacked views) "
-          f"within {KERNEL_TOL} x max|ref|; max|err| {max_err:.3e}")
+          f"within {KERNEL_TOL} x max|ref|; max|err| {max_err:.3e} (CUDA cores), {tc_err:.3e} "
+          "(tensor cores: bf16 at 16 and 512 rows)")
+    del packed, alpha, mu, x
+
+    # ---- 1b. K1's tensor-core path vs the plain version: the llama-2-7b and
+    # llama-3-8b shapes at prefill row counts, a stacked view, all-zero alpha
+    # blocks; launches_tc must rise by exactly one per call it routes. Its
+    # own generator leaves the later phases' draws as they were
+    gt = torch.Generator(device=dev).manual_seed(7)
+
+    def tc_held(label, x, packed, alpha, mu, want_tc=True, a8=False):
+        nonlocal tc_err, tc_checks
+        c0, t0_ = k1.ternary_matmul.launches, k1.ternary_matmul.launches_tc
+        got = k1.ternary_matmul(x, packed, alpha, mu, a8=a8)
+        want = (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain)(x, packed, alpha, mu)
+        torch.cuda.synchronize()
+        if (k1.ternary_matmul.launches - c0, k1.ternary_matmul.launches_tc - t0_) != (1, int(want_tc)):
+            fail(f"K1 {label}: launches +{k1.ternary_matmul.launches - c0}, tensor-core "
+                 f"+{k1.ternary_matmul.launches_tc - t0_}, want +1 / +{int(want_tc)}")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
+            fail(f"K1 {label}: max|err| {err:.3e} > {KERNEL_TOL} x max|ref| {scale:.3e}")
+        if want_tc:
+            tc_err = max(tc_err, err)
+            tc_checks += 1
+
+    if not 8 < k1.K1_TC_MIN_ROWS <= 16:
+        fail(f"K1_TC_MIN_ROWS {k1.K1_TC_MIN_ROWS}: the checks below expect 8 rows on the CUDA "
+             "cores and 16 on the tensor cores")
+    for name, K, n in SHAPES + SHAPES_8B_K1:
+        packed, alpha, mu = rand_layer(K, n, gen=gt)
+        for B in (16, 17, 64, 100, 128, 512, 1024):
+            x = torch.randn((B, K), generator=gt, device=dev).bfloat16()
+            tc_held(f"tc {name} rows={B}", x, packed, alpha, mu)
+        # W2A8 and decode rows stay on the CUDA-core kernel
+        x = torch.randn((512, K), generator=gt, device=dev).bfloat16()
+        tc_held(f"{name} rows=512 a8", x, packed, alpha, mu, want_tc=False, a8=True)
+        tc_held(f"{name} rows=8", x[:8], packed, alpha, mu, want_tc=False)
+    packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=gt)
+    x = torch.randn((512, 4096), generator=gt, device=dev).bfloat16()
+    for li in (0, 1):
+        tc_held(f"tc packed[{li}] view", x, packed[li], alpha[li], mu[li])
+    # all-zero alpha (and mu) blocks, as the pad blocks of a padded layer
+    packed, alpha, mu = rand_layer(12288, 4096, gen=gt)
+    alpha[::3] = 0
+    mu[::6] = 0
+    x = torch.randn((100, 12288), generator=gt, device=dev).bfloat16()
+    tc_held("tc zero-alpha blocks (down)", x, packed, alpha, mu)
+    record["k1_tc_checks"] = tc_checks
+    record["k1_tc_max_abs_err"] = tc_err
+    print(f"K1 tensor-core path vs plain: {tc_checks} checks (7 shapes x rows "
+          f"16/17/64/100/128/512/1024 + 2 stacked views + zero-alpha blocks) within {KERNEL_TOL} x "
+          f"max|ref|; max|err| {tc_err:.3e}; launches_tc exact, none for W2A8 or 8 rows")
     del packed, alpha, mu, x
 
     # ---- 2. K4, K3 and K2 vs their plain versions
@@ -514,6 +596,20 @@ def main() -> None:
             yield
         finally:
             tgather.GATHER_KERNEL, ttm.IGATHER_FUSED, ttm.FUSED_GATHER = saved
+
+    @contextlib.contextmanager
+    def k1_tc(on):
+        """K1's tensor-core path as routed (on), or K1_TC_MIN_ROWS rebound
+        above any row count so that every K1 call takes the CUDA cores."""
+        saved = k1.K1_TC_MIN_ROWS
+        if not on:
+            k1.K1_TC_MIN_ROWS = 1 << 30
+        try:
+            yield
+        finally:
+            k1.K1_TC_MIN_ROWS = saved
+
+    TC_AB = (True, False, False, True, True, False)  # in turns: tc, CUDA cores, ...
 
     @contextlib.contextmanager
     def swapped(make):
@@ -718,12 +814,12 @@ def main() -> None:
                 logits = tdec.unembed(cfg, params, h)
         return logits[0, len(prompt) - 1 :].float()
 
-    def answers_held(label, prompts_, answers_, kvq, rivals=None, impl="auto"):
+    def answers_held(label, prompts_, answers_, kvq, rivals=None, impl="auto", hold=True):
         """Each answer's greedy picks held to TOKEN_TOL under its teacher-forced
-        reference. With ``rivals`` (other streams for the same prompts), where
-        a rival first differs from the answer: the reference's logit margin
-        between the two picks there, over max|logit|. Returns (worst pick gap,
-        margins)."""
+        reference (``hold`` False: measured, not held). With ``rivals`` (other
+        streams for the same prompts), where a rival first differs from the
+        answer: the reference's logit margin between the two picks there, over
+        max|logit|. Returns (worst pick gap, margins)."""
         c0 = counts()
         worst, margins = 0.0, []
         for i, (p, ids) in enumerate(zip(prompts_, answers_)):
@@ -737,7 +833,7 @@ def main() -> None:
             del lf
         if counts() != c0:
             fail(f"{label}: the teacher-forced reference launched a kernel")
-        if worst > TOKEN_TOL:
+        if hold and worst > TOKEN_TOL:
             fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
                  f"max|logit| (> {TOKEN_TOL})")
         return worst, margins
@@ -762,6 +858,7 @@ def main() -> None:
             got, want = counts(), want_fn(impl)
             if got != want:
                 fail(f"main path {label} {impl}: launches {got}, want {want}")
+            tally(got)
             if tuple(toks.shape) != (B, new) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
                 fail(f"main path {label} {impl}: bad tokens {tuple(toks.shape)}")
             runs[impl] = {"wall_s": wall, "launches": got, "tokens": toks.tolist()}
@@ -793,16 +890,47 @@ def main() -> None:
         torch.cuda.synchronize()
         return cfg, params, time.perf_counter() - t0
 
-    # 4. llama-2-7b, "down" layout: K1 alone, 4 per layer at prefill and each step
+    # 4. llama-2-7b, "down" layout: K1 alone, 4 per layer at prefill and each
+    # step; the 512-row bf16 prefill on the tensor cores, decode (4 rows) and
+    # W2A8 on the CUDA cores
     cfg, params, record["model_build_s"] = build("llama-2-7b", "down", 2)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
-    none = dict.fromkeys(wrappers, 0)
+    none = dict.fromkeys(counts(), 0)
     runs = drive(cfg, params, "llama-2-7b", ("auto", "a8"),
-                 lambda impl: dict(none, ternary_matmul=4 * L * new), prompts)
+                 lambda impl: dict(none, ternary_matmul=4 * L * new,
+                                   ternary_matmul_tc=4 * L if impl == "auto" else 0), prompts)
     record["main_path"] = runs
-    main_launches = {"ternary_matmul": sum(r["launches"]["ternary_matmul"] for r in runs.values())}
+    main_launches = {  # K1's two kernels apart: "ternary_matmul" counts both
+        "ternary_matmul": sum(r["launches"]["ternary_matmul"] - r["launches"]["ternary_matmul_tc"]
+                              for r in runs.values()),
+        "ternary_matmul_tc": sum(r["launches"]["ternary_matmul_tc"] for r in runs.values())}
     record["decode_step"] = profile_decode_step(cfg, params, prompts, Lp, new, dev, "llama-2-7b down")
+
+    # lockstep prefill (4 x 128 ids = 512 rows per projection) with K1 on the
+    # tensor cores and with every K1 call on the CUDA cores, in turns
+    pre_ab = {"tc": [], "cuda_core": []}
+    for on in TC_AB:
+        zero_counts()
+        with k1_tc(on), torch.inference_mode():
+            cache = init_cache(cfg, B, Lp + new, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = forward_cached(cfg, params, prompts, cache, 0, "auto")
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+        c = counts()
+        if (c["ternary_matmul"], c["ternary_matmul_tc"]) != (4 * L, 4 * L if on else 0) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill A/B tc={on}: launches {c} or logits not finite")
+        tally(c)
+        pre_ab["tc" if on else "cuda_core"].append(B * Lp / pre_s)
+        del cache, logits
+    record["prefill_ab"] = pre_ab
+    print(f"lockstep prefill llama-2-7b down {B}x{Lp} ids, 32 layers, K1 on the tensor cores / on "
+          f"the CUDA cores (in turns tc, cc, cc, tc, tc, cc): "
+          f"{' / '.join(f'{v:.1f}' for v in pre_ab['tc'])} tok/s vs "
+          f"{' / '.join(f'{v:.1f}' for v in pre_ab['cuda_core'])} tok/s on {record['smi']}")
     del params
     torch.cuda.empty_cache()
 
@@ -813,8 +941,9 @@ def main() -> None:
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     want_ssr = {
-        "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_igathered=2 * L * steps,
-                     ternary_mlp=L * steps, onehot_gather=3 * L),
+        "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
+                     ternary_matmul_igathered=2 * L * steps, ternary_mlp=L * steps,
+                     onehot_gather=3 * L),
         "a8": dict(none, ternary_matmul=4 * L + L * steps,
                    ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
     }
@@ -834,8 +963,8 @@ def main() -> None:
     for flags_name, flags, fused in (("P1", P1, "ternary_matmul_igathered"),
                                      ("P2", P2, "ternary_matmul_gathered")):
         want_p = {
-            "auto": dict(none, ternary_matmul=4 * L, ternary_mlp=L * steps, onehot_matmul=3 * L,
-                         **{fused: 2 * L * steps}),
+            "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
+                         onehot_matmul=3 * L, **{fused: 2 * L * steps}),
             "a8": dict(none, ternary_matmul=4 * L + L * steps, onehot_matmul=3 * L,
                        **{fused: 3 * L * steps}),
         }
@@ -885,11 +1014,12 @@ def main() -> None:
     # K6 x2 + K2 + K7 per layer
     short = sum(min(_bucket(n), ENGINE_M) <= 64 for n in e_lens)
     want = dict(none, ternary_matmul_gathered=2 * L * (st + short), ternary_mlp=L * (st + short),
-                ternary_matmul=4 * L * (16 - short), onehot_matmul=3 * L * (16 - short),
-                decode_attention=L * st)
+                ternary_matmul=4 * L * (16 - short), ternary_matmul_tc=4 * L * (16 - short),
+                onehot_matmul=3 * L * (16 - short), decode_attention=L * st)
     got = counts()
     if got != want:
         fail(f"engine ssr P2: launches {got}, want {want}")
+    tally(got)
     if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
                for r, m in zip(reqs, e_news)):
         fail("engine ssr P2: a request did not finish with max_new valid tokens")
@@ -914,7 +1044,8 @@ def main() -> None:
     # the same model in the "down" layout: K2 without its gather; K1 runs
     # qkv and o only at each decode step (2 per layer and step fewer)
     cfg, params, _ = build("llama-3-8b", "down", 5)
-    want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_mlp=L * steps)
+    want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
+                     ternary_mlp=L * steps)
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
 
@@ -923,20 +1054,23 @@ def main() -> None:
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
-    def engine_want(eng, prompts_, k7_on=True):
+    def engine_want(eng, prompts_, k7_on=True, tc_on=True):
         """Launches the routing implies: each admission prefills its bucket
-        (qkv, o through K1; the MLP through K2 at <= 64 rows, else K1 x2);
-        each decode step K1 x2 + K2 + K7 per layer (K7 none when it is off)."""
+        (>= 64 rows: qkv, o through K1 on the tensor cores; the MLP through
+        K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
+        CUDA cores + K2 + K7 per layer (K7 none when it is off). With tc_on
+        False (K1_TC_MIN_ROWS rebound) no launch takes the tensor cores."""
         st = eng.stats["steps"]
-        k1n, k2n = 2 * L * st, L * st
+        tc, k2n = 0, L * st
         for p in prompts_:
             Lb = min(_bucket(len(p)), ENGINE_M)
-            k1n += 2 * L + (2 * L if Lb > 64 else 0)
+            tc += 2 * L + (2 * L if Lb > 64 else 0)
             k2n += L if Lb <= 64 else 0
-        return dict(none, ternary_matmul=k1n, ternary_mlp=k2n,
-                    decode_attention=L * st if k7_on else 0)
+        return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
+                    ternary_mlp=k2n, decode_attention=L * st if k7_on else 0)
 
-    def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True):
+    def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
+                   tc_on=True):
         eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
                           decode_quantum=quantum, seed=seed)
         reqs = [eng.submit(p, m, sampling=sampling) for p, m in zip(prompts_, news_)]
@@ -946,9 +1080,10 @@ def main() -> None:
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got, want = counts(), engine_want(eng, prompts_, k7_on)
+        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on)
         if got != want:
             fail(f"engine {label}: launches {got}, want {want}")
+        tally(got)
         if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
                    for r, m in zip(reqs, news_)):
             fail(f"engine {label}: a request did not finish with max_new valid tokens")
@@ -976,6 +1111,29 @@ def main() -> None:
             fail(f"engine int8={kvq}: quantum 8 tokens differ from quantum 1")
     main_launches["decode_attention"] = k7_main
     print("engine: quantum 8 token-identical to quantum 1 (bf16 and int8 KV)")
+
+    # the same engine run (bf16 KV, quantum 1) with K1's tensor-core path on
+    # and off, in turns: admission prefills are where K1 spends its rows
+    eng_ab = {"tc": [], "cuda_core": []}
+    for on in TC_AB[:4]:
+        with k1_tc(on):
+            res, ab_out = run_engine(
+                f"llama-3-8b down bf16 KV quantum 1, K1 {'tensor cores' if on else 'CUDA cores'}",
+                False, 1, eng_prompts, eng_news, tc_on=on)
+        res["admit_share"] = res["t_admit_s"] / res["wall_s"]
+        res["streams_equal_to_main_run"] = sum(a == b for a, b in zip(ab_out, outs[(False, 1)]))
+        if not on and not eng_ab["cuda_core"]:  # the CUDA-core route's answers, measured
+            res["worst_pick_gap"], _ = answers_held("engine bf16 KV answers, K1 on the CUDA cores",
+                                                    eng_prompts, ab_out, False, hold=False)
+        eng_ab["tc" if on else "cuda_core"].append(res)
+    record["engine_ab"] = eng_ab
+    for k, v in eng_ab.items():
+        each = lambda key, scale=1.0: " / ".join(f"{scale * r[key]:.2f}" for r in v)  # noqa: E731
+        print(f"engine A/B, K1 {k}: t_admit_s {each('t_admit_s')} s of a wall of "
+              f"{each('wall_s')} s (admission {each('admit_share', 100.0)} %), {each('tok_s')} "
+              f"tok/s; streams equal to the main run's: "
+              f"{[r['streams_equal_to_main_run'] for r in v]}; worst pick gap under the "
+              f"teacher-forced plain max {[r.get('worst_pick_gap') for r in v if 'worst_pick_gap' in r]}")
 
     # every engine answer (quantum 1) held under its teacher-forced reference:
     # bf16 KV under the plain forward, int8 KV under a forward through an int8
@@ -1100,6 +1258,7 @@ def main() -> None:
     # ---- 6. timings (cold weights: rotate > L2), CUDA events over back-to-back
     # launches of the C entry points (no Python wrapper in the loop)
     lib = k1._kernel_lib()
+    tc_lib = k1._tc_kernel_lib()
     mlp_lib = k1._mlp_kernel_lib()
     gather_lib = k4._kernel_lib()
     mm_lib = k4._mm_kernel_lib()
@@ -1142,29 +1301,60 @@ def main() -> None:
         copies = max(1, math.ceil(COLD_BYTES / (2 * K * n)))
         return [torch.randn((K, n), generator=g, device=dev).bfloat16() for _ in range(copies)]
 
-    detail = []
+    # K1's two kernels through their C entries at decode and prefill rows:
+    # "K1" the CUDA cores, "K1tc" the tensor cores (its row sums included)
+    detail, tc_detail = [], []
     for name, K, n in SHAPES:
         wbytes = K * n // 4 + 4 * (K // 128) * n
         copies = max(1, math.ceil(COLD_BYTES / wbytes))
         layers = [rand_layer(K, n) for _ in range(copies)]
         dn = dense(K, n)
-        for B in (1, 16):
+        for B in K1_ROWS:
             x = torch.randn((B, K), generator=g, device=dev).bfloat16()
             out = torch.empty((B, n), dtype=torch.float32, device=dev)
+            sums = torch.empty((K // 128, -(-B // 128) * 128), dtype=torch.float32, device=dev)
 
             def kern(i):
                 p, a, m = layers[i % copies]
                 ok(lib.pt2_ternary_matmul(x.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(),
                                           out.data_ptr(), B, K, n, 128, 0, dix, stream), "K1")
 
-            ms = time_ms(kern, 50)
-            plain_ms = time_ms(lambda i: k1.ternary_matmul_plain(x, *layers[i % copies]), 5)
-            lib_ms = time_ms(lambda i: torch.matmul(x, dn[i % len(dn)]), 50)
-            detail.append(row("K1", name, B, ms, plain_ms, lib_ms,
-                              K * n / 4 + 4 * (K // 128) * n + 2 * B * K + 4 * B * n,
-                              2.0 * B * K * n, K=K, n=n))
+            def kern_tc(i):
+                p, a, m = layers[i % copies]
+                ok(tc_lib.pt2_ternary_matmul_tc(
+                    x.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(), sums.data_ptr(),
+                    out.data_ptr(), B, sums.shape[1], K, n, 128, dix, stream), "K1 tc")
+
+            iters = 50 if B <= 16 else 20
+            ms = time_ms(kern, iters)
+            tc_ms = time_ms(kern_tc, iters)
+            plain_ms = time_ms(lambda i: k1.ternary_matmul_plain(x, *layers[i % copies]), 3)
+            lib_ms = time_ms(lambda i: torch.matmul(x, dn[i % len(dn)]), iters)
+            nbytes = K * n / 4 + 4 * (K // 128) * n + 2 * B * K + 4 * B * n
+            detail.append(row("K1", name, B, ms, plain_ms, lib_ms, nbytes, 2.0 * B * K * n,
+                              K=K, n=n))
+            tc_detail.append(row("K1tc", name, B, tc_ms, plain_ms, lib_ms, nbytes,
+                                 2.0 * B * K * n, K=K, n=n))
         del layers, dn
     record["k1_timing"] = detail
+    record["k1_tc_timing"] = tc_detail
+    per_layer = {}
+    for B in K1_ROWS:
+        cc_r = [d for d in detail if d["B"] == B]
+        tc_r = [d for d in tc_detail if d["B"] == B]
+        per_layer[B] = {k: sum(d[k] for d in cc_r) for k in ("ms", "library_ms", "bound_ms")}
+        per_layer[B]["tc_ms"] = sum(d["ms"] for d in tc_r)
+        v = per_layer[B]
+        print(f"K1, one llama-2-7b layer (4 projections) at {B:3d} rows: tensor cores "
+              f"{v['tc_ms'] * 1e3:8.1f} us | CUDA cores {v['ms'] * 1e3:9.1f} us | torch.matmul "
+              f"{v['library_ms'] * 1e3:7.1f} us | bound {v['bound_ms'] * 1e3:7.1f} us")
+    # the fewest rows from which the tensor cores win at every timed row count
+    wins = [B for B in K1_ROWS if all(per_layer[b]["tc_ms"] < per_layer[b]["ms"]
+                                      for b in K1_ROWS if b >= B)]
+    record["k1_per_layer"] = per_layer
+    record["k1_tc_from_rows"] = min(wins) if wins else None
+    print(f"K1: the tensor cores win from {record['k1_tc_from_rows']} rows on (timed rows "
+          f"{K1_ROWS}); K1_TC_MIN_ROWS = {k1.K1_TC_MIN_ROWS}")
 
     # K3 at llama-3-8b qkv / o; library: one dense bf16 matmul on pre-gathered x
     k3_detail = []
@@ -1400,7 +1590,8 @@ def main() -> None:
     record["k7_timing"] = k7_detail
 
     # ---- the record: per kernel, one layer of one step of its main path
-    # (K1 / K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
+    # (K1's tensor-core kernel at the 512-row prefill, 4 projections;
+    # K1's CUDA-core kernel / K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
     # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
     # M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
@@ -1418,6 +1609,9 @@ def main() -> None:
     kernels = [
         entry("ternary_matmul", "pt2tpu_torch/csrc/ternary_matmul.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", b1(detail), max_err),
+        entry("ternary_matmul_tc", "pt2tpu_torch/csrc/ternary_matmul_tc.cu",
+              "pt2tpu/ops/kernels/pallas_ternary.py:1354", [d for d in tc_detail if d["B"] == 512],
+              tc_err),
         entry("ternary_mlp", "pt2tpu_torch/csrc/ternary_mlp.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1106", b1(k2_detail), errs["ternary_mlp"]),
         entry("ternary_matmul_igathered", "pt2tpu_torch/csrc/ternary_matmul.cu",
@@ -1437,6 +1631,11 @@ def main() -> None:
               errs["ternary_matmul_gathered"]),
     ]
     record["kernels"] = kernels
+    record["launches_all_runs"] = run_totals
+    print(f"launches over every 32-layer run (each counted exactly): {run_totals}")
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        fail(f"no launch on the main paths for {idle}")
     record["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

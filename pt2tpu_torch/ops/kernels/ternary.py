@@ -1,8 +1,10 @@
 """The packed-ternary kernels K1, K3, K6 and K2: plain versions and wrappers.
 
-  * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul
-    (``csrc/ternary_matmul.cu``; replaces
-    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``).
+  * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul (replaces
+    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``), on two
+    paths chosen by shape (:func:`k1_path`): the CUDA cores
+    (``csrc/ternary_matmul.cu``) for decode rows and W2A8, the tensor cores
+    (``csrc/ternary_matmul_tc.cu``) for bf16 rows >= :data:`K1_TC_MIN_ROWS`.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
     (same source; replaces ``ternary_matmul_pallas_igathered``).
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
@@ -33,6 +35,8 @@ from . import _build
 from .gather import onehot_gather_plain, onehot_matmul_plain
 
 __all__ = [
+    "K1_TC_MIN_ROWS",
+    "k1_path",
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
@@ -190,7 +194,28 @@ def ternary_mlp_plain(
     return ternary_matmul_plain(mid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
 
 
+K1_TC_MIN_ROWS = 9
+"""The fewest rows K1 runs on the tensor cores. ``chip_smoke.py`` times both
+kernels at 1-512 rows; on an H100 the tensor cores were faster at every
+one. Decode (<= 8 rows: the engine's 8 slots, lockstep batches) keeps the
+CUDA-core kernel all the same, so that only prefill and admission rows
+move here; routing decode rows there is a change of its own, with its own
+A/B of decode. Read at each call."""
+
+
+def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
+    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA: "tc"
+    (``pt2_ternary_matmul_tc``, mma.sync) for bf16 rows >= K1_TC_MIN_ROWS
+    with scale blocks and out_features that are multiples of 128, else
+    "cuda_core" (``pt2_ternary_matmul``)."""
+    if (not a8 and block_size % 128 == 0 and n % 128 == 0
+            and rows >= K1_TC_MIN_ROWS):
+        return "tc"
+    return "cuda_core"
+
+
 _lib = None
+_tc_lib = None
 _mlp_lib = None
 _gathered_lib = None
 
@@ -207,6 +232,17 @@ def _kernel_lib():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _tc_kernel_lib():
+    global _tc_lib
+    if _tc_lib is None:
+        lib = _build.load("ternary_matmul_tc")
+        fn = lib.pt2_ternary_matmul_tc
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _tc_lib = lib
+    return _tc_lib
 
 
 def _mlp_kernel_lib():
@@ -286,8 +322,10 @@ def ternary_matmul(
     """out = x @ dequant(packed, alpha, mu): (B, K) x (K//4, n) -> (B, n) f32.
 
     CUDA: launches K1 on the current stream (x cast to bf16, or normalised
-    for W2A8) and counts the launch in ``ternary_matmul.launches``. CPU:
-    the plain version, with x as given (f32 compute, as JAX on the CPU).
+    for W2A8) on the path :func:`k1_path` names, and counts the launch in
+    ``ternary_matmul.launches`` (the tensor-core path also in
+    ``ternary_matmul.launches_tc``). CPU: the plain version, with x as given
+    (f32 compute, as JAX on the CPU).
     """
     if x.device.type == "cpu":
         fn = ternary_matmul_plain_a8 if a8 else ternary_matmul_plain
@@ -305,6 +343,8 @@ def ternary_matmul(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
+    if k1_path(B, n, block_size, a8) == "tc":
+        return _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size)
     rc = _kernel_lib().pt2_ternary_matmul(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         out.data_ptr(), B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
@@ -316,6 +356,29 @@ def ternary_matmul(
 
 
 ternary_matmul.launches = 0
+ternary_matmul.launches_tc = 0
+
+
+def _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size):
+    """K1's tensor-core path: x's per-block row sums into an f32 scratch,
+    then the mma.sync kernel (16-byte cp.async loads of every operand)."""
+    B, K = xk.shape
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
+        raise ValueError("K1's tensor-core path needs 16-byte aligned packed, alpha and mu")
+    sums = torch.empty((K // block_size, -(-B // 128) * 128), dtype=torch.float32,
+                       device=xk.device)
+    rc = _tc_kernel_lib().pt2_ternary_matmul_tc(
+        xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), sums.data_ptr(),
+        out.data_ptr(), B, sums.shape[1], K, packed.shape[1], block_size,
+        *_device_and_stream(xk),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K1 (tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul.launches += 1
+    ternary_matmul.launches_tc += 1
+    return out
 
 
 def ternary_matmul_igathered(

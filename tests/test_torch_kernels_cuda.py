@@ -1,4 +1,5 @@
-"""K1-K7 on the card against their plain versions. Needs an NVIDIA GPU;
+"""K1-K7 on the card against their plain versions (K1 on both of its
+kernels: the CUDA cores and, at prefill rows, the tensor cores). Needs an NVIDIA GPU;
 every test skips without one. This file imports neither JAX nor the JAX
 package, so on a machine without JAX it runs as
 
@@ -114,6 +115,118 @@ def test_tiny_model_kernel_vs_plain(cuda_device, name):
     assert tk.ternary_matmul.launches == before + 4 * cfg.n_layers
     rel = ((auto - plain).norm() / plain.norm()).item()
     assert rel <= 1e-2  # bf16 activations round at different points
+
+
+# K1's tensor-core path (csrc/ternary_matmul_tc.cu) at the llama-2-7b
+# projections (down padded to 96 blocks, gateup to 2 x 11264) and the
+# llama-3-8b ones, at prefill row counts
+TC_SHAPES = {"7b qkv": (4096, 12288), "7b o / 8b o": (4096, 4096), "7b gateup": (4096, 22528),
+             "7b down": (12288, 4096), "8b qkv": (4096, 6144), "8b gateup": (4096, 28672),
+             "8b down": (14336, 4096)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 17, 64, 100, 128, 512, 1024])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_tc_path_matches_plain(cuda_device, shape, rows):
+    K, n = TC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(rows + K + n)
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    x = torch.randn((rows, K), generator=g, device=cuda_device).bfloat16()
+    assert tk.k1_path(rows, n, 128, False) == "tc"
+    before = (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc)
+    got = tk.ternary_matmul(x, packed, alpha, mu)
+    torch.cuda.synchronize()
+    assert (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc) == (before[0] + 1,
+                                                                           before[1] + 1)
+    want = tk.ternary_matmul_plain(x, packed, alpha, mu)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_tc_path_on_stacked_view_and_zero_alpha_blocks(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    layers = [_layer(g, cuda_device, 2048, 1024, 128) for _ in range(3)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    x = torch.randn((300, 2048), generator=g, device=cuda_device).bfloat16()
+    for li in range(3):
+        assert _rel(tk.ternary_matmul(x, packed[li], alpha[li], mu[li]),
+                    tk.ternary_matmul_plain(x, *layers[li])) <= TOL
+    # zero-scaled blocks, as a padded layer's pad blocks (alpha and mu both
+    # 0) or blocks whose codes carry no scale (alpha 0, mu not)
+    p, a, m = layers[0]
+    a, m = a.clone(), m.clone()
+    a[::3] = 0
+    m[::6] = 0
+    got = tk.ternary_matmul(x, p, a, m)
+    assert _rel(got, tk.ternary_matmul_plain(x, p, a, m)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,bs,a8,tc", [
+    (512, 1024, 128, False, True), (16, 1024, 128, False, True), (8, 1024, 128, False, False),
+    (1, 1024, 128, False, False), (512, 1024, 128, True, False), (512, 992, 128, False, False),
+    (512, 1024, 64, False, False), (512, 1024, 256, False, True),
+])
+def test_k1_launches_tc_count_exactly(cuda_device, rows, n, bs, a8, tc):
+    """launches counts every K1 launch and launches_tc the tensor-core ones:
+    W2A8, decode rows and shapes outside k1_path stay on the CUDA cores."""
+    assert (tk.k1_path(rows, n, bs, a8) == "tc") == tc
+    g = torch.Generator(device=cuda_device).manual_seed(rows + n + bs)
+    packed, alpha, mu = _layer(g, cuda_device, 1024, n, bs)
+    x = torch.randn((rows, 1024), generator=g, device=cuda_device).bfloat16()
+    before = (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc)
+    got = tk.ternary_matmul(x, packed, alpha, mu, block_size=bs, a8=a8)
+    torch.cuda.synchronize()
+    assert (tk.ternary_matmul.launches - before[0], tk.ternary_matmul.launches_tc - before[1]) \
+        == (1, int(tc))
+    plain = tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain
+    assert _rel(got, plain(x, packed, alpha, mu, bs)) <= TOL
+
+
+@pytest.mark.cuda
+def test_tc_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A tensor-core launch that fails raises; neither the CUDA-core kernel
+    nor the plain version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_tc(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def no_cuda_core():
+        raise AssertionError("the CUDA-core kernel was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    x = torch.randn((64, 512), generator=g, device=cuda_device).bfloat16()
+    monkeypatch.setattr(tk, "_tc_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_kernel_lib", no_cuda_core)
+    before = (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc)
+    with pytest.raises(RuntimeError, match="tensor cores"):
+        tk.ternary_matmul(x, packed, alpha, mu)
+    assert (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc) == before
+
+
+@pytest.mark.cuda
+def test_tc_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    x = torch.randn((64, 512), generator=g, device=cuda_device).bfloat16()
+    out = torch.empty((64, 256), device=cuda_device)
+    sums = torch.empty((4, 128), device=cuda_device)
+    fn = tk._tc_kernel_lib().pt2_ternary_matmul_tc
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    ptrs = [t.data_ptr() for t in (x, packed, alpha, mu, sums, out)]
+    assert fn(*ptrs, 64, 128, 512, 256, 128, dev, stream) == 0
+    torch.cuda.synchronize()
+    assert _rel(out, tk.ternary_matmul_plain(x, packed, alpha, mu)) <= TOL
+    for B, Bp, K, n, bs in ((64, 128, 512, 256, 64), (64, 128, 512, 224, 128),
+                            (64, 64, 512, 256, 128), (129, 128, 512, 256, 128),
+                            (0, 128, 512, 256, 128), (64, 128, 384, 256, 256)):
+        assert fn(*ptrs, B, Bp, K, n, bs, dev, stream) != 0
+    assert fn(ptrs[0] + 2, *ptrs[1:], 64, 128, 512, 256, 128, dev, stream) != 0  # misaligned x
 
 
 def _perm(g, dev, m, K, interleave=False):

@@ -71,7 +71,9 @@ def _offset_rounding_bound(x, alpha, mu, bs):
     return s @ off * 2.0**-8
 
 
-@pytest.mark.parametrize("B", [8, 80])  # telescoped (B <= 64) and masked mode
+# telescoped (B <= 64) and masked mode; 17 and 256 are prefill-size row
+# counts, where the card runs K1's tensor-core path against this plain version
+@pytest.mark.parametrize("B", [8, 17, 80, 256])
 def test_plain_matches_pallas_interpret(B):
     from jax.experimental.pallas import tpu as pltpu
 
@@ -128,6 +130,36 @@ def test_plain_a8_matches_xla_a8(B):
     want = np.asarray(jtm.ternary_matmul_xla_a8(jnp.asarray(x), jnp.asarray(packed), alpha, mu))
     got = tk.ternary_matmul_plain_a8(_t(x), _t(packed), _t(alpha), _t(mu)).numpy()
     np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("n", [160, 256])  # 160: a multiple of 32, not of 128
+@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 8, 15, 16, 512])
+def test_k1_path(rows, a8, bs, n):
+    """K1's path is chosen by shape alone: the tensor cores for bf16 rows
+    >= K1_TC_MIN_ROWS with bs and n multiples of 128; decode rows (<= 8),
+    W2A8 and every other shape stay on the CUDA-core kernel."""
+    tc = not a8 and bs == 128 and n == 256 and rows >= tk.K1_TC_MIN_ROWS
+    assert tk.k1_path(rows, n, bs, a8) == ("tc" if tc else "cuda_core")
+    if rows <= 8 or a8 or bs == 64 or n == 160:
+        assert tk.k1_path(rows, n, bs, a8) == "cuda_core"
+
+
+def test_k1_path_reads_its_threshold_at_each_call(monkeypatch):
+    assert tk.K1_TC_MIN_ROWS > 8  # engine decode (B 8) keeps the CUDA-core kernel
+    assert tk.k1_path(512, 4096, 128, False) == "tc"
+    monkeypatch.setattr(tk, "K1_TC_MIN_ROWS", 1 << 30)  # chip_smoke's "before" runs
+    assert tk.k1_path(512, 4096, 128, False) == "cuda_core"
+
+
+def test_linear_route_names_k1_on_both_paths():
+    """linear_route names the wrapper, whichever of K1's kernels it picks."""
+    jp = jrand.random_ternary_linear(jax.random.PRNGKey(2), 256, 256, perm_mode="folded")
+    tp = to_port(jp)
+    for rows in (1, 512):
+        for impl in ("auto", "a8"):
+            assert ttm.linear_route(tp, rows, impl) == ("ternary_matmul",)
 
 
 def _bias(p, seed):
