@@ -74,7 +74,23 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      lockstep prefill tok/s (llama-2-7b) and the "down" engine's t_admit_s
      with K1_TC_MIN_ROWS rebound above any row count for the "before" runs
      (tc, CUDA cores, CUDA cores, tc, ...); and times both of K1's kernels
-     through their C entries at 1-512 rows beside dense torch.matmul.
+     through their C entries at 1-512 rows beside dense torch.matmul;
+ 10. (K1's W2A8 tensor-core slice) holds K1's s8 mma.sync path
+     (csrc/ternary_matmul_tc_a8.cu, routed by k1_path at W2A8 rows >=
+     K1_TC_MIN_ROWS) against ternary_matmul_plain_a8 at the llama-2-7b and
+     llama-3-8b shapes, rows 9/16/17/64/100/128/512/1024, on packed[li]
+     views, with all-zero alpha blocks, an all-zero row and rows whose
+     normalised values are half-integers, with exact
+     ternary_matmul.launches_tc_a8 counts (decode rows launch it never);
+     every 32-layer W2A8 run above holds launches_tc_a8 to its prefill
+     launches; A/Bs, in turns (on, off, off, on), the lockstep W2A8 prefill
+     (llama-2-7b, phase 4) and the "down" engine under W2A8 (phase 5b:
+     impl "a8", bf16 KV, quantum 1, then once with K7 off; every answer held
+     to A8_TOLS' pick gap under the teacher-forced W2A8 route on plain
+     versions); and times it through its
+     C entry at 1-512 rows (phase 6) beside the CUDA-core kernel in W2A8,
+     torch._int_mm on int8 xq and the dense int8 codes, and the int8
+     operations bound.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -140,16 +156,16 @@ def smi() -> str:
 
 
 def card_peaks(name: str):
-    """(memory bytes/s, bf16 dense op/s) from the data sheet."""
+    """(memory bytes/s, bf16 dense op/s, int8 dense op/s) from the data sheet."""
     n = name.upper()
     if "H200" in n:
-        return 4.8e12, 989e12
+        return 4.8e12, 989e12, 1979e12
     if "H100" in n and "PCIE" in n:
-        return 2.0e12, 756e12
+        return 2.0e12, 756e12, 1513e12
     if "H100" in n and "NVL" in n:
-        return 3.9e12, 835e12
+        return 3.9e12, 835e12, 1671e12
     if "H100" in n:
-        return 3.35e12, 989e12
+        return 3.35e12, 989e12, 1979e12
     fail(f"no data-sheet peaks for {name}")
 
 
@@ -258,7 +274,7 @@ def main() -> None:
     record = {"smi": smi(), "device": torch.cuda.get_device_name(0)}
     print(f"card: {record['smi']} | torch: {record['device']} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    bw, bf16_peak = card_peaks(record["device"])
+    bw, bf16_peak, int8_peak = card_peaks(record["device"])
     t_start = time.perf_counter()
 
     # launch counters of every kernel wrapper: K1, K3, K2, K4, K7, K5, K6
@@ -271,13 +287,15 @@ def main() -> None:
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
-        k1.ternary_matmul.launches_tc = 0
+        k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
 
     def counts():
-        """Every wrapper's launches; K1's tensor-core launches (also in
-        "ternary_matmul") apart as "ternary_matmul_tc"."""
+        """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
+        (also in "ternary_matmul") apart as "ternary_matmul_tc" and
+        "ternary_matmul_tc_a8"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
+        c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -289,7 +307,8 @@ def main() -> None:
     # ---- build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
-               "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc"]
+               "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
+               "ternary_matmul_tc_a8"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -327,9 +346,10 @@ def main() -> None:
             perm = perm[torch.randperm(K, generator=g, device=dev)]
         return perm.to(torch.int32)
 
-    max_err = 0.0  # K1's CUDA-core kernel; its tensor-core kernel's in tc_err
+    max_err = 0.0  # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err
     checks = 0
     tc_err, tc_checks = 0.0, 0
+    a8_err, a8_checks = 0.0, 0
     for name, K, n in SHAPES + SHAPES_8B_K1:
         packed, alpha, mu = rand_layer(K, n)
         for B in (1, 2, 4, 16, 512):
@@ -344,8 +364,11 @@ def main() -> None:
                 if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
                     fail(f"K1 {name} B={B} a8={a8}: max|err| {err:.3e} > "
                          f"{KERNEL_TOL} x max|ref| {scale:.3e}")
-                if k1.k1_path(B, n, 128, a8) == "tc":
+                path = k1.k1_path(B, n, 128, a8)
+                if path == "tc":
                     tc_err = max(tc_err, err)
+                elif path == "tc_a8":
+                    a8_err = max(a8_err, err)
                 else:
                     max_err = max(max_err, err)
                 checks += 1
@@ -363,7 +386,8 @@ def main() -> None:
     record["k1_max_abs_err"] = max_err
     print(f"K1 vs plain: {checks} checks (7 shapes x B 1/2/4/16/512 x bf16/a8 + 2 stacked views) "
           f"within {KERNEL_TOL} x max|ref|; max|err| {max_err:.3e} (CUDA cores), {tc_err:.3e} "
-          "(tensor cores: bf16 at 16 and 512 rows)")
+          f"(tensor cores: bf16 at 16 and 512 rows), {a8_err:.3e} (int8 tensor cores: W2A8 at 16 "
+          "and 512 rows)")
     del packed, alpha, mu, x
 
     # ---- 1b. K1's tensor-core path vs the plain version: the llama-2-7b and
@@ -372,22 +396,33 @@ def main() -> None:
     # own generator leaves the later phases' draws as they were
     gt = torch.Generator(device=dev).manual_seed(7)
 
-    def tc_held(label, x, packed, alpha, mu, want_tc=True, a8=False):
-        nonlocal tc_err, tc_checks
-        c0, t0_ = k1.ternary_matmul.launches, k1.ternary_matmul.launches_tc
+    def k1_counts():
+        return (k1.ternary_matmul.launches, k1.ternary_matmul.launches_tc,
+                k1.ternary_matmul.launches_tc_a8)
+
+    def tc_held(label, x, packed, alpha, mu, path="tc", a8=False):
+        """One K1 call, held against the plain version; launches, launches_tc
+        and launches_tc_a8 must rise by exactly what ``path`` implies."""
+        nonlocal tc_err, tc_checks, a8_err, a8_checks
+        c0 = k1_counts()
         got = k1.ternary_matmul(x, packed, alpha, mu, a8=a8)
         want = (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain)(x, packed, alpha, mu)
         torch.cuda.synchronize()
-        if (k1.ternary_matmul.launches - c0, k1.ternary_matmul.launches_tc - t0_) != (1, int(want_tc)):
-            fail(f"K1 {label}: launches +{k1.ternary_matmul.launches - c0}, tensor-core "
-                 f"+{k1.ternary_matmul.launches_tc - t0_}, want +1 / +{int(want_tc)}")
+        rise = tuple(b - a for a, b in zip(c0, k1_counts()))
+        if rise != (1, int(path == "tc"), int(path == "tc_a8")):
+            fail(f"K1 {label}: launches / tensor-core / int8 tensor-core rose by {rise}, "
+                 f"path {path}")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
             fail(f"K1 {label}: max|err| {err:.3e} > {KERNEL_TOL} x max|ref| {scale:.3e}")
-        if want_tc:
+        if path == "tc":
             tc_err = max(tc_err, err)
             tc_checks += 1
+        elif path == "tc_a8":
+            a8_err = max(a8_err, err)
+            a8_checks += 1
+        return got
 
     if not 8 < k1.K1_TC_MIN_ROWS <= 16:
         fail(f"K1_TC_MIN_ROWS {k1.K1_TC_MIN_ROWS}: the checks below expect 8 rows on the CUDA "
@@ -397,10 +432,11 @@ def main() -> None:
         for B in (16, 17, 64, 100, 128, 512, 1024):
             x = torch.randn((B, K), generator=gt, device=dev).bfloat16()
             tc_held(f"tc {name} rows={B}", x, packed, alpha, mu)
-        # W2A8 and decode rows stay on the CUDA-core kernel
+        # W2A8 at 512 rows takes the int8 tensor cores; decode rows stay on
+        # the CUDA-core kernel
         x = torch.randn((512, K), generator=gt, device=dev).bfloat16()
-        tc_held(f"{name} rows=512 a8", x, packed, alpha, mu, want_tc=False, a8=True)
-        tc_held(f"{name} rows=8", x[:8], packed, alpha, mu, want_tc=False)
+        tc_held(f"{name} rows=512 a8", x, packed, alpha, mu, path="tc_a8", a8=True)
+        tc_held(f"{name} rows=8", x[:8], packed, alpha, mu, path="cuda_core")
     packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=gt)
     x = torch.randn((512, 4096), generator=gt, device=dev).bfloat16()
     for li in (0, 1):
@@ -417,6 +453,58 @@ def main() -> None:
           f"16/17/64/100/128/512/1024 + 2 stacked views + zero-alpha blocks) within {KERNEL_TOL} x "
           f"max|ref|; max|err| {tc_err:.3e}; launches_tc exact, none for W2A8 or 8 rows")
     del packed, alpha, mu, x
+
+    # ---- 10a. K1's int8 tensor-core path (W2A8) vs ternary_matmul_plain_a8:
+    # the same shapes from the fewest rows it takes, stacked views, all-zero
+    # alpha blocks, an all-zero row (sx's floor) and rows whose normalised
+    # values are half-integers (rounded half to even); launches_tc_a8 exact
+    # on every call, none for decode rows. Its own generator, as 1b's
+    ga8 = torch.Generator(device=dev).manual_seed(8)
+    a8_checks_before = a8_checks
+
+    def tie_rows(B, K):
+        """Random rows, an all-zero row 1, and rows 2 and 3 whose normalised
+        values are half-integers: row 2 holds +-127 and half-integers
+        (sx = 1), row 3 is that times 0.25 (sx = 0.25, x / sx exact)."""
+        x = torch.randn((B, K), generator=ga8, device=dev)
+        x[1] = 0
+        x[2] = torch.randint(-127, 127, (K,), generator=ga8, device=dev) + 0.5
+        x[2, 5], x[2, 9] = 127.0, -127.0
+        x[3] = 0.25 * x[2]
+        return x.bfloat16()
+
+    for name, K, n in SHAPES + SHAPES_8B_K1:
+        packed, alpha, mu = rand_layer(K, n, gen=ga8)
+        for B in (9, 16, 17, 64, 100, 128, 512, 1024):
+            x = torch.randn((B, K), generator=ga8, device=dev).bfloat16()
+            tc_held(f"tc_a8 {name} rows={B}", x, packed, alpha, mu, path="tc_a8", a8=True)
+        x = torch.randn((8, K), generator=ga8, device=dev).bfloat16()
+        tc_held(f"{name} rows=8 a8", x, packed, alpha, mu, path="cuda_core", a8=True)
+    packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=ga8)
+    x = tie_rows(300, 4096)
+    xn, _ = k1.normalize_rows_a8(x)
+    ties = int((xn.float().frac().abs() == 0.5).sum().item())
+    if ties < 2 * (4096 - 2):
+        fail(f"tc_a8 tie rows: only {ties} normalised values on .5")
+    for li in (0, 1):
+        got = tc_held(f"tc_a8 packed[{li}] view, zero row, ties", x, packed[li], alpha[li], mu[li],
+                      path="tc_a8", a8=True)
+        if got[1].abs().max().item() != 0.0:
+            fail("tc_a8: the all-zero row's output is not 0")
+    packed, alpha, mu = rand_layer(12288, 4096, gen=ga8)
+    alpha[::3] = 0
+    mu[::6] = 0
+    x = tie_rows(100, 12288)
+    tc_held("tc_a8 zero-alpha blocks (down), zero row, ties", x, packed, alpha, mu, path="tc_a8",
+            a8=True)
+    record["k1_tc_a8_checks"] = a8_checks - a8_checks_before
+    record["k1_tc_a8_max_abs_err"] = a8_err
+    print(f"K1 int8 tensor-core path vs plain (W2A8): {a8_checks - a8_checks_before} checks (7 "
+          f"shapes x rows 9/16/17/64/100/128/512/1024 + 2 stacked views + zero-alpha blocks, "
+          f"with an all-zero row and {ties} half-integer values) within {KERNEL_TOL} x max|ref|; "
+          f"max|err| "
+          f"{a8_err:.3e} (phase 1 included); launches_tc_a8 exact, none for 8 rows")
+    del packed, alpha, mu, x, xn
 
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0, "ternary_mlp": 0.0}
@@ -814,8 +902,9 @@ def main() -> None:
                 logits = tdec.unembed(cfg, params, h)
         return logits[0, len(prompt) - 1 :].float()
 
-    def answers_held(label, prompts_, answers_, kvq, rivals=None, impl="auto", hold=True):
-        """Each answer's greedy picks held to TOKEN_TOL under its teacher-forced
+    def answers_held(label, prompts_, answers_, kvq, rivals=None, impl="auto", hold=True,
+                     tol=TOKEN_TOL):
+        """Each answer's greedy picks held to ``tol`` under its teacher-forced
         reference (``hold`` False: measured, not held). With ``rivals`` (other
         streams for the same prompts), where a rival first differs from the
         answer: the reference's logit margin between the two picks there, over
@@ -833,9 +922,9 @@ def main() -> None:
             del lf
         if counts() != c0:
             fail(f"{label}: the teacher-forced reference launched a kernel")
-        if hold and worst > TOKEN_TOL:
+        if hold and worst > tol:
             fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
-                 f"max|logit| (> {TOKEN_TOL})")
+                 f"max|logit| (> {tol})")
         return worst, margins
 
     # ---- 4./5. the main paths: 4 prompts x 128 ids, 32 new tokens
@@ -891,20 +980,22 @@ def main() -> None:
         return cfg, params, time.perf_counter() - t0
 
     # 4. llama-2-7b, "down" layout: K1 alone, 4 per layer at prefill and each
-    # step; the 512-row bf16 prefill on the tensor cores, decode (4 rows) and
-    # W2A8 on the CUDA cores
+    # step; the 512-row prefill on the tensor cores (bf16: "tc", W2A8:
+    # "tc_a8"), decode (4 rows) on the CUDA cores
     cfg, params, record["model_build_s"] = build("llama-2-7b", "down", 2)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     none = dict.fromkeys(counts(), 0)
     runs = drive(cfg, params, "llama-2-7b", ("auto", "a8"),
                  lambda impl: dict(none, ternary_matmul=4 * L * new,
-                                   ternary_matmul_tc=4 * L if impl == "auto" else 0), prompts)
+                                   ternary_matmul_tc=4 * L if impl == "auto" else 0,
+                                   ternary_matmul_tc_a8=4 * L if impl == "a8" else 0), prompts)
     record["main_path"] = runs
-    main_launches = {  # K1's two kernels apart: "ternary_matmul" counts both
+    main_launches = {  # K1's three kernels apart: "ternary_matmul" counts all three
         "ternary_matmul": sum(r["launches"]["ternary_matmul"] - r["launches"]["ternary_matmul_tc"]
-                              for r in runs.values()),
-        "ternary_matmul_tc": sum(r["launches"]["ternary_matmul_tc"] for r in runs.values())}
+                              - r["launches"]["ternary_matmul_tc_a8"] for r in runs.values()),
+        "ternary_matmul_tc": sum(r["launches"]["ternary_matmul_tc"] for r in runs.values()),
+        "ternary_matmul_tc_a8": sum(r["launches"]["ternary_matmul_tc_a8"] for r in runs.values())}
     record["decode_step"] = profile_decode_step(cfg, params, prompts, Lp, new, dev, "llama-2-7b down")
 
     # lockstep prefill (4 x 128 ids = 512 rows per projection) with K1 on the
@@ -931,6 +1022,31 @@ def main() -> None:
           f"the CUDA cores (in turns tc, cc, cc, tc, tc, cc): "
           f"{' / '.join(f'{v:.1f}' for v in pre_ab['tc'])} tok/s vs "
           f"{' / '.join(f'{v:.1f}' for v in pre_ab['cuda_core'])} tok/s on {record['smi']}")
+
+    # ---- 10b. the lockstep W2A8 prefill with K1 on the int8 tensor cores
+    # and on the CUDA cores, in turns on, off, off, on
+    pre_a8 = {"tc_a8": [], "cuda_core": []}
+    for on in TC_AB[:4]:
+        zero_counts()
+        with k1_tc(on), torch.inference_mode():
+            cache = init_cache(cfg, B, Lp + new, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = forward_cached(cfg, params, prompts, cache, 0, "a8")
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+        c = counts()
+        if c != dict(none, ternary_matmul=4 * L, ternary_matmul_tc_a8=4 * L if on else 0) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"W2A8 prefill A/B tc_a8={on}: launches {c} or logits not finite")
+        tally(c)
+        pre_a8["tc_a8" if on else "cuda_core"].append(B * Lp / pre_s)
+        del cache, logits
+    record["prefill_a8_ab"] = pre_a8
+    print(f"lockstep W2A8 prefill llama-2-7b down {B}x{Lp} ids, 32 layers, K1 on the int8 tensor "
+          f"cores / on the CUDA cores (in turns on, off, off, on): "
+          f"{' / '.join(f'{v:.1f}' for v in pre_a8['tc_a8'])} tok/s vs "
+          f"{' / '.join(f'{v:.1f}' for v in pre_a8['cuda_core'])} tok/s on {record['smi']}")
     del params
     torch.cuda.empty_cache()
 
@@ -944,7 +1060,7 @@ def main() -> None:
         "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
                      ternary_matmul_igathered=2 * L * steps, ternary_mlp=L * steps,
                      onehot_gather=3 * L),
-        "a8": dict(none, ternary_matmul=4 * L + L * steps,
+        "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
                    ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
     }
     runs = drive(cfg, params, "llama-3-8b ssr", ("auto", "a8"), want_ssr.get, prompts)
@@ -965,8 +1081,8 @@ def main() -> None:
         want_p = {
             "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
                          onehot_matmul=3 * L, **{fused: 2 * L * steps}),
-            "a8": dict(none, ternary_matmul=4 * L + L * steps, onehot_matmul=3 * L,
-                       **{fused: 3 * L * steps}),
+            "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
+                       onehot_matmul=3 * L, **{fused: 3 * L * steps}),
         }
         with route_flags(flags):
             runs_p = drive(cfg, params, f"llama-3-8b ssr {flags_name}", ("auto", "a8"),
@@ -1054,25 +1170,32 @@ def main() -> None:
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
-    def engine_want(eng, prompts_, k7_on=True, tc_on=True):
+    def engine_want(eng, prompts_, k7_on=True, tc_on=True, impl="auto"):
         """Launches the routing implies: each admission prefills its bucket
         (>= 64 rows: qkv, o through K1 on the tensor cores; the MLP through
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
-        CUDA cores + K2 + K7 per layer (K7 none when it is off). With tc_on
+        CUDA cores + K2 + K7 per layer (K7 none when it is off). W2A8 keeps
+        the two-call MLP: K1 x4 per layer at every admission (on the int8
+        tensor cores) and every decode step (on the CUDA cores). With tc_on
         False (K1_TC_MIN_ROWS rebound) no launch takes the tensor cores."""
         st = eng.stats["steps"]
+        k7 = L * st if k7_on else 0
+        if impl == "a8":
+            tc = 4 * L * len(prompts_)
+            return dict(none, ternary_matmul=4 * L * st + tc,
+                        ternary_matmul_tc_a8=tc if tc_on else 0, decode_attention=k7)
         tc, k2n = 0, L * st
         for p in prompts_:
             Lb = min(_bucket(len(p)), ENGINE_M)
             tc += 2 * L + (2 * L if Lb > 64 else 0)
             k2n += L if Lb <= 64 else 0
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
-                    ternary_mlp=k2n, decode_attention=L * st if k7_on else 0)
+                    ternary_mlp=k2n, decode_attention=k7)
 
     def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
-                   tc_on=True):
+                   tc_on=True, impl="auto"):
         eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
-                          decode_quantum=quantum, seed=seed)
+                          decode_quantum=quantum, seed=seed, impl=impl)
         reqs = [eng.submit(p, m, sampling=sampling) for p, m in zip(prompts_, news_)]
         zero_counts()
         torch.cuda.synchronize()
@@ -1080,7 +1203,7 @@ def main() -> None:
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on)
+        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on, impl)
         if got != want:
             fail(f"engine {label}: launches {got}, want {want}")
         tally(got)
@@ -1134,6 +1257,57 @@ def main() -> None:
               f"tok/s; streams equal to the main run's: "
               f"{[r['streams_equal_to_main_run'] for r in v]}; worst pick gap under the "
               f"teacher-forced plain max {[r.get('worst_pick_gap') for r in v if 'worst_pick_gap' in r]}")
+
+    # ---- 10c. the same engine under W2A8 (impl "a8", bf16 KV, quantum 1)
+    # with K1's int8 tensor-core path on and off, in turns, then with K7 off;
+    # every answer of each route held under the teacher-forced W2A8 route on
+    # plain versions (each distinct set of answers once), to A8_TOLS' pick
+    # gap, as the 2-layer W2A8 check holds it: over 32 layers the int8
+    # rounding of every row amplifies f32-order and attention differences,
+    # and on an H100 each of these three routes trailed that reference by
+    # 2.2e-2 to 3.9e-2 of max|logit| (TOKEN_TOL is 2e-2), the CUDA-core
+    # route, which this slice leaves as it was, included
+    eng_a8 = {"tc_a8": [], "cuda_core": []}
+    held_a8 = []  # (answers, worst pick gap) already held
+    for on in TC_AB[:4]:
+        with k1_tc(on):
+            res, a8_out = run_engine(
+                f"llama-3-8b down W2A8 bf16 KV quantum 1, K1 "
+                f"{'int8 tensor cores' if on else 'CUDA cores'}", False, 1, eng_prompts, eng_news,
+                tc_on=on, impl="a8")
+        res["admit_share"] = res["t_admit_s"] / res["wall_s"]
+        res["streams_equal_to_first_run"] = sum(
+            a == b for a, b in zip(a8_out, held_a8[0][0] if held_a8 else a8_out))
+        same = next((w for o, w in held_a8 if o == a8_out), None)
+        if same is None:
+            same, _ = answers_held(
+                f"engine W2A8 answers, K1 {'int8 tensor cores' if on else 'CUDA cores'}",
+                eng_prompts, a8_out, False, impl="a8", tol=A8_TOLS[1])
+            held_a8.append((a8_out, same))
+        res["worst_pick_gap"] = same
+        if on:
+            main_launches["ternary_matmul_tc_a8"] += res["launches"]["ternary_matmul_tc_a8"]
+        eng_a8["tc_a8" if on else "cuda_core"].append(res)
+    record["engine_a8_ab"] = eng_a8
+    set_k7(False)
+    res, a8_k7off = run_engine("llama-3-8b down W2A8 bf16 KV quantum 1, K7 off", False, 1,
+                               eng_prompts, eng_news, k7_on=False, impl="a8")
+    set_k7(True)
+    res["worst_pick_gap"], _ = answers_held("engine W2A8 answers, K7 off", eng_prompts, a8_k7off,
+                                            False, impl="a8", tol=A8_TOLS[1])
+    res["streams_equal_to_k7_on"] = sum(a == b for a, b in zip(a8_k7off, held_a8[0][0]))
+    print(f"engine W2A8, K7 off: every pick within {res['worst_pick_gap']:.3e} of the "
+          f"teacher-forced W2A8 plain-version max (<= {A8_TOLS[1]}); "
+          f"{res['streams_equal_to_k7_on']}/16 streams equal to K7 on's")
+    record["engine_a8_k7_off"] = res
+    for k, v in eng_a8.items():
+        each = lambda key, scale=1.0: " / ".join(f"{scale * r[key]:.2f}" for r in v)  # noqa: E731
+        print(f"engine W2A8 A/B, K1 {k}: t_admit_s {each('t_admit_s')} s of a wall of "
+              f"{each('wall_s')} s (admission {each('admit_share', 100.0)} %), {each('tok_s')} "
+              f"tok/s, decode {each('decode_tok_s')} tok/s; streams equal to the first run's: "
+              f"{[r['streams_equal_to_first_run'] for r in v]}; every pick within "
+              f"{[r['worst_pick_gap'] for r in v]} of the teacher-forced W2A8 plain-version max "
+              f"(<= {A8_TOLS[1]}) on {record['smi']}")
 
     # every engine answer (quantum 1) held under its teacher-forced reference:
     # bf16 KV under the plain forward, int8 KV under a forward through an int8
@@ -1259,6 +1433,7 @@ def main() -> None:
     # launches of the C entry points (no Python wrapper in the loop)
     lib = k1._kernel_lib()
     tc_lib = k1._tc_kernel_lib()
+    tc_a8_lib = k1._tc_a8_kernel_lib()
     mlp_lib = k1._mlp_kernel_lib()
     gather_lib = k4._kernel_lib()
     mm_lib = k4._mm_kernel_lib()
@@ -1283,12 +1458,13 @@ def main() -> None:
         if rc:
             fail(f"{what} launch failed in timing: {rc}")
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / bf16_peak * 1e3
+    def bound(nbytes, ops, peak):
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / peak * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    def row(kernel, name, B, ms, plain_ms, lib_ms, nbytes, ops, **shape):
-        b_ms, b_by = bound(nbytes, ops)
+    def row(kernel, name, B, ms, plain_ms, lib_ms, nbytes, ops, peak=bf16_peak, **shape):
+        """One timing; its bound counts ops at ``peak`` (bf16 unless given)."""
+        b_ms, b_by = bound(nbytes, ops, peak)
         d = {"kernel": kernel, "shape": name, "B": B, **shape, "ms": ms, "plain_ms": plain_ms,
              "library_ms": lib_ms, "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
              "GBps": nbytes / ms / 1e6}
@@ -1301,14 +1477,26 @@ def main() -> None:
         copies = max(1, math.ceil(COLD_BYTES / (2 * K * n)))
         return [torch.randn((K, n), generator=g, device=dev).bfloat16() for _ in range(copies)]
 
-    # K1's two kernels through their C entries at decode and prefill rows:
-    # "K1" the CUDA cores, "K1tc" the tensor cores (its row sums included)
-    detail, tc_detail = [], []
+    # K1's kernels through their C entries at decode and prefill rows: "K1"
+    # the CUDA cores, "K1tc" the tensor cores (its row sums included); in
+    # W2A8 (10d) "K1a8" the CUDA cores and "K1tca8" the int8 tensor cores
+    # (its prepass included), both on the normalised rows xn, beside the
+    # int8 operations bound and torch._int_mm of int8 xq by the dense int8
+    # codes (it takes > 16 rows in multiples of 8: below that, 24 rows)
+    detail, tc_detail, a8_detail, tc_a8_detail = [], [], [], []
     for name, K, n in SHAPES:
         wbytes = K * n // 4 + 4 * (K // 128) * n
         copies = max(1, math.ceil(COLD_BYTES / wbytes))
         layers = [rand_layer(K, n) for _ in range(copies)]
         dn = dense(K, n)
+        # the dense int8 codes as the (K, n) view of an (n, K) matrix (the
+        # layout cuBLASLt's int8 product takes), or (K, n) rows if refused
+        dn8 = [torch.randint(-1, 2, (n, K), generator=g, device=dev, dtype=torch.int8).t()
+               for _ in range(max(1, math.ceil(COLD_BYTES / (K * n))))]
+        try:
+            torch._int_mm(torch.zeros((24, K), dtype=torch.int8, device=dev), dn8[0])
+        except RuntimeError:
+            dn8 = [w.contiguous() for w in dn8]
         for B in K1_ROWS:
             x = torch.randn((B, K), generator=g, device=dev).bfloat16()
             out = torch.empty((B, n), dtype=torch.float32, device=dev)
@@ -1335,19 +1523,67 @@ def main() -> None:
                               K=K, n=n))
             tc_detail.append(row("K1tc", name, B, tc_ms, plain_ms, lib_ms, nbytes,
                                  2.0 * B * K * n, K=K, n=n))
-        del layers, dn
+
+            xn, _ = k1.normalize_rows_a8(x)
+            xq = torch.empty((B, K), dtype=torch.int8, device=dev)
+            isums = torch.empty((K // 128, -(-B // 128) * 128), dtype=torch.int32, device=dev)
+            xq_mm = torch.randint(-127, 128, (B if B > 16 else 24, K), generator=g, device=dev,
+                                  dtype=torch.int8)
+
+            def kern_a8(i):
+                p, a, m = layers[i % copies]
+                ok(lib.pt2_ternary_matmul(xn.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(),
+                                          out.data_ptr(), B, K, n, 128, 1, dix, stream), "K1 a8")
+
+            def kern_tc_a8(i):
+                p, a, m = layers[i % copies]
+                ok(tc_a8_lib.pt2_ternary_matmul_tc_a8(
+                    xn.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(), xq.data_ptr(),
+                    isums.data_ptr(), out.data_ptr(), B, isums.shape[1], K, n, 128, dix, stream),
+                    "K1 tc_a8")
+
+            a8_ms = time_ms(kern_a8, iters)
+            tc_a8_ms = time_ms(kern_tc_a8, iters)
+            plain_a8_ms = time_ms(lambda i: k1.ternary_matmul_plain_a8(x, *layers[i % copies]), 3)
+            int_mm_ms = time_ms(lambda i: torch._int_mm(xq_mm, dn8[i % len(dn8)]), iters)
+            a8_detail.append(row("K1a8", name, B, a8_ms, plain_a8_ms, int_mm_ms, nbytes,
+                                 2.0 * B * K * n, int8_peak, K=K, n=n))
+            tc_a8_detail.append(row("K1tca8", name, B, tc_a8_ms, plain_a8_ms, int_mm_ms, nbytes,
+                                    2.0 * B * K * n, int8_peak, K=K, n=n))
+        del layers, dn, dn8
     record["k1_timing"] = detail
     record["k1_tc_timing"] = tc_detail
+    record["k1_a8_timing"] = a8_detail
+    record["k1_tc_a8_timing"] = tc_a8_detail
     per_layer = {}
     for B in K1_ROWS:
-        cc_r = [d for d in detail if d["B"] == B]
-        tc_r = [d for d in tc_detail if d["B"] == B]
-        per_layer[B] = {k: sum(d[k] for d in cc_r) for k in ("ms", "library_ms", "bound_ms")}
-        per_layer[B]["tc_ms"] = sum(d["ms"] for d in tc_r)
+        at_b = lambda rows: [d for d in rows if d["B"] == B]  # noqa: E731
+        per_layer[B] = {k: sum(d[k] for d in at_b(detail))
+                        for k in ("ms", "library_ms", "bound_ms")}
         v = per_layer[B]
+        v["tc_ms"] = sum(d["ms"] for d in at_b(tc_detail))
+        v["a8_ms"] = sum(d["ms"] for d in at_b(a8_detail))
+        v["tc_a8_ms"] = sum(d["ms"] for d in at_b(tc_a8_detail))
+        v["int_mm_ms"] = sum(d["library_ms"] for d in at_b(tc_a8_detail))
+        v["a8_bound_ms"] = sum(d["bound_ms"] for d in at_b(tc_a8_detail))
         print(f"K1, one llama-2-7b layer (4 projections) at {B:3d} rows: tensor cores "
               f"{v['tc_ms'] * 1e3:8.1f} us | CUDA cores {v['ms'] * 1e3:9.1f} us | torch.matmul "
               f"{v['library_ms'] * 1e3:7.1f} us | bound {v['bound_ms'] * 1e3:7.1f} us")
+        print(f"K1 W2A8, one llama-2-7b layer at {B:3d} rows: int8 tensor cores "
+              f"{v['tc_a8_ms'] * 1e3:8.1f} us | CUDA cores {v['a8_ms'] * 1e3:9.1f} us | "
+              f"torch._int_mm{' (24 rows)' if B <= 16 else ''} {v['int_mm_ms'] * 1e3:7.1f} us | "
+              f"int8 bound {v['a8_bound_ms'] * 1e3:7.1f} us")
+    # the W2A8 wrapper's own work around K1 at 512 x 4096 (o's input): the
+    # rows' normalisation before the kernel, their scales after it
+    x = torch.randn((512, 4096), generator=g, device=dev).bfloat16()
+    xn, sx = k1.normalize_rows_a8(x)
+    o = torch.empty((512, 4096), dtype=torch.float32, device=dev)
+    record["a8_wrapper_ms"] = {"normalize_rows_a8": time_ms(lambda i: k1.normalize_rows_a8(x), 50),
+                               "out_times_sx": time_ms(lambda i: o * sx, 50)}
+    print(f"W2A8 wrapper at 512 x 4096: normalize_rows_a8 "
+          f"{record['a8_wrapper_ms']['normalize_rows_a8'] * 1e3:.1f} us, out * sx "
+          f"{record['a8_wrapper_ms']['out_times_sx'] * 1e3:.1f} us per call")
+    del x, xn, sx, o
     # the fewest rows from which the tensor cores win at every timed row count
     wins = [B for B in K1_ROWS if all(per_layer[b]["tc_ms"] < per_layer[b]["ms"]
                                       for b in K1_ROWS if b >= B)]
@@ -1590,7 +1826,8 @@ def main() -> None:
     record["k7_timing"] = k7_detail
 
     # ---- the record: per kernel, one layer of one step of its main path
-    # (K1's tensor-core kernel at the 512-row prefill, 4 projections;
+    # (K1's tensor-core kernels at the 512-row prefill, 4 projections, the
+    # int8 one in W2A8 beside torch._int_mm and the int8 bound;
     # K1's CUDA-core kernel / K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
     # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
     # M = 2048 with a bf16 cache)
@@ -1612,6 +1849,9 @@ def main() -> None:
         entry("ternary_matmul_tc", "pt2tpu_torch/csrc/ternary_matmul_tc.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", [d for d in tc_detail if d["B"] == 512],
               tc_err),
+        entry("ternary_matmul_tc_a8", "pt2tpu_torch/csrc/ternary_matmul_tc_a8.cu",
+              "pt2tpu/ops/kernels/pallas_ternary.py:1354",
+              [d for d in tc_a8_detail if d["B"] == 512], a8_err),
         entry("ternary_mlp", "pt2tpu_torch/csrc/ternary_mlp.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1106", b1(k2_detail), errs["ternary_mlp"]),
         entry("ternary_matmul_igathered", "pt2tpu_torch/csrc/ternary_matmul.cu",

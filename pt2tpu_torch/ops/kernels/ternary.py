@@ -1,10 +1,12 @@
 """The packed-ternary kernels K1, K3, K6 and K2: plain versions and wrappers.
 
   * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul (replaces
-    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``), on two
+    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``), on three
     paths chosen by shape (:func:`k1_path`): the CUDA cores
-    (``csrc/ternary_matmul.cu``) for decode rows and W2A8, the tensor cores
-    (``csrc/ternary_matmul_tc.cu``) for bf16 rows >= :data:`K1_TC_MIN_ROWS`.
+    (``csrc/ternary_matmul.cu``) for decode rows, the bf16 tensor cores
+    (``csrc/ternary_matmul_tc.cu``) for bf16 rows >= :data:`K1_TC_MIN_ROWS`
+    and the int8 tensor cores (``csrc/ternary_matmul_tc_a8.cu``) for W2A8
+    rows >= :data:`K1_TC_MIN_ROWS`.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
     (same source; replaces ``ternary_matmul_pallas_igathered``).
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
@@ -40,6 +42,8 @@ __all__ = [
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
+    "quantize_rows_a8_lanes_plain",
+    "ternary_matmul_lanes_plain",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
@@ -92,6 +96,45 @@ def ternary_matmul_plain_a8(
     xn, sx = normalize_rows_a8(x)
     xq = torch.clamp(torch.round(xn.float()), -127, 127)
     return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
+
+
+def quantize_rows_a8_lanes_plain(xn: torch.Tensor, block_size: int = 128):
+    """The prepass of K1's int8 tensor-core path (``csrc/ternary_matmul_tc_a8.cu``):
+    xn (B, K) -> (xq, S). xq is int8 clip(round(xn), -127, 127) (half to
+    even) in the lane order of the packed bytes: within a scale block,
+    position 4r + p holds lane p*bs/4 + r. S (nb, B) int32 holds the exact
+    per-block sums of xq."""
+    B, K = xn.shape
+    bs = block_size
+    nb = K // bs
+    xq = torch.clamp(torch.round(xn.float()), -127, 127).to(torch.int8)
+    lanes = xq.reshape(B, nb, 4, bs // 4).transpose(2, 3).reshape(B, K)
+    S = xq.reshape(B, nb, bs).sum(dim=2, dtype=torch.int32).T.contiguous()
+    return lanes.contiguous(), S
+
+
+def ternary_matmul_lanes_plain(
+    xq: torch.Tensor,  # (B, K) int8 in lane order
+    S: torch.Tensor,  # (nb, B) int32 block sums
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+) -> torch.Tensor:
+    """The integer algorithm of K1's int8 tensor-core path on its prepass's
+    output, before the row scales: d = xq . u - S per block, exact in
+    integers (u = T + 1, each packed byte's planes in place: lane order),
+    then out = S @ mu + sum_blk alpha * d in f32. Returns (B, n) f32."""
+    B, K = xq.shape
+    n = packed.shape[1]
+    nb = K // block_size
+    pk = packed.to(torch.int32) & 0xFF
+    u = torch.stack([(pk >> (2 * p)) & 3 for p in range(4)], dim=1).reshape(K, n)
+    d = torch.einsum("bkc,kcn->bkn", xq.to(torch.int64).reshape(B, nb, block_size),
+                     u.to(torch.int64).reshape(nb, block_size, n))
+    d = d - S.T.to(torch.int64)[:, :, None]  # (B, nb, n) = xq_blk . T_blk
+    out = torch.einsum("bkn,kn->bn", d.float(), alpha.float())
+    return out + S.T.float() @ mu.float()
 
 
 def ternary_matmul_igathered_plain(
@@ -195,27 +238,29 @@ def ternary_mlp_plain(
 
 
 K1_TC_MIN_ROWS = 9
-"""The fewest rows K1 runs on the tensor cores. ``chip_smoke.py`` times both
-kernels at 1-512 rows; on an H100 the tensor cores were faster at every
-one. Decode (<= 8 rows: the engine's 8 slots, lockstep batches) keeps the
-CUDA-core kernel all the same, so that only prefill and admission rows
-move here; routing decode rows there is a change of its own, with its own
-A/B of decode. Read at each call."""
+"""The fewest rows K1 runs on the tensor cores, bf16 and W2A8 alike.
+``chip_smoke.py`` times the kernels at 1-512 rows; on an H100 both
+tensor-core kernels were faster than the CUDA cores at every one. Decode
+(<= 8 rows: the engine's 8 slots, lockstep batches) keeps the CUDA-core
+kernel all the same, so that only prefill and admission rows move there;
+routing decode rows there is a change of its own, with its own A/B of
+decode. Read at each call."""
 
 
 def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
-    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA: "tc"
-    (``pt2_ternary_matmul_tc``, mma.sync) for bf16 rows >= K1_TC_MIN_ROWS
-    with scale blocks and out_features that are multiples of 128, else
-    "cuda_core" (``pt2_ternary_matmul``)."""
-    if (not a8 and block_size % 128 == 0 and n % 128 == 0
-            and rows >= K1_TC_MIN_ROWS):
-        return "tc"
+    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA. For
+    rows >= K1_TC_MIN_ROWS with scale blocks and out_features that are
+    multiples of 128: "tc" (``pt2_ternary_matmul_tc``, bf16 mma.sync) in
+    bf16, "tc_a8" (``pt2_ternary_matmul_tc_a8``, s8 mma.sync) in W2A8.
+    Else "cuda_core" (``pt2_ternary_matmul``)."""
+    if block_size % 128 == 0 and n % 128 == 0 and rows >= K1_TC_MIN_ROWS:
+        return "tc_a8" if a8 else "tc"
     return "cuda_core"
 
 
 _lib = None
 _tc_lib = None
+_tc_a8_lib = None
 _mlp_lib = None
 _gathered_lib = None
 
@@ -243,6 +288,17 @@ def _tc_kernel_lib():
         fn.restype = ctypes.c_int
         _tc_lib = lib
     return _tc_lib
+
+
+def _tc_a8_kernel_lib():
+    global _tc_a8_lib
+    if _tc_a8_lib is None:
+        lib = _build.load("ternary_matmul_tc_a8")
+        fn = lib.pt2_ternary_matmul_tc_a8
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _tc_a8_lib = lib
+    return _tc_a8_lib
 
 
 def _mlp_kernel_lib():
@@ -323,9 +379,10 @@ def ternary_matmul(
 
     CUDA: launches K1 on the current stream (x cast to bf16, or normalised
     for W2A8) on the path :func:`k1_path` names, and counts the launch in
-    ``ternary_matmul.launches`` (the tensor-core path also in
-    ``ternary_matmul.launches_tc``). CPU: the plain version, with x as given
-    (f32 compute, as JAX on the CPU).
+    ``ternary_matmul.launches`` (the bf16 tensor-core path also in
+    ``ternary_matmul.launches_tc``, the int8 one in
+    ``ternary_matmul.launches_tc_a8``). CPU: the plain version, with x as
+    given (f32 compute, as JAX on the CPU).
     """
     if x.device.type == "cpu":
         fn = ternary_matmul_plain_a8 if a8 else ternary_matmul_plain
@@ -343,8 +400,11 @@ def ternary_matmul(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    if k1_path(B, n, block_size, a8) == "tc":
+    path = k1_path(B, n, block_size, a8)
+    if path == "tc":
         return _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size)
+    if path == "tc_a8":
+        return _ternary_matmul_tc_a8(xk, packed, alpha, mu, out, block_size) * sx
     rc = _kernel_lib().pt2_ternary_matmul(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         out.data_ptr(), B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
@@ -357,16 +417,24 @@ def ternary_matmul(
 
 ternary_matmul.launches = 0
 ternary_matmul.launches_tc = 0
+ternary_matmul.launches_tc_a8 = 0
+
+
+def _tc_operands(xk, packed, alpha, mu):
+    """xk (16-byte aligned: a copy if it is not) for K1's tensor-core
+    kernels, which load every operand with 16-byte cp.async copies."""
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
+        raise ValueError("K1's tensor-core path needs 16-byte aligned packed, alpha and mu")
+    return xk
 
 
 def _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size):
     """K1's tensor-core path: x's per-block row sums into an f32 scratch,
     then the mma.sync kernel (16-byte cp.async loads of every operand)."""
     B, K = xk.shape
-    if xk.data_ptr() % 16:
-        xk = xk.clone()
-    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
-        raise ValueError("K1's tensor-core path needs 16-byte aligned packed, alpha and mu")
+    xk = _tc_operands(xk, packed, alpha, mu)
     sums = torch.empty((K // block_size, -(-B // 128) * 128), dtype=torch.float32,
                        device=xk.device)
     rc = _tc_kernel_lib().pt2_ternary_matmul_tc(
@@ -378,6 +446,27 @@ def _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size):
         raise RuntimeError(f"K1 (tensor cores) launch failed: cudaError {rc}")
     ternary_matmul.launches += 1
     ternary_matmul.launches_tc += 1
+    return out
+
+
+def _ternary_matmul_tc_a8(xn, packed, alpha, mu, out, block_size):
+    """K1's W2A8 path on the int8 tensor cores: a prepass rounds the
+    normalised rows xn to int8 (in the packed bytes' lane order) and writes
+    their exact block sums, both into scratch allocated here; then the s8
+    mma.sync kernel. Returns out before the row scales."""
+    B, K = xn.shape
+    xn = _tc_operands(xn, packed, alpha, mu)
+    xq = torch.empty((B, K), dtype=torch.int8, device=xn.device)
+    sums = torch.empty((K // block_size, -(-B // 128) * 128), dtype=torch.int32, device=xn.device)
+    rc = _tc_a8_kernel_lib().pt2_ternary_matmul_tc_a8(
+        xn.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), xq.data_ptr(),
+        sums.data_ptr(), out.data_ptr(), B, sums.shape[1], K, packed.shape[1], block_size,
+        *_device_and_stream(xn),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K1 (W2A8, integer tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul.launches += 1
+    ternary_matmul.launches_tc_a8 += 1
     return out
 
 

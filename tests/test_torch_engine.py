@@ -183,3 +183,30 @@ def test_bucket_and_quantum_rules():
     eng.slots = [Request(0, np.zeros(3, np.int32), 20, out=[1] * 14), None,
                  Request(1, np.zeros(3, np.int32), 40, out=[1])]
     assert eng._quantum_q() == 4  # 6 left -> 4
+
+
+@pytest.fixture(scope="module")
+def a8_runs():
+    """tiny-llama in the "down" layout (SSR on down only, as the quantizer
+    emits it at dim >= 640), the module's five requests, the JAX engine in
+    W2A8 (impl="a8"), bf16 KV, quantum 1: its tokens and finish order."""
+    jcfg = jreg.get_config("tiny-llama")
+    params = jrand.random_ternary_params(jcfg, jax.random.PRNGKey(5), dtype=jnp.float32,
+                                         perm_mode="down")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, jcfg.vocab_size, size=n).astype(np.int32) for n in LENS]
+    eos_ids = [None] * len(LENS)
+    want = _run(JEngine(jcfg, params, max_batch=2, max_len=64, impl="a8"), prompts, eos_ids)
+    return to_port(params), prompts, eos_ids, want
+
+
+def test_engine_a8_tokens_and_finish_order_equal_jax(a8_runs):
+    """W2A8 serving (on the card its admission prefills run K1 on the int8
+    tensor cores, its decode steps K1 on the CUDA cores) gives the JAX
+    engine's greedy tokens and finish order."""
+    tparams, prompts, eos_ids, (want_outs, want_order) = a8_runs
+    eng = ServeEngine(get_config("tiny-llama"), tparams, max_batch=2, max_len=64, impl="a8")
+    outs, order = _run(eng, prompts, eos_ids)
+    assert outs == want_outs
+    assert order == want_order
+    assert [len(o) for o in outs] == list(MAX_NEW)

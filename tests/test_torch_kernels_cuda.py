@@ -1,7 +1,8 @@
-"""K1-K7 on the card against their plain versions (K1 on both of its
-kernels: the CUDA cores and, at prefill rows, the tensor cores). Needs an NVIDIA GPU;
-every test skips without one. This file imports neither JAX nor the JAX
-package, so on a machine without JAX it runs as
+"""K1-K7 on the card against their plain versions (K1 on its three
+kernels: the CUDA cores and, at prefill rows, the bf16 and int8 tensor
+cores). Needs an NVIDIA GPU; every test skips without one. This file
+imports neither JAX nor the JAX package, so on a machine without JAX it
+runs as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
@@ -163,26 +164,155 @@ def test_tc_path_on_stacked_view_and_zero_alpha_blocks(cuda_device):
     assert _rel(got, tk.ternary_matmul_plain(x, p, a, m)) <= TOL
 
 
+def _k1_counts():
+    return (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc,
+            tk.ternary_matmul.launches_tc_a8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n,bs,a8,tc", [
-    (512, 1024, 128, False, True), (16, 1024, 128, False, True), (8, 1024, 128, False, False),
-    (1, 1024, 128, False, False), (512, 1024, 128, True, False), (512, 992, 128, False, False),
-    (512, 1024, 64, False, False), (512, 1024, 256, False, True),
+@pytest.mark.parametrize("rows,n,bs,a8,path", [
+    (512, 1024, 128, False, "tc"), (16, 1024, 128, False, "tc"), (8, 1024, 128, False, "cuda_core"),
+    (1, 1024, 128, False, "cuda_core"), (512, 1024, 128, True, "tc_a8"),
+    (512, 992, 128, False, "cuda_core"), (512, 1024, 64, False, "cuda_core"),
+    (512, 1024, 256, False, "tc"), (9, 1024, 128, True, "tc_a8"), (8, 1024, 128, True, "cuda_core"),
+    (512, 992, 128, True, "cuda_core"), (512, 1024, 64, True, "cuda_core"),
+    (512, 1024, 256, True, "tc_a8"),
 ])
-def test_k1_launches_tc_count_exactly(cuda_device, rows, n, bs, a8, tc):
-    """launches counts every K1 launch and launches_tc the tensor-core ones:
-    W2A8, decode rows and shapes outside k1_path stay on the CUDA cores."""
-    assert (tk.k1_path(rows, n, bs, a8) == "tc") == tc
+def test_k1_launches_tc_count_exactly(cuda_device, rows, n, bs, a8, path):
+    """launches counts every K1 launch, launches_tc the bf16 tensor-core ones
+    and launches_tc_a8 the int8 tensor-core ones: decode rows and shapes
+    outside k1_path stay on the CUDA cores."""
+    assert tk.k1_path(rows, n, bs, a8) == path
     g = torch.Generator(device=cuda_device).manual_seed(rows + n + bs)
     packed, alpha, mu = _layer(g, cuda_device, 1024, n, bs)
     x = torch.randn((rows, 1024), generator=g, device=cuda_device).bfloat16()
-    before = (tk.ternary_matmul.launches, tk.ternary_matmul.launches_tc)
+    before = _k1_counts()
     got = tk.ternary_matmul(x, packed, alpha, mu, block_size=bs, a8=a8)
     torch.cuda.synchronize()
-    assert (tk.ternary_matmul.launches - before[0], tk.ternary_matmul.launches_tc - before[1]) \
-        == (1, int(tc))
+    assert tuple(b - a for a, b in zip(before, _k1_counts())) \
+        == (1, int(path == "tc"), int(path == "tc_a8"))
     plain = tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain
     assert _rel(got, plain(x, packed, alpha, mu, bs)) <= TOL
+
+
+# K1's W2A8 path on the int8 tensor cores (csrc/ternary_matmul_tc_a8.cu):
+# the same shapes, from the fewest rows it takes
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9, 16, 17, 64, 100, 128, 512, 1024])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_tc_a8_path_matches_plain(cuda_device, shape, rows):
+    K, n = TC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(3 * rows + K + n)
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    x = torch.randn((rows, K), generator=g, device=cuda_device).bfloat16()
+    assert tk.k1_path(rows, n, 128, True) == "tc_a8"
+    before = _k1_counts()
+    got = tk.ternary_matmul(x, packed, alpha, mu, a8=True)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k1_counts())) == (1, 0, 1)
+    want = tk.ternary_matmul_plain_a8(x, packed, alpha, mu)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+
+
+def _a8_rows_with_ties(g, dev, B, K):
+    """Random rows, an all-zero row (sx's floor) and rows whose normalised
+    values are half-integers: row 2 holds +-127 and half-integers (sx = 1),
+    row 3 is that times 0.25 (sx = 0.25, so x / sx is exact again)."""
+    x = torch.randn((B, K), generator=g, device=dev)
+    x[1] = 0
+    x[2] = torch.randint(-127, 127, (K,), generator=g, device=dev) + 0.5
+    x[2, 5], x[2, 9] = 127.0, -127.0
+    x[3] = 0.25 * x[2]
+    return x.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [128, 256])
+def test_tc_a8_path_on_stacked_view_zero_alpha_blocks_zero_row_and_ties(cuda_device, bs):
+    g = torch.Generator(device=cuda_device).manual_seed(11 + bs)
+    layers = [_layer(g, cuda_device, 2048, 1024, bs) for _ in range(3)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    x = _a8_rows_with_ties(g, cuda_device, 300, 2048)
+    xn, _ = tk.normalize_rows_a8(x)
+    assert (xn[2:4].float().frac().abs() == 0.5).sum().item() == 2 * (2048 - 2)
+    before = _k1_counts()
+    for li in range(3):
+        got = tk.ternary_matmul(x, packed[li], alpha[li], mu[li], block_size=bs, a8=True)
+        assert _rel(got, tk.ternary_matmul_plain_a8(x, *layers[li], bs)) <= TOL
+        assert got[1].abs().max().item() == 0.0
+    p, a, m = layers[0]
+    a, m = a.clone(), m.clone()
+    a[::3] = 0
+    m[::6] = 0
+    got = tk.ternary_matmul(x, p, a, m, block_size=bs, a8=True)
+    assert _rel(got, tk.ternary_matmul_plain_a8(x, p, a, m, bs)) <= TOL
+    assert tuple(b - a for a, b in zip(before, _k1_counts())) == (4, 0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", range(1, 9))
+def test_tc_a8_never_takes_decode_rows(cuda_device, rows):
+    g = torch.Generator(device=cuda_device).manual_seed(40 + rows)
+    packed, alpha, mu = _layer(g, cuda_device, 4096, 4096, 128)
+    x = torch.randn((rows, 4096), generator=g, device=cuda_device).bfloat16()
+    before = _k1_counts()
+    got = tk.ternary_matmul(x, packed, alpha, mu, a8=True)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k1_counts())) == (1, 0, 0)
+    assert _rel(got, tk.ternary_matmul_plain_a8(x, packed, alpha, mu)) <= TOL
+
+
+@pytest.mark.cuda
+def test_tc_a8_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """An int8 tensor-core launch that fails raises; neither the CUDA-core
+    kernel, the bf16 tensor-core kernel nor the plain version runs in its
+    place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_tc_a8(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("another K1 kernel was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    x = torch.randn((64, 512), generator=g, device=cuda_device).bfloat16()
+    monkeypatch.setattr(tk, "_tc_a8_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_tc_kernel_lib", not_asked)
+    monkeypatch.setattr(tk, "_kernel_lib", not_asked)
+    before = _k1_counts()
+    with pytest.raises(RuntimeError, match="integer tensor cores"):
+        tk.ternary_matmul(x, packed, alpha, mu, a8=True)
+    assert _k1_counts() == before
+
+
+@pytest.mark.cuda
+def test_tc_a8_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    x = torch.randn((64, 512), generator=g, device=cuda_device).bfloat16()
+    xn, sx = tk.normalize_rows_a8(x)
+    xq = torch.empty((64, 512), dtype=torch.int8, device=cuda_device)
+    sums = torch.empty((4, 128), dtype=torch.int32, device=cuda_device)
+    out = torch.empty((64, 256), device=cuda_device)
+    fn = tk._tc_a8_kernel_lib().pt2_ternary_matmul_tc_a8
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    ptrs = [t.data_ptr() for t in (xn, packed, alpha, mu, xq, sums, out)]
+    assert fn(*ptrs, 64, 128, 512, 256, 128, dev, stream) == 0
+    torch.cuda.synchronize()
+    assert _rel(out * sx, tk.ternary_matmul_plain_a8(x, packed, alpha, mu)) <= TOL
+    # the prepass's outputs are the plain version's
+    want_xq, want_s = tk.quantize_rows_a8_lanes_plain(xn)
+    assert torch.equal(xq, want_xq) and torch.equal(sums[:, :64], want_s)
+    assert not sums[:, 64:].any()  # pad rows
+    for B, Bp, K, n, bs in ((64, 128, 512, 256, 64), (64, 128, 512, 224, 128),
+                            (64, 64, 512, 256, 128), (129, 128, 512, 256, 128),
+                            (0, 128, 512, 256, 128), (64, 128, 384, 256, 256)):
+        assert fn(*ptrs, B, Bp, K, n, bs, dev, stream) != 0
+    assert fn(ptrs[0] + 2, *ptrs[1:], 64, 128, 512, 256, 128, dev, stream) != 0  # misaligned xn
 
 
 @pytest.mark.cuda

@@ -133,24 +133,83 @@ def test_plain_a8_matches_xla_a8(B):
 
 
 @pytest.mark.parametrize("n", [160, 256])  # 160: a multiple of 32, not of 128
-@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("bs", [64, 128, 256])
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("rows", [1, 8, 15, 16, 512])
+@pytest.mark.parametrize("rows", [1, 8, 9, 15, 16, 512])
 def test_k1_path(rows, a8, bs, n):
-    """K1's path is chosen by shape alone: the tensor cores for bf16 rows
-    >= K1_TC_MIN_ROWS with bs and n multiples of 128; decode rows (<= 8),
-    W2A8 and every other shape stay on the CUDA-core kernel."""
-    tc = not a8 and bs == 128 and n == 256 and rows >= tk.K1_TC_MIN_ROWS
-    assert tk.k1_path(rows, n, bs, a8) == ("tc" if tc else "cuda_core")
-    if rows <= 8 or a8 or bs == 64 or n == 160:
+    """K1's path is chosen by shape alone: the tensor cores for rows >=
+    K1_TC_MIN_ROWS with bs and n multiples of 128 ("tc" in bf16, "tc_a8" on
+    the int8 tensor cores in W2A8); decode rows (<= 8) and every other shape
+    stay on the CUDA-core kernel."""
+    tc = bs % 128 == 0 and n == 256 and rows >= tk.K1_TC_MIN_ROWS
+    want = ("tc_a8" if a8 else "tc") if tc else "cuda_core"
+    assert tk.k1_path(rows, n, bs, a8) == want
+    if rows <= 8 or bs == 64 or n == 160:
         assert tk.k1_path(rows, n, bs, a8) == "cuda_core"
 
 
 def test_k1_path_reads_its_threshold_at_each_call(monkeypatch):
     assert tk.K1_TC_MIN_ROWS > 8  # engine decode (B 8) keeps the CUDA-core kernel
     assert tk.k1_path(512, 4096, 128, False) == "tc"
+    assert tk.k1_path(512, 4096, 128, True) == "tc_a8"
     monkeypatch.setattr(tk, "K1_TC_MIN_ROWS", 1 << 30)  # chip_smoke's "before" runs
     assert tk.k1_path(512, 4096, 128, False) == "cuda_core"
+    assert tk.k1_path(512, 4096, 128, True) == "cuda_core"  # one threshold for both modes
+
+
+# prefill rows, where JAX's kernel takes its masked W2A8 path (the
+# telescoped unpack is bf16-only) and the card runs K1's int8 tensor-core path
+@pytest.mark.parametrize("B", [17, 80, 256])
+def test_plain_a8_matches_pallas_interpret(B):
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(30 + B)
+    K, n = 384, 256
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    x = rng.normal(size=(B, K)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas(
+            jnp.asarray(x), jnp.asarray(packed), alpha, mu, tile_n=128, a8=True
+        ))
+    got = tk.ternary_matmul_plain_a8(_t(x), _t(packed), _t(alpha), _t(mu)).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def _a8_rows_with_ties(rng, B, K):
+    """Random rows, an all-zero row (sx takes its floor) and two rows whose
+    normalised values are half-integers (ties for the rounding): row 2
+    holds +-127 and half-integers, so sx = 1; row 3 is that times 0.25,
+    so sx = 0.25 and x / sx is exact again."""
+    x = rng.normal(size=(B, K)).astype(np.float32)
+    x[1] = 0.0
+    x[2] = rng.integers(-127, 127, size=K) + 0.5
+    x[2, 5], x[2, 9] = 127.0, -127.0
+    x[3] = 0.25 * x[2]
+    return x
+
+
+@pytest.mark.parametrize("bs", [128, 256])
+def test_lanes_plain_matches_plain_a8(bs):
+    """The int8 tensor-core path's algorithm on the CPU: the prepass's xq in
+    the packed bytes' lane order and its exact block sums, then the integer
+    dot in that order and the f32 scales, equal the W2A8 plain version."""
+    rng = np.random.default_rng(bs)
+    B, K, n = 9, 1024, 256
+    packed, alpha, mu = _rand_packed(rng, n, K, bs)
+    x = torch.from_numpy(_a8_rows_with_ties(rng, B, K))
+    xn, sx = tk.normalize_rows_a8(x)
+    ties = (xn[2:4].float().frac().abs() == 0.5).sum().item()
+    assert ties == 2 * (K - 2)  # every value of rows 2, 3 but the two +-127 is a tie
+    xq, S = tk.quantize_rows_a8_lanes_plain(xn, bs)
+    assert xq.dtype == torch.int8 and S.dtype == torch.int32 and tuple(S.shape) == (K // bs, B)
+    # half to even, as jnp.round: the lanes hold np.round's values, reordered
+    lanes = np.round(xn.float().numpy()).reshape(B, K // bs, 4, bs // 4).transpose(0, 1, 3, 2)
+    np.testing.assert_array_equal(xq.numpy(), lanes.reshape(B, K))
+    np.testing.assert_array_equal(S.numpy(), lanes.reshape(B, K // bs, bs).sum(-1).T)
+    got = tk.ternary_matmul_lanes_plain(xq, S, _t(packed), _t(alpha), _t(mu), bs) * sx
+    want = tk.ternary_matmul_plain_a8(x, _t(packed), _t(alpha), _t(mu), bs)
+    assert float(got[1].abs().max()) == 0.0
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 def test_linear_route_names_k1_on_both_paths():
