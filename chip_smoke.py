@@ -90,7 +90,29 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      versions); and times it through its
      C entry at 1-512 rows (phase 6) beside the CUDA-core kernel in W2A8,
      torch._int_mm on int8 xq and the dense int8 codes, and the int8
-     operations bound.
+     operations bound;
+ 11. (K1's decode slice) holds K1's split-K tensor-core GEMV
+     (csrc/ternary_matmul_dec.cu, routed by k1_path at rows <=
+     K1_DEC_MAX_ROWS in bf16, and in W2A8 with K1_DEC_A8) against the
+     plain versions at the llama-2-7b and llama-3-8b shapes, rows 1/2/4/8
+     (phase 1's, 1b's and 10a's decode rows, 11a's) in both modes, on
+     packed[li] views, with all-zero alpha blocks, an all-zero row,
+     half-integer W2A8 rows and K slices that divide the blocks unevenly,
+     every call twice for identical bits, with exact
+     ternary_matmul.launches_dec counts, and the CUDA-core kernel at the
+     same 8 rows; every 32-layer run above holds launches_dec to exactly
+     its bf16 decode launches (the CUDA-core kernel and the tensor-core
+     kernels get none of them; W2A8 decode rows stay on the CUDA cores,
+     and the P2 W2A8 answers with them on the decode kernel are measured
+     beside the held default ones); A/Bs, in turns (on, off, off, on; "on"
+     sets K1_DEC_A8, "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-2-7b
+     decode (bf16 and W2A8: decode tok/s, step wall, profiled device time;
+     11b, in phase 4) and the "down" engine (bf16 and W2A8, quantum 1:
+     decode tok/s, t_decode_s, every answer held as in 5b / 10c, and one
+     profiled decode step; 11c, in 5b); and times it through its C entry at
+     1/2/4/8 rows (phase 6) beside the CUDA-core kernel, the tensor-core
+     kernels, dense torch.matmul, torch._int_mm and the bytes bound. The
+     engine's tensor-core A/Bs of phases 5b and 10c run in two turns.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -169,10 +191,11 @@ def card_peaks(name: str):
     fail(f"no data-sheet peaks for {name}")
 
 
-def profile_decode_step(cfg, params, prompts, Lp, new, dev, label):
-    """Where one bf16 decode step's time goes: its wall time (unprofiled,
-    host clock around a synchronised step) against the device time that
-    torch.profiler attributes to kernels in a second, profiled step."""
+def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
+    """Where one decode step's time goes (bf16, or W2A8 with impl "a8"): its
+    wall time (unprofiled, host clock around a synchronised step) against the
+    device time that torch.profiler attributes to kernels in a second,
+    profiled step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -184,15 +207,15 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label):
     tok = prompts[:, :1].contiguous()
     with torch.inference_mode():
         cache = init_cache(cfg, B, Lp + new, device=dev)
-        forward_cached(cfg, params, prompts, cache, 0, "auto")
-        forward_cached(cfg, params, tok, cache, Lp, "auto")  # warm
+        forward_cached(cfg, params, prompts, cache, 0, impl)
+        forward_cached(cfg, params, tok, cache, Lp, impl)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        forward_cached(cfg, params, tok, cache, Lp + 1, "auto")
+        forward_cached(cfg, params, tok, cache, Lp + 1, impl)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            forward_cached(cfg, params, tok, cache, Lp + 2, "auto")
+            forward_cached(cfg, params, tok, cache, Lp + 2, impl)
             torch.cuda.synchronize()
     rows = []  # kernels only: CPU ops also carry the device time they launched
     for e in prof.key_averages():
@@ -206,7 +229,8 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label):
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy": device_ms / wall_ms if wall_ms else 0.0,
            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:8]]}
-    print(f"one decode step, {label} (B={B}, {cfg.n_layers} layers, bf16): wall {wall_ms:.2f} ms, "
+    print(f"one decode step, {label} (B={B}, {cfg.n_layers} layers, {impl}): wall {wall_ms:.2f} "
+          f"ms, "
           f"device time {device_ms:.2f} ms (busy {100 * out['device_busy']:.1f} %; profiler)")
     for t in out["top"]:
         print(f"  {t['ms']:8.3f} ms  x{t['count']:4d}  {t['name']}")
@@ -288,14 +312,16 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
+        k1.ternary_matmul.launches_dec = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
-        (also in "ternary_matmul") apart as "ternary_matmul_tc" and
-        "ternary_matmul_tc_a8"."""
+        and its decode launches (also in "ternary_matmul") apart as
+        "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
+        c["ternary_matmul_dec"] = k1.ternary_matmul.launches_dec
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -308,7 +334,7 @@ def main() -> None:
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
-               "ternary_matmul_tc_a8"]
+               "ternary_matmul_tc_a8", "ternary_matmul_dec"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -346,32 +372,56 @@ def main() -> None:
             perm = perm[torch.randperm(K, generator=g, device=dev)]
         return perm.to(torch.int32)
 
-    max_err = 0.0  # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err
+    @contextlib.contextmanager
+    def k1_dec(on):
+        """K1's decode rows on the decode kernel in bf16 and W2A8 (on:
+        K1_DEC_A8 set), or on the CUDA-core kernel in both (off:
+        K1_DEC_MAX_ROWS rebound to 0). Outside it, bf16 decode rows take the
+        decode kernel and W2A8 ones the CUDA cores."""
+        saved = k1.K1_DEC_MAX_ROWS, k1.K1_DEC_A8
+        if on:
+            k1.K1_DEC_A8 = True
+        else:
+            k1.K1_DEC_MAX_ROWS = 0
+        try:
+            yield
+        finally:
+            k1.K1_DEC_MAX_ROWS, k1.K1_DEC_A8 = saved
+
+    # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err, its
+    # decode kernel's in dec_err
+    max_err = 0.0
     checks = 0
     tc_err, tc_checks = 0.0, 0
     a8_err, a8_checks = 0.0, 0
+    dec_err, dec_checks = 0.0, 0
     for name, K, n in SHAPES + SHAPES_8B_K1:
         packed, alpha, mu = rand_layer(K, n)
         for B in (1, 2, 4, 16, 512):
             x = torch.randn((B, K), generator=g, device=dev).bfloat16()
             for a8 in (False, True):
-                got = k1.ternary_matmul(x, packed, alpha, mu, a8=a8)
-                plain = k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain
-                want = plain(x, packed, alpha, mu)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
-                    fail(f"K1 {name} B={B} a8={a8}: max|err| {err:.3e} > "
-                         f"{KERNEL_TOL} x max|ref| {scale:.3e}")
-                path = k1.k1_path(B, n, 128, a8)
-                if path == "tc":
-                    tc_err = max(tc_err, err)
-                elif path == "tc_a8":
-                    a8_err = max(a8_err, err)
-                else:
-                    max_err = max(max_err, err)
-                checks += 1
+                for dec_on in ((True, False) if B <= 8 else (True,)):  # decode rows: both kernels
+                    with k1_dec(dec_on):
+                        got = k1.ternary_matmul(x, packed, alpha, mu, a8=a8)
+                        path = k1.k1_path(B, n, 128, a8)
+                    plain = k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain
+                    want = plain(x, packed, alpha, mu)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
+                        fail(f"K1 {name} B={B} a8={a8} path {path}: max|err| {err:.3e} > "
+                             f"{KERNEL_TOL} x max|ref| {scale:.3e}")
+                    if path == "tc":
+                        tc_err = max(tc_err, err)
+                    elif path == "tc_a8":
+                        a8_err = max(a8_err, err)
+                    elif path == "dec":
+                        dec_err = max(dec_err, err)
+                        dec_checks += 1
+                    else:
+                        max_err = max(max_err, err)
+                    checks += 1
     packed, alpha, mu = rand_layer(4096, 4096, L=2)
     x = torch.randn((16, 4096), generator=g, device=dev).bfloat16()
     for li in (0, 1):
@@ -384,10 +434,11 @@ def main() -> None:
         checks += 1
     record["k1_checks"] = checks
     record["k1_max_abs_err"] = max_err
-    print(f"K1 vs plain: {checks} checks (7 shapes x B 1/2/4/16/512 x bf16/a8 + 2 stacked views) "
-          f"within {KERNEL_TOL} x max|ref|; max|err| {max_err:.3e} (CUDA cores), {tc_err:.3e} "
-          f"(tensor cores: bf16 at 16 and 512 rows), {a8_err:.3e} (int8 tensor cores: W2A8 at 16 "
-          "and 512 rows)")
+    print(f"K1 vs plain: {checks} checks (7 shapes x B 1/2/4/16/512 x bf16/a8, B <= 4 with the "
+          f"decode kernel on and off, + 2 stacked views) within {KERNEL_TOL} x max|ref|; max|err| "
+          f"{max_err:.3e} (CUDA cores: decode rows with the decode kernel off), {dec_err:.3e} "
+          f"(decode kernel: bf16 and W2A8 at 1/2/4 rows), {tc_err:.3e} (tensor cores: bf16 at 16 "
+          f"and 512 rows), {a8_err:.3e} (int8 tensor cores: W2A8 at 16 and 512 rows)")
     del packed, alpha, mu, x
 
     # ---- 1b. K1's tensor-core path vs the plain version: the llama-2-7b and
@@ -398,19 +449,21 @@ def main() -> None:
 
     def k1_counts():
         return (k1.ternary_matmul.launches, k1.ternary_matmul.launches_tc,
-                k1.ternary_matmul.launches_tc_a8)
+                k1.ternary_matmul.launches_tc_a8, k1.ternary_matmul.launches_dec)
 
-    def tc_held(label, x, packed, alpha, mu, path="tc", a8=False):
-        """One K1 call, held against the plain version; launches, launches_tc
-        and launches_tc_a8 must rise by exactly what ``path`` implies."""
-        nonlocal tc_err, tc_checks, a8_err, a8_checks
+    def tc_held(label, x, packed, alpha, mu, path="tc", a8=False, bs=128):
+        """One K1 call, held against the plain version; launches, launches_tc,
+        launches_tc_a8 and launches_dec must rise by exactly what ``path``
+        implies."""
+        nonlocal tc_err, tc_checks, a8_err, a8_checks, dec_err, dec_checks, max_err, cc_checks
         c0 = k1_counts()
-        got = k1.ternary_matmul(x, packed, alpha, mu, a8=a8)
-        want = (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain)(x, packed, alpha, mu)
+        got = k1.ternary_matmul(x, packed, alpha, mu, bs, a8=a8)
+        want = (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain)(x, packed, alpha, mu,
+                                                                                bs)
         torch.cuda.synchronize()
         rise = tuple(b - a for a, b in zip(c0, k1_counts()))
-        if rise != (1, int(path == "tc"), int(path == "tc_a8")):
-            fail(f"K1 {label}: launches / tensor-core / int8 tensor-core rose by {rise}, "
+        if rise != (1, int(path == "tc"), int(path == "tc_a8"), int(path == "dec")):
+            fail(f"K1 {label}: launches / tensor-core / int8 tensor-core / decode rose by {rise}, "
                  f"path {path}")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
@@ -422,21 +475,31 @@ def main() -> None:
         elif path == "tc_a8":
             a8_err = max(a8_err, err)
             a8_checks += 1
+        elif path == "dec":
+            dec_err = max(dec_err, err)
+            dec_checks += 1
+        else:
+            max_err = max(max_err, err)
+            cc_checks += 1
         return got
 
-    if not 8 < k1.K1_TC_MIN_ROWS <= 16:
-        fail(f"K1_TC_MIN_ROWS {k1.K1_TC_MIN_ROWS}: the checks below expect 8 rows on the CUDA "
-             "cores and 16 on the tensor cores")
+    cc_checks = 0  # 8-row calls on the CUDA-core kernel (the decode A/Bs' "off" turns)
+    if not 8 < k1.K1_TC_MIN_ROWS <= 16 or k1.K1_DEC_MAX_ROWS != 8:
+        fail(f"K1_TC_MIN_ROWS {k1.K1_TC_MIN_ROWS}, K1_DEC_MAX_ROWS {k1.K1_DEC_MAX_ROWS}: the "
+             "checks below expect 8 rows on the decode kernel and 16 on the tensor cores")
     for name, K, n in SHAPES + SHAPES_8B_K1:
         packed, alpha, mu = rand_layer(K, n, gen=gt)
         for B in (16, 17, 64, 100, 128, 512, 1024):
             x = torch.randn((B, K), generator=gt, device=dev).bfloat16()
             tc_held(f"tc {name} rows={B}", x, packed, alpha, mu)
-        # W2A8 at 512 rows takes the int8 tensor cores; decode rows stay on
-        # the CUDA-core kernel
+        # W2A8 at 512 rows takes the int8 tensor cores; decode rows the
+        # decode kernel, or with it off the CUDA-core kernel
         x = torch.randn((512, K), generator=gt, device=dev).bfloat16()
         tc_held(f"{name} rows=512 a8", x, packed, alpha, mu, path="tc_a8", a8=True)
-        tc_held(f"{name} rows=8", x[:8], packed, alpha, mu, path="cuda_core")
+        tc_held(f"{name} rows=8", x[:8], packed, alpha, mu, path="dec")
+        with k1_dec(False):
+            tc_held(f"{name} rows=8, decode kernel off", x[:8], packed, alpha, mu,
+                    path="cuda_core")
     packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=gt)
     x = torch.randn((512, 4096), generator=gt, device=dev).bfloat16()
     for li in (0, 1):
@@ -451,7 +514,9 @@ def main() -> None:
     record["k1_tc_max_abs_err"] = tc_err
     print(f"K1 tensor-core path vs plain: {tc_checks} checks (7 shapes x rows "
           f"16/17/64/100/128/512/1024 + 2 stacked views + zero-alpha blocks) within {KERNEL_TOL} x "
-          f"max|ref|; max|err| {tc_err:.3e}; launches_tc exact, none for W2A8 or 8 rows")
+          f"max|ref|; max|err| {tc_err:.3e}; launches_tc exact, none for W2A8 or 8 rows (which "
+          f"take the decode kernel, or with it off the CUDA cores: {cc_checks} checks, max|err| "
+          f"{max_err:.3e} with phase 1's)")
     del packed, alpha, mu, x
 
     # ---- 10a. K1's int8 tensor-core path (W2A8) vs ternary_matmul_plain_a8:
@@ -479,7 +544,11 @@ def main() -> None:
             x = torch.randn((B, K), generator=ga8, device=dev).bfloat16()
             tc_held(f"tc_a8 {name} rows={B}", x, packed, alpha, mu, path="tc_a8", a8=True)
         x = torch.randn((8, K), generator=ga8, device=dev).bfloat16()
-        tc_held(f"{name} rows=8 a8", x, packed, alpha, mu, path="cuda_core", a8=True)
+        with k1_dec(True):
+            tc_held(f"{name} rows=8 a8", x, packed, alpha, mu, path="dec", a8=True)
+        with k1_dec(False):
+            tc_held(f"{name} rows=8 a8, decode kernel off", x, packed, alpha, mu,
+                    path="cuda_core", a8=True)
     packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=ga8)
     x = tie_rows(300, 4096)
     xn, _ = k1.normalize_rows_a8(x)
@@ -503,8 +572,69 @@ def main() -> None:
           f"shapes x rows 9/16/17/64/100/128/512/1024 + 2 stacked views + zero-alpha blocks, "
           f"with an all-zero row and {ties} half-integer values) within {KERNEL_TOL} x max|ref|; "
           f"max|err| "
-          f"{a8_err:.3e} (phase 1 included); launches_tc_a8 exact, none for 8 rows")
+          f"{a8_err:.3e} (phase 1 included); launches_tc_a8 exact, none for 8 rows; CUDA-core "
+          f"kernel at 8 rows: {cc_checks} checks with 1b's, max|err| {max_err:.3e} with phase 1's")
     del packed, alpha, mu, x, xn
+
+    # ---- 11a. K1's decode kernel vs the plain versions: rows 1/2/4/8 at the
+    # llama-2-7b and llama-3-8b shapes, bf16 and W2A8, each call twice for
+    # identical bits (its split-K sums run in a fixed order); stacked views,
+    # all-zero alpha blocks, an all-zero row and half-integer W2A8 rows, bs
+    # 256, and K slices that divide the blocks unevenly (7b qkv: 32 blocks in
+    # slices of 7; 7b gateup: of 11); launches_dec exact on every call. Its
+    # own generator, as 1b's
+    gd = torch.Generator(device=dev).manual_seed(9)
+    dec_checks_before = dec_checks
+    with k1_dec(True):  # W2A8 decode rows too
+        uneven = 0
+        for name, K, n in SHAPES + SHAPES_8B_K1:
+            packed, alpha, mu = rand_layer(K, n, gen=gd)
+            splits = k1.dec_splits(K, n, 128, k1.dec_wave(dev))
+            uneven += (K // 128) % -(-(K // 128) // splits) != 0  # the last slice is shorter
+            for B in (1, 2, 4, 8):
+                x = torch.randn((B, K), generator=gd, device=dev).bfloat16()
+                for a8 in (False, True):
+                    got = tc_held(f"dec {name} rows={B} a8={a8}", x, packed, alpha, mu, path="dec",
+                                  a8=a8)
+                    again = tc_held(f"dec {name} rows={B} a8={a8} again", x, packed, alpha, mu,
+                                    path="dec", a8=a8)
+                    if not torch.equal(got, again):
+                        fail(f"K1 decode {name} rows={B} a8={a8}: two calls differ in their bits")
+        if uneven < 2:
+            fail(f"K1 decode: only {uneven} shapes with uneven K slices")
+        x = tie_rows(8, 4096)
+        for bs in (128, 256):
+            if bs == 128:
+                packed, alpha, mu = rand_layer(4096, 4096, L=2, gen=gd)
+            else:
+                codes = torch.randint(-1, 2, (2, 4096, 4096), generator=gd, device=dev,
+                                      dtype=torch.int8)
+                packed = torch.stack([pack_ternary(c, 256) for c in codes])
+                alpha = ((0.8 + 0.4 * torch.rand((2, 16, 4096), generator=gd, device=dev)) / 64
+                         ).bfloat16()
+                mu = (0.02 / 64 * torch.randn((2, 16, 4096), generator=gd, device=dev)).bfloat16()
+            for li in (0, 1):
+                for a8 in (False, True):
+                    got = tc_held(f"dec packed[{li}] bs {bs} a8={a8}, zero row, ties", x,
+                                  packed[li], alpha[li], mu[li], path="dec", a8=a8, bs=bs)
+                    if got[1].abs().max().item() != 0.0:
+                        fail("K1 decode: the all-zero row's output is not 0")
+        packed, alpha, mu = rand_layer(12288, 4096, gen=gd)
+        alpha[::3] = 0
+        mu[::6] = 0
+        x = tie_rows(8, 12288)
+        for B in (1, 8):
+            for a8 in (False, True):
+                tc_held(f"dec zero-alpha blocks (down) rows={B} a8={a8}", x[:B], packed, alpha, mu,
+                        path="dec", a8=a8)
+    record["k1_dec_checks"] = dec_checks
+    record["k1_dec_max_abs_err"] = dec_err
+    print(f"K1 decode kernel vs plain: {dec_checks - dec_checks_before} checks in 11a (7 shapes x "
+          f"rows 1/2/4/8 x bf16/a8, each twice with identical bits; {uneven} shapes with uneven K "
+          f"slices; stacked views at bs 128 and 256 with an all-zero row and half-integer rows; "
+          f"zero-alpha blocks), {dec_checks} with phases 1, 1b and 10a, within {KERNEL_TOL} x "
+          f"max|ref|; max|err| {dec_err:.3e}; launches_dec exact")
+    del packed, alpha, mu, x
 
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0, "ternary_mlp": 0.0}
@@ -981,19 +1111,24 @@ def main() -> None:
 
     # 4. llama-2-7b, "down" layout: K1 alone, 4 per layer at prefill and each
     # step; the 512-row prefill on the tensor cores (bf16: "tc", W2A8:
-    # "tc_a8"), decode (4 rows) on the CUDA cores
+    # "tc_a8"), decode (4 rows) on the decode kernel (bf16) or the CUDA cores
+    # (W2A8)
     cfg, params, record["model_build_s"] = build("llama-2-7b", "down", 2)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     none = dict.fromkeys(counts(), 0)
-    runs = drive(cfg, params, "llama-2-7b", ("auto", "a8"),
-                 lambda impl: dict(none, ternary_matmul=4 * L * new,
-                                   ternary_matmul_tc=4 * L if impl == "auto" else 0,
-                                   ternary_matmul_tc_a8=4 * L if impl == "a8" else 0), prompts)
+    def want_7b(impl, dec_on=None):
+        """dec_on None: as routed outside k1_dec (bf16 decode rows on the
+        decode kernel, W2A8 ones on the CUDA cores)."""
+        dec_on = impl == "auto" if dec_on is None else dec_on
+        return dict(none, ternary_matmul=4 * L * new,
+                    ternary_matmul_tc=4 * L if impl == "auto" else 0,
+                    ternary_matmul_tc_a8=4 * L if impl == "a8" else 0,
+                    ternary_matmul_dec=4 * L * steps if dec_on else 0)
+
+    runs = drive(cfg, params, "llama-2-7b", ("auto", "a8"), want_7b, prompts)
     record["main_path"] = runs
-    main_launches = {  # K1's three kernels apart: "ternary_matmul" counts all three
-        "ternary_matmul": sum(r["launches"]["ternary_matmul"] - r["launches"]["ternary_matmul_tc"]
-                              - r["launches"]["ternary_matmul_tc_a8"] for r in runs.values()),
+    main_launches = {  # K1's CUDA-core and decode launches: at the end, from run_totals
         "ternary_matmul_tc": sum(r["launches"]["ternary_matmul_tc"] for r in runs.values()),
         "ternary_matmul_tc_a8": sum(r["launches"]["ternary_matmul_tc_a8"] for r in runs.values())}
     record["decode_step"] = profile_decode_step(cfg, params, prompts, Lp, new, dev, "llama-2-7b down")
@@ -1047,6 +1182,55 @@ def main() -> None:
           f"cores / on the CUDA cores (in turns on, off, off, on): "
           f"{' / '.join(f'{v:.1f}' for v in pre_a8['tc_a8'])} tok/s vs "
           f"{' / '.join(f'{v:.1f}' for v in pre_a8['cuda_core'])} tok/s on {record['smi']}")
+
+    # ---- 11b. the lockstep llama-2-7b decode with K1's decode rows on the
+    # decode kernel and on the CUDA cores (K1_DEC_MAX_ROWS 0), in turns on,
+    # off, off, on, bf16 and W2A8: greedy_generate with exact counts, the
+    # decode's share of its wall (less a separate prefill), then one decode
+    # step's wall and its profiled device time
+    DEC_AB = (True, False, False, True)
+    dec_ab = {}
+    for impl in ("auto", "a8"):
+        res = {"dec": [], "cuda_core": []}
+        for on in DEC_AB:
+            with k1_dec(on):
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = greedy_generate(cfg, params, prompts, new, impl=impl)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = counts()
+                if got != want_7b(impl, on):
+                    fail(f"lockstep decode A/B {impl} dec={on}: launches {got}, want "
+                         f"{want_7b(impl, on)}")
+                tally(got)
+                with torch.inference_mode():
+                    cache = init_cache(cfg, B, Lp + new, device=dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    forward_cached(cfg, params, prompts, cache, 0, impl)
+                    torch.cuda.synchronize()
+                    pre = time.perf_counter() - t0
+                del cache
+                prof = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                           f"llama-2-7b down {impl}, K1 decode kernel "
+                                           f"{'on' if on else 'off'}", impl)
+            dec_s = wall - pre
+            res["dec" if on else "cuda_core"].append({
+                "decode_tok_s": B * steps / dec_s, "decode_s": dec_s, "wall_s": wall,
+                "step_wall_ms": prof["wall_ms"], "step_device_ms": prof["device_ms"],
+                "top": prof["top"], "streams_equal_to_main_run": sum(
+                    a == b for a, b in zip(toks.tolist(), runs[impl]["tokens"]))})
+        dec_ab[impl] = res
+        for k, v in res.items():
+            each = lambda key: " / ".join(f"{r[key]:.2f}" for r in v)  # noqa: E731
+            print(f"lockstep decode A/B llama-2-7b {impl}, K1 decode rows on "
+                  f"{'the decode kernel' if k == 'dec' else 'the CUDA cores'}: decode "
+                  f"{each('decode_tok_s')} tok/s, step wall {each('step_wall_ms')} ms, step device "
+                  f"time {each('step_device_ms')} ms (profiler); streams equal to the main run's "
+                  f"{[r['streams_equal_to_main_run'] for r in v]} on {record['smi']}")
+    record["lockstep_decode_ab"] = dec_ab
     del params
     torch.cuda.empty_cache()
 
@@ -1100,6 +1284,26 @@ def main() -> None:
                 print(f"P2 {impl}: {same}/{B} streams equal to the default ssr run's; every pick "
                       f"within {r['worst_pick_gap']:.2e} of the teacher-forced "
                       f"{'W2A8 plain-version' if impl == 'a8' else 'plain'} max (<= {TOKEN_TOL})")
+        if flags_name == "P2":
+            # the W2A8 route once more with the down projection's decode rows
+            # on the decode kernel (K1_DEC_A8, off by default): its answers'
+            # gap, measured beside the default route's, not held
+            with route_flags(P2), k1_dec(True):
+                zero_counts()
+                toks = greedy_generate(cfg, params, prompts, new, impl="a8")
+                torch.cuda.synchronize()
+                got = counts()
+                if got != dict(want_p["a8"], ternary_matmul_dec=L * steps):
+                    fail(f"P2 a8 with the W2A8 decode kernel on: launches {got}")
+                tally(got)
+            gap_on, _ = answers_held("P2 a8 answers, decode rows on the decode kernel",
+                                     [p.tolist() for p in prompts], toks.tolist(), False,
+                                     impl="a8", hold=False)
+            runs_p["a8"]["worst_pick_gap_w2a8_decode_kernel"] = gap_on
+            print(f"P2 a8 with K1's W2A8 decode rows on the decode kernel (K1_DEC_A8, not the "
+                  f"default): every pick within {gap_on:.2e} of the teacher-forced W2A8 "
+                  f"plain-version max (measured, not held); default route (CUDA cores): "
+                  f"{runs_p['a8']['worst_pick_gap']:.2e}")
         if flags_name == "P1":
             print("P1: greedy tokens identical to the default ssr run's (bf16 and W2A8)")
         record["main_path_8b_ssr_packed"][flags_name] = runs_p
@@ -1161,7 +1365,7 @@ def main() -> None:
     # qkv and o only at each decode step (2 per layer and step fewer)
     cfg, params, _ = build("llama-3-8b", "down", 5)
     want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
-                     ternary_mlp=L * steps)
+                     ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps)
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
 
@@ -1170,30 +1374,35 @@ def main() -> None:
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
-    def engine_want(eng, prompts_, k7_on=True, tc_on=True, impl="auto"):
+    def engine_want(eng, prompts_, k7_on=True, tc_on=True, impl="auto", dec_on=None):
         """Launches the routing implies: each admission prefills its bucket
         (>= 64 rows: qkv, o through K1 on the tensor cores; the MLP through
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
-        CUDA cores + K2 + K7 per layer (K7 none when it is off). W2A8 keeps
-        the two-call MLP: K1 x4 per layer at every admission (on the int8
-        tensor cores) and every decode step (on the CUDA cores). With tc_on
-        False (K1_TC_MIN_ROWS rebound) no launch takes the tensor cores."""
+        decode kernel + K2 + K7 per layer (K7 none when it is off). W2A8
+        keeps the two-call MLP: K1 x4 per layer at every admission (on the
+        int8 tensor cores) and every decode step (on the CUDA cores). With
+        tc_on False (K1_TC_MIN_ROWS rebound) no launch takes the tensor
+        cores; dec_on True / False (k1_dec) puts the decode steps' K1 calls
+        of both modes on the decode kernel / the CUDA cores."""
+        dec_on = impl == "auto" if dec_on is None else dec_on
         st = eng.stats["steps"]
         k7 = L * st if k7_on else 0
         if impl == "a8":
             tc = 4 * L * len(prompts_)
             return dict(none, ternary_matmul=4 * L * st + tc,
-                        ternary_matmul_tc_a8=tc if tc_on else 0, decode_attention=k7)
+                        ternary_matmul_tc_a8=tc if tc_on else 0,
+                        ternary_matmul_dec=4 * L * st if dec_on else 0, decode_attention=k7)
         tc, k2n = 0, L * st
         for p in prompts_:
             Lb = min(_bucket(len(p)), ENGINE_M)
             tc += 2 * L + (2 * L if Lb > 64 else 0)
             k2n += L if Lb <= 64 else 0
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
-                    ternary_mlp=k2n, decode_attention=k7)
+                    ternary_matmul_dec=2 * L * st if dec_on else 0, ternary_mlp=k2n,
+                    decode_attention=k7)
 
     def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
-                   tc_on=True, impl="auto"):
+                   tc_on=True, impl="auto", dec_on=None):
         eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
                           decode_quantum=quantum, seed=seed, impl=impl)
         reqs = [eng.submit(p, m, sampling=sampling) for p, m in zip(prompts_, news_)]
@@ -1203,7 +1412,7 @@ def main() -> None:
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on, impl)
+        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on, impl, dec_on)
         if got != want:
             fail(f"engine {label}: launches {got}, want {want}")
         tally(got)
@@ -1236,9 +1445,9 @@ def main() -> None:
     print("engine: quantum 8 token-identical to quantum 1 (bf16 and int8 KV)")
 
     # the same engine run (bf16 KV, quantum 1) with K1's tensor-core path on
-    # and off, in turns: admission prefills are where K1 spends its rows
+    # and off, in two turns: admission prefills are where K1 spends its rows
     eng_ab = {"tc": [], "cuda_core": []}
-    for on in TC_AB[:4]:
+    for on in TC_AB[:2]:
         with k1_tc(on):
             res, ab_out = run_engine(
                 f"llama-3-8b down bf16 KV quantum 1, K1 {'tensor cores' if on else 'CUDA cores'}",
@@ -1269,7 +1478,7 @@ def main() -> None:
     # route, which this slice leaves as it was, included
     eng_a8 = {"tc_a8": [], "cuda_core": []}
     held_a8 = []  # (answers, worst pick gap) already held
-    for on in TC_AB[:4]:
+    for on in TC_AB[:2]:
         with k1_tc(on):
             res, a8_out = run_engine(
                 f"llama-3-8b down W2A8 bf16 KV quantum 1, K1 "
@@ -1383,6 +1592,79 @@ def main() -> None:
         del eng
         torch.cuda.empty_cache()
 
+    # ---- 11c. the same engine (bf16 KV, quantum 1), bf16 and W2A8, with K1's
+    # decode rows on the decode kernel and on the CUDA cores, in turns on,
+    # off, off, on: decode tok/s and t_decode_s, every answer held as 5b and
+    # 10c hold it (bf16: TOKEN_TOL under the teacher-forced plain forward;
+    # W2A8: A8_TOLS' pick gap under the W2A8 route on plain versions), each
+    # distinct set of answers once; then one engine decode step (8 slots
+    # busy) timed and profiled in turns
+    def answers_key(impl, answers_):
+        return impl, tuple(tuple(a) for a in answers_)
+
+    held = {answers_key("a8", o): w for o, w in held_a8}  # held above already
+    held[answers_key("auto", outs[(False, 1)])] = record["engine_answers"]["bf16"]["worst_pick_gap"]
+
+    def held_once(label, answers_, impl):
+        key = answers_key(impl, answers_)
+        if key not in held:
+            held[key], _ = answers_held(label, eng_prompts, answers_, False, impl=impl,
+                                        tol=TOKEN_TOL if impl == "auto" else A8_TOLS[1])
+        return held[key]
+
+    eng_dec = {}
+    for impl in ("auto", "a8"):
+        mode = "bf16" if impl == "auto" else "W2A8"
+        res_ab = {"dec": [], "cuda_core": []}
+        first = None
+        for on in DEC_AB:
+            route = "decode kernel" if on else "CUDA cores"
+            with k1_dec(on):
+                res, out_ = run_engine(f"llama-3-8b down {mode} bf16 KV quantum 1, K1 decode rows "
+                                       f"on the {route}", False, 1, eng_prompts, eng_news,
+                                       impl=impl, dec_on=on)
+            first = first or out_
+            res["streams_equal_to_first_run"] = sum(a == b for a, b in zip(out_, first))
+            res["worst_pick_gap"] = held_once(f"engine {mode} answers, K1 decode rows on the "
+                                              f"{route}", out_, impl)
+            res_ab["dec" if on else "cuda_core"].append(res)
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, impl=impl)
+        for p in eng_prompts[:8]:
+            eng.submit(p, 1024)
+        eng.step()  # admits all 8; one decode step
+        eng.step()
+        steps_ab = {"dec": [], "cuda_core": []}
+        for on in DEC_AB:
+            with k1_dec(on):
+                c0 = counts()["ternary_matmul_dec"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(6):
+                    eng.step()
+                wall_ms = (time.perf_counter() - t0) / 6 * 1e3
+                prof = profile_engine_step(eng, f"llama-3-8b down engine, {mode}, bf16 KV, K1 "
+                                                f"decode rows {'on' if on else 'off'}")
+                rose = counts()["ternary_matmul_dec"] - c0
+            if rose != (7 * L * (2 if impl == "auto" else 4) if on else 0):
+                fail(f"engine decode steps {mode} dec={on}: launches_dec rose by {rose}")
+            steps_ab["dec" if on else "cuda_core"].append({"step_wall_ms": wall_ms, **prof})
+        del eng
+        torch.cuda.empty_cache()
+        eng_dec[mode] = {"runs": res_ab, "step": steps_ab}
+        for k, v in res_ab.items():
+            def each(key, rows=v):
+                return " / ".join(f"{r[key]:.2f}" for r in rows)
+
+            where = "the decode kernel" if k == "dec" else "the CUDA cores"
+            print(f"engine {mode} A/B, K1 decode rows on {where}: decode {each('decode_tok_s')} "
+                  f"tok/s, t_decode_s {each('t_decode_s')} s, {each('tok_s')} tok/s overall; one "
+                  f"decode step {each('step_wall_ms', steps_ab[k])} ms wall, "
+                  f"{each('device_ms', steps_ab[k])} ms device time (profiler); streams equal to "
+                  f"the first run's {[r['streams_equal_to_first_run'] for r in v]}; worst pick gap "
+                  f"{[r['worst_pick_gap'] for r in v]} (<= "
+                  f"{TOKEN_TOL if impl == 'auto' else A8_TOLS[1]}) on {record['smi']}")
+    record["engine_decode_ab"] = eng_dec
+
     # ---- 5c. the HTTP ServingServer over the same model: 8 concurrent POSTs,
     # each answer held to TOKEN_TOL under a teacher-forced plain forward
     import threading
@@ -1434,6 +1716,8 @@ def main() -> None:
     lib = k1._kernel_lib()
     tc_lib = k1._tc_kernel_lib()
     tc_a8_lib = k1._tc_a8_kernel_lib()
+    dec_lib = k1._dec_kernel_lib()
+    dec_counters = torch.zeros(1024, dtype=torch.int32, device=dev)
     mlp_lib = k1._mlp_kernel_lib()
     gather_lib = k4._kernel_lib()
     mm_lib = k4._mm_kernel_lib()
@@ -1482,8 +1766,11 @@ def main() -> None:
     # W2A8 (10d) "K1a8" the CUDA cores and "K1tca8" the int8 tensor cores
     # (its prepass included), both on the normalised rows xn, beside the
     # int8 operations bound and torch._int_mm of int8 xq by the dense int8
-    # codes (it takes > 16 rows in multiples of 8: below that, 24 rows)
+    # codes (it takes > 16 rows in multiples of 8: below that, 24 rows);
+    # at decode rows (11d) "K1dec" and, in W2A8, "K1deca8" the decode
+    # kernel (its slice sum included)
     detail, tc_detail, a8_detail, tc_a8_detail = [], [], [], []
+    dec_detail, dec_a8_detail = [], []
     for name, K, n in SHAPES:
         wbytes = K * n // 4 + 4 * (K // 128) * n
         copies = max(1, math.ceil(COLD_BYTES / wbytes))
@@ -1550,11 +1837,33 @@ def main() -> None:
                                  2.0 * B * K * n, int8_peak, K=K, n=n))
             tc_a8_detail.append(row("K1tca8", name, B, tc_a8_ms, plain_a8_ms, int_mm_ms, nbytes,
                                     2.0 * B * K * n, int8_peak, K=K, n=n))
+            if B > k1.K1_DEC_MAX_ROWS:
+                continue
+            splits = k1.dec_splits(K, n, 128, k1.dec_wave(dev))
+            partial = torch.empty((splits, B, n), dtype=torch.float32, device=dev)
+
+            def kern_dec(i, xk=x, a8=0):
+                p, a, m = layers[i % copies]
+                ok(dec_lib.pt2_ternary_matmul_dec(
+                    xk.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(), partial.data_ptr(),
+                    out.data_ptr(), dec_counters.data_ptr(), B, K, n, 128, splits, a8, dix,
+                    stream), "K1 dec")
+
+            dec_ms = time_ms(kern_dec, iters)
+            dec_a8_ms = time_ms(lambda i: kern_dec(i, xn, 1), iters)
+            dec_detail.append(row("K1dec", name, B, dec_ms, plain_ms, lib_ms, nbytes,
+                                  2.0 * B * K * n, K=K, n=n, splits=splits))
+            dec_a8_detail.append(row("K1deca8", name, B, dec_a8_ms, plain_a8_ms, int_mm_ms,
+                                     nbytes, 2.0 * B * K * n, int8_peak, K=K, n=n, splits=splits))
         del layers, dn, dn8
     record["k1_timing"] = detail
     record["k1_tc_timing"] = tc_detail
     record["k1_a8_timing"] = a8_detail
     record["k1_tc_a8_timing"] = tc_a8_detail
+    record["k1_dec_timing"] = dec_detail
+    record["k1_dec_a8_timing"] = dec_a8_detail
+    if dec_counters.any():
+        fail("the decode kernel left a column tile's counter set")
     per_layer = {}
     for B in K1_ROWS:
         at_b = lambda rows: [d for d in rows if d["B"] == B]  # noqa: E731
@@ -1566,13 +1875,22 @@ def main() -> None:
         v["tc_a8_ms"] = sum(d["ms"] for d in at_b(tc_a8_detail))
         v["int_mm_ms"] = sum(d["library_ms"] for d in at_b(tc_a8_detail))
         v["a8_bound_ms"] = sum(d["bound_ms"] for d in at_b(tc_a8_detail))
-        print(f"K1, one llama-2-7b layer (4 projections) at {B:3d} rows: tensor cores "
+        dec_b = at_b(dec_detail)
+        if dec_b:
+            v["dec_ms"] = sum(d["ms"] for d in dec_b)
+            v["dec_a8_ms"] = sum(d["ms"] for d in at_b(dec_a8_detail))
+        dec_s = f"decode kernel {v['dec_ms'] * 1e3:8.1f} us | " if dec_b else ""
+        dec_a8_s = f"decode kernel {v['dec_a8_ms'] * 1e3:8.1f} us | " if dec_b else ""
+        print(f"K1, one llama-2-7b layer (4 projections) at {B:3d} rows: {dec_s}tensor cores "
               f"{v['tc_ms'] * 1e3:8.1f} us | CUDA cores {v['ms'] * 1e3:9.1f} us | torch.matmul "
               f"{v['library_ms'] * 1e3:7.1f} us | bound {v['bound_ms'] * 1e3:7.1f} us")
-        print(f"K1 W2A8, one llama-2-7b layer at {B:3d} rows: int8 tensor cores "
+        print(f"K1 W2A8, one llama-2-7b layer at {B:3d} rows: {dec_a8_s}int8 tensor cores "
               f"{v['tc_a8_ms'] * 1e3:8.1f} us | CUDA cores {v['a8_ms'] * 1e3:9.1f} us | "
               f"torch._int_mm{' (24 rows)' if B <= 16 else ''} {v['int_mm_ms'] * 1e3:7.1f} us | "
               f"int8 bound {v['a8_bound_ms'] * 1e3:7.1f} us")
+        if dec_b and not (v["dec_ms"] < min(v["ms"], v["library_ms"])):
+            print(f"  note: at {B} rows the decode kernel is not below both the CUDA-core "
+                  f"kernel and torch.matmul")
     # the W2A8 wrapper's own work around K1 at 512 x 4096 (o's input): the
     # rows' normalisation before the kernel, their scales after it
     x = torch.randn((512, 4096), generator=g, device=dev).bfloat16()
@@ -1827,8 +2145,11 @@ def main() -> None:
 
     # ---- the record: per kernel, one layer of one step of its main path
     # (K1's tensor-core kernels at the 512-row prefill, 4 projections, the
-    # int8 one in W2A8 beside torch._int_mm and the int8 bound;
-    # K1's CUDA-core kernel / K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
+    # int8 one in W2A8 beside torch._int_mm and the int8 bound; K1's decode
+    # kernel and its CUDA-core kernel (which decode rows take with the
+    # decode kernel off) at B = 1, 4 projections; their launches: every
+    # 32-layer run counted exactly;
+    # K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
     # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
     # M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
@@ -1843,9 +2164,14 @@ def main() -> None:
         }
 
     b1 = lambda rows: [d for d in rows if d["B"] == 1]  # noqa: E731
+    main_launches["ternary_matmul_dec"] = run_totals["ternary_matmul_dec"]
+    main_launches["ternary_matmul"] = run_totals["ternary_matmul"] - sum(
+        run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
     kernels = [
         entry("ternary_matmul", "pt2tpu_torch/csrc/ternary_matmul.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", b1(detail), max_err),
+        entry("ternary_matmul_dec", "pt2tpu_torch/csrc/ternary_matmul_dec.cu",
+              "pt2tpu/ops/kernels/pallas_ternary.py:1354", b1(dec_detail), dec_err),
         entry("ternary_matmul_tc", "pt2tpu_torch/csrc/ternary_matmul_tc.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", [d for d in tc_detail if d["B"] == 512],
               tc_err),

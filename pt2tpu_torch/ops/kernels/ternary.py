@@ -1,12 +1,14 @@
 """The packed-ternary kernels K1, K3, K6 and K2: plain versions and wrappers.
 
   * K1 ``ternary_matmul``: the fused 2-bit unpack + matmul (replaces
-    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``), on three
-    paths chosen by shape (:func:`k1_path`): the CUDA cores
-    (``csrc/ternary_matmul.cu``) for decode rows, the bf16 tensor cores
-    (``csrc/ternary_matmul_tc.cu``) for bf16 rows >= :data:`K1_TC_MIN_ROWS`
-    and the int8 tensor cores (``csrc/ternary_matmul_tc_a8.cu``) for W2A8
-    rows >= :data:`K1_TC_MIN_ROWS`.
+    ``pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas``), on four
+    paths chosen by shape (:func:`k1_path`): a split-K tensor-core GEMV
+    (``csrc/ternary_matmul_dec.cu``) for bf16 decode rows <=
+    :data:`K1_DEC_MAX_ROWS` (W2A8 too with :data:`K1_DEC_A8`); the bf16
+    tensor cores (``csrc/ternary_matmul_tc.cu``) for bf16 rows >=
+    :data:`K1_TC_MIN_ROWS`; the int8 tensor cores
+    (``csrc/ternary_matmul_tc_a8.cu``) for W2A8 rows >= :data:`K1_TC_MIN_ROWS`;
+    the CUDA cores (``csrc/ternary_matmul.cu``) for every other shape.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
     (same source; replaces ``ternary_matmul_pallas_igathered``).
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
@@ -27,6 +29,7 @@ unpack, one product per scale block, then the scales, all in f32.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -38,12 +41,16 @@ from .gather import onehot_gather_plain, onehot_matmul_plain
 
 __all__ = [
     "K1_TC_MIN_ROWS",
+    "K1_DEC_MAX_ROWS",
+    "K1_DEC_A8",
     "k1_path",
+    "dec_splits",
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
     "quantize_rows_a8_lanes_plain",
     "ternary_matmul_lanes_plain",
+    "ternary_matmul_dec_plain",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
@@ -238,27 +245,180 @@ def ternary_mlp_plain(
 
 
 K1_TC_MIN_ROWS = 9
-"""The fewest rows K1 runs on the tensor cores, bf16 and W2A8 alike.
-``chip_smoke.py`` times the kernels at 1-512 rows; on an H100 both
-tensor-core kernels were faster than the CUDA cores at every one. Decode
-(<= 8 rows: the engine's 8 slots, lockstep batches) keeps the CUDA-core
-kernel all the same, so that only prefill and admission rows move there;
-routing decode rows there is a change of its own, with its own A/B of
-decode. Read at each call."""
+"""The fewest rows K1 runs on its prefill tensor-core kernels, bf16 and
+W2A8 alike. Decode rows (<= :data:`K1_DEC_MAX_ROWS`: the engine's 8 slots,
+lockstep batches) run the decode kernel, whose tiles are made for them, in
+bf16 (and in W2A8 with :data:`K1_DEC_A8`). Read at each call."""
+
+K1_DEC_MAX_ROWS = 8
+"""The most rows K1 runs on its decode kernel (``csrc/ternary_matmul_dec.cu``);
+at most 8, the kernel's N tile. 0 sends decode rows back to the CUDA-core
+kernel (``chip_smoke.py``'s "off" turns). Read at each call."""
+
+K1_DEC_A8 = False
+"""Whether W2A8 decode rows take the decode kernel too (its W2A8 mode).
+Off, they stay on the CUDA-core kernel: with them on the decode kernel,
+``chip_smoke.py``'s 32-layer W2A8 answers under the P2 routing flags trail
+their teacher-forced reference by more than the answer gate it holds them
+to (TOKEN_TOL, 2e-2 of max|logit|), although every call agrees with its
+plain version to ~1e-7. ``scripts/torch_a8_pick_gaps.py`` measures that
+gap over prompt sets: on an H100 both kernels crossed 2e-2 on some of
+them. ``chip_smoke.py``'s decode A/Bs set it for their "on" turns. Read at
+each call."""
+
+DEC_CTAS_PER_SM = 4  # the decode kernel's resident CTAs per SM (it keeps to 128 registers)
+DEC_WARPS = 4  # its warps per CTA, each taking whole scale blocks
+DEC_SLICE_LANES = 2048  # the most x lanes one of its CTAs stages in shared memory
 
 
 def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
-    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA. For
-    rows >= K1_TC_MIN_ROWS with scale blocks and out_features that are
-    multiples of 128: "tc" (``pt2_ternary_matmul_tc``, bf16 mma.sync) in
-    bf16, "tc_a8" (``pt2_ternary_matmul_tc_a8``, s8 mma.sync) in W2A8.
-    Else "cuda_core" (``pt2_ternary_matmul``)."""
-    if block_size % 128 == 0 and n % 128 == 0 and rows >= K1_TC_MIN_ROWS:
-        return "tc_a8" if a8 else "tc"
+    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA. With
+    scale blocks and out_features that are multiples of 128: "dec"
+    (``pt2_ternary_matmul_dec``, a split-K mma.sync GEMV) for rows <=
+    K1_DEC_MAX_ROWS in bf16, and in W2A8 with K1_DEC_A8; for rows >=
+    K1_TC_MIN_ROWS "tc"
+    (``pt2_ternary_matmul_tc``, bf16 mma.sync) in bf16, "tc_a8"
+    (``pt2_ternary_matmul_tc_a8``, s8 mma.sync) in W2A8. Else "cuda_core"
+    (``pt2_ternary_matmul``)."""
+    if block_size % 128 == 0 and n % 128 == 0:
+        if rows <= K1_DEC_MAX_ROWS and (K1_DEC_A8 or not a8):
+            return "dec"
+        if rows >= K1_TC_MIN_ROWS:
+            return "tc_a8" if a8 else "tc"
     return "cuda_core"
 
 
+def dec_wave(device) -> int:
+    """The decode kernel's CTAs in one wave on a CUDA ``device``:
+    DEC_CTAS_PER_SM on each of its SMs (528 on an H100 SXM's 132)."""
+    return DEC_CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dec_splits(K: int, n: int, block_size: int, wave: int) -> int:
+    """The decode kernel's K slices for a (K, n) projection: as many as keep
+    its CTAs (n / 128 per slice) within one ``wave`` (:func:`dec_wave`), but
+    none that would leave fewer than DEC_WARPS blocks (one per warp) to a
+    slice, and enough to keep a slice within DEC_SLICE_LANES lanes. The
+    kernel cuts K into slices of ceil(nb / splits) blocks; the last may be
+    shorter, none is empty."""
+    nb = K // block_size
+    most = max(1, wave // (n // 128))
+    bpc = max(-(-nb // most), DEC_WARPS)
+    bpc = min(bpc, DEC_SLICE_LANES // block_size, nb)
+    return -(-nb // bpc)
+
+
+def _bf16(bits: int) -> float:
+    """The value of a bf16 bit pattern."""
+    return struct.unpack("<f", struct.pack("<I", bits << 16))[0]
+
+
+# codes_bf16x2's (SCALE, BIAS) for a code at bits 2q..2q+1 of 128's mantissa
+_DEC_CODE_FMA = [(_bf16(sc), _bf16(bi)) for sc, bi in
+                 ((0x3F80, 0xC301), (0x3E80, 0xC204), (0x3D80, 0xC110))]
+
+
+def ternary_matmul_dec_plain(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K1's decode kernel (``csrc/ternary_matmul_dec.cu``)
+    in f32, index for index. Per scale block, load set s (packed rows 8s ..
+    8s + 7) and plane pair pp, and for each of the 16 mma's j of a 128-column
+    tile: the A fragment of lane (g, t) holds rows g and g + 8 (columns
+    16g + j and 16g + j + 8), k 2t + i plane 2pp of packed row r + i and k
+    2t + 8 + i plane 2pp + 1, r = 8s + 2t, each code made by the kernel's
+    bf16 fma; the B fragment holds k 2t, 2t + 1 (k 2t + 8, 2t + 9) of x row
+    g from the staged x, whose lane (g, t) word P holds lanes
+    blk*bs + P*bs/4 + r, r + 1 (rows >= B zero; W2A8: the normalised rows
+    rounded to int8). A fresh d per block, S from the same B with A = 1;
+    each warp sums alpha * d + mu * S (alpha and mu read from the staged
+    16-byte chunks) over its blocks w, w + DEC_WARPS, ...; the warps and
+    then the :func:`dec_splits` slices of ``wave`` are summed in order, and
+    value 4j + e of lane (g, t) is written to row 2t + (e & 1), column
+    16g + j + 8 * (e >> 1). W2A8 multiplies by sx last, as the wrapper does.
+    Returns (B, n) f32."""
+    B, K = x.shape
+    n = packed.shape[1]
+    bs = block_size
+    nb, bs4, ls, tiles = K // bs, bs // 4, bs // 32, n // 128
+    dev = x.device
+    if a8:
+        xn, sx = normalize_rows_a8(x)
+        xk = torch.clamp(torch.round(xn.float()), -127, 127)
+    else:
+        xk = x.float()
+    # the kernel's codes: plane P of each byte into 128's mantissa, then fma
+    by = packed.to(torch.int32) & 0xFF
+    codes = []
+    for P in range(4):
+        q = min(P, 2)
+        u = ((by >> 2 if P == 3 else by) >> (2 * q)) & 3
+        scale, bias = _DEC_CODE_FMA[q]
+        codes.append((128 + u * 4**q).float() * scale + bias)
+    codes = torch.stack(codes)  # (4, K/4, n)
+    ar = lambda m: torch.arange(m, device=dev)  # noqa: E731
+    blk, s_, pp, tile, j, h, g, hk, t, i = (
+        ar(m).view([m if a == b else 1 for b in range(10)])
+        for a, m in enumerate((nb, ls, 2, tiles, 8, 2, 8, 2, 4, 2)))
+    # A[blk, s, pp, tile, j, m = g + 8h, k = 2t + i + 8hk]
+    A = codes[2 * pp + hk, blk * bs4 + 8 * s_ + 2 * t + i, tile * 128 + 16 * g + j + 8 * h]
+    A = A.reshape(nb, ls, 2, tiles, 8, 16, 16)
+    # staged x: xs[blk, s, g, t, P, i] = x[g, blk*bs + P*bs/4 + 8s + 2t + i]
+    x8 = torch.zeros((8, K), dtype=torch.float32, device=dev)
+    x8[:B] = xk
+    v = lambda m, a: ar(m).view([m if b == a else 1 for b in range(6)])  # noqa: E731
+    xs = x8[v(8, 2), v(nb, 0) * bs + v(4, 4) * bs4 + 8 * v(ls, 1) + 2 * v(4, 3) + v(2, 5)]
+    # B[blk, s, pp, k = 2t + i + 8hk, n = g]: b0 word 2pp, b1 word 2pp + 1
+    Bf = xs.reshape(nb, ls, 8, 4, 2, 2, 2).permute(0, 1, 4, 5, 3, 6, 2).reshape(nb, ls, 2, 16, 8)
+    d = torch.einsum("bspcjmk,bspkn->bcjmn", A, Bf)  # (nb, tiles, j, m, row)
+    S = Bf.sum(dim=(1, 2, 3))  # (nb, row): the ones mma
+    # fragments: value (j, e) of lane (g, t) is d[.., j, g + 8(e >> 1), 2t + (e & 1)]
+    e_hi, e_lo = ar(2).view(2, 1), ar(2).view(1, 2)
+    gg, tt = ar(8).view(8, 1, 1, 1, 1), ar(4).view(1, 4, 1, 1, 1)
+    jj = ar(8).view(1, 1, 8, 1, 1)
+    frag = d[:, :, jj, gg + 8 * e_hi, 2 * tt + e_lo]  # (nb, tiles, g, t, j, 2, 2)
+    srow = S[:, 2 * tt + e_lo][:, None]  # (nb, 1, 1, t, 1, 1, 2)
+    # alpha and mu as staged: chunk k of a block, 8 columns from 8(k & 15)
+    am = torch.cat([alpha.float(), mu.float()], dim=1).reshape(nb, 2, tiles, 16, 8)
+    am = am.permute(0, 2, 1, 3, 4).reshape(nb, tiles, 32, 8)
+    a_w = am[:, :, (2 * gg + e_hi)[..., 0], jj[..., 0]]  # (nb, tiles, g, 1, j, 2)
+    m_w = am[:, :, (16 + 2 * gg + e_hi)[..., 0], jj[..., 0]]
+    a_w, m_w = a_w[..., None], m_w[..., None]
+    splits = dec_splits(K, n, bs, wave)
+    bpc = -(-nb // splits)
+    total = None
+    for sp in range(splits):
+        blocks = range(sp * bpc, min(nb, (sp + 1) * bpc))
+        part = None
+        for w in range(DEC_WARPS):
+            acc = torch.zeros(frag.shape[1:], dtype=torch.float32, device=dev)
+            for b in blocks[w::DEC_WARPS]:
+                acc = acc + a_w[b] * frag[b]
+                acc = acc + m_w[b] * srow[b]
+            part = acc if part is None else part + acc
+        total = part if total is None else total + part
+    # the write-back: value i = 4j + e to row 2t + (i & 1), column
+    # 16g + (i >> 2) + 8 * ((i >> 1) & 1)
+    out = torch.zeros((8, n), dtype=torch.float32, device=dev)
+    vals = total.reshape(tiles, 8, 4, 32)  # (tile, g, t, i)
+    ii = ar(32)
+    rows = 2 * ar(4).view(4, 1) + (ii & 1)
+    cols = (ar(tiles).view(tiles, 1, 1, 1) * 128 + 16 * ar(8).view(1, 8, 1, 1)
+            + (ii >> 2) + 8 * ((ii >> 1) & 1))
+    out[rows.expand(tiles, 8, 4, 32), cols.expand(tiles, 8, 4, 32)] = vals
+    out = out[:B]
+    return out * sx if a8 else out
+
+
 _lib = None
+_dec_lib = None
 _tc_lib = None
 _tc_a8_lib = None
 _mlp_lib = None
@@ -277,6 +437,17 @@ def _kernel_lib():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _dec_kernel_lib():
+    global _dec_lib
+    if _dec_lib is None:
+        lib = _build.load("ternary_matmul_dec")
+        fn = lib.pt2_ternary_matmul_dec
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _dec_lib = lib
+    return _dec_lib
 
 
 def _tc_kernel_lib():
@@ -379,7 +550,8 @@ def ternary_matmul(
 
     CUDA: launches K1 on the current stream (x cast to bf16, or normalised
     for W2A8) on the path :func:`k1_path` names, and counts the launch in
-    ``ternary_matmul.launches`` (the bf16 tensor-core path also in
+    ``ternary_matmul.launches`` (the decode path also in
+    ``ternary_matmul.launches_dec``, the bf16 tensor-core path in
     ``ternary_matmul.launches_tc``, the int8 one in
     ``ternary_matmul.launches_tc_a8``). CPU: the plain version, with x as
     given (f32 compute, as JAX on the CPU).
@@ -401,6 +573,9 @@ def ternary_matmul(
     if B == 0:
         return out
     path = k1_path(B, n, block_size, a8)
+    if path == "dec":
+        out = _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8)
+        return out * sx if a8 else out
     if path == "tc":
         return _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size)
     if path == "tc_a8":
@@ -416,17 +591,67 @@ def ternary_matmul(
 
 
 ternary_matmul.launches = 0
+ternary_matmul.launches_dec = 0
 ternary_matmul.launches_tc = 0
 ternary_matmul.launches_tc_a8 = 0
 
 
+_dec_counters: dict = {}
+_dec_waves: dict = {}
+
+
+def _dec_counter_buffer(device, stream, tiles):
+    """The decode kernel's per-column-tile counters for launches on
+    ``stream``: int32 zeros, kept between calls (each launch leaves them 0),
+    grown on demand. Each stream has its own, so the launches that share a
+    buffer are ordered by their stream and never overlap. A CUDA graph
+    capture is refused: its replays could overlap with the launches of the
+    stream it was captured on."""
+    if torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError("K1's decode path inside a CUDA graph capture")
+    buf = _dec_counters.get((device, stream))
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _dec_counters[(device, stream)] = buf
+    return buf
+
+
+def _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8):
+    """K1's decode path: the split-K tensor-core GEMV over dec_splits K
+    slices, whose partials go to a (splits, B, n) f32 scratch allocated
+    here and are summed in slice order by the last CTA of each column tile
+    (straight into out when there is one slice). xk is bf16 x, or W2A8's
+    normalised rows (rounded in the kernel). Returns out before the row
+    scales."""
+    B, K = xk.shape
+    n = packed.shape[1]
+    xk = _tc_operands(xk, packed, alpha, mu)
+    device, stream = _device_and_stream(xk)
+    if device not in _dec_waves:
+        _dec_waves[device] = dec_wave(device)
+    splits = dec_splits(K, n, block_size, _dec_waves[device])
+    partial = (torch.empty((splits, B, n), dtype=torch.float32, device=xk.device)
+               if splits > 1 else out)
+    counters = _dec_counter_buffer(xk.device, stream, n // 128)
+    rc = _dec_kernel_lib().pt2_ternary_matmul_dec(
+        xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), counters.data_ptr(), B, K, n, block_size, splits, int(bool(a8)), device,
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K1 (decode, tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul.launches += 1
+    ternary_matmul.launches_dec += 1
+    return out
+
+
 def _tc_operands(xk, packed, alpha, mu):
     """xk (16-byte aligned: a copy if it is not) for K1's tensor-core
-    kernels, which load every operand with 16-byte cp.async copies."""
+    kernels, which load every operand with 16-byte copies."""
     if xk.data_ptr() % 16:
         xk = xk.clone()
     if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
-        raise ValueError("K1's tensor-core path needs 16-byte aligned packed, alpha and mu")
+        raise ValueError("K1's tensor-core paths need 16-byte aligned packed, alpha and mu")
     return xk
 
 

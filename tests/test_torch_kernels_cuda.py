@@ -1,6 +1,7 @@
-"""K1-K7 on the card against their plain versions (K1 on its three
-kernels: the CUDA cores and, at prefill rows, the bf16 and int8 tensor
-cores). Needs an NVIDIA GPU; every test skips without one. This file
+"""K1-K7 on the card against their plain versions (K1 on its four
+kernels: the split-K tensor-core GEMV at decode rows, the bf16 and int8
+tensor cores at prefill rows, the CUDA cores for other shapes). Needs an
+NVIDIA GPU; every test skips without one. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs as
 
@@ -17,6 +18,7 @@ neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
 unnormalised probabilities to bf16 relative to each chunk's maximum, its
 plain version relative to the row's maximum: 1e-2 of max|out|."""
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -171,26 +173,27 @@ def _k1_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n,bs,a8,path", [
-    (512, 1024, 128, False, "tc"), (16, 1024, 128, False, "tc"), (8, 1024, 128, False, "cuda_core"),
-    (1, 1024, 128, False, "cuda_core"), (512, 1024, 128, True, "tc_a8"),
+    (512, 1024, 128, False, "tc"), (16, 1024, 128, False, "tc"), (8, 1024, 128, False, "dec"),
+    (1, 1024, 128, False, "dec"), (512, 1024, 128, True, "tc_a8"),
     (512, 992, 128, False, "cuda_core"), (512, 1024, 64, False, "cuda_core"),
     (512, 1024, 256, False, "tc"), (9, 1024, 128, True, "tc_a8"), (8, 1024, 128, True, "cuda_core"),
     (512, 992, 128, True, "cuda_core"), (512, 1024, 64, True, "cuda_core"),
     (512, 1024, 256, True, "tc_a8"),
 ])
 def test_k1_launches_tc_count_exactly(cuda_device, rows, n, bs, a8, path):
-    """launches counts every K1 launch, launches_tc the bf16 tensor-core ones
-    and launches_tc_a8 the int8 tensor-core ones: decode rows and shapes
-    outside k1_path stay on the CUDA cores."""
+    """launches counts every K1 launch, launches_tc the bf16 tensor-core ones,
+    launches_tc_a8 the int8 tensor-core ones and launches_dec the decode
+    ones: shapes outside k1_path stay on the CUDA cores."""
     assert tk.k1_path(rows, n, bs, a8) == path
     g = torch.Generator(device=cuda_device).manual_seed(rows + n + bs)
     packed, alpha, mu = _layer(g, cuda_device, 1024, n, bs)
     x = torch.randn((rows, 1024), generator=g, device=cuda_device).bfloat16()
-    before = _k1_counts()
+    before = _k1_counts() + (tk.ternary_matmul.launches_dec,)
     got = tk.ternary_matmul(x, packed, alpha, mu, block_size=bs, a8=a8)
     torch.cuda.synchronize()
-    assert tuple(b - a for a, b in zip(before, _k1_counts())) \
-        == (1, int(path == "tc"), int(path == "tc_a8"))
+    after = _k1_counts() + (tk.ternary_matmul.launches_dec,)
+    assert tuple(b - a for a, b in zip(before, after)) \
+        == (1, int(path == "tc"), int(path == "tc_a8"), int(path == "dec"))
     plain = tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain
     assert _rel(got, plain(x, packed, alpha, mu, bs)) <= TOL
 
@@ -357,6 +360,215 @@ def test_tc_c_entry_refuses_what_it_does_not_take(cuda_device):
                             (0, 128, 512, 256, 128), (64, 128, 384, 256, 256)):
         assert fn(*ptrs, B, Bp, K, n, bs, dev, stream) != 0
     assert fn(ptrs[0] + 2, *ptrs[1:], 64, 128, 512, 256, 128, dev, stream) != 0  # misaligned x
+
+
+# K1's decode path (csrc/ternary_matmul_dec.cu): rows 1-8 at the same
+# shapes, both modes
+def _dec_counts():
+    return (tk.ternary_matmul.launches, tk.ternary_matmul.launches_dec,
+            tk.ternary_matmul.launches_tc, tk.ternary_matmul.launches_tc_a8)
+
+
+@contextlib.contextmanager
+def _dec_a8():
+    """W2A8 decode rows on the decode kernel too (K1_DEC_A8)."""
+    saved = tk.K1_DEC_A8
+    tk.K1_DEC_A8 = True
+    try:
+        yield
+    finally:
+        tk.K1_DEC_A8 = saved
+
+
+def _dec_held(x, packed, alpha, mu, bs=128, a8=False):
+    """One K1 call that must take the decode path (W2A8 with K1_DEC_A8
+    set): exactly one launch, counted in launches and launches_dec only;
+    held to TOL."""
+    with _dec_a8():
+        assert tk.k1_path(x.shape[0], packed.shape[1], bs, a8) == "dec"
+        before = _dec_counts()
+        got = tk.ternary_matmul(x, packed, alpha, mu, block_size=bs, a8=a8)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _dec_counts())) == (1, 1, 0, 0)
+    want = (tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain)(x, packed, alpha, mu,
+                                                                            bs)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_dec_path_matches_plain(cuda_device, shape, rows, a8):
+    K, n = TC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(5 * rows + K + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    x = torch.randn((rows, K), generator=g, device=cuda_device).bfloat16()
+    _dec_held(x, packed, alpha, mu, a8=a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("bs", [128, 256])
+def test_dec_path_on_stacked_view_zero_alpha_blocks_zero_row_and_ties(cuda_device, bs, a8):
+    g = torch.Generator(device=cuda_device).manual_seed(21 + bs + int(a8))
+    layers = [_layer(g, cuda_device, 2048, 1024, bs) for _ in range(3)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    x = _a8_rows_with_ties(g, cuda_device, 8, 2048)
+    if a8:
+        xn, _ = tk.normalize_rows_a8(x)
+        assert (xn[2:4].float().frac().abs() == 0.5).sum().item() == 2 * (2048 - 2)
+    for li in range(3):
+        got = _dec_held(x, packed[li], alpha[li], mu[li], bs, a8)
+        assert got[1].abs().max().item() == 0.0  # the all-zero row
+    p, a, m = layers[0]
+    a, m = a.clone(), m.clone()
+    a[::3] = 0
+    m[::6] = 0
+    _dec_held(x, p, a, m, bs, a8)
+    _dec_held(x[:3], p, a, m, bs, a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("K,n", [(640, 256), (1408, 128), (2304, 128), (4096, 12288),
+                                 (4096, 22528)])
+def test_dec_uneven_slices(cuda_device, K, n, a8):
+    """Split counts that leave the last K slice shorter than the others."""
+    nb = K // 128
+    splits = tk.dec_splits(K, n, 128, tk.dec_wave(cuda_device))
+    assert splits > 1 and nb % -(-nb // splits) != 0
+    g = torch.Generator(device=cuda_device).manual_seed(K + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    for rows in (1, 5, 8):
+        x = torch.randn((rows, K), generator=g, device=cuda_device).bfloat16()
+        _dec_held(x, packed, alpha, mu, a8=a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+def test_dec_same_bits_run_to_run(cuda_device, a8):
+    """No float atomics: the same inputs give the same bits, call after call
+    and shape after shape (the per-tile counters are left at 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(33 + int(a8))
+    shapes = [(4096, 6144), (12288, 4096), (640, 256)]
+    layers = [_layer(g, cuda_device, K, n, 128) for K, n in shapes]
+    xs = [torch.randn((8, K), generator=g, device=cuda_device).bfloat16() for K, _ in shapes]
+    with _dec_a8():
+        before = _dec_counts()
+        first = [tk.ternary_matmul(x, *l, a8=a8) for x, l in zip(xs, layers)]
+        for _ in range(3):
+            for x, l, f in zip(xs, layers, first):
+                assert torch.equal(tk.ternary_matmul(x, *l, a8=a8), f)
+    assert _dec_counts()[1] - before[1] == 12
+    torch.cuda.synchronize()
+    assert not tk._dec_counters[(xs[0].device, torch.cuda.current_stream().cuda_stream)].any()
+
+
+@pytest.mark.cuda
+def test_dec_counters_are_per_stream(cuda_device):
+    """Launches on two streams at once each count their K slices in counters
+    of their own: every result is right and the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(34)
+    packed, alpha, mu = _layer(g, cuda_device, 12288, 4096, 128)
+    assert tk.dec_splits(12288, 4096, 128, tk.dec_wave(cuda_device)) > 1
+    x = torch.randn((8, 12288), generator=g, device=cuda_device).bfloat16()
+    want = tk.ternary_matmul_plain(x, packed, alpha, mu)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(tk.ternary_matmul(x, packed, alpha, mu))
+    torch.cuda.synchronize()
+    assert _rel(outs[0], want) <= TOL
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    for s in streams:
+        assert not tk._dec_counters[(x.device, s.cuda_stream)].any()
+
+
+@pytest.mark.cuda
+def test_dec_refuses_graph_capture(cuda_device):
+    """The decode path raises inside a CUDA graph capture, whose replays
+    could overlap with its stream's launches on the same counters."""
+    g = torch.Generator(device=cuda_device).manual_seed(35)
+    packed, alpha, mu = _layer(g, cuda_device, 1024, 256, 128)
+    x = torch.randn((8, 1024), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.ternary_matmul(x, packed, alpha, mu)  # built and warmed outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _dec_counts()
+    with pytest.raises(NotImplementedError, match="graph"):
+        with torch.cuda.graph(graph):
+            tk.ternary_matmul(x, packed, alpha, mu)
+    assert _dec_counts() == before
+
+
+@pytest.mark.cuda
+def test_dec_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A decode launch that fails raises; no other K1 kernel nor the plain
+    version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_dec(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("another K1 kernel was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    monkeypatch.setattr(tk, "_dec_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_tc_kernel_lib", not_asked)
+    monkeypatch.setattr(tk, "_tc_a8_kernel_lib", not_asked)
+    monkeypatch.setattr(tk, "_kernel_lib", not_asked)
+    for a8 in (False, True):
+        x = torch.randn((8, 512), generator=g, device=cuda_device).bfloat16()
+        before = _dec_counts()
+        with _dec_a8(), pytest.raises(RuntimeError, match="decode"):
+            tk.ternary_matmul(x, packed, alpha, mu, a8=a8)
+        assert _dec_counts() == before
+
+
+@pytest.mark.cuda
+def test_dec_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    K, n = 1024, 256
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    x = torch.randn((8, K), generator=g, device=cuda_device).bfloat16()
+    out = torch.empty((8, n), device=cuda_device)
+    partial = torch.empty((8, 8, n), device=cuda_device)
+    counters = torch.zeros(n // 128, dtype=torch.int32, device=cuda_device)
+    fn = tk._dec_kernel_lib().pt2_ternary_matmul_dec
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    xn, sx = tk.normalize_rows_a8(x)
+    ptrs = [t.data_ptr() for t in (x, packed, alpha, mu, partial, out, counters)]
+    for splits in (1, 2):  # 8 blocks: one slice of 8, two of 4
+        for a8 in (0, 1):  # W2A8 takes the normalised rows
+            assert fn(xn.data_ptr() if a8 else ptrs[0], *ptrs[1:], 8, K, n, 128, splits, a8, dev,
+                      stream) == 0
+            torch.cuda.synchronize()
+            plain = tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain
+            want = plain(x, packed, alpha, mu)
+            assert _rel(out * sx if a8 else out, want) <= TOL
+    assert not counters.any()
+    # rows past the N tile, no rows, n % 128, bs 64, no slice, more slices
+    # than blocks, a slice left empty (8 blocks in 7: slices of 2), a slice
+    # over 2048 lanes (32 blocks in one)
+    for B, K_, n_, bs, splits in ((9, K, n, 128, 2), (0, K, n, 128, 2), (8, K, 224, 128, 2),
+                                  (8, K, n, 64, 2), (8, K, n, 128, 0), (8, K, n, 128, 9),
+                                  (8, K, n, 128, 7), (8, 4096, n, 128, 1)):
+        assert fn(*ptrs, B, K_, n_, bs, splits, 0, dev, stream) != 0
+    assert fn(ptrs[0] + 2, *ptrs[1:], 8, K, n, 128, 2, 0, dev, stream) != 0  # misaligned x
+    assert fn(*ptrs[:4], 0, *ptrs[5:], 8, K, n, 128, 2, 0, dev, stream) != 0  # no scratch
+    assert fn(*ptrs[:6], 0, 8, K, n, 128, 2, 0, dev, stream) != 0  # no counters
 
 
 def _perm(g, dev, m, K, interleave=False):

@@ -135,26 +135,177 @@ def test_plain_a8_matches_xla_a8(B):
 @pytest.mark.parametrize("n", [160, 256])  # 160: a multiple of 32, not of 128
 @pytest.mark.parametrize("bs", [64, 128, 256])
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("rows", [1, 8, 9, 15, 16, 512])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 9, 15, 16, 512])
 def test_k1_path(rows, a8, bs, n):
-    """K1's path is chosen by shape alone: the tensor cores for rows >=
-    K1_TC_MIN_ROWS with bs and n multiples of 128 ("tc" in bf16, "tc_a8" on
-    the int8 tensor cores in W2A8); decode rows (<= 8) and every other shape
-    stay on the CUDA-core kernel."""
-    tc = bs % 128 == 0 and n == 256 and rows >= tk.K1_TC_MIN_ROWS
-    want = ("tc_a8" if a8 else "tc") if tc else "cuda_core"
+    """K1's path is chosen by shape alone, with bs and n multiples of 128:
+    the decode kernel for bf16 rows <= K1_DEC_MAX_ROWS ("dec"; W2A8 decode
+    rows stay on the CUDA cores unless K1_DEC_A8 is set), the tensor cores
+    for rows >= K1_TC_MIN_ROWS ("tc" in bf16, "tc_a8" on the int8 tensor
+    cores in W2A8); every other shape stays on the CUDA-core kernel,
+    whatever its rows."""
+    assert not tk.K1_DEC_A8
+    fits = bs % 128 == 0 and n == 256
+    if fits and rows <= tk.K1_DEC_MAX_ROWS and not a8:
+        want = "dec"
+    elif fits and rows >= tk.K1_TC_MIN_ROWS:
+        want = "tc_a8" if a8 else "tc"
+    else:
+        want = "cuda_core"
     assert tk.k1_path(rows, n, bs, a8) == want
-    if rows <= 8 or bs == 64 or n == 160:
-        assert tk.k1_path(rows, n, bs, a8) == "cuda_core"
+    if bs == 64 or n == 160:
+        assert want == "cuda_core"
+    elif rows <= 8:
+        assert want == ("cuda_core" if a8 else "dec")  # every bf16 decode row
+    else:
+        assert want in ("tc", "tc_a8")  # rows 9 and up: the prefill kernels, unchanged
 
 
 def test_k1_path_reads_its_threshold_at_each_call(monkeypatch):
-    assert tk.K1_TC_MIN_ROWS > 8  # engine decode (B 8) keeps the CUDA-core kernel
+    assert tk.K1_TC_MIN_ROWS > tk.K1_DEC_MAX_ROWS  # decode rows never reach the prefill kernels
     assert tk.k1_path(512, 4096, 128, False) == "tc"
     assert tk.k1_path(512, 4096, 128, True) == "tc_a8"
     monkeypatch.setattr(tk, "K1_TC_MIN_ROWS", 1 << 30)  # chip_smoke's "before" runs
     assert tk.k1_path(512, 4096, 128, False) == "cuda_core"
     assert tk.k1_path(512, 4096, 128, True) == "cuda_core"  # one threshold for both modes
+    assert tk.k1_path(8, 4096, 128, False) == "dec"  # decode rows keep their own kernel
+
+
+def test_k1_path_reads_the_decode_threshold_at_each_call(monkeypatch):
+    assert tk.K1_DEC_MAX_ROWS == 8  # the decode kernel's N tile: the engine's 8 slots
+    monkeypatch.setattr(tk, "K1_DEC_A8", True)  # both modes on the decode kernel
+    for a8 in (False, True):
+        assert [tk.k1_path(r, 4096, 128, a8) for r in (1, 8, 9)] == \
+            ["dec", "dec", "tc_a8" if a8 else "tc"]
+    monkeypatch.setattr(tk, "K1_DEC_MAX_ROWS", 0)  # chip_smoke's "off" turns
+    for a8 in (False, True):
+        assert [tk.k1_path(r, 4096, 128, a8) for r in (1, 4, 8)] == ["cuda_core"] * 3
+        assert tk.k1_path(9, 4096, 128, a8) == ("tc_a8" if a8 else "tc")
+    monkeypatch.setattr(tk, "K1_DEC_MAX_ROWS", 4)
+    assert [tk.k1_path(r, 4096, 128, False) for r in (4, 5)] == ["dec", "cuda_core"]
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+def test_k1_path_reads_the_w2a8_decode_switch_at_each_call(monkeypatch, rows):
+    """W2A8 decode rows take the decode kernel only with K1_DEC_A8 set; bf16
+    decode rows and W2A8 prefill rows do not depend on it."""
+    assert tk.K1_DEC_A8 is False
+    assert [tk.k1_path(rows, 4096, 128, a8) for a8 in (False, True)] == ["dec", "cuda_core"]
+    monkeypatch.setattr(tk, "K1_DEC_A8", True)
+    assert [tk.k1_path(rows, 4096, 128, a8) for a8 in (False, True)] == ["dec", "dec"]
+    assert tk.k1_path(rows, 4096, 64, True) == "cuda_core"  # bs 64: not the decode kernel's
+    assert tk.k1_path(9, 4096, 128, True) == "tc_a8"
+
+
+# (name, K, n): the projections chip_smoke.py's models decode through K1
+PROJECTIONS = [("7b qkv", 4096, 12288), ("7b o / 8b o", 4096, 4096), ("7b gateup", 4096, 22528),
+               ("7b down", 12288, 4096), ("8b qkv", 4096, 6144), ("8b gateup", 4096, 28672),
+               ("8b down", 14336, 4096)]
+
+
+# the decode kernel's wave (dec_wave) on an H100 SXM (132 SMs) and PCIe (114)
+H100_WAVE = 4 * 132
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("name,K,n", PROJECTIONS)
+def test_dec_splits_fill_the_card_in_one_wave(name, K, n, sms):
+    """The decode kernel's K slices: none empty, each at most DEC_SLICE_LANES
+    lanes and (where the blocks allow) one per warp, and the CTAs of every
+    projection within one wave of the card's SMs, and at least 2 per SM
+    unless every warp already holds a single block (7b o / 8b o: 256 CTAs)."""
+    nb = K // 128
+    wave = tk.DEC_CTAS_PER_SM * sms
+    splits = tk.dec_splits(K, n, 128, wave)
+    bpc = -(-nb // splits)
+    ctas = splits * n // 128
+    assert 1 <= splits <= nb and (splits - 1) * bpc < nb  # the last slice holds >= 1 block
+    assert bpc * 128 <= tk.DEC_SLICE_LANES and bpc >= tk.DEC_WARPS
+    assert ctas <= wave
+    assert ctas >= 2 * sms or bpc == tk.DEC_WARPS
+
+
+def test_dec_splits_at_small_and_uneven_shapes():
+    assert tk.dec_splits(256, 128, 128, H100_WAVE) == 1  # 2 blocks: one slice, out written directly
+    assert tk.dec_splits(640, 128, 128, H100_WAVE) == 2  # 5 blocks: slices of 3 and 2
+    assert tk.dec_splits(1024, 384, 256, H100_WAVE) == 1
+    assert tk.dec_splits(4096, 6144, 128, H100_WAVE) == 8  # 8b qkv
+    # 7b qkv: 32 blocks in slices of 7, the last 4; in slices of 8 on 114 SMs
+    assert tk.dec_splits(4096, 12288, 128, H100_WAVE) == 5
+    assert tk.dec_splits(4096, 12288, 128, 4 * 114) == 4
+    for K, n, bs in ((2048, 128, 256), (640, 128, 128), (14336, 4096, 128), (28672, 128, 128)):
+        nb = K // bs
+        splits = tk.dec_splits(K, n, bs, H100_WAVE)
+        bpc = -(-nb // splits)
+        assert (splits - 1) * bpc < nb and bpc * bs <= tk.DEC_SLICE_LANES
+
+
+# the decode kernel's algorithm (its lane permutation, fragment layouts and
+# write-back, split-K slices, warps over whole blocks, per-block d and S,
+# W2A8 on exact integers) at shapes whose slices divide
+# the blocks evenly (768: 3 + 3; 1024: 4 + 4), unevenly (640: 3 + 2; 1408:
+# 4 + 4 + 3) or not at all (256), bs 128 and 256
+DEC_CASES = [(256, 128, 128), (640, 256, 128), (768, 384, 128), (1024, 128, 128),
+             (1408, 128, 128), (1024, 256, 256)]
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("K,n,bs", DEC_CASES)
+def test_dec_plain_matches_plain_and_xla(K, n, bs, rows, a8):
+    """ternary_matmul_dec_plain equals the plain version (f32 order only:
+    1e-6 of max|ref|) and JAX's XLA route (F32_TOL), bf16 and W2A8."""
+    rng = np.random.default_rng(1000 * rows + K + n + bs + int(a8))
+    packed, alpha, mu = _rand_packed(rng, n, K, bs)
+    x = rng.normal(size=(rows, K)).astype(np.float32)
+    tx, tp, ta, tm_ = _t(x), _t(packed), _t(alpha), _t(mu)
+    got = tk.ternary_matmul_dec_plain(tx, tp, ta, tm_, bs, a8, wave=H100_WAVE)
+    plain = tk.ternary_matmul_plain_a8 if a8 else tk.ternary_matmul_plain
+    want = plain(tx, tp, ta, tm_, bs)
+    assert got.shape == (rows, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    xla = jtm.ternary_matmul_xla_a8 if a8 else jtm.ternary_matmul_xla
+    jwant = np.asarray(xla(jnp.asarray(x), jnp.asarray(packed), alpha, mu, block_size=bs))
+    np.testing.assert_allclose(got.numpy(), jwant, **F32_TOL)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 4, 8])
+def test_dec_plain_matches_pallas_interpret(rows, a8):
+    """The decode kernel's algorithm against JAX's Pallas kernel in interpret
+    mode at decode rows: bf16 within the kernel's (mu - alpha) rounding bound
+    (as test_plain_matches_pallas_interpret), W2A8 at F32_TOL."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(70 + rows + 10 * int(a8))
+    K, n = 640, 256
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    x = np.asarray(jnp.asarray(rng.normal(size=(rows, K)), jnp.bfloat16).astype(jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas(
+            jnp.asarray(x), jnp.asarray(packed), alpha, mu, tile_n=128, a8=a8
+        ))
+    got = tk.ternary_matmul_dec_plain(_t(x), _t(packed), _t(alpha), _t(mu), 128, a8,
+                                      wave=H100_WAVE).numpy()
+    if a8:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    else:
+        bound = _offset_rounding_bound(x, alpha, mu, 128) + 1e-5 * (1 + np.abs(want))
+        assert np.all(np.abs(got - want) <= bound)
+
+
+def test_dec_plain_a8_on_ties_and_a_zero_row():
+    """W2A8 through the decode kernel's algorithm with half-integer
+    normalised values (rounded half to even) and an all-zero row: the
+    per-block dots are exact integers, so only the f32 scale products differ
+    from the plain version; the zero row gives exact zeros."""
+    rng = np.random.default_rng(5)
+    K, n = 768, 256
+    packed, alpha, mu = _rand_packed(rng, n, K)
+    x = torch.from_numpy(_a8_rows_with_ties(rng, 8, K))
+    got = tk.ternary_matmul_dec_plain(x, _t(packed), _t(alpha), _t(mu), 128, True, wave=H100_WAVE)
+    want = tk.ternary_matmul_plain_a8(x, _t(packed), _t(alpha), _t(mu))
+    assert float(got[1].abs().max()) == 0.0
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 # prefill rows, where JAX's kernel takes its masked W2A8 path (the
