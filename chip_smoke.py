@@ -112,7 +112,28 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      profiled decode step; 11c, in 5b); and times it through its C entry at
      1/2/4/8 rows (phase 6) beside the CUDA-core kernel, the tensor-core
      kernels, dense torch.matmul, torch._int_mm and the bytes bound. The
-     engine's tensor-core A/Bs of phases 5b and 10c run in two turns.
+     engine's tensor-core A/Bs of phases 5b and 10c run in two turns;
+ 12. (the gemma slice) serves gemma-2b (dim 2048, 8 / 1 KV heads of 256, a
+     GeGLU MLP of 16384, vocab 256000, norms by 1 + w, a scaled and tied
+     embedding) at full width and its full 18 layers, "down" layout: holds
+     K1's four kernels at its four projections (qkv 2048 -> 2560, o, gateup
+     2048 -> 32768, down 16384 -> 2048; rows 1/2/4/8 on the decode kernel,
+     bf16 and W2A8, and on the CUDA cores, 16/64/512 on both tensor-core
+     kernels; 12a), K2's GeGLU mode against ternary_mlp_plain(act="gelu") at
+     its MLP on packed[li] views, rows 1/2/4/8/16/64, with and without a
+     gather, and the relu mode at one shape (phase 2), K7 at its heads (hd
+     256, one KV head for 8 queries, scale 1/16; B 1/4/8, M 256 and 2048,
+     bf16 and int8 KV; phase 2b), 2-layer gemma-2b models ("down" and "ssr",
+     bf16 and W2A8) through the kernels against their reference routes with
+     an artifact round trip (phase 3); drives the lockstep path (4 prompts x
+     128 ids, 32 new tokens, bf16 and W2A8) and the ServeEngine (8 slots,
+     max_len 2048, 16 greedy requests, bf16 and int8 KV, quantum 1) with
+     exact launch counts (K2 GeGLU and K7 at hd 256 once per layer of each
+     engine decode step), every answer held under its teacher-forced
+     reference, a profiled decode step of each, and 8 POSTs through the
+     ServingServer (12b, 12c); and times K2's GeGLU and silu instances at
+     its MLP, K7 at its heads and K1's decode kernel at its projections
+     (phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -160,6 +181,23 @@ K1_ROWS = (1, 2, 4, 8, 12, 16, 64, 128, 512)  # K1's timed rows: decode, then pr
 # global maximum, so a p may land on the neighbouring bf16.
 ATTN_TOL = 1e-2
 ENGINE_M = 2048  # the engine's max_len (the JAX package's default)
+# gemma-2b (the GeGLU slice): its projections (name, K, n) with qkv's
+# (8 + 2 x 1) heads of 256, its MLP (D, I, n) and its heads (H, Hkv, hd)
+SHAPES_GEMMA = [("g qkv", 2048, 2560), ("g o", 2048, 2048), ("g gateup", 2048, 32768),
+                ("g down", 16384, 2048)]
+MLP_GEMMA = (2048, 16384, 2048)
+HEADS_GEMMA = (8, 1, 256)
+# gemma-2b's 18-layer bf16 answers vs the teacher-forced plain forward: on
+# an H100 (scripts/torch_pick_gaps_by_route.py) the lockstep route that never
+# launches K2 (FUSED_MLP off: K1 alone) and the one with K2's plain version
+# in its place trail that reference by up to 2.2e-2 of max|logit|, and the
+# engine's answers by up to 3.7e-2 on every route, those without K2 and
+# without K7 included: at this model's depth bf16 rounding flips from any f32
+# summation order reach past TOKEN_TOL. So its answers are held to A8_TOLS'
+# pick gap, as the W2A8 answers are for the same reason, the lockstep route
+# without K2 is measured beside them, and every K2 GeGLU and K7 call of
+# 18-layer runs is held against its plain version (MLP_TOL, ATTN_TOL)
+GEMMA_TOKEN_TOL = A8_TOLS[1]
 
 
 def fail(msg: str) -> None:
@@ -313,15 +351,20 @@ def main() -> None:
             w.launches = 0
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
         k1.ternary_matmul.launches_dec = 0
+        k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
         and its decode launches (also in "ternary_matmul") apart as
-        "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec"."""
+        "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec";
+        K2's GeGLU launches and K7's at hd 256 apart as "ternary_mlp_gelu"
+        and "decode_attention_hd256"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
         c["ternary_matmul_dec"] = k1.ternary_matmul.launches_dec
+        c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
+        c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -363,14 +406,19 @@ def main() -> None:
               ).bfloat16()
         return packed, alpha, mu
 
-    def rand_perm(m, K, interleave=False):
+    def rand_perm(m, K, interleave=False, gen=None):
         """Visit lanes over m features padded to K lanes with m; with
         ``interleave`` the pad lanes sit among the valid ones."""
-        perm = torch.cat([torch.randperm(m, generator=g, device=dev),
+        gen = gen or g
+        perm = torch.cat([torch.randperm(m, generator=gen, device=dev),
                           torch.full((K - m,), m, device=dev)])
         if interleave:
-            perm = perm[torch.randperm(K, generator=g, device=dev)]
+            perm = perm[torch.randperm(K, generator=gen, device=dev)]
         return perm.to(torch.int32)
+
+    # the gemma slice's draws come from their own generator, so that every
+    # earlier phase draws what it drew before the slice was added
+    ggem = torch.Generator(device=dev).manual_seed(12)
 
     @contextlib.contextmanager
     def k1_dec(on):
@@ -636,6 +684,37 @@ def main() -> None:
           f"max|ref|; max|err| {dec_err:.3e}; launches_dec exact")
     del packed, alpha, mu, x
 
+    # ---- 12a. K1's four kernels at the gemma-2b projections (qkv's n = 2560
+    # is a column count no llama shape has): rows 1/2/4/8 on the decode
+    # kernel (bf16 and W2A8) and on the CUDA cores (decode kernel off),
+    # 16/64/512 on the bf16 and int8 tensor cores; launches, launches_tc,
+    # launches_tc_a8 and launches_dec exact on every call. Its own generator
+    gg = torch.Generator(device=dev).manual_seed(10)
+    g_before = tc_checks + a8_checks + dec_checks + cc_checks
+    for name, K, n in SHAPES_GEMMA:
+        packed, alpha, mu = rand_layer(K, n, gen=gg)
+        for B in (1, 2, 4, 8):
+            x = torch.randn((B, K), generator=gg, device=dev).bfloat16()
+            for a8 in (False, True):
+                with k1_dec(True):
+                    tc_held(f"gemma dec {name} rows={B} a8={a8}", x, packed, alpha, mu,
+                            path="dec", a8=a8)
+                with k1_dec(False):
+                    tc_held(f"gemma {name} rows={B} a8={a8}, CUDA cores", x, packed, alpha, mu,
+                            path="cuda_core", a8=a8)
+        for B in (16, 64, 512):
+            x = torch.randn((B, K), generator=gg, device=dev).bfloat16()
+            tc_held(f"gemma tc {name} rows={B}", x, packed, alpha, mu)
+            tc_held(f"gemma tc_a8 {name} rows={B}", x, packed, alpha, mu, path="tc_a8", a8=True)
+    record["k1_gemma_checks"] = tc_checks + a8_checks + dec_checks + cc_checks - g_before
+    print(f"K1 at the gemma-2b projections (qkv 2048 -> 2560, o, gateup 2048 -> 32768, down "
+          f"16384 -> 2048): {record['k1_gemma_checks']} checks (rows 1/2/4/8 on the decode "
+          f"kernel and the CUDA cores, bf16 and W2A8; 16/64/512 on the bf16 and int8 tensor "
+          f"cores) within {KERNEL_TOL} x max|ref|, every launch count exact; max|err| with the "
+          f"earlier phases: decode {dec_err:.3e}, CUDA cores {max_err:.3e}, tc {tc_err:.3e}, "
+          f"tc_a8 {a8_err:.3e}")
+    del packed, alpha, mu, x
+
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0, "ternary_mlp": 0.0}
     nchecks = dict.fromkeys(errs, 0)
@@ -701,22 +780,54 @@ def main() -> None:
              k1.ternary_mlp_plain(x, perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I),
              MLP_TOL)
     del gp, ga, gm, dp, da, dm, x
+    # K2's GeGLU mode at the gemma-2b MLP (2048 -> 2 x 16384 -> 2048) on the
+    # packed[li] views of a 2-layer stack, without a gather ("down", the
+    # gateup's lanes = x's width) and with one (an "ssr" layout), rows
+    # 1/2/4/8/16/64 (every row tile); the relu mode at one shape; the
+    # GeGLU launches counted apart, exactly
+    for kname in ("ternary_mlp_gelu", "ternary_mlp_relu"):
+        errs[kname], nchecks[kname] = 0.0, 0
+    gelu0 = k1.ternary_mlp.launches_gelu
+    D, I, n = MLP_GEMMA
+    gp, ga, gm = rand_layer(D, 2 * I, L=2, gen=ggem)
+    dp, da, dm = rand_layer(I, n, L=2, gen=ggem)
+    for gathered in (False, True):
+        perms = [rand_perm(D, D, gen=ggem) for _ in range(2)] if gathered else [None, None]
+        for li in (0, 1):
+            args = (perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I)
+            for B in (1, 2, 4, 8, 16, 64):
+                x = torch.randn((B, D), generator=ggem, device=dev).bfloat16()
+                held("ternary_mlp_gelu", f"K2 GeGLU gemma-2b gather={gathered} layer {li} B={B}",
+                     k1.ternary_mlp(x, *args, act="gelu"),
+                     k1.ternary_mlp_plain(x, *args, act="gelu"), MLP_TOL)
+    x = torch.randn((8, D), generator=ggem, device=dev).bfloat16()
+    args = (None, gp[0], ga[0], gm[0], dp[0], da[0], dm[0], I)
+    held("ternary_mlp_relu", "K2 relu gemma-2b B=8", k1.ternary_mlp(x, *args, act="relu"),
+         k1.ternary_mlp_plain(x, *args, act="relu"), MLP_TOL)
+    if k1.ternary_mlp.launches_gelu - gelu0 != nchecks["ternary_mlp_gelu"]:
+        fail(f"K2 GeGLU launches rose by {k1.ternary_mlp.launches_gelu - gelu0} for "
+             f"{nchecks['ternary_mlp_gelu']} calls")
+    del gp, ga, gm, dp, da, dm, x, args
     record["new_kernel_checks"] = nchecks
     record["new_kernel_max_abs_err"] = errs
     print(f"K4 vs plain: {nchecks['onehot_gather']} checks bit-exact; K3 vs plain: "
           f"{nchecks['ternary_matmul_igathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
           f"{errs['ternary_matmul_igathered']:.3e}); K2 vs plain: {nchecks['ternary_mlp']} checks "
-          f"within {MLP_TOL} x max|ref| (max|err| {errs['ternary_mlp']:.3e})")
+          f"within {MLP_TOL} x max|ref| (max|err| {errs['ternary_mlp']:.3e}); K2 GeGLU at "
+          f"gemma-2b: {nchecks['ternary_mlp_gelu']} checks (max|err| "
+          f"{errs['ternary_mlp_gelu']:.3e}), relu {nchecks['ternary_mlp_relu']} (max|err| "
+          f"{errs['ternary_mlp_relu']:.3e}) within {MLP_TOL} x max|ref|")
 
     # ---- 2b. K7 vs its plain version: llama-3-8b and llama-2-7b heads,
     # B 1/4/8, M 256 and the engine's 2048, ragged valid lengths
     from pt2tpu_torch.serve.kvcache import quantize_i8
 
-    def attn_inputs(B, M, H, Hkv, quant, ragged=True, hd=128):
-        q = torch.randn((B, 1, H, hd), generator=g, device=dev).bfloat16()
-        k = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
-        v = torch.randn((B, M, Hkv, hd), generator=g, device=dev)
-        lens = (torch.randint(1, M + 1, (B,), generator=g, device=dev) if ragged
+    def attn_inputs(B, M, H, Hkv, quant, ragged=True, hd=128, gen=None):
+        gen = gen or g
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev).bfloat16()
+        k = torch.randn((B, M, Hkv, hd), generator=gen, device=dev)
+        v = torch.randn((B, M, Hkv, hd), generator=gen, device=dev)
+        lens = (torch.randint(1, M + 1, (B,), generator=gen, device=dev) if ragged
                 else torch.full((B,), M, device=dev))
         valid = torch.arange(M, device=dev)[None, :] < lens[:, None]
         if not quant:
@@ -736,8 +847,25 @@ def main() -> None:
                          k7.decode_attention(*a[:4], attn_scale, *a[4:]),
                          k7.decode_attention_plain(*a[:4], attn_scale, *a[4:]), ATTN_TOL)
                     del a
+    # gemma-2b's heads: hd 256, one KV head for 8 query heads, scale 1/16
+    errs["decode_attention_hd256"], nchecks["decode_attention_hd256"] = 0.0, 0
+    Hg, Hkvg, hdg = HEADS_GEMMA
+    scale_g = 1.0 / math.sqrt(hdg)
+    hd0 = k7.decode_attention.launches_hd256
+    for B in (1, 4, 8):
+        for M in (256, ENGINE_M):
+            for quant in (False, True):
+                a = attn_inputs(B, M, Hg, Hkvg, quant, hd=hdg, gen=ggem)
+                held("decode_attention_hd256", f"K7 gemma-2b heads H={Hg} Hkv={Hkvg} hd={hdg} "
+                     f"B={B} M={M} int8={quant}", k7.decode_attention(*a[:4], scale_g, *a[4:]),
+                     k7.decode_attention_plain(*a[:4], scale_g, *a[4:]), ATTN_TOL)
+                del a
+    if k7.decode_attention.launches_hd256 - hd0 != nchecks["decode_attention_hd256"]:
+        fail("K7's hd-256 launches do not match its calls")
     print(f"K7 vs plain: {nchecks['decode_attention']} checks within {ATTN_TOL} x max|ref| "
-          f"(max|err| {errs['decode_attention']:.3e})")
+          f"(max|err| {errs['decode_attention']:.3e}); at gemma-2b's heads (H {Hg}, Hkv {Hkvg}, "
+          f"hd {hdg}): {nchecks['decode_attention_hd256']} checks (max|err| "
+          f"{errs['decode_attention_hd256']:.3e})")
 
     # ---- 2c. K5 bit-exact against its plain version and against K4; K6 vs
     # its plain version: llama-3-8b gathers, ragged and interleaved-pad perms,
@@ -830,15 +958,17 @@ def main() -> None:
     TC_AB = (True, False, False, True, True, False)  # in turns: tc, CUDA cores, ...
 
     @contextlib.contextmanager
-    def swapped(make):
-        """Each routed kernel wrapper replaced by make(name, wrapper, plain, tol)."""
-        saved = {name: getattr(mod, name) for name, (mod, _, _) in routed.items()}
-        for name, (mod, plain, tol) in routed.items():
+    def swapped(make, names=None):
+        """Each routed kernel wrapper (those in ``names``, default all)
+        replaced by make(name, wrapper, plain, tol)."""
+        chosen = {k: v for k, v in routed.items() if names is None or k in names}
+        saved = {name: getattr(mod, name) for name, (mod, _, _) in chosen.items()}
+        for name, (mod, plain, tol) in chosen.items():
             setattr(mod, name, make(name, saved[name], plain, tol))
         try:
             yield
         finally:
-            for name, (mod, _, _) in routed.items():
+            for name, (mod, _, _) in chosen.items():
                 setattr(mod, name, saved[name])
 
     def each_call_checked(name, kernel, plain, tol):
@@ -849,7 +979,7 @@ def main() -> None:
             err = (got.float() - want.float()).abs().max().item()
             if (got.shape != want.shape or (tol == 0.0 and not torch.equal(got, want))
                     or not err <= tol * want.float().abs().max().item()):
-                fail(f"{name} inside a 2-layer model: max|err| {err:.3e} > {tol} x max|ref|")
+                fail(f"{name} inside a model: max|err| {err:.3e} > {tol} x max|ref|")
             per_call[name] += 1
             return got
         return call
@@ -863,10 +993,10 @@ def main() -> None:
         """(impl, context) of the route a model run is held against."""
         return ("plain", contextlib.nullcontext()) if impl == "auto" else (impl, plain_versions())
 
-    def two_layer_check(name, layout, seed, impls=("auto",), roundtrip=True, tag=""):
+    def two_layer_check(name, layout, seed, impls=("auto",), roundtrip=True, tag="", gen=None):
         cfg2 = get_config(name).with_(n_layers=2)
         params2 = random_ternary_params(cfg2, seed=seed, perm_mode=layout, device=dev)
-        prompt = torch.randint(0, cfg2.vocab_size, (4, 128), generator=g, device=dev)
+        prompt = torch.randint(0, cfg2.vocab_size, (4, 128), generator=gen or g, device=dev)
 
         @torch.inference_mode()
         def prefill_logits(params, impl):
@@ -957,6 +1087,18 @@ def main() -> None:
     if not (used["onehot_matmul"] and used["ternary_matmul_gathered"]) or \
             used["onehot_gather"] or used["ternary_matmul_igathered"]:
         fail(f"2-layer llama-3-8b ssr under P2 launched {used}")
+    # 2-layer gemma-2b models: "down" (decode through K1's decode kernel
+    # and K2 GeGLU without a gather) and "ssr" (decode K3 + K2 GeGLU with
+    # its gather, prefill K4 + K1), bf16 and W2A8
+    c0 = counts()
+    record["model2_gemma_down"] = two_layer_check("gemma-2b", "down", 11, ("auto", "a8"),
+                                                  gen=ggem)
+    record["model2_gemma_ssr"] = two_layer_check("gemma-2b", "ssr", 12, ("auto", "a8"), gen=ggem)
+    used = {k: v - c0[k] for k, v in counts().items()}
+    if not (used["ternary_mlp_gelu"] and used["ternary_matmul_dec"]
+            and used["ternary_matmul_igathered"] and used["onehot_gather"]) \
+            or used["ternary_mlp_gelu"] != used["ternary_mlp"]:
+        fail(f"2-layer gemma-2b models launched {used}")
 
     # ---- 3b. a 2-layer llama-3-8b ServeEngine ("down" layout, 8 slots, max_len
     # 2048, quantum 4): every K1 / K2 / K7 call held against its plain version
@@ -968,9 +1110,9 @@ def main() -> None:
     def host_ints(lo, hi, n):
         return torch.randint(lo, hi + 1, (n,), generator=gh).tolist()
 
-    def make_prompts(cfg_, lens):
-        return [torch.randint(0, cfg_.vocab_size, (n,), generator=g, device=dev).cpu().numpy()
-                for n in lens]
+    def make_prompts(cfg_, lens, gen=None):
+        return [torch.randint(0, cfg_.vocab_size, (n,), generator=gen or g,
+                              device=dev).cpu().numpy() for n in lens]
 
     cfg2 = get_config("llama-3-8b").with_(n_layers=2)
     params2 = random_ternary_params(cfg2, seed=6, perm_mode="down", device=dev)
@@ -1380,7 +1522,9 @@ def main() -> None:
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
         decode kernel + K2 + K7 per layer (K7 none when it is off). W2A8
         keeps the two-call MLP: K1 x4 per layer at every admission (on the
-        int8 tensor cores) and every decode step (on the CUDA cores). With
+        int8 tensor cores) and every decode step (on the CUDA cores). A
+        gemma model's K2 launches are all GeGLU, its K7 launches all at hd
+        256. With
         tc_on False (K1_TC_MIN_ROWS rebound) no launch takes the tensor
         cores; dec_on True / False (k1_dec) puts the decode steps' K1 calls
         of both modes on the decode kernel / the CUDA cores."""
@@ -1399,7 +1543,8 @@ def main() -> None:
             k2n += L if Lb <= 64 else 0
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
                     ternary_matmul_dec=2 * L * st if dec_on else 0, ternary_mlp=k2n,
-                    decode_attention=k7)
+                    decode_attention=k7, ternary_mlp_gelu=k2n if cfg.act == "gelu" else 0,
+                    decode_attention_hd256=k7 if cfg.hd == 256 else 0)
 
     def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
                    tc_on=True, impl="auto", dec_on=None):
@@ -1709,10 +1854,164 @@ def main() -> None:
           f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL})")
     del params
     torch.cuda.empty_cache()
+
+    # ---- 12b. gemma-2b's lockstep main path: 18 layers (its real depth),
+    # full width, "down" layout, the same 4 x 128-id prompt shape and 32 new
+    # tokens. bf16: the 512-row prefill runs K1 x4 per layer on the tensor
+    # cores (the MLP on the two-call path: 512 rows > 64); each decode step K1
+    # x2 (qkv, o) on the decode kernel and K2 GeGLU per layer. W2A8: K1 x4
+    # per layer at the prefill (int8 tensor cores) and at each step (CUDA
+    # cores). Every answer held under its teacher-forced reference; one
+    # decode step profiled
+    cfg, params, record["model_build_gemma_s"] = build("gemma-2b", "down", 13)
+    L = cfg.n_layers
+    prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=ggem, device=dev)
+    want_gemma = {
+        "auto": dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
+                     ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps,
+                     ternary_mlp_gelu=L * steps),
+        "a8": dict(none, ternary_matmul=4 * L + 4 * L * steps, ternary_matmul_tc_a8=4 * L),
+    }
+    runs = drive(cfg, params, "gemma-2b down", ("auto", "a8"), want_gemma.get, prompts)
+    for impl, r in runs.items():
+        tol = GEMMA_TOKEN_TOL if impl == "auto" else A8_TOLS[1]
+        r["worst_pick_gap"], _ = answers_held(f"gemma-2b lockstep {impl} answers",
+                                              [p.tolist() for p in prompts], r["tokens"], False,
+                                              impl=impl, tol=tol)
+        print(f"gemma-2b lockstep {impl}: every pick within {r['worst_pick_gap']:.2e} of the "
+              f"teacher-forced {'W2A8 plain-version' if impl == 'a8' else 'plain'} max (<= {tol})")
+    # the same prompts on the route that never launches K2 (FUSED_MLP off:
+    # each decode step runs K1 x4 per layer on the decode kernel): its
+    # answers' gap under the same reference, measured beside the route's
+    saved_fused, ttm.FUSED_MLP = ttm.FUSED_MLP, False
+    try:
+        zero_counts()
+        toks = greedy_generate(cfg, params, prompts, new)
+        torch.cuda.synchronize()
+    finally:
+        ttm.FUSED_MLP = saved_fused
+    got = counts()
+    if got != dict(none, ternary_matmul=4 * L + 4 * L * steps, ternary_matmul_tc=4 * L,
+                   ternary_matmul_dec=4 * L * steps):
+        fail(f"gemma-2b lockstep with FUSED_MLP off: launches {got}")
+    tally(got)
+    gap_no_k2, _ = answers_held("gemma-2b lockstep answers, FUSED_MLP off",
+                                [p.tolist() for p in prompts], toks.tolist(), False, hold=False)
+    runs["auto"]["worst_pick_gap_without_k2"] = gap_no_k2
+    print(f"gemma-2b lockstep, FUSED_MLP off (no K2): every pick within {gap_no_k2:.2e} of the "
+          f"teacher-forced plain max (measured, not held); through K2: "
+          f"{runs['auto']['worst_pick_gap']:.2e}")
+    # every K2 GeGLU call of an 18-layer lockstep run (8 new tokens) held
+    # against its plain version on the model's own activations
+    for k in per_call:
+        per_call[k] = 0
+    with swapped(each_call_checked, ("ternary_mlp",)):
+        greedy_generate(cfg, params, prompts, 8)
+    if per_call["ternary_mlp"] != L * 7:
+        fail(f"gemma-2b lockstep: {per_call['ternary_mlp']} K2 calls held, want {L * 7}")
+    print(f"gemma-2b lockstep, 8 new tokens: all {per_call['ternary_mlp']} K2 GeGLU calls (18 "
+          f"layers x 7 decode steps) held against ternary_mlp_plain(act='gelu') within {MLP_TOL} "
+          f"x max|ref| on the model's activations")
+    record["main_path_gemma"] = runs
+    record["decode_step_gemma"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                                      "gemma-2b down")
+
+    # ---- 12c. gemma-2b's serving path: the ServeEngine (8 slots, max_len
+    # 2048, 16 greedy requests of 64-512 ids, max_new 32-64), bf16 and int8
+    # KV, quantum 1: each decode step runs K1 x2 on the decode kernel, K2
+    # GeGLU and K7 at hd 256 per layer, each admission its bucket (K2 GeGLU
+    # at <= 64 rows); every answer held to TOKEN_TOL under the teacher-forced
+    # plain forward (int8 KV: through an int8 cache); one engine decode step
+    # timed and profiled; then 8 concurrent POSTs through the ServingServer
+    g_prompts = make_prompts(cfg, host_ints(64, 512, 16), ggem)
+    g_news = host_ints(32, 64, 16)
+    record["engine_gemma"] = {}
+    for kvq in (False, True):
+        kv = "int8" if kvq else "bf16"
+        res, g_out = run_engine(f"gemma-2b down {kv} KV quantum 1", kvq, 1, g_prompts, g_news)
+        res["worst_pick_gap"], _ = answers_held(f"gemma-2b engine {kv} KV answers", g_prompts,
+                                                g_out, kvq, tol=GEMMA_TOKEN_TOL)
+        print(f"gemma-2b engine {kv} KV: every pick of 16 answers within "
+              f"{res['worst_pick_gap']:.2e} of the teacher-forced {'int8-cache ' if kvq else ''}"
+              f"plain max (<= {GEMMA_TOKEN_TOL})")
+        record["engine_gemma"][kv] = res
+        # every K2 GeGLU and K7 call of a short run of the same engine (4
+        # requests, 8 new tokens each) held against its plain version
+        for k in per_call:
+            per_call[k] = 0
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
+        for p_ in g_prompts[:4]:
+            eng.submit(p_, 8)
+        with swapped(each_call_checked, ("ternary_mlp", "decode_attention")):
+            eng.run()
+        st = eng.stats["steps"]
+        short = sum(min(_bucket(len(p_)), ENGINE_M) <= 64 for p_ in g_prompts[:4])
+        if (per_call["decode_attention"], per_call["ternary_mlp"]) != (L * st, L * (st + short)):
+            fail(f"gemma-2b engine {kv} KV: held {per_call} over {st} decode steps")
+        print(f"gemma-2b engine {kv} KV, 4 requests x 8 tokens: all {per_call['ternary_mlp']} K2 "
+              f"GeGLU and {per_call['decode_attention']} K7 (hd 256) calls held against their "
+              f"plain versions on the engine's activations")
+        del eng
+    eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
+    for p in g_prompts[:8]:
+        eng.submit(p, 1024)
+    eng.step()  # admits all 8; one decode step
+    eng.step()
+    c0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        eng.step()  # ends in the fetch of the step's tokens
+    wall_ms = (time.perf_counter() - t0) / 6 * 1e3
+    prof = profile_engine_step(eng, "gemma-2b down engine, bf16 KV")
+    rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+    want = {k: 7 * L * m for k, m in (("ternary_matmul", 2), ("ternary_matmul_dec", 2),
+                                      ("ternary_mlp", 1), ("ternary_mlp_gelu", 1),
+                                      ("decode_attention", 1), ("decode_attention_hd256", 1))}
+    if rose != want:
+        fail(f"gemma-2b engine decode steps launched {rose}, want {want}")
+    record["engine_step_gemma"] = {"step_wall_ms": wall_ms, **prof}
+    print(f"gemma-2b engine decode step, bf16 KV, 8 rows at positions {int(eng.positions.min())}-"
+          f"{int(eng.positions.max())} of {ENGINE_M}: wall {wall_ms:.2f} ms (6 steps), device "
+          f"time {prof['device_ms']:.2f} ms (profiler) on {record['smi']}")
+    del eng
+    torch.cuda.empty_cache()
+    srv_prompts = make_prompts(cfg, host_ints(64, 256, 8), ggem)
+    srv_news = host_ints(16, 32, 8)
+    answers = [None] * 8
+    srv = ServingServer(cfg, params, host="127.0.0.1", port=0, max_batch=8,
+                        max_len=ENGINE_M).start()
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=320)
+        srv_wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.stop()
+    if srv.error is not None or health["status"] != "ok":
+        fail(f"the gemma-2b server's engine failed: {srv.error}")
+    for i, ans in enumerate(answers):
+        if ans is None or ans[0] != 200 or len(ans[1]["ids"]) != srv_news[i]:
+            fail(f"gemma-2b server request {i}: answer {ans}")
+    worst, _ = answers_held("gemma-2b server answers", srv_prompts,
+                            [a[1]["ids"] for a in answers], False, tol=GEMMA_TOKEN_TOL)
+    record["server_gemma"] = {"requests": 8, "wall_s": srv_wall, "worst_pick_gap": worst,
+                              "stats": health["stats"]}
+    print(f"gemma-2b ServingServer: 8 concurrent POSTs answered in {srv_wall:.2f} s; every pick "
+          f"within {worst:.2e} of the teacher-forced plain max (<= {GEMMA_TOKEN_TOL})")
+    del params
+    torch.cuda.empty_cache()
     record["paths_s"] = time.perf_counter() - t_start
 
     # ---- 6. timings (cold weights: rotate > L2), CUDA events over back-to-back
     # launches of the C entry points (no Python wrapper in the loop)
+    import torch.nn.functional as F
+
     lib = k1._kernel_lib()
     tc_lib = k1._tc_kernel_lib()
     tc_a8_lib = k1._tc_a8_kernel_lib()
@@ -1757,9 +2056,10 @@ def main() -> None:
               f"{d['GBps']:.0f} GB/s | {100 * b_ms / ms:.1f} % of bound")
         return d
 
-    def dense(K, n):
+    def dense(K, n, gen=None):
         copies = max(1, math.ceil(COLD_BYTES / (2 * K * n)))
-        return [torch.randn((K, n), generator=g, device=dev).bfloat16() for _ in range(copies)]
+        return [torch.randn((K, n), generator=gen or g, device=dev).bfloat16()
+                for _ in range(copies)]
 
     # K1's kernels through their C entries at decode and prefill rows: "K1"
     # the CUDA cores, "K1tc" the tensor cores (its row sums included); in
@@ -1959,7 +2259,7 @@ def main() -> None:
             ok(mlp_lib.pt2_ternary_mlp(
                 x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
                 dp.data_ptr(), da.data_ptr(), dm.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                B, D, D, 2 * I, I, Kd, n, dix, stream), "K2")
+                B, D, D, 2 * I, I, Kd, n, 0, dix, stream), "K2")
 
         ms = time_ms(kern, 50)
         plain_ms = time_ms(lambda i: k1.ternary_mlp_plain(
@@ -1971,6 +2271,96 @@ def main() -> None:
                              2.0 * B * (D * 2 * I + I * n), D=D, I=I, n=n))
     del layers, w_gu, w_dn
     record["k2_timing"] = k2_detail
+
+    # K2 at gemma-2b's MLP (2048 -> 2 x 16384 -> 2048, no gather: the
+    # "down" layout), its GeGLU instance beside its silu instance on the same
+    # operands, at 1 and 8 rows; library: the two dense bf16 matmuls with
+    # F.gelu (tanh form) between them (a yardstick: no single call exists)
+    D, I, n = MLP_GEMMA
+    wbytes = D * 2 * I // 4 + 4 * (D // 128) * 2 * I + I * n // 4 + 4 * (I // 128) * n
+    copies = max(1, math.ceil(COLD_BYTES / wbytes))
+    layers = [rand_layer(D, 2 * I, gen=ggem) + rand_layer(I, n, gen=ggem)
+              for _ in range(copies)]
+    w_gu = torch.randn((D, 2 * I), generator=ggem, device=dev).bfloat16()
+    w_dn = torch.randn((I, n), generator=ggem, device=dev).bfloat16()
+    k2g_detail, k2g_silu_detail = [], []
+    for B in (1, 8):
+        x = torch.randn((B, D), generator=ggem, device=dev).bfloat16()
+        partial = torch.empty((I // 128, B, n), dtype=torch.float32, device=dev)
+        out = torch.empty((B, n), dtype=torch.float32, device=dev)
+
+        def kern(i, act=1):
+            gp, ga, gm, dp, da, dm = layers[i % copies]
+            ok(mlp_lib.pt2_ternary_mlp(
+                x.data_ptr(), None, gp.data_ptr(), ga.data_ptr(), gm.data_ptr(), dp.data_ptr(),
+                da.data_ptr(), dm.data_ptr(), partial.data_ptr(), out.data_ptr(), B, D, D, 2 * I,
+                I, I, n, act, dix, stream), "K2")
+
+        def library(i):
+            gu = torch.matmul(x, w_gu)
+            return torch.matmul(F.gelu(gu[:, :I], approximate="tanh") * gu[:, I:], w_dn)
+
+        gelu_ms = [time_ms(kern, 50)]
+        silu_ms = [time_ms(lambda i: kern(i, 0), 50)]
+        silu_ms.append(time_ms(lambda i: kern(i, 0), 50))
+        gelu_ms.append(time_ms(kern, 50))  # in turns gelu, silu, silu, gelu
+        plain_ms = time_ms(lambda i: k1.ternary_mlp_plain(x, None, *layers[i % copies], I,
+                                                          act="gelu"), 3)
+        plain_silu_ms = time_ms(lambda i: k1.ternary_mlp_plain(x, None, *layers[i % copies], I), 3)
+        lib_ms = time_ms(library, 20)
+        nbytes = wbytes + 2 * B * D + 4 * B * n
+        ops = 2.0 * B * (D * 2 * I + I * n)
+        d = row("K2gelu", "gemma", B, min(gelu_ms), plain_ms, lib_ms, nbytes, ops, D=D, I=I, n=n)
+        d["turns_ms"] = gelu_ms
+        k2g_detail.append(d)
+        d = row("K2silu", "gemma", B, min(silu_ms), plain_silu_ms, lib_ms, nbytes, ops, D=D, I=I,
+                n=n)
+        d["turns_ms"] = silu_ms
+        k2g_silu_detail.append(d)
+        print(f"K2 at gemma-2b's MLP, B={B}: GeGLU {' / '.join(f'{t * 1e3:.1f}' for t in gelu_ms)}"
+              f" us, silu {' / '.join(f'{t * 1e3:.1f}' for t in silu_ms)} us (in turns gelu, "
+              f"silu, silu, gelu) on {record['smi']}")
+    del layers, w_gu, w_dn
+    record["k2_gelu_timing"] = k2g_detail
+    record["k2_silu_gemma_timing"] = k2g_silu_detail
+
+    # K1's decode kernel at gemma-2b's four projections, 1 and 8 rows, beside
+    # the plain version, dense torch.matmul and the bytes bound
+    k1g_detail = []
+    for name, K, n in SHAPES_GEMMA:
+        wbytes = K * n // 4 + 4 * (K // 128) * n
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        layers = [rand_layer(K, n, gen=ggem) for _ in range(copies)]
+        dn = dense(K, n, ggem)
+        splits = k1.dec_splits(K, n, 128, k1.dec_wave(dev))
+        for B in (1, 8):
+            x = torch.randn((B, K), generator=ggem, device=dev).bfloat16()
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+            partial = torch.empty((splits, B, n), dtype=torch.float32, device=dev)
+
+            def kern_dec(i):
+                p, a, m = layers[i % copies]
+                ok(dec_lib.pt2_ternary_matmul_dec(
+                    x.data_ptr(), p.data_ptr(), a.data_ptr(), m.data_ptr(), partial.data_ptr(),
+                    out.data_ptr(), dec_counters.data_ptr(), B, K, n, 128, splits, 0, dix,
+                    stream), "K1 dec")
+
+            ms = time_ms(kern_dec, 50)
+            plain_ms = time_ms(lambda i: k1.ternary_matmul_plain(x, *layers[i % copies]), 3)
+            lib_ms = time_ms(lambda i: torch.matmul(x, dn[i % len(dn)]), 50)
+            k1g_detail.append(row("K1dec", name, B, ms, plain_ms, lib_ms,
+                                  wbytes + 2 * B * K + 4 * B * n, 2.0 * B * K * n, K=K, n=n,
+                                  splits=splits))
+        del layers, dn
+    if dec_counters.any():
+        fail("the decode kernel left a column tile's counter set")
+    record["k1_dec_gemma_timing"] = k1g_detail
+    for B in (1, 8):
+        at_b = [d for d in k1g_detail if d["B"] == B]
+        print(f"K1 decode kernel, one gemma-2b layer (4 projections) at {B} rows: "
+              f"{sum(d['ms'] for d in at_b) * 1e3:.1f} us | torch.matmul "
+              f"{sum(d['library_ms'] for d in at_b) * 1e3:.1f} us | bound "
+              f"{sum(d['bound_ms'] for d in at_b) * 1e3:.1f} us on {record['smi']}")
 
     # K4 at llama-3-8b's 4096 lanes (no pad lanes); library: torch.index_select
     k4_detail = []
@@ -2071,77 +2461,83 @@ def main() -> None:
     record["k6_timing"] = k6_detail
     record["k3_k6_wrapper_timing"] = wrapper_detail
 
-    # K7 at the engine's point: B 8, M 2048, llama-3-8b heads, every slot
+    # K7 at the engine's point: B 8, M 2048, llama-3-8b heads and gemma-2b's
+    # (hd 256, one KV head), every slot
     # valid (so the function needs the whole cache); C entry back to back,
     # cache rotated over >= 150 MB. Library: scaled_dot_product_attention on
     # the (B, heads, M, hd) layout it wants, made outside the timed call
     # (int8: dequantise, then SDPA).
-    import torch.nn.functional as F
-
     attn_lib = k7._kernel_lib()
-    B7, M7, H7, Hkv7, hd7 = 8, ENGINE_M, 32, 8, 128
-    chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7)
-    nchunk = -(-M7 // chunk)
-    part_acc = torch.empty((B7, H7, nchunk, hd7), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B7, H7, nchunk, 2), dtype=torch.float32, device=dev)
-    out7 = torch.empty((B7, 1, H7, hd7), dtype=torch.bfloat16, device=dev)
-    k7_detail = []
-    for quant in (False, True):
-        kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * (1 if quant else 2) + (
-            2 * B7 * M7 * Hkv7 * 4 if quant else 0)
-        copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
-        sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False) for _ in range(copies)]
-        q7 = sets[0][0]
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
 
-        def kern(i):
-            _, kk, vv, vd, ks_, vs_ = sets[i % copies]
-            ok(attn_lib.pt2_decode_attention(
-                q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(),
-                ptr(ks_), ptr(vs_), part_acc.data_ptr(), part_ml.data_ptr(), out7.data_ptr(),
-                attn_scale, B7, M7, H7, Hkv7, hd7, chunk, int(quant), dix, stream), "K7")
+    def k7_timing(H7, Hkv7, hd7, attn_scale, label):
+        B7, M7 = 8, ENGINE_M
+        chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7)
+        nchunk = -(-M7 // chunk)
+        part_acc = torch.empty((B7, H7, nchunk, hd7), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((B7, H7, nchunk, 2), dtype=torch.float32, device=dev)
+        out7 = torch.empty((B7, 1, H7, hd7), dtype=torch.bfloat16, device=dev)
+        k7_detail = []
+        for quant in (False, True):
+            kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * (1 if quant else 2) + (
+                2 * B7 * M7 * Hkv7 * 4 if quant else 0)
+            copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
+            sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False, hd=hd7)
+                    for _ in range(copies)]
+            q7 = sets[0][0]
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
 
-        ms = time_ms(kern, 50)
-        wrapper_ms = time_ms(lambda i: k7.decode_attention(
-            q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 50)
-        plain_ms = time_ms(lambda i: k7.decode_attention_plain(
-            q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 3)
-        qh = q7.transpose(1, 2).contiguous()  # (B, H, 1, hd)
-        lib_sets = []
-        for _, kk, vv, vd, ks_, vs_ in sets:
-            heads_first = lambda t: None if t is None else t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
-            lib_sets.append((heads_first(kk), heads_first(vv), vd[:, None, None, :],
-                             heads_first(ks_), heads_first(vs_)))
+            def kern(i):
+                _, kk, vv, vd, ks_, vs_ = sets[i % copies]
+                ok(attn_lib.pt2_decode_attention(
+                    q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(),
+                    ptr(ks_), ptr(vs_), part_acc.data_ptr(), part_ml.data_ptr(), out7.data_ptr(),
+                    attn_scale, B7, M7, H7, Hkv7, hd7, chunk, int(quant), dix, stream), "K7")
 
-        def library(i):
-            kh, vh, mask, ksh, vsh = lib_sets[i % copies]
+            ms = time_ms(kern, 50)
+            wrapper_ms = time_ms(lambda i: k7.decode_attention(
+                q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 50)
+            plain_ms = time_ms(lambda i: k7.decode_attention_plain(
+                q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 3)
+            qh = q7.transpose(1, 2).contiguous()  # (B, H, 1, hd)
+            lib_sets = []
+            for _, kk, vv, vd, ks_, vs_ in sets:
+                heads_first = lambda t: None if t is None else t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+                lib_sets.append((heads_first(kk), heads_first(vv), vd[:, None, None, :],
+                                 heads_first(ks_), heads_first(vs_)))
+
+            def library(i):
+                kh, vh, mask, ksh, vsh = lib_sets[i % copies]
+                if quant:
+                    kh, vh = (kh.float() * ksh).bfloat16(), (vh.float() * vsh).bfloat16()
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=attn_scale,
+                                                      enable_gqa=True)
+
+            lib_ms = time_ms(library, 20)
+            # the yardstick computes the same function: within K7's tolerance of
+            # the plain version on the cache it attends over (int8: the cache
+            # dequantised to bf16, as the yardstick dequantises it)
+            _, kk, vv, vd, ks_, vs_ = sets[0]
             if quant:
-                kh, vh = (kh.float() * ksh).bfloat16(), (vh.float() * vsh).bfloat16()
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=attn_scale,
-                                                  enable_gqa=True)
+                kk, vv = (kk.float() * ks_).bfloat16(), (vv.float() * vs_).bfloat16()
+            want = k7.decode_attention_plain(q7, kk, vv, vd, attn_scale).float()
+            got = library(0).transpose(1, 2).float()
+            err = (got - want).abs().max().item()
+            if not err <= ATTN_TOL * want.abs().max().item():
+                fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant}): max|err| "
+                     f"{err:.3e}, max|ref| {want.abs().max().item():.3e}")
+            nbytes = kv_bytes + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
+            d = row(label, "int8" if quant else "bf16", B7, ms, plain_ms, lib_ms, nbytes,
+                    4.0 * B7 * H7 * M7 * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7)
+            d["wrapper_ms"] = wrapper_ms
+            print(f"{label} {'int8' if quant else 'bf16'}: whole wrapper (checks, scratch) "
+                  f"{wrapper_ms * 1e3:.1f} us per call")
+            k7_detail.append(d)
+            del sets, lib_sets
+        return k7_detail
 
-        lib_ms = time_ms(library, 20)
-        # the yardstick computes the same function: within K7's tolerance of
-        # the plain version on the cache it attends over (int8: the cache
-        # dequantised to bf16, as the yardstick dequantises it)
-        _, kk, vv, vd, ks_, vs_ = sets[0]
-        if quant:
-            kk, vv = (kk.float() * ks_).bfloat16(), (vv.float() * vs_).bfloat16()
-        want = k7.decode_attention_plain(q7, kk, vv, vd, attn_scale).float()
-        got = library(0).transpose(1, 2).float()
-        err = (got - want).abs().max().item()
-        if not err <= ATTN_TOL * want.abs().max().item():
-            fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant}): max|err| "
-                 f"{err:.3e}, max|ref| {want.abs().max().item():.3e}")
-        nbytes = kv_bytes + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
-        d = row("K7", "int8" if quant else "bf16", B7, ms, plain_ms, lib_ms, nbytes,
-                4.0 * B7 * H7 * M7 * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7)
-        d["wrapper_ms"] = wrapper_ms
-        print(f"K7 {'int8' if quant else 'bf16'}: whole wrapper (checks, scratch) "
-              f"{wrapper_ms * 1e3:.1f} us per call")
-        k7_detail.append(d)
-        del sets, lib_sets
-    record["k7_timing"] = k7_detail
+    record["k7_timing"] = k7_timing(32, 8, 128, attn_scale, "K7")
+    Hg, Hkvg, hdg = HEADS_GEMMA
+    record["k7_gemma_timing"] = k7_timing(Hg, Hkvg, hdg, 1.0 / math.sqrt(hdg), "K7gemma")
 
     # ---- the record: per kernel, one layer of one step of its main path
     # (K1's tensor-core kernels at the 512-row prefill, 4 projections, the
@@ -2188,13 +2584,27 @@ def main() -> None:
               [d for d in k4_detail if d["B"] == 512], errs["onehot_gather"], mult=3),
         entry("decode_attention", "pt2tpu_torch/csrc/decode_attention.cu",
               "pt2tpu/ops/kernels/pallas_attention.py:249",
-              [d for d in k7_detail if d["shape"] == "bf16"], errs["decode_attention"]),
+              [d for d in record["k7_timing"] if d["shape"] == "bf16"], errs["decode_attention"]),
         entry("onehot_matmul", "pt2tpu_torch/csrc/onehot_matmul.cu",
               "pt2tpu/ops/kernels/pallas_gather.py:127",
               [d for d in k5_detail if d["B"] == 512], errs["onehot_matmul"], mult=3),
         entry("ternary_matmul_gathered", "pt2tpu_torch/csrc/ternary_matmul_gathered.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:443", b1(k6_detail),
               errs["ternary_matmul_gathered"]),
+    ]
+    # this slice's instances: K2 GeGLU at gemma-2b's MLP, B = 1; K7 at its
+    # heads, B = 8, M = 2048, bf16 cache; their launches: every gemma-2b run
+    # counted exactly
+    main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"]
+    main_launches["decode_attention_hd256"] = run_totals["decode_attention_hd256"]
+    kernels += [
+        entry("ternary_mlp_gelu", "pt2tpu_torch/csrc/ternary_mlp.cu",
+              "pt2tpu/ops/kernels/pallas_ternary.py:1106", b1(k2g_detail),
+              errs["ternary_mlp_gelu"]),
+        entry("decode_attention_hd256", "pt2tpu_torch/csrc/decode_attention.cu",
+              "pt2tpu/ops/kernels/pallas_attention.py:249",
+              [d for d in record["k7_gemma_timing"] if d["shape"] == "bf16"],
+              errs["decode_attention_hd256"]),
     ]
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals

@@ -4,13 +4,20 @@
 // ternary_mlp_pallas_stacked (the stacked variant collapses into this one:
 // the caller passes the zero-copy views of layer li).
 //
-// Contract (gated silu MLP, decode rows, bf16 activations, scale blocks of
-// 128): with xg = x[:, perm] (0 on pad lanes) when a gather is attached, else
-// x zero-padded to Kg lanes, and half = gu_n / 2 the stored gate width,
+// Contract (gated MLP, decode rows, bf16 activations, scale blocks of 128):
+// with xg = x[:, perm] (0 on pad lanes) when a gather is attached, else x
+// zero-padded to Kg lanes, and half = gu_n / 2 the stored gate width,
 //
 //   gate = xg @ dequant(gu[:, :half]),   up = xg @ dequant(gu[:, half:])
-//   mid  = bf16(silu(gate) * up)          (f32, cast as down's input)
+//   mid  = bf16(act(gate) * up)           (f32, cast as down's input)
 //   out  = mid @ dequant(dn[:half])       (down's pad rows beyond half unread)
+//
+// where act is the TPU kernel's _act_fn (pallas_ternary.py): silu, gelu in
+// its tanh form (jax.nn.gelu's default; GeGLU, gemma's MLP) or relu, a
+// template parameter of the kernel. gelu uses tanhf, not tanh.approx.f32:
+// the activation runs 128 x TB times per block, so the exact form costs
+// nothing measurable, and the approximate one would spend part of the
+// kernel's tolerance against its plain version.
 //
 // in f32: W = alpha * u + (mu - alpha), u = T + 1 (K1's arithmetic; in the
 // gate/up phase alpha multiplies each code, which is exact, before the sum).
@@ -23,7 +30,7 @@
 //      is staged in shared memory through the gather, as in K3; 64 thread
 //      columns of 4 lanes each, gate then up, and 8 thread rows that split
 //      each scale block's packed rows and are summed in a fixed order);
-//   2. mid = silu(gate) * up stays in shared memory as bf16, with its sum
+//   2. mid = act(gate) * up stays in shared memory as bf16, with its sum
 //      for down's mu term;
 //   3. it multiplies mid by down's 128 matching rows (packed rows kv*32 ..)
 //      over all n outputs and writes that partial product to a (nv, B, n)
@@ -71,7 +78,15 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
 }
 
-template <int TB, bool GATHER>
+// The activations, by the code the C entry takes (0 silu, 1 gelu, 2 relu).
+template <int ACT>
+__device__ __forceinline__ float act_fn(float g) {
+  if (ACT == 0) return g / (1.f + expf(-g));
+  if (ACT == 1) return 0.5f * g * (1.f + tanhf(0.7978845608f * (g + 0.044715f * g * g * g)));
+  return fmaxf(g, 0.f);
+}
+
+template <int TB, bool GATHER, int ACT>
 __global__ void __launch_bounds__(THREADS)
 ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
                    const int* __restrict__ perm,                // (Kg,) if GATHER
@@ -204,12 +219,11 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
     __syncthreads();
   }
 
-  // ---- 2. mid = silu(gate) * up in f32, kept as bf16 (down's operand type)
+  // ---- 2. mid = act(gate) * up in f32, kept as bf16 (down's operand type)
   for (int i = tid; i < TB * BS; i += THREADS) {
     const int b = i / BS;
     const int c = i - b * BS;
-    const float g = gu[b][c];
-    mid[b][c] = __float2bfloat16(g / (1.f + expf(-g)) * gu[b][BS + c]);
+    mid[b][c] = __float2bfloat16(act_fn<ACT>(gu[b][c]) * gu[b][BS + c]);
   }
   __syncthreads();
   if (warp < TB) {
@@ -280,7 +294,7 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[i] = t;
 }
 
-template <int TB>
+template <int TB, int ACT>
 void launch(bool gather, const void* x, const void* perm, const void* gp,
             const void* ga, const void* gm, const void* dp, const void* da,
             const void* dm, void* partial, int B, int m, int Kg, int gu_n,
@@ -296,18 +310,34 @@ void launch(bool gather, const void* x, const void* perm, const void* gp,
   const __nv_bfloat16* dmp = static_cast<const __nv_bfloat16*>(dm);
   float* pp = static_cast<float*>(partial);
   if (gather)
-    ternary_mlp_kernel<TB, true><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, true, ACT><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
   else
-    ternary_mlp_kernel<TB, false><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, false, ACT><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
+}
+
+template <int ACT>
+void launch_rows(bool gather, const void* x, const void* perm, const void* gp,
+                 const void* ga, const void* gm, const void* dp, const void* da,
+                 const void* dm, void* partial, int B, int m, int Kg, int gu_n,
+                 int half, int n, cudaStream_t s) {
+  if (B == 1)
+    launch<1, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+  else if (B == 2)
+    launch<2, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+  else if (B <= 4)
+    launch<4, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+  else
+    launch<8, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
 }
 
 }  // namespace
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
 // perm is null for the path without a gather. partial is an (nv, B, n) f32
-// workspace, nv = half / 128; out is (B, n) f32. Launches the MLP kernel and
+// workspace, nv = half / 128; out is (B, n) f32; act is 0 (silu), 1 (gelu,
+// tanh form) or 2 (relu). Launches the MLP kernel and
 // the fixed-order sum of its partials on the caller's stream; returns
 // cudaGetLastError() after the launches, 0 meaning launched.
 extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
@@ -315,12 +345,12 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
                                const void* gu_mu, const void* dn_packed,
                                const void* dn_alpha, const void* dn_mu,
                                void* partial, void* out, int B, int m, int Kg,
-                               int gu_n, int half, int Kd, int n, int device,
-                               void* stream) {
+                               int gu_n, int half, int Kd, int n, int act,
+                               int device, void* stream) {
   const bool gather = perm != nullptr;
   if (B < 1 || B > 64 || m < 1 || Kg < BS || Kg % BS != 0 || half < BS ||
       half % BS != 0 || gu_n != 2 * half || half > Kd || Kd % BS != 0 ||
-      n < 4 || n % 4 != 0 || (!gather && m > Kg))
+      n < 4 || n % 4 != 0 || (!gather && m > Kg) || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   int cur = -1;
   if (cudaGetDevice(&cur) != cudaSuccess || cur != device) {
@@ -328,18 +358,15 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 1)
-    launch<1>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-              dn_mu, partial, B, m, Kg, gu_n, half, n, s);
-  else if (B == 2)
-    launch<2>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-              dn_mu, partial, B, m, Kg, gu_n, half, n, s);
-  else if (B <= 4)
-    launch<4>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-              dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+  if (act == 0)
+    launch_rows<0>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+  else if (act == 1)
+    launch_rows<1>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   else
-    launch<8>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-              dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+    launch_rows<2>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int total = B * n;

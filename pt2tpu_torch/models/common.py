@@ -1,7 +1,8 @@
 """Shared building blocks of the decoder: linears, norms, RoPE, attention.
 
-Counterpart of ``pt2tpu.models.common`` for the llama family. Attention is
-plain matmul + softmax, as the JAX package's XLA path computes it.
+Counterpart of ``pt2tpu.models.common`` for the llama and gemma families.
+Attention is plain matmul + softmax, as the JAX package's XLA path computes
+it.
 """
 
 from __future__ import annotations

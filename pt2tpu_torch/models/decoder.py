@@ -1,4 +1,4 @@
-"""Decoder-only transformer, llama family (counterpart of ``pt2tpu.models.decoder``).
+"""Decoder-only transformer (counterpart of ``pt2tpu.models.decoder``).
 
 Parameters keep the JAX package's layout so artifacts and tests compare like
 with like: a dict whose ``"layers"`` entry holds every per-layer leaf stacked
@@ -6,7 +6,9 @@ along a leading ``n_layers`` axis. The forward is a Python loop over layers
 where JAX uses ``lax.scan``; a stacked packed linear is applied to the
 zero-copy view of its layer.
 
-Only the llama family is ported: :func:`check_supported` raises
+The port serves the llama and gemma (v1) families: RMSNorm (gemma's scales by
+1 + w), RoPE, a gated MLP with silu, gelu (tanh form) or relu, a scaled
+embedding and tied embeddings. :func:`check_supported` raises
 ``NotImplementedError`` naming any other feature a config asks for.
 """
 
@@ -18,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.ternary import mlp_activation
 from ..ops.ternary_matmul import PackedTernaryLinear, fused_mlp_apply, fused_mlp_ok
 from .common import DenseLinear, apply_linear, apply_rope, attention, causal_mask, rms_norm, rope_tables
 
@@ -107,13 +110,14 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any feature outside the llama slice."""
+    """Raise NotImplementedError naming every feature of ``cfg`` that the
+    port does not compute."""
     missing = [
         name
         for name, bad in (
             (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm"),
             (f"pos={cfg.pos!r}", cfg.pos != "rope"),
-            (f"act={cfg.act!r}", cfg.act != "silu"),
+            (f"act={cfg.act!r}", cfg.act not in ("silu", "gelu", "relu")),
             ("non-gated MLP", not cfg.gated_mlp),
             ("mixture of experts", cfg.is_moe),
             ("qk_norm", cfg.qk_norm),
@@ -121,17 +125,28 @@ def check_supported(cfg: ModelConfig) -> None:
             ("sliding-window attention", cfg.has_sliding),
             ("attention softcap", cfg.attn_softcap != 0.0),
             ("final softcap", cfg.final_softcap != 0.0),
-            ("embed_scale", cfg.embed_scale != 1.0),
-            ("norm_plus_one", cfg.norm_plus_one),
             ("embed_norm", cfg.embed_norm),
         )
         if bad
     ]
     if missing:
         raise NotImplementedError(
-            f"family {cfg.family!r} needs {', '.join(missing)}: not ported "
-            "(only the llama family is)"
+            f"family {cfg.family!r} needs {', '.join(missing)}: not ported"
         )
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """RMSNorm by ``w``, or by 1 + w (gemma), which ``rms_norm`` rounds to
+    x's dtype before the product, as the JAX package does."""
+    if cfg.norm_plus_one:
+        w = 1.0 + w.float()
+    return rms_norm(x, w, cfg.norm_eps)
+
+
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP activation, K2's set (gelu: jax.nn.gelu's default, the tanh
+    form); ValueError for any other."""
+    return mlp_activation(cfg.act, x)
 
 
 def pos_tables(cfg: ModelConfig, max_len: int, device=None):
@@ -142,8 +157,12 @@ def pos_tables(cfg: ModelConfig, max_len: int, device=None):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, L) ids -> (B, L, D) hidden."""
-    return F.embedding(tokens, params["embed"])
+    """(B, L) ids -> (B, L, D) hidden; the scale (gemma: sqrt(dim)) is
+    rounded to the hidden dtype before the product, as in the JAX package."""
+    h = F.embedding(tokens, params["embed"])
+    if cfg.embed_scale != 1.0:
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
+    return h
 
 
 def layer_view(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -181,7 +200,7 @@ def layer_forward(
     B, L, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
 
-    h = rms_norm(x, lp["ln1_w"], cfg.norm_eps)
+    h = _norm(cfg, x, lp["ln1_w"])
     if lp.get("qkv") is not None:
         qkv = apply_linear(lp["qkv"], h, impl, layer_idx)
         nq, nkv = H * hd, Hkv * hd
@@ -212,7 +231,7 @@ def layer_forward(
 
     x = x + apply_linear(lp["o"], ctx.reshape(B, L, H * hd), impl, layer_idx)
 
-    h = rms_norm(x, lp["ln2_w"], cfg.norm_eps)
+    h = _norm(cfg, x, lp["ln2_w"])
     I = cfg.intermediate
     if lp.get("gateup") is not None:
         if fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):
@@ -222,16 +241,16 @@ def layer_forward(
         # gate/up halves split at the STORED width: pad_gateup_blocks may
         # have widened each half past cfg.intermediate with zero columns.
         half = gu.shape[-1] // 2
-        mid = F.silu(gu[..., :I]) * gu[..., half : half + I]
+        mid = _act(cfg, gu[..., :I]) * gu[..., half : half + I]
     else:
-        mid = F.silu(apply_linear(lp["gate"], h, impl, layer_idx)) * apply_linear(
+        mid = _act(cfg, apply_linear(lp["gate"], h, impl, layer_idx)) * apply_linear(
             lp["up"], h, impl, layer_idx
         )
     return x + apply_linear(lp["down"], mid, impl, layer_idx)
 
 
 def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["lnf_w"], cfg.norm_eps)
+    h = _norm(cfg, h, params["lnf_w"])
     if params.get("lm_head") is not None:
         return apply_linear(params["lm_head"], h)
     return h @ params["embed"].t().to(h.dtype)

@@ -159,7 +159,8 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     q's dtype.
 
     CUDA: launches K7 (the chunk kernel and its combine, counted as one
-    launch in ``decode_attention.launches``) on the current stream. CPU: the
+    launch in ``decode_attention.launches``, and at hd 256 also in
+    ``decode_attention.launches_hd256``) on the current stream. CPU: the
     plain version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_valid, scale, k_scale, v_scale)
@@ -187,7 +188,9 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     if rc != 0:
         raise RuntimeError(f"K7 launch failed: cudaError {rc}")
     decode_attention.launches += 1
+    decode_attention.launches_hd256 += hd == 256
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_hd256 = 0

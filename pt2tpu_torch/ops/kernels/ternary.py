@@ -14,8 +14,8 @@
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
     the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
     ``ternary_matmul_pallas_gathered``).
-  * K2 ``ternary_mlp``: the whole gated MLP in one launch
-    (``csrc/ternary_mlp.cu``; replaces ``ternary_mlp_pallas``).
+  * K2 ``ternary_mlp``: the whole gated MLP in one launch, silu, gelu or
+    relu (``csrc/ternary_mlp.cu``; replaces ``ternary_mlp_pallas``).
 
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
@@ -55,6 +55,9 @@ __all__ = [
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
     "ternary_matmul_gathered_plain",
+    "MLP_ACTS",
+    "mlp_act_code",
+    "mlp_activation",
     "ternary_mlp",
     "ternary_mlp_plain",
     "normalize_rows_a8",
@@ -212,6 +215,30 @@ def _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha, intermediate, block_si
     return Kg, half, nv, n
 
 
+MLP_ACTS = ("silu", "gelu", "relu")
+"""K2's activations (``pallas_ternary._act_fn``'s), by the code that the C
+entry takes: gelu is the tanh form, jax.nn.gelu's default."""
+
+
+def mlp_act_code(act: str) -> int:
+    """``act``'s code in :data:`MLP_ACTS`; ValueError for any other, as
+    ``pallas_ternary._act_fn`` raises."""
+    if act not in MLP_ACTS:
+        raise ValueError(f"unsupported fused-MLP activation {act!r}")
+    return MLP_ACTS.index(act)
+
+
+def mlp_activation(act: str, v: torch.Tensor) -> torch.Tensor:
+    """``act`` (one of :data:`MLP_ACTS`) applied to ``v``: the decoder's
+    two-call MLP and K2's plain version both use it."""
+    mlp_act_code(act)
+    if act == "silu":
+        return F.silu(v)
+    if act == "gelu":
+        return F.gelu(v, approximate="tanh")
+    return F.relu(v)
+
+
 def ternary_mlp_plain(
     x: torch.Tensor,  # (B, m) post-norm hidden, feature order
     gu_perm: Optional[torch.Tensor],  # (Kg,) gateup's visit perm, or None
@@ -223,12 +250,14 @@ def ternary_mlp_plain(
     dn_mu: torch.Tensor,
     intermediate: int,
     block_size: int = 128,
+    act: str = "silu",
 ) -> torch.Tensor:
-    """The whole gated silu MLP, (B, m) -> (B, n) f32, as
-    ``ternary_mlp_pallas`` computes it: the gather (or a zero pad to Kg),
-    gate and up at the stored half width, mid = silu(gate) * up in f32 cast
-    to x's dtype (the kernel's operand type), then down over its first
-    half // block_size blocks."""
+    """The whole gated MLP, (B, m) -> (B, n) f32, as ``ternary_mlp_pallas``
+    computes it: the gather (or a zero pad to Kg), gate and up at the stored
+    half width, mid = act(gate) * up in f32 cast to x's dtype (the kernel's
+    operand type), then down over its first half // block_size blocks.
+    ``act`` is one of :data:`MLP_ACTS`."""
+    mlp_act_code(act)
     Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
                                   intermediate, block_size)
     if gu_perm is not None:
@@ -240,7 +269,7 @@ def ternary_mlp_plain(
     bs = block_size
     gate = ternary_matmul_plain(xg, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half], bs)
     up = ternary_matmul_plain(xg, gu_packed[:, half:], gu_alpha[:, half:], gu_mu[:, half:], bs)
-    mid = (F.silu(gate) * up).to(x.dtype)
+    mid = (mlp_activation(act, gate) * up).to(x.dtype)
     return ternary_matmul_plain(mid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
 
 
@@ -477,7 +506,7 @@ def _mlp_kernel_lib():
     if _mlp_lib is None:
         lib = _build.load("ternary_mlp")
         fn = lib.pt2_ternary_mlp
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _mlp_lib = lib
     return _mlp_lib
@@ -808,15 +837,19 @@ def ternary_mlp(
     dn_mu: torch.Tensor,
     intermediate: int,
     block_size: int = 128,
+    act: str = "silu",
 ) -> torch.Tensor:
-    """The whole gated silu MLP, (B, m) -> (B, n) f32 (see ternary_mlp_plain).
+    """The whole gated MLP, (B, m) -> (B, n) f32, with ``act`` silu, gelu
+    (tanh form) or relu (see ternary_mlp_plain).
 
-    CUDA: launches K2 (its MLP kernel and the fixed-order sum of the
-    per-I-block partials) for B <= 64 rows in bf16 and counts it once in
-    ``ternary_mlp.launches``. CPU: the plain version."""
+    CUDA: launches K2 (its MLP kernel, instantiated for the activation, and
+    the fixed-order sum of the per-I-block partials) for B <= 64 rows in
+    bf16 and counts it once in ``ternary_mlp.launches`` (GeGLU launches also
+    in ``ternary_mlp.launches_gelu``). CPU: the plain version."""
+    code = mlp_act_code(act)
     if x.device.type == "cpu":
-        return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu,
-                                 dn_packed, dn_alpha, dn_mu, intermediate, block_size)
+        return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                                 dn_mu, intermediate, block_size, act)
     if x.device.type != "cuda":
         raise ValueError(f"no K2 for device {x.device}")
     if x.dim() != 2 or not 1 <= x.shape[0] <= 64:
@@ -851,12 +884,14 @@ def ternary_mlp(
         gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
         dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
         partial.data_ptr(), out.data_ptr(), B, m, Kg, 2 * half, half,
-        dn_packed.shape[0] * 4, n, *_device_and_stream(x),
+        dn_packed.shape[0] * 4, n, code, *_device_and_stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     ternary_mlp.launches += 1
+    ternary_mlp.launches_gelu += act == "gelu"
     return out
 
 
 ternary_mlp.launches = 0
+ternary_mlp.launches_gelu = 0

@@ -299,9 +299,8 @@ def fused_mlp_apply(
     out_dtype=None,
 ) -> torch.Tensor:
     """One-call MLP: (..., m) -> (..., n) through K2 (its plain version on
-    the CPU). The caller has checked :func:`fused_mlp_ok`."""
-    if act != "silu":
-        raise NotImplementedError(f"fused MLP activation {act!r} is not ported")
+    the CPU), with ``act`` silu, gelu (tanh form) or relu. The caller has
+    checked :func:`fused_mlp_ok`."""
     if layer_idx is not None and gu.packed.dim() == 3:
         gu, dn = gu.layer(layer_idx), dn.layer(layer_idx)
     out_dtype = out_dtype or x.dtype
@@ -309,6 +308,6 @@ def fused_mlp_apply(
     has_gather = not (gu.identity_perm or gu.input_folded)
     out = ternary_mlp(
         x2, gu.perm if has_gather else None, gu.packed, gu.alpha, gu.mu,
-        dn.packed, dn.alpha, dn.mu, intermediate=dn.in_features,
+        dn.packed, dn.alpha, dn.mu, intermediate=dn.in_features, act=act,
     )
     return out.to(out_dtype).reshape(*x.shape[:-1], dn.out_features)

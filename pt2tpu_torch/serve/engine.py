@@ -84,7 +84,7 @@ def _rows_forward(cfg, params, tokens, cache: KVCache, positions: torch.Tensor, 
             "windows of more than one token per row (speculative verify) are not ported")
     M = cache.max_len
     dev = tokens.device
-    x = dec.embed_tokens(cfg, params, tokens)  # llama: RoPE carries the positions
+    x = dec.embed_tokens(cfg, params, tokens)  # RoPE carries the positions
     cos_all, sin_all = _rope(cfg, M, dev)
     cos, sin = cos_all[positions][:, None], sin_all[positions][:, None]  # (B, 1, hd/2)
     kv_valid = torch.arange(M, device=dev)[None, :] <= positions[:, None]  # (B, M)

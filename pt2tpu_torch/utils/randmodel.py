@@ -1,4 +1,4 @@
-"""Random ternary-quantized llama params, made directly on the device.
+"""Random ternary-quantized model params, made directly on the device.
 
 Counterpart of ``pt2tpu.utils.randmodel``: the same layout, shapes and
 scale statistics, drawn from a ``torch.Generator`` (so not the JAX
@@ -113,7 +113,7 @@ def random_ternary_params(
     perm_mode: str = "identity",  # "identity" | "ssr" | "down"
     device=None,
 ):
-    """Full llama params with every projection pre-ternarized, in the fused
+    """Full decoder params with every projection pre-ternarized, in the fused
     production layout (qkv / o / gateup / down), bf16 dense parts, bf16
     scales, 128-lane scale blocks.
 
@@ -122,7 +122,9 @@ def random_ternary_params(
     qkv/o/gateup carry packed gathers, down is input_folded.
     ``perm_mode="down"`` is what it emits at dim >= 640: identity perms on
     qkv/o/gateup, down input_folded. Gateup is padded by
-    :func:`pad_gateup_blocks`. Embedding and lm_head are dense.
+    :func:`pad_gateup_blocks`. Embedding and lm_head are dense; with tied
+    embeddings (gemma) lm_head is None. Norm weights are stored as ones
+    (gemma's norm adds its 1 + at the norm, as the JAX package does).
     """
     check_supported(cfg)
     if perm_mode not in ("identity", "ssr", "down"):

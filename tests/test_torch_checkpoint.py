@@ -157,3 +157,60 @@ def test_pad_gateup_blocks_at_7b_width():
         np.testing.assert_array_equal(getattr(tl["gateup"], name).numpy(),
                                       np.asarray(getattr(jl["gateup"], name)))
     assert tpad(tl)["gateup"].out_features == 22528  # idempotent
+
+
+def test_gemma_artifact_both_ways_same_logits(tmp_path):
+    """A tiny-gemma artifact written by JAX loads in the port, and the
+    port's copy of it loads in JAX: the same arrays, no lm_head (tied
+    embeddings), gemma's config fields in the manifest, and the same f32
+    logits from either package on either artifact."""
+    import json
+
+    from pt2tpu_torch.models import decoder as tdec
+
+    cfg = jreg.get_config("tiny-gemma")
+    params = jrand.random_ternary_params(cfg, jax.random.PRNGKey(4), dtype=jnp.float32,
+                                         perm_mode="down")
+    jckpt.save_model(str(tmp_path / "j"), cfg, params)
+    tcfg, tparams = tckpt.load_model(str(tmp_path / "j"), device="cpu")
+    assert tparams["lm_head"] is None
+    tckpt.save_model(str(tmp_path / "t"), tcfg, tparams)
+    with open(tmp_path / "t" / "manifest.json") as f:
+        manifest = json.load(f)
+    mc = manifest["model_config"]
+    assert (mc["family"], mc["act"], mc["norm_plus_one"], mc["tie_embeddings"]) == (
+        "gemma", "gelu", True, True)
+    assert mc["embed_scale"] == 64 ** 0.5 and mc["head_dim"] == 32 and mc["n_kv_heads"] == 2
+    assert manifest["structure"]["lm_head"] == {"kind": "none"}
+    jcfg, jparams = jckpt.load_model(str(tmp_path / "t"))
+    assert jcfg == cfg
+    assert_same_params(jparams, tparams)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 9))
+    want = np.asarray(jdec.forward(jcfg, jparams, jnp.asarray(tokens, jnp.int32)))
+    np.testing.assert_allclose(
+        np.asarray(jdec.forward(cfg, params, jnp.asarray(tokens, jnp.int32))), want, rtol=0, atol=0)
+    got = tdec.forward(tcfg, tparams, torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_port_random_gemma_has_the_jax_layout():
+    """The port's random gemma-layout model: JAX's structure, shapes and
+    dtypes, no lm_head, norm weights stored as ones (the 1 + w is applied
+    by the norm, never baked into the weights)."""
+    from pt2tpu_torch.models.registry import get_config
+    from pt2tpu_torch.utils.randmodel import random_ternary_params
+
+    for mode in ("ssr", "down"):
+        jp = jrand.random_ternary_params(jreg.get_config("tiny-gemma"), jax.random.PRNGKey(0),
+                                         perm_mode=mode)
+        tp = random_ternary_params(get_config("tiny-gemma"), seed=0, perm_mode=mode,
+                                   device="cpu")
+        jflat, jstruct, tflat, tstruct = {}, {}, {}, {}
+        jckpt._flatten("", jp, jflat, jstruct)
+        tckpt._flatten("", tp, tflat, tstruct)
+        assert jstruct == tstruct and tstruct["lm_head"] == {"kind": "none"}
+        for k in jflat:
+            want, got = _np_of_jax(jflat[k]), _np_of_tensor(tflat[k])
+            assert (got.shape, got.dtype) == (want.shape, want.dtype), k
+        for w in (tp["lnf_w"], tp["layers"]["ln1_w"], tp["layers"]["ln2_w"]):
+            assert torch.equal(w, torch.ones_like(w))

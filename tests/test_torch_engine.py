@@ -210,3 +210,33 @@ def test_engine_a8_tokens_and_finish_order_equal_jax(a8_runs):
     assert outs == want_outs
     assert order == want_order
     assert [len(o) for o in outs] == list(MAX_NEW)
+
+
+@pytest.fixture(scope="module")
+def gemma_runs():
+    """tiny-gemma (GeGLU, norms by 1 + w, scaled and tied embeddings) in the
+    full-SSR layout the quantizer emits at its width, the module's five
+    requests through two slots, the JAX engine with bf16 and int8 KV,
+    quantum 1: its tokens and finish order."""
+    jcfg = jreg.get_config("tiny-gemma")
+    params = jrand.random_ternary_params(jcfg, jax.random.PRNGKey(9), dtype=jnp.float32,
+                                         perm_mode="ssr")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, jcfg.vocab_size, size=n).astype(np.int32) for n in LENS]
+    eos_ids = [None] * len(LENS)
+    want = {kvq: _run(JEngine(jcfg, params, max_batch=2, max_len=64, kv_quant=kvq), prompts,
+                      eos_ids) for kvq in (False, True)}
+    return to_port(params), prompts, eos_ids, want
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_gemma_engine_tokens_and_finish_order_equal_jax(gemma_runs, kv_quant):
+    tparams, prompts, eos_ids, want = gemma_runs
+    cfg = get_config("tiny-gemma")
+    assert tparams["lm_head"] is None  # tied embeddings
+    eng = ServeEngine(cfg, tparams, max_batch=2, max_len=64, kv_quant=kv_quant)
+    outs, order = _run(eng, prompts, eos_ids)
+    want_outs, want_order = want[kv_quant]
+    assert outs == want_outs
+    assert order == want_order
+    assert [len(o) for o in outs] == list(MAX_NEW)

@@ -2,7 +2,8 @@
 
   * ``ternary_mlp_plain`` against ``ternary_mlp_pallas`` / ``_stacked`` in
     interpret mode, with and without the gather prologue, at D = 512,
-    I = 1408 (11 blocks inside down's 16), n = 512. Both keep mid in f32 on
+    I = 1408 (11 blocks inside down's 16), n = 512, for each activation
+    the TPU kernel takes (silu, gelu in its tanh form, relu). Both keep mid in f32 on
     the CPU, and the scales are drawn so that mu - alpha is exact in bf16
     (the Pallas kernel rounds it to the scale type). The port's plain
     version is held to 1e-5 of max|ref| against an exact float64 evaluation
@@ -95,9 +96,18 @@ def dense_f64(p):
     return (T.reshape(nb, 128, n) * a + m).reshape(nb * 128, n)
 
 
-def mlp_f64(x, gu, dn, gather):
+def act_f64(act, g):
+    if act == "silu":
+        return g / (1.0 + np.exp(-g))
+    if act == "gelu":  # the tanh form
+        return 0.5 * g * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (g + 0.044715 * g**3)))
+    assert act == "relu"
+    return np.maximum(g, 0.0)
+
+
+def mlp_f64(x, gu, dn, gather, act="silu"):
     """The fused MLP's function in float64: gather (or pad), gate/up at the
-    stored half width, silu(gate) * up, down over its first half rows."""
+    stored half width, act(gate) * up, down over its first half rows."""
     Wg = dense_f64(gu)
     x64 = x.astype(np.float64)
     if gather:
@@ -107,7 +117,7 @@ def mlp_f64(x, gu, dn, gather):
     h = xg @ Wg
     half = h.shape[1] // 2
     g = h[:, :half]
-    mid = g / (1.0 + np.exp(-g)) * h[:, half:]
+    mid = act_f64(act, g) * h[:, half:]
     return mid @ dense_f64(dn)[:half]
 
 
@@ -116,8 +126,7 @@ def assert_close_to_jax(got, want, exact):
     assert rel_err(got, want) <= rel_err(want, exact) + 1e-5
 
 
-@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
-def test_mlp_plain_matches_pallas_interpret(gather):
+def check_plain_against_pallas(gather, act):
     gu, dn = jax_mlp_layer(1, gather)
     assert dn.input_folded and (gu.gather is not None) == gather
     x = np.random.default_rng(2).normal(size=(4, D)).astype(np.float32)
@@ -125,20 +134,19 @@ def test_mlp_plain_matches_pallas_interpret(gather):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jpt.ternary_mlp_pallas(
             jnp.asarray(x), perm, gu.packed, gu.alpha, gu.mu, dn.packed, dn.alpha, dn.mu,
-            act="silu", intermediate=I,
+            act=act, intermediate=I,
         ))
     p = to_port({"gu": gu, "dn": dn})
     tgu, tdn = p["gu"], p["dn"]
     got = tk.ternary_mlp_plain(
         torch.from_numpy(x), tgu.perm if gather else None, tgu.packed, tgu.alpha, tgu.mu,
-        tdn.packed, tdn.alpha, tdn.mu, intermediate=I,
+        tdn.packed, tdn.alpha, tdn.mu, intermediate=I, act=act,
     ).numpy()
     assert got.shape == want.shape == (4, N)
-    assert_close_to_jax(got, want, mlp_f64(x, gu, dn, gather))
+    assert_close_to_jax(got, want, mlp_f64(x, gu, dn, gather, act))
 
 
-@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
-def test_mlp_plain_matches_pallas_stacked_interpret(gather):
+def check_plain_against_pallas_stacked(gather, act):
     layers = [jax_mlp_layer(10 + li, gather) for li in range(2)]
     stack = lambda f: jnp.stack([f(gu, dn) for gu, dn in layers])  # noqa: E731
     x = np.random.default_rng(3).normal(size=(3, D)).astype(np.float32)
@@ -147,31 +155,80 @@ def test_mlp_plain_matches_pallas_stacked_interpret(gather):
             jnp.asarray(x), stack(lambda g, d: g.perm) if gather else None,
             stack(lambda g, d: g.packed), stack(lambda g, d: g.alpha), stack(lambda g, d: g.mu),
             stack(lambda g, d: d.packed), stack(lambda g, d: d.alpha), stack(lambda g, d: d.mu),
-            1, act="silu", intermediate=I,
+            1, act=act, intermediate=I,
         ))
     p = to_port({"gu": layers[1][0], "dn": layers[1][1]})
     tgu, tdn = p["gu"], p["dn"]
     got = tk.ternary_mlp_plain(
         torch.from_numpy(x), tgu.perm if gather else None, tgu.packed, tgu.alpha, tgu.mu,
-        tdn.packed, tdn.alpha, tdn.mu, intermediate=I,
+        tdn.packed, tdn.alpha, tdn.mu, intermediate=I, act=act,
     ).numpy()
-    assert_close_to_jax(got, want, mlp_f64(x, *layers[1], gather))
+    assert_close_to_jax(got, want, mlp_f64(x, *layers[1], gather, act))
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+def test_mlp_plain_matches_pallas_interpret(gather):
+    check_plain_against_pallas(gather, "silu")
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+def test_mlp_plain_matches_pallas_stacked_interpret(gather):
+    check_plain_against_pallas_stacked(gather, "silu")
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_mlp_plain_act_matches_pallas_interpret(act, gather):
+    """GeGLU (gemma's MLP) and the relu mode, as the silu cases."""
+    check_plain_against_pallas(gather, act)
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_mlp_plain_act_matches_pallas_stacked_interpret(act, gather):
+    check_plain_against_pallas_stacked(gather, act)
+
+
+def test_mlp_unknown_activation_raises():
+    """Any other activation raises ValueError, as the TPU kernel's _act_fn."""
+    gu, dn = jax_mlp_layer(1, False)
+    p = to_port({"gu": gu, "dn": dn})
+    x = torch.zeros((2, D))
+    for fn in (tk.ternary_mlp_plain, tk.ternary_mlp):
+        with pytest.raises(ValueError, match="swish"):
+            fn(x, None, p["gu"].packed, p["gu"].alpha, p["gu"].mu, p["dn"].packed,
+               p["dn"].alpha, p["dn"].mu, intermediate=I, act="swish")
+    with pytest.raises(ValueError, match="swish"):
+        ttm.fused_mlp_apply(p["gu"], p["dn"], x, "swish")
+    with pytest.raises(ValueError, match="swish"):
+        jpt._act_fn("swish")
+
+
+def check_fused_apply_against_two_call_path(gather, dtype, act):
+    gu, dn = jax_mlp_layer(4, gather)
+    p = to_port({"gu": gu, "dn": dn})
+    tgu, tdn = p["gu"], p["dn"]
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 3, D)).astype(np.float32)).to(dtype)
+    got = ttm.fused_mlp_apply(tgu, tdn, x, act, out_dtype=torch.float32)
+    g = ttm.ternary_linear_apply(tgu, x, out_dtype=torch.float32)
+    half = g.shape[-1] // 2
+    fn = {"silu": F.silu, "gelu": lambda v: F.gelu(v, approximate="tanh"), "relu": F.relu}[act]
+    mid = (fn(g[..., :I]) * g[..., half : half + I]).to(dtype)
+    want = ttm.ternary_linear_apply(tdn, mid, out_dtype=torch.float32)
+    assert got.shape == want.shape == (2, 3, N)
+    assert ((got - want).norm() / want.norm()).item() <= 5e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
 def test_fused_apply_matches_two_call_path(gather, dtype):
-    gu, dn = jax_mlp_layer(4, gather)
-    p = to_port({"gu": gu, "dn": dn})
-    tgu, tdn = p["gu"], p["dn"]
-    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 3, D)).astype(np.float32)).to(dtype)
-    got = ttm.fused_mlp_apply(tgu, tdn, x, "silu", out_dtype=torch.float32)
-    g = ttm.ternary_linear_apply(tgu, x, out_dtype=torch.float32)
-    half = g.shape[-1] // 2
-    mid = (F.silu(g[..., :I]) * g[..., half : half + I]).to(dtype)
-    want = ttm.ternary_linear_apply(tdn, mid, out_dtype=torch.float32)
-    assert got.shape == want.shape == (2, 3, N)
-    assert ((got - want).norm() / want.norm()).item() <= 5e-3
+    check_fused_apply_against_two_call_path(gather, dtype, "silu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_fused_apply_act_matches_two_call_path(act, dtype):
+    check_fused_apply_against_two_call_path(False, dtype, act)
 
 
 def _pair(K, n, in_features, bs=128, bias=False, gather=False, **flags):

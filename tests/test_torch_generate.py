@@ -1,5 +1,6 @@
-"""Greedy tokens of the port are identical to ``pt2tpu.serve.generate``'s,
-and the two CLIs print the same ids for the same artifact."""
+"""Greedy tokens of the port are identical to ``pt2tpu.serve.generate``'s
+(llama and gemma), and the two CLIs print the same ids for the same
+artifact."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,9 @@ CASES = [
     ("tiny-llama-gqa", "ssr", 3, 10, 6, 4, "auto"),  # chunked: 4 + 4 + 2
     ("tiny-llama-gqa", "down", 1, 8, 6, 4, "auto"),  # chunked: 4 + 4
     ("tiny-llama", "down", 3, 6, 6, None, "a8"),
+    ("tiny-gemma", "ssr", 3, 7, 8, None, "auto"),
+    ("tiny-gemma", "down", 2, 10, 6, 4, "auto"),  # chunked: 4 + 4 + 2
+    ("tiny-gemma", "down", 2, 6, 6, None, "a8"),
 ]
 
 
@@ -72,3 +76,19 @@ def test_cli_prints_same_ids(tmp_path, capsys):
     got = capsys.readouterr().out.strip().splitlines()[-1]
     assert got == want
     assert len(got.split(",")) == 6
+
+
+def test_cli_gemma_artifact(tmp_path, capsys):
+    """A gemma artifact written by JAX: both CLIs print the same ids, and
+    ``info`` names the family."""
+    cfg = jreg.get_config("tiny-gemma")
+    params = jrand.random_ternary_params(cfg, jax.random.PRNGKey(8), perm_mode="ssr")
+    jckpt.save_model(str(tmp_path), cfg, params)
+    argv = ["generate", "--model", str(tmp_path), "--prompt-ids", "9,200,3,41,7", "--max-new", "5"]
+    jcli.main(argv)
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    tcli.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == want
+    tcli.main(["info", "--model", str(tmp_path)])
+    info = capsys.readouterr().out
+    assert '"family": "gemma"' in info and '"act": "gelu"' in info

@@ -12,9 +12,9 @@ accumulate in f32 in different orders, so they agree to 1e-4 of the
 output's largest magnitude; so does K6 (the gather K5 computes, then K1's
 sum). K4 copies values and K5 sums one nonzero term per lane on a one-hot G:
 both bit-exact (K5 on other planes: 1e-6, f32 order). K2 rounds mid =
-silu(gate) * up to bf16 as its plain version does, but gate and up differ
-in their last f32 bits between the two, so a few mid values round to the
-neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
+act(gate) * up (silu, gelu or relu) to bf16 as its plain version does, but
+gate and up differ in their last f32 bits between the two, so a few mid
+values round to the neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
 unnormalised probabilities to bf16 relative to each chunk's maximum, its
 plain version relative to the row's maximum: 1e-2 of max|out|."""
 
@@ -106,7 +106,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["tiny-llama", "tiny-llama-gqa"])
+@pytest.mark.parametrize("name", ["tiny-llama", "tiny-llama-gqa", "tiny-gemma"])
 def test_tiny_model_kernel_vs_plain(cuda_device, name):
     cfg = get_config(name)
     params = random_ternary_params(cfg, seed=3, perm_mode="down", device=cuda_device)
@@ -636,6 +636,20 @@ def _mlp_layer(g, dev, Kg, I, n, L=None):
                                      (4, 4096, 14336, 4096), (16, 512, 1024, 256),
                                      (33, 256, 512, 384)])
 def test_mlp_kernel_matches_plain(cuda_device, B, D, I, n, gather):
+    _check_mlp_kernel(cuda_device, B, D, I, n, gather, "silu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("B,D,I,n", [(1, 2048, 16384, 2048), (8, 2048, 16384, 2048),
+                                     (16, 512, 1024, 256), (33, 256, 512, 384)])
+def test_mlp_kernel_act_matches_plain(cuda_device, B, D, I, n, gather, act):
+    """K2's GeGLU mode (gemma-2b's MLP at 1 and 8 rows) and its relu mode."""
+    _check_mlp_kernel(cuda_device, B, D, I, n, gather, act)
+
+
+def _check_mlp_kernel(cuda_device, B, D, I, n, gather, act):
     g = torch.Generator(device=cuda_device).manual_seed(B + I)
     # with a gather its perm covers D lanes; without, x is zero-padded to the
     # 16-block multiple of lanes that make_packed_linear gives gateup
@@ -644,11 +658,14 @@ def test_mlp_kernel_matches_plain(cuda_device, B, D, I, n, gather):
     perm = _perm(g, cuda_device, D, Kg) if gather else None
     x = torch.randn((B, D), generator=g, device=cuda_device).bfloat16()
     before = tk.ternary_mlp.launches
-    got = tk.ternary_mlp(x, perm, gp, ga, gm, dp, da, dm, intermediate=I)
+    got = tk.ternary_mlp(x, perm, gp, ga, gm, dp, da, dm, intermediate=I, act=act)
     torch.cuda.synchronize()
     assert tk.ternary_mlp.launches == before + 1
-    want = tk.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, intermediate=I)
+    want = tk.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, intermediate=I, act=act)
     assert got.shape == want.shape == (B, n) and _rel(got, want) <= MLP_TOL
+    if act != "silu":  # the activation is the asked one, not silu's
+        other = tk.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, intermediate=I)
+        assert _rel(got, other) > 10 * MLP_TOL
 
 
 @pytest.mark.cuda
@@ -744,6 +761,7 @@ def _attn_inputs(g, dev, B, M, H, Hkv, hd, quant):
 @pytest.mark.parametrize("B,M,H,Hkv,hd", [
     (1, 256, 32, 8, 128), (4, 2048, 32, 8, 128), (8, 2048, 32, 32, 128), (3, 384, 8, 1, 128),
     (2, 200, 16, 1, 128), (2, 640, 8, 4, 256), (5, 1000, 12, 4, 128),
+    (1, 256, 8, 1, 256), (8, 2048, 8, 1, 256),  # gemma-2b's heads: 8 / 1 KV, hd 256
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, B, M, H, Hkv, hd, quant):
     g = torch.Generator(device=cuda_device).manual_seed(B * M + H)
@@ -834,6 +852,44 @@ def test_attention_routes_only_head_widths_k7_takes(cuda_device):
         assert tka.decode_attention.launches - before == 1
         want = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5)
         assert _rel(out.float(), want.float()) <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_gemma_engine_routes_through_k2_gelu_and_k7_hd256(cuda_device, kv_quant, monkeypatch):
+    """gemma-2b's width and heads (dim 2048, 8 / 1 KV heads, hd 256), two
+    layers, I cut to 1024, "down" layout, on an engine of 256 positions:
+    every admission (<= 64 rows) and decode step runs the MLP through K2
+    in its GeGLU mode and every decode step K7 at hd 256, each call held
+    against its plain version on the engine's own activations."""
+    cfg = get_config("gemma-2b").with_(n_layers=2, intermediate=1024, vocab_size=1024)
+    params = random_ternary_params(cfg, seed=8, perm_mode="down", device=cuda_device)
+    calls = {"mlp": [], "attn": []}
+    mlp, attn = tk.ternary_mlp, tka.decode_attention
+
+    def held_mlp(*args, **kw):
+        assert kw["act"] == "gelu"
+        got, want = mlp(*args, **kw), tk.ternary_mlp_plain(*args, **kw)
+        calls["mlp"].append(_rel(got, want))
+        return got
+
+    def held_attn(*args, **kw):
+        got, want = attn(*args, **kw), tka.decode_attention_plain(*args, **kw)
+        calls["attn"].append(_rel(got.float(), want.float()))
+        return got
+
+    monkeypatch.setattr(ttm, "ternary_mlp", held_mlp)
+    monkeypatch.setattr(tcommon, "decode_attention", held_attn)
+    eng = ServeEngine(cfg, params, max_batch=3, max_len=256, kv_quant=kv_quant)
+    lens = (5, 40, 17, 3)
+    reqs = [eng.submit(torch.randint(0, cfg.vocab_size, (n,)).numpy(), 6) for n in lens]
+    before = mlp.launches, attn.launches
+    eng.run()
+    assert all(r.done and len(r.out) == 6 for r in reqs)
+    L, st = cfg.n_layers, eng.stats["steps"]
+    assert (mlp.launches - before[0], attn.launches - before[1]) == (L * (st + len(lens)), L * st)
+    assert len(calls["mlp"]) == L * (st + len(lens)) and len(calls["attn"]) == L * st
+    assert max(calls["mlp"]) <= MLP_TOL and max(calls["attn"]) <= ATTN_TOL
 
 
 # ---- K5 (the packed one-hot gather) and K6 (K5 as K1's prologue)
