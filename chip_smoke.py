@@ -133,7 +133,26 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      reference, a profiled decode step of each, and 8 POSTs through the
      ServingServer (12b, 12c); and times K2's GeGLU and silu instances at
      its MLP, K7 at its heads and K1's decode kernel at its projections
-     (phase 6).
+     (phase 6);
+ 13. (K3's decode slice) holds K3's decode rows, K1's split-K tensor-core
+     GEMV with x staged through perm (csrc/ternary_matmul_dec.cu's
+     pt2_ternary_matmul_dec_igathered, routed by k3_path where k1_path says
+     "dec"), against ternary_matmul_igathered_plain and its own plain
+     version ternary_matmul_igathered_dec_plain at llama-3-8b qkv, o and
+     gateup, a ragged perm with interleaved pad lanes and a shape with
+     uneven K slices, rows 1/2/4/8, bf16 and W2A8 (K1_DEC_A8 set), on
+     packed[li] / perm[li] views at bs 128 and 256, with all-zero alpha
+     blocks, an all-zero row and half-integer W2A8 rows, every call twice
+     for identical bits, with exact launches / launches_dec counts, and the
+     CUDA-core K3 at 16 / 64 rows, W2A8 decode rows and with the decode
+     kernel off (13a, after 12a); every 32-layer "ssr" run holds K3's
+     launches: bf16 decode (default and P1) all on the decode path, W2A8
+     all on the CUDA-core K3, P2 none; A/Bs, in turns (on, off, off, on;
+     "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-3-8b "ssr" bf16
+     decode (decode tok/s, step wall, profiled device time; 13b, in phase
+     5); and times the decode path through its C entry at 1/2/4/8 rows
+     beside the CUDA-core K3 at 1-64 rows, the plain version, dense
+     torch.matmul on the gathered x and the bytes bound (13d, in phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -338,6 +357,11 @@ def main() -> None:
           f"cuda {torch.version.cuda}")
     bw, bf16_peak, int8_peak = card_peaks(record["device"])
     t_start = time.perf_counter()
+    record["phase_start_s"] = {}
+
+    def stamp(phase):
+        """The seconds since start-up at which ``phase`` begins."""
+        record["phase_start_s"][phase] = time.perf_counter() - t_start
 
     # launch counters of every kernel wrapper: K1, K3, K2, K4, K7, K5, K6
     wrappers = {"ternary_matmul": k1.ternary_matmul,
@@ -350,19 +374,21 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
-        k1.ternary_matmul.launches_dec = 0
+        k1.ternary_matmul.launches_dec = k1.ternary_matmul_igathered.launches_dec = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
         and its decode launches (also in "ternary_matmul") apart as
         "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec";
-        K2's GeGLU launches and K7's at hd 256 apart as "ternary_mlp_gelu"
-        and "decode_attention_hd256"."""
+        K3's decode launches (also in "ternary_matmul_igathered") apart as
+        "ternary_matmul_igathered_dec"; K2's GeGLU launches and K7's at hd
+        256 apart as "ternary_mlp_gelu" and "decode_attention_hd256"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
         c["ternary_matmul_dec"] = k1.ternary_matmul.launches_dec
+        c["ternary_matmul_igathered_dec"] = k1.ternary_matmul_igathered.launches_dec
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         return c
@@ -390,6 +416,7 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {src}:", line.strip())
 
+    stamp("1")
     # ---- 1. K1 vs its plain version at the llama-2-7b shapes
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -489,6 +516,7 @@ def main() -> None:
           f"and 512 rows), {a8_err:.3e} (int8 tensor cores: W2A8 at 16 and 512 rows)")
     del packed, alpha, mu, x
 
+    stamp("1b")
     # ---- 1b. K1's tensor-core path vs the plain version: the llama-2-7b and
     # llama-3-8b shapes at prefill row counts, a stacked view, all-zero alpha
     # blocks; launches_tc must rise by exactly one per call it routes. Its
@@ -567,6 +595,7 @@ def main() -> None:
           f"{max_err:.3e} with phase 1's)")
     del packed, alpha, mu, x
 
+    stamp("10a")
     # ---- 10a. K1's int8 tensor-core path (W2A8) vs ternary_matmul_plain_a8:
     # the same shapes from the fewest rows it takes, stacked views, all-zero
     # alpha blocks, an all-zero row (sx's floor) and rows whose normalised
@@ -624,6 +653,7 @@ def main() -> None:
           f"kernel at 8 rows: {cc_checks} checks with 1b's, max|err| {max_err:.3e} with phase 1's")
     del packed, alpha, mu, x, xn
 
+    stamp("11a")
     # ---- 11a. K1's decode kernel vs the plain versions: rows 1/2/4/8 at the
     # llama-2-7b and llama-3-8b shapes, bf16 and W2A8, each call twice for
     # identical bits (its split-K sums run in a fixed order); stacked views,
@@ -684,6 +714,7 @@ def main() -> None:
           f"max|ref|; max|err| {dec_err:.3e}; launches_dec exact")
     del packed, alpha, mu, x
 
+    stamp("12a")
     # ---- 12a. K1's four kernels at the gemma-2b projections (qkv's n = 2560
     # is a column count no llama shape has): rows 1/2/4/8 on the decode
     # kernel (bf16 and W2A8) and on the CUDA cores (decode kernel off),
@@ -715,8 +746,140 @@ def main() -> None:
           f"tc_a8 {a8_err:.3e}")
     del packed, alpha, mu, x
 
+    stamp("13a")
+    # ---- 13a. K3's decode rows (K1's decode kernel with x staged through
+    # perm) vs both plain versions: the llama-3-8b K3 shapes (qkv, o,
+    # gateup), a ragged perm with interleaved pad lanes in one K slice and one
+    # in uneven slices, rows 1/2/4/8, bf16 and W2A8 (K1_DEC_A8 set), each
+    # call twice for identical bits; packed[li] / perm[li] views, all-zero
+    # alpha blocks, an all-zero row and half-integer W2A8 rows; the CUDA-core
+    # K3 at 16 / 64 rows, at W2A8 decode rows (K1_DEC_A8 off) and with the
+    # decode kernel off; launches and launches_dec exact on every call. Its
+    # own generator, as 1b's
+    gk3 = torch.Generator(device=dev).manual_seed(13)
+    k3dec_err, k3dec_algo_err, k3dec_checks, k3cc_err, k3cc_checks = 0.0, 0.0, 0, 0.0, 0
+
+    def k3_counts():
+        return (k1.ternary_matmul_igathered.launches, k1.ternary_matmul_igathered.launches_dec,
+                k1.ternary_matmul.launches)
+
+    def k3_held(label, x, perm, packed, alpha, mu, path="dec", a8=False, bs=128):
+        """One K3 call (two on the decode path, which must give the same
+        bits) held against ternary_matmul_igathered_plain, the decode path
+        also against ternary_matmul_igathered_dec_plain; launches and
+        launches_dec must rise by exactly what ``path`` implies."""
+        nonlocal k3dec_err, k3dec_algo_err, k3dec_checks, k3cc_err, k3cc_checks
+        if k1.k3_path(x.shape[0], packed.shape[1], bs, a8) != path:
+            fail(f"K3 {label}: k3_path is not {path}")
+        calls = 2 if path == "dec" else 1
+        c0 = k3_counts()
+        got = k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+        again = (k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+                 if calls == 2 else got)
+        want = k1.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, bs, a8)
+        torch.cuda.synchronize()
+        rise = tuple(b - a for a, b in zip(c0, k3_counts()))
+        if rise != (calls, calls if path == "dec" else 0, 0):
+            fail(f"K3 {label}: launches / decode launches / K1 launches rose by {rise}, path "
+                 f"{path}")
+        if not torch.equal(got, again):
+            fail(f"K3 {label}: two calls differ in their bits")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not (err <= KERNEL_TOL * scale) or got.shape != want.shape:
+            fail(f"K3 {label}: max|err| {err:.3e} > {KERNEL_TOL} x max|ref| {scale:.3e}")
+        if path == "dec":
+            algo = k1.ternary_matmul_igathered_dec_plain(x, perm, packed, alpha, mu, bs, a8,
+                                                         wave=k1.dec_wave(dev))
+            aerr = (got - algo).abs().max().item()
+            if not aerr <= KERNEL_TOL * scale:
+                fail(f"K3 {label}: max|err| {aerr:.3e} against the decode path's plain version")
+            k3dec_err, k3dec_algo_err = max(k3dec_err, err), max(k3dec_algo_err, aerr)
+            k3dec_checks += 1
+        else:
+            k3cc_err = max(k3cc_err, err)
+            k3cc_checks += 1
+        return got
+
+    def k3_rows(B, m):
+        """Random bf16 rows; from 4 rows on, row 1 all zero (W2A8: sx's
+        floor), row 2 +-127 and half-integers, row 3 that times 0.25."""
+        x = torch.randn((B, m), generator=gk3, device=dev)
+        if B >= 4:
+            x[1] = 0
+            x[2] = torch.randint(-127, 127, (m,), generator=gk3, device=dev) + 0.5
+            x[2, 5], x[2, 9] = 127.0, -127.0
+            x[3] = 0.25 * x[2]
+        return x.bfloat16()
+
+    k3_uneven = 0
+    with k1_dec(True):  # W2A8 decode rows too
+        for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 256),
+                                          ("uneven", 600, 640, 128)]:
+            packed, alpha, mu = rand_layer(K, n, gen=gk3)
+            perm = rand_perm(m, K, m < K, gen=gk3)
+            nb = K // 128
+            k3_uneven += nb % -(-nb // k1.dec_splits(K, n, 128, k1.dec_wave(dev))) != 0
+            for B in (1, 2, 4, 8):
+                x = k3_rows(B, m)
+                for a8 in (False, True):
+                    got = k3_held(f"dec {name} rows={B} a8={a8}", x, perm, packed, alpha, mu,
+                                  a8=a8)
+                    if B >= 4 and got[1].abs().max().item() != 0.0:
+                        fail(f"K3 decode {name}: the all-zero row's output is not 0")
+        if k3_uneven < 1:
+            fail("K3 decode: no shape with uneven K slices")
+        # packed[li] / perm[li] views of a 2-layer stack at bs 128 and 256,
+        # all-zero alpha (and mu) blocks
+        m, K, n = 4000, 4096, 4096
+        x = k3_rows(8, m)
+        for bs in (128, 256):
+            codes = torch.randint(-1, 2, (2, n, K), generator=gk3, device=dev, dtype=torch.int8)
+            packed = torch.stack([pack_ternary(c, bs) for c in codes])
+            alpha = ((0.8 + 0.4 * torch.rand((2, K // bs, n), generator=gk3, device=dev)) / 64
+                     ).bfloat16()
+            mu = (0.02 / 64 * torch.randn((2, K // bs, n), generator=gk3, device=dev)).bfloat16()
+            perms = torch.stack([rand_perm(m, K, True, gen=gk3) for _ in range(2)])
+            for li in (0, 1):
+                for a8 in (False, True):
+                    k3_held(f"dec packed[{li}] bs {bs} a8={a8}", x, perms[li], packed[li],
+                            alpha[li], mu[li], a8=a8, bs=bs)
+        packed, alpha, mu = rand_layer(K, n, gen=gk3)
+        alpha[::3] = 0
+        mu[::6] = 0
+        for B in (1, 8):
+            for a8 in (False, True):
+                k3_held(f"dec zero-alpha blocks rows={B} a8={a8}", x[:B], perms[0], packed, alpha,
+                        mu, a8=a8)
+    # the CUDA-core K3: rows 16 / 64, W2A8 decode rows as routed (K1_DEC_A8
+    # off), and bf16 decode rows with the decode kernel off
+    for name, m, K, n in SHAPES_8B:
+        packed, alpha, mu = rand_layer(K, n, gen=gk3)
+        perm = rand_perm(m, K, gen=gk3)
+        for B in (16, 64):
+            x = k3_rows(B, m)
+            for a8 in (False, True):
+                k3_held(f"{name} rows={B} a8={a8}", x, perm, packed, alpha, mu, "cuda_core", a8)
+        x = k3_rows(4, m)
+        k3_held(f"{name} rows=4 a8", x, perm, packed, alpha, mu, "cuda_core", True)
+        with k1_dec(False):
+            k3_held(f"{name} rows=4, decode kernel off", x, perm, packed, alpha, mu, "cuda_core")
+    record["k3_dec_checks"] = k3dec_checks
+    record["k3_dec_max_abs_err"] = k3dec_err
+    record["k3_dec_max_abs_err_vs_dec_plain"] = k3dec_algo_err
+    print(f"K3 decode path vs plain: {k3dec_checks} checks (5 shapes x rows 1/2/4/8 x bf16/a8, "
+          f"{k3_uneven} with uneven K slices, + stacked views at bs 128 and 256 + zero-alpha "
+          f"blocks), each called twice with identical bits, within {KERNEL_TOL} x max|ref| of "
+          f"ternary_matmul_igathered_plain (max|err| {k3dec_err:.3e}) and of its own plain "
+          f"version (max|err| {k3dec_algo_err:.3e}); CUDA-core K3: {k3cc_checks} checks (rows "
+          f"16/64, W2A8 rows 4, decode kernel off) max|err| {k3cc_err:.3e}; launches and "
+          f"launches_dec exact")
+    del packed, alpha, mu, x, perm, perms, codes
+
+    stamp("2")
     # ---- 2. K4, K3 and K2 vs their plain versions
-    errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0, "ternary_mlp": 0.0}
+    errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0,
+            "ternary_matmul_igathered_dec": 0.0, "ternary_mlp": 0.0}
     nchecks = dict.fromkeys(errs, 0)
 
     def held(kernel, label, got, want, tol):
@@ -738,13 +901,17 @@ def main() -> None:
             x = torch.randn((B, m), generator=g, device=dev).bfloat16()
             held("onehot_gather", f"K4 m={m} K={K} rows={B}", k4.onehot_gather(x, perm),
                  k4.onehot_gather_plain(x, perm), 0.0)
+    # K3's checks under the name of the path its rows take (decode path:
+    # "ternary_matmul_igathered_dec")
+    k3_name = lambda B, n, a8: "ternary_matmul_igathered" + (  # noqa: E731
+        "_dec" if k1.k3_path(B, n, 128, a8) == "dec" else "")
     for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 256)]:
         packed, alpha, mu = rand_layer(K, n)
         perm = rand_perm(m, K, name == "ragged")
         for B in (1, 2, 4, 16):
             x = torch.randn((B, m), generator=g, device=dev).bfloat16()
             for a8 in (False, True):
-                held("ternary_matmul_igathered", f"K3 {name} B={B} a8={a8}",
+                held(k3_name(B, n, a8), f"K3 {name} B={B} a8={a8}",
                      k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8),
                      k1.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, a8=a8),
                      KERNEL_TOL)
@@ -772,7 +939,7 @@ def main() -> None:
     for li in (0, 1):
         held("onehot_gather", f"K4 perm[{li}]", k4.onehot_gather(x, perms[li]),
              k4.onehot_gather_plain(x, perms[li]), 0.0)
-        held("ternary_matmul_igathered", f"K3 packed[{li}]",
+        held(k3_name(4, 2 * I, False), f"K3 packed[{li}]",
              k1.ternary_matmul_igathered(x, perms[li], gp[li], ga[li], gm[li]),
              k1.ternary_matmul_igathered_plain(x, perms[li], gp[li], ga[li], gm[li]), KERNEL_TOL)
         held("ternary_mlp", f"K2 layer {li}",
@@ -811,13 +978,17 @@ def main() -> None:
     record["new_kernel_checks"] = nchecks
     record["new_kernel_max_abs_err"] = errs
     print(f"K4 vs plain: {nchecks['onehot_gather']} checks bit-exact; K3 vs plain: "
-          f"{nchecks['ternary_matmul_igathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
-          f"{errs['ternary_matmul_igathered']:.3e}); K2 vs plain: {nchecks['ternary_mlp']} checks "
-          f"within {MLP_TOL} x max|ref| (max|err| {errs['ternary_mlp']:.3e}); K2 GeGLU at "
+          f"{nchecks['ternary_matmul_igathered']} checks on the CUDA-core K3 (W2A8, 16 rows; "
+          f"max|err| {errs['ternary_matmul_igathered']:.3e}) and "
+          f"{nchecks['ternary_matmul_igathered_dec']} on its decode path (bf16 rows <= 4; max|err| "
+          f"{errs['ternary_matmul_igathered_dec']:.3e}) within {KERNEL_TOL} x max|ref|; K2 vs "
+          f"plain: {nchecks['ternary_mlp']} checks within {MLP_TOL} x max|ref| (max|err| "
+          f"{errs['ternary_mlp']:.3e}); K2 GeGLU at "
           f"gemma-2b: {nchecks['ternary_mlp_gelu']} checks (max|err| "
           f"{errs['ternary_mlp_gelu']:.3e}), relu {nchecks['ternary_mlp_relu']} (max|err| "
           f"{errs['ternary_mlp_relu']:.3e}) within {MLP_TOL} x max|ref|")
 
+    stamp("2b")
     # ---- 2b. K7 vs its plain version: llama-3-8b and llama-2-7b heads,
     # B 1/4/8, M 256 and the engine's 2048, ragged valid lengths
     from pt2tpu_torch.serve.kvcache import quantize_i8
@@ -867,6 +1038,7 @@ def main() -> None:
           f"hd {hdg}): {nchecks['decode_attention_hd256']} checks (max|err| "
           f"{errs['decode_attention_hd256']:.3e})")
 
+    stamp("2c")
     # ---- 2c. K5 bit-exact against its plain version and against K4; K6 vs
     # its plain version: llama-3-8b gathers, ragged and interleaved-pad perms,
     # several K chunks x several column groups
@@ -912,6 +1084,7 @@ def main() -> None:
           f"{nchecks['ternary_matmul_gathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
           f"{errs['ternary_matmul_gathered']:.3e})")
 
+    stamp("3")
     # ---- 3. 2-layer models at full width through the kernels vs their reference
     import pt2tpu_torch.models.common as tcommon
     import pt2tpu_torch.ops.gather as tgather
@@ -1100,6 +1273,7 @@ def main() -> None:
             or used["ternary_mlp_gelu"] != used["ternary_mlp"]:
         fail(f"2-layer gemma-2b models launched {used}")
 
+    stamp("3b")
     # ---- 3b. a 2-layer llama-3-8b ServeEngine ("down" layout, 8 slots, max_len
     # 2048, quantum 4): every K1 / K2 / K7 call held against its plain version
     from pt2tpu_torch.serve.engine import ServeEngine, _bucket
@@ -1199,6 +1373,7 @@ def main() -> None:
                  f"max|logit| (> {tol})")
         return worst, margins
 
+    stamp("4")
     # ---- 4./5. the main paths: 4 prompts x 128 ids, 32 new tokens
     B, Lp, new = 4, 128, 32
     steps = new - 1  # decode steps after the prefill
@@ -1300,6 +1475,7 @@ def main() -> None:
           f"{' / '.join(f'{v:.1f}' for v in pre_ab['tc'])} tok/s vs "
           f"{' / '.join(f'{v:.1f}' for v in pre_ab['cuda_core'])} tok/s on {record['smi']}")
 
+    stamp("10b")
     # ---- 10b. the lockstep W2A8 prefill with K1 on the int8 tensor cores
     # and on the CUDA cores, in turns on, off, off, on
     pre_a8 = {"tc_a8": [], "cuda_core": []}
@@ -1325,6 +1501,7 @@ def main() -> None:
           f"{' / '.join(f'{v:.1f}' for v in pre_a8['tc_a8'])} tok/s vs "
           f"{' / '.join(f'{v:.1f}' for v in pre_a8['cuda_core'])} tok/s on {record['smi']}")
 
+    stamp("11b")
     # ---- 11b. the lockstep llama-2-7b decode with K1's decode rows on the
     # decode kernel and on the CUDA cores (K1_DEC_MAX_ROWS 0), in turns on,
     # off, off, on, bf16 and W2A8: greedy_generate with exact counts, the
@@ -1378,13 +1555,15 @@ def main() -> None:
 
     # 5. llama-3-8b, full-SSR layout: prefill K4 x3 + K1 x4 per layer; each
     # decode step K3 x2 (qkv, o) + K2 per layer ("auto"), or K3 x3 (qkv, o,
-    # gateup) + K1 (down) per layer (W2A8: the fused MLP takes "auto" only)
+    # gateup) + K1 (down) per layer (W2A8: the fused MLP takes "auto" only).
+    # bf16 decode rows run K3's decode path, W2A8 ones its CUDA-core kernel
     cfg, params, record["model_build_8b_s"] = build("llama-3-8b", "ssr", 4)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
-    want_ssr = {
+    want_ssr = {  # bf16 decode: every K3 launch on its decode path; W2A8: none
         "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
-                     ternary_matmul_igathered=2 * L * steps, ternary_mlp=L * steps,
+                     ternary_matmul_igathered=2 * L * steps,
+                     ternary_matmul_igathered_dec=2 * L * steps, ternary_mlp=L * steps,
                      onehot_gather=3 * L),
         "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
                    ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
@@ -1393,9 +1572,59 @@ def main() -> None:
     record["main_path_8b_ssr"] = runs
     for k in ("ternary_matmul_igathered", "ternary_mlp", "onehot_gather"):
         main_launches[k] = sum(r["launches"][k] for r in runs.values())
+    # the CUDA-core K3's own: its decode path's launches are counted apart
+    main_launches["ternary_matmul_igathered"] -= sum(
+        r["launches"]["ternary_matmul_igathered_dec"] for r in runs.values())
     record["decode_step_8b_ssr"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                        "llama-3-8b ssr")
 
+    stamp("13b")
+    # ---- 13b. the lockstep llama-3-8b "ssr" bf16 decode with K3's decode
+    # rows on the decode kernel (as routed) and on the CUDA cores
+    # (K1_DEC_MAX_ROWS 0), in turns on, off, off, on: greedy_generate with
+    # exact counts, the decode's share of its wall (less a separate prefill),
+    # then one decode step's wall and its profiled device time
+    k3_ab = {"dec": [], "cuda_core": []}
+    for on in DEC_AB:
+        want = want_ssr["auto"] if on else dict(want_ssr["auto"], ternary_matmul_igathered_dec=0)
+        with contextlib.nullcontext() if on else k1_dec(False):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = greedy_generate(cfg, params, prompts, new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"lockstep ssr decode A/B dec={on}: launches {got}, want {want}")
+            tally(got)
+            with torch.inference_mode():
+                cache = init_cache(cfg, B, Lp + new, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward_cached(cfg, params, prompts, cache, 0, "auto")
+                torch.cuda.synchronize()
+                pre = time.perf_counter() - t0
+            del cache
+            prof = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                       f"llama-3-8b ssr, K3 decode rows on the "
+                                       f"{'decode kernel' if on else 'CUDA cores'}")
+        dec_s = wall - pre
+        k3_ab["dec" if on else "cuda_core"].append({
+            "decode_tok_s": B * steps / dec_s, "decode_s": dec_s, "wall_s": wall,
+            "step_wall_ms": prof["wall_ms"], "step_device_ms": prof["device_ms"],
+            "top": prof["top"], "streams_equal_to_main_run": sum(
+                a == b for a, b in zip(toks.tolist(), runs["auto"]["tokens"]))})
+    record["lockstep_ssr_k3_ab"] = k3_ab
+    for k, v in k3_ab.items():
+        each = lambda key: " / ".join(f"{r[key]:.2f}" for r in v)  # noqa: E731
+        print(f"lockstep decode A/B llama-3-8b ssr bf16, K3 decode rows on "
+              f"{'the decode kernel' if k == 'dec' else 'the CUDA cores'}: decode "
+              f"{each('decode_tok_s')} tok/s, step wall {each('step_wall_ms')} ms, step device "
+              f"time {each('step_device_ms')} ms (profiler); streams equal to the main run's "
+              f"{[r['streams_equal_to_main_run'] for r in v]} on {record['smi']}")
+
+    stamp("8")
     # ---- 8. this slice's main paths, on the same model and prompts. P1
     # (GATHER_KERNEL "packed"): the prefill gathers through K5 where K4 ran;
     # decode as above. P2 (also IGATHER_FUSED off, FUSED_GATHER on): decode
@@ -1404,9 +1633,10 @@ def main() -> None:
     record["main_path_8b_ssr_packed"] = {}
     for flags_name, flags, fused in (("P1", P1, "ternary_matmul_igathered"),
                                      ("P2", P2, "ternary_matmul_gathered")):
+        dec_p = {"ternary_matmul_igathered_dec": 2 * L * steps} if flags_name == "P1" else {}
         want_p = {
             "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
-                         onehot_matmul=3 * L, **{fused: 2 * L * steps}),
+                         onehot_matmul=3 * L, **{fused: 2 * L * steps}, **dec_p),
             "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
                        onehot_matmul=3 * L, **{fused: 3 * L * steps}),
         }
@@ -1511,6 +1741,7 @@ def main() -> None:
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
 
+    stamp("5b")
     # ---- 5b. the serving slice's main path: the ServeEngine over the same
     # 32-layer llama-3-8b "down" model, 8 slots, max_len 2048, 16 greedy requests
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
@@ -1612,6 +1843,7 @@ def main() -> None:
               f"{[r['streams_equal_to_main_run'] for r in v]}; worst pick gap under the "
               f"teacher-forced plain max {[r.get('worst_pick_gap') for r in v if 'worst_pick_gap' in r]}")
 
+    stamp("10c")
     # ---- 10c. the same engine under W2A8 (impl "a8", bf16 KV, quantum 1)
     # with K1's int8 tensor-core path on and off, in turns, then with K7 off;
     # every answer of each route held under the teacher-forced W2A8 route on
@@ -1737,6 +1969,7 @@ def main() -> None:
         del eng
         torch.cuda.empty_cache()
 
+    stamp("11c")
     # ---- 11c. the same engine (bf16 KV, quantum 1), bf16 and W2A8, with K1's
     # decode rows on the decode kernel and on the CUDA cores, in turns on,
     # off, off, on: decode tok/s and t_decode_s, every answer held as 5b and
@@ -1810,6 +2043,7 @@ def main() -> None:
                   f"{TOKEN_TOL if impl == 'auto' else A8_TOLS[1]}) on {record['smi']}")
     record["engine_decode_ab"] = eng_dec
 
+    stamp("5c")
     # ---- 5c. the HTTP ServingServer over the same model: 8 concurrent POSTs,
     # each answer held to TOKEN_TOL under a teacher-forced plain forward
     import threading
@@ -1855,6 +2089,7 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    stamp("12b")
     # ---- 12b. gemma-2b's lockstep main path: 18 layers (its real depth),
     # full width, "down" layout, the same 4 x 128-id prompt shape and 32 new
     # tokens. bf16: the 512-row prefill runs K1 x4 per layer on the tensor
@@ -1916,6 +2151,7 @@ def main() -> None:
     record["decode_step_gemma"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                       "gemma-2b down")
 
+    stamp("12c")
     # ---- 12c. gemma-2b's serving path: the ServeEngine (8 slots, max_len
     # 2048, 16 greedy requests of 64-512 ids, max_new 32-64), bf16 and int8
     # KV, quantum 1: each decode step runs K1 x2 on the decode kernel, K2
@@ -2008,6 +2244,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     record["paths_s"] = time.perf_counter() - t_start
 
+    stamp("6")
     # ---- 6. timings (cold weights: rotate > L2), CUDA events over back-to-back
     # launches of the C entry points (no Python wrapper in the loop)
     import torch.nn.functional as F
@@ -2210,15 +2447,23 @@ def main() -> None:
     print(f"K1: the tensor cores win from {record['k1_tc_from_rows']} rows on (timed rows "
           f"{K1_ROWS}); K1_TC_MIN_ROWS = {k1.K1_TC_MIN_ROWS}")
 
-    # K3 at llama-3-8b qkv / o; library: one dense bf16 matmul on pre-gathered x
-    k3_detail = []
+    # K3 at llama-3-8b qkv / o; library: one dense bf16 matmul on pre-gathered
+    # x. "K3" the CUDA-core kernel (rows 9-64 and W2A8 decode rows on the main
+    # paths) at rows 1-64; "K3dec" (13d) its decode path (the decode kernel
+    # with x staged through perm, its slice sum included) at 1/2/4/8 rows,
+    # timed before and after the CUDA-core K3 (the least of the two kept).
+    # The rows besides 1 and 16 draw from gk3, so that the later phases draw
+    # what they drew before
+    k3_detail, k3dec_detail = [], []
     for name, m, K, n in SHAPES_8B:
         wbytes = K * n // 4 + 4 * (K // 128) * n
         copies = max(1, math.ceil(COLD_BYTES / wbytes))
         layers = [rand_layer(K, n) + (rand_perm(m, K),) for _ in range(copies)]
         dn = dense(K, n)
-        for B in (1, 16):
-            x = torch.randn((B, m), generator=g, device=dev).bfloat16()
+        splits = k1.dec_splits(K, n, 128, k1.dec_wave(dev))
+        for B in (1, 2, 4, 8, 16, 64):
+            x = (torch.randn((B, m), generator=g if B in (1, 16) else gk3, device=dev)
+                 .bfloat16())
             out = torch.empty((B, n), dtype=torch.float32, device=dev)
 
             def kern(i):
@@ -2227,16 +2472,44 @@ def main() -> None:
                     x.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
                     out.data_ptr(), B, m, K, n, 128, 0, dix, stream), "K3")
 
+            partial = torch.empty((splits, B, n), dtype=torch.float32, device=dev)
+
+            def kern_dec(i):
+                p, a, mu_, pm = layers[i % copies]
+                ok(dec_lib.pt2_ternary_matmul_dec_igathered(
+                    x.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), dec_counters.data_ptr(), B, m, K, n, 128,
+                    splits, 0, dix, stream), "K3 dec")
+
+            dec = B <= k1.K1_DEC_MAX_ROWS  # the decode path in turns: dec, K3, dec
+            dec_ms = [time_ms(kern_dec, 50)] if dec else []
             ms = time_ms(kern, 50)
+            dec_ms += [time_ms(kern_dec, 50)] if dec else []
             plain_ms = time_ms(lambda i: k1.ternary_matmul_igathered_plain(
                 x, layers[i % copies][3], *layers[i % copies][:3]), 5)
             xg = k4.onehot_gather_plain(x, layers[0][3])
             lib_ms = time_ms(lambda i: torch.matmul(xg, dn[i % len(dn)]), 50)
-            k3_detail.append(row("K3", name, B, ms, plain_ms, lib_ms,
-                                 K * n / 4 + 4 * (K // 128) * n + 2 * B * m + 4 * K + 4 * B * n,
-                                 2.0 * B * K * n, m=m, K=K, n=n))
+            nbytes = K * n / 4 + 4 * (K // 128) * n + 2 * B * m + 4 * K + 4 * B * n
+            k3_detail.append(row("K3", name, B, ms, plain_ms, lib_ms, nbytes, 2.0 * B * K * n,
+                                 m=m, K=K, n=n))
+            if dec:
+                d = row("K3dec", name, B, min(dec_ms), plain_ms, lib_ms, nbytes, 2.0 * B * K * n,
+                        m=m, K=K, n=n, splits=splits)
+                d["turns_ms"] = dec_ms
+                k3dec_detail.append(d)
         del layers, dn
+    if dec_counters.any():
+        fail("K3's decode path left a column tile's counter set")
     record["k3_timing"] = k3_detail
+    record["k3_dec_timing"] = k3dec_detail
+    for B in (1, 2, 4, 8, 16, 64):
+        at_b = lambda rows: [d for d in rows if d["B"] == B]  # noqa: E731
+        tot = lambda rows, key="ms": sum(d[key] for d in at_b(rows)) * 1e3  # noqa: E731
+        dec_s = f"decode path {tot(k3dec_detail):7.1f} us | " if at_b(k3dec_detail) else ""
+        print(f"K3, llama-3-8b qkv + o at {B:2d} rows: {dec_s}CUDA-core K3 {tot(k3_detail):7.1f} "
+              f"us | plain {tot(k3_detail, 'plain_ms'):8.1f} us | torch.matmul on gathered x "
+              f"{tot(k3_detail, 'library_ms'):6.1f} us | bound {tot(k3_detail, 'bound_ms'):5.2f} "
+              f"us on {record['smi']}")
 
     # K2 at llama-3-8b (gather over 4096 lanes); library: the two dense bf16
     # matmuls x @ W_gateup and mid @ W_down (a yardstick: no single call exists)
@@ -2578,7 +2851,7 @@ def main() -> None:
               "pt2tpu/ops/kernels/pallas_ternary.py:1106", b1(k2_detail), errs["ternary_mlp"]),
         entry("ternary_matmul_igathered", "pt2tpu_torch/csrc/ternary_matmul.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:735", b1(k3_detail),
-              errs["ternary_matmul_igathered"]),
+              max(errs["ternary_matmul_igathered"], k3cc_err)),
         entry("onehot_gather", "pt2tpu_torch/csrc/onehot_gather.cu",
               "pt2tpu/ops/kernels/pallas_gather.py:239",
               [d for d in k4_detail if d["B"] == 512], errs["onehot_gather"], mult=3),
@@ -2606,6 +2879,12 @@ def main() -> None:
               [d for d in record["k7_gemma_timing"] if d["shape"] == "bf16"],
               errs["decode_attention_hd256"]),
     ]
+    # K3's decode path at B = 1, qkv + o; its launches: every 32-layer run
+    # counted exactly
+    main_launches["ternary_matmul_igathered_dec"] = run_totals["ternary_matmul_igathered_dec"]
+    kernels.append(entry("ternary_matmul_igathered_dec", "pt2tpu_torch/csrc/ternary_matmul_dec.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:735", b1(k3dec_detail),
+                         max(k3dec_err, errs["ternary_matmul_igathered_dec"])))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every 32-layer run (each counted exactly): {run_totals}")
@@ -2616,7 +2895,8 @@ def main() -> None:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s after start-up")
+    print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s after start-up; phases "
+          f"began at (s) " + ", ".join(f"{k} {v:.0f}" for k, v in record["phase_start_s"].items()))
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

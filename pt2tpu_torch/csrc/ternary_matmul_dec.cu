@@ -7,6 +7,16 @@
 // picks by shape (k1_path in pt2tpu_torch/ops/kernels/ternary.py), never
 // after a failure.
 //
+// K3's decode rows run here too (the GATHER instances, C entry
+// pt2_ternary_matmul_dec_igathered): they replace
+// ternary_matmul_pallas_igathered (and its _stacked variant) at the same
+// row counts and modes, out = x[:, perm] @ dequant(packed). It is this
+// kernel with one change, as K3 is K1 with one change in
+// csrc/ternary_matmul.cu: x is staged through perm, lane k reading
+// x[b, perm[k]] (0 where perm[k] >= m, a pad lane). W2A8 normalises the
+// rows before the gather (absmax does not depend on column order). Rows
+// 9 to 64 stay on csrc/ternary_matmul.cu's K3.
+//
 // Contract (K1's): with T in {-1,0,1} unpacked from the plane-interleaved
 // (K/4, n) int8 layout (byte [blk*bs/4 + r, j] holds lanes
 // blk*bs + p*bs/4 + r in bits 2p..2p+1, as u = T + 1),
@@ -112,17 +122,19 @@ __device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f),
 // min(nb, (sp+1)*bpc) - 1 for columns 128c .. 128c + 127 into
 // partial[sp, :B] (out when there is one slice); the last CTA of column
 // tile c to finish, found by counters[c], sums partial[0 .. splits-1] in
-// that order into out and sets counters[c] back to 0.
-template <bool A8>
+// that order into out and sets counters[c] back to 0. With GATHER, x is
+// (B, m) in feature order and lane k of the staged x is x[b, perm[k]].
+template <bool A8, bool GATHER>
 __global__ void __launch_bounds__(THREADS, 4)
-ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
+ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), or (B, m) if GATHER
+                          const int* __restrict__ perm,             // (K,) if GATHER
                           const int8_t* __restrict__ packed,        // (K/4, n)
                           const __nv_bfloat16* __restrict__ alpha,  // (nb, n)
                           const __nv_bfloat16* __restrict__ mu,     // (nb, n)
                           float* __restrict__ partial,              // (splits, B, n)
                           float* __restrict__ out,                  // (B, n)
                           int* __restrict__ counters,               // (n / 128,), zero
-                          int B, int K, int n, int bs, int bpc) {
+                          int B, int m, int K, int n, int bs, int bpc) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
   const int tid = threadIdx.x;
@@ -174,34 +186,76 @@ ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
         (k < 16 ? alpha : mu) + (size_t)(blk0 + lb) * n + col0 + 8 * (k & 15);
     *reinterpret_cast<uint4*>(am + (lb * 32 + k) * 8) = __ldg(reinterpret_cast<const uint4*>(src));
   }
-  // x into xs: one 16-byte load per (unit lb*ls + s, plane p, row < B)
-  // gives the words of t = 0..3 (lanes p*bs/4 + 8s .. + 7). Pad rows are
-  // not staged: their lanes read zeros in place of xs
-  const int loads = nblk * ls * 4 * B;
-#pragma unroll 4
-  for (int i = tid; i < loads; i += THREADS) {
-    const int rest = i / B;
-    const int row = i - rest * B;
-    const int p = rest & 3;
-    const int unit = rest >> 2;
-    const int lb = unit / ls;
-    const int s = unit - lb * ls;
-    uint4 w = *reinterpret_cast<const uint4*>(x + (size_t)row * K + (size_t)(blk0 + lb) * bs +
-                                              p * bs4 + 8 * s);
-    if (A8) {
-      uint32_t* h = &w.x;
+  if constexpr (GATHER) {
+    // x into xs through perm: the 8 lanes p*bs/4 + 8s .. + 7 of (unit
+    // lb*ls + s, plane p) are neighbours in perm, read with two 16-byte
+    // loads once for all rows; then per row < B the 8 values x[row, perm[k]]
+    // (0 for a pad lane, perm[k] >= m) make the words of t = 0..3
+    const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
+    const int items = nblk * ls * 4;
+    for (int i = tid; i < items; i += THREADS) {
+      const int p = i & 3;
+      const int unit = i >> 2;
+      const int lb = unit / ls;
+      const int s = unit - lb * ls;
+      const int4* pk =
+          reinterpret_cast<const int4*>(perm + (size_t)(blk0 + lb) * bs + p * bs4 + 8 * s);
+      const int4 q0 = __ldg(pk);
+      const int4 q1 = __ldg(pk + 1);
+      const int idx[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      uint32_t* dst = xs + unit * 128 + p;
+#pragma unroll 2
+      for (int row = 0; row < B; ++row) {
+        const unsigned short* xr = xh + (size_t)row * m;
+        uint32_t w[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + k));
-        const __nv_bfloat162 q = __floats2bfloat162_rn(rounded(f.x), rounded(f.y));
-        h[k] = *reinterpret_cast<const uint32_t*>(&q);  // exact: integers <= 127
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t lo = (unsigned)idx[2 * k] < (unsigned)m ? __ldg(xr + idx[2 * k]) : 0u;
+          const uint32_t hi =
+              (unsigned)idx[2 * k + 1] < (unsigned)m ? __ldg(xr + idx[2 * k + 1]) : 0u;
+          w[k] = lo | (hi << 16);
+          if (A8) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+            const __nv_bfloat162 q = __floats2bfloat162_rn(rounded(f.x), rounded(f.y));
+            w[k] = *reinterpret_cast<const uint32_t*>(&q);  // exact: integers <= 127
+          }
+        }
+        dst[16 * row] = w[0];
+        dst[16 * row + 4] = w[1];
+        dst[16 * row + 8] = w[2];
+        dst[16 * row + 12] = w[3];
       }
     }
-    uint32_t* dst_w = xs + (unit * 32 + 4 * row) * 4 + p;
-    dst_w[0] = w.x;
-    dst_w[4] = w.y;
-    dst_w[8] = w.z;
-    dst_w[12] = w.w;
+  } else {
+    // x into xs: one 16-byte load per (unit lb*ls + s, plane p, row < B)
+    // gives the words of t = 0..3 (lanes p*bs/4 + 8s .. + 7). Pad rows are
+    // not staged: their lanes read zeros in place of xs
+    const int loads = nblk * ls * 4 * B;
+#pragma unroll 4
+    for (int i = tid; i < loads; i += THREADS) {
+      const int rest = i / B;
+      const int row = i - rest * B;
+      const int p = rest & 3;
+      const int unit = rest >> 2;
+      const int lb = unit / ls;
+      const int s = unit - lb * ls;
+      uint4 w = *reinterpret_cast<const uint4*>(x + (size_t)row * K + (size_t)(blk0 + lb) * bs +
+                                                p * bs4 + 8 * s);
+      if (A8) {
+        uint32_t* h = &w.x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + k));
+          const __nv_bfloat162 q = __floats2bfloat162_rn(rounded(f.x), rounded(f.y));
+          h[k] = *reinterpret_cast<const uint32_t*>(&q);  // exact: integers <= 127
+        }
+      }
+      uint32_t* dst_w = xs + (unit * 32 + 4 * row) * 4 + p;
+      dst_w[0] = w.x;
+      dst_w[4] = w.y;
+      dst_w[8] = w.z;
+      dst_w[12] = w.w;
+    }
   }
   __syncthreads();
 
@@ -317,30 +371,25 @@ ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K)
   if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch on the stream
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-// x is (B, K) bf16 (W2A8: normalize_rows_a8's output), partial scratch of
-// splits * B * n f32 (not read when splits is 1), out (B, n) f32, counters
-// n / 128 int32 that are 0 (each launch leaves them 0; launches that share
-// them must not run concurrently). The K slice of a CTA is
-// bpc = ceil(nb / splits) blocks; splits must leave no slice empty and
-// bpc * bs <= 2048. x, packed, alpha, mu, partial and out are 16-byte
-// aligned. Returns the launch's CUDA error; 0 means it launched.
-extern "C" int pt2_ternary_matmul_dec(const void* x, const void* packed, const void* alpha,
-                                      const void* mu, void* partial, void* out, void* counters,
-                                      int B, int K, int n, int bs, int splits, int a8, int device,
-                                      void* stream) {
+// The launch of both C entries. x (bf16, B rows of m values; m = K
+// without GATHER) needs 16-byte alignment without GATHER, perm (K int32)
+// with it: both are read as 16-byte vectors.
+template <bool GATHER>
+int launch(const void* x, const void* perm, const void* packed, const void* alpha,
+           const void* mu, void* partial, void* out, void* counters, int B, int m, int K, int n,
+           int bs, int splits, int a8, int device, void* stream) {
   if (B < 1 || B > MAX_ROWS || bs < 128 || bs % 128 != 0 || K < bs || K % bs != 0 || n < BN ||
-      n % BN != 0)
+      n % BN != 0 || m < 1)
     return (int)cudaErrorInvalidValue;
   const int nb = K / bs;
   if (splits < 1 || splits > nb) return (int)cudaErrorInvalidValue;
   const int bpc = (nb + splits - 1) / splits;
   if ((splits - 1) * bpc >= nb || bpc * bs > MAX_SLICE) return (int)cudaErrorInvalidValue;
-  uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(packed) |
-                  reinterpret_cast<uintptr_t>(alpha) | reinterpret_cast<uintptr_t>(mu) |
-                  reinterpret_cast<uintptr_t>(out);
+  if (GATHER && perm == nullptr) return (int)cudaErrorInvalidValue;
+  uintptr_t any = reinterpret_cast<uintptr_t>(GATHER ? perm : x) |
+                  reinterpret_cast<uintptr_t>(packed) | reinterpret_cast<uintptr_t>(alpha) |
+                  reinterpret_cast<uintptr_t>(mu) | reinterpret_cast<uintptr_t>(out);
+  if (GATHER) any |= reinterpret_cast<uintptr_t>(x) & 1;  // bf16 x: 2-byte loads
   if (splits > 1) {
     if (partial == nullptr || counters == nullptr) return (int)cudaErrorInvalidValue;
     any |= reinterpret_cast<uintptr_t>(partial) | (reinterpret_cast<uintptr_t>(counters) & 3);
@@ -357,6 +406,7 @@ extern "C" int pt2_ternary_matmul_dec(const void* x, const void* packed, const v
   const dim3 grid(n / BN, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const int* pm = static_cast<const int*>(perm);
   const int8_t* pp = static_cast<const int8_t*>(packed);
   const __nv_bfloat16* ap = static_cast<const __nv_bfloat16*>(alpha);
   const __nv_bfloat16* mp = static_cast<const __nv_bfloat16*>(mu);
@@ -364,10 +414,40 @@ extern "C" int pt2_ternary_matmul_dec(const void* x, const void* packed, const v
   float* op = static_cast<float*>(out);
   int* cp = static_cast<int*>(counters);
   if (a8)
-    ternary_matmul_dec_kernel<true><<<grid, THREADS, smem, s>>>(xp, pp, ap, mp, part, op, cp, B, K,
-                                                                n, bs, bpc);
+    ternary_matmul_dec_kernel<true, GATHER><<<grid, THREADS, smem, s>>>(
+        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc);
   else
-    ternary_matmul_dec_kernel<false><<<grid, THREADS, smem, s>>>(xp, pp, ap, mp, part, op, cp, B,
-                                                                 K, n, bs, bpc);
+    ternary_matmul_dec_kernel<false, GATHER><<<grid, THREADS, smem, s>>>(
+        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// x is (B, K) bf16 (W2A8: normalize_rows_a8's output), partial scratch of
+// splits * B * n f32 (not read when splits is 1), out (B, n) f32, counters
+// n / 128 int32 that are 0 (each launch leaves them 0; launches that share
+// them must not run concurrently). The K slice of a CTA is
+// bpc = ceil(nb / splits) blocks; splits must leave no slice empty and
+// bpc * bs <= 2048. x, packed, alpha, mu, partial and out are 16-byte
+// aligned. Returns the launch's CUDA error; 0 means it launched.
+extern "C" int pt2_ternary_matmul_dec(const void* x, const void* packed, const void* alpha,
+                                      const void* mu, void* partial, void* out, void* counters,
+                                      int B, int K, int n, int bs, int splits, int a8, int device,
+                                      void* stream) {
+  return launch<false>(x, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n, bs,
+                       splits, a8, device, stream);
+}
+
+// K3's decode rows: as pt2_ternary_matmul_dec, with x (B, m) bf16 in
+// feature order (W2A8: its normalised rows) and perm (K,) int32 the visit
+// lane -> feature map, pad lanes >= m. perm is 16-byte aligned, x 2-byte.
+extern "C" int pt2_ternary_matmul_dec_igathered(const void* x, const void* perm,
+                                                const void* packed, const void* alpha,
+                                                const void* mu, void* partial, void* out,
+                                                void* counters, int B, int m, int K, int n, int bs,
+                                                int splits, int a8, int device, void* stream) {
+  return launch<true>(x, perm, packed, alpha, mu, partial, out, counters, B, m, K, n, bs, splits,
+                      a8, device, stream);
 }

@@ -10,7 +10,10 @@
     (``csrc/ternary_matmul_tc_a8.cu``) for W2A8 rows >= :data:`K1_TC_MIN_ROWS`;
     the CUDA cores (``csrc/ternary_matmul.cu``) for every other shape.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
-    (same source; replaces ``ternary_matmul_pallas_igathered``).
+    (replaces ``ternary_matmul_pallas_igathered``), on two paths chosen by
+    shape (:func:`k3_path`): K1's decode kernel with x staged through perm
+    (``csrc/ternary_matmul_dec.cu``) where :func:`k1_path` says "dec", the
+    CUDA-core kernel (``csrc/ternary_matmul.cu``) for every other shape.
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
     the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
     ``ternary_matmul_pallas_gathered``).
@@ -44,6 +47,7 @@ __all__ = [
     "K1_DEC_MAX_ROWS",
     "K1_DEC_A8",
     "k1_path",
+    "k3_path",
     "dec_splits",
     "ternary_matmul",
     "ternary_matmul_plain",
@@ -51,6 +55,7 @@ __all__ = [
     "quantize_rows_a8_lanes_plain",
     "ternary_matmul_lanes_plain",
     "ternary_matmul_dec_plain",
+    "ternary_matmul_igathered_dec_plain",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
@@ -280,17 +285,18 @@ lockstep batches) run the decode kernel, whose tiles are made for them, in
 bf16 (and in W2A8 with :data:`K1_DEC_A8`). Read at each call."""
 
 K1_DEC_MAX_ROWS = 8
-"""The most rows K1 runs on its decode kernel (``csrc/ternary_matmul_dec.cu``);
-at most 8, the kernel's N tile. 0 sends decode rows back to the CUDA-core
-kernel (``chip_smoke.py``'s "off" turns). Read at each call."""
+"""The most rows K1 and K3 run on the decode kernel
+(``csrc/ternary_matmul_dec.cu``); at most 8, the kernel's N tile. 0 sends
+decode rows back to the CUDA-core kernels (``chip_smoke.py``'s "off"
+turns). Read at each call."""
 
 K1_DEC_A8 = False
-"""Whether W2A8 decode rows take the decode kernel too (its W2A8 mode).
-Off, they stay on the CUDA-core kernel: with them on the decode kernel,
-``chip_smoke.py``'s 32-layer W2A8 answers under the P2 routing flags trail
-their teacher-forced reference by more than the answer gate it holds them
-to (TOKEN_TOL, 2e-2 of max|logit|), although every call agrees with its
-plain version to ~1e-7. ``scripts/torch_a8_pick_gaps.py`` measures that
+"""Whether W2A8 decode rows take the decode kernel too (its W2A8 mode),
+K1's and K3's alike. Off, they stay on the CUDA-core kernels: with K1's on
+the decode kernel, ``chip_smoke.py``'s 32-layer W2A8 answers under the P2
+routing flags trail their teacher-forced reference by more than the
+answer gate it holds them to (TOKEN_TOL, 2e-2 of max|logit|), although
+every call agrees with its plain version to ~1e-7. ``scripts/torch_a8_pick_gaps.py`` measures that
 gap over prompt sets: on an H100 both kernels crossed 2e-2 on some of
 them. ``chip_smoke.py``'s decode A/Bs set it for their "on" turns. Read at
 each call."""
@@ -301,7 +307,9 @@ DEC_SLICE_LANES = 2048  # the most x lanes one of its CTAs stages in shared memo
 
 
 def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
-    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA. With
+    """Which of K1's kernels :func:`ternary_matmul` launches on CUDA (K3's
+    :func:`ternary_matmul_igathered` takes the decode kernel where this says
+    "dec", its CUDA-core kernel elsewhere). With
     scale blocks and out_features that are multiples of 128: "dec"
     (``pt2_ternary_matmul_dec``, a split-K mma.sync GEMV) for rows <=
     K1_DEC_MAX_ROWS in bf16, and in W2A8 with K1_DEC_A8; for rows >=
@@ -315,6 +323,14 @@ def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
         if rows >= K1_TC_MIN_ROWS:
             return "tc_a8" if a8 else "tc"
     return "cuda_core"
+
+
+def k3_path(rows: int, n: int, block_size: int, a8: bool) -> str:
+    """Which of K3's kernels :func:`ternary_matmul_igathered` launches on
+    CUDA: "dec" (``pt2_ternary_matmul_dec_igathered``, K1's decode kernel
+    with x staged through perm) where :func:`k1_path` says "dec", else
+    "cuda_core" (``pt2_ternary_matmul_igathered``)."""
+    return "dec" if k1_path(rows, n, block_size, a8) == "dec" else "cuda_core"
 
 
 def dec_wave(device) -> int:
@@ -373,16 +389,46 @@ def ternary_matmul_dec_plain(
     value 4j + e of lane (g, t) is written to row 2t + (e & 1), column
     16g + j + 8 * (e >> 1). W2A8 multiplies by sx last, as the wrapper does.
     Returns (B, n) f32."""
-    B, K = x.shape
+    if a8:
+        xn, sx = normalize_rows_a8(x)
+        return _dec_plain(torch.clamp(torch.round(xn.float()), -127, 127), packed, alpha, mu,
+                          block_size, wave) * sx
+    return _dec_plain(x.float(), packed, alpha, mu, block_size, wave)
+
+
+def ternary_matmul_igathered_dec_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    perm: torch.Tensor,  # (K,) visit lane -> feature; pad lanes -> m
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K3's decode rows (``pt2_ternary_matmul_dec_igathered``,
+    the decode kernel with x staged through perm) in f32, index for index:
+    :func:`ternary_matmul_dec_plain`'s on the staged values x[b, perm[k]],
+    0 for a pad lane (perm[k] >= m). W2A8 normalises the rows first (absmax
+    does not depend on the order of the columns), gathers the normalised
+    bf16 values, rounds them to int8 and multiplies by sx last, as the
+    wrapper does. Returns (B, n) f32."""
+    if a8:
+        xn, sx = normalize_rows_a8(x)
+        xk = torch.clamp(torch.round(onehot_gather_plain(xn, perm).float()), -127, 127)
+        return _dec_plain(xk, packed, alpha, mu, block_size, wave) * sx
+    return _dec_plain(onehot_gather_plain(x, perm).float(), packed, alpha, mu, block_size, wave)
+
+
+def _dec_plain(xk, packed, alpha, mu, block_size, wave):
+    """The decode kernel's algorithm on the values it stages, xk (B, K) f32
+    (W2A8: already rounded); see :func:`ternary_matmul_dec_plain`."""
+    B, K = xk.shape
     n = packed.shape[1]
     bs = block_size
     nb, bs4, ls, tiles = K // bs, bs // 4, bs // 32, n // 128
-    dev = x.device
-    if a8:
-        xn, sx = normalize_rows_a8(x)
-        xk = torch.clamp(torch.round(xn.float()), -127, 127)
-    else:
-        xk = x.float()
+    dev = xk.device
     # the kernel's codes: plane P of each byte into 128's mantissa, then fma
     by = packed.to(torch.int32) & 0xFF
     codes = []
@@ -442,8 +488,7 @@ def ternary_matmul_dec_plain(
     cols = (ar(tiles).view(tiles, 1, 1, 1) * 128 + 16 * ar(8).view(1, 8, 1, 1)
             + (ii >> 2) + 8 * ((ii >> 1) & 1))
     out[rows.expand(tiles, 8, 4, 32), cols.expand(tiles, 8, 4, 32)] = vals
-    out = out[:B]
-    return out * sx if a8 else out
+    return out[:B]
 
 
 _lib = None
@@ -474,6 +519,9 @@ def _dec_kernel_lib():
         lib = _build.load("ternary_matmul_dec")
         fn = lib.pt2_ternary_matmul_dec
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_dec_igathered
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _dec_lib = lib
     return _dec_lib
@@ -629,20 +677,36 @@ _dec_counters: dict = {}
 _dec_waves: dict = {}
 
 
-def _dec_counter_buffer(device, stream, tiles):
+def _dec_counter_buffer(device, stream, tiles, kernel="K1"):
     """The decode kernel's per-column-tile counters for launches on
-    ``stream``: int32 zeros, kept between calls (each launch leaves them 0),
-    grown on demand. Each stream has its own, so the launches that share a
-    buffer are ordered by their stream and never overlap. A CUDA graph
-    capture is refused: its replays could overlap with the launches of the
-    stream it was captured on."""
+    ``stream`` (K1's and K3's decode rows share them): int32 zeros, kept
+    between calls (each launch leaves them 0), grown on demand. Each stream
+    has its own, so the launches that share a buffer are ordered by their
+    stream and never overlap. A CUDA graph capture is refused: its replays
+    could overlap with the launches of the stream it was captured on."""
     if torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError("K1's decode path inside a CUDA graph capture")
+        raise NotImplementedError(f"{kernel}'s decode path inside a CUDA graph capture")
     buf = _dec_counters.get((device, stream))
     if buf is None or buf.numel() < tiles:
         buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
         _dec_counters[(device, stream)] = buf
     return buf
+
+
+def _dec_scratch(xk, K, n, block_size, out, kernel):
+    """What a decode-kernel launch of (B, .) rows into ``out`` needs beside
+    its operands: (device, stream, splits, partial, counters), with the
+    dec_splits K slices of the card's wave, their (splits, B, n) f32
+    partials (out itself when there is one slice) and the stream's
+    counters."""
+    device, stream = _device_and_stream(xk)
+    if device not in _dec_waves:
+        _dec_waves[device] = dec_wave(device)
+    splits = dec_splits(K, n, block_size, _dec_waves[device])
+    partial = (torch.empty((splits, xk.shape[0], n), dtype=torch.float32, device=xk.device)
+               if splits > 1 else out)
+    counters = _dec_counter_buffer(xk.device, stream, n // 128, kernel)
+    return device, stream, splits, partial, counters
 
 
 def _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8):
@@ -655,13 +719,7 @@ def _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8):
     B, K = xk.shape
     n = packed.shape[1]
     xk = _tc_operands(xk, packed, alpha, mu)
-    device, stream = _device_and_stream(xk)
-    if device not in _dec_waves:
-        _dec_waves[device] = dec_wave(device)
-    splits = dec_splits(K, n, block_size, _dec_waves[device])
-    partial = (torch.empty((splits, B, n), dtype=torch.float32, device=xk.device)
-               if splits > 1 else out)
-    counters = _dec_counter_buffer(xk.device, stream, n // 128)
+    device, stream, splits, partial, counters = _dec_scratch(xk, K, n, block_size, out, "K1")
     rc = _dec_kernel_lib().pt2_ternary_matmul_dec(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), partial.data_ptr(),
         out.data_ptr(), counters.data_ptr(), B, K, n, block_size, splits, int(bool(a8)), device,
@@ -671,6 +729,32 @@ def _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8):
         raise RuntimeError(f"K1 (decode, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul.launches += 1
     ternary_matmul.launches_dec += 1
+    return out
+
+
+def _ternary_matmul_igathered_dec(xk, perm, packed, alpha, mu, out, block_size, a8):
+    """K3's decode path: K1's decode kernel with x staged through perm
+    (``pt2_ternary_matmul_dec_igathered``), its K slices, scratch and
+    counters as :func:`_ternary_matmul_dec`'s. xk is bf16 x (B, m) in
+    feature order, or W2A8's normalised rows; perm is read as 16-byte
+    vectors (a copy if it is not aligned so). Returns out before the row
+    scales."""
+    B, m = xk.shape
+    K, n = packed.shape[0] * 4, packed.shape[1]
+    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
+        raise ValueError("K3's decode path needs 16-byte aligned packed, alpha and mu")
+    if perm.data_ptr() % 16:
+        perm = perm.clone()
+    device, stream, splits, partial, counters = _dec_scratch(xk, K, n, block_size, out, "K3")
+    rc = _dec_kernel_lib().pt2_ternary_matmul_dec_igathered(
+        xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), counters.data_ptr(), B, m, K, n, block_size, splits,
+        int(bool(a8)), device, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K3 (decode, tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul_igathered.launches += 1
+    ternary_matmul_igathered.launches_dec += 1
     return out
 
 
@@ -735,9 +819,13 @@ def ternary_matmul_igathered(
 ) -> torch.Tensor:
     """out = x[:, perm] @ dequant(packed): (B, m) x (K,) perm -> (B, n) f32.
 
-    CUDA: launches K3 (the gathered x is staged in shared memory only) and
-    counts it in ``ternary_matmul_igathered.launches``. CPU: the plain
-    version."""
+    CUDA: launches K3 (the gathered x is staged in shared memory only) on
+    the path :func:`k3_path` names for its rows and shape, read at each
+    call: "dec" (bf16 rows <= K1_DEC_MAX_ROWS, W2A8 ones too with
+    K1_DEC_A8) runs K1's decode kernel with x staged through perm, every
+    other shape the CUDA-core kernel. Counts the launch in
+    ``ternary_matmul_igathered.launches`` (the decode path also in
+    ``ternary_matmul_igathered.launches_dec``). CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, block_size, a8)
     if x.device.type != "cuda":
@@ -756,6 +844,9 @@ def ternary_matmul_igathered(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
+    if k3_path(B, n, block_size, a8) == "dec":
+        out = _ternary_matmul_igathered_dec(xk, perm, packed, alpha, mu, out, block_size, a8)
+        return out * sx if a8 else out
     rc = _kernel_lib().pt2_ternary_matmul_igathered(
         xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         out.data_ptr(), B, m, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
@@ -767,6 +858,7 @@ def ternary_matmul_igathered(
 
 
 ternary_matmul_igathered.launches = 0
+ternary_matmul_igathered.launches_dec = 0
 
 
 def ternary_matmul_gathered(

@@ -19,7 +19,9 @@ On CUDA a layer with an SSR gather runs, at decode-size row counts
 gather as the matmul's prologue), and otherwise the gather (K4 or K5) then
 K1, as the JAX package routes on the TPU under the same flags
 (:func:`linear_route`); the whole MLP runs as K2 where :func:`fused_mlp_ok`
-holds.
+holds. Which of its kernels K1 or K3 launches for the rows is its
+wrapper's choice by shape (``kernels.ternary.k1_path``): decode rows
+(<= 8) take the split-K tensor-core GEMV, K3's with x staged through perm.
 """
 
 from __future__ import annotations
@@ -185,7 +187,10 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     shapes the fused kernels take, runs K3 if :data:`IGATHER_FUSED`, else K6
     if :data:`FUSED_GATHER`; otherwise the gather kernel
     (:func:`gather_kernel`: K4 or K5) and then K1. A layer without a gather
-    runs K1 alone (a bare perm is the index form, not a kernel)."""
+    runs K1 alone (a bare perm is the index form, not a kernel). The names
+    are the wrappers'; which kernel a wrapper launches for ``rows`` (K1's
+    and K3's decode rows on the split-K tensor-core GEMV, other rows on
+    their other kernels) is its own choice by shape, ``k1_path``."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()

@@ -7,7 +7,11 @@ product is exact). K3's plain version against
 ``ternary_matmul_pallas_igathered`` in interpret mode: 1e-5 of max|ref|,
 f32 summation order only. The scales are drawn so that mu - alpha is exact
 in bf16 (the Pallas kernel rounds that difference to the scale type), so no
-other rounding separates the two.
+other rounding separates the two. The algorithm of K3's decode rows
+(``ternary_matmul_igathered_dec_plain``: the decode GEMV's summation order
+on x staged through perm) is held to the same 1e-5 against the Pallas
+kernel, and to 1e-6 against K3's plain version (f32 order only, outputs
+O(1)).
 """
 
 import jax
@@ -168,6 +172,103 @@ def test_igathered_plain_matches_pallas_stacked_interpret(a8):
     tp, ta, tm_, tperm = _t(packed), _t(alpha), _t(mu), _t(perms)
     got = tk.ternary_matmul_igathered_plain(_t(x), tperm[1], tp[1], ta[1], tm_[1], a8=a8).numpy()
     assert rel_err(got, want) <= REL
+
+
+# K3's decode rows (pt2_ternary_matmul_dec_igathered): K1's decode kernel
+# with x staged through perm. Its wave on an H100 SXM (4 CTAs on each of 132
+# SMs) sets its K slices; (m, K, n): a ragged perm with interleaved pad lanes
+# in one slice, and in slices of 3 + 2 blocks (640 lanes at 128 columns)
+H100_WAVE = 4 * 132
+DEC_GATHER_CASES = [(200, 256, 256), (600, 640, 128)]
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,K,n", DEC_GATHER_CASES)
+def test_igathered_dec_plain_matches_pallas_interpret(m, K, n, rows, a8):
+    assert tk.dec_splits(640, 128, 128, H100_WAVE) == 2  # 5 blocks: uneven slices
+    rng = np.random.default_rng(300 + rows + m + int(a8))
+    packed, alpha, mu = rand_layer(rng, K, n)
+    perm = ssr_perm(rng, m, K, interleave=True)
+    x = bf16_values(rng, (rows, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered(
+            jnp.asarray(x), jnp.asarray(perm), jnp.asarray(packed), alpha, mu,
+            tile_n=128, blocks_per_step=1, a8=a8,
+        ))
+    got = tk.ternary_matmul_igathered_dec_plain(
+        _t(x), _t(perm), _t(packed), _t(alpha), _t(mu), a8=a8, wave=H100_WAVE).numpy()
+    assert got.shape == want.shape == (rows, n)
+    assert rel_err(got, want) <= REL
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_igathered_dec_plain_matches_pallas_stacked_interpret(a8):
+    rng = np.random.default_rng(23 + int(a8))
+    rows, (m, K, n), L = 8, DEC_GATHER_CASES[1], 2
+    layers = [rand_layer(rng, K, n) for _ in range(L)]
+    packed = np.stack([l[0] for l in layers])
+    alpha = jnp.stack([l[1] for l in layers])
+    mu = jnp.stack([l[2] for l in layers])
+    perms = np.stack([ssr_perm(rng, m, K, interleave=True) for _ in range(L)])
+    x = bf16_values(rng, (rows, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered_stacked(
+            jnp.asarray(x), jnp.asarray(perms), jnp.asarray(packed), alpha, mu, 1,
+            tile_n=128, a8=a8,
+        ))
+    tp, ta, tm_, tperm = _t(packed), _t(alpha), _t(mu), _t(perms)
+    got = tk.ternary_matmul_igathered_dec_plain(_t(x), tperm[1], tp[1], ta[1], tm_[1], a8=a8,
+                                                wave=H100_WAVE).numpy()
+    assert rel_err(got, want) <= REL
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("m,K,n,bs", [(200, 256, 256, 128), (600, 640, 128, 128),
+                                      (1300, 1408, 256, 128), (1000, 1024, 256, 256)])
+def test_igathered_dec_plain_matches_igathered_plain(m, K, n, bs, rows, a8):
+    """The decode path's algorithm equals K3's plain version up to f32 order
+    (1e-6 of max|ref|), in one K slice, in slices of 3 + 2 and 4 + 4 + 3
+    blocks, at bs 256; an all-zero row (W2A8: sx at its floor) gives 0."""
+    rng = np.random.default_rng(1000 * rows + K + n + bs + int(a8))
+    packed, alpha, mu = rand_layer(rng, K, n, bs)
+    perm = ssr_perm(rng, m, K, interleave=m != 1000)
+    x = bf16_values(rng, (rows, m))
+    x[rows // 2] = 0.0
+    args = (_t(x), _t(perm), _t(packed), _t(alpha), _t(mu), bs, a8)
+    got = tk.ternary_matmul_igathered_dec_plain(*args, wave=H100_WAVE)
+    want = tk.ternary_matmul_igathered_plain(*args)
+    assert got.shape == (rows, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert float(got[rows // 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 16, 64])
+def test_k3_path(rows, a8):
+    """K3's rows take K1's decode kernel where K1's would: bf16 rows <=
+    K1_DEC_MAX_ROWS with scale blocks and out_features multiples of 128
+    (W2A8 only with K1_DEC_A8, off by default); rows 9-64 and other shapes
+    stay on the CUDA-core K3."""
+    assert tk.K1_DEC_MAX_ROWS == 8 and not tk.K1_DEC_A8
+    want = "dec" if rows <= 8 and not a8 else "cuda_core"
+    assert tk.k3_path(rows, 4096, 128, a8) == want
+    assert tk.k3_path(rows, 4096, 256, a8) == want
+    assert tk.k3_path(rows, 4096, 64, a8) == "cuda_core"
+    assert tk.k3_path(rows, 160, 128, a8) == "cuda_core"
+
+
+def test_k3_path_reads_the_decode_switches_at_each_call(monkeypatch):
+    monkeypatch.setattr(tk, "K1_DEC_A8", True)  # W2A8 decode rows too
+    for a8 in (False, True):
+        assert [tk.k3_path(r, 4096, 128, a8) for r in (1, 8, 9, 64)] == \
+            ["dec", "dec", "cuda_core", "cuda_core"]
+    monkeypatch.setattr(tk, "K1_DEC_MAX_ROWS", 0)  # chip_smoke's "off" turns
+    for a8 in (False, True):
+        assert [tk.k3_path(r, 4096, 128, a8) for r in (1, 4, 8)] == ["cuda_core"] * 3
+    monkeypatch.setattr(tk, "K1_DEC_MAX_ROWS", 4)
+    assert [tk.k3_path(r, 4096, 128, False) for r in (4, 5)] == ["dec", "cuda_core"]
 
 
 def test_ssr_linear_apply_on_cpu_matches_jax():

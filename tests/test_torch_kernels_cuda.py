@@ -1,6 +1,8 @@
 """K1-K7 on the card against their plain versions (K1 on its four
 kernels: the split-K tensor-core GEMV at decode rows, the bf16 and int8
-tensor cores at prefill rows, the CUDA cores for other shapes). Needs an
+tensor cores at prefill rows, the CUDA cores for other shapes; K3 on two:
+the same GEMV with x staged through perm at decode rows, the CUDA cores
+for other shapes). Needs an
 NVIDIA GPU; every test skips without one. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs as
@@ -614,6 +616,183 @@ def test_igathered_kernel_matches_plain(cuda_device, B, m, K, n, a8):
     assert tk.ternary_matmul_igathered.launches == before + 1
     want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, a8=a8)
     assert got.shape == want.shape and _rel(got, want) <= TOL
+
+
+# K3's decode rows (csrc/ternary_matmul_dec.cu's GATHER instances): rows 1-8
+# at the llama-3-8b K3 shapes (qkv, o, gateup), a ragged perm with
+# interleaved pad lanes in one K slice and one in uneven slices (5 blocks:
+# 3 + 2), bf16 and W2A8
+K3_DEC_SHAPES = {"8b qkv": (4096, 4096, 6144), "8b o": (4096, 4096, 4096),
+                 "8b gateup": (4096, 4096, 28672), "ragged": (200, 256, 256),
+                 "uneven": (600, 640, 128)}
+
+
+def _k3_counts():
+    return (tk.ternary_matmul_igathered.launches, tk.ternary_matmul_igathered.launches_dec,
+            tk.ternary_matmul.launches)
+
+
+def _k3_dec_held(x, perm, packed, alpha, mu, bs=128, a8=False):
+    """One K3 call that must take the decode path (W2A8 with K1_DEC_A8 set):
+    one launch, counted in launches and launches_dec, none of K1's; held to
+    TOL against both plain versions, and the same bits on a second call."""
+    with _dec_a8():
+        assert tk.k3_path(x.shape[0], packed.shape[1], bs, a8) == "dec"
+        before = _k3_counts()
+        got = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+        again = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k3_counts())) == (2, 2, 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, bs, a8)
+    algo = tk.ternary_matmul_igathered_dec_plain(x, perm, packed, alpha, mu, bs, a8,
+                                                 wave=tk.dec_wave(x.device))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL and _rel(got, algo) <= TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", sorted(K3_DEC_SHAPES))
+def test_k3_dec_path_matches_plain(cuda_device, shape, rows, a8):
+    m, K, n = K3_DEC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(7 * rows + m + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=m < K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    if shape == "uneven":
+        nb = K // 128
+        assert nb % -(-nb // tk.dec_splits(K, n, 128, tk.dec_wave(cuda_device))) != 0
+    _k3_dec_held(x, perm, packed, alpha, mu, a8=a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("bs", [128, 256])
+def test_k3_dec_path_on_stacked_views_zero_alpha_blocks_zero_row_and_ties(cuda_device, bs, a8):
+    g = torch.Generator(device=cuda_device).manual_seed(41 + bs + int(a8))
+    m, K, n, L = 2000, 2048, 1024, 3
+    layers = [_layer(g, cuda_device, K, n, bs) for _ in range(L)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    perms = torch.stack([_perm(g, cuda_device, m, K, interleave=True) for _ in range(L)])
+    x = _a8_rows_with_ties(g, cuda_device, 8, m)
+    for li in range(L):
+        got = _k3_dec_held(x, perms[li], packed[li], alpha[li], mu[li], bs, a8)
+        assert got[1].abs().max().item() == 0.0  # the all-zero row
+    p, a, mu0 = layers[0]
+    a, mu0 = a.clone(), mu0.clone()
+    a[::3] = 0
+    mu0[::6] = 0
+    _k3_dec_held(x, perms[0], p, a, mu0, bs, a8)
+    _k3_dec_held(x[:3], perms[0], p, a, mu0, bs, a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 64])
+def test_k3_rows_and_modes_pick_their_kernel(cuda_device, rows):
+    """bf16 decode rows on the decode path; W2A8 decode rows on the CUDA-core
+    K3 unless K1_DEC_A8 is set; rows 9-64 always on the CUDA-core K3."""
+    g = torch.Generator(device=cuda_device).manual_seed(42 + rows)
+    m, K, n = 4000, 4096, 4096
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    for a8, dec_a8 in ((False, False), (True, False), (True, True)):
+        saved = tk.K1_DEC_A8
+        tk.K1_DEC_A8 = dec_a8
+        try:
+            before = _k3_counts()
+            got = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8)
+        finally:
+            tk.K1_DEC_A8 = saved
+        torch.cuda.synchronize()
+        dec = rows <= 8 and (dec_a8 or not a8)
+        assert tuple(b - a for a, b in zip(before, _k3_counts())) == (1, int(dec), 0)
+        want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, a8=a8)
+        assert _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_k3_dec_refuses_graph_capture(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(43)
+    packed, alpha, mu = _layer(g, cuda_device, 1024, 256, 128)
+    perm = _perm(g, cuda_device, 1000, 1024)
+    x = torch.randn((8, 1000), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.ternary_matmul_igathered(x, perm, packed, alpha, mu)  # built outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k3_counts()
+    with pytest.raises(NotImplementedError, match="K3.*graph"):
+        with torch.cuda.graph(graph):
+            tk.ternary_matmul_igathered(x, perm, packed, alpha, mu)
+    assert _k3_counts() == before
+
+
+@pytest.mark.cuda
+def test_k3_dec_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A K3 decode launch that fails raises; neither the CUDA-core K3 nor a
+    plain version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_dec_igathered(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("the CUDA-core K3 was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(44)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    perm = _perm(g, cuda_device, 500, 512)
+    monkeypatch.setattr(tk, "_dec_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_kernel_lib", not_asked)
+    for a8 in (False, True):
+        x = torch.randn((8, 500), generator=g, device=cuda_device).bfloat16()
+        before = _k3_counts()
+        with _dec_a8(), pytest.raises(RuntimeError, match="K3 \\(decode"):
+            tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8)
+        assert _k3_counts() == before
+
+
+@pytest.mark.cuda
+def test_k3_dec_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    m, K, n = 1000, 1024, 256
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    # x 2 bytes past a 16-byte boundary: the gather reads single bf16 values
+    xc = torch.randn(8 * m + 1, generator=g, device=cuda_device).bfloat16()[1:].view(8, m)
+    assert xc.data_ptr() % 16 == 2
+    out = torch.empty((8, n), device=cuda_device)
+    partial = torch.empty((8, 8, n), device=cuda_device)
+    counters = torch.zeros(n // 128, dtype=torch.int32, device=cuda_device)
+    fn = tk._dec_kernel_lib().pt2_ternary_matmul_dec_igathered
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    ptrs = [t.data_ptr() for t in (xc, perm, packed, alpha, mu, partial, out, counters)]
+    for splits in (1, 2):  # 8 blocks: one slice of 8, two of 4
+        assert fn(*ptrs, 8, m, K, n, 128, splits, 0, dev, stream) == 0
+        torch.cuda.synchronize()
+        want = tk.ternary_matmul_igathered_plain(xc, perm, packed, alpha, mu)
+        assert _rel(out, want) <= TOL
+    assert not counters.any()
+    # rows past the N tile, no rows, no features, n % 128, bs 64, no slice,
+    # more slices than blocks, a slice left empty, a slice over 2048 lanes
+    for B, m_, K_, n_, bs, splits in ((9, m, K, n, 128, 2), (0, m, K, n, 128, 2),
+                                      (8, 0, K, n, 128, 2), (8, m, K, 224, 128, 2),
+                                      (8, m, K, n, 64, 2), (8, m, K, n, 128, 0),
+                                      (8, m, K, n, 128, 9), (8, m, K, n, 128, 7),
+                                      (8, m, 4096, n, 128, 1)):
+        assert fn(*ptrs, B, m_, K_, n_, bs, splits, 0, dev, stream) != 0
+    assert fn(ptrs[0], ptrs[1] + 4, *ptrs[2:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # perm
+    assert fn(ptrs[0] + 1, *ptrs[1:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # odd x
+    assert fn(ptrs[0], 0, *ptrs[2:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no perm
+    assert fn(*ptrs[:5], 0, *ptrs[6:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no scratch
+    assert fn(*ptrs[:7], 0, 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no counters
 
 
 def _mlp_layer(g, dev, Kg, I, n, L=None):
