@@ -153,6 +153,32 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      5); and times the decode path through its C entry at 1/2/4/8 rows
      beside the CUDA-core K3 at 1-64 rows, the plain version, dense
      torch.matmul on the gathered x and the bytes bound (13d, in phase 6).
+ 14. (K3's rows 9-64) holds K3's tensor-core path, a one-pass gather into
+     a fragment-order scratch then a split-K mma.sync product
+     (csrc/ternary_matmul_igathered_tc.cu's pt2_ternary_matmul_igathered_tc,
+     routed by k3_path for rows K1_TC_MIN_ROWS..64), against
+     ternary_matmul_igathered_plain and its own plain version
+     ternary_matmul_igathered_tc_plain at llama-3-8b qkv, o and gateup, a
+     ragged perm with interleaved pad lanes, K in uneven slices, rows
+     9/16/32/33/64, bf16 and W2A8, on packed[li] / perm[li] views at bs 128
+     and 256, with all-zero alpha blocks and an all-zero row, every call
+     twice for identical bits, exact launches / launches_tc counts, and its
+     gather alone bit-exact against igathered_tc_gather_plain (14a, after
+     13a; phase 2's 16-row K3 checks run it too, and 13a's CUDA-core K3
+     checks at 16 / 64 rows run with it off); drives the 32-layer llama-3-8b
+     "ssr" ServeEngine under the default flags (8 slots, max_len 2048, bf16
+     KV, quantum 1) with 16 greedy requests of 9-64 ids (buckets 16, 32 and
+     64), exact counts (per admission K3 2 x L on this path + K2 L; per
+     decode step K3 2 x L on the decode path + K2 L + K7 L; no CUDA-core K3,
+     no K1), every answer held to TOKEN_TOL, then an A/B over its first 8
+     requests in turns on, off, off, on ("off" rebinds K1_TC_MIN_ROWS to 65:
+     the admissions on the CUDA-core K3) with t_admit_s, tok/s, decode
+     tok/s and the profiled device time of one 64-row admission (14b, after
+     run E); and times the C entry and its
+     gather alone at qkv and o, 16/32/64 rows, bf16 and W2A8, beside the
+     CUDA-core K3, dense torch.matmul on the gathered x, K4 then K1's
+     tensor-core kernel, the plain version and the bytes bound (14c, in
+     phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -248,13 +274,28 @@ def card_peaks(name: str):
     fail(f"no data-sheet peaks for {name}")
 
 
+def kernel_rows(prof):
+    """(device ms, count, name) of each kernel in a torch.profiler run, most
+    time first (kernels only: CPU ops also carry the device time they
+    launched)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and dt > 0:
+            rows.append((dt / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     """Where one decode step's time goes (bf16, or W2A8 with impl "a8"): its
     wall time (unprofiled, host clock around a synchronised step) against the
     device time that torch.profiler attributes to kernels in a second,
     profiled step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pt2tpu_torch.serve.generate import forward_cached
@@ -274,14 +315,7 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             forward_cached(cfg, params, tok, cache, Lp + 2, impl)
             torch.cuda.synchronize()
-    rows = []  # kernels only: CPU ops also carry the device time they launched
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dt > 0:
-            rows.append((dt / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     device_ms = sum(r[0] for r in rows)
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy": device_ms / wall_ms if wall_ms else 0.0,
@@ -296,25 +330,47 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     return out
 
 
+def profile_engine_admission(eng, prompt, label):
+    """One engine admission of ``prompt`` alone (max_new 1: no decode step)
+    under torch.profiler, after an unprofiled one timed on the host clock:
+    its wall time, device time and the kernels that took it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.submit(prompt, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.submit(prompt, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    device_ms = sum(r[0] for r in rows)
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:6]]}
+    print(f"one engine admission of {len(prompt)} ids, {label}: wall {wall_ms:.2f} ms, device "
+          f"time {device_ms:.2f} ms (profiler)")
+    for t in out["top"]:
+        print(f"  {t['ms']:8.3f} ms  x{t['count']:4d}  {t['name']}")
+    if not rows:
+        print("  torch.profiler saw no device time")
+    return out
+
+
 def profile_engine_step(eng, label):
     """One engine decode step (quantum 1, every slot active) under
     torch.profiler: device time by kernel and K7's share of it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dt > 0:
-            rows.append((dt / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     device_ms = sum(r[0] for r in rows)
     k7_ms = sum(r[0] for r in rows if "decode_attention" in r[2])
     out = {"device_ms": device_ms, "k7_ms": k7_ms,
@@ -375,20 +431,23 @@ def main() -> None:
             w.launches = 0
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
         k1.ternary_matmul.launches_dec = k1.ternary_matmul_igathered.launches_dec = 0
+        k1.ternary_matmul_igathered.launches_tc = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
         and its decode launches (also in "ternary_matmul") apart as
         "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec";
-        K3's decode launches (also in "ternary_matmul_igathered") apart as
-        "ternary_matmul_igathered_dec"; K2's GeGLU launches and K7's at hd
+        K3's decode and tensor-core launches (also in
+        "ternary_matmul_igathered") apart as "ternary_matmul_igathered_dec"
+        and "ternary_matmul_igathered_tc"; K2's GeGLU launches and K7's at hd
         256 apart as "ternary_mlp_gelu" and "decode_attention_hd256"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
         c["ternary_matmul_dec"] = k1.ternary_matmul.launches_dec
         c["ternary_matmul_igathered_dec"] = k1.ternary_matmul_igathered.launches_dec
+        c["ternary_matmul_igathered_tc"] = k1.ternary_matmul_igathered.launches_tc
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         return c
@@ -403,7 +462,7 @@ def main() -> None:
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
-               "ternary_matmul_tc_a8", "ternary_matmul_dec"]
+               "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -462,6 +521,19 @@ def main() -> None:
             yield
         finally:
             k1.K1_DEC_MAX_ROWS, k1.K1_DEC_A8 = saved
+
+    @contextlib.contextmanager
+    def k3_tc(on):
+        """K3's rows 9-64 on its tensor-core path as routed (on), or on the
+        CUDA-core K3 (off: K1_TC_MIN_ROWS rebound to 65, which also sends
+        K1's rows 9-64 to its CUDA cores)."""
+        saved = k1.K1_TC_MIN_ROWS
+        if not on:
+            k1.K1_TC_MIN_ROWS = 65
+        try:
+            yield
+        finally:
+            k1.K1_TC_MIN_ROWS = saved
 
     # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err, its
     # decode kernel's in dec_err
@@ -754,24 +826,29 @@ def main() -> None:
     # call twice for identical bits; packed[li] / perm[li] views, all-zero
     # alpha blocks, an all-zero row and half-integer W2A8 rows; the CUDA-core
     # K3 at 16 / 64 rows, at W2A8 decode rows (K1_DEC_A8 off) and with the
-    # decode kernel off; launches and launches_dec exact on every call. Its
-    # own generator, as 1b's
+    # decode kernel off (and the tensor-core path off at 16 / 64 rows);
+    # launches, launches_dec and launches_tc exact on every call. Its own
+    # generator, as 1b's
     gk3 = torch.Generator(device=dev).manual_seed(13)
     k3dec_err, k3dec_algo_err, k3dec_checks, k3cc_err, k3cc_checks = 0.0, 0.0, 0, 0.0, 0
+    k3tc_err, k3tc_algo_err, k3tc_checks = 0.0, 0.0, 0
 
     def k3_counts():
         return (k1.ternary_matmul_igathered.launches, k1.ternary_matmul_igathered.launches_dec,
-                k1.ternary_matmul.launches)
+                k1.ternary_matmul_igathered.launches_tc, k1.ternary_matmul.launches)
 
     def k3_held(label, x, perm, packed, alpha, mu, path="dec", a8=False, bs=128):
-        """One K3 call (two on the decode path, which must give the same
-        bits) held against ternary_matmul_igathered_plain, the decode path
-        also against ternary_matmul_igathered_dec_plain; launches and
-        launches_dec must rise by exactly what ``path`` implies."""
+        """One K3 call (two on the decode and tensor-core paths, which must
+        give the same bits) held against ternary_matmul_igathered_plain, the
+        decode path also against ternary_matmul_igathered_dec_plain, the
+        tensor-core path against ternary_matmul_igathered_tc_plain;
+        launches, launches_dec and launches_tc must rise by exactly what
+        ``path`` implies."""
         nonlocal k3dec_err, k3dec_algo_err, k3dec_checks, k3cc_err, k3cc_checks
+        nonlocal k3tc_err, k3tc_algo_err, k3tc_checks
         if k1.k3_path(x.shape[0], packed.shape[1], bs, a8) != path:
             fail(f"K3 {label}: k3_path is not {path}")
-        calls = 2 if path == "dec" else 1
+        calls = 1 if path == "cuda_core" else 2
         c0 = k3_counts()
         got = k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
         again = (k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
@@ -779,9 +856,9 @@ def main() -> None:
         want = k1.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, bs, a8)
         torch.cuda.synchronize()
         rise = tuple(b - a for a, b in zip(c0, k3_counts()))
-        if rise != (calls, calls if path == "dec" else 0, 0):
-            fail(f"K3 {label}: launches / decode launches / K1 launches rose by {rise}, path "
-                 f"{path}")
+        if rise != (calls, calls if path == "dec" else 0, calls if path == "tc" else 0, 0):
+            fail(f"K3 {label}: launches / decode / tensor-core / K1 launches rose by {rise}, "
+                 f"path {path}")
         if not torch.equal(got, again):
             fail(f"K3 {label}: two calls differ in their bits")
         scale = want.abs().max().item()
@@ -796,18 +873,27 @@ def main() -> None:
                 fail(f"K3 {label}: max|err| {aerr:.3e} against the decode path's plain version")
             k3dec_err, k3dec_algo_err = max(k3dec_err, err), max(k3dec_algo_err, aerr)
             k3dec_checks += 1
+        elif path == "tc":
+            algo = k1.ternary_matmul_igathered_tc_plain(x, perm, packed, alpha, mu, bs, a8,
+                                                        wave=k1.igtc_wave(dev))
+            aerr = (got - algo).abs().max().item()
+            if not aerr <= KERNEL_TOL * scale:
+                fail(f"K3 {label}: max|err| {aerr:.3e} against the tensor-core path's plain "
+                     f"version")
+            k3tc_err, k3tc_algo_err = max(k3tc_err, err), max(k3tc_algo_err, aerr)
+            k3tc_checks += 1
         else:
             k3cc_err = max(k3cc_err, err)
             k3cc_checks += 1
         return got
 
-    def k3_rows(B, m):
+    def k3_rows(B, m, gen=gk3):
         """Random bf16 rows; from 4 rows on, row 1 all zero (W2A8: sx's
         floor), row 2 +-127 and half-integers, row 3 that times 0.25."""
-        x = torch.randn((B, m), generator=gk3, device=dev)
+        x = torch.randn((B, m), generator=gen, device=dev)
         if B >= 4:
             x[1] = 0
-            x[2] = torch.randint(-127, 127, (m,), generator=gk3, device=dev) + 0.5
+            x[2] = torch.randint(-127, 127, (m,), generator=gen, device=dev) + 0.5
             x[2, 5], x[2, 9] = 127.0, -127.0
             x[3] = 0.25 * x[2]
         return x.bfloat16()
@@ -851,15 +937,18 @@ def main() -> None:
             for a8 in (False, True):
                 k3_held(f"dec zero-alpha blocks rows={B} a8={a8}", x[:B], perms[0], packed, alpha,
                         mu, a8=a8)
-    # the CUDA-core K3: rows 16 / 64, W2A8 decode rows as routed (K1_DEC_A8
-    # off), and bf16 decode rows with the decode kernel off
+    # the CUDA-core K3: rows 16 / 64 with the tensor-core path off, W2A8
+    # decode rows as routed (K1_DEC_A8 off), and bf16 decode rows with the
+    # decode kernel off
     for name, m, K, n in SHAPES_8B:
         packed, alpha, mu = rand_layer(K, n, gen=gk3)
         perm = rand_perm(m, K, gen=gk3)
         for B in (16, 64):
             x = k3_rows(B, m)
             for a8 in (False, True):
-                k3_held(f"{name} rows={B} a8={a8}", x, perm, packed, alpha, mu, "cuda_core", a8)
+                with k3_tc(False):
+                    k3_held(f"{name} rows={B} a8={a8}", x, perm, packed, alpha, mu, "cuda_core",
+                            a8)
         x = k3_rows(4, m)
         k3_held(f"{name} rows=4 a8", x, perm, packed, alpha, mu, "cuda_core", True)
         with k1_dec(False):
@@ -872,14 +961,92 @@ def main() -> None:
           f"blocks), each called twice with identical bits, within {KERNEL_TOL} x max|ref| of "
           f"ternary_matmul_igathered_plain (max|err| {k3dec_err:.3e}) and of its own plain "
           f"version (max|err| {k3dec_algo_err:.3e}); CUDA-core K3: {k3cc_checks} checks (rows "
-          f"16/64, W2A8 rows 4, decode kernel off) max|err| {k3cc_err:.3e}; launches and "
-          f"launches_dec exact")
+          f"16/64 with the tensor-core path off, W2A8 rows 4, decode kernel off) max|err| "
+          f"{k3cc_err:.3e}; launches and launches_dec exact")
     del packed, alpha, mu, x, perm, perms, codes
+
+    stamp("14a")
+    # ---- 14a. K3's rows 9-64 on its tensor-core path (the one-pass gather,
+    # then the split-K mma.sync product) vs both plain versions: the
+    # llama-3-8b K3 shapes (qkv's 32 blocks in uneven slices of 7 x 4 + 4),
+    # a ragged perm with interleaved pad lanes, rows 9/16/32/33/64, bf16 and
+    # W2A8, each call twice for identical bits; packed[li] / perm[li] views
+    # at bs 128 and 256, all-zero alpha blocks, an all-zero row; launches
+    # and launches_tc exact; the gather alone bit-exact against its plain
+    # version. Its own generator
+    gk14 = torch.Generator(device=dev).manual_seed(14)
+    k3_uneven = 0
+    igtc_wave = k1.igtc_wave(dev)
+    for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 256)]:
+        packed, alpha, mu = rand_layer(K, n, gen=gk14)
+        perm = rand_perm(m, K, m < K, gen=gk14)
+        nb = K // 128
+        k3_uneven += nb % -(-nb // k1.igtc_splits(K, n, 128, igtc_wave)) != 0
+        for B in (9, 16, 32, 33, 64):
+            x = k3_rows(B, m, gk14)
+            for a8 in (False, True):
+                got = k3_held(f"tc {name} rows={B} a8={a8}", x, perm, packed, alpha, mu, "tc",
+                              a8)
+                if got[1].abs().max().item() != 0.0:
+                    fail(f"K3 tensor cores {name}: the all-zero row's output is not 0")
+    if k3_uneven < 1:
+        fail("K3 tensor cores: no shape with uneven K slices")
+    m, K, n = 4000, 4096, 4096
+    x = k3_rows(33, m, gk14)
+    for bs in (128, 256):
+        codes = torch.randint(-1, 2, (2, n, K), generator=gk14, device=dev, dtype=torch.int8)
+        packed = torch.stack([pack_ternary(c, bs) for c in codes])
+        alpha = ((0.8 + 0.4 * torch.rand((2, K // bs, n), generator=gk14, device=dev)) / 64
+                 ).bfloat16()
+        mu = (0.02 / 64 * torch.randn((2, K // bs, n), generator=gk14, device=dev)).bfloat16()
+        perms = torch.stack([rand_perm(m, K, True, gen=gk14) for _ in range(2)])
+        for li in (0, 1):
+            for a8 in (False, True):
+                k3_held(f"tc packed[{li}] bs {bs} a8={a8}", x, perms[li], packed[li], alpha[li],
+                        mu[li], "tc", a8, bs)
+    packed, alpha, mu = rand_layer(K, n, gen=gk14)
+    alpha[::3] = 0
+    mu[::6] = 0
+    for B in (9, 33):
+        for a8 in (False, True):
+            k3_held(f"tc zero-alpha blocks rows={B} a8={a8}", x[:B], perms[0], packed, alpha, mu,
+                    "tc", a8)
+    # the gather alone: the fragment-order scratch bit for bit, its block sums
+    igtc_lib = k1._igtc_kernel_lib()
+    gather_checks = 0
+    for B in (9, 32, 64):
+        x = k3_rows(B, m, gk14)
+        for a8 in (False, True):
+            xk = k1.normalize_rows_a8(x)[0].contiguous() if a8 else x
+            Bp = k1.igtc_rows_pad(B)
+            xg = torch.empty((Bp, K), dtype=torch.bfloat16, device=dev)
+            S = torch.empty((K // 128, Bp), dtype=torch.float32, device=dev)
+            rc = igtc_lib.pt2_ternary_matmul_igathered_tc_gather(
+                xk.data_ptr(), perms[1].data_ptr(), xg.data_ptr(), S.data_ptr(), B, Bp, m, K, 128,
+                int(a8), dev.index or 0, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            want_xg, want_S = k1.igathered_tc_gather_plain(xk, perms[1], 128, a8)
+            if rc != 0 or not torch.equal(xg, want_xg) or \
+                    not (S - want_S).abs().max().item() <= KERNEL_TOL * want_S.abs().max().item():
+                fail(f"K3 tensor cores: the gather alone (rc {rc}) at {B} rows a8={a8} differs "
+                     f"from igathered_tc_gather_plain")
+            gather_checks += 1
+    record["k3_tc_checks"] = k3tc_checks
+    record["k3_tc_max_abs_err"] = k3tc_err
+    record["k3_tc_max_abs_err_vs_tc_plain"] = k3tc_algo_err
+    print(f"K3 tensor-core path vs plain: {k3tc_checks} checks (4 shapes x rows 9/16/32/33/64 x "
+          f"bf16/a8, {k3_uneven} with uneven K slices, + stacked views at bs 128 and 256 + "
+          f"zero-alpha blocks), each called twice with identical bits, within {KERNEL_TOL} x "
+          f"max|ref| of ternary_matmul_igathered_plain (max|err| {k3tc_err:.3e}) and of its own "
+          f"plain version (max|err| {k3tc_algo_err:.3e}); launches and launches_tc exact; the "
+          f"gather alone bit-exact in {gather_checks} checks")
+    del packed, alpha, mu, x, perms, codes, xg, S
 
     stamp("2")
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0,
-            "ternary_matmul_igathered_dec": 0.0, "ternary_mlp": 0.0}
+            "ternary_matmul_igathered_dec": 0.0, "ternary_matmul_igathered_tc": 0.0,
+            "ternary_mlp": 0.0}
     nchecks = dict.fromkeys(errs, 0)
 
     def held(kernel, label, got, want, tol):
@@ -902,9 +1069,10 @@ def main() -> None:
             held("onehot_gather", f"K4 m={m} K={K} rows={B}", k4.onehot_gather(x, perm),
                  k4.onehot_gather_plain(x, perm), 0.0)
     # K3's checks under the name of the path its rows take (decode path:
-    # "ternary_matmul_igathered_dec")
-    k3_name = lambda B, n, a8: "ternary_matmul_igathered" + (  # noqa: E731
-        "_dec" if k1.k3_path(B, n, 128, a8) == "dec" else "")
+    # "ternary_matmul_igathered_dec", tensor-core path:
+    # "ternary_matmul_igathered_tc", CUDA-core K3: "ternary_matmul_igathered")
+    k3_name = lambda B, n, a8: "ternary_matmul_igathered" + {  # noqa: E731
+        "dec": "_dec", "tc": "_tc", "cuda_core": ""}[k1.k3_path(B, n, 128, a8)]
     for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 256)]:
         packed, alpha, mu = rand_layer(K, n)
         perm = rand_perm(m, K, name == "ragged")
@@ -978,10 +1146,12 @@ def main() -> None:
     record["new_kernel_checks"] = nchecks
     record["new_kernel_max_abs_err"] = errs
     print(f"K4 vs plain: {nchecks['onehot_gather']} checks bit-exact; K3 vs plain: "
-          f"{nchecks['ternary_matmul_igathered']} checks on the CUDA-core K3 (W2A8, 16 rows; "
-          f"max|err| {errs['ternary_matmul_igathered']:.3e}) and "
+          f"{nchecks['ternary_matmul_igathered']} checks on the CUDA-core K3 (W2A8 rows <= 4; "
+          f"max|err| {errs['ternary_matmul_igathered']:.3e}), "
           f"{nchecks['ternary_matmul_igathered_dec']} on its decode path (bf16 rows <= 4; max|err| "
-          f"{errs['ternary_matmul_igathered_dec']:.3e}) within {KERNEL_TOL} x max|ref|; K2 vs "
+          f"{errs['ternary_matmul_igathered_dec']:.3e}) and "
+          f"{nchecks['ternary_matmul_igathered_tc']} on its tensor-core path (16 rows; max|err| "
+          f"{errs['ternary_matmul_igathered_tc']:.3e}) within {KERNEL_TOL} x max|ref|; K2 vs "
           f"plain: {nchecks['ternary_mlp']} checks within {MLP_TOL} x max|ref| (max|err| "
           f"{errs['ternary_mlp']:.3e}); K2 GeGLU at "
           f"gemma-2b: {nchecks['ternary_mlp_gelu']} checks (max|err| "
@@ -1572,9 +1742,11 @@ def main() -> None:
     record["main_path_8b_ssr"] = runs
     for k in ("ternary_matmul_igathered", "ternary_mlp", "onehot_gather"):
         main_launches[k] = sum(r["launches"][k] for r in runs.values())
-    # the CUDA-core K3's own: its decode path's launches are counted apart
+    # the CUDA-core K3's own: its decode and tensor-core paths' launches are
+    # counted apart
     main_launches["ternary_matmul_igathered"] -= sum(
-        r["launches"]["ternary_matmul_igathered_dec"] for r in runs.values())
+        r["launches"][k] for r in runs.values()
+        for k in ("ternary_matmul_igathered_dec", "ternary_matmul_igathered_tc"))
     record["decode_step_8b_ssr"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                        "llama-3-8b ssr")
 
@@ -1730,6 +1902,90 @@ def main() -> None:
           f"{record['engine_ssr_p2']['decode_tok_s']:.1f} tok/s; t_admit_s "
           f"{e_stats['t_admit_s']:.2f} s), {st} decode steps, launches {got}; every pick within "
           f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
+
+    stamp("14b")
+    # ---- 14b. "engine ssr default": the same 32-layer "ssr" model under the
+    # default flags, 8 slots, max_len 2048, bf16 KV, quantum 1, 16 greedy
+    # requests of 9-64 ids (buckets 16, 32 and 64 each at least once), 16-32
+    # new tokens. Every admission (<= 64 rows): K3 x2 (qkv, o) on its
+    # tensor-core path + K2 per layer; every decode step (8 rows): K3 x2 on
+    # its decode path + K2 + K7 per layer; no CUDA-core K3, no K1. Every
+    # answer held to TOKEN_TOL. Then an A/B in turns on, off, off, on ("off":
+    # k3_tc(False), the admissions' K3 on the CUDA cores) over the first 8
+    # requests (one admission wave, every bucket), counts exact, each turn's
+    # streams compared with the main run's, one 64-row admission profiled
+    gh14 = torch.Generator().manual_seed(14)  # host-side lengths of this run
+    d_lens = [9, 16, 17, 32, 33, 64] + torch.randint(9, 65, (10,), generator=gh14).tolist()
+    d_news = torch.randint(16, 33, (16,), generator=gh14).tolist()
+    d_prompts = make_prompts(cfg, d_lens, gk14)
+    for lens in (d_lens, d_lens[:8]):
+        buckets = sorted({min(_bucket(n), ENGINE_M) for n in lens})
+        if buckets != [16, 32, 64]:
+            fail(f"engine ssr default: prompt buckets {buckets}")
+
+    def run_default(label, prompts_, news_, on):
+        """One engine run with K3's admission rows on its tensor cores (on) or
+        its CUDA cores, counts exact; (result, answers)."""
+        with k3_tc(on):
+            eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
+            reqs = [eng.submit(p_, m_) for p_, m_ in zip(prompts_, news_)]
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st, n_adm = eng.stats["steps"], len(prompts_)
+            want = dict(none, ternary_matmul_igathered=2 * L * (st + n_adm),
+                        ternary_matmul_igathered_dec=2 * L * st,
+                        ternary_matmul_igathered_tc=2 * L * n_adm if on else 0,
+                        ternary_mlp=L * (st + n_adm), decode_attention=L * st)
+            got = counts()
+            if got != want:
+                fail(f"{label}: launches {got}, want {want}")
+            tally(got)
+            if not all(r.done and len(r.out) == m_ and all(0 <= t < cfg.vocab_size for t in r.out)
+                       for r, m_ in zip(reqs, news_)):
+                fail(f"{label}: a request did not finish with max_new valid tokens")
+            e_stats = dict(eng.stats)
+            prof = profile_engine_admission(eng, d_prompts[5], f"llama-3-8b ssr, K3's admission "
+                                            f"rows on the {'tensor cores' if on else 'CUDA cores'}")
+        outs_ = [r.out for r in reqs]
+        n_tok = sum(len(o_) for o_ in outs_)
+        return {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+                "decode_tok_s": e_stats["tokens"] / e_stats["t_decode_s"], "steps": st,
+                "t_admit_s": e_stats["t_admit_s"], "t_decode_s": e_stats["t_decode_s"],
+                "launches": got, "admission_64_wall_ms": prof["wall_ms"],
+                "admission_64_device_ms": prof["device_ms"], "admission_64_top": prof["top"]}, outs_
+
+    d_main, d_outs = run_default("engine ssr default", d_prompts, d_news, True)
+    d_main["worst_pick_gap"], _ = answers_held("engine ssr default answers", d_prompts, d_outs,
+                                               False)
+    print(f"engine ssr default (llama-3-8b, 32 layers, bf16 KV, quantum 1): 16 requests of 9-64 "
+          f"ids, {d_main['tokens']} tokens in {d_main['wall_s']:.2f} s ({d_main['tok_s']:.1f} "
+          f"tok/s; decode {d_main['decode_tok_s']:.1f} tok/s; t_admit_s "
+          f"{d_main['t_admit_s']:.3f} s), {d_main['steps']} decode steps, launches "
+          f"{d_main['launches']}; every pick within {d_main['worst_pick_gap']:.2e} of the "
+          f"teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
+    d_ab = {"tc": [], "cuda_core": []}
+    for on in DEC_AB:
+        res, outs_ = run_default(f"engine ssr default A/B tc={on}", d_prompts[:8], d_news[:8], on)
+        res["streams_equal_to_main_run"] = sum(a == b for a, b in zip(outs_, d_outs))
+        if not on and not d_ab["cuda_core"] and res["streams_equal_to_main_run"] < 8:
+            res["worst_pick_gap"], _ = answers_held(  # the CUDA-core route's answers, measured
+                "engine ssr default answers, K3 admissions on the CUDA cores", d_prompts[:8],
+                outs_, False, hold=False)
+        d_ab["tc" if on else "cuda_core"].append(res)
+    record["engine_ssr_default"] = {"main": d_main, "ab": d_ab}
+    for k, v in d_ab.items():
+        each = lambda key: " / ".join(f"{r[key]:.3f}" for r in v)  # noqa: E731
+        print(f"engine ssr default A/B, 8 requests of 9-64 ids, K3's admission rows on "
+              f"{'the tensor cores' if k == 'tc' else 'the CUDA cores'}: t_admit_s "
+              f"{each('t_admit_s')} s, {each('tok_s')} tok/s, decode {each('decode_tok_s')} tok/s, "
+              f"one 64-row admission {each('admission_64_device_ms')} ms of device time (wall "
+              f"{each('admission_64_wall_ms')} ms); streams equal to the main run's "
+              f"{[r['streams_equal_to_main_run'] for r in v]}; worst pick gap (measured) "
+              f"{[r['worst_pick_gap'] for r in v if 'worst_pick_gap' in r]} on {record['smi']}")
     del params, eng, reqs
     torch.cuda.empty_cache()
 
@@ -2511,6 +2767,110 @@ def main() -> None:
               f"{tot(k3_detail, 'library_ms'):6.1f} us | bound {tot(k3_detail, 'bound_ms'):5.2f} "
               f"us on {record['smi']}")
 
+    # 14c. K3's tensor-core path through its C entry (the gather, then the
+    # split-K product, scratch allocated outside the loop) at llama-3-8b qkv
+    # and o, 16 / 32 / 64 rows, bf16 and W2A8; its gather alone; beside it
+    # the CUDA-core K3 (the "off" turns' route), dense torch.matmul on the
+    # gathered x (library), K4 then K1's tensor-core kernel (bf16: the
+    # composition a route without K3 would take), the plain version and the
+    # bytes bound, in turns tc, CUDA cores, K4 + K1, tc; then the path's two
+    # kernels' device time under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    igtc_counters = torch.zeros(1024, dtype=torch.int32, device=dev)
+    k3tc_detail = []
+    for name, m, K, n in SHAPES_8B:
+        wbytes = K * n // 4 + 4 * (K // 128) * n
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        layers = [rand_layer(K, n, gen=gk14) + (rand_perm(m, K, gen=gk14),)
+                  for _ in range(copies)]
+        dn = dense(K, n, gk14)
+        splits = k1.igtc_splits(K, n, 128, k1.igtc_wave(dev))
+        for B in (16, 32, 64):
+            Bp = k1.igtc_rows_pad(B)
+            x = torch.randn((B, m), generator=gk14, device=dev).bfloat16()
+            xg = torch.empty((Bp, K), dtype=torch.bfloat16, device=dev)
+            S = torch.empty((K // 128, Bp), dtype=torch.float32, device=dev)
+            partial = torch.empty((splits, B, n), dtype=torch.float32, device=dev)
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+            xk4 = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+            sums = torch.empty((K // 128, 128), dtype=torch.float32, device=dev)
+            for a8 in (False, True):
+                xk = k1.normalize_rows_a8(x)[0].contiguous() if a8 else x
+
+                def kern_tc(i):
+                    p, a, mu_, pm = layers[i % copies]
+                    ok(igtc_lib.pt2_ternary_matmul_igathered_tc(
+                        xk.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        xg.data_ptr(), S.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                        igtc_counters.data_ptr(), B, m, K, n, 128, splits, int(a8), dix, stream),
+                       "K3 tc")
+
+                def kern_gather(i):
+                    ok(igtc_lib.pt2_ternary_matmul_igathered_tc_gather(
+                        xk.data_ptr(), layers[i % copies][3].data_ptr(), xg.data_ptr(),
+                        S.data_ptr(), B, Bp, m, K, 128, int(a8), dix, stream), "K3 tc gather")
+
+                def kern_cc(i):
+                    p, a, mu_, pm = layers[i % copies]
+                    ok(lib.pt2_ternary_matmul_igathered(
+                        xk.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        out.data_ptr(), B, m, K, n, 128, int(a8), dix, stream), "K3")
+
+                def kern_k4_k1(i):
+                    p, a, mu_, pm = layers[i % copies]
+                    ok(gather_lib.pt2_onehot_gather(x.data_ptr(), pm.data_ptr(), xk4.data_ptr(),
+                                                    B, m, K, 2, dix, stream), "K4")
+                    ok(tc_lib.pt2_ternary_matmul_tc(
+                        xk4.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        sums.data_ptr(), out.data_ptr(), B, sums.shape[1], K, n, 128, dix,
+                        stream), "K1 tc")
+
+                turns = [time_ms(kern_tc, 50), time_ms(kern_cc, 20)]
+                comp_ms = None if a8 else time_ms(kern_k4_k1, 50)
+                turns.append(time_ms(kern_tc, 50))
+                gather_ms = time_ms(kern_gather, 50)
+                plain_ms = time_ms(lambda i: k1.ternary_matmul_igathered_plain(
+                    x, layers[i % copies][3], *layers[i % copies][:3], 128, a8), 5)
+                xgd = k4.onehot_gather_plain(x, layers[0][3])
+                lib_ms = time_ms(lambda i: torch.matmul(xgd, dn[i % len(dn)]), 50)
+                nbytes = K * n / 4 + 4 * (K // 128) * n + 2 * B * m + 4 * K + 4 * B * n
+                d = row("K3tc", name, B, min(turns[0], turns[2]), plain_ms, lib_ms, nbytes,
+                        2.0 * B * K * n, m=m, K=K, n=n, a8=a8, splits=splits)
+                # the device's own time per launch of each of the path's
+                # kernels, without the host's launch rate (20 calls under
+                # torch.profiler; the mean over the launches it recorded)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for i in range(20):
+                        kern_tc(i)
+                    torch.cuda.synchronize()
+                krows = kernel_rows(prof)
+
+                def per_launch(key):
+                    hit = [r for r in krows if key in r[2]]
+                    return sum(r[0] for r in hit) / max(1, sum(r[1] for r in hit))
+
+                d.update(turns_ms=[turns[0], turns[2]], gather_ms=gather_ms, cuda_core_ms=turns[1],
+                         k4_k1_tc_ms=comp_ms, gather_device_ms=per_launch("gather_rows"),
+                         product_device_ms=per_launch("igathered_tc"))
+                k3tc_detail.append(d)
+        del layers, dn
+    if igtc_counters.any():
+        fail("K3's tensor-core path left a column tile's counter set")
+    record["k3_tc_timing"] = k3tc_detail
+    for a8 in (False, True):
+        for B in (16, 32, 64):
+            at = [d for d in k3tc_detail if d["B"] == B and d["a8"] == a8]
+            tot = lambda key: sum(d[key] for d in at) * 1e3  # noqa: E731
+            comp = "" if a8 else f"K4 + K1 tc {tot('k4_k1_tc_ms'):6.1f} us | "
+            print(f"K3 tensor-core path, llama-3-8b qkv + o at {B:2d} rows, "
+                  f"{'W2A8' if a8 else 'bf16'}: {tot('ms'):6.1f} us (its gather alone "
+                  f"{tot('gather_ms'):5.1f} us; device time by the profiler: gather "
+                  f"{tot('gather_device_ms'):5.1f} us + product {tot('product_device_ms'):5.1f} "
+                  f"us) | CUDA-core K3 {tot('cuda_core_ms'):7.1f} us | "
+                  f"{comp}torch.matmul on gathered x {tot('library_ms'):5.1f} us | plain "
+                  f"{tot('plain_ms'):8.1f} us | bound {tot('bound_ms'):5.2f} us on {record['smi']}")
+
     # K2 at llama-3-8b (gather over 4096 lanes); library: the two dense bf16
     # matmuls x @ W_gateup and mid @ W_down (a yardstick: no single call exists)
     D, I, n = MLP_8B
@@ -2818,7 +3178,8 @@ def main() -> None:
     # kernel and its CUDA-core kernel (which decode rows take with the
     # decode kernel off) at B = 1, 4 projections; their launches: every
     # 32-layer run counted exactly;
-    # K3 / K2 at B = 1 decode; K4 and K5 at the 512-row prefill, 3
+    # K3 / K2 at B = 1 decode (K3's tensor-core path at B = 16, the
+    # engine's smallest admission bucket); K4 and K5 at the 512-row prefill, 3
     # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
     # M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
@@ -2879,6 +3240,14 @@ def main() -> None:
               [d for d in record["k7_gemma_timing"] if d["shape"] == "bf16"],
               errs["decode_attention_hd256"]),
     ]
+    # K3's tensor-core path at B = 16 (the engine's smallest admission
+    # bucket), bf16, qkv + o; its launches: every engine run counted exactly
+    main_launches["ternary_matmul_igathered_tc"] = run_totals["ternary_matmul_igathered_tc"]
+    kernels.append(entry("ternary_matmul_igathered_tc",
+                         "pt2tpu_torch/csrc/ternary_matmul_igathered_tc.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:735",
+                         [d for d in k3tc_detail if d["B"] == 16 and not d["a8"]],
+                         max(k3tc_err, errs["ternary_matmul_igathered_tc"])))
     # K3's decode path at B = 1, qkv + o; its launches: every 32-layer run
     # counted exactly
     main_launches["ternary_matmul_igathered_dec"] = run_totals["ternary_matmul_igathered_dec"]

@@ -10,10 +10,13 @@
     (``csrc/ternary_matmul_tc_a8.cu``) for W2A8 rows >= :data:`K1_TC_MIN_ROWS`;
     the CUDA cores (``csrc/ternary_matmul.cu``) for every other shape.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
-    (replaces ``ternary_matmul_pallas_igathered``), on two paths chosen by
+    (replaces ``ternary_matmul_pallas_igathered``), on three paths chosen by
     shape (:func:`k3_path`): K1's decode kernel with x staged through perm
-    (``csrc/ternary_matmul_dec.cu``) where :func:`k1_path` says "dec", the
-    CUDA-core kernel (``csrc/ternary_matmul.cu``) for every other shape.
+    (``csrc/ternary_matmul_dec.cu``) where :func:`k1_path` says "dec"; a
+    one-pass gather then a split-K tensor-core product
+    (``csrc/ternary_matmul_igathered_tc.cu``) for rows
+    :data:`K1_TC_MIN_ROWS` .. :data:`FUSED_MAX_ROWS`; the CUDA-core kernel
+    (``csrc/ternary_matmul.cu``) for every other shape.
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
     the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
     ``ternary_matmul_pallas_gathered``).
@@ -46,9 +49,11 @@ __all__ = [
     "K1_TC_MIN_ROWS",
     "K1_DEC_MAX_ROWS",
     "K1_DEC_A8",
+    "FUSED_MAX_ROWS",
     "k1_path",
     "k3_path",
     "dec_splits",
+    "igtc_splits",
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
@@ -56,6 +61,8 @@ __all__ = [
     "ternary_matmul_lanes_plain",
     "ternary_matmul_dec_plain",
     "ternary_matmul_igathered_dec_plain",
+    "igathered_tc_gather_plain",
+    "ternary_matmul_igathered_tc_plain",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
@@ -280,9 +287,18 @@ def ternary_mlp_plain(
 
 K1_TC_MIN_ROWS = 9
 """The fewest rows K1 runs on its prefill tensor-core kernels, bf16 and
-W2A8 alike. Decode rows (<= :data:`K1_DEC_MAX_ROWS`: the engine's 8 slots,
+W2A8 alike, and K3 on its tensor-core path (up to :data:`FUSED_MAX_ROWS`
+rows). Decode rows (<= :data:`K1_DEC_MAX_ROWS`: the engine's 8 slots,
 lockstep batches) run the decode kernel, whose tiles are made for them, in
-bf16 (and in W2A8 with :data:`K1_DEC_A8`). Read at each call."""
+bf16 (and in W2A8 with :data:`K1_DEC_A8`). Rebound above 64,
+it sends K3's rows 9-64 to the CUDA-core K3 (``chip_smoke.py``'s "off"
+turns). Read at each call."""
+
+FUSED_MAX_ROWS = 64
+"""The most rows for which the SSR gather runs fused into the matmul (K3,
+or K6 under the JAX flags: ``ops.ternary_matmul.linear_route``), and the
+most K3's tensor-core path takes; more rows gather first (K4 or K5), then
+run K1."""
 
 K1_DEC_MAX_ROWS = 8
 """The most rows K1 and K3 run on the decode kernel
@@ -328,9 +344,18 @@ def k1_path(rows: int, n: int, block_size: int, a8: bool) -> str:
 def k3_path(rows: int, n: int, block_size: int, a8: bool) -> str:
     """Which of K3's kernels :func:`ternary_matmul_igathered` launches on
     CUDA: "dec" (``pt2_ternary_matmul_dec_igathered``, K1's decode kernel
-    with x staged through perm) where :func:`k1_path` says "dec", else
-    "cuda_core" (``pt2_ternary_matmul_igathered``)."""
-    return "dec" if k1_path(rows, n, block_size, a8) == "dec" else "cuda_core"
+    with x staged through perm) where :func:`k1_path` says "dec"; "tc"
+    (``pt2_ternary_matmul_igathered_tc``, a one-pass gather then a split-K
+    tensor-core product) for K1_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS with
+    scale blocks and out_features that are multiples of 128, bf16 and W2A8;
+    else "cuda_core" (``pt2_ternary_matmul_igathered``: more rows on a
+    direct call, other shapes, W2A8 decode rows while K1_DEC_A8 is off)."""
+    if k1_path(rows, n, block_size, a8) == "dec":
+        return "dec"
+    if (K1_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS and block_size % 128 == 0
+            and n % 128 == 0):
+        return "tc"
+    return "cuda_core"
 
 
 def dec_wave(device) -> int:
@@ -351,6 +376,34 @@ def dec_splits(K: int, n: int, block_size: int, wave: int) -> int:
     bpc = max(-(-nb // most), DEC_WARPS)
     bpc = min(bpc, DEC_SLICE_LANES // block_size, nb)
     return -(-nb // bpc)
+
+
+IGTC_CTAS_PER_SM = 2  # K3's tensor-core product: resident CTAs per SM (128 registers, 8 warps)
+
+
+def igtc_wave(device) -> int:
+    """K3's tensor-core product's CTAs in one wave on a CUDA ``device``:
+    IGTC_CTAS_PER_SM on each of its SMs (264 on an H100 SXM's 132)."""
+    return IGTC_CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def igtc_splits(K: int, n: int, block_size: int, wave: int) -> int:
+    """K3's tensor-core product's K slices for a (K, n) projection: as many
+    as keep its CTAs (n / 128 per slice) within one ``wave``
+    (:func:`igtc_wave`). The kernel streams each slice through a ring, so
+    no slice is too long for shared memory. It cuts K into slices of
+    ceil(nb / splits) blocks; the last may be shorter, none is empty."""
+    nb = K // block_size
+    most = max(1, wave // (n // 128))
+    bpc = -(-nb // most)
+    return -(-nb // bpc)
+
+
+def igtc_rows_pad(rows: int) -> int:
+    """The rows of K3's tensor-core path's gather scratch for ``rows`` (9 to
+    64) rows: its product's n8 row tiles, 2, 4 or 8 of them; pad rows are
+    zero."""
+    return 16 if rows <= 16 else 32 if rows <= 32 else 64
 
 
 def _bf16(bits: int) -> float:
@@ -491,8 +544,79 @@ def _dec_plain(xk, packed, alpha, mu, block_size, wave):
     return out[:B]
 
 
+def igathered_tc_gather_plain(
+    xk: torch.Tensor,  # (B, m) bf16 rows in feature order (W2A8: normalised)
+    perm: torch.Tensor,  # (K,) visit lane -> feature; pad lanes -> m
+    block_size: int = 128,
+    a8: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather of K3's tensor-core path (its C entry
+    ``pt2_ternary_matmul_igathered_tc_gather``): (xg, S). xg (Bp, K) bf16,
+    Bp = :func:`igtc_rows_pad` (B), rows >= B zero, holds x[:, perm] (0 for
+    a pad lane; W2A8: rounded half to even and clipped to +-127, exact in
+    bf16) in fragment order: within a scale block, position 8h + 2p + i
+    holds lane p*bs/4 + 2h + i. S (nb, Bp) f32 holds each block's sum of
+    the gathered values (the kernel adds them in another order: f32
+    rounding only; exact in W2A8)."""
+    B = xk.shape[0]
+    K, bs = perm.shape[0], block_size
+    nb, Bp = K // bs, igtc_rows_pad(B)
+    xl = onehot_gather_plain(xk.to(torch.bfloat16), perm)
+    if a8:
+        xl = torch.clamp(torch.round(xl.float()), -127, 127).to(torch.bfloat16)
+    xg = torch.zeros((Bp, K), dtype=torch.bfloat16, device=xk.device)
+    xg[:B] = xl.reshape(B, nb, 4, bs // 8, 2).permute(0, 1, 3, 2, 4).reshape(B, K)
+    S = torch.zeros((nb, Bp), dtype=torch.float32, device=xk.device)
+    S[:, :B] = xl.float().reshape(B, nb, bs).sum(dim=2).T
+    return xg, S
+
+
+def ternary_matmul_igathered_tc_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    perm: torch.Tensor,  # (K,) visit lane -> feature; pad lanes -> m
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K3's tensor-core path (its C entry
+    ``pt2_ternary_matmul_igathered_tc``) in f32: the gather of
+    :func:`igathered_tc_gather_plain` on bf16 x
+    (W2A8: the normalised rows, rounded there), read back from its fragment
+    order; per scale block the f32 products d = xg_blk @ T_blk; per
+    :func:`igtc_splits` slice of ``wave``, acc += alpha * d then acc += mu *
+    S block by block in order; the slices summed in slice order. W2A8
+    multiplies by sx last, as the wrapper does. Returns (B, n) f32."""
+    B = x.shape[0]
+    if a8:
+        xk, sx = normalize_rows_a8(x)
+    else:
+        xk = x.to(torch.bfloat16)
+    xg, S = igathered_tc_gather_plain(xk, perm, block_size, a8)
+    Bp, K = xg.shape
+    n, bs = packed.shape[1], block_size
+    nb = K // bs
+    xl = xg.float().reshape(Bp, nb, bs // 8, 4, 2).permute(0, 1, 3, 2, 4).reshape(Bp, nb, bs)
+    T = unpack_ternary(packed, bs).float().reshape(nb, bs, n)
+    d = torch.einsum("bkc,kcn->kbn", xl, T)  # (nb, Bp, n): each block's products
+    splits = igtc_splits(K, n, bs, wave)
+    bpc = -(-nb // splits)
+    total = None
+    for sp in range(splits):
+        acc = torch.zeros((Bp, n), dtype=torch.float32, device=x.device)
+        for blk in range(sp * bpc, min(nb, (sp + 1) * bpc)):
+            acc = acc + alpha[blk].float() * d[blk]
+            acc = acc + mu[blk].float() * S[blk][:, None]
+        total = acc if total is None else total + acc
+    return total[:B] * sx if a8 else total[:B]
+
+
 _lib = None
 _dec_lib = None
+_igtc_lib = None
 _tc_lib = None
 _tc_a8_lib = None
 _mlp_lib = None
@@ -525,6 +649,20 @@ def _dec_kernel_lib():
         fn.restype = ctypes.c_int
         _dec_lib = lib
     return _dec_lib
+
+
+def _igtc_kernel_lib():
+    global _igtc_lib
+    if _igtc_lib is None:
+        lib = _build.load("ternary_matmul_igathered_tc")
+        fn = lib.pt2_ternary_matmul_igathered_tc
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_igathered_tc_gather
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _igtc_lib = lib
+    return _igtc_lib
 
 
 def _tc_kernel_lib():
@@ -674,18 +812,27 @@ ternary_matmul.launches_tc_a8 = 0
 
 
 _dec_counters: dict = {}
-_dec_waves: dict = {}
+_sm_counts: dict = {}
 
 
-def _dec_counter_buffer(device, stream, tiles, kernel="K1"):
-    """The decode kernel's per-column-tile counters for launches on
-    ``stream`` (K1's and K3's decode rows share them): int32 zeros, kept
-    between calls (each launch leaves them 0), grown on demand. Each stream
-    has its own, so the launches that share a buffer are ordered by their
-    stream and never overlap. A CUDA graph capture is refused: its replays
-    could overlap with the launches of the stream it was captured on."""
+def _sm_count(device: int) -> int:
+    """The SM count of CUDA device ``device``, asked once per process: the
+    split-K paths size their waves by it."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
+
+
+def _dec_counter_buffer(device, stream, tiles, path="K1's decode path"):
+    """The split-K kernels' per-column-tile counters for launches on
+    ``stream`` (K1's and K3's decode rows and K3's tensor-core path share
+    them): int32 zeros, kept between calls (each launch leaves them 0),
+    grown on demand. Each stream has its own, so the launches that share a
+    buffer are ordered by their stream and never overlap. A CUDA graph
+    capture is refused (naming ``path``): its replays could overlap with the
+    launches of the stream it was captured on."""
     if torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError(f"{kernel}'s decode path inside a CUDA graph capture")
+        raise NotImplementedError(f"{path} inside a CUDA graph capture")
     buf = _dec_counters.get((device, stream))
     if buf is None or buf.numel() < tiles:
         buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
@@ -700,12 +847,10 @@ def _dec_scratch(xk, K, n, block_size, out, kernel):
     partials (out itself when there is one slice) and the stream's
     counters."""
     device, stream = _device_and_stream(xk)
-    if device not in _dec_waves:
-        _dec_waves[device] = dec_wave(device)
-    splits = dec_splits(K, n, block_size, _dec_waves[device])
+    splits = dec_splits(K, n, block_size, DEC_CTAS_PER_SM * _sm_count(device))
     partial = (torch.empty((splits, xk.shape[0], n), dtype=torch.float32, device=xk.device)
                if splits > 1 else out)
-    counters = _dec_counter_buffer(xk.device, stream, n // 128, kernel)
+    counters = _dec_counter_buffer(xk.device, stream, n // 128, f"{kernel}'s decode path")
     return device, stream, splits, partial, counters
 
 
@@ -755,6 +900,42 @@ def _ternary_matmul_igathered_dec(xk, perm, packed, alpha, mu, out, block_size, 
         raise RuntimeError(f"K3 (decode, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul_igathered.launches += 1
     ternary_matmul_igathered.launches_dec += 1
+    return out
+
+
+def _ternary_matmul_igathered_tc(xk, perm, packed, alpha, mu, out, block_size, a8):
+    """K3's tensor-core path (``pt2_ternary_matmul_igathered_tc``): the
+    one-pass gather into a (Bp, K) bf16 scratch and its (nb, Bp) block sums,
+    then the split-K product over igtc_splits K slices, whose partials go to
+    a (splits, B, n) f32 scratch (out itself when there is one slice) summed
+    in slice order by the last CTA of each column tile; all scratch is
+    allocated here, the counters are the stream's (shared with the decode
+    paths). xk is bf16 x (B, m) in feature order, or W2A8's normalised rows
+    (rounded by the gather); perm is read as 8-byte vectors (a copy if it is
+    not 16-byte aligned). Returns out before the row scales."""
+    B, m = xk.shape
+    K, n = packed.shape[0] * 4, packed.shape[1]
+    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
+        raise ValueError("K3's tensor-core path needs 16-byte aligned packed, alpha and mu")
+    if perm.data_ptr() % 16:
+        perm = perm.clone()
+    device, stream = _device_and_stream(xk)
+    splits = igtc_splits(K, n, block_size, IGTC_CTAS_PER_SM * _sm_count(device))
+    Bp = igtc_rows_pad(B)
+    xg = torch.empty((Bp, K), dtype=torch.bfloat16, device=xk.device)
+    sums = torch.empty((K // block_size, Bp), dtype=torch.float32, device=xk.device)
+    partial = (torch.empty((splits, B, n), dtype=torch.float32, device=xk.device)
+               if splits > 1 else out)
+    counters = _dec_counter_buffer(xk.device, stream, n // 128, "K3's tensor-core path")
+    rc = _igtc_kernel_lib().pt2_ternary_matmul_igathered_tc(
+        xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+        xg.data_ptr(), sums.data_ptr(), partial.data_ptr(), out.data_ptr(), counters.data_ptr(),
+        B, m, K, n, block_size, splits, int(bool(a8)), device, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K3 (rows 9-64, tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul_igathered.launches += 1
+    ternary_matmul_igathered.launches_tc += 1
     return out
 
 
@@ -819,13 +1000,15 @@ def ternary_matmul_igathered(
 ) -> torch.Tensor:
     """out = x[:, perm] @ dequant(packed): (B, m) x (K,) perm -> (B, n) f32.
 
-    CUDA: launches K3 (the gathered x is staged in shared memory only) on
-    the path :func:`k3_path` names for its rows and shape, read at each
-    call: "dec" (bf16 rows <= K1_DEC_MAX_ROWS, W2A8 ones too with
-    K1_DEC_A8) runs K1's decode kernel with x staged through perm, every
-    other shape the CUDA-core kernel. Counts the launch in
-    ``ternary_matmul_igathered.launches`` (the decode path also in
-    ``ternary_matmul_igathered.launches_dec``). CPU: the plain version."""
+    CUDA: launches K3 on the path :func:`k3_path` names for its rows and
+    shape, read at each call: "dec" (bf16 rows <= K1_DEC_MAX_ROWS, W2A8 ones
+    too with K1_DEC_A8) runs K1's decode kernel with x staged through perm;
+    "tc" (rows K1_TC_MIN_ROWS .. FUSED_MAX_ROWS) the one-pass gather into a
+    scratch, then the split-K tensor-core product; every other shape the
+    CUDA-core kernel (the gathered x staged in shared memory only). Counts
+    the call in ``ternary_matmul_igathered.launches`` (the decode path also
+    in ``ternary_matmul_igathered.launches_dec``, the tensor-core path in
+    ``ternary_matmul_igathered.launches_tc``). CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, block_size, a8)
     if x.device.type != "cuda":
@@ -844,8 +1027,12 @@ def ternary_matmul_igathered(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    if k3_path(B, n, block_size, a8) == "dec":
+    path = k3_path(B, n, block_size, a8)
+    if path == "dec":
         out = _ternary_matmul_igathered_dec(xk, perm, packed, alpha, mu, out, block_size, a8)
+        return out * sx if a8 else out
+    if path == "tc":
+        out = _ternary_matmul_igathered_tc(xk, perm, packed, alpha, mu, out, block_size, a8)
         return out * sx if a8 else out
     rc = _kernel_lib().pt2_ternary_matmul_igathered(
         xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
@@ -859,6 +1046,7 @@ def ternary_matmul_igathered(
 
 ternary_matmul_igathered.launches = 0
 ternary_matmul_igathered.launches_dec = 0
+ternary_matmul_igathered.launches_tc = 0
 
 
 def ternary_matmul_gathered(

@@ -20,8 +20,10 @@ gather as the matmul's prologue), and otherwise the gather (K4 or K5) then
 K1, as the JAX package routes on the TPU under the same flags
 (:func:`linear_route`); the whole MLP runs as K2 where :func:`fused_mlp_ok`
 holds. Which of its kernels K1 or K3 launches for the rows is its
-wrapper's choice by shape (``kernels.ternary.k1_path``): decode rows
-(<= 8) take the split-K tensor-core GEMV, K3's with x staged through perm.
+wrapper's choice by shape (``kernels.ternary.k1_path`` / ``k3_path``):
+decode rows (<= 8) take the split-K tensor-core GEMV, K3's with x staged
+through perm; K3's rows 9-64 a one-pass gather then a split-K tensor-core
+product; other shapes K3's CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .gather import PackedGather, gather_apply, gather_kernel
 from .kernels.gather import onehot_gather_plain
 from .kernels.ternary import (
     normalize_rows_a8,
+    FUSED_MAX_ROWS,
     ternary_matmul,
     ternary_matmul_gathered,
     ternary_matmul_igathered,
@@ -183,20 +186,22 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     where it runs plain versions (``impl="plain"`` or the CPU).
 
     On CUDA this is the choice of the JAX package's ``ternary_linear_apply``
-    on the TPU: a layer with a gather to realise, at <= 64 rows and with the
-    shapes the fused kernels take, runs K3 if :data:`IGATHER_FUSED`, else K6
-    if :data:`FUSED_GATHER`; otherwise the gather kernel
-    (:func:`gather_kernel`: K4 or K5) and then K1. A layer without a gather
-    runs K1 alone (a bare perm is the index form, not a kernel). The names
-    are the wrappers'; which kernel a wrapper launches for ``rows`` (K1's
-    and K3's decode rows on the split-K tensor-core GEMV, other rows on
-    their other kernels) is its own choice by shape, ``k1_path``."""
+    on the TPU: a layer with a gather to realise, at <= FUSED_MAX_ROWS (64)
+    rows and with the shapes the fused kernels take, runs K3 if
+    :data:`IGATHER_FUSED`, else K6 if :data:`FUSED_GATHER`; otherwise the
+    gather kernel (:func:`gather_kernel`: K4 or K5) and then K1. A layer
+    without a gather runs K1 alone (a bare perm is the index form, not a
+    kernel). The names are the wrappers'; which kernel a wrapper launches
+    for ``rows`` is its own choice by shape (``k1_path``, ``k3_path``): K3
+    on three paths, its decode rows on the split-K tensor-core GEMV, its
+    rows 9-64 on the one-pass gather and split-K tensor-core product, other
+    shapes on its CUDA-core kernel."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()
     if p.identity_perm or p.input_folded or p.gather is None:
         return ("ternary_matmul",)
-    if (dev.type == "cuda" and rows <= 64 and p.block_size % 128 == 0
+    if (dev.type == "cuda" and rows <= FUSED_MAX_ROWS and p.block_size % 128 == 0
             and p.out_features % 128 == 0):
         if IGATHER_FUSED:
             return ("ternary_matmul_igathered",)

@@ -11,7 +11,10 @@ other rounding separates the two. The algorithm of K3's decode rows
 (``ternary_matmul_igathered_dec_plain``: the decode GEMV's summation order
 on x staged through perm) is held to the same 1e-5 against the Pallas
 kernel, and to 1e-6 against K3's plain version (f32 order only, outputs
-O(1)).
+O(1)). So is the algorithm of K3's rows 9-64
+(``ternary_matmul_igathered_tc_plain``: the one-pass gather into fragment
+order, per-block products, the split-K slices summed in order); its gather
+(``igathered_tc_gather_plain``) is held index by index.
 """
 
 import jax
@@ -244,26 +247,185 @@ def test_igathered_dec_plain_matches_igathered_plain(m, K, n, bs, rows, a8):
     assert float(got[rows // 2].abs().max()) == 0.0
 
 
+# K3's rows 9-64 (csrc/ternary_matmul_igathered_tc.cu): the one-pass gather
+# then the split-K tensor-core product. Its wave on an H100 SXM (2 CTAs on
+# each of 132 SMs) sets its K slices; (m, K, n, wave): a ragged perm with
+# interleaved pad lanes over 2 slices, and 5 blocks over a card of one SM
+# (a wave of 2 CTAs: slices of 3 + 2 blocks)
+H100_IGTC_WAVE = 2 * 132
+TC_GATHER_CASES = [(200, 256, 256, H100_IGTC_WAVE), (600, 640, 128, 2)]
+
+
+def held_to_pallas(got, x, perm, packed, alpha, mu, want, a8):
+    """``got`` (the port) held to REL of the Pallas kernel's ``want``. W2A8:
+    the Pallas wrapper normalises the rows under jit, where XLA's fused
+    x / sx can land one f32 ulp off the division the port and JAX's own
+    eager W2A8 emulation (``ternary_matmul_xla_a8``) do, and a bf16 then
+    int8 rounding of that ulp moves a whole row (seen on one row of 64).
+    So every row is held to REL of the eager emulation on the same
+    gathered x, and to REL of the Pallas kernel wherever the jitted and
+    eager normalisations agree."""
+    if not a8:
+        assert rel_err(got, want) <= REL
+        return
+    xj = jnp.asarray(x)
+    eager = np.asarray(jpt.normalize_rows_a8(xj)[0].astype(jnp.float32))
+    jitted = np.asarray(jax.jit(lambda v: jpt.normalize_rows_a8(v)[0])(xj).astype(jnp.float32))
+    same = (eager == jitted).all(axis=1)
+    xg = np.concatenate([x, np.zeros((x.shape[0], 1), np.float32)], axis=1)[:, np.minimum(perm, x.shape[1])]
+    emu = np.asarray(jtm.ternary_matmul_xla_a8(jnp.asarray(xg), jnp.asarray(packed), alpha, mu))
+    assert rel_err(got, emu) <= REL
+    scale = np.abs(want).max()
+    assert np.abs(got[same] - want[same]).max(initial=0.0) <= REL * scale
+
+
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 16, 64])
+@pytest.mark.parametrize("rows", [9, 16, 33, 64])
+@pytest.mark.parametrize("m,K,n,wave", TC_GATHER_CASES)
+def test_igathered_tc_plain_matches_pallas_interpret(m, K, n, wave, rows, a8):
+    assert tk.igtc_splits(640, 128, 128, 2) == 2  # 5 blocks: uneven slices
+    rng = np.random.default_rng(500 + rows + m + int(a8))
+    packed, alpha, mu = rand_layer(rng, K, n)
+    perm = ssr_perm(rng, m, K, interleave=True)
+    x = bf16_values(rng, (rows, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered(
+            jnp.asarray(x), jnp.asarray(perm), jnp.asarray(packed), alpha, mu,
+            tile_n=128, blocks_per_step=1, a8=a8,
+        ))
+    got = tk.ternary_matmul_igathered_tc_plain(
+        _t(x), _t(perm), _t(packed), _t(alpha), _t(mu), a8=a8, wave=wave).numpy()
+    assert got.shape == want.shape == (rows, n)
+    held_to_pallas(got, x, perm, packed, alpha, mu, want, a8)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_igathered_tc_plain_matches_pallas_stacked_interpret(a8):
+    rng = np.random.default_rng(29 + int(a8))
+    rows, (m, K, n, wave), L = 33, TC_GATHER_CASES[1], 2
+    layers = [rand_layer(rng, K, n) for _ in range(L)]
+    packed = np.stack([l[0] for l in layers])
+    alpha = jnp.stack([l[1] for l in layers])
+    mu = jnp.stack([l[2] for l in layers])
+    perms = np.stack([ssr_perm(rng, m, K, interleave=True) for _ in range(L)])
+    x = bf16_values(rng, (rows, m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpt.ternary_matmul_pallas_igathered_stacked(
+            jnp.asarray(x), jnp.asarray(perms), jnp.asarray(packed), alpha, mu, 1,
+            tile_n=128, a8=a8,
+        ))
+    tp, ta, tm_, tperm = _t(packed), _t(alpha), _t(mu), _t(perms)
+    got = tk.ternary_matmul_igathered_tc_plain(_t(x), tperm[1], tp[1], ta[1], tm_[1], a8=a8,
+                                               wave=wave).numpy()
+    held_to_pallas(got, x, perms[1], packed[1], alpha[1], mu[1], want, a8)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [9, 16, 32, 33, 64])
+@pytest.mark.parametrize("m,K,n,bs,wave", [(200, 256, 256, 128, H100_IGTC_WAVE),
+                                           (600, 640, 128, 128, 2),
+                                           (1300, 1408, 6144, 128, H100_IGTC_WAVE),
+                                           (1000, 1024, 256, 256, H100_IGTC_WAVE)])
+def test_igathered_tc_plain_matches_igathered_plain(m, K, n, bs, wave, rows, a8):
+    """The tensor-core path's algorithm equals K3's plain version up to f32
+    order (1e-6 of max|ref|): one slice per block, slices of 3 + 2 blocks,
+    11 blocks at llama-3-8b qkv's width in 4 slices of 3, 3, 3, 2, bs 256;
+    an all-zero row (W2A8: sx at its floor) gives 0."""
+    rng = np.random.default_rng(2000 * rows + K + n + bs + int(a8))
+    packed, alpha, mu = rand_layer(rng, K, n, bs)
+    perm = ssr_perm(rng, m, K, interleave=m != 1000)
+    x = bf16_values(rng, (rows, m))
+    x[rows // 2] = 0.0
+    args = (_t(x), _t(perm), _t(packed), _t(alpha), _t(mu), bs, a8)
+    got = tk.ternary_matmul_igathered_tc_plain(*args, wave=wave)
+    want = tk.ternary_matmul_igathered_plain(*args)
+    assert got.shape == (rows, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert float(got[rows // 2].abs().max()) == 0.0
+
+
+def test_igtc_splits_fill_one_wave():
+    """The K slices of the tensor-core path keep each projection's CTAs
+    (n / 128 per slice) within one wave of 2 per SM: llama-3-8b qkv 48 x 5,
+    o 32 x 8, gateup 224 x 1; none is empty."""
+    assert [tk.igtc_splits(4096, n, 128, H100_IGTC_WAVE) for n in (6144, 4096, 28672)] == [5, 8, 1]
+    for K, n, bs, wave in ((4096, 6144, 128, 264), (1408, 6144, 128, 264), (640, 128, 128, 2),
+                           (1024, 256, 256, 264)):
+        nb = K // bs
+        splits = tk.igtc_splits(K, n, bs, wave)
+        bpc = -(-nb // splits)
+        assert splits * (n // 128) <= max(wave, n // 128)
+        assert (splits - 1) * bpc < nb <= splits * bpc
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows,bs", [(9, 128), (17, 256), (64, 128)])
+def test_igathered_tc_gather_plain_layout(rows, bs, a8):
+    """The gather scratch index by index: xg[b, blk*bs + 8h + 2p + i] holds
+    x[b, perm[blk*bs + p*bs/4 + 2h + i]] (0 for a pad lane; W2A8 rounded half
+    to even and clipped to +-127), rows B .. Bp - 1 are zero, and S holds
+    each block's sum."""
+    rng = np.random.default_rng(rows + bs + int(a8))
+    m, K = 900, 1024
+    perm = ssr_perm(rng, m, K, interleave=True)
+    x = bf16_values(rng, (rows, m)) * (60.0 if a8 else 1.0)
+    x[0, :8] = [0.5, 1.5, 2.5, -0.5, -2.5, 200.0, -200.0, 126.5]
+    xg, S = tk.igathered_tc_gather_plain(_t(x).bfloat16(), _t(perm), bs, a8)
+    Bp = {9: 16, 17: 32, 64: 64}[rows]
+    assert xg.shape == (Bp, K) and xg.dtype == torch.bfloat16 and S.shape == (K // bs, Bp)
+    xs = np.concatenate([x, np.zeros((rows, 1), np.float32)], axis=1)
+    xs = np.array(jnp.asarray(xs, jnp.bfloat16).astype(jnp.float32))
+    if a8:
+        xs = np.clip(np.round(xs), -127, 127)  # numpy rounds half to even
+    lanes = np.minimum(perm, m)
+    want = np.zeros((Bp, K), np.float32)
+    for blk in range(K // bs):
+        for h in range(bs // 8):
+            for p in range(4):
+                for i in range(2):
+                    want[:rows, blk * bs + 8 * h + 2 * p + i] = \
+                        xs[:, lanes[blk * bs + p * bs // 4 + 2 * h + i]]
+    np.testing.assert_array_equal(xg.float().numpy(), want)
+    ws = xs[:, lanes].reshape(rows, K // bs, bs).sum(axis=2).T
+    np.testing.assert_allclose(S[:, :rows].numpy(), ws, rtol=1e-6, atol=1e-6 * np.abs(ws).max())
+    assert not S[:, rows:].any()
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 16, 64, 65, 128])
 def test_k3_path(rows, a8):
     """K3's rows take K1's decode kernel where K1's would: bf16 rows <=
     K1_DEC_MAX_ROWS with scale blocks and out_features multiples of 128
-    (W2A8 only with K1_DEC_A8, off by default); rows 9-64 and other shapes
-    stay on the CUDA-core K3."""
-    assert tk.K1_DEC_MAX_ROWS == 8 and not tk.K1_DEC_A8
-    want = "dec" if rows <= 8 and not a8 else "cuda_core"
+    (W2A8 only with K1_DEC_A8, off by default); rows K1_TC_MIN_ROWS (9) to
+    64 at those shapes take the tensor-core path in both modes; more rows,
+    W2A8 decode rows and other shapes stay on the CUDA-core K3."""
+    assert tk.K1_DEC_MAX_ROWS == 8 and not tk.K1_DEC_A8 and tk.K1_TC_MIN_ROWS == 9
+    want = ("dec" if rows <= 8 and not a8 else "tc" if 9 <= rows <= 64 else "cuda_core")
     assert tk.k3_path(rows, 4096, 128, a8) == want
     assert tk.k3_path(rows, 4096, 256, a8) == want
     assert tk.k3_path(rows, 4096, 64, a8) == "cuda_core"
     assert tk.k3_path(rows, 160, 128, a8) == "cuda_core"
 
 
+def test_k3_path_reads_k1_tc_min_rows_at_each_call(monkeypatch):
+    """K1_TC_MIN_ROWS governs K3's tensor-core path too, read at each call:
+    rebound to 65 (chip_smoke's "off" turns) it sends rows 9-64 to the
+    CUDA-core K3; rebound to 33, rows 9-32 only."""
+    assert [tk.k3_path(r, 4096, 128, False) for r in (8, 9, 64, 65)] == \
+        ["dec", "tc", "tc", "cuda_core"]
+    monkeypatch.setattr(tk, "K1_TC_MIN_ROWS", 65)
+    for a8 in (False, True):
+        assert [tk.k3_path(r, 4096, 128, a8) for r in (9, 16, 32, 64, 65)] == ["cuda_core"] * 5
+    monkeypatch.setattr(tk, "K1_TC_MIN_ROWS", 33)
+    assert [tk.k3_path(r, 4096, 128, True) for r in (9, 32, 33, 64)] == \
+        ["cuda_core", "cuda_core", "tc", "tc"]
+
+
 def test_k3_path_reads_the_decode_switches_at_each_call(monkeypatch):
     monkeypatch.setattr(tk, "K1_DEC_A8", True)  # W2A8 decode rows too
     for a8 in (False, True):
         assert [tk.k3_path(r, 4096, 128, a8) for r in (1, 8, 9, 64)] == \
-            ["dec", "dec", "cuda_core", "cuda_core"]
+            ["dec", "dec", "tc", "tc"]
     monkeypatch.setattr(tk, "K1_DEC_MAX_ROWS", 0)  # chip_smoke's "off" turns
     for a8 in (False, True):
         assert [tk.k3_path(r, 4096, 128, a8) for r in (1, 4, 8)] == ["cuda_core"] * 3

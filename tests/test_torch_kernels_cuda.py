@@ -1,8 +1,9 @@
 """K1-K7 on the card against their plain versions (K1 on its four
 kernels: the split-K tensor-core GEMV at decode rows, the bf16 and int8
-tensor cores at prefill rows, the CUDA cores for other shapes; K3 on two:
-the same GEMV with x staged through perm at decode rows, the CUDA cores
-for other shapes). Needs an
+tensor cores at prefill rows, the CUDA cores for other shapes; K3 on
+three: the same GEMV with x staged through perm at decode rows, a one-pass
+gather then a split-K tensor-core product at rows 9-64, the CUDA cores for
+other shapes). Needs an
 NVIDIA GPU; every test skips without one. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs as
@@ -629,7 +630,7 @@ K3_DEC_SHAPES = {"8b qkv": (4096, 4096, 6144), "8b o": (4096, 4096, 4096),
 
 def _k3_counts():
     return (tk.ternary_matmul_igathered.launches, tk.ternary_matmul_igathered.launches_dec,
-            tk.ternary_matmul.launches)
+            tk.ternary_matmul_igathered.launches_tc, tk.ternary_matmul.launches)
 
 
 def _k3_dec_held(x, perm, packed, alpha, mu, bs=128, a8=False):
@@ -642,7 +643,7 @@ def _k3_dec_held(x, perm, packed, alpha, mu, bs=128, a8=False):
         got = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
         again = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
     torch.cuda.synchronize()
-    assert tuple(b - a for a, b in zip(before, _k3_counts())) == (2, 2, 0)
+    assert tuple(b - a for a, b in zip(before, _k3_counts())) == (2, 2, 0, 0)
     assert torch.equal(got, again)
     want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, bs, a8)
     algo = tk.ternary_matmul_igathered_dec_plain(x, perm, packed, alpha, mu, bs, a8,
@@ -690,10 +691,11 @@ def test_k3_dec_path_on_stacked_views_zero_alpha_blocks_zero_row_and_ties(cuda_d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 8, 9, 16, 64])
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 64, 65])
 def test_k3_rows_and_modes_pick_their_kernel(cuda_device, rows):
     """bf16 decode rows on the decode path; W2A8 decode rows on the CUDA-core
-    K3 unless K1_DEC_A8 is set; rows 9-64 always on the CUDA-core K3."""
+    K3 unless K1_DEC_A8 is set; rows 9-64 on the tensor-core path in both
+    modes; more rows on the CUDA-core K3."""
     g = torch.Generator(device=cuda_device).manual_seed(42 + rows)
     m, K, n = 4000, 4096, 4096
     packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
@@ -709,7 +711,8 @@ def test_k3_rows_and_modes_pick_their_kernel(cuda_device, rows):
             tk.K1_DEC_A8 = saved
         torch.cuda.synchronize()
         dec = rows <= 8 and (dec_a8 or not a8)
-        assert tuple(b - a for a, b in zip(before, _k3_counts())) == (1, int(dec), 0)
+        tc = 9 <= rows <= 64
+        assert tuple(b - a for a, b in zip(before, _k3_counts())) == (1, int(dec), int(tc), 0)
         want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, a8=a8)
         assert _rel(got, want) <= TOL
 
@@ -793,6 +796,192 @@ def test_k3_dec_c_entry_refuses_what_it_does_not_take(cuda_device):
     assert fn(ptrs[0], 0, *ptrs[2:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no perm
     assert fn(*ptrs[:5], 0, *ptrs[6:], 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no scratch
     assert fn(*ptrs[:7], 0, 8, m, K, n, 128, 2, 0, dev, stream) != 0  # no counters
+
+
+# K3's rows 9-64 (csrc/ternary_matmul_igathered_tc.cu): the same shapes, rows
+# 9 / 16 / 32 / 33 / 64 (every row-tile instance, pad rows in the last n8
+# tile), bf16 and W2A8
+K3_TC_ROWS = [9, 16, 32, 33, 64]
+
+
+def _k3_tc_held(x, perm, packed, alpha, mu, bs=128, a8=False):
+    """One K3 call that must take the tensor-core path: counted in launches
+    and launches_tc, none of K1's; held to TOL against both plain versions,
+    and the same bits on a second call."""
+    assert tk.k3_path(x.shape[0], packed.shape[1], bs, a8) == "tc"
+    before = _k3_counts()
+    got = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+    again = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, bs, a8=a8)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k3_counts())) == (2, 0, 2, 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, bs, a8)
+    algo = tk.ternary_matmul_igathered_tc_plain(x, perm, packed, alpha, mu, bs, a8,
+                                                wave=tk.igtc_wave(x.device))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL and _rel(got, algo) <= TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", K3_TC_ROWS)
+@pytest.mark.parametrize("shape", sorted(K3_DEC_SHAPES))
+def test_k3_tc_path_matches_plain(cuda_device, shape, rows, a8):
+    m, K, n = K3_DEC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(11 * rows + m + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=m < K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    if shape == "8b qkv":  # 32 blocks in 5 slices of 7, 7, 7, 7, 4
+        nb = K // 128
+        assert nb % -(-nb // tk.igtc_splits(K, n, 128, tk.igtc_wave(cuda_device))) != 0
+    _k3_tc_held(x, perm, packed, alpha, mu, a8=a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("bs", [128, 256])
+def test_k3_tc_path_on_stacked_views_zero_alpha_blocks_zero_row_and_ties(cuda_device, bs, a8):
+    g = torch.Generator(device=cuda_device).manual_seed(51 + bs + int(a8))
+    m, K, n, L = 2000, 2048, 1024, 3
+    layers = [_layer(g, cuda_device, K, n, bs) for _ in range(L)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    perms = torch.stack([_perm(g, cuda_device, m, K, interleave=True) for _ in range(L)])
+    x = torch.cat([_a8_rows_with_ties(g, cuda_device, 8, m),
+                   torch.randn((25, m), generator=g, device=cuda_device).bfloat16()])
+    for li in range(L):
+        got = _k3_tc_held(x, perms[li], packed[li], alpha[li], mu[li], bs, a8)
+        assert got[1].abs().max().item() == 0.0  # the all-zero row
+    p, a, mu0 = layers[0]
+    a, mu0 = a.clone(), mu0.clone()
+    a[::3] = 0
+    mu0[::6] = 0
+    _k3_tc_held(x, perms[0], p, a, mu0, bs, a8)
+    _k3_tc_held(x[:9], perms[0], p, a, mu0, bs, a8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [9, 17, 64])
+def test_k3_tc_gather_bit_exact(cuda_device, rows, a8):
+    """The path's gather alone (its C entry) writes exactly what
+    igathered_tc_gather_plain does: the fragment-order scratch bit for bit
+    (pad lanes and pad rows 0, W2A8 rounded), the block sums to f32 order."""
+    g = torch.Generator(device=cuda_device).manual_seed(61 + rows + int(a8))
+    m, K, bs = 3000, 3072, 128
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    x = _a8_rows_with_ties(g, cuda_device, rows, m)
+    xk = tk.normalize_rows_a8(x)[0].contiguous() if a8 else x
+    Bp = tk.igtc_rows_pad(rows)
+    xg = torch.full((Bp, K), float("nan"), device=cuda_device).bfloat16()
+    S = torch.full((K // bs, Bp), float("nan"), device=cuda_device)
+    rc = tk._igtc_kernel_lib().pt2_ternary_matmul_igathered_tc_gather(
+        xk.data_ptr(), perm.data_ptr(), xg.data_ptr(), S.data_ptr(), rows, Bp, m, K, bs, int(a8),
+        cuda_device.index or 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want_xg, want_S = tk.igathered_tc_gather_plain(xk, perm, bs, a8)
+    assert torch.equal(xg, want_xg)
+    assert (S - want_S).abs().max().item() <= 1e-6 * want_S.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k3_tc_refuses_graph_capture(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(53)
+    packed, alpha, mu = _layer(g, cuda_device, 1024, 256, 128)
+    perm = _perm(g, cuda_device, 1000, 1024)
+    x = torch.randn((16, 1000), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.ternary_matmul_igathered(x, perm, packed, alpha, mu)  # built outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k3_counts()
+    with pytest.raises(NotImplementedError, match="K3's tensor-core path.*graph"):
+        with torch.cuda.graph(graph):
+            tk.ternary_matmul_igathered(x, perm, packed, alpha, mu)
+    assert _k3_counts() == before
+
+
+@pytest.mark.cuda
+def test_k3_tc_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A launch of the tensor-core path that fails raises; neither the
+    CUDA-core K3 nor a plain version runs in its place, and nothing is
+    counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_igathered_tc(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("the CUDA-core K3 was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(54)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    perm = _perm(g, cuda_device, 500, 512)
+    monkeypatch.setattr(tk, "_igtc_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_kernel_lib", not_asked)
+    for a8 in (False, True):
+        for rows in (9, 64):
+            x = torch.randn((rows, 500), generator=g, device=cuda_device).bfloat16()
+            before = _k3_counts()
+            with pytest.raises(RuntimeError, match="K3 \\(rows 9-64, tensor cores\\)"):
+                tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8)
+            assert _k3_counts() == before
+
+
+@pytest.mark.cuda
+def test_k3_tc_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(55)
+    m, K, n, B = 1000, 1024, 256, 16
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    # x 2 bytes past a 16-byte boundary: the gather reads single bf16 values
+    xc = torch.randn(B * m + 1, generator=g, device=cuda_device).bfloat16()[1:].view(B, m)
+    assert xc.data_ptr() % 16 == 2
+    xg = torch.empty((64, K), device=cuda_device).bfloat16()
+    sums = torch.empty((K // 128, 64), device=cuda_device)
+    out = torch.empty((64, n), device=cuda_device)
+    partial = torch.empty((8, 64, n), device=cuda_device)
+    counters = torch.zeros(n // 128, dtype=torch.int32, device=cuda_device)
+    lib = tk._igtc_kernel_lib()
+    fn, gather = lib.pt2_ternary_matmul_igathered_tc, lib.pt2_ternary_matmul_igathered_tc_gather
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    ptrs = [t.data_ptr() for t in (xc, perm, packed, alpha, mu, xg, sums, partial, out, counters)]
+    for splits in (1, 3, 8):  # 8 blocks: one slice, slices of 3 + 3 + 2, of 1
+        assert fn(*ptrs, B, m, K, n, 128, splits, 0, dev, stream) == 0
+        torch.cuda.synchronize()
+        want = tk.ternary_matmul_igathered_plain(xc, perm, packed, alpha, mu)
+        assert _rel(out[:B], want) <= TOL
+    assert not counters.any()
+    # rows below 9 or above 64, no features, n % 128, bs 64, bs 192, no
+    # slice, more slices than blocks, a slice left empty (7 of 8 blocks: 2
+    # each leaves the last empty), K not a multiple of bs
+    for B_, m_, K_, n_, bs, splits in ((8, m, K, n, 128, 2), (65, m, K, n, 128, 2),
+                                       (0, m, K, n, 128, 2), (B, 0, K, n, 128, 2),
+                                       (B, m, K, 224, 128, 2), (B, m, K, n, 64, 2),
+                                       (B, m, K, n, 192, 2), (B, m, K, n, 128, 0),
+                                       (B, m, K, n, 128, 9), (B, m, K, n, 128, 7),
+                                       (B, m, 1000, n, 128, 2)):
+        assert fn(*ptrs, B_, m_, K_, n_, bs, splits, 0, dev, stream) != 0
+    for i, off in ((1, 4), (0, 1), (2, 8), (3, 2), (5, 8), (6, 4), (7, 8), (8, 8)):
+        bad = list(ptrs)  # perm, x, packed, alpha, xg, sums, partial, out misaligned
+        bad[i] += off
+        assert fn(*bad, B, m, K, n, 128, 2, 0, dev, stream) != 0, i
+    for i in (0, 1, 2, 5, 6, 7, 9):  # a missing operand or scratch
+        bad = list(ptrs)
+        bad[i] = 0
+        assert fn(*bad, B, m, K, n, 128, 2, 0, dev, stream) != 0, i
+    # the gather alone: its row pad must be the product's (16, 32 or 64)
+    gptrs = [ptrs[0], ptrs[1], ptrs[5], ptrs[6]]
+    assert gather(*gptrs, B, 16, m, K, 128, 0, dev, stream) == 0
+    for B_, Bp in ((B, 32), (17, 16), (33, 32), (8, 16), (65, 64)):
+        assert gather(*gptrs, B_, Bp, m, K, 128, 0, dev, stream) != 0
+    assert gather(gptrs[0], gptrs[1] + 4, *gptrs[2:], B, 16, m, K, 128, 0, dev, stream) != 0
+    torch.cuda.synchronize()
 
 
 def _mlp_layer(g, dev, Kg, I, n, L=None):
