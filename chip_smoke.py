@@ -179,6 +179,26 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      CUDA-core K3, dense torch.matmul on the gathered x, K4 then K1's
      tensor-core kernel, the plain version and the bytes bound (14c, in
      phase 6).
+ 15. (K2's rows 9-64) holds K2's tensor-core path, K3's gather, a split-K
+     mma.sync gate/up product whose CTAs pair each gate lane with its up
+     lane and write mid = bf16(act(gate) * up) in the down product's
+     fragment order, then K3's product over mid
+     (csrc/ternary_mlp_tc.cu's pt2_ternary_mlp_tc, routed by k2_path for
+     rows K2_TC_MIN_ROWS..64), against ternary_mlp_plain and its own plain
+     version ternary_mlp_tc_plain at llama-3-8b's MLP (silu, with and
+     without the gather) and gemma-2b's (GeGLU, without), rows 9/16/32/64,
+     every call twice for identical bits, exact launches / launches_tc /
+     launches_gelu counts (15a, after 14a; phase 2's 16- and 64-row K2
+     checks run it too); holds launches_tc exact in every run that admits
+     <= 64 rows (K2 L per admission); in "engine ssr default" admits one
+     16-id and one 64-id prompt alone under torch.profiler in turns on,
+     off, off, on ("off" rebinds K2_TC_MIN_ROWS to 1 << 30: the CUDA-core
+     K2), counts exact (15b, in 14b, whose 8-request A/B runs with K2 on);
+     and times the C entry at both MLPs, 16/32/64 rows, beside the
+     CUDA-core K2 (in turns tc, CUDA cores, CUDA cores, tc), the two dense
+     torch.matmul with the activation (a yardstick), the plain version and
+     the bound, then its three kernels under torch.profiler (15c, in phase
+     6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -431,7 +451,7 @@ def main() -> None:
             w.launches = 0
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
         k1.ternary_matmul.launches_dec = k1.ternary_matmul_igathered.launches_dec = 0
-        k1.ternary_matmul_igathered.launches_tc = 0
+        k1.ternary_matmul_igathered.launches_tc = k1.ternary_mlp.launches_tc = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
 
     def counts():
@@ -440,19 +460,22 @@ def main() -> None:
         "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec";
         K3's decode and tensor-core launches (also in
         "ternary_matmul_igathered") apart as "ternary_matmul_igathered_dec"
-        and "ternary_matmul_igathered_tc"; K2's GeGLU launches and K7's at hd
-        256 apart as "ternary_mlp_gelu" and "decode_attention_hd256"."""
+        and "ternary_matmul_igathered_tc"; K2's tensor-core launches, its
+        GeGLU launches (either path) and K7's at hd 256 apart as
+        "ternary_mlp_tc", "ternary_mlp_gelu" and "decode_attention_hd256"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
         c["ternary_matmul_dec"] = k1.ternary_matmul.launches_dec
         c["ternary_matmul_igathered_dec"] = k1.ternary_matmul_igathered.launches_dec
         c["ternary_matmul_igathered_tc"] = k1.ternary_matmul_igathered.launches_tc
+        c["ternary_mlp_tc"] = k1.ternary_mlp.launches_tc
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
+    gelu_tc = [0]  # of them, GeGLU launches on K2's tensor-core path
 
     def tally(c):
         for k, v in c.items():
@@ -462,7 +485,8 @@ def main() -> None:
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
-               "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc"]
+               "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
+               "ternary_mlp_tc"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -534,6 +558,18 @@ def main() -> None:
             yield
         finally:
             k1.K1_TC_MIN_ROWS = saved
+
+    @contextlib.contextmanager
+    def k2_tc(on):
+        """K2's rows 9-64 on its tensor-core path as routed (on), or on the
+        CUDA-core K2 (off: K2_TC_MIN_ROWS rebound to 1 << 30)."""
+        saved = k1.K2_TC_MIN_ROWS
+        if not on:
+            k1.K2_TC_MIN_ROWS = 1 << 30
+        try:
+            yield
+        finally:
+            k1.K2_TC_MIN_ROWS = saved
 
     # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err, its
     # decode kernel's in dec_err
@@ -1042,11 +1078,67 @@ def main() -> None:
           f"gather alone bit-exact in {gather_checks} checks")
     del packed, alpha, mu, x, perms, codes, xg, S
 
+    stamp("15a")
+    # ---- 15a. K2's rows 9-64 on its tensor-core path (K3's gather, the
+    # gate/up product with the gated epilogue, K3's product over mid) vs
+    # both plain versions: llama-3-8b's MLP (silu; "ssr" with a gather over
+    # its 4096 features, "down" without) and gemma-2b's (GeGLU, "down"),
+    # rows 9/16/32/64, each call twice for identical bits; launches,
+    # launches_tc and launches_gelu exact. Its own generator
+    gk15 = torch.Generator(device=dev).manual_seed(15)
+    k2tc_err = k2tc_algo_err = 0.0
+    k2tc_checks = 0
+
+    def k2_launches():
+        return (k1.ternary_mlp.launches, k1.ternary_mlp.launches_tc,
+                k1.ternary_mlp.launches_gelu)
+
+    for (D, I, n), act, layouts in ((MLP_8B, "silu", (True, False)),
+                                    (MLP_GEMMA, "gelu", (False,))):
+        gp, ga, gm = rand_layer(D, 2 * I, gen=gk15)
+        dp, da, dm = rand_layer(I, n, gen=gk15)
+        for gathered in layouts:
+            args = (rand_perm(D, D, gen=gk15) if gathered else None, gp, ga, gm, dp, da, dm, I)
+            for B in (9, 16, 32, 64):
+                label = f"K2 tensor cores D={D} {act} gather={gathered} rows={B}"
+                x = torch.randn((B, D), generator=gk15, device=dev).bfloat16()
+                if k1.k2_path(B) != "tc":
+                    fail(f"{label}: k2_path says {k1.k2_path(B)}")
+                c0 = k2_launches()
+                got = k1.ternary_mlp(x, *args, act=act)
+                again = k1.ternary_mlp(x, *args, act=act)
+                torch.cuda.synchronize()
+                rose = tuple(b - a for a, b in zip(c0, k2_launches()))
+                if rose != (2, 2, 2 if act == "gelu" else 0):
+                    fail(f"{label}: launches, launches_tc, launches_gelu rose by {rose}")
+                if not torch.equal(got, again):
+                    fail(f"{label}: two calls differ")
+                want = k1.ternary_mlp_plain(x, *args, act=act)
+                algo = k1.ternary_mlp_tc_plain(x, *args, act=act, wave=igtc_wave)
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                aerr = (got - algo).abs().max().item()
+                if got.shape != want.shape or not (err <= MLP_TOL * scale
+                                                   and aerr <= MLP_TOL * scale):
+                    fail(f"{label}: max|err| {err:.3e} vs ternary_mlp_plain, {aerr:.3e} vs "
+                         f"ternary_mlp_tc_plain > {MLP_TOL} x max|ref| {scale:.3e}")
+                k2tc_err, k2tc_algo_err = max(k2tc_err, err), max(k2tc_algo_err, aerr)
+                k2tc_checks += 1
+        del gp, ga, gm, dp, da, dm, args
+    record["k2_tc_checks"] = k2tc_checks
+    record["k2_tc_max_abs_err"] = k2tc_err
+    record["k2_tc_max_abs_err_vs_tc_plain"] = k2tc_algo_err
+    print(f"K2 tensor-core path vs plain: {k2tc_checks} checks (llama-3-8b silu with and without "
+          f"the gather, gemma-2b GeGLU without, x rows 9/16/32/64), each called twice with "
+          f"identical bits, within {MLP_TOL} x max|ref| of ternary_mlp_plain (max|err| "
+          f"{k2tc_err:.3e}) and of its own plain version (max|err| {k2tc_algo_err:.3e}); "
+          f"launches, launches_tc and launches_gelu exact")
+
     stamp("2")
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0,
             "ternary_matmul_igathered_dec": 0.0, "ternary_matmul_igathered_tc": 0.0,
-            "ternary_mlp": 0.0}
+            "ternary_mlp": 0.0, "ternary_mlp_tc": 0.0}
     nchecks = dict.fromkeys(errs, 0)
 
     def held(kernel, label, got, want, tol):
@@ -1085,7 +1177,9 @@ def main() -> None:
                      KERNEL_TOL)
     # MLPs: llama-3-8b, and I = 1408 (11 blocks) with down padded to 16 blocks
     # (verify_fused_mlp's probe); ssr gathers over D features or no gather
-    # (x zero-padded to the gateup's 16-block lane count)
+    # (x zero-padded to the gateup's 16-block lane count). K2's checks under
+    # the name of the path its rows take (tensor-core path: "ternary_mlp_tc")
+    k2_name = lambda B, cc: cc if k1.k2_path(B) == "cc" else "ternary_mlp_tc"  # noqa: E731
     for D, I, n in (MLP_8B, (512, 1408, 512)):
         Kg = -(-D // 2048) * 2048
         gp, ga, gm = rand_layer(Kg, 2 * I)
@@ -1094,7 +1188,7 @@ def main() -> None:
             perm = rand_perm(D, Kg) if gathered else None
             for B in (1, 2, 4, 16):
                 x = torch.randn((B, D), generator=g, device=dev).bfloat16()
-                held("ternary_mlp", f"K2 D={D} I={I} gather={gathered} B={B}",
+                held(k2_name(B, "ternary_mlp"), f"K2 D={D} I={I} gather={gathered} B={B}",
                      k1.ternary_mlp(x, perm, gp, ga, gm, dp, da, dm, I),
                      k1.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, I), MLP_TOL)
     del gp, ga, gm, dp, da, dm
@@ -1122,7 +1216,7 @@ def main() -> None:
     # GeGLU launches counted apart, exactly
     for kname in ("ternary_mlp_gelu", "ternary_mlp_relu"):
         errs[kname], nchecks[kname] = 0.0, 0
-    gelu0 = k1.ternary_mlp.launches_gelu
+    gelu0, gelu_calls = k1.ternary_mlp.launches_gelu, 0
     D, I, n = MLP_GEMMA
     gp, ga, gm = rand_layer(D, 2 * I, L=2, gen=ggem)
     dp, da, dm = rand_layer(I, n, L=2, gen=ggem)
@@ -1132,16 +1226,18 @@ def main() -> None:
             args = (perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I)
             for B in (1, 2, 4, 8, 16, 64):
                 x = torch.randn((B, D), generator=ggem, device=dev).bfloat16()
-                held("ternary_mlp_gelu", f"K2 GeGLU gemma-2b gather={gathered} layer {li} B={B}",
+                held(k2_name(B, "ternary_mlp_gelu"),
+                     f"K2 GeGLU gemma-2b gather={gathered} layer {li} B={B}",
                      k1.ternary_mlp(x, *args, act="gelu"),
                      k1.ternary_mlp_plain(x, *args, act="gelu"), MLP_TOL)
+                gelu_calls += 1
     x = torch.randn((8, D), generator=ggem, device=dev).bfloat16()
     args = (None, gp[0], ga[0], gm[0], dp[0], da[0], dm[0], I)
     held("ternary_mlp_relu", "K2 relu gemma-2b B=8", k1.ternary_mlp(x, *args, act="relu"),
          k1.ternary_mlp_plain(x, *args, act="relu"), MLP_TOL)
-    if k1.ternary_mlp.launches_gelu - gelu0 != nchecks["ternary_mlp_gelu"]:
+    if k1.ternary_mlp.launches_gelu - gelu0 != gelu_calls:
         fail(f"K2 GeGLU launches rose by {k1.ternary_mlp.launches_gelu - gelu0} for "
-             f"{nchecks['ternary_mlp_gelu']} calls")
+             f"{gelu_calls} calls")
     del gp, ga, gm, dp, da, dm, x, args
     record["new_kernel_checks"] = nchecks
     record["new_kernel_max_abs_err"] = errs
@@ -1153,8 +1249,9 @@ def main() -> None:
           f"{nchecks['ternary_matmul_igathered_tc']} on its tensor-core path (16 rows; max|err| "
           f"{errs['ternary_matmul_igathered_tc']:.3e}) within {KERNEL_TOL} x max|ref|; K2 vs "
           f"plain: {nchecks['ternary_mlp']} checks within {MLP_TOL} x max|ref| (max|err| "
-          f"{errs['ternary_mlp']:.3e}); K2 GeGLU at "
-          f"gemma-2b: {nchecks['ternary_mlp_gelu']} checks (max|err| "
+          f"{errs['ternary_mlp']:.3e}) on the CUDA-core K2, {nchecks['ternary_mlp_tc']} on its "
+          f"tensor-core path (16 and 64 rows; max|err| {errs['ternary_mlp_tc']:.3e}); K2 GeGLU "
+          f"at gemma-2b on the CUDA cores: {nchecks['ternary_mlp_gelu']} checks (max|err| "
           f"{errs['ternary_mlp_gelu']:.3e}), relu {nchecks['ternary_mlp_relu']} (max|err| "
           f"{errs['ternary_mlp_relu']:.3e}) within {MLP_TOL} x max|ref|")
 
@@ -1878,7 +1975,7 @@ def main() -> None:
     # K6 x2 + K2 + K7 per layer
     short = sum(min(_bucket(n), ENGINE_M) <= 64 for n in e_lens)
     want = dict(none, ternary_matmul_gathered=2 * L * (st + short), ternary_mlp=L * (st + short),
-                ternary_matmul=4 * L * (16 - short), ternary_matmul_tc=4 * L * (16 - short),
+                ternary_mlp_tc=L * short, ternary_matmul=4 * L * (16 - short), ternary_matmul_tc=4 * L * (16 - short),
                 onehot_matmul=3 * L * (16 - short), decode_attention=L * st)
     got = counts()
     if got != want:
@@ -1939,7 +2036,8 @@ def main() -> None:
             want = dict(none, ternary_matmul_igathered=2 * L * (st + n_adm),
                         ternary_matmul_igathered_dec=2 * L * st,
                         ternary_matmul_igathered_tc=2 * L * n_adm if on else 0,
-                        ternary_mlp=L * (st + n_adm), decode_attention=L * st)
+                        ternary_mlp=L * (st + n_adm), ternary_mlp_tc=L * n_adm,
+                        decode_attention=L * st)
             got = counts()
             if got != want:
                 fail(f"{label}: launches {got}, want {want}")
@@ -1976,7 +2074,37 @@ def main() -> None:
                 "engine ssr default answers, K3 admissions on the CUDA cores", d_prompts[:8],
                 outs_, False, hold=False)
         d_ab["tc" if on else "cuda_core"].append(res)
-    record["engine_ssr_default"] = {"main": d_main, "ab": d_ab}
+    # 15b. K2's admission rows on its tensor-core path (on) or on the CUDA
+    # cores (off: k2_tc(False)), in turns on, off, off, on: one 16-id and
+    # one 64-id prompt, each admitted alone twice by profile_engine_admission
+    # (the second under torch.profiler), counts exact: per admission K3 x2
+    # on its tensor-core path and K2 per layer, K2's on its tensor-core path
+    # in the "on" turns only
+    k2_ab = {"tc": [], "cuda_core": []}
+    eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
+    for on in DEC_AB:
+        res = {}
+        with k2_tc(on):
+            for p_ in (d_prompts[1], d_prompts[5]):  # 16 and 64 ids: buckets 16, 64
+                zero_counts()
+                prof = profile_engine_admission(
+                    eng, p_, f"llama-3-8b ssr, K2's admission rows on the "
+                    f"{'tensor cores' if on else 'CUDA cores'}")
+                got = counts()
+                want = dict(none, ternary_matmul_igathered=4 * L, ternary_matmul_igathered_tc=4 * L,
+                            ternary_mlp=2 * L, ternary_mlp_tc=2 * L if on else 0)
+                if got != want:
+                    fail(f"K2 admission A/B tc={on}, {len(p_)} ids: launches {got}, want {want}")
+                tally(got)
+                res[len(p_)] = prof
+        k2_ab["tc" if on else "cuda_core"].append(res)
+    for k, v in k2_ab.items():
+        for n_ids in (16, 64):
+            each = lambda key: " / ".join(f"{r[n_ids][key]:.2f}" for r in v)  # noqa: E731
+            print(f"K2 admission A/B, one {n_ids}-id admission, K2's rows on "
+                  f"{'the tensor cores' if k == 'tc' else 'the CUDA cores'}: device time "
+                  f"{each('device_ms')} ms (wall {each('wall_ms')} ms) on {record['smi']}")
+    record["engine_ssr_default"] = {"main": d_main, "ab": d_ab, "k2_ab": k2_ab}
     for k, v in d_ab.items():
         each = lambda key: " / ".join(f"{r[key]:.3f}" for r in v)  # noqa: E731
         print(f"engine ssr default A/B, 8 requests of 9-64 ids, K3's admission rows on "
@@ -2009,7 +2137,8 @@ def main() -> None:
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
         decode kernel + K2 + K7 per layer (K7 none when it is off). W2A8
         keeps the two-call MLP: K1 x4 per layer at every admission (on the
-        int8 tensor cores) and every decode step (on the CUDA cores). A
+        int8 tensor cores) and every decode step (on the CUDA cores). K2's
+        admission rows (16-64) run its tensor-core path. A
         gemma model's K2 launches are all GeGLU, its K7 launches all at hd
         256. With
         tc_on False (K1_TC_MIN_ROWS rebound) no launch takes the tensor
@@ -2023,13 +2152,15 @@ def main() -> None:
             return dict(none, ternary_matmul=4 * L * st + tc,
                         ternary_matmul_tc_a8=tc if tc_on else 0,
                         ternary_matmul_dec=4 * L * st if dec_on else 0, decode_attention=k7)
-        tc, k2n = 0, L * st
+        tc, k2n, k2tc = 0, L * st, 0
         for p in prompts_:
             Lb = min(_bucket(len(p)), ENGINE_M)
             tc += 2 * L + (2 * L if Lb > 64 else 0)
-            k2n += L if Lb <= 64 else 0
+            k2tc += L if Lb <= 64 else 0
+        k2n += k2tc
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
                     ternary_matmul_dec=2 * L * st if dec_on else 0, ternary_mlp=k2n,
+                    ternary_mlp_tc=k2tc,
                     decode_attention=k7, ternary_mlp_gelu=k2n if cfg.act == "gelu" else 0,
                     decode_attention_hd256=k7 if cfg.hd == 256 else 0)
 
@@ -2048,6 +2179,8 @@ def main() -> None:
         if got != want:
             fail(f"engine {label}: launches {got}, want {want}")
         tally(got)
+        if cfg.act == "gelu":  # GeGLU on K2's tensor-core path, apart from its CUDA-core one
+            gelu_tc[0] += got["ternary_mlp_tc"]
         if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
                    for r, m in zip(reqs, news_)):
             fail(f"engine {label}: a request did not finish with max_new valid tokens")
@@ -2957,6 +3090,124 @@ def main() -> None:
     record["k2_gelu_timing"] = k2g_detail
     record["k2_silu_gemma_timing"] = k2g_silu_detail
 
+    # 15c. K2's tensor-core path through its C entry (the gather, gate/up with
+    # the gated epilogue, the down product; scratch allocated outside the
+    # loop) at llama-3-8b's MLP ("ssr": the gather over its 4096 features,
+    # silu) and gemma-2b's ("down": the identity perm, GeGLU), 16 / 32 / 64
+    # rows, beside the CUDA-core K2 (the "off" turns' route), in turns tc,
+    # CUDA cores, CUDA cores, tc; the two dense bf16 torch.matmul with the
+    # activation between them (library: a yardstick, no single call
+    # exists), the plain version and the bound; then the path's three
+    # kernels' device time under torch.profiler
+    mlp_tc_lib = k1._mlp_tc_kernel_lib()
+    mlp_counters = torch.zeros(1024, dtype=torch.int32, device=dev)
+    k2tc_detail = []
+    for label, (D, I, n), act in (("llama-3-8b", MLP_8B, 0), ("gemma-2b", MLP_GEMMA, 1)):
+        gathered = act == 0
+        wbytes = D * 2 * I // 4 + 4 * (D // 128) * 2 * I + I * n // 4 + 4 * (I // 128) * n
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        layers = [rand_layer(D, 2 * I, gen=gk15) + rand_layer(I, n, gen=gk15)
+                  + (rand_perm(D, D, gen=gk15) if gathered else k1._identity_perm(D, dev),)
+                  for _ in range(copies)]
+        w_gu = torch.randn((D, 2 * I), generator=gk15, device=dev).bfloat16()
+        w_dn = torch.randn((I, n), generator=gk15, device=dev).bfloat16()
+        act_name = ("silu", "gelu")[act]
+        wave = k1.igtc_wave(dev)
+        gs, ds = k1.igtc_splits(D, 2 * I, 128, wave), k1.igtc_splits(I, n, 128, wave)
+        for B in (16, 32, 64):
+            Bp = k1.igtc_rows_pad(B)
+            x = torch.randn((B, D), generator=gk15, device=dev).bfloat16()
+            xg = torch.empty((Bp, D), dtype=torch.bfloat16, device=dev)
+            S = torch.empty((D // 128, Bp), dtype=torch.float32, device=dev)
+            gpart = torch.empty((gs, Bp, 2 * I), dtype=torch.float32, device=dev)
+            mid = torch.empty((Bp, I), dtype=torch.bfloat16, device=dev)
+            msums = torch.empty((I // 64 + I // 128, Bp), dtype=torch.float32, device=dev)
+            dpart = torch.empty((ds, B, n), dtype=torch.float32, device=dev)
+            partial = torch.empty((I // 128, B, n), dtype=torch.float32, device=dev)
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+
+            def kern_tc(i):
+                gp, ga, gm, dp, da, dm, pm = layers[i % copies]
+                ok(mlp_tc_lib.pt2_ternary_mlp_tc(
+                    x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
+                    dp.data_ptr(), da.data_ptr(), dm.data_ptr(), xg.data_ptr(), S.data_ptr(),
+                    gpart.data_ptr(), mid.data_ptr(), msums.data_ptr(), dpart.data_ptr(),
+                    out.data_ptr(), mlp_counters.data_ptr(), B, D, D, I, n, gs, ds, act, dix,
+                    stream), "K2 tc")
+
+            def kern_cc(i):
+                gp, ga, gm, dp, da, dm, pm = layers[i % copies]
+                ok(mlp_lib.pt2_ternary_mlp(
+                    x.data_ptr(), pm.data_ptr() if gathered else None, gp.data_ptr(),
+                    ga.data_ptr(), gm.data_ptr(), dp.data_ptr(), da.data_ptr(), dm.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), B, D, D, 2 * I, I, I, n, act, dix,
+                    stream), "K2")
+
+            def library(i):
+                gu = torch.matmul(x, w_gu)
+                return torch.matmul(k1.mlp_activation(act_name, gu[:, :I]) * gu[:, I:], w_dn)
+
+            turns = [time_ms(kern_tc, 50), time_ms(kern_cc, 20), time_ms(kern_cc, 20),
+                     time_ms(kern_tc, 50)]
+            plain_ms = time_ms(lambda i: k1.ternary_mlp_plain(
+                x, layers[i % copies][6] if gathered else None, *layers[i % copies][:6], I,
+                act=act_name), 3)
+            lib_ms = time_ms(library, 20)
+            nbytes = wbytes + 2 * B * D + 4 * B * n + (4 * D if gathered else 0)
+            d = row("K2tc", label, B, min(turns[0], turns[3]), plain_ms, lib_ms, nbytes,
+                    2.0 * B * (D * 2 * I + I * n), D=D, I=I, n=n, act=act_name, splits=[gs, ds])
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(20):
+                    kern_tc(i)
+                torch.cuda.synchronize()
+            krows = kernel_rows(prof)
+
+            def per_launch(key):
+                hit = [r for r in krows if key in r[2]]
+                return sum(r[0] for r in hit) / max(1, sum(r[1] for r in hit))
+
+            d.update(turns_ms=[turns[0], turns[3]], cuda_core_turns_ms=[turns[1], turns[2]],
+                     cuda_core_ms=min(turns[1], turns[2]), gather_device_ms=per_launch("gather_rows"),
+                     gateup_device_ms=per_launch("mlp_gateup"),
+                     down_device_ms=per_launch("igathered_tc"))
+            k2tc_detail.append(d)
+            print(f"K2 tensor-core path, {label} MLP ({act_name}, "
+                  f"{'gather' if gathered else 'identity perm'}) at {B:2d} rows: "
+                  f"{' / '.join(f'{t * 1e3:.1f}' for t in turns)} us in turns tc, CUDA cores, "
+                  f"CUDA cores, tc (device time by the profiler: gather "
+                  f"{d['gather_device_ms'] * 1e3:.1f} + gate/up {d['gateup_device_ms'] * 1e3:.1f} "
+                  f"+ down {d['down_device_ms'] * 1e3:.1f} us) | dense pair {lib_ms * 1e3:.1f} us | "
+                  f"plain {plain_ms * 1e3:.1f} us | bound {d['bound_ms'] * 1e3:.2f} us on "
+                  f"{record['smi']}")
+        # the host's cost of one whole wrapper call (checks, scratch, launches)
+        # on either path: the enqueue time of 30 calls after a synchronise
+        gp, ga, gm, dp, da, dm, pm = layers[0]
+        for B in (16, 64):
+            x = torch.randn((B, D), generator=gk15, device=dev).bfloat16()
+            host = {}
+            for on in (True, False, False, True):
+                with k2_tc(on):
+                    k1.ternary_mlp(x, pm if gathered else None, gp, ga, gm, dp, da, dm, I,
+                                   act=act_name)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(30):
+                        k1.ternary_mlp(x, pm if gathered else None, gp, ga, gm, dp, da, dm, I,
+                                       act=act_name)
+                    host.setdefault("tc" if on else "cuda_core", []).append(
+                        (time.perf_counter() - t0) / 30 * 1e3)
+                    torch.cuda.synchronize()
+            next(d for d in k2tc_detail if d["shape"] == label and d["B"] == B)[
+                "wrapper_host_ms"] = host
+            print(f"K2 wrapper, {label} at {B} rows: host time per call "
+                  f"{' / '.join(f'{t * 1e3:.1f}' for t in host['tc'])} us on the tensor-core "
+                  f"path, {' / '.join(f'{t * 1e3:.1f}' for t in host['cuda_core'])} us on the "
+                  f"CUDA cores (enqueue of 30 calls)")
+        del layers, w_gu, w_dn, gp, ga, gm, dp, da, dm, pm
+    if mlp_counters.any():
+        fail("K2's tensor-core path left a counter set")
+    record["k2_tc_timing"] = k2tc_detail
+
     # K1's decode kernel at gemma-2b's four projections, 1 and 8 rows, beside
     # the plain version, dense torch.matmul and the bytes bound
     k1g_detail = []
@@ -3229,7 +3480,7 @@ def main() -> None:
     # this slice's instances: K2 GeGLU at gemma-2b's MLP, B = 1; K7 at its
     # heads, B = 8, M = 2048, bf16 cache; their launches: every gemma-2b run
     # counted exactly
-    main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"]
+    main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"] - gelu_tc[0]
     main_launches["decode_attention_hd256"] = run_totals["decode_attention_hd256"]
     kernels += [
         entry("ternary_mlp_gelu", "pt2tpu_torch/csrc/ternary_mlp.cu",
@@ -3254,6 +3505,14 @@ def main() -> None:
     kernels.append(entry("ternary_matmul_igathered_dec", "pt2tpu_torch/csrc/ternary_matmul_dec.cu",
                          "pt2tpu/ops/kernels/pallas_ternary.py:735", b1(k3dec_detail),
                          max(k3dec_err, errs["ternary_matmul_igathered_dec"])))
+    # K2's tensor-core path at 16 rows (the engine's smallest admission
+    # bucket), llama-3-8b's MLP with its gather; its launches: every engine
+    # run counted exactly (GeGLU ones included)
+    main_launches["ternary_mlp_tc"] = run_totals["ternary_mlp_tc"]
+    kernels.append(entry("ternary_mlp_tc", "pt2tpu_torch/csrc/ternary_mlp_tc.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:1106",
+                         [d for d in k2tc_detail if d["B"] == 16 and d["shape"] == "llama-3-8b"],
+                         max(k2tc_err, errs["ternary_mlp_tc"])))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every 32-layer run (each counted exactly): {run_totals}")

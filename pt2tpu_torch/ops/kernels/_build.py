@@ -6,8 +6,9 @@ into ``build/kernels/`` at the root of the checkout (listed in .gitignore):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import time.
+The library name carries a hash of the source and of the sources it includes
+from ``csrc/`` (``#include "<file>"``), so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,11 +42,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def _digest(src: str) -> str:
+    """A hash of ``src`` and, in turn, of every ``csrc/`` file it includes."""
+    h, todo, seen = hashlib.sha256(), [src], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(text)
+        for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+            todo.append(os.path.join(CSRC_DIR, inc.decode()))
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` (if not built yet) and return the .so path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    digest = _digest(src)
     so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if os.path.exists(so):
         return so

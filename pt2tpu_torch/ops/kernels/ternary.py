@@ -20,8 +20,13 @@
   * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
     the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
     ``ternary_matmul_pallas_gathered``).
-  * K2 ``ternary_mlp``: the whole gated MLP in one launch, silu, gelu or
-    relu (``csrc/ternary_mlp.cu``; replaces ``ternary_mlp_pallas``).
+  * K2 ``ternary_mlp``: the whole gated MLP, silu, gelu or relu (replaces
+    ``ternary_mlp_pallas``), on two paths chosen by rows (:func:`k2_path`):
+    K3's one-pass gather, a split-K tensor-core gate/up product with the
+    gated epilogue, then K3's product over mid
+    (``csrc/ternary_mlp_tc.cu``) for rows :data:`K2_TC_MIN_ROWS` ..
+    :data:`FUSED_MAX_ROWS`; one CUDA-core launch (``csrc/ternary_mlp.cu``)
+    for the decode rows.
 
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
@@ -50,8 +55,10 @@ __all__ = [
     "K1_DEC_MAX_ROWS",
     "K1_DEC_A8",
     "FUSED_MAX_ROWS",
+    "K2_TC_MIN_ROWS",
     "k1_path",
     "k3_path",
+    "k2_path",
     "dec_splits",
     "igtc_splits",
     "ternary_matmul",
@@ -72,6 +79,9 @@ __all__ = [
     "mlp_activation",
     "ternary_mlp",
     "ternary_mlp_plain",
+    "mlp_tc_gather_plain",
+    "mlp_tc_mid_plain",
+    "ternary_mlp_tc_plain",
     "normalize_rows_a8",
 ]
 
@@ -358,6 +368,24 @@ def k3_path(rows: int, n: int, block_size: int, a8: bool) -> str:
     return "cuda_core"
 
 
+K2_TC_MIN_ROWS = 9
+"""The fewest rows K2 runs on its tensor-core path (``csrc/ternary_mlp_tc.cu``,
+up to :data:`FUSED_MAX_ROWS` rows); fewer run the CUDA-core K2
+(``csrc/ternary_mlp.cu``), whose row tiles are made for decode rows.
+Rebound to ``1 << 30``, it sends every row count to the CUDA-core K2
+(``chip_smoke.py``'s "off" turns). Read at each call."""
+
+
+def k2_path(rows: int) -> str:
+    """Which of K2's kernels :func:`ternary_mlp` launches on CUDA for
+    ``rows`` rows: "tc" (``pt2_ternary_mlp_tc``: the gather, the gate/up
+    product with the gated epilogue, the down product, all on the tensor
+    cores) for K2_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS, else "cc"
+    (``pt2_ternary_mlp``, the CUDA cores). Every shape that K2 takes (bf16,
+    scale blocks of 128, half and n multiples of 128) suits both."""
+    return "tc" if K2_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS else "cc"
+
+
 def dec_wave(device) -> int:
     """The decode kernel's CTAs in one wave on a CUDA ``device``:
     DEC_CTAS_PER_SM on each of its SMs (528 on an H100 SXM's 132)."""
@@ -558,17 +586,62 @@ def igathered_tc_gather_plain(
     holds lane p*bs/4 + 2h + i. S (nb, Bp) f32 holds each block's sum of
     the gathered values (the kernel adds them in another order: f32
     rounding only; exact in W2A8)."""
-    B = xk.shape[0]
-    K, bs = perm.shape[0], block_size
-    nb, Bp = K // bs, igtc_rows_pad(B)
     xl = onehot_gather_plain(xk.to(torch.bfloat16), perm)
     if a8:
         xl = torch.clamp(torch.round(xl.float()), -127, 127).to(torch.bfloat16)
-    xg = torch.zeros((Bp, K), dtype=torch.bfloat16, device=xk.device)
-    xg[:B] = xl.reshape(B, nb, 4, bs // 8, 2).permute(0, 1, 3, 2, 4).reshape(B, K)
-    S = torch.zeros((nb, Bp), dtype=torch.float32, device=xk.device)
-    S[:, :B] = xl.float().reshape(B, nb, bs).sum(dim=2).T
+    return _igtc_scratch_plain(xl, block_size)
+
+
+def _fragment_order(xl: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(R, K) in lane order -> the tensor-core paths' fragment order: within
+    a scale block, position 8h + 2p + i holds lane p*bs/4 + 2h + i."""
+    R, K = xl.shape
+    bs = block_size
+    return xl.reshape(R, K // bs, 4, bs // 8, 2).permute(0, 1, 3, 2, 4).reshape(R, K)
+
+
+def _lane_order(xg: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The inverse of :func:`_fragment_order`."""
+    R, K = xg.shape
+    bs = block_size
+    return xg.reshape(R, K // bs, bs // 8, 4, 2).permute(0, 1, 3, 2, 4).reshape(R, K)
+
+
+def _igtc_scratch_plain(xl: torch.Tensor, block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather's scratch for (B, K) values xl in lane order: (xg, S), xg
+    (Bp, K) in xl's dtype and fragment order with zero pad rows, S (nb, Bp)
+    f32 each block's sum of xl."""
+    B, K = xl.shape
+    nb, Bp = K // block_size, igtc_rows_pad(B)
+    xg = torch.zeros((Bp, K), dtype=xl.dtype, device=xl.device)
+    xg[:B] = _fragment_order(xl, block_size)
+    S = torch.zeros((nb, Bp), dtype=torch.float32, device=xl.device)
+    S[:, :B] = xl.float().reshape(B, nb, block_size).sum(dim=2).T
     return xg, S
+
+
+def _igtc_product_plain(xg, S, packed, alpha, mu, block_size, wave):
+    """K3's tensor-core product in f32 on its scratch (xg (Bp, K) in
+    fragment order, S (nb, Bp)): per scale block the f32 products d =
+    xg_blk @ T_blk; per :func:`igtc_splits` slice of ``wave``, acc += alpha
+    * d then acc += mu * S block by block in order; the slices summed in
+    slice order. Returns (Bp, n) f32."""
+    Bp, K = xg.shape
+    n, bs = packed.shape[1], block_size
+    nb = K // bs
+    xl = _lane_order(xg, bs).float().reshape(Bp, nb, bs)
+    T = unpack_ternary(packed, bs).float().reshape(nb, bs, n)
+    d = torch.einsum("bkc,kcn->kbn", xl, T)  # (nb, Bp, n): each block's products
+    splits = igtc_splits(K, n, bs, wave)
+    bpc = -(-nb // splits)
+    total = None
+    for sp in range(splits):
+        acc = torch.zeros((Bp, n), dtype=torch.float32, device=xg.device)
+        for blk in range(sp * bpc, min(nb, (sp + 1) * bpc)):
+            acc = acc + alpha[blk].float() * d[blk]
+            acc = acc + mu[blk].float() * S[blk][:, None]
+        total = acc if total is None else total + acc
+    return total
 
 
 def ternary_matmul_igathered_tc_plain(
@@ -596,22 +669,91 @@ def ternary_matmul_igathered_tc_plain(
     else:
         xk = x.to(torch.bfloat16)
     xg, S = igathered_tc_gather_plain(xk, perm, block_size, a8)
-    Bp, K = xg.shape
-    n, bs = packed.shape[1], block_size
-    nb = K // bs
-    xl = xg.float().reshape(Bp, nb, bs // 8, 4, 2).permute(0, 1, 3, 2, 4).reshape(Bp, nb, bs)
-    T = unpack_ternary(packed, bs).float().reshape(nb, bs, n)
-    d = torch.einsum("bkc,kcn->kbn", xl, T)  # (nb, Bp, n): each block's products
-    splits = igtc_splits(K, n, bs, wave)
-    bpc = -(-nb // splits)
-    total = None
-    for sp in range(splits):
-        acc = torch.zeros((Bp, n), dtype=torch.float32, device=x.device)
-        for blk in range(sp * bpc, min(nb, (sp + 1) * bpc)):
-            acc = acc + alpha[blk].float() * d[blk]
-            acc = acc + mu[blk].float() * S[blk][:, None]
-        total = acc if total is None else total + acc
+    total = _igtc_product_plain(xg, S, packed, alpha, mu, block_size, wave)
     return total[:B] * sx if a8 else total[:B]
+
+
+def mlp_tc_gather_plain(
+    x: torch.Tensor,  # (B, m) feature order
+    perm: Optional[torch.Tensor],  # (Kg,) gateup's visit perm, or None
+    Kg: int,
+    block_size: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first launch of K2's tensor-core path: (xg, S) as
+    :func:`igathered_tc_gather_plain` writes them, in x's dtype (the kernel
+    takes bf16): xg (Bp, Kg) holds x[:, perm] (0 for a pad lane) or, with
+    no perm, x zero-padded to Kg lanes (the kernel gathers through the
+    identity perm), in fragment order with zero pad rows; S (nb, Bp) f32
+    each block's sum."""
+    if perm is not None:
+        xl = onehot_gather_plain(x, perm)
+    else:
+        if x.shape[-1] > Kg:
+            raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
+        xl = F.pad(x, (0, Kg - x.shape[-1]))
+    return _igtc_scratch_plain(xl, block_size)
+
+
+def mlp_tc_mid_plain(
+    xg: torch.Tensor,  # (Bp, Kg) fragment order
+    S: torch.Tensor,  # (Kg // bs, Bp) f32
+    gu_packed: torch.Tensor,
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    act: str = "silu",
+    block_size: int = 128,
+    *,
+    wave: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second launch of K2's tensor-core path, its gate/up product and
+    gated epilogue: gate | up = K3's product (:func:`_igtc_product_plain`,
+    slices of ``wave``) over all 2 * half columns; mid = act(gate) * up cast
+    to xg's dtype, in down's fragment order; Smid (half // bs, Bp) f32 each
+    down block's sum of mid as stored, its first 64 lanes then its last 64
+    (a CTA's share each), added in that order. Returns (mid, Smid)."""
+    mlp_act_code(act)
+    Bp = xg.shape[0]
+    half = gu_packed.shape[1] // 2
+    gu = _igtc_product_plain(xg, S, gu_packed, gu_alpha, gu_mu, block_size, wave)
+    mid = (mlp_activation(act, gu[:, :half]) * gu[:, half:]).to(xg.dtype)
+    halves = mid.float().reshape(Bp, half // 64, 64).sum(dim=2)
+    Smid = (halves[:, 0::2] + halves[:, 1::2]).T.contiguous()
+    return _fragment_order(mid, block_size), Smid
+
+
+def ternary_mlp_tc_plain(
+    x: torch.Tensor,
+    gu_perm: Optional[torch.Tensor],
+    gu_packed: torch.Tensor,
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    dn_packed: torch.Tensor,
+    dn_alpha: torch.Tensor,
+    dn_mu: torch.Tensor,
+    intermediate: int,
+    block_size: int = 128,
+    act: str = "silu",
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K2's tensor-core path (its C entry
+    ``pt2_ternary_mlp_tc``) in f32: :func:`mlp_tc_gather_plain`, then
+    :func:`mlp_tc_mid_plain`, then K3's product over mid and Smid with K =
+    half (down's first half // bs blocks), each product cut into the
+    :func:`igtc_splits` slices of ``wave`` and summed in slice order. The
+    scratches hold x's dtype: bf16 on the card (the wrapper casts x), f32
+    where a CPU test holds the algorithm against JAX's f32 interpret mode.
+    Returns (B, n) f32."""
+    mlp_act_code(act)
+    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                  intermediate, block_size)
+    if block_size != 128:
+        raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
+    xg, S = mlp_tc_gather_plain(x, gu_perm, Kg, block_size)
+    mid, Smid = mlp_tc_mid_plain(xg, S, gu_packed, gu_alpha, gu_mu, act, block_size, wave=wave)
+    out = _igtc_product_plain(mid, Smid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv],
+                              block_size, wave)
+    return out[: x.shape[0]]
 
 
 _lib = None
@@ -620,6 +762,7 @@ _igtc_lib = None
 _tc_lib = None
 _tc_a8_lib = None
 _mlp_lib = None
+_mlp_tc_lib = None
 _gathered_lib = None
 
 
@@ -696,6 +839,17 @@ def _mlp_kernel_lib():
         fn.restype = ctypes.c_int
         _mlp_lib = lib
     return _mlp_lib
+
+
+def _mlp_tc_kernel_lib():
+    global _mlp_tc_lib
+    if _mlp_tc_lib is None:
+        lib = _build.load("ternary_mlp_tc")
+        fn = lib.pt2_ternary_mlp_tc
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _mlp_tc_lib = lib
+    return _mlp_tc_lib
 
 
 def _gathered_kernel_lib():
@@ -825,8 +979,8 @@ def _sm_count(device: int) -> int:
 
 def _dec_counter_buffer(device, stream, tiles, path="K1's decode path"):
     """The split-K kernels' per-column-tile counters for launches on
-    ``stream`` (K1's and K3's decode rows and K3's tensor-core path share
-    them): int32 zeros, kept between calls (each launch leaves them 0),
+    ``stream`` (K1's and K3's decode rows and K3's and K2's tensor-core
+    paths share them): int32 zeros, kept between calls (each launch leaves them 0),
     grown on demand. Each stream has its own, so the launches that share a
     buffer are ordered by their stream and never overlap. A CUDA graph
     capture is refused (naming ``path``): its replays could overlap with the
@@ -1122,10 +1276,14 @@ def ternary_mlp(
     """The whole gated MLP, (B, m) -> (B, n) f32, with ``act`` silu, gelu
     (tanh form) or relu (see ternary_mlp_plain).
 
-    CUDA: launches K2 (its MLP kernel, instantiated for the activation, and
-    the fixed-order sum of the per-I-block partials) for B <= 64 rows in
-    bf16 and counts it once in ``ternary_mlp.launches`` (GeGLU launches also
-    in ``ternary_mlp.launches_gelu``). CPU: the plain version."""
+    CUDA: launches K2 for B <= 64 rows in bf16 on the path :func:`k2_path`
+    names for B, read at each call: "tc" (rows K2_TC_MIN_ROWS .. 64) the
+    gather, gate/up and down launches of the tensor-core path; "cc" the
+    CUDA-core MLP kernel, instantiated for the activation, and the
+    fixed-order sum of its per-I-block partials. Counts the call once in
+    ``ternary_mlp.launches`` (the tensor-core path also in
+    ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``).
+    CPU: the plain version."""
     code = mlp_act_code(act)
     if x.device.type == "cpu":
         return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
@@ -1157,21 +1315,88 @@ def ternary_mlp(
     elif m > Kg:
         raise ValueError(f"x width {m} exceeds lane count {Kg}")
     xk = x.to(torch.bfloat16).contiguous()
-    partial = torch.empty((nv, B, n), dtype=torch.float32, device=x.device)
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
-    rc = _mlp_kernel_lib().pt2_ternary_mlp(
-        xk.data_ptr(), None if gu_perm is None else gu_perm.data_ptr(),
-        gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
-        dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, m, Kg, 2 * half, half,
-        dn_packed.shape[0] * 4, n, code, *_device_and_stream(x),
-    )
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    if k2_path(B) == "tc":
+        _ternary_mlp_tc(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
+                        out, half, code)
+        ternary_mlp.launches_tc += 1
+    else:
+        partial = torch.empty((nv, B, n), dtype=torch.float32, device=x.device)
+        rc = _mlp_kernel_lib().pt2_ternary_mlp(
+            xk.data_ptr(), None if gu_perm is None else gu_perm.data_ptr(),
+            gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
+            dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, m, Kg, 2 * half, half,
+            dn_packed.shape[0] * 4, n, code, *_device_and_stream(x),
+        )
+        if rc != 0:
+            raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     ternary_mlp.launches += 1
     ternary_mlp.launches_gelu += act == "gelu"
     return out
 
 
 ternary_mlp.launches = 0
+ternary_mlp.launches_tc = 0
 ternary_mlp.launches_gelu = 0
+
+
+_identity_perms: dict = {}
+
+
+def _identity_perm(Kg: int, device) -> torch.Tensor:
+    """arange(Kg) int32 on ``device``, kept between calls: the gather of
+    K2's tensor-core path reads the layout without a gather through it
+    (lanes >= m read as 0, the zero pad)."""
+    key = (device, Kg)
+    perm = _identity_perms.get(key)
+    if perm is None:
+        perm = _identity_perms[key] = torch.arange(Kg, dtype=torch.int32, device=device)
+    return perm
+
+
+def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
+                    code):
+    """K2's tensor-core path (``pt2_ternary_mlp_tc``): K3's gather into a
+    (Bp, Kg) bf16 scratch and its block sums (through the identity perm
+    without a gather), the gate/up product with the gated epilogue into a
+    (Bp, half) bf16 mid scratch and its block sums, then K3's product over
+    mid, each product over igtc_splits K slices of the card's wave with its
+    (splits, ., .) f32 partials; all scratch is allocated here, the counters
+    are the stream's (shared with K1's and K3's split-K paths). xk is bf16 x
+    (B, m); perm is read as 8-byte vectors (a copy if it is not 16-byte
+    aligned). Writes out; a launch that fails raises."""
+    B, m = xk.shape
+    Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
+    for t in (gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu):
+        if t.data_ptr() % 16:
+            raise ValueError("K2's tensor-core path needs 16-byte aligned codes and scales")
+    if perm is None:
+        perm = _identity_perm(Kg, xk.device)
+    elif perm.data_ptr() % 16:
+        perm = perm.clone()
+    device, stream = _device_and_stream(xk)
+    wave = IGTC_CTAS_PER_SM * _sm_count(device)
+    gu_splits = igtc_splits(Kg, 2 * half, 128, wave)
+    dn_splits = igtc_splits(half, n, 128, wave)
+    Bp = igtc_rows_pad(B)
+    bf16 = dict(dtype=torch.bfloat16, device=xk.device)
+    f32 = dict(dtype=torch.float32, device=xk.device)
+    xg = torch.empty((Bp, Kg), **bf16)
+    sums = torch.empty((Kg // 128, Bp), **f32)
+    gu_partial = torch.empty((gu_splits, Bp, 2 * half), **f32) if gu_splits > 1 else None
+    mid = torch.empty((Bp, half), **bf16)
+    mid_sums = torch.empty((half // 64 + half // 128, Bp), **f32)
+    dn_partial = torch.empty((dn_splits, B, n), **f32) if dn_splits > 1 else None
+    counters = _dec_counter_buffer(xk.device, stream, max(half // 64 + half // 128, n // 128),
+                                   "K2's tensor-core path")
+    rc = _mlp_tc_kernel_lib().pt2_ternary_mlp_tc(
+        xk.data_ptr(), perm.data_ptr(), gu_packed.data_ptr(), gu_alpha.data_ptr(),
+        gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
+        xg.data_ptr(), sums.data_ptr(), None if gu_partial is None else gu_partial.data_ptr(),
+        mid.data_ptr(), mid_sums.data_ptr(), None if dn_partial is None else dn_partial.data_ptr(),
+        out.data_ptr(), counters.data_ptr(), B, m, Kg, half, n, gu_splits, dn_splits, code, device,
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K2 (rows 9-64, tensor cores) launch failed: cudaError {rc}")
