@@ -84,8 +84,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      ternary_matmul.launches_tc_a8 counts (decode rows launch it never);
      every 32-layer W2A8 run above holds launches_tc_a8 to its prefill
      launches; A/Bs, in turns (on, off, off, on), the lockstep W2A8 prefill
-     (llama-2-7b, phase 4) and the "down" engine under W2A8 (phase 5b:
-     impl "a8", bf16 KV, quantum 1, then once with K7 off; every answer held
+     (llama-2-7b, phase 4) and the "down" engine under W2A8 at 16 of its 32
+     layers (10c: impl "a8", bf16 KV, quantum 1, then once with K7 off; every answer held
      to A8_TOLS' pick gap under the teacher-forced W2A8 route on plain
      versions); and times it through its
      C entry at 1-512 rows (phase 6) beside the CUDA-core kernel in W2A8,
@@ -107,7 +107,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      beside the held default ones); A/Bs, in turns (on, off, off, on; "on"
      sets K1_DEC_A8, "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-2-7b
      decode (bf16 and W2A8: decode tok/s, step wall, profiled device time;
-     11b, in phase 4) and the "down" engine (bf16 and W2A8, quantum 1:
+     11b, in phase 4) and the "down" engine at 16 of its 32 layers, as 10c's
+     runs (bf16 and W2A8, quantum 1:
      decode tok/s, t_decode_s, every answer held as in 5b / 10c, and one
      profiled decode step; 11c, in 5b); and times it through its C entry at
      1/2/4/8 rows (phase 6) beside the CUDA-core kernel, the tensor-core
@@ -199,6 +200,30 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      torch.matmul with the activation (a yardstick), the plain version and
      the bound, then its three kernels under torch.profiler (15c, in phase
      6).
+ 16. (K2's decode rows) holds K2's decode path, K1's split-K tensor-core
+     GEMV over gateup with x staged through perm (the identity perm without
+     a gather), the last CTA of each gate/up tile pair writing
+     mid = bf16(act(gate) * up), then K1's decode kernel over mid
+     (csrc/ternary_mlp_dec.cu's pt2_ternary_mlp_dec, routed by k2_path for
+     rows 1..K2_DEC_MAX_ROWS), against ternary_mlp_plain and its own plain
+     version ternary_mlp_dec_plain at llama-3-8b's MLP (silu, with and
+     without the gather) and gemma-2b's (GeGLU, without), rows 1/2/4/8,
+     every call twice for identical bits, exact launches / launches_dec /
+     launches_gelu counts and none of K1's (16a, after 15a; phase 2's
+     decode-row K2 checks run on it and again on the CUDA-core K2); holds
+     launches_dec to exactly L per decode step in every 32- and 18-layer
+     run, so the CUDA-core K2 launches in none of them but the "off" turns;
+     in turns on, off, off, on ("off" rebinds K2_DEC_MAX_ROWS to 0: the
+     CUDA-core K2) profiles one lockstep llama-3-8b "ssr" decode step at B 4
+     beside 15 decode steps' tok/s (after 13b), and, in 8 turns, one engine
+     decode step beside a short engine run's decode tok/s for llama-3-8b
+     "down" (after 11c) and gemma-2b (in 12c), with K2's device time and
+     share of each step (16b); and times the C entry at both MLPs, 1/2/4/8
+     rows, beside the CUDA-core K2 (in turns decode path, CUDA cores, CUDA
+     cores, decode path), the two dense torch.matmul with the activation
+     (a yardstick), the plain version and the bound, its gate/up and down
+     under torch.profiler and the wrapper's host time per call on either
+     path (16c, in phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -310,6 +335,19 @@ def kernel_rows(prof):
     return sorted(rows, reverse=True)
 
 
+# the kernels of K2's decode rows, by the part of the profile they stand
+# for: the decode path's gate/up, K1's decode kernel (the decode path's
+# down, and K1's qkv and o in the "down" layout), the CUDA-core K2 and its
+# partial sum
+K2_PARTS = {"gateup": "mlp_dec_gateup_kernel", "dec_kernel": "ternary_matmul_dec_kernel<false, false>",
+            "cuda_core": "ternary_mlp_kernel", "cuda_core_sum": "sum_partials_kernel"}
+
+
+def k2_parts(rows):
+    """Device ms of each of K2_PARTS in a profile's kernel rows."""
+    return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K2_PARTS.items()}
+
+
 def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     """Where one decode step's time goes (bf16, or W2A8 with impl "a8"): its
     wall time (unprofiled, host clock around a synchronised step) against the
@@ -338,7 +376,7 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     rows = kernel_rows(prof)
     device_ms = sum(r[0] for r in rows)
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
-           "device_busy": device_ms / wall_ms if wall_ms else 0.0,
+           "device_busy": device_ms / wall_ms if wall_ms else 0.0, "k2_parts": k2_parts(rows),
            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:8]]}
     print(f"one decode step, {label} (B={B}, {cfg.n_layers} layers, {impl}): wall {wall_ms:.2f} "
           f"ms, "
@@ -394,7 +432,7 @@ def profile_engine_step(eng, label):
     device_ms = sum(r[0] for r in rows)
     k7_ms = sum(r[0] for r in rows if "decode_attention" in r[2])
     out = {"device_ms": device_ms, "k7_ms": k7_ms,
-           "k7_share": k7_ms / device_ms if device_ms else 0.0,
+           "k7_share": k7_ms / device_ms if device_ms else 0.0, "k2_parts": k2_parts(rows),
            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:8]]}
     print(f"one engine decode step, {label} (B=8, M=2048): device time {device_ms:.2f} ms, "
           f"K7 {k7_ms:.3f} ms = {100 * out['k7_share']:.1f} % (profiler)")
@@ -452,6 +490,7 @@ def main() -> None:
         k1.ternary_matmul.launches_tc = k1.ternary_matmul.launches_tc_a8 = 0
         k1.ternary_matmul.launches_dec = k1.ternary_matmul_igathered.launches_dec = 0
         k1.ternary_matmul_igathered.launches_tc = k1.ternary_mlp.launches_tc = 0
+        k1.ternary_mlp.launches_dec = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
 
     def counts():
@@ -460,9 +499,11 @@ def main() -> None:
         "ternary_matmul_tc", "ternary_matmul_tc_a8" and "ternary_matmul_dec";
         K3's decode and tensor-core launches (also in
         "ternary_matmul_igathered") apart as "ternary_matmul_igathered_dec"
-        and "ternary_matmul_igathered_tc"; K2's tensor-core launches, its
-        GeGLU launches (either path) and K7's at hd 256 apart as
-        "ternary_mlp_tc", "ternary_mlp_gelu" and "decode_attention_hd256"."""
+        and "ternary_matmul_igathered_tc"; K2's decode and tensor-core
+        launches, its GeGLU launches (any path) and K7's at hd 256 apart as
+        "ternary_mlp_dec", "ternary_mlp_tc", "ternary_mlp_gelu" and
+        "decode_attention_hd256". K2's decode path's down launch is K2's, not
+        one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -470,23 +511,27 @@ def main() -> None:
         c["ternary_matmul_igathered_dec"] = k1.ternary_matmul_igathered.launches_dec
         c["ternary_matmul_igathered_tc"] = k1.ternary_matmul_igathered.launches_tc
         c["ternary_mlp_tc"] = k1.ternary_mlp.launches_tc
+        c["ternary_mlp_dec"] = k1.ternary_mlp.launches_dec
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
-    gelu_tc = [0]  # of them, GeGLU launches on K2's tensor-core path
+    gelu_paths = {"ternary_mlp_tc": 0, "ternary_mlp_dec": 0}  # of them, GeGLU ones by K2's path
 
     def tally(c):
         for k, v in c.items():
             run_totals[k] += v
+        if c["ternary_mlp_gelu"]:  # a gemma-2b run: every K2 launch is GeGLU
+            for k in gelu_paths:
+                gelu_paths[k] += c[k]
 
     # ---- build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
-               "ternary_mlp_tc"]
+               "ternary_mlp_tc", "ternary_mlp_dec"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -570,6 +615,44 @@ def main() -> None:
             yield
         finally:
             k1.K2_TC_MIN_ROWS = saved
+
+    @contextlib.contextmanager
+    def k2_dec(on):
+        """K2's decode rows on its decode path as routed (on), or on the
+        CUDA-core K2 (off: K2_DEC_MAX_ROWS rebound to 0)."""
+        saved = k1.K2_DEC_MAX_ROWS
+        if not on:
+            k1.K2_DEC_MAX_ROWS = 0
+        try:
+            yield
+        finally:
+            k1.K2_DEC_MAX_ROWS = saved
+
+    def k2_dec_ab_summary(label, res):
+        """16b's turns ({"dec": [...], "cuda_core": [...]}, each a profiled
+        step with k2_parts): K2's device time per step, the decode path's
+        gate/up plus its down (K1's decode kernel's time in an "on" turn less
+        its mean over the "off" turns, where it runs K1's decode rows alone)
+        or the CUDA-core K2 with its partial sum, and its share of the
+        step's device time; printed with the step's wall and decode tok/s."""
+        off = [r["k2_parts"]["dec_kernel"] for r in res["cuda_core"]]
+        k1_dec_ms = sum(off) / len(off)
+        for k, rows in res.items():
+            for r in rows:
+                p = r["k2_parts"]
+                r["k2_ms"] = (p["gateup"] + p["dec_kernel"] - k1_dec_ms if k == "dec"
+                              else p["cuda_core"] + p["cuda_core_sum"])
+                r["k2_share"] = r["k2_ms"] / r["device_ms"] if r["device_ms"] else 0.0
+        for k, rows in res.items():
+            def each(key, scale=1.0, rows=rows):
+                return " / ".join(f"{scale * r[key]:.2f}" for r in rows)
+
+            print(f"K2 decode A/B, {label}, K2's decode rows on "
+                  f"{'its decode path' if k == 'dec' else 'the CUDA cores'} (in turns "
+                  f"{', '.join(['on, off, off, on'] * (len(rows) // 2))}): step device time {each('device_ms')} ms, K2 {each('k2_ms')} ms "
+                  f"({each('k2_share', 100.0)} %), step wall {each('step_wall_ms')} ms, decode "
+                  f"{each('decode_tok_s')} tok/s on {record['smi']}")
+        return res
 
     # K1's CUDA-core kernel; its tensor-core kernels' in tc_err, a8_err, its
     # decode kernel's in dec_err
@@ -1134,11 +1217,70 @@ def main() -> None:
           f"{k2tc_err:.3e}) and of its own plain version (max|err| {k2tc_algo_err:.3e}); "
           f"launches, launches_tc and launches_gelu exact")
 
+    stamp("16a")
+    # ---- 16a. K2's decode rows on its decode path (K1's decode GEMV over
+    # gateup with x staged through perm, the gated epilogue in the last CTA
+    # of each gate/up tile pair, then K1's decode kernel over mid) vs both
+    # plain versions: llama-3-8b's MLP (silu; "ssr" with a gather over its
+    # 4096 features, "down" without) and gemma-2b's (GeGLU, "down"), rows
+    # 1/2/4/8, each call twice for identical bits; launches, launches_dec
+    # and launches_gelu exact, none of them K1's. Its own generator
+    gk16 = torch.Generator(device=dev).manual_seed(16)
+    k2dec_wave = k1.dec_wave(dev)
+    k2dec_err = k2dec_algo_err = 0.0
+    k2dec_checks = 0
+
+    def k2_dec_launches():
+        return (k1.ternary_mlp.launches, k1.ternary_mlp.launches_dec,
+                k1.ternary_mlp.launches_gelu, k1.ternary_matmul.launches)
+
+    for (D, I, n), act, layouts in ((MLP_8B, "silu", (True, False)),
+                                    (MLP_GEMMA, "gelu", (False,))):
+        gp, ga, gm = rand_layer(D, 2 * I, gen=gk16)
+        dp, da, dm = rand_layer(I, n, gen=gk16)
+        for gathered in layouts:
+            args = (rand_perm(D, D, gen=gk16) if gathered else None, gp, ga, gm, dp, da, dm, I)
+            for B in (1, 2, 4, 8):
+                label = f"K2 decode path D={D} {act} gather={gathered} rows={B}"
+                x = torch.randn((B, D), generator=gk16, device=dev).bfloat16()
+                if k1.k2_path(B) != "dec":
+                    fail(f"{label}: k2_path says {k1.k2_path(B)}")
+                c0 = k2_dec_launches()
+                got = k1.ternary_mlp(x, *args, act=act)
+                again = k1.ternary_mlp(x, *args, act=act)
+                torch.cuda.synchronize()
+                rose = tuple(b - a for a, b in zip(c0, k2_dec_launches()))
+                if rose != (2, 2, 2 if act == "gelu" else 0, 0):
+                    fail(f"{label}: launches, launches_dec, launches_gelu and K1's launches rose "
+                         f"by {rose}")
+                if not torch.equal(got, again):
+                    fail(f"{label}: two calls differ")
+                want = k1.ternary_mlp_plain(x, *args, act=act)
+                algo = k1.ternary_mlp_dec_plain(x, *args, act=act, wave=k2dec_wave)
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                aerr = (got - algo).abs().max().item()
+                if got.shape != want.shape or not (err <= MLP_TOL * scale
+                                                   and aerr <= MLP_TOL * scale):
+                    fail(f"{label}: max|err| {err:.3e} vs ternary_mlp_plain, {aerr:.3e} vs "
+                         f"ternary_mlp_dec_plain > {MLP_TOL} x max|ref| {scale:.3e}")
+                k2dec_err, k2dec_algo_err = max(k2dec_err, err), max(k2dec_algo_err, aerr)
+                k2dec_checks += 1
+        del gp, ga, gm, dp, da, dm, args
+    record["k2_dec_checks"] = k2dec_checks
+    record["k2_dec_max_abs_err"] = k2dec_err
+    record["k2_dec_max_abs_err_vs_dec_plain"] = k2dec_algo_err
+    print(f"K2 decode path vs plain: {k2dec_checks} checks (llama-3-8b silu with and without the "
+          f"gather, gemma-2b GeGLU without, x rows 1/2/4/8), each called twice with identical "
+          f"bits, within {MLP_TOL} x max|ref| of ternary_mlp_plain (max|err| {k2dec_err:.3e}) "
+          f"and of its own plain version (max|err| {k2dec_algo_err:.3e}); launches, launches_dec "
+          f"and launches_gelu exact, none of K1's")
+
     stamp("2")
     # ---- 2. K4, K3 and K2 vs their plain versions
     errs = {"onehot_gather": 0.0, "ternary_matmul_igathered": 0.0,
             "ternary_matmul_igathered_dec": 0.0, "ternary_matmul_igathered_tc": 0.0,
-            "ternary_mlp": 0.0, "ternary_mlp_tc": 0.0}
+            "ternary_mlp": 0.0, "ternary_mlp_tc": 0.0, "ternary_mlp_dec": 0.0}
     nchecks = dict.fromkeys(errs, 0)
 
     def held(kernel, label, got, want, tol):
@@ -1178,8 +1320,23 @@ def main() -> None:
     # MLPs: llama-3-8b, and I = 1408 (11 blocks) with down padded to 16 blocks
     # (verify_fused_mlp's probe); ssr gathers over D features or no gather
     # (x zero-padded to the gateup's 16-block lane count). K2's checks under
-    # the name of the path its rows take (tensor-core path: "ternary_mlp_tc")
-    k2_name = lambda B, cc: cc if k1.k2_path(B) == "cc" else "ternary_mlp_tc"  # noqa: E731
+    # the name of the path its rows take (decode path: "ternary_mlp_dec",
+    # tensor-core path: "ternary_mlp_tc"); each decode-row call again with
+    # the decode path off, on the CUDA-core K2
+    k2_name = lambda B, cc: {"cc": cc, "dec": "ternary_mlp_dec",  # noqa: E731
+                             "tc": "ternary_mlp_tc"}[k1.k2_path(B)]
+
+    def k2_held(cc, label, xk, args, act="silu"):
+        """K2 on the path k2_path names for xk's rows, then (decode rows) on
+        the CUDA-core K2 under ``cc``'s name, each against ternary_mlp_plain."""
+        want = k1.ternary_mlp_plain(xk, *args, act=act)
+        B = xk.shape[0]
+        held(k2_name(B, cc), label, k1.ternary_mlp(xk, *args, act=act), want, MLP_TOL)
+        if k1.k2_path(B) == "dec":
+            with k2_dec(False):
+                held(cc, f"{label}, CUDA-core K2", k1.ternary_mlp(xk, *args, act=act), want,
+                     MLP_TOL)
+
     for D, I, n in (MLP_8B, (512, 1408, 512)):
         Kg = -(-D // 2048) * 2048
         gp, ga, gm = rand_layer(Kg, 2 * I)
@@ -1188,9 +1345,8 @@ def main() -> None:
             perm = rand_perm(D, Kg) if gathered else None
             for B in (1, 2, 4, 16):
                 x = torch.randn((B, D), generator=g, device=dev).bfloat16()
-                held(k2_name(B, "ternary_mlp"), f"K2 D={D} I={I} gather={gathered} B={B}",
-                     k1.ternary_mlp(x, perm, gp, ga, gm, dp, da, dm, I),
-                     k1.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, I), MLP_TOL)
+                k2_held("ternary_mlp", f"K2 D={D} I={I} gather={gathered} B={B}", x,
+                        (perm, gp, ga, gm, dp, da, dm, I))
     del gp, ga, gm, dp, da, dm
     # stacked views: layer li of (L, ...) arrays
     D, I, n = 4096, 1024, 4096
@@ -1204,16 +1360,14 @@ def main() -> None:
         held(k3_name(4, 2 * I, False), f"K3 packed[{li}]",
              k1.ternary_matmul_igathered(x, perms[li], gp[li], ga[li], gm[li]),
              k1.ternary_matmul_igathered_plain(x, perms[li], gp[li], ga[li], gm[li]), KERNEL_TOL)
-        held("ternary_mlp", f"K2 layer {li}",
-             k1.ternary_mlp(x, perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I),
-             k1.ternary_mlp_plain(x, perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I),
-             MLP_TOL)
+        k2_held("ternary_mlp", f"K2 layer {li}", x,
+                (perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I))
     del gp, ga, gm, dp, da, dm, x
     # K2's GeGLU mode at the gemma-2b MLP (2048 -> 2 x 16384 -> 2048) on the
     # packed[li] views of a 2-layer stack, without a gather ("down", the
     # gateup's lanes = x's width) and with one (an "ssr" layout), rows
-    # 1/2/4/8/16/64 (every row tile); the relu mode at one shape; the
-    # GeGLU launches counted apart, exactly
+    # 1/2/4/8/16/64 (every row tile; decode rows on both paths); the relu
+    # mode at one shape; the GeGLU launches counted apart, exactly
     for kname in ("ternary_mlp_gelu", "ternary_mlp_relu"):
         errs[kname], nchecks[kname] = 0.0, 0
     gelu0, gelu_calls = k1.ternary_mlp.launches_gelu, 0
@@ -1226,15 +1380,12 @@ def main() -> None:
             args = (perms[li], gp[li], ga[li], gm[li], dp[li], da[li], dm[li], I)
             for B in (1, 2, 4, 8, 16, 64):
                 x = torch.randn((B, D), generator=ggem, device=dev).bfloat16()
-                held(k2_name(B, "ternary_mlp_gelu"),
-                     f"K2 GeGLU gemma-2b gather={gathered} layer {li} B={B}",
-                     k1.ternary_mlp(x, *args, act="gelu"),
-                     k1.ternary_mlp_plain(x, *args, act="gelu"), MLP_TOL)
-                gelu_calls += 1
+                k2_held("ternary_mlp_gelu", f"K2 GeGLU gemma-2b gather={gathered} layer {li} "
+                        f"B={B}", x, args, "gelu")
+                gelu_calls += 2 if B <= 8 else 1
     x = torch.randn((8, D), generator=ggem, device=dev).bfloat16()
     args = (None, gp[0], ga[0], gm[0], dp[0], da[0], dm[0], I)
-    held("ternary_mlp_relu", "K2 relu gemma-2b B=8", k1.ternary_mlp(x, *args, act="relu"),
-         k1.ternary_mlp_plain(x, *args, act="relu"), MLP_TOL)
+    k2_held("ternary_mlp_relu", "K2 relu gemma-2b B=8", x, args, "relu")
     if k1.ternary_mlp.launches_gelu - gelu0 != gelu_calls:
         fail(f"K2 GeGLU launches rose by {k1.ternary_mlp.launches_gelu - gelu0} for "
              f"{gelu_calls} calls")
@@ -1249,7 +1400,9 @@ def main() -> None:
           f"{nchecks['ternary_matmul_igathered_tc']} on its tensor-core path (16 rows; max|err| "
           f"{errs['ternary_matmul_igathered_tc']:.3e}) within {KERNEL_TOL} x max|ref|; K2 vs "
           f"plain: {nchecks['ternary_mlp']} checks within {MLP_TOL} x max|ref| (max|err| "
-          f"{errs['ternary_mlp']:.3e}) on the CUDA-core K2, {nchecks['ternary_mlp_tc']} on its "
+          f"{errs['ternary_mlp']:.3e}) on the CUDA-core K2 (decode rows with its decode path "
+          f"off), {nchecks['ternary_mlp_dec']} on its decode path (rows <= 8, every activation; "
+          f"max|err| {errs['ternary_mlp_dec']:.3e}), {nchecks['ternary_mlp_tc']} on its "
           f"tensor-core path (16 and 64 rows; max|err| {errs['ternary_mlp_tc']:.3e}); K2 GeGLU "
           f"at gemma-2b on the CUDA cores: {nchecks['ternary_mlp_gelu']} checks (max|err| "
           f"{errs['ternary_mlp_gelu']:.3e}), relu {nchecks['ternary_mlp_relu']} (max|err| "
@@ -1831,13 +1984,13 @@ def main() -> None:
         "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
                      ternary_matmul_igathered=2 * L * steps,
                      ternary_matmul_igathered_dec=2 * L * steps, ternary_mlp=L * steps,
-                     onehot_gather=3 * L),
+                     ternary_mlp_dec=L * steps, onehot_gather=3 * L),
         "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
                    ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
     }
     runs = drive(cfg, params, "llama-3-8b ssr", ("auto", "a8"), want_ssr.get, prompts)
     record["main_path_8b_ssr"] = runs
-    for k in ("ternary_matmul_igathered", "ternary_mlp", "onehot_gather"):
+    for k in ("ternary_matmul_igathered", "onehot_gather"):
         main_launches[k] = sum(r["launches"][k] for r in runs.values())
     # the CUDA-core K3's own: its decode and tensor-core paths' launches are
     # counted apart
@@ -1893,6 +2046,49 @@ def main() -> None:
               f"time {each('step_device_ms')} ms (profiler); streams equal to the main run's "
               f"{[r['streams_equal_to_main_run'] for r in v]} on {record['smi']}")
 
+    stamp("16b")
+    # ---- 16b. K2's decode rows on its decode path (on) and on the
+    # CUDA-core K2 (off: k2_dec(False)), in turns on, off, off, on: here the
+    # lockstep llama-3-8b "ssr" bf16 decode at B 4 (a short greedy_generate,
+    # 16 new tokens, with exact counts; its decode tok/s from 15 decode
+    # steps timed back to back after a prefill; then one decode step's wall
+    # and its profiled device time); the "down" engine after 11c and
+    # gemma-2b's in 12c (engine_k2_ab, in 8 turns)
+    new16 = 16
+    k2dec_ab = {"dec": [], "cuda_core": []}
+    for on in DEC_AB:
+        want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
+                    ternary_matmul_igathered=2 * L * (new16 - 1),
+                    ternary_matmul_igathered_dec=2 * L * (new16 - 1), ternary_mlp=L * (new16 - 1),
+                    ternary_mlp_dec=L * (new16 - 1) if on else 0, onehot_gather=3 * L)
+        with k2_dec(on):
+            zero_counts()
+            greedy_generate(cfg, params, prompts, new16)
+            torch.cuda.synchronize()
+            got = counts()
+            if got != want:
+                fail(f"lockstep ssr K2 decode A/B dec={on}: launches {got}, want {want}")
+            tally(got)
+            with torch.inference_mode():
+                cache = init_cache(cfg, B, Lp + new16, device=dev)
+                forward_cached(cfg, params, prompts, cache, 0, "auto")
+                tok = prompts[:, :1].contiguous()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(new16 - 1):
+                    forward_cached(cfg, params, tok, cache, Lp + i, "auto")
+                torch.cuda.synchronize()
+                dec_s = time.perf_counter() - t0
+            del cache
+            prof = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                       f"llama-3-8b ssr, K2 decode rows on the "
+                                       f"{'decode path' if on else 'CUDA cores'}")
+        k2dec_ab["dec" if on else "cuda_core"].append({
+            "decode_tok_s": B * (new16 - 1) / dec_s, "step_wall_ms": prof["wall_ms"],
+            "device_ms": prof["device_ms"], "k2_parts": prof["k2_parts"], "top": prof["top"]})
+    record["k2_dec_ab"] = {"lockstep llama-3-8b ssr B 4": k2_dec_ab_summary(
+        "lockstep llama-3-8b ssr, B 4", k2dec_ab)}
+
     stamp("8")
     # ---- 8. this slice's main paths, on the same model and prompts. P1
     # (GATHER_KERNEL "packed"): the prefill gathers through K5 where K4 ran;
@@ -1905,7 +2101,8 @@ def main() -> None:
         dec_p = {"ternary_matmul_igathered_dec": 2 * L * steps} if flags_name == "P1" else {}
         want_p = {
             "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
-                         onehot_matmul=3 * L, **{fused: 2 * L * steps}, **dec_p),
+                         ternary_mlp_dec=L * steps, onehot_matmul=3 * L,
+                         **{fused: 2 * L * steps}, **dec_p),
             "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
                        onehot_matmul=3 * L, **{fused: 3 * L * steps}),
         }
@@ -1975,7 +2172,8 @@ def main() -> None:
     # K6 x2 + K2 + K7 per layer
     short = sum(min(_bucket(n), ENGINE_M) <= 64 for n in e_lens)
     want = dict(none, ternary_matmul_gathered=2 * L * (st + short), ternary_mlp=L * (st + short),
-                ternary_mlp_tc=L * short, ternary_matmul=4 * L * (16 - short), ternary_matmul_tc=4 * L * (16 - short),
+                ternary_mlp_tc=L * short, ternary_mlp_dec=L * st, ternary_matmul=4 * L * (16 - short),
+                ternary_matmul_tc=4 * L * (16 - short),
                 onehot_matmul=3 * L * (16 - short), decode_attention=L * st)
     got = counts()
     if got != want:
@@ -2037,7 +2235,7 @@ def main() -> None:
                         ternary_matmul_igathered_dec=2 * L * st,
                         ternary_matmul_igathered_tc=2 * L * n_adm if on else 0,
                         ternary_mlp=L * (st + n_adm), ternary_mlp_tc=L * n_adm,
-                        decode_attention=L * st)
+                        ternary_mlp_dec=L * st, decode_attention=L * st)
             got = counts()
             if got != want:
                 fail(f"{label}: launches {got}, want {want}")
@@ -2121,7 +2319,8 @@ def main() -> None:
     # qkv and o only at each decode step (2 per layer and step fewer)
     cfg, params, _ = build("llama-3-8b", "down", 5)
     want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
-                     ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps)
+                     ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps,
+                     ternary_mlp_dec=L * steps)
     record["main_path_8b_down"] = drive(cfg, params, "llama-3-8b down", ("auto",),
                                         lambda impl: want_down, prompts)
 
@@ -2131,7 +2330,8 @@ def main() -> None:
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
-    def engine_want(eng, prompts_, k7_on=True, tc_on=True, impl="auto", dec_on=None):
+    def engine_want(eng, prompts_, k7_on=True, tc_on=True, impl="auto", dec_on=None,
+                    k2_dec_on=True):
         """Launches the routing implies: each admission prefills its bucket
         (>= 64 rows: qkv, o through K1 on the tensor cores; the MLP through
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
@@ -2143,7 +2343,9 @@ def main() -> None:
         256. With
         tc_on False (K1_TC_MIN_ROWS rebound) no launch takes the tensor
         cores; dec_on True / False (k1_dec) puts the decode steps' K1 calls
-        of both modes on the decode kernel / the CUDA cores."""
+        of both modes on the decode kernel / the CUDA cores; k2_dec_on
+        (k2_dec) the decode steps' K2 calls on its decode path, else on the
+        CUDA-core K2."""
         dec_on = impl == "auto" if dec_on is None else dec_on
         st = eng.stats["steps"]
         k7 = L * st if k7_on else 0
@@ -2160,12 +2362,12 @@ def main() -> None:
         k2n += k2tc
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
                     ternary_matmul_dec=2 * L * st if dec_on else 0, ternary_mlp=k2n,
-                    ternary_mlp_tc=k2tc,
+                    ternary_mlp_tc=k2tc, ternary_mlp_dec=L * st if k2_dec_on else 0,
                     decode_attention=k7, ternary_mlp_gelu=k2n if cfg.act == "gelu" else 0,
                     decode_attention_hd256=k7 if cfg.hd == 256 else 0)
 
     def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
-                   tc_on=True, impl="auto", dec_on=None):
+                   tc_on=True, impl="auto", dec_on=None, k2_dec_on=True):
         eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq,
                           decode_quantum=quantum, seed=seed, impl=impl)
         reqs = [eng.submit(p, m, sampling=sampling) for p, m in zip(prompts_, news_)]
@@ -2175,12 +2377,10 @@ def main() -> None:
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on, impl, dec_on)
+        got, want = counts(), engine_want(eng, prompts_, k7_on, tc_on, impl, dec_on, k2_dec_on)
         if got != want:
             fail(f"engine {label}: launches {got}, want {want}")
         tally(got)
-        if cfg.act == "gelu":  # GeGLU on K2's tensor-core path, apart from its CUDA-core one
-            gelu_tc[0] += got["ternary_mlp_tc"]
         if not all(r.done and len(r.out) == m and all(0 <= t < cfg.vocab_size for t in r.out)
                    for r, m in zip(reqs, news_)):
             fail(f"engine {label}: a request did not finish with max_new valid tokens")
@@ -2194,6 +2394,44 @@ def main() -> None:
               f"t_decode_s {st['t_decode_s']:.2f} s, t_admit_s {st['t_admit_s']:.2f} s), "
               f"{st['steps']} decode steps, launches {got} on {record['smi']}")
         return res, [r.out for r in reqs]
+
+    def engine_k2_ab(name, prompts_):
+        """16b for an engine (bf16 KV, quantum 1): in turns on, off, off, on,
+        on, off, off, on (k2_dec), a short run of 8 requests of ``prompts_`` with 32 new
+        tokens each (counts exact) for its decode tok/s, then 6 decode steps
+        of a second engine with its 8 slots busy, timed on the host clock,
+        and one more under torch.profiler (launches_dec exact)."""
+        eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
+        for p in prompts_[:8]:
+            eng.submit(p, 1024)
+        eng.step()  # admits all 8; one decode step
+        eng.step()
+        res = {"dec": [], "cuda_core": []}
+        for on in DEC_AB + DEC_AB:
+            route = "decode path" if on else "CUDA cores"
+            with k2_dec(on):
+                run, _ = run_engine(f"{name} bf16 KV quantum 1, 8 requests x 32 tokens, K2 decode "
+                                    f"rows on the {route}", False, 1, prompts_[:8], [32] * 8,
+                                    k2_dec_on=on)
+                c0 = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(6):
+                    eng.step()
+                wall_ms = (time.perf_counter() - t0) / 6 * 1e3
+                prof = profile_engine_step(eng, f"{name}, K2 decode rows on the {route}")
+                c1 = counts()
+            rose = (c1["ternary_mlp"] - c0["ternary_mlp"],
+                    c1["ternary_mlp_dec"] - c0["ternary_mlp_dec"])
+            if rose != (7 * L, 7 * L if on else 0):
+                fail(f"{name} engine decode steps, K2 decode rows on the {route}: launches and "
+                     f"launches_dec rose by {rose}")
+            res["dec" if on else "cuda_core"].append({
+                "decode_tok_s": run["decode_tok_s"], "t_decode_s": run["t_decode_s"],
+                "step_wall_ms": wall_ms, **prof})
+        del eng
+        torch.cuda.empty_cache()
+        return k2_dec_ab_summary(f"{name} engine, 8 slots", res)
 
     record["engine"] = {}
     outs = {}
@@ -2233,6 +2471,12 @@ def main() -> None:
               f"teacher-forced plain max {[r.get('worst_pick_gap') for r in v if 'worst_pick_gap' in r]}")
 
     stamp("10c")
+    # 10c's runs and 11c's take the same model at 16 of its 32 layers (the
+    # first 16 of its stacked weights: every loop runs over cfg.n_layers),
+    # which keeps this script's run near its time budget since phase 16
+    # joined; 5b's runs, its held answers and 16b stay at 32 layers
+    cfg_32, L_32 = cfg, L
+    cfg, L = cfg.with_(n_layers=16), 16
     # ---- 10c. the same engine under W2A8 (impl "a8", bf16 KV, quantum 1)
     # with K1's int8 tensor-core path on and off, in turns, then with K7 off;
     # every answer of each route held under the teacher-forced W2A8 route on
@@ -2282,7 +2526,8 @@ def main() -> None:
               f"tok/s, decode {each('decode_tok_s')} tok/s; streams equal to the first run's: "
               f"{[r['streams_equal_to_first_run'] for r in v]}; every pick within "
               f"{[r['worst_pick_gap'] for r in v]} of the teacher-forced W2A8 plain-version max "
-              f"(<= {A8_TOLS[1]}) on {record['smi']}")
+              f"(<= {A8_TOLS[1]}) on {record['smi']}, {L} layers")
+    cfg, L = cfg_32, L_32
 
     # every engine answer (quantum 1) held under its teacher-forced reference:
     # bf16 KV under the plain forward, int8 KV under a forward through an int8
@@ -2359,6 +2604,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     stamp("11c")
+    cfg, L = cfg.with_(n_layers=16), 16  # as in 10c
     # ---- 11c. the same engine (bf16 KV, quantum 1), bf16 and W2A8, with K1's
     # decode rows on the decode kernel and on the CUDA cores, in turns on,
     # off, off, on: decode tok/s and t_decode_s, every answer held as 5b and
@@ -2429,8 +2675,11 @@ def main() -> None:
                   f"{each('device_ms', steps_ab[k])} ms device time (profiler); streams equal to "
                   f"the first run's {[r['streams_equal_to_first_run'] for r in v]}; worst pick gap "
                   f"{[r['worst_pick_gap'] for r in v]} (<= "
-                  f"{TOKEN_TOL if impl == 'auto' else A8_TOLS[1]}) on {record['smi']}")
+                  f"{TOKEN_TOL if impl == 'auto' else A8_TOLS[1]}) on {record['smi']}, {L} "
+                  f"layers")
     record["engine_decode_ab"] = eng_dec
+    cfg, L = cfg_32, L_32
+    record["k2_dec_ab"]["engine llama-3-8b down"] = engine_k2_ab("llama-3-8b down", eng_prompts)
 
     stamp("5c")
     # ---- 5c. the HTTP ServingServer over the same model: 8 concurrent POSTs,
@@ -2493,7 +2742,7 @@ def main() -> None:
     want_gemma = {
         "auto": dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
                      ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps,
-                     ternary_mlp_gelu=L * steps),
+                     ternary_mlp_dec=L * steps, ternary_mlp_gelu=L * steps),
         "a8": dict(none, ternary_matmul=4 * L + 4 * L * steps, ternary_matmul_tc_a8=4 * L),
     }
     runs = drive(cfg, params, "gemma-2b down", ("auto", "a8"), want_gemma.get, prompts)
@@ -2591,7 +2840,8 @@ def main() -> None:
     prof = profile_engine_step(eng, "gemma-2b down engine, bf16 KV")
     rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
     want = {k: 7 * L * m for k, m in (("ternary_matmul", 2), ("ternary_matmul_dec", 2),
-                                      ("ternary_mlp", 1), ("ternary_mlp_gelu", 1),
+                                      ("ternary_mlp", 1), ("ternary_mlp_dec", 1),
+                                      ("ternary_mlp_gelu", 1),
                                       ("decode_attention", 1), ("decode_attention_hd256", 1))}
     if rose != want:
         fail(f"gemma-2b engine decode steps launched {rose}, want {want}")
@@ -2601,6 +2851,7 @@ def main() -> None:
           f"time {prof['device_ms']:.2f} ms (profiler) on {record['smi']}")
     del eng
     torch.cuda.empty_cache()
+    record["k2_dec_ab"]["engine gemma-2b down"] = engine_k2_ab("gemma-2b down", g_prompts)
     srv_prompts = make_prompts(cfg, host_ints(64, 256, 8), ggem)
     srv_news = host_ints(16, 32, 8)
     answers = [None] * 8
@@ -3208,6 +3459,117 @@ def main() -> None:
         fail("K2's tensor-core path left a counter set")
     record["k2_tc_timing"] = k2tc_detail
 
+    # 16c. K2's decode path through its C entry (gate/up with the gated
+    # epilogue, then K1's decode kernel over mid; scratch allocated outside
+    # the loop) at llama-3-8b's MLP ("ssr": the gather over its 4096
+    # features, silu) and gemma-2b's ("down": the identity perm, GeGLU),
+    # 1 / 2 / 4 / 8 rows, beside the CUDA-core K2 (the "off" turns' route),
+    # in turns decode path, CUDA cores, CUDA cores, decode path; the two
+    # dense bf16 torch.matmul with the activation between them (library: a
+    # yardstick, no single call exists), the plain version and the bound;
+    # then the path's two kernels' device time under torch.profiler, and
+    # the wrapper's host time per call on either path
+    mlp_dec_lib = k1._mlp_dec_kernel_lib()
+    k2dec_detail = []
+    for label, (D, I, n), act in (("llama-3-8b", MLP_8B, 0), ("gemma-2b", MLP_GEMMA, 1)):
+        gathered = act == 0
+        wbytes = D * 2 * I // 4 + 4 * (D // 128) * 2 * I + I * n // 4 + 4 * (I // 128) * n
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        layers = [rand_layer(D, 2 * I, gen=gk16) + rand_layer(I, n, gen=gk16)
+                  + (rand_perm(D, D, gen=gk16) if gathered else k1._identity_perm(D, dev),)
+                  for _ in range(copies)]
+        w_gu = torch.randn((D, 2 * I), generator=gk16, device=dev).bfloat16()
+        w_dn = torch.randn((I, n), generator=gk16, device=dev).bfloat16()
+        act_name = ("silu", "gelu")[act]
+        gs, ds = k1.dec_splits(D, 2 * I, 128, k2dec_wave), k1.dec_splits(I, n, 128, k2dec_wave)
+        for B in (1, 2, 4, 8):
+            x = torch.randn((B, D), generator=gk16, device=dev).bfloat16()
+            gpart = torch.empty((gs, B, 2 * I), dtype=torch.float32, device=dev)
+            dpart = torch.empty((ds, B, n), dtype=torch.float32, device=dev)
+            mid = torch.empty((B, I), dtype=torch.bfloat16, device=dev)
+            partial = torch.empty((I // 128, B, n), dtype=torch.float32, device=dev)
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+
+            def kern_dec(i):
+                gp, ga, gm, dp, da, dm, pm = layers[i % copies]
+                ok(mlp_dec_lib.pt2_ternary_mlp_dec(
+                    x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
+                    dp.data_ptr(), da.data_ptr(), dm.data_ptr(), gpart.data_ptr(),
+                    dpart.data_ptr(), mid.data_ptr(), out.data_ptr(), dec_counters.data_ptr(), B,
+                    D, D, I, n, gs, ds, act, dix, stream), "K2 dec")
+
+            def kern_cc(i):
+                gp, ga, gm, dp, da, dm, pm = layers[i % copies]
+                ok(mlp_lib.pt2_ternary_mlp(
+                    x.data_ptr(), pm.data_ptr() if gathered else None, gp.data_ptr(),
+                    ga.data_ptr(), gm.data_ptr(), dp.data_ptr(), da.data_ptr(), dm.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), B, D, D, 2 * I, I, I, n, act, dix,
+                    stream), "K2")
+
+            def library(i):
+                gu = torch.matmul(x, w_gu)
+                return torch.matmul(k1.mlp_activation(act_name, gu[:, :I]) * gu[:, I:], w_dn)
+
+            turns = [time_ms(kern_dec, 50), time_ms(kern_cc, 30), time_ms(kern_cc, 30),
+                     time_ms(kern_dec, 50)]
+            plain_ms = time_ms(lambda i: k1.ternary_mlp_plain(
+                x, layers[i % copies][6] if gathered else None, *layers[i % copies][:6], I,
+                act=act_name), 3)
+            lib_ms = time_ms(library, 20)
+            nbytes = wbytes + 2 * B * D + 4 * B * n + (4 * D if gathered else 0)
+            d = row("K2dec", label, B, min(turns[0], turns[3]), plain_ms, lib_ms, nbytes,
+                    2.0 * B * (D * 2 * I + I * n), D=D, I=I, n=n, act=act_name, splits=[gs, ds])
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(20):
+                    kern_dec(i)
+                torch.cuda.synchronize()
+            krows = kernel_rows(prof)
+
+            def per_launch(key):
+                hit = [r for r in krows if key in r[2]]
+                return sum(r[0] for r in hit) / max(1, sum(r[1] for r in hit))
+
+            d.update(turns_ms=[turns[0], turns[3]], cuda_core_turns_ms=[turns[1], turns[2]],
+                     cuda_core_ms=min(turns[1], turns[2]),
+                     gateup_device_ms=per_launch(K2_PARTS["gateup"]),
+                     down_device_ms=per_launch(K2_PARTS["dec_kernel"]))
+            k2dec_detail.append(d)
+            print(f"K2 decode path, {label} MLP ({act_name}, "
+                  f"{'gather' if gathered else 'identity perm'}) at {B} rows: "
+                  f"{' / '.join(f'{t * 1e3:.1f}' for t in turns)} us in turns decode path, CUDA "
+                  f"cores, CUDA cores, decode path (device time by the profiler: gate/up "
+                  f"{d['gateup_device_ms'] * 1e3:.1f} + down {d['down_device_ms'] * 1e3:.1f} us) | "
+                  f"dense pair {lib_ms * 1e3:.1f} us | plain {plain_ms * 1e3:.1f} us | bound "
+                  f"{d['bound_ms'] * 1e3:.2f} us on {record['smi']}")
+        # the host's cost of one whole wrapper call (checks, scratch, launches)
+        # on either path: the enqueue time of 100 calls after a synchronise
+        gp, ga, gm, dp, da, dm, pm = layers[0]
+        for B in (1, 8):
+            x = torch.randn((B, D), generator=gk16, device=dev).bfloat16()
+            host = {}
+            for on in DEC_AB:
+                with k2_dec(on):
+                    k1.ternary_mlp(x, pm if gathered else None, gp, ga, gm, dp, da, dm, I,
+                                   act=act_name)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(100):
+                        k1.ternary_mlp(x, pm if gathered else None, gp, ga, gm, dp, da, dm, I,
+                                       act=act_name)
+                    host.setdefault("dec" if on else "cuda_core", []).append(
+                        (time.perf_counter() - t0) / 100 * 1e3)
+                    torch.cuda.synchronize()
+            next(d for d in k2dec_detail if d["shape"] == label and d["B"] == B)[
+                "wrapper_host_ms"] = host
+            print(f"K2 wrapper, {label} at {B} rows: host time per call "
+                  f"{' / '.join(f'{t * 1e3:.1f}' for t in host['dec'])} us on the decode path, "
+                  f"{' / '.join(f'{t * 1e3:.1f}' for t in host['cuda_core'])} us on the CUDA cores "
+                  f"(enqueue of 100 calls, turns on, off, off, on)")
+        del layers, w_gu, w_dn, gp, ga, gm, dp, da, dm, pm
+    if dec_counters.any():
+        fail("K2's decode path left a counter set")
+    record["k2_dec_timing"] = k2dec_detail
+
     # K1's decode kernel at gemma-2b's four projections, 1 and 8 rows, beside
     # the plain version, dense torch.matmul and the bytes bound
     k1g_detail = []
@@ -3445,6 +3807,13 @@ def main() -> None:
         }
 
     b1 = lambda rows: [d for d in rows if d["B"] == 1]  # noqa: E731
+    # the CUDA-core K2's launches, silu and GeGLU: the 32- and 18-layer runs'
+    # K2 launches on neither its decode nor its tensor-core path (since
+    # K2's decode rows took the decode path, only 16b's "off" turns)
+    main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"] - sum(gelu_paths.values())
+    main_launches["ternary_mlp"] = run_totals["ternary_mlp"] - sum(
+        run_totals[k] for k in ("ternary_mlp_tc", "ternary_mlp_dec")) - main_launches[
+        "ternary_mlp_gelu"]
     main_launches["ternary_matmul_dec"] = run_totals["ternary_matmul_dec"]
     main_launches["ternary_matmul"] = run_totals["ternary_matmul"] - sum(
         run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
@@ -3477,10 +3846,9 @@ def main() -> None:
               "pt2tpu/ops/kernels/pallas_ternary.py:443", b1(k6_detail),
               errs["ternary_matmul_gathered"]),
     ]
-    # this slice's instances: K2 GeGLU at gemma-2b's MLP, B = 1; K7 at its
-    # heads, B = 8, M = 2048, bf16 cache; their launches: every gemma-2b run
-    # counted exactly
-    main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"] - gelu_tc[0]
+    # the gemma slice's instances: K2 GeGLU at gemma-2b's MLP, B = 1; K7 at
+    # its heads, B = 8, M = 2048, bf16 cache; their launches: every gemma-2b
+    # run counted exactly
     main_launches["decode_attention_hd256"] = run_totals["decode_attention_hd256"]
     kernels += [
         entry("ternary_mlp_gelu", "pt2tpu_torch/csrc/ternary_mlp.cu",
@@ -3513,6 +3881,14 @@ def main() -> None:
                          "pt2tpu/ops/kernels/pallas_ternary.py:1106",
                          [d for d in k2tc_detail if d["B"] == 16 and d["shape"] == "llama-3-8b"],
                          max(k2tc_err, errs["ternary_mlp_tc"])))
+    # K2's decode path at B = 1, llama-3-8b's MLP with its gather; its
+    # launches: every 32- and 18-layer run counted exactly (GeGLU ones
+    # included)
+    main_launches["ternary_mlp_dec"] = run_totals["ternary_mlp_dec"]
+    kernels.append(entry("ternary_mlp_dec", "pt2tpu_torch/csrc/ternary_mlp_dec.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:1106",
+                         [d for d in k2dec_detail if d["B"] == 1 and d["shape"] == "llama-3-8b"],
+                         max(k2dec_err, errs["ternary_mlp_dec"])))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every 32-layer run (each counted exactly): {run_totals}")

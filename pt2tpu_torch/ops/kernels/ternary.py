@@ -21,12 +21,15 @@
     the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
     ``ternary_matmul_pallas_gathered``).
   * K2 ``ternary_mlp``: the whole gated MLP, silu, gelu or relu (replaces
-    ``ternary_mlp_pallas``), on two paths chosen by rows (:func:`k2_path`):
-    K3's one-pass gather, a split-K tensor-core gate/up product with the
-    gated epilogue, then K3's product over mid
+    ``ternary_mlp_pallas``), on three paths chosen by rows (:func:`k2_path`):
+    K1's decode GEMV over gateup with x staged through perm, the gated
+    epilogue in the last CTA of each gate/up tile pair, then K1's decode
+    kernel over mid (``csrc/ternary_mlp_dec.cu``) for rows 1 ..
+    :data:`K2_DEC_MAX_ROWS`; K3's one-pass gather, a split-K tensor-core
+    gate/up product with the gated epilogue, then K3's product over mid
     (``csrc/ternary_mlp_tc.cu``) for rows :data:`K2_TC_MIN_ROWS` ..
     :data:`FUSED_MAX_ROWS`; one CUDA-core launch (``csrc/ternary_mlp.cu``)
-    for the decode rows.
+    for the rows neither takes (the A/Bs' "off" turns).
 
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
@@ -56,6 +59,7 @@ __all__ = [
     "K1_DEC_A8",
     "FUSED_MAX_ROWS",
     "K2_TC_MIN_ROWS",
+    "K2_DEC_MAX_ROWS",
     "k1_path",
     "k3_path",
     "k2_path",
@@ -82,6 +86,7 @@ __all__ = [
     "mlp_tc_gather_plain",
     "mlp_tc_mid_plain",
     "ternary_mlp_tc_plain",
+    "ternary_mlp_dec_plain",
     "normalize_rows_a8",
 ]
 
@@ -370,19 +375,29 @@ def k3_path(rows: int, n: int, block_size: int, a8: bool) -> str:
 
 K2_TC_MIN_ROWS = 9
 """The fewest rows K2 runs on its tensor-core path (``csrc/ternary_mlp_tc.cu``,
-up to :data:`FUSED_MAX_ROWS` rows); fewer run the CUDA-core K2
-(``csrc/ternary_mlp.cu``), whose row tiles are made for decode rows.
-Rebound to ``1 << 30``, it sends every row count to the CUDA-core K2
-(``chip_smoke.py``'s "off" turns). Read at each call."""
+up to :data:`FUSED_MAX_ROWS` rows); fewer run its decode path
+(:data:`K2_DEC_MAX_ROWS`). Rebound to ``1 << 30``, it sends rows 9-64 to the
+CUDA-core K2 (``chip_smoke.py``'s "off" turns). Read at each call."""
+
+K2_DEC_MAX_ROWS = 8
+"""The most rows K2 runs on its decode path (``csrc/ternary_mlp_dec.cu``: K1's
+decode GEMV over gateup, the gated epilogue, K1's decode kernel over mid); at
+most 8, the GEMV's N tile. 0 sends decode rows back to the CUDA-core K2
+(``csrc/ternary_mlp.cu``; ``chip_smoke.py``'s "off" turns). Read at each
+call."""
 
 
 def k2_path(rows: int) -> str:
     """Which of K2's kernels :func:`ternary_mlp` launches on CUDA for
-    ``rows`` rows: "tc" (``pt2_ternary_mlp_tc``: the gather, the gate/up
+    ``rows`` rows: "dec" (``pt2_ternary_mlp_dec``: the gate/up decode GEMV
+    with the gated epilogue, then K1's decode kernel over mid) for 1 <= rows
+    <= K2_DEC_MAX_ROWS; "tc" (``pt2_ternary_mlp_tc``: the gather, the gate/up
     product with the gated epilogue, the down product, all on the tensor
-    cores) for K2_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS, else "cc"
+    cores) for K2_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS; else "cc"
     (``pt2_ternary_mlp``, the CUDA cores). Every shape that K2 takes (bf16,
-    scale blocks of 128, half and n multiples of 128) suits both."""
+    scale blocks of 128, half and n multiples of 128) suits all three."""
+    if 1 <= rows <= K2_DEC_MAX_ROWS:
+        return "dec"
     return "tc" if K2_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS else "cc"
 
 
@@ -756,6 +771,49 @@ def ternary_mlp_tc_plain(
     return out[: x.shape[0]]
 
 
+def ternary_mlp_dec_plain(
+    x: torch.Tensor,
+    gu_perm: Optional[torch.Tensor],
+    gu_packed: torch.Tensor,
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    dn_packed: torch.Tensor,
+    dn_alpha: torch.Tensor,
+    dn_mu: torch.Tensor,
+    intermediate: int,
+    block_size: int = 128,
+    act: str = "silu",
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K2's decode path (its C entry ``pt2_ternary_mlp_dec``)
+    in f32, for 1 to 8 rows: gate | up are the decode GEMV's
+    (:func:`ternary_matmul_igathered_dec_plain` through gu_perm, or
+    :func:`ternary_matmul_dec_plain` on x zero-padded to Kg lanes) over the
+    whole gateup in its :func:`dec_splits` slices of ``wave``, each column's
+    slices summed in slice order (which CTA of a gate/up pair sums them does
+    not change the sum); mid = act(gate) * up cast to x's dtype (bf16 on the
+    card, f32 where a CPU test holds the algorithm against JAX's f32
+    interpret mode); then the decode GEMV over mid and down's first
+    half // bs blocks. Returns (B, n) f32."""
+    mlp_act_code(act)
+    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                  intermediate, block_size)
+    if block_size != 128:
+        raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
+    if gu_perm is not None:
+        gu = ternary_matmul_igathered_dec_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu,
+                                                block_size, wave=wave)
+    else:
+        if x.shape[-1] > Kg:
+            raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
+        gu = ternary_matmul_dec_plain(F.pad(x, (0, Kg - x.shape[-1])), gu_packed, gu_alpha,
+                                      gu_mu, block_size, wave=wave)
+    mid = (mlp_activation(act, gu[:, :half]) * gu[:, half:]).to(x.dtype)
+    return _dec_plain(mid.float(), dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], block_size,
+                      wave)
+
+
 _lib = None
 _dec_lib = None
 _igtc_lib = None
@@ -763,6 +821,7 @@ _tc_lib = None
 _tc_a8_lib = None
 _mlp_lib = None
 _mlp_tc_lib = None
+_mlp_dec_lib = None
 _gathered_lib = None
 
 
@@ -850,6 +909,17 @@ def _mlp_tc_kernel_lib():
         fn.restype = ctypes.c_int
         _mlp_tc_lib = lib
     return _mlp_tc_lib
+
+
+def _mlp_dec_kernel_lib():
+    global _mlp_dec_lib
+    if _mlp_dec_lib is None:
+        lib = _build.load("ternary_mlp_dec")
+        fn = lib.pt2_ternary_mlp_dec
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _mlp_dec_lib = lib
+    return _mlp_dec_lib
 
 
 def _gathered_kernel_lib():
@@ -979,8 +1049,8 @@ def _sm_count(device: int) -> int:
 
 def _dec_counter_buffer(device, stream, tiles, path="K1's decode path"):
     """The split-K kernels' per-column-tile counters for launches on
-    ``stream`` (K1's and K3's decode rows and K3's and K2's tensor-core
-    paths share them): int32 zeros, kept between calls (each launch leaves them 0),
+    ``stream`` (K1's and K3's decode rows and K3's and K2's tensor-core and
+    decode paths share them): int32 zeros, kept between calls (each launch leaves them 0),
     grown on demand. Each stream has its own, so the launches that share a
     buffer are ordered by their stream and never overlap. A CUDA graph
     capture is refused (naming ``path``): its replays could overlap with the
@@ -1277,12 +1347,15 @@ def ternary_mlp(
     (tanh form) or relu (see ternary_mlp_plain).
 
     CUDA: launches K2 for B <= 64 rows in bf16 on the path :func:`k2_path`
-    names for B, read at each call: "tc" (rows K2_TC_MIN_ROWS .. 64) the
-    gather, gate/up and down launches of the tensor-core path; "cc" the
-    CUDA-core MLP kernel, instantiated for the activation, and the
-    fixed-order sum of its per-I-block partials. Counts the call once in
-    ``ternary_mlp.launches`` (the tensor-core path also in
-    ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``).
+    names for B, read at each call: "dec" (rows 1 .. K2_DEC_MAX_ROWS) the
+    gate/up and down launches of the decode path; "tc" (rows
+    K2_TC_MIN_ROWS .. 64) the gather, gate/up and down launches of the
+    tensor-core path; "cc" the CUDA-core MLP kernel, instantiated for the
+    activation, and the fixed-order sum of its per-I-block partials. Counts
+    the call once in ``ternary_mlp.launches`` (the decode path also in
+    ``ternary_mlp.launches_dec``, the tensor-core path in
+    ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``;
+    the decode path's down launch is not one of ``ternary_matmul``'s).
     CPU: the plain version."""
     code = mlp_act_code(act)
     if x.device.type == "cpu":
@@ -1297,6 +1370,7 @@ def ternary_mlp(
     Kg, half, nv, n = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
                                   intermediate, block_size)
     B, m = x.shape
+    path = k2_path(B)
     for name, t, dt in (("gu_packed", gu_packed, torch.int8), ("gu_alpha", gu_alpha, torch.bfloat16),
                         ("gu_mu", gu_mu, torch.bfloat16), ("dn_packed", dn_packed, torch.int8),
                         ("dn_alpha", dn_alpha, torch.bfloat16), ("dn_mu", dn_mu, torch.bfloat16)):
@@ -1304,8 +1378,9 @@ def ternary_mlp(
             raise ValueError(f"{name} must be a contiguous 2-D tensor on {x.device}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.data_ptr() % (4 if dt == torch.int8 else 8):
-            raise ValueError(f"{name} is not aligned for K2's vector loads")
+        # the tensor-core paths load codes and scales as 16-byte vectors
+        if t.data_ptr() % (16 if path != "cc" else 4 if dt == torch.int8 else 8):
+            raise ValueError(f"{name} is not aligned for K2's vector loads on its {path!r} path")
     if gu_alpha.shape != (Kg // 128, 2 * half) or gu_mu.shape != gu_alpha.shape:
         raise ValueError(f"gateup scales {tuple(gu_alpha.shape)} do not match its planes")
     if dn_alpha.shape != (dn_packed.shape[0] // 32, n) or dn_mu.shape != dn_alpha.shape:
@@ -1316,7 +1391,11 @@ def ternary_mlp(
         raise ValueError(f"x width {m} exceeds lane count {Kg}")
     xk = x.to(torch.bfloat16).contiguous()
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
-    if k2_path(B) == "tc":
+    if path == "dec":
+        _ternary_mlp_dec(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
+                         out, half, code)
+        ternary_mlp.launches_dec += 1
+    elif path == "tc":
         _ternary_mlp_tc(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
                         out, half, code)
         ternary_mlp.launches_tc += 1
@@ -1337,6 +1416,7 @@ def ternary_mlp(
 
 
 ternary_mlp.launches = 0
+ternary_mlp.launches_dec = 0
 ternary_mlp.launches_tc = 0
 ternary_mlp.launches_gelu = 0
 
@@ -1345,9 +1425,9 @@ _identity_perms: dict = {}
 
 
 def _identity_perm(Kg: int, device) -> torch.Tensor:
-    """arange(Kg) int32 on ``device``, kept between calls: the gather of
-    K2's tensor-core path reads the layout without a gather through it
-    (lanes >= m read as 0, the zero pad)."""
+    """arange(Kg) int32 on ``device``, kept between calls: K2's decode and
+    tensor-core paths read the layout without a gather through it (lanes
+    >= m read as 0, the zero pad)."""
     key = (device, Kg)
     perm = _identity_perms.get(key)
     if perm is None:
@@ -1368,9 +1448,6 @@ def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, d
     aligned). Writes out; a launch that fails raises."""
     B, m = xk.shape
     Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
-    for t in (gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu):
-        if t.data_ptr() % 16:
-            raise ValueError("K2's tensor-core path needs 16-byte aligned codes and scales")
     if perm is None:
         perm = _identity_perm(Kg, xk.device)
     elif perm.data_ptr() % 16:
@@ -1400,3 +1477,63 @@ def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, d
     )
     if rc != 0:
         raise RuntimeError(f"K2 (rows 9-64, tensor cores) launch failed: cudaError {rc}")
+
+
+_mlp_dec_plans: dict = {}
+
+
+def _mlp_dec_plan(xk, stream, device, Kg, half, n):
+    """What a launch of K2's decode path for xk's rows on ``stream`` needs
+    beside its operands, kept between calls (a decode step asks it once per
+    layer): (gu_splits, dn_splits, its three scratch pointers, the counters'
+    pointer, the identity perm's pointer, and the tensors that own them).
+    The splits are dec_splits' of the card's wave; one scratch holds gate/up's
+    (gu_splits, B, 2 * half) f32 partials, down's (dn_splits, B, n) and mid
+    (B, half) bf16. It is the stream's own, as the counters are, so the
+    launches that share it are ordered by their stream and never overlap; a
+    CUDA graph capture is refused."""
+    if torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError("K2's decode path inside a CUDA graph capture")
+    B = xk.shape[0]
+    key = (device, stream, B, Kg, half, n)
+    plan = _mlp_dec_plans.get(key)
+    if plan is None:
+        wave = DEC_CTAS_PER_SM * _sm_count(device)
+        gu_splits, dn_splits = dec_splits(Kg, 2 * half, 128, wave), dec_splits(half, n, 128, wave)
+        gu_len, dn_len = gu_splits * B * 2 * half, dn_splits * B * n
+        scratch = torch.empty(gu_len + dn_len + B * half // 2, dtype=torch.float32,
+                              device=xk.device)
+        counters = _dec_counter_buffer(xk.device, stream, max(half, n) // 128,
+                                       "K2's decode path")
+        ident = _identity_perm(Kg, xk.device)
+        at = scratch.data_ptr()
+        plan = _mlp_dec_plans[key] = (
+            gu_splits, dn_splits, at, at + 4 * gu_len, at + 4 * (gu_len + dn_len),
+            counters.data_ptr(), ident.data_ptr(), (scratch, counters, ident))
+    return plan
+
+
+def _ternary_mlp_dec(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
+                     code):
+    """K2's decode path (``pt2_ternary_mlp_dec``): the decode GEMV over gateup
+    with x staged through perm (the identity perm without a gather) and the
+    gated epilogue, then K1's decode kernel over mid, each over dec_splits K
+    slices of the card's wave, with the stream's scratch and counters
+    (:func:`_mlp_dec_plan`). xk is bf16 x (B, m); perm is read as 16-byte
+    vectors (a copy if it is not aligned so). Writes out; a launch that
+    fails raises."""
+    B, m = xk.shape
+    Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
+    if perm is not None and perm.data_ptr() % 16:
+        perm = perm.clone()
+    device, stream = _device_and_stream(xk)
+    gu_splits, dn_splits, gu_part, dn_part, mid, counters, ident, _ = _mlp_dec_plan(
+        xk, stream, device, Kg, half, n)
+    rc = _mlp_dec_kernel_lib().pt2_ternary_mlp_dec(
+        xk.data_ptr(), ident if perm is None else perm.data_ptr(), gu_packed.data_ptr(),
+        gu_alpha.data_ptr(), gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(),
+        dn_mu.data_ptr(), gu_part, dn_part, mid, out.data_ptr(), counters, B, m, Kg, half, n,
+        gu_splits, dn_splits, code, device, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K2 (decode rows, tensor cores) launch failed: cudaError {rc}")

@@ -25,7 +25,8 @@ draws of ``tests/test_torch_fused_mlp.py``:
     perm bit-exact against K3's gather; the mid pass against gate and up
     from K1's plain version, at the fragment positions, with the two-half
     block sums;
-  * ``k2_path`` and ``K2_TC_MIN_ROWS`` on a table.
+  * ``k2_path``, ``K2_TC_MIN_ROWS`` and ``K2_DEC_MAX_ROWS`` on tables (rows
+    1-8 take the decode path of ``tests/test_torch_fused_mlp_dec.py``).
 """
 
 import jax.numpy as jnp
@@ -157,11 +158,22 @@ def test_tc_mid_pass_pairs_gate_with_up_and_sums_half_blocks(act):
 
 
 @pytest.mark.parametrize("min_rows,table", [
-    (9, {1: "cc", 8: "cc", 9: "tc", 16: "tc", 33: "tc", 64: "tc", 65: "cc"}),
-    (1 << 30, {1: "cc", 9: "cc", 64: "cc"}),  # chip_smoke.py's "off" turns
+    (9, {1: "dec", 8: "dec", 9: "tc", 16: "tc", 33: "tc", 64: "tc", 65: "cc"}),
+    (1 << 30, {1: "dec", 9: "cc", 64: "cc"}),  # chip_smoke.py's "off" turns of rows 9-64
     (17, {16: "cc", 17: "tc", 64: "tc"}),
 ])
 def test_k2_path_routes_by_rows_read_at_each_call(monkeypatch, min_rows, table):
     assert tk.K2_TC_MIN_ROWS == 9
     monkeypatch.setattr(tk, "K2_TC_MIN_ROWS", min_rows)
+    assert {rows: tk.k2_path(rows) for rows in table} == table
+
+
+@pytest.mark.parametrize("dec_max,table", [
+    (0, {0: "cc", 1: "cc", 4: "cc", 8: "cc", 9: "tc", 64: "tc"}),  # the decode A/Bs' "off" turns
+    (4, {1: "dec", 4: "dec", 5: "cc", 8: "cc", 9: "tc"}),
+    (8, {0: "cc", 1: "dec", 2: "dec", 8: "dec", 9: "tc", 65: "cc"}),
+])
+def test_k2_path_decode_rows_read_k2_dec_max_rows_at_each_call(monkeypatch, dec_max, table):
+    assert tk.K2_DEC_MAX_ROWS == 8
+    monkeypatch.setattr(tk, "K2_DEC_MAX_ROWS", dec_max)
     assert {rows: tk.k2_path(rows) for rows in table} == table

@@ -3,9 +3,10 @@ kernels: the split-K tensor-core GEMV at decode rows, the bf16 and int8
 tensor cores at prefill rows, the CUDA cores for other shapes; K3 on
 three: the same GEMV with x staged through perm at decode rows, a one-pass
 gather then a split-K tensor-core product at rows 9-64, the CUDA cores for
-other shapes; K2 on two: the gather, a gate/up product with the gated
-epilogue and the down product on the tensor cores at rows 9-64, the CUDA
-cores at decode rows). Needs an
+other shapes; K2 on three: K1's decode GEMV over gateup with the gated
+epilogue then K1's decode kernel over mid at decode rows, the gather, a
+gate/up product with the gated epilogue and the down product on the
+tensor cores at rows 9-64, the CUDA cores with either of those off). Needs an
 NVIDIA GPU; every test skips without one. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs as
@@ -1109,12 +1110,15 @@ def test_k2_tc_path_on_stacked_views_zero_pads_and_slices(cuda_device, gather):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", range(1, 9))
-def test_k2_decode_rows_take_the_cuda_cores(cuda_device, rows):
+def test_k2_decode_rows_take_the_cuda_cores(cuda_device, rows, monkeypatch):
+    """With the decode path off (K2_DEC_MAX_ROWS 0, the A/Bs' "off" turns)."""
     g = torch.Generator(device=cuda_device).manual_seed(80 + rows)
     D, I, n = 512, 1024, 256
     layer = _mlp_layer(g, cuda_device, D, I, n)
     perm = _perm(g, cuda_device, D, D)
     x = torch.randn((rows, D), generator=g, device=cuda_device).bfloat16()
+    assert tk.k2_path(rows) == "dec"
+    monkeypatch.setattr(tk, "K2_DEC_MAX_ROWS", 0)
     assert tk.k2_path(rows) == "cc"
     before = _k2_counts()
     got = tk.ternary_mlp(x, perm, *layer, intermediate=I)
@@ -1232,6 +1236,190 @@ def test_k2_tc_c_entry_refuses_what_it_does_not_take(cuda_device):
         bad[i] = 0
         assert fn(*bad, B, D, D, I, n, 4, 8, 0, dev, stream) != 0, i
     torch.cuda.synchronize()
+
+
+# K2's decode rows (csrc/ternary_mlp_dec.cu): llama-3-8b's and gemma-2b's
+# MLPs at rows 1 / 2 / 4 / 8, with the gather ("ssr") and without ("down"),
+# silu, gelu and relu
+K2_DEC_ROWS = [1, 2, 4, 8]
+
+
+def _k2_dec_counts():
+    return (tk.ternary_mlp.launches, tk.ternary_mlp.launches_dec, tk.ternary_mlp.launches_tc,
+            tk.ternary_mlp.launches_gelu, tk.ternary_matmul.launches,
+            tk.ternary_matmul.launches_dec)
+
+
+def _k2_dec_held(x, perm, layer, I, act="silu"):
+    """One K2 call that must take the decode path: counted in launches and
+    launches_dec (and launches_gelu for gelu), not in K1's counts (its down
+    launch is K2's); held to MLP_TOL against ternary_mlp_plain and
+    ternary_mlp_dec_plain, and the same bits on a second call."""
+    assert tk.k2_path(x.shape[0]) == "dec"
+    before = _k2_dec_counts()
+    got = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act)
+    again = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k2_dec_counts())) == (
+        2, 2, 0, 2 * (act == "gelu"), 0, 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_mlp_plain(x, perm, *layer, intermediate=I, act=act)
+    algo = tk.ternary_mlp_dec_plain(x, perm, *layer, intermediate=I, act=act,
+                                    wave=tk.dec_wave(x.device))
+    assert got.shape == want.shape == (x.shape[0], layer[3].shape[1])
+    assert _rel(got, want) <= MLP_TOL and _rel(got, algo) <= MLP_TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("rows", K2_DEC_ROWS)
+@pytest.mark.parametrize("shape", sorted(K2_TC_SHAPES))
+def test_k2_dec_path_matches_plain(cuda_device, shape, rows, gather, act):
+    D, I, n = K2_TC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(200 + rows + I + int(gather))
+    layer = _mlp_layer(g, cuda_device, D, I, n)
+    perm = _perm(g, cuda_device, D, D) if gather else None
+    x = torch.randn((rows, D), generator=g, device=cuda_device).bfloat16()
+    _k2_dec_held(x, perm, layer, I, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+def test_k2_dec_path_on_stacked_views_zero_pads_and_slices(cuda_device, gather):
+    """A 3-layer stack at a width whose products are cut into uneven K
+    slices (on the H100 down's 11 blocks in slices of 4, 4, 3; gateup
+    without a gather 16 blocks in 4); pad lanes (the perm's, interleaved,
+    or x zero-padded to 2048 lanes), all-zero alpha blocks and an all-zero
+    row."""
+    g = torch.Generator(device=cuda_device).manual_seed(171 + int(gather))
+    m, I, n, L = 500, 1408, 512, 3
+    Kg = 512 if gather else 2048
+    layers = _mlp_layer(g, cuda_device, Kg, I, n, L=L)
+    perms = torch.stack([_perm(g, cuda_device, m, Kg, interleave=True) for _ in range(L)])
+    x = torch.randn((8, m), generator=g, device=cuda_device).bfloat16()
+    x[1] = 0
+    for li in range(L):
+        got = _k2_dec_held(x, perms[li] if gather else None, [t[li] for t in layers], I)
+        assert got[1].abs().max().item() == 0.0  # the all-zero row
+    layer = [t[0].clone() for t in layers]
+    layer[1][::3] = 0
+    layer[4][::2] = 0
+    _k2_dec_held(x[:3], perms[0] if gather else None, layer, I, "gelu")
+
+
+@pytest.mark.cuda
+def test_k2_dec_refuses_graph_capture(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(191)
+    D, I, n = 512, 1024, 256
+    layer = _mlp_layer(g, cuda_device, D, I, n)
+    x = torch.randn((4, D), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.ternary_mlp(x, None, *layer, intermediate=I)  # built outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k2_dec_counts()
+    with pytest.raises(NotImplementedError, match="K2's decode path.*graph"):
+        with torch.cuda.graph(graph):
+            tk.ternary_mlp(x, None, *layer, intermediate=I)
+    assert _k2_dec_counts() == before
+
+
+@pytest.mark.cuda
+def test_k2_dec_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A launch of the decode path that fails raises; neither the CUDA-core
+    K2 nor a plain version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_mlp_dec(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("the CUDA-core K2 was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(192)
+    D, I, n = 512, 1024, 256
+    layer = _mlp_layer(g, cuda_device, D, I, n)
+    perm = _perm(g, cuda_device, D, D)
+    monkeypatch.setattr(tk, "_mlp_dec_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_mlp_kernel_lib", not_asked)
+    for rows in (1, 8):
+        for p in (perm, None):
+            x = torch.randn((rows, D), generator=g, device=cuda_device).bfloat16()
+            before = _k2_dec_counts()
+            with pytest.raises(RuntimeError, match="K2 \\(decode rows, tensor cores\\)"):
+                tk.ternary_mlp(x, p, *layer, intermediate=I)
+            assert _k2_dec_counts() == before
+
+
+@pytest.mark.cuda
+def test_k2_dec_refuses_scales_not_16_byte_aligned(cuda_device, monkeypatch):
+    """Gateup's alpha 8 bytes off a 16-byte boundary: the CUDA-core K2 takes
+    it, the decode path (16-byte vector loads) refuses it before a launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(194)
+    D, I, n = 512, 1024, 256
+    gp, ga, gm, dp, da, dm = _mlp_layer(g, cuda_device, D, I, n)
+    shifted = torch.empty(ga.numel() + 4, dtype=ga.dtype, device=cuda_device)[4:].view(ga.shape)
+    shifted.copy_(ga)
+    assert shifted.data_ptr() % 16 == 8
+    x = torch.randn((4, D), generator=g, device=cuda_device).bfloat16()
+    before = _k2_dec_counts()
+    with pytest.raises(ValueError, match="gu_alpha.*'dec'"):
+        tk.ternary_mlp(x, None, gp, shifted, gm, dp, da, dm, intermediate=I)
+    assert _k2_dec_counts() == before
+    monkeypatch.setattr(tk, "K2_DEC_MAX_ROWS", 0)
+    got = tk.ternary_mlp(x, None, gp, shifted, gm, dp, da, dm, intermediate=I)
+    assert _rel(got, tk.ternary_mlp_plain(x, None, gp, ga, gm, dp, da, dm, intermediate=I)) <= MLP_TOL
+
+
+@pytest.mark.cuda
+def test_k2_dec_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(193)
+    D, I, n, B = 512, 1024, 256, 8
+    gp, ga, gm, dp, da, dm = _mlp_layer(g, cuda_device, D, I, n)
+    perm = _perm(g, cuda_device, D, D)
+    x = torch.randn((B, D), generator=g, device=cuda_device).bfloat16()
+    f32 = dict(device=cuda_device)
+    gpart = torch.empty((4, B, 2 * I), **f32)
+    dpart = torch.empty((8, B, n), **f32)
+    mid = torch.empty((B, I), **f32).bfloat16()
+    out = torch.empty((B, n), **f32)
+    counters = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    fn = tk._mlp_dec_kernel_lib().pt2_ternary_mlp_dec
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    ptrs = [t.data_ptr() for t in (x, perm, gp, ga, gm, dp, da, dm, gpart, dpart, mid, out,
+                                   counters)]
+    want = tk.ternary_mlp_plain(x, perm, gp, ga, gm, dp, da, dm, I)
+    # 4 gateup blocks and 8 down blocks: one slice each, one block a slice,
+    # slices of 2 + 2 and of 3 + 3 + 2
+    for gs, ds in ((1, 1), (4, 8), (2, 3)):
+        assert fn(*ptrs, B, D, D, I, n, gs, ds, 0, dev, stream) == 0
+        torch.cuda.synchronize()
+        assert _rel(out, want) <= MLP_TOL
+    assert not counters.any()
+    # rows outside 1-8, half or n not multiples of 128, no slice, more slices
+    # than blocks, a slice left empty (3 of 4 blocks, 7 of 8: 2 each leaves
+    # the last empty), an unknown activation
+    for B_, half, n_, gs, ds, act in ((0, I, n, 1, 1, 0), (9, I, n, 1, 1, 0),
+                                      (B, 960, n, 1, 1, 0), (B, I, 224, 1, 1, 0),
+                                      (B, I, n, 0, 1, 0), (B, I, n, 5, 1, 0), (B, I, n, 3, 1, 0),
+                                      (B, I, n, 1, 7, 0), (B, I, n, 1, 9, 0), (B, I, n, 1, 1, 3)):
+        assert fn(*ptrs, B_, D, D, half, n_, gs, ds, act, dev, stream) != 0
+    for i, off in ((0, 1), (1, 4), (2, 8), (3, 8), (6, 8), (8, 8), (9, 8), (10, 8), (11, 8),
+                   (12, 2)):
+        bad = list(ptrs)  # x, perm, codes, scales, scratch, out, counters misaligned
+        bad[i] += off
+        assert fn(*bad, B, D, D, I, n, 4, 8, 0, dev, stream) != 0, i
+    for i in range(13):  # a missing operand, scratch or out
+        bad = list(ptrs)
+        bad[i] = 0
+        assert fn(*bad, B, D, D, I, n, 4, 8, 0, dev, stream) != 0, i
+    torch.cuda.synchronize()
+    assert not counters.any()
 
 
 @pytest.mark.cuda
