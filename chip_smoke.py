@@ -224,6 +224,34 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      (a yardstick), the plain version and the bound, its gate/up and down
      under torch.profiler and the wrapper's host time per call on either
      path (16c, in phase 6).
+ 17. (K6's rows 1-64 redesigned) holds K6's decode path, the plane gather
+     (csrc/planes_gather.cuh) into lane order then K1's decode kernel as it
+     is (csrc/ternary_matmul_gathered_dec.cu's
+     pt2_ternary_matmul_gathered_dec, rows 1..K6_DEC_MAX_ROWS where k1_path
+     says "dec"), and its tensor-core path, the plane gather into K3's
+     fragment order with the block sums then K3's split-K product as it is
+     (csrc/ternary_matmul_gathered_tc.cu's pt2_ternary_matmul_gathered_tc,
+     rows K6_TC_MIN_ROWS..64, bf16 and W2A8), against
+     ternary_matmul_gathered_plain and the path's own plain version at
+     llama-3-8b qkv, o and gateup and a ragged perm, rows 1/2/4/8 and
+     9/16/32/33/64, every call twice for identical bits, exact launches /
+     launches_dec / launches_tc and none of K1's or K3's; the decode path on
+     the same perm bit-identical to K1's decode kernel on onehot_gather's
+     x, the tensor-core path within KERNEL_TOL of K3's; the plane gather
+     alone bit-exact against planes_gather_plain in both orders (17a, after
+     16a; phase 2c's K6 checks and phase 3's P2 model run on the new paths
+     too); holds launches_dec / launches_tc exact in every P2 run (the
+     lockstep decode at B 4 on the decode path, the engine's <= 64-row
+     admissions on the tensor-core path and its B 8 steps on the decode
+     path); in turns on, off, off, on ("off" rebinds K6_DEC_MAX_ROWS to 0
+     and K6_TC_MIN_ROWS to 1 << 30: the CUDA-core K6) profiles one lockstep
+     llama-3-8b "ssr" decode step under the P2 flags at B 4 beside 15 decode
+     steps' tok/s, with K6's device time and share (17b, after phase 8's
+     P2 runs); and times each path's C entry at llama-3-8b qkv and o, rows
+     1/4/8/16/32/64, beside the CUDA-core K6, the plane gather alone, K3's
+     path on the same perm, dense torch.matmul on the gathered x, the plain
+     version and the bound, then its two kernels under torch.profiler
+     (17c, in phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -348,6 +376,20 @@ def k2_parts(rows):
     return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K2_PARTS.items()}
 
 
+# the kernels of K6's rows 1-64, by the part of the profile they stand for:
+# the plane gather, K1's decode kernel (the decode path's product, and K2's
+# decode path's down), K3's product (the tensor-core path's), the CUDA-core
+# K6 and its chunk sum
+K6_PARTS = {"gather": "planes_gather_kernel", "dec_kernel": "ternary_matmul_dec_kernel<false, false>",
+            "tc_product": "igathered_tc_kernel", "cuda_core": "::gathered_kernel<",
+            "cuda_core_sum": "chunk_sum_kernel"}
+
+
+def k6_parts(rows):
+    """Device ms of each of K6_PARTS in a profile's kernel rows."""
+    return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K6_PARTS.items()}
+
+
 def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     """Where one decode step's time goes (bf16, or W2A8 with impl "a8"): its
     wall time (unprofiled, host clock around a synchronised step) against the
@@ -377,6 +419,7 @@ def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     device_ms = sum(r[0] for r in rows)
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy": device_ms / wall_ms if wall_ms else 0.0, "k2_parts": k2_parts(rows),
+           "k6_parts": k6_parts(rows),
            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in rows[:8]]}
     print(f"one decode step, {label} (B={B}, {cfg.n_layers} layers, {impl}): wall {wall_ms:.2f} "
           f"ms, "
@@ -492,6 +535,7 @@ def main() -> None:
         k1.ternary_matmul_igathered.launches_tc = k1.ternary_mlp.launches_tc = 0
         k1.ternary_mlp.launches_dec = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
+        k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -502,8 +546,10 @@ def main() -> None:
         and "ternary_matmul_igathered_tc"; K2's decode and tensor-core
         launches, its GeGLU launches (any path) and K7's at hd 256 apart as
         "ternary_mlp_dec", "ternary_mlp_tc", "ternary_mlp_gelu" and
-        "decode_attention_hd256". K2's decode path's down launch is K2's, not
-        one of K1's."""
+        "decode_attention_hd256"; K6's decode and tensor-core launches (also
+        in "ternary_matmul_gathered") apart as "ternary_matmul_gathered_dec"
+        and "ternary_matmul_gathered_tc". K2's decode path's down launch is
+        K2's, not one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -514,6 +560,8 @@ def main() -> None:
         c["ternary_mlp_dec"] = k1.ternary_mlp.launches_dec
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
+        c["ternary_matmul_gathered_dec"] = k1.ternary_matmul_gathered.launches_dec
+        c["ternary_matmul_gathered_tc"] = k1.ternary_matmul_gathered.launches_tc
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -531,7 +579,8 @@ def main() -> None:
     sources = ["ternary_matmul", "ternary_mlp", "onehot_gather", "decode_attention",
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
-               "ternary_mlp_tc", "ternary_mlp_dec"]
+               "ternary_mlp_tc", "ternary_mlp_dec", "ternary_matmul_gathered_dec",
+               "ternary_matmul_gathered_tc"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -627,6 +676,19 @@ def main() -> None:
             yield
         finally:
             k1.K2_DEC_MAX_ROWS = saved
+
+    @contextlib.contextmanager
+    def k6_paths(on):
+        """K6's rows 1-64 on its decode and tensor-core paths as routed (on),
+        or on the CUDA-core K6 (off: K6_DEC_MAX_ROWS rebound to 0 and
+        K6_TC_MIN_ROWS to 1 << 30)."""
+        saved = k1.K6_DEC_MAX_ROWS, k1.K6_TC_MIN_ROWS
+        if not on:
+            k1.K6_DEC_MAX_ROWS, k1.K6_TC_MIN_ROWS = 0, 1 << 30
+        try:
+            yield
+        finally:
+            k1.K6_DEC_MAX_ROWS, k1.K6_TC_MIN_ROWS = saved
 
     def k2_dec_ab_summary(label, res):
         """16b's turns ({"dec": [...], "cuda_core": [...]}, each a profiled
@@ -1275,6 +1337,123 @@ def main() -> None:
           f"bits, within {MLP_TOL} x max|ref| of ternary_mlp_plain (max|err| {k2dec_err:.3e}) "
           f"and of its own plain version (max|err| {k2dec_algo_err:.3e}); launches, launches_dec "
           f"and launches_gelu exact, none of K1's")
+
+    stamp("17a")
+    # ---- 17a. K6's rows 1-64 on its decode path (the plane gather into lane
+    # order, then K1's decode kernel) and its tensor-core path (the plane
+    # gather into fragment order with the block sums, then K3's product) vs
+    # both plain versions: the llama-3-8b K6 shapes (qkv, o, gateup) and a
+    # ragged perm with interleaved pad lanes, rows 1/2/4/8 (W2A8 with
+    # K1_DEC_A8 set) and 9/16/32/33/64, bf16 and W2A8, each call twice for
+    # identical bits, an all-zero row and half-integer W2A8 rows; launches,
+    # launches_dec and launches_tc exact, none of K1's or K3's; the decode
+    # path bit-identical to K1's decode kernel on onehot_gather's x, the
+    # tensor-core path within KERNEL_TOL of K3's on the same perm; the plane
+    # gather alone bit-exact in both orders. Its own generator
+    from pt2tpu_torch.ops.gather import make_packed_gather
+
+    gk17 = torch.Generator(device=dev).manual_seed(17)
+    k6dec_err = k6dec_algo_err = k6tc_err = k6tc_algo_err = 0.0
+    k6dec_checks = k6tc_checks = 0
+
+    def k6_counts():
+        return (k1.ternary_matmul_gathered.launches, k1.ternary_matmul_gathered.launches_dec,
+                k1.ternary_matmul_gathered.launches_tc, k1.ternary_matmul.launches,
+                k1.ternary_matmul_igathered.launches)
+
+    with k1_dec(True):  # W2A8 decode rows on the decode path too
+        for name, m, K, n in SHAPES_8B + [GATEUP_8B, ("ragged", 200, 256, 256)]:
+            packed, alpha, mu = rand_layer(K, n, gen=gk17)
+            perm = rand_perm(m, K, m < K, gen=gk17)
+            gp = make_packed_gather(perm, m).packed
+            for B in (1, 2, 4, 8, 9, 16, 32, 33, 64):
+                x = k3_rows(B, m, gk17)
+                for a8 in (False, True):
+                    label = f"K6 {name} rows={B} a8={a8}"
+                    path = "dec" if B <= 8 else "tc"
+                    if k1.k6_path(B, n, 128, a8) != path:
+                        fail(f"{label}: k6_path is not {path}")
+                    c0 = k6_counts()
+                    got = k1.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+                    again = k1.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+                    torch.cuda.synchronize()
+                    rose = tuple(b - a for a, b in zip(c0, k6_counts()))
+                    if rose != (2, 2 * (path == "dec"), 2 * (path == "tc"), 0, 0):
+                        fail(f"{label}: launches / decode / tensor-core / K1 / K3 launches rose "
+                             f"by {rose}")
+                    if not torch.equal(got, again):
+                        fail(f"{label}: two calls differ in their bits")
+                    want = k1.ternary_matmul_gathered_plain(x, gp, packed, alpha, mu, 128, a8)
+                    if path == "dec":
+                        algo = k1.ternary_matmul_gathered_dec_plain(
+                            x, gp, packed, alpha, mu, 128, a8, wave=k1.dec_wave(dev))
+                        twin = k1.ternary_matmul(k4.onehot_gather(x, perm), packed, alpha, mu,
+                                                 a8=a8)
+                    else:
+                        algo = k1.ternary_matmul_gathered_tc_plain(
+                            x, gp, packed, alpha, mu, 128, a8, wave=k1.igtc_wave(dev))
+                        twin = k1.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8)
+                    scale = want.abs().max().item()
+                    err = (got - want).abs().max().item()
+                    aerr = (got - algo).abs().max().item()
+                    terr = (got - twin).abs().max().item()
+                    if got.shape != want.shape or not (err <= KERNEL_TOL * scale
+                                                       and aerr <= KERNEL_TOL * scale):
+                        fail(f"{label}: max|err| {err:.3e} vs ternary_matmul_gathered_plain, "
+                             f"{aerr:.3e} vs the path's plain version > {KERNEL_TOL} x max|ref| "
+                             f"{scale:.3e}")
+                    if path == "dec" and terr != 0.0:
+                        fail(f"{label}: not bit-identical to K1's decode kernel on "
+                             f"onehot_gather's x (max|diff| {terr:.3e})")
+                    if path == "tc" and not terr <= KERNEL_TOL * scale:
+                        fail(f"{label}: max|diff| {terr:.3e} from K3's tensor-core path")
+                    if B >= 4 and got[1].abs().max().item() != 0.0:
+                        fail(f"{label}: the all-zero row's output is not 0")
+                    if path == "dec":
+                        k6dec_err, k6dec_algo_err = max(k6dec_err, err), max(k6dec_algo_err, aerr)
+                        k6dec_checks += 1
+                    else:
+                        k6tc_err, k6tc_algo_err = max(k6tc_err, err), max(k6tc_algo_err, aerr)
+                        k6tc_checks += 1
+    # the plane gather alone through its C entry, both orders, bit for bit
+    pg_lib = k1._gathered_tc_kernel_lib()
+    pg_checks = 0
+    m, K = 4096, 4096
+    perm = rand_perm(m, K, gen=gk17)
+    gp = make_packed_gather(perm, m).packed
+    for B in (1, 4, 8, 16, 33, 64):
+        x = k3_rows(B, m, gk17)
+        for a8 in (False, True):
+            xk = k1.normalize_rows_a8(x)[0].contiguous() if a8 else x
+            frag = B > 8
+            rows_out = k1.igtc_rows_pad(B) if frag else B
+            xg = torch.full((rows_out, K), float("nan"), device=dev).bfloat16()
+            S = torch.full((K // 128, rows_out), float("nan"), device=dev)
+            rc = pg_lib.pt2_planes_gather(
+                xk.data_ptr(), gp.data_ptr(), xg.data_ptr(), S.data_ptr(), B, rows_out, m,
+                gp.shape[0], K, int(frag), int(a8), dev.index or 0,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            want = k1.planes_gather_plain(xk, gp, 128, a8, "fragments" if frag else "lanes")
+            same = (torch.equal(xg, want[0]) and torch.equal(S, want[1]) if frag
+                    else torch.equal(xg, want))
+            if rc != 0 or not same:
+                fail(f"the plane gather alone (rc {rc}) at {B} rows a8={a8} differs from "
+                     f"planes_gather_plain")
+            pg_checks += 1
+    record["k6_dec_checks"], record["k6_tc_checks"] = k6dec_checks, k6tc_checks
+    record["k6_dec_max_abs_err"], record["k6_tc_max_abs_err"] = k6dec_err, k6tc_err
+    record["k6_dec_max_abs_err_vs_dec_plain"] = k6dec_algo_err
+    record["k6_tc_max_abs_err_vs_tc_plain"] = k6tc_algo_err
+    print(f"K6 decode path vs plain: {k6dec_checks} checks, tensor-core path: {k6tc_checks} "
+          f"(4 shapes x rows 1/2/4/8 and 9/16/32/33/64 x bf16/a8), each called twice with "
+          f"identical bits, within {KERNEL_TOL} x max|ref| of ternary_matmul_gathered_plain "
+          f"(max|err| {k6dec_err:.3e} / {k6tc_err:.3e}) and of the path's own plain version "
+          f"({k6dec_algo_err:.3e} / {k6tc_algo_err:.3e}); the decode path bit-identical to K1's "
+          f"decode kernel on onehot_gather's x, the tensor-core path within {KERNEL_TOL} of K3's; "
+          f"launches exact, none of K1's or K3's; the plane gather alone bit-exact in "
+          f"{pg_checks} checks")
+    del packed, alpha, mu, x, perm, gp, xg, S
 
     stamp("2")
     # ---- 2. K4, K3 and K2 vs their plain versions
@@ -2098,7 +2277,10 @@ def main() -> None:
     record["main_path_8b_ssr_packed"] = {}
     for flags_name, flags, fused in (("P1", P1, "ternary_matmul_igathered"),
                                      ("P2", P2, "ternary_matmul_gathered")):
-        dec_p = {"ternary_matmul_igathered_dec": 2 * L * steps} if flags_name == "P1" else {}
+        # bf16 decode rows (B 4) on K3's or K6's decode path; W2A8 ones on
+        # their CUDA-core kernels
+        dec_p = {("ternary_matmul_igathered_dec" if flags_name == "P1"
+                  else "ternary_matmul_gathered_dec"): 2 * L * steps}
         want_p = {
             "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
                          ternary_mlp_dec=L * steps, onehot_matmul=3 * L,
@@ -2131,7 +2313,8 @@ def main() -> None:
                 toks = greedy_generate(cfg, params, prompts, new, impl="a8")
                 torch.cuda.synchronize()
                 got = counts()
-                if got != dict(want_p["a8"], ternary_matmul_dec=L * steps):
+                if got != dict(want_p["a8"], ternary_matmul_dec=L * steps,
+                               ternary_matmul_gathered_dec=3 * L * steps):
                     fail(f"P2 a8 with the W2A8 decode kernel on: launches {got}")
                 tally(got)
             gap_on, _ = answers_held("P2 a8 answers, decode rows on the decode kernel",
@@ -2148,9 +2331,66 @@ def main() -> None:
     with route_flags(P2):
         record["decode_step_8b_ssr_p2"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                               "llama-3-8b ssr, P2 flags")
-    for k in ("onehot_matmul", "ternary_matmul_gathered"):
-        main_launches[k] = sum(r["launches"][k] for rp in record["main_path_8b_ssr_packed"].values()
-                               for r in rp.values())
+    main_launches["onehot_matmul"] = sum(r["launches"]["onehot_matmul"]
+                                         for rp in record["main_path_8b_ssr_packed"].values()
+                                         for r in rp.values())
+
+    stamp("17b")
+    # ---- 17b. the lockstep llama-3-8b "ssr" bf16 decode at B 4 under the P2
+    # flags with K6's decode rows on its decode path (on) and on the
+    # CUDA-core K6 (off: k6_paths(False)), in turns on, off, off, on: a
+    # short greedy_generate (16 new tokens) with exact counts, 15 decode
+    # steps timed back to back after a prefill (decode tok/s), then one
+    # decode step's wall and its profiled device time with K6's part: in an
+    # "on" turn the plane gather plus K1's decode kernel less that kernel's
+    # mean over the "off" turns (where it runs K2's down alone), in an "off"
+    # turn the CUDA-core K6 and its chunk sum
+    k6_ab = {"on": [], "off": []}
+    for on in DEC_AB:
+        want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_matmul=3 * L,
+                    ternary_matmul_gathered=2 * L * (new16 - 1),
+                    ternary_matmul_gathered_dec=2 * L * (new16 - 1) if on else 0,
+                    ternary_mlp=L * (new16 - 1), ternary_mlp_dec=L * (new16 - 1))
+        with route_flags(P2), k6_paths(on):
+            zero_counts()
+            greedy_generate(cfg, params, prompts, new16)
+            torch.cuda.synchronize()
+            got = counts()
+            if got != want:
+                fail(f"lockstep ssr P2 K6 A/B on={on}: launches {got}, want {want}")
+            tally(got)
+            with torch.inference_mode():
+                cache = init_cache(cfg, B, Lp + new16, device=dev)
+                forward_cached(cfg, params, prompts, cache, 0, "auto")
+                tok = prompts[:, :1].contiguous()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(new16 - 1):
+                    forward_cached(cfg, params, tok, cache, Lp + i, "auto")
+                torch.cuda.synchronize()
+                dec_s = time.perf_counter() - t0
+            del cache
+            prof = profile_decode_step(cfg, params, prompts, Lp, new, dev,
+                                       f"llama-3-8b ssr, P2 flags, K6 decode rows on "
+                                       f"{'its decode path' if on else 'the CUDA cores'}")
+        k6_ab["on" if on else "off"].append({
+            "decode_tok_s": B * (new16 - 1) / dec_s, "step_wall_ms": prof["wall_ms"],
+            "device_ms": prof["device_ms"], "k6_parts": prof["k6_parts"], "top": prof["top"]})
+    k2_down_ms = sum(r["k6_parts"]["dec_kernel"] for r in k6_ab["off"]) / len(k6_ab["off"])
+    for k, rows in k6_ab.items():
+        for r in rows:
+            p = r["k6_parts"]
+            r["k6_ms"] = (p["gather"] + p["dec_kernel"] - k2_down_ms if k == "on"
+                          else p["cuda_core"] + p["cuda_core_sum"])
+            r["k6_share"] = r["k6_ms"] / r["device_ms"] if r["device_ms"] else 0.0
+        each = lambda key, scale=1.0, rows=rows: " / ".join(  # noqa: E731
+            f"{scale * r[key]:.2f}" for r in rows)
+        print(f"K6 decode A/B, lockstep llama-3-8b ssr, P2 flags, B 4, K6's decode rows on "
+              f"{'its decode path' if k == 'on' else 'the CUDA cores'} (in turns on, off, off, "
+              f"on): step device time {each('device_ms')} ms, K6 {each('k6_ms')} ms "
+              f"({each('k6_share', 100.0)} %), step wall {each('step_wall_ms')} ms, decode "
+              f"{each('decode_tok_s')} tok/s on {record['smi']}")
+    record["lockstep_ssr_p2_k6_ab"] = k6_ab
 
     # run E: the ServeEngine over the same 32-layer "ssr" model under the P2
     # flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one of
@@ -2167,11 +2407,13 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     st = eng.stats["steps"]
-    # an admission of <= 64 rows: K6 for qkv and o, K2 for the MLP; a longer
-    # one: K5 + K1 for qkv, o and gateup, K1 for down. Each decode step (B 8):
-    # K6 x2 + K2 + K7 per layer
+    # an admission of <= 64 rows: K6 for qkv and o (its tensor-core path),
+    # K2 for the MLP; a longer one: K5 + K1 for qkv, o and gateup, K1 for
+    # down. Each decode step (B 8): K6 x2 (its decode path) + K2 + K7 per layer
     short = sum(min(_bucket(n), ENGINE_M) <= 64 for n in e_lens)
-    want = dict(none, ternary_matmul_gathered=2 * L * (st + short), ternary_mlp=L * (st + short),
+    want = dict(none, ternary_matmul_gathered=2 * L * (st + short),
+                ternary_matmul_gathered_tc=2 * L * short, ternary_matmul_gathered_dec=2 * L * st,
+                ternary_mlp=L * (st + short),
                 ternary_mlp_tc=L * short, ternary_mlp_dec=L * st, ternary_matmul=4 * L * (16 - short),
                 ternary_matmul_tc=4 * L * (16 - short),
                 onehot_matmul=3 * L * (16 - short), decode_attention=L * st)
@@ -2190,8 +2432,7 @@ def main() -> None:
                                "steps": st, "t_admit_s": e_stats["t_admit_s"],
                                "t_decode_s": e_stats["t_decode_s"], "launches": got,
                                "short_admissions": short, "worst_pick_gap": worst}
-    for k in ("onehot_matmul", "ternary_matmul_gathered"):
-        main_launches[k] += got[k]
+    main_launches["onehot_matmul"] += got["onehot_matmul"]
     print(f"engine llama-3-8b ssr, P2 flags, bf16 KV, quantum 1: 16 requests, {e_tok} tokens in "
           f"{wall:.2f} s ({e_tok / wall:.1f} tok/s; decode "
           f"{record['engine_ssr_p2']['decode_tok_s']:.1f} tok/s; t_admit_s "
@@ -3658,19 +3899,39 @@ def main() -> None:
     record["k5_timing"] = k5_detail
 
     # K6 at llama-3-8b qkv / o (K3's layers, with the planes in place of the
-    # perm); library: one dense bf16 matmul on pre-gathered x, as for K3
-    k6_detail, wrapper_detail = [], []
+    # perm); library: one dense bf16 matmul on pre-gathered x, as for K3.
+    # "K6" the CUDA-core kernel at rows 1-64; 17c: "K6dec" (rows 1 / 4 / 8)
+    # and "K6tc" (16 / 32 / 64) K6's decode and tensor-core paths through
+    # their C entries (scratch allocated outside the loop), in turns path,
+    # CUDA-core K6, path; beside them the plane gather alone, K3's path on
+    # the same perm (its decode or tensor-core path), and the path's two
+    # kernels' device time per launch under torch.profiler (CUDA events over
+    # back-to-back ctypes calls of a ~2 us kernel measure the host's launch
+    # rate). Rows besides 1 and 16 draw from gk17, so that the later phases
+    # draw what they drew before
+    k6_detail, k6dec_detail, k6tc_detail, wrapper_detail = [], [], [], []
+    gd_lib, gt_lib = k1._gathered_dec_kernel_lib(), k1._gathered_tc_kernel_lib()
+    k6_counters = torch.zeros(1024, dtype=torch.int32, device=dev)
     for name, m, K, n in SHAPES_8B:
         wbytes = K * n // 4 + 4 * (K // 128) * n + m * K // 4
         copies = max(1, math.ceil(COLD_BYTES / wbytes))
         perms = [rand_perm(m, K) for _ in range(copies)]
         layers = [rand_layer(K, n) + (make_packed_gather(p, m).packed, p) for p in perms]
         nnz = int(k4.onehot_planes(layers[0][3]).count_nonzero())
+        D4 = layers[0][3].shape[0]
         dn = dense(K, n)
-        for B in (1, 16):
-            x = torch.randn((B, m), generator=g, device=dev).bfloat16()
+        for B in (1, 4, 8, 16, 32, 64):
+            x = torch.randn((B, m), generator=g if B in (1, 16) else gk17, device=dev).bfloat16()
             partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=dev)
             out = torch.empty((B, n), dtype=torch.float32, device=dev)
+            path = "dec" if B <= 8 else "tc"
+            if path == "dec":
+                splits, rows_out = k1.dec_splits(K, n, 128, k1.dec_wave(dev)), B
+            else:
+                splits, rows_out = k1.igtc_splits(K, n, 128, k1.igtc_wave(dev)), k1.igtc_rows_pad(B)
+            xg = torch.empty((rows_out, K), dtype=torch.bfloat16, device=dev)
+            S = torch.empty((K // 128, rows_out), dtype=torch.float32, device=dev)
+            ppart = torch.empty((splits, B, n), dtype=torch.float32, device=dev)
 
             def kern(i):
                 p, a, mu_, gpl, _ = layers[i % copies]
@@ -3678,14 +3939,68 @@ def main() -> None:
                     x.data_ptr(), gpl.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
                     partial.data_ptr(), out.data_ptr(), B, m, m // 4, K, n, 0, dix, stream), "K6")
 
-            ms = time_ms(kern, 50)
+            def kern_path(i):
+                p, a, mu_, gpl, _ = layers[i % copies]
+                head = (x.data_ptr(), gpl.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        xg.data_ptr())
+                tail = (ppart.data_ptr(), out.data_ptr(), k6_counters.data_ptr(), B, m, D4, K, n,
+                        splits, 0, dix, stream)
+                if path == "dec":
+                    ok(gd_lib.pt2_ternary_matmul_gathered_dec(*head, *tail), "K6 dec")
+                else:
+                    ok(gt_lib.pt2_ternary_matmul_gathered_tc(*head, S.data_ptr(), *tail), "K6 tc")
+
+            def kern_gather(i):
+                ok(gt_lib.pt2_planes_gather(
+                    x.data_ptr(), layers[i % copies][3].data_ptr(), xg.data_ptr(), S.data_ptr(),
+                    B, rows_out, m, D4, K, int(path == "tc"), 0, dix, stream), "plane gather")
+
+            def kern_k3(i):
+                p, a, mu_, _, pm = layers[i % copies]
+                if path == "dec":
+                    ok(dec_lib.pt2_ternary_matmul_dec_igathered(
+                        x.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        ppart.data_ptr(), out.data_ptr(), k6_counters.data_ptr(), B, m, K, n, 128,
+                        splits, 0, dix, stream), "K3 dec")
+                else:
+                    ok(igtc_lib.pt2_ternary_matmul_igathered_tc(
+                        x.data_ptr(), pm.data_ptr(), p.data_ptr(), a.data_ptr(), mu_.data_ptr(),
+                        xg.data_ptr(), S.data_ptr(), ppart.data_ptr(), out.data_ptr(),
+                        k6_counters.data_ptr(), B, m, K, n, 128, splits, 0, dix, stream), "K3 tc")
+
+            turns = [time_ms(kern_path, 50), time_ms(kern, 50 if B <= 16 else 20),
+                     time_ms(kern_path, 50)]
+            ms = turns[1]
+            k3_ms = time_ms(kern_k3, 50)
+            gather_ms = time_ms(kern_gather, 50)
             plain_ms = time_ms(lambda i: k1.ternary_matmul_gathered_plain(
                 x, layers[i % copies][3], *layers[i % copies][:3]), 5)
-            xg = k4.onehot_matmul_plain(x, layers[0][3])
-            lib_ms = time_ms(lambda i: torch.matmul(xg, dn[i % len(dn)]), 50)
-            k6_detail.append(row("K6", name, B, ms, plain_ms, lib_ms,
-                                 wbytes + 2 * B * m + 4 * B * n, 2.0 * B * (K * n + nnz),
-                                 m=m, K=K, n=n))
+            xgd = k4.onehot_matmul_plain(x, layers[0][3])
+            lib_ms = time_ms(lambda i: torch.matmul(xgd, dn[i % len(dn)]), 50)
+            nbytes, ops = wbytes + 2 * B * m + 4 * B * n, 2.0 * B * (K * n + nnz)
+            k6_detail.append(row("K6", name, B, ms, plain_ms, lib_ms, nbytes, ops, m=m, K=K, n=n))
+            path_plain = (k1.ternary_matmul_gathered_dec_plain if path == "dec"
+                          else k1.ternary_matmul_gathered_tc_plain)
+            wave = k1.dec_wave(dev) if path == "dec" else k1.igtc_wave(dev)
+            path_plain_ms = time_ms(lambda i: path_plain(
+                x, layers[i % copies][3], *layers[i % copies][:3], wave=wave), 3)
+            d = row("K6" + path, name, B, min(turns[0], turns[2]), path_plain_ms, lib_ms, nbytes,
+                    ops, m=m, K=K, n=n, splits=splits)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(20):
+                    kern_path(i)
+                torch.cuda.synchronize()
+            krows = kernel_rows(prof)
+
+            def per_launch(key):
+                hit = [r for r in krows if key in r[2]]
+                return sum(r[0] for r in hit) / max(1, sum(r[1] for r in hit))
+
+            d.update(turns_ms=[turns[0], turns[2]], cuda_core_ms=ms, k3_path_ms=k3_ms,
+                     gather_ms=gather_ms, gather_device_ms=per_launch("planes_gather_kernel"),
+                     product_device_ms=per_launch("ternary_matmul_dec_kernel" if path == "dec"
+                                                  else "igathered_tc_kernel"))
+            (k6dec_detail if path == "dec" else k6tc_detail).append(d)
         # the whole Python wrappers of K3 and K6 back to back at the lockstep
         # decode's B = 4 (checks, allocations, launches): K3, K6, K6, K3
         x = torch.randn((4, m), generator=g, device=dev).bfloat16()
@@ -3704,8 +4019,22 @@ def main() -> None:
         print(f"{name} B=4, whole wrapper per call: K3 {w[0] * 1e3:.1f} / {w[3] * 1e3:.1f} us, "
               f"K6 {w[1] * 1e3:.1f} / {w[2] * 1e3:.1f} us (K3, K6, K6, K3)")
         del layers, dn, perms
+    if k6_counters.any():
+        fail("K6's decode or tensor-core path left a column tile's counter set")
     record["k6_timing"] = k6_detail
+    record["k6_dec_timing"] = k6dec_detail
+    record["k6_tc_timing"] = k6tc_detail
     record["k3_k6_wrapper_timing"] = wrapper_detail
+    for B in (1, 4, 8, 16, 32, 64):
+        at = [d for d in k6dec_detail + k6tc_detail if d["B"] == B]
+        tot = lambda key: sum(d[key] for d in at) * 1e3  # noqa: E731
+        print(f"K6, llama-3-8b qkv + o at {B:2d} rows: {'decode' if B <= 8 else 'tensor-core'} "
+              f"path {tot('ms'):6.1f} us (device time by the profiler: plane gather "
+              f"{tot('gather_device_ms'):5.1f} us + product {tot('product_device_ms'):5.1f} us; the "
+              f"gather alone {tot('gather_ms'):5.1f} us of CUDA events) | CUDA-core K6 "
+              f"{tot('cuda_core_ms'):6.1f} us | K3's path {tot('k3_path_ms'):6.1f} us | "
+              f"torch.matmul on gathered x {tot('library_ms'):5.1f} us | bound "
+              f"{tot('bound_ms'):5.2f} us on {record['smi']}")
 
     # K7 at the engine's point: B 8, M 2048, llama-3-8b heads and gemma-2b's
     # (hd 256, one KV head), every slot
@@ -3793,7 +4122,7 @@ def main() -> None:
     # 32-layer run counted exactly;
     # K3 / K2 at B = 1 decode (K3's tensor-core path at B = 16, the
     # engine's smallest admission bucket); K4 and K5 at the 512-row prefill, 3
-    # gathers; K6 at B = 1 decode, qkv + o; K7 at the engine's B = 8,
+    # gathers; the CUDA-core K6 at B = 1, qkv + o; K7 at the engine's B = 8,
     # M = 2048 with a bf16 cache)
     def entry(name, source, replaces, rows, err, mult=1):
         return {
@@ -3817,6 +4146,8 @@ def main() -> None:
     main_launches["ternary_matmul_dec"] = run_totals["ternary_matmul_dec"]
     main_launches["ternary_matmul"] = run_totals["ternary_matmul"] - sum(
         run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
+    main_launches["ternary_matmul_gathered"] = run_totals["ternary_matmul_gathered"] - sum(
+        run_totals[k] for k in ("ternary_matmul_gathered_dec", "ternary_matmul_gathered_tc"))
     kernels = [
         entry("ternary_matmul", "pt2tpu_torch/csrc/ternary_matmul.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", b1(detail), max_err),
@@ -3889,6 +4220,20 @@ def main() -> None:
                          "pt2tpu/ops/kernels/pallas_ternary.py:1106",
                          [d for d in k2dec_detail if d["B"] == 1 and d["shape"] == "llama-3-8b"],
                          max(k2dec_err, errs["ternary_mlp_dec"])))
+    # K6's decode path at B = 1 and its tensor-core path at B = 16 (the
+    # engine's smallest admission bucket), bf16, qkv + o; their launches:
+    # every P2 run counted exactly. The CUDA-core K6's own launches: the P2
+    # runs' W2A8 decode rows and the A/B's "off" turns
+    for k in ("ternary_matmul_gathered_dec", "ternary_matmul_gathered_tc"):
+        main_launches[k] = run_totals[k]
+    kernels.append(entry("ternary_matmul_gathered_dec",
+                         "pt2tpu_torch/csrc/ternary_matmul_gathered_dec.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:443", b1(k6dec_detail),
+                         k6dec_err))
+    kernels.append(entry("ternary_matmul_gathered_tc",
+                         "pt2tpu_torch/csrc/ternary_matmul_gathered_tc.cu",
+                         "pt2tpu/ops/kernels/pallas_ternary.py:443",
+                         [d for d in k6tc_detail if d["B"] == 16], k6tc_err))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every 32-layer run (each counted exactly): {run_totals}")

@@ -17,9 +17,16 @@
     (``csrc/ternary_matmul_igathered_tc.cu``) for rows
     :data:`K1_TC_MIN_ROWS` .. :data:`FUSED_MAX_ROWS`; the CUDA-core kernel
     (``csrc/ternary_matmul.cu``) for every other shape.
-  * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G run as
-    the matmul's prologue (``csrc/ternary_matmul_gathered.cu``; replaces
-    ``ternary_matmul_pallas_gathered``).
+  * K6 ``ternary_matmul_gathered``: the packed one-hot gather x @ G, then
+    the matmul (replaces ``ternary_matmul_pallas_gathered``), on three paths
+    chosen by shape (:func:`k6_path`): the plane gather
+    (``csrc/planes_gather.cuh``) into lane order, then K1's decode kernel
+    (``csrc/ternary_matmul_gathered_dec.cu``) for rows 1 ..
+    :data:`K6_DEC_MAX_ROWS`; the plane gather into fragment order, then K3's
+    split-K tensor-core product (``csrc/ternary_matmul_gathered_tc.cu``) for
+    rows :data:`K6_TC_MIN_ROWS` .. :data:`FUSED_MAX_ROWS`; the gather run as
+    a CUDA-core matmul's prologue (``csrc/ternary_matmul_gathered.cu``) for
+    every other shape.
   * K2 ``ternary_mlp``: the whole gated MLP, silu, gelu or relu (replaces
     ``ternary_mlp_pallas``), on three paths chosen by rows (:func:`k2_path`):
     K1's decode GEMV over gateup with x staged through perm, the gated
@@ -51,7 +58,7 @@ import torch.nn.functional as F
 
 from ...core.packing import unpack_ternary
 from . import _build
-from .gather import onehot_gather_plain, onehot_matmul_plain
+from .gather import onehot_gather_plain, onehot_matmul_plain, onehot_planes
 
 __all__ = [
     "K1_TC_MIN_ROWS",
@@ -78,6 +85,12 @@ __all__ = [
     "ternary_matmul_igathered_plain",
     "ternary_matmul_gathered",
     "ternary_matmul_gathered_plain",
+    "K6_DEC_MAX_ROWS",
+    "K6_TC_MIN_ROWS",
+    "k6_path",
+    "planes_gather_plain",
+    "ternary_matmul_gathered_dec_plain",
+    "ternary_matmul_gathered_tc_plain",
     "MLP_ACTS",
     "mlp_act_code",
     "mlp_activation",
@@ -369,6 +382,39 @@ def k3_path(rows: int, n: int, block_size: int, a8: bool) -> str:
         return "dec"
     if (K1_TC_MIN_ROWS <= rows <= FUSED_MAX_ROWS and block_size % 128 == 0
             and n % 128 == 0):
+        return "tc"
+    return "cuda_core"
+
+
+K6_DEC_MAX_ROWS = 8
+"""The most rows K6 runs on its decode path (``csrc/ternary_matmul_gathered_dec.cu``:
+the plane gather, then K1's decode kernel), where :func:`k1_path` says
+"dec"; at most 8, that kernel's N tile. 0 sends decode rows back to the
+CUDA-core K6 (``chip_smoke.py``'s "off" turns). Read at each call."""
+
+K6_TC_MIN_ROWS = 9
+"""The fewest rows K6 runs on its tensor-core path
+(``csrc/ternary_matmul_gathered_tc.cu``: the plane gather, then K3's split-K
+product), up to :data:`FUSED_MAX_ROWS` and not below :data:`K1_TC_MIN_ROWS`.
+Rebound to ``1 << 30``, it sends rows 9-64 back to the CUDA-core K6
+(``chip_smoke.py``'s "off" turns). Read at each call."""
+
+
+def k6_path(rows: int, n: int, block_size: int, a8: bool) -> str:
+    """Which of K6's kernels :func:`ternary_matmul_gathered` launches on
+    CUDA, as :func:`k3_path` chooses K3's: "dec"
+    (``pt2_ternary_matmul_gathered_dec``, the plane gather into lane order,
+    then K1's decode kernel) where :func:`k1_path` says "dec" and rows <=
+    K6_DEC_MAX_ROWS; "tc" (``pt2_ternary_matmul_gathered_tc``, the plane
+    gather into fragment order, then K3's split-K tensor-core product) for
+    max(K1_TC_MIN_ROWS, K6_TC_MIN_ROWS) <= rows <= FUSED_MAX_ROWS with scale
+    blocks and out_features that are multiples of 128, bf16 and W2A8; else
+    "cuda_core" (``pt2_ternary_matmul_gathered``: W2A8 decode rows while
+    K1_DEC_A8 is off, other shapes, the A/Bs' "off" turns)."""
+    if rows <= K6_DEC_MAX_ROWS and k1_path(rows, n, block_size, a8) == "dec":
+        return "dec"
+    if (max(K1_TC_MIN_ROWS, K6_TC_MIN_ROWS) <= rows <= FUSED_MAX_ROWS
+            and block_size % 128 == 0 and n % 128 == 0):
         return "tc"
     return "cuda_core"
 
@@ -688,6 +734,114 @@ def ternary_matmul_igathered_tc_plain(
     return total[:B] * sx if a8 else total[:B]
 
 
+def planes_gather_plain(
+    xk: torch.Tensor,  # (B, m) rows in feature order (W2A8: normalised), bf16 values
+    gpacked: torch.Tensor,  # (D//4, K) packed one-hot planes, D >= m
+    block_size: int = 128,
+    a8: bool = False,
+    order: str = "lanes",
+):
+    """The plane gather of K6's decode and tensor-core paths
+    (``csrc/planes_gather.cuh``, C entry ``pt2_planes_gather``), bit for bit.
+    Lane k's value is the f32 sum over its nonzero fields (i, u) with i < m
+    of u * x[b, i], the fields in increasing i, the first product the sum's
+    start (a lane with one field of 1 gives x[b, i] exactly, -0 included;
+    a lane with none gives 0); then rounded to bf16 (W2A8: first rounded
+    half to even and clipped to +-127). ``order`` "lanes" returns xg (B, K)
+    bf16 in lane order, the x of K1's decode kernel; "fragments" returns
+    (xg, S) as :func:`igathered_tc_gather_plain` documents them (xg (Bp, K)
+    in K3's fragment order, pad rows zero; S (nb, Bp) f32), S summed as the
+    kernel sums it: per block, each quarter of 32 lanes by a warp's
+    butterfly, then the quarters in order."""
+    if block_size != 128:
+        raise ValueError(f"the plane gather takes scale blocks of 128, got {block_size}")
+    if order not in ("lanes", "fragments"):
+        raise ValueError(f"order must be 'lanes' or 'fragments', got {order!r}")
+    B, m = xk.shape
+    u = onehot_planes(gpacked)[:m]  # (m, K): fields of features >= m are not read
+    K = u.shape[1]
+    nz = u != 0
+    feat = torch.arange(m, dtype=torch.int32, device=u.device)[:, None]
+    idx = torch.where(nz, feat, m).sort(dim=0).values  # each lane's features, ascending
+    idx = idx[: int(nz.sum(dim=0).max()) if m else 0].long()  # (F, K), m past a lane's last
+    uval = torch.gather(F.pad(u, (0, 0, 0, 1)), 0, idx).float()
+    xp = F.pad(xk.float(), (0, 1))  # x[:, m] = 0
+    t = torch.zeros((B, K), dtype=torch.float32, device=xk.device)
+    for f in range(idx.shape[0]):
+        v = uval[f] * xp[:, idx[f]]
+        t = v if f == 0 else torch.where(idx[f] < m, t + v, t)
+    if a8:
+        t = torch.clamp(torch.round(t), -127, 127)
+    xl = t.to(torch.bfloat16)
+    if order == "lanes":
+        return xl
+    nb, Bp = K // 128, igtc_rows_pad(B)
+    xg = torch.zeros((Bp, K), dtype=torch.bfloat16, device=xk.device)
+    xg[:B] = _fragment_order(xl, 128)
+    q = xl.float().reshape(B, nb, 4, 32)
+    lane = torch.arange(32, device=xk.device)
+    for o in (16, 8, 4, 2, 1):  # the warp's butterfly; lane 0 keeps the sum
+        q = q + q[..., lane ^ o]
+    q = q[..., 0]
+    S = torch.zeros((nb, Bp), dtype=torch.float32, device=xk.device)
+    S[:, :B] = (((q[..., 0] + q[..., 1]) + q[..., 2]) + q[..., 3]).T
+    return xg, S
+
+
+def _k6_rows(x, a8):
+    """K6's operand rows: bf16 x, or W2A8's normalised rows and their scales
+    (absmax does not depend on the order of the columns)."""
+    if a8:
+        return normalize_rows_a8(x)
+    return x.to(torch.bfloat16), None
+
+
+def ternary_matmul_gathered_dec_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    gpacked: torch.Tensor,  # (D//4, K) packed one-hot planes
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K6's decode rows (its C entry
+    ``pt2_ternary_matmul_gathered_dec``) in f32: :func:`planes_gather_plain`
+    in lane order on bf16 x (W2A8: the normalised rows, rounded there), then
+    :func:`ternary_matmul_dec_plain`'s schedule on it, index for index, in
+    the :func:`dec_splits` slices of ``wave``. W2A8 multiplies by sx last,
+    as the wrapper does. Returns (B, n) f32."""
+    xk, sx = _k6_rows(x, a8)
+    xl = planes_gather_plain(xk, gpacked, block_size, a8, "lanes")
+    out = _dec_plain(xl.float(), packed, alpha, mu, block_size, wave)
+    return out * sx if a8 else out
+
+
+def ternary_matmul_gathered_tc_plain(
+    x: torch.Tensor,  # (B, m) activations in feature order
+    gpacked: torch.Tensor,  # (D//4, K) packed one-hot planes
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+    a8: bool = False,
+    *,
+    wave: int,
+) -> torch.Tensor:
+    """The algorithm of K6's rows 9-64 (its C entry
+    ``pt2_ternary_matmul_gathered_tc``) in f32: :func:`planes_gather_plain`
+    in fragment order on bf16 x (W2A8: the normalised rows, rounded there),
+    then K3's product (:func:`_igtc_product_plain`) on that scratch in the
+    :func:`igtc_splits` slices of ``wave``. W2A8 multiplies by sx last, as
+    the wrapper does. Returns (B, n) f32."""
+    xk, sx = _k6_rows(x, a8)
+    xg, S = planes_gather_plain(xk, gpacked, block_size, a8, "fragments")
+    total = _igtc_product_plain(xg, S, packed, alpha, mu, block_size, wave)[: x.shape[0]]
+    return total * sx if a8 else total
+
+
 def mlp_tc_gather_plain(
     x: torch.Tensor,  # (B, m) feature order
     perm: Optional[torch.Tensor],  # (Kg,) gateup's visit perm, or None
@@ -823,6 +977,8 @@ _mlp_lib = None
 _mlp_tc_lib = None
 _mlp_dec_lib = None
 _gathered_lib = None
+_gathered_dec_lib = None
+_gathered_tc_lib = None
 
 
 def _kernel_lib():
@@ -931,6 +1087,36 @@ def _gathered_kernel_lib():
         fn.restype = ctypes.c_int
         _gathered_lib = lib
     return _gathered_lib
+
+
+def _bind_planes_gather(lib):
+    fn = lib.pt2_planes_gather
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def _gathered_dec_kernel_lib():
+    global _gathered_dec_lib
+    if _gathered_dec_lib is None:
+        lib = _build.load("ternary_matmul_gathered_dec")
+        fn = lib.pt2_ternary_matmul_gathered_dec
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bind_planes_gather(lib)
+        _gathered_dec_lib = lib
+    return _gathered_dec_lib
+
+
+def _gathered_tc_kernel_lib():
+    global _gathered_tc_lib
+    if _gathered_tc_lib is None:
+        lib = _build.load("ternary_matmul_gathered_tc")
+        fn = lib.pt2_ternary_matmul_gathered_tc
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bind_planes_gather(lib)
+        _gathered_tc_lib = lib
+    return _gathered_tc_lib
 
 
 def _device_and_stream(x):
@@ -1284,10 +1470,20 @@ def ternary_matmul_gathered(
 ) -> torch.Tensor:
     """out = (x @ G) @ dequant(packed): (B, m) x (D//4, K) planes -> (B, n) f32.
 
-    CUDA: launches K6 (the gathered x is staged in shared memory only; its
-    split-K partials are summed in a fixed order by a second kernel) for
-    1 <= B <= 64 rows and scale blocks of 128, and counts it once in
-    ``ternary_matmul_gathered.launches``. CPU: the plain version."""
+    CUDA: launches K6 for 1 <= B <= 64 rows and scale blocks of 128 on the
+    path :func:`k6_path` names for its rows and shape, read at each call:
+    "dec" the plane gather into lane order, then K1's decode kernel; "tc"
+    the plane gather into fragment order, then K3's split-K tensor-core
+    product (both from one C entry, with the stream's scratch,
+    :func:`_k6_plan`); "cuda_core" the gather as the prologue of a CUDA-core
+    matmul (the gathered x in shared memory only; its split-K partials
+    summed in a fixed order by a second kernel). Counts the call in
+    ``ternary_matmul_gathered.launches`` (the decode path also in
+    ``ternary_matmul_gathered.launches_dec``, the tensor-core path in
+    ``ternary_matmul_gathered.launches_tc``). The decode and tensor-core
+    paths keep the gathered x in bf16, as the TPU kernel's scratch does:
+    for permutation planes that is the CUDA-core path's f32 value exactly.
+    CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_gathered_plain(x, gpacked, packed, alpha, mu, block_size, a8)
     if x.device.type != "cuda":
@@ -1309,13 +1505,14 @@ def ternary_matmul_gathered(
                          f"{K} lanes")
     if n % 128:
         raise ValueError(f"K6 takes out_features divisible by 128, got {n}")
-    if a8:
-        xk, sx = normalize_rows_a8(x)  # before the gather: absmax ignores order
-    else:
-        xk = x.to(torch.bfloat16)
+    xk, sx = _k6_rows(x, a8)
     xk = xk.contiguous()
-    partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    path = k6_path(B, n, block_size, a8)
+    if path != "cuda_core":
+        _ternary_matmul_gathered_split(xk, gpacked, packed, alpha, mu, out, path, a8)
+        return out * sx if a8 else out
+    partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
     rc = _gathered_kernel_lib().pt2_ternary_matmul_gathered(
         xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         partial.data_ptr(), out.data_ptr(), B, m, gpacked.shape[0], K, n, int(bool(a8)),
@@ -1327,7 +1524,80 @@ def ternary_matmul_gathered(
     return out * sx if a8 else out
 
 
+_k6_plans: dict = {}
+
+
+def _k6_plan(xk, stream, device, path, K, n):
+    """What a launch of K6's ``path`` ("dec" or "tc") for xk's rows on
+    ``stream`` needs beside its operands, kept between calls (a decode step
+    asks it once per projection): (splits, the xg scratch's pointer, the
+    block sums' pointer (tc), the partials' pointer (None with one slice),
+    the counters' pointer, and the tensors that own them). "dec": dec_splits
+    of the card's decode wave, xg (B, K) bf16 in lane order; "tc":
+    igtc_splits of its product's wave, xg (Bp, K) bf16 in fragment order
+    and S (K/128, Bp) f32; both with (splits, B, n) f32 partials. The
+    scratch is the stream's own, as the counters are, so the launches that
+    share it are ordered by their stream and never overlap; a CUDA graph
+    capture is refused."""
+    if torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError(f"K6's {path!r} path inside a CUDA graph capture")
+    B = xk.shape[0]
+    key = (device, stream, path, B, K, n)
+    plan = _k6_plans.get(key)
+    if plan is None:
+        if path == "dec":
+            splits = dec_splits(K, n, 128, DEC_CTAS_PER_SM * _sm_count(device))
+            rows = B
+        else:
+            splits = igtc_splits(K, n, 128, IGTC_CTAS_PER_SM * _sm_count(device))
+            rows = igtc_rows_pad(B)
+        xg = torch.empty((rows, K), dtype=torch.bfloat16, device=xk.device)
+        f32 = torch.empty(((K // 128) * rows if path == "tc" else 0) + splits * B * n,
+                          dtype=torch.float32, device=xk.device)
+        counters = _dec_counter_buffer(xk.device, stream, n // 128, f"K6's {path!r} path")
+        sums_at = f32.data_ptr() if path == "tc" else None
+        part_at = f32.data_ptr() + 4 * (K // 128) * rows * (path == "tc") if splits > 1 else None
+        plan = _k6_plans[key] = (splits, xg.data_ptr(), sums_at, part_at, counters.data_ptr(),
+                                 (xg, f32, counters))
+    return plan
+
+
+def _ternary_matmul_gathered_split(xk, gpacked, packed, alpha, mu, out, path, a8):
+    """K6's decode ("dec": ``pt2_ternary_matmul_gathered_dec``) or tensor-core
+    ("tc": ``pt2_ternary_matmul_gathered_tc``) path: the plane gather, then
+    K1's decode kernel or K3's product, one C entry, with the stream's
+    scratch and counters (:func:`_k6_plan`). xk is bf16 x (B, m) in feature
+    order, or W2A8's normalised rows (rounded by the gather); the planes are
+    read as 16-byte vectors (a copy if they are not aligned so). Writes out
+    before the row scales; a launch that fails raises."""
+    B, m = xk.shape
+    K, n = packed.shape[0] * 4, packed.shape[1]
+    if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16:
+        raise ValueError(f"K6's {path!r} path needs 16-byte aligned packed, alpha and mu")
+    if gpacked.data_ptr() % 16:
+        gpacked = gpacked.clone()
+    device, stream = _device_and_stream(xk)
+    splits, xg, sums, partial, counters, _ = _k6_plan(xk, stream, device, path, K, n)
+    head = (xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
+            mu.data_ptr(), xg)
+    tail = (out.data_ptr() if partial is None else partial, out.data_ptr(), counters, B, m,
+            gpacked.shape[0], K, n, splits, int(bool(a8)), device, stream)
+    if path == "dec":
+        rc = _gathered_dec_kernel_lib().pt2_ternary_matmul_gathered_dec(*head, *tail)
+    else:
+        rc = _gathered_tc_kernel_lib().pt2_ternary_matmul_gathered_tc(*head, sums, *tail)
+    if rc != 0:
+        raise RuntimeError(f"K6 ({path!r} path, tensor cores) launch failed: cudaError {rc}")
+    ternary_matmul_gathered.launches += 1
+    if path == "dec":
+        ternary_matmul_gathered.launches_dec += 1
+    else:
+        ternary_matmul_gathered.launches_tc += 1
+
+
 ternary_matmul_gathered.launches = 0
+ternary_matmul_gathered.launches_dec = 0
+ternary_matmul_gathered.launches_tc = 0
 
 
 def ternary_mlp(

@@ -1832,3 +1832,305 @@ def test_ssr_model_routes_through_k5_k6(cuda_device, flags, monkeypatch):
         auto = tdec.forward(cfg, params, tokens[:, :20], impl="auto").float()  # 40 rows: K6 / K3
         plain = tdec.forward(cfg, params, tokens[:, :20], impl="plain").float()
     assert ((auto - plain).norm() / plain.norm()).item() <= 1e-2
+
+
+# ---- K6's decode and tensor-core paths (the plane gather, then K1's decode
+# kernel at rows 1-8 or K3's split-K tensor-core product at rows 9-64): the
+# llama-3-8b K6 shapes (qkv, o, gateup), a ragged perm with interleaved pad
+# lanes, and 5 blocks (uneven K slices on the decode path)
+K6_SHAPES = {"8b qkv": (4096, 4096, 6144), "8b o": (4096, 4096, 4096),
+             "8b gateup": (4096, 4096, 28672), "ragged": (200, 256, 256),
+             "uneven": (600, 640, 128)}
+
+
+def _k6_counts():
+    return (tk.ternary_matmul_gathered.launches, tk.ternary_matmul_gathered.launches_dec,
+            tk.ternary_matmul_gathered.launches_tc, tk.ternary_matmul.launches,
+            tk.ternary_matmul_igathered.launches)
+
+
+def _k6_held(x, gp, packed, alpha, mu, path, a8=False):
+    """One K6 call that must take ``path`` ("dec": W2A8 with K1_DEC_A8
+    set): one launch, counted in launches and launches_dec or launches_tc,
+    none of K1's or K3's; the same bits on a second call; held to TOL
+    against ternary_matmul_gathered_plain and the path's own plain version."""
+    with _dec_a8():
+        assert tk.k6_path(x.shape[0], packed.shape[1], 128, a8) == path
+        before = _k6_counts()
+        got = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+        again = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k6_counts())) == \
+        (2, 2 * (path == "dec"), 2 * (path == "tc"), 0, 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_matmul_gathered_plain(x, gp, packed, alpha, mu, 128, a8)
+    plain = (tk.ternary_matmul_gathered_dec_plain if path == "dec"
+             else tk.ternary_matmul_gathered_tc_plain)
+    wave = tk.dec_wave(x.device) if path == "dec" else tk.igtc_wave(x.device)
+    algo = plain(x, gp, packed, alpha, mu, 128, a8, wave=wave)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL and _rel(got, algo) <= TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", sorted(K6_SHAPES))
+def test_k6_dec_path_matches_plain_and_k1s_decode_kernel(cuda_device, shape, rows, a8):
+    """Also bit-identical to K1's decode kernel on onehot_gather(x, perm):
+    the same gathered values, the same kernel, the same K slices."""
+    m, K, n = K6_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(13 * rows + m + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=m < K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    if shape == "uneven":
+        nb = K // 128
+        assert nb % -(-nb // tk.dec_splits(K, n, 128, tk.dec_wave(cuda_device))) != 0
+    got = _k6_held(x, _planes(perm, m), packed, alpha, mu, "dec", a8)
+    with _dec_a8():
+        k1 = tk.ternary_matmul(tkg.onehot_gather(x, perm), packed, alpha, mu, a8=a8)
+    assert torch.equal(got, k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [9, 16, 32, 33, 64])
+@pytest.mark.parametrize("shape", sorted(K6_SHAPES))
+def test_k6_tc_path_matches_plain_and_k3s_tc_path(cuda_device, shape, rows, a8):
+    m, K, n = K6_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(17 * rows + m + n + int(a8))
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    perm = _perm(g, cuda_device, m, K, interleave=m < K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    got = _k6_held(x, _planes(perm, m), packed, alpha, mu, "tc", a8)
+    k3 = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8=a8)
+    assert _rel(got, k3) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [8, 33])
+def test_k6_paths_on_stacked_views_zero_alpha_blocks_zero_row_and_ties(cuda_device, rows, a8):
+    g = torch.Generator(device=cuda_device).manual_seed(71 + rows + int(a8))
+    m, K, n, L = 2000, 2048, 1024, 3
+    path = "dec" if rows <= 8 else "tc"
+    layers = [_layer(g, cuda_device, K, n, 128) for _ in range(L)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]) for j in range(3))
+    gps = torch.stack([_planes(_perm(g, cuda_device, m, K, interleave=True), m)
+                       for _ in range(L)])
+    x = _a8_rows_with_ties(g, cuda_device, 8, m)
+    if rows > 8:
+        x = torch.cat([x, torch.randn((rows - 8, m), generator=g, device=cuda_device).bfloat16()])
+    for li in range(L):
+        got = _k6_held(x, gps[li], packed[li], alpha[li], mu[li], path, a8)
+        assert got[1].abs().max().item() == 0.0  # the all-zero row
+    p, a, mu0 = layers[0]
+    a, mu0 = a.clone(), mu0.clone()
+    a[::3] = 0
+    mu0[::6] = 0
+    _k6_held(x, gps[0], p, a, mu0, path, a8)
+    _k6_held(x[: 3 if rows <= 8 else 9], gps[0], p, a, mu0, path, a8)
+
+
+def _planes_gather(x, gp, rows_out, frag, a8):
+    """The plane gather alone through its C entry, into NaN-filled scratch."""
+    K = gp.shape[1]
+    xg = torch.full((rows_out, K), float("nan"), device=x.device).bfloat16()
+    S = torch.full((K // 128, rows_out), float("nan"), device=x.device)
+    rc = tk._gathered_tc_kernel_lib().pt2_planes_gather(
+        x.data_ptr(), gp.data_ptr(), xg.data_ptr(), S.data_ptr(), x.shape[0], rows_out,
+        x.shape[1], gp.shape[0], K, int(frag), int(a8), x.device.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return xg, S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 5, 8, 9, 17, 33, 64])
+def test_planes_gather_bit_exact(cuda_device, rows, a8):
+    """The plane gather alone writes exactly what planes_gather_plain
+    does: lane order (rows 1-8) and fragment order with its block sums
+    (rows 9-64, pad rows 0), bit for bit; on a permutation, lane order is
+    onehot_gather's values and fragment order K3's gather scratch."""
+    g = torch.Generator(device=cuda_device).manual_seed(81 + rows + int(a8))
+    m, K = 3000, 3072
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    gp = _planes(perm, m)
+    x = _a8_rows_with_ties(g, cuda_device, max(rows, 4), m)[:rows]
+    xk = tk.normalize_rows_a8(x)[0].contiguous() if a8 else x
+    if rows <= 8:
+        xg, _ = _planes_gather(xk, gp, rows, False, a8)
+        assert torch.equal(xg, tk.planes_gather_plain(xk, gp, 128, a8, "lanes"))
+        if not a8:
+            assert torch.equal(xg, tkg.onehot_gather(x, perm))
+        return
+    Bp = tk.igtc_rows_pad(rows)
+    xg, S = _planes_gather(xk, gp, Bp, True, a8)
+    want_xg, want_S = tk.planes_gather_plain(xk, gp, 128, a8, "fragments")
+    assert torch.equal(xg, want_xg) and torch.equal(S, want_S)
+    k3_xg, k3_S = tk.igathered_tc_gather_plain(xk, perm, 128, a8)
+    assert torch.equal(xg, k3_xg)
+    assert (S - k3_S).abs().max().item() <= 1e-6 * k3_S.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["few", "dense"])
+def test_planes_gather_on_planes_that_are_not_a_permutation(cuda_device, planes):
+    """Planes with fields of 2 and up to 3 ones in a lane ("few": each
+    lane's fields kept in shared memory) or half the fields set ("dense":
+    the lanes with more than E fields walk their column) give
+    planes_gather_plain's bits in both orders; so do K6's paths' outputs
+    against their plain versions, within TOL."""
+    g = torch.Generator(device=cuda_device).manual_seed(91)
+    m, D, K, n = 300, 384, 512, 256
+    if planes == "dense":
+        codes = torch.randint(-1, 1, (K, D), generator=g, device=cuda_device, dtype=torch.int8)
+    else:
+        codes = torch.full((K, D), -1, device=cuda_device, dtype=torch.int8)
+        for _ in range(3):
+            codes[torch.arange(K, device=cuda_device),
+                  torch.randint(0, D, (K,), generator=g, device=cuda_device)] = 0
+    codes[::7, 5] = 1
+    gp = pack_ternary(codes, 128)
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    for rows in (3, 40):
+        x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+        frag = rows > 8
+        xg, S = _planes_gather(x, gp, tk.igtc_rows_pad(rows) if frag else rows, frag, False)
+        want = tk.planes_gather_plain(x, gp, 128, False, "fragments" if frag else "lanes")
+        if frag:
+            assert torch.equal(xg, want[0]) and torch.equal(S, want[1])
+        else:
+            assert torch.equal(xg, want)
+        path = "tc" if frag else "dec"
+        before = _k6_counts()
+        got = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu)
+        torch.cuda.synchronize()
+        assert _k6_counts()[1:3] == (before[1] + (path == "dec"), before[2] + (path == "tc"))
+        plain = (tk.ternary_matmul_gathered_dec_plain if path == "dec"
+                 else tk.ternary_matmul_gathered_tc_plain)
+        wave = tk.dec_wave(cuda_device) if path == "dec" else tk.igtc_wave(cuda_device)
+        assert _rel(got, plain(x, gp, packed, alpha, mu, wave=wave)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 64])
+def test_k6_rows_and_modes_pick_their_kernel(cuda_device, rows, monkeypatch):
+    """bf16 decode rows on the decode path, W2A8 decode rows on the
+    CUDA-core K6 (K1_DEC_A8 off), rows 9-64 on the tensor-core path in both
+    modes; K6_DEC_MAX_ROWS 0 and K6_TC_MIN_ROWS 1 << 30 send every row to
+    the CUDA-core K6, which agrees within TOL."""
+    g = torch.Generator(device=cuda_device).manual_seed(101 + rows)
+    m, K, n = 1000, 1024, 512
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    gp = _planes(_perm(g, cuda_device, m, K, interleave=True), m)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    for a8 in (False, True):
+        path = tk.k6_path(rows, n, 128, a8)
+        assert path == ("tc" if rows > 8 else "cuda_core" if a8 else "dec")
+        before = _k6_counts()
+        on = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(before, _k6_counts())) == \
+            (1, int(path == "dec"), int(path == "tc"), 0, 0)
+        with monkeypatch.context() as mp:
+            mp.setattr(tk, "K6_DEC_MAX_ROWS", 0)
+            mp.setattr(tk, "K6_TC_MIN_ROWS", 1 << 30)
+            assert tk.k6_path(rows, n, 128, a8) == "cuda_core"
+            before = _k6_counts()
+            off = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+            torch.cuda.synchronize()
+            assert tuple(b - a for a, b in zip(before, _k6_counts())) == (1, 0, 0, 0, 0)
+        assert _rel(on, off) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 16])
+def test_k6_paths_refuse_graph_capture(cuda_device, rows):
+    g = torch.Generator(device=cuda_device).manual_seed(111 + rows)
+    packed, alpha, mu = _layer(g, cuda_device, 1024, 256, 128)
+    gp = _planes(_perm(g, cuda_device, 1000, 1024), 1000)
+    x = torch.randn((rows, 1000), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.ternary_matmul_gathered(x, gp, packed, alpha, mu)  # built outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k6_counts()
+    with pytest.raises(NotImplementedError, match="K6's.*graph"):
+        with torch.cuda.graph(graph):
+            tk.ternary_matmul_gathered(x, gp, packed, alpha, mu)
+    assert _k6_counts() == before
+
+
+@pytest.mark.cuda
+def test_k6_paths_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A launch of the decode or tensor-core path that fails raises;
+    neither the CUDA-core K6 nor a plain version runs in its place, and
+    nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_ternary_matmul_gathered_dec(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def pt2_ternary_matmul_gathered_tc(*args):
+            return 1
+
+    def not_asked():
+        raise AssertionError("the CUDA-core K6 was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(121)
+    packed, alpha, mu = _layer(g, cuda_device, 512, 256, 128)
+    gp = _planes(_perm(g, cuda_device, 500, 512), 500)
+    monkeypatch.setattr(tk, "_gathered_dec_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_gathered_tc_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tk, "_gathered_kernel_lib", not_asked)
+    for rows, a8 in ((1, False), (8, False), (9, False), (64, True)):
+        x = torch.randn((rows, 500), generator=g, device=cuda_device).bfloat16()
+        before = _k6_counts()
+        with pytest.raises(RuntimeError, match="K6 \\('(dec|tc)' path"):
+            tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8=a8)
+        assert _k6_counts() == before
+
+
+@pytest.mark.cuda
+def test_k6_c_entries_refuse_what_they_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(131)
+    m, K, n = 1000, 1024, 256
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    gp = _planes(_perm(g, cuda_device, m, K, interleave=True), m)
+    x = torch.randn((64, m), generator=g, device=cuda_device).bfloat16()
+    xg = torch.empty((64, K), device=cuda_device).bfloat16()
+    sums = torch.empty((K // 128, 64), device=cuda_device)
+    partial = torch.empty((8, 64, n), device=cuda_device)
+    out = torch.empty((64, n), device=cuda_device)
+    counters = torch.zeros(n // 128, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    dec = tk._gathered_dec_kernel_lib().pt2_ternary_matmul_gathered_dec
+    tc = tk._gathered_tc_kernel_lib().pt2_ternary_matmul_gathered_tc
+    head = [t.data_ptr() for t in (x, gp, packed, alpha, mu, xg)]
+    tail = [t.data_ptr() for t in (partial, out, counters)]
+    D4 = gp.shape[0]
+    assert dec(*head, *tail, 8, m, D4, K, n, 2, 0, dev, stream) == 0
+    torch.cuda.synchronize()
+    want = tk.ternary_matmul_gathered_plain(x[:8], gp, packed, alpha, mu)
+    assert _rel(out[:8], want) <= TOL
+    assert dec(*head, *tail, 9, m, D4, K, n, 2, 0, dev, stream) != 0  # 9 rows
+    assert dec(*head[:1], head[1] + 4, *head[2:], *tail, 4, m, D4, K, n, 2, 0, dev,
+               stream) != 0  # planes not 16-byte aligned
+    assert dec(*head, *tail, 4, 4 * D4 + 1, D4, K, n, 2, 0, dev, stream) != 0  # x too wide
+    assert tc(*head, sums.data_ptr(), *tail, 16, m, D4, K, n, 3, 0, dev, stream) == 0
+    torch.cuda.synchronize()
+    want = tk.ternary_matmul_gathered_plain(x[:16], gp, packed, alpha, mu)
+    assert _rel(out[:16], want) <= TOL
+    assert tc(*head, sums.data_ptr(), *tail, 8, m, D4, K, n, 3, 0, dev, stream) != 0  # 8 rows
+    assert tc(*head, sums.data_ptr(), *tail, 16, m, D4, K, n, 9, 0, dev, stream) != 0  # 9 slices
+    assert tc(*head, sums.data_ptr(), *tail, 16, m, D4, K, 200, 3, 0, dev, stream) != 0  # n
+    assert counters.sum().item() == 0
