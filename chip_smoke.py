@@ -251,7 +251,25 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      1/4/8/16/32/64, beside the CUDA-core K6, the plane gather alone, K3's
      path on the same perm, dense torch.matmul on the gathered x, the plain
      version and the bound, then its two kernels under torch.profiler
-     (17c, in phase 6).
+     (17c, in phase 6);
+  9. (K5's rows path, csrc/onehot_matmul_rows.cu, at rows >= 16: the
+     planes decoded once into a lane map, then x's rows staged in shared
+     memory and gathered) holds the rows path bit for bit against its plain
+     versions and against K4 at rows 16/64/65/128/256/512/1000, three perms'
+     shapes, bf16
+     and f32, the lane map against onehot_lane_map_plain, planes that are
+     not a permutation against the plain version and within 1e-6 of x @ G,
+     every call twice for the same bits, launches and launches_rows exact
+     (18a, in phase 2c); holds launches_rows exact in every P1 / P2 run (the
+     512-row prefills, run E's admissions above 64 rows); in turns on, off,
+     off, on ("off" rebinds K5_ROWS_MIN_ROWS to 1 << 30: K5's first kernel)
+     profiles one 512-row lockstep prefill of the 32-layer llama-3-8b "ssr"
+     model under the P1 flags: device time, K5's part and share, the wall
+     (18b, after 17b); and times the rows path's C entry at 4096 -> 4096,
+     rows 16/32/64/128/256/512, as calls replayed from a CUDA graph and as
+     CUDA events, beside K5's first kernel in turns, the plain versions,
+     torch.index_select and the bound, with both launches' device time under
+     torch.profiler (18c, in phase 6, in place of K5's old timing).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -388,6 +406,17 @@ K6_PARTS = {"gather": "planes_gather_kernel", "dec_kernel": "ternary_matmul_dec_
 def k6_parts(rows):
     """Device ms of each of K6_PARTS in a profile's kernel rows."""
     return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K6_PARTS.items()}
+
+
+# the kernels of K5, by the part of the profile they stand for: the rows
+# path's lane map and its rows kernel, and K5's first kernel
+K5_PARTS = {"lane_map": "onehot_rows::lane_map_kernel", "rows": "onehot_rows::rows_kernel",
+            "cuda_core": "onehot_matmul_kernel"}
+
+
+def k5_parts(rows):
+    """Device ms of each of K5_PARTS in a profile's kernel rows."""
+    return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K5_PARTS.items()}
 
 
 def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
@@ -536,6 +565,7 @@ def main() -> None:
         k1.ternary_mlp.launches_dec = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
         k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
+        k4.onehot_matmul.launches_rows = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -548,8 +578,9 @@ def main() -> None:
         "ternary_mlp_dec", "ternary_mlp_tc", "ternary_mlp_gelu" and
         "decode_attention_hd256"; K6's decode and tensor-core launches (also
         in "ternary_matmul_gathered") apart as "ternary_matmul_gathered_dec"
-        and "ternary_matmul_gathered_tc". K2's decode path's down launch is
-        K2's, not one of K1's."""
+        and "ternary_matmul_gathered_tc"; K5's rows-path launches (also in
+        "onehot_matmul") apart as "onehot_matmul_rows". K2's decode path's
+        down launch is K2's, not one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -562,6 +593,7 @@ def main() -> None:
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
         c["ternary_matmul_gathered_dec"] = k1.ternary_matmul_gathered.launches_dec
         c["ternary_matmul_gathered_tc"] = k1.ternary_matmul_gathered.launches_tc
+        c["onehot_matmul_rows"] = k4.onehot_matmul.launches_rows
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -580,7 +612,7 @@ def main() -> None:
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
                "ternary_mlp_tc", "ternary_mlp_dec", "ternary_matmul_gathered_dec",
-               "ternary_matmul_gathered_tc"]
+               "ternary_matmul_gathered_tc", "onehot_matmul_rows"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -689,6 +721,18 @@ def main() -> None:
             yield
         finally:
             k1.K6_DEC_MAX_ROWS, k1.K6_TC_MIN_ROWS = saved
+
+    @contextlib.contextmanager
+    def k5_rows(on):
+        """K5's rows from K5_ROWS_MIN_ROWS on its rows path as routed (on), or
+        on K5's first kernel (off: K5_ROWS_MIN_ROWS rebound to 1 << 30)."""
+        saved = k4.K5_ROWS_MIN_ROWS
+        if not on:
+            k4.K5_ROWS_MIN_ROWS = 1 << 30
+        try:
+            yield
+        finally:
+            k4.K5_ROWS_MIN_ROWS = saved
 
     def k2_dec_ab_summary(label, res):
         """16b's turns ({"dec": [...], "cuda_core": [...]}, each a profiled
@@ -1678,8 +1722,77 @@ def main() -> None:
              k1.ternary_matmul_gathered(x, gps[li], gp[li], ga[li], gm[li]),
              k1.ternary_matmul_gathered_plain(x, gps[li], gp[li], ga[li], gm[li]), KERNEL_TOL)
     del gp, ga, gm, gps, x
+    # 18a. K5's rows path (rows >= K5_ROWS_MIN_ROWS: the lane map, then the
+    # rows staged in shared memory; its own generator, so that the later
+    # phases draw what they drew before): bit-exact against its plain
+    # versions and against K4 at rows 16 / 64 / 65 / 128 / 256 / 512 / 1000, bf16 and
+    # f32, the same three perms' shapes; the lane map bit-exact; planes that
+    # are not a permutation ("few": fields of 2 and extra ones, within the
+    # map's E; "dense": every lane walks its column) bit-exact to the plain
+    # version and within 1e-6 of x @ G in f32; every call twice for the same
+    # bits; launches and launches_rows exact
+    g18 = torch.Generator(device=dev).manual_seed(18)
+    errs["onehot_matmul_rows"], nchecks["onehot_matmul_rows"] = 0.0, 0
+    rows_rb = k4._rows_kernel_lib()
+    zero_counts()
+    calls = k4_calls = 0
+    for m, K, inter in ((4096, 4096, False), (200, 256, True), (300, 512, True)):
+        perm = rand_perm(m, K, inter, gen=g18)
+        gp = make_packed_gather(perm, m).packed
+        lmap = torch.full((5 * K,), 7, dtype=torch.int32, device=dev)
+        if rows_rb.pt2_onehot_lane_map(gp.data_ptr(), lmap.data_ptr(), m, gp.shape[0], K,
+                                       torch.cuda.current_device(),
+                                       torch.cuda.current_stream().cuda_stream):
+            fail(f"K5's lane map m={m} K={K}: launch failed")
+        held("onehot_matmul_rows", f"K5 lane map m={m} K={K}", lmap,
+             k4.onehot_lane_map_plain(gp, m), 0.0)
+        for B in (16, 64, 65, 128, 256, 512, 1000):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((B, m), generator=g18, device=dev).to(dt)
+                got = k4.onehot_matmul(x, gp)
+                again = k4.onehot_matmul(x, gp)
+                calls += 2
+                held("onehot_matmul_rows", f"K5 rows m={m} K={K} rows={B} {dt}", got,
+                     k4.onehot_matmul_rows_plain(x, gp), 0.0)
+                held("onehot_matmul_rows", f"K5 rows vs K4 m={m} K={K} rows={B} {dt}", got,
+                     k4.onehot_gather(x, perm), 0.0)
+                k4_calls += 1
+                held("onehot_matmul_rows", f"K5 rows run to run m={m} rows={B} {dt}", again,
+                     got, 0.0)
+    any_err = 0.0
+    for kind in ("few", "dense"):
+        m, D, K = 300, 384, 512
+        if kind == "dense":
+            codes = torch.randint(-1, 1, (K, D), generator=g18, device=dev, dtype=torch.int8)
+        else:
+            codes = torch.full((K, D), -1, device=dev, dtype=torch.int8)
+            for _ in range(3):
+                codes[torch.arange(K, device=dev),
+                      torch.randint(0, D, (K,), generator=g18, device=dev)] = 0
+        codes[::7, 5] = 1
+        gp = pack_ternary(codes, 128)
+        u64 = (codes.t().double() + 1)[:m]
+        for B in (65, 200):
+            x = torch.randn((B, m), generator=g18, device=dev)
+            got = k4.onehot_matmul(x, gp)
+            calls += 1
+            held("onehot_matmul_rows", f"K5 rows, {kind} planes, rows={B}", got,
+                 k4.onehot_matmul_rows_plain(x, gp), 0.0)
+            exact = x.double() @ u64
+            err = ((got.double() - exact).abs().max() / exact.abs().max()).item()
+            if not err <= 1e-6:
+                fail(f"K5 rows, {kind} planes, rows={B}: {err:.3e} of max|x @ G| > 1e-6")
+            any_err = max(any_err, err)
+    got = counts()
+    if got != dict.fromkeys(got, 0) | {"onehot_matmul": calls, "onehot_matmul_rows": calls,
+                                       "onehot_gather": k4_calls}:
+        fail(f"K5's rows-path checks: launches {got}, want {calls} of K5, all on its rows path")
+    del gp, x, lmap
     torch.cuda.empty_cache()
-    print(f"K5 vs plain and vs K4: {nchecks['onehot_matmul']} checks bit-exact; K6 vs plain: "
+    print(f"K5 vs plain and vs K4: {nchecks['onehot_matmul']} checks bit-exact; K5's rows path: "
+          f"{nchecks['onehot_matmul_rows']} checks bit-exact (plain versions, K4, the lane map, "
+          f"run to run; {calls} launches, all counted in launches_rows), other planes within "
+          f"{any_err:.2e} of x @ G; K6 vs plain: "
           f"{nchecks['ternary_matmul_gathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
           f"{errs['ternary_matmul_gathered']:.3e})")
 
@@ -2283,10 +2396,10 @@ def main() -> None:
                   else "ternary_matmul_gathered_dec"): 2 * L * steps}
         want_p = {
             "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, ternary_mlp=L * steps,
-                         ternary_mlp_dec=L * steps, onehot_matmul=3 * L,
+                         ternary_mlp_dec=L * steps, onehot_matmul=3 * L, onehot_matmul_rows=3 * L,
                          **{fused: 2 * L * steps}, **dec_p),
             "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
-                       onehot_matmul=3 * L, **{fused: 3 * L * steps}),
+                       onehot_matmul=3 * L, onehot_matmul_rows=3 * L, **{fused: 3 * L * steps}),
         }
         with route_flags(flags):
             runs_p = drive(cfg, params, f"llama-3-8b ssr {flags_name}", ("auto", "a8"),
@@ -2331,9 +2444,6 @@ def main() -> None:
     with route_flags(P2):
         record["decode_step_8b_ssr_p2"] = profile_decode_step(cfg, params, prompts, Lp, new, dev,
                                                               "llama-3-8b ssr, P2 flags")
-    main_launches["onehot_matmul"] = sum(r["launches"]["onehot_matmul"]
-                                         for rp in record["main_path_8b_ssr_packed"].values()
-                                         for r in rp.values())
 
     stamp("17b")
     # ---- 17b. the lockstep llama-3-8b "ssr" bf16 decode at B 4 under the P2
@@ -2348,7 +2458,7 @@ def main() -> None:
     k6_ab = {"on": [], "off": []}
     for on in DEC_AB:
         want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_matmul=3 * L,
-                    ternary_matmul_gathered=2 * L * (new16 - 1),
+                    onehot_matmul_rows=3 * L, ternary_matmul_gathered=2 * L * (new16 - 1),
                     ternary_matmul_gathered_dec=2 * L * (new16 - 1) if on else 0,
                     ternary_mlp=L * (new16 - 1), ternary_mlp_dec=L * (new16 - 1))
         with route_flags(P2), k6_paths(on):
@@ -2392,6 +2502,55 @@ def main() -> None:
               f"{each('decode_tok_s')} tok/s on {record['smi']}")
     record["lockstep_ssr_p2_k6_ab"] = k6_ab
 
+    stamp("18b")
+    # ---- 18b. one lockstep prefill (4 x 128 = 512 rows) of the same
+    # 32-layer llama-3-8b "ssr" model under the P1 flags, K5's 512-row
+    # gathers on its rows path (on) or on K5's first kernel (off:
+    # k5_rows(False)), in turns on, off, off, on (phase 8 ran this prefill
+    # already: warm): one with exact counts and its wall (host clock,
+    # synchronised), then one under torch.profiler (device activity only):
+    # device time, K5's part (the lane map and the rows kernel, or the first
+    # kernel) and its share
+    from torch.profiler import ProfilerActivity, profile
+
+    k5_ab = {"on": [], "off": []}
+    for on in DEC_AB:
+        want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_matmul=3 * L,
+                    onehot_matmul_rows=3 * L if on else 0)
+        with route_flags(P1), k5_rows(on), torch.inference_mode():
+            cache = init_cache(cfg, B, Lp + new, device=dev)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            forward_cached(cfg, params, prompts, cache, 0, "auto")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            got = counts()
+            if got != want:
+                fail(f"lockstep ssr P1 prefill K5 A/B on={on}: launches {got}, want {want}")
+            tally(got)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                forward_cached(cfg, params, prompts, cache, 0, "auto")
+                torch.cuda.synchronize()
+            del cache
+        krows = kernel_rows(prof)
+        device_ms = sum(r[0] for r in krows)
+        parts = k5_parts(krows)
+        k5_ms = parts["lane_map"] + parts["rows"] if on else parts["cuda_core"]
+        k5_ab["on" if on else "off"].append({
+            "wall_ms": wall_ms, "device_ms": device_ms, "k5_parts": parts, "k5_ms": k5_ms,
+            "k5_share": k5_ms / device_ms if device_ms else 0.0,
+            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in krows[:6]]})
+    for k, rows_ in k5_ab.items():
+        each = lambda key, scale=1.0, rows_=rows_: " / ".join(  # noqa: E731
+            f"{scale * r[key]:.3f}" for r in rows_)
+        print(f"K5 prefill A/B, lockstep llama-3-8b ssr, P1 flags, 512 rows, K5 on "
+              f"{'its rows path' if k == 'on' else 'its first kernel'} (in turns on, off, off, "
+              f"on): prefill device time {each('device_ms')} ms, K5 {each('k5_ms')} ms "
+              f"({each('k5_share', 100.0)} %), prefill wall {each('wall_ms')} ms on "
+              f"{record['smi']}")
+    record["lockstep_ssr_p1_prefill_k5_ab"] = k5_ab
+
     # run E: the ServeEngine over the same 32-layer "ssr" model under the P2
     # flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one of
     # exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV, quantum 1
@@ -2416,7 +2575,8 @@ def main() -> None:
                 ternary_mlp=L * (st + short),
                 ternary_mlp_tc=L * short, ternary_mlp_dec=L * st, ternary_matmul=4 * L * (16 - short),
                 ternary_matmul_tc=4 * L * (16 - short),
-                onehot_matmul=3 * L * (16 - short), decode_attention=L * st)
+                onehot_matmul=3 * L * (16 - short), onehot_matmul_rows=3 * L * (16 - short),
+                decode_attention=L * st)
     got = counts()
     if got != want:
         fail(f"engine ssr P2: launches {got}, want {want}")
@@ -2432,7 +2592,6 @@ def main() -> None:
                                "steps": st, "t_admit_s": e_stats["t_admit_s"],
                                "t_decode_s": e_stats["t_decode_s"], "launches": got,
                                "short_admissions": short, "worst_pick_gap": worst}
-    main_launches["onehot_matmul"] += got["onehot_matmul"]
     print(f"engine llama-3-8b ssr, P2 flags, bf16 KV, quantum 1: 16 requests, {e_tok} tokens in "
           f"{wall:.2f} s ({e_tok / wall:.1f} tok/s; decode "
           f"{record['engine_ssr_p2']['decode_tok_s']:.1f} tok/s; t_admit_s "
@@ -3872,31 +4031,104 @@ def main() -> None:
         del xs, outs
     record["k4_timing"] = k4_detail
 
-    # K5 at the same 4096 -> 4096 gather (planes of 4 MB); library:
-    # torch.index_select. The products it must do are one per nonzero field.
-    k5_detail = []
+    # 18c. K5 at the same 4096 -> 4096 gather (planes of 4 MB) at 16 / 32 /
+    # 64 / 128 / 256 / 512 rows: the rows path's C entry (both launches; at
+    # 16 to 64 rows as well, which the threshold keeps on the first kernel)
+    # and K5's first kernel, each as 50 calls replayed from a CUDA graph (the
+    # card's time per call, launch gaps included: CUDA events over
+    # back-to-back ctypes calls of a few-us kernel measure the host's launch
+    # rate, and are kept beside them), in turns rows, first, first, rows; the
+    # library call torch.index_select, replayed the same way; each path's
+    # plain version; then both paths under torch.profiler, device time per
+    # launch of the lane map, the rows kernel (a programmatic dependant of
+    # the lane map: it counts from its early start) and the first kernel.
+    # The products it must do are one per nonzero field
+    k5_detail, k5rows_detail = [], []
+    rows_lib = k4._rows_kernel_lib()
     gps = [make_packed_gather(p, m).packed for p in perms]
     nnz = int(k4.onehot_planes(gps[0]).count_nonzero())
-    for B in (1, 16, 512):
+    lmap = torch.empty(5 * K, dtype=torch.int32, device=dev)
+    lperm = [p.long() for p in perms]
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
+
+    def graph_ms(fn, calls=50, replays=4):
+        """fn(0..calls-1) captured into a CUDA graph, then replayed: ms per call."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(calls):
+                fn(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        s, e = ev(), ev()
+        s.record()
+        for _ in range(replays):
+            graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / (calls * replays)
+
+    for B in (16, 32, 64, 128, 256, 512):
         per_call = m * K // 4 + 2 * B * m + 2 * B * K
         copies = max(4, math.ceil(COLD_BYTES / per_call))
         planes_c = [gps[i % 4] if i < 4 else gps[i % 4].clone() for i in range(copies)]
         xs = [torch.randn((B, m), generator=g, device=dev).bfloat16() for _ in range(copies)]
         outs = [torch.empty((B, K), dtype=torch.bfloat16, device=dev) for _ in range(copies)]
-        lperm = [p.long() for p in perms]
 
         def kern(i):
             c = i % copies
             ok(mm_lib.pt2_onehot_matmul(xs[c].data_ptr(), planes_c[c].data_ptr(),
-                                        outs[c].data_ptr(), B, m, m // 4, K, 2, dix, stream), "K5")
+                                        outs[c].data_ptr(), B, m, m // 4, K, 2, dix, cur()), "K5")
 
-        ms = time_ms(kern, 50)
+        def kern_rows(i):
+            c = i % copies
+            ok(rows_lib.pt2_onehot_matmul_rows(
+                xs[c].data_ptr(), planes_c[c].data_ptr(), lmap.data_ptr(), outs[c].data_ptr(), B,
+                m, m // 4, K, 2, dix, cur()), "K5 rows")
+
+        library = lambda i: torch.index_select(xs[i % copies], 1, lperm[i % copies % 4])  # noqa: E731
+        events = [time_ms(kern_rows, 50), time_ms(kern, 50)]  # warm: built, attributes set
+        turns = [graph_ms(kern_rows), graph_ms(kern), graph_ms(kern), graph_ms(kern_rows)]
         plain_ms = time_ms(lambda i: k4.onehot_matmul_plain(xs[i % copies], planes_c[i % copies]), 5)
-        lib_ms = time_ms(lambda i: torch.index_select(xs[i % copies], 1, lperm[i % copies % 4]), 50)
-        k5_detail.append(row("K5", "gather", B, ms, plain_ms, lib_ms, per_call, 2.0 * B * nnz,
-                             m=m, K=K))
+        rows_plain_ms = time_ms(lambda i: k4.onehot_matmul_rows_plain(
+            xs[i % copies], planes_c[i % copies]), 5)
+        lib_events_ms = time_ms(library, 50)
+        lib_ms = graph_ms(library)
+        d_old = row("K5", "gather", B, min(turns[1], turns[2]), plain_ms, lib_ms, per_call,
+                    2.0 * B * nnz, m=m, K=K)
+        d = row("K5rows", "gather", B, min(turns[0], turns[3]), rows_plain_ms, lib_ms, per_call,
+                2.0 * B * nnz, m=m, K=K)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(20):
+                kern_rows(i)
+            for i in range(20):
+                kern(i)
+            torch.cuda.synchronize()
+        krows = kernel_rows(prof)
+
+        def per_launch(key):
+            hit = [r for r in krows if key in r[2]]
+            return sum(r[0] for r in hit) / max(1, sum(r[1] for r in hit))
+
+        d.update(turns_ms=[turns[0], turns[3]], events_ms=events[0],
+                 lane_map_device_ms=per_launch(K5_PARTS["lane_map"]),
+                 rows_device_ms=per_launch(K5_PARTS["rows"]), library_events_ms=lib_events_ms,
+                 routed=k4.k5_path(B, m, 2))
+        d_old.update(turns_ms=[turns[1], turns[2]], events_ms=events[1],
+                     device_ms=per_launch(K5_PARTS["cuda_core"]), library_events_ms=lib_events_ms)
+        k5_detail.append(d_old)
+        k5rows_detail.append(d)
+        print(f"K5, 4096 -> 4096 at {B:3d} rows (routed: {d['routed']}; us per call from a CUDA "
+              f"graph): rows path {d['ms'] * 1e3:6.2f} (turns {turns[0] * 1e3:.2f} / "
+              f"{turns[3] * 1e3:.2f}; CUDA events {events[0] * 1e3:.1f}; device time by the "
+              f"profiler: lane map {d['lane_map_device_ms'] * 1e3:5.2f} + rows "
+              f"{d['rows_device_ms'] * 1e3:5.2f}) | first kernel {d_old['ms'] * 1e3:6.2f} (turns "
+              f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f}; events {events[1] * 1e3:.1f}; device "
+              f"{d_old['device_ms'] * 1e3:5.2f}) | torch.index_select {lib_ms * 1e3:5.2f} (events "
+              f"{lib_events_ms * 1e3:.1f}) | plain {rows_plain_ms * 1e3:7.1f} | bound "
+              f"{d['bound_ms'] * 1e3:5.2f} on {record['smi']}")
         del xs, outs, planes_c
     record["k5_timing"] = k5_detail
+    record["k5_rows_timing"] = k5rows_detail
 
     # K6 at llama-3-8b qkv / o (K3's layers, with the planes in place of the
     # perm); library: one dense bf16 matmul on pre-gathered x, as for K3.
@@ -4148,6 +4380,10 @@ def main() -> None:
         run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
     main_launches["ternary_matmul_gathered"] = run_totals["ternary_matmul_gathered"] - sum(
         run_totals[k] for k in ("ternary_matmul_gathered_dec", "ternary_matmul_gathered_tc"))
+    # K5's first kernel: the P1 prefill A/B's "off" turns (18b); its rows
+    # path: every P1 / P2 prefill and run E's admissions above 64 rows
+    main_launches["onehot_matmul_rows"] = run_totals["onehot_matmul_rows"]
+    main_launches["onehot_matmul"] = run_totals["onehot_matmul"] - run_totals["onehot_matmul_rows"]
     kernels = [
         entry("ternary_matmul", "pt2tpu_torch/csrc/ternary_matmul.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1354", b1(detail), max_err),
@@ -4234,6 +4470,11 @@ def main() -> None:
                          "pt2tpu_torch/csrc/ternary_matmul_gathered_tc.cu",
                          "pt2tpu/ops/kernels/pallas_ternary.py:443",
                          [d for d in k6tc_detail if d["B"] == 16], k6tc_err))
+    # K5's rows path at the 512-row prefill, 3 gathers
+    kernels.append(entry("onehot_matmul_rows", "pt2tpu_torch/csrc/onehot_matmul_rows.cu",
+                         "pt2tpu/ops/kernels/pallas_gather.py:127",
+                         [d for d in k5rows_detail if d["B"] == 512], errs["onehot_matmul_rows"],
+                         mult=3))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every 32-layer run (each counted exactly): {run_totals}")

@@ -123,27 +123,16 @@ __device__ float walk_column(const uint8_t* __restrict__ g, const unsigned short
   return t;
 }
 
-// Grid (K / 32): CTA c owns lanes 32c .. 32c + 31, the quarter c % 4 of
-// scale block c / 4, whose four CTAs form a cluster.
-template <bool FRAG, bool A8>
-__global__ void __cluster_dims__(QUARTERS, 1, 1) __launch_bounds__(THREADS)
-planes_gather_kernel(const __nv_bfloat16* __restrict__ x,  // (B, m)
-                     const uint8_t* __restrict__ g,        // (D4, K)
-                     __nv_bfloat16* __restrict__ xg,       // (B, K) lanes / (Bp, K) fragments
-                     float* __restrict__ sums,             // (K / 128, Bp) if FRAG
-                     int B, int Bp, int m, int D4, int K) {
-  __shared__ int ent_i[E][LANES];
-  __shared__ float ent_u[E][LANES];
-  __shared__ int ent_n[LANES];
-  __shared__ __align__(16) unsigned short vals[FRAG ? MAX_ROWS : 1][LANES];  // bf16 bits
-  __shared__ float qsum[FRAG ? MAX_ROWS : 1];
+// The fields (feature i < m, value u) of each lane of the strip of LANES
+// lanes from k0, read from G once: up to E per lane in ent_i / ent_u, sorted
+// by feature, and the lane's count of fields in ent_n (more than E: the lane
+// must walk its column instead). All THREADS threads of the CTA call it; it
+// ends with a barrier, after which the three arrays hold the result. K6's
+// plane gather and K5's lane map (csrc/onehot_matmul_rows.cu) both start so.
+__device__ __forceinline__ void strip_fields(const uint8_t* __restrict__ g, int k0, int m, int D4,
+                                             int K, int (&ent_i)[E][LANES],
+                                             float (&ent_u)[E][LANES], int (&ent_n)[LANES]) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int k0 = blockIdx.x * LANES;
-  const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
-
-  // ---- each lane's fields (feature i, value u), once for all rows
   if (tid < LANES) ent_n[tid] = 0;
   __syncthreads();
   const int side = tid & 1;  // lanes 16 * side .. + 15 of the strip
@@ -191,6 +180,30 @@ planes_gather_kernel(const __nv_bfloat16* __restrict__ x,  // (B, m)
       }
   }
   __syncthreads();
+}
+
+// Grid (K / 32): CTA c owns lanes 32c .. 32c + 31, the quarter c % 4 of
+// scale block c / 4, whose four CTAs form a cluster.
+template <bool FRAG, bool A8>
+__global__ void __cluster_dims__(QUARTERS, 1, 1) __launch_bounds__(THREADS)
+planes_gather_kernel(const __nv_bfloat16* __restrict__ x,  // (B, m)
+                     const uint8_t* __restrict__ g,        // (D4, K)
+                     __nv_bfloat16* __restrict__ xg,       // (B, K) lanes / (Bp, K) fragments
+                     float* __restrict__ sums,             // (K / 128, Bp) if FRAG
+                     int B, int Bp, int m, int D4, int K) {
+  __shared__ int ent_i[E][LANES];
+  __shared__ float ent_u[E][LANES];
+  __shared__ int ent_n[LANES];
+  __shared__ __align__(16) unsigned short vals[FRAG ? MAX_ROWS : 1][LANES];  // bf16 bits
+  __shared__ float qsum[FRAG ? MAX_ROWS : 1];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k0 = blockIdx.x * LANES;
+  const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
+
+  // ---- each lane's fields (feature i, value u), once for all rows
+  strip_fields(g, k0, m, D4, K, ent_i, ent_u, ent_n);
 
   // ---- the values: warp w computes rows w, w + WARPS, ..., lane `lane`
   const int n = ent_n[lane];

@@ -4,7 +4,10 @@
     (``csrc/onehot_gather.cu``; replaces
     ``pt2tpu/ops/kernels/pallas_gather.py:onehot_iota_pallas``).
   * K5 ``onehot_matmul``: x @ G with G the packed one-hot planes
-    (``csrc/onehot_matmul.cu``; replaces ``onehot_matmul_pallas``).
+    (replaces ``onehot_matmul_pallas``), on the path :func:`k5_path` names:
+    ``csrc/onehot_matmul_rows.cu`` at rows >= :data:`K5_ROWS_MIN_ROWS` (the
+    planes decoded once into a lane map, then x's rows staged in shared
+    memory and gathered), ``csrc/onehot_matmul.cu`` below.
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises; on
 a CPU tensor it runs the plain version below. There is no fallback from a
@@ -21,8 +24,35 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["onehot_gather", "onehot_gather_plain", "onehot_matmul", "onehot_matmul_plain",
-           "onehot_planes"]
+__all__ = ["K5_MAP_FIELDS", "K5_ROWS_MAX_ROW_BYTES", "K5_ROWS_MIN_ROWS", "k5_path",
+           "onehot_gather", "onehot_gather_plain", "onehot_lane_map_plain", "onehot_matmul",
+           "onehot_matmul_plain", "onehot_matmul_rows_plain", "onehot_planes"]
+
+K5_ROWS_MIN_ROWS = 16
+"""The fewest rows K5 runs on its rows path (``csrc/onehot_matmul_rows.cu``);
+fewer take ``csrc/onehot_matmul.cu``. On an H100 the rows path's two
+launches take less time than that kernel at every row count timed, 16 to 512
+(``chip_smoke.py`` 18c, PERF.md §6); below 16 it was not timed. Rebound to
+``1 << 30``, it sends every call to that kernel (``chip_smoke.py``'s "off"
+turns). Read at each call."""
+
+K5_ROWS_MAX_ROW_BYTES = 65536
+"""The widest row of x (m x element bytes) the rows path stages in shared
+memory: up to m = 8192 in f32 (llama-2-70b's width)."""
+
+K5_MAP_FIELDS = 4
+"""E: the fields per lane the rows path's lane map holds; a lane with more
+walks its column of G."""
+
+
+def k5_path(rows: int, m: int, elem_bytes: int) -> str:
+    """Which of K5's kernels :func:`onehot_matmul` launches on CUDA: "rows"
+    (``pt2_onehot_matmul_rows``: the lane map, then the rows gathered from
+    shared memory) for rows >= K5_ROWS_MIN_ROWS with a row of x of at most
+    K5_ROWS_MAX_ROW_BYTES; else "cuda_core" (``pt2_onehot_matmul``)."""
+    if rows >= K5_ROWS_MIN_ROWS and m * elem_bytes <= K5_ROWS_MAX_ROW_BYTES:
+        return "rows"
+    return "cuda_core"
 
 
 def onehot_gather_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -60,8 +90,58 @@ def onehot_matmul_plain(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:
     return (F.pad(x.float(), (0, D - m)) @ u).to(x.dtype)
 
 
+def onehot_lane_map_plain(gpacked: torch.Tensor, m: int) -> torch.Tensor:
+    """The lane map the rows path's first launch writes, int32 of (1 + E) * K
+    (E = K5_MAP_FIELDS): lane k's count of nonzero fields (i, u) with i < m,
+    then E entry planes, entry e of lane k = (i << 2) | u for the fields in
+    increasing i while e < count <= E, else -1 (all E of a lane with more
+    than E fields: it walks its column)."""
+    E = K5_MAP_FIELDS
+    u = onehot_planes(gpacked)[:m].to(torch.int32)  # (m, K)
+    K = u.shape[1]
+    nz = u != 0
+    counts = nz.sum(0, dtype=torch.int32)
+    # the first E features of each lane, in increasing i: the rank of each
+    # nonzero field within its lane
+    rank = torch.cumsum(nz.to(torch.int32), 0) - 1
+    feat = torch.arange(u.shape[0], dtype=torch.int32, device=u.device)[:, None].expand_as(u)
+    entries = torch.full((E, K), -1, dtype=torch.int32, device=u.device)
+    keep = nz & (rank < E) & (counts <= E)[None, :]
+    lane = torch.arange(K, device=u.device)[None, :].expand_as(u)
+    entries[rank[keep].long(), lane[keep]] = (feat[keep] << 2) | u[keep]
+    return torch.cat([counts, entries.reshape(-1)])
+
+
+def onehot_matmul_rows_plain(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:
+    """x @ G as the rows path sums it: per lane, f32, the nonzero fields in
+    increasing feature order, each product rounded before it is added, the
+    first product the sum's start (a lane with no field gives +0.0); the
+    result in x's dtype. Equal to :func:`onehot_matmul_plain` bit for bit on
+    one-hot planes."""
+    m = x.shape[-1]
+    if m > gpacked.shape[0] * 4:
+        raise ValueError(f"x width {m} exceeds the gather's {gpacked.shape[0] * 4} features")
+    u = onehot_planes(gpacked)[:m]  # (m, K)
+    K = u.shape[1]
+    lane, feat = u.t().nonzero(as_tuple=True)  # by lane, then increasing feature
+    counts = torch.bincount(lane, minlength=K)
+    width = int(counts.max()) if lane.numel() else 0
+    pos = torch.arange(lane.numel(), device=u.device) - (torch.cumsum(counts, 0) - counts)[lane]
+    idx = torch.zeros((width, K), dtype=torch.long, device=u.device)
+    val = torch.zeros((width, K), dtype=torch.float32, device=u.device)
+    idx[pos, lane] = feat
+    val[pos, lane] = u[feat, lane].float()
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], K), dtype=torch.float32, device=x.device)
+    for f in range(width):
+        v = val[f] * xf[:, idx[f]]
+        acc = torch.where(counts > 0, v, acc) if f == 0 else torch.where(counts > f, acc + v, acc)
+    return acc.to(x.dtype)
+
+
 _lib = None
 _mm_lib = None
+_rows_lib = None
 
 
 def _kernel_lib():
@@ -84,6 +164,20 @@ def _mm_kernel_lib():
         fn.restype = ctypes.c_int
         _mm_lib = lib
     return _mm_lib
+
+
+def _rows_kernel_lib():
+    global _rows_lib
+    if _rows_lib is None:
+        lib = _build.load("onehot_matmul_rows")
+        fn = lib.pt2_onehot_matmul_rows
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_onehot_lane_map
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _rows_lib = lib
+    return _rows_lib
 
 
 def onehot_gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -129,9 +223,13 @@ def onehot_matmul(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:
     """(rows, m) x (D//4, K) int8 packed one-hot planes -> (rows, K) in x's
     dtype: x @ G.
 
-    CUDA: launches K5 on the current stream and counts the launch in
-    ``onehot_matmul.launches``; x must be bf16 or f32. CPU: the plain
-    version."""
+    CUDA: launches K5 on the current stream on the path :func:`k5_path`
+    names, read at each call ("rows": the lane map, then the rows, from one C
+    entry, with the stream's map scratch, :func:`_k5_map`; "cuda_core":
+    ``csrc/onehot_matmul.cu``), and counts the call in
+    ``onehot_matmul.launches`` (the rows path also in
+    ``onehot_matmul.launches_rows``); x must be bf16 or f32. A launch that
+    fails raises. CPU: the plain version."""
     if x.device.type == "cpu":
         return onehot_matmul_plain(x, gpacked)
     if x.device.type != "cuda":
@@ -153,6 +251,9 @@ def onehot_matmul(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
+    if k5_path(rows, m, x.element_size()) == "rows":
+        _onehot_matmul_rows(x, gpacked, out)
+        return out
     rc = _mm_kernel_lib().pt2_onehot_matmul(
         x.data_ptr(), gpacked.data_ptr(), out.data_ptr(), rows, m, D4, K, x.element_size(),
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
@@ -165,3 +266,39 @@ def onehot_matmul(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:
 
 
 onehot_matmul.launches = 0
+onehot_matmul.launches_rows = 0
+
+_k5_maps: dict = {}
+
+
+def _k5_map(device, stream, K):
+    """The rows path's lane map scratch for launches on ``stream``: int32 of
+    (1 + K5_MAP_FIELDS) * K, kept between calls. It is the stream's own, so
+    the launches that write and read it are ordered by their stream and
+    never overlap; a CUDA graph capture is refused."""
+    if torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError("K5's rows path inside a CUDA graph capture")
+    buf = _k5_maps.get((device, stream))
+    if buf is None or buf.numel() < (1 + K5_MAP_FIELDS) * K:
+        buf = torch.empty((1 + K5_MAP_FIELDS) * K, dtype=torch.int32,
+                          device=torch.device("cuda", device))
+        _k5_maps[(device, stream)] = buf
+    return buf
+
+
+def _onehot_matmul_rows(x, gpacked, out):
+    """K5's rows path into ``out``: x (rows, m) contiguous, bf16 or f32; the
+    planes read as 16-byte vectors (a copy if they are not aligned so)."""
+    rows, m = x.shape
+    D4, K = gpacked.shape
+    if gpacked.data_ptr() % 16:
+        gpacked = gpacked.clone()
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _rows_kernel_lib().pt2_onehot_matmul_rows(
+        x.data_ptr(), gpacked.data_ptr(), _k5_map(device, stream, K).data_ptr(), out.data_ptr(),
+        rows, m, D4, K, x.element_size(), device, stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 ('rows' path) launch failed: cudaError {rc}")
+    onehot_matmul.launches += 1
+    onehot_matmul.launches_rows += 1

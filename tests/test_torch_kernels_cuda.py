@@ -17,7 +17,10 @@ Tolerances: K1 and K3 get the same bf16 inputs as their plain versions and
 accumulate in f32 in different orders, so they agree to 1e-4 of the
 output's largest magnitude; so does K6 (the gather K5 computes, then K1's
 sum). K4 copies values and K5 sums one nonzero term per lane on a one-hot G:
-both bit-exact (K5 on other planes: 1e-6, f32 order). K2 rounds mid =
+both bit-exact (K5 on other planes: 1e-6, f32 order). K5's rows path
+(rows >= K5_ROWS_MIN_ROWS) sums in its plain version's order, each product
+rounded before it is added: bit-exact to it on any planes, within 1e-6 of
+x @ G in f32 (bf16: the result's own rounding). K2 rounds mid =
 act(gate) * up (silu, gelu or relu) to bf16 as its plain version does, but
 gate and up differ in their last f32 bits between the two, so a few mid
 values round to the neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
@@ -2134,3 +2137,192 @@ def test_k6_c_entries_refuse_what_they_do_not_take(cuda_device):
     assert tc(*head, sums.data_ptr(), *tail, 16, m, D4, K, n, 9, 0, dev, stream) != 0  # 9 slices
     assert tc(*head, sums.data_ptr(), *tail, 16, m, D4, K, 200, 3, 0, dev, stream) != 0  # n
     assert counters.sum().item() == 0
+
+
+# ---- K5's rows path (the lane map, then x's rows staged in shared memory
+# and gathered; rows >= K5_ROWS_MIN_ROWS): bit-exact to its plain versions
+# and to K4 on permutation planes, x @ G on any planes
+def _k5_counts():
+    return tkg.onehot_matmul.launches, tkg.onehot_matmul.launches_rows
+
+
+def _lane_map(gp, m):
+    """The rows path's first launch alone, into a fresh scratch."""
+    D4, K = gp.shape
+    lmap = torch.full(((1 + tkg.K5_MAP_FIELDS) * K,), 7, dtype=torch.int32, device=gp.device)
+    rc = tkg._rows_kernel_lib().pt2_onehot_lane_map(
+        gp.data_ptr(), lmap.data_ptr(), m, D4, K, gp.device.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return lmap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,K", [(4096, 4096), (8192, 8192), (200, 256), (300, 512)])
+@pytest.mark.parametrize("rows", [65, 128, 512, 1000])
+def test_k5_rows_path_bit_exact(cuda_device, rows, m, K, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + m + K)
+    perm = _perm(g, cuda_device, m, K, interleave=m in (200, 300))
+    gp = _planes(perm, m)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).to(dtype)
+    x[0, : m // 2] = -0.0  # -0.0 is copied as it is
+    assert tkg.k5_path(rows, m, x.element_size()) == "rows"
+    before = _k5_counts()
+    got = tkg.onehot_matmul(x, gp)
+    torch.cuda.synchronize()
+    assert _k5_counts() == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (rows, K)
+    assert torch.equal(got, tkg.onehot_matmul_rows_plain(x, gp))
+    assert torch.equal(got, tkg.onehot_gather(x, perm))  # the value K4 copies
+    assert torch.equal(torch.signbit(got), torch.signbit(tkg.onehot_gather(x, perm)))
+    assert torch.equal(_lane_map(gp, m), tkg.onehot_lane_map_plain(gp, m))
+
+
+def _any_planes(g, dev, kind, m, D, K):
+    """Planes that are not a permutation: "few" (fields of 2, up to 3 ones in
+    a column: each lane within the map's E), "dense" (half the fields set:
+    every lane walks its column)."""
+    if kind == "dense":
+        codes = torch.randint(-1, 1, (K, D), generator=g, device=dev, dtype=torch.int8)
+    else:
+        codes = torch.full((K, D), -1, device=dev, dtype=torch.int8)
+        for _ in range(3):
+            codes[torch.arange(K, device=dev),
+                  torch.randint(0, D, (K,), generator=g, device=dev)] = 0
+    codes[::7, 5] = 1
+    return pack_ternary(codes, 128), codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,D,K", [(300, 384, 512), (256, 256, 1024)])
+@pytest.mark.parametrize("kind", ["few", "dense"])
+def test_k5_rows_path_is_x_at_g_for_any_planes(cuda_device, kind, m, D, K, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(17 + m)
+    gp, codes = _any_planes(g, cuda_device, kind, m, D, K)
+    exact_u = (codes.t().double() + 1)[:m]
+    for rows in (65, 130):
+        x = torch.randn((rows, m), generator=g, device=cuda_device).to(dtype)
+        before = _k5_counts()
+        got = tkg.onehot_matmul(x, gp)
+        torch.cuda.synchronize()
+        assert _k5_counts() == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got, tkg.onehot_matmul_rows_plain(x, gp))
+        # f32: summation order; bf16: the result's own rounding (2^-9 relative)
+        assert _rel(got.double(), x.double() @ exact_u) <= (1e-6 if dtype == torch.float32
+                                                            else 2.0 ** -8)
+    assert torch.equal(_lane_map(gp, m), tkg.onehot_lane_map_plain(gp, m))
+
+
+@pytest.mark.cuda
+def test_k5_rows_path_on_stacked_view_and_same_bits_run_to_run(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    m, K, L = 4096, 4096, 3
+    perms = [_perm(g, cuda_device, m, K) for _ in range(L)]
+    gps = torch.stack([_planes(p, m) for p in perms])
+    x = torch.randn((512, m), generator=g, device=cuda_device).bfloat16()
+    for li in range(L):
+        got = tkg.onehot_matmul(x, gps[li])  # a view, as the port stacks
+        assert torch.equal(got, tkg.onehot_gather(x, perms[li]))
+        assert torch.equal(got, tkg.onehot_matmul(x, gps[li]))
+    gp, _ = _any_planes(g, cuda_device, "few", 300, 384, 512)
+    x = torch.randn((200, 300), generator=g, device=cuda_device)
+    assert torch.equal(tkg.onehot_matmul(x, gp), tkg.onehot_matmul(x, gp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 16, 64, 65, 128, 512])
+def test_k5_rows_launch_counts_exact_and_threshold(cuda_device, rows, monkeypatch):
+    """Rows >= K5_ROWS_MIN_ROWS count one launch and one rows-path launch, fewer
+    one launch of the first kernel; with the threshold rebound every row
+    count takes the first kernel, with the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(19 + rows)
+    perm = _perm(g, cuda_device, 1000, 1024, interleave=True)
+    gp = _planes(perm, 1000)
+    x = torch.randn((rows, 1000), generator=g, device=cuda_device).bfloat16()
+    on_rows = rows >= tkg.K5_ROWS_MIN_ROWS
+    assert tkg.k5_path(rows, 1000, 2) == ("rows" if on_rows else "cuda_core")
+    before = _k5_counts()
+    on = tkg.onehot_matmul(x, gp)
+    torch.cuda.synchronize()
+    assert _k5_counts() == (before[0] + 1, before[1] + int(on_rows))
+    monkeypatch.setattr(tkg, "K5_ROWS_MIN_ROWS", 1 << 30)
+    before = _k5_counts()
+    off = tkg.onehot_matmul(x, gp)
+    torch.cuda.synchronize()
+    assert _k5_counts() == (before[0] + 1, before[1])
+    assert torch.equal(on, off)
+
+
+@pytest.mark.cuda
+def test_k5_rows_path_refuses_graph_capture(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    gp = _planes(_perm(g, cuda_device, 1000, 1024), 1000)
+    x = torch.randn((128, 1000), generator=g, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tkg.onehot_matmul(x, gp)  # built and its scratch made outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k5_counts()
+    with pytest.raises(NotImplementedError, match="K5's rows path.*graph"):
+        with torch.cuda.graph(graph):
+            tkg.onehot_matmul(x, gp)
+    assert _k5_counts() == before
+
+
+@pytest.mark.cuda
+def test_k5_rows_path_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A rows-path launch that fails raises; neither K5's first kernel nor a
+    plain version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_onehot_matmul_rows(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("K5's first kernel was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    gp = _planes(_perm(g, cuda_device, 500, 512), 500)
+    monkeypatch.setattr(tkg, "_rows_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tkg, "_mm_kernel_lib", not_asked)
+    for rows, dtype in ((65, torch.bfloat16), (512, torch.float32)):
+        x = torch.randn((rows, 500), generator=g, device=cuda_device).to(dtype)
+        before = _k5_counts()
+        with pytest.raises(RuntimeError, match="K5 \\('rows' path"):
+            tkg.onehot_matmul(x, gp)
+        assert _k5_counts() == before
+
+
+@pytest.mark.cuda
+def test_k5_rows_c_entry_refuses_what_it_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    m, K = 1000, 1024
+    gp = _planes(_perm(g, cuda_device, m, K, interleave=True), m)
+    D4 = gp.shape[0]
+    x = torch.randn((130, m), generator=g, device=cuda_device).bfloat16()
+    out = torch.empty((130, K), device=cuda_device).bfloat16()
+    lmap = torch.empty(((1 + tkg.K5_MAP_FIELDS) * K,), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    fn = tkg._rows_kernel_lib().pt2_onehot_matmul_rows
+    args = [x.data_ptr(), gp.data_ptr(), lmap.data_ptr(), out.data_ptr()]
+    assert fn(*args, 130, m, D4, K, 2, dev, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tkg.onehot_matmul_rows_plain(x, gp))
+    assert fn(*args, 130, m, D4, K, 3, dev, stream) != 0  # 3-byte elements
+    assert fn(*args, 130, 4 * D4 + 1, D4, K, 2, dev, stream) != 0  # x wider than the planes
+    assert fn(*args, 130, m, D4, 96, 2, dev, stream) != 0  # lanes not a multiple of 128
+    assert fn(*args, 0, m, D4, K, 2, dev, stream) != 0  # no rows
+    assert fn(args[0], args[1] + 4, *args[2:], 130, m, D4, K, 2, dev, stream) != 0  # planes
+    assert fn(*args[:2], args[2] + 4, args[3], 130, m, D4, K, 2, dev, stream) != 0  # map
+    assert fn(*args[:3], args[3] + 2, 130, m, D4, K, 2, dev, stream) != 0  # out not 16-byte
+    wide = torch.zeros((65, 16385), device=cuda_device)  # a row of 65540 bytes
+    gw = torch.zeros((4128, 128), dtype=torch.int8, device=cuda_device)
+    assert fn(wide.data_ptr(), gw.data_ptr(), lmap.data_ptr(), out.data_ptr(), 65, 16385,
+              gw.shape[0], 128, 4, dev, stream) != 0
+    assert tkg.k5_path(65, 16385, 4) == "cuda_core"
