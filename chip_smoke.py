@@ -270,6 +270,26 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      CUDA events, beside K5's first kernel in turns, the plain versions,
      torch.index_select and the bound, with both launches' device time under
      torch.profiler (18c, in phase 6, in place of K5's old timing).
+ 19. (K7 redesigned: csrc/decode_attention_tc.cu, every K7 call while
+     attention.K7_TC holds: one launch per call whose CTAs find each row's
+     last valid slot on the card, a ring of K/V tiles filled by TMA copies,
+     scores and P.V on the tensor cores, a row's splits combined in a
+     thread-block cluster) holds it against decode_attention_plain at
+     ATTN_TOL and against decode_attention_split_plain on its own plan
+     (k7_plan) within one bf16 step plus K7_SPLIT_TOL, every call twice for
+     the same bits, launches / launches_tc exact, at phase 2b's shapes and
+     with masks that have holes, keep only the last slot or leave a row
+     empty (output 0), at llama-3-8b's, llama-2-7b's and gemma-2b's heads,
+     bf16 and int8 KV; PR 3's kernel (K7_TC off) against the plain version
+     as before (19a, in 2b); every engine run holds launches_tc to its K7
+     launches; in turns on, off, off, on (K7_TC) profiles one llama-3-8b
+     "down" engine decode step, bf16 and int8 KV: K7's device ms a step
+     beside the bound of that step's valid slots, the step's device time and
+     wall (19b, in the phase-11 engine step); and times both kernels through
+     their C entries (CUDA events in turns and CUDA-graph replays) at B 8, M
+     2048, every slot valid and at engine-like lengths (64-576 valid slots,
+     the bound counting their bytes), beside the plain version, SDPA and the
+     bound (19c, in phase 6).
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -316,6 +336,10 @@ K1_ROWS = (1, 2, 4, 8, 12, 16, 64, 128, 512)  # K1's timed rows: decode, then pr
 # relative to each chunk's maximum, the plain version relative to the row's
 # global maximum, so a p may land on the neighbouring bf16.
 ATTN_TOL = 1e-2
+# K7's tensor-core kernel vs decode_attention_split_plain, which follows its
+# schedule: past one bf16 step of each value (two roundings of the same f32
+# sum can land on neighbouring bf16s), the f32 summation order only
+K7_SPLIT_TOL = 1e-3
 ENGINE_M = 2048  # the engine's max_len (the JAX package's default)
 # gemma-2b (the GeGLU slice): its projections (name, K, n) with qkv's
 # (8 + 2 x 1) heads of 256, its MLP (D, I, n) and its heads (H, Hkv, hd)
@@ -564,6 +588,7 @@ def main() -> None:
         k1.ternary_matmul_igathered.launches_tc = k1.ternary_mlp.launches_tc = 0
         k1.ternary_mlp.launches_dec = 0
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
+        k7.decode_attention.launches_tc = 0
         k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
         k4.onehot_matmul.launches_rows = 0
 
@@ -576,7 +601,9 @@ def main() -> None:
         and "ternary_matmul_igathered_tc"; K2's decode and tensor-core
         launches, its GeGLU launches (any path) and K7's at hd 256 apart as
         "ternary_mlp_dec", "ternary_mlp_tc", "ternary_mlp_gelu" and
-        "decode_attention_hd256"; K6's decode and tensor-core launches (also
+        "decode_attention_hd256"; K7's on its tensor-core kernel (also in
+        "decode_attention") as "decode_attention_tc"; K6's decode and
+        tensor-core launches (also
         in "ternary_matmul_gathered") apart as "ternary_matmul_gathered_dec"
         and "ternary_matmul_gathered_tc"; K5's rows-path launches (also in
         "onehot_matmul") apart as "onehot_matmul_rows". K2's decode path's
@@ -591,6 +618,7 @@ def main() -> None:
         c["ternary_mlp_dec"] = k1.ternary_mlp.launches_dec
         c["ternary_mlp_gelu"] = k1.ternary_mlp.launches_gelu
         c["decode_attention_hd256"] = k7.decode_attention.launches_hd256
+        c["decode_attention_tc"] = k7.decode_attention.launches_tc
         c["ternary_matmul_gathered_dec"] = k1.ternary_matmul_gathered.launches_dec
         c["ternary_matmul_gathered_tc"] = k1.ternary_matmul_gathered.launches_tc
         c["onehot_matmul_rows"] = k4.onehot_matmul.launches_rows
@@ -612,7 +640,7 @@ def main() -> None:
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
                "ternary_mlp_tc", "ternary_mlp_dec", "ternary_matmul_gathered_dec",
-               "ternary_matmul_gathered_tc", "onehot_matmul_rows"]
+               "ternary_matmul_gathered_tc", "onehot_matmul_rows", "decode_attention_tc"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -1632,11 +1660,16 @@ def main() -> None:
           f"{errs['ternary_mlp_relu']:.3e}) within {MLP_TOL} x max|ref|")
 
     stamp("2b")
-    # ---- 2b. K7 vs its plain version: llama-3-8b and llama-2-7b heads,
-    # B 1/4/8, M 256 and the engine's 2048, ragged valid lengths
+    # ---- 2b. K7 on its tensor-core kernel (the route) against both plain
+    # versions: decode_attention_plain at ATTN_TOL, decode_attention_split_plain
+    # on the kernel's own plan within one bf16 step of each value plus
+    # K7_SPLIT_TOL; llama-3-8b and llama-2-7b heads, B 1/4/8, M 256 and the
+    # engine's 2048, ragged lengths, then masks with holes, only the last slot,
+    # a row with none (output 0), every call twice for the same bits; then
+    # PR 3's kernel (K7_TC off) against the plain version as before
     from pt2tpu_torch.serve.kvcache import quantize_i8
 
-    def attn_inputs(B, M, H, Hkv, quant, ragged=True, hd=128, gen=None):
+    def attn_inputs(B, M, H, Hkv, quant, ragged=True, hd=128, gen=None, mask=None):
         gen = gen or g
         q = torch.randn((B, 1, H, hd), generator=gen, device=dev).bfloat16()
         k = torch.randn((B, M, Hkv, hd), generator=gen, device=dev)
@@ -1644,10 +1677,42 @@ def main() -> None:
         lens = (torch.randint(1, M + 1, (B,), generator=gen, device=dev) if ragged
                 else torch.full((B,), M, device=dev))
         valid = torch.arange(M, device=dev)[None, :] < lens[:, None]
+        if mask == "holes":
+            valid &= torch.rand((B, M), generator=gen, device=dev) < 0.4
+        elif mask == "last_only":
+            valid = (torch.arange(M, device=dev) == M - 1).expand(B, M).contiguous()
+        elif mask == "empty_row":
+            valid[0] = False
         if not quant:
             return q, k.bfloat16(), v.bfloat16(), valid, None, None
         (k8, ks), (v8, vs) = quantize_i8(k), quantize_i8(v)
         return q, k8, v8, valid, ks, vs
+
+    def held_k7(name, label, a, scale_):
+        """K7's route (its tensor-core kernel) on ``a``: against the plain
+        version, against the split plain version on the kernel's plan, twice
+        for the same bits; launches and launches_tc exact."""
+        q_, k_, v_, valid_, ks_, vs_ = a
+        B_, M_, Hkv_, hd_ = q_.shape[0], k_.shape[1], k_.shape[2], q_.shape[3]
+        c0 = (k7.decode_attention.launches, k7.decode_attention.launches_tc)
+        got = k7.decode_attention(*a[:4], scale_, *a[4:])
+        again = k7.decode_attention(*a[:4], scale_, *a[4:])
+        if (k7.decode_attention.launches, k7.decode_attention.launches_tc) != (c0[0] + 2, c0[1] + 2):
+            fail(f"{label}: K7's tensor-core kernel did not launch once per call")
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{label}: two runs differ")
+        held(name, label, got, k7.decode_attention_plain(*a[:4], scale_, *a[4:]), ATTN_TOL)
+        plan = k7.k7_plan(B_, M_, Hkv_, q_.shape[2] // Hkv_, hd_, ks_ is not None)
+        want = k7.decode_attention_split_plain(*a[:4], scale_, *a[4:], tile=plan.tile,
+                                               splits=plan.splits).float()
+        step = torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+        over = ((got.float() - want).abs() - step).max().item() / want.abs().max().item()
+        if not over <= K7_SPLIT_TOL:
+            fail(f"{label}: {over:.3e} of max|ref| past one bf16 step of the split plain version")
+        errs[name + "_split"] = max(errs.get(name + "_split", 0.0), over)
+        if a[3].shape[0] > 0 and not a[3][0].any() and got[0].abs().max().item() != 0.0:
+            fail(f"{label}: a row with no valid slot is not 0")
 
     errs["decode_attention"] = 0.0
     nchecks["decode_attention"] = 0
@@ -1656,11 +1721,8 @@ def main() -> None:
         for B in (1, 4, 8):
             for M in (256, ENGINE_M):
                 for quant in (False, True):
-                    a = attn_inputs(B, M, H, Hkv, quant)
-                    held("decode_attention", f"K7 H={H} Hkv={Hkv} B={B} M={M} int8={quant}",
-                         k7.decode_attention(*a[:4], attn_scale, *a[4:]),
-                         k7.decode_attention_plain(*a[:4], attn_scale, *a[4:]), ATTN_TOL)
-                    del a
+                    held_k7("decode_attention", f"K7 H={H} Hkv={Hkv} B={B} M={M} int8={quant}",
+                            attn_inputs(B, M, H, Hkv, quant), attn_scale)
     # gemma-2b's heads: hd 256, one KV head for 8 query heads, scale 1/16
     errs["decode_attention_hd256"], nchecks["decode_attention_hd256"] = 0.0, 0
     Hg, Hkvg, hdg = HEADS_GEMMA
@@ -1669,17 +1731,44 @@ def main() -> None:
     for B in (1, 4, 8):
         for M in (256, ENGINE_M):
             for quant in (False, True):
-                a = attn_inputs(B, M, Hg, Hkvg, quant, hd=hdg, gen=ggem)
-                held("decode_attention_hd256", f"K7 gemma-2b heads H={Hg} Hkv={Hkvg} hd={hdg} "
-                     f"B={B} M={M} int8={quant}", k7.decode_attention(*a[:4], scale_g, *a[4:]),
-                     k7.decode_attention_plain(*a[:4], scale_g, *a[4:]), ATTN_TOL)
-                del a
-    if k7.decode_attention.launches_hd256 - hd0 != nchecks["decode_attention_hd256"]:
+                held_k7("decode_attention_hd256", f"K7 gemma-2b heads H={Hg} Hkv={Hkvg} hd={hdg} "
+                        f"B={B} M={M} int8={quant}", attn_inputs(B, M, Hg, Hkvg, quant, hd=hdg,
+                                                                 gen=ggem), scale_g)
+    if k7.decode_attention.launches_hd256 - hd0 != 2 * nchecks["decode_attention_hd256"]:
         fail("K7's hd-256 launches do not match its calls")
-    print(f"K7 vs plain: {nchecks['decode_attention']} checks within {ATTN_TOL} x max|ref| "
-          f"(max|err| {errs['decode_attention']:.3e}); at gemma-2b's heads (H {Hg}, Hkv {Hkvg}, "
-          f"hd {hdg}): {nchecks['decode_attention_hd256']} checks (max|err| "
-          f"{errs['decode_attention_hd256']:.3e})")
+    # the masks, at the engine's point, every head layout, both cache types
+    gk17 = torch.Generator(device=dev).manual_seed(17)  # this slice's draws
+    for mask in ("holes", "last_only", "empty_row"):
+        for H, Hkv, hd in ((32, 8, 128), (32, 32, 128), HEADS_GEMMA):
+            for quant in (False, True):
+                name = "decode_attention_hd256" if hd == 256 else "decode_attention"
+                held_k7(name, f"K7 mask {mask} H={H} Hkv={Hkv} hd={hd} B=8 M={ENGINE_M} "
+                        f"int8={quant}", attn_inputs(8, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17,
+                                                     mask=mask), hd ** -0.5)
+    print(f"K7 on its tensor-core kernel vs plain: {nchecks['decode_attention']} checks within "
+          f"{ATTN_TOL} x max|ref| (max|err| {errs['decode_attention']:.3e}); at gemma-2b's heads "
+          f"(H {Hg}, Hkv {Hkvg}, hd {hdg}): {nchecks['decode_attention_hd256']} checks (max|err| "
+          f"{errs['decode_attention_hd256']:.3e}); vs the split plain version on its plan: past "
+          f"one bf16 step by at most {errs['decode_attention_split']:.3e} / "
+          f"{errs['decode_attention_hd256_split']:.3e} of max|ref| (<= {K7_SPLIT_TOL}); every "
+          f"call twice, same bits")
+    # PR 3's kernel, the A/Bs' "off" turns: as before, against the plain version
+    errs["decode_attention_cc"], nchecks["decode_attention_cc"] = 0.0, 0
+    k7.K7_TC = False
+    tc0 = k7.decode_attention.launches_tc
+    for H, Hkv, hd in ((32, 8, 128), (32, 32, 128), HEADS_GEMMA):
+        for B in (1, 8):
+            for quant in (False, True):
+                a = attn_inputs(B, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17)
+                held("decode_attention_cc", f"PR 3's K7 H={H} Hkv={Hkv} hd={hd} B={B} int8={quant}",
+                     k7.decode_attention(*a[:4], hd ** -0.5, *a[4:]),
+                     k7.decode_attention_plain(*a[:4], hd ** -0.5, *a[4:]), ATTN_TOL)
+                del a
+    k7.K7_TC = True
+    if k7.decode_attention.launches_tc != tc0:
+        fail("K7_TC off launched the tensor-core kernel")
+    print(f"PR 3's K7 (K7_TC off) vs plain: {nchecks['decode_attention_cc']} checks (max|err| "
+          f"{errs['decode_attention_cc']:.3e})")
 
     stamp("2c")
     # ---- 2c. K5 bit-exact against its plain version and against K4; K6 vs
@@ -2576,7 +2665,7 @@ def main() -> None:
                 ternary_mlp_tc=L * short, ternary_mlp_dec=L * st, ternary_matmul=4 * L * (16 - short),
                 ternary_matmul_tc=4 * L * (16 - short),
                 onehot_matmul=3 * L * (16 - short), onehot_matmul_rows=3 * L * (16 - short),
-                decode_attention=L * st)
+                decode_attention=L * st, decode_attention_tc=L * st)
     got = counts()
     if got != want:
         fail(f"engine ssr P2: launches {got}, want {want}")
@@ -2635,7 +2724,8 @@ def main() -> None:
                         ternary_matmul_igathered_dec=2 * L * st,
                         ternary_matmul_igathered_tc=2 * L * n_adm if on else 0,
                         ternary_mlp=L * (st + n_adm), ternary_mlp_tc=L * n_adm,
-                        ternary_mlp_dec=L * st, decode_attention=L * st)
+                        ternary_mlp_dec=L * st, decode_attention=L * st,
+                        decode_attention_tc=L * st)
             got = counts()
             if got != want:
                 fail(f"{label}: launches {got}, want {want}")
@@ -2735,7 +2825,8 @@ def main() -> None:
         """Launches the routing implies: each admission prefills its bucket
         (>= 64 rows: qkv, o through K1 on the tensor cores; the MLP through
         K2 at <= 64 rows, else K1 x2); each decode step (8 rows) K1 x2 on the
-        decode kernel + K2 + K7 per layer (K7 none when it is off). W2A8
+        decode kernel + K2 + K7 per layer (K7 none when it is off; on its
+        tensor-core kernel while k7.K7_TC holds). W2A8
         keeps the two-call MLP: K1 x4 per layer at every admission (on the
         int8 tensor cores) and every decode step (on the CUDA cores). K2's
         admission rows (16-64) run its tensor-core path. A
@@ -2748,12 +2839,14 @@ def main() -> None:
         CUDA-core K2."""
         dec_on = impl == "auto" if dec_on is None else dec_on
         st = eng.stats["steps"]
-        k7 = L * st if k7_on else 0
+        k7n = L * st if k7_on else 0
+        k7tc = k7n if k7.K7_TC else 0
         if impl == "a8":
             tc = 4 * L * len(prompts_)
             return dict(none, ternary_matmul=4 * L * st + tc,
                         ternary_matmul_tc_a8=tc if tc_on else 0,
-                        ternary_matmul_dec=4 * L * st if dec_on else 0, decode_attention=k7)
+                        ternary_matmul_dec=4 * L * st if dec_on else 0, decode_attention=k7n,
+                        decode_attention_tc=k7tc)
         tc, k2n, k2tc = 0, L * st, 0
         for p in prompts_:
             Lb = min(_bucket(len(p)), ENGINE_M)
@@ -2763,8 +2856,9 @@ def main() -> None:
         return dict(none, ternary_matmul=2 * L * st + tc, ternary_matmul_tc=tc if tc_on else 0,
                     ternary_matmul_dec=2 * L * st if dec_on else 0, ternary_mlp=k2n,
                     ternary_mlp_tc=k2tc, ternary_mlp_dec=L * st if k2_dec_on else 0,
-                    decode_attention=k7, ternary_mlp_gelu=k2n if cfg.act == "gelu" else 0,
-                    decode_attention_hd256=k7 if cfg.hd == 256 else 0)
+                    decode_attention=k7n, decode_attention_tc=k7tc,
+                    ternary_mlp_gelu=k2n if cfg.act == "gelu" else 0,
+                    decode_attention_hd256=k7n if cfg.hd == 256 else 0)
 
     def run_engine(label, kvq, quantum, prompts_, news_, sampling=None, seed=0, k7_on=True,
                    tc_on=True, impl="auto", dec_on=None, k2_dec_on=True):
@@ -2841,7 +2935,7 @@ def main() -> None:
             label = f"llama-3-8b down {'int8' if kvq else 'bf16'} KV quantum {quantum}"
             res, outs[(kvq, quantum)] = run_engine(label, kvq, quantum, eng_prompts, eng_news)
             record["engine"][label] = res
-            k7_main += res["launches"]["decode_attention"]
+            k7_main += res["launches"]["decode_attention_tc"]
         if outs[(kvq, 1)] != outs[(kvq, 8)]:
             fail(f"engine int8={kvq}: quantum 8 tokens differ from quantum 1")
     main_launches["decode_attention"] = k7_main
@@ -2966,6 +3060,7 @@ def main() -> None:
     record["engine_sampled_pair_equal"] = True
 
     record["engine_step"] = {}
+    k7_cc_launches = [0]  # PR 3's K7 in the 19b turns: the kernels line's count for it
     for kvq in (False, True):
         eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
         for p in eng_prompts[:8]:
@@ -2995,11 +3090,47 @@ def main() -> None:
         kv = "int8" if kvq else "bf16"
         prof = profile_engine_step(eng, f"llama-3-8b down engine, {kv} KV")
         rec = {"k7_on_ms": [on1, on2], "plain_ms": [off1, off2], "valid_share": valid, **prof}
-        record["engine_step"][kv] = rec
         print(f"engine decode step, {kv} KV, 8 rows at positions {int(eng.positions.min())}-"
               f"{int(eng.positions.max())} of {ENGINE_M} ({100 * valid:.1f} % of the slots "
               f"valid): K7 on {on1:.2f} / {on2:.2f} ms, plain route {off1:.2f} / {off2:.2f} ms "
               f"(on, off, off, on) on {record['smi']}")
+        # 19b. K7 on its tensor-core kernel / PR 3's kernel (K7_TC), in turns
+        # on, off, off, on: 6 steps on the host clock, one more profiled (K7's
+        # device ms a step and the step's); the bound counts the valid slots'
+        # bytes of this step (the slots each row attends over)
+        rec["k7_tc_ab"] = {"tc": [], "cuda_core": []}
+        for on in (True, False, False, True):
+            k7.K7_TC = on
+            c0 = counts()
+            wall = step_ms()
+            kvb = int((eng.positions + 1).sum()) * cfg.kv_heads * cfg.hd * (1 if kvq else 2) * 2
+            step_bound = L * (kvb + (int((eng.positions + 1).sum()) * cfg.kv_heads * 8 if kvq
+                                     else 0)) / bw * 1e3
+            prof_ab = profile_engine_step(eng, f"llama-3-8b down engine, {kv} KV, K7 on its "
+                                          f"{'tensor-core' if on else 'CUDA-core'} kernel")
+            c1 = counts()
+            rose = (c1["decode_attention"] - c0["decode_attention"],
+                    c1["decode_attention_tc"] - c0["decode_attention_tc"])
+            if rose != (7 * L, 7 * L if on else 0):
+                fail(f"engine step {kv} KV, K7_TC={on}: K7 launches and launches_tc rose by {rose}")
+            if not on:
+                k7_cc_launches[0] += 7 * L
+            rec["k7_tc_ab"]["tc" if on else "cuda_core"].append({
+                "step_wall_ms": wall, "device_ms": prof_ab["device_ms"], "k7_ms": prof_ab["k7_ms"],
+                "k7_share": prof_ab["k7_share"], "k7_bound_ms": step_bound,
+                "valid_slots": int((eng.positions + 1).sum())})
+        k7.K7_TC = True
+        ab = rec["k7_tc_ab"]
+        print(f"19b engine decode step, {kv} KV: K7 a step (profiler) tensor-core kernel "
+              + " / ".join(f"{d['k7_ms']:.3f}" for d in ab["tc"]) + " ms vs PR 3's "
+              + " / ".join(f"{d['k7_ms']:.3f}" for d in ab["cuda_core"]) + " ms (bound at this "
+              f"step's valid slots {ab['tc'][-1]['k7_bound_ms']:.3f} ms); step device time "
+              + " / ".join(f"{d['device_ms']:.2f}" for d in ab["tc"]) + " vs "
+              + " / ".join(f"{d['device_ms']:.2f}" for d in ab["cuda_core"]) + " ms; wall "
+              + " / ".join(f"{d['step_wall_ms']:.1f}" for d in ab["tc"]) + " vs "
+              + " / ".join(f"{d['step_wall_ms']:.1f}" for d in ab["cuda_core"])
+              + f" ms (turns on, off, off, on) on {record['smi']}")
+        record["engine_step"][kv] = rec
         del eng
         torch.cuda.empty_cache()
 
@@ -3242,7 +3373,8 @@ def main() -> None:
     want = {k: 7 * L * m for k, m in (("ternary_matmul", 2), ("ternary_matmul_dec", 2),
                                       ("ternary_mlp", 1), ("ternary_mlp_dec", 1),
                                       ("ternary_mlp_gelu", 1),
-                                      ("decode_attention", 1), ("decode_attention_hd256", 1))}
+                                      ("decode_attention", 1), ("decode_attention_hd256", 1),
+                                      ("decode_attention_tc", 1))}
     if rose != want:
         fail(f"gemma-2b engine decode steps launched {rose}, want {want}")
     record["engine_step_gemma"] = {"step_wall_ms": wall_ms, **prof}
@@ -4269,12 +4401,17 @@ def main() -> None:
               f"{tot('bound_ms'):5.2f} us on {record['smi']}")
 
     # K7 at the engine's point: B 8, M 2048, llama-3-8b heads and gemma-2b's
-    # (hd 256, one KV head), every slot
-    # valid (so the function needs the whole cache); C entry back to back,
-    # cache rotated over >= 150 MB. Library: scaled_dot_product_attention on
-    # the (B, heads, M, hd) layout it wants, made outside the timed call
-    # (int8: dequantise, then SDPA).
+    # (hd 256, one KV head): its tensor-core kernel (the route, on its plan)
+    # and PR 3's kernel through their C entries, as CUDA events over 50
+    # back-to-back launches and as 50 calls replayed from a CUDA graph, the
+    # cache rotated over >= 150 MB; every slot valid (the function needs the
+    # whole cache), then engine-like lengths (64-576 valid slots a row: the
+    # bound counts the valid slots' bytes, what the function needs). Library:
+    # scaled_dot_product_attention on the (B, heads, M, hd) layout it wants,
+    # made outside the timed call (int8: dequantise, then SDPA).
     attn_lib = k7._kernel_lib()
+    tc_lib = k7._tc_kernel_lib()
+    record["k7_cc_timing"] = []
 
     def k7_timing(H7, Hkv7, hd7, attn_scale, label):
         B7, M7 = 8, ENGINE_M
@@ -4285,61 +4422,90 @@ def main() -> None:
         out7 = torch.empty((B7, 1, H7, hd7), dtype=torch.bfloat16, device=dev)
         k7_detail = []
         for quant in (False, True):
-            kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * (1 if quant else 2) + (
-                2 * B7 * M7 * Hkv7 * 4 if quant else 0)
+            plan = k7.k7_plan(B7, M7, Hkv7, H7 // Hkv7, hd7, quant)
+            eb = 1 if quant else 2
+            kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * eb + (2 * B7 * M7 * Hkv7 * 4 if quant else 0)
             copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
-            sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False, hd=hd7)
-                    for _ in range(copies)]
-            q7 = sets[0][0]
-            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            for lengths in ("all", "engine"):
+                sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False, hd=hd7)
+                        for _ in range(copies)]
+                if lengths == "engine":
+                    for st_ in sets:
+                        st_[3].copy_(torch.arange(M7, device=dev)[None, :] < torch.randint(
+                            64, 577, (B7, 1), generator=g, device=dev))
+                q7 = sets[0][0]
+                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
 
-            def kern(i):
-                _, kk, vv, vd, ks_, vs_ = sets[i % copies]
-                ok(attn_lib.pt2_decode_attention(
-                    q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(),
-                    ptr(ks_), ptr(vs_), part_acc.data_ptr(), part_ml.data_ptr(), out7.data_ptr(),
-                    attn_scale, B7, M7, H7, Hkv7, hd7, chunk, int(quant), dix, stream), "K7")
+                def kern_tc(i):
+                    _, kk, vv, vd, ks_, vs_ = sets[i % copies]
+                    ok(tc_lib.pt2_decode_attention_tc(
+                        q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(), ptr(ks_),
+                        ptr(vs_), out7.data_ptr(), attn_scale, B7, M7, H7, Hkv7, hd7, plan.splits,
+                        int(quant), dix, cur()), "K7 (tensor cores)")
 
-            ms = time_ms(kern, 50)
-            wrapper_ms = time_ms(lambda i: k7.decode_attention(
-                q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 50)
-            plain_ms = time_ms(lambda i: k7.decode_attention_plain(
-                q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 3)
-            qh = q7.transpose(1, 2).contiguous()  # (B, H, 1, hd)
-            lib_sets = []
-            for _, kk, vv, vd, ks_, vs_ in sets:
-                heads_first = lambda t: None if t is None else t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
-                lib_sets.append((heads_first(kk), heads_first(vv), vd[:, None, None, :],
-                                 heads_first(ks_), heads_first(vs_)))
+                def kern_cc(i):
+                    _, kk, vv, vd, ks_, vs_ = sets[i % copies]
+                    ok(attn_lib.pt2_decode_attention(
+                        q7.data_ptr(), kk.data_ptr(), vv.data_ptr(), vd.data_ptr(),
+                        ptr(ks_), ptr(vs_), part_acc.data_ptr(), part_ml.data_ptr(),
+                        out7.data_ptr(), attn_scale, B7, M7, H7, Hkv7, hd7, chunk, int(quant), dix,
+                        cur()), "K7 (PR 3)")
 
-            def library(i):
-                kh, vh, mask, ksh, vsh = lib_sets[i % copies]
+                # in turns: tensor cores, PR 3's, PR 3's, tensor cores
+                ev_ms = {"tc": [], "cc": []}
+                for which in ("tc", "cc", "cc", "tc"):
+                    ev_ms[which].append(time_ms(kern_tc if which == "tc" else kern_cc, 50))
+                gr_ms = {"tc": graph_ms(kern_tc), "cc": graph_ms(kern_cc)}
+                wrapper_ms = time_ms(lambda i: k7.decode_attention(
+                    q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 50)
+                plain_ms = time_ms(lambda i: k7.decode_attention_plain(
+                    q7, *sets[i % copies][1:4], attn_scale, *sets[i % copies][4:]), 3)
+                qh = q7.transpose(1, 2).contiguous()  # (B, H, 1, hd)
+                lib_sets = []
+                for _, kk, vv, vd, ks_, vs_ in sets:
+                    heads_first = lambda t: None if t is None else t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+                    lib_sets.append((heads_first(kk), heads_first(vv), vd[:, None, None, :],
+                                     heads_first(ks_), heads_first(vs_)))
+
+                def library(i):
+                    kh, vh, mask, ksh, vsh = lib_sets[i % copies]
+                    if quant:
+                        kh, vh = (kh.float() * ksh).bfloat16(), (vh.float() * vsh).bfloat16()
+                    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                          scale=attn_scale, enable_gqa=True)
+
+                lib_ms = time_ms(library, 20)
+                # the yardstick computes the same function: within K7's tolerance of
+                # the plain version on the cache it attends over (int8: the cache
+                # dequantised to bf16, as the yardstick dequantises it)
+                _, kk, vv, vd, ks_, vs_ = sets[0]
                 if quant:
-                    kh, vh = (kh.float() * ksh).bfloat16(), (vh.float() * vsh).bfloat16()
-                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=attn_scale,
-                                                      enable_gqa=True)
-
-            lib_ms = time_ms(library, 20)
-            # the yardstick computes the same function: within K7's tolerance of
-            # the plain version on the cache it attends over (int8: the cache
-            # dequantised to bf16, as the yardstick dequantises it)
-            _, kk, vv, vd, ks_, vs_ = sets[0]
-            if quant:
-                kk, vv = (kk.float() * ks_).bfloat16(), (vv.float() * vs_).bfloat16()
-            want = k7.decode_attention_plain(q7, kk, vv, vd, attn_scale).float()
-            got = library(0).transpose(1, 2).float()
-            err = (got - want).abs().max().item()
-            if not err <= ATTN_TOL * want.abs().max().item():
-                fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant}): max|err| "
-                     f"{err:.3e}, max|ref| {want.abs().max().item():.3e}")
-            nbytes = kv_bytes + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
-            d = row(label, "int8" if quant else "bf16", B7, ms, plain_ms, lib_ms, nbytes,
-                    4.0 * B7 * H7 * M7 * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7)
-            d["wrapper_ms"] = wrapper_ms
-            print(f"{label} {'int8' if quant else 'bf16'}: whole wrapper (checks, scratch) "
-                  f"{wrapper_ms * 1e3:.1f} us per call")
-            k7_detail.append(d)
-            del sets, lib_sets
+                    kk, vv = (kk.float() * ks_).bfloat16(), (vv.float() * vs_).bfloat16()
+                want = k7.decode_attention_plain(q7, kk, vv, vd, attn_scale).float()
+                got = library(0).transpose(1, 2).float()
+                err = (got - want).abs().max().item()
+                if not err <= ATTN_TOL * want.abs().max().item():
+                    fail(f"SDPA yardstick disagrees with K7's plain version (int8={quant}): "
+                         f"max|err| {err:.3e}, max|ref| {want.abs().max().item():.3e}")
+                # what the function needs: the valid slots' K/V (and scales) once,
+                # q, kv_valid and the output; its operations on those slots
+                slots = sum(int(st_[3].sum()) for st_ in sets) / copies  # prefixes: a row's end
+                need = slots * Hkv7 * (2 * hd7 * eb + (8 if quant else 0))
+                nbytes = need + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
+                shape = ("int8" if quant else "bf16") + ("" if lengths == "all" else " eng")
+                d = row(label, shape, B7, gr_ms["tc"], plain_ms, lib_ms, nbytes,
+                        4.0 * H7 * slots * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7, splits=plan.splits,
+                        lengths=lengths, valid_slots=slots)
+                d.update(events_ms=ev_ms, graph_ms=gr_ms, wrapper_ms=wrapper_ms)
+                record["k7_cc_timing"].append(dict(d, kernel=label + " PR 3", ms=gr_ms["cc"]))
+                print(f"{label} {shape}: tensor-core kernel (plan {plan.splits} splits) "
+                      f"{gr_ms['tc'] * 1e3:.1f} us from a CUDA graph, "
+                      + " / ".join(f"{x * 1e3:.1f}" for x in ev_ms["tc"]) + " us of CUDA events | "
+                      f"PR 3's kernel {gr_ms['cc'] * 1e3:.1f} us, "
+                      + " / ".join(f"{x * 1e3:.1f}" for x in ev_ms["cc"]) + " us | whole wrapper "
+                      f"{wrapper_ms * 1e3:.1f} us | {slots:.0f} valid slots of {B7 * M7}")
+                k7_detail.append(d)
+                del sets, lib_sets
         return k7_detail
 
     record["k7_timing"] = k7_timing(32, 8, 128, attn_scale, "K7")
@@ -4403,7 +4569,7 @@ def main() -> None:
         entry("onehot_gather", "pt2tpu_torch/csrc/onehot_gather.cu",
               "pt2tpu/ops/kernels/pallas_gather.py:239",
               [d for d in k4_detail if d["B"] == 512], errs["onehot_gather"], mult=3),
-        entry("decode_attention", "pt2tpu_torch/csrc/decode_attention.cu",
+        entry("decode_attention", "pt2tpu_torch/csrc/decode_attention_tc.cu",
               "pt2tpu/ops/kernels/pallas_attention.py:249",
               [d for d in record["k7_timing"] if d["shape"] == "bf16"], errs["decode_attention"]),
         entry("onehot_matmul", "pt2tpu_torch/csrc/onehot_matmul.cu",
@@ -4421,11 +4587,19 @@ def main() -> None:
         entry("ternary_mlp_gelu", "pt2tpu_torch/csrc/ternary_mlp.cu",
               "pt2tpu/ops/kernels/pallas_ternary.py:1106", b1(k2g_detail),
               errs["ternary_mlp_gelu"]),
-        entry("decode_attention_hd256", "pt2tpu_torch/csrc/decode_attention.cu",
+        entry("decode_attention_hd256", "pt2tpu_torch/csrc/decode_attention_tc.cu",
               "pt2tpu/ops/kernels/pallas_attention.py:249",
               [d for d in record["k7_gemma_timing"] if d["shape"] == "bf16"],
               errs["decode_attention_hd256"]),
     ]
+    # PR 3's K7 (K7_TC off) at llama-3-8b's heads, B = 8, M = 2048, bf16
+    # cache; its launches: 19b's "off" turns, counted exactly
+    main_launches["decode_attention_cc"] = k7_cc_launches[0]
+    kernels.append(entry("decode_attention_cc", "pt2tpu_torch/csrc/decode_attention.cu",
+                         "pt2tpu/ops/kernels/pallas_attention.py:249",
+                         [d for d in record["k7_cc_timing"]
+                          if d["kernel"] == "K7 PR 3" and d["shape"] == "bf16"],
+                         errs["decode_attention_cc"]))
     # K3's tensor-core path at B = 16 (the engine's smallest admission
     # bucket), bf16, qkv + o; its launches: every engine run counted exactly
     main_launches["ternary_matmul_igathered_tc"] = run_totals["ternary_matmul_igathered_tc"]

@@ -24,8 +24,11 @@ x @ G in f32 (bf16: the result's own rounding). K2 rounds mid =
 act(gate) * up (silu, gelu or relu) to bf16 as its plain version does, but
 gate and up differ in their last f32 bits between the two, so a few mid
 values round to the neighbouring bf16 (2^-8 relative) and K2 is held to 1e-3. K7 rounds the
-unnormalised probabilities to bf16 relative to each chunk's maximum, its
-plain version relative to the row's maximum: 1e-2 of max|out|."""
+unnormalised probabilities to bf16 relative to a running maximum (its
+tensor-core kernel's of each tile, PR 3's kernel's of each chunk), its
+plain version relative to the row's maximum: 1e-2 of max|out|. The
+tensor-core kernel follows decode_attention_split_plain's schedule, so it
+is held to it within one bf16 step of each value plus 1e-3 of max|out|."""
 
 import contextlib
 import dataclasses
@@ -1647,6 +1650,180 @@ def test_gemma_engine_routes_through_k2_gelu_and_k7_hd256(cuda_device, kv_quant,
     assert (mlp.launches - before[0], attn.launches - before[1]) == (L * (st + len(lens)), L * st)
     assert len(calls["mlp"]) == L * (st + len(lens)) and len(calls["attn"]) == L * st
     assert max(calls["mlp"]) <= MLP_TOL and max(calls["attn"]) <= ATTN_TOL
+
+
+# ---- K7 on its tensor-core kernel (csrc/decode_attention_tc.cu), the
+# default route, and PR 3's CUDA-core kernel behind K7_TC
+K7_MASKS = ["ragged", "prefix", "holes", "last_only", "empty_row"]
+# every registry head layout K7 serves: llama-2-7b, llama-2-13b, llama-3-8b, gemma-2b
+K7_HEADS = [(32, 32, 128), (40, 40, 128), (32, 8, 128), (8, 1, 256)]
+
+
+def _attn_masked(g, dev, B, M, H, Hkv, hd, quant, mask):
+    q, k, v, _, ks, vs = _attn_inputs(g, dev, B, M, H, Hkv, hd, quant)
+    pos = torch.arange(M, device=dev)[None, :]
+    if mask == "ragged":
+        valid = pos < torch.randint(1, M + 1, (B, 1), generator=g, device=dev)
+    elif mask == "prefix":
+        valid = pos <= (M // 3 + 7 * torch.arange(B, device=dev))[:, None]
+    elif mask == "holes":
+        valid = (torch.rand((B, M), generator=g, device=dev) < 0.4) & (
+            pos < torch.randint(M // 2, M + 1, (B, 1), generator=g, device=dev))
+    elif mask == "last_only":
+        valid = (pos == M - 1).expand(B, M).contiguous()
+    else:  # "empty_row": row 0 has no valid slot
+        valid = pos < torch.randint(1, M + 1, (B, 1), generator=g, device=dev)
+        valid[0] = False
+    return q, k, v, valid, ks, vs
+
+
+def _within_a_bf16_step(got, want, frac=1e-3):
+    """max over elements of (|got - want| less one bf16 step of the larger
+    of the two), as a fraction of max|want|: outputs that round the same
+    f32 sum to neighbouring bf16 values differ by one step (up to 2^-7 of
+    the value), which no f32 summation order avoids."""
+    got, want = got.float(), want.float()
+    step = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+    return ((got - want).abs() - step).max().item() / want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k7_quantize_query_same_bits_on_the_card(cuda_device):
+    """K7's int8 query prep gives the CPU's (and JAX's) bytes on the card:
+    q_scale is max|q| / 127 correctly rounded, not a product with 1 / 127
+    (which PyTorch uses for a scalar divisor on CUDA, an ulp off for some
+    heads, with a code off by one where a quotient sits at a half)."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    q = torch.randn((64, 1, 40, 128), generator=g, device=cuda_device).bfloat16()
+    q8, qs = tka.quantize_query(q)
+    q8c, qsc = tka.quantize_query(q.cpu())
+    assert torch.equal(qs.cpu(), qsc) and torch.equal(q8.cpu(), q8c)
+    naive = (q[:, 0].float().abs().amax(dim=-1) / 127.0).clamp_min(1e-20)
+    assert not torch.equal(naive.cpu(), qsc)  # what the scalar division gives on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("mask", K7_MASKS)
+@pytest.mark.parametrize("H,Hkv,hd", K7_HEADS)
+def test_k7_tc_matches_split_plain_and_plain(cuda_device, H, Hkv, hd, mask, quant):
+    """The kernel follows its schedule: within one bf16 step of each value
+    plus 1e-3 of max|ref| of decode_attention_split_plain on the same plan,
+    and within K7's 1e-2 of decode_attention_plain; a row with no valid slot
+    gives 0."""
+    B, M = 3, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(H + hd + B)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, mask)
+    plan = tka.k7_plan(B, M, Hkv, H // Hkv, hd, quant)
+    before = tka.decode_attention.launches, tka.decode_attention.launches_tc
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert (tka.decode_attention.launches, tka.decode_attention.launches_tc) == (
+        before[0] + 1, before[1] + 1)
+    split = tka.decode_attention_split_plain(q, k, v, valid, hd ** -0.5, ks, vs, tile=plan.tile,
+                                             splits=plan.splits)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert got.shape == (B, 1, H, hd) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert _within_a_bf16_step(got, split) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= ATTN_TOL
+    if mask == "empty_row":
+        assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("H,Hkv,hd", [(32, 8, 128), (8, 1, 256)])
+def test_k7_tc_same_bits_run_to_run_and_from_a_cuda_graph(cuda_device, H, Hkv, hd, quant):
+    """No atomics in the sums and nothing read back on the host: two runs
+    give the same bits, and a captured call replays them, also after the
+    lengths change in place (the plan depends on the shapes only)."""
+    B, M = 8, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(31 + hd)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, "ragged")
+    one = tka.decode_attention(q, k, v, valid, 0.09, ks, vs)
+    two = tka.decode_attention(q, k, v, valid, 0.09, ks, vs)
+    assert torch.equal(one, two)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tka.decode_attention(q, k, v, valid, 0.09, ks, vs)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = tka.decode_attention.launches_tc
+    with torch.cuda.graph(graph):
+        captured = tka.decode_attention(q, k, v, valid, 0.09, ks, vs)
+    assert tka.decode_attention.launches_tc == before + 1  # the capture's one launch
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, one)
+    valid.copy_(torch.arange(M, device=cuda_device)[None, :] < torch.randint(
+        1, M + 1, (B, 1), generator=g, device=cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, tka.decode_attention(q, k, v, valid, 0.09, ks, vs))
+
+
+@pytest.mark.cuda
+def test_k7_tc_counts_and_the_flag(cuda_device, monkeypatch):
+    """launches_tc counts the tensor-core kernel's launches exactly;
+    K7_TC off sends the calls to PR 3's kernel (launches, not launches_tc);
+    launches_hd256 counts either kernel at hd 256."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    a128 = _attn_inputs(g, cuda_device, 2, 256, 8, 2, 128, False)
+    a256 = _attn_inputs(g, cuda_device, 2, 256, 8, 1, 256, True)
+    d = tka.decode_attention
+    c0 = (d.launches, d.launches_tc, d.launches_hd256)
+    for _ in range(3):
+        tka.decode_attention(*a128[:4], 0.1)
+    tka.decode_attention(*a256[:4], 0.0625, *a256[4:])
+    assert (d.launches, d.launches_tc, d.launches_hd256) == (c0[0] + 4, c0[1] + 4, c0[2] + 1)
+    monkeypatch.setattr(tka, "K7_TC", False)
+    tka.decode_attention(*a128[:4], 0.1)
+    tka.decode_attention(*a256[:4], 0.0625, *a256[4:])
+    assert (d.launches, d.launches_tc, d.launches_hd256) == (c0[0] + 6, c0[1] + 4, c0[2] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,M,H,Hkv,hd", [(4, 2048, 32, 8, 128), (3, 384, 8, 1, 128),
+                                          (8, 2048, 8, 1, 256), (2, 200, 16, 1, 128)])
+def test_k7_cuda_core_kernel_behind_the_flag(cuda_device, monkeypatch, B, M, H, Hkv, hd, quant):
+    """PR 3's kernel, kept for the A/Bs' off turns, still agrees with the
+    plain version at K7's tolerance."""
+    monkeypatch.setattr(tka, "K7_TC", False)
+    g = torch.Generator(device=cuda_device).manual_seed(B * M + hd)
+    q, k, v, valid, ks, vs = _attn_inputs(g, cuda_device, B, M, H, Hkv, hd, quant)
+    before = tka.decode_attention.launches_tc
+    got = tka.decode_attention(q, k, v, valid, 0.0883883, ks, vs)
+    assert tka.decode_attention.launches_tc == before
+    want = tka.decode_attention_plain(q, k, v, valid, 0.0883883, ks, vs)
+    assert _rel(got.float(), want.float()) <= ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_k7_tc_build_or_launch_failure_raises(cuda_device, monkeypatch):
+    """No fallback to PR 3's kernel or to the plain version: a build that
+    fails and a launch the card refuses both raise, and count nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    a = _attn_inputs(g, cuda_device, 2, 256, 8, 2, 128, False)
+    d = tka.decode_attention
+    before = (d.launches, d.launches_tc)
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(tka, "_tc_lib", None)
+    monkeypatch.setattr(tka._build, "load", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tka.decode_attention(*a[:4], 0.1)
+    monkeypatch.undo()
+    real = tka.k7_plan
+    monkeypatch.setattr(tka, "k7_plan", lambda *s: real(*s)._replace(splits=17))  # no such cluster
+    with pytest.raises(RuntimeError, match="K7 launch failed"):
+        tka.decode_attention(*a[:4], 0.1)
+    assert (d.launches, d.launches_tc) == before
 
 
 # ---- K5 (the packed one-hot gather) and K6 (K5 as K1's prologue)
