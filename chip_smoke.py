@@ -104,7 +104,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      its bf16 decode launches (the CUDA-core kernel and the tensor-core
      kernels get none of them; W2A8 decode rows stay on the CUDA cores,
      and the P2 W2A8 answers with them on the decode kernel are measured
-     beside the held default ones); A/Bs, in turns (on, off, off, on; "on"
+     beside the held default ones); A/Bs, in turns (on, off; "on"
      sets K1_DEC_A8, "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-2-7b
      decode (bf16 and W2A8: decode tok/s, step wall, profiled device time;
      11b, in phase 4) and the "down" engine at 16 of its 32 layers, as 10c's
@@ -172,7 +172,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      64), exact counts (per admission K3 2 x L on this path + K2 L; per
      decode step K3 2 x L on the decode path + K2 L + K7 L; no CUDA-core K3,
      no K1), every answer held to TOKEN_TOL, then an A/B over its first 8
-     requests in turns on, off, off, on ("off" rebinds K1_TC_MIN_ROWS to 65:
+     requests in two turns, on then off ("off" rebinds K1_TC_MIN_ROWS to 65:
      the admissions on the CUDA-core K3) with t_admit_s, tok/s, decode
      tok/s and the profiled device time of one 64-row admission (14b, after
      run E); and times the C entry and its
@@ -215,7 +215,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      run, so the CUDA-core K2 launches in none of them but the "off" turns;
      in turns on, off, off, on ("off" rebinds K2_DEC_MAX_ROWS to 0: the
      CUDA-core K2) profiles one lockstep llama-3-8b "ssr" decode step at B 4
-     beside 15 decode steps' tok/s (after 13b), and, in 8 turns, one engine
+     beside 15 decode steps' tok/s (after 13b), and, in 4 turns, one engine
      decode step beside a short engine run's decode tok/s for llama-3-8b
      "down" (after 11c) and gemma-2b (in 12c), with K2's device time and
      share of each step (16b); and times the C entry at both MLPs, 1/2/4/8
@@ -290,6 +290,28 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      2048, every slot valid and at engine-like lengths (64-576 valid slots,
      the bound counting their bytes), beside the plain version, SDPA and the
      bound (19c, in phase 6).
+ 20. (K4's rows path, csrc/onehot_gather_rows.cu, from K4_ROWS_MIN_ROWS
+     (1) rows: x's rows staged in shared memory by bulk copies, perm held in
+     registers, 16-byte stores) holds the rows path bit for bit against its
+     plain version and K4's first kernel at rows 2/5/16/65/128/512/1000, and
+     K5 from 16, m 4096 / 8192 / 200 / 300, bf16 and f32, -0.0 and NaN payloads kept (against the
+     plain version and the first kernel), on a perm[li] view and replayed
+     from a CUDA graph capture, launches and launches_rows exact (20a, in
+     phase 2c); holds launches_rows exact in every "ssr" run that gathers
+     with K4 (phase 5's prefills, 13b, 16b); in turns on, off, off, on ("off"
+     rebinds K4_ROWS_MIN_ROWS to 1 << 30: K4's first kernel) profiles one
+     512-row lockstep prefill of the 32-layer llama-3-8b "ssr" model under
+     the default flags: the same logits bit for bit every turn, device time,
+     K4's part and share, the wall; and once more greedy_generate with K4
+     off, its tokens the main run's (20b, after 18b); and times both
+     kernels' C entries at 4096 -> 4096, rows 1/16/64/128/256/512, as calls
+     replayed from a CUDA graph in turns (rows, first, first, rows) and as
+     CUDA events, beside torch.index_select (graph and events), the plain
+     version and the bound, with each kernel's device time under
+     torch.profiler (20c, in phase 6, in place of K4's old timing).
+     For the run's time budget, settled A/Bs of earlier slices take fewer
+     turns: 11b, 11c's engine runs and 14b's request A/B two (on, off),
+     16b's engine A/Bs four.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -443,6 +465,16 @@ def k5_parts(rows):
     return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K5_PARTS.items()}
 
 
+# the kernels of K4, by the part of the profile they stand for: its rows
+# path and its first kernel
+K4_PARTS = {"rows": "gather_rows::gather_rows_kernel", "cuda_core": "onehot_gather_kernel"}
+
+
+def k4_parts(rows):
+    """Device ms of each of K4_PARTS in a profile's kernel rows."""
+    return {k: sum(r[0] for r in rows if pat in r[2]) for k, pat in K4_PARTS.items()}
+
+
 def profile_decode_step(cfg, params, prompts, Lp, new, dev, label, impl="auto"):
     """Where one decode step's time goes (bf16, or W2A8 with impl "a8"): its
     wall time (unprofiled, host clock around a synchronised step) against the
@@ -590,7 +622,7 @@ def main() -> None:
         k1.ternary_mlp.launches_gelu = k7.decode_attention.launches_hd256 = 0
         k7.decode_attention.launches_tc = 0
         k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
-        k4.onehot_matmul.launches_rows = 0
+        k4.onehot_matmul.launches_rows = k4.onehot_gather.launches_rows = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -605,8 +637,9 @@ def main() -> None:
         "decode_attention") as "decode_attention_tc"; K6's decode and
         tensor-core launches (also
         in "ternary_matmul_gathered") apart as "ternary_matmul_gathered_dec"
-        and "ternary_matmul_gathered_tc"; K5's rows-path launches (also in
-        "onehot_matmul") apart as "onehot_matmul_rows". K2's decode path's
+        and "ternary_matmul_gathered_tc"; K5's and K4's rows-path launches
+        (also in "onehot_matmul" and "onehot_gather") apart as
+        "onehot_matmul_rows" and "onehot_gather_rows". K2's decode path's
         down launch is K2's, not one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
@@ -622,6 +655,7 @@ def main() -> None:
         c["ternary_matmul_gathered_dec"] = k1.ternary_matmul_gathered.launches_dec
         c["ternary_matmul_gathered_tc"] = k1.ternary_matmul_gathered.launches_tc
         c["onehot_matmul_rows"] = k4.onehot_matmul.launches_rows
+        c["onehot_gather_rows"] = k4.onehot_gather.launches_rows
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
@@ -640,7 +674,8 @@ def main() -> None:
                "onehot_matmul", "ternary_matmul_gathered", "ternary_matmul_tc",
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
                "ternary_mlp_tc", "ternary_mlp_dec", "ternary_matmul_gathered_dec",
-               "ternary_matmul_gathered_tc", "onehot_matmul_rows", "decode_attention_tc"]
+               "ternary_matmul_gathered_tc", "onehot_matmul_rows", "decode_attention_tc",
+               "onehot_gather_rows"]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -761,6 +796,18 @@ def main() -> None:
             yield
         finally:
             k4.K5_ROWS_MIN_ROWS = saved
+
+    @contextlib.contextmanager
+    def k4_rows(on):
+        """K4's rows from K4_ROWS_MIN_ROWS on its rows path as routed (on), or
+        on K4's first kernel (off: K4_ROWS_MIN_ROWS rebound to 1 << 30)."""
+        saved = k4.K4_ROWS_MIN_ROWS
+        if not on:
+            k4.K4_ROWS_MIN_ROWS = 1 << 30
+        try:
+            yield
+        finally:
+            k4.K4_ROWS_MIN_ROWS = saved
 
     def k2_dec_ab_summary(label, res):
         """16b's turns ({"dec": [...], "cuda_core": [...]}, each a profiled
@@ -1874,7 +1921,7 @@ def main() -> None:
             any_err = max(any_err, err)
     got = counts()
     if got != dict.fromkeys(got, 0) | {"onehot_matmul": calls, "onehot_matmul_rows": calls,
-                                       "onehot_gather": k4_calls}:
+                                       "onehot_gather": k4_calls, "onehot_gather_rows": k4_calls}:
         fail(f"K5's rows-path checks: launches {got}, want {calls} of K5, all on its rows path")
     del gp, x, lmap
     torch.cuda.empty_cache()
@@ -1884,6 +1931,79 @@ def main() -> None:
           f"{any_err:.2e} of x @ G; K6 vs plain: "
           f"{nchecks['ternary_matmul_gathered']} checks within {KERNEL_TOL} x max|ref| (max|err| "
           f"{errs['ternary_matmul_gathered']:.3e})")
+    # 20a. K4's rows path (rows >= K4_ROWS_MIN_ROWS: x's rows staged in
+    # shared memory by bulk copies, perm in registers, 16-byte stores; its
+    # own generator, so that the later phases draw what they drew before):
+    # bit for bit against its plain version, K4's first kernel (the
+    # threshold rebound) at rows 2 / 5 / 16 / 65 / 128 / 512 / 1000 and K5
+    # (its rows path) from 16, m 4096 / 8192 / 200 / 300 (the last two with
+    # interleaved pad lanes), bf16 and f32, -0.0 in half of row 0; again
+    # with NaNs of four payloads in row 1 against the plain version and the
+    # first kernel (K5 multiplies, so it is not asked there); on perm[li]
+    # views of a stack; a CUDA graph capture replayed on new x; launches and
+    # launches_rows exact
+    g20 = torch.Generator(device=dev).manual_seed(20)
+    errs["onehot_gather_rows"], nchecks["onehot_gather_rows"] = 0.0, 0
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)  # noqa: E731
+
+    def held_bits(label, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not torch.equal(bits(got), bits(want)):
+            fail(f"{label}: not bit-exact")
+        nchecks["onehot_gather_rows"] += 1
+
+    zero_counts()
+    calls = first_calls = k5_calls = 0
+    for m, K in ((4096, 4096), (8192, 8192), (200, 256), (300, 512)):
+        perm = rand_perm(m, K, m < K, gen=g20)
+        gp = make_packed_gather(perm, m).packed
+        for B in (2, 5, 16, 65, 128, 512, 1000):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((B, m), generator=g20, device=dev).to(dt)
+                x[0, : m // 2] = -0.0
+                xn = x.clone()
+                for i, pat in enumerate([0x7FC1, -0x005B, 0x7F81, -0x007F] if dt == torch.bfloat16
+                                        else [0x7FC00001, -0x007FFEDD, 0x7F800123, -1]):
+                    bits(xn)[1, i::4] = pat
+                label = f"K4 rows m={m} K={K} rows={B} {dt}"
+                for xk, tag in ((x, ""), (xn, ", NaN payloads")):
+                    got = k4.onehot_gather(xk, perm)
+                    calls += 1
+                    held_bits(label + tag, got, k4.onehot_gather_plain(xk, perm))
+                    with k4_rows(False):
+                        held_bits(f"{label}{tag} vs K4's first kernel", got,
+                                  k4.onehot_gather(xk, perm))
+                    first_calls += 1
+                if B >= k4.K5_ROWS_MIN_ROWS:  # K5's first kernel sums: -0.0 comes out +0.0
+                    held_bits(f"{label} vs K5", k4.onehot_gather(x, perm),
+                              k4.onehot_matmul(x, gp))
+                    calls, k5_calls = calls + 1, k5_calls + 1
+    perms = torch.stack([rand_perm(4096, 4096, gen=g20) for _ in range(2)])
+    x = torch.randn((512, 4096), generator=g20, device=dev).bfloat16()
+    for li in (0, 1):
+        held_bits(f"K4 rows perm[{li}]", k4.onehot_gather(x, perms[li]),
+                  k4.onehot_gather_plain(x, perms[li]))
+        calls += 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = k4.onehot_gather(x, perms[1])
+    calls += 1  # counted once, at the capture
+    for _ in range(2):
+        x.copy_(torch.randn((512, 4096), generator=g20, device=dev).bfloat16())
+        graph.replay()
+        held_bits("K4 rows replayed from a CUDA graph", gout, k4.onehot_gather_plain(x, perms[1]))
+    got = counts()
+    if got != dict.fromkeys(got, 0) | {"onehot_gather": calls + first_calls,
+                                       "onehot_gather_rows": calls, "onehot_matmul": k5_calls,
+                                       "onehot_matmul_rows": k5_calls}:
+        fail(f"K4's rows-path checks: launches {got}, want {calls} on its rows path, "
+             f"{first_calls} on its first kernel, {k5_calls} of K5")
+    del graph, gout, x, xn, perms, gp
+    torch.cuda.empty_cache()
+    print(f"K4's rows path: {nchecks['onehot_gather_rows']} checks bit-exact (plain version, "
+          f"K4's first kernel, K5; -0.0 and NaN payloads; perm[li]; a CUDA graph replay); "
+          f"launches exact ({calls} on the rows path, {first_calls} on the first kernel)")
 
     stamp("3")
     # ---- 3. 2-layer models at full width through the kernels vs their reference
@@ -2304,15 +2424,16 @@ def main() -> None:
 
     stamp("11b")
     # ---- 11b. the lockstep llama-2-7b decode with K1's decode rows on the
-    # decode kernel and on the CUDA cores (K1_DEC_MAX_ROWS 0), in turns on,
-    # off, off, on, bf16 and W2A8: greedy_generate with exact counts, the
+    # decode kernel and on the CUDA cores (K1_DEC_MAX_ROWS 0), in two turns,
+    # on then off (a settled A/B, cut from four turns to keep the run
+    # near its time budget), bf16 and W2A8: greedy_generate with exact counts, the
     # decode's share of its wall (less a separate prefill), then one decode
     # step's wall and its profiled device time
     DEC_AB = (True, False, False, True)
     dec_ab = {}
     for impl in ("auto", "a8"):
         res = {"dec": [], "cuda_core": []}
-        for on in DEC_AB:
+        for on in DEC_AB[:2]:
             with k1_dec(on):
                 zero_counts()
                 torch.cuda.synchronize()
@@ -2354,7 +2475,8 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
-    # 5. llama-3-8b, full-SSR layout: prefill K4 x3 + K1 x4 per layer; each
+    # 5. llama-3-8b, full-SSR layout: prefill K4 x3 (its rows path: 512
+    # rows) + K1 x4 per layer; each
     # decode step K3 x2 (qkv, o) + K2 per layer ("auto"), or K3 x3 (qkv, o,
     # gateup) + K1 (down) per layer (W2A8: the fused MLP takes "auto" only).
     # bf16 decode rows run K3's decode path, W2A8 ones its CUDA-core kernel
@@ -2365,14 +2487,15 @@ def main() -> None:
         "auto": dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
                      ternary_matmul_igathered=2 * L * steps,
                      ternary_matmul_igathered_dec=2 * L * steps, ternary_mlp=L * steps,
-                     ternary_mlp_dec=L * steps, onehot_gather=3 * L),
+                     ternary_mlp_dec=L * steps, onehot_gather=3 * L, onehot_gather_rows=3 * L),
         "a8": dict(none, ternary_matmul=4 * L + L * steps, ternary_matmul_tc_a8=4 * L,
-                   ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L),
+                   ternary_matmul_igathered=3 * L * steps, onehot_gather=3 * L,
+                   onehot_gather_rows=3 * L),
     }
     runs = drive(cfg, params, "llama-3-8b ssr", ("auto", "a8"), want_ssr.get, prompts)
     record["main_path_8b_ssr"] = runs
-    for k in ("ternary_matmul_igathered", "onehot_gather"):
-        main_launches[k] = sum(r["launches"][k] for r in runs.values())
+    main_launches["ternary_matmul_igathered"] = sum(
+        r["launches"]["ternary_matmul_igathered"] for r in runs.values())
     # the CUDA-core K3's own: its decode and tensor-core paths' launches are
     # counted apart
     main_launches["ternary_matmul_igathered"] -= sum(
@@ -2441,7 +2564,8 @@ def main() -> None:
         want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L,
                     ternary_matmul_igathered=2 * L * (new16 - 1),
                     ternary_matmul_igathered_dec=2 * L * (new16 - 1), ternary_mlp=L * (new16 - 1),
-                    ternary_mlp_dec=L * (new16 - 1) if on else 0, onehot_gather=3 * L)
+                    ternary_mlp_dec=L * (new16 - 1) if on else 0, onehot_gather=3 * L,
+                    onehot_gather_rows=3 * L)
         with k2_dec(on):
             zero_counts()
             greedy_generate(cfg, params, prompts, new16)
@@ -2640,6 +2764,75 @@ def main() -> None:
               f"{record['smi']}")
     record["lockstep_ssr_p1_prefill_k5_ab"] = k5_ab
 
+    stamp("20b")
+    # ---- 20b. the same 512-row lockstep prefill under the default flags
+    # (phase 5's: K4's three gathers a layer, then K1 on the tensor cores;
+    # warm), K4's gathers on its rows path (on) or on K4's first kernel (off:
+    # k4_rows(False)), in turns on, off, off, on: one with exact counts, its
+    # wall (host clock, synchronised) and its logits, the same bits in every
+    # turn, then one under torch.profiler (device activity only): device
+    # time, K4's part and its share. Then greedy_generate with K4 off: the
+    # main run's tokens
+    k4_ab = {"on": [], "off": []}
+    ref_logits = None
+    for on in DEC_AB:
+        want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_gather=3 * L,
+                    onehot_gather_rows=3 * L if on else 0)
+        with k4_rows(on), torch.inference_mode():
+            cache = init_cache(cfg, B, Lp + new, device=dev)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            logits, _ = forward_cached(cfg, params, prompts, cache, 0, "auto")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            got = counts()
+            if got != want:
+                fail(f"lockstep ssr prefill K4 A/B on={on}: launches {got}, want {want}")
+            tally(got)
+            if ref_logits is None:
+                ref_logits = logits.clone()
+            elif not torch.equal(logits, ref_logits):
+                fail(f"lockstep ssr prefill K4 A/B on={on}: logits differ from the first turn's")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                forward_cached(cfg, params, prompts, cache, 0, "auto")
+                torch.cuda.synchronize()
+            del cache, logits
+        krows = kernel_rows(prof)
+        device_ms = sum(r[0] for r in krows)
+        parts = k4_parts(krows)
+        k4_ms = parts["rows"] if on else parts["cuda_core"]
+        k4_ab["on" if on else "off"].append({
+            "wall_ms": wall_ms, "device_ms": device_ms, "k4_parts": parts, "k4_ms": k4_ms,
+            "k4_share": k4_ms / device_ms if device_ms else 0.0,
+            "top": [{"ms": ms, "count": c, "name": k[:90]} for ms, c, k in krows[:6]]})
+    first_tokens = ref_logits.argmax(-1).tolist()
+    if first_tokens != [t[0] for t in default_tokens["auto"]]:
+        fail(f"lockstep ssr prefill: first tokens {first_tokens} differ from the main run's")
+    with k4_rows(False):
+        zero_counts()
+        toks = greedy_generate(cfg, params, prompts, new)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != dict(want_ssr["auto"], onehot_gather_rows=0):
+            fail(f"lockstep ssr with K4's first kernel: launches {got}")
+        tally(got)
+    if toks.tolist() != default_tokens["auto"]:
+        fail("lockstep ssr with K4's first kernel: tokens differ from the main run's "
+             "(K4's two kernels copy the same bits)")
+    for k, rows_ in k4_ab.items():
+        each = lambda key, scale=1.0, rows_=rows_: " / ".join(  # noqa: E731
+            f"{scale * r[key]:.3f}" for r in rows_)
+        print(f"K4 prefill A/B, lockstep llama-3-8b ssr, default flags, 512 rows, K4 on "
+              f"{'its rows path' if k == 'on' else 'its first kernel'} (in turns on, off, off, "
+              f"on): prefill device time {each('device_ms')} ms, K4 {each('k4_ms')} ms "
+              f"({each('k4_share', 100.0)} %), prefill wall {each('wall_ms')} ms on "
+              f"{record['smi']}")
+    print("K4 prefill A/B: the same logits bit for bit in every turn; greedy_generate with K4's "
+          "first kernel gives the main run's tokens")
+    record["lockstep_ssr_prefill_k4_ab"] = k4_ab
+    del ref_logits
+
     # run E: the ServeEngine over the same 32-layer "ssr" model under the P2
     # flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one of
     # exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV, quantum 1
@@ -2754,7 +2947,7 @@ def main() -> None:
           f"{d_main['launches']}; every pick within {d_main['worst_pick_gap']:.2e} of the "
           f"teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
     d_ab = {"tc": [], "cuda_core": []}
-    for on in DEC_AB:
+    for on in DEC_AB[:2]:  # two turns (a settled A/B; the run's time budget)
         res, outs_ = run_default(f"engine ssr default A/B tc={on}", d_prompts[:8], d_news[:8], on)
         res["streams_equal_to_main_run"] = sum(a == b for a, b in zip(outs_, d_outs))
         if not on and not d_ab["cuda_core"] and res["streams_equal_to_main_run"] < 8:
@@ -2890,8 +3083,9 @@ def main() -> None:
         return res, [r.out for r in reqs]
 
     def engine_k2_ab(name, prompts_):
-        """16b for an engine (bf16 KV, quantum 1): in turns on, off, off, on,
-        on, off, off, on (k2_dec), a short run of 8 requests of ``prompts_`` with 32 new
+        """16b for an engine (bf16 KV, quantum 1): in turns on, off, off, on
+        (k2_dec; four turns, cut from eight for the run's time budget),
+        a short run of 8 requests of ``prompts_`` with 32 new
         tokens each (counts exact) for its decode tok/s, then 6 decode steps
         of a second engine with its 8 slots busy, timed on the host clock,
         and one more under torch.profiler (launches_dec exact)."""
@@ -2901,7 +3095,7 @@ def main() -> None:
         eng.step()  # admits all 8; one decode step
         eng.step()
         res = {"dec": [], "cuda_core": []}
-        for on in DEC_AB + DEC_AB:
+        for on in DEC_AB:
             route = "decode path" if on else "CUDA cores"
             with k2_dec(on):
                 run, _ = run_engine(f"{name} bf16 KV quantum 1, 8 requests x 32 tokens, K2 decode "
@@ -3161,7 +3355,7 @@ def main() -> None:
         mode = "bf16" if impl == "auto" else "W2A8"
         res_ab = {"dec": [], "cuda_core": []}
         first = None
-        for on in DEC_AB:
+        for on in DEC_AB[:2]:  # two turns (a settled A/B; the run's time budget)
             route = "decode kernel" if on else "CUDA cores"
             with k1_dec(on):
                 res, out_ = run_engine(f"llama-3-8b down {mode} bf16 KV quantum 1, K1 decode rows "
@@ -4140,28 +4334,8 @@ def main() -> None:
               f"{sum(d['library_ms'] for d in at_b) * 1e3:.1f} us | bound "
               f"{sum(d['bound_ms'] for d in at_b) * 1e3:.1f} us on {record['smi']}")
 
-    # K4 at llama-3-8b's 4096 lanes (no pad lanes); library: torch.index_select
-    k4_detail = []
     m = K = 4096
     perms = [rand_perm(m, K) for _ in range(4)]
-    for B in (1, 16, 512):
-        per_call = 2 * B * m + 4 * K + 2 * B * K
-        copies = max(1, math.ceil(COLD_BYTES / per_call))
-        xs = [torch.randn((B, m), generator=g, device=dev).bfloat16() for _ in range(copies)]
-        outs = [torch.empty((B, K), dtype=torch.bfloat16, device=dev) for _ in range(copies)]
-        lperm = [p.long() for p in perms]
-
-        def kern(i):
-            c = i % copies
-            ok(gather_lib.pt2_onehot_gather(xs[c].data_ptr(), perms[i % 4].data_ptr(),
-                                            outs[c].data_ptr(), B, m, K, 2, dix, stream), "K4")
-
-        ms = time_ms(kern, 50)
-        plain_ms = time_ms(lambda i: k4.onehot_gather_plain(xs[i % copies], perms[i % 4]), 20)
-        lib_ms = time_ms(lambda i: torch.index_select(xs[i % copies], 1, lperm[i % 4]), 50)
-        k4_detail.append(row("K4", "gather", B, ms, plain_ms, lib_ms, per_call, 0.0, m=m, K=K))
-        del xs, outs
-    record["k4_timing"] = k4_detail
 
     # 18c. K5 at the same 4096 -> 4096 gather (planes of 4 MB) at 16 / 32 /
     # 64 / 128 / 256 / 512 rows: the rows path's C entry (both launches; at
@@ -4261,6 +4435,89 @@ def main() -> None:
         del xs, outs, planes_c
     record["k5_timing"] = k5_detail
     record["k5_rows_timing"] = k5rows_detail
+
+    # 20c. K4 at the same 4096 -> 4096 gather (no pad lanes) at 1 / 16 / 64 /
+    # 128 / 256 / 512 rows: the rows path's C entry (at 1 row as well, which
+    # the threshold keeps on the first kernel) and K4's first kernel, each as
+    # calls replayed from a CUDA graph (operands rotated over >= 150 MB, at
+    # least 50 calls a graph and one per operand copy), in turns rows, first,
+    # first, rows; CUDA events over back-to-back calls beside them (they read
+    # the host's launch rate at a few us a call); torch.index_select replayed
+    # the same way, and its events; the plain version; the bound; then both
+    # kernels under torch.profiler, device time per launch
+    k4_detail, k4rows_detail = [], []
+    grows_lib = k4._gather_rows_kernel_lib()
+    for B in (1, 16, 64, 128, 256, 512):
+        per_call = 2 * B * m + 4 * K + 2 * B * K
+        copies = max(4, math.ceil(COLD_BYTES / per_call))
+        ncalls = max(50, copies)
+        xs = [torch.randn((B, m), generator=g, device=dev).bfloat16() for _ in range(copies)]
+        outs = [torch.empty((B, K), dtype=torch.bfloat16, device=dev) for _ in range(copies)]
+
+        def kern(i):
+            c = i % copies
+            ok(gather_lib.pt2_onehot_gather(xs[c].data_ptr(), perms[i % 4].data_ptr(),
+                                            outs[c].data_ptr(), B, m, K, 2, dix, cur()), "K4")
+
+        def kern_rows(i):
+            c = i % copies
+            ok(grows_lib.pt2_onehot_gather_rows(xs[c].data_ptr(), perms[i % 4].data_ptr(),
+                                                outs[c].data_ptr(), B, m, K, 2, dix, cur()),
+               "K4 rows")
+
+        library = lambda i: torch.index_select(xs[i % copies], 1, lperm[i % 4])  # noqa: E731
+        events = [time_ms(kern_rows, 50), time_ms(kern, 50)]
+        turns = [graph_ms(kern_rows, ncalls), graph_ms(kern, ncalls), graph_ms(kern, ncalls),
+                 graph_ms(kern_rows, ncalls)]
+        plain_ms = time_ms(lambda i: k4.onehot_gather_plain(xs[i % copies], perms[i % 4]), 20)
+        lib_events_ms = time_ms(library, 50)
+        lib_ms = graph_ms(library, ncalls)
+        d_old = row("K4", "gather", B, min(turns[1], turns[2]), plain_ms, lib_ms, per_call, 0.0,
+                    m=m, K=K)
+        d = row("K4rows", "gather", B, min(turns[0], turns[3]), plain_ms, lib_ms, per_call, 0.0,
+                m=m, K=K)
+        def per_launch(fn, key):
+            """Device ms per launch of the kernel named by ``key`` over the
+            calls of fn that torch.profiler records (device activity only;
+            a window of its own for each kernel): 100 calls, then 20 more
+            (the first launches of a window can go unrecorded: a window that
+            began with 20 of these short calls saw none of them); None, with
+            the names seen, where it records none."""
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(100):
+                    fn(i)
+                torch.cuda.synchronize()
+                for i in range(20):
+                    fn(i)
+                torch.cuda.synchronize()
+            seen = kernel_rows(prof)
+            hit = [r for r in seen if key in r[2]]
+            if not hit:
+                print(f"  20c: torch.profiler saw no {key} launch; it saw "
+                      f"{[r[2][:70] for r in seen]}")
+                return None
+            return sum(r[0] for r in hit) / sum(r[1] for r in hit)
+
+        d.update(turns_ms=[turns[0], turns[3]], events_ms=events[0],
+                 device_ms=per_launch(kern_rows, K4_PARTS["rows"]),
+                 library_events_ms=lib_events_ms, routed=k4.k4_path(B, m, K, 2))
+        d_old.update(turns_ms=[turns[1], turns[2]], events_ms=events[1],
+                     device_ms=per_launch(kern, K4_PARTS["cuda_core"]),
+                     library_events_ms=lib_events_ms)
+        dev_us = lambda v: "not measured" if v is None else f"{v * 1e3:5.2f}"  # noqa: E731
+        k4_detail.append(d_old)
+        k4rows_detail.append(d)
+        print(f"K4, 4096 -> 4096 at {B:3d} rows (routed: {d['routed']}; us per call from a CUDA "
+              f"graph): rows path {d['ms'] * 1e3:6.2f} (turns {turns[0] * 1e3:.2f} / "
+              f"{turns[3] * 1e3:.2f}; CUDA events {events[0] * 1e3:.1f}; device time by the "
+              f"profiler {dev_us(d['device_ms'])}) | first kernel {d_old['ms'] * 1e3:6.2f} "
+              f"(turns {turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f}; events {events[1] * 1e3:.1f}; "
+              f"device {dev_us(d_old['device_ms'])}) | torch.index_select {lib_ms * 1e3:5.2f} "
+              f"(events {lib_events_ms * 1e3:.1f}) | plain {plain_ms * 1e3:7.1f} | bound "
+              f"{d['bound_ms'] * 1e3:5.2f} on {record['smi']}")
+        del xs, outs
+    record["k4_timing"] = k4_detail
+    record["k4_rows_timing"] = k4rows_detail
 
     # K6 at llama-3-8b qkv / o (K3's layers, with the planes in place of the
     # perm); library: one dense bf16 matmul on pre-gathered x, as for K3.
@@ -4546,6 +4803,11 @@ def main() -> None:
         run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
     main_launches["ternary_matmul_gathered"] = run_totals["ternary_matmul_gathered"] - sum(
         run_totals[k] for k in ("ternary_matmul_gathered_dec", "ternary_matmul_gathered_tc"))
+    # K4's first kernel: the 512-row "ssr" prefill A/B's "off" turns and its
+    # greedy_generate with K4 off (20b); its rows path: every other "ssr"
+    # prefill under the default flags
+    main_launches["onehot_gather_rows"] = run_totals["onehot_gather_rows"]
+    main_launches["onehot_gather"] = run_totals["onehot_gather"] - run_totals["onehot_gather_rows"]
     # K5's first kernel: the P1 prefill A/B's "off" turns (18b); its rows
     # path: every P1 / P2 prefill and run E's admissions above 64 rows
     main_launches["onehot_matmul_rows"] = run_totals["onehot_matmul_rows"]
@@ -4648,6 +4910,11 @@ def main() -> None:
     kernels.append(entry("onehot_matmul_rows", "pt2tpu_torch/csrc/onehot_matmul_rows.cu",
                          "pt2tpu/ops/kernels/pallas_gather.py:127",
                          [d for d in k5rows_detail if d["B"] == 512], errs["onehot_matmul_rows"],
+                         mult=3))
+    # K4's rows path at the 512-row prefill, 3 gathers
+    kernels.append(entry("onehot_gather_rows", "pt2tpu_torch/csrc/onehot_gather_rows.cu",
+                         "pt2tpu/ops/kernels/pallas_gather.py:239",
+                         [d for d in k4rows_detail if d["B"] == 512], errs["onehot_gather_rows"],
                          mult=3))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals

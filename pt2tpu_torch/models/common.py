@@ -19,6 +19,7 @@ from ..ops.ternary_matmul import (
     ternary_linear_apply,
     ternary_linear_apply_stacked,
 )
+from ..utils.device import quotient_f32
 
 __all__ = [
     "DenseLinear",
@@ -186,7 +187,7 @@ def attention(
     int_domain = quant and INT8_INTEGER_DOMAIN and k.dtype == torch.int8
     if int_domain:
         qf32 = qg.float()
-        qs = (qf32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-20)
+        qs = quotient_f32(qf32.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-20)
         q8 = torch.round(qf32 / qs).clamp(-127, 127)
         s32 = _int_einsum("blhrd,bmhd->bhrlm", q8, k)
         scores = s32.float() * (s * qs.permute(0, 2, 3, 1, 4))  # (B, Hkv, rep, Lq, 1)
@@ -206,7 +207,7 @@ def attention(
     if v_scale is not None:
         probs = probs * v_scale.permute(0, 2, 3, 1)[:, :, :, None, :]
     if int_domain and v.dtype == torch.int8:
-        ps = (probs.amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-30)
+        ps = quotient_f32(probs.amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-30)
         p8 = torch.round(probs / ps)  # in [0, 127]
         c32 = _int_einsum("bhrlm,bmhd->blhrd", p8, v)
         out = c32.float() * ps.permute(0, 3, 1, 2, 4)

@@ -3,8 +3,9 @@
 A layer quantized with SSR consumes its input in visit-lane order. Its
 permutation is stored as a :class:`PackedGather`: 2-bit one-hot planes (the
 artifact's bytes) plus the index vector ``perm``. On CUDA the gather runs as
-kernel K4 (an indexed load per lane) or K5 (x @ G over the planes), as
-:data:`GATHER_KERNEL` selects (``ops/kernels/gather.py``), or fused into the
+kernel K4 (x[:, perm]: x's rows staged in shared memory and gathered; an
+indexed load per lane for the shapes that path refuses) or K5 (x @ G over the
+planes), as :data:`GATHER_KERNEL` selects (``ops/kernels/gather.py``), or fused into the
 projection as K3 or K6 (``ops/ternary_matmul.py``); on the CPU it takes the
 index form, as JAX does off the TPU.
 """

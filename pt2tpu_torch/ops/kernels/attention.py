@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.device import quotient_f32
 from . import _build
 
 __all__ = ["NEG", "HEAD_DIMS", "K7_TC", "K7Plan", "k7_plan", "supported", "decode_attention",
@@ -91,11 +92,11 @@ def quantize_query(q: torch.Tensor):
     """(B, 1, H, hd) -> (int8 (B, H, hd), f32 (B, H) per-head scales).
 
     max|q| / 127 is the correctly rounded f32 quotient on every device, as
-    in JAX and in the kernels: on CUDA, PyTorch divides by a Python scalar
-    as a product with its reciprocal, an ulp off for some heads (and then a
-    code off by one); the quotient in f64, rounded to f32, is exact."""
+    in JAX and in the kernels (:func:`quotient_f32`: on CUDA, PyTorch
+    divides by a Python scalar as a product with its reciprocal, an ulp off
+    for some heads, and then a code off by one)."""
     qf = q[:, 0].float()
-    qs = (qf.abs().amax(dim=-1, keepdim=True).double() / 127.0).float().clamp_min(1e-20)
+    qs = quotient_f32(qf.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-20)
     q8 = torch.round(qf / qs).clamp(-127, 127).to(torch.int8)
     return q8, qs[..., 0]
 

@@ -1,8 +1,11 @@
 """The SSR input gather kernels K4 and K5: plain versions and wrappers.
 
-  * K4 ``onehot_gather``: x[:, perm], an indexed load per lane
-    (``csrc/onehot_gather.cu``; replaces
-    ``pt2tpu/ops/kernels/pallas_gather.py:onehot_iota_pallas``).
+  * K4 ``onehot_gather``: x[:, perm] (replaces
+    ``pt2tpu/ops/kernels/pallas_gather.py:onehot_iota_pallas``), on the path
+    :func:`k4_path` names: ``csrc/onehot_gather_rows.cu`` (x's rows staged in
+    shared memory by bulk copies, perm held in registers, 16-byte stores),
+    ``csrc/onehot_gather.cu`` (an indexed load per lane) for the shapes it
+    refuses (a row of x over 64 KB, K not a multiple of 8).
   * K5 ``onehot_matmul``: x @ G with G the packed one-hot planes
     (replaces ``onehot_matmul_pallas``), on the path :func:`k5_path` names:
     ``csrc/onehot_matmul_rows.cu`` at rows >= :data:`K5_ROWS_MIN_ROWS` (the
@@ -24,9 +27,22 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["K5_MAP_FIELDS", "K5_ROWS_MAX_ROW_BYTES", "K5_ROWS_MIN_ROWS", "k5_path",
-           "onehot_gather", "onehot_gather_plain", "onehot_lane_map_plain", "onehot_matmul",
-           "onehot_matmul_plain", "onehot_matmul_rows_plain", "onehot_planes"]
+__all__ = ["K4_ROWS_MAX_ROW_BYTES", "K4_ROWS_MIN_ROWS", "K5_MAP_FIELDS", "K5_ROWS_MAX_ROW_BYTES",
+           "K5_ROWS_MIN_ROWS", "k4_path", "k5_path", "onehot_gather", "onehot_gather_plain",
+           "onehot_lane_map_plain", "onehot_matmul", "onehot_matmul_plain",
+           "onehot_matmul_rows_plain", "onehot_planes"]
+
+K4_ROWS_MIN_ROWS = 1
+"""The fewest rows K4 runs on its rows path (``csrc/onehot_gather_rows.cu``).
+On an H100 the rows path is no slower at 1 row and faster from 16 (PERF.md
+§6), so every row count takes it; ``csrc/onehot_gather.cu`` serves the
+shapes the rows path refuses. On the main path K4 runs at more than 64 rows
+(K3 takes rows 1-64). Rebound to ``1 << 30``, it sends every call to the
+first kernel (``chip_smoke.py``'s "off" turns). Read at each call."""
+
+K4_ROWS_MAX_ROW_BYTES = 65536
+"""The widest row of x (m x element bytes) the rows path stages in shared
+memory."""
 
 K5_ROWS_MIN_ROWS = 16
 """The fewest rows K5 runs on its rows path (``csrc/onehot_matmul_rows.cu``);
@@ -45,6 +61,17 @@ K5_MAP_FIELDS = 4
 walks its column of G."""
 
 
+def k4_path(rows: int, m: int, K: int, elem_bytes: int) -> str:
+    """Which of K4's kernels :func:`onehot_gather` launches on CUDA: "rows"
+    (``pt2_onehot_gather_rows``: x's rows staged in shared memory, 8 lanes a
+    thread) for rows >= K4_ROWS_MIN_ROWS with a row of x of at most
+    K4_ROWS_MAX_ROW_BYTES and K % 8 == 0; else "cuda_core"
+    (``pt2_onehot_gather``)."""
+    if rows >= K4_ROWS_MIN_ROWS and m * elem_bytes <= K4_ROWS_MAX_ROW_BYTES and K % 8 == 0:
+        return "rows"
+    return "cuda_core"
+
+
 def k5_path(rows: int, m: int, elem_bytes: int) -> str:
     """Which of K5's kernels :func:`onehot_matmul` launches on CUDA: "rows"
     (``pt2_onehot_matmul_rows``: the lane map, then the rows gathered from
@@ -56,9 +83,10 @@ def k5_path(rows: int, m: int, elem_bytes: int) -> str:
 
 
 def onehot_gather_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Index form: out[..., k] = x[..., perm[k]], and 0 where perm[k] >= m
+    """Index form: out[..., k] = x[..., perm[k]], and +0 where perm[k] >= m
     (pad lanes point at m). A zero column is appended at index m, so the
-    result is bit-exact in any dtype."""
+    result copies x's bits in any dtype (-0.0 and NaN payloads included), as
+    both of K4's kernels do."""
     m = x.shape[-1]
     idx = perm.to(device=x.device, dtype=torch.long).clamp(max=m)
     return torch.index_select(F.pad(x, (0, 1)), -1, idx)
@@ -140,6 +168,7 @@ def onehot_matmul_rows_plain(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Te
 
 
 _lib = None
+_gather_rows_lib = None
 _mm_lib = None
 _rows_lib = None
 
@@ -153,6 +182,20 @@ def _kernel_lib():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _gather_rows_kernel_lib():
+    global _gather_rows_lib
+    if _gather_rows_lib is None:
+        lib = _build.load("onehot_gather_rows")
+        fn = lib.pt2_onehot_gather_rows
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_onehot_gather_rows_plan
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _gather_rows_lib = lib
+    return _gather_rows_lib
 
 
 def _mm_kernel_lib():
@@ -183,9 +226,14 @@ def _rows_kernel_lib():
 def onehot_gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """(rows, m) x (K,) int32 perm -> (rows, K) in x's dtype.
 
-    CUDA: launches K4 on the current stream and counts the launch in
-    ``onehot_gather.launches``; x must be bf16 or f32. CPU: the plain
-    version."""
+    CUDA: launches K4 on the current stream on the path :func:`k4_path`
+    names, read at each call ("rows": ``csrc/onehot_gather_rows.cu``, perm
+    read as 16-byte vectors, a copy if it is not aligned so; "cuda_core":
+    ``csrc/onehot_gather.cu``), and counts the call in
+    ``onehot_gather.launches`` (the rows path also in
+    ``onehot_gather.launches_rows``); x must be bf16 or f32. Neither path
+    keeps scratch or per-stream state, so a CUDA graph may capture it. A
+    launch that fails raises. CPU: the plain version."""
     if x.device.type == "cpu":
         return onehot_gather_plain(x, perm)
     if x.device.type != "cuda":
@@ -205,11 +253,22 @@ def onehot_gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
     if rows == 0 or K == 0:
         return out
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if k4_path(rows, m, K, x.element_size()) == "rows":
+        if perm.data_ptr() % 16:
+            perm = perm.clone()
+        rc = _gather_rows_kernel_lib().pt2_onehot_gather_rows(
+            x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, K, x.element_size(), device,
+            stream)
+        if rc != 0:
+            raise RuntimeError(f"K4 ('rows' path) launch failed: cudaError {rc}")
+        onehot_gather.launches += 1
+        onehot_gather.launches_rows += 1
+        return out
     rc = _kernel_lib().pt2_onehot_gather(
-        x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, K, x.element_size(),
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, K, x.element_size(), device,
+        stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {rc}")
     onehot_gather.launches += 1
@@ -217,6 +276,7 @@ def onehot_gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 
 onehot_gather.launches = 0
+onehot_gather.launches_rows = 0
 
 
 def onehot_matmul(x: torch.Tensor, gpacked: torch.Tensor) -> torch.Tensor:

@@ -193,10 +193,11 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     without a gather runs K1 alone (a bare perm is the index form, not a
     kernel). The names are the wrappers'; which kernel a wrapper launches
     for ``rows`` is its own choice by shape (``k1_path``, ``k3_path``,
-    ``k6_path``): K3 and K6 on three paths each, their decode rows on the
-    split-K tensor-core GEMV, their rows 9-64 on a one-pass gather (K6's
-    through the packed planes) and the split-K tensor-core product, other
-    shapes on their CUDA-core kernels."""
+    ``k6_path``, ``k4_path``, ``k5_path``): K3 and K6 on three paths each,
+    their decode rows on the split-K tensor-core GEMV, their rows 9-64 on a
+    one-pass gather (K6's through the packed planes) and the split-K
+    tensor-core product, other shapes on their CUDA-core kernels; K4, and K5
+    from 16 rows, on their rows paths (x's rows staged in shared memory)."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()

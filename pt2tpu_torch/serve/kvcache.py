@@ -29,7 +29,14 @@ __all__ = ["KVCache", "init_cache", "quantize_i8"]
 
 def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., hd) -> (int8 values, (..., 1) f32 scales): absmax / 127, floored
-    at 1e-8, round half to even (as ``jnp.round``), clipped to +-127."""
+    at 1e-8, round half to even (as ``jnp.round``), clipped to +-127.
+
+    JAX's bytes on the CPU. On CUDA, PyTorch divides by the scalar 127 as a
+    product with its rounded reciprocal, an ulp off JAX's scale for some
+    vectors, and then a code off by one where a quotient sits at a half: a
+    known difference, kept while the answer gate that the exact quotient
+    (``utils.device.quotient_f32``) crosses on an H100 is open (ROADMAP
+    §3)."""
     x32 = x.float()
     scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
     q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)

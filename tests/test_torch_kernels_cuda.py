@@ -16,8 +16,10 @@ runs as
 Tolerances: K1 and K3 get the same bf16 inputs as their plain versions and
 accumulate in f32 in different orders, so they agree to 1e-4 of the
 output's largest magnitude; so does K6 (the gather K5 computes, then K1's
-sum). K4 copies values and K5 sums one nonzero term per lane on a one-hot G:
-both bit-exact (K5 on other planes: 1e-6, f32 order). K5's rows path
+sum). K4 copies bits on both of its kernels (its rows path from
+K4_ROWS_MIN_ROWS: NaN payloads and -0.0 included) and K5 sums one nonzero
+term per lane on a one-hot G: both bit-exact (K5 on other planes: 1e-6, f32
+order). K5's rows path
 (rows >= K5_ROWS_MIN_ROWS) sums in its plain version's order, each product
 rounded before it is added: bit-exact to it on any planes, within 1e-6 of
 x @ G in f32 (bf16: the result's own rounding). K2 rounds mid =
@@ -33,6 +35,7 @@ is held to it within one bf16 step of each value plus 1e-3 of max|out|."""
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,6 +51,7 @@ from pt2tpu_torch.ops.kernels import ternary as tk
 from pt2tpu_torch.serve.engine import ServeEngine
 from pt2tpu_torch.serve.generate import greedy_generate
 from pt2tpu_torch.serve.kvcache import quantize_i8
+from pt2tpu_torch.utils.device import quotient_f32
 from pt2tpu_torch.utils.randmodel import random_ternary_params
 
 TOL = 1e-4
@@ -1702,6 +1706,54 @@ def test_k7_quantize_query_same_bits_on_the_card(cuda_device):
     assert not torch.equal(naive.cpu(), qsc)  # what the scalar division gives on the card
 
 
+def reciprocal_witnesses(seed=127, rows=48, hd=128):
+    """(rows, hd) f32 vectors, found with numpy from ``seed``: each one's
+    absmax a gives fl(a / 127) != fl(a * fl(1 / 127)) (the product with the
+    rounded reciprocal, which PyTorch's CUDA division by the Python scalar
+    127 computes), and one element v sits at a half of the correct scale, so
+    its int8 code rounds to even there and to the neighbour under the other
+    scale."""
+    rng = np.random.default_rng(seed)
+    inv = np.float32(1) / np.float32(127)
+    out = []
+    while len(out) < rows:
+        a = np.float32(rng.random() * 8 + 0.01)
+        s, s_rcp = a / np.float32(127), a * inv
+        if s == s_rcp:
+            continue
+        for k in rng.permutation(np.arange(1, 126)):
+            v = np.float32((k + 0.5) * float(s))
+            if np.round(v / s) != np.round(v / s_rcp):
+                break
+        else:
+            continue
+        x = (rng.uniform(-0.5, 0.5, hd) * a).astype(np.float32)
+        i, j = rng.choice(hd, 2, replace=False)
+        x[i], x[j] = a * rng.choice([-1, 1]), v * rng.choice([-1, 1])
+        out.append(x)
+    return np.stack(out)
+
+
+@pytest.mark.cuda
+def test_quotient_f32_same_bits_on_the_card(cuda_device):
+    """quotient_f32 gives the CPU's (and JAX's: the CPU's are held to them in
+    tests/test_torch_kvcache.py) f32 quotient on the card at absmax values
+    where the product with 1 / 127 is an ulp off, which PyTorch's division
+    by the scalar 127 gives there; a CUDA graph captures it with nothing
+    warmed and replays the same bits."""
+    a = torch.from_numpy(reciprocal_witnesses()).abs().amax(dim=-1, keepdim=True)
+    want = a / 127.0
+    ad = a.to(cuda_device)
+    assert torch.equal(quotient_f32(ad, 127.0).cpu(), want)
+    assert not torch.equal((ad / 127.0).cpu(), want)  # the scalar division on the card
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = quotient_f32(ad, 127.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.cpu(), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("mask", K7_MASKS)
@@ -2503,3 +2555,235 @@ def test_k5_rows_c_entry_refuses_what_it_does_not_take(cuda_device):
     assert fn(wide.data_ptr(), gw.data_ptr(), lmap.data_ptr(), out.data_ptr(), 65, 16385,
               gw.shape[0], 128, 4, dev, stream) != 0
     assert tkg.k5_path(65, 16385, 4) == "cuda_core"
+
+
+# ---- K4's rows path (x's rows staged in shared memory by bulk copies, perm
+# held in registers, 16-byte stores; rows >= K4_ROWS_MIN_ROWS): bit-exact to
+# its plain version, to K4's first kernel and to K5, NaN payloads included
+def _k4_counts():
+    return tkg.onehot_gather.launches, tkg.onehot_gather.launches_rows
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _k4_first_kernel(x, perm):
+    """K4's first kernel through its C entry."""
+    rows, m = x.shape
+    out = torch.empty((rows, perm.shape[0]), dtype=x.dtype, device=x.device)
+    assert tkg._kernel_lib().pt2_onehot_gather(
+        x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, perm.shape[0], x.element_size(),
+        x.device.index or 0, torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+def _k4_plan(x, perm, R, gx):
+    """The rows path's launch with a named plan, into an output whose every
+    element starts as a NaN pattern that no lane of the tests' x holds."""
+    rows, m = x.shape
+    out = torch.full((rows, perm.shape[0]), -7, dtype=torch.int16 if x.element_size() == 2
+                     else torch.int32, device=x.device).view(x.dtype)
+    rc = tkg._gather_rows_kernel_lib().pt2_onehot_gather_rows_plan(
+        x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, perm.shape[0], x.element_size(),
+        R, gx, x.device.index or 0, torch.cuda.current_stream().cuda_stream)
+    return rc, out
+
+
+def _with_nan_payloads(x):
+    """x with -0.0 in half of row 0 and NaNs of several payloads (quiet and
+    signalling, both signs) in row 1."""
+    x = x.clone()
+    m = x.shape[1]
+    x[0, : m // 2] = -0.0
+    pats = ([0x7FC1, -0x005B, 0x7F81, -0x007F] if x.element_size() == 2
+            else [0x7FC00001, -0x007FFEDD, 0x7F800123, -0x00000001])
+    b = _bits(x)
+    for i, p in enumerate(pats):
+        b[1, i::len(pats)] = p
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,K", [(4096, 4096), (8192, 8192), (200, 256), (300, 512)])
+@pytest.mark.parametrize("rows", [16, 65, 128, 512, 1000])
+def test_k4_rows_bit_exact(cuda_device, rows, m, K, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + m + K + 4)
+    perm = _perm(g, cuda_device, m, K, interleave=m in (200, 300))
+    x = torch.randn((rows, m), generator=g, device=cuda_device).to(dtype)
+    x[0, : m // 2] = -0.0
+    assert tkg.k4_path(rows, m, K, x.element_size()) == "rows"
+    before = _k4_counts()
+    got = tkg.onehot_gather(x, perm)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (rows, K)
+    assert torch.equal(_bits(got), _bits(tkg.onehot_gather_plain(x, perm)))
+    assert torch.equal(_bits(got), _bits(_k4_first_kernel(x, perm)))
+    assert torch.equal(_bits(got), _bits(tkg.onehot_matmul(x, _planes(perm, m))))  # K5
+    assert torch.signbit(got[0, perm < m // 2]).all() and not torch.signbit(got[:, perm >= m]).any()
+    xn = _with_nan_payloads(x)  # bits, not values: K5 multiplies, so it is not asked here
+    got = tkg.onehot_gather(xn, perm)
+    assert torch.equal(_bits(got), _bits(tkg.onehot_gather_plain(xn, perm)))
+    assert torch.equal(_bits(got), _bits(_k4_first_kernel(xn, perm)))
+    assert torch.isnan(got[1, perm < m]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,m,K", [(512, 4096, 4096), (1000, 300, 512), (130, 8192, 8192),
+                                      (77, 4096, 6152)])
+def test_k4_rows_every_plan_bit_exact(cuda_device, rows, m, K, dtype):
+    """Every plan the C entry takes writes every lane with the same bits:
+    R 1, 2 and 4, the chunks split over CTAs or looped by one; rows of 600
+    bytes (element loads) and a last stage of fewer than R rows included."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + K)
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    x = _with_nan_payloads(torch.randn((rows, m), generator=g, device=cuda_device).to(dtype))
+    want = _bits(tkg.onehot_gather_plain(x, perm))
+    nch = -(-K // 2048)
+    for R in (1, 2, 4):
+        if R * m * x.element_size() > 65536:
+            continue
+        for gx in sorted({1, 2, nch} & set(range(1, nch + 1))):
+            rc, got = _k4_plan(x, perm, R, gx)
+            torch.cuda.synchronize()
+            assert rc == 0, (R, gx)
+            assert torch.equal(_bits(got), want), (R, gx)
+
+
+@pytest.mark.cuda
+def test_k4_rows_unaligned_operands(cuda_device):
+    """x that does not start on 16 bytes takes element loads; a perm view
+    that does not either is copied by the wrapper: the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    m, K, rows = 4096, 4096, 128
+    perm = _perm(g, cuda_device, m, K)
+    xbuf = torch.randn((rows * m + 1,), generator=g, device=cuda_device).bfloat16()
+    x = xbuf[1:].view(rows, m)  # 2 bytes past the allocation's start
+    pbuf = torch.cat([perm[:1], perm])
+    pv = pbuf[1:]  # 4 bytes past it
+    assert x.data_ptr() % 16 and pv.data_ptr() % 16
+    before = _k4_counts()
+    got = tkg.onehot_gather(x, pv)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits(got), _bits(tkg.onehot_gather_plain(x, perm)))
+
+
+@pytest.mark.cuda
+def test_k4_rows_on_stacked_view_and_same_bits_run_to_run(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    m, K, L = 4096, 4096, 3
+    perms = torch.stack([_perm(g, cuda_device, m, K) for _ in range(L)])
+    x = _with_nan_payloads(torch.randn((512, m), generator=g, device=cuda_device).bfloat16())
+    for li in range(L):
+        got = tkg.onehot_gather(x, perms[li])  # a view, as the port stacks
+        assert torch.equal(_bits(got), _bits(tkg.onehot_gather_plain(x, perms[li])))
+        for _ in range(3):
+            assert torch.equal(_bits(tkg.onehot_gather(x, perms[li])), _bits(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 15, 16, 65, 512])
+def test_k4_rows_launch_counts_exact_and_threshold(cuda_device, rows, monkeypatch):
+    """Rows >= K4_ROWS_MIN_ROWS count one launch and one rows-path launch,
+    fewer one launch of the first kernel; with the threshold rebound every
+    row count takes the first kernel, with the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(43 + rows)
+    perm = _perm(g, cuda_device, 1000, 1024, interleave=True)
+    x = torch.randn((rows, 1000), generator=g, device=cuda_device).bfloat16()
+    on_rows = rows >= tkg.K4_ROWS_MIN_ROWS
+    assert tkg.k4_path(rows, 1000, 1024, 2) == ("rows" if on_rows else "cuda_core")
+    before = _k4_counts()
+    on = tkg.onehot_gather(x, perm)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1] + int(on_rows))
+    monkeypatch.setattr(tkg, "K4_ROWS_MIN_ROWS", 1 << 30)
+    before = _k4_counts()
+    off = tkg.onehot_gather(x, perm)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1])
+    assert torch.equal(_bits(on), _bits(off))
+
+
+@pytest.mark.cuda
+def test_k4_rows_replays_from_a_cuda_graph(cuda_device):
+    """No scratch and no per-stream state: a capture holds the launch, and
+    each replay gathers the rows x then holds."""
+    g = torch.Generator(device=cuda_device).manual_seed(44)
+    m, K, rows = 4096, 4096, 512
+    perm = _perm(g, cuda_device, m, K)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    tkg.onehot_gather(x, perm)  # built and its attribute set outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _k4_counts()
+    with torch.cuda.graph(graph):
+        out = tkg.onehot_gather(x, perm)
+    assert _k4_counts() == (before[0] + 1, before[1] + 1)  # counted once, at the capture
+    for _ in range(2):
+        x.copy_(torch.randn((rows, m), generator=g, device=cuda_device).bfloat16())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(tkg.onehot_gather_plain(x, perm)))
+    assert _k4_counts() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_k4_rows_launch_failure_raises_without_fallback(cuda_device, monkeypatch):
+    """A rows-path launch that fails raises; neither K4's first kernel nor
+    the plain version runs in its place, and nothing is counted."""
+    class Refusing:
+        @staticmethod
+        def pt2_onehot_gather_rows(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def not_asked():
+        raise AssertionError("K4's first kernel was asked for")
+
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    perm = _perm(g, cuda_device, 500, 512)
+    monkeypatch.setattr(tkg, "_gather_rows_kernel_lib", lambda: Refusing)
+    monkeypatch.setattr(tkg, "_kernel_lib", not_asked)
+    for rows, dtype in ((65, torch.bfloat16), (512, torch.float32)):
+        x = torch.randn((rows, 500), generator=g, device=cuda_device).to(dtype)
+        before = _k4_counts()
+        with pytest.raises(RuntimeError, match="K4 \\('rows' path"):
+            tkg.onehot_gather(x, perm)
+        assert _k4_counts() == before
+
+
+@pytest.mark.cuda
+def test_k4_rows_c_entries_refuse_what_they_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(46)
+    m, K, rows = 1000, 1024, 130
+    perm = _perm(g, cuda_device, m, K, interleave=True)
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    out = torch.empty((rows, K), device=cuda_device).bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = cuda_device.index or 0
+    lib = tkg._gather_rows_kernel_lib()
+    fn, plan = lib.pt2_onehot_gather_rows, lib.pt2_onehot_gather_rows_plan
+    args = [x.data_ptr(), perm.data_ptr(), out.data_ptr()]
+    assert fn(*args, rows, m, K, 2, dev, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tkg.onehot_gather_plain(x, perm))
+    assert fn(*args, rows, m, K, 3, dev, stream) != 0  # 3-byte elements
+    assert fn(*args, rows, m, 1020, 2, dev, stream) != 0  # lanes not a multiple of 8
+    assert fn(*args, 0, m, K, 2, dev, stream) != 0  # no rows
+    assert fn(*args, rows, 0, K, 2, dev, stream) != 0  # no features
+    assert fn(args[0], args[1] + 4, args[2], rows, m, K, 2, dev, stream) != 0  # perm not 16-byte
+    assert fn(*args[:2], args[2] + 2, rows, m, K, 2, dev, stream) != 0  # out not 16-byte
+    assert fn(args[0] + 1, *args[1:], rows, m, K, 2, dev, stream) != 0  # x not element-aligned
+    wide = torch.zeros((65, 16385), device=cuda_device)  # a row of 65540 bytes
+    assert fn(wide.data_ptr(), *args[1:], 65, 16385, K, 4, dev, stream) != 0
+    assert tkg.k4_path(65, 16385, K, 4) == "cuda_core"
+    assert plan(*args, rows, m, K, 2, 2, 1, dev, stream) == 0
+    for R, gx in ((3, 1), (8, 1), (0, 1), (2, 0), (2, 2)):  # K = 1024: one chunk
+        assert plan(*args, rows, m, K, 2, R, gx, dev, stream) != 0, (R, gx)
+    x8 = torch.zeros((16, 8192), device=cuda_device)  # R x row bytes over 64 KB
+    assert plan(x8.data_ptr(), *args[1:], 16, 8192, K, 4, 4, 1, dev, stream) != 0
+    assert plan(x8.data_ptr(), *args[1:], 16, 8192, K, 4, 2, 1, dev, stream) == 0
+    torch.cuda.synchronize()

@@ -18,6 +18,9 @@ from pt2tpu_torch.models.registry import get_config
 from pt2tpu_torch.serve import kvcache as tkv
 from pt2tpu_torch.serve.generate import greedy_generate
 from pt2tpu_torch.utils.checkpoint import params_from_numpy
+from pt2tpu_torch.utils.device import quotient_f32
+
+from test_torch_kernels_cuda import reciprocal_witnesses
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,6 +54,38 @@ def test_quantize_i8_bytes_equal_jax():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     assert q.dtype == torch.int8 and s.shape == (3, 7, 2, 1)
     assert q[0, 1, 1, :4].tolist() == [127, 2, -4, 0]
+
+
+def test_quantize_i8_bytes_equal_jax_where_the_reciprocal_is_an_ulp_off():
+    """At absmax values where fl(a * fl(1 / 127)) != fl(a / 127) (found with
+    numpy from a seed; each vector also holds an element at a half of the
+    correct scale, whose code the other scale moves), the port's scales and
+    codes are JAX's bytes on the CPU. On the card PyTorch's division by the
+    scalar 127 takes the product there (ROADMAP §3); the port's exact
+    quotient, ``utils.device.quotient_f32``, gives these bytes on the card
+    (test_torch_kernels_cuda.py::test_quotient_f32_same_bits_on_the_card)."""
+    x = reciprocal_witnesses()
+    a = np.abs(x).max(axis=-1, keepdims=True)
+    rcp = a * (np.float32(1) / np.float32(127))
+    assert (rcp != a / np.float32(127)).all()  # every vector is a witness
+    codes_rcp = np.clip(np.round(x / rcp), -127, 127)
+    q, s = tkv.quantize_i8(torch.from_numpy(x))
+    jq, js = jkv._quantize_i8(jnp.asarray(x))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert (codes_rcp != q.numpy()).any(axis=-1).all()  # the other scale moves a code
+
+
+def test_quotient_f32_is_the_correctly_rounded_quotient():
+    """quotient_f32 (the int8 query prep's and the integer-domain attention's
+    max|x| / 127) gives numpy's f32 quotient at the witnesses' absmax values,
+    and JAX's kv scales there."""
+    a = np.abs(reciprocal_witnesses()).max(axis=-1, keepdims=True)
+    got = quotient_f32(torch.from_numpy(a), 127.0)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), a / np.float32(127))
+    _, js = jkv._quantize_i8(jnp.asarray(reciprocal_witnesses()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(js))
 
 
 def _pair(quant, B=3, M=12, Hkv=2, hd=16):
