@@ -1,13 +1,23 @@
-"""Command line: ``python -m pt2tpu_torch.cli generate|serve|info``.
+"""Command line: ``python -m pt2tpu_torch.cli quantize|eval|generate|serve|info``.
 
-  generate — greedy decode from token ids with a packed artifact (the
-             JAX package's format); prints the ids comma-separated, as
-             ``python -m pt2tpu.cli generate`` does.
+  quantize — a registry config with random dense weights (from ``--seed``),
+             calibrated on a token stream and ternarized; writes a packed
+             artifact (the JAX package's format) with the per-layer journal
+             and ``quantize_metrics.jsonl`` in ``--output``, and resumes
+             from that journal. The JAX package's flags.
+  eval     — perplexity of an artifact (or a registry config's random dense
+             model) on a token stream.
+  generate — greedy decode from token ids with an artifact (or a registry
+             config's random dense model); prints the ids comma-separated,
+             as ``python -m pt2tpu.cli generate`` does.
   serve    — the HTTP front end over the continuous-batching engine
              (POST /generate, GET /health).
   info     — print an artifact's manifest without its structure.
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. Dense weights are f32 on
+the CPU and bf16 on the card (the JAX package's rule). A local HuggingFace
+checkpoint directory raises ``NotImplementedError``: its loader is not
+ported.
 """
 
 from __future__ import annotations
@@ -15,19 +25,110 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 
+def _resolve_model(name_or_path: str, device, seed: int = 0):
+    """A registry name -> (cfg, random dense params, "random-init") on
+    ``device``, f32 on the CPU and bf16 on the card."""
+    import torch
+
+    from .models import decoder as dec
+    from .models.registry import get_config
+
+    if os.path.isdir(name_or_path):
+        raise NotImplementedError(
+            f"{name_or_path}: loading a HuggingFace checkpoint needs models/hf_loader: not ported"
+        )
+    cfg = get_config(name_or_path)
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, dec.init_params(cfg, gen, dtype=dtype, device=device), "random-init"
+
+
 def _load(args):
+    """An artifact directory, else a registry config's random dense model."""
     from .utils.checkpoint import load_model
     from .utils.device import resolve_device
 
-    if not os.path.exists(os.path.join(args.model, "manifest.json")):
-        raise NotImplementedError(
-            f"{args.model} is not an artifact directory: random init of a "
-            "registry config is not ported, pass a packed artifact"
-        )
-    return load_model(args.model, device=resolve_device(args.device))
+    dev = resolve_device(args.device)
+    if os.path.exists(os.path.join(args.model, "manifest.json")):
+        return load_model(args.model, device=dev)
+    cfg, params, _ = _resolve_model(args.model, dev, getattr(args, "seed", 42))
+    return cfg, params
+
+
+def _load_tokenizer(path_or_none):
+    if not path_or_none:
+        return None
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(path_or_none, local_files_only=True)
+    except Exception as e:
+        print(f"tokenizer unavailable ({e}); token-id IO only", file=sys.stderr)
+        return None
+
+
+def cmd_quantize(args):
+    from .data import get_calibration_data
+    from .quant.pipeline import QuantConfig, quantize_model
+    from .utils.checkpoint import save_model
+    from .utils.device import resolve_device
+    from .utils.metrics import MetricsLogger, model_bits_per_weight
+
+    dev = resolve_device(args.device)
+    cfg, params, provenance = _resolve_model(args.model, dev, args.seed)
+    print(f"model: {args.model} [{provenance}] {cfg.n_layers}L dim={cfg.dim}")
+    tok = _load_tokenizer(args.tokenizer)
+    calib, calib_prov = get_calibration_data(
+        args.calib, cfg.vocab_size, num_samples=args.num_samples,
+        seq_len=min(args.seq_len, cfg.max_seq_len), seed=args.seed, tokenizer=tok,
+    )
+    print(f"calibration: {calib_prov} {calib.shape}")
+    qcfg = QuantConfig(
+        block_size=args.block_size,
+        percdamp=args.percdamp,
+        use_ssr=not args.no_ssr,
+        use_aga=args.aga != "off",
+        aga_mode=args.aga if args.aga != "off" else "exact",
+        batch_size=args.batch_size,
+        fuse_projections=not args.no_fuse,
+        fold_perms=not args.no_fold,
+        ssr_skip=tuple(s for s in args.ssr_skip.split(",") if s),
+        ssr_scope=args.ssr_scope,
+        quantize_lm_head=args.quantize_lm_head,
+    )
+    log = MetricsLogger(os.path.join(args.output, "quantize_metrics.jsonl"), verbose=True)
+    t0 = time.time()
+    qparams, report = quantize_model(cfg, params, calib, qcfg, log=log, journal_dir=args.output)
+    elapsed = time.time() - t0
+    print(f"quantized in {elapsed:.1f}s; bits/weight {model_bits_per_weight(qparams):.3f}")
+    report["provenance"] = {"model": provenance, "calibration": calib_prov}
+    report["elapsed_s"] = elapsed
+    save_model(args.output, cfg, qparams, quant_config=qcfg, report=report)
+    print(f"artifact saved to {args.output}")
+    if args.eval:
+        _eval_params(cfg, qparams, args, tok)
+
+
+def _eval_params(cfg, params, args, tok):
+    from .data import evaluate_perplexity, get_token_stream
+
+    stream, prov = get_token_stream(args.eval_dataset, cfg.vocab_size, split="test",
+                                    tokenizer=tok, seed=args.seed)
+    impl = "a8" if getattr(args, "a8", False) else "auto"
+    res = evaluate_perplexity(cfg, params, stream, seq_len=min(args.seq_len, cfg.max_seq_len),
+                              max_windows=args.max_windows, impl=impl)
+    tag = " (a8)" if impl == "a8" else ""
+    print(f"perplexity{tag} [{prov}]: {res['ppl']:.4f} over {res['tokens']} tokens")
+    return res
+
+
+def cmd_eval(args):
+    cfg, params = _load(args)
+    _eval_params(cfg, params, args, _load_tokenizer(args.tokenizer))
 
 
 def cmd_generate(args):
@@ -85,8 +186,47 @@ def build_parser():
         prog="pt2tpu_torch", description="ternary LLM serving on PyTorch/CUDA"
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+    q = sub.add_parser("quantize", help="ternarize a model")
+    q.add_argument("--model", required=True, help="registry config name (random init)")
+    q.add_argument("--output", default="./quantized_model")
+    q.add_argument("--block_size", type=int, default=128)
+    q.add_argument("--num_samples", type=int, default=128)
+    q.add_argument("--seq_len", type=int, default=2048)
+    q.add_argument("--no_ssr", action="store_true")
+    q.add_argument("--no_fold", action="store_true",
+                   help="keep run-time gathers instead of folding SSR perms into the layout")
+    q.add_argument("--ssr_skip", default="",
+                   help="comma-separated quant groups to quantize without SSR")
+    q.add_argument("--ssr_scope", default="auto", choices=["auto", "all", "down"],
+                   help="which groups SSR covers: all, down (its perm folds for free), "
+                   "auto (all below dim 640, down from 640)")
+    q.add_argument("--quantize_lm_head", action="store_true", help="also ternarize the lm_head")
+    q.add_argument("--percdamp", type=float, default=0.01)
+    q.add_argument("--aga", choices=["exact", "reference", "off"], default="exact")
+    q.add_argument("--no_fuse", action="store_true",
+                   help="quantize q/k/v and gate/up separately")
+    q.add_argument("--calib", default="wikitext", help="wikitext|c4|ptb|synthetic|<file>")
+    q.add_argument("--batch_size", type=int, default=8)
+    q.add_argument("--eval", action="store_true")
+    q.add_argument("--eval_dataset", default="wikitext")
+    q.add_argument("--max_windows", type=int, default=None)
+    q.add_argument("--seed", type=int, default=42)
+    q.add_argument("--tokenizer", default=None)
+    q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    q.set_defaults(fn=cmd_quantize)
+    e = sub.add_parser("eval", help="perplexity of an artifact or a registry config")
+    e.add_argument("--model", required=True)
+    e.add_argument("--eval_dataset", default="wikitext")
+    e.add_argument("--seq_len", type=int, default=2048)
+    e.add_argument("--max_windows", type=int, default=None)
+    e.add_argument("--seed", type=int, default=42)
+    e.add_argument("--tokenizer", default=None)
+    e.add_argument("--a8", action="store_true", help="through K1's W2A8 mode")
+    e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    e.set_defaults(fn=cmd_eval)
     g = sub.add_parser("generate", help="greedy decode")
-    g.add_argument("--model", required=True, help="artifact directory")
+    g.add_argument("--model", required=True, help="artifact directory or registry config")
+    g.add_argument("--seed", type=int, default=42, help="a registry config's random weights")
     g.add_argument("--prompt-ids", default=None)
     g.add_argument("--max-new", type=int, default=64)
     g.add_argument("--a8", action="store_true",
@@ -95,7 +235,7 @@ def build_parser():
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=cmd_generate)
     sv = sub.add_parser("serve", help="HTTP serving front end")
-    sv.add_argument("--model", required=True, help="artifact directory")
+    sv.add_argument("--model", required=True, help="artifact directory or registry config")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8471)
     sv.add_argument("--max-batch", type=int, default=8)

@@ -10,26 +10,40 @@ The port serves the llama and gemma (v1) families: RMSNorm (gemma's scales by
 1 + w), RoPE, a gated MLP with silu, gelu (tanh form) or relu, a scaled
 embedding and tied embeddings. :func:`check_supported` raises
 ``NotImplementedError`` naming any other feature a config asks for.
+
+Dense parameters (:func:`init_params`) are the quantizer's input: the same
+tree as the JAX package's, drawn from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.kernels.ternary import mlp_activation
+from ..ops.gather import PackedGather
 from ..ops.ternary_matmul import PackedTernaryLinear, fused_mlp_apply, fused_mlp_ok
+from ..utils.device import resolve_device
 from .common import DenseLinear, apply_linear, apply_rope, attention, causal_mask, rms_norm, rope_tables
 
 __all__ = [
     "ModelConfig",
     "check_supported",
+    "LINEAR_NAMES",
+    "TAP_OF_LINEAR",
+    "num_layer_linears",
+    "init_params",
+    "stack_layers",
+    "layer_slice",
+    "set_layer",
     "pos_tables",
     "embed_tokens",
     "layer_view",
+    "LayerIO",
     "layer_forward",
     "unembed",
     "forward",
@@ -135,6 +149,131 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
+# The seven quantizable projections of a decoder layer, each with the tap
+# whose activations feed it.
+LINEAR_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
+TAP_OF_LINEAR = {
+    "q": "attn_in",
+    "k": "attn_in",
+    "v": "attn_in",
+    "o": "o_in",
+    "gate": "mlp_in",
+    "up": "mlp_in",
+    "down": "down_in",
+}
+
+
+def num_layer_linears(cfg: ModelConfig) -> int:
+    return 7 if cfg.gated_mlp else 6
+
+
+# ------------------------------------------------------------ params ----
+def _init_linear(gen, n_out, n_in, bias, dtype, device, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(n_in)
+    w = torch.randn((n_out, n_in), generator=gen, device=device) * scale
+    b = torch.zeros((n_out,), dtype=dtype, device=device) if bias else None
+    return DenseLinear(w=w.to(dtype), b=b)
+
+
+def _init_layer(cfg: ModelConfig, gen, dtype, device) -> Dict[str, Any]:
+    D, I = cfg.dim, cfg.intermediate
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    qb = cfg.linear_bias or cfg.qkv_bias
+    ones = lambda: torch.ones((D,), dtype=dtype, device=device)  # noqa: E731
+    return {
+        "ln1_w": ones(),
+        "ln1_b": None,
+        "q": _init_linear(gen, H * hd, D, qb, dtype, device),
+        "k": _init_linear(gen, Hkv * hd, D, qb, dtype, device),
+        "v": _init_linear(gen, Hkv * hd, D, qb, dtype, device),
+        "o": _init_linear(gen, D, H * hd, cfg.linear_bias, dtype, device),
+        "ln2_w": ones(),
+        "ln2_b": None,
+        "router": None,
+        "gate": _init_linear(gen, I, D, cfg.linear_bias, dtype, device),
+        "up": _init_linear(gen, I, D, cfg.linear_bias, dtype, device),
+        "down": _init_linear(gen, D, I, cfg.linear_bias, dtype, device),
+        "q_norm_w": None,
+        "k_norm_w": None,
+        "post_attn_w": None,
+        "post_mlp_w": None,
+    }
+
+
+def _map(fn, *trees):
+    """Apply ``fn`` leaf by leaf over same-structured layer trees (dicts of
+    tensors, None, DenseLinear, PackedTernaryLinear with its PackedGather);
+    the containers' static fields come from the first tree."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: _map(fn, *[t[k] for t in trees]) for k in t0}
+    if isinstance(t0, DenseLinear):
+        return DenseLinear(w=fn(*[t.w for t in trees]),
+                           b=None if t0.b is None else fn(*[t.b for t in trees]))
+    if isinstance(t0, PackedGather):
+        return PackedGather(packed=fn(*[t.packed for t in trees]),
+                            perm=fn(*[t.perm for t in trees]), in_features=t0.in_features)
+    if isinstance(t0, PackedTernaryLinear):
+        return dataclasses.replace(
+            t0,
+            packed=fn(*[t.packed for t in trees]),
+            alpha=fn(*[t.alpha for t in trees]),
+            mu=fn(*[t.mu for t in trees]),
+            perm=fn(*[t.perm for t in trees]),
+            bias=None if t0.bias is None else fn(*[t.bias for t in trees]),
+            gather=_map(fn, *[t.gather for t in trees]),
+        )
+    return fn(*trees)
+
+
+def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Per-layer trees -> one tree with a leading n_layers axis."""
+    return _map(lambda *xs: torch.stack(xs), *layers)
+
+
+def layer_slice(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of the stacked tree, every leaf sliced (views)."""
+    return _map(lambda x: x[i], stacked)
+
+
+def set_layer(stacked: Dict[str, Any], i: int, layer: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of the stacked tree with layer ``i`` replaced."""
+
+    def put(s, l):
+        s = s.clone()
+        s[i] = l
+        return s
+
+    return _map(put, stacked, layer)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
+                device=None) -> Dict[str, Any]:
+    """Random dense parameters in the JAX package's tree (layers stacked):
+    N(0, 1/in) linears, N(0, 0.02^2) embedding, unit norms. The numbers are
+    drawn from ``gen`` (on ``device``, default the card); they are not the
+    JAX package's ``jax.random`` numbers for the same seed, so tests carry
+    JAX's weights across instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layers = [_init_layer(cfg, gen, dtype, dev) for _ in range(cfg.n_layers)]
+    lm_head = (None if cfg.tie_embeddings
+               else _init_linear(gen, cfg.vocab_size, cfg.dim, False, dtype, dev))
+    embed = (torch.randn((cfg.vocab_size, cfg.dim), generator=gen, device=dev) * 0.02).to(dtype)
+    return {
+        "embed": embed,
+        "emb_ln_w": None,
+        "emb_ln_b": None,
+        "pos_embed": None,
+        "layers": stack_layers(layers),
+        "lnf_w": torch.ones((cfg.dim,), dtype=dtype, device=dev),
+        "lnf_b": None,
+        "lm_head": lm_head,
+    }
+
+
 def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """RMSNorm by ``w``, or by 1 + w (gemma), which ``rms_norm`` rounds to
     x's dtype before the product, as the JAX package does."""
@@ -179,6 +318,14 @@ def layer_view(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
     return out
 
 
+class LayerIO(NamedTuple):
+    """A layer's auxiliary outputs: the cache (updated in place, so None
+    here) and the linear-input activations by tap name."""
+
+    kv: Optional[Any]
+    taps: Optional[Dict[str, torch.Tensor]]
+
+
 def layer_forward(
     cfg: ModelConfig,
     lp: Dict[str, Any],
@@ -191,16 +338,24 @@ def layer_forward(
     kv_valid: Optional[torch.Tensor] = None,  # (B, M) bool
     impl: str = "auto",
     layer_idx: Optional[int] = None,
-) -> torch.Tensor:
+    return_taps: bool = False,
+):
     """One decoder layer. With ``cache`` the new k/v are written at
     ``cache_pos`` of layer ``layer_idx`` (one position for all rows, or a
     position per row) and attention runs over the whole cache; an int8
     cache hands its raw values and scales to attention. Without a cache,
-    attention runs over the local sequence."""
+    attention runs over the local sequence.
+
+    Returns the output hidden; with ``return_taps`` (output, LayerIO) whose
+    taps hold each linear's input ("attn_in", "o_in", "mlp_in",
+    "down_in"), and the MLP runs its two-call form."""
     B, L, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    taps: Dict[str, torch.Tensor] = {}
 
     h = _norm(cfg, x, lp["ln1_w"])
+    if return_taps:
+        taps["attn_in"] = h
     if lp.get("qkv") is not None:
         qkv = apply_linear(lp["qkv"], h, impl, layer_idx)
         nq, nkv = H * hd, Hkv * hd
@@ -229,12 +384,17 @@ def layer_forward(
     else:
         ctx = attention(q, k, v, mask, scale=cfg.attn_scale)
 
-    x = x + apply_linear(lp["o"], ctx.reshape(B, L, H * hd), impl, layer_idx)
+    ctx = ctx.reshape(B, L, H * hd)
+    if return_taps:
+        taps["o_in"] = ctx
+    x = x + apply_linear(lp["o"], ctx, impl, layer_idx)
 
     h = _norm(cfg, x, lp["ln2_w"])
+    if return_taps:
+        taps["mlp_in"] = h
     I = cfg.intermediate
     if lp.get("gateup") is not None:
-        if fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):
+        if not return_taps and fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):
             # One launch for the whole MLP: gather + gateup + act*mul + down (K2).
             return x + fused_mlp_apply(lp["gateup"], lp["down"], h, cfg.act, layer_idx)
         gu = apply_linear(lp["gateup"], h, impl, layer_idx)
@@ -246,7 +406,11 @@ def layer_forward(
         mid = _act(cfg, apply_linear(lp["gate"], h, impl, layer_idx)) * apply_linear(
             lp["up"], h, impl, layer_idx
         )
-    return x + apply_linear(lp["down"], mid, impl, layer_idx)
+    out = x + apply_linear(lp["down"], mid, impl, layer_idx)
+    if return_taps:
+        taps["down_in"] = mid
+        return out, LayerIO(kv=None, taps=taps)
+    return out
 
 
 def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,7 @@ from .kernels.ternary import (
 __all__ = [
     "PackedTernaryLinear",
     "make_packed_linear",
+    "pack_layer",
     "ternary_linear_apply",
     "ternary_linear_apply_stacked",
     "linear_route",
@@ -163,6 +164,21 @@ def make_packed_linear(
         bias=bias,
         in_features=in_features,
         identity_perm=identity,
+    )
+
+
+def pack_layer(q, in_features: int, bias: Optional[torch.Tensor] = None) -> PackedTernaryLinear:
+    """Freeze a quantizer result (``quant.gptq.TernaryLayerQuant``) into the
+    packed inference layout. Invalid lanes already carry T == 0 and perm ==
+    m, so nothing is masked here."""
+    return make_packed_linear(
+        codes=q.T,
+        alpha=q.alpha.t(),
+        mu=q.mu.t(),
+        perm=q.perm,
+        bias=bias,
+        in_features=in_features,
+        block_size=q.block_size,
     )
 
 

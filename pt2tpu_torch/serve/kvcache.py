@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import quotient_f32, resolve_device
 
 __all__ = ["KVCache", "init_cache", "quantize_i8"]
 
@@ -31,14 +31,13 @@ def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., hd) -> (int8 values, (..., 1) f32 scales): absmax / 127, floored
     at 1e-8, round half to even (as ``jnp.round``), clipped to +-127.
 
-    JAX's bytes on the CPU. On CUDA, PyTorch divides by the scalar 127 as a
-    product with its rounded reciprocal, an ulp off JAX's scale for some
-    vectors, and then a code off by one where a quotient sits at a half: a
-    known difference, kept while the answer gate that the exact quotient
-    (``utils.device.quotient_f32``) crosses on an H100 is open (ROADMAP
-    §3)."""
+    JAX's bytes and scales on every device: the scale is the correctly
+    rounded quotient (``utils.device.quotient_f32``; on CUDA, PyTorch would
+    divide by the scalar 127 as a product with its rounded reciprocal, an
+    ulp off for some vectors and then a code off by one where a quotient
+    sits at a half)."""
     x32 = x.float()
-    scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    scale = quotient_f32(x32.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-8)
     q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

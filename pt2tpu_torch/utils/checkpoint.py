@@ -8,7 +8,10 @@
                     uint16 bit pattern, those keys listed in the object array
                     ``__bf16_keys__``
 
-Artifacts written by either package load in the other.
+Artifacts written by either package load in the other. So do the
+quantizer's per-layer journal files (``save_layer`` / ``load_layers``:
+``layers/NNNN.npz`` + ``layers/NNNN.json``, the layer's structure), which
+let a preempted quantization resume in either package.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +31,7 @@ from ..ops.ternary_matmul import PackedTernaryLinear
 from ..quant.fold import pad_gateup_blocks
 from .device import resolve_device
 
-__all__ = ["save_model", "load_model", "params_from_numpy"]
+__all__ = ["save_model", "load_model", "save_layer", "load_layers", "params_from_numpy"]
 
 _FORMAT_VERSION = 1
 
@@ -139,18 +142,7 @@ def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor], structure: Dict[st
         out[prefix] = tree
 
 
-def save_model(
-    path: str,
-    cfg: ModelConfig,
-    params: Dict[str, Any],
-) -> None:
-    """Write a model artifact directory (packed or dense params). The
-    manifest's quantization provenance stays empty: the quantizer is not
-    ported."""
-    os.makedirs(path, exist_ok=True)
-    flat: Dict[str, torch.Tensor] = {}
-    structure: Dict[str, Any] = {}
-    _flatten("", params, flat, structure)
+def _write_npz(path: str, flat: Dict[str, torch.Tensor]) -> None:
     store, bf16_keys = {}, []
     for k, t in flat.items():
         t = t.detach().cpu().contiguous()
@@ -159,16 +151,52 @@ def save_model(
             bf16_keys.append(k)
         else:
             store[k] = t.numpy()
-    np.savez(
-        os.path.join(path, "arrays.npz"),
-        __bf16_keys__=np.asarray(bf16_keys, dtype=object),
-        **store,
-    )
+    np.savez(path, __bf16_keys__=np.asarray(bf16_keys, dtype=object), **store)
+
+
+def _read_npz(path: str) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    with np.load(path, allow_pickle=True) as z:
+        bf16 = z["__bf16_keys__"].tolist()
+        arrays = {k: z[k] for k in z.files if k != "__bf16_keys__"}
+    return arrays, bf16
+
+
+def _jsonable(x):
+    """A manifest entry: dataclasses as dicts, dtypes and types as strings."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {k: _jsonable(v) for k, v in dataclasses.asdict(x).items()}
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return repr(x)
+    if isinstance(x, (type, torch.dtype)):
+        return str(x)
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x
+
+
+def save_model(
+    path: str,
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    quant_config: Optional[Any] = None,
+    report: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Write a model artifact directory (packed or dense params), with the
+    quantizer's config and report in the manifest when given."""
+    os.makedirs(path, exist_ok=True)
+    flat: Dict[str, torch.Tensor] = {}
+    structure: Dict[str, Any] = {}
+    _flatten("", params, flat, structure)
+    _write_npz(os.path.join(path, "arrays.npz"), flat)
     manifest = {
         "format_version": _FORMAT_VERSION,
         "model_config": dataclasses.asdict(cfg),
-        "quant_config": None,
-        "report": None,
+        "quant_config": _jsonable(quant_config) if quant_config else None,
+        "report": _jsonable(report) if report else None,
         "structure": structure,
     }
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -183,8 +211,33 @@ def load_model(path: str, device=None) -> Tuple[ModelConfig, Dict[str, Any]]:
     if manifest["format_version"] != _FORMAT_VERSION:
         raise ValueError(f"unsupported artifact version {manifest['format_version']}")
     cfg = ModelConfig.from_dict(manifest["model_config"])
-    with np.load(os.path.join(path, "arrays.npz"), allow_pickle=True) as z:
-        bf16 = z["__bf16_keys__"].tolist()
-        arrays = {k: z[k] for k in z.files if k != "__bf16_keys__"}
+    arrays, bf16 = _read_npz(os.path.join(path, "arrays.npz"))
     params = params_from_numpy(manifest["structure"], arrays, device, bf16_keys=bf16)
     return cfg, params
+
+
+# ------------------------------------------------- incremental layers ----
+def save_layer(path: str, layer_idx: int, layer_params: Dict[str, Any]) -> None:
+    """Journal one quantized decoder layer (resume support)."""
+    os.makedirs(os.path.join(path, "layers"), exist_ok=True)
+    flat: Dict[str, torch.Tensor] = {}
+    structure: Dict[str, Any] = {}
+    _flatten("", layer_params, flat, structure)
+    _write_npz(os.path.join(path, "layers", f"{layer_idx:04d}.npz"), flat)
+    with open(os.path.join(path, "layers", f"{layer_idx:04d}.json"), "w") as f:
+        json.dump(structure, f)
+
+
+def load_layers(path: str, device=None) -> List[Dict[str, Any]]:
+    """The contiguous prefix of journaled layers 0..k, on ``device``
+    (default: the card)."""
+    ldir = os.path.join(path, "layers")
+    out: List[Dict[str, Any]] = []
+    i = 0
+    while os.path.exists(os.path.join(ldir, f"{i:04d}.npz")):
+        with open(os.path.join(ldir, f"{i:04d}.json")) as f:
+            structure = json.load(f)
+        arrays, bf16 = _read_npz(os.path.join(ldir, f"{i:04d}.npz"))
+        out.append(params_from_numpy(structure, arrays, device, bf16_keys=bf16))
+        i += 1
+    return out

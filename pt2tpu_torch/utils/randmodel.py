@@ -15,8 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.common import DenseLinear
-from ..models.decoder import ModelConfig, check_supported
-from ..ops.gather import PackedGather, make_packed_gather
+from ..models.decoder import ModelConfig, check_supported, stack_layers
+from ..ops.gather import make_packed_gather
 from ..ops.ternary_matmul import PackedTernaryLinear, make_packed_linear
 from ..quant.fold import pad_gateup_blocks
 from .device import resolve_device
@@ -75,36 +75,6 @@ def default_perm_mode(cfg: ModelConfig) -> str:
     """The layout the quantizer's default ssr_scope="auto" emits for this
     width: SSR on down only from dim 640 up, full SSR below."""
     return "down" if cfg.dim >= 640 else "ssr"
-
-
-def _stack(layers):
-    """List of per-layer dicts -> one dict with a leading n_layers axis."""
-    out = {}
-    for k, v0 in layers[0].items():
-        vs = [lp[k] for lp in layers]
-        if v0 is None:
-            out[k] = None
-        elif isinstance(v0, PackedTernaryLinear):
-            g0 = v0.gather
-            out[k] = PackedTernaryLinear(
-                packed=torch.stack([v.packed for v in vs]),
-                alpha=torch.stack([v.alpha for v in vs]),
-                mu=torch.stack([v.mu for v in vs]),
-                perm=torch.stack([v.perm for v in vs]),
-                bias=None if v0.bias is None else torch.stack([v.bias for v in vs]),
-                gather=None if g0 is None else PackedGather(
-                    packed=torch.stack([v.gather.packed for v in vs]),
-                    perm=torch.stack([v.gather.perm for v in vs]),
-                    in_features=g0.in_features,
-                ),
-                in_features=v0.in_features,
-                identity_perm=v0.identity_perm,
-                input_folded=v0.input_folded,
-                out_folded=v0.out_folded,
-            )
-        else:
-            out[k] = torch.stack(vs)
-    return out
 
 
 def random_ternary_params(
@@ -170,5 +140,5 @@ def random_ternary_params(
                 pm = "folded" if name == "down" else ("ssr" if perm_mode == "ssr" else "identity")
             lp[name] = random_ternary_linear(gen, o, i, has_bias, perm_mode=pm, device=dev)
         layers.append(pad_gateup_blocks(lp))
-    params["layers"] = _stack(layers)
+    params["layers"] = stack_layers(layers)
     return params

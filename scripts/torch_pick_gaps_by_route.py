@@ -23,11 +23,11 @@ the plain attention in K7's place).
 With --engine --kv-int8 the engine keeps an int8 KV cache and each answer's
 reference is the teacher-forced plain forward through an int8 cache, as
 ``chip_smoke.py``'s int8 gates take it. --scales picks the cache's scales
-max|x| / 127, in the engine and the reference alike: "default",
-``kvcache.quantize_i8`` as it is (PyTorch's division by the Python scalar
-127, on CUDA a product with the f32 reciprocal of 127, an ulp off JAX's
-scale for some vectors), or "exact", the correctly rounded quotient
-(``utils.device.quotient_f32``, JAX's bytes). Before any run the script
+max|x| / 127, in the engine and the reference alike: "exact",
+``kvcache.quantize_i8`` as it is (the correctly rounded quotient,
+``utils.device.quotient_f32``: JAX's bytes), or "reciprocal", the division
+by the Python scalar 127 (on CUDA a product with the f32 reciprocal of 127,
+an ulp off JAX's scale for some vectors). Before any run the script
 checks on a witness vector that the scales it set are the ones asked for.
 --routes picks routes by name.
 
@@ -41,7 +41,7 @@ Prints one JSON object per run and a summary per route; writes the runs to
 ``chiprun_out/pick_gaps_by_route.jsonl``.
 
 Usage: python scripts/torch_pick_gaps_by_route.py [--model gemma-2b]
-       [--model-seed 13] [--seeds 6] [--engine [--kv-int8 [--scales exact]]]
+       [--model-seed 13] [--seeds 6] [--engine [--kv-int8 [--scales reciprocal]]]
        [--routes fused,k7_off]
 """
 
@@ -64,7 +64,7 @@ def main() -> None:
     ap.add_argument("--seeds", type=int, default=6)
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--kv-int8", action="store_true", help="with --engine: an int8 KV cache")
-    ap.add_argument("--scales", choices=("default", "exact"), default="default")
+    ap.add_argument("--scales", choices=("exact", "reciprocal"), default="exact")
     ap.add_argument("--routes", default=None, help="comma-separated route names")
     args = ap.parse_args()
 
@@ -81,16 +81,15 @@ def main() -> None:
     from pt2tpu_torch.serve import kvcache as tkv
     from pt2tpu_torch.serve.engine import ServeEngine
     from pt2tpu_torch.serve.generate import greedy_generate
-    from pt2tpu_torch.utils.device import quotient_f32
     from pt2tpu_torch.utils.randmodel import random_ternary_params
 
-    if args.scales == "exact":
-        def quantize_i8_exact(x):
+    if args.scales == "reciprocal":
+        def quantize_i8_reciprocal(x):
             x32 = x.float()
-            scale = quotient_f32(x32.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-8)
+            scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
             return torch.round(x32 / scale).clamp(-127, 127).to(torch.int8), scale
 
-        tkv.quantize_i8 = quantize_i8_exact  # read by KVCache._put at each write
+        tkv.quantize_i8 = quantize_i8_reciprocal  # read by KVCache._put at each write
     # a witness: max|x| 1.048, whose product with fl(1 / 127) is an ulp off
     # the quotient; the scale set above must be the one asked for
     witness = torch.tensor([[1.048, -0.5]], dtype=torch.float32)

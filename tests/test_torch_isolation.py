@@ -89,3 +89,21 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "kernels"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("ternary_matmul")
+
+
+def test_quantizer_modules_import_without_cuda():
+    """The quantizer, data and metrics modules import on a machine without
+    a GPU and initialise nothing of CUDA."""
+    code = (
+        "import sys, torch\n"
+        "import pt2tpu_torch.core.ternary, pt2tpu_torch.core.ssr, pt2tpu_torch.quant\n"
+        "import pt2tpu_torch.quant.pipeline, pt2tpu_torch.data, pt2tpu_torch.utils.metrics\n"
+        "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -61,9 +61,10 @@ def test_quantize_i8_bytes_equal_jax_where_the_reciprocal_is_an_ulp_off():
     numpy from a seed; each vector also holds an element at a half of the
     correct scale, whose code the other scale moves), the port's scales and
     codes are JAX's bytes on the CPU. On the card PyTorch's division by the
-    scalar 127 takes the product there (ROADMAP §3); the port's exact
-    quotient, ``utils.device.quotient_f32``, gives these bytes on the card
-    (test_torch_kernels_cuda.py::test_quotient_f32_same_bits_on_the_card)."""
+    scalar 127 takes the product there; ``quantize_i8`` divides through the
+    exact quotient, ``utils.device.quotient_f32``, and gives these bytes on
+    the card too (test_torch_kernels_cuda.py::
+    test_quantize_i8_bytes_equal_jax_on_the_card)."""
     x = reciprocal_witnesses()
     a = np.abs(x).max(axis=-1, keepdims=True)
     rcp = a * (np.float32(1) / np.float32(127))
