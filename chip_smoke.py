@@ -26,7 +26,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      decode step is then timed and traced with torch.profiler;
   5. drives this slice's main path: llama-3-8b, 16 of its 32 layers (the
      run's time budget; the lockstep paths of 13b, 16b, 8, 17b, 18b and 20b
-     too, while run E and 14b run all 32), full-SSR layout,
+     and the engines of run E and 14b too), full-SSR layout,
      the same prompts and max_new, in bf16 ("auto") and W2A8; every kernel's
      launch count must rise by exactly what the routing implies; one decode
      step is traced; then the same model in the "down" layout, where K2 runs
@@ -39,7 +39,9 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      hd 128, B 1/4/8, M 256 and 2048, ragged valid lengths, bf16 and int8
      KV; runs a 2-layer llama-3-8b ServeEngine ("down" layout, bf16 and int8
      KV) with every kernel call held against its plain version; drives the
-     32-layer llama-3-8b "down" ServeEngine (8 slots, max_len 2048, 16
+     llama-3-8b "down" ServeEngine at 16 of its 32 layers (the run's time
+     budget; 10c, 11c, 16b's engine A/B and 5c's server too) (8 slots,
+     max_len 2048, 16
      greedy requests with prompts of 64-512 ids and max_new 32-64) with bf16
      and int8 KV at quantum 1 and 8, where K7's launches must be exactly 32
      per decode step, plus a sampled pair of runs that must agree token for
@@ -338,7 +340,36 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      512-row prefill (K4 x3 + K1 x4) and 8 decode steps (K3 x2 + K2), held
      the same way. The int8-KV engine run with K7 off (after 5b's answers)
      holds every K1 / K2 call against its plain version and its answers to
-     INT8_K7_OFF_TOKEN_TOL.
+     INT8_K7_OFF_TOKEN_TOL. Since phase 22 its dense weights start as a
+     local HuggingFace checkpoint (22d, below).
+ 22. (every dense family of the JAX registry) serves (a) qwen3-8b
+     (qk-norm) at full width and its full 36 layers, "down" layout: the
+     lockstep path (4 x 128 ids, 16 new; K1 and K2 on every layer) and a
+     ServeEngine (8 slots, max_len 2048, 8 requests of 64-512 ids, 32 new,
+     bf16 KV; K7 at hd 128, 4 queries per KV head), launches exact (each
+     family's routes written out in family_launches), every answer held to FAMILY_TOKEN_TOL under its
+     teacher-forced plain reference, and a 2-layer full-width copy with every
+     K1 / K2 / K7 call held against its plain version; (b) gemma3-4b
+     (qk-norm, sandwich norms, a window of 1024 on 5 of each 6 layers with
+     their own RoPE base, linear RoPE scaling 8 on the global ones, hd 256
+     with 2 queries per KV head, vocab 262144) at full width and its full 34
+     layers: the ServeEngine with bf16 and int8 KV, two of its 8 requests
+     1100-1400 ids long (the window binds in the admission and in decode),
+     launches exact, every K7 call held against its plain version, the
+     answers held to GEMMA3_DEEP_TOL (the random model's bf16 drift at 34
+     layers, printed beside them); the same weights cut to
+     GEMMA3_HELD_LAYERS (6) layers with every K1 / K7 call and answer held
+     (TOKEN_TOL); a 2-layer copy (both layers sliding) whose every K1 / K7
+     call is held, every K7 call on a kv_valid whose window starts past
+     slot 0 (K7 is also held on windows
+     in 2b and timed on them in 6); (c) opt-1.3b, gpt2-xl (n = 1600: every K1
+     call on its CUDA-core kernel) and bloom-560m (ALiBi) at full width cut
+     to 2 layers: the lockstep path with every K1 call held, an artifact
+     round trip, and a 4-request engine with every K1 call and answer held;
+     each family's engine decode step profiled; (d) phase 21's llama-3-8b
+     weights written as a 2-shard bf16 safetensors checkpoint with its
+     config.json, loaded back through hf_loader host-resident (every tensor
+     equal), and quantized by streaming its layers to the card.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -396,6 +427,7 @@ SHAPES_GEMMA = [("g qkv", 2048, 2560), ("g o", 2048, 2048), ("g gateup", 2048, 3
                 ("g down", 16384, 2048)]
 MLP_GEMMA = (2048, 16384, 2048)
 HEADS_GEMMA = (8, 1, 256)
+HEADS_GEMMA3 = (8, 4, 256)  # gemma3-4b's (H, Hkv, hd)
 # gemma-2b's 18-layer bf16 answers vs the teacher-forced plain forward: on
 # an H100 (scripts/torch_pick_gaps_by_route.py) the lockstep route that never
 # launches K2 (FUSED_MLP off: K1 alone) and the one with K2's plain version
@@ -428,6 +460,21 @@ QUANT_CALIB = (32, 512)
 # agree and the two Hessian-weighted relative errors lie within 5 % of each other
 QUANT_TWIN_CODES = 0.99
 QUANT_TWIN_ERR = 0.05
+# phase 22: the full-depth qwen3-8b (36 layers) and gemma3-4b (34 layers)
+# engines' answers vs their teacher-forced plain forwards
+FAMILY_TOKEN_TOL = TOKEN_TOL
+# gemma3-4b's answers (phase 22b): with random weights its bf16 routes
+# drift apart with depth, in the JAX package as in the port (on the CPU at
+# full width and 8 layers both packages' bf16 logits sit 0.12 relative L2
+# from their own f32 ones, and the port's f32 logits within 1e-5 of JAX's:
+# tests/test_torch_families_depth.py). On an H100 at 34 layers the plain
+# bf16 route's own picks trailed the same route in f32 by 0.74-0.81 of
+# max|logit| (22b prints it each run). So the full-depth answers, bf16 and
+# int8 KV, are held to that noise's reach, GEMMA3_DEEP_TOL, and the same
+# weights cut to GEMMA3_HELD_LAYERS layers are held to TOKEN_TOL with every
+# K1 and K7 call held against its plain version
+GEMMA3_HELD_LAYERS = 6
+GEMMA3_DEEP_TOL = 1.0
 
 
 def fail(msg: str) -> None:
@@ -706,7 +753,7 @@ def main() -> None:
         c["onehot_gather_rows"] = k4.onehot_gather.launches_rows
         return c
 
-    run_totals = dict.fromkeys(counts(), 0)  # launches over every 32-layer run counted exactly
+    run_totals = dict.fromkeys(counts(), 0)  # launches over every run counted exactly
     gelu_paths = {"ternary_mlp_tc": 0, "ternary_mlp_dec": 0}  # of them, GeGLU ones by K2's path
 
     def tally(c):
@@ -1779,6 +1826,11 @@ def main() -> None:
             valid = (torch.arange(M, device=dev) == M - 1).expand(B, M).contiguous()
         elif mask == "empty_row":
             valid[0] = False
+        elif mask is not None and mask.startswith("window"):  # "window<W>": (p - W, p]
+            W_ = int(mask[6:])
+            p_ = torch.randint(W_ // 2, M, (B, 1), generator=gen, device=dev)
+            pos_ = torch.arange(M, device=dev)[None, :]
+            valid = (pos_ <= p_) & (pos_ > p_ - W_)
         if not quant:
             return q, k.bfloat16(), v.bfloat16(), valid, None, None
         (k8, ks), (v8, vs) = quantize_i8(k), quantize_i8(v)
@@ -1841,6 +1893,16 @@ def main() -> None:
                 held_k7(name, f"K7 mask {mask} H={H} Hkv={Hkv} hd={hd} B=8 M={ENGINE_M} "
                         f"int8={quant}", attn_inputs(8, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17,
                                                      mask=mask), hd ** -0.5)
+    # 22b's windows (sliding-window layers: slots (p - W, p] of each row, so
+    # leading tiles and whole splits hold no valid slot): gemma3-4b's heads
+    # (2 queries per KV head at hd 256) and qwen3-8b's, W 1024 and 100
+    for mask in ("window1024", "window100"):
+        for H, Hkv, hd in (HEADS_GEMMA3, (32, 8, 128), HEADS_GEMMA):
+            for quant in (False, True):
+                name = "decode_attention_hd256" if hd == 256 else "decode_attention"
+                held_k7(name, f"K7 {mask} H={H} Hkv={Hkv} hd={hd} B=8 M={ENGINE_M} "
+                        f"int8={quant}", attn_inputs(8, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17,
+                                                     mask=mask), hd ** -0.5)
     print(f"K7 on its tensor-core kernel vs plain: {nchecks['decode_attention']} checks within "
           f"{ATTN_TOL} x max|ref| (max|err| {errs['decode_attention']:.3e}); at gemma-2b's heads "
           f"(H {Hg}, Hkv {Hkvg}, hd {hdg}): {nchecks['decode_attention_hd256']} checks (max|err| "
@@ -1852,10 +1914,11 @@ def main() -> None:
     errs["decode_attention_cc"], nchecks["decode_attention_cc"] = 0.0, 0
     k7.K7_TC = False
     tc0 = k7.decode_attention.launches_tc
-    for H, Hkv, hd in ((32, 8, 128), (32, 32, 128), HEADS_GEMMA):
+    for H, Hkv, hd in ((32, 8, 128), (32, 32, 128), HEADS_GEMMA, HEADS_GEMMA3):
         for B in (1, 8):
             for quant in (False, True):
-                a = attn_inputs(B, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17)
+                a = attn_inputs(B, ENGINE_M, H, Hkv, quant, hd=hd, gen=gk17,
+                                mask="window1024" if (H, Hkv, hd) == HEADS_GEMMA3 else None)
                 held("decode_attention_cc", f"PR 3's K7 H={H} Hkv={Hkv} hd={hd} B={B} int8={quant}",
                      k7.decode_attention(*a[:4], hd ** -0.5, *a[4:]),
                      k7.decode_attention_plain(*a[:4], hd ** -0.5, *a[4:]), ATTN_TOL)
@@ -2324,7 +2387,7 @@ def main() -> None:
             else:
                 cache = init_cache(cfg, 1, T, quantized=True, device=dev)
                 h = tdec.embed_tokens(cfg, params, toks)
-                cos, sin = tdec.pos_tables(cfg, T, device=dev)
+                cos, sin, _, _ = tdec.pos_tables(cfg, T, device=dev)
                 mask = causal_mask(T, T, device=dev)
                 for li in range(cfg.n_layers):
                     h = tdec.layer_forward(cfg, tdec.layer_view(params["layers"], li), h, cos,
@@ -2547,11 +2610,11 @@ def main() -> None:
     # decode step K3 x2 (qkv, o) + K2 per layer ("auto"), or K3 x3 (qkv, o,
     # gateup) + K1 (down) per layer (W2A8: the fused MLP takes "auto" only).
     # bf16 decode rows run K3's decode path, W2A8 ones its CUDA-core kernel
-    # The lockstep paths on this model (5, 13b, 16b, 8, 17b, 18b, 20b) run
-    # 16 of its 32 layers, the first 16 of its stacked weights, as 10c and
-    # 11c do (the run's time budget); run E and 14b, engines, all 32
-    cfg, params, record["model_build_8b_s"] = build("llama-3-8b", "ssr", 4)
-    cfg_ssr32, cfg = cfg, cfg.with_(n_layers=16)
+    # Every path on this model (the lockstep paths 5, 13b, 16b, 8, 17b, 18b,
+    # 20b and the engines of run E and 14b) runs 16 of its 32 layers (the
+    # run's time budget; the first 16 of its weights, drawn as the 32-layer
+    # model draws them)
+    cfg, params, record["model_build_8b_s"] = build("llama-3-8b", "ssr", 4, n_layers=16)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     want_ssr = {  # bf16 decode: every K3 launch on its decode path; W2A8: none
@@ -2904,11 +2967,10 @@ def main() -> None:
     record["lockstep_ssr_prefill_k4_ab"] = k4_ab
     del ref_logits
 
-    # run E: the ServeEngine over the same 32-layer "ssr" model under the P2
-    # flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one of
-    # exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV, quantum 1
-    cfg = cfg_ssr32
-    L = cfg.n_layers
+    # run E: the ServeEngine over the same "ssr" model (16 layers) under the
+    # P2 flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one
+    # of exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV,
+    # quantum 1
     e_lens = [64] + host_ints(65, 512, 15)
     e_prompts, e_news = make_prompts(cfg, e_lens), host_ints(32, 64, 16)
     with route_flags(P2):
@@ -2954,7 +3016,7 @@ def main() -> None:
           f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
 
     stamp("14b")
-    # ---- 14b. "engine ssr default": the same 32-layer "ssr" model under the
+    # ---- 14b. "engine ssr default": the same "ssr" model (16 layers) under the
     # default flags, 8 slots, max_len 2048, bf16 KV, quantum 1, 16 greedy
     # requests of 9-64 ids (buckets 16, 32 and 64 each at least once), 16-32
     # new tokens. Every admission (<= 64 rows): K3 x2 (qkv, o) on its
@@ -3013,7 +3075,7 @@ def main() -> None:
     d_main, d_outs = run_default("engine ssr default", d_prompts, d_news, True)
     d_main["worst_pick_gap"], _ = answers_held("engine ssr default answers", d_prompts, d_outs,
                                                False)
-    print(f"engine ssr default (llama-3-8b, 32 layers, bf16 KV, quantum 1): 16 requests of 9-64 "
+    print(f"engine ssr default (llama-3-8b, {L} layers, bf16 KV, quantum 1): 16 requests of 9-64 "
           f"ids, {d_main['tokens']} tokens in {d_main['wall_s']:.2f} s ({d_main['tok_s']:.1f} "
           f"tok/s; decode {d_main['decode_tok_s']:.1f} tok/s; t_admit_s "
           f"{d_main['t_admit_s']:.3f} s), {d_main['steps']} decode steps, launches "
@@ -3074,6 +3136,7 @@ def main() -> None:
     # the same model in the "down" layout: K2 without its gather; K1 runs
     # qkv and o only at each decode step (2 per layer and step fewer)
     cfg, params, _ = build("llama-3-8b", "down", 5)
+    L = cfg.n_layers  # the lockstep "down" path at all 32 layers
     want_down = dict(none, ternary_matmul=4 * L + 2 * L * steps, ternary_matmul_tc=4 * L,
                      ternary_matmul_dec=2 * L * steps, ternary_mlp=L * steps,
                      ternary_mlp_dec=L * steps)
@@ -3082,7 +3145,12 @@ def main() -> None:
 
     stamp("5b")
     # ---- 5b. the serving slice's main path: the ServeEngine over the same
-    # 32-layer llama-3-8b "down" model, 8 slots, max_len 2048, 16 greedy requests
+    # llama-3-8b "down" model at 16 of its 32 layers (the run's time budget),
+    # 8 slots, max_len 2048, 16 greedy requests. 5b's runs and held answers,
+    # 10c, 11c, 16b's engine A/B, the server (5c) and 19b's steps run these
+    # 16 layers (the first 16 of its stacked weights: every loop runs over
+    # cfg.n_layers)
+    cfg, L = cfg.with_(n_layers=16), 16
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
@@ -3232,12 +3300,6 @@ def main() -> None:
               f"teacher-forced plain max {[r.get('worst_pick_gap') for r in v if 'worst_pick_gap' in r]}")
 
     stamp("10c")
-    # 10c's runs and 11c's take the same model at 16 of its 32 layers (the
-    # first 16 of its stacked weights: every loop runs over cfg.n_layers),
-    # which keeps this script's run near its time budget since phase 16
-    # joined; 5b's runs, its held answers and 16b stay at 32 layers
-    cfg_32, L_32 = cfg, L
-    cfg, L = cfg.with_(n_layers=16), 16
     # ---- 10c. the same engine under W2A8 (impl "a8", bf16 KV, quantum 1)
     # with K1's int8 tensor-core path on and off, in turns, then with K7 off;
     # every answer of each route held under the teacher-forced W2A8 route on
@@ -3288,7 +3350,6 @@ def main() -> None:
               f"{[r['streams_equal_to_first_run'] for r in v]}; every pick within "
               f"{[r['worst_pick_gap'] for r in v]} of the teacher-forced W2A8 plain-version max "
               f"(<= {A8_TOLS[1]}) on {record['smi']}, {L} layers")
-    cfg, L = cfg_32, L_32
 
     # every engine answer (quantum 1) held under its teacher-forced reference:
     # bf16 KV under the plain forward, int8 KV under a forward through an int8
@@ -3411,7 +3472,6 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     stamp("11c")
-    cfg, L = cfg.with_(n_layers=16), 16  # as in 10c
     # ---- 11c. the same engine (bf16 KV, quantum 1), bf16 and W2A8, with K1's
     # decode rows on the decode kernel and on the CUDA cores, in turns on,
     # off, off, on: decode tok/s and t_decode_s, every answer held as 5b and
@@ -3485,7 +3545,6 @@ def main() -> None:
                   f"{TOKEN_TOL if impl == 'auto' else A8_TOLS[1]}) on {record['smi']}, {L} "
                   f"layers")
     record["engine_decode_ab"] = eng_dec
-    cfg, L = cfg_32, L_32
     record["k2_dec_ab"]["engine llama-3-8b down"] = engine_k2_ab("llama-3-8b down", eng_prompts)
 
     stamp("5c")
@@ -3711,18 +3770,82 @@ def main() -> None:
     from pt2tpu_torch.quant import hessian as thess
     from pt2tpu_torch.quant import pipeline as tpipe
 
+    from pt2tpu_torch.models.hf_loader import config_from_hf, load_hf_model, write_safetensors
+
     cfg_prev, L_prev = cfg, L
     cfg = get_config("llama-3-8b").with_(n_layers=2)
     L = cfg.n_layers
     t0 = time.perf_counter()
-    dense = tdec.init_params(cfg, torch.Generator(device=dev).manual_seed(21),
-                             dtype=torch.bfloat16, device=dev)
+    dense_card = tdec.init_params(cfg, torch.Generator(device=dev).manual_seed(21),
+                                  dtype=torch.bfloat16, device=dev)
     calib, calib_prov = get_calibration_data("synthetic", cfg.vocab_size,
                                              num_samples=QUANT_CALIB[0], seq_len=QUANT_CALIB[1],
                                              seed=21)
     torch.cuda.synchronize()
     rec21 = {"init_s": time.perf_counter() - t0, "calibration": calib_prov,
              "calib_shape": list(calib.shape)}
+
+    # 22d. the dense weights as a local HuggingFace checkpoint (config.json
+    # from the registry entry, two bf16 safetensors shards written by the
+    # port's own writer: this machine has no safetensors package), loaded
+    # through hf_loader host-resident, so quantize_model streams it to the
+    # card one layer at a time
+    def write_hf_llama(d, cfg_, p_):
+        os.makedirs(d, exist_ok=True)
+        lay_ = p_["layers"]
+
+        def layer_tensors(i):
+            pre = f"model.layers.{i}."
+            t = {pre + "input_layernorm.weight": lay_["ln1_w"][i],
+                 pre + "post_attention_layernorm.weight": lay_["ln2_w"][i]}
+            for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                                 ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+                                 ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+                                 ("down", "mlp.down_proj")):
+                t[pre + theirs + ".weight"] = lay_[ours].w[i]
+            return t
+
+        half = cfg_.n_layers // 2
+        first = {"model.embed_tokens.weight": p_["embed"]}
+        second = {"model.norm.weight": p_["lnf_w"], "lm_head.weight": p_["lm_head"].w}
+        for i in range(cfg_.n_layers):
+            (first if i < half else second).update(layer_tensors(i))
+        for j, t in enumerate((first, second)):
+            write_safetensors(os.path.join(d, f"model-{j + 1:05d}-of-00002.safetensors"), t)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                       "vocab_size": cfg_.vocab_size, "hidden_size": cfg_.dim,
+                       "intermediate_size": cfg_.intermediate,
+                       "num_hidden_layers": cfg_.n_layers,
+                       "num_attention_heads": cfg_.n_heads,
+                       "num_key_value_heads": cfg_.kv_heads,
+                       "max_position_embeddings": cfg_.max_seq_len,
+                       "rms_norm_eps": cfg_.norm_eps, "rope_theta": cfg_.rope_theta,
+                       "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f, indent=1)
+
+    hf_dir = os.path.join(ROOT, "build", "smoke_hf_llama3")
+    t0 = time.perf_counter()
+    write_hf_llama(hf_dir, cfg, dense_card)
+    rec21["hf_write_s"] = time.perf_counter() - t0
+    rec21["hf_bytes"] = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir))
+    cfg_hf = config_from_hf(hf_dir)
+    if cfg_hf.with_(family=cfg.family) != cfg.with_(n_kv_heads=cfg.kv_heads):
+        fail(f"22d config_from_hf gave {cfg_hf}, not the registry's {cfg}")
+    t0 = time.perf_counter()
+    cfg_hf, dense = load_hf_model(hf_dir, device="cpu")  # host residency, as the CLI picks it
+    rec21["hf_load_s"] = time.perf_counter() - t0
+    fa, sa, fb, sb = {}, {}, {}, {}
+    ckpt._flatten("", dense_card, fa, sa)
+    ckpt._flatten("", dense, fb, sb)
+    bad = [k for k in fb if fb[k].device.type != "cpu" or not torch.equal(fb[k], fa[k].cpu())]
+    if bad or set(fb) - set(fa) or any(fa[k] is not None for k in set(fa) - set(fb)):
+        fail(f"22d the HF checkpoint did not load back the dense weights on the host: {bad}")
+    del dense_card, fa, fb
+    shutil.rmtree(hf_dir)
+    torch.cuda.empty_cache()
+    print(f"22d llama-3-8b ({L} layers, full width) written as a 2-shard bf16 HF checkpoint "
+          f"({rec21['hf_bytes'] / 2**30:.2f} GiB) in {rec21['hf_write_s']:.1f} s and loaded back "
+          f"host-resident through hf_loader in {rec21['hf_load_s']:.1f} s: every tensor equal")
     twin = {}
     quantize_linear = tpipe.quantize_linear
 
@@ -3737,13 +3860,19 @@ def main() -> None:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        qparams, qrep = tpipe.quantize_model(cfg, dense, calib, tpipe.QuantConfig())
+        qparams, qrep = tpipe.quantize_model(cfg_hf, dense, calib, tpipe.QuantConfig(),
+                                             device=dev)  # streams the host-resident layers
         torch.cuda.synchronize()
         rec21["quantize_s"] = time.perf_counter() - t0
     finally:
         tpipe.quantize_linear = quantize_linear
     if any(counts().values()):
         fail(f"the quantizer launched a kernel: {counts()}")
+    stray = [k for k, v in qparams.items() if k != "layers" and v is not None
+             and getattr(v, "w", v).device.type != "cuda"]
+    if stray or dense["embed"].device.type != "cpu":
+        fail(f"22d the streamed quantization left {stray} off the card")
+    cfg = cfg_hf
     rec21["timing"], rec21["stats"] = qrep["timing"], qrep["layers"]
     for t in qrep["timing"]:
         each = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in d.items())  # noqa: E731
@@ -3850,7 +3979,8 @@ def main() -> None:
     del dense
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    qp1, rep1 = tpipe.quantize_model(cfg1, dense1, calib, tpipe.QuantConfig(ssr_scope="all"))
+    qp1, rep1 = tpipe.quantize_model(cfg1, dense1, calib, tpipe.QuantConfig(ssr_scope="all"),
+                                     device=dev)
     torch.cuda.synchronize()
     rec21["ssr_all_layer_s"] = time.perf_counter() - t0
     rec21["ssr_all_timing"] = rep1["timing"]
@@ -3874,6 +4004,327 @@ def main() -> None:
     del dense1, qp1
     cfg, L = cfg_prev, L_prev
     torch.cuda.empty_cache()
+    stamp("22")
+    # ---- 22. every dense family of the JAX registry: (a) qwen3-8b (qk-norm)
+    # at full width and its full 36 layers, "down" layout: the lockstep path
+    # (4 x 128 ids, 16 new) and a ServeEngine (8 slots, M 2048, 8 requests of
+    # 64-512 ids, 32 new each, bf16 KV), launches exact, every answer held to
+    # FAMILY_TOKEN_TOL under its teacher-forced plain reference; a 2-layer
+    # full-width copy with every K1 / K2 / K7 call held against its plain
+    # version. (b) gemma3-4b (qk-norm by 1 + w, sandwich norms, a window of
+    # 1024 on 5 of each 6 layers with their own RoPE base, hd 256 with 2
+    # queries per KV head) at full width and its full 34 layers: the
+    # ServeEngine with bf16 and int8 KV, two of its 8 requests 1100-1400 ids
+    # long so that the window binds in the admission and in decode; a 2-layer
+    # copy (both layers sliding) whose every K1 / K7 call is held, K7's on
+    # windowed kv_valid. (c) opt-1.3b (learned positions with OPT's offset,
+    # relu, an ungated MLP, biases, LayerNorm), gpt2-xl (the same with gelu;
+    # n = 1600: every K1 call on the CUDA cores) and bloom-560m (ALiBi, the
+    # embedding LayerNorm) at full width cut to 2 layers: the lockstep path
+    # with every K1 call held, an artifact round trip, and a 4-request engine
+    # with every K1 call and answer held. Each family's engine decode step is
+    # profiled (device time, wall). (d) is phase 21's start from an HF
+    # directory.
+    rec22 = {}
+    g22 = torch.Generator(device=dev).manual_seed(22)
+    gh22 = torch.Generator().manual_seed(22)
+
+    def ints22(lo, hi, n):
+        return torch.randint(lo, hi + 1, (n,), generator=gh22).tolist()
+
+    # the routes of phase 22's families on the card, written out (no routing
+    # predicate consulted): the gated MLP through K2 at <= 64 rows (qwen3-8b;
+    # gemma3-4b's gateup has more input lanes than its 128-padded x, and
+    # opt, gpt2 and bloom have no gated MLP), every K1 call on the CUDA cores
+    # (gpt2-xl: n = 1600 / 4800, scale blocks of 64), K7 at each decode step
+    # (not opt and gpt2: hd 64; not bloom: ALiBi), at hd 256 (gemma3-4b)
+    K2_FAMILIES = ("qwen3-8b",)
+    K1_CUDA_CORE_FAMILIES = ("gpt2-xl",)
+    K7_FAMILIES = ("qwen3-8b", "gemma3-4b")
+    HD256_FAMILIES = ("gemma3-4b",)
+
+    def family_launches(fam, L_, passes, k7_steps=0):
+        """The launches of forward passes of ``passes`` rows each (a
+        prefill's B x L, an admission's bucket, a decode step's B) through
+        ``L_`` layers of family ``fam`` without gathers: per layer K1 for qkv
+        and o, on its decode kernel at <= 8 rows and its tensor cores from 9;
+        the MLP through K2 (decode path <= 8 rows, tensor cores 9-64) where
+        the family takes it, else K1 for gateup (or the ungated up) and
+        down; K7 once a layer for each of ``k7_steps`` decode steps."""
+        c = dict(none)
+
+        def k1_calls(rows, n_calls):
+            c["ternary_matmul"] += n_calls * L_
+            if fam not in K1_CUDA_CORE_FAMILIES:
+                c["ternary_matmul_dec" if rows <= 8 else "ternary_matmul_tc"] += n_calls * L_
+
+        for rows in passes:
+            if fam in K2_FAMILIES and rows <= 64:
+                k1_calls(rows, 2)
+                c["ternary_mlp"] += L_
+                c["ternary_mlp_dec" if rows <= 8 else "ternary_mlp_tc"] += L_
+            else:
+                k1_calls(rows, 4)
+        steps_ = k7_steps if fam in K7_FAMILIES else 0
+        c["decode_attention"] = c["decode_attention_tc"] = L_ * steps_
+        c["decode_attention_hd256"] = L_ * steps_ if fam in HD256_FAMILIES else 0
+        return c
+
+    def family_reference(cfg_, params_, prompt, ids, kvq):
+        """f32 logits at the answer's positions from one plain forward of
+        prompt + answer[:-1] through forward_cached (a bf16 or int8 cache,
+        the family's masks, windows and positions), no kernel launched."""
+        toks = torch.as_tensor(list(prompt) + list(ids[:-1]), device=dev)[None]
+        with torch.inference_mode():
+            cache = init_cache(cfg_, 1, toks.shape[1], quantized=kvq, device=dev)
+            logits, _ = forward_cached(cfg_, params_, toks, cache, 0, "plain", all_logits=True)
+        return logits[0, len(prompt) - 1 :].float()
+
+    def family_answers_held(label, cfg_, params_, prompts_, answers_, kvq, tol):
+        """Each answer's picks within ``tol`` of max|logit| of its teacher-
+        forced plain reference's max. Returns the worst pick gap."""
+        c0 = counts()
+        worst = 0.0
+        for p_, ids in zip(prompts_, answers_):
+            lf = family_reference(cfg_, params_, p_, ids, kvq)
+            picked = lf.gather(1, torch.as_tensor(ids, device=dev)[:, None])[:, 0]
+            worst = max(worst, ((lf.max(dim=1).values - picked)
+                                / lf.abs().max(dim=1).values).max().item())
+            del lf
+        if counts() != c0:
+            fail(f"{label}: the teacher-forced reference launched a kernel")
+        if not worst <= tol:
+            fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
+                 f"max|logit| (> {tol})")
+        return worst
+
+    def family_engine(fam, label, cfg_, params_, prompts_, new_, kvq=False, M_=ENGINE_M,
+                      held=None, tol=TOKEN_TOL):
+        """A ServeEngine run (8 slots, quantum 1) of family ``fam``, counts set
+        to 0 just before and read just after, held to family_launches;
+        ``held`` names the wrappers whose every call is held against its plain
+        version; the answers held to ``tol``. Returns (result, answers)."""
+        eng = ServeEngine(cfg_, params_, max_batch=8, max_len=M_, kv_quant=kvq)
+        reqs = [eng.submit(p_, new_) for p_ in prompts_]
+        for k in per_call:
+            per_call[k] = 0
+        with swapped(each_call_checked, held) if held else contextlib.nullcontext():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+        st_ = eng.stats["steps"]
+        want = family_launches(fam, cfg_.n_layers, [min(_bucket(len(p_)), M_) for p_ in prompts_]
+                               + [8] * st_, st_)
+        if got != want:
+            fail(f"engine {label}: launches {got}, want {want}")
+        tally(got)
+        if not all(r.done and len(r.out) == new_ and all(0 <= t < cfg_.vocab_size for t in r.out)
+                   for r in reqs):
+            fail(f"engine {label}: a request did not finish with max_new valid tokens")
+        outs_ = [r.out for r in reqs]
+        checked = {k: v for k, v in per_call.items() if v}
+        if held and checked != {k: got[k] for k in held if got[k]}:
+            fail(f"engine {label}: {checked} calls held, launches {got}")
+        worst = family_answers_held(f"engine {label} answers", cfg_, params_, prompts_, outs_,
+                                    kvq, tol)
+        n_tok = sum(len(o) for o in outs_)
+        stt = dict(eng.stats)
+        res = {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall, "steps": st_,
+               "decode_tok_s": stt["tokens"] / stt["t_decode_s"], "t_admit_s": stt["t_admit_s"],
+               "t_decode_s": stt["t_decode_s"], "launches": got, "worst_pick_gap": worst,
+               "calls_held": checked}
+        print(f"engine {label}: {len(reqs)} requests, {n_tok} tokens in {wall:.2f} s "
+              f"({res['tok_s']:.1f} tok/s; decode {res['decode_tok_s']:.1f} tok/s; t_admit_s "
+              f"{stt['t_admit_s']:.2f} s), {st_} decode steps, launches exact {got}"
+              + (f", every call of {sorted(checked)} held {checked}" if held else "")
+              + f"; every pick within {worst:.2e} of the teacher-forced plain max (<= {tol}) "
+              f"on {record['smi']}")
+        del eng
+        return res, outs_
+
+    def family_step(label, cfg_, params_, prompts_, kvq=False, M_=ENGINE_M):
+        """One engine decode step with 8 busy slots: 6 steps on the host
+        clock, one more under torch.profiler."""
+        eng = ServeEngine(cfg_, params_, max_batch=8, max_len=M_, kv_quant=kvq)
+        for p_ in prompts_[:8]:
+            eng.submit(p_, min(64, M_ - len(p_)))
+        eng.step()  # admits all 8; one decode step
+        eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) / 6 * 1e3
+        prof = profile_engine_step(eng, label)
+        del eng
+        return dict(prof, step_wall_ms=wall_ms)
+
+    # (a) qwen3-8b
+    cfg22, params22, build_s = build("qwen3-8b", "down", 22)
+    L22 = cfg22.n_layers
+    prompts22 = torch.randint(0, cfg22.vocab_size, (B, Lp), generator=g22, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks22 = greedy_generate(cfg22, params22, prompts22, 16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, want = counts(), family_launches("qwen3-8b", L22, [B * Lp] + [B] * 15)
+    if got != want:
+        fail(f"qwen3-8b lockstep: launches {got}, want {want}")
+    tally(got)
+    worst = family_answers_held("qwen3-8b lockstep answers", cfg22, params22,
+                                prompts22.tolist(), toks22.tolist(), False, FAMILY_TOKEN_TOL)
+    rec22["qwen3_lockstep"] = {"build_s": build_s, "wall_s": wall, "launches": got,
+                               "worst_pick_gap": worst}
+    print(f"22a qwen3-8b lockstep ({L22} layers, full width, down): {B}x{Lp} ids + 16 new in "
+          f"{wall:.2f} s, launches exact {got}; every pick within {worst:.2e} of the "
+          f"teacher-forced plain max (<= {FAMILY_TOKEN_TOL}) on {record['smi']}")
+    q_prompts = make_prompts(cfg22, ints22(64, 512, 8), g22)
+    rec22["qwen3_engine"], _ = family_engine("qwen3-8b", "qwen3-8b down bf16 KV", cfg22, params22,
+                                             q_prompts, 32, tol=FAMILY_TOKEN_TOL)
+    rec22["qwen3_step"] = family_step("qwen3-8b down engine, bf16 KV", cfg22, params22, q_prompts)
+    del params22
+    torch.cuda.empty_cache()
+    cfg2 = get_config("qwen3-8b").with_(n_layers=2)
+    params2 = random_ternary_params(cfg2, seed=23, perm_mode="down", device=dev)
+    rec22["qwen3_2layer"] = two_layer_check(
+        "qwen3-8b", "down", 0, built=(cfg2, params2), roundtrip=False,
+        want=lambda impl: family_launches("qwen3-8b", 2, [4 * 128] + [4] * 15))
+    rec22["qwen3_2layer_engine"], _ = family_engine(
+        "qwen3-8b", "2-layer qwen3-8b down bf16 KV", cfg2, params2, q_prompts, 16,
+        held=("ternary_matmul", "ternary_mlp", "decode_attention"))
+    del params2
+    torch.cuda.empty_cache()
+
+    # (b) gemma3-4b: two prompts over its window, six under it. At its full
+    # 34 layers every K7 call of the engine is held against its plain version
+    # on the engine's own activations and the answers, bf16 and int8 KV, to
+    # GEMMA3_DEEP_TOL (the random model's bf16 drift at that depth, printed
+    # below for one long request); on the same weights cut to
+    # GEMMA3_HELD_LAYERS layers every K1 and K7 call is held and the answers
+    # to TOKEN_TOL (the 2-layer copy after it holds K7 on windows)
+    cfg22, params22, build_s = build("gemma3-4b", "down", 24)
+    L22 = cfg22.n_layers
+    lens = ints22(1100, 1400, 2) + ints22(64, 512, 6)
+    g_prompts = make_prompts(cfg22, lens, g22)
+    rec22["gemma3_build_s"] = build_s
+    cut = cfg22.with_(n_layers=GEMMA3_HELD_LAYERS)
+    for kvq in (False, True):
+        kv = "int8" if kvq else "bf16"
+        res, g_outs = family_engine(
+            "gemma3-4b", f"gemma3-4b down {kv} KV ({L22} layers, prompts {lens})", cfg22,
+            params22, g_prompts, 32, kvq=kvq, held=("decode_attention",), tol=GEMMA3_DEEP_TOL)
+        if res["launches"]["decode_attention_hd256"] == 0 or res["launches"]["ternary_mlp"]:
+            fail(f"gemma3-4b engine: launches {res['launches']} (K7 at hd 256, no K2)")
+        rec22[f"gemma3_engine_{kv}"] = res
+        rec22[f"gemma3_engine_{kv}_cut"], _ = family_engine(
+            "gemma3-4b", f"gemma3-4b down {kv} KV ({cut.n_layers} of its {L22} layers)", cut,
+            params22, g_prompts, 32, kvq=kvq, held=("ternary_matmul", "decode_attention"),
+            tol=TOKEN_TOL)
+        rec22[f"gemma3_step_{kv}"] = family_step(f"gemma3-4b down engine, {kv} KV", cfg22,
+                                                 params22, g_prompts, kvq=kvq)
+        if not kvq:
+            noise = {}
+            for depth in (L22, cut.n_layers):
+                cd = cfg22.with_(n_layers=depth)
+                toks = torch.as_tensor(list(g_prompts[0]) + g_outs[0][:-1], device=dev)[None]
+                with torch.inference_mode():
+                    lb = tdec.forward(cd, params22, toks, impl="plain")[0, len(g_prompts[0]) - 1:]
+                    p32 = tdec._map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                                    params22)
+                    lf = tdec.forward(cd, p32, toks, impl="plain")[0, len(g_prompts[0]) - 1:]
+                    del p32
+                lb, lf = lb.float(), lf.float()
+                rel = ((lb - lf).norm() / lf.norm()).item()
+                gap = ((lf.max(1).values - lf.gather(1, lb.argmax(1)[:, None])[:, 0])
+                       / lf.abs().max(1).values).max().item()
+                noise[depth] = {"rel_l2_bf16_f32": rel, "pick_gap_bf16_vs_f32": gap}
+                del lb, lf
+            rec22["gemma3_bf16_noise"] = noise
+            print("22b gemma3-4b bf16 noise, one request of " + str(len(g_prompts[0])) + " ids + "
+                  "31 answer ids through the plain route, bf16 against f32: " + "; ".join(
+                      f"{d} layers rel L2 {v['rel_l2_bf16_f32']:.3f}, the bf16 picks trail the "
+                      f"f32 max by {v['pick_gap_bf16_vs_f32']:.3e} of max|logit|"
+                      for d, v in noise.items()) + f" on {record['smi']}")
+    # the 2-layer cut of the same weights: both layers sliding (the pattern
+    # starts with 5 local layers), every K1 / K7 call held, K7's on windows
+    cfg2 = cfg22.with_(n_layers=2)
+    if any(cfg2.globals_list()):
+        fail("the 2-layer gemma3-4b copy has a global layer")
+    windowed = [0]
+
+    def window_spy(name, kernel, plain, tol):
+        held_call = each_call_checked(name, kernel, plain, tol)
+        if name != "decode_attention":
+            return held_call
+
+        def call(q_, k_, v_, valid, *a, **kw):
+            first = valid.float().argmax(dim=1)  # each row's first valid slot
+            windowed[0] += int((first > 0).any().item())
+            return held_call(q_, k_, v_, valid, *a, **kw)
+        return call
+
+    rec22["gemma3_2layer"] = {}
+    for kvq in (False, True):
+        kv = "int8" if kvq else "bf16"
+        windowed[0] = 0
+        held = ("ternary_matmul", "decode_attention")
+        eng = ServeEngine(cfg2, params22, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
+        reqs = [eng.submit(p_, 16) for p_ in g_prompts[:4]]
+        for k in per_call:
+            per_call[k] = 0
+        with swapped(window_spy, held):
+            zero_counts()
+            eng.run()
+            torch.cuda.synchronize()
+            got = counts()
+        st_ = eng.stats["steps"]
+        want = family_launches("gemma3-4b", 2, [min(_bucket(len(p_)), ENGINE_M)
+                                                 for p_ in g_prompts[:4]] + [8] * st_, st_)
+        checked = {k: v for k, v in per_call.items() if v}
+        if got != want or checked != {k: got[k] for k in held}:
+            fail(f"2-layer gemma3-4b engine {kv} KV: launches {got}, want {want}, held {checked}")
+        tally(got)
+        # every decode step's two K7 calls (both layers sliding) carry the long
+        # prompts' rows, whose windows start past slot 0
+        if windowed[0] != 2 * st_:
+            fail(f"2-layer gemma3-4b engine {kv} KV: {windowed[0]} of {2 * st_} K7 calls saw "
+                 "a windowed kv_valid")
+        worst = family_answers_held(f"2-layer gemma3-4b engine {kv} KV answers", cfg2, params22,
+                                    g_prompts[:4], [r.out for r in reqs], kvq, TOKEN_TOL)
+        rec22["gemma3_2layer"][kv] = {"launches": got, "calls_held": checked,
+                                      "k7_windowed_calls": windowed[0], "worst_pick_gap": worst}
+        print(f"22b 2-layer gemma3-4b ServeEngine ({kv} KV, both layers sliding, prompts "
+              f"{[len(p_) for p_ in g_prompts[:4]]}): every K1 / K7 call held against its plain "
+              f"version {checked}, {windowed[0]} K7 calls on a kv_valid that starts past slot 0; "
+              f"launches exact; every pick within {worst:.2e} (<= {TOKEN_TOL})")
+        del eng
+    del params22
+    torch.cuda.empty_cache()
+
+    # (c) the ungated, biased, learned-position and ALiBi families, 2 layers
+    for name, seed, M_ in (("opt-1.3b", 26, ENGINE_M), ("gpt2-xl", 27, 1024),
+                           ("bloom-560m", 28, ENGINE_M)):
+        cfg2 = get_config(name).with_(n_layers=2)
+        params2 = random_ternary_params(cfg2, seed=seed, perm_mode="down", device=dev)
+        lock_want = family_launches(name, 2, [4 * 128] + [4] * 15)
+        rec = two_layer_check(name, "down", 0, built=(cfg2, params2),
+                              want=lambda impl, w=lock_want: w)
+        prompts_c = make_prompts(cfg2, ints22(64, 300, 4), g22)
+        rec["engine"], _ = family_engine(name, f"2-layer {name} down bf16 KV", cfg2, params2,
+                                         prompts_c, 16, M_=M_, held=("ternary_matmul",))
+        rec["step"] = family_step(f"2-layer {name} down engine, bf16 KV", cfg2, params2,
+                                  prompts_c * 2, M_=M_)
+        rec22[name] = rec
+        del params2
+        torch.cuda.empty_cache()
+    record["families"] = rec22
+
     record["paths_s"] = time.perf_counter() - t_start
 
     stamp("6")
@@ -4936,7 +5387,11 @@ def main() -> None:
     tc_lib = k7._tc_kernel_lib()
     record["k7_cc_timing"] = []
 
-    def k7_timing(H7, Hkv7, hd7, attn_scale, label):
+    def k7_timing(H7, Hkv7, hd7, attn_scale, label, modes=("all", "engine")):
+        """K7 at B 8, M 2048 over valid slots by ``modes``: "all" every slot,
+        "engine" prefixes of 64-576 slots (the engine's lengths), "window"
+        gemma3's window of 1024 slots ending at 1100-2047 (rows whose slots
+        before the window are invalid)."""
         B7, M7 = 8, ENGINE_M
         chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7)
         nchunk = -(-M7 // chunk)
@@ -4949,13 +5404,17 @@ def main() -> None:
             eb = 1 if quant else 2
             kv_bytes = 2 * B7 * M7 * Hkv7 * hd7 * eb + (2 * B7 * M7 * Hkv7 * 4 if quant else 0)
             copies = max(2, math.ceil(COLD_BYTES / kv_bytes))
-            for lengths in ("all", "engine"):
+            for lengths in modes:
                 sets = [attn_inputs(B7, M7, H7, Hkv7, quant, ragged=False, hd=hd7)
                         for _ in range(copies)]
-                if lengths == "engine":
-                    for st_ in sets:
-                        st_[3].copy_(torch.arange(M7, device=dev)[None, :] < torch.randint(
-                            64, 577, (B7, 1), generator=g, device=dev))
+                pos7 = torch.arange(M7, device=dev)[None, :]
+                for st_ in sets:
+                    if lengths == "engine":
+                        st_[3].copy_(pos7 < torch.randint(64, 577, (B7, 1), generator=g,
+                                                          device=dev))
+                    elif lengths == "window":
+                        p7 = torch.randint(1100, M7, (B7, 1), generator=g, device=dev)
+                        st_[3].copy_((pos7 <= p7) & (pos7 > p7 - 1024))
                 q7 = sets[0][0]
                 ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
 
@@ -5012,10 +5471,11 @@ def main() -> None:
                          f"max|err| {err:.3e}, max|ref| {want.abs().max().item():.3e}")
                 # what the function needs: the valid slots' K/V (and scales) once,
                 # q, kv_valid and the output; its operations on those slots
-                slots = sum(int(st_[3].sum()) for st_ in sets) / copies  # prefixes: a row's end
+                slots = sum(int(st_[3].sum()) for st_ in sets) / copies  # the valid slots only
                 need = slots * Hkv7 * (2 * hd7 * eb + (8 if quant else 0))
                 nbytes = need + 2 * B7 * H7 * hd7 + B7 * M7 + 2 * B7 * H7 * hd7
-                shape = ("int8" if quant else "bf16") + ("" if lengths == "all" else " eng")
+                shape = ("int8" if quant else "bf16") + {"all": "", "engine": " eng",
+                                                         "window": " window"}[lengths]
                 d = row(label, shape, B7, gr_ms["tc"], plain_ms, lib_ms, nbytes,
                         4.0 * H7 * slots * hd7, M=M7, H=H7, Hkv=Hkv7, hd=hd7, splits=plan.splits,
                         lengths=lengths, valid_slots=slots)
@@ -5034,6 +5494,11 @@ def main() -> None:
     record["k7_timing"] = k7_timing(32, 8, 128, attn_scale, "K7")
     Hg, Hkvg, hdg = HEADS_GEMMA
     record["k7_gemma_timing"] = k7_timing(Hg, Hkvg, hdg, 1.0 / math.sqrt(hdg), "K7gemma")
+    # K7 at gemma3-4b's heads (8 / 4 KV of 256) on the windowed kv_valid of
+    # its sliding layers: the bound counts the window's slots
+    H3, Hkv3, hd3 = HEADS_GEMMA3
+    record["k7_gemma3_window_timing"] = k7_timing(H3, Hkv3, hd3, 1.0 / math.sqrt(hd3),
+                                                  "K7gemma3", modes=("window",))
 
     # ---- the record: per kernel, one layer of one step of its main path
     # (K1's tensor-core kernels at the 512-row prefill, 4 projections, the
@@ -5184,7 +5649,7 @@ def main() -> None:
                          mult=3))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
-    print(f"launches over every 32-layer run (each counted exactly): {run_totals}")
+    print(f"launches over every run counted exactly: {run_totals}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"no launch on the main paths for {idle}")

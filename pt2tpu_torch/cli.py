@@ -1,23 +1,30 @@
 """Command line: ``python -m pt2tpu_torch.cli quantize|eval|generate|serve|info``.
 
-  quantize — a registry config with random dense weights (from ``--seed``),
-             calibrated on a token stream and ternarized; writes a packed
-             artifact (the JAX package's format) with the per-layer journal
-             and ``quantize_metrics.jsonl`` in ``--output``, and resumes
-             from that journal. The JAX package's flags.
-  eval     — perplexity of an artifact (or a registry config's random dense
-             model) on a token stream.
-  generate — greedy decode from token ids with an artifact (or a registry
-             config's random dense model); prints the ids comma-separated,
-             as ``python -m pt2tpu.cli generate`` does.
+  quantize — a local HuggingFace checkpoint directory, or a registry config
+             with random dense weights (from ``--seed``), calibrated on a
+             token stream and ternarized; writes a packed artifact (the JAX
+             package's format) with the per-layer journal and
+             ``quantize_metrics.jsonl`` in ``--output``, and resumes from
+             that journal. The JAX package's flags.
+  eval     — perplexity of an artifact, an HF directory or a registry
+             config's random dense model on a token stream.
+  generate — greedy decode from token ids (or ``--prompt`` text with a local
+             tokenizer) with any of those models; prints the ids
+             comma-separated, as ``python -m pt2tpu.cli generate`` does, or
+             the text.
   serve    — the HTTP front end over the continuous-batching engine
              (POST /generate, GET /health).
-  info     — print an artifact's manifest without its structure.
+  info     — print an artifact's manifest without its structure, or an HF
+             directory's config.
 
 Runs on the card unless ``--device cpu`` is given. Dense weights are f32 on
-the CPU and bf16 on the card (the JAX package's rule). A local HuggingFace
-checkpoint directory raises ``NotImplementedError``: its loader is not
-ported.
+the CPU and bf16 on the card (the JAX package's rule). An HF checkpoint of
+more than 4 GiB loads host-resident when the run is on the card, and
+``quantize`` then streams it to the card one layer at a time (the JAX
+package's rule, :func:`host_resident`). A tokenizer is used only where one
+is present locally (``--tokenizer``; ``quantize`` also tries the HF
+directory's own, as the JAX CLI does); otherwise the CLI works on token
+ids.
 """
 
 from __future__ import annotations
@@ -29,26 +36,48 @@ import sys
 import time
 
 
+HOST_RESIDENT_BYTES = 4 << 30  # larger checkpoints stay on the host when running on the card
+
+
+def checkpoint_bytes(model_dir: str) -> int:
+    """The bytes of a checkpoint directory's weight files."""
+    return sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+               if f.endswith((".safetensors", ".bin")))
+
+
+def host_resident(nbytes: int, device) -> bool:
+    """The JAX package's residency rule: a checkpoint of more than 4 GiB
+    loads on the host when the run is not on the CPU."""
+    return nbytes > HOST_RESIDENT_BYTES and device.type != "cpu"
+
+
 def _resolve_model(name_or_path: str, device, seed: int = 0):
-    """A registry name -> (cfg, random dense params, "random-init") on
-    ``device``, f32 on the CPU and bf16 on the card."""
+    """A local HF directory -> (cfg, its weights, "hf"); a registry name ->
+    (cfg, random dense params, "random-init"). f32 on the CPU and bf16 on
+    the card; an HF checkpoint that :func:`host_resident` picks stays on the
+    host."""
     import torch
 
     from .models import decoder as dec
     from .models.registry import get_config
 
-    if os.path.isdir(name_or_path):
-        raise NotImplementedError(
-            f"{name_or_path}: loading a HuggingFace checkpoint needs models/hf_loader: not ported"
-        )
-    cfg = get_config(name_or_path)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    if os.path.isdir(name_or_path):
+        from .models.hf_loader import load_hf_model
+
+        host = host_resident(checkpoint_bytes(name_or_path), device)
+        return load_hf_model(name_or_path, dtype=dtype,
+                             device="cpu" if host else device) + ("hf",)
+    cfg = get_config(name_or_path)
     gen = torch.Generator(device=device).manual_seed(seed)
     return cfg, dec.init_params(cfg, gen, dtype=dtype, device=device), "random-init"
 
 
 def _load(args):
-    """An artifact directory, else a registry config's random dense model."""
+    """An artifact directory, else an HF directory or a registry config's
+    random dense model; a host-resident HF model moves to the device whole
+    (only ``quantize`` streams)."""
+    from .models.decoder import _map
     from .utils.checkpoint import load_model
     from .utils.device import resolve_device
 
@@ -56,7 +85,10 @@ def _load(args):
     if os.path.exists(os.path.join(args.model, "manifest.json")):
         return load_model(args.model, device=dev)
     cfg, params, _ = _resolve_model(args.model, dev, getattr(args, "seed", 42))
+    if params["embed"].device.type != dev.type:
+        params = _map(lambda t: t.to(dev), params)
     return cfg, params
+
 
 
 def _load_tokenizer(path_or_none):
@@ -81,7 +113,7 @@ def cmd_quantize(args):
     dev = resolve_device(args.device)
     cfg, params, provenance = _resolve_model(args.model, dev, args.seed)
     print(f"model: {args.model} [{provenance}] {cfg.n_layers}L dim={cfg.dim}")
-    tok = _load_tokenizer(args.tokenizer)
+    tok = _load_tokenizer(args.tokenizer or (args.model if provenance == "hf" else None))
     calib, calib_prov = get_calibration_data(
         args.calib, cfg.vocab_size, num_samples=args.num_samples,
         seq_len=min(args.seq_len, cfg.max_seq_len), seed=args.seed, tokenizer=tok,
@@ -102,7 +134,8 @@ def cmd_quantize(args):
     )
     log = MetricsLogger(os.path.join(args.output, "quantize_metrics.jsonl"), verbose=True)
     t0 = time.time()
-    qparams, report = quantize_model(cfg, params, calib, qcfg, log=log, journal_dir=args.output)
+    qparams, report = quantize_model(cfg, params, calib, qcfg, log=log, journal_dir=args.output,
+                                     device=dev)
     elapsed = time.time() - t0
     print(f"quantized in {elapsed:.1f}s; bits/weight {model_bits_per_weight(qparams):.3f}")
     report["provenance"] = {"model": provenance, "calibration": calib_prov}
@@ -134,26 +167,33 @@ def cmd_eval(args):
 def cmd_generate(args):
     from .serve.generate import greedy_generate
 
-    if not args.prompt_ids:
-        raise SystemExit("need --prompt-ids (tokenizers are not ported)")
+    tok = _load_tokenizer(args.tokenizer)
+    if args.prompt_ids:
+        ids = [int(x) for x in args.prompt_ids.split(",")]
+    elif args.prompt and tok:
+        ids = tok(args.prompt)["input_ids"]
+    else:
+        raise SystemExit("need --prompt-ids, or --prompt with a local tokenizer")
     cfg, params = _load(args)
-    ids = [int(x) for x in args.prompt_ids.split(",")]
     out = greedy_generate(
         cfg, params, [ids], max_new=args.max_new,
         max_len=min(cfg.max_seq_len, len(ids) + args.max_new),
         impl="a8" if args.a8 else "auto",
         kv_quant=args.kv_int8,
     )
-    print(",".join(map(str, out[0].tolist())))
+    ids_out = out[0].tolist()
+    print(tok.decode(ids_out) if tok else ",".join(map(str, ids_out)))
 
 
 def cmd_serve(args):
     from .serve.server import ServingServer
 
-    for flag, what in (("paged", "the paged KV pool (serve/paged.py)"),
-                       ("draft", "speculative decoding (serve/speculative.py)"),
-                       ("tp", "tensor parallelism (parallel/tp.py)")):
-        if getattr(args, flag) not in (None, False, 1):
+    # each flag against its own default: True == 1, so one shared set of
+    # defaults would let --paged through
+    for flag, default, what in (("paged", False, "the paged KV pool (serve/paged.py)"),
+                                ("draft", None, "speculative decoding (serve/speculative.py)"),
+                                ("tp", 1, "tensor parallelism (parallel/tp.py)")):
+        if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag} needs {what}: not ported")
     cfg, params = _load(args)
     srv = ServingServer(
@@ -175,6 +215,16 @@ def cmd_serve(args):
 
 
 def cmd_info(args):
+    if not os.path.exists(os.path.join(args.model, "manifest.json")) and os.path.exists(
+            os.path.join(args.model, "config.json")):
+        import dataclasses
+
+        from .models.hf_loader import config_from_hf
+
+        cfg = config_from_hf(args.model)
+        print(json.dumps({"hf_checkpoint": args.model, "model_config": dataclasses.asdict(cfg),
+                          "checkpoint_bytes": checkpoint_bytes(args.model)}, indent=2))
+        return
     with open(os.path.join(args.model, "manifest.json")) as f:
         manifest = json.load(f)
     manifest.pop("structure", None)
@@ -187,7 +237,8 @@ def build_parser():
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
     q = sub.add_parser("quantize", help="ternarize a model")
-    q.add_argument("--model", required=True, help="registry config name (random init)")
+    q.add_argument("--model", required=True,
+                   help="local HF checkpoint directory, or registry config name (random init)")
     q.add_argument("--output", default="./quantized_model")
     q.add_argument("--block_size", type=int, default=128)
     q.add_argument("--num_samples", type=int, default=128)
@@ -225,9 +276,11 @@ def build_parser():
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(fn=cmd_eval)
     g = sub.add_parser("generate", help="greedy decode")
-    g.add_argument("--model", required=True, help="artifact directory or registry config")
+    g.add_argument("--model", required=True, help="artifact, HF checkpoint directory or registry config")
     g.add_argument("--seed", type=int, default=42, help="a registry config's random weights")
+    g.add_argument("--prompt", default=None, help="text, with a local tokenizer")
     g.add_argument("--prompt-ids", default=None)
+    g.add_argument("--tokenizer", default=None)
     g.add_argument("--max-new", type=int, default=64)
     g.add_argument("--a8", action="store_true",
                    help="W2A8: int8 activations in the K1 kernel")
@@ -235,7 +288,7 @@ def build_parser():
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=cmd_generate)
     sv = sub.add_parser("serve", help="HTTP serving front end")
-    sv.add_argument("--model", required=True, help="artifact directory or registry config")
+    sv.add_argument("--model", required=True, help="artifact, HF checkpoint directory or registry config")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8471)
     sv.add_argument("--max-batch", type=int, default=8)
@@ -249,7 +302,7 @@ def build_parser():
     sv.add_argument("--draft", default=None, help="not ported")
     sv.add_argument("--tp", type=int, default=1, help="not ported")
     sv.set_defaults(fn=cmd_serve)
-    i = sub.add_parser("info", help="inspect an artifact")
+    i = sub.add_parser("info", help="inspect an artifact or an HF checkpoint directory")
     i.add_argument("--model", required=True)
     i.set_defaults(fn=cmd_info)
     return ap

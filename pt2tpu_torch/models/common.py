@@ -1,8 +1,9 @@
-"""Shared building blocks of the decoder: linears, norms, RoPE, attention.
+"""Shared building blocks of the decoder: linears, norms, RoPE, ALiBi,
+attention.
 
-Counterpart of ``pt2tpu.models.common`` for the llama and gemma families.
-Attention is plain matmul + softmax, as the JAX package's XLA path computes
-it.
+Counterpart of ``pt2tpu.models.common``. Attention is plain matmul +
+softmax, as the JAX package's XLA path computes it, except single-query
+cache reads that K7 takes.
 """
 
 from __future__ import annotations
@@ -25,10 +26,13 @@ __all__ = [
     "DenseLinear",
     "apply_linear",
     "rms_norm",
+    "layer_norm",
     "rope_tables",
     "apply_rope",
     "causal_mask",
     "attention",
+    "alibi_slopes",
+    "alibi_bias",
 ]
 
 
@@ -58,6 +62,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, statistics in f32; the normalised x is
+    rounded to x's dtype before the affine part, as in the JAX package."""
+    dt = x.dtype
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return y.to(dt) * weight.to(dt) + bias.to(dt)
 
 
 def rope_tables(
@@ -141,7 +157,7 @@ def attention(
     q: torch.Tensor,  # (B, Lq, H, hd)
     k: torch.Tensor,  # (B, Lkv, Hkv, hd): bf16 (or f32), or int8 with k_scale
     v: torch.Tensor,  # (B, Lkv, Hkv, hd)
-    mask: Optional[torch.Tensor] = None,  # (Lq, Lkv) additive
+    mask: Optional[torch.Tensor] = None,  # additive: (Lq, Lkv), (H, Lq, Lkv) or per row
     kv_valid: Optional[torch.Tensor] = None,  # (B, Lkv) bool
     scale: Optional[float] = None,  # None -> 1/sqrt(hd)
     softcap: float = 0.0,
@@ -152,7 +168,10 @@ def attention(
     """Grouped-query attention; returns (B, Lq, H, hd) in q's dtype.
 
     Scores and softmax in f32 (the products of bf16 operands are exact in
-    f32, as the JAX einsum with an f32 result type). Invalid cache slots get
+    f32, as the JAX einsum with an f32 result type). ``softcap`` > 0 caps the
+    scores as ``softcap * tanh(s / softcap)`` before the mask (gemma2). The
+    additive ``mask`` is shared (Lq, Lkv), per head (H, Lq, Lkv: ALiBi), or
+    per row (B, 1, Lq, Lkv) or (B, H, Lq, Lkv). Invalid cache slots get
     ``finfo(float32).min``, not -inf; the probabilities are cast to q's dtype
     before the product with v.
 
@@ -164,8 +183,6 @@ def attention(
     scales or neither, shapes that the TPU kernel's ``supported`` accepts
     and tensors on CUDA goes to K7 when the flags (or ``attn_kernel``) say
     so; K7 raises for a head width it is not built for."""
-    if softcap:
-        raise NotImplementedError("attention softcap is not ported")
     B, Lq, H, hd = q.shape
     Hkv = k.shape[2]
     rep = H // Hkv
@@ -175,7 +192,8 @@ def attention(
         if attn_kernel is not None
         else (DECODE_ATTN_KERNEL or (quant and INT8_DECODE_ATTN_KERNEL))
     )
-    if (use_kernel and Lq == 1 and mask is None and (v_scale is not None) == quant
+    if (use_kernel and Lq == 1 and mask is None and not softcap
+            and (v_scale is not None) == quant
             and q.is_cuda and kv_valid is not None
             and decode_attention_supported(k.shape[1], hd, quant)):
         s = float(scale) if scale is not None else 1.0 / float(hd) ** 0.5
@@ -196,10 +214,18 @@ def attention(
     if quant:
         # (B, M, Hkv, 1) -> (B, Hkv, 1, 1, M) on the f32 scores
         scores = scores * k_scale.permute(0, 2, 3, 1)[:, :, :, None, :]
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
     if mask is not None:
-        if mask.dim() != 2:
-            raise NotImplementedError("only a shared (Lq, Lkv) mask is ported")
-        scores = scores + mask[None, None, None, :, :]
+        Lkv = k.shape[1]
+        if mask.dim() == 2:
+            scores = scores + mask[None, None, None, :, :]
+        elif mask.dim() == 3:  # (H, Lq, Lkv)
+            scores = scores + mask.reshape(Hkv, rep, Lq, Lkv)[None]
+        elif mask.shape[1] == 1:  # (B, 1, Lq, Lkv): shared across heads
+            scores = scores + mask[:, :, None]
+        else:  # (B, H, Lq, Lkv)
+            scores = scores + mask.reshape(B, Hkv, rep, Lq, Lkv)
     if kv_valid is not None:
         neg = torch.finfo(torch.float32).min
         scores = scores.masked_fill(~kv_valid[:, None, None, None, :], neg)
@@ -214,3 +240,31 @@ def attention(
         return out.reshape(B, Lq, H, hd).to(q.dtype)
     out = torch.einsum("bhrlm,bmhd->blhrd", probs.to(q.dtype), v.to(q.dtype))
     return out.reshape(B, Lq, H, hd)
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes (f32): a geometric sequence from 2^(-8/n) for
+    the largest power of two n <= n_heads, then every other slope of the
+    next power's sequence for the remaining heads (HF Bloom's
+    build_alibi_tensor, the JAX package's order)."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start**i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        s = pow2_slopes(n_heads)
+    else:
+        base = 2 ** math.floor(math.log2(n_heads))
+        s = pow2_slopes(base) + pow2_slopes(2 * base)[0::2][: n_heads - base]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+def alibi_bias(n_heads: int, q_pos: torch.Tensor, kv_len: int) -> torch.Tensor:
+    """Additive ALiBi bias (H, Lq, kv_len): slope_h * (k_pos - q_pos); the
+    causal mask excludes k_pos > q_pos separately."""
+    dev = q_pos.device
+    slopes = alibi_slopes(n_heads, device=dev)
+    k_pos = torch.arange(kv_len, dtype=torch.float32, device=dev)
+    rel = k_pos[None, :] - q_pos.float()[:, None]  # (Lq, kv)
+    return slopes[:, None, None] * rel[None, :, :]

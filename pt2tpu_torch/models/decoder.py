@@ -6,10 +6,15 @@ along a leading ``n_layers`` axis. The forward is a Python loop over layers
 where JAX uses ``lax.scan``; a stacked packed linear is applied to the
 zero-copy view of its layer.
 
-The port serves the llama and gemma (v1) families: RMSNorm (gemma's scales by
-1 + w), RoPE, a gated MLP with silu, gelu (tanh form) or relu, a scaled
-embedding and tied embeddings. :func:`check_supported` raises
-``NotImplementedError`` naming any other feature a config asks for.
+One implementation serves every dense family of the JAX registry; their
+differences are config switches: RMSNorm (gemma's by 1 + w) or LayerNorm,
+RoPE (a local base on sliding layers, linear or llama-3.1 scaling), learned
+positions (OPT's offset 2) or ALiBi, a gated MLP (silu, gelu in its tanh
+form, relu) or an ungated one, biases, qk-norm, sandwich norms, sliding
+windows on some layers, attention and final softcaps, an embedding scale,
+an embedding norm and tied embeddings. :func:`check_supported` raises
+``NotImplementedError`` for mixture-of-experts configs, whose slice is still
+to come.
 
 Dense parameters (:func:`init_params`) are the quantizer's input: the same
 tree as the JAX package's, drawn from an explicit ``torch.Generator``.
@@ -28,7 +33,17 @@ from ..ops.kernels.ternary import mlp_activation
 from ..ops.gather import PackedGather
 from ..ops.ternary_matmul import PackedTernaryLinear, fused_mlp_apply, fused_mlp_ok
 from ..utils.device import resolve_device
-from .common import DenseLinear, apply_linear, apply_rope, attention, causal_mask, rms_norm, rope_tables
+from .common import (
+    DenseLinear,
+    alibi_bias,
+    apply_linear,
+    apply_rope,
+    attention,
+    causal_mask,
+    layer_norm,
+    rms_norm,
+    rope_tables,
+)
 
 __all__ = [
     "ModelConfig",
@@ -41,7 +56,10 @@ __all__ = [
     "layer_slice",
     "set_layer",
     "pos_tables",
+    "build_mask",
     "embed_tokens",
+    "embed_tokens_per_row",
+    "sliding_adjust",
     "layer_view",
     "LayerIO",
     "layer_forward",
@@ -119,27 +137,35 @@ class ModelConfig:
             self.layer_globals is None or not all(self.layer_globals)
         )
 
+    def globals_list(self) -> Tuple[bool, ...]:
+        """Per-layer is-global-attention flags (all True without sliding)."""
+        if not self.has_sliding:
+            return (True,) * self.n_layers
+        lg = self.layer_globals or (False,) * self.n_layers
+        if len(lg) != self.n_layers:
+            raise ValueError(f"layer_globals has {len(lg)} entries for {self.n_layers} layers")
+        return tuple(bool(g) for g in lg)
+
     def with_(self, **kw) -> "ModelConfig":
+        """A copy with ``kw`` replaced; a new ``n_layers`` cycles the
+        per-layer global/local pattern (as the JAX package does)."""
+        if "n_layers" in kw and "layer_globals" not in kw and self.layer_globals is not None:
+            lg = self.layer_globals
+            kw["layer_globals"] = tuple(lg[i % len(lg)] for i in range(kw["n_layers"]))
         return dataclasses.replace(self, **kw)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming every feature of ``cfg`` that the
-    port does not compute."""
+    port does not compute: mixture of experts, or a norm, position encoding
+    or activation that no family has."""
     missing = [
         name
         for name, bad in (
-            (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm"),
-            (f"pos={cfg.pos!r}", cfg.pos != "rope"),
+            (f"norm={cfg.norm!r}", cfg.norm not in ("rmsnorm", "layernorm")),
+            (f"pos={cfg.pos!r}", cfg.pos not in ("rope", "learned", "alibi")),
             (f"act={cfg.act!r}", cfg.act not in ("silu", "gelu", "relu")),
-            ("non-gated MLP", not cfg.gated_mlp),
             ("mixture of experts", cfg.is_moe),
-            ("qk_norm", cfg.qk_norm),
-            ("sandwich_norm", cfg.sandwich_norm),
-            ("sliding-window attention", cfg.has_sliding),
-            ("attention softcap", cfg.attn_softcap != 0.0),
-            ("final softcap", cfg.final_softcap != 0.0),
-            ("embed_norm", cfg.embed_norm),
         )
         if bad
     ]
@@ -179,24 +205,27 @@ def _init_layer(cfg: ModelConfig, gen, dtype, device) -> Dict[str, Any]:
     D, I = cfg.dim, cfg.intermediate
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     qb = cfg.linear_bias or cfg.qkv_bias
-    ones = lambda: torch.ones((D,), dtype=dtype, device=device)  # noqa: E731
+    ones = lambda n=D: torch.ones((n,), dtype=dtype, device=device)  # noqa: E731
+    ln_b = (lambda: torch.zeros((D,), dtype=dtype, device=device)) if cfg.norm == "layernorm" \
+        else (lambda: None)
     return {
         "ln1_w": ones(),
-        "ln1_b": None,
+        "ln1_b": ln_b(),
         "q": _init_linear(gen, H * hd, D, qb, dtype, device),
         "k": _init_linear(gen, Hkv * hd, D, qb, dtype, device),
         "v": _init_linear(gen, Hkv * hd, D, qb, dtype, device),
         "o": _init_linear(gen, D, H * hd, cfg.linear_bias, dtype, device),
         "ln2_w": ones(),
-        "ln2_b": None,
+        "ln2_b": ln_b(),
         "router": None,
-        "gate": _init_linear(gen, I, D, cfg.linear_bias, dtype, device),
+        "gate": (_init_linear(gen, I, D, cfg.linear_bias, dtype, device) if cfg.gated_mlp
+                 else None),
         "up": _init_linear(gen, I, D, cfg.linear_bias, dtype, device),
         "down": _init_linear(gen, D, I, cfg.linear_bias, dtype, device),
-        "q_norm_w": None,
-        "k_norm_w": None,
-        "post_attn_w": None,
-        "post_mlp_w": None,
+        "q_norm_w": ones(hd) if cfg.qk_norm else None,
+        "k_norm_w": ones(hd) if cfg.qk_norm else None,
+        "post_attn_w": ones() if cfg.sandwich_norm else None,
+        "post_mlp_w": ones() if cfg.sandwich_norm else None,
     }
 
 
@@ -262,21 +291,39 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
     lm_head = (None if cfg.tie_embeddings
                else _init_linear(gen, cfg.vocab_size, cfg.dim, False, dtype, dev))
     embed = (torch.randn((cfg.vocab_size, cfg.dim), generator=gen, device=dev) * 0.02).to(dtype)
+    pos_embed = None
+    if cfg.pos == "learned":
+        pos_embed = (torch.randn((cfg.max_seq_len + cfg.pos_offset, cfg.dim), generator=gen,
+                                 device=dev) * 0.02).to(dtype)
+    zeros = lambda: torch.zeros((cfg.dim,), dtype=dtype, device=dev)  # noqa: E731
+    layernorm = cfg.norm == "layernorm"
     return {
         "embed": embed,
-        "emb_ln_w": None,
-        "emb_ln_b": None,
-        "pos_embed": None,
+        "emb_ln_w": torch.ones((cfg.dim,), dtype=dtype, device=dev) if cfg.embed_norm else None,
+        "emb_ln_b": zeros() if (cfg.embed_norm and layernorm) else None,
+        "pos_embed": pos_embed,
         "layers": stack_layers(layers),
         "lnf_w": torch.ones((cfg.dim,), dtype=dtype, device=dev),
-        "lnf_b": None,
+        "lnf_b": zeros() if layernorm else None,
         "lm_head": lm_head,
     }
 
 
-def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """RMSNorm by ``w``, or by 1 + w (gemma), which ``rms_norm`` rounds to
-    x's dtype before the product, as the JAX package does."""
+def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The config's norm: RMSNorm by ``w``, or by 1 + w (gemma), which
+    ``rms_norm`` rounds to x's dtype before the product, as the JAX package
+    does; or LayerNorm by ``w`` and ``b``."""
+    if cfg.norm == "rmsnorm":
+        if cfg.norm_plus_one:
+            w = 1.0 + w.float()
+        return rms_norm(x, w, cfg.norm_eps)
+    return layer_norm(x, w, b, cfg.norm_eps)
+
+
+def _head_norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """qk-norm: RMSNorm over head_dim of (B, L, H, hd) q or k (qwen3,
+    gemma3; by 1 + w where the config's norms are)."""
     if cfg.norm_plus_one:
         w = 1.0 + w.float()
     return rms_norm(x, w, cfg.norm_eps)
@@ -289,19 +336,114 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def pos_tables(cfg: ModelConfig, max_len: int, device=None):
-    """RoPE (cos, sin) tables for positions [0, max_len)."""
-    return rope_tables(
+    """RoPE tables for positions [0, max_len): (cos, sin, cos_loc, sin_loc),
+    the local pair being the sliding layers' tables where the config has a
+    distinct local base (gemma3: theta 1e6 with linear scale 8 on global
+    layers, 1e4 on local ones), else None; zeros (max_len, 1) for a config
+    without RoPE."""
+    if cfg.pos != "rope":
+        z = torch.zeros((max_len, 1), dtype=torch.float32, device=device)
+        return z, z, None, None
+    cos, sin = rope_tables(
         cfg.hd, max_len, cfg.rope_theta, cfg.rope_scale, cfg.rope_llama3, device=device
     )
+    if cfg.rope_local_theta is None or not cfg.has_sliding:
+        return cos, sin, None, None
+    cos_l, sin_l = rope_tables(cfg.hd, max_len, cfg.rope_local_theta, device=device)
+    return cos, sin, cos_l, sin_l
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, L) ids -> (B, L, D) hidden; the scale (gemma: sqrt(dim)) is
-    rounded to the hidden dtype before the product, as in the JAX package."""
+def build_mask(cfg: ModelConfig, q_len: int, kv_len: int, q_offset: int = 0,
+               device=None) -> torch.Tensor:
+    """Additive attention mask: causal, plus the per-head ALiBi bias when
+    ``cfg.pos == "alibi"`` (then (H, Lq, Lkv), else (Lq, Lkv))."""
+    mask = causal_mask(q_len, kv_len, q_offset, device=device)
+    if cfg.pos == "alibi":
+        q_pos = q_offset + torch.arange(q_len, device=device)
+        mask = mask[None] + alibi_bias(cfg.n_heads, q_pos, kv_len)
+    return mask
+
+
+def _embed_finish(cfg: ModelConfig, params, h: torch.Tensor, pos: Optional[torch.Tensor]):
+    """Learned positions (``pos`` already offset) and the embedding norm."""
+    if cfg.pos == "learned":
+        h = h + F.embedding(pos, params["pos_embed"])
+    if cfg.embed_norm:
+        h = _norm(cfg, h, params["emb_ln_w"], params["emb_ln_b"])
+    return h
+
+
+def _scaled_embedding(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     h = F.embedding(tokens, params["embed"])
     if cfg.embed_scale != 1.0:
         h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
     return h
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor, pos0: int = 0) -> torch.Tensor:
+    """(B, L) ids at positions [pos0, pos0 + L) -> (B, L, D) hidden: the
+    scale (gemma: sqrt(dim)) rounded to the hidden dtype before the product,
+    as in the JAX package, learned positions (after OPT's offset) and the
+    embedding norm (bloom)."""
+    h = _scaled_embedding(cfg, params, tokens)
+    pos = None
+    if cfg.pos == "learned":
+        pos = pos0 + torch.arange(tokens.shape[1], device=tokens.device)[None] + cfg.pos_offset
+    return _embed_finish(cfg, params, h, pos)
+
+
+def embed_tokens_per_row(cfg: ModelConfig, params, tokens: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """The continuous-batching embed: (B,) ids at per-row ``positions`` (B,)
+    -> (B, 1, D), or (B, Lw) ids at (B, Lw) positions -> (B, Lw, D); the
+    same steps as :func:`embed_tokens`."""
+    if tokens.dim() == 1:
+        tokens, positions = tokens[:, None], positions[:, None]
+    h = _scaled_embedding(cfg, params, tokens)
+    return _embed_finish(cfg, params, h, positions + cfg.pos_offset)
+
+
+def sliding_adjust(cfg: ModelConfig, layer_idx: Optional[int], cos, sin, cos_loc, sin_loc,
+                   mask, kv_valid, cache_pos, L: int, cached: bool):
+    """Fold a layer's sliding window (gemma2/3) into its attention inputs;
+    nothing to do for all-global configs. Returns (cos, sin, mask, kv_valid).
+
+    A sliding layer takes the local RoPE tables (where the config has a
+    local base) and sees only the trailing ``sliding_window`` positions:
+    per-row decode (``cache_pos`` a (B,) tensor, ``cached``) narrows
+    ``kv_valid`` row by row; a scalar-position single-token step masked by
+    ``kv_valid`` alone narrows it at ``cache_pos``; every other path adds
+    the window to its shared (Lq, Lkv) mask, queries at ``cache_pos`` + i
+    (0 without a cache)."""
+    if not cfg.has_sliding:
+        return cos, sin, mask, kv_valid
+    if layer_idx is None:
+        raise ValueError("sliding-window configs need layer_idx")
+    if cfg.globals_list()[layer_idx]:
+        return cos, sin, mask, kv_valid
+    if cos_loc is not None:
+        cos, sin = cos_loc, sin_loc
+    W = cfg.sliding_window
+    if cached and isinstance(cache_pos, torch.Tensor) and cache_pos.dim() != 0:
+        if kv_valid is None:
+            raise ValueError("per-row decode of a sliding-window config needs kv_valid")
+        M = kv_valid.shape[-1]
+        kv_pos = torch.arange(M, device=cache_pos.device)
+        win_ok = kv_pos[None, :] > (cache_pos[:, None] - W)  # (B, M)
+        kv_valid = kv_valid & win_ok
+    elif mask is None and kv_valid is not None and L == 1 and cache_pos is not None:
+        kv_pos = torch.arange(kv_valid.shape[-1], device=kv_valid.device)
+        kv_valid = kv_valid & (kv_pos[None, :] > (cache_pos - W))
+    else:
+        if mask is None or mask.dim() != 2:
+            raise ValueError("sliding-window attention needs a shared (Lq, Lkv) mask")
+        q0 = cache_pos if (cached and cache_pos is not None) else 0
+        q_pos = q0 + torch.arange(L, device=mask.device)
+        kv_pos = torch.arange(mask.shape[-1], device=mask.device)
+        neg = torch.tensor(float("-inf"), device=mask.device)
+        zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+        mask = mask + torch.where(kv_pos[None, :] > q_pos[:, None] - W, zero, neg)
+    return cos, sin, mask, kv_valid
 
 
 def layer_view(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -330,21 +472,24 @@ def layer_forward(
     cfg: ModelConfig,
     lp: Dict[str, Any],
     x: torch.Tensor,  # (B, L, D)
-    cos: torch.Tensor,  # (L, hd/2) or per-row (B, L, hd/2) tables
+    cos: torch.Tensor,  # (L, hd/2) or per-row (B, L, hd/2) tables (RoPE only)
     sin: torch.Tensor,
-    mask: Optional[torch.Tensor],  # (L, Lkv) additive
+    mask: Optional[torch.Tensor],  # additive: (L, Lkv), (H, L, Lkv) or per row
     cache=None,  # serve.kvcache.KVCache, updated in place at layer_idx
     cache_pos=None,  # int, or a (B,) tensor of per-row positions
     kv_valid: Optional[torch.Tensor] = None,  # (B, M) bool
     impl: str = "auto",
     layer_idx: Optional[int] = None,
     return_taps: bool = False,
+    cos_loc: Optional[torch.Tensor] = None,  # sliding layers' RoPE tables (gemma3)
+    sin_loc: Optional[torch.Tensor] = None,
 ):
     """One decoder layer. With ``cache`` the new k/v are written at
     ``cache_pos`` of layer ``layer_idx`` (one position for all rows, or a
     position per row) and attention runs over the whole cache; an int8
     cache hands its raw values and scales to attention. Without a cache,
-    attention runs over the local sequence.
+    attention runs over the local sequence. Sliding-window configs need
+    ``layer_idx``: :func:`sliding_adjust` folds the window in.
 
     Returns the output hidden; with ``return_taps`` (output, LayerIO) whose
     taps hold each linear's input ("attn_in", "o_in", "mlp_in",
@@ -352,8 +497,10 @@ def layer_forward(
     B, L, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     taps: Dict[str, torch.Tensor] = {}
+    cos, sin, mask, kv_valid = sliding_adjust(cfg, layer_idx, cos, sin, cos_loc, sin_loc, mask,
+                                              kv_valid, cache_pos, L, cache is not None)
 
-    h = _norm(cfg, x, lp["ln1_w"])
+    h = _norm(cfg, x, lp["ln1_w"], lp.get("ln1_b"))
     if return_taps:
         taps["attn_in"] = h
     if lp.get("qkv") is not None:
@@ -366,9 +513,14 @@ def layer_forward(
         q = apply_linear(lp["q"], h, impl, layer_idx).reshape(B, L, H, hd)
         k = apply_linear(lp["k"], h, impl, layer_idx).reshape(B, L, Hkv, hd)
         v = apply_linear(lp["v"], h, impl, layer_idx).reshape(B, L, Hkv, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.qk_norm:
+        q = _head_norm(cfg, q, lp["q_norm_w"])
+        k = _head_norm(cfg, k, lp["k_norm_w"])
+    if cfg.pos == "rope":
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
+    kw = dict(scale=cfg.attn_scale, softcap=cfg.attn_softcap)
     if cache is not None:
         if isinstance(cache_pos, torch.Tensor):
             cache.write_rows(layer_idx, k, v, cache_pos)
@@ -376,37 +528,47 @@ def layer_forward(
             cache.write(layer_idx, k, v, cache_pos)
         if cache.quantized:
             ck, cv, ks, vs = cache.read_raw(layer_idx)
-            ctx = attention(q, ck, cv, mask, kv_valid, scale=cfg.attn_scale,
-                            k_scale=ks, v_scale=vs)
+            ctx = attention(q, ck, cv, mask, kv_valid, k_scale=ks, v_scale=vs, **kw)
         else:
             ck, cv = cache.read(layer_idx, q.dtype)
-            ctx = attention(q, ck, cv, mask, kv_valid, scale=cfg.attn_scale)
+            ctx = attention(q, ck, cv, mask, kv_valid, **kw)
     else:
-        ctx = attention(q, k, v, mask, scale=cfg.attn_scale)
+        ctx = attention(q, k, v, mask, **kw)
 
     ctx = ctx.reshape(B, L, H * hd)
     if return_taps:
         taps["o_in"] = ctx
-    x = x + apply_linear(lp["o"], ctx, impl, layer_idx)
+    ao = apply_linear(lp["o"], ctx, impl, layer_idx)
+    if cfg.sandwich_norm:
+        ao = _norm(cfg, ao, lp["post_attn_w"])
+    x = x + ao
 
-    h = _norm(cfg, x, lp["ln2_w"])
+    h = _norm(cfg, x, lp["ln2_w"], lp.get("ln2_b"))
     if return_taps:
         taps["mlp_in"] = h
     I = cfg.intermediate
     if lp.get("gateup") is not None:
         if not return_taps and fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):
             # One launch for the whole MLP: gather + gateup + act*mul + down (K2).
-            return x + fused_mlp_apply(lp["gateup"], lp["down"], h, cfg.act, layer_idx)
+            mo = fused_mlp_apply(lp["gateup"], lp["down"], h, cfg.act, layer_idx)
+            if cfg.sandwich_norm:
+                mo = _norm(cfg, mo, lp["post_mlp_w"])
+            return x + mo
         gu = apply_linear(lp["gateup"], h, impl, layer_idx)
         # gate/up halves split at the STORED width: pad_gateup_blocks may
         # have widened each half past cfg.intermediate with zero columns.
         half = gu.shape[-1] // 2
         mid = _act(cfg, gu[..., :I]) * gu[..., half : half + I]
-    else:
+    elif cfg.gated_mlp:
         mid = _act(cfg, apply_linear(lp["gate"], h, impl, layer_idx)) * apply_linear(
             lp["up"], h, impl, layer_idx
         )
-    out = x + apply_linear(lp["down"], mid, impl, layer_idx)
+    else:
+        mid = _act(cfg, apply_linear(lp["up"], h, impl, layer_idx))
+    mo = apply_linear(lp["down"], mid, impl, layer_idx)
+    if cfg.sandwich_norm:
+        mo = _norm(cfg, mo, lp["post_mlp_w"])
+    out = x + mo
     if return_taps:
         taps["down_in"] = mid
         return out, LayerIO(kv=None, taps=taps)
@@ -414,20 +576,29 @@ def layer_forward(
 
 
 def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    h = _norm(cfg, h, params["lnf_w"])
+    """Final norm, then the lm_head (or the tied embedding), then the final
+    softcap c * tanh(logits / c) in f32 (gemma2)."""
+    h = _norm(cfg, h, params["lnf_w"], params.get("lnf_b"))
     if params.get("lm_head") is not None:
-        return apply_linear(params["lm_head"], h)
-    return h @ params["embed"].t().to(h.dtype)
+        logits = apply_linear(params["lm_head"], h)
+    else:
+        logits = h @ params["embed"].t().to(h.dtype)
+    if cfg.final_softcap:
+        c = cfg.final_softcap
+        logits = (c * torch.tanh(logits.float() / c)).to(logits.dtype)
+    return logits
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Full causal forward to logits (B, L, V), no cache."""
     check_supported(cfg)
     B, L = tokens.shape
+    dev = tokens.device
     h = embed_tokens(cfg, params, tokens)
-    mask = causal_mask(L, L, device=h.device)
-    cos, sin = pos_tables(cfg, L, device=h.device)
+    mask = build_mask(cfg, L, L, device=dev)
+    cos, sin, cos_l, sin_l = pos_tables(cfg, L, device=dev)
     for li in range(cfg.n_layers):
         lp = layer_view(params["layers"], li)
-        h = layer_forward(cfg, lp, h, cos, sin, mask, impl=impl, layer_idx=li)
+        h = layer_forward(cfg, lp, h, cos, sin, mask, impl=impl, layer_idx=li,
+                          cos_loc=cos_l, sin_loc=sin_l)
     return unembed(cfg, params, h)

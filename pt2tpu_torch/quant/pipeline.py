@@ -12,7 +12,10 @@
 Each finished layer can be journaled (``journal_dir``) in the JAX package's
 format, and a run resumes at the first layer not journaled, in either
 package. Everything runs on the device the dense parameters lie on, with the
-plain route (``impl="plain"``) as the JAX package's ``impl="xla"``.
+plain route (``impl="plain"``) as the JAX package's ``impl="xla"``, unless
+``device`` names another: then the parameters stay where they are (a
+host-resident checkpoint, ``hf_loader.load_hf_model(device="cpu")``) and go
+to ``device`` one layer at a time, the non-layer leaves after the loop.
 Mixture-of-experts layers raise ``NotImplementedError``.
 """
 
@@ -26,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..models import decoder as dec
-from ..models.common import DenseLinear, causal_mask, rms_norm
+from ..models.common import DenseLinear, layer_norm, rms_norm
 from ..ops.ternary_matmul import pack_layer
 from ..utils.metrics import MetricsLogger, model_bits_per_weight
 from .fold import fold_head_perm, fold_layer_perms, pad_gateup_blocks
@@ -205,10 +208,16 @@ def quantize_model(
     prequantized_layers: Optional[List[Any]] = None,
     journal_dir: Optional[str] = None,
     mesh=None,
+    device=None,
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Ternarize every decoder-layer projection; embeddings, the final norm
     and the lm_head stay dense (the head too is quantized with
     ``qcfg.quantize_lm_head``, SSR per ``qcfg.use_ssr`` in any scope).
+
+    ``device``: where the work runs; None is where the dense parameters
+    lie. A ``device`` other than theirs streams: each dense layer goes there
+    alone, and the embedding, final norm and lm_head follow after the loop
+    (the JAX package's host-resident path).
 
     ``journal_dir``: each finished layer is written there, and a journaled
     prefix is loaded on entry (a preempted run resumes at the first layer
@@ -226,7 +235,11 @@ def quantize_model(
         )
     dec.check_supported(cfg)
     log = log or MetricsLogger(verbose=False)
-    dev = params["embed"].device
+    host = params["embed"].device
+    dev = host if device is None else torch.device(device)
+    stream = dev.type != host.type or (dev.index is not None and dev.index != host.index)
+    if stream:
+        log.emit("streaming_quantization", device=str(dev))
     if journal_dir and prequantized_layers is None and start_layer == 0:
         from ..utils.checkpoint import load_layers
 
@@ -238,13 +251,17 @@ def quantize_model(
     calib = torch.as_tensor(calib_tokens).to(device=dev, dtype=torch.long)
     N, L = calib.shape
     bs = min(qcfg.batch_size, N)
-    hidden = [dec.embed_tokens(cfg, params, calib[i : i + bs]) for i in range(0, N, bs)]
-    cos, sin = dec.pos_tables(cfg, L, device=dev)
-    mask = causal_mask(L, L, device=dev)
+    emb_params = {k: params.get(k) for k in ("embed", "pos_embed", "emb_ln_w", "emb_ln_b")}
+    if stream:
+        emb_params = {k: None if v is None else v.to(dev) for k, v in emb_params.items()}
+    hidden = [dec.embed_tokens(cfg, emb_params, calib[i : i + bs]) for i in range(0, N, bs)]
+    del emb_params  # streaming: free the device copy before the layer loop
+    cos, sin, cos_l, sin_l = dec.pos_tables(cfg, L, device=dev)
+    mask = dec.build_mask(cfg, L, L, device=dev)
 
     def run_layer(lp, x, li, taps: bool):
         out = dec.layer_forward(cfg, lp, x, cos, sin, mask, impl="plain", layer_idx=li,
-                                return_taps=taps)
+                                return_taps=taps, cos_loc=cos_l, sin_loc=sin_l)
         return out if taps else (out, None)
 
     groups = _groups(cfg, qcfg)
@@ -265,6 +282,8 @@ def quantize_model(
         _sync(dev)
         t_layer = time.perf_counter()
         lp = dec.layer_slice(params["layers"], li)
+        if stream:  # one dense layer on the device at a time
+            lp = dec._map(lambda t: t.to(dev), lp)
         needed = {tap for _, _, tap in groups}
         accs = {t: HessianAccumulator(tap_dims[t], device=dev) for t in needed}
         t_hess = dict.fromkeys(sorted(needed), 0.0)
@@ -309,12 +328,23 @@ def quantize_model(
                                  "gptq_s": t_gptq, "layer_s": time.perf_counter() - t_layer})
 
     out_params = dict(params)
+    if stream:
+        # the embedding, final norm and lm_head move now, with the dense
+        # layers gone
+        for k, v in out_params.items():
+            if k != "layers" and v is not None:
+                out_params[k] = dec._map(lambda t: t.to(dev), v)
     out_params["layers"] = dec.stack_layers([pad_gateup_blocks(lp) for lp in new_layers])
 
     if qcfg.quantize_lm_head and out_params.get("lm_head") is not None:
+        # what feeds the head: the final norm's output (gemma's 1 + w left
+        # out, as in the JAX package)
         acc = HessianAccumulator(cfg.dim, device=dev)
         for h in hidden:
-            acc.update(rms_norm(h, out_params["lnf_w"], cfg.norm_eps))
+            if cfg.norm == "layernorm":
+                acc.update(layer_norm(h, out_params["lnf_w"], out_params["lnf_b"], cfg.norm_eps))
+            else:
+                acc.update(rms_norm(h, out_params["lnf_w"], cfg.norm_eps))
         packed, stats = quantize_linear(out_params["lm_head"], acc, qcfg, log=log)
         if qcfg.fold_perms:
             packed = fold_head_perm(packed)

@@ -13,8 +13,10 @@ The standard slot-based batcher:
     (by causality in the prefill, by ``kv_valid`` in decode) until decode
     overwrites them;
   * all slots advance together through one per-row decode step (a position
-    per slot, per-row RoPE, per-row cache writes, a per-row validity mask),
-    whose attention runs K7 on the card;
+    per slot, per-row RoPE or learned positions, per-row cache writes, a
+    per-row validity mask narrowed to the window on sliding layers, a
+    per-row ALiBi bias), whose attention runs K7 on the card where it takes
+    the step (no ALiBi bias, no softcap);
   * ``decode_quantum`` q > 1 runs q steps with the tokens kept on the device
     and fetches them once; the host truncates a row that stopped mid-quantum;
   * the host loop admits, steps, detects EOS / max_new and frees slots.
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..models import decoder as dec
-from ..models.common import causal_mask
+from ..models.common import alibi_slopes
 from .kvcache import KVCache, init_cache
 from .sampling import SamplingConfig, sample_per_row
 
@@ -70,7 +72,8 @@ def _bucket(n: int, lo: int = 16) -> int:
 
 @functools.lru_cache(maxsize=8)
 def _rope(cfg, M: int, device):
-    """RoPE tables of [0, M) on ``device``, made once per (cfg, M, device)."""
+    """RoPE tables of [0, M) on ``device`` (cos, sin, cos_loc, sin_loc),
+    made once per (cfg, M, device)."""
     return dec.pos_tables(cfg, M, device=device)
 
 
@@ -84,14 +87,24 @@ def _rows_forward(cfg, params, tokens, cache: KVCache, positions: torch.Tensor, 
             "windows of more than one token per row (speculative verify) are not ported")
     M = cache.max_len
     dev = tokens.device
-    x = dec.embed_tokens(cfg, params, tokens)  # RoPE carries the positions
-    cos_all, sin_all = _rope(cfg, M, dev)
-    cos, sin = cos_all[positions][:, None], sin_all[positions][:, None]  # (B, 1, hd/2)
+    pos2 = positions[:, None]  # (B, 1)
+    x = dec.embed_tokens_per_row(cfg, params, tokens, pos2)
+    cos_all, sin_all, cosl_all, sinl_all = _rope(cfg, M, dev)
+    cos, sin = cos_all[pos2], sin_all[pos2]  # (B, 1, hd/2)
+    cos_l = sin_l = None
+    if cosl_all is not None:
+        cos_l, sin_l = cosl_all[pos2], sinl_all[pos2]
     kv_valid = torch.arange(M, device=dev)[None, :] <= positions[:, None]  # (B, M)
+    mask = None
+    if cfg.pos == "alibi":
+        rel = (torch.arange(M, dtype=torch.float32, device=dev)[None, None, :]
+               - pos2.float()[:, :, None])  # (B, 1, M)
+        mask = alibi_slopes(cfg.n_heads, device=dev)[None, :, None, None] * rel[:, None]
     for li in range(cfg.n_layers):
         lp = dec.layer_view(params["layers"], li)
-        x = dec.layer_forward(cfg, lp, x, cos, sin, None, cache=cache, cache_pos=positions,
-                              kv_valid=kv_valid, impl=impl, layer_idx=li)
+        x = dec.layer_forward(cfg, lp, x, cos, sin, mask, cache=cache, cache_pos=positions,
+                              kv_valid=kv_valid, impl=impl, layer_idx=li, cos_loc=cos_l,
+                              sin_loc=sin_l)
     return dec.unembed(cfg, params, x)
 
 
@@ -137,12 +150,15 @@ def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache: 
     dev = prompt.device
     row = cache.rows(slot, slot + 1)
     h = dec.embed_tokens(cfg, params, prompt)
-    cos_all, sin_all = _rope(cfg, M, dev)
-    mask = causal_mask(Lb, M, device=dev)
+    cos_all, sin_all, cosl_all, sinl_all = _rope(cfg, M, dev)
+    cos_l = None if cosl_all is None else cosl_all[:Lb]
+    sin_l = None if sinl_all is None else sinl_all[:Lb]
+    mask = dec.build_mask(cfg, Lb, M, device=dev)
     for li in range(cfg.n_layers):
         lp = dec.layer_view(params["layers"], li)
         h = dec.layer_forward(cfg, lp, h, cos_all[:Lb], sin_all[:Lb], mask, cache=row,
-                              cache_pos=0, impl=impl, layer_idx=li)
+                              cache_pos=0, impl=impl, layer_idx=li, cos_loc=cos_l,
+                              sin_loc=sin_l)
     logits = dec.unembed(cfg, params, h[:, true_len - 1 : true_len])[:, 0]  # (1, V)
     if samp is None:
         return torch.argmax(logits[0])
@@ -195,6 +211,9 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) needs {_NOT_PORTED[name]}: not ported")
         dec.check_supported(cfg)
+        if cfg.pos == "learned" and max_len > params["pos_embed"].shape[0] - cfg.pos_offset:
+            raise ValueError(f"max_len {max_len} exceeds the {cfg.family} model's "
+                             f"{params['pos_embed'].shape[0] - cfg.pos_offset} learned positions")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

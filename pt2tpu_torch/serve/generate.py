@@ -4,7 +4,9 @@ PyTorch runs eagerly: the decode loop is a Python loop over steps, each step
 a loop over layers, and the KV cache is updated in place. The routing rules
 (``kv_valid`` for single-token steps, an additive mask otherwise, the
 automatic prefill chunk) are the JAX package's, so the same prompts take the
-same route.
+same route. ALiBi configs take the additive mask (causal + per-head bias)
+on single-token steps too, as in the JAX package; sliding layers narrow
+``kv_valid`` or the mask (``decoder.sliding_adjust``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ from typing import Optional, Tuple
 import torch
 
 from ..models import decoder as dec
-from ..models.common import causal_mask
 from .kvcache import KVCache, init_cache
 
 __all__ = ["forward_cached", "prefill", "chunked_prefill", "greedy_generate"]
@@ -35,20 +36,23 @@ def forward_cached(
     B, L = tokens.shape
     M = cache.max_len
     dev = tokens.device
-    h = dec.embed_tokens(cfg, params, tokens)
-    cos_all, sin_all = dec.pos_tables(cfg, M, device=dev)
+    h = dec.embed_tokens(cfg, params, tokens, pos0=pos0)
+    cos_all, sin_all, cosl_all, sinl_all = dec.pos_tables(cfg, M, device=dev)
     cos, sin = cos_all[pos0 : pos0 + L], sin_all[pos0 : pos0 + L]
+    cos_l = sin_l = None
+    if cosl_all is not None:
+        cos_l, sin_l = cosl_all[pos0 : pos0 + L], sinl_all[pos0 : pos0 + L]
     kv_valid = mask = None
-    if L == 1:
+    if L == 1 and cfg.pos != "alibi":
         # single-token decode: causality over the cache is a validity row
         kv_valid = (torch.arange(M, device=dev)[None, :] <= pos0).expand(B, M)
     else:
-        mask = causal_mask(L, M, q_offset=pos0, device=dev)
+        mask = dec.build_mask(cfg, L, M, q_offset=pos0, device=dev)
     for li in range(cfg.n_layers):
         lp = dec.layer_view(params["layers"], li)
         h = dec.layer_forward(
             cfg, lp, h, cos, sin, mask, cache=cache, cache_pos=pos0,
-            kv_valid=kv_valid, impl=impl, layer_idx=li,
+            kv_valid=kv_valid, impl=impl, layer_idx=li, cos_loc=cos_l, sin_loc=sin_l,
         )
     if all_logits:
         return dec.unembed(cfg, params, h), cache
@@ -103,6 +107,8 @@ def greedy_generate(
     M = max_len or min(cfg.max_seq_len, Lp + max_new)
     if Lp + max_new > M:
         raise ValueError(f"prompt {Lp} + max_new {max_new} exceeds max_len {M}")
+    if cfg.pos == "learned" and M > params["pos_embed"].shape[0] - cfg.pos_offset:
+        raise ValueError(f"max_len {M} exceeds the model's learned positions")
     cache = init_cache(cfg, B, M, quantized=kv_quant, device=dev)
     chunk = _auto_prefill_chunk(cfg, B, Lp, M) if prefill_chunk is None else (prefill_chunk or None)
     if chunk and chunk < Lp:

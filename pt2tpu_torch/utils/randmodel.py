@@ -92,9 +92,12 @@ def random_ternary_params(
     qkv/o/gateup carry packed gathers, down is input_folded.
     ``perm_mode="down"`` is what it emits at dim >= 640: identity perms on
     qkv/o/gateup, down input_folded. Gateup is padded by
-    :func:`pad_gateup_blocks`. Embedding and lm_head are dense; with tied
-    embeddings (gemma) lm_head is None. Norm weights are stored as ones
-    (gemma's norm adds its 1 + at the norm, as the JAX package does).
+    :func:`pad_gateup_blocks`; an ungated MLP (opt, gpt2, bloom) has ``up``
+    in its place. Embedding, learned positions and lm_head are dense; with
+    tied embeddings lm_head is None. Norm weights are ones, LayerNorm biases
+    and linear biases zeros (gemma's norm adds its 1 + at the norm, as the
+    JAX package does); the layout of each family is the JAX package's:
+    qk-norm weights, sandwich norms, the embedding norm.
     """
     check_supported(cfg)
     if perm_mode not in ("identity", "ssr", "down"):
@@ -105,34 +108,43 @@ def random_ternary_params(
     dtype = torch.bfloat16
     H, Hkv, hd, D, I = cfg.n_heads, cfg.kv_heads, cfg.hd, cfg.dim, cfg.intermediate
     qbias = cfg.linear_bias or cfg.qkv_bias
+    ones = lambda n=D: torch.ones((n,), dtype=dtype, device=dev)  # noqa: E731
+    zeros = lambda: torch.zeros((D,), dtype=dtype, device=dev)  # noqa: E731
+    layernorm = cfg.norm == "layernorm"
     params = {
         "embed": (torch.randn((cfg.vocab_size, D), generator=gen, device=dev) * 0.02).to(dtype),
-        "emb_ln_w": None,
-        "emb_ln_b": None,
+        "emb_ln_w": ones() if cfg.embed_norm else None,
+        "emb_ln_b": zeros() if (cfg.embed_norm and layernorm) else None,
         "pos_embed": None,
-        "lnf_w": torch.ones((D,), dtype=dtype, device=dev),
-        "lnf_b": None,
+        "lnf_w": ones(),
+        "lnf_b": zeros() if layernorm else None,
         "lm_head": None if cfg.tie_embeddings else DenseLinear(
             w=(torch.randn((cfg.vocab_size, D), generator=gen, device=dev) / D**0.5).to(dtype),
         ),
     }
+    if cfg.pos == "learned":  # drawn after the head: other families keep their numbers
+        params["pos_embed"] = (torch.randn((cfg.max_seq_len + cfg.pos_offset, D), generator=gen,
+                                           device=dev) * 0.02).to(dtype)
     shapes = {
         "qkv": ((H + 2 * Hkv) * hd, D, qbias),
         "o": (D, H * hd, cfg.linear_bias),
         "down": (D, I, cfg.linear_bias),
-        "gateup": (2 * I, D, cfg.linear_bias),
     }
+    if cfg.gated_mlp:
+        shapes["gateup"] = (2 * I, D, cfg.linear_bias)
+    else:
+        shapes["up"] = (I, D, cfg.linear_bias)
     layers = []
     for _ in range(cfg.n_layers):
         lp = {
-            "ln1_w": torch.ones((D,), dtype=dtype, device=dev),
-            "ln1_b": None,
-            "ln2_w": torch.ones((D,), dtype=dtype, device=dev),
-            "ln2_b": None,
-            "q_norm_w": None,
-            "k_norm_w": None,
-            "post_attn_w": None,
-            "post_mlp_w": None,
+            "ln1_w": ones(),
+            "ln1_b": zeros() if layernorm else None,
+            "ln2_w": ones(),
+            "ln2_b": zeros() if layernorm else None,
+            "q_norm_w": ones(hd) if cfg.qk_norm else None,
+            "k_norm_w": ones(hd) if cfg.qk_norm else None,
+            "post_attn_w": ones() if cfg.sandwich_norm else None,
+            "post_mlp_w": ones() if cfg.sandwich_norm else None,
         }
         for name, (o, i, has_bias) in sorted(shapes.items()):
             pm = "identity"

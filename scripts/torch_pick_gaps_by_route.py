@@ -132,7 +132,7 @@ def main() -> None:
             T = seq.shape[1]
             cache = tkv.init_cache(cfg, 1, T, quantized=True, device=dev)
             h = tdec.embed_tokens(cfg, params, seq)
-            cos, sin = tdec.pos_tables(cfg, T, device=dev)
+            cos, sin, _, _ = tdec.pos_tables(cfg, T, device=dev)
             mask = tcommon.causal_mask(T, T, device=dev)
             for li in range(cfg.n_layers):
                 h = tdec.layer_forward(cfg, tdec.layer_view(params["layers"], li), h, cos, sin,

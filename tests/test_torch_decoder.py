@@ -179,11 +179,14 @@ def test_attention_gqa_kv_valid_matches_jax():
 
 
 def test_unported_family_raises():
-    cfg = tdec.ModelConfig(family="gpt2", vocab_size=16, dim=8, n_layers=1, n_heads=2,
-                           intermediate=16, norm="layernorm", pos="learned", act="gelu",
-                           gated_mlp=False)
+    """A mixture-of-experts config (its slice is still to come) raises;
+    the dense families are computed."""
+    dense = tdec.ModelConfig(family="gpt2", vocab_size=16, dim=8, n_layers=1, n_heads=2,
+                             intermediate=16, norm="layernorm", pos="learned", act="gelu",
+                             gated_mlp=False)
+    tdec.check_supported(dense)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tdec.check_supported(cfg)
+        tdec.check_supported(dense.with_(n_experts=4))
 
 
 @pytest.mark.parametrize("name,missing", [
@@ -191,8 +194,14 @@ def test_unported_family_raises():
     ("mixtral-8x7b", "mixture of experts"), ("tiny-opt", "non-gated MLP"),
 ])
 def test_unported_features_are_named(name, missing):
-    """The families still to port raise, naming what they need."""
+    """What is still to port raises, naming only that: each of these JAX
+    configs with experts names mixture of experts alone, and the feature
+    that its family once lacked (``missing``) is computed now."""
     cfg = tdec.ModelConfig.from_dict(dataclasses.asdict(jreg.get_config(name)))
+    moe = cfg if cfg.is_moe else cfg.with_(n_experts=4)
     with pytest.raises(NotImplementedError, match="not ported") as e:
+        tdec.check_supported(moe)
+    assert "mixture of experts" in str(e.value) and "llama" not in str(e.value)
+    if not cfg.is_moe:
         tdec.check_supported(cfg)
-    assert missing in str(e.value) and "llama" not in str(e.value)
+        assert missing not in str(e.value)

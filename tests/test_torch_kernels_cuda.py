@@ -30,7 +30,9 @@ unnormalised probabilities to bf16 relative to a running maximum (its
 tensor-core kernel's of each tile, PR 3's kernel's of each chunk), its
 plain version relative to the row's maximum: 1e-2 of max|out|. The
 tensor-core kernel follows decode_attention_split_plain's schedule, so it
-is held to it within one bf16 step of each value plus 1e-3 of max|out|."""
+is held to it within one bf16 step of each value plus 1e-3 of max|out|,
+also on the windowed kv_valid of sliding-window layers (slots (p - W, p]
+of each row: leading tiles and whole splits with no valid slot)."""
 
 import contextlib
 import dataclasses
@@ -1876,6 +1878,72 @@ def test_k7_cuda_core_kernel_behind_the_flag(cuda_device, monkeypatch, B, M, H, 
     got = tka.decode_attention(q, k, v, valid, 0.0883883, ks, vs)
     assert tka.decode_attention.launches_tc == before
     want = tka.decode_attention_plain(q, k, v, valid, 0.0883883, ks, vs)
+    assert _rel(got.float(), want.float()) <= ATTN_TOL
+
+
+# ---- K7 on the windowed kv_valid of sliding-window layers (gemma2/3):
+# slots (p - W, p] of each row, not a prefix. (H, Hkv, hd) with 1 / 2 / 4 / 8
+# queries per KV head at hd 128 and 256 (gemma3-4b: 8 / 4 / 256; qwen3-8b:
+# 32 / 8 / 128)
+K7_WINDOW_HEADS = [(8, 8, 128), (8, 4, 128), (32, 8, 128), (64, 8, 128), (4, 4, 256),
+                   (8, 4, 256), (16, 4, 256), (8, 1, 256)]
+# (W, last position of each of 3 rows): gemma3's window of 1024 starting off
+# a tile; a short window at the end (leading tiles, and whole splits of
+# the schedule, empty); a window of one slot
+K7_WINDOWS = {"w1024": (1024, (1100, 1337, 2047)), "late": (100, (2047, 1999, 1500)),
+              "one_slot": (1, (5, 1030, 2047))}
+
+
+def _attn_windowed(g, dev, H, Hkv, hd, quant, window):
+    B, M = 3, 2048
+    q, k, v, _, ks, vs = _attn_inputs(g, dev, B, M, H, Hkv, hd, quant)
+    W, last = K7_WINDOWS[window]
+    p = torch.tensor(last, device=dev)[:, None]
+    pos = torch.arange(M, device=dev)[None, :]
+    return q, k, v, ((pos <= p) & (pos > p - W)).contiguous(), ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", list(K7_WINDOWS))
+@pytest.mark.parametrize("H,Hkv,hd", K7_WINDOW_HEADS)
+def test_k7_tc_on_windowed_kv_valid(cuda_device, H, Hkv, hd, window, quant):
+    """The tensor-core kernel on windows: tiles and splits before the window
+    add nothing (the split plain version on the kernel's plan, within one
+    bf16 step plus 1e-3) and the combine divides by the valid mass (the
+    plain version, K7's 1e-2); the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(H * hd + len(window))
+    q, k, v, valid, ks, vs = _attn_windowed(g, cuda_device, H, Hkv, hd, quant, window)
+    B, M = valid.shape
+    plan = tka.k7_plan(B, M, Hkv, H // Hkv, hd, quant)
+    before = tka.decode_attention.launches_tc
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    again = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert tka.decode_attention.launches_tc == before + 2
+    assert torch.equal(got, again)
+    split = tka.decode_attention_split_plain(q, k, v, valid, hd ** -0.5, ks, vs, tile=plan.tile,
+                                             splits=plan.splits)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert torch.isfinite(got).all()
+    assert _within_a_bf16_step(got, split) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", list(K7_WINDOWS))
+@pytest.mark.parametrize("H,Hkv,hd", [(32, 8, 128), (8, 4, 256), (8, 1, 256)])
+def test_k7_cuda_core_kernel_on_windowed_kv_valid(cuda_device, monkeypatch, H, Hkv, hd, window,
+                                                  quant):
+    """PR 3's chunk kernel (K7_TC off) on windows: chunks before the window
+    add nothing and its combine divides by the valid mass."""
+    monkeypatch.setattr(tka, "K7_TC", False)
+    g = torch.Generator(device=cuda_device).manual_seed(H + hd + len(window))
+    q, k, v, valid, ks, vs = _attn_windowed(g, cuda_device, H, Hkv, hd, quant, window)
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    want = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert torch.isfinite(got).all()
     assert _rel(got.float(), want.float()) <= ATTN_TOL
 
 

@@ -345,7 +345,7 @@ def test_dense_tree_taps_and_layer_helpers():
         _, jio = jdec.layer_forward(jcfg, jdec.layer_slice(jp["layers"], 1), jnp.asarray(x), jcos,
                                     jsin, jdec.build_mask(jcfg, L, L), return_taps=True,
                                     impl="xla", layer_idx=1)
-        cos, sin = tdec.pos_tables(tcfg, L)
+        cos, sin, _, _ = tdec.pos_tables(tcfg, L)
         from pt2tpu_torch.models.common import causal_mask
 
         out, io = tdec.layer_forward(tcfg, tdec.layer_slice(carried["layers"], 1),
