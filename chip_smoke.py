@@ -39,8 +39,9 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      hd 128, B 1/4/8, M 256 and 2048, ragged valid lengths, bf16 and int8
      KV; runs a 2-layer llama-3-8b ServeEngine ("down" layout, bf16 and int8
      KV) with every kernel call held against its plain version; drives the
-     llama-3-8b "down" ServeEngine at 16 of its 32 layers (the run's time
-     budget; 10c, 11c, 16b's engine A/B and 5c's server too) (8 slots,
+     llama-3-8b "down" ServeEngine at 8 of its 32 layers (the run's time
+     budget, 16 before phase 23; 10c, 11c, 16b's engine A/B and 5c's server
+     too) (8 slots,
      max_len 2048, 16
      greedy requests with prompts of 64-512 ids and max_new 32-64) with bf16
      and int8 KV at quantum 1 and 8, where K7's launches must be exactly 32
@@ -89,7 +90,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      ternary_matmul.launches_tc_a8 counts (decode rows launch it never);
      every 32-layer W2A8 run above holds launches_tc_a8 to its prefill
      launches; A/Bs, in turns (on, off), the lockstep W2A8 prefill
-     (llama-2-7b, phase 4) and the "down" engine under W2A8 at 16 of its 32
+     (llama-2-7b, phase 4) and the "down" engine under W2A8 at 8 of its 32
      layers (10c: impl "a8", bf16 KV, quantum 1, then once with K7 off; every answer held
      to A8_TOLS' pick gap under the teacher-forced W2A8 route on plain
      versions); and times it through its
@@ -112,7 +113,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      beside the held default ones); A/Bs, in turns (on, off; "on"
      sets K1_DEC_A8, "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-2-7b
      decode (bf16 and W2A8: decode tok/s, step wall, profiled device time;
-     11b, in phase 4) and the "down" engine at 16 of its 32 layers, as 10c's
+     11b, in phase 4) and the "down" engine at 8 of its 32 layers, as 10c's
      runs (bf16 and W2A8, quantum 1:
      decode tok/s, t_decode_s, every answer held as in 5b / 10c, and one
      profiled decode step; 11c, in 5b); and times it through its C entry at
@@ -153,7 +154,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      CUDA-core K3 at 16 / 64 rows, W2A8 decode rows and with the decode
      kernel off (13a, after 12a); every "ssr" lockstep run holds K3's
      launches: bf16 decode (default and P1) all on the decode path, W2A8
-     all on the CUDA-core K3, P2 none; A/Bs, in turns (on, off, off, on;
+     all on the CUDA-core K3, P2 none; A/Bs, in turns (on, off;
      "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-3-8b "ssr" bf16
      decode (decode tok/s, step wall, profiled device time; 13b, in phase
      5); and times the decode path through its C entry at 1/2/4/8 rows
@@ -248,7 +249,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      too); holds launches_dec / launches_tc exact in every P2 run (the
      lockstep decode at B 4 on the decode path, the engine's <= 64-row
      admissions on the tensor-core path and its B 8 steps on the decode
-     path); in turns on, off, off, on ("off" rebinds K6_DEC_MAX_ROWS to 0
+     path); in turns on, off ("off" rebinds K6_DEC_MAX_ROWS to 0
      and K6_TC_MIN_ROWS to 1 << 30: the CUDA-core K6) profiles one lockstep
      llama-3-8b "ssr" decode step under the P2 flags at B 4 beside 15 decode
      steps' tok/s, with K6's device time and share (17b, after phase 8's
@@ -266,8 +267,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      not a permutation against the plain version and within 1e-6 of x @ G,
      every call twice for the same bits, launches and launches_rows exact
      (18a, in phase 2c); holds launches_rows exact in every P1 / P2 run (the
-     512-row prefills, run E's admissions above 64 rows); in turns on, off,
-     off, on ("off" rebinds K5_ROWS_MIN_ROWS to 1 << 30: K5's first kernel)
+     512-row prefills, run E's admissions above 64 rows); in turns on, off
+     ("off" rebinds K5_ROWS_MIN_ROWS to 1 << 30: K5's first kernel)
      profiles one 512-row lockstep prefill of the llama-3-8b "ssr" (16 layers)
      model under the P1 flags: device time, K5's part and share, the wall
      (18b, after 17b); and times the rows path's C entry at 4096 -> 4096,
@@ -316,8 +317,9 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      torch.profiler (20c, in phase 6, in place of K4's old timing).
      For the run's time budget, settled A/Bs of earlier slices take fewer
      turns: 11b, 11c's engine runs and decode steps, 14b's request A/B,
-     16b, 19b, 20b and phase 4's prefill A/B two (on, off; 13b and 17b
-     keep four), and the lockstep paths run 16 of the 32 layers: llama-2-7b
+     15b, 16b, 13b, 17b, 18b, 19b, 20b and phase 4's prefill A/B two (on,
+     off; 13b, 15b, 17b and 18b since phase 23), and the lockstep paths run
+     16 of the 32 layers: llama-2-7b
      in 4, 10b and 11b, llama-3-8b "ssr" in 5, 13b, 16b, 8, 17b, 18b and 20b.
  21. (the quantizer: core/ternary, core/ssr, quant/hessian, quant/gptq,
      quant/pipeline, data/) quantizes llama-3-8b at full width, cut to 2
@@ -370,6 +372,36 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      weights written as a 2-shard bf16 safetensors checkpoint with its
      config.json, loaded back through hf_loader host-resident (every tensor
      equal), and quantized by streaming its layers to the card.
+ 23. (mixture of experts: the router, the top-k and all-experts plans,
+     K1s / K3s, the MoE quantizer) (a) holds K1s and K3s, K1's and K3's
+     decode-row kernels with the expert index read from device memory
+     (ternary_matmul_idx, ternary_matmul_igathered_idx: the decode kernel
+     in bf16, and in W2A8 with K1_DEC_A8; the CUDA cores in W2A8), per call
+     at mixtral-8x7b's and qwen3-30b-a3b's expert shapes, B 1, every slot
+     of a stack, bit for bit against the view route and within KERNEL_TOL
+     of the plain version; (b) serves mixtral-8x7b at full width and its 32
+     layers ("down"): greedy_generate at batch 1 (128 ids + 32 new), bf16
+     and W2A8, launches exact (a decode step adds 32 x 2 x 2 device-index
+     launches and no host-index expert launch), _moe_mlp at one row under
+     set_sync_debug_mode("error"), the answers held under the teacher-forced
+     plain forward (bf16 at MIXTRAL_DEEP_TOL beside the plain route's own
+     bf16-vs-f32 drift, printed; W2A8 at A8_TOLS' gap), a profiled decode
+     step, and the same weights cut to 2 layers with every K1 / K1s call
+     and answer held (TOKEN_TOL); (c) the same model in a ServeEngine (8
+     slots, M 2048, 8 requests of 64-512 ids, 32 new, bf16 KV; all 8
+     experts a pass), K1 / K7 launches exact, every K7 call held, the
+     answers held under one batched teacher-forced plain forward at
+     MIXTRAL_DEEP_TOL, a profiled decode step, the 2-layer cut's engine (K7
+     off) held at TOKEN_TOL; (d) mixtral cut to 2 layers "ssr" (K3s) and
+     qwen3-30b-a3b cut to 4 of 48 layers: lockstep bf16 and W2A8 with every
+     K1s / K3s call held, a 4-request engine (K7 off; mixtral's with every
+     K1 / K3 / K4 call held), answers at TOKEN_TOL (qwen3-30b-a3b's engine
+     at QWEN3_MOE_TOKEN_TOL); (e) quantizes one mixtral layer at
+     full width (MOE_CALIB windows, the seconds of Hessians, damped
+     inverses and GPTQ printed) and serves its artifact with every K1s call
+     held; (f) times the four device-index kernels from CUDA graph replays
+     beside the view route, the plain version, torch.matmul on the dense
+     bf16 expert and the bytes bound.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -475,6 +507,36 @@ FAMILY_TOKEN_TOL = TOKEN_TOL
 # K1 and K7 call held against its plain version
 GEMMA3_HELD_LAYERS = 6
 GEMMA3_DEEP_TOL = 1.0
+# phase 23: the experts' shapes held per call (name, out, in, perm layout):
+# mixtral-8x7b's gateup and down ("down" layout), its gateup with a gather
+# ("ssr": K3s), qwen3-30b-a3b's gateup and down (768 lanes padded to 2048)
+MOE_SHAPES = [("mixtral gateup", 28672, 4096, "identity"), ("mixtral down", 4096, 14336, "folded"),
+              ("mixtral gateup ssr", 28672, 4096, "ssr"), ("qwen3-moe gateup", 1536, 2048, "identity"),
+              ("qwen3-moe down", 2048, 768, "folded")]
+# the quantizer's calibration in phase 23e: 16 windows of 512 ids
+MOE_CALIB = (16, 512)
+# mixtral-8x7b's 32-layer bf16 answers (phase 23b, 23c) vs their teacher-
+# forced plain forwards: with random routers a bf16 rounding upstream of a
+# router can swap an expert (their k-th and (k+1)-th weights often lie
+# within 1e-3), and a swapped expert moves a token's state by a whole
+# expert's output: on an H100 at 2 layers K7's rounding of P (within
+# ATTN_TOL of its plain version) swapped one expert of one engine row
+# (weights 2.3e-3 and 6.3e-4 apart) and moved that row's picks by 0.386 of
+# max|logit|. So the full-depth answers are held to that reach, as
+# gemma3-4b's are (GEMMA3_DEEP_TOL), beside the plain route's own bf16
+# drift from f32, printed; the same weights cut to 2 layers hold TOKEN_TOL
+# on routes whose every call is held (the engines there with K7 off: the
+# plain attention of the teacher-forced reference), and K7 is held per
+# call in the 32-layer engine
+MIXTRAL_DEEP_TOL = 1.0
+# qwen3-30b-a3b (128 experts, 8 a token) in phase 23d's engine: its 8th and
+# 9th routing weights (each near 1/128) often lie within the f32-order noise
+# of K1's kernels, so a swapped expert moves a pick by whole bf16 steps even
+# at 4 layers (2.04e-2 of max|logit| on an H100 with every K1 call held; its
+# lockstep held TOKEN_TOL); held to A8_TOLS' gap, as gemma-2b's are. Its
+# engine holds no call (every pass runs all 128 experts: 1024 K1 calls a
+# decode step, 20 s of plain versions); its lockstep holds every K1s call
+QWEN3_MOE_TOKEN_TOL = A8_TOLS[1]
 
 
 def fail(msg: str) -> None:
@@ -705,7 +767,9 @@ def main() -> None:
                 "ternary_matmul_igathered": k1.ternary_matmul_igathered,
                 "ternary_mlp": k1.ternary_mlp, "onehot_gather": k4.onehot_gather,
                 "decode_attention": k7.decode_attention, "onehot_matmul": k4.onehot_matmul,
-                "ternary_matmul_gathered": k1.ternary_matmul_gathered}
+                "ternary_matmul_gathered": k1.ternary_matmul_gathered,
+                "ternary_matmul_idx": k1.ternary_matmul_idx,
+                "ternary_matmul_igathered_idx": k1.ternary_matmul_igathered_idx}
 
     def zero_counts():
         for w in wrappers.values():
@@ -718,6 +782,7 @@ def main() -> None:
         k7.decode_attention.launches_tc = 0
         k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
         k4.onehot_matmul.launches_rows = k4.onehot_gather.launches_rows = 0
+        k1.ternary_matmul_idx.launches_dec = k1.ternary_matmul_igathered_idx.launches_dec = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -734,8 +799,12 @@ def main() -> None:
         in "ternary_matmul_gathered") apart as "ternary_matmul_gathered_dec"
         and "ternary_matmul_gathered_tc"; K5's and K4's rows-path launches
         (also in "onehot_matmul" and "onehot_gather") apart as
-        "onehot_matmul_rows" and "onehot_gather_rows". K2's decode path's
-        down launch is K2's, not one of K1's."""
+        "onehot_matmul_rows" and "onehot_gather_rows"; K1s's and K3s's
+        (the device-index entries, counted apart from K1 and K3) on the
+        decode kernel (also in "ternary_matmul_idx" and
+        "ternary_matmul_igathered_idx") as "ternary_matmul_idx_dec" and
+        "ternary_matmul_igathered_idx_dec". K2's decode path's down launch
+        is K2's, not one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -751,6 +820,8 @@ def main() -> None:
         c["ternary_matmul_gathered_tc"] = k1.ternary_matmul_gathered.launches_tc
         c["onehot_matmul_rows"] = k4.onehot_matmul.launches_rows
         c["onehot_gather_rows"] = k4.onehot_gather.launches_rows
+        c["ternary_matmul_idx_dec"] = k1.ternary_matmul_idx.launches_dec
+        c["ternary_matmul_igathered_idx_dec"] = k1.ternary_matmul_igathered_idx.launches_dec
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every run counted exactly
@@ -2133,7 +2204,10 @@ def main() -> None:
               "onehot_gather": (tgather, k4.onehot_gather_plain, 0.0),
               "decode_attention": (tcommon, k7.decode_attention_plain, ATTN_TOL),
               "onehot_matmul": (tgather, k4.onehot_matmul_plain, 0.0),
-              "ternary_matmul_gathered": (ttm, k1.ternary_matmul_gathered_plain, KERNEL_TOL)}
+              "ternary_matmul_gathered": (ttm, k1.ternary_matmul_gathered_plain, KERNEL_TOL),
+              "ternary_matmul_idx": (ttm, k1.ternary_matmul_idx_plain, KERNEL_TOL),
+              "ternary_matmul_igathered_idx": (ttm, k1.ternary_matmul_igathered_idx_plain,
+                                               KERNEL_TOL)}
     per_call = dict.fromkeys(routed, 0)
 
     # the routing flags of the packed-gather slice: (GATHER_KERNEL,
@@ -2641,11 +2715,12 @@ def main() -> None:
     stamp("13b")
     # ---- 13b. the lockstep llama-3-8b "ssr" bf16 decode with K3's decode
     # rows on the decode kernel (as routed) and on the CUDA cores
-    # (K1_DEC_MAX_ROWS 0), in turns on, off, off, on: greedy_generate with
+    # (K1_DEC_MAX_ROWS 0), in turns on, off (two: a settled A/B, cut from four
+    # for the run's time budget): greedy_generate with
     # exact counts, the decode's share of its wall (less a separate prefill),
     # then one decode step's wall and its profiled device time
     k3_ab = {"dec": [], "cuda_core": []}
-    for on in DEC_AB:
+    for on in DEC_AB[:2]:  # two turns (settled; the run's time budget)
         want = want_ssr["auto"] if on else dict(want_ssr["auto"], ternary_matmul_igathered_dec=0)
         with contextlib.nullcontext() if on else k1_dec(False):
             zero_counts()
@@ -2795,7 +2870,8 @@ def main() -> None:
     stamp("17b")
     # ---- 17b. the lockstep llama-3-8b "ssr" bf16 decode at B 4 under the P2
     # flags with K6's decode rows on its decode path (on) and on the
-    # CUDA-core K6 (off: k6_paths(False)), in turns on, off, off, on: a
+    # CUDA-core K6 (off: k6_paths(False)), in turns on, off (cut from four: a
+    # settled A/B, the run's time budget): a
     # short greedy_generate (16 new tokens) with exact counts, 15 decode
     # steps timed back to back after a prefill (decode tok/s), then one
     # decode step's wall and its profiled device time with K6's part: in an
@@ -2803,7 +2879,7 @@ def main() -> None:
     # mean over the "off" turns (where it runs K2's down alone), in an "off"
     # turn the CUDA-core K6 and its chunk sum
     k6_ab = {"on": [], "off": []}
-    for on in DEC_AB:
+    for on in DEC_AB[:2]:  # two turns (settled; the run's time budget)
         want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_matmul=3 * L,
                     onehot_matmul_rows=3 * L, ternary_matmul_gathered=2 * L * (new16 - 1),
                     ternary_matmul_gathered_dec=2 * L * (new16 - 1) if on else 0,
@@ -2853,7 +2929,8 @@ def main() -> None:
     # ---- 18b. one lockstep prefill (4 x 128 = 512 rows) of the same
     # llama-3-8b "ssr" model (16 layers) under the P1 flags, K5's 512-row
     # gathers on its rows path (on) or on K5's first kernel (off:
-    # k5_rows(False)), in turns on, off, off, on (phase 8 ran this prefill
+    # k5_rows(False)), in turns on, off (cut from four: a settled A/B, the
+    # run's time budget; phase 8 ran this prefill
     # already: warm): one with exact counts and its wall (host clock,
     # synchronised), then one under torch.profiler (device activity only):
     # device time, K5's part (the lane map and the rows kernel, or the first
@@ -2861,7 +2938,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     k5_ab = {"on": [], "off": []}
-    for on in DEC_AB:
+    for on in DEC_AB[:2]:  # two turns (settled; the run's time budget)
         want = dict(none, ternary_matmul=4 * L, ternary_matmul_tc=4 * L, onehot_matmul=3 * L,
                     onehot_matmul_rows=3 * L if on else 0)
         with route_flags(P1), k5_rows(on), torch.inference_mode():
@@ -3091,14 +3168,15 @@ def main() -> None:
                 outs_, False, hold=False)
         d_ab["tc" if on else "cuda_core"].append(res)
     # 15b. K2's admission rows on its tensor-core path (on) or on the CUDA
-    # cores (off: k2_tc(False)), in turns on, off, off, on: one 16-id and
+    # cores (off: k2_tc(False)), in turns on, off (cut from four: a settled
+    # A/B, the run's time budget): one 16-id and
     # one 64-id prompt, each admitted alone twice by profile_engine_admission
     # (the second under torch.profiler), counts exact: per admission K3 x2
     # on its tensor-core path and K2 per layer, K2's on its tensor-core path
     # in the "on" turns only
     k2_ab = {"tc": [], "cuda_core": []}
     eng = ServeEngine(cfg, params, max_batch=8, max_len=ENGINE_M)
-    for on in DEC_AB:
+    for on in DEC_AB[:2]:  # two turns (settled; the run's time budget)
         res = {}
         with k2_tc(on):
             for p_ in (d_prompts[1], d_prompts[5]):  # 16 and 64 ids: buckets 16, 64
@@ -3145,12 +3223,12 @@ def main() -> None:
 
     stamp("5b")
     # ---- 5b. the serving slice's main path: the ServeEngine over the same
-    # llama-3-8b "down" model at 16 of its 32 layers (the run's time budget),
-    # 8 slots, max_len 2048, 16 greedy requests. 5b's runs and held answers,
-    # 10c, 11c, 16b's engine A/B, the server (5c) and 19b's steps run these
-    # 16 layers (the first 16 of its stacked weights: every loop runs over
-    # cfg.n_layers)
-    cfg, L = cfg.with_(n_layers=16), 16
+    # llama-3-8b "down" model at 8 of its 32 layers (the run's time budget:
+    # 16 until phase 23 was added), 8 slots, max_len 2048, 16 greedy
+    # requests. 5b's runs and held answers, 10c, 11c, 16b's engine A/B, the
+    # server (5c) and 19b's steps run these 8 layers (the first 8 of its
+    # stacked weights: every loop runs over cfg.n_layers)
+    cfg, L = cfg.with_(n_layers=8), 8
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
@@ -4324,6 +4402,509 @@ def main() -> None:
         del params2
         torch.cuda.empty_cache()
     record["families"] = rec22
+
+    stamp("23")
+    # ---- 23. mixture of experts: mixtral-8x7b (8 experts, 2 a token) and
+    # qwen3-30b-a3b (128, 8 a token) through K1s and K3s, K1's and K3s's
+    # decode-row kernels with the expert index read from device memory (the
+    # router's top-k pick, never read on the host; one row's top-k plan).
+    # (a) every device-index entry held per call at the experts' shapes,
+    # B 1, bf16 and W2A8 (K1_DEC_A8 off: the CUDA-core instances; on: the
+    # decode kernel's W2A8 instances), bit for bit against the view route
+    # (the host-index slot) and within KERNEL_TOL of its plain version,
+    # every slot of a stack once. (b) mixtral-8x7b at its full width and 32
+    # layers, "down": greedy_generate at batch 1 (128 ids + 32 new), bf16 and
+    # W2A8, launches exact (a decode step adds 32 x 2 x 2 device-index
+    # launches and no host-index expert launch), _moe_mlp at one row under
+    # set_sync_debug_mode("error"), the answers held under the teacher-forced
+    # plain forward (bf16: MIXTRAL_DEEP_TOL; W2A8: A8_TOLS' gap under the
+    # W2A8 route on plain versions), the plain bf16 route's own drift from
+    # f32 at this depth, one decode step profiled; the same weights cut to
+    # 2 layers with every K1 / K1s call held, answers at TOKEN_TOL. (c) the
+    # same model in a ServeEngine (8 slots, M 2048, 8 requests of 64-512
+    # ids, 32 new, bf16 KV; every pass runs all 8 experts): K1 and K7
+    # launches exact, every K7 call held, answers held under one batched
+    # teacher-forced plain forward at MIXTRAL_DEEP_TOL; one decode step
+    # profiled; the 2-layer cut's engine with K7 off (the reference's plain
+    # attention: see MIXTRAL_DEEP_TOL), answers at TOKEN_TOL. (d) mixtral
+    # cut to 2 layers in the "ssr" layout (K3s for gate/up) and
+    # qwen3-30b-a3b cut to 4 of its 48 layers (depth cuts): lockstep bf16
+    # and W2A8 with every K1s / K3s call held, and a 4-request engine (K7
+    # off), every answer held and (mixtral) every K1 / K3 / K4 call. (e) the
+    # quantizer on one mixtral layer at full width (seeded dense bf16
+    # weights, MOE_CALIB windows: a cut from the CLI's 128 x 2048), its
+    # artifact served, every K1s call held. (f) the entries' C calls timed
+    # from CUDA graph replays over stacks larger than L2, beside the view
+    # route, the plain version, torch.matmul on the dense bf16 expert and
+    # the bytes bound.
+    import torch.nn.functional as F
+
+    from pt2tpu_torch.utils.randmodel import random_expert_stack
+
+    rec23 = {}
+    g23 = torch.Generator(device=dev).manual_seed(23)
+    gh23 = torch.Generator().manual_seed(23)
+    idx_names = ("ternary_matmul_idx", "ternary_matmul_igathered_idx")
+    idx_err = dict.fromkeys(idx_names, 0.0)
+
+    # (a) per-call holds: (label, out, in, perm mode) of mixtral's and
+    # qwen3-30b-a3b's experts, stacks of 2 layers x 4 experts
+    checks23 = 0
+    for label, n_out, n_in, mode in MOE_SHAPES:
+        flat = tdec._flatten_expert_stack(
+            random_expert_stack(g23, 2, 4, n_out, n_in, mode, device=dev))
+        S, K = flat.packed.shape[0], flat.packed.shape[1] * 4
+        name = "ternary_matmul_igathered_idx" if mode == "ssr" else "ternary_matmul_idx"
+        sel = torch.arange(4, dtype=torch.int32, device=dev)
+        for impl, dec_a8 in (("auto", False), ("a8", False), ("a8", True)):
+            k1.K1_DEC_A8 = dec_a8
+            a8 = impl == "a8"
+            x = torch.randn((1, n_in), generator=g23, device=dev).bfloat16()
+            xk = F.pad(x, (0, K - n_in))
+            for s in range(S):
+                e, base = sel[s % 4], (s // 4) * 4
+                c0 = counts()
+                if mode == "ssr":
+                    got = k1.ternary_matmul_igathered_idx(x, flat.perm, flat.packed, flat.alpha,
+                                                          flat.mu, e, base, a8=a8)
+                    want = k1.ternary_matmul_igathered_idx_plain(
+                        x, flat.perm, flat.packed, flat.alpha, flat.mu, e, base, a8=a8)
+                else:
+                    got = k1.ternary_matmul_idx(xk, flat.packed, flat.alpha, flat.mu, e, base,
+                                                a8=a8)
+                    want = k1.ternary_matmul_idx_plain(xk, flat.packed, flat.alpha, flat.mu, e,
+                                                       base, a8=a8)
+                dec_path = not a8 or dec_a8
+                rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+                if rose != {name: 1, **({f"{name}_dec": 1} if dec_path else {})}:
+                    fail(f"23a {label} {impl}: launches {rose}")
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                if not err <= KERNEL_TOL:
+                    fail(f"23a {name} {label} {impl} slot {s}: max|err| {err:.3e} > {KERNEL_TOL}")
+                idx_err[name] = max(idx_err[name], err)
+                on = ttm.ternary_linear_apply_stacked(flat, x, e, impl=impl, base=base,
+                                                      out_dtype=torch.float32)
+                view = ttm.ternary_linear_apply_stacked(flat, x, s, impl=impl,
+                                                        out_dtype=torch.float32)
+                if not (torch.equal(on, view) and torch.equal(on, got)):
+                    fail(f"23a {label} {impl} slot {s}: the device index is not the view "
+                         "route bit for bit")
+                checks23 += 1
+        k1.K1_DEC_A8 = False
+        del flat
+    rec23["per_call"] = {"checks": checks23, "max_rel_err": dict(idx_err)}
+    print(f"23a K1s / K3s at the experts' shapes {[s_[0] for s_ in MOE_SHAPES]}, B 1, bf16 and "
+          f"W2A8 (decode kernel and CUDA cores): {checks23} calls, each bit for bit the view "
+          f"route's, max|err| vs plain {idx_err} (<= {KERNEL_TOL}), every slot of 2 x 4")
+
+    def mixtral_launches(L_, passes, a8=False, k7_steps=0, E_=8, k_=2, gathered=False):
+        """The launches of forward passes of ``passes`` rows each through
+        ``L_`` layers of a mixture-of-experts model (E_ experts, k_ a token):
+        qkv and o, then with more than one row every expert's gateup and
+        down, with one row its top k_ experts' through K1s (K3s for a
+        gathered gateup). ``gathered`` (the "ssr" layout): qkv, o and gateup
+        gather, through K3 at <= 64 rows, else K4 then K1; down is folded.
+        Paths by rows: the decode kernel (bf16) or the CUDA cores (W2A8) at
+        <= 8 rows, the tensor cores from 9."""
+        c = dict(none)
+
+        def calls(kind, n, rows):
+            c[kind] += n * L_
+            if rows >= 9:
+                tc = "ternary_matmul_tc_a8" if a8 else "ternary_matmul_tc"
+                c[tc if kind == "ternary_matmul" else f"{kind}_tc"] += n * L_
+            elif not a8:
+                c[f"{kind}_dec"] += n * L_
+
+        def projections(n, rows, gather):
+            if gather and rows <= 64:
+                calls("ternary_matmul_igathered", n, rows)
+            else:
+                if gather:
+                    c["onehot_gather"] += n * L_
+                    c["onehot_gather_rows"] += n * L_
+                calls("ternary_matmul", n, rows)
+
+        for rows in passes:
+            projections(2, rows, gathered)  # qkv, o
+            if rows == 1:
+                calls("ternary_matmul_igathered_idx" if gathered else "ternary_matmul_idx", k_, 1)
+                calls("ternary_matmul_idx", k_, 1)
+            else:
+                projections(E_, rows, gathered)  # every expert's gateup
+                calls("ternary_matmul", E_, rows)  # and down
+        c["decode_attention"] = c["decode_attention_tc"] = L_ * k7_steps
+        return c
+
+    def moe_reference(cfg_, params_, prompts_, answers_, impl="auto"):
+        """f32 logits at each answer's positions from ONE batched forward of
+        the prompts + answers[:-1] (right-padded; causal, so the padding
+        moves no earlier position) through the plain route, or for W2A8 the
+        W2A8 route with every kernel swapped for its plain version."""
+        rows = [list(p_) + list(a_[:-1]) for p_, a_ in zip(prompts_, answers_)]
+        T = max(len(r) for r in rows)
+        toks = torch.tensor([r + [0] * (T - len(r)) for r in rows], device=dev)
+        c0 = counts()
+        with torch.inference_mode(), (plain_versions() if impl == "a8"
+                                      else contextlib.nullcontext()):
+            logits = tdec.forward(cfg_, params_, toks, impl="plain" if impl == "auto" else "a8")
+        if counts() != c0:
+            fail("the teacher-forced MoE reference launched a kernel")
+        return [logits[i, len(p_) - 1 : len(p_) - 1 + len(a_)].float()
+                for i, (p_, a_) in enumerate(zip(prompts_, answers_))]
+
+    def pick_gap(lf, ids):
+        picked = lf.gather(1, torch.as_tensor(ids, device=dev)[:, None])[:, 0]
+        return ((lf.max(dim=1).values - picked) / lf.abs().max(dim=1).values).max().item()
+
+    def moe_answers_held(label, cfg_, params_, prompts_, answers_, tol, impl="auto"):
+        refs = moe_reference(cfg_, params_, prompts_, answers_, impl)
+        worst = max(pick_gap(lf, ids) for lf, ids in zip(refs, answers_))
+        del refs
+        if not worst <= tol:
+            fail(f"{label}: a pick trails the teacher-forced plain max by {worst:.3e} of "
+                 f"max|logit| (> {tol})")
+        return worst
+
+    def moe_greedy(label, cfg_, params_, prompt_, new_, impl, want, held=None, tol=TOKEN_TOL):
+        """greedy_generate with counts set to 0 just before and read just
+        after, held to ``want``; ``held`` names the wrappers whose every call
+        is held against its plain version; the answers held to ``tol``."""
+        for k in per_call:
+            per_call[k] = 0
+        with swapped(each_call_checked, held) if held else contextlib.nullcontext():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = greedy_generate(cfg_, params_, prompt_, new_, impl=impl)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+        if got != want:
+            fail(f"{label}: launches {got}, want {want}")
+        tally(got)
+        checked = {k: v for k, v in per_call.items() if v}
+        if held and checked != {k: got[k] for k in held if got[k]}:
+            fail(f"{label}: {checked} calls held, launches {got}")
+        ids = toks.tolist()
+        worst = moe_answers_held(f"{label} answers", cfg_, params_, prompt_.tolist(), ids, tol,
+                                 impl)
+        res = {"wall_s": wall, "launches": got, "worst_pick_gap": worst, "calls_held": checked,
+               "decode_tok_s": prompt_.shape[0] * (new_ - 1) / wall}
+        print(f"{label}: {prompt_.shape[0]} x {prompt_.shape[1]} ids + {new_} new in {wall:.2f} s, "
+              f"launches exact {got}" + (f", every call of {sorted(checked)} held {checked}"
+                                         if held else "")
+              + f"; every pick within {worst:.3e} of the teacher-forced {impl} plain max "
+              f"(<= {tol}) on {record['smi']}")
+        return res, ids
+
+    def moe_engine(label, cfg_, params_, prompts_, new_, want_fn, held=None, tol=TOKEN_TOL):
+        eng = ServeEngine(cfg_, params_, max_batch=8, max_len=ENGINE_M)
+        reqs = [eng.submit(p_, new_) for p_ in prompts_]
+        for k in per_call:
+            per_call[k] = 0
+        with swapped(each_call_checked, held) if held else contextlib.nullcontext():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+        st_ = eng.stats["steps"]
+        want = want_fn([min(_bucket(len(p_)), ENGINE_M) for p_ in prompts_] + [8] * st_, st_)
+        if got != want:
+            fail(f"engine {label}: launches {got}, want {want}")
+        tally(got)
+        if not all(r.done and len(r.out) == new_ for r in reqs):
+            fail(f"engine {label}: a request did not finish with max_new tokens")
+        checked = {k: v for k, v in per_call.items() if v}
+        if held and checked != {k: got[k] for k in held if got[k]}:
+            fail(f"engine {label}: {checked} calls held, launches {got}")
+        outs_ = [r.out for r in reqs]
+        worst = moe_answers_held(f"engine {label} answers", cfg_, params_, prompts_, outs_, tol)
+        stt = dict(eng.stats)
+        res = {"wall_s": wall, "steps": st_, "launches": got, "worst_pick_gap": worst,
+               "decode_tok_s": stt["tokens"] / stt["t_decode_s"], "t_admit_s": stt["t_admit_s"],
+               "calls_held": checked}
+        print(f"engine {label}: {len(reqs)} requests ({[len(p_) for p_ in prompts_]} ids, "
+              f"{new_} new) in {wall:.2f} s (decode {res['decode_tok_s']:.1f} tok/s, t_admit_s "
+              f"{stt['t_admit_s']:.2f} s), {st_} steps, launches exact {got}"
+              + (f", every call of {sorted(checked)} held {checked}" if held else "")
+              + f"; every pick within {worst:.3e} of the batched teacher-forced plain max "
+              f"(<= {tol}) on {record['smi']}")
+        del eng
+        return res, outs_
+
+    stamp("23b")
+    # (b) mixtral-8x7b at 32 layers, "down"
+    cfg23, params23, rec23["build_s"] = build("mixtral-8x7b", "down", 23)
+    L23 = cfg23.n_layers
+    rec23["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    lp23 = tdec.layer_view(params23["layers"], 5)
+    h23 = torch.randn((1, 1, cfg23.dim), generator=g23, device=dev).bfloat16()
+    want_mlp = tdec._moe_mlp(cfg23, lp23, h23, "auto", 5)
+    torch.cuda.synchronize()
+    c0 = counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = tdec._moe_mlp(cfg23, lp23, h23, "auto", 5)
+    except RuntimeError as exc:
+        fail(f"23b _moe_mlp at one row synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+    if not torch.equal(again, want_mlp) or rose != {"ternary_matmul_idx": 4,
+                                                    "ternary_matmul_idx_dec": 4}:
+        fail(f"23b _moe_mlp at one row: launches {rose}, or not its own result")
+    print("23b _moe_mlp at one row (layer 5) under torch.cuda.set_sync_debug_mode('error'): no "
+          f"host synchronisation, launches {rose}")
+    prompt23 = torch.randint(0, cfg23.vocab_size, (1, 128), generator=g23, device=dev)
+    passes = [128] + [1] * 31
+    for impl in ("auto", "a8"):
+        rec23[f"lockstep_{impl}"], ids23 = moe_greedy(
+            f"23b mixtral-8x7b lockstep {impl} ({L23} layers, down)", cfg23, params23, prompt23,
+            32, impl, mixtral_launches(L23, passes, a8=impl == "a8"),
+            tol=MIXTRAL_DEEP_TOL if impl == "auto" else A8_TOLS[1])
+        if impl == "auto":
+            bf16_ids = ids23
+    # the plain bf16 route's own drift from f32 at this depth, on the bf16 answer
+    p32 = tdec._map(lambda t: t.float() if t.dtype == torch.bfloat16 else t, params23)
+    lb = moe_reference(cfg23, params23, prompt23.tolist(), bf16_ids)[0]
+    lf = moe_reference(cfg23, p32, prompt23.tolist(), bf16_ids)[0]
+    del p32
+    rec23["bf16_noise"] = {"rel_l2_bf16_f32": ((lb - lf).norm() / lf.norm()).item(),
+                           "pick_gap_bf16_vs_f32": pick_gap(lf, lb.argmax(dim=1).tolist())}
+    del lb, lf
+    torch.cuda.empty_cache()
+    print(f"23b mixtral-8x7b bf16 noise ({L23} layers, the lockstep request's 128 + 31 ids "
+          f"through the plain route): bf16 vs f32 relative L2 "
+          f"{rec23['bf16_noise']['rel_l2_bf16_f32']:.3f}, the bf16 picks trail the f32 max by "
+          f"{rec23['bf16_noise']['pick_gap_bf16_vs_f32']:.3e} of max|logit| on {record['smi']}")
+    zero_counts()
+    rec23["decode_step"] = profile_decode_step(cfg23, params23, prompt23, 128, 4, dev,
+                                               "mixtral-8x7b down")
+    got = counts()
+    if got != mixtral_launches(L23, [128, 1, 1, 1]):
+        fail(f"23b profiled decode steps: launches {got}")
+    tally(got)
+    cut23 = cfg23.with_(n_layers=2)
+    rec23["lockstep_2layer"], _ = moe_greedy(
+        "23b mixtral-8x7b lockstep, the same weights cut to 2 layers", cut23, params23, prompt23,
+        32, "auto", mixtral_launches(2, passes), held=("ternary_matmul", "ternary_matmul_idx"))
+
+    stamp("23c")
+    # (c) the engine
+    lens23 = torch.randint(64, 513, (8,), generator=gh23).tolist()
+    prompts23 = make_prompts(cfg23, lens23, g23)
+    rec23["engine"], _ = moe_engine(
+        f"23c mixtral-8x7b down bf16 KV ({L23} layers)", cfg23, params23, prompts23, 32,
+        lambda passes_, st_: mixtral_launches(L23, passes_, k7_steps=st_),
+        held=("decode_attention",), tol=MIXTRAL_DEEP_TOL)
+    rec23["engine_step"] = family_step("mixtral-8x7b down engine, bf16 KV", cfg23, params23,
+                                       prompts23)
+    set_k7(False)  # the 2-layer engines: plain attention, as their reference's
+    rec23["engine_2layer"], _ = moe_engine(
+        "23c mixtral-8x7b, the same weights cut to 2 layers, K7 off", cut23, params23,
+        prompts23[:4], 16, lambda passes_, st_: mixtral_launches(2, passes_),
+        held=("ternary_matmul",))
+    set_k7(True)
+    del params23, want_mlp, again, lp23
+    torch.cuda.empty_cache()
+
+    stamp("23d")
+    # (d) depth cuts: mixtral at 2 layers "ssr" (K3s), qwen3-30b-a3b at 4 "down"
+    for name, layout, n_l, seed in (("mixtral-8x7b", "ssr", 2, 24),
+                                    ("qwen3-30b-a3b", "down", 4, 25)):
+        cfg_d, params_d, _ = build(name, layout, seed, n_layers=n_l)
+        gathered = layout == "ssr"
+        E_d, k_d = cfg_d.n_experts, cfg_d.experts_per_token
+        pr = torch.randint(0, cfg_d.vocab_size, (1, 128), generator=g23, device=dev)
+        for impl in ("auto", "a8"):
+            rec23[f"{name}_{layout}_{impl}"], _ = moe_greedy(
+                f"23d {name} lockstep {impl} ({n_l} layers, {layout})", cfg_d, params_d, pr, 16,
+                impl, mixtral_launches(n_l, [128] + [1] * 15, a8=impl == "a8", E_=E_d, k_=k_d,
+                                       gathered=gathered),
+                held=idx_names, tol=TOKEN_TOL if impl == "auto" else A8_TOLS[1])
+        set_k7(False)
+        rec23[f"{name}_{layout}_engine"], _ = moe_engine(
+            f"23d {name} {layout} ({n_l} layers), K7 off", cfg_d, params_d,
+            make_prompts(cfg_d, torch.randint(64, 513, (4,), generator=gh23).tolist(), g23), 16,
+            lambda passes_, st_: mixtral_launches(n_l, passes_, E_=E_d, k_=k_d,
+                                                  gathered=gathered),
+            held=(None if name == "qwen3-30b-a3b"  # 1024 K1 calls a step: time budget
+                  else ("ternary_matmul", "ternary_matmul_igathered", "onehot_gather")),
+            tol=QWEN3_MOE_TOKEN_TOL if name == "qwen3-30b-a3b" else TOKEN_TOL)
+        set_k7(True)
+        del params_d
+        torch.cuda.empty_cache()
+
+    stamp("23e")
+    # (e) the quantizer: one mixtral layer at full width, then served
+    cfg_q = get_config("mixtral-8x7b").with_(n_layers=1)
+    dense_q = tdec.init_params(cfg_q, torch.Generator(device=dev).manual_seed(21),
+                               dtype=torch.bfloat16, device=dev)
+    calib_q, _ = get_calibration_data("synthetic", cfg_q.vocab_size, num_samples=MOE_CALIB[0],
+                                      seq_len=MOE_CALIB[1], seed=23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams, qrep = tpipe.quantize_model(cfg_q, dense_q, calib_q, tpipe.QuantConfig())
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    del dense_q
+    tm = qrep["timing"][0]
+    rec23["quantize"] = {"seconds": q_s, "hessian_s": sum(tm["hessian_s"].values()),
+                         "inverse_s": sum(tm["inverse_s"].values()),
+                         "gptq_s": sum(tm["gptq_s"].values()), "layer_s": tm["layer_s"],
+                         "report": qrep["layers"][0], "bits_per_weight": qrep["bits_per_weight"]}
+    lay = qparams["layers"]
+    if not (lay["gateup"].packed.shape[:2] == (1, 8) and lay["down"].input_folded
+            and lay["gateup"].gather is None):
+        fail("23e the quantized mixtral layer's experts are not the folded (1, 8, ...) stacks")
+    art = os.path.join(ROOT, "build", "moe_artifact")
+    ckpt.save_model(art, cfg_q, qparams, tpipe.QuantConfig(), qrep)
+    del qparams
+    cfg_a, params_a = ckpt.load_model(art, device=dev)
+    shutil.rmtree(art)
+    print(f"23e the quantizer, one mixtral-8x7b layer at full width, {MOE_CALIB[0]} x "
+          f"{MOE_CALIB[1]} ids: {q_s:.2f} s (Hessians {rec23['quantize']['hessian_s']:.2f} s, "
+          f"damped inverses {rec23['quantize']['inverse_s']:.2f} s, GPTQ "
+          f"{rec23['quantize']['gptq_s']:.2f} s); gateup x8 rel_out_err "
+          f"{qrep['layers'][0]['gateup']['rel_out_err']:.4f}, down x8 "
+          f"{qrep['layers'][0]['down']['rel_out_err']:.4f}; bits/weight "
+          f"{qrep['bits_per_weight']:.3f} on {record['smi']}")
+    rec23["quantized_served"], _ = moe_greedy(
+        "23e the quantized mixtral layer, served from its artifact", cfg_a, params_a,
+        torch.randint(0, cfg_a.vocab_size, (1, 128), generator=g23, device=dev), 16, "auto",
+        mixtral_launches(1, [128] + [1] * 15), held=("ternary_matmul", "ternary_matmul_idx"))
+    del params_a
+    torch.cuda.empty_cache()
+
+    stamp("23f")
+    # (f) the entries' C calls, B 1, from CUDA graph replays over stacks
+    # larger than L2 (the slot rotating with the call), beside the view
+    # route (the same kernel on the host slot), the plain version, the dense
+    # bf16 expert through torch.matmul and the bytes bound
+    dlib23, clib23 = k1._dec_kernel_lib(), k1._kernel_lib()
+    cnt23 = torch.zeros(1024, dtype=torch.int32, device=dev)
+    dix23 = dev.index or 0
+    ev23 = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def graph23_ms(fn, calls=48, replays=4):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(calls):
+                fn(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        s_, e_ = ev23(), ev23()
+        s_.record()
+        for _ in range(replays):
+            graph.replay()
+        e_.record()
+        torch.cuda.synchronize()
+        return s_.elapsed_time(e_) / (calls * replays)
+
+    def events23_ms(fn, iters=6):
+        fn(0)
+        torch.cuda.synchronize()
+        s_, e_ = ev23(), ev23()
+        s_.record()
+        for i in range(iters):
+            fn(i)
+        e_.record()
+        torch.cuda.synchronize()
+        return s_.elapsed_time(e_) / iters
+
+    def rc23(rc, what):
+        if rc:
+            fail(f"23f {what}: launch failed ({rc})")
+
+    moe_timing = []
+    for label, n_out, n_in, mode in MOE_SHAPES[:3]:
+        K, n = n_in, n_out
+        slot_bytes = K * n // 4 + 4 * (K // 128) * n
+        S = max(4, math.ceil(COLD_BYTES / slot_bytes))
+        st23 = random_expert_stack(g23, 1, S, n, K, mode, device=dev)
+        flat = tdec._flatten_expert_stack(st23)
+        sel = torch.arange(S, dtype=torch.int32, device=dev)
+        dense_w = torch.randn((K, n), generator=g23, device=dev).bfloat16()
+        x = torch.randn((1, K), generator=g23, device=dev).bfloat16()
+        xn, _ = k1.normalize_rows_a8(x)
+        out = torch.empty((1, n), dtype=torch.float32, device=dev)
+        splits = k1.dec_splits(K, n, 128, k1.dec_wave(dev))
+        part = torch.empty((splits, 1, n), dtype=torch.float32, device=dev)
+        pk, al, mu_, pm = flat.packed, flat.alpha, flat.mu, flat.perm
+        gath = mode == "ssr"
+        for a8 in (False, True):
+            xa = (xn if a8 else x)
+            kname = ("ternary_matmul_igathered_idx" if gath else "ternary_matmul_idx") + (
+                "" if a8 else "_dec")
+
+            def kern(i, view=False):
+                s_ = i % S
+                if view:
+                    args = (pk[s_].data_ptr(), al[s_].data_ptr(), mu_[s_].data_ptr())
+                else:
+                    args = (pk.data_ptr(), al.data_ptr(), mu_.data_ptr())
+                stream23 = torch.cuda.current_stream().cuda_stream
+                if not a8 and not gath:
+                    rc = (dlib23.pt2_ternary_matmul_dec(xa.data_ptr(), *args, part.data_ptr(),
+                                                        out.data_ptr(), cnt23.data_ptr(), 1, K, n,
+                                                        128, splits, 0, dix23, stream23)
+                          if view else dlib23.pt2_ternary_matmul_dec_idx(
+                              xa.data_ptr(), *args, part.data_ptr(), out.data_ptr(),
+                              cnt23.data_ptr(), sel[s_:].data_ptr(), 0, S, 1, K, n, 128, splits,
+                              0, dix23, stream23))
+                elif not a8:
+                    pp = pm[s_].data_ptr() if view else pm.data_ptr()
+                    rc = (dlib23.pt2_ternary_matmul_dec_igathered(
+                        xa.data_ptr(), pp, *args, part.data_ptr(), out.data_ptr(),
+                        cnt23.data_ptr(), 1, K, K, n, 128, splits, 0, dix23, stream23)
+                          if view else dlib23.pt2_ternary_matmul_dec_igathered_idx(
+                              xa.data_ptr(), pp, *args, part.data_ptr(), out.data_ptr(),
+                              cnt23.data_ptr(), sel[s_:].data_ptr(), 0, S, 1, K, K, n, 128,
+                              splits, 0, dix23, stream23))
+                elif not gath:
+                    rc = (clib23.pt2_ternary_matmul(xa.data_ptr(), *args, out.data_ptr(), 1, K, n,
+                                                    128, 1, dix23, stream23)
+                          if view else clib23.pt2_ternary_matmul_idx(
+                              xa.data_ptr(), *args, out.data_ptr(), sel[s_:].data_ptr(), 0, S, 1,
+                              K, n, 128, 1, dix23, stream23))
+                else:
+                    pp = pm[s_].data_ptr() if view else pm.data_ptr()
+                    rc = (clib23.pt2_ternary_matmul_igathered(
+                        xa.data_ptr(), pp, *args, out.data_ptr(), 1, K, K, n, 128, 1, dix23,
+                        stream23)
+                          if view else clib23.pt2_ternary_matmul_igathered_idx(
+                              xa.data_ptr(), pp, *args, out.data_ptr(), sel[s_:].data_ptr(), 0, S,
+                              1, K, K, n, 128, 1, dix23, stream23))
+                rc23(rc, kname)
+
+            ms = graph23_ms(kern)
+            view_ms = graph23_ms(lambda i: kern(i, view=True))
+            plain = (k1.ternary_matmul_igathered_plain if gath else
+                     (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain))
+            if gath:
+                plain_ms = events23_ms(lambda i: plain(x, pm[i % S], pk[i % S], al[i % S],
+                                                       mu_[i % S], a8=a8))
+            else:
+                plain_ms = events23_ms(lambda i: plain(x, pk[i % S], al[i % S], mu_[i % S]))
+            lib_ms = graph23_ms(lambda i: torch.matmul(x, dense_w), calls=24)
+            nbytes = slot_bytes + 2 * K + 4 * n + 4 + (4 * K if gath else 0)
+            b_ms = max(nbytes / bw * 1e3, 2 * K * n / bf16_peak * 1e3)
+            d = {"kernel": kname, "shape": label, "B": 1, "a8": a8, "ms": ms, "view_ms": view_ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes, "bound_ms": b_ms,
+                 "bound_by": "bytes" if nbytes / bw >= 2 * K * n / bf16_peak else "operations"}
+            moe_timing.append(d)
+            print(f"23f {kname} {label} B=1: {ms * 1e3:.2f} us (view route {view_ms * 1e3:.2f} "
+                  f"us) | plain {plain_ms * 1e3:.1f} us | torch.matmul dense bf16 "
+                  f"{lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({100 * b_ms / ms:.1f} % "
+                  f"of it; graph replays over {S} slots) on {record['smi']}")
+        del st23, flat, dense_w
+        torch.cuda.empty_cache()
+    rec23["timing"] = moe_timing
+    record["moe"] = rec23
 
     record["paths_s"] = time.perf_counter() - t_start
 
@@ -5647,6 +6228,21 @@ def main() -> None:
                          "pt2tpu/ops/kernels/pallas_gather.py:239",
                          [d for d in k4rows_detail if d["B"] == 512], errs["onehot_gather_rows"],
                          mult=3))
+    # K1s / K3s, the device-index entries (phase 23): one expert of one
+    # layer at B = 1, its gateup and down (K3s: gateup with its gather),
+    # bf16 on the decode kernel, W2A8 on the CUDA cores; their launches:
+    # every lockstep decode row of phase 23's runs, counted exactly
+    for name, src in (("ternary_matmul_idx", "ternary_matmul"),
+                      ("ternary_matmul_igathered_idx", "ternary_matmul_igathered")):
+        main_launches[f"{name}_dec"] = run_totals[f"{name}_dec"]
+        main_launches[name] = run_totals[name] - run_totals[f"{name}_dec"]
+        replaces = ("pt2tpu/ops/kernels/pallas_ternary.py:805" if "igathered" in name
+                    else "pt2tpu/ops/kernels/pallas_ternary.py:316")
+        for kname, source in ((f"{name}_dec", "pt2tpu_torch/csrc/ternary_matmul_dec.cu"),
+                              (name, "pt2tpu_torch/csrc/ternary_matmul.cu")):
+            kernels.append(entry(kname, source, replaces,
+                                 [d for d in record["moe"]["timing"] if d["kernel"] == kname],
+                                 record["moe"]["per_call"]["max_rel_err"][name]))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every run counted exactly: {run_totals}")

@@ -1,5 +1,6 @@
-"""pt2tpu_torch — the PyTorch/CUDA port of pt2tpu: packed-ternary llama and
-gemma serving on an NVIDIA H100.
+"""pt2tpu_torch — the PyTorch/CUDA port of pt2tpu: packed-ternary serving of
+the registry's models (dense families and mixtures of experts) on an NVIDIA
+H100.
 
 A package of its own beside the JAX package ``pt2tpu``, which stays the
 reference; nothing here imports JAX or ``pt2tpu``. Every entry point runs on

@@ -3,7 +3,10 @@
 //
 // K1 replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas and
 // ternary_matmul_pallas_stacked (the stacked variant collapses into this one:
-// the caller passes the zero-copy view packed[li]).
+// the caller passes the zero-copy view packed[li]). With a traced index (the
+// mixture-of-experts decode's routed experts) the IDX instances take the
+// whole stack and read the slot from device memory (pt2_ternary_matmul_idx,
+// pt2_ternary_matmul_igathered_idx; K1s / K3s at W2A8 decode rows).
 //
 // K3 replaces ternary_matmul_pallas_igathered and its _stacked variant: the
 // SSR input gather fused into K1, out = x[:, perm] @ dequant(packed). It is
@@ -56,7 +59,7 @@ constexpr int MIN_BS = 16;         // smallest scale block the kernel takes
 template <bool A8> struct Acc { typedef float T; };
 template <> struct Acc<true> { typedef int T; };
 
-template <int TB, bool A8, bool GATHER>
+template <int TB, bool A8, bool GATHER, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                       const int* __restrict__ perm,             // (K,) if GATHER
@@ -64,10 +67,28 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                       const __nv_bfloat16* __restrict__ alpha,  // (nb, n)
                       const __nv_bfloat16* __restrict__ mu,     // (nb, n)
                       float* __restrict__ out,                  // (B, n)
-                      int B, int m, int K, int n, int bs) {
+                      int B, int m, int K, int n, int bs,
+                      const int* __restrict__ sel, int base, int S) {  // if IDX
   // x rows hold m values: m == K without GATHER; with GATHER lane k of the
   // block's x chunk is x[b, perm[k]], or 0 for a pad lane (perm[k] >= m).
+  // With IDX packed, alpha, mu (and perm) are stacks of S slots: the block
+  // reads slot base + *sel from device memory once (thread 0; a slot outside
+  // [0, S) traps) and offsets them by it.
   typedef typename Acc<A8>::T D;
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (threadIdx.x == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    const size_t slot = (size_t)slot_s;
+    packed += slot * (size_t)(K / 4) * n;
+    alpha += slot * (size_t)(K / bs) * n;
+    mu += slot * (size_t)(K / bs) * n;
+    if constexpr (GATHER) perm += slot * (size_t)K;
+  }
   // The x chunk (TB x ch bf16) and, after the K loop, the reduction buffer
   // (TY x TB x TN f32) share one allocation: both are 4096 * TB bytes.
   __shared__ __align__(16) unsigned char smem[TB * CHUNK * 2];
@@ -183,10 +204,10 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
   }
 }
 
-template <int TB, bool GATHER>
+template <int TB, bool GATHER, bool IDX>
 void launch(bool a8, const void* x, const void* perm, const void* packed,
             const void* alpha, const void* mu, void* out, int B, int m, int K,
-            int n, int bs, cudaStream_t stream) {
+            int n, int bs, const int* sel, int base, int S, cudaStream_t stream) {
   dim3 grid(n / TN, (B + TB - 1) / TB);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
   const int* ip = static_cast<const int*>(perm);
@@ -195,20 +216,24 @@ void launch(bool a8, const void* x, const void* perm, const void* packed,
   const __nv_bfloat16* mp = static_cast<const __nv_bfloat16*>(mu);
   float* op = static_cast<float*>(out);
   if (a8)
-    ternary_matmul_kernel<TB, true, GATHER><<<grid, THREADS, 0, stream>>>(
-        xp, ip, pp, ap, mp, op, B, m, K, n, bs);
+    ternary_matmul_kernel<TB, true, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
+        xp, ip, pp, ap, mp, op, B, m, K, n, bs, sel, base, S);
   else
-    ternary_matmul_kernel<TB, false, GATHER><<<grid, THREADS, 0, stream>>>(
-        xp, ip, pp, ap, mp, op, B, m, K, n, bs);
+    ternary_matmul_kernel<TB, false, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
+        xp, ip, pp, ap, mp, op, B, m, K, n, bs, sel, base, S);
 }
 
-template <bool GATHER>
+template <bool GATHER, bool IDX = false>
 int dispatch(const void* x, const void* perm, const void* packed,
              const void* alpha, const void* mu, void* out, int B, int m, int K,
-             int n, int bs, int a8, int device, void* stream) {
+             int n, int bs, int a8, int device, void* stream,
+             const void* sel = nullptr, int base = 0, int S = 0) {
   if (B < 1 || m < 1 || bs < MIN_BS || bs > CHUNK || bs % 4 != 0 ||
       K % bs != 0 || n % TN != 0)
     return (int)cudaErrorInvalidValue;
+  if (IDX && (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1))
+    return (int)cudaErrorInvalidValue;
+  const int* ix = static_cast<const int*>(sel);
   // This library links its own CUDA runtime: follow the caller's device.
   int cur = -1;
   if (cudaGetDevice(&cur) != cudaSuccess || cur != device) {
@@ -218,13 +243,17 @@ int dispatch(const void* x, const void* perm, const void* packed,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool q = a8 != 0;
   if (B == 1)
-    launch<1, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+    launch<1, GATHER, IDX>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, ix, base,
+                             S, s);
   else if (B == 2)
-    launch<2, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+    launch<2, GATHER, IDX>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, ix, base,
+                             S, s);
   else if (B <= 4)
-    launch<4, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+    launch<4, GATHER, IDX>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, ix, base,
+                             S, s);
   else
-    launch<8, GATHER>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, s);
+    launch<8, GATHER, IDX>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, ix, base,
+                             S, s);
   return (int)cudaGetLastError();
 }
 
@@ -249,4 +278,26 @@ extern "C" int pt2_ternary_matmul_igathered(const void* x, const void* perm,
                                             void* stream) {
   return dispatch<true>(x, perm, packed, alpha, mu, out, B, m, K, n, bs, a8,
                         device, stream);
+}
+
+// The device-index entries (K1s / K3s): as the two above, with packed
+// (S, K/4, n), alpha and mu (S, nb, n) and, for K3, perm (S, K) whole
+// contiguous stacks, and the slot base + *sel read by each block from device
+// memory (sel: one int32 on the card; base: a host offset). A slot outside
+// [0, S) traps.
+extern "C" int pt2_ternary_matmul_idx(const void* x, const void* packed,
+                                      const void* alpha, const void* mu,
+                                      void* out, const void* sel, int base,
+                                      int S, int B, int K, int n, int bs,
+                                      int a8, int device, void* stream) {
+  return dispatch<false, true>(x, nullptr, packed, alpha, mu, out, B, K, K, n,
+                               bs, a8, device, stream, sel, base, S);
+}
+
+extern "C" int pt2_ternary_matmul_igathered_idx(
+    const void* x, const void* perm, const void* packed, const void* alpha,
+    const void* mu, void* out, const void* sel, int base, int S, int B, int m,
+    int K, int n, int bs, int a8, int device, void* stream) {
+  return dispatch<true, true>(x, perm, packed, alpha, mu, out, B, m, K, n, bs,
+                              a8, device, stream, sel, base, S);
 }

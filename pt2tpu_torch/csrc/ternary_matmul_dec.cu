@@ -17,6 +17,12 @@
 // rows before the gather (absmax does not depend on column order). Rows
 // 9 to 64 stay on csrc/ternary_matmul.cu's K3.
 //
+// K1s / K3s (the _stacked variants with a traced index: the mixture-of-
+// experts decode's routed experts) are the IDX instances, C entries
+// pt2_ternary_matmul_dec_idx / pt2_ternary_matmul_dec_igathered_idx: the
+// weights (and perm) are whole stacks of S slots and each CTA reads its slot,
+// base + *sel, from device memory before its first load.
+//
 // Contract (K1's): with T in {-1,0,1} unpacked from the plane-interleaved
 // (K/4, n) int8 layout (byte [blk*bs/4 + r, j] holds lanes
 // blk*bs + p*bs/4 + r in bits 2p..2p+1, as u = T + 1),
@@ -124,7 +130,10 @@ __device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f),
 // tile c to finish, found by counters[c], sums partial[0 .. splits-1] in
 // that order into out and sets counters[c] back to 0. With GATHER, x is
 // (B, m) in feature order and lane k of the staged x is x[b, perm[k]].
-template <bool A8, bool GATHER>
+// With IDX, packed, alpha, mu (and perm) are stacks of S slots and the CTA
+// reads slot base + *sel from device memory (once, by thread 0; a slot
+// outside [0, S) traps), so a routed expert's index never goes to the host.
+template <bool A8, bool GATHER, bool IDX>
 __global__ void __launch_bounds__(THREADS, 4)
 ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), or (B, m) if GATHER
                           const int* __restrict__ perm,             // (K,) if GATHER
@@ -134,10 +143,25 @@ ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), o
                           float* __restrict__ partial,              // (splits, B, n)
                           float* __restrict__ out,                  // (B, n)
                           int* __restrict__ counters,               // (n / 128,), zero
-                          int B, int m, int K, int n, int bs, int bpc) {
+                          int B, int m, int K, int n, int bs, int bpc,
+                          const int* __restrict__ sel, int base, int S) {  // if IDX
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
   const int tid = threadIdx.x;
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (tid == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    const size_t slot = (size_t)slot_s;
+    packed += slot * (size_t)(K / 4) * n;
+    alpha += slot * (size_t)(K / bs) * n;
+    mu += slot * (size_t)(K / bs) * n;
+    if constexpr (GATHER) perm += slot * (size_t)K;
+  }
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;
@@ -374,12 +398,15 @@ ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), o
 // The launch of both C entries. x (bf16, B rows of m values; m = K
 // without GATHER) needs 16-byte alignment without GATHER, perm (K int32)
 // with it: both are read as 16-byte vectors.
-template <bool GATHER>
+template <bool GATHER, bool IDX = false>
 int launch(const void* x, const void* perm, const void* packed, const void* alpha,
            const void* mu, void* partial, void* out, void* counters, int B, int m, int K, int n,
-           int bs, int splits, int a8, int device, void* stream) {
+           int bs, int splits, int a8, int device, void* stream, const void* sel = nullptr,
+           int base = 0, int S = 0) {
   if (B < 1 || B > MAX_ROWS || bs < 128 || bs % 128 != 0 || K < bs || K % bs != 0 || n < BN ||
       n % BN != 0 || m < 1)
+    return (int)cudaErrorInvalidValue;
+  if (IDX && (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1))
     return (int)cudaErrorInvalidValue;
   const int nb = K / bs;
   if (splits < 1 || splits > nb) return (int)cudaErrorInvalidValue;
@@ -413,12 +440,13 @@ int launch(const void* x, const void* perm, const void* packed, const void* alph
   float* part = static_cast<float*>(partial);
   float* op = static_cast<float*>(out);
   int* cp = static_cast<int*>(counters);
+  const int* ip = static_cast<const int*>(sel);
   if (a8)
-    ternary_matmul_dec_kernel<true, GATHER><<<grid, THREADS, smem, s>>>(
-        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc);
+    ternary_matmul_dec_kernel<true, GATHER, IDX><<<grid, THREADS, smem, s>>>(
+        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc, ip, base, S);
   else
-    ternary_matmul_dec_kernel<false, GATHER><<<grid, THREADS, smem, s>>>(
-        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc);
+    ternary_matmul_dec_kernel<false, GATHER, IDX><<<grid, THREADS, smem, s>>>(
+        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc, ip, base, S);
   return (int)cudaGetLastError();
 }
 
@@ -450,4 +478,29 @@ extern "C" int pt2_ternary_matmul_dec_igathered(const void* x, const void* perm,
                                                 int splits, int a8, int device, void* stream) {
   return launch<true>(x, perm, packed, alpha, mu, partial, out, counters, B, m, K, n, bs, splits,
                       a8, device, stream);
+}
+
+// The device-index entries (K1s / K3s at decode rows): as the two above, with
+// packed (S, K/4, n), alpha and mu (S, nb, n) and, for K3, perm (S, K) whole
+// contiguous stacks, and the slot base + *sel read by each CTA from device
+// memory (sel: one int32 on the card, e.g. an element of the router's top-k;
+// base: a host offset, layer * experts). A slot outside [0, S) traps.
+extern "C" int pt2_ternary_matmul_dec_idx(const void* x, const void* packed, const void* alpha,
+                                          const void* mu, void* partial, void* out,
+                                          void* counters, const void* sel, int base, int S,
+                                          int B, int K, int n, int bs, int splits, int a8,
+                                          int device, void* stream) {
+  return launch<false, true>(x, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n,
+                             bs, splits, a8, device, stream, sel, base, S);
+}
+
+extern "C" int pt2_ternary_matmul_dec_igathered_idx(const void* x, const void* perm,
+                                                    const void* packed, const void* alpha,
+                                                    const void* mu, void* partial, void* out,
+                                                    void* counters, const void* sel, int base,
+                                                    int S, int B, int m, int K, int n, int bs,
+                                                    int splits, int a8, int device,
+                                                    void* stream) {
+  return launch<true, true>(x, perm, packed, alpha, mu, partial, out, counters, B, m, K, n, bs,
+                            splits, a8, device, stream, sel, base, S);
 }

@@ -12,9 +12,12 @@ RoPE (a local base on sliding layers, linear or llama-3.1 scaling), learned
 positions (OPT's offset 2) or ALiBi, a gated MLP (silu, gelu in its tanh
 form, relu) or an ungated one, biases, qk-norm, sandwich norms, sliding
 windows on some layers, attention and final softcaps, an embedding scale,
-an embedding norm and tied embeddings. :func:`check_supported` raises
-``NotImplementedError`` for mixture-of-experts configs, whose slice is still
-to come.
+an embedding norm and tied embeddings. A mixture-of-experts config
+(mixtral, qwen3-moe) replaces the MLP with top-k routed experts
+(:func:`moe_router_weights`, :func:`_moe_mlp`): one row runs its top-k
+experts, the expert index staying on the device (K1s / K3s on CUDA); more
+rows run every expert weighted by its (mostly zero) routing weight, as the
+JAX package does.
 
 Dense parameters (:func:`init_params`) are the quantizer's input: the same
 tree as the JAX package's, drawn from an explicit ``torch.Generator``.
@@ -31,7 +34,12 @@ import torch.nn.functional as F
 
 from ..ops.kernels.ternary import mlp_activation
 from ..ops.gather import PackedGather
-from ..ops.ternary_matmul import PackedTernaryLinear, fused_mlp_apply, fused_mlp_ok
+from ..ops.ternary_matmul import (
+    PackedTernaryLinear,
+    fused_mlp_apply,
+    fused_mlp_ok,
+    ternary_linear_apply_stacked,
+)
 from ..utils.device import resolve_device
 from .common import (
     DenseLinear,
@@ -61,6 +69,7 @@ __all__ = [
     "embed_tokens_per_row",
     "sliding_adjust",
     "layer_view",
+    "moe_router_weights",
     "LayerIO",
     "layer_forward",
     "unembed",
@@ -132,6 +141,10 @@ class ModelConfig:
         return self.n_experts > 0
 
     @property
+    def expert_inter(self) -> int:
+        return self.moe_inter or self.intermediate
+
+    @property
     def has_sliding(self) -> bool:
         return self.sliding_window > 0 and (
             self.layer_globals is None or not all(self.layer_globals)
@@ -157,15 +170,14 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming every feature of ``cfg`` that the
-    port does not compute: mixture of experts, or a norm, position encoding
-    or activation that no family has."""
+    port does not compute: a norm, position encoding or activation that no
+    family has."""
     missing = [
         name
         for name, bad in (
             (f"norm={cfg.norm!r}", cfg.norm not in ("rmsnorm", "layernorm")),
             (f"pos={cfg.pos!r}", cfg.pos not in ("rope", "learned", "alibi")),
             (f"act={cfg.act!r}", cfg.act not in ("silu", "gelu", "relu")),
-            ("mixture of experts", cfg.is_moe),
         )
         if bad
     ]
@@ -208,7 +220,7 @@ def _init_layer(cfg: ModelConfig, gen, dtype, device) -> Dict[str, Any]:
     ones = lambda n=D: torch.ones((n,), dtype=dtype, device=device)  # noqa: E731
     ln_b = (lambda: torch.zeros((D,), dtype=dtype, device=device)) if cfg.norm == "layernorm" \
         else (lambda: None)
-    return {
+    layer = {
         "ln1_w": ones(),
         "ln1_b": ln_b(),
         "q": _init_linear(gen, H * hd, D, qb, dtype, device),
@@ -217,16 +229,29 @@ def _init_layer(cfg: ModelConfig, gen, dtype, device) -> Dict[str, Any]:
         "o": _init_linear(gen, D, H * hd, cfg.linear_bias, dtype, device),
         "ln2_w": ones(),
         "ln2_b": ln_b(),
-        "router": None,
-        "gate": (_init_linear(gen, I, D, cfg.linear_bias, dtype, device) if cfg.gated_mlp
-                 else None),
-        "up": _init_linear(gen, I, D, cfg.linear_bias, dtype, device),
-        "down": _init_linear(gen, D, I, cfg.linear_bias, dtype, device),
-        "q_norm_w": ones(hd) if cfg.qk_norm else None,
-        "k_norm_w": ones(hd) if cfg.qk_norm else None,
-        "post_attn_w": ones() if cfg.sandwich_norm else None,
-        "post_mlp_w": ones() if cfg.sandwich_norm else None,
     }
+    if cfg.is_moe:
+        # routed experts: a router and (E, out, in) weights, no bias
+        # (mixtral / qwen3-moe)
+        E, Ie = cfg.n_experts, cfg.expert_inter
+
+        def experts(n_out, n_in):
+            w = torch.randn((E, n_out, n_in), generator=gen, device=device) / math.sqrt(n_in)
+            return DenseLinear(w=w.to(dtype))
+
+        layer["router"] = _init_linear(gen, E, D, False, dtype, device)
+        layer["gate"], layer["up"], layer["down"] = experts(Ie, D), experts(Ie, D), experts(D, Ie)
+    else:
+        layer["router"] = None
+        layer["gate"] = (_init_linear(gen, I, D, cfg.linear_bias, dtype, device)
+                         if cfg.gated_mlp else None)
+        layer["up"] = _init_linear(gen, I, D, cfg.linear_bias, dtype, device)
+        layer["down"] = _init_linear(gen, D, I, cfg.linear_bias, dtype, device)
+    layer["q_norm_w"] = ones(hd) if cfg.qk_norm else None
+    layer["k_norm_w"] = ones(hd) if cfg.qk_norm else None
+    layer["post_attn_w"] = ones() if cfg.sandwich_norm else None
+    layer["post_mlp_w"] = ones() if cfg.sandwich_norm else None
+    return layer
 
 
 def _map(fn, *trees):
@@ -447,8 +472,9 @@ def sliding_adjust(cfg: ModelConfig, layer_idx: Optional[int], cos, sin, cos_loc
 
 
 def layer_view(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
-    """Layer ``li`` of the stacked layer dict: small leaves are sliced,
-    stacked packed linears stay whole (applied with ``layer_idx``)."""
+    """Layer ``li`` of the stacked layer dict: small leaves are sliced (a
+    dense (n_layers, E, ...) expert stack to its (E, ...) view), stacked
+    packed linears stay whole (applied with ``layer_idx``)."""
     out = {}
     for k, v in stacked.items():
         if v is None or isinstance(v, PackedTernaryLinear):
@@ -458,6 +484,87 @@ def layer_view(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
         else:
             out[k] = v[li]
     return out
+
+
+def moe_router_weights(cfg: ModelConfig, router: DenseLinear, h: torch.Tensor):
+    """Top-k routing (mixtral / qwen3-moe): f32 logits h @ router^T, a
+    softmax over the experts, the top ``experts_per_token`` (renormalised to
+    sum 1 with ``norm_topk``). Returns (wfull, topw, topi): ``wfull`` (B, L,
+    E) the combine weights (zero for the experts not picked), topw (B, L, k)
+    f32 and topi (B, L, k) int32, picks in descending weight. The top k come
+    from a stable descending sort, so among equal weights the lower index
+    comes first, as ``lax.top_k`` orders them. Nothing is read on the host."""
+    logits = h.float() @ router.w.t().float()
+    probs = torch.softmax(logits, dim=-1)
+    k = cfg.experts_per_token
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = vals[..., :k], order[..., :k]
+    if cfg.norm_topk:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    wfull = torch.zeros_like(probs).scatter(-1, topi, topw)
+    return wfull, topw, topi.to(torch.int32)
+
+
+def _flatten_expert_stack(p: PackedTernaryLinear) -> PackedTernaryLinear:
+    """(n_layers, E, ...) expert leaves -> (n_layers * E, ...) views, so that
+    slot layer * E + expert is one index into the stack. Raises where a leaf
+    is not contiguous (the merge would have to copy)."""
+
+    def flat(a):
+        if not a.is_contiguous():
+            raise ValueError(f"expert stack {tuple(a.shape)} is not contiguous: flattening "
+                             "(n_layers, E) would copy it")
+        return a.view(-1, *a.shape[2:])
+
+    return p.map_leaves(flat)
+
+
+def _moe_expert_apply(lin, x: torch.Tensor, e, layer_idx: int, n_experts: int, impl: str):
+    """Expert ``e`` of one projection: a DenseLinear with (E, out, in)
+    weights, or a packed stack, (E, ...) for one layer or (n_layers, E, ...)
+    (then slot layer_idx * E + e). ``e`` is a host int, or a 0-d int32 tensor
+    on the device (the top-k plan's pick), which no step reads on the host."""
+    if isinstance(lin, PackedTernaryLinear):
+        if lin.packed.dim() == 4:
+            return ternary_linear_apply_stacked(_flatten_expert_stack(lin), x, e, impl=impl,
+                                                base=layer_idx * n_experts)
+        return ternary_linear_apply_stacked(lin, x, e, impl=impl)
+    we = lin.w.index_select(0, e.reshape(1))[0] if isinstance(e, torch.Tensor) else lin.w[e]
+    return x @ we.t().to(x.dtype)
+
+
+def _moe_mlp(cfg: ModelConfig, lp: Dict[str, Any], h: torch.Tensor, impl: str, layer_idx: int,
+             taps: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The routed-expert MLP, out = sum_e w_e * expert_e(h), with the JAX
+    package's two plans and their f32 accumulation order: one row (B * L ==
+    1, decode) runs its top-k experts in pick order, each index a device
+    tensor; more rows run every expert e = 0..E-1 on every row, weighted by
+    its routing weight (zero where not picked). ``taps`` receives "moe_w",
+    the (B, L, E) weights."""
+    E, Ie = cfg.n_experts, cfg.expert_inter
+    wfull, topw, topi = moe_router_weights(cfg, lp["router"], h)
+    if taps is not None:
+        taps["moe_w"] = wfull
+
+    def expert_out(e):
+        if lp.get("gateup") is not None:
+            gu = _moe_expert_apply(lp["gateup"], h, e, layer_idx, E, impl)
+            mid = _act(cfg, gu[..., :Ie]) * gu[..., Ie:]
+        else:
+            g = _moe_expert_apply(lp["gate"], h, e, layer_idx, E, impl)
+            u = _moe_expert_apply(lp["up"], h, e, layer_idx, E, impl)
+            mid = _act(cfg, g) * u
+        return _moe_expert_apply(lp["down"], mid, e, layer_idx, E, impl)
+
+    B, L, D = h.shape
+    acc = torch.zeros((B, L, D), dtype=torch.float32, device=h.device)
+    if B * L == 1:
+        for j in range(cfg.experts_per_token):
+            acc = acc + topw[0, 0, j] * expert_out(topi[0, 0, j]).float()
+    else:
+        for e in range(E):
+            acc = acc + wfull[..., e : e + 1] * expert_out(e).float()
+    return acc.to(h.dtype)
 
 
 class LayerIO(NamedTuple):
@@ -546,6 +653,11 @@ def layer_forward(
     h = _norm(cfg, x, lp["ln2_w"], lp.get("ln2_b"))
     if return_taps:
         taps["mlp_in"] = h
+    if cfg.is_moe:
+        mo = _moe_mlp(cfg, lp, h, impl, layer_idx or 0, taps if return_taps else None)
+        if cfg.sandwich_norm:
+            mo = _norm(cfg, mo, lp["post_mlp_w"])
+        return (x + mo, LayerIO(kv=None, taps=taps)) if return_taps else x + mo
     I = cfg.intermediate
     if lp.get("gateup") is not None:
         if not return_taps and fused_mlp_ok(lp["gateup"], lp["down"], impl, B * L, h.device):

@@ -12,9 +12,11 @@ its q/k/v bias / qwen3 with qk-norm), gemma v1, gemma2 and gemma3 (sandwich
 norms; gemma3's multimodal checkpoints through the nested
 ``language_model.model`` prefix, text only), opt, gpt2 (its Conv1D weights
 stored (in, out), transposed here) and bloom (its fused query_key_value
-stored head by head as [q_h | k_h | v_h], de-interleaved here). The
+stored head by head as [q_h | k_h | v_h], de-interleaved here), and the
+mixture-of-experts layouts of mixtral (``block_sparse_moe``) and qwen3-moe
+(``mlp.experts``), read into a router and (E, out, in) expert stacks. The
 parameter trees have the JAX loader's keys, so a quantized artifact has the
-JAX package's structure. Mixture-of-experts checkpoints raise.
+JAX package's structure.
 """
 
 from __future__ import annotations
@@ -327,15 +329,41 @@ def _llama_layers(cfg: ModelConfig, mk: _Maker, prefix: str = "model.") -> List[
         if cfg.qk_norm:
             lay["q_norm_w"] = mk(p + "self_attn.q_norm.weight")
             lay["k_norm_w"] = mk(p + "self_attn.k_norm.weight")
-        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
-                             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
-                             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
-                             ("down", "mlp.down_proj")):
+        projections = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                       ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"))
+        if not cfg.is_moe:
+            projections += (("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+                            ("down", "mlp.down_proj"))
+        for ours, theirs in projections:
             if p + theirs + ".weight" not in t:
                 raise KeyError(f"checkpoint lacks {p + theirs}.weight")
             lay[ours] = mk.lin(p + theirs + ".weight", p + theirs + ".bias")
+        if cfg.is_moe:
+            lay.update(_moe_leaves(cfg, mk, p))
         layers.append(lay)
     return layers
+
+
+def _moe_leaves(cfg: ModelConfig, mk: _Maker, p: str) -> Dict[str, Any]:
+    """A layer's router and (E, out, in) expert stacks: mixtral's
+    ``block_sparse_moe.gate`` + ``experts.N.{w1,w3,w2}``, or qwen3-moe's
+    ``mlp.gate`` + ``mlp.experts.N.{gate,up,down}_proj``."""
+    t = mk.t
+    if p + "block_sparse_moe.gate.weight" in t:
+        rkey = p + "block_sparse_moe.gate.weight"
+        names = [tuple(f"{p}block_sparse_moe.experts.{e}.{w}.weight" for w in ("w1", "w3", "w2"))
+                 for e in range(cfg.n_experts)]
+    else:
+        rkey = p + "mlp.gate.weight"
+        names = [tuple(f"{p}mlp.experts.{e}.{w}_proj.weight" for w in ("gate", "up", "down"))
+                 for e in range(cfg.n_experts)]
+    for key in (rkey,) + tuple(k for ks in names for k in ks):
+        if key not in t:
+            raise KeyError(f"checkpoint lacks {key}")
+    leaves = {"router": DenseLinear(w=mk(rkey))}
+    for name, j in (("gate", 0), ("up", 1), ("down", 2)):
+        leaves[name] = DenseLinear(w=mk(torch.stack([t[ks[j]].float() for ks in names])))
+    return leaves
 
 
 def _opt_layers(cfg: ModelConfig, mk: _Maker) -> List[Dict[str, Any]]:
@@ -416,7 +444,7 @@ def load_hf_model(model_dir: str, dtype=torch.bfloat16,
     (``quantize_model(..., device=...)``)."""
     dev = resolve_device(device)
     cfg = config_from_hf(model_dir)
-    check_supported(cfg)  # mixture of experts raises, naming it
+    check_supported(cfg)
     t = read_hf_tensors(model_dir)
     mk = _Maker(t, dtype, dev)
     fam = cfg.family

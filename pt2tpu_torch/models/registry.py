@@ -1,8 +1,7 @@
 """Model registry: family inference from a name and the architecture configs
-of every dense family the port computes, the dense entries of
-``pt2tpu.models.registry`` field for field (llama, qwen2, qwen3, gemma v1,
-gemma3, opt, gpt2, bloom). The mixture-of-experts entries come with their
-slice; until then their names raise ``KeyError``."""
+of every family the port computes, the entries of ``pt2tpu.models.registry``
+field for field (llama, qwen2, qwen3, gemma v1, gemma3, opt, gpt2, bloom, and
+the mixture-of-experts mixtral and qwen3-moe)."""
 
 from __future__ import annotations
 
@@ -208,6 +207,15 @@ CONFIGS: Dict[str, ModelConfig] = {
     "qwen3-8b": _qwen3(4096, 36, 32, 12288, n_kv=8, head_dim=128),
     "gemma3-4b": _gemma3(2560, 34, 8, 10240, head_dim=256, n_kv=4, rope_scale=8.0),
     "bloom-560m": _bloom(1024, 24, 16),
+    "mixtral-8x7b": _llama(
+        "mixtral", 4096, 32, 32, 14336, n_kv=8, vocab=32000,
+        rope_theta=1000000.0, n_experts=8, experts_per_token=2,
+        max_seq_len=4096,
+    ),
+    "qwen3-30b-a3b": _qwen3(
+        2048, 48, 32, 6144, n_kv=4, head_dim=128, n_experts=128,
+        experts_per_token=8, moe_inter=768,
+    ),
     "tiny-llama": _llama("llama2", 64, 2, 4, 128, vocab=256, max_seq_len=128),
     "tiny-gemma": _gemma(64, 2, 4, 128, head_dim=32, vocab=256, max_seq_len=128, n_kv=2),
     "tiny-bloom": _bloom(64, 2, 4, vocab=256, max_seq_len=128),
@@ -221,16 +229,14 @@ CONFIGS: Dict[str, ModelConfig] = {
         64, 4, 4, 128, head_dim=16, n_kv=2, vocab=256, max_seq_len=128,
         sliding_window=16, pattern=2,
     ),
+    "tiny-moe": _llama(
+        "mixtral", 64, 2, 4, 128, vocab=256, max_seq_len=128,
+        n_experts=4, experts_per_token=2,
+    ),
 }
-
-
-# the JAX registry's mixture-of-experts entries, not ported yet
-_MOE = ("mixtral-8x7b", "qwen3-30b-a3b", "tiny-moe")
 
 
 def get_config(name: str) -> ModelConfig:
     if name in CONFIGS:
         return CONFIGS[name]
-    if name in _MOE:
-        raise KeyError(f"'{name}' is a mixture-of-experts config: not ported")
     raise KeyError(f"unknown model config '{name}'; known: {sorted(CONFIGS)}")

@@ -9,6 +9,12 @@
     :data:`K1_TC_MIN_ROWS`; the int8 tensor cores
     (``csrc/ternary_matmul_tc_a8.cu``) for W2A8 rows >= :data:`K1_TC_MIN_ROWS`;
     the CUDA cores (``csrc/ternary_matmul.cu``) for every other shape.
+  * K1s / K3s ``ternary_matmul_idx`` / ``ternary_matmul_igathered_idx``:
+    K1 and K3 at decode rows on one slot of a whole stack, the slot read by
+    the kernel from device memory (replace ``ternary_matmul_pallas_stacked``
+    and ``ternary_matmul_pallas_igathered_stacked`` with a traced index: the
+    mixture-of-experts decode's routed experts), on the decode kernel or the
+    CUDA-core kernel as :func:`k1_path` / :func:`k3_path` choose.
   * K3 ``ternary_matmul_igathered``: K1 with the SSR input gather fused in
     (replaces ``ternary_matmul_pallas_igathered``), on three paths chosen by
     shape (:func:`k3_path`): K1's decode kernel with x staged through perm
@@ -40,8 +46,9 @@
 
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
-from a kernel to its plain version. The ``_stacked`` TPU variants collapse
-into these: a stacked layer is the zero-copy view ``packed[li]``.
+from a kernel to its plain version. The ``_stacked`` TPU variants at a host
+index collapse into these: a stacked layer is the zero-copy view
+``packed[li]``; at a device index they are K1s and K3s.
 
 The plain versions repeat ``pt2tpu.ops.ternary_matmul.ternary_matmul_xla``:
 unpack, one product per scale block, then the scales, all in f32.
@@ -83,6 +90,10 @@ __all__ = [
     "ternary_matmul_igathered_tc_plain",
     "ternary_matmul_igathered",
     "ternary_matmul_igathered_plain",
+    "ternary_matmul_idx",
+    "ternary_matmul_idx_plain",
+    "ternary_matmul_igathered_idx",
+    "ternary_matmul_igathered_idx_plain",
     "ternary_matmul_gathered",
     "ternary_matmul_gathered_plain",
     "K6_DEC_MAX_ROWS",
@@ -991,6 +1002,12 @@ def _kernel_lib():
         fn = lib.pt2_ternary_matmul_igathered
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_idx
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_igathered_idx
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -1004,6 +1021,12 @@ def _dec_kernel_lib():
         fn.restype = ctypes.c_int
         fn = lib.pt2_ternary_matmul_dec_igathered
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_dec_idx
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_dec_igathered_idx
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _dec_lib = lib
     return _dec_lib
@@ -1457,6 +1480,204 @@ def ternary_matmul_igathered(
 ternary_matmul_igathered.launches = 0
 ternary_matmul_igathered.launches_dec = 0
 ternary_matmul_igathered.launches_tc = 0
+
+
+# ------------------------------------------------ device-index entries ----
+# K1s and K3s (``ternary_matmul_pallas_stacked`` / ``_igathered_stacked``
+# with a traced index): the weights are a whole contiguous stack of S slots
+# and the slot, ``base`` + the int32 that ``sel`` points at, is read by the
+# kernel from device memory, so a routed expert's index never goes to the
+# host. Decode rows only: K1's and K3's decode kernel (``csrc/ternary_matmul_dec.cu``)
+# where ``k1_path`` / ``k3_path`` say "dec", their CUDA-core kernels
+# (``csrc/ternary_matmul.cu``) where they say "cuda_core" (W2A8 rows while
+# K1_DEC_A8 is off). A slot outside [0, S) traps in the kernel.
+
+
+def _slot_plain(sel: torch.Tensor, base: int, S: int) -> int:
+    """The slot a plain version reads (a host read of ``sel``: the plain
+    versions serve the CPU and the tests)."""
+    slot = base + int(sel.reshape(-1)[0])
+    if not 0 <= slot < S:
+        raise IndexError(f"slot {slot} outside the stack's [0, {S})")
+    return slot
+
+
+def ternary_matmul_idx_plain(x, packed, alpha, mu, sel, base=0, block_size=128, a8=False):
+    """K1s's plain version: K1's on ``packed[base + sel]``."""
+    i = _slot_plain(sel, base, packed.shape[0])
+    fn = ternary_matmul_plain_a8 if a8 else ternary_matmul_plain
+    return fn(x, packed[i], alpha[i], mu[i], block_size)
+
+
+def ternary_matmul_igathered_idx_plain(x, perm, packed, alpha, mu, sel, base=0, block_size=128,
+                                       a8=False):
+    """K3s's plain version: K3's on slot ``base + sel`` of perm and weights."""
+    i = _slot_plain(sel, base, packed.shape[0])
+    return ternary_matmul_igathered_plain(x, perm[i], packed[i], alpha[i], mu[i], block_size, a8)
+
+
+def _check_stack(x, packed, alpha, mu, block_size, sel, m=None, perm=None):
+    """Checks K1s / K3s operands: whole contiguous stacks whose every slot
+    passes K1's checks (slot 0's views stand for all: the kernels offset by
+    whole slots), slot strides that keep the kernels' 16-byte loads aligned,
+    and ``sel`` one int32 on x's device."""
+    if packed.dim() != 3 or alpha.dim() != 3 or mu.dim() != 3:
+        raise ValueError(f"a device index takes (S, K/4, n) / (S, nb, n) stacks, got packed "
+                         f"{tuple(packed.shape)}, alpha {tuple(alpha.shape)}")
+    S = packed.shape[0]
+    if alpha.shape[0] != S or mu.shape[0] != S:
+        raise ValueError(f"stacks of {S} / {alpha.shape[0]} / {mu.shape[0]} slots")
+    _check(x, packed[0], alpha[0], mu[0], block_size, m=m)
+    K4, n = packed.shape[1:]
+    if (K4 * n) % 16 or (alpha.shape[1] * n * 2) % 16:
+        raise ValueError(f"slot strides of packed {tuple(packed.shape)} / alpha "
+                         f"{tuple(alpha.shape)} break 16-byte alignment")
+    if perm is not None:
+        if perm.dtype != torch.int32 or perm.device != x.device or not perm.is_contiguous():
+            raise ValueError(f"perm must be a contiguous int32 stack on {x.device}")
+        if tuple(perm.shape) != (S, K4 * 4):
+            raise ValueError(f"perm {tuple(perm.shape)} does not match {S} slots of {K4 * 4} "
+                             "lanes")
+    if sel.dtype != torch.int32 or sel.numel() != 1 or sel.device != x.device:
+        raise ValueError(f"sel must be one int32 on {x.device}, got {sel.dtype} "
+                         f"{tuple(sel.shape)} on {sel.device}")
+    return S, K4 * 4, n
+
+
+def _idx_operands(x, a8):
+    """x cast to bf16 (or normalised for W2A8) and made contiguous, with
+    the row scales (None in bf16)."""
+    if a8:
+        xk, sx = normalize_rows_a8(x)
+    else:
+        xk, sx = x.to(torch.bfloat16), None
+    return xk.contiguous(), sx
+
+
+def ternary_matmul_idx(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    sel: torch.Tensor,
+    base: int = 0,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """K1s: out = x @ dequant(packed[base + sel]): (B, K) x (S, K//4, n) ->
+    (B, n) f32, with ``sel`` one int32 on x's device that only the kernel
+    reads.
+
+    CUDA: on the path :func:`k1_path` names, "dec" through
+    ``pt2_ternary_matmul_dec_idx``, "cuda_core" through
+    ``pt2_ternary_matmul_idx``; the tensor-core paths (prefill rows) take no
+    device index and raise. Counts the call in ``ternary_matmul_idx.launches``
+    (the decode path also in ``ternary_matmul_idx.launches_dec``), not in
+    K1's counters. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return ternary_matmul_idx_plain(x, packed, alpha, mu, sel, base, block_size, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K1s for device {x.device}")
+    S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel)
+    B = x.shape[0]
+    path = k1_path(B, n, block_size, a8)
+    if path not in ("dec", "cuda_core"):
+        raise NotImplementedError(f"K1's {path} path takes no device index ({B} rows; "
+                                  "ROADMAP §2)")
+    xk, sx = _idx_operands(x, a8)
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    if path == "dec":
+        xk = _tc_operands(xk, packed, alpha, mu)
+        device, stream, splits, partial, counters = _dec_scratch(xk, K, n, block_size, out,
+                                                                 "K1s")
+        rc = _dec_kernel_lib().pt2_ternary_matmul_dec_idx(
+            xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), counters.data_ptr(), sel.data_ptr(), base, S, B,
+            K, n, block_size, splits, int(bool(a8)), device, stream,
+        )
+    else:
+        rc = _kernel_lib().pt2_ternary_matmul_idx(
+            xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), out.data_ptr(),
+            sel.data_ptr(), base, S, B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"K1s ({path}) launch failed: cudaError {rc}")
+    ternary_matmul_idx.launches += 1
+    ternary_matmul_idx.launches_dec += path == "dec"
+    return out * sx if a8 else out
+
+
+ternary_matmul_idx.launches = 0
+ternary_matmul_idx.launches_dec = 0
+
+
+def ternary_matmul_igathered_idx(
+    x: torch.Tensor,
+    perm: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    sel: torch.Tensor,
+    base: int = 0,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """K3s: out = x[:, perm[s]] @ dequant(packed[s]), s = base + sel, with
+    perm an (S, K) int32 stack and ``sel`` one int32 on x's device that only
+    the kernel reads: (B, m) -> (B, n) f32.
+
+    CUDA: on the path :func:`k3_path` names, "dec" through
+    ``pt2_ternary_matmul_dec_igathered_idx``, "cuda_core" through
+    ``pt2_ternary_matmul_igathered_idx``; its tensor-core path (rows 9-64)
+    takes no device index and raises. Counts the call in
+    ``ternary_matmul_igathered_idx.launches`` (the decode path also in
+    ``ternary_matmul_igathered_idx.launches_dec``), not in K3's counters.
+    CPU: the plain version."""
+    if x.device.type == "cpu":
+        return ternary_matmul_igathered_idx_plain(x, perm, packed, alpha, mu, sel, base,
+                                                  block_size, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K3s for device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, m), got {tuple(x.shape)}")
+    B, m = x.shape
+    S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel, m=m, perm=perm)
+    path = k3_path(B, n, block_size, a8)
+    if path not in ("dec", "cuda_core"):
+        raise NotImplementedError(f"K3's {path} path takes no device index ({B} rows; "
+                                  "ROADMAP §2)")
+    xk, sx = _idx_operands(x, a8)
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    if path == "dec":
+        if packed.data_ptr() % 16 or alpha.data_ptr() % 16 or mu.data_ptr() % 16 \
+                or perm.data_ptr() % 16:
+            raise ValueError("K3s's decode path needs 16-byte aligned perm, packed, alpha and mu")
+        device, stream, splits, partial, counters = _dec_scratch(xk, K, n, block_size, out,
+                                                                 "K3s")
+        rc = _dec_kernel_lib().pt2_ternary_matmul_dec_igathered_idx(
+            xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), counters.data_ptr(), sel.data_ptr(), base, S, B,
+            m, K, n, block_size, splits, int(bool(a8)), device, stream,
+        )
+    else:
+        rc = _kernel_lib().pt2_ternary_matmul_igathered_idx(
+            xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
+            out.data_ptr(), sel.data_ptr(), base, S, B, m, K, n, block_size, int(bool(a8)),
+            *_device_and_stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"K3s ({path}) launch failed: cudaError {rc}")
+    ternary_matmul_igathered_idx.launches += 1
+    ternary_matmul_igathered_idx.launches_dec += path == "dec"
+    return out * sx if a8 else out
+
+
+ternary_matmul_igathered_idx.launches = 0
+ternary_matmul_igathered_idx.launches_dec = 0
 
 
 def ternary_matmul_gathered(

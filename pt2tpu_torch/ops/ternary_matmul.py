@@ -43,7 +43,9 @@ from .kernels.ternary import (
     FUSED_MAX_ROWS,
     ternary_matmul,
     ternary_matmul_gathered,
+    ternary_matmul_idx,
     ternary_matmul_igathered,
+    ternary_matmul_igathered_idx,
     ternary_matmul_plain,
     ternary_matmul_plain_a8,
     ternary_mlp,
@@ -111,20 +113,24 @@ class PackedTernaryLinear:
     def out_features(self) -> int:
         return self.packed.shape[-1]
 
-    def layer(self, li: int) -> "PackedTernaryLinear":
-        """Layer ``li`` of a stacked container, as zero-copy views."""
+    def map_leaves(self, fn) -> "PackedTernaryLinear":
+        """A copy with ``fn`` applied to every tensor leaf (its gather's too)."""
         g = self.gather
         if g is not None:
-            g = PackedGather(packed=g.packed[li], perm=g.perm[li], in_features=g.in_features)
+            g = PackedGather(packed=fn(g.packed), perm=fn(g.perm), in_features=g.in_features)
         return dataclasses.replace(
             self,
-            packed=self.packed[li],
-            alpha=self.alpha[li],
-            mu=self.mu[li],
-            perm=self.perm[li],
-            bias=None if self.bias is None else self.bias[li],
+            packed=fn(self.packed),
+            alpha=fn(self.alpha),
+            mu=fn(self.mu),
+            perm=fn(self.perm),
+            bias=None if self.bias is None else fn(self.bias),
             gather=g,
         )
+
+    def layer(self, li: int) -> "PackedTernaryLinear":
+        """Layer ``li`` of a stacked container, as zero-copy views."""
+        return self.map_leaves(lambda t: t[li])
 
 
 def make_packed_linear(
@@ -196,7 +202,7 @@ def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int, impl: str) ->
 
 
 def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
-                 device="cuda") -> Tuple[str, ...]:
+                 device="cuda", device_index: bool = False) -> Tuple[str, ...]:
     """The kernels :func:`ternary_linear_apply` launches for ``rows`` rows of
     layer ``p`` on ``device``, in launch order, by their wrappers' names; ()
     where it runs plain versions (``impl="plain"`` or the CPU).
@@ -213,19 +219,25 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     their decode rows on the split-K tensor-core GEMV, their rows 9-64 on a
     one-pass gather (K6's through the packed planes) and the split-K
     tensor-core product, other shapes on their CUDA-core kernels; K4, and K5
-    from 16 rows, on their rows paths (x's rows staged in shared memory)."""
+    from 16 rows, on their rows paths (x's rows staged in shared memory).
+
+    ``device_index``: the slot of a stacked ``p`` is a tensor on the device
+    (:func:`ternary_linear_apply_stacked`): K1 and K3 are then their
+    device-index entries "ternary_matmul_idx" and
+    "ternary_matmul_igathered_idx"; the other routes have none."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()
     if p.identity_perm or p.input_folded or p.gather is None:
-        return ("ternary_matmul",)
-    if (dev.type == "cuda" and rows <= FUSED_MAX_ROWS and p.block_size % 128 == 0
-            and p.out_features % 128 == 0):
-        if IGATHER_FUSED:
-            return ("ternary_matmul_igathered",)
-        if FUSED_GATHER:
-            return ("ternary_matmul_gathered",)
-    return (gather_kernel(), "ternary_matmul")
+        route = ("ternary_matmul",)
+    elif (dev.type == "cuda" and rows <= FUSED_MAX_ROWS and p.block_size % 128 == 0
+            and p.out_features % 128 == 0 and (IGATHER_FUSED or FUSED_GATHER)):
+        route = ("ternary_matmul_igathered",) if IGATHER_FUSED else ("ternary_matmul_gathered",)
+    else:
+        route = (gather_kernel(), "ternary_matmul")
+    if device_index and len(route) == 1 and route[0] != "ternary_matmul_gathered":
+        return (route[0] + "_idx",)
+    return route
 
 
 def ternary_linear_apply(
@@ -268,14 +280,74 @@ def ternary_linear_apply(
 def ternary_linear_apply_stacked(
     p: PackedTernaryLinear,
     x: torch.Tensor,
-    layer_idx: int,
+    layer_idx,
     impl: str = "auto",
     out_dtype=None,
+    base: int = 0,
 ) -> torch.Tensor:
-    """Apply layer ``layer_idx`` of a stacked container. In PyTorch the
-    slice is a view, so this is :func:`ternary_linear_apply` on
-    ``p.layer(layer_idx)`` — one kernel serves both cases."""
-    return ternary_linear_apply(p.layer(layer_idx), x, impl=impl, out_dtype=out_dtype)
+    """Apply slot ``base + layer_idx`` of a stacked container.
+
+    ``layer_idx`` a host int: :func:`ternary_linear_apply` on the zero-copy
+    view ``p.layer(base + layer_idx)``. A 0-d or 1-element integer tensor on
+    the layer's device (a routed expert's index): the slot is never read on
+    the host. On CUDA, K1 and K3 run their device-index entries (K1s, K3s)
+    on the whole stack, with ``base`` passed to the kernel; a route without
+    such an entry (K6, or a gather kernel then K1: the P1 / P2 flags or
+    shapes K3 refuses) raises ``NotImplementedError``. The plain route
+    gathers the slot's weights on the device; on the CPU the index is read."""
+    if not isinstance(layer_idx, torch.Tensor):
+        return ternary_linear_apply(p.layer(base + layer_idx), x, impl=impl, out_dtype=out_dtype)
+    return _apply_device_index(p, x, layer_idx, base, impl, out_dtype)
+
+
+def _apply_device_index(p, x, sel, base, impl, out_dtype):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if sel.numel() != 1 or sel.dtype.is_floating_point or sel.dtype == torch.bool:
+        raise ValueError(f"a device index is one integer, got {sel.dtype} {tuple(sel.shape)}")
+    if sel.device != x.device or p.packed.device != x.device:
+        raise ValueError(f"index on {sel.device}, x on {x.device}, weights on {p.packed.device}")
+    if p.packed.dim() != 3:
+        raise ValueError(f"a device index selects a slot of an (S, K/4, n) stack, got "
+                         f"{tuple(p.packed.shape)}")
+    if x.device.type == "cpu":
+        return ternary_linear_apply(p.layer(base + int(sel.reshape(-1)[0])), x, impl=impl,
+                                    out_dtype=out_dtype)
+    out_dtype = out_dtype or x.dtype
+    lead, m = x.shape[:-1], x.shape[-1]
+    if m != p.in_features:
+        raise ValueError(f"input features {m} != layer in_features {p.in_features}")
+    x2 = x.reshape(-1, m)
+
+    def slot_index():  # base + sel as a device tensor: one launch, off the kernels' routes
+        return sel.reshape(1).long() + base
+
+    if impl == "plain":
+        # the slot's weights gathered on the device (a copy), never read on the host
+        s = slot_index()
+        return ternary_linear_apply(p.map_leaves(lambda t: t.index_select(0, s)[0]), x,
+                                    impl="plain", out_dtype=out_dtype)
+    bs = p.block_size
+    a8 = impl == "a8"
+    sel32 = sel.reshape(()) if sel.dtype == torch.int32 else sel.to(torch.int32).reshape(())
+    route = linear_route(p, x2.shape[0], impl, x2.device, device_index=True)
+    if route == ("ternary_matmul_igathered_idx",):
+        out = ternary_matmul_igathered_idx(x2, p.perm, p.packed, p.alpha, p.mu, sel32, base, bs,
+                                           a8=a8)
+    elif route == ("ternary_matmul_idx",):
+        if p.identity_perm or p.input_folded:
+            K = p.packed.shape[-2] * 4
+            xk = x2 if K == m else F.pad(x2, (0, K - m))
+        else:  # a bare perm: the index form, as the host-index route takes it
+            xk = onehot_gather_plain(x2, p.perm.index_select(0, slot_index())[0])
+        out = ternary_matmul_idx(xk, p.packed, p.alpha, p.mu, sel32, base, bs, a8=a8)
+    else:
+        raise NotImplementedError(
+            f"route {route} has no device-index entry: K4s, K5s and K6s are still to port "
+            "(ROADMAP §2)")
+    if p.bias is not None:
+        out = out + p.bias.index_select(0, slot_index())[0].to(out.dtype)
+    return out.to(out_dtype).reshape(*lead, p.out_features)
 
 
 def fused_mlp_ok(gu, dn, impl: str, rows: int, device) -> bool:

@@ -12,14 +12,13 @@ activations must arrive in visit-lane order. Per projection:
     :class:`~pt2tpu_torch.ops.gather.PackedGather` (K4, or K3 fused into the
     projection).
 
-The quantizer is not ported yet; these functions act on packed layers
-(``utils/randmodel.py`` builds the full-SSR layout with them).
+Mixture-of-experts layers fold expert by expert (:func:`fold_moe_expert_perms`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +29,7 @@ from ..ops.ternary_matmul import PackedTernaryLinear
 
 __all__ = [
     "fold_layer_perms",
+    "fold_moe_expert_perms",
     "fold_head_perm",
     "foldable_prefix_perm",
     "permute_out",
@@ -128,6 +128,31 @@ def fold_layer_perms(cfg: Any, lp: Dict[str, Any]) -> Dict[str, Any]:
     return lp
 
 
+def fold_moe_expert_perms(cfg: Any, expert_lps: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Fold each expert's {gateup, down} perms on its own (pre-stack,
+    2-D layers), keeping the flags uniform across experts so that the
+    experts stack into one (E, ...) leaf set: if the folds leave the experts
+    with different flags (one expert's down perm not foldable), every
+    expert's unfolded projection takes a packed one-hot gather instead."""
+    folded = [fold_layer_perms(cfg, dict(lp)) for lp in expert_lps]
+
+    def sig(lp):
+        return tuple((k, v.identity_perm, v.input_folded, v.out_folded, v.gather is not None)
+                     for k, v in sorted(lp.items()) if isinstance(v, PackedTernaryLinear))
+
+    if len({sig(f) for f in folded}) == 1:
+        return folded
+    out = []
+    for lp in expert_lps:
+        lp = dict(lp)
+        for k, v in list(lp.items()):
+            if (isinstance(v, PackedTernaryLinear) and not v.identity_perm
+                    and not v.input_folded and v.gather is None):
+                lp[k] = _attach_gather(v)
+        out.append(lp)
+    return out
+
+
 def fold_head_perm(packed: PackedTernaryLinear) -> PackedTernaryLinear:
     """Realise a quantized lm_head's SSR perm as a packed one-hot gather (the
     head has no downstream projection to fold into)."""
@@ -147,6 +172,7 @@ def pad_gateup_blocks(lp: Dict[str, Any]) -> Dict[str, Any]:
     """
     gu, dn = lp.get("gateup"), lp.get("down")
     if lp.get("router") is not None:
+        # expert stacks: the MoE MLP splits gate/up at expert_inter, unpadded
         return lp
     if not (isinstance(gu, PackedTernaryLinear) and isinstance(dn, PackedTernaryLinear)):
         return lp

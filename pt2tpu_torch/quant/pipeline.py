@@ -16,7 +16,10 @@ plain route (``impl="plain"``) as the JAX package's ``impl="xla"``, unless
 ``device`` names another: then the parameters stay where they are (a
 host-resident checkpoint, ``hf_loader.load_hf_model(device="cpu")``) and go
 to ``device`` one layer at a time, the non-layer leaves after the loop.
-Mixture-of-experts layers raise ``NotImplementedError``.
+Mixture-of-experts layers quantize each expert from its routed Hessians
+(the JAX package's rule): gate/up from rows w_te * x_t, down from expert e's
+own f32 mid-activations times w_te, then fold expert by expert and stack
+the experts into (E, ...) leaves.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..models import decoder as dec
 from ..models.common import DenseLinear, layer_norm, rms_norm
 from ..ops.ternary_matmul import pack_layer
 from ..utils.metrics import MetricsLogger, model_bits_per_weight
-from .fold import fold_head_perm, fold_layer_perms, pad_gateup_blocks
+from .fold import fold_head_perm, fold_layer_perms, fold_moe_expert_perms, pad_gateup_blocks
 from .gptq import dequantize_layer, ternary_gptq
 from .hessian import HessianAccumulator, damped_inverse, full_f32
 
@@ -181,7 +184,48 @@ def _groups(cfg: dec.ModelConfig, qcfg: QuantConfig):
         groups += [(n, (n,), dec.TAP_OF_LINEAR[n]) for n in ("gate", "up") if n in names]
     if "down" in names:
         groups.append(("down", ("down",), "down_in"))
+    if cfg.is_moe:  # the experts take the routed per-expert path
+        groups = [g for g in groups if g[0] in ("qkv", "q", "k", "v", "o")]
     return groups
+
+
+def _expert_mid(cfg: dec.ModelConfig, gate_w: torch.Tensor, up_w: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Expert e's f32 mid-activations act(x @ gate^T) * (x @ up^T), the
+    input of its down projection (recomputed per expert: taps of every
+    expert's mid would multiply calibration memory by E)."""
+    with full_f32():
+        g = x.float() @ gate_w.t().float()
+        u = x.float() @ up_w.t().float()
+    return dec._act(cfg, g) * u
+
+
+def _quantize_experts(cfg, lp, accs_gu, accs_dn, qcfg, ssr_skip, log, t_inv, t_gptq):
+    """Each expert's concatenated gate/up and its down from their routed
+    Hessians, folded expert by expert (``fold_moe_expert_perms``), then
+    stacked: {"gateup" / "down": ((E, ...) packed leaves, the experts' mean
+    stats)}. ``t_inv`` / ``t_gptq`` receive each call's seconds."""
+    expert_lps, stats = [], {"gateup": [], "down": []}
+    for e in range(cfg.n_experts):
+        lin_gu = DenseLinear(w=torch.cat([lp["gate"].w[e], lp["up"].w[e]], dim=0))
+        elp = {}
+        for gname, lin, acc in (("gateup", lin_gu, accs_gu[e]),
+                                ("down", DenseLinear(w=lp["down"].w[e]), accs_dn[e])):
+            timing: Dict[str, float] = {}
+            elp[gname], st = quantize_linear(lin, acc, qcfg,
+                                             use_ssr=qcfg.use_ssr and gname not in ssr_skip,
+                                             log=log, timing=timing)
+            stats[gname].append(st)
+            t_inv[f"{gname}[{e}]"], t_gptq[f"{gname}[{e}]"] = timing["inverse_s"], timing["gptq_s"]
+        expert_lps.append(elp)
+    if qcfg.fold_perms:
+        expert_lps = fold_moe_expert_perms(cfg, expert_lps)
+    return {
+        gname: (dec._map(lambda *xs: torch.stack(xs), *[elp[gname] for elp in expert_lps]),
+                {k: float(sum(st[k] for st in stats[gname]) / cfg.n_experts)
+                 for k in stats[gname][0]})
+        for gname in ("gateup", "down")
+    }
 
 
 def _group_linear(lp: Dict[str, Any], members) -> DenseLinear:
@@ -228,11 +272,6 @@ def quantize_model(
     whole layer, on the device's clock)."""
     if mesh is not None:
         raise NotImplementedError("a device mesh needs parallel/sharding: not ported")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "mixture-of-experts quantization (routed per-expert Hessians, "
-            "fold_moe_expert_perms): not ported"
-        )
     dec.check_supported(cfg)
     log = log or MetricsLogger(verbose=False)
     host = params["embed"].device
@@ -278,6 +317,7 @@ def quantize_model(
         hidden = [run_layer(pre_lp, h, pre_li, False)[0] for h in hidden]
 
     report: Dict[str, Any] = {"layers": [], "timing": []}
+    E = cfg.n_experts
     for li in range(start_layer, cfg.n_layers):
         _sync(dev)
         t_layer = time.perf_counter()
@@ -287,6 +327,13 @@ def quantize_model(
         needed = {tap for _, _, tap in groups}
         accs = {t: HessianAccumulator(tap_dims[t], device=dev) for t in needed}
         t_hess = dict.fromkeys(sorted(needed), 0.0)
+        if cfg.is_moe:
+            # routed per-expert Hessians H_e = sum_t w_te^2 x_t x_t^T, as rows
+            # w_te * x_t (unrouted tokens have w = 0); down sees expert e's
+            # own mid-activations
+            accs_gu = [HessianAccumulator(cfg.dim, device=dev) for _ in range(E)]
+            accs_dn = [HessianAccumulator(cfg.expert_inter, device=dev) for _ in range(E)]
+            t_hess["experts"] = 0.0
         for h in hidden:
             _, io = run_layer(lp, h, li, True)
             for t in sorted(needed):
@@ -295,10 +342,29 @@ def quantize_model(
                 accs[t].update(io.taps[t])
                 _sync(dev)
                 t_hess[t] += time.perf_counter() - t0
+            if cfg.is_moe:
+                _sync(dev)
+                t0 = time.perf_counter()
+                x, w = io.taps["mlp_in"], io.taps["moe_w"]
+                for e in range(E):
+                    accs_gu[e].update(x.float() * w[..., e : e + 1])
+                    mid = _expert_mid(cfg, lp["gate"].w[e], lp["up"].w[e], x)
+                    accs_dn[e].update(mid * w[..., e : e + 1])
+                _sync(dev)
+                t_hess["experts"] += time.perf_counter() - t0
             del io
 
         new_lp = dict(lp)
         layer_report, t_inv, t_gptq = {}, {}, {}
+        if cfg.is_moe:
+            experts = _quantize_experts(cfg, lp, accs_gu, accs_dn, qcfg, ssr_skip, log, t_inv,
+                                        t_gptq)
+            del accs_gu, accs_dn
+            for gname, (stacked, means) in experts.items():
+                new_lp[gname], layer_report[gname] = stacked, means
+                log.emit("layer_quantized", layer=li, proj=f"{gname}[x{E}]", **means)
+            new_lp.pop("gate", None)
+            new_lp.pop("up", None)
         for gname, members, tap in groups:
             timing: Dict[str, float] = {}
             packed, stats = quantize_linear(

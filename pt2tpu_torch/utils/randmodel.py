@@ -16,12 +16,13 @@ import torch.nn.functional as F
 
 from ..models.common import DenseLinear
 from ..models.decoder import ModelConfig, check_supported, stack_layers
-from ..ops.gather import make_packed_gather
+from ..ops.gather import PackedGather, make_packed_gather
 from ..ops.ternary_matmul import PackedTernaryLinear, make_packed_linear
 from ..quant.fold import pad_gateup_blocks
 from .device import resolve_device
 
-__all__ = ["random_ternary_linear", "random_ternary_params", "default_perm_mode"]
+__all__ = ["random_ternary_linear", "random_expert_stack", "random_ternary_params",
+           "default_perm_mode"]
 
 
 def random_ternary_linear(
@@ -39,9 +40,7 @@ def random_ternary_linear(
     if perm_mode not in ("identity", "ssr", "folded"):
         raise ValueError(f"unknown perm_mode {perm_mode!r}")
     dev = resolve_device(device)
-    bs = min(128, in_features)
-    while in_features % bs != 0 and bs > 4:
-        bs //= 2
+    bs = _block_size(in_features)
     nb = in_features // bs
     K = nb * bs
     codes = torch.randint(-1, 2, (out_features, K), generator=gen, device=dev, dtype=torch.int8)
@@ -71,6 +70,76 @@ def random_ternary_linear(
     return p
 
 
+def _block_size(in_features: int) -> int:
+    bs = min(128, in_features)
+    while in_features % bs != 0 and bs > 4:
+        bs //= 2
+    return bs
+
+
+# every byte of four codes u = T + 1 in {0, 1, 2} (core/packing.py's planes)
+_PLANE_BYTES = [sum(((i // 3**p) % 3) << (2 * p) for p in range(4)) for i in range(81)]
+
+
+def random_expert_stack(
+    gen: torch.Generator,
+    n_layers: int,
+    n_experts: int,
+    out_features: int,
+    in_features: int,
+    perm_mode: str = "identity",  # "identity" | "ssr" | "folded"
+    out_folded: bool = False,
+    device=None,
+) -> PackedTernaryLinear:
+    """One projection of every expert of every layer, as the quantizer
+    stacks them: (n_layers, E, K/4, n) packed planes, (n_layers, E, nb, n)
+    bf16 scales (the scale blocks padded to a multiple of 16 with zero
+    scales, as :func:`make_packed_linear` pads), (n_layers, E, K) perms, no
+    bias. The planes are drawn byte by byte (four uniform codes a byte), so
+    a full-size model is made without its (n, K) code matrices. "ssr" draws a
+    permutation per expert and attaches its packed gather (an expert's
+    gate/up under full SSR); "folded" draws one and marks the layer
+    input_folded (down, whose perm the fold moved into gate/up's output
+    lanes, which are then ``out_folded``)."""
+    if perm_mode not in ("identity", "ssr", "folded"):
+        raise ValueError(f"unknown perm_mode {perm_mode!r}")
+    dev = resolve_device(device)
+    L, E, n, m = n_layers, n_experts, out_features, in_features
+    bs = _block_size(m)
+    nb = m // bs
+    nbp = -(-nb // 16) * 16
+    K = nbp * bs
+    lut = torch.tensor(_PLANE_BYTES, dtype=torch.uint8, device=dev)
+    packed = torch.full((L, E, K // 4, n), 0b01010101, dtype=torch.uint8, device=dev)  # T = 0
+    alpha = torch.zeros((L, E, nbp, n), dtype=torch.bfloat16, device=dev)
+    mu = torch.zeros((L, E, nbp, n), dtype=torch.bfloat16, device=dev)
+    perm = torch.full((L, E, K), m, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(m)
+    gathers = []
+    for li in range(L):
+        for e in range(E):
+            idx = torch.randint(0, 81, (nb * bs // 4, n), generator=gen, device=dev)
+            packed[li, e, : nb * bs // 4] = lut[idx]
+            del idx
+            alpha[li, e, :nb] = scale * (0.8 + 0.4 * torch.rand((nb, n), generator=gen, device=dev))
+            mu[li, e, :nb] = 0.02 * scale * torch.randn((nb, n), generator=gen, device=dev)
+            if perm_mode == "identity":
+                perm[li, e, :m] = torch.arange(m, dtype=torch.int32, device=dev)
+            else:
+                perm[li, e, :m] = torch.randperm(m, generator=gen, device=dev).to(torch.int32)
+            if perm_mode == "ssr":
+                gathers.append(make_packed_gather(perm[li, e], m))
+    gather = None
+    if gathers:
+        gather = PackedGather(
+            packed=torch.stack([g.packed for g in gathers]).view(L, E, *gathers[0].packed.shape),
+            perm=perm.clone(), in_features=m)
+    return PackedTernaryLinear(
+        packed=packed.view(torch.int8), alpha=alpha, mu=mu, perm=perm, bias=None,
+        in_features=m, identity_perm=perm_mode == "identity", gather=gather,
+        input_folded=perm_mode == "folded", out_folded=out_folded)
+
+
 def default_perm_mode(cfg: ModelConfig) -> str:
     """The layout the quantizer's default ssr_scope="auto" emits for this
     width: SSR on down only from dim 640 up, full SSR below."""
@@ -98,6 +167,15 @@ def random_ternary_params(
     and linear biases zeros (gemma's norm adds its 1 + at the norm, as the
     JAX package does); the layout of each family is the JAX package's:
     qk-norm weights, sandwich norms, the embedding norm.
+
+    A mixture-of-experts config gets, in place of the MLP, a bf16 router and
+    the experts' gateup and down as (n_layers, E, ...) stacks
+    (:func:`random_expert_stack`) in the layout that the quantizer and
+    ``fold_moe_expert_perms`` emit: "ssr", gateup with a gather (K3 at decode
+    rows) and its output lanes folded, down input_folded; "down", gateup
+    with identity perms and its output lanes folded, down input_folded (K1
+    only); "identity", neither. Experts are not padded (the MoE MLP splits
+    gate/up at ``expert_inter``).
     """
     check_supported(cfg)
     if perm_mode not in ("identity", "ssr", "down"):
@@ -128,12 +206,13 @@ def random_ternary_params(
     shapes = {
         "qkv": ((H + 2 * Hkv) * hd, D, qbias),
         "o": (D, H * hd, cfg.linear_bias),
-        "down": (D, I, cfg.linear_bias),
     }
-    if cfg.gated_mlp:
-        shapes["gateup"] = (2 * I, D, cfg.linear_bias)
-    else:
-        shapes["up"] = (I, D, cfg.linear_bias)
+    if not cfg.is_moe:
+        shapes["down"] = (D, I, cfg.linear_bias)
+        if cfg.gated_mlp:
+            shapes["gateup"] = (2 * I, D, cfg.linear_bias)
+        else:
+            shapes["up"] = (I, D, cfg.linear_bias)
     layers = []
     for _ in range(cfg.n_layers):
         lp = {
@@ -153,4 +232,14 @@ def random_ternary_params(
             lp[name] = random_ternary_linear(gen, o, i, has_bias, perm_mode=pm, device=dev)
         layers.append(pad_gateup_blocks(lp))
     params["layers"] = stack_layers(layers)
+    if cfg.is_moe:
+        L, E, Ie = cfg.n_layers, cfg.n_experts, cfg.expert_inter
+        fold = perm_mode != "identity"
+        params["layers"]["router"] = DenseLinear(
+            w=(torch.randn((L, E, D), generator=gen, device=dev) / D**0.5).to(dtype))
+        params["layers"]["gateup"] = random_expert_stack(
+            gen, L, E, 2 * Ie, D, "ssr" if perm_mode == "ssr" else "identity", out_folded=fold,
+            device=dev)
+        params["layers"]["down"] = random_expert_stack(
+            gen, L, E, D, Ie, "folded" if fold else "identity", device=dev)
     return params

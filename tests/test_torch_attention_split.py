@@ -162,7 +162,8 @@ def _k7_configs():
 
 def test_plan_covers_the_registry():
     assert _k7_configs() == ["gemma-2b", "gemma3-4b", "llama-2-13b", "llama-2-70b", "llama-2-7b",
-                             "llama-3-8b", "qwen2-7b", "qwen3-8b"]
+                             "llama-3-8b", "mixtral-8x7b", "qwen2-7b", "qwen3-30b-a3b",
+                             "qwen3-8b"]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
@@ -189,7 +190,8 @@ def test_plan_fills_one_wave(name, B, quant):
     assert S == 1 or pairs * (S - 1) < k7.SMS
     if B == 8:  # the engine's point
         want = {"llama-2-7b": 1, "llama-2-13b": 1, "llama-3-8b": 3, "gemma-2b": 16,
-                "llama-2-70b": 3, "qwen3-8b": 3, "qwen2-7b": 5, "gemma3-4b": 5}[name]
+                "llama-2-70b": 3, "qwen3-8b": 3, "qwen2-7b": 5, "gemma3-4b": 5,
+                "mixtral-8x7b": 3, "qwen3-30b-a3b": 5}[name]
         assert S == want
     # shapes only: the same plan on every call
     assert k7.k7_plan(B, M, Hkv, rep, cfg.hd, quant) == plan

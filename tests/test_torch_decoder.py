@@ -179,14 +179,17 @@ def test_attention_gqa_kv_valid_matches_jax():
 
 
 def test_unported_family_raises():
-    """A mixture-of-experts config (its slice is still to come) raises;
-    the dense families are computed."""
+    """A config with a feature no family has (a norm, a position encoding, an
+    activation) raises naming it; a mixture-of-experts config, ported now,
+    is computed, as every dense family is."""
     dense = tdec.ModelConfig(family="gpt2", vocab_size=16, dim=8, n_layers=1, n_heads=2,
                              intermediate=16, norm="layernorm", pos="learned", act="gelu",
                              gated_mlp=False)
     tdec.check_supported(dense)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdec.check_supported(dense.with_(n_experts=4))
+    tdec.check_supported(dense.with_(n_experts=4))
+    with pytest.raises(NotImplementedError, match="not ported") as e:
+        tdec.check_supported(dense.with_(norm="groupnorm", act="swish"))
+    assert "norm='groupnorm'" in str(e.value) and "act='swish'" in str(e.value)
 
 
 @pytest.mark.parametrize("name,missing", [
@@ -194,14 +197,12 @@ def test_unported_family_raises():
     ("mixtral-8x7b", "mixture of experts"), ("tiny-opt", "non-gated MLP"),
 ])
 def test_unported_features_are_named(name, missing):
-    """What is still to port raises, naming only that: each of these JAX
-    configs with experts names mixture of experts alone, and the feature
-    that its family once lacked (``missing``) is computed now."""
+    """Each of these JAX configs is computed, with experts as without (the
+    feature that its family once lacked, ``missing``, is ported); a config
+    with an unknown activation raises naming that alone."""
     cfg = tdec.ModelConfig.from_dict(dataclasses.asdict(jreg.get_config(name)))
-    moe = cfg if cfg.is_moe else cfg.with_(n_experts=4)
+    tdec.check_supported(cfg)
+    tdec.check_supported(cfg if cfg.is_moe else cfg.with_(n_experts=4))
     with pytest.raises(NotImplementedError, match="not ported") as e:
-        tdec.check_supported(moe)
-    assert "mixture of experts" in str(e.value) and "llama" not in str(e.value)
-    if not cfg.is_moe:
-        tdec.check_supported(cfg)
-        assert missing not in str(e.value)
+        tdec.check_supported(cfg.with_(act="swish"))
+    assert "act='swish'" in str(e.value) and missing not in str(e.value)

@@ -13,9 +13,8 @@ tiny llama with qwen2's q/k/v bias and RoPE base 1e6. Norm weights and
 biases are drawn at random (the registry's inits leave them ones and
 zeros), so every norm and bias takes part.
 
-- The registry: every dense JAX entry equals the port's field for field,
-  ``get_model_type`` agrees on a list of names, the mixture-of-experts names
-  raise ``KeyError`` and their configs ``NotImplementedError``.
+- The registry: every JAX entry (the mixture-of-experts ones too) equals
+  the port's field for field, ``get_model_type`` agrees on a list of names.
 - Logits of ``forward`` in f32 (dense weights, and packed ones in the
   "ssr" and "down" layouts) within 1e-4 of max|logit|: the same f32 math in
   another summation order.
@@ -116,19 +115,16 @@ def one_torch_thread():
 
 
 def test_registry_entries_equal_jax():
-    dense = [n for n, c in jreg.CONFIGS.items() if not c.is_moe]
-    assert sorted(dense) == sorted(treg.CONFIGS)
-    for name in dense:
+    assert sorted(jreg.CONFIGS) == sorted(treg.CONFIGS)
+    for name in jreg.CONFIGS:
         assert dataclasses.asdict(treg.get_config(name)) == dataclasses.asdict(
             jreg.get_config(name)), name
         tdec.check_supported(treg.get_config(name))
     for name in ("mixtral-8x7b", "qwen3-30b-a3b", "tiny-moe"):
-        assert jreg.get_config(name).is_moe
-        with pytest.raises(KeyError, match="mixture-of-experts"):
-            treg.get_config(name)
-        cfg = tdec.ModelConfig.from_dict(dataclasses.asdict(jreg.get_config(name)))
-        with pytest.raises(NotImplementedError, match="mixture of experts"):
-            tdec.check_supported(cfg)
+        assert treg.get_config(name).is_moe and jreg.get_config(name).is_moe
+        assert treg.get_config(name).expert_inter == jreg.get_config(name).expert_inter
+    with pytest.raises(KeyError, match="unknown model config"):
+        treg.get_config("mixtral-8x22b")
     names = ["meta-llama/Llama-2-7b-hf", "Meta-Llama-3-8B", "llama-7b", "Qwen/Qwen2-7B",
              "Qwen3-8B", "qwen3-30b-a3b", "facebook/opt-1.3b", "gpt2-xl", "openai-gpt-2",
              "bigscience/bloom-560m", "google/gemma-2b", "gemma-2-9b", "google/gemma-2",

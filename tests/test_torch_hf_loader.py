@@ -15,8 +15,10 @@ The reader: the port's own safetensors reader gives the bytes of the
 numpy reader takes no bf16), a bf16 checkpoint loads as the bf16 rounding
 of the f32 one (the JAX loader's values for it), sharded files and
 ``pytorch_model.bin`` files load like one safetensors file, ``device="cpu"``
-keeps the model on the host, and mixture-of-experts configs raise, naming
-what is missing."""
+keeps the model on the host. The mixture-of-experts layouts (mixtral,
+qwen3-moe): configs, routers and expert stacks equal JAX's, logits JAX's and
+transformers' own (within 1e-4 of max|logit|), and ``write_safetensors``
+writes both layouts back."""
 
 import dataclasses
 import json
@@ -108,6 +110,18 @@ def _tiny(kind):
                                rope_theta=1000000.0, rope_local_base_freq=10000.0,
                                rope_scaling={"rope_type": "linear", "factor": 8.0})
         return T.Gemma3ForCausalLM(c)
+    if kind == "mixtral":
+        c = T.MixtralConfig(vocab_size=99, hidden_size=32, intermediate_size=64,
+                            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                            num_local_experts=4, num_experts_per_tok=2,
+                            max_position_embeddings=64)
+        return T.MixtralForCausalLM(c)
+    if kind == "qwen3_moe":
+        c = T.Qwen3MoeConfig(vocab_size=99, hidden_size=32, intermediate_size=64,
+                             moe_intermediate_size=48, num_experts=4, num_experts_per_tok=2,
+                             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                             head_dim=8, max_position_embeddings=64, tie_word_embeddings=False)
+        return T.Qwen3MoeForCausalLM(c)
     raise KeyError(kind)
 
 
@@ -246,14 +260,49 @@ def test_bf16_checkpoint_is_the_rounded_f32_one(kind, tmp_path):
 
 
 def test_moe_checkpoint_raises_naming_it(tmp_path):
-    c = transformers.MixtralConfig(vocab_size=99, hidden_size=32, intermediate_size=64,
-                                   num_hidden_layers=1, num_attention_heads=4,
-                                   num_key_value_heads=2, num_local_experts=4,
-                                   num_experts_per_tok=2, max_position_embeddings=64)
-    d = _save(transformers.MixtralForCausalLM(c), tmp_path / "moe", safe_serialization=True)
+    """The tiny mixtral checkpoint (what raised before the mixture-of-experts
+    slice) loads: its config, router and (E, out, in) expert stacks equal
+    JAX's loader's, and its logits JAX's and transformers' own."""
+    _moe_loads_equal("mixtral", tmp_path)
+
+
+def _moe_loads_equal(kind, tmp_path):
+    model = _tiny(kind)
+    d = _save(model, tmp_path / kind, safe_serialization=True)
     assert dataclasses.asdict(thf.config_from_hf(d)) == dataclasses.asdict(jhf.config_from_hf(d))
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        thf.load_hf_model(d, device="cpu")
+    jcfg, jparams = jhf.load_hf_model(d, dtype=jnp.float32)
+    tcfg, tparams = thf.load_hf_model(d, dtype=torch.float32, device="cpu")
+    assert tcfg.is_moe and tcfg.n_experts == 4
+    lay = tparams["layers"]
+    assert lay["router"].w.shape == (2, 4, 32)
+    assert lay["gate"].w.shape == lay["up"].w.shape == (2, 4, tcfg.expert_inter, 32)
+    assert lay["down"].w.shape == (2, 4, 32, tcfg.expert_inter)
+    _same_tree(tparams, jparams)
+    got, toks = _logits_equal(tcfg, tparams, jcfg, jparams)
+    with torch.no_grad():
+        hf = model(torch.from_numpy(toks)).logits.float().numpy()
+    assert np.abs(got - hf).max() <= 1e-4 * np.abs(hf).max()
+    return d, tparams
+
+
+@pytest.mark.parametrize("kind", ["mixtral", "qwen3_moe"])
+def test_moe_checkpoints_load_and_write(kind, tmp_path):
+    """Both expert layouts (mixtral's ``block_sparse_moe.experts.N.w1/w3/w2``,
+    qwen3-moe's ``mlp.experts.N.{gate,up,down}_proj``) load equal to JAX's
+    loader, and written back with ``write_safetensors`` load the same tree."""
+    d, tparams = _moe_loads_equal(kind, tmp_path)
+    tensors = thf.read_hf_tensors(d)
+    assert any(".experts.3." in k for k in tensors)
+    out = tmp_path / "rewritten"
+    out.mkdir()
+    thf.write_safetensors(str(out / "model.safetensors"), tensors)
+    with open(os.path.join(d, "config.json")) as f:
+        (out / "config.json").write_text(f.read())
+    _, again = thf.load_hf_model(str(out), dtype=torch.float32, device="cpu")
+    a, b = _flat_port(tparams), _flat_port(again)
+    assert a[1] == b[1]
+    for k, v in a[0].items():
+        np.testing.assert_array_equal(b[0][k], v, err_msg=k)
 
 
 def test_hf_loader_imports_no_safetensors_or_transformers():

@@ -2934,3 +2934,137 @@ def test_hessian_normalized_gives_the_cpu_bits(cuda_device):
         acc.nsamples = n
         want = acc.H.cpu() / float(n)
         assert torch.equal(acc.normalized().cpu(), want), n
+
+
+# ---- K1s / K3s: K1's and K3's decode rows with the slot read from device
+# memory (the mixture-of-experts decode's routed experts)
+IDX_CASES = [(1024, 512, "identity"), (512, 2048, "folded"), (1024, 512, "ssr"),
+             (256, 192, "folded")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_a8", [False, True])
+@pytest.mark.parametrize("impl", ["auto", "a8"])
+@pytest.mark.parametrize("rows", [1, 2, 8])
+@pytest.mark.parametrize("n_out,n_in,mode", IDX_CASES)
+def test_device_index_equals_view_route(cuda_device, n_out, n_in, mode, rows, impl, dec_a8,
+                                        monkeypatch):
+    """Every slot of a (2 x 3)-slot stack, the index an int32 on the card with
+    a host base: bit for bit the host-index view route's result, within 1e-4
+    of the plain version, counted in the entry's own counters only."""
+    from pt2tpu_torch.utils.randmodel import random_expert_stack
+
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    g = torch.Generator(device=cuda_device).manual_seed(n_out + n_in + rows)
+    flat = tdec._flatten_expert_stack(
+        random_expert_stack(g, 2, 3, n_out, n_in, mode, device=cuda_device))
+    x = torch.randn((rows, n_in), generator=g, device=cuda_device).bfloat16()
+    sel = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    name = "ternary_matmul_igathered_idx" if mode == "ssr" else "ternary_matmul_idx"
+    wrapper = getattr(tk, name)
+    for s in range(6):
+        e, base = sel[s % 3], 3 * (s // 3)
+        before = (wrapper.launches, wrapper.launches_dec, tk.ternary_matmul.launches,
+                  tk.ternary_matmul_igathered.launches)
+        got = ttm.ternary_linear_apply_stacked(flat, x, e, impl=impl, base=base,
+                                               out_dtype=torch.float32)
+        path = (tk.k3_path if mode == "ssr" else tk.k1_path)(rows, n_out, flat.block_size,
+                                                             impl == "a8")
+        dec = path == "dec"
+        assert (wrapper.launches, wrapper.launches_dec) == (before[0] + 1, before[1] + dec)
+        assert (tk.ternary_matmul.launches, tk.ternary_matmul_igathered.launches) == before[2:]
+        view = ttm.ternary_linear_apply_stacked(flat, x, s, impl=impl, out_dtype=torch.float32)
+        assert torch.equal(got, view)
+        K = flat.packed.shape[1] * 4
+        bs = flat.block_size
+        if mode == "ssr":
+            want = tk.ternary_matmul_igathered_idx_plain(x, flat.perm, flat.packed, flat.alpha,
+                                                         flat.mu, e, base, bs, a8=impl == "a8")
+        else:
+            want = tk.ternary_matmul_idx_plain(torch.nn.functional.pad(x, (0, K - n_in)),
+                                               flat.packed, flat.alpha, flat.mu, e, base, bs,
+                                               a8=impl == "a8")
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_device_index_refusals(cuda_device, monkeypatch):
+    """No host read on any route: rows on a tensor-core path, the P2 flags
+    (K6) and the gather-then-K1 route raise NotImplementedError; a wrong
+    index type or a stack that is not whole raises ValueError."""
+    from pt2tpu_torch.utils.randmodel import random_expert_stack
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    flat = tdec._flatten_expert_stack(
+        random_expert_stack(g, 1, 2, 256, 256, "ssr", device=cuda_device))
+    e = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttm.ternary_linear_apply_stacked(flat, torch.zeros((16, 256), device=cuda_device), e)
+    monkeypatch.setattr(ttm, "IGATHER_FUSED", False)
+    monkeypatch.setattr(ttm, "FUSED_GATHER", True)
+    with pytest.raises(NotImplementedError, match="K6s"):
+        ttm.ternary_linear_apply_stacked(flat, torch.zeros((1, 256), device=cuda_device), e)
+    monkeypatch.setattr(ttm, "FUSED_GATHER", False)
+    with pytest.raises(NotImplementedError, match="K4s"):
+        ttm.ternary_linear_apply_stacked(flat, torch.zeros((1, 256), device=cuda_device), e)
+    x = torch.zeros((1, flat.packed.shape[1] * 4), device=cuda_device).bfloat16()  # K lanes
+    with pytest.raises(ValueError, match="int32"):
+        tk.ternary_matmul_idx(x, flat.packed, flat.alpha, flat.mu, e.long())
+    with pytest.raises(ValueError, match="stack"):
+        tk.ternary_matmul_idx(x, flat.packed[0], flat.alpha[0], flat.mu[0], e)
+
+
+@pytest.mark.cuda
+def test_device_index_outside_the_stack_traps(cuda_device, tmp_path):
+    """A slot outside [0, S) stops the kernel (__trap): in a child process,
+    whose CUDA context it takes down, the launch's error surfaces; nothing
+    is clamped."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
+        "from pt2tpu_torch.ops.kernels import ternary as tk\n"
+        "dev = torch.device('cuda')\n"
+        "packed = torch.zeros((2, 128, 256), dtype=torch.int8, device=dev)\n"
+        "alpha = torch.zeros((2, 4, 256), dtype=torch.bfloat16, device=dev)\n"
+        "x = torch.ones((1, 512), device=dev).bfloat16()\n"
+        "sel = torch.tensor([1], dtype=torch.int32, device=dev)\n"
+        "ok = tk.ternary_matmul_idx(x, packed, alpha, alpha, sel, 0)\n"
+        "torch.cuda.synchronize()\n"
+        "print('slot 1 ran', flush=True)\n"
+        "tk.ternary_matmul_idx(x, packed, alpha, alpha, sel, 1)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NOT TRAPPED', flush=True)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert "slot 1 ran" in r.stdout and "NOT TRAPPED" not in r.stdout, (r.stdout, r.stderr[-2000:])
+    assert r.returncode != 0
+
+
+@pytest.mark.cuda
+def test_moe_one_row_makes_no_host_sync_and_matches_plain(cuda_device):
+    """tiny-moe's MLP at one row (the top-k plan) under
+    set_sync_debug_mode("error"), and the model's greedy tokens vs the plain
+    route, every K1s / K3s call held."""
+    cfg = get_config("tiny-moe").with_(dim=256, n_heads=2, n_kv_heads=2, intermediate=256)
+    params = random_ternary_params(cfg, seed=4, perm_mode="ssr", device=cuda_device)
+    lp = tdec.layer_view(params["layers"], 1)
+    h = torch.randn((1, 1, cfg.dim), device=cuda_device).bfloat16()
+    want = tdec._moe_mlp(cfg, lp, h, "auto", 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tdec._moe_mlp(cfg, lp, h, "auto", 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    plain = tdec._moe_mlp(cfg, lp, h, "plain", 1)
+    assert (got.float() - plain.float()).abs().max() <= 2e-2 * plain.float().abs().max()
+    before = (tk.ternary_matmul_idx.launches, tk.ternary_matmul_igathered_idx.launches)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 9), device=cuda_device)
+    toks = greedy_generate(cfg, params, prompt, 6)
+    assert (tk.ternary_matmul_idx.launches - before[0],
+            tk.ternary_matmul_igathered_idx.launches - before[1]) == (2 * 2 * 5, 2 * 2 * 5)
+    assert toks.shape == (1, 6)

@@ -5,8 +5,8 @@ packed artifact with its journal and metrics), then ``eval`` and
 from it. A local HuggingFace directory (a tiny llama that ``transformers``
 writes): ``quantize`` in the port and in JAX write the same artifact bytes,
 ``info`` prints its config, ``generate`` and ``eval`` read it; the 4 GiB
-residency rule is JAX's; a directory without a checkpoint, or with a
-mixture-of-experts one, raises."""
+residency rule is JAX's; a directory without a checkpoint raises; a tiny
+mixtral checkpoint quantizes to JAX's artifact bytes."""
 
 import json
 import os
@@ -68,9 +68,10 @@ def test_quantize_eval_generate(tmp_path, capsys):
 
 
 def test_registry_model_and_refusals(tmp_path, capsys):
-    """A registry name is a random dense model (eval, generate); a directory
-    without a manifest is read as an HF checkpoint: one without its files
-    raises, and so does a mixture-of-experts one, naming it."""
+    """A registry name is a random dense model (eval, generate; tiny-moe's
+    too); a directory without a manifest is read as an HF checkpoint: one
+    without its files raises; a mixture-of-experts one quantizes in the port
+    as in JAX, to the same artifact bytes, and generates JAX's ids."""
     tcli.main(["eval", "--model", "tiny-llama", "--eval_dataset", "synthetic", "--seq_len", "16",
                "--max_windows", "1", "--device", "cpu"])
     assert "over 15 tokens" in capsys.readouterr().out
@@ -79,15 +80,46 @@ def test_registry_model_and_refusals(tmp_path, capsys):
     assert len(capsys.readouterr().out.strip().splitlines()[-1].split(",")) == 3
     with pytest.raises(FileNotFoundError):
         tcli.main(["quantize", "--model", str(tmp_path), "--device", "cpu"])
+    tcli.main(["generate", "--model", "tiny-moe", "--prompt-ids", "1,2", "--max-new", "3",
+               "--device", "cpu"])
+    assert len(capsys.readouterr().out.strip().splitlines()[-1].split(",")) == 3
+    tcli.main(["eval", "--model", "tiny-moe", "--eval_dataset", "synthetic", "--seq_len", "16",
+               "--max_windows", "1", "--device", "cpu"])
+    assert "over 15 tokens" in capsys.readouterr().out
     transformers = pytest.importorskip("transformers")
+    torch.manual_seed(1)
     c = transformers.MixtralConfig(vocab_size=99, hidden_size=32, intermediate_size=64,
                                    num_hidden_layers=1, num_attention_heads=4,
                                    num_key_value_heads=2, num_local_experts=4,
                                    max_position_embeddings=64)
     moe = str(tmp_path / "moe")
     transformers.MixtralForCausalLM(c).save_pretrained(moe)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        tcli.main(["quantize", "--model", moe, "--device", "cpu"])
+    tcli.main(["info", "--model", moe])
+    assert json.loads(capsys.readouterr().out)["model_config"]["n_experts"] == 4
+    common = ["quantize", "--model", moe, "--calib", "synthetic", "--num_samples", "8",
+              "--seq_len", "32", "--seed", "5"]
+    tout, jout = str(tmp_path / "port"), str(tmp_path / "jax")
+    tcli.main(common + ["--output", tout, "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "[hf]" in text and "bits/weight" in text
+    jcli.main(common + ["--output", jout])
+    capsys.readouterr()
+    want, got = _npz(os.path.join(jout, "arrays.npz")), _npz(os.path.join(tout, "arrays.npz"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k != "__bf16_keys__":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with open(os.path.join(tout, "manifest.json")) as f:
+        tman = json.load(f)
+    with open(os.path.join(jout, "manifest.json")) as f:
+        jman = json.load(f)
+    assert tman["structure"] == jman["structure"]
+    assert tman["structure"]["layers.gateup"]["kind"] == "ternary"
+    argv = ["generate", "--model", tout, "--prompt-ids", "5,17,3", "--max-new", "4"]
+    tcli.main(argv + ["--device", "cpu"])
+    got_ids = capsys.readouterr().out.strip().splitlines()[-1]
+    jcli.main(argv)
+    assert capsys.readouterr().out.strip().splitlines()[-1] == got_ids
 
 
 def _npz(path):

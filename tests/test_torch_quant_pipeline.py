@@ -297,8 +297,9 @@ def test_journal_resumes_across_packages(runs, writer, tmp_path):
 
 def test_config_and_refusals():
     """QuantConfig's fields and defaults are JAX's (scale_dtype: each
-    package's bf16); resolve_ssr_skip agrees on every scope; MoE and a mesh
-    raise, naming what is not ported."""
+    package's bf16); resolve_ssr_skip agrees on every scope; a mesh raises,
+    naming what is not ported; a mixture-of-experts model, ported now,
+    quantizes into (n_layers, E, ...) expert stacks."""
     jf = {f.name: f.default for f in dataclasses.fields(jpipe.QuantConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tpipe.QuantConfig)}
     assert jf.keys() == tf.keys()
@@ -315,8 +316,12 @@ def test_config_and_refusals():
     cfg = get_config("tiny-llama")
     params = tdec.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     calib = np.zeros((2, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tpipe.quantize_model(cfg.with_(n_experts=4), params, calib)
+    moe = get_config("tiny-moe")
+    q, rep = tpipe.quantize_model(
+        moe, tdec.init_params(moe, torch.Generator().manual_seed(0), device="cpu"),
+        np.random.default_rng(0).integers(0, moe.vocab_size, (4, 16)))
+    assert q["layers"]["gateup"].packed.shape[:2] == (2, 4) and "gate" not in q["layers"]
+    assert sorted(rep["layers"][0]) == ["down", "gateup", "o", "qkv"]
     with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.quantize_model(cfg, params, calib, mesh=object())
 
