@@ -401,7 +401,27 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      inverses and GPTQ printed) and serves its artifact with every K1s call
      held; (f) times the four device-index kernels from CUDA graph replays
      beside the view route, the plain version, torch.matmul on the dense
-     bf16 expert and the bytes bound.
+     bf16 expert and the bytes bound. For K4s, K5s and K6s at a device
+     index and K2's ungated mode: (a) also holds K4s (both kernels'
+     routes), K5s and K6s per call at mixtral's gathered gateup and a
+     1440-wide expert that K3 and K6 refuse, every slot of 2 x 4, the gather
+     entries at B 1 and 4 bit for bit the view route's and their plain
+     versions', the one-row route under the G4 (K4s, K1s), G5 (K5s, K1s)
+     and P2 (K6s) flags bit for bit the view route's in bf16 and W2A8
+     (K1_DEC_A8 off, on), K6s within KERNEL_TOL; and K2's ungated mode at
+     opt-1.3b's and bloom-560m's MLP widths on its three paths, with and
+     without a gather, silu / gelu / relu, within MLP_TOL; (d) also runs
+     the 2-layer mixtral "ssr" cut under G4, G5 and P2 (_moe_mlp at one row
+     under the sync check; lockstep batch 1, 128 ids + 16 new, bf16 and
+     W2A8, launches exact, every K1 / K4 / K5 / K6 and device-index call
+     held, answers held to the teacher-forced plain forward), once more under
+     G4 with K4's rows path off, and a 2-layer opt-1.3b without biases whose
+     up is stored as the fused MLP's gateup (K2's ungated mode through the
+     decoder's fused branch, on each of its paths, every call held); (f)
+     also times K4s, K5s, K6s and the ungated K2 from CUDA graph replays
+     beside the view route (the device-index entries), the plain version,
+     torch.index_select (K4s, K5s), torch.matmul on the gathered x (K6s) or
+     two dense torch.matmul with the activation (K2), and the bound.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -759,8 +779,9 @@ def main() -> None:
     record["phase_start_s"] = {}
 
     def stamp(phase):
-        """The seconds since start-up at which ``phase`` begins."""
+        """The seconds since start-up at which ``phase`` begins, printed."""
         record["phase_start_s"][phase] = time.perf_counter() - t_start
+        print(f"chip_smoke: phase {phase} begins at {record['phase_start_s'][phase]:.1f} s")
 
     # launch counters of every kernel wrapper: K1, K3, K2, K4, K7, K5, K6
     wrappers = {"ternary_matmul": k1.ternary_matmul,
@@ -769,7 +790,9 @@ def main() -> None:
                 "decode_attention": k7.decode_attention, "onehot_matmul": k4.onehot_matmul,
                 "ternary_matmul_gathered": k1.ternary_matmul_gathered,
                 "ternary_matmul_idx": k1.ternary_matmul_idx,
-                "ternary_matmul_igathered_idx": k1.ternary_matmul_igathered_idx}
+                "ternary_matmul_igathered_idx": k1.ternary_matmul_igathered_idx,
+                "ternary_matmul_gathered_idx": k1.ternary_matmul_gathered_idx,
+                "onehot_gather_idx": k4.onehot_gather_idx, "onehot_matmul_idx": k4.onehot_matmul_idx}
 
     def zero_counts():
         for w in wrappers.values():
@@ -783,6 +806,8 @@ def main() -> None:
         k1.ternary_matmul_gathered.launches_dec = k1.ternary_matmul_gathered.launches_tc = 0
         k4.onehot_matmul.launches_rows = k4.onehot_gather.launches_rows = 0
         k1.ternary_matmul_idx.launches_dec = k1.ternary_matmul_igathered_idx.launches_dec = 0
+        k1.ternary_matmul_gathered_idx.launches_dec = k4.onehot_gather_idx.launches_rows = 0
+        k1.ternary_mlp.launches_ungated = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -803,8 +828,12 @@ def main() -> None:
         (the device-index entries, counted apart from K1 and K3) on the
         decode kernel (also in "ternary_matmul_idx" and
         "ternary_matmul_igathered_idx") as "ternary_matmul_idx_dec" and
-        "ternary_matmul_igathered_idx_dec". K2's decode path's down launch
-        is K2's, not one of K1's."""
+        "ternary_matmul_igathered_idx_dec"; K6s's on its decode path and
+        K4s's on its rows path (also in "ternary_matmul_gathered_idx" and
+        "onehot_gather_idx") as "ternary_matmul_gathered_idx_dec" and
+        "onehot_gather_idx_rows"; K2's ungated launches (any path) as
+        "ternary_mlp_ungated". K2's decode path's down launch is K2's, not
+        one of K1's."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -822,6 +851,9 @@ def main() -> None:
         c["onehot_gather_rows"] = k4.onehot_gather.launches_rows
         c["ternary_matmul_idx_dec"] = k1.ternary_matmul_idx.launches_dec
         c["ternary_matmul_igathered_idx_dec"] = k1.ternary_matmul_igathered_idx.launches_dec
+        c["ternary_matmul_gathered_idx_dec"] = k1.ternary_matmul_gathered_idx.launches_dec
+        c["onehot_gather_idx_rows"] = k4.onehot_gather_idx.launches_rows
+        c["ternary_mlp_ungated"] = k1.ternary_mlp.launches_ungated
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every run counted exactly
@@ -2207,7 +2239,11 @@ def main() -> None:
               "ternary_matmul_gathered": (ttm, k1.ternary_matmul_gathered_plain, KERNEL_TOL),
               "ternary_matmul_idx": (ttm, k1.ternary_matmul_idx_plain, KERNEL_TOL),
               "ternary_matmul_igathered_idx": (ttm, k1.ternary_matmul_igathered_idx_plain,
-                                               KERNEL_TOL)}
+                                               KERNEL_TOL),
+              "ternary_matmul_gathered_idx": (ttm, k1.ternary_matmul_gathered_idx_plain,
+                                              KERNEL_TOL),
+              "onehot_gather_idx": (tgather, k4.onehot_gather_idx_plain, 0.0),
+              "onehot_matmul_idx": (tgather, k4.onehot_matmul_idx_plain, 0.0)}
     per_call = dict.fromkeys(routed, 0)
 
     # the routing flags of the packed-gather slice: (GATHER_KERNEL,
@@ -4497,15 +4533,142 @@ def main() -> None:
           f"W2A8 (decode kernel and CUDA cores): {checks23} calls, each bit for bit the view "
           f"route's, max|err| vs plain {idx_err} (<= {KERNEL_TOL}), every slot of 2 x 4")
 
-    def mixtral_launches(L_, passes, a8=False, k7_steps=0, E_=8, k_=2, gathered=False):
+    # (a, continued) K4s, K5s and K6s per call: mixtral's gateup with its
+    # gather and an expert whose out width K3 and K6 refuse (1440: the
+    # gather kernel then K1s), every slot of a 2 x 4 stack: the gather
+    # entries at B 1 and 4 bit for bit the view route's and their plain
+    # versions'; then the whole one-row route under each flag set (G4: K4s,
+    # G5: K5s, then K1s; P2: K6s), bf16 and W2A8 (K1_DEC_A8 off, on), bit
+    # for bit the host-index view route's, each wrapper launched once and
+    # K6s within KERNEL_TOL of its plain version. Their own generator, so
+    # that the phases after draw what they drew before
+    gx23 = torch.Generator(device=dev).manual_seed(2302)
+    G4, G5 = ("iota", False, False), ("packed", False, False)
+    ROUTE_FLAGS = {"G4": G4, "G5": G5, "P2": P2}
+    gidx_names = ("onehot_gather_idx", "onehot_matmul_idx", "ternary_matmul_gathered_idx")
+    gidx_err = dict.fromkeys(gidx_names, 0.0)
+    gchecks = 0
+    for label, n_out, n_in in (("mixtral gateup ssr", 28672, 4096), ("odd gateup ssr", 1440, 2048)):
+        flat = tdec._flatten_expert_stack(
+            random_expert_stack(gx23, 2, 4, n_out, n_in, "ssr", device=dev))
+        S, gp, pm = flat.packed.shape[0], flat.gather.packed, flat.gather.perm
+        sel = torch.arange(4, dtype=torch.int32, device=dev)
+        for B in (1, 4):
+            x = torch.randn((B, n_in), generator=gx23, device=dev).bfloat16()
+            for s in range(S):
+                e, base = sel[s % 4], (s // 4) * 4
+                c0 = counts()
+                g4 = k4.onehot_gather_idx(x, pm, e, base)
+                g5 = k4.onehot_matmul_idx(x, gp, e, base)
+                rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+                if rose != {"onehot_gather_idx": 1, "onehot_gather_idx_rows": 1,
+                            "onehot_matmul_idx": 1}:
+                    fail(f"23a K4s / K5s {label} B={B}: launches {rose}")
+                if not (torch.equal(g4, k4.onehot_gather(x, pm[s]))
+                        and torch.equal(g4, k4.onehot_gather_idx_plain(x, pm, e, base))
+                        and torch.equal(g5, k4.onehot_matmul(x, gp[s]))
+                        and torch.equal(g5, k4.onehot_matmul_idx_plain(x, gp, e, base))):
+                    fail(f"23a K4s / K5s {label} B={B} slot {s}: not bit for bit the view "
+                         "route's and the plain version's")
+                gchecks += 2
+        for fname, flags in ROUTE_FLAGS.items():
+            with route_flags(flags):
+                for impl, dec_a8 in (("auto", False), ("a8", False), ("a8", True)):
+                    k1.K1_DEC_A8 = dec_a8
+                    a8 = impl == "a8"
+                    x = torch.randn((1, n_in), generator=gx23, device=dev).bfloat16()
+                    route = ttm.linear_route(flat, 1, impl, dev, device_index=True)
+                    for s in range(S):
+                        e, base = sel[s % 4], (s // 4) * 4
+                        c0 = counts()
+                        on = ttm.ternary_linear_apply_stacked(flat, x, e, impl=impl, base=base,
+                                                              out_dtype=torch.float32)
+                        rose = {k: v - c0[k] for k, v in counts().items()
+                                if v != c0[k] and k in wrappers}
+                        if rose != dict.fromkeys(route, 1):
+                            fail(f"23a {fname} {label} {impl}: launches {rose}, route {route}")
+                        view = ttm.ternary_linear_apply_stacked(flat, x, s, impl=impl,
+                                                                out_dtype=torch.float32)
+                        if not torch.equal(on, view):
+                            fail(f"23a {fname} {label} {impl} slot {s}: the device index is not "
+                                 "the view route bit for bit")
+                        if route == ("ternary_matmul_gathered_idx",):
+                            want = k1.ternary_matmul_gathered_idx_plain(
+                                x, gp, flat.packed, flat.alpha, flat.mu, e, base, a8=a8)
+                            err = ((on - want).abs().max() / want.abs().max()).item()
+                            if not err <= KERNEL_TOL:
+                                fail(f"23a K6s {label} {impl} slot {s}: max|err| {err:.3e} > "
+                                     f"{KERNEL_TOL}")
+                            gidx_err["ternary_matmul_gathered_idx"] = max(
+                                gidx_err["ternary_matmul_gathered_idx"], err)
+                        gchecks += 1
+                    k1.K1_DEC_A8 = False
+        del flat, gp, pm
+    rec23["per_call_gather"] = {"checks": gchecks, "max_rel_err": dict(gidx_err)}
+    print(f"23a K4s / K5s (B 1 and 4) and K6s, K4s / K5s then K1s under G4 / G5 / P2 at mixtral's "
+          f"gateup and a 1440-wide expert, bf16 and W2A8 (K1_DEC_A8 off, on): {gchecks} calls, "
+          f"each bit for bit the view route's (K4s / K5s their plain versions' too), K6s within "
+          f"{gidx_err['ternary_matmul_gathered_idx']:.3e} of its plain version (<= {KERNEL_TOL}), "
+          f"every slot of 2 x 4")
+
+    # (a, continued) K2's ungated mode per call: opt-1.3b's and
+    # bloom-560m's MLP widths (biases aside: neither model routes to K2),
+    # up alone I wide, rows 1 / 8 on the decode path, 16 / 64 on the
+    # tensor-core path, 1 / 16 on the CUDA-core kernel (the other two paths
+    # rebound away), with and without the gather, silu, gelu and relu,
+    # within MLP_TOL of ternary_mlp_plain; launches_ungated exact
+    gk22 = torch.Generator(device=dev).manual_seed(2322)
+    ung_err, ung_checks = 0.0, 0
+    for label, (D, I, n) in (("opt-1.3b", (2048, 8192, 2048)),
+                             ("bloom-560m", (1024, 4096, 1024))):
+        ulayer = rand_layer(D, I, gen=gk22) + rand_layer(I, n, gen=gk22)
+        uperm = rand_perm(D, D, gen=gk22)
+        for gathered in (True, False):
+            for act in k1.MLP_ACTS:
+                for B, path in ((1, "dec"), (8, "dec"), (16, "tc"), (64, "tc"), (1, "cc"),
+                                (16, "cc")):
+                    x = torch.randn((B, D), generator=gk22, device=dev).bfloat16()
+                    with k2_dec(path != "cc"), k2_tc(path != "cc"):
+                        if k1.k2_path(B) != path:
+                            fail(f"23a ungated K2 {label} rows {B}: k2_path {k1.k2_path(B)}")
+                        c0 = counts()
+                        got = k1.ternary_mlp(x, uperm if gathered else None, *ulayer, I, act=act)
+                    rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+                    want_rose = {"ternary_mlp": 1, "ternary_mlp_ungated": 1}
+                    if path != "cc":
+                        want_rose[f"ternary_mlp_{path}"] = 1
+                    if act == "gelu":
+                        want_rose["ternary_mlp_gelu"] = 1
+                    if rose != want_rose:
+                        fail(f"23a ungated K2 {label} {act} rows {B} ({path}): launches {rose}")
+                    want = k1.ternary_mlp_plain(x, uperm if gathered else None, *ulayer, I,
+                                                act=act)
+                    err = ((got - want).abs().max() / want.abs().max()).item()
+                    if got.shape != want.shape or not err <= MLP_TOL:
+                        fail(f"23a ungated K2 {label} {act} gather={gathered} rows {B} ({path}): "
+                             f"max|err| {err:.3e} > {MLP_TOL}")
+                    ung_err = max(ung_err, err)
+                    ung_checks += 1
+        del ulayer, uperm
+    rec23["per_call_ungated"] = {"checks": ung_checks, "max_rel_err": ung_err}
+    print(f"23a K2 ungated at opt-1.3b's and bloom-560m's MLP widths: {ung_checks} calls (rows "
+          f"1 / 8 decode path, 16 / 64 tensor cores, 1 / 16 CUDA cores; with and without the "
+          f"gather; silu, gelu, relu), max|err| vs plain {ung_err:.3e} (<= {MLP_TOL})")
+
+    def mixtral_launches(L_, passes, a8=False, k7_steps=0, E_=8, k_=2, gathered=False,
+                         flags=("iota", True, False), k4_rows=True):
         """The launches of forward passes of ``passes`` rows each through
         ``L_`` layers of a mixture-of-experts model (E_ experts, k_ a token):
         qkv and o, then with more than one row every expert's gateup and
-        down, with one row its top k_ experts' through K1s (K3s for a
-        gathered gateup). ``gathered`` (the "ssr" layout): qkv, o and gateup
-        gather, through K3 at <= 64 rows, else K4 then K1; down is folded.
-        Paths by rows: the decode kernel (bf16) or the CUDA cores (W2A8) at
-        <= 8 rows, the tensor cores from 9."""
+        down, with one row its top k_ experts' through the device-index
+        entries. ``gathered`` (the "ssr" layout): qkv, o and gateup gather,
+        down is folded; at <= 64 rows through K3 (K3s) or, under ``flags``
+        (GATHER_KERNEL, IGATHER_FUSED, FUSED_GATHER) with IGATHER_FUSED off,
+        K6 (K6s), else the gather kernel (K4 on its rows path, or its first
+        kernel without ``k4_rows``; K5 on its rows path from 16 rows) then
+        K1 (K4s / K5s then K1s). Paths by rows: the decode kernels (bf16)
+        or the CUDA cores (W2A8) at <= 8 rows, the tensor cores from 9."""
+        gk, igf, fg = flags
         c = dict(none)
 
         def calls(kind, n, rows):
@@ -4516,20 +4679,28 @@ def main() -> None:
             elif not a8:
                 c[f"{kind}_dec"] += n * L_
 
-        def projections(n, rows, gather):
-            if gather and rows <= 64:
-                calls("ternary_matmul_igathered", n, rows)
+        def gather_calls(n, rows, idx=""):
+            kind = ("onehot_gather" if gk == "iota" else "onehot_matmul") + idx
+            c[kind] += n * L_
+            if gk == "iota" and k4_rows:
+                c[f"{kind}_rows" if idx else "onehot_gather_rows"] += n * L_
+            elif gk != "iota" and rows >= 16:
+                c["onehot_matmul_rows"] += n * L_
+
+        def projections(n, rows, gather, idx=""):
+            if gather and rows <= 64 and (igf or fg):
+                calls(("ternary_matmul_igathered" if igf else "ternary_matmul_gathered") + idx, n,
+                      rows)
             else:
                 if gather:
-                    c["onehot_gather"] += n * L_
-                    c["onehot_gather_rows"] += n * L_
-                calls("ternary_matmul", n, rows)
+                    gather_calls(n, rows, idx)
+                calls("ternary_matmul" + idx, n, rows)
 
         for rows in passes:
             projections(2, rows, gathered)  # qkv, o
             if rows == 1:
-                calls("ternary_matmul_igathered_idx" if gathered else "ternary_matmul_idx", k_, 1)
-                calls("ternary_matmul_idx", k_, 1)
+                projections(k_, 1, gathered, "_idx")  # the top k experts' gateup
+                calls("ternary_matmul_idx", k_, 1)  # and down
             else:
                 projections(E_, rows, gathered)  # every expert's gateup
                 calls("ternary_matmul", E_, rows)  # and down
@@ -4566,10 +4737,13 @@ def main() -> None:
                  f"max|logit| (> {tol})")
         return worst
 
-    def moe_greedy(label, cfg_, params_, prompt_, new_, impl, want, held=None, tol=TOKEN_TOL):
+    def moe_greedy(label, cfg_, params_, prompt_, new_, impl, want, held=None, tol=TOKEN_TOL,
+                   ref=None):
         """greedy_generate with counts set to 0 just before and read just
         after, held to ``want``; ``held`` names the wrappers whose every call
-        is held against its plain version; the answers held to ``tol``."""
+        is held against its plain version; the answers held to ``tol``
+        against the teacher-forced plain forward of ``ref`` (default
+        ``params_``: the same weights)."""
         for k in per_call:
             per_call[k] = 0
         with swapped(each_call_checked, held) if held else contextlib.nullcontext():
@@ -4587,8 +4761,8 @@ def main() -> None:
         if held and checked != {k: got[k] for k in held if got[k]}:
             fail(f"{label}: {checked} calls held, launches {got}")
         ids = toks.tolist()
-        worst = moe_answers_held(f"{label} answers", cfg_, params_, prompt_.tolist(), ids, tol,
-                                 impl)
+        worst = moe_answers_held(f"{label} answers", cfg_, params_ if ref is None else ref,
+                                 prompt_.tolist(), ids, tol, impl)
         res = {"wall_s": wall, "launches": got, "worst_pick_gap": worst, "calls_held": checked,
                "decode_tok_s": prompt_.shape[0] * (new_ - 1) / wall}
         print(f"{label}: {prompt_.shape[0]} x {prompt_.shape[1]} ids + {new_} new in {wall:.2f} s, "
@@ -4712,6 +4886,102 @@ def main() -> None:
     del params23, want_mlp, again, lp23
     torch.cuda.empty_cache()
 
+    ROUTED_HELD = ("ternary_matmul", "onehot_gather", "onehot_matmul", "ternary_matmul_gathered",
+                   "ternary_matmul_idx", "onehot_gather_idx", "onehot_matmul_idx",
+                   "ternary_matmul_gathered_idx")
+
+    def routed_decode(cfg_d, params_d, pr):
+        """(d) the 2-layer mixtral "ssr" cut under the G4, G5 and P2
+        flags: _moe_mlp at one row under set_sync_debug_mode("error") with
+        the device-index launches of its route; greedy_generate at batch 1
+        (128 ids + 16 new), bf16 and W2A8, launches exact, every K1 / K4 /
+        K5 / K6 call and every device-index call held against its plain
+        version, the answers against the teacher-forced plain forward; G4
+        once more with K4's rows path off (K4s on its first kernel)."""
+        res = {}
+        lp_d = tdec.layer_view(params_d["layers"], 1)
+        g_h = torch.Generator(device=dev).manual_seed(2304)  # its own: later draws unchanged
+        h_d = torch.randn((1, 1, cfg_d.dim), generator=g_h, device=dev).bfloat16()
+        E_d, k_d = cfg_d.n_experts, cfg_d.experts_per_token
+        for fname, flags in ROUTE_FLAGS.items():
+            with route_flags(flags):
+                want_mlp = tdec._moe_mlp(cfg_d, lp_d, h_d, "auto", 1)
+                torch.cuda.synchronize()
+                c0 = counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    again = tdec._moe_mlp(cfg_d, lp_d, h_d, "auto", 1)
+                except RuntimeError as exc:
+                    fail(f"23d _moe_mlp at one row under {fname} synchronised with the host: {exc}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+                full = mixtral_launches(1, [1], gathered=True, flags=flags)
+                attn = mixtral_launches(1, [1], gathered=True, flags=flags, k_=0)
+                want_rose = {k: full[k] - attn[k] for k in full if full[k] != attn[k]}
+                if not torch.equal(again, want_mlp) or rose != want_rose:
+                    fail(f"23d _moe_mlp at one row under {fname}: launches {rose}, want "
+                         f"{want_rose}, or not its own result")
+                print(f"23d _moe_mlp at one row (layer 1) under {fname} and "
+                      f"set_sync_debug_mode('error'): no host synchronisation, launches {rose}")
+                for impl in ("auto", "a8"):
+                    res[f"{fname}_{impl}"], _ = moe_greedy(
+                        f"23d mixtral-8x7b lockstep {impl} under {fname} (2 layers, ssr)", cfg_d,
+                        params_d, pr, 16, impl,
+                        mixtral_launches(2, [128] + [1] * 15, a8=impl == "a8", E_=E_d, k_=k_d,
+                                         gathered=True, flags=flags),
+                        held=ROUTED_HELD, tol=TOKEN_TOL if impl == "auto" else A8_TOLS[1])
+        with route_flags(G4), k4_rows(False):
+            res["G4_k4_first_auto"], _ = moe_greedy(
+                "23d mixtral-8x7b lockstep auto under G4, K4's rows path off (2 layers, ssr)",
+                cfg_d, params_d, pr, 16, "auto",
+                mixtral_launches(2, [128] + [1] * 15, E_=E_d, k_=k_d, gathered=True, flags=G4,
+                                 k4_rows=False), held=ROUTED_HELD)
+        return res
+
+    def ungated_k2_model():
+        """(d) K2's ungated mode on a model's path: opt-1.3b cut to 2
+        layers with its linear biases off and its up stored as the fused
+        MLP's gateup, so that the decoder's fused branch routes its MLP to
+        K2 (as JAX's routes such a layout on the TPU); greedy_generate at
+        batch 1 (32 ids + 16 new: K2's tensor cores at the prefill, its
+        decode path after), batch 16 (4 ids + 8 new: the tensor cores
+        throughout) and batch 1 with both paths off (the CUDA-core K2),
+        launches exact, every K1 and K2 call held, the answers against the
+        teacher-forced plain forward of the same weights with up as up."""
+        cfg_u = get_config("opt-1.3b").with_(n_layers=2, linear_bias=False)
+        params_ref = random_ternary_params(cfg_u, seed=29, perm_mode="down", device=dev)
+        lay = dict(params_ref["layers"])
+        lay["gateup"] = lay.pop("up")
+        params_u = dict(params_ref, layers=lay)
+        L_ = cfg_u.n_layers
+
+        def want(passes, k2_on=True):
+            c = dict(none)
+            for rows in passes:
+                c["ternary_matmul"] += 2 * L_
+                c["ternary_matmul_dec" if rows <= 8 else "ternary_matmul_tc"] += 2 * L_
+                c["ternary_mlp"] += L_
+                c["ternary_mlp_ungated"] += L_
+                if k2_on:
+                    c["ternary_mlp_dec" if rows <= 8 else "ternary_mlp_tc"] += L_
+            return c
+
+        res = {}
+        g_u = torch.Generator(device=dev).manual_seed(229)
+        for key, B_, Lp_, new_, k2_on in (("dec", 1, 32, 16, True), ("tc", 16, 4, 8, True),
+                                          ("cuda_core", 1, 32, 16, False)):
+            pr_u = torch.randint(0, cfg_u.vocab_size, (B_, Lp_), generator=g_u, device=dev)
+            with k2_dec(k2_on), k2_tc(k2_on):
+                res[key], _ = moe_greedy(
+                    f"23d ungated K2: opt-1.3b, 2 layers, no biases, batch {B_}"
+                    + ("" if k2_on else ", K2's decode and tensor-core paths off"), cfg_u,
+                    params_u, pr_u, new_, "auto", want([B_ * Lp_] + [B_] * (new_ - 1), k2_on),
+                    held=("ternary_matmul", "ternary_mlp"), ref=params_ref)
+        del params_ref, params_u, lay
+        torch.cuda.empty_cache()
+        return res
+
     stamp("23d")
     # (d) depth cuts: mixtral at 2 layers "ssr" (K3s), qwen3-30b-a3b at 4 "down"
     for name, layout, n_l, seed in (("mixtral-8x7b", "ssr", 2, 24),
@@ -4736,8 +5006,11 @@ def main() -> None:
                   else ("ternary_matmul", "ternary_matmul_igathered", "onehot_gather")),
             tol=QWEN3_MOE_TOKEN_TOL if name == "qwen3-30b-a3b" else TOKEN_TOL)
         set_k7(True)
+        if name == "mixtral-8x7b":
+            rec23["routed"] = routed_decode(cfg_d, params_d, pr)
         del params_d
         torch.cuda.empty_cache()
+    rec23["ungated_k2"] = ungated_k2_model()
 
     stamp("23e")
     # (e) the quantizer: one mixtral layer at full width, then served
@@ -4902,6 +5175,194 @@ def main() -> None:
                   f"{lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({100 * b_ms / ms:.1f} % "
                   f"of it; graph replays over {S} slots) on {record['smi']}")
         del st23, flat, dense_w
+        torch.cuda.empty_cache()
+
+    def timed(kname, label, B, a8, ms, view_ms, plain_ms, lib_ms, nbytes, ops, lib_name):
+        b_ms = max(nbytes / bw * 1e3, ops / bf16_peak * 1e3)
+        d = {"kernel": kname, "shape": label, "B": B, "a8": a8, "ms": ms, "view_ms": view_ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes, "bound_ms": b_ms,
+             "bound_by": "bytes" if nbytes / bw >= ops / bf16_peak else "operations"}
+        moe_timing.append(d)
+        print(f"23f {kname} {label} B={B}{' W2A8' if a8 else ''}: {ms * 1e3:.2f} us"
+              + ("" if view_ms is None else f" (view route {view_ms * 1e3:.2f} us)")
+              + f" | plain {plain_ms * 1e3:.1f} us | {lib_name} {lib_ms * 1e3:.2f} us | bound "
+              f"{b_ms * 1e3:.2f} us ({100 * b_ms / ms:.1f} % of it; graph replays over > L2) on "
+              f"{record['smi']}")
+
+    # (f) K4s (both kernels) and K5s at mixtral's gateup gather
+    # (4096 features, 4096 lanes, B 1) over perm / planes stacks > L2 (K4s:
+    # one replay walks all 4096 perm slots, 64 MB, each call its own),
+    # beside the view route, the plain version, torch.index_select and the
+    # bytes bound
+    gf23 = torch.Generator(device=dev).manual_seed(2306)
+    glib, grows_lib, mmlib = k4._kernel_lib(), k4._gather_rows_kernel_lib(), k4._mm_kernel_lib()
+    m_g, K_g = 4096, 4096
+    x_g = torch.randn((1, m_g), generator=gf23, device=dev).bfloat16()
+    o_g = torch.empty((1, K_g), dtype=torch.bfloat16, device=dev)
+    S4 = 4096
+    perms4 = torch.argsort(torch.rand((S4, m_g), generator=gf23, device=dev), dim=1).to(torch.int32)
+    sel4 = torch.arange(S4, dtype=torch.int32, device=dev)
+    for kname, idx_fn, view_fn in (
+            ("onehot_gather_rows_idx", grows_lib.pt2_onehot_gather_rows_idx,
+             grows_lib.pt2_onehot_gather_rows),
+            ("onehot_gather_idx", glib.pt2_onehot_gather_idx, glib.pt2_onehot_gather)):
+        def kern(i, view=False, idx_fn=idx_fn, view_fn=view_fn):
+            s_, st_ = i % S4, torch.cuda.current_stream().cuda_stream
+            if view:
+                rc = view_fn(x_g.data_ptr(), perms4[s_].data_ptr(), o_g.data_ptr(), 1, m_g, K_g, 2,
+                             dix23, st_)
+            else:
+                rc = idx_fn(x_g.data_ptr(), perms4.data_ptr(), o_g.data_ptr(), 1, m_g, K_g, 2,
+                            sel4[s_:].data_ptr(), 0, S4, dix23, st_)
+            rc23(rc, kname)
+
+        timed(kname, "mixtral gateup gather", 1, False, graph23_ms(kern, S4, 2),
+              graph23_ms(lambda i: kern(i, view=True), S4, 2),
+              events23_ms(lambda i: k4.onehot_gather_idx_plain(x_g, perms4, sel4[i % S4], 0)),
+              graph23_ms(lambda i: torch.index_select(x_g, 1, perms4[i % S4]), S4, 2),
+              2 * m_g + 4 * K_g + 2 * K_g + 4, 0, "torch.index_select")
+    del perms4, sel4
+    S5 = math.ceil(COLD_BYTES / (m_g // 4 * K_g))
+    perms5 = torch.argsort(torch.rand((S5, m_g), generator=gf23, device=dev), dim=1).to(torch.int32)
+    planes5 = torch.stack([tgather.make_packed_gather(p_, m_g).packed for p_ in perms5])
+    sel5 = torch.arange(S5, dtype=torch.int32, device=dev)
+
+    def kern5(i, view=False):
+        s_, st_ = i % S5, torch.cuda.current_stream().cuda_stream
+        if view:
+            rc = mmlib.pt2_onehot_matmul(x_g.data_ptr(), planes5[s_].data_ptr(), o_g.data_ptr(), 1,
+                                         m_g, m_g // 4, K_g, 2, dix23, st_)
+        else:
+            rc = mmlib.pt2_onehot_matmul_idx(x_g.data_ptr(), planes5.data_ptr(), o_g.data_ptr(), 1,
+                                             m_g, m_g // 4, K_g, 2, sel5[s_:].data_ptr(), 0, S5,
+                                             dix23, st_)
+        rc23(rc, "onehot_matmul_idx")
+
+    timed("onehot_matmul_idx", "mixtral gateup gather", 1, False, graph23_ms(kern5),
+          graph23_ms(lambda i: kern5(i, view=True)),
+          events23_ms(lambda i: k4.onehot_matmul_idx_plain(x_g, planes5, sel5[i % S5], 0)),
+          graph23_ms(lambda i: torch.index_select(x_g, 1, perms5[i % S5])),
+          2 * m_g + m_g // 4 * K_g + 2 * K_g + 4, 2 * K_g, "torch.index_select")
+    del perms5, planes5, sel5
+
+    # (f) K6s at mixtral's gateup with its gather (4096 -> 28672,
+    # B 1): its decode path (bf16) and its CUDA-core kernel (W2A8) over
+    # stacks > L2, beside the view route, the plain version, the dense bf16
+    # expert through torch.matmul on the gathered x, and the bytes bound
+    gdlib, gclib = k1._gathered_dec_kernel_lib(), k1._gathered_kernel_lib()
+    m6, n6 = 4096, 28672
+    slot6 = m6 // 4 * m6 + m6 * n6 // 4 + 4 * (m6 // 128) * n6
+    S6 = max(4, math.ceil(COLD_BYTES / slot6))
+    flat6 = tdec._flatten_expert_stack(random_expert_stack(gf23, 1, S6, n6, m6, "ssr", device=dev))
+    gp6, pk6, al6, mu6 = flat6.gather.packed, flat6.packed, flat6.alpha, flat6.mu
+    K6 = pk6.shape[1] * 4
+    sel6 = torch.arange(S6, dtype=torch.int32, device=dev)
+    x6 = torch.randn((1, m6), generator=gf23, device=dev).bfloat16()
+    xn6, _ = k1.normalize_rows_a8(x6)
+    xg6 = torch.empty((1, K6), dtype=torch.bfloat16, device=dev)
+    splits6 = k1.dec_splits(K6, n6, 128, k1.dec_wave(dev))
+    part6 = torch.empty((max(splits6, K6 // 128), 1, n6), dtype=torch.float32, device=dev)
+    out6 = torch.empty((1, n6), dtype=torch.float32, device=dev)
+    dense6 = torch.randn((K6, n6), generator=gf23, device=dev).bfloat16()
+    for a8 in (False, True):
+        xa = xn6 if a8 else x6
+        kname = "ternary_matmul_gathered_idx" + ("" if a8 else "_dec")
+
+        def kern6(i, view=False, xa=xa, a8=a8):
+            s_, st_ = i % S6, torch.cuda.current_stream().cuda_stream
+            w = ((gp6[s_], pk6[s_], al6[s_], mu6[s_]) if view else (gp6, pk6, al6, mu6))
+            w = tuple(t.data_ptr() for t in w)
+            tail = (1, m6, m6 // 4, K6, n6)
+            if not a8:
+                head = (xa.data_ptr(), *w, xg6.data_ptr(), part6.data_ptr(), out6.data_ptr(),
+                        cnt23.data_ptr())
+                rc = (gdlib.pt2_ternary_matmul_gathered_dec(*head, *tail, splits6, 0, dix23, st_)
+                      if view else gdlib.pt2_ternary_matmul_gathered_dec_idx(
+                          *head, sel6[s_:].data_ptr(), 0, S6, *tail, splits6, 0, dix23, st_))
+            else:
+                head = (xa.data_ptr(), *w, part6.data_ptr(), out6.data_ptr())
+                rc = (gclib.pt2_ternary_matmul_gathered(*head, *tail, 1, dix23, st_) if view
+                      else gclib.pt2_ternary_matmul_gathered_idx(
+                          *head, sel6[s_:].data_ptr(), 0, S6, *tail, 1, dix23, st_))
+            rc23(rc, kname)
+
+        nbytes6 = slot6 + 2 * m6 + 4 * n6 + 4
+        timed(kname, "mixtral gateup ssr", 1, a8, graph23_ms(kern6),
+              graph23_ms(lambda i: kern6(i, view=True)),
+              events23_ms(lambda i: k1.ternary_matmul_gathered_idx_plain(
+                  x6, gp6, pk6, al6, mu6, sel6[i % S6], 0, a8=a8)),
+              graph23_ms(lambda i: torch.matmul(xg6, dense6), calls=24), nbytes6, 2 * K6 * n6,
+              "torch.matmul dense bf16 on gathered x")
+    if cnt23.any():
+        fail("23f K6s's decode path left a counter set")
+    del flat6, gp6, pk6, al6, mu6, dense6, part6
+    torch.cuda.empty_cache()
+
+    # (f) K2's ungated mode at opt-1.3b's MLP (relu) and bloom-560m's
+    # (gelu), "down" layout (the identity perm): the decode path at B 1,
+    # the tensor-core path at B 16, the CUDA-core kernel at B 1, over
+    # copies > L2, beside the plain version, the two dense bf16
+    # torch.matmul with the activation (a yardstick) and the bytes bound
+    udlib, utlib, uclib = k1._mlp_dec_kernel_lib(), k1._mlp_tc_kernel_lib(), k1._mlp_kernel_lib()
+    dwave, twave = k1.dec_wave(dev), k1.igtc_wave(dev)
+    for label, (D, I, n), act in (("opt-1.3b", (2048, 8192, 2048), 2),
+                                  ("bloom-560m", (1024, 4096, 1024), 1)):
+        act_name = k1.MLP_ACTS[act]
+        wbytes = D * I // 4 + 4 * (D // 128) * I + I * n // 4 + 4 * (I // 128) * n
+        copies = max(1, math.ceil(COLD_BYTES / wbytes))
+        ulayers = [rand_layer(D, I, gen=gf23) + rand_layer(I, n, gen=gf23) for _ in range(copies)]
+        ident = k1._identity_perm(D, dev)
+        w_up = torch.randn((D, I), generator=gf23, device=dev).bfloat16()
+        w_dn = torch.randn((I, n), generator=gf23, device=dev).bfloat16()
+        for kname, B in (("ternary_mlp_dec_ungated", 1), ("ternary_mlp_tc_ungated", 16),
+                         ("ternary_mlp_ungated", 1)):
+            x = torch.randn((B, D), generator=gf23, device=dev).bfloat16()
+            out = torch.empty((B, n), dtype=torch.float32, device=dev)
+            Bp = k1.igtc_rows_pad(B) if kname == "ternary_mlp_tc_ungated" else B
+            if kname == "ternary_mlp_dec_ungated":
+                gs, ds = k1.dec_splits(D, I, 128, dwave), k1.dec_splits(I, n, 128, dwave)
+            else:
+                gs, ds = k1.igtc_splits(D, I, 128, twave), k1.igtc_splits(I, n, 128, twave)
+            f32 = dict(dtype=torch.float32, device=dev)
+            gpart = torch.empty((gs, Bp, I), **f32)
+            dpart = torch.empty((max(ds, I // 128), B, n), **f32)
+            mid = torch.empty((Bp, I), dtype=torch.bfloat16, device=dev)
+            xg = torch.empty((Bp, D), dtype=torch.bfloat16, device=dev)
+            sums = torch.empty((D // 128, Bp), **f32)
+            msums = torch.empty((I // 64 + I // 128, Bp), **f32)
+
+            def kern2(i, kname=kname, B=B, x=x, out=out, gs=gs, ds=ds, gpart=gpart, dpart=dpart,
+                      mid=mid, xg=xg, sums=sums, msums=msums):
+                w = tuple(t.data_ptr() for t in ulayers[i % copies])
+                st_ = torch.cuda.current_stream().cuda_stream
+                if kname == "ternary_mlp_dec_ungated":
+                    rc = udlib.pt2_ternary_mlp_dec_ungated(
+                        x.data_ptr(), ident.data_ptr(), *w, gpart.data_ptr(), dpart.data_ptr(),
+                        mid.data_ptr(), out.data_ptr(), cnt23.data_ptr(), B, D, D, I, n, gs, ds,
+                        act, dix23, st_)
+                elif kname == "ternary_mlp_tc_ungated":
+                    rc = utlib.pt2_ternary_mlp_tc_ungated(
+                        x.data_ptr(), ident.data_ptr(), *w, xg.data_ptr(), sums.data_ptr(),
+                        gpart.data_ptr(), mid.data_ptr(), msums.data_ptr(), dpart.data_ptr(),
+                        out.data_ptr(), cnt23.data_ptr(), B, D, D, I, n, gs, ds, act, dix23,
+                        st_)
+                else:
+                    rc = uclib.pt2_ternary_mlp(
+                        x.data_ptr(), None, *w, dpart.data_ptr(), out.data_ptr(), B, D, D, I, I,
+                        I, n, act, dix23, st_)
+                rc23(rc, kname)
+
+            def library(i, x=x):
+                return torch.matmul(k1.mlp_activation(act_name, torch.matmul(x, w_up)), w_dn)
+
+            timed(kname, label, B, False, graph23_ms(kern2), None,
+                  events23_ms(lambda i, x=x: k1.ternary_mlp_plain(x, None, *ulayers[i % copies], I,
+                                                                  act=act_name)),
+                  graph23_ms(library, calls=24), wbytes + 2 * B * D + 4 * B * n,
+                  2 * B * (D * I + I * n), "two dense torch.matmul with the activation")
+        if cnt23.any():
+            fail("23f K2's ungated paths left a counter set")
+        del ulayers, w_up, w_dn
         torch.cuda.empty_cache()
     rec23["timing"] = moe_timing
     record["moe"] = rec23
@@ -6103,13 +6564,24 @@ def main() -> None:
         }
 
     b1 = lambda rows: [d for d in rows if d["B"] == 1]  # noqa: E731
+    # K2's ungated launches (23d's opt-1.3b runs) by path, kept apart
+    # from the gated MLP's
+    ung = record["moe"]["ungated_k2"]
+    ung_launches = {"ternary_mlp_dec_ungated": sum(r["launches"]["ternary_mlp_dec"]
+                                                   for r in ung.values()),
+                    "ternary_mlp_tc_ungated": sum(r["launches"]["ternary_mlp_tc"]
+                                                  for r in ung.values()),
+                    "ternary_mlp_ungated": ung["cuda_core"]["launches"]["ternary_mlp"]}
+    if sum(ung_launches.values()) != run_totals["ternary_mlp_ungated"]:
+        fail(f"K2's ungated launches {ung_launches} are not all of "
+             f"{run_totals['ternary_mlp_ungated']}")
     # the CUDA-core K2's launches, silu and GeGLU: the 32- and 18-layer runs'
     # K2 launches on neither its decode nor its tensor-core path (since
     # K2's decode rows took the decode path, only 16b's "off" turns)
     main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"] - sum(gelu_paths.values())
     main_launches["ternary_mlp"] = run_totals["ternary_mlp"] - sum(
         run_totals[k] for k in ("ternary_mlp_tc", "ternary_mlp_dec")) - main_launches[
-        "ternary_mlp_gelu"]
+        "ternary_mlp_gelu"] - ung_launches["ternary_mlp_ungated"]
     main_launches["ternary_matmul_dec"] = run_totals["ternary_matmul_dec"]
     main_launches["ternary_matmul"] = run_totals["ternary_matmul"] - sum(
         run_totals[k] for k in ("ternary_matmul_tc", "ternary_matmul_tc_a8", "ternary_matmul_dec"))
@@ -6191,7 +6663,8 @@ def main() -> None:
     # K2's tensor-core path at 16 rows (the engine's smallest admission
     # bucket), llama-3-8b's MLP with its gather; its launches: every engine
     # run counted exactly (GeGLU ones included)
-    main_launches["ternary_mlp_tc"] = run_totals["ternary_mlp_tc"]
+    main_launches["ternary_mlp_tc"] = (run_totals["ternary_mlp_tc"]
+                                       - ung_launches["ternary_mlp_tc_ungated"])
     kernels.append(entry("ternary_mlp_tc", "pt2tpu_torch/csrc/ternary_mlp_tc.cu",
                          "pt2tpu/ops/kernels/pallas_ternary.py:1106",
                          [d for d in k2tc_detail if d["B"] == 16 and d["shape"] == "llama-3-8b"],
@@ -6199,7 +6672,8 @@ def main() -> None:
     # K2's decode path at B = 1, llama-3-8b's MLP with its gather; its
     # launches: every 32- and 18-layer run counted exactly (GeGLU ones
     # included)
-    main_launches["ternary_mlp_dec"] = run_totals["ternary_mlp_dec"]
+    main_launches["ternary_mlp_dec"] = (run_totals["ternary_mlp_dec"]
+                                        - ung_launches["ternary_mlp_dec_ungated"])
     kernels.append(entry("ternary_mlp_dec", "pt2tpu_torch/csrc/ternary_mlp_dec.cu",
                          "pt2tpu/ops/kernels/pallas_ternary.py:1106",
                          [d for d in k2dec_detail if d["B"] == 1 and d["shape"] == "llama-3-8b"],
@@ -6243,6 +6717,45 @@ def main() -> None:
             kernels.append(entry(kname, source, replaces,
                                  [d for d in record["moe"]["timing"] if d["kernel"] == kname],
                                  record["moe"]["per_call"]["max_rel_err"][name]))
+    # K4s (its rows path and its first kernel) and K5s at mixtral's gateup
+    # gather, K6s's decode path (bf16) and CUDA-core kernel (W2A8) at its
+    # gateup, B 1; their launches: 23d's routed decode runs under
+    # G4 / G5 / P2 (K4s's first kernel: the run with K4's rows path off),
+    # counted exactly
+    main_launches["onehot_gather_rows_idx"] = run_totals["onehot_gather_idx_rows"]
+    main_launches["onehot_gather_idx"] = (run_totals["onehot_gather_idx"]
+                                          - run_totals["onehot_gather_idx_rows"])
+    main_launches["onehot_matmul_idx"] = run_totals["onehot_matmul_idx"]
+    main_launches["ternary_matmul_gathered_idx_dec"] = run_totals["ternary_matmul_gathered_idx_dec"]
+    main_launches["ternary_matmul_gathered_idx"] = (
+        run_totals["ternary_matmul_gathered_idx"] - run_totals["ternary_matmul_gathered_idx_dec"])
+    gerr = record["moe"]["per_call_gather"]["max_rel_err"]
+    for kname, source, replaces, err in (
+            ("onehot_gather_rows_idx", "onehot_gather_rows.cu", "pallas_gather.py:274",
+             gerr["onehot_gather_idx"]),
+            ("onehot_gather_idx", "onehot_gather.cu", "pallas_gather.py:274",
+             gerr["onehot_gather_idx"]),
+            ("onehot_matmul_idx", "onehot_matmul.cu", "pallas_gather.py:330",
+             gerr["onehot_matmul_idx"]),
+            ("ternary_matmul_gathered_idx_dec", "ternary_matmul_gathered_dec.cu",
+             "pallas_ternary.py:534", gerr["ternary_matmul_gathered_idx"]),
+            ("ternary_matmul_gathered_idx", "ternary_matmul_gathered.cu", "pallas_ternary.py:534",
+             gerr["ternary_matmul_gathered_idx"])):
+        kernels.append(entry(kname, f"pt2tpu_torch/csrc/{source}",
+                             f"pt2tpu/ops/kernels/{replaces}",
+                             [d for d in record["moe"]["timing"] if d["kernel"] == kname], err))
+    # K2's ungated mode at opt-1.3b's MLP: its decode path at B 1, its
+    # tensor-core path at B 16, its CUDA-core kernel at B 1; their
+    # launches: 23d's ungated opt-1.3b runs, counted exactly
+    main_launches.update(ung_launches)
+    for kname, source in (("ternary_mlp_dec_ungated", "ternary_mlp_dec.cu"),
+                          ("ternary_mlp_tc_ungated", "ternary_mlp_tc.cu"),
+                          ("ternary_mlp_ungated", "ternary_mlp.cu")):
+        kernels.append(entry(kname, f"pt2tpu_torch/csrc/{source}",
+                             "pt2tpu/ops/kernels/pallas_ternary.py:1106",
+                             [d for d in record["moe"]["timing"]
+                              if d["kernel"] == kname and d["shape"] == "opt-1.3b"],
+                             record["moe"]["per_call_ungated"]["max_rel_err"]))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every run counted exactly: {run_totals}")

@@ -2,8 +2,10 @@
 // K4_ROWS_MIN_ROWS (ops/kernels/gather.py:k4_path; fewer rows, rows of x
 // wider than 64 KB and K % 8 != 0 stay on csrc/onehot_gather.cu). Together
 // they replace pt2tpu/ops/kernels/pallas_gather.py:onehot_iota_pallas and
-// onehot_iota_pallas_stacked (the stacked variant is the caller's zero-copy
-// view perm[li]).
+// onehot_iota_pallas_stacked (the stacked variant at a host index is the
+// caller's zero-copy view perm[li]; with a traced index, K4s, it is the IDX
+// instance, C entry pt2_onehot_gather_rows_idx: perm the whole (S, K) stack,
+// each CTA reading its slot base + *sel from device memory).
 //
 // Contract (K4's): out[b, k] = x[b, perm[k]] where 0 <= perm[k] < m, else
 // +0 (pad lanes point at index m). x is (rows, m), out (rows, K), both in
@@ -67,17 +69,31 @@ __device__ __forceinline__ void store8(uint32_t* p, const uint32_t (&v)[PER_THRE
 }
 
 // Grid (chunk CTAs, stages); dynamic shared memory: the stage, R rows of m
-// elements. T is uint16_t (bf16) or uint32_t (f32): bits only.
-template <typename T, int R>
+// elements. T is uint16_t (bf16) or uint32_t (f32): bits only. With IDX,
+// perm is a stack of S slots of K lanes (each slot 16-byte aligned: K % 8
+// == 0) and thread 0 of the CTA reads slot base + *sel (a slot outside
+// [0, S) traps), so a routed expert's index never goes to the host.
+template <typename T, int R, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 gather_rows_kernel(const T* __restrict__ x,       // (rows, m)
-                   const int* __restrict__ perm,  // (K,)
+                   const int* __restrict__ perm,  // (K,), (S, K) if IDX
                    T* __restrict__ out,           // (rows, K)
-                   int rows, int m, int K) {
+                   int rows, int m, int K,
+                   const int* __restrict__ sel, int base, int S) {  // if IDX
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar[R];  // one per staged row
   T* xs = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x;
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (tid == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    perm += (size_t)slot_s * K;
+  }
   const int row0 = blockIdx.y * R;
   const int nr = min(R, rows - row0);
   const T* src = x + (size_t)row0 * m;
@@ -178,33 +194,41 @@ inline Plan default_plan(int rows, int m, int elem_bytes, int K) {
   return Plan{R, gx};
 }
 
-template <typename T, int R>
+// The slot of an IDX launch: the pointer to its int32 index, the host
+// offset and the stack's slot count (unused otherwise).
+struct Slot {
+  const int* sel;
+  int base, S;
+};
+
+template <typename T, int R, bool IDX>
 int launch(const void* x, const void* perm, void* out, int rows, int m, int K, int gx,
-           int device, cudaStream_t s) {
+           int device, cudaStream_t s, const Slot& slot) {
   // a 64 KB stage is above the default 48 KB: raised once per device
   static bool raised[64] = {};
   if (device < 0 || device >= 64 || !raised[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gather_rows_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_BYTES);
+        gather_rows_kernel<T, R, IDX>, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_BYTES);
     if (e != cudaSuccess) return (int)e;
     if (device >= 0 && device < 64) raised[device] = true;
   }
   const size_t smem = ((size_t)R * m * sizeof(T) + 15) / 16 * 16;
-  gather_rows_kernel<T, R><<<dim3(gx, (rows + R - 1) / R), THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const int*>(perm), static_cast<T*>(out), rows, m, K);
+  gather_rows_kernel<T, R, IDX><<<dim3(gx, (rows + R - 1) / R), THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const int*>(perm), static_cast<T*>(out), rows, m, K,
+      slot.sel, slot.base, slot.S);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool IDX>
 int dispatch(const void* x, const void* perm, void* out, int rows, int m, int K, const Plan& p,
-             int device, cudaStream_t s) {
+             int device, cudaStream_t s, const Slot& slot) {
   switch (p.R) {
     case 4:
-      return launch<T, 4>(x, perm, out, rows, m, K, p.gx, device, s);
+      return launch<T, 4, IDX>(x, perm, out, rows, m, K, p.gx, device, s, slot);
     case 2:
-      return launch<T, 2>(x, perm, out, rows, m, K, p.gx, device, s);
+      return launch<T, 2, IDX>(x, perm, out, rows, m, K, p.gx, device, s, slot);
     default:
-      return launch<T, 1>(x, perm, out, rows, m, K, p.gx, device, s);
+      return launch<T, 1, IDX>(x, perm, out, rows, m, K, p.gx, device, s, slot);
   }
 }
 
@@ -226,14 +250,19 @@ inline int check(const void* x, const void* perm, const void* out, int rows, int
   return 0;
 }
 
+template <bool IDX = false>
 inline int run(const void* x, const void* perm, void* out, int rows, int m, int K,
-               int elem_bytes, const Plan& p, int device, void* stream) {
+               int elem_bytes, const Plan& p, int device, void* stream,
+               const Slot& slot = Slot{nullptr, 0, 0}) {
   int rc = check(x, perm, out, rows, m, K, elem_bytes, p);
+  if (rc == 0 && IDX &&
+      (slot.sel == nullptr || reinterpret_cast<uintptr_t>(slot.sel) % 4 != 0 || slot.S < 1))
+    rc = (int)cudaErrorInvalidValue;
   if (rc == 0) rc = use_device(device);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return elem_bytes == 2 ? dispatch<uint16_t>(x, perm, out, rows, m, K, p, device, s)
-                         : dispatch<uint32_t>(x, perm, out, rows, m, K, p, device, s);
+  return elem_bytes == 2 ? dispatch<uint16_t, IDX>(x, perm, out, rows, m, K, p, device, s, slot)
+                         : dispatch<uint32_t, IDX>(x, perm, out, rows, m, K, p, device, s, slot);
 }
 
 }  // namespace gather_rows
@@ -262,4 +291,20 @@ extern "C" int pt2_onehot_gather_rows_plan(const void* x, const void* perm, void
                                            int device, void* stream) {
   return gather_rows::run(x, perm, out, rows, m, K, elem_bytes, gather_rows::Plan{R, gx}, device,
                           stream);
+}
+
+// pt2_onehot_gather_rows_idx: K4s on the rows path, the launch of
+// pt2_onehot_gather_rows with perm the whole contiguous (S, K) stack and the
+// slot base + *sel read by each CTA from device memory (sel: one int32 on
+// the card, 4-byte aligned; base: a host offset). A slot outside [0, S)
+// traps.
+extern "C" int pt2_onehot_gather_rows_idx(const void* x, const void* perm, void* out, int rows,
+                                          int m, int K, int elem_bytes, const void* sel,
+                                          int base, int S, int device, void* stream) {
+  if (rows < 1 || m < 1 || (elem_bytes != 2 && elem_bytes != 4) ||
+      (long)m * elem_bytes > gather_rows::TILE_BYTES)
+    return (int)cudaErrorInvalidValue;
+  return gather_rows::run<true>(x, perm, out, rows, m, K, elem_bytes,
+                                gather_rows::default_plan(rows, m, elem_bytes, K), device, stream,
+                                gather_rows::Slot{static_cast<const int*>(sel), base, S});
 }

@@ -1,8 +1,13 @@
 // Packed one-hot gather for Hopper (sm_90a): kernel K5 of the port.
 //
 // Replaces pt2tpu/ops/kernels/pallas_gather.py:onehot_matmul_pallas and
-// onehot_matmul_pallas_stacked (the stacked variant collapses into this one:
-// the caller passes the zero-copy view packed[li]).
+// onehot_matmul_pallas_stacked (the stacked variant at a host index
+// collapses into this one: the caller passes the zero-copy view packed[li]).
+// K5s, the stacked variant with a traced index (a routed expert's gather),
+// is the IDX instance, C entry pt2_onehot_matmul_idx: G is the whole
+// (S, D/4, K) stack and each block reads its slot, base + *sel, from device
+// memory. Rows from 16 run csrc/onehot_matmul_rows.cu, which takes no
+// device index.
 //
 // Contract: out[b, k] = sum_i x[b, i] * u[i, k], where u is the raw 2-bit
 // field of G (the stored code + 1; {0, 1} and one-hot per column for a
@@ -52,17 +57,31 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-template <typename T, int TB>
+// With IDX, g is a stack of S slots of D4 x K bytes and thread 0 of the
+// block reads slot base + *sel (a slot outside [0, S) traps), so a routed
+// expert's index never goes to the host.
+template <typename T, int TB, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 onehot_matmul_kernel(const T* __restrict__ x,          // (rows, m)
-                     const uint8_t* __restrict__ g,    // (D4, K)
+                     const uint8_t* __restrict__ g,    // (D4, K), (S, D4, K) if IDX
                      T* __restrict__ out,              // (rows, K)
-                     int rows, int m, int D4, int K) {
+                     int rows, int m, int D4, int K,
+                     const int* __restrict__ sel, int base, int S) {  // if IDX
   __shared__ float red[WARPS][TB][TN];
   __shared__ int ent_i[TN][E];
   __shared__ float ent_u[TN][E];
   __shared__ int ent_n[TN];
   const int tid = threadIdx.x;
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (tid == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    g += (size_t)slot_s * D4 * K;
+  }
   const int tx = tid % TX;
   const int ty = tid / TX;
   const int warp = tid / 32;
@@ -194,38 +213,35 @@ onehot_matmul_kernel(const T* __restrict__ x,          // (rows, m)
   }
 }
 
-template <typename T, int TB>
+template <typename T, int TB, bool IDX>
 void launch(const void* x, const void* g, void* out, int rows, int m, int D4, int K,
-            cudaStream_t s) {
+            cudaStream_t s, const int* sel, int base, int S) {
   dim3 grid(K / TN, (rows + BLOCK_ROWS - 1) / BLOCK_ROWS);
-  onehot_matmul_kernel<T, TB><<<grid, THREADS, 0, s>>>(
+  onehot_matmul_kernel<T, TB, IDX><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(g), static_cast<T*>(out),
-      rows, m, D4, K);
+      rows, m, D4, K, sel, base, S);
 }
 
-template <typename T>
+template <typename T, bool IDX>
 void dispatch(const void* x, const void* g, void* out, int rows, int m, int D4, int K,
-              cudaStream_t s) {
+              cudaStream_t s, const int* sel, int base, int S) {
   if (rows == 1)
-    launch<T, 1>(x, g, out, rows, m, D4, K, s);
+    launch<T, 1, IDX>(x, g, out, rows, m, D4, K, s, sel, base, S);
   else if (rows == 2)
-    launch<T, 2>(x, g, out, rows, m, D4, K, s);
+    launch<T, 2, IDX>(x, g, out, rows, m, D4, K, s, sel, base, S);
   else if (rows <= 4)
-    launch<T, 4>(x, g, out, rows, m, D4, K, s);
+    launch<T, 4, IDX>(x, g, out, rows, m, D4, K, s, sel, base, S);
   else
-    launch<T, 8>(x, g, out, rows, m, D4, K, s);
+    launch<T, 8, IDX>(x, g, out, rows, m, D4, K, s, sel, base, S);
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/gather.py).
-// x is (rows, m), g is (D4, K) int8, out is (rows, K); elem_bytes is 2 (bf16)
-// or 4 (f32). Returns cudaGetLastError() after the launch; 0 means launched.
-extern "C" int pt2_onehot_matmul(const void* x, const void* g, void* out, int rows,
-                                 int m, int D4, int K, int elem_bytes, int device,
-                                 void* stream) {
+template <bool IDX>
+int run(const void* x, const void* g, void* out, int rows, int m, int D4, int K, int elem_bytes,
+        int device, void* stream, const void* sel, int base, int S) {
   if (rows < 1 || m < 1 || D4 < 32 || D4 % 32 != 0 || m > 4 * D4 || K < TN ||
       K % 128 != 0 || (elem_bytes != 2 && elem_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  if (IDX && (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1))
     return (int)cudaErrorInvalidValue;
   // This library links its own CUDA runtime: follow the caller's device.
   int cur = -1;
@@ -234,9 +250,31 @@ extern "C" int pt2_onehot_matmul(const void* x, const void* g, void* out, int ro
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(sel);
   if (elem_bytes == 2)
-    dispatch<__nv_bfloat16>(x, g, out, rows, m, D4, K, s);
+    dispatch<__nv_bfloat16, IDX>(x, g, out, rows, m, D4, K, s, ip, base, S);
   else
-    dispatch<float>(x, g, out, rows, m, D4, K, s);
+    dispatch<float, IDX>(x, g, out, rows, m, D4, K, s, ip, base, S);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/gather.py).
+// x is (rows, m), g is (D4, K) int8, out is (rows, K); elem_bytes is 2 (bf16)
+// or 4 (f32). Returns cudaGetLastError() after the launch; 0 means launched.
+extern "C" int pt2_onehot_matmul(const void* x, const void* g, void* out, int rows,
+                                 int m, int D4, int K, int elem_bytes, int device,
+                                 void* stream) {
+  return run<false>(x, g, out, rows, m, D4, K, elem_bytes, device, stream, nullptr, 0, 0);
+}
+
+// K5s: as pt2_onehot_matmul with g the whole contiguous (S, D4, K) stack and
+// the slot base + *sel read by each block from device memory (sel: one
+// int32 on the card, 4-byte aligned; base: a host offset). A slot outside
+// [0, S) traps.
+extern "C" int pt2_onehot_matmul_idx(const void* x, const void* g, void* out, int rows, int m,
+                                     int D4, int K, int elem_bytes, const void* sel, int base,
+                                     int S, int device, void* stream) {
+  return run<true>(x, g, out, rows, m, D4, K, elem_bytes, device, stream, sel, base, S);
 }

@@ -61,6 +61,12 @@
 // order. No atomics: the same bits on every run. Lane order runs in the
 // same clusters and writes its strip's lanes directly.
 //
+// K6s (the _stacked variant with a traced index: a routed expert's
+// projection) gathers through the IDX instance: g is the whole (S, D/4, K)
+// stack and thread 0 of each CTA reads the slot, base + *sel, from device
+// memory (outside [0, S) it traps); the GEMV that follows reads the same
+// int32 for its weights (csrc/ternary_matmul_gathered_dec.cu).
+//
 // Everything here lives in namespace planes_gather, so that it does not
 // clash with the constants and helpers of the sources that include it.
 
@@ -183,20 +189,32 @@ __device__ __forceinline__ void strip_fields(const uint8_t* __restrict__ g, int 
 }
 
 // Grid (K / 32): CTA c owns lanes 32c .. 32c + 31, the quarter c % 4 of
-// scale block c / 4, whose four CTAs form a cluster.
-template <bool FRAG, bool A8>
+// scale block c / 4, whose four CTAs form a cluster. With IDX, g is a stack
+// of S slots of D4 x K bytes and the CTA gathers through slot base + *sel.
+template <bool FRAG, bool A8, bool IDX = false>
 __global__ void __cluster_dims__(QUARTERS, 1, 1) __launch_bounds__(THREADS)
 planes_gather_kernel(const __nv_bfloat16* __restrict__ x,  // (B, m)
-                     const uint8_t* __restrict__ g,        // (D4, K)
+                     const uint8_t* __restrict__ g,        // (D4, K), (S, D4, K) if IDX
                      __nv_bfloat16* __restrict__ xg,       // (B, K) lanes / (Bp, K) fragments
                      float* __restrict__ sums,             // (K / 128, Bp) if FRAG
-                     int B, int Bp, int m, int D4, int K) {
+                     int B, int Bp, int m, int D4, int K,
+                     const int* __restrict__ sel, int base, int S) {  // if IDX
   __shared__ int ent_i[E][LANES];
   __shared__ float ent_u[E][LANES];
   __shared__ int ent_n[LANES];
   __shared__ __align__(16) unsigned short vals[FRAG ? MAX_ROWS : 1][LANES];  // bf16 bits
   __shared__ float qsum[FRAG ? MAX_ROWS : 1];
   const int tid = threadIdx.x;
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (tid == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    g += (size_t)slot_s * D4 * K;
+  }
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int k0 = blockIdx.x * LANES;
@@ -291,16 +309,37 @@ inline int launch_gather(const void* x, const void* g, void* xg, void* sums, int
   float* sp = static_cast<float*>(sums);
   if (frag) {
     if (a8)
-      planes_gather_kernel<true, true><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K);
+      planes_gather_kernel<true, true><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K,
+                                                                nullptr, 0, 0);
     else
-      planes_gather_kernel<true, false><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K);
+      planes_gather_kernel<true, false><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K,
+                                                                 nullptr, 0, 0);
   } else {
     if (a8)
-      planes_gather_kernel<false, true><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K);
+      planes_gather_kernel<false, true><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4, K,
+                                                                 nullptr, 0, 0);
     else
       planes_gather_kernel<false, false><<<grid, THREADS, 0, s>>>(xp, gp, op, sp, B, Bp, m, D4,
-                                                                   K);
+                                                                  K, nullptr, 0, 0);
   }
+  return (int)cudaGetLastError();
+}
+
+// The IDX launch in lane order (K6s's decode rows): g the whole stack,
+// the slot base + *sel (sel 4-byte aligned, S >= 1: the caller checks).
+inline int launch_gather_idx(const void* x, const void* g, void* xg, int B, int m, int D4, int K,
+                             bool a8, const void* sel, int base, int S, cudaStream_t s) {
+  const dim3 grid(K / LANES);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* gp = static_cast<const uint8_t*>(g);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(xg);
+  const int* ip = static_cast<const int*>(sel);
+  if (a8)
+    planes_gather_kernel<false, true, true><<<grid, THREADS, 0, s>>>(xp, gp, op, nullptr, B, B, m,
+                                                                     D4, K, ip, base, S);
+  else
+    planes_gather_kernel<false, false, true><<<grid, THREADS, 0, s>>>(xp, gp, op, nullptr, B, B,
+                                                                      m, D4, K, ip, base, S);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,13 @@
 // kernel K6 of the port.
 //
 // Replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas_gathered
-// and ternary_matmul_pallas_gathered_stacked (the stacked variant collapses
-// into this one: the caller passes the zero-copy views gpacked[li],
-// packed[li], alpha[li], mu[li]).
+// and ternary_matmul_pallas_gathered_stacked (the stacked variant at a host
+// index collapses into this one: the caller passes the zero-copy views
+// gpacked[li], packed[li], alpha[li], mu[li]). K6s, the stacked variant with
+// a traced index, takes this kernel where its decode rows are not on the
+// tensor cores (W2A8 while K1_DEC_A8 is off): the IDX instances, C entry
+// pt2_ternary_matmul_gathered_idx, read the slot base + *sel of the whole
+// stacks from device memory.
 //
 // Contract: out = (x @ G) @ W, W = alpha*(u-1) + mu, for x (B, m) bf16 in
 // feature order (1 <= B <= 64), G (D/4, K) int8 packed one-hot planes (K5's
@@ -61,7 +65,10 @@ size_t smem_bytes(int B) {
   return sizeof(float) * ((size_t)Bp * CH + (size_t)WARPS * TB * CH + Bp);
 }
 
-template <int TB, bool A8>
+// With IDX, g, packed, alpha and mu are stacks of S slots and thread 0 of
+// the block reads slot base + *sel (a slot outside [0, S) traps), so a
+// routed expert's index never goes to the host.
+template <int TB, bool A8, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 gathered_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                 const uint8_t* __restrict__ g,            // (D4, K)
@@ -69,8 +76,23 @@ gathered_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                 const __nv_bfloat16* __restrict__ alpha,  // (K/128, n)
                 const __nv_bfloat16* __restrict__ mu,     // (K/128, n)
                 float* __restrict__ partial,              // (K/128, B, n)
-                int B, int m, int D4, int K, int n, int tiles_per_group) {
+                int B, int m, int D4, int K, int n, int tiles_per_group,
+                const int* __restrict__ sel, int base, int S) {  // if IDX
   extern __shared__ float smem[];
+  if constexpr (IDX) {
+    __shared__ int slot_s;
+    if (threadIdx.x == 0) {
+      const int s = base + *sel;
+      if (s < 0 || s >= S) __trap();
+      slot_s = s;
+    }
+    __syncthreads();
+    const size_t slot = (size_t)slot_s;
+    g += slot * D4 * K;
+    packed += slot * (size_t)(K / 4) * n;
+    alpha += slot * (size_t)(K / CH) * n;
+    mu += slot * (size_t)(K / CH) * n;
+  }
   const int Bp = (B + TB - 1) / TB * TB;
   float* xg = smem;                     // [Bp][CH]
   float* red = xg + Bp * CH;            // [WARPS][TB][CH]
@@ -226,48 +248,53 @@ chunk_sum_kernel(const float4* __restrict__ partial, float4* __restrict__ out, i
   out[i] = s;
 }
 
-template <int TB, bool A8>
+// The slot of an IDX launch: the pointer to its int32 index, the host
+// offset and the stacks' slot count (unused otherwise).
+struct Slot {
+  const int* sel;
+  int base, S;
+};
+
+template <int TB, bool A8, bool IDX>
 cudaError_t launch(const void* x, const void* g, const void* packed, const void* alpha,
                    const void* mu, void* partial, int B, int m, int D4, int K, int n,
-                   dim3 grid, int tiles_per_group, cudaStream_t s) {
+                   dim3 grid, int tiles_per_group, cudaStream_t s, const Slot& slot) {
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per instantiation
   const size_t bytes = smem_bytes<TB>(B);
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(gathered_kernel<TB, A8>,
+    const cudaError_t e = cudaFuncSetAttribute(gathered_kernel<TB, A8, IDX>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem_bytes<TB>(MAX_B));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  gathered_kernel<TB, A8><<<grid, THREADS, bytes, s>>>(
+  gathered_kernel<TB, A8, IDX><<<grid, THREADS, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(g),
       static_cast<const int8_t*>(packed), static_cast<const __nv_bfloat16*>(alpha),
       static_cast<const __nv_bfloat16*>(mu), static_cast<float*>(partial), B, m, D4, K, n,
-      tiles_per_group);
+      tiles_per_group, slot.sel, slot.base, slot.S);
   return cudaGetLastError();
 }
 
-template <int TB>
+template <int TB, bool IDX>
 cudaError_t launch_mode(bool a8, const void* x, const void* g, const void* packed,
                         const void* alpha, const void* mu, void* partial, int B, int m, int D4,
-                        int K, int n, dim3 grid, int tpg, cudaStream_t s) {
-  return a8 ? launch<TB, true>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s)
-            : launch<TB, false>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s);
+                        int K, int n, dim3 grid, int tpg, cudaStream_t s, const Slot& sl) {
+  return a8 ? launch<TB, true, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
+                                    s, sl)
+            : launch<TB, false, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
+                                     s, sl);
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-// x (B, m) bf16, g (D4, K) int8, packed (K/4, n) int8, alpha / mu (K/128, n)
-// bf16, partial (K/128, B, n) f32 scratch, out (B, n) f32. Launches the
-// chunk kernel and the chunk sum; returns the first CUDA error, 0 if both
-// launched.
-extern "C" int pt2_ternary_matmul_gathered(const void* x, const void* g, const void* packed,
-                                           const void* alpha, const void* mu, void* partial,
-                                           void* out, int B, int m, int D4, int K, int n,
-                                           int a8, int device, void* stream) {
+// The two launches of both C entries (arguments as they state).
+template <bool IDX>
+int run(const void* x, const void* g, const void* packed, const void* alpha, const void* mu,
+        void* partial, void* out, int B, int m, int D4, int K, int n, int a8, int device,
+        void* stream, const Slot& sl) {
   if (B < 1 || B > MAX_B || m < 1 || D4 < 32 || D4 % 32 != 0 || m > 4 * D4 || K < CH ||
       K % CH != 0 || n < 128 || n % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (IDX && (sl.sel == nullptr || reinterpret_cast<uintptr_t>(sl.sel) % 4 != 0 || sl.S < 1))
     return (int)cudaErrorInvalidValue;
   // This library links its own CUDA runtime: follow the caller's device.
   int cur = -1;
@@ -288,16 +315,49 @@ extern "C" int pt2_ternary_matmul_gathered(const void* x, const void* g, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool q = a8 != 0;
   if (B == 1)
-    e = launch_mode<1>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s);
+    e = launch_mode<1, IDX>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s,
+                            sl);
   else if (B == 2)
-    e = launch_mode<2>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s);
+    e = launch_mode<2, IDX>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s,
+                            sl);
   else if (B <= 4)
-    e = launch_mode<4>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s);
+    e = launch_mode<4, IDX>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s,
+                            sl);
   else
-    e = launch_mode<8>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s);
+    e = launch_mode<8, IDX>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s,
+                            sl);
   if (e != cudaSuccess) return (int)e;
   const int count4 = B * n / 4;
   chunk_sum_kernel<<<(count4 + THREADS - 1) / THREADS, THREADS, 0, s>>>(
       static_cast<const float4*>(partial), static_cast<float4*>(out), chunks, count4);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// x (B, m) bf16, g (D4, K) int8, packed (K/4, n) int8, alpha / mu (K/128, n)
+// bf16, partial (K/128, B, n) f32 scratch, out (B, n) f32. Launches the
+// chunk kernel and the chunk sum; returns the first CUDA error, 0 if both
+// launched.
+extern "C" int pt2_ternary_matmul_gathered(const void* x, const void* g, const void* packed,
+                                           const void* alpha, const void* mu, void* partial,
+                                           void* out, int B, int m, int D4, int K, int n,
+                                           int a8, int device, void* stream) {
+  return run<false>(x, g, packed, alpha, mu, partial, out, B, m, D4, K, n, a8, device, stream,
+                    Slot{nullptr, 0, 0});
+}
+
+// K6s on the CUDA cores: as pt2_ternary_matmul_gathered with g (S, D4, K),
+// packed (S, K/4, n), alpha and mu (S, K/128, n) whole contiguous stacks and
+// the slot base + *sel read by each block from device memory (sel: one
+// int32 on the card, 4-byte aligned; base: a host offset). A slot outside
+// [0, S) traps.
+extern "C" int pt2_ternary_matmul_gathered_idx(const void* x, const void* g, const void* packed,
+                                               const void* alpha, const void* mu, void* partial,
+                                               void* out, const void* sel, int base, int S,
+                                               int B, int m, int D4, int K, int n, int a8,
+                                               int device, void* stream) {
+  return run<true>(x, g, packed, alpha, mu, partial, out, B, m, D4, K, n, a8, device, stream,
+                   Slot{static_cast<const int*>(sel), base, S});
 }

@@ -1,9 +1,9 @@
 // K6's decode rows (1 to 8) on the tensor cores, for Hopper (sm_90a).
 //
 // Replaces pt2tpu/ops/kernels/pallas_ternary.py:ternary_matmul_pallas_gathered
-// (and its _stacked variant: the caller passes the views gpacked[li],
-// packed[li], alpha[li], mu[li]) at decode row counts: the SSR gather through
-// the packed one-hot planes, then the packed ternary product,
+// (and its _stacked variant at a host index: the caller passes the views
+// gpacked[li], packed[li], alpha[li], mu[li]) at decode row counts: the SSR
+// gather through the packed one-hot planes, then the packed ternary product,
 //
 //   out[b, j] = sum_blk alpha[blk, j] * (xg_blk . T_blk[:, j])
 //             + mu[blk, j] * sum(xg_blk),      xg = bf16(x @ G)
@@ -37,6 +37,12 @@
 // gathered values are x[b, perm[k]] bit for bit, so the output is K3's
 // decode rows' on the same perm, bit for bit.
 //
+// K6s (the _stacked variant with a traced index: a routed expert's
+// projection) is C entry pt2_ternary_matmul_gathered_dec_idx: the same two
+// launches, each an IDX instance (the plane gather's and K1's decode
+// kernel's, csrc/ternary_matmul_dec.cu), over the whole stacks; both read
+// the slot base + *sel from the same int32 in device memory.
+//
 // ptxas and times on an H100: PERF.md §6 (chip_smoke.py phases 17a-17c).
 
 #include "ternary_matmul_dec.cu"  // K1's decode kernel, its helpers and its launch
@@ -67,4 +73,29 @@ extern "C" int pt2_ternary_matmul_gathered_dec(const void* x, const void* g, con
   if (rc != 0) return rc;
   return launch<false>(xg, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n, 128,
                        splits, 0, device, stream);
+}
+
+// K6s at decode rows: as pt2_ternary_matmul_gathered_dec with g (S, D4, K),
+// packed (S, K/4, n), alpha and mu (S, K/128, n) whole contiguous stacks
+// (each slot 16-byte aligned) and the slot base + *sel read by each CTA of
+// both launches from device memory (sel: one int32 on the card, 4-byte
+// aligned; base: a host offset). A slot outside [0, S) traps.
+extern "C" int pt2_ternary_matmul_gathered_dec_idx(const void* x, const void* g,
+                                                   const void* packed, const void* alpha,
+                                                   const void* mu, void* xg, void* partial,
+                                                   void* out, void* counters, const void* sel,
+                                                   int base, int S, int B, int m, int D4, int K,
+                                                   int n, int splits, int a8, int device,
+                                                   void* stream) {
+  if (B > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  int rc = planes_gather::check(x, g, xg, nullptr, B, B, m, D4, K, false);
+  if (rc == 0) rc = planes_gather::use_device(device);
+  if (rc != 0) return rc;
+  rc = planes_gather::launch_gather_idx(x, g, xg, B, m, D4, K, a8 != 0, sel, base, S,
+                                        static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  return launch<false, true>(xg, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n,
+                             128, splits, 0, device, stream, sel, base, S);
 }

@@ -22,6 +22,12 @@
 // in f32: W = alpha * u + (mu - alpha), u = T + 1 (K1's arithmetic; in the
 // gate/up phase alpha multiplies each code, which is exact, before the sum).
 //
+// The ungated MLP (the TPU kernel's gated = False: gateup is up alone,
+// gu_n = half >= I lanes, pad columns with zero scales) is the GATED = false
+// instance: mid = bf16(act(up)). Its thread columns 32..63 repeat the up
+// lanes of columns 0..31 (the gated kernel's layout, kept: this kernel
+// serves the rows the decode and tensor-core paths do not take).
+//
 // Design. The TPU kernel walks the nv = half / 128 blocks of the
 // intermediate dimension as sequential grid steps and carries the output in
 // VMEM. On Hopper blocks run in no order, so one thread block owns one
@@ -86,7 +92,7 @@ __device__ __forceinline__ float act_fn(float g) {
   return fmaxf(g, 0.f);
 }
 
-template <int TB, bool GATHER, int ACT>
+template <int TB, bool GATHER, int ACT, bool GATED>
 __global__ void __launch_bounds__(THREADS)
 ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
                    const int* __restrict__ perm,                // (Kg,) if GATHER
@@ -113,7 +119,8 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
   const int lane = tid % 32;
   const int kv = blockIdx.x;
   const int row0 = blockIdx.y * TB;
-  const int col = cx < CX / 2 ? kv * BS + cx * 4 : half + kv * BS + (cx - CX / 2) * 4;
+  const int col = cx < CX / 2 ? kv * BS + cx * 4
+                                : (GATED ? half : 0) + kv * BS + (cx - CX / 2) * 4;
 
   // ---- 1. gate and up for this I-block's 2 x 128 lanes
   float acc[TB][4];
@@ -219,11 +226,13 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
     __syncthreads();
   }
 
-  // ---- 2. mid = act(gate) * up in f32, kept as bf16 (down's operand type)
+  // ---- 2. mid = act(gate) * up (ungated: act(up)) in f32, kept as bf16
+  // (down's operand type)
   for (int i = tid; i < TB * BS; i += THREADS) {
     const int b = i / BS;
     const int c = i - b * BS;
-    mid[b][c] = __float2bfloat16(act_fn<ACT>(gu[b][c]) * gu[b][BS + c]);
+    const float a = act_fn<ACT>(gu[b][c]);
+    mid[b][c] = __float2bfloat16(GATED ? a * gu[b][BS + c] : a);
   }
   __syncthreads();
   if (warp < TB) {
@@ -294,7 +303,7 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[i] = t;
 }
 
-template <int TB, int ACT>
+template <int TB, int ACT, bool GATED>
 void launch(bool gather, const void* x, const void* perm, const void* gp,
             const void* ga, const void* gm, const void* dp, const void* da,
             const void* dm, void* partial, int B, int m, int Kg, int gu_n,
@@ -310,34 +319,54 @@ void launch(bool gather, const void* x, const void* perm, const void* gp,
   const __nv_bfloat16* dmp = static_cast<const __nv_bfloat16*>(dm);
   float* pp = static_cast<float*>(partial);
   if (gather)
-    ternary_mlp_kernel<TB, true, ACT><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, true, ACT, GATED><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
   else
-    ternary_mlp_kernel<TB, false, ACT><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, false, ACT, GATED><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
 }
 
-template <int ACT>
+template <int ACT, bool GATED>
 void launch_rows(bool gather, const void* x, const void* perm, const void* gp,
                  const void* ga, const void* gm, const void* dp, const void* da,
                  const void* dm, void* partial, int B, int m, int Kg, int gu_n,
                  int half, int n, cudaStream_t s) {
   if (B == 1)
-    launch<1, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+    launch<1, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
   else if (B == 2)
-    launch<2, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+    launch<2, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
   else if (B <= 4)
-    launch<4, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+    launch<4, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
   else
-    launch<8, ACT>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n, half, n, s);
+    launch<8, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
+}
+
+template <bool GATED>
+void launch_act(int act, bool gather, const void* x, const void* perm, const void* gp,
+                const void* ga, const void* gm, const void* dp, const void* da, const void* dm,
+                void* partial, int B, int m, int Kg, int gu_n, int half, int n, cudaStream_t s) {
+  if (act == 0)
+    launch_rows<0, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
+  else if (act == 1)
+    launch_rows<1, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
+  else
+    launch_rows<2, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
+                          half, n, s);
 }
 
 }  // namespace
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-// perm is null for the path without a gather. partial is an (nv, B, n) f32
-// workspace, nv = half / 128; out is (B, n) f32; act is 0 (silu), 1 (gelu,
-// tanh form) or 2 (relu). Launches the MLP kernel and
+// perm is null for the path without a gather. gu_n is 2 * half (gated: gate
+// lanes [0, half), then up) or half (ungated: up alone). partial is an
+// (nv, B, n) f32 workspace, nv = half / 128; out is (B, n) f32; act is 0
+// (silu), 1 (gelu, tanh form) or 2 (relu). Launches the MLP kernel and
 // the fixed-order sum of its partials on the caller's stream; returns
 // cudaGetLastError() after the launches, 0 meaning launched.
 extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
@@ -349,7 +378,7 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
                                int device, void* stream) {
   const bool gather = perm != nullptr;
   if (B < 1 || B > 64 || m < 1 || Kg < BS || Kg % BS != 0 || half < BS ||
-      half % BS != 0 || gu_n != 2 * half || half > Kd || Kd % BS != 0 ||
+      half % BS != 0 || (gu_n != 2 * half && gu_n != half) || half > Kd || Kd % BS != 0 ||
       n < 4 || n % 4 != 0 || (!gather && m > Kg) || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   int cur = -1;
@@ -358,15 +387,12 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (act == 0)
-    launch_rows<0>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
-  else if (act == 1)
-    launch_rows<1>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+  if (gu_n == 2 * half)
+    launch_act<true>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                     dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   else
-    launch_rows<2>(gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                   dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+    launch_act<false>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
+                      dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int total = B * n;

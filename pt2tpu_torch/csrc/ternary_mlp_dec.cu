@@ -12,7 +12,10 @@
 // layout and x zero-padded to Kg lanes for the "down" layout (the wrapper
 // passes the identity perm: lanes k >= m read as 0), and act silu, gelu
 // (tanh form, tanhf) or relu, a template parameter as in
-// csrc/ternary_mlp.cu. Rows 9 to 64 run csrc/ternary_mlp_tc.cu; the wrapper
+// csrc/ternary_mlp.cu. The ungated MLP (the TPU kernel's gated = False:
+// gateup is up alone, I or more lanes wide) is the GATED = false instance,
+// C entry pt2_ternary_mlp_dec_ungated: mid = bf16(act(up)) over all of up's
+// lanes (pad columns carry zero scales, so act(0) = 0 there), then down. Rows 9 to 64 run csrc/ternary_mlp_tc.cu; the wrapper
 // picks by rows (k2_path in pt2tpu_torch/ops/kernels/ternary.py), never
 // after a failure.
 //
@@ -37,7 +40,8 @@
 //      2 * splits CTAs to finish sums the gate slices and the up slices in
 //      slice order and writes mid = bf16(act(gate) * up) for those 128
 //      lanes into a (B, half) bf16 row-major scratch: the x layout of K1's
-//      decode kernel.
+//      decode kernel. Ungated, each up tile has a counter of its own, and
+//      the last of its splits CTAs writes mid = bf16(act(up)).
 //   2. Down: K1's decode kernel, ternary_matmul_dec_kernel<false, false>,
 //      as it is, over mid with K = half (down's pad blocks beyond half are
 //      never read), split-K by dec_splits, slices summed in slice order by
@@ -63,21 +67,22 @@ __device__ __forceinline__ float mlp_act(float g) {
   return fmaxf(g, 0.f);
 }
 
-// Grid (2 * half / 128, splits). CTA (c, sp) is ternary_matmul_dec_kernel's
-// CTA (c, sp) with GATHER over gateup (n = 2 * half, bs = 128): it sums
-// blocks sp*bpc .. min(nb, (sp+1)*bpc) - 1 of column tile c into
-// partial[sp, :B]. Tile c pairs with tile c +- half / 128 (gate with up);
-// the last of the pair's 2 * splits CTAs to finish (counters[c mod
-// half / 128]) writes mid for the pair's 128 lanes and sets the counter
-// back to 0.
-template <int ACT>
+// Grid (n / 128, splits), n = 2 * half gated, half ungated. CTA (c, sp) is
+// ternary_matmul_dec_kernel's CTA (c, sp) with GATHER over gateup (bs =
+// 128): it sums blocks sp*bpc .. min(nb, (sp+1)*bpc) - 1 of column tile c
+// into partial[sp, :B]. Gated, tile c pairs with tile c +- half / 128 (gate
+// with up); the last of the pair's 2 * splits CTAs to finish (counters[c mod
+// half / 128]) writes mid for the pair's 128 lanes. Ungated, the last of
+// tile c's splits CTAs (counters[c]) writes mid for the tile's 128 lanes.
+// Either sets its counter back to 0.
+template <int ACT, bool GATED>
 __global__ void __launch_bounds__(THREADS, 4)
 mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), feature order
                       const int* __restrict__ perm,             // (Kg,)
-                      const int8_t* __restrict__ packed,        // (Kg / 4, 2 * half)
-                      const __nv_bfloat16* __restrict__ alpha,  // (Kg / 128, 2 * half)
-                      const __nv_bfloat16* __restrict__ mu,     // (Kg / 128, 2 * half)
-                      float* __restrict__ partial,              // (splits, B, 2 * half)
+                      const int8_t* __restrict__ packed,        // (Kg / 4, n)
+                      const __nv_bfloat16* __restrict__ alpha,  // (Kg / 128, n)
+                      const __nv_bfloat16* __restrict__ mu,     // (Kg / 128, n)
+                      float* __restrict__ partial,              // (splits, B, n)
                       __nv_bfloat16* __restrict__ mid,          // (B, half)
                       int* __restrict__ counters,               // (half / 128,), zero
                       int B, int m, int Kg, int half, int bpc) {
@@ -88,7 +93,7 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int n = 2 * half;
+  const int n = GATED ? 2 * half : half;
   const int col0 = blockIdx.x * BN;
   const int sp = blockIdx.y;
   const int splits = gridDim.y;
@@ -242,13 +247,13 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
     if (row < B) o[(size_t)row * n + col] = s;
   }
 
-  // the last CTA of the gate/up pair sums each half's slices in order and
-  // writes mid for the pair's 128 lanes
+  // the last CTA of the gate/up pair (ungated: of the up tile) sums each
+  // half's slices in order and writes mid for its 128 lanes
   const int tiles = half / BN;
-  const int pair = blockIdx.x < tiles ? blockIdx.x : blockIdx.x - tiles;
+  const int pair = GATED && blockIdx.x >= tiles ? blockIdx.x - tiles : blockIdx.x;
   __threadfence();  // this CTA's partial is visible before it is counted
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&counters[pair], 1) == 2 * splits - 1;
+  if (tid == 0) last = atomicAdd(&counters[pair], 1) == (GATED ? 2 : 1) * splits - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -257,24 +262,29 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
     const int lane0 = pair * BN + 4 * (i - row * (BN / 4));
     const size_t at = (size_t)row * n + lane0;
     float4 gs = __ldcg(reinterpret_cast<const float4*>(partial + at));
-    float4 us = __ldcg(reinterpret_cast<const float4*>(partial + at + half));
     for (int k = 1; k < splits; ++k) {
       const float4 pg = __ldcg(reinterpret_cast<const float4*>(partial + (size_t)k * B * n + at));
-      const float4 pu =
-          __ldcg(reinterpret_cast<const float4*>(partial + (size_t)k * B * n + at + half));
       gs.x += pg.x;
       gs.y += pg.y;
       gs.z += pg.z;
       gs.w += pg.w;
-      us.x += pu.x;
-      us.y += pu.y;
-      us.z += pu.z;
-      us.w += pu.w;
     }
-    const __nv_bfloat162 lo =
-        __floats2bfloat162_rn(mlp_act<ACT>(gs.x) * us.x, mlp_act<ACT>(gs.y) * us.y);
-    const __nv_bfloat162 hi =
-        __floats2bfloat162_rn(mlp_act<ACT>(gs.z) * us.z, mlp_act<ACT>(gs.w) * us.w);
+    float4 v = make_float4(mlp_act<ACT>(gs.x), mlp_act<ACT>(gs.y), mlp_act<ACT>(gs.z),
+                           mlp_act<ACT>(gs.w));
+    if constexpr (GATED) {
+      float4 us = __ldcg(reinterpret_cast<const float4*>(partial + at + half));
+      for (int k = 1; k < splits; ++k) {
+        const float4 pu =
+            __ldcg(reinterpret_cast<const float4*>(partial + (size_t)k * B * n + at + half));
+        us.x += pu.x;
+        us.y += pu.y;
+        us.z += pu.z;
+        us.w += pu.w;
+      }
+      v = make_float4(v.x * us.x, v.y * us.y, v.z * us.z, v.w * us.w);
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
     uint2 w;
     w.x = *reinterpret_cast<const uint32_t*>(&lo);
     w.y = *reinterpret_cast<const uint32_t*>(&hi);
@@ -292,31 +302,13 @@ int dec_slice_blocks(int nb, int splits) {
   return (splits - 1) * bpc < nb && bpc * MBS <= MAX_SLICE ? bpc : 0;
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-//
-// x (B, m) bf16, 1 <= B <= 8, in feature order; perm (Kg,) int32 the visit
-// lane -> feature map with pad lanes >= m (the identity arange(Kg) for the
-// layout without a gather, m <= Kg); gateup (Kg / 4, 2 * half) int8 codes
-// with (Kg / 128, 2 * half) bf16 alpha and mu, gate lanes [0, half) then up
-// lanes; down (>= half / 4, n) int8 codes with (>= half / 128, n) bf16 alpha
-// and mu, of which the first half / 128 blocks are read. Scratch:
-// gu_partial (gu_splits, B, 2 * half) f32, dn_partial (dn_splits, B, n) f32
-// (not read with one slice), mid (B, half) bf16; out (B, n) f32; counters
-// max(half, n) / 128 int32, all 0 (each launch leaves them 0; launches that
-// share them must not run concurrently). Kg, half and n multiples of 128;
-// each product's K slices are ceil(nb / splits) blocks, none empty, at most
-// 16 blocks (2048 lanes) each; act 0 silu, 1 gelu (tanh form), 2 relu.
-// perm, codes, scales, scratch and out 16-byte aligned, x 2-byte, counters
-// 4-byte. Two launches on the stream (gate/up, down); returns the first
-// failure's CUDA error, 0 meaning both launched.
-extern "C" int pt2_ternary_mlp_dec(const void* x, const void* perm, const void* gu_packed,
-                                   const void* gu_alpha, const void* gu_mu, const void* dn_packed,
-                                   const void* dn_alpha, const void* dn_mu, void* gu_partial,
-                                   void* dn_partial, void* mid, void* out, void* counters, int B,
-                                   int m, int Kg, int half, int n, int gu_splits, int dn_splits,
-                                   int act, int device, void* stream) {
+// The two launches of both C entries (arguments as they state).
+template <bool GATED>
+int run(const void* x, const void* perm, const void* gu_packed, const void* gu_alpha,
+        const void* gu_mu, const void* dn_packed, const void* dn_alpha, const void* dn_mu,
+        void* gu_partial, void* dn_partial, void* mid, void* out, void* counters, int B, int m,
+        int Kg, int half, int n, int gu_splits, int dn_splits, int act, int device,
+        void* stream) {
   if (B < 1 || B > MAX_ROWS || m < 1 || Kg < MBS || Kg % MBS != 0 || half < MBS ||
       half % MBS != 0 || n < BN || n % BN != 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
@@ -342,7 +334,7 @@ extern "C" int pt2_ternary_mlp_dec(const void* x, const void* perm, const void* 
   }
   const size_t smem = (size_t)(gu_bpc * MBS * 16 > RED_BYTES ? gu_bpc * MBS * 16 : RED_BYTES) +
                       (size_t)gu_bpc * 512;
-  const dim3 grid(2 * half / BN, gu_splits);
+  const dim3 grid((GATED ? 2 : 1) * half / BN, gu_splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
   const int* pm = static_cast<const int*>(perm);
@@ -353,16 +345,62 @@ extern "C" int pt2_ternary_mlp_dec(const void* x, const void* perm, const void* 
   __nv_bfloat16* md = static_cast<__nv_bfloat16*>(mid);
   int* cp = static_cast<int*>(counters);
   if (act == 0)
-    mlp_dec_gateup_kernel<0><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp, B, m,
-                                                         Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<0, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
+                                                                B, m, Kg, half, gu_bpc);
   else if (act == 1)
-    mlp_dec_gateup_kernel<1><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp, B, m,
-                                                         Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<1, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
+                                                                B, m, Kg, half, gu_bpc);
   else
-    mlp_dec_gateup_kernel<2><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp, B, m,
-                                                         Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<2, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
+                                                                B, m, Kg, half, gu_bpc);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch<false>(mid, nullptr, dn_packed, dn_alpha, dn_mu, dn_partial, out, counters, B,
                        half, half, n, MBS, dn_splits, 0, device, stream);
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+//
+// x (B, m) bf16, 1 <= B <= 8, in feature order; perm (Kg,) int32 the visit
+// lane -> feature map with pad lanes >= m (the identity arange(Kg) for the
+// layout without a gather, m <= Kg); gateup (Kg / 4, 2 * half) int8 codes
+// with (Kg / 128, 2 * half) bf16 alpha and mu, gate lanes [0, half) then up
+// lanes; down (>= half / 4, n) int8 codes with (>= half / 128, n) bf16 alpha
+// and mu, of which the first half / 128 blocks are read. Scratch:
+// gu_partial (gu_splits, B, 2 * half) f32, dn_partial (dn_splits, B, n) f32
+// (not read with one slice), mid (B, half) bf16; out (B, n) f32; counters
+// max(half, n) / 128 int32, all 0 (each launch leaves them 0; launches that
+// share them must not run concurrently). Kg, half and n multiples of 128;
+// each product's K slices are ceil(nb / splits) blocks, none empty, at most
+// 16 blocks (2048 lanes) each; act 0 silu, 1 gelu (tanh form), 2 relu.
+// perm, codes, scales, scratch and out 16-byte aligned, x 2-byte, counters
+// 4-byte. Two launches on the stream (gate/up, down); returns the first
+// failure's CUDA error, 0 meaning both launched.
+extern "C" int pt2_ternary_mlp_dec(const void* x, const void* perm, const void* gu_packed,
+                                   const void* gu_alpha, const void* gu_mu, const void* dn_packed,
+                                   const void* dn_alpha, const void* dn_mu, void* gu_partial,
+                                   void* dn_partial, void* mid, void* out, void* counters, int B,
+                                   int m, int Kg, int half, int n, int gu_splits, int dn_splits,
+                                   int act, int device, void* stream) {
+  return run<true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, gu_partial,
+                   dn_partial, mid, out, counters, B, m, Kg, half, n, gu_splits, dn_splits, act,
+                   device, stream);
+}
+
+// The ungated MLP: as pt2_ternary_mlp_dec with gateup the up projection
+// alone, (Kg / 4, half) int8 codes with (Kg / 128, half) bf16 alpha and mu
+// (half >= I: pad columns carry zero scales), gu_partial (gu_splits, B,
+// half) f32, and mid = bf16(act(up)).
+extern "C" int pt2_ternary_mlp_dec_ungated(const void* x, const void* perm, const void* gu_packed,
+                                           const void* gu_alpha, const void* gu_mu,
+                                           const void* dn_packed, const void* dn_alpha,
+                                           const void* dn_mu, void* gu_partial, void* dn_partial,
+                                           void* mid, void* out, void* counters, int B, int m,
+                                           int Kg, int half, int n, int gu_splits, int dn_splits,
+                                           int act, int device, void* stream) {
+  return run<false>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, gu_partial,
+                    dn_partial, mid, out, counters, B, m, Kg, half, n, gu_splits, dn_splits, act,
+                    device, stream);
 }

@@ -13,7 +13,10 @@
 // gelu (tanh form, tanhf) or relu, a template parameter as in
 // csrc/ternary_mlp.cu, which keeps the decode rows 1 to 8. The wrapper picks
 // by shape (k2_path in pt2tpu_torch/ops/kernels/ternary.py), never after a
-// failure.
+// failure. The ungated MLP (the TPU kernel's gated = False: gateup is up
+// alone, I or more lanes wide; mid = bf16(act(up))) is the GATED = false
+// instance of the gate/up product, C entry pt2_ternary_mlp_tc_ungated: one
+// up product whose epilogue applies the activation (below).
 //
 // What bounds it: at 64 rows a llama-3-8b MLP reads 49.6 MB of codes and
 // scales and does 22.5 GFLOP, 454 operations per byte, above the card's
@@ -47,6 +50,12 @@
 //      llama-3-8b or gemma-2b, whose 224 and 256 CTAs fill one wave), each
 //      slice writes its (Bp, 2 * half) f32 partial and the last CTA of a
 //      column tile sums the slices in slice order, then runs the epilogue.
+//      Ungated, a CTA owns the 128 up lanes of one down block instead:
+//      warp w's A rows g and g + 8 are lanes 8w + g and 64 + 8w + g of the
+//      block (the same fragments, the second lane where the gated CTA has
+//      its up lane), its epilogue writes mid = bf16(act(up)) for both, sums
+//      each 64 lanes as stored as the gated CTAs do, and adds the two
+//      halves into Smid itself, first half first: no pair counter.
 //   3. K3's product over mid: K = half (down's pad blocks beyond half are
 //      never read), n = dim, split-K by igtc_splits, slices summed in slice
 //      order by the last CTA of each column tile, acc += alpha * d +
@@ -87,21 +96,28 @@ __device__ __forceinline__ float mlp_act(float g) {
 // of down block c / 2 to finish (counters[gridDim.x + c / 2]) writes
 // msums[half / 64 + c / 2] = msums[c & ~1] + msums[c | 1]. Each counter is
 // left 0.
-template <int NT, int ACT>
+//
+// Ungated (GATED false): grid (half / 128, splits), gateup is up alone
+// (half lanes, n2 = half); CTA (c, sp) sums lanes 128c .. 128c + 127 (its
+// gate lanes' place holds lanes 128c .., its up lanes' 128c + 64 ..),
+// writes mid = bf16(act(up)) for them, msums[2c] and msums[2c + 1] the sums
+// of its two 64-lane halves and msums[half / 64 + c] their sum, with no
+// pair counter.
+template <int NT, int ACT, bool GATED>
 __global__ void __launch_bounds__(THREADS, 2)
 mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragment order
                   const float* __restrict__ sums,           // (Kg / 128, Bp)
-                  const int8_t* __restrict__ packed,        // (Kg / 4, 2 * half)
-                  const __nv_bfloat16* __restrict__ alpha,  // (Kg / 128, 2 * half)
-                  const __nv_bfloat16* __restrict__ mu,     // (Kg / 128, 2 * half)
-                  float* __restrict__ partial,              // (splits, Bp, 2 * half)
+                  const int8_t* __restrict__ packed,        // (Kg / 4, n2)
+                  const __nv_bfloat16* __restrict__ alpha,  // (Kg / 128, n2)
+                  const __nv_bfloat16* __restrict__ mu,     // (Kg / 128, n2)
+                  float* __restrict__ partial,              // (splits, Bp, n2)
                   __nv_bfloat16* __restrict__ mid,          // (Bp, half), fragment order
                   float* __restrict__ msums,                // (half / 64 + half / 128, Bp)
                   int* __restrict__ counters,               // (half / 64 + half / 128,), zero
                   int Kg, int half, int bpc) {
   typedef Stage<NT> S;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[WARPS][S::BP];
+  __shared__ float red[GATED ? 1 : 2][WARPS][S::BP];
   __shared__ int last;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -109,8 +125,9 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
   const int g = lane >> 2;
   const int t = lane & 3;
   const int c = blockIdx.x;
-  const int lane0 = c * MCOLS;  // the CTA's first gate lane
-  const int n2 = 2 * half;
+  const int lane0 = c * (GATED ? MCOLS : 2 * MCOLS);  // the CTA's first gate lane
+  const int off2 = GATED ? half : MCOLS;  // its up lanes' offset from its gate lanes
+  const int n2 = GATED ? 2 * half : half;
   const int sp = blockIdx.y;
   const int splits = gridDim.y;
   const int blk0 = sp * bpc;
@@ -119,7 +136,8 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
 
   // Block blk0 + u into ring slot u % STAGES: the xg tile (chunk c of row r
   // at chunk c ^ 4 (r & 1)), the codes (per packed row 64 gate bytes, then
-  // 64 up bytes), alpha and mu (64 gate values, then 64 up values, each)
+  // 64 up bytes; ungated the CTA's first 64 lanes, then its last 64), alpha
+  // and mu (64 gate values, then 64 up values, each)
   auto load_unit = [&](int u) {
     const int blk = blk0 + u;
     const uint32_t st = sbase + (u % STAGES) * S::BYTES;
@@ -133,13 +151,13 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
     {
       const int r = tid >> 3;
       const int cc = tid & 7;
-      const int col = (cc < 4 ? lane0 : half + lane0) + 16 * (cc & 3);
+      const int col = (cc < 4 ? lane0 : off2 + lane0) + 16 * (cc & 3);
       cp_async16(st + S::X_BYTES + r * PSTRIDE + cc * 16,
                  packed + ((size_t)blk * PROWS + r) * n2 + col);
     }
     if (tid < 32) {
       const int k = tid & 15;
-      const int col = (k < 8 ? lane0 : half + lane0) + 8 * (k & 7);
+      const int col = (k < 8 ? lane0 : off2 + lane0) + 8 * (k & 7);
       cp_async16(st + S::X_BYTES + S::P_BYTES + tid * 16,
                  (tid < 16 ? alpha : mu) + (size_t)blk * n2 + col);
     }
@@ -209,7 +227,7 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
   }
   cp_async_wait<0>();
 
-  const int gl = lane0 + 8 * warp + g;  // this lane's gate lane; its up lane is half + gl
+  const int gl = lane0 + 8 * warp + g;  // this lane's gate lane; its up lane is off2 + gl
   if (splits > 1) {
     float* o = partial + (size_t)sp * S::BP * n2;
 #pragma unroll
@@ -218,7 +236,7 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
       for (int i = 0; i < 2; ++i) {
         const size_t at = (size_t)(nt * 8 + 2 * t + i) * n2 + gl;
         o[at] = acc[nt][i];
-        o[at + half] = acc[nt][2 + i];
+        o[at + off2] = acc[nt][2 + i];
       }
     __threadfence();  // this CTA's partial is visible before it is counted
     __syncthreads();
@@ -233,15 +251,57 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
       for (int i = 0; i < 2; ++i) {
         const size_t at = (size_t)(nt * 8 + 2 * t + i) * n2 + gl;
         float sg = __ldcg(partial + at);
-        float su = __ldcg(partial + at + half);
+        float su = __ldcg(partial + at + off2);
         for (int k = 1; k < splits; ++k) {
           sg += __ldcg(partial + (size_t)k * S::BP * n2 + at);
-          su += __ldcg(partial + (size_t)k * S::BP * n2 + at + half);
+          su += __ldcg(partial + (size_t)k * S::BP * n2 + at + off2);
         }
         acc[nt][i] = sg;
         acc[nt][2 + i] = su;
       }
     if (tid == 0) counters[c] = 0;  // ready for the next launch on the stream
+  }
+
+  if constexpr (!GATED) {
+    // mid = bf16(act(up)) for lanes gl and gl + 64 at down's fragment
+    // positions (within a block, position 8h + 2p + i holds lane
+    // p*32 + 2h + i); each 64-lane half summed as stored, over g, then the
+    // warps in order; the block's sum is the first half's plus the second's
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = gl + h * MCOLS - lane0;
+      __nv_bfloat16* mp = mid + lane0 + 8 * ((l & 31) >> 1) + 2 * (l >> 5) + (l & 1);
+      float rs[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const __nv_bfloat16 v = __float2bfloat16(mlp_act<ACT>(acc[nt][2 * h + i]));
+          mp[(size_t)(nt * 8 + 2 * t + i) * half] = v;
+          rs[nt][i] = __bfloat162float(v);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) rs[nt][i] += __shfl_xor_sync(0xffffffffu, rs[nt][i], o);
+          if (g == 0) red[h][warp][nt * 8 + 2 * t + i] = rs[nt][i];
+        }
+    }
+    __syncthreads();
+    if (tid < S::BP) {
+      float s0 = red[0][0][tid], s1 = red[1][0][tid];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        s0 += red[0][w][tid];
+        s1 += red[1][w][tid];
+      }
+      msums[(size_t)(2 * c) * S::BP + tid] = s0;
+      msums[(size_t)(2 * c + 1) * S::BP + tid] = s1;
+      msums[(size_t)(2 * gridDim.x + c) * S::BP + tid] = s0 + s1;
+    }
+    return;
   }
 
   // mid = bf16(act(gate) * up) at down's fragment position of lane gl
@@ -264,13 +324,13 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) rs[nt][i] += __shfl_xor_sync(0xffffffffu, rs[nt][i], o);
-      if (g == 0) red[warp][nt * 8 + 2 * t + i] = rs[nt][i];
+      if (g == 0) red[0][warp][nt * 8 + 2 * t + i] = rs[nt][i];
     }
   __syncthreads();
   if (tid < S::BP) {
-    float s = red[0][tid];
+    float s = red[0][0][tid];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) s += red[w][tid];
+    for (int w = 1; w < WARPS; ++w) s += red[0][w][tid];
     msums[(size_t)c * S::BP + tid] = s;
   }
 
@@ -288,14 +348,16 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
   if (tid == 0) counters[bc] = 0;
 }
 
-template <int NT, int ACT>
+template <int NT, int ACT, bool GATED>
 int launch_gateup(const void* xg, const void* sums, const void* packed, const void* alpha,
                   const void* mu, void* partial, void* mid, void* msums, void* counters, int Kg,
                   int half, int splits, int bpc, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      mlp_gateup_kernel<NT, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<NT>::SMEM);
+  const cudaError_t e =
+      cudaFuncSetAttribute(mlp_gateup_kernel<NT, ACT, GATED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<NT>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  mlp_gateup_kernel<NT, ACT><<<dim3(half / MCOLS, splits), THREADS, Stage<NT>::SMEM, s>>>(
+  const dim3 grid(GATED ? half / MCOLS : half / MBS, splits);
+  mlp_gateup_kernel<NT, ACT, GATED><<<grid, THREADS, Stage<NT>::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(xg), static_cast<const float*>(sums),
       static_cast<const int8_t*>(packed), static_cast<const __nv_bfloat16*>(alpha),
       static_cast<const __nv_bfloat16*>(mu), static_cast<float*>(partial),
@@ -304,18 +366,18 @@ int launch_gateup(const void* xg, const void* sums, const void* packed, const vo
   return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, bool GATED>
 int launch_gateup_act(int act, const void* xg, const void* sums, const void* packed,
                       const void* alpha, const void* mu, void* partial, void* mid, void* msums,
                       void* counters, int Kg, int half, int splits, int bpc, cudaStream_t s) {
   if (act == 0)
-    return launch_gateup<NT, 0>(xg, sums, packed, alpha, mu, partial, mid, msums, counters, Kg,
-                                half, splits, bpc, s);
+    return launch_gateup<NT, 0, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums,
+                                       counters, Kg, half, splits, bpc, s);
   if (act == 1)
-    return launch_gateup<NT, 1>(xg, sums, packed, alpha, mu, partial, mid, msums, counters, Kg,
-                                half, splits, bpc, s);
-  return launch_gateup<NT, 2>(xg, sums, packed, alpha, mu, partial, mid, msums, counters, Kg,
-                              half, splits, bpc, s);
+    return launch_gateup<NT, 1, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums,
+                                       counters, Kg, half, splits, bpc, s);
+  return launch_gateup<NT, 2, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums, counters,
+                                     Kg, half, splits, bpc, s);
 }
 
 // The blocks per slice for `splits` slices of nb blocks, or 0 where that
@@ -326,34 +388,13 @@ int slice_blocks(int nb, int splits) {
   return (splits - 1) * bpc < nb ? bpc : 0;
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-//
-// x (B, m) bf16, 9 <= B <= 64, in feature order; perm (Kg,) int32 the visit
-// lane -> feature map with pad lanes >= m (the identity arange(Kg) for the
-// layout without a gather, m <= Kg); gateup (Kg / 4, 2 * half) int8 codes
-// with (Kg / 128, 2 * half) bf16 alpha and mu, gate lanes [0, half) then up
-// lanes; down (>= half / 4, n) int8 codes with (>= half / 128, n) bf16 alpha
-// and mu, of which the first half / 128 blocks are read. Scratch, Bp = 16,
-// 32 or 64 (B rounded up to a multiple of 16, then to a power of two):
-// xg (Bp, Kg) bf16, sums (Kg / 128, Bp) f32, gu_partial (gu_splits, Bp,
-// 2 * half) f32 (not read with one slice), mid (Bp, half) bf16, mid_sums
-// (half / 64 + half / 128, Bp) f32, dn_partial (dn_splits, B, n) f32 (not
-// read with one slice); out (B, n) f32; counters half / 64 + half / 128 and
-// n / 128 int32 (the larger), all 0 (each launch leaves them 0; launches
-// that share them must not run concurrently). half and n multiples of 128;
-// act 0 silu, 1 gelu (tanh form), 2 relu. perm 16-byte aligned, every
-// other operand and scratch 16-byte aligned but x (2-byte) and counters
-// (4-byte). Three launches on the stream (gather, gate/up, down); returns
-// the first launch's CUDA error, 0 meaning all three launched.
-extern "C" int pt2_ternary_mlp_tc(const void* x, const void* perm, const void* gu_packed,
-                                  const void* gu_alpha, const void* gu_mu, const void* dn_packed,
-                                  const void* dn_alpha, const void* dn_mu, void* xg, void* sums,
-                                  void* gu_partial, void* mid, void* mid_sums, void* dn_partial,
-                                  void* out, void* counters, int B, int m, int Kg, int half,
-                                  int n, int gu_splits, int dn_splits, int act, int device,
-                                  void* stream) {
+// The three launches of both C entries (arguments as they state).
+template <bool GATED>
+int run(const void* x, const void* perm, const void* gu_packed, const void* gu_alpha,
+        const void* gu_mu, const void* dn_packed, const void* dn_alpha, const void* dn_mu,
+        void* xg, void* sums, void* gu_partial, void* mid, void* mid_sums, void* dn_partial,
+        void* out, void* counters, int B, int m, int Kg, int half, int n, int gu_splits,
+        int dn_splits, int act, int device, void* stream) {
   const int Bp = rows_pad(B);
   int rc = check_gather(x, perm, xg, sums, B, Bp, m, Kg, MBS);
   if (rc != 0) return rc;
@@ -381,22 +422,72 @@ extern "C" int pt2_ternary_mlp_tc(const void* x, const void* perm, const void* g
   float* ms = static_cast<float*>(mid_sums);
   const float* block_sums = ms + (size_t)(half / MCOLS) * Bp;
   if (Bp == 16) {
-    rc = launch_gateup_act<2>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid, ms,
-                              counters, Kg, half, gu_splits, gu_bpc, s);
+    rc = launch_gateup_act<2, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid,
+                                     ms, counters, Kg, half, gu_splits, gu_bpc, s);
     if (rc != 0) return rc;
     return launch_product<2>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
                              counters, B, half, n, MBS, dn_splits, dn_bpc, s);
   }
   if (Bp == 32) {
-    rc = launch_gateup_act<4>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid, ms,
-                              counters, Kg, half, gu_splits, gu_bpc, s);
+    rc = launch_gateup_act<4, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid,
+                                     ms, counters, Kg, half, gu_splits, gu_bpc, s);
     if (rc != 0) return rc;
     return launch_product<4>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
                              counters, B, half, n, MBS, dn_splits, dn_bpc, s);
   }
-  rc = launch_gateup_act<8>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid, ms,
-                            counters, Kg, half, gu_splits, gu_bpc, s);
+  rc = launch_gateup_act<8, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid, ms,
+                                   counters, Kg, half, gu_splits, gu_bpc, s);
   if (rc != 0) return rc;
   return launch_product<8>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
                            counters, B, half, n, MBS, dn_splits, dn_bpc, s);
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+//
+// x (B, m) bf16, 9 <= B <= 64, in feature order; perm (Kg,) int32 the visit
+// lane -> feature map with pad lanes >= m (the identity arange(Kg) for the
+// layout without a gather, m <= Kg); gateup (Kg / 4, 2 * half) int8 codes
+// with (Kg / 128, 2 * half) bf16 alpha and mu, gate lanes [0, half) then up
+// lanes; down (>= half / 4, n) int8 codes with (>= half / 128, n) bf16 alpha
+// and mu, of which the first half / 128 blocks are read. Scratch, Bp = 16,
+// 32 or 64 (B rounded up to a multiple of 16, then to a power of two):
+// xg (Bp, Kg) bf16, sums (Kg / 128, Bp) f32, gu_partial (gu_splits, Bp,
+// 2 * half) f32 (not read with one slice), mid (Bp, half) bf16, mid_sums
+// (half / 64 + half / 128, Bp) f32, dn_partial (dn_splits, B, n) f32 (not
+// read with one slice); out (B, n) f32; counters half / 64 + half / 128 and
+// n / 128 int32 (the larger), all 0 (each launch leaves them 0; launches
+// that share them must not run concurrently). half and n multiples of 128;
+// act 0 silu, 1 gelu (tanh form), 2 relu. perm 16-byte aligned, every
+// other operand and scratch 16-byte aligned but x (2-byte) and counters
+// (4-byte). Three launches on the stream (gather, gate/up, down); returns
+// the first launch's CUDA error, 0 meaning all three launched.
+extern "C" int pt2_ternary_mlp_tc(const void* x, const void* perm, const void* gu_packed,
+                                  const void* gu_alpha, const void* gu_mu, const void* dn_packed,
+                                  const void* dn_alpha, const void* dn_mu, void* xg, void* sums,
+                                  void* gu_partial, void* mid, void* mid_sums, void* dn_partial,
+                                  void* out, void* counters, int B, int m, int Kg, int half,
+                                  int n, int gu_splits, int dn_splits, int act, int device,
+                                  void* stream) {
+  return run<true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, xg, sums,
+                   gu_partial, mid, mid_sums, dn_partial, out, counters, B, m, Kg, half, n,
+                   gu_splits, dn_splits, act, device, stream);
+}
+
+// The ungated MLP: as pt2_ternary_mlp_tc with gateup the up projection
+// alone, (Kg / 4, half) int8 codes with (Kg / 128, half) bf16 alpha and mu
+// (half >= I: pad columns carry zero scales), gu_partial (gu_splits, Bp,
+// half) f32, and mid = bf16(act(up)); mid_sums and counters sized as there.
+extern "C" int pt2_ternary_mlp_tc_ungated(const void* x, const void* perm, const void* gu_packed,
+                                          const void* gu_alpha, const void* gu_mu,
+                                          const void* dn_packed, const void* dn_alpha,
+                                          const void* dn_mu, void* xg, void* sums,
+                                          void* gu_partial, void* mid, void* mid_sums,
+                                          void* dn_partial, void* out, void* counters, int B,
+                                          int m, int Kg, int half, int n, int gu_splits,
+                                          int dn_splits, int act, int device, void* stream) {
+  return run<false>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, xg, sums,
+                    gu_partial, mid, mid_sums, dn_partial, out, counters, B, m, Kg, half, n,
+                    gu_splits, dn_splits, act, device, stream);
 }

@@ -18,7 +18,14 @@ import os
 import torch
 
 from ..core.packing import pack_ternary
-from .kernels.gather import onehot_gather, onehot_gather_plain, onehot_matmul
+from .kernels.gather import (
+    onehot_gather,
+    onehot_gather_idx,
+    onehot_gather_plain,
+    onehot_matmul,
+    onehot_matmul_idx,
+    slot_view,
+)
 
 __all__ = ["PackedGather", "make_packed_gather", "gather_apply", "gather_kernel", "GATHER_KERNEL"]
 
@@ -77,20 +84,53 @@ def make_packed_gather(perm: torch.Tensor, in_features: int) -> PackedGather:
     )
 
 
-def gather_apply(g: PackedGather, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+def gather_apply(g: PackedGather, x: torch.Tensor, impl: str = "auto", layer_idx=None,
+                 base: int = 0) -> torch.Tensor:
     """Permute (..., m) features into visit-lane order (..., K) in x's dtype:
     on CUDA the kernel :func:`gather_kernel` names (K4 or K5), the index
-    form on the CPU or with ``impl="plain"``."""
+    form on the CPU or with ``impl="plain"``.
+
+    A stacked ``g`` ((S, D//4, K) planes, (S, K) perm) takes slot
+    ``base + layer_idx``, as ``pt2tpu.ops.gather.gather_apply`` takes
+    ``layer_idx``: a host int gathers through the zero-copy view of that
+    slot; a 0-d or 1-element integer tensor on x's device (a routed
+    expert's index) through the device-index entries, K4s
+    (``onehot_gather_idx``) or K5s (``onehot_matmul_idx``), which read the
+    slot from device memory (on CPU tensors their plain versions); with
+    ``impl="plain"`` the index form takes the slot with ``index_select`` on
+    the device."""
     m = x.shape[-1]
     if m != g.in_features:
         raise ValueError(f"input features {m} != gather in_features {g.in_features}")
-    if g.perm.dim() != 1 or g.packed.dim() != 2:
-        raise ValueError("a stacked gather needs its layer view (PackedTernaryLinear.layer)")
+    stacked = g.perm.dim() == 2
+    if g.packed.dim() != g.perm.dim() + 1 or g.perm.dim() not in (1, 2):
+        raise ValueError(f"gather leaves: planes {tuple(g.packed.shape)}, perm "
+                         f"{tuple(g.perm.shape)}")
+    if stacked and layer_idx is None:
+        raise ValueError("a stacked gather needs layer_idx (the slot to gather through)")
+    if not stacked and layer_idx is not None:
+        raise ValueError("layer_idx selects a slot of a stacked gather; this one has one")
     x2 = x.reshape(-1, m)
-    if impl == "plain" or x.device.type == "cpu":
-        out = onehot_gather_plain(x2, g.perm)
-    elif gather_kernel() == "onehot_matmul":
-        out = onehot_matmul(x2, g.packed)
-    else:
-        out = onehot_gather(x2, g.perm)
+    if not stacked or not isinstance(layer_idx, torch.Tensor):
+        perm, planes = g.perm, g.packed
+        if stacked:
+            perm, planes = perm[base + layer_idx], planes[base + layer_idx]
+        if impl == "plain" or x.device.type == "cpu":
+            out = onehot_gather_plain(x2, perm)
+        elif gather_kernel() == "onehot_matmul":
+            out = onehot_matmul(x2, planes)
+        else:
+            out = onehot_gather(x2, perm)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+    sel = layer_idx
+    if sel.numel() != 1 or sel.dtype.is_floating_point or sel.dtype == torch.bool:
+        raise ValueError(f"a device index is one integer, got {sel.dtype} {tuple(sel.shape)}")
+    if impl == "plain":
+        out = onehot_gather_plain(x2, slot_view(g.perm, sel, base))
+    else:  # the entries run their plain versions on CPU tensors
+        sel32 = sel.reshape(()) if sel.dtype == torch.int32 else sel.to(torch.int32).reshape(())
+        if gather_kernel() == "onehot_matmul":
+            out = onehot_matmul_idx(x2, g.packed, sel32, base)
+        else:
+            out = onehot_gather_idx(x2, g.perm, sel32, base)
     return out.reshape(*x.shape[:-1], out.shape[-1])

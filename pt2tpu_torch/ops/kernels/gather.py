@@ -12,10 +12,19 @@
     planes decoded once into a lane map, then x's rows staged in shared
     memory and gathered), ``csrc/onehot_matmul.cu`` below.
 
+  * K4s / K5s ``onehot_gather_idx`` / ``onehot_matmul_idx``: K4 and K5 on
+    one slot of a whole stack, the slot read by the kernel from device
+    memory (replace ``onehot_iota_pallas_stacked`` and
+    ``onehot_matmul_pallas_stacked`` with a traced index: a routed expert's
+    gather), on K4's two kernels as :func:`k4_path` chooses and on K5's
+    first kernel (its rows path, from :data:`K5_ROWS_MIN_ROWS` rows, takes
+    no device index).
+
 On a CUDA tensor each wrapper launches its hand-written kernel or raises; on
 a CPU tensor it runs the plain version below. There is no fallback from a
-kernel to its plain version. The ``_stacked`` TPU variants collapse into
-these: a stacked layer is the zero-copy view ``perm[li]`` / ``packed[li]``.
+kernel to its plain version. The ``_stacked`` TPU variants at a host index
+collapse into these: a stacked layer is the zero-copy view ``perm[li]`` /
+``packed[li]``; at a device index they are K4s and K5s.
 """
 
 from __future__ import annotations
@@ -28,9 +37,10 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["K4_ROWS_MAX_ROW_BYTES", "K4_ROWS_MIN_ROWS", "K5_MAP_FIELDS", "K5_ROWS_MAX_ROW_BYTES",
-           "K5_ROWS_MIN_ROWS", "k4_path", "k5_path", "onehot_gather", "onehot_gather_plain",
-           "onehot_lane_map_plain", "onehot_matmul", "onehot_matmul_plain",
-           "onehot_matmul_rows_plain", "onehot_planes"]
+           "K5_ROWS_MIN_ROWS", "k4_path", "k5_path", "onehot_gather", "onehot_gather_idx",
+           "onehot_gather_idx_plain", "onehot_gather_plain", "onehot_lane_map_plain",
+           "onehot_matmul", "onehot_matmul_idx", "onehot_matmul_idx_plain",
+           "onehot_matmul_plain", "onehot_matmul_rows_plain", "onehot_planes", "slot_view"]
 
 K4_ROWS_MIN_ROWS = 1
 """The fewest rows K4 runs on its rows path (``csrc/onehot_gather_rows.cu``).
@@ -90,6 +100,27 @@ def onehot_gather_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     m = x.shape[-1]
     idx = perm.to(device=x.device, dtype=torch.long).clamp(max=m)
     return torch.index_select(F.pad(x, (0, 1)), -1, idx)
+
+
+def slot_view(stack: torch.Tensor, sel: torch.Tensor, base: int = 0) -> torch.Tensor:
+    """Slot ``base + sel`` of a stacked leaf, taken with ``index_select`` on
+    the stack's device (a copy; ``sel`` is never read on the host). The
+    device-index plain versions and the plain route use it."""
+    return stack.index_select(0, sel.reshape(1).to(torch.long) + base)[0]
+
+
+def onehot_gather_idx_plain(x: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
+                            base: int = 0) -> torch.Tensor:
+    """K4s's plain version: K4's on slot ``base + sel`` of an (S, K) perm
+    stack."""
+    return onehot_gather_plain(x, slot_view(perm, sel, base))
+
+
+def onehot_matmul_idx_plain(x: torch.Tensor, gpacked: torch.Tensor, sel: torch.Tensor,
+                            base: int = 0) -> torch.Tensor:
+    """K5s's plain version: K5's on slot ``base + sel`` of an (S, D//4, K)
+    planes stack."""
+    return onehot_matmul_plain(x, slot_view(gpacked, sel, base))
 
 
 def onehot_planes(gpacked: torch.Tensor) -> torch.Tensor:
@@ -173,12 +204,21 @@ _mm_lib = None
 _rows_lib = None
 
 
+# the device-index C entries: x, the stack, out, then 4 ints, sel, base, S,
+# device, stream
+_IDX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
         lib = _build.load("onehot_gather")
         fn = lib.pt2_onehot_gather
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_onehot_gather_idx
+        fn.argtypes = _IDX_ARGS
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -194,6 +234,9 @@ def _gather_rows_kernel_lib():
         fn = lib.pt2_onehot_gather_rows_plan
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.pt2_onehot_gather_rows_idx
+        fn.argtypes = _IDX_ARGS
+        fn.restype = ctypes.c_int
         _gather_rows_lib = lib
     return _gather_rows_lib
 
@@ -204,6 +247,10 @@ def _mm_kernel_lib():
         lib = _build.load("onehot_matmul")
         fn = lib.pt2_onehot_matmul
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_onehot_matmul_idx
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _mm_lib = lib
     return _mm_lib
@@ -362,3 +409,122 @@ def _onehot_matmul_rows(x, gpacked, out):
         raise RuntimeError(f"K5 ('rows' path) launch failed: cudaError {rc}")
     onehot_matmul.launches += 1
     onehot_matmul.launches_rows += 1
+
+
+# ------------------------------------------------ device-index entries ----
+# K4s and K5s (``onehot_iota_pallas_stacked`` / ``onehot_matmul_pallas_stacked``
+# with a traced index): the perm or planes are a whole contiguous stack of S
+# slots and the slot, ``base`` + the int32 that ``sel`` points at, is read by
+# the kernel from device memory, so a routed expert's index never goes to
+# the host. A slot outside [0, S) traps in the kernel.
+
+
+def _check_idx(x, stack, sel, what):
+    """Checks the operands common to K4s and K5s: x (rows, m) bf16 or f32 on
+    CUDA, a contiguous stack on x's device, ``sel`` one int32 there."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} takes x (rows, m), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} takes bf16 or f32 x, got {x.dtype}")
+    if stack.device != x.device or not stack.is_contiguous():
+        raise ValueError(f"{what}'s stack must be contiguous on {x.device}")
+    if sel.dtype != torch.int32 or sel.numel() != 1 or sel.device != x.device:
+        raise ValueError(f"sel must be one int32 on {x.device}, got {sel.dtype} "
+                         f"{tuple(sel.shape)} on {sel.device}")
+
+
+def onehot_gather_idx(x: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
+                      base: int = 0) -> torch.Tensor:
+    """K4s: x[:, perm[base + sel]]: (rows, m) x (S, K) int32 perm stack ->
+    (rows, K) in x's dtype, with ``sel`` one int32 on x's device that only
+    the kernel reads.
+
+    CUDA: on the path :func:`k4_path` names, "rows" through
+    ``pt2_onehot_gather_rows_idx`` (the stack's base must be 16-byte
+    aligned; each slot is, as K % 8 == 0), "cuda_core" through
+    ``pt2_onehot_gather_idx``. Counts the call in
+    ``onehot_gather_idx.launches`` (the rows path also in
+    ``onehot_gather_idx.launches_rows``), not in K4's counters. No scratch:
+    a CUDA graph may capture it. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return onehot_gather_idx_plain(x, perm, sel, base)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K4s for device {x.device}")
+    _check_idx(x, perm, sel, "K4s")
+    if perm.dim() != 2 or perm.dtype != torch.int32:
+        raise ValueError(f"K4s takes an (S, K) int32 perm stack, got {perm.dtype} "
+                         f"{tuple(perm.shape)}")
+    rows, m = x.shape
+    S, K = perm.shape
+    x = x.contiguous()
+    out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
+    if rows == 0 or K == 0:
+        return out
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    path = k4_path(rows, m, K, x.element_size())
+    if path == "rows":
+        if perm.data_ptr() % 16:
+            raise ValueError(f"K4s's rows path reads perm {tuple(perm.shape)} as 16-byte "
+                             "vectors: its stack must be 16-byte aligned")
+        fn = _gather_rows_kernel_lib().pt2_onehot_gather_rows_idx
+    else:
+        fn = _kernel_lib().pt2_onehot_gather_idx
+    rc = fn(x.data_ptr(), perm.data_ptr(), out.data_ptr(), rows, m, K, x.element_size(),
+            sel.data_ptr(), base, S, device, stream)
+    if rc != 0:
+        raise RuntimeError(f"K4s ({path!r} path) launch failed: cudaError {rc}")
+    onehot_gather_idx.launches += 1
+    onehot_gather_idx.launches_rows += path == "rows"
+    return out
+
+
+onehot_gather_idx.launches = 0
+onehot_gather_idx.launches_rows = 0
+
+
+def onehot_matmul_idx(x: torch.Tensor, gpacked: torch.Tensor, sel: torch.Tensor,
+                      base: int = 0) -> torch.Tensor:
+    """K5s: x @ G[base + sel]: (rows, m) x (S, D//4, K) int8 planes stack ->
+    (rows, K) in x's dtype, with ``sel`` one int32 on x's device that only
+    the kernel reads.
+
+    CUDA: K5's first kernel, ``pt2_onehot_matmul_idx``, where :func:`k5_path`
+    says "cuda_core" (rows 1 .. K5_ROWS_MIN_ROWS - 1: the decode rows); its
+    rows path takes no device index and raises. Counts the call in
+    ``onehot_matmul_idx.launches``, not in K5's. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return onehot_matmul_idx_plain(x, gpacked, sel, base)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K5s for device {x.device}")
+    _check_idx(x, gpacked, sel, "K5s")
+    if gpacked.dim() != 3 or gpacked.dtype != torch.int8:
+        raise ValueError(f"K5s takes an (S, D//4, K) int8 planes stack, got {gpacked.dtype} "
+                         f"{tuple(gpacked.shape)}")
+    rows, m = x.shape
+    S, D4, K = gpacked.shape
+    if D4 % 32 or K % 128 or m > D4 * 4:
+        raise ValueError(f"bad one-hot shapes: planes {tuple(gpacked.shape)} for x width {m}")
+    if gpacked.data_ptr() % 4:
+        raise ValueError(f"K5s reads the planes {tuple(gpacked.shape)} as 4-byte words: its "
+                         "stack must be 4-byte aligned")
+    path = k5_path(rows, m, x.element_size())
+    if path != "cuda_core":
+        raise NotImplementedError(f"K5's {path!r} path takes no device index ({rows} rows)")
+    x = x.contiguous()
+    out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return out
+    rc = _mm_kernel_lib().pt2_onehot_matmul_idx(
+        x.data_ptr(), gpacked.data_ptr(), out.data_ptr(), rows, m, D4, K, x.element_size(),
+        sel.data_ptr(), base, S,
+        x.device.index if x.device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K5s launch failed: cudaError {rc}")
+    onehot_matmul_idx.launches += 1
+    return out
+
+
+onehot_matmul_idx.launches = 0

@@ -33,7 +33,12 @@
     rows :data:`K6_TC_MIN_ROWS` .. :data:`FUSED_MAX_ROWS`; the gather run as
     a CUDA-core matmul's prologue (``csrc/ternary_matmul_gathered.cu``) for
     every other shape.
-  * K2 ``ternary_mlp``: the whole gated MLP, silu, gelu or relu (replaces
+  * K6s ``ternary_matmul_gathered_idx``: K6 at decode rows on one slot of
+    whole stacks, the slot read by the kernels from device memory (replaces
+    ``ternary_matmul_pallas_gathered_stacked`` with a traced index), on K6's
+    decode path (both launches' IDX instances) or its CUDA-core kernel as
+    :func:`k6_path` chooses.
+  * K2 ``ternary_mlp``: the whole MLP, silu, gelu or relu (replaces
     ``ternary_mlp_pallas``), on three paths chosen by rows (:func:`k2_path`):
     K1's decode GEMV over gateup with x staged through perm, the gated
     epilogue in the last CTA of each gate/up tile pair, then K1's decode
@@ -42,13 +47,15 @@
     gate/up product with the gated epilogue, then K3's product over mid
     (``csrc/ternary_mlp_tc.cu``) for rows :data:`K2_TC_MIN_ROWS` ..
     :data:`FUSED_MAX_ROWS`; one CUDA-core launch (``csrc/ternary_mlp.cu``)
-    for the rows neither takes (the A/Bs' "off" turns).
+    for the rows neither takes (the A/Bs' "off" turns). An ungated gateup
+    (up alone, :func:`_mlp_shapes`) takes each path's ungated instance, whose
+    epilogue writes mid = act(up).
 
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
 from a kernel to its plain version. The ``_stacked`` TPU variants at a host
 index collapse into these: a stacked layer is the zero-copy view
-``packed[li]``; at a device index they are K1s and K3s.
+``packed[li]``; at a device index they are K1s, K3s and K6s.
 
 The plain versions repeat ``pt2tpu.ops.ternary_matmul.ternary_matmul_xla``:
 unpack, one product per scale block, then the scales, all in f32.
@@ -65,7 +72,7 @@ import torch.nn.functional as F
 
 from ...core.packing import unpack_ternary
 from . import _build
-from .gather import onehot_gather_plain, onehot_matmul_plain, onehot_planes
+from .gather import onehot_gather_plain, onehot_matmul_plain, onehot_planes, slot_view
 
 __all__ = [
     "K1_TC_MIN_ROWS",
@@ -96,6 +103,8 @@ __all__ = [
     "ternary_matmul_igathered_idx_plain",
     "ternary_matmul_gathered",
     "ternary_matmul_gathered_plain",
+    "ternary_matmul_gathered_idx",
+    "ternary_matmul_gathered_idx_plain",
     "K6_DEC_MAX_ROWS",
     "K6_TC_MIN_ROWS",
     "k6_path",
@@ -240,30 +249,38 @@ def ternary_matmul_gathered_plain(
 
 
 def _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha, intermediate, block_size):
-    """The checks of ``pallas_ternary._mlp_common`` for the gated MLP.
-    Returns (Kg, half, nv, n): gate lanes [0, half), up lanes [half, 2*half),
-    nv = half // block_size visited k-blocks of down."""
+    """The checks of ``pallas_ternary._mlp_common``, gated and ungated.
+    Returns (Kg, half, nv, n, gated): gated (gateup at least 2 x I wide, a
+    multiple of 2 x block_size), gate lanes [0, half) and up lanes
+    [half, 2 * half); ungated (at least I wide, a multiple of block_size),
+    up alone, half = its width. nv = half // block_size visited k-blocks of
+    down, which must hold them and the superblock of 8 scale rows that the
+    last of them starts."""
     Kg4, gu_n = gu_packed.shape[-2:]
     Kg = Kg4 * 4
     Kd4, n = dn_packed.shape[-2:]
+    nbd = dn_alpha.shape[-2]
     bs, I = block_size, intermediate
-    if not (gu_n >= 2 * I and gu_n % (2 * bs) == 0):
-        if gu_n >= I and gu_n % bs == 0:
-            raise NotImplementedError("the ungated MLP (act(up) alone) is not ported")
+    if gu_n >= 2 * I and gu_n % (2 * bs) == 0:
+        gated, half = True, gu_n // 2
+    elif gu_n >= I and gu_n % bs == 0:
+        gated, half = False, gu_n
+    else:
         raise ValueError(f"gateup width {gu_n} vs intermediate {I}")
-    half = gu_n // 2
-    if bs % 128 or gu_alpha.shape[-2] * bs != Kg or dn_alpha.shape[-2] * bs != Kd4 * 4:
+    if bs % 128 or gu_alpha.shape[-2] * bs != Kg or nbd * bs != Kd4 * 4:
         raise ValueError(
             f"bad shapes: gu {tuple(gu_packed.shape)}, dn {tuple(dn_packed.shape)}, bs {bs}"
         )
     if I % bs:
         raise ValueError(f"intermediate {I} not a multiple of block {bs}")
     nv = half // bs
-    if nv > dn_alpha.shape[-2]:
-        raise ValueError(f"gate-half blocks {nv} exceed down blocks {dn_alpha.shape[-2]}")
+    if nv > nbd:
+        raise ValueError(f"gate-half blocks {nv} exceed down blocks {nbd}")
+    if -(-nv // 8) * 8 > nbd:
+        raise ValueError(f"down scale rows {nbd} < {-(-nv // 8) * 8} (superblock bound)")
     if n % 128:
         raise ValueError(f"out_features {n} must be a multiple of 128")
-    return Kg, half, nv, n
+    return Kg, half, nv, n, gated
 
 
 MLP_ACTS = ("silu", "gelu", "relu")
@@ -290,10 +307,18 @@ def mlp_activation(act: str, v: torch.Tensor) -> torch.Tensor:
     return F.relu(v)
 
 
+def _mid_plain(act: str, gu: torch.Tensor, half: int, gated: bool, dtype) -> torch.Tensor:
+    """mid from the f32 gateup product: act(gate) * up (gated) or act(up)
+    (ungated), in f32, cast to ``dtype``."""
+    if gated:
+        return (mlp_activation(act, gu[:, :half]) * gu[:, half:]).to(dtype)
+    return mlp_activation(act, gu).to(dtype)
+
+
 def ternary_mlp_plain(
     x: torch.Tensor,  # (B, m) post-norm hidden, feature order
     gu_perm: Optional[torch.Tensor],  # (Kg,) gateup's visit perm, or None
-    gu_packed: torch.Tensor,  # (Kg//4, 2*half): [gate | up], lanes in down's visit order
+    gu_packed: torch.Tensor,  # (Kg//4, 2*half): [gate | up], or (Kg//4, half): up (ungated)
     gu_alpha: torch.Tensor,
     gu_mu: torch.Tensor,
     dn_packed: torch.Tensor,  # (Kd//4, n), Kd >= half (pad blocks zero-scaled)
@@ -303,14 +328,15 @@ def ternary_mlp_plain(
     block_size: int = 128,
     act: str = "silu",
 ) -> torch.Tensor:
-    """The whole gated MLP, (B, m) -> (B, n) f32, as ``ternary_mlp_pallas``
+    """The whole MLP, (B, m) -> (B, n) f32, as ``ternary_mlp_pallas``
     computes it: the gather (or a zero pad to Kg), gate and up at the stored
     half width, mid = act(gate) * up in f32 cast to x's dtype (the kernel's
-    operand type), then down over its first half // block_size blocks.
+    operand type), then down over its first half // block_size blocks; for
+    an ungated gateup (up alone, :func:`_mlp_shapes`) mid = act(up).
     ``act`` is one of :data:`MLP_ACTS`."""
     mlp_act_code(act)
-    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
-                                  intermediate, block_size)
+    Kg, half, nv, _, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                         intermediate, block_size)
     if gu_perm is not None:
         xg = onehot_gather_plain(x, gu_perm)
     else:
@@ -318,9 +344,15 @@ def ternary_mlp_plain(
             raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
         xg = F.pad(x, (0, Kg - x.shape[-1]))
     bs = block_size
-    gate = ternary_matmul_plain(xg, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half], bs)
-    up = ternary_matmul_plain(xg, gu_packed[:, half:], gu_alpha[:, half:], gu_mu[:, half:], bs)
-    mid = (mlp_activation(act, gate) * up).to(x.dtype)
+    if gated:
+        gate = ternary_matmul_plain(xg, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half],
+                                    bs)
+        up = ternary_matmul_plain(xg, gu_packed[:, half:], gu_alpha[:, half:], gu_mu[:, half:],
+                                  bs)
+        mid = (mlp_activation(act, gate) * up).to(x.dtype)
+    else:
+        mid = mlp_activation(act, ternary_matmul_plain(xg, gu_packed, gu_alpha, gu_mu, bs)).to(
+            x.dtype)
     return ternary_matmul_plain(mid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
 
 
@@ -884,18 +916,21 @@ def mlp_tc_mid_plain(
     block_size: int = 128,
     *,
     wave: int,
+    gated: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second launch of K2's tensor-core path, its gate/up product and
     gated epilogue: gate | up = K3's product (:func:`_igtc_product_plain`,
     slices of ``wave``) over all 2 * half columns; mid = act(gate) * up cast
     to xg's dtype, in down's fragment order; Smid (half // bs, Bp) f32 each
     down block's sum of mid as stored, its first 64 lanes then its last 64
-    (a CTA's share each), added in that order. Returns (mid, Smid)."""
+    (a CTA's share each; ungated, the two halves of one CTA's), added in
+    that order. ``gated`` False: the product over up's half columns and
+    mid = act(up). Returns (mid, Smid)."""
     mlp_act_code(act)
     Bp = xg.shape[0]
-    half = gu_packed.shape[1] // 2
+    half = gu_packed.shape[1] // 2 if gated else gu_packed.shape[1]
     gu = _igtc_product_plain(xg, S, gu_packed, gu_alpha, gu_mu, block_size, wave)
-    mid = (mlp_activation(act, gu[:, :half]) * gu[:, half:]).to(xg.dtype)
+    mid = _mid_plain(act, gu, half, gated, xg.dtype)
     halves = mid.float().reshape(Bp, half // 64, 64).sum(dim=2)
     Smid = (halves[:, 0::2] + halves[:, 1::2]).T.contiguous()
     return _fragment_order(mid, block_size), Smid
@@ -920,17 +955,19 @@ def ternary_mlp_tc_plain(
     ``pt2_ternary_mlp_tc``) in f32: :func:`mlp_tc_gather_plain`, then
     :func:`mlp_tc_mid_plain`, then K3's product over mid and Smid with K =
     half (down's first half // bs blocks), each product cut into the
-    :func:`igtc_splits` slices of ``wave`` and summed in slice order. The
-    scratches hold x's dtype: bf16 on the card (the wrapper casts x), f32
-    where a CPU test holds the algorithm against JAX's f32 interpret mode.
-    Returns (B, n) f32."""
+    :func:`igtc_splits` slices of ``wave`` and summed in slice order; an
+    ungated gateup (up alone) through the ungated epilogue. The scratches
+    hold x's dtype: bf16 on the card (the wrapper casts x), f32 where a CPU
+    test holds the algorithm against JAX's f32 interpret mode. Returns
+    (B, n) f32."""
     mlp_act_code(act)
-    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
-                                  intermediate, block_size)
+    Kg, half, nv, _, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                         intermediate, block_size)
     if block_size != 128:
         raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
     xg, S = mlp_tc_gather_plain(x, gu_perm, Kg, block_size)
-    mid, Smid = mlp_tc_mid_plain(xg, S, gu_packed, gu_alpha, gu_mu, act, block_size, wave=wave)
+    mid, Smid = mlp_tc_mid_plain(xg, S, gu_packed, gu_alpha, gu_mu, act, block_size, wave=wave,
+                                 gated=gated)
     out = _igtc_product_plain(mid, Smid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv],
                               block_size, wave)
     return out[: x.shape[0]]
@@ -957,13 +994,13 @@ def ternary_mlp_dec_plain(
     :func:`ternary_matmul_dec_plain` on x zero-padded to Kg lanes) over the
     whole gateup in its :func:`dec_splits` slices of ``wave``, each column's
     slices summed in slice order (which CTA of a gate/up pair sums them does
-    not change the sum); mid = act(gate) * up cast to x's dtype (bf16 on the
-    card, f32 where a CPU test holds the algorithm against JAX's f32
-    interpret mode); then the decode GEMV over mid and down's first
-    half // bs blocks. Returns (B, n) f32."""
+    not change the sum); mid = act(gate) * up (ungated: act(up)) cast to x's
+    dtype (bf16 on the card, f32 where a CPU test holds the algorithm
+    against JAX's f32 interpret mode); then the decode GEMV over mid and
+    down's first half // bs blocks. Returns (B, n) f32."""
     mlp_act_code(act)
-    Kg, half, nv, _ = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
-                                  intermediate, block_size)
+    Kg, half, nv, _, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                         intermediate, block_size)
     if block_size != 128:
         raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
     if gu_perm is not None:
@@ -974,7 +1011,7 @@ def ternary_mlp_dec_plain(
             raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
         gu = ternary_matmul_dec_plain(F.pad(x, (0, Kg - x.shape[-1])), gu_packed, gu_alpha,
                                       gu_mu, block_size, wave=wave)
-    mid = (mlp_activation(act, gu[:, :half]) * gu[:, half:]).to(x.dtype)
+    mid = _mid_plain(act, gu, half, gated, x.dtype)
     return _dec_plain(mid.float(), dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], block_size,
                       wave)
 
@@ -1083,9 +1120,9 @@ def _mlp_tc_kernel_lib():
     global _mlp_tc_lib
     if _mlp_tc_lib is None:
         lib = _build.load("ternary_mlp_tc")
-        fn = lib.pt2_ternary_mlp_tc
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.pt2_ternary_mlp_tc, lib.pt2_ternary_mlp_tc_ungated):
+            fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _mlp_tc_lib = lib
     return _mlp_tc_lib
 
@@ -1094,9 +1131,9 @@ def _mlp_dec_kernel_lib():
     global _mlp_dec_lib
     if _mlp_dec_lib is None:
         lib = _build.load("ternary_mlp_dec")
-        fn = lib.pt2_ternary_mlp_dec
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.pt2_ternary_mlp_dec, lib.pt2_ternary_mlp_dec_ungated):
+            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _mlp_dec_lib = lib
     return _mlp_dec_lib
 
@@ -1107,6 +1144,9 @@ def _gathered_kernel_lib():
         lib = _build.load("ternary_matmul_gathered")
         fn = lib.pt2_ternary_matmul_gathered
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_gathered_idx
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _gathered_lib = lib
     return _gathered_lib
@@ -1124,6 +1164,9 @@ def _gathered_dec_kernel_lib():
         lib = _build.load("ternary_matmul_gathered_dec")
         fn = lib.pt2_ternary_matmul_gathered_dec
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pt2_ternary_matmul_gathered_dec_idx
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bind_planes_gather(lib)
         _gathered_dec_lib = lib
@@ -1582,8 +1625,7 @@ def ternary_matmul_idx(
     B = x.shape[0]
     path = k1_path(B, n, block_size, a8)
     if path not in ("dec", "cuda_core"):
-        raise NotImplementedError(f"K1's {path} path takes no device index ({B} rows; "
-                                  "ROADMAP §2)")
+        raise NotImplementedError(f"K1's {path} path takes no device index ({B} rows)")
     xk, sx = _idx_operands(x, a8)
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
@@ -1646,8 +1688,7 @@ def ternary_matmul_igathered_idx(
     S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel, m=m, perm=perm)
     path = k3_path(B, n, block_size, a8)
     if path not in ("dec", "cuda_core"):
-        raise NotImplementedError(f"K3's {path} path takes no device index ({B} rows; "
-                                  "ROADMAP §2)")
+        raise NotImplementedError(f"K3's {path} path takes no device index ({B} rows)")
     xk, sx = _idx_operands(x, a8)
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if B == 0:
@@ -1821,6 +1862,97 @@ ternary_matmul_gathered.launches_dec = 0
 ternary_matmul_gathered.launches_tc = 0
 
 
+def ternary_matmul_gathered_idx_plain(x, gpacked, packed, alpha, mu, sel, base=0,
+                                      block_size=128, a8=False):
+    """K6s's plain version: K6's on slot ``base + sel`` of the planes and
+    weight stacks, the slot taken with ``index_select`` on the device (never
+    read on the host)."""
+    s = lambda t: slot_view(t, sel, base)  # noqa: E731
+    return ternary_matmul_gathered_plain(x, s(gpacked), s(packed), s(alpha), s(mu), block_size,
+                                         a8)
+
+
+def ternary_matmul_gathered_idx(
+    x: torch.Tensor,
+    gpacked: torch.Tensor,
+    packed: torch.Tensor,
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    sel: torch.Tensor,
+    base: int = 0,
+    block_size: int = 128,
+    a8: bool = False,
+) -> torch.Tensor:
+    """K6s: out = (x @ G[s]) @ dequant(packed[s]), s = base + sel, with
+    gpacked an (S, D//4, K) planes stack beside the (S, ...) weight stacks
+    and ``sel`` one int32 on x's device that only the kernels read:
+    (B, m) -> (B, n) f32.
+
+    CUDA: on the path :func:`k6_path` names, "dec" through
+    ``pt2_ternary_matmul_gathered_dec_idx`` (the plane gather's and K1's
+    decode kernel's IDX instances, both reading the same int32, with the
+    stream's scratch, :func:`_k6_plan`), "cuda_core" through
+    ``pt2_ternary_matmul_gathered_idx`` (W2A8 decode rows while K1_DEC_A8 is
+    off); its tensor-core path (rows 9-64) takes no device index and
+    raises. Counts the call in ``ternary_matmul_gathered_idx.launches`` (the
+    decode path also in ``ternary_matmul_gathered_idx.launches_dec``), not
+    in K6's counters. CPU: the plain version."""
+    if x.device.type == "cpu":
+        return ternary_matmul_gathered_idx_plain(x, gpacked, packed, alpha, mu, sel, base,
+                                                 block_size, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K6s for device {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= 64:
+        raise ValueError(f"K6s takes x (B, m) with 1 <= B <= 64, got {tuple(x.shape)}")
+    if block_size != 128:
+        raise ValueError(f"K6s takes scale blocks of 128, got {block_size}")
+    B, m = x.shape
+    S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel, m=m)
+    if gpacked.dtype != torch.int8 or gpacked.device != x.device or not gpacked.is_contiguous():
+        raise ValueError(f"the gather planes must be a contiguous int8 stack on {x.device}")
+    if gpacked.dim() != 3 or gpacked.shape[0] != S or gpacked.shape[2] != K \
+            or gpacked.shape[1] % 32 or m > gpacked.shape[1] * 4:
+        raise ValueError(f"gather planes {tuple(gpacked.shape)} do not match {S} slots, x width "
+                         f"{m} and {K} lanes")
+    if n % 128:
+        raise ValueError(f"K6s takes out_features divisible by 128, got {n}")
+    D4 = gpacked.shape[1]
+    path = k6_path(B, n, block_size, a8)
+    if path == "tc":
+        raise NotImplementedError(f"K6's 'tc' path takes no device index ({B} rows)")
+    xk, sx = _k6_rows(x, a8)
+    xk = xk.contiguous()
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    device, stream = _device_and_stream(xk)
+    if path == "dec":
+        # the slots are 16-byte multiples (K and n multiples of 128): the bases decide
+        if any(t.data_ptr() % 16 for t in (gpacked, packed, alpha, mu)):
+            raise ValueError(f"K6s's decode path reads the stacks (planes "
+                             f"{tuple(gpacked.shape)}, packed {tuple(packed.shape)}) as 16-byte "
+                             "vectors: each must be 16-byte aligned")
+        splits, xg, _, partial, counters, _ = _k6_plan(xk, stream, device, "dec", K, n)
+        rc = _gathered_dec_kernel_lib().pt2_ternary_matmul_gathered_dec_idx(
+            xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
+            mu.data_ptr(), xg, out.data_ptr() if partial is None else partial, out.data_ptr(),
+            counters, sel.data_ptr(), base, S, B, m, D4, K, n, splits, int(bool(a8)), device,
+            stream)
+    else:
+        partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
+        rc = _gathered_kernel_lib().pt2_ternary_matmul_gathered_idx(
+            xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
+            mu.data_ptr(), partial.data_ptr(), out.data_ptr(), sel.data_ptr(), base, S, B, m, D4,
+            K, n, int(bool(a8)), device, stream)
+    if rc != 0:
+        raise RuntimeError(f"K6s ({path!r} path) launch failed: cudaError {rc}")
+    ternary_matmul_gathered_idx.launches += 1
+    ternary_matmul_gathered_idx.launches_dec += path == "dec"
+    return out * sx if a8 else out
+
+
+ternary_matmul_gathered_idx.launches = 0
+ternary_matmul_gathered_idx.launches_dec = 0
+
+
 def ternary_mlp(
     x: torch.Tensor,
     gu_perm: Optional[torch.Tensor],
@@ -1834,20 +1966,23 @@ def ternary_mlp(
     block_size: int = 128,
     act: str = "silu",
 ) -> torch.Tensor:
-    """The whole gated MLP, (B, m) -> (B, n) f32, with ``act`` silu, gelu
-    (tanh form) or relu (see ternary_mlp_plain).
+    """The whole MLP, (B, m) -> (B, n) f32, gated (gateup 2 x half wide) or
+    ungated (gateup up alone, I or more wide; see :func:`_mlp_shapes`), with
+    ``act`` silu, gelu (tanh form) or relu (see ternary_mlp_plain).
 
     CUDA: launches K2 for B <= 64 rows in bf16 on the path :func:`k2_path`
     names for B, read at each call: "dec" (rows 1 .. K2_DEC_MAX_ROWS) the
     gate/up and down launches of the decode path; "tc" (rows
     K2_TC_MIN_ROWS .. 64) the gather, gate/up and down launches of the
     tensor-core path; "cc" the CUDA-core MLP kernel, instantiated for the
-    activation, and the fixed-order sum of its per-I-block partials. Counts
-    the call once in ``ternary_mlp.launches`` (the decode path also in
+    activation, and the fixed-order sum of its per-I-block partials; each
+    path in its ungated instance for an ungated gateup. Counts the call
+    once in ``ternary_mlp.launches`` (the decode path also in
     ``ternary_mlp.launches_dec``, the tensor-core path in
-    ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``;
-    the decode path's down launch is not one of ``ternary_matmul``'s).
-    CPU: the plain version."""
+    ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``,
+    the ungated MLP also in ``ternary_mlp.launches_ungated``; the decode
+    path's down launch is not one of ``ternary_matmul``'s). CPU: the plain
+    version."""
     code = mlp_act_code(act)
     if x.device.type == "cpu":
         return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
@@ -1858,8 +1993,9 @@ def ternary_mlp(
         raise ValueError(f"K2 takes x (B, m) with 1 <= B <= 64, got {tuple(x.shape)}")
     if block_size != 128:
         raise ValueError(f"K2 takes scale blocks of 128, got {block_size}")
-    Kg, half, nv, n = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
-                                  intermediate, block_size)
+    Kg, half, nv, n, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                         intermediate, block_size)
+    gu_n = 2 * half if gated else half
     B, m = x.shape
     path = k2_path(B)
     for name, t, dt in (("gu_packed", gu_packed, torch.int8), ("gu_alpha", gu_alpha, torch.bfloat16),
@@ -1872,7 +2008,7 @@ def ternary_mlp(
         # the tensor-core paths load codes and scales as 16-byte vectors
         if t.data_ptr() % (16 if path != "cc" else 4 if dt == torch.int8 else 8):
             raise ValueError(f"{name} is not aligned for K2's vector loads on its {path!r} path")
-    if gu_alpha.shape != (Kg // 128, 2 * half) or gu_mu.shape != gu_alpha.shape:
+    if gu_alpha.shape != (Kg // 128, gu_n) or gu_mu.shape != gu_alpha.shape:
         raise ValueError(f"gateup scales {tuple(gu_alpha.shape)} do not match its planes")
     if dn_alpha.shape != (dn_packed.shape[0] // 32, n) or dn_mu.shape != dn_alpha.shape:
         raise ValueError(f"down scales {tuple(dn_alpha.shape)} do not match its planes")
@@ -1884,11 +2020,11 @@ def ternary_mlp(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if path == "dec":
         _ternary_mlp_dec(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
-                         out, half, code)
+                         out, half, code, gated)
         ternary_mlp.launches_dec += 1
     elif path == "tc":
         _ternary_mlp_tc(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
-                        out, half, code)
+                        out, half, code, gated)
         ternary_mlp.launches_tc += 1
     else:
         partial = torch.empty((nv, B, n), dtype=torch.float32, device=x.device)
@@ -1896,13 +2032,14 @@ def ternary_mlp(
             xk.data_ptr(), None if gu_perm is None else gu_perm.data_ptr(),
             gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
             dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, m, Kg, 2 * half, half,
+            partial.data_ptr(), out.data_ptr(), B, m, Kg, gu_n, half,
             dn_packed.shape[0] * 4, n, code, *_device_and_stream(x),
         )
         if rc != 0:
             raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     ternary_mlp.launches += 1
     ternary_mlp.launches_gelu += act == "gelu"
+    ternary_mlp.launches_ungated += not gated
     return out
 
 
@@ -1910,6 +2047,7 @@ ternary_mlp.launches = 0
 ternary_mlp.launches_dec = 0
 ternary_mlp.launches_tc = 0
 ternary_mlp.launches_gelu = 0
+ternary_mlp.launches_ungated = 0
 
 
 _identity_perms: dict = {}
@@ -1927,38 +2065,42 @@ def _identity_perm(Kg: int, device) -> torch.Tensor:
 
 
 def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
-                    code):
-    """K2's tensor-core path (``pt2_ternary_mlp_tc``): K3's gather into a
-    (Bp, Kg) bf16 scratch and its block sums (through the identity perm
-    without a gather), the gate/up product with the gated epilogue into a
-    (Bp, half) bf16 mid scratch and its block sums, then K3's product over
-    mid, each product over igtc_splits K slices of the card's wave with its
-    (splits, ., .) f32 partials; all scratch is allocated here, the counters
-    are the stream's (shared with K1's and K3's split-K paths). xk is bf16 x
-    (B, m); perm is read as 8-byte vectors (a copy if it is not 16-byte
-    aligned). Writes out; a launch that fails raises."""
+                    code, gated=True):
+    """K2's tensor-core path (``pt2_ternary_mlp_tc``, ungated
+    ``pt2_ternary_mlp_tc_ungated``): K3's gather into a (Bp, Kg) bf16
+    scratch and its block sums (through the identity perm without a gather),
+    the gate/up product with the gated epilogue (ungated: the up product
+    with act alone) into a (Bp, half) bf16 mid scratch and its block sums,
+    then K3's product over mid, each product over igtc_splits K slices of
+    the card's wave with its (splits, ., .) f32 partials; all scratch is
+    allocated here, the counters are the stream's (shared with K1's and
+    K3's split-K paths). xk is bf16 x (B, m); perm is read as 8-byte vectors
+    (a copy if it is not 16-byte aligned). Writes out; a launch that fails
+    raises."""
     B, m = xk.shape
     Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
+    gu_n = 2 * half if gated else half
     if perm is None:
         perm = _identity_perm(Kg, xk.device)
     elif perm.data_ptr() % 16:
         perm = perm.clone()
     device, stream = _device_and_stream(xk)
     wave = IGTC_CTAS_PER_SM * _sm_count(device)
-    gu_splits = igtc_splits(Kg, 2 * half, 128, wave)
+    gu_splits = igtc_splits(Kg, gu_n, 128, wave)
     dn_splits = igtc_splits(half, n, 128, wave)
     Bp = igtc_rows_pad(B)
     bf16 = dict(dtype=torch.bfloat16, device=xk.device)
     f32 = dict(dtype=torch.float32, device=xk.device)
     xg = torch.empty((Bp, Kg), **bf16)
     sums = torch.empty((Kg // 128, Bp), **f32)
-    gu_partial = torch.empty((gu_splits, Bp, 2 * half), **f32) if gu_splits > 1 else None
+    gu_partial = torch.empty((gu_splits, Bp, gu_n), **f32) if gu_splits > 1 else None
     mid = torch.empty((Bp, half), **bf16)
     mid_sums = torch.empty((half // 64 + half // 128, Bp), **f32)
     dn_partial = torch.empty((dn_splits, B, n), **f32) if dn_splits > 1 else None
     counters = _dec_counter_buffer(xk.device, stream, max(half // 64 + half // 128, n // 128),
                                    "K2's tensor-core path")
-    rc = _mlp_tc_kernel_lib().pt2_ternary_mlp_tc(
+    lib = _mlp_tc_kernel_lib()
+    rc = (lib.pt2_ternary_mlp_tc if gated else lib.pt2_ternary_mlp_tc_ungated)(
         xk.data_ptr(), perm.data_ptr(), gu_packed.data_ptr(), gu_alpha.data_ptr(),
         gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
         xg.data_ptr(), sums.data_ptr(), None if gu_partial is None else gu_partial.data_ptr(),
@@ -1973,25 +2115,26 @@ def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, d
 _mlp_dec_plans: dict = {}
 
 
-def _mlp_dec_plan(xk, stream, device, Kg, half, n):
+def _mlp_dec_plan(xk, stream, device, Kg, half, n, gated=True):
     """What a launch of K2's decode path for xk's rows on ``stream`` needs
     beside its operands, kept between calls (a decode step asks it once per
     layer): (gu_splits, dn_splits, its three scratch pointers, the counters'
     pointer, the identity perm's pointer, and the tensors that own them).
     The splits are dec_splits' of the card's wave; one scratch holds gate/up's
-    (gu_splits, B, 2 * half) f32 partials, down's (dn_splits, B, n) and mid
-    (B, half) bf16. It is the stream's own, as the counters are, so the
-    launches that share it are ordered by their stream and never overlap; a
-    CUDA graph capture is refused."""
+    (gu_splits, B, gu_n) f32 partials (gu_n = 2 * half, ungated half),
+    down's (dn_splits, B, n) and mid (B, half) bf16. It is the stream's own,
+    as the counters are, so the launches that share it are ordered by their
+    stream and never overlap; a CUDA graph capture is refused."""
     if torch.cuda.is_current_stream_capturing():
         raise NotImplementedError("K2's decode path inside a CUDA graph capture")
     B = xk.shape[0]
-    key = (device, stream, B, Kg, half, n)
+    key = (device, stream, B, Kg, half, n, gated)
     plan = _mlp_dec_plans.get(key)
     if plan is None:
         wave = DEC_CTAS_PER_SM * _sm_count(device)
-        gu_splits, dn_splits = dec_splits(Kg, 2 * half, 128, wave), dec_splits(half, n, 128, wave)
-        gu_len, dn_len = gu_splits * B * 2 * half, dn_splits * B * n
+        gu_n = 2 * half if gated else half
+        gu_splits, dn_splits = dec_splits(Kg, gu_n, 128, wave), dec_splits(half, n, 128, wave)
+        gu_len, dn_len = gu_splits * B * gu_n, dn_splits * B * n
         scratch = torch.empty(gu_len + dn_len + B * half // 2, dtype=torch.float32,
                               device=xk.device)
         counters = _dec_counter_buffer(xk.device, stream, max(half, n) // 128,
@@ -2005,22 +2148,24 @@ def _mlp_dec_plan(xk, stream, device, Kg, half, n):
 
 
 def _ternary_mlp_dec(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
-                     code):
-    """K2's decode path (``pt2_ternary_mlp_dec``): the decode GEMV over gateup
-    with x staged through perm (the identity perm without a gather) and the
-    gated epilogue, then K1's decode kernel over mid, each over dec_splits K
-    slices of the card's wave, with the stream's scratch and counters
-    (:func:`_mlp_dec_plan`). xk is bf16 x (B, m); perm is read as 16-byte
-    vectors (a copy if it is not aligned so). Writes out; a launch that
-    fails raises."""
+                     code, gated=True):
+    """K2's decode path (``pt2_ternary_mlp_dec``, ungated
+    ``pt2_ternary_mlp_dec_ungated``): the decode GEMV over gateup with x
+    staged through perm (the identity perm without a gather) and the gated
+    epilogue (ungated: act(up)), then K1's decode kernel over mid, each over
+    dec_splits K slices of the card's wave, with the stream's scratch and
+    counters (:func:`_mlp_dec_plan`). xk is bf16 x (B, m); perm is read as
+    16-byte vectors (a copy if it is not aligned so). Writes out; a launch
+    that fails raises."""
     B, m = xk.shape
     Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
     if perm is not None and perm.data_ptr() % 16:
         perm = perm.clone()
     device, stream = _device_and_stream(xk)
     gu_splits, dn_splits, gu_part, dn_part, mid, counters, ident, _ = _mlp_dec_plan(
-        xk, stream, device, Kg, half, n)
-    rc = _mlp_dec_kernel_lib().pt2_ternary_mlp_dec(
+        xk, stream, device, Kg, half, n, gated)
+    lib = _mlp_dec_kernel_lib()
+    rc = (lib.pt2_ternary_mlp_dec if gated else lib.pt2_ternary_mlp_dec_ungated)(
         xk.data_ptr(), ident if perm is None else perm.data_ptr(), gu_packed.data_ptr(),
         gu_alpha.data_ptr(), gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(),
         dn_mu.data_ptr(), gu_part, dn_part, mid, out.data_ptr(), counters, B, m, Kg, half, n,

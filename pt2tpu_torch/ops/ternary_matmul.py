@@ -37,12 +37,13 @@ import torch.nn.functional as F
 
 from ..core.packing import pack_ternary
 from .gather import PackedGather, gather_apply, gather_kernel
-from .kernels.gather import onehot_gather_plain
+from .kernels.gather import onehot_gather_plain, slot_view
 from .kernels.ternary import (
     normalize_rows_a8,
     FUSED_MAX_ROWS,
     ternary_matmul,
     ternary_matmul_gathered,
+    ternary_matmul_gathered_idx,
     ternary_matmul_idx,
     ternary_matmul_igathered,
     ternary_matmul_igathered_idx,
@@ -222,9 +223,10 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     from 16 rows, on their rows paths (x's rows staged in shared memory).
 
     ``device_index``: the slot of a stacked ``p`` is a tensor on the device
-    (:func:`ternary_linear_apply_stacked`): K1 and K3 are then their
-    device-index entries "ternary_matmul_idx" and
-    "ternary_matmul_igathered_idx"; the other routes have none."""
+    (:func:`ternary_linear_apply_stacked`): every kernel of the route is
+    then its device-index entry, "ternary_matmul_idx" (K1s),
+    "ternary_matmul_igathered_idx" (K3s), "ternary_matmul_gathered_idx"
+    (K6s), "onehot_gather_idx" (K4s) or "onehot_matmul_idx" (K5s)."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()
@@ -235,8 +237,8 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
         route = ("ternary_matmul_igathered",) if IGATHER_FUSED else ("ternary_matmul_gathered",)
     else:
         route = (gather_kernel(), "ternary_matmul")
-    if device_index and len(route) == 1 and route[0] != "ternary_matmul_gathered":
-        return (route[0] + "_idx",)
+    if device_index:
+        return tuple(name + "_idx" for name in route)
     return route
 
 
@@ -290,11 +292,12 @@ def ternary_linear_apply_stacked(
     ``layer_idx`` a host int: :func:`ternary_linear_apply` on the zero-copy
     view ``p.layer(base + layer_idx)``. A 0-d or 1-element integer tensor on
     the layer's device (a routed expert's index): the slot is never read on
-    the host. On CUDA, K1 and K3 run their device-index entries (K1s, K3s)
-    on the whole stack, with ``base`` passed to the kernel; a route without
-    such an entry (K6, or a gather kernel then K1: the P1 / P2 flags or
-    shapes K3 refuses) raises ``NotImplementedError``. The plain route
-    gathers the slot's weights on the device; on the CPU the index is read."""
+    the host. On CUDA every kernel of the route (:func:`linear_route` with
+    ``device_index``) runs its device-index entry on the whole stack, with
+    ``base`` passed to the kernel: K3s, K6s, or the gather (K4s or K5s)
+    then K1s, as the flags and shapes choose, as JAX's stacked kernels take
+    the traced index. The plain route gathers the slot's weights on the
+    device; on the CPU the index is read."""
     if not isinstance(layer_idx, torch.Tensor):
         return ternary_linear_apply(p.layer(base + layer_idx), x, impl=impl, out_dtype=out_dtype)
     return _apply_device_index(p, x, layer_idx, base, impl, out_dtype)
@@ -310,52 +313,49 @@ def _apply_device_index(p, x, sel, base, impl, out_dtype):
     if p.packed.dim() != 3:
         raise ValueError(f"a device index selects a slot of an (S, K/4, n) stack, got "
                          f"{tuple(p.packed.shape)}")
-    if x.device.type == "cpu":
-        return ternary_linear_apply(p.layer(base + int(sel.reshape(-1)[0])), x, impl=impl,
-                                    out_dtype=out_dtype)
     out_dtype = out_dtype or x.dtype
     lead, m = x.shape[:-1], x.shape[-1]
     if m != p.in_features:
         raise ValueError(f"input features {m} != layer in_features {p.in_features}")
     x2 = x.reshape(-1, m)
-
-    def slot_index():  # base + sel as a device tensor: one launch, off the kernels' routes
-        return sel.reshape(1).long() + base
-
-    if impl == "plain":
-        # the slot's weights gathered on the device (a copy), never read on the host
-        s = slot_index()
-        return ternary_linear_apply(p.map_leaves(lambda t: t.index_select(0, s)[0]), x,
+    route = linear_route(p, x2.shape[0], impl, x2.device, device_index=True)
+    if not route:
+        if x.device.type == "cpu":
+            return ternary_linear_apply(p.layer(base + int(sel.reshape(-1)[0])), x, impl=impl,
+                                        out_dtype=out_dtype)
+        # the plain route: the slot's weights gathered on the device (a copy),
+        # never read on the host
+        return ternary_linear_apply(p.map_leaves(lambda t: slot_view(t, sel, base)), x,
                                     impl="plain", out_dtype=out_dtype)
     bs = p.block_size
     a8 = impl == "a8"
     sel32 = sel.reshape(()) if sel.dtype == torch.int32 else sel.to(torch.int32).reshape(())
-    route = linear_route(p, x2.shape[0], impl, x2.device, device_index=True)
     if route == ("ternary_matmul_igathered_idx",):
         out = ternary_matmul_igathered_idx(x2, p.perm, p.packed, p.alpha, p.mu, sel32, base, bs,
                                            a8=a8)
-    elif route == ("ternary_matmul_idx",):
-        if p.identity_perm or p.input_folded:
-            K = p.packed.shape[-2] * 4
+    elif route == ("ternary_matmul_gathered_idx",):
+        out = ternary_matmul_gathered_idx(x2, p.gather.packed, p.packed, p.alpha, p.mu, sel32,
+                                          base, bs, a8=a8)
+    else:  # K1s, after the gather kernel's device-index entry where there is one
+        K = p.packed.shape[-2] * 4
+        if len(route) == 2:
+            xk = gather_apply(p.gather, x2, impl, sel32, base)
+        elif p.identity_perm or p.input_folded:
             xk = x2 if K == m else F.pad(x2, (0, K - m))
         else:  # a bare perm: the index form, as the host-index route takes it
-            xk = onehot_gather_plain(x2, p.perm.index_select(0, slot_index())[0])
+            xk = onehot_gather_plain(x2, slot_view(p.perm, sel, base))
         out = ternary_matmul_idx(xk, p.packed, p.alpha, p.mu, sel32, base, bs, a8=a8)
-    else:
-        raise NotImplementedError(
-            f"route {route} has no device-index entry: K4s, K5s and K6s are still to port "
-            "(ROADMAP §2)")
     if p.bias is not None:
-        out = out + p.bias.index_select(0, slot_index())[0].to(out.dtype)
+        out = out + slot_view(p.bias, sel, base).to(out.dtype)
     return out.to(out_dtype).reshape(*lead, p.out_features)
 
 
 def fused_mlp_ok(gu, dn, impl: str, rows: int, device) -> bool:
     """Routing predicate for the fused MLP kernel K2: the checks of
     ``pt2tpu.ops.ternary_matmul.fused_mlp_ok`` one by one, with CUDA in the
-    place of the TPU, except that the port's K2 takes only the gated MLP
-    (gateup 2 x I wide). So on the CPU, or with :data:`FUSED_MLP` off, the
-    MLP takes the two-call path, as the JAX package does there."""
+    place of the TPU: gated (gateup 2 x I wide) and ungated (I wide) alike.
+    So on the CPU, or with :data:`FUSED_MLP` off, the MLP takes the two-call
+    path, as the JAX package does there."""
     return (FUSED_MLP and torch.device(device).type == "cuda"
             and _fused_mlp_layout_ok(gu, dn, impl, rows))
 
@@ -378,7 +378,7 @@ def _fused_mlp_layout_ok(gu, dn, impl: str, rows: int) -> bool:
     bs = 128
     if I % bs != 0 or dn.out_features % 128 != 0:
         return False
-    if gu.out_features != 2 * I:  # JAX also takes I (ungated); K2 here does not
+    if gu.out_features not in (2 * I, I):  # gated or ungated
         return False
     if gu.block_size != bs or dn.block_size != bs:
         return False
@@ -399,8 +399,9 @@ def fused_mlp_apply(
     out_dtype=None,
 ) -> torch.Tensor:
     """One-call MLP: (..., m) -> (..., n) through K2 (its plain version on
-    the CPU), with ``act`` silu, gelu (tanh form) or relu. The caller has
-    checked :func:`fused_mlp_ok`."""
+    the CPU), with ``act`` silu, gelu (tanh form) or relu; an ungated
+    gateup (up alone) goes through K2's ungated mode as it is. The caller
+    has checked :func:`fused_mlp_ok`."""
     if layer_idx is not None and gu.packed.dim() == 3:
         gu, dn = gu.layer(layer_idx), dn.layer(layer_idx)
     out_dtype = out_dtype or x.dtype

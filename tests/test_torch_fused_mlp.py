@@ -17,9 +17,10 @@
   * the port's ``fused_mlp_apply`` against its own two-call path: 5e-3
     relative L2, the bound of ``verify_fused_mlp`` (the two-call path rounds
     mid through the activation type).
-  * ``fused_mlp_ok`` gives the JAX predicate's answer on a table of layouts,
-    with the backend check factored out (JAX's asks for a TPU, the port's
-    for CUDA), but for the ungated MLP, which the port's K2 does not take.
+  * ``fused_mlp_ok`` gives the JAX predicate's answer on every layout of a
+    table, the ungated MLP's included, with the backend check factored out
+    (JAX's asks for a TPU, the port's for CUDA); an ungated pair that it
+    routes goes through ``fused_mlp_apply`` as the two-call act(up) @ down.
 """
 
 import dataclasses
@@ -281,10 +282,6 @@ LAYOUTS = {
 }
 
 
-# where the port's answer differs from JAX's: its K2 takes the gated MLP only
-PORT_ANSWER = {"ungated-width": False}
-
-
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_fused_mlp_ok_gives_jax_answer(name, monkeypatch):
     gspec, dspec, impl, rows, expected = LAYOUTS[name]
@@ -295,18 +292,30 @@ def test_fused_mlp_ok_gives_jax_answer(name, monkeypatch):
         mp.setattr(jtm.jax, "default_backend", lambda: "tpu")
         want = jtm.fused_mlp_ok(jgu, jdn, {"plain": "xla"}.get(impl, impl), rows)
     assert want == expected
-    port = PORT_ANSWER.get(name, want)
-    assert ttm._fused_mlp_layout_ok(tgu, tdn, impl, rows) == port
-    assert ttm.fused_mlp_ok(tgu, tdn, impl, rows, "cuda") == port
+    assert ttm._fused_mlp_layout_ok(tgu, tdn, impl, rows) == want
+    assert ttm.fused_mlp_ok(tgu, tdn, impl, rows, "cuda") == want
     assert ttm.fused_mlp_ok(tgu, tdn, impl, rows, "cpu") is False
 
 
-def test_fused_mlp_ok_routes_only_what_k2_takes():
-    """The ungated width that the predicate rejects is the one K2 refuses."""
-    _, tgu = _pair(**dict(SSR_GU, n=I))
-    _, tdn = _pair(**FOLDED_DN)
-    assert not ttm._fused_mlp_layout_ok(tgu, tdn, "auto", 4)
-    x = torch.zeros((4, 512))
-    with pytest.raises(NotImplementedError):
-        tk.ternary_mlp(x, tgu.perm, tgu.packed, tgu.alpha, tgu.mu,
-                       tdn.packed, tdn.alpha, tdn.mu, intermediate=I)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+def test_fused_mlp_ok_routes_only_what_k2_takes(gather, dtype):
+    """The ungated pair that the predicate now routes (up exactly I wide, as
+    in the "ungated-width" layout) is one K2 takes: ``fused_mlp_apply`` on
+    it equals the two-call act(up) @ down within the two-call bound."""
+    from pt2tpu_torch.utils.randmodel import random_ternary_linear
+
+    m = D if gather else 2048  # without a gather, x's width is up's 16 padded blocks
+    gen = torch.Generator().manual_seed(6 + gather)
+    tgu = random_ternary_linear(gen, I, m, perm_mode="ssr" if gather else "identity",
+                                device="cpu")
+    tdn = random_ternary_linear(gen, N, I, perm_mode="folded", device="cpu")
+    assert ttm._fused_mlp_layout_ok(tgu, tdn, "auto", 4)
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(4, m)).astype(np.float32))
+    x = x.to(dtype)
+    got = ttm.fused_mlp_apply(tgu, tdn, x, "gelu", out_dtype=torch.float32)
+    up = ttm.ternary_linear_apply(tgu, x, out_dtype=torch.float32)
+    mid = F.gelu(up, approximate="tanh").to(dtype)
+    want = ttm.ternary_linear_apply(tdn, mid, out_dtype=torch.float32)
+    assert got.shape == want.shape == (4, N)
+    assert ((got - want).norm() / want.norm()).item() <= 5e-3

@@ -6,8 +6,10 @@ gather then a split-K tensor-core product at rows 9-64, the CUDA cores for
 other shapes; K2 on three: K1's decode GEMV over gateup with the gated
 epilogue then K1's decode kernel over mid at decode rows, the gather, a
 gate/up product with the gated epilogue and the down product on the
-tensor cores at rows 9-64, the CUDA cores with either of those off). Needs an
-NVIDIA GPU; every test skips without one. This file
+tensor cores at rows 9-64, the CUDA cores with either of those off; and its
+ungated mode on each), K4s / K5s / K6s and K1s / K3s with the slot read from
+device memory (bit for bit the view route's). Needs an NVIDIA GPU; every
+test skips without one. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs as
 
@@ -2989,24 +2991,35 @@ def test_device_index_equals_view_route(cuda_device, n_out, n_in, mode, rows, im
 
 @pytest.mark.cuda
 def test_device_index_refusals(cuda_device, monkeypatch):
-    """No host read on any route: rows on a tensor-core path, the P2 flags
-    (K6) and the gather-then-K1 route raise NotImplementedError; a wrong
-    index type or a stack that is not whole raises ValueError."""
+    """No host read on any route: rows on a tensor-core path (K3s's, K6s's)
+    and K5's rows path raise NotImplementedError, while one row runs under
+    every flag set (K6s under P2, K4s / K5s then K1s with both fused routes
+    off); a wrong index type or a stack that is not whole raises ValueError."""
     from pt2tpu_torch.utils.randmodel import random_expert_stack
 
     g = torch.Generator(device=cuda_device).manual_seed(3)
     flat = tdec._flatten_expert_stack(
         random_expert_stack(g, 1, 2, 256, 256, "ssr", device=cuda_device))
     e = torch.tensor(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    one = torch.zeros((1, 256), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="takes no device index"):
         ttm.ternary_linear_apply_stacked(flat, torch.zeros((16, 256), device=cuda_device), e)
     monkeypatch.setattr(ttm, "IGATHER_FUSED", False)
     monkeypatch.setattr(ttm, "FUSED_GATHER", True)
-    with pytest.raises(NotImplementedError, match="K6s"):
-        ttm.ternary_linear_apply_stacked(flat, torch.zeros((1, 256), device=cuda_device), e)
+    before = tk.ternary_matmul_gathered_idx.launches
+    ttm.ternary_linear_apply_stacked(flat, one, e)
+    assert tk.ternary_matmul_gathered_idx.launches == before + 1
+    with pytest.raises(NotImplementedError, match="takes no device index"):
+        ttm.ternary_linear_apply_stacked(flat, torch.zeros((16, 256), device=cuda_device), e)
     monkeypatch.setattr(ttm, "FUSED_GATHER", False)
-    with pytest.raises(NotImplementedError, match="K4s"):
-        ttm.ternary_linear_apply_stacked(flat, torch.zeros((1, 256), device=cuda_device), e)
+    for kernel, wrapper in (("iota", tkg.onehot_gather_idx), ("packed", tkg.onehot_matmul_idx)):
+        monkeypatch.setattr(tgather, "GATHER_KERNEL", kernel)
+        before = (wrapper.launches, tk.ternary_matmul_idx.launches)
+        ttm.ternary_linear_apply_stacked(flat, one, e)
+        assert (wrapper.launches, tk.ternary_matmul_idx.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    with pytest.raises(NotImplementedError, match="K5's 'rows' path takes no device index"):
+        ttm.ternary_linear_apply_stacked(flat, torch.zeros((16, 256), device=cuda_device), e)
     x = torch.zeros((1, flat.packed.shape[1] * 4), device=cuda_device).bfloat16()  # K lanes
     with pytest.raises(ValueError, match="int32"):
         tk.ternary_matmul_idx(x, flat.packed, flat.alpha, flat.mu, e.long())
@@ -3068,3 +3081,280 @@ def test_moe_one_row_makes_no_host_sync_and_matches_plain(cuda_device):
     assert (tk.ternary_matmul_idx.launches - before[0],
             tk.ternary_matmul_igathered_idx.launches - before[1]) == (2 * 2 * 5, 2 * 2 * 5)
     assert toks.shape == (1, 6)
+
+
+# ---- K4s / K5s / K6s: the gather kernels and K6 with the slot read from
+# device memory (a routed expert's projection under the gather-then-K1 and
+# P2 routes)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 4, 8, 15])
+@pytest.mark.parametrize("m,K", [(4096, 4096), (200, 384)])
+@pytest.mark.parametrize("first_kernel", [False, True], ids=["rows", "first"])
+def test_k4s_k5s_equal_view_route(cuda_device, m, K, rows, dtype, first_kernel, monkeypatch):
+    """Every slot of a (2 x 3)-slot stack: K4s (its rows path, and its first
+    kernel with K4_ROWS_MIN_ROWS rebound) and K5s (its first kernel) bit for
+    bit the view route's K4 / K5 and the plain versions, counted in their
+    own counters only."""
+    if first_kernel:
+        monkeypatch.setattr(tkg, "K4_ROWS_MIN_ROWS", 1 << 30)
+    g = torch.Generator(device=cuda_device).manual_seed(m + K + rows)
+    perms = torch.stack([_perm(g, cuda_device, m, K, interleave=m == 200) for _ in range(6)])
+    planes = torch.stack([_planes(p, m) for p in perms])
+    x = torch.randn((rows, m), generator=g, device=cuda_device).to(dtype)
+    sel = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    for s in range(6):
+        e, base = sel[s % 3], 3 * (s // 3)
+        before = (tkg.onehot_gather_idx.launches, tkg.onehot_gather_idx.launches_rows,
+                  tkg.onehot_matmul_idx.launches, tkg.onehot_gather.launches,
+                  tkg.onehot_matmul.launches)
+        g4 = tkg.onehot_gather_idx(x, perms, e, base)
+        g5 = tkg.onehot_matmul_idx(x, planes, e, base)
+        after = (tkg.onehot_gather_idx.launches, tkg.onehot_gather_idx.launches_rows,
+                 tkg.onehot_matmul_idx.launches, tkg.onehot_gather.launches,
+                 tkg.onehot_matmul.launches)
+        assert tuple(b - a for a, b in zip(before, after)) == (1, int(not first_kernel), 1, 0, 0)
+        want = tkg.onehot_gather_plain(x, perms[s])
+        assert torch.equal(_bits(g4), _bits(want))
+        assert torch.equal(_bits(g5), _bits(tkg.onehot_matmul(x, planes[s])))
+        assert torch.equal(_bits(g5), _bits(tkg.onehot_matmul_idx_plain(x, planes, e, base)))
+        assert torch.equal(_bits(g4), _bits(tkg.onehot_gather(x, perms[s])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_a8", [False, True])
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 8])
+@pytest.mark.parametrize("m,n", [(4096, 1024), (384, 384)])
+def test_k6s_equals_view_route(cuda_device, m, n, rows, a8, dec_a8, monkeypatch):
+    """Every slot of a (2 x 3)-slot stack: K6s bit for bit K6 on the slot's
+    views (its decode path, or its CUDA-core kernel for W2A8 while
+    K1_DEC_A8 is off) and within TOL of its plain version, counted in its
+    own counters only."""
+    from pt2tpu_torch.utils.randmodel import random_expert_stack
+
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + rows)
+    flat = tdec._flatten_expert_stack(random_expert_stack(g, 2, 3, n, m, "ssr",
+                                                          device=cuda_device))
+    gp = flat.gather.packed
+    assert gp.shape[0] == 6 and flat.packed.shape[1] * 4 == gp.shape[2]
+    x = torch.randn((rows, m), generator=g, device=cuda_device).bfloat16()
+    sel = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    dec = tk.k6_path(rows, n, 128, a8) == "dec"
+    for s in range(6):
+        e, base = sel[s % 3], 3 * (s // 3)
+        before = (tk.ternary_matmul_gathered_idx.launches,
+                  tk.ternary_matmul_gathered_idx.launches_dec,
+                  tk.ternary_matmul_gathered.launches, tk.ternary_matmul.launches)
+        got = tk.ternary_matmul_gathered_idx(x, gp, flat.packed, flat.alpha, flat.mu, e, base,
+                                             a8=a8)
+        after = (tk.ternary_matmul_gathered_idx.launches,
+                 tk.ternary_matmul_gathered_idx.launches_dec,
+                 tk.ternary_matmul_gathered.launches, tk.ternary_matmul.launches)
+        assert tuple(b - a for a, b in zip(before, after)) == (1, int(dec), 0, 0)
+        view = tk.ternary_matmul_gathered(x, gp[s], flat.packed[s], flat.alpha[s], flat.mu[s],
+                                          a8=a8)
+        assert torch.equal(got, view)
+        want = tk.ternary_matmul_gathered_idx_plain(x, gp, flat.packed, flat.alpha, flat.mu, e,
+                                                    base, a8=a8)
+        assert _rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "a8"])
+@pytest.mark.parametrize("flags", [("iota", False, False), ("packed", False, False),
+                                   ("packed", False, True), ("iota", True, False)],
+                         ids=["G4", "G5", "P2", "default"])
+@pytest.mark.parametrize("n_out", [1024, 416])
+def test_device_index_under_every_gather_route(cuda_device, flags, impl, n_out, monkeypatch):
+    """One row of an "ssr" expert stack through ternary_linear_apply_stacked
+    with a device index, under each flag set and at an out width K3 and K6
+    take (1024) and one they refuse (416: the gather kernel then K1s): every
+    slot bit for bit the host-index view route, the launches those that
+    linear_route names, each once."""
+    from pt2tpu_torch.utils.randmodel import random_expert_stack
+
+    _set_flags(monkeypatch, *flags)
+    g = torch.Generator(device=cuda_device).manual_seed(n_out + len(impl))
+    flat = tdec._flatten_expert_stack(random_expert_stack(g, 2, 2, n_out, 512, "ssr",
+                                                          device=cuda_device))
+    route = ttm.linear_route(flat, 1, impl, cuda_device, device_index=True)
+    assert route and all(r.endswith("_idx") for r in route)
+    wrappers = {"ternary_matmul_idx": tk.ternary_matmul_idx,
+                "ternary_matmul_igathered_idx": tk.ternary_matmul_igathered_idx,
+                "ternary_matmul_gathered_idx": tk.ternary_matmul_gathered_idx,
+                "onehot_gather_idx": tkg.onehot_gather_idx,
+                "onehot_matmul_idx": tkg.onehot_matmul_idx}
+    x = torch.randn((1, 512), generator=g, device=cuda_device).bfloat16()
+    sel = torch.arange(2, dtype=torch.int32, device=cuda_device)
+    for s in range(4):
+        before = {k: w.launches for k, w in wrappers.items()}
+        got = ttm.ternary_linear_apply_stacked(flat, x, sel[s % 2], impl=impl, base=2 * (s // 2),
+                                               out_dtype=torch.float32)
+        rose = {k: w.launches - before[k] for k, w in wrappers.items()
+                if w.launches != before[k]}
+        assert rose == dict.fromkeys(route, 1)
+        view = ttm.ternary_linear_apply_stacked(flat, x, s, impl=impl, out_dtype=torch.float32)
+        assert torch.equal(got, view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["onehot_gather_idx", "onehot_matmul_idx",
+                                   "ternary_matmul_gathered_idx"])
+def test_k4s_k5s_k6s_outside_the_stack_trap(cuda_device, entry):
+    """A slot outside [0, S) stops K4s, K5s and K6s (__trap), as K1s: in a
+    child process, whose CUDA context it takes down; nothing is clamped."""
+    import os
+    import subprocess
+    import sys
+
+    call = {"onehot_gather_idx": "tkg.onehot_gather_idx(x, perm, sel, {b})",
+            "onehot_matmul_idx": "tkg.onehot_matmul_idx(x, planes, sel, {b})",
+            "ternary_matmul_gathered_idx":
+                "tk.ternary_matmul_gathered_idx(x, planes, packed, alpha, alpha, sel, {b})"}[entry]
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
+        "from pt2tpu_torch.ops.kernels import gather as tkg, ternary as tk\n"
+        "dev = torch.device('cuda')\n"
+        "perm = torch.arange(512, dtype=torch.int32, device=dev).repeat(2, 1)\n"
+        "planes = torch.zeros((2, 128, 512), dtype=torch.int8, device=dev)\n"
+        "packed = torch.zeros((2, 128, 256), dtype=torch.int8, device=dev)\n"
+        "alpha = torch.zeros((2, 4, 256), dtype=torch.bfloat16, device=dev)\n"
+        "x = torch.ones((1, 512), device=dev).bfloat16()\n"
+        "sel = torch.tensor([1], dtype=torch.int32, device=dev)\n"
+        f"{call.format(b=0)}\n"
+        "torch.cuda.synchronize()\n"
+        "print('slot 1 ran', flush=True)\n"
+        f"{call.format(b=1)}\n"
+        "torch.cuda.synchronize()\n"
+        "print('NOT TRAPPED', flush=True)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert "slot 1 ran" in r.stdout and "NOT TRAPPED" not in r.stdout, (r.stdout, r.stderr[-2000:])
+    assert r.returncode != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [("iota", False, False), ("packed", False, False),
+                                   ("packed", False, True)], ids=["G4", "G5", "P2"])
+def test_moe_one_row_under_every_gather_route(cuda_device, flags, monkeypatch):
+    """tiny-moe's MLP at one row (the top-k plan) under the G4, G5 and P2
+    flags: no host synchronisation (set_sync_debug_mode("error")), the
+    launches of K4s / K5s / K6s and K1s the routes name, and the result
+    within 2e-2 of the plain route's."""
+    _set_flags(monkeypatch, *flags)
+    cfg = get_config("tiny-moe").with_(dim=256, n_heads=2, n_kv_heads=2, intermediate=256)
+    params = random_ternary_params(cfg, seed=4, perm_mode="ssr", device=cuda_device)
+    lp = tdec.layer_view(params["layers"], 1)
+    h = torch.randn((1, 1, cfg.dim), device=cuda_device).bfloat16()
+    want = tdec._moe_mlp(cfg, lp, h, "auto", 1)
+    torch.cuda.synchronize()
+    counted = (tkg.onehot_gather_idx, tkg.onehot_matmul_idx, tk.ternary_matmul_gathered_idx,
+               tk.ternary_matmul_idx, tk.ternary_matmul_igathered_idx)
+    before = [w.launches for w in counted]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tdec._moe_mlp(cfg, lp, h, "auto", 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rose = [w.launches - b for w, b in zip(counted, before)]
+    k = cfg.experts_per_token
+    want_rose = {"G4": [k, 0, 0, 2 * k, 0], "G5": [0, k, 0, 2 * k, 0],
+                 "P2": [0, 0, k, k, 0]}[{("iota", False, False): "G4",
+                                        ("packed", False, False): "G5"}.get(flags, "P2")]
+    assert rose == want_rose
+    assert torch.equal(got, want)
+    plain = tdec._moe_mlp(cfg, lp, h, "plain", 1)
+    assert (got.float() - plain.float()).abs().max() <= 2e-2 * plain.float().abs().max()
+
+
+# ---- K2's ungated mode (gateup is up alone: mid = act(up)) on its three
+# paths: the decode path (rows 1-8), the tensor-core path (rows 9-64), the
+# CUDA-core kernel
+def _ungated_layer(g, dev, Kg, I, n, pad_blocks=0):
+    """Up (Kg lanes -> I + pad_blocks * 128, the pad columns zero-scaled, as
+    pad_gateup_blocks leaves them) and down (I -> n, its blocks padded to 16)."""
+    up = _layer(g, dev, Kg, I + 128 * pad_blocks, 128)
+    if pad_blocks:
+        up[1][:, I:] = 0
+        up[2][:, I:] = 0
+    nbd = -(-(I // 128 + pad_blocks) // 16) * 16
+    return up + _layer(g, dev, nbd * 128, n, 128)
+
+
+def _k2_all_counts():
+    m = tk.ternary_mlp
+    return (m.launches, m.launches_dec, m.launches_tc, m.launches_gelu, m.launches_ungated,
+            tk.ternary_matmul.launches)
+
+
+UNGATED_CASES = [(B, D, I, n, pad, path)
+                 for B, D, I, n, pad in ((1, 512, 1024, 256, 0), (8, 512, 1024, 256, 1),
+                                         (16, 256, 512, 384, 0), (64, 512, 1024, 256, 1),
+                                         (4, 2048, 8192, 2048, 0))
+                 for path in ("dec" if B <= 8 else "tc", "cc")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("B,D,I,n,pad,path", UNGATED_CASES)
+def test_k2_ungated_matches_plain(cuda_device, B, D, I, n, pad, path, gather, act, monkeypatch):
+    """The ungated MLP on each of K2's paths (the CUDA-core kernel with the
+    other two rebound away) within MLP_TOL of ternary_mlp_plain and of the
+    path's own plain version, counted in launches_ungated, the same bits on
+    a second call, and not the gated MLP's answer on the same planes."""
+    if path == "cc":
+        monkeypatch.setattr(tk, "K2_DEC_MAX_ROWS", 0)
+        monkeypatch.setattr(tk, "K2_TC_MIN_ROWS", 1 << 30)
+    assert tk.k2_path(B) == path
+    g = torch.Generator(device=cuda_device).manual_seed(B + I + pad)
+    Kg = D if gather else -(-D // 2048) * 2048
+    layer = _ungated_layer(g, cuda_device, Kg, I, n, pad)
+    perm = _perm(g, cuda_device, D, Kg) if gather else None
+    x = torch.randn((B, D), generator=g, device=cuda_device).bfloat16()
+    before = _k2_all_counts()
+    got = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act)
+    again = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k2_all_counts())) == (
+        2, 2 * (path == "dec"), 2 * (path == "tc"), 2 * (act == "gelu"), 2, 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_mlp_plain(x, perm, *layer, intermediate=I, act=act)
+    assert got.shape == want.shape == (B, n) and _rel(got, want) <= MLP_TOL
+    if path == "dec":
+        algo = tk.ternary_mlp_dec_plain(x, perm, *layer, intermediate=I, act=act,
+                                        wave=tk.dec_wave(x.device))
+        assert _rel(got, algo) <= MLP_TOL
+    elif path == "tc":
+        algo = tk.ternary_mlp_tc_plain(x, perm, *layer, intermediate=I, act=act,
+                                       wave=tk.igtc_wave(x.device))
+        assert _rel(got, algo) <= MLP_TOL
+    if not pad:  # the same planes read as a gated MLP of I / 2
+        gated = tk.ternary_mlp_plain(x, perm, *layer, intermediate=I // 2, act=act)
+        assert _rel(got, gated) > 10 * MLP_TOL
+
+
+@pytest.mark.cuda
+def test_fused_mlp_apply_routes_an_ungated_pair_to_k2(cuda_device):
+    """fused_mlp_ok takes an ungated gateup on CUDA, as JAX's on the TPU,
+    and fused_mlp_apply launches K2's ungated mode, within MLP_TOL of the
+    two-call act(up) @ down."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    D, I, n = 512, 1024, 256
+    gp, ga, gm, dp, da, dm = _ungated_layer(g, cuda_device, D, I, n)
+    perm = _perm(g, cuda_device, D, D)
+    gu = ttm.PackedTernaryLinear(packed=gp, alpha=ga, mu=gm, perm=perm, bias=None,
+                                 in_features=D, gather=tgather.make_packed_gather(perm, D))
+    dn = ttm.PackedTernaryLinear(packed=dp, alpha=da, mu=dm, perm=torch.arange(
+        dp.shape[0] * 4, dtype=torch.int32, device=cuda_device), bias=None, in_features=I,
+        input_folded=True)
+    x = torch.randn((4, D), generator=g, device=cuda_device).bfloat16()
+    assert ttm.fused_mlp_ok(gu, dn, "auto", 4, cuda_device)
+    before = tk.ternary_mlp.launches_ungated
+    got = ttm.fused_mlp_apply(gu, dn, x, "relu", out_dtype=torch.float32)
+    assert tk.ternary_mlp.launches_ungated == before + 1
+    up = ttm.ternary_linear_apply(gu, x, out_dtype=torch.float32)
+    want = ttm.ternary_linear_apply(dn, torch.relu(up).bfloat16(), out_dtype=torch.float32)
+    assert _rel(got, want) <= MLP_TOL

@@ -27,7 +27,8 @@
   gives exactly the host-index route's result on the CPU; the plain
   versions of K1s / K3s equal JAX's stacked Pallas kernels (scalar-prefetch
   index) in interpret mode within 1e-5 of max|ref|; ``linear_route`` names
-  the device-index entries and no entry for the routes without one.
+  a device-index entry for every kernel of every route (K3s by default,
+  K6s under P2, K4s or K5s then K1s with both fused routes off).
 
 Torch runs on one intra-op thread, as in the engine tests."""
 
@@ -52,6 +53,7 @@ from pt2tpu.utils import checkpoint as jckpt
 from pt2tpu_torch.models import decoder as tdec
 from pt2tpu_torch.models.common import DenseLinear
 from pt2tpu_torch.models.registry import get_config
+from pt2tpu_torch.ops import gather as tgather
 from pt2tpu_torch.ops import ternary_matmul as ttm
 from pt2tpu_torch.ops.kernels import ternary as tk
 from pt2tpu_torch.serve.engine import ServeEngine
@@ -420,6 +422,10 @@ def test_linear_route_names_device_index_entries(cfgs, monkeypatch):
     monkeypatch.setattr(ttm, "IGATHER_FUSED", False)
     monkeypatch.setattr(ttm, "FUSED_GATHER", True)
     assert ttm.linear_route(gu, 1, "auto", "cuda", device_index=True) == (
-        "ternary_matmul_gathered",)  # K6s: no device-index entry
+        "ternary_matmul_gathered_idx",)  # K6s
     monkeypatch.setattr(ttm, "FUSED_GATHER", False)
-    assert ttm.linear_route(gu, 1, "auto", "cuda", device_index=True)[-1] == "ternary_matmul"
+    assert ttm.linear_route(gu, 1, "auto", "cuda", device_index=True) == (
+        "onehot_gather_idx", "ternary_matmul_idx")  # K4s, then K1s
+    monkeypatch.setattr(tgather, "GATHER_KERNEL", "packed")
+    assert ttm.linear_route(gu, 1, "a8", "cuda", device_index=True) == (
+        "onehot_matmul_idx", "ternary_matmul_idx")  # K5s, then K1s
