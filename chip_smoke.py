@@ -90,8 +90,9 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      ternary_matmul.launches_tc_a8 counts (decode rows launch it never);
      every 32-layer W2A8 run above holds launches_tc_a8 to its prefill
      launches; A/Bs, in turns (on, off), the lockstep W2A8 prefill
-     (llama-2-7b, phase 4) and the "down" engine under W2A8 at 8 of its 32
-     layers (10c: impl "a8", bf16 KV, quantum 1, then once with K7 off; every answer held
+     (llama-2-7b, phase 4); runs the "down" engine under W2A8 at 8 of its 32
+     layers (10c: impl "a8", bf16 KV, quantum 1, its off turn dropped for the
+     run's time budget, then once with K7 off; every answer held
      to A8_TOLS' pick gap under the teacher-forced W2A8 route on plain
      versions); and times it through its
      C entry at 1-512 rows (phase 6) beside the CUDA-core kernel in W2A8,
@@ -354,14 +355,12 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      K1 / K2 / K7 call held against its plain version; (b) gemma3-4b
      (qk-norm, sandwich norms, a window of 1024 on 5 of each 6 layers with
      their own RoPE base, linear RoPE scaling 8 on the global ones, hd 256
-     with 2 queries per KV head, vocab 262144) at full width and its full 34
-     layers: the ServeEngine with bf16 and int8 KV, two of its 8 requests
-     1100-1400 ids long (the window binds in the admission and in decode),
-     launches exact, every K7 call held against its plain version, the
-     answers held to GEMMA3_DEEP_TOL (the random model's bf16 drift at 34
-     layers, printed beside them); the same weights cut to
-     GEMMA3_HELD_LAYERS (6) layers with every K1 / K7 call and answer held
-     (TOKEN_TOL); a 2-layer copy (both layers sliding) whose every K1 / K7
+     with 2 queries per KV head, vocab 262144) at full width cut to
+     GEMMA3_HELD_LAYERS (6) of its 34 layers (since phase 26, which runs
+     it at full depth on ring caches): the ServeEngine with bf16 and int8
+     KV, two of its 8 requests 1100-1400 ids long (the window binds in the
+     admission and in decode), launches exact, every K1 / K7 call and
+     answer held (TOKEN_TOL); a 2-layer copy (both layers sliding) whose every K1 / K7
      call is held, every K7 call on a kv_valid whose window starts past
      slot 0 (K7 is also held on windows
      in 2b and timed on them in 6); (c) opt-1.3b, gpt2-xl (n = 1600: every K1
@@ -388,8 +387,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      bf16-vs-f32 drift, printed; W2A8 at A8_TOLS' gap), a profiled decode
      step, and the same weights cut to 2 layers with every K1 / K1s call
      and answer held (TOKEN_TOL); (c) the same model in a ServeEngine (8
-     slots, M 2048, 8 requests of 64-512 ids, 32 new, bf16 KV; all 8
-     experts a pass), K1 / K7 launches exact, every K7 call held, the
+     slots, M 2048, 8 requests of 64-512 ids, 16 new since phase 26, bf16
+     KV; all 8 experts a pass), K1 / K7 launches exact, every K7 call held, the
      answers held under one batched teacher-forced plain forward at
      MIXTRAL_DEEP_TOL, a profiled decode step, the 2-layer cut's engine (K7
      off) held at TOKEN_TOL; (d) mixtral cut to 2 layers "ssr" (K3s) and
@@ -421,7 +420,42 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      also times K4s, K5s, K6s and the ungated K2 from CUDA graph replays
      beside the view route (the device-index entries), the plain version,
      torch.index_select (K4s, K5s), torch.matmul on the gathered x (K6s) or
-     two dense torch.matmul with the activation (K2), and the bound.
+     two dense torch.matmul with the activation (K2), and the bound. (d)
+     also runs the 2-layer mixtral "ssr" cut under a8 and floor8 (batch 1,
+     32 ids + 4 new) under the default flags, K1_DEC_A8, P2 and P2 with
+     K1_DEC_A8, every kernel launched equally by the two (K1s / K3s / K6s in
+     their FLOOR instances). (The routers' top-k margins of its W2A8
+     lockstep: scripts/torch_moe_router_margins.py.)
+ 24. (the floor probe, impl="floor8": W2A8 with the 2-bit unpack skipped,
+     the raw packed bytes dotted; wrong by design, the same bytes, grids and
+     launches) (a) holds every FLOOR instance (K1's decode GEMV, int8 tensor
+     cores and CUDA cores; K3's and K6's decode, tensor-core and CUDA-core
+     paths; K1s / K3s / K6s) against the floor's plain versions at
+     llama-2-7b / llama-3-8b projections, B 1 / 8 / 16 / 64, within
+     FLOOR_TOL, the device-index ones bit for bit the view route's; (b) runs
+     the 2-layer llama-3-8b "ssr" model under a8 and floor8 (B 4 x 128 and
+     B 1 x 40 ids, 8 new) under the default flags, K1_DEC_A8, P2 and P2 with
+     K1_DEC_A8: every kernel launched equally by the two; (c) the floor A/B
+     of scripts/torch_floor_ab.py, llama-2-7b "ssr" at full width and
+     FLOOR_AB_LAYERS layers: ms/step under auto, a8 and floor8, and a8 /
+     floor8 with K1_DEC_A8; (6) times every FLOOR instance from CUDA graphs
+     beside its W2A8 instance and the bound.
+ 25. (K7 at hd 384 and 512, bf16 and int8 KV, on both of its kernels)
+     (a) holds them per call at B 1 / 8, M 2048 (the tensor-core kernel as
+     2b holds it); (b) serves 2-layer llama-3-8b copies with head_dim 384
+     and 512 (ModelConfig.with_) in the ServeEngine, bf16 and int8 KV, and
+     K7_TC off: K7 launched layers x steps times, every K7 call held, every
+     answer at TOKEN_TOL; (6) times both kernels at B 8, M 2048.
+ 26. (ring KV caches, serve/ring.py) gemma3-4b at full width and its 34
+     layers, sliding layers on 1024-slot rings: (a) ring_generate (2 x 1100
+     ids, 8 new) and (b) the ServeEngine with make_ring_engine_fns (8
+     slots, M 2048), launches exact, every K7 call held, every answer held to
+     GEMMA3_DEEP_TOL under the teacher-forced flat plain route, one engine
+     step profiled and timed, the ring's KV bytes beside the flat pool's;
+     (c) the same engine cut to 6 layers with every K1 / K7 call held and the
+     answers at TOKEN_TOL; (d) cut to 2 (both sliding), every K1 / K7 call
+     held, each K7 over a 1024-slot ring; (e) a sampled generate pair equal
+     under one seed; (6) times K7 on a 1024-slot ring from a CUDA graph.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -527,6 +561,16 @@ FAMILY_TOKEN_TOL = TOKEN_TOL
 # K1 and K7 call held against its plain version
 GEMMA3_HELD_LAYERS = 6
 GEMMA3_DEEP_TOL = 1.0
+# phase 24: the floor probe's FLOOR instances against the floor's plain
+# versions (integer dots exact on both sides; the f32 epilogue in another
+# order, of outputs far larger than a product's), and the floor A/B's depth,
+# new tokens and rounds (scripts/torch_floor_ab.py; the run's time budget)
+FLOOR_TOL = 1e-5
+FLOOR_AB_LAYERS, FLOOR_AB_NEW, FLOOR_AB_ROUNDS = 8, 32, 2
+# phase 25: the head widths above 256 that K7 is built for
+WIDE_HEAD_DIMS = (384, 512)
+# phase 26: a gemma3-4b sliding layer's ring (its window)
+RING_SLOTS = 1024
 # phase 23: the experts' shapes held per call (name, out, in, perm layout):
 # mixtral-8x7b's gateup and down ("down" layout), its gateup with a gather
 # ("ssr": K3s), qwen3-30b-a3b's gateup and down (768 lanes padded to 2048)
@@ -808,6 +852,11 @@ def main() -> None:
         k1.ternary_matmul_idx.launches_dec = k1.ternary_matmul_igathered_idx.launches_dec = 0
         k1.ternary_matmul_gathered_idx.launches_dec = k4.onehot_gather_idx.launches_rows = 0
         k1.ternary_mlp.launches_ungated = 0
+        for w in (k1.ternary_matmul, k1.ternary_matmul_igathered, k1.ternary_matmul_gathered,
+                  k1.ternary_matmul_idx, k1.ternary_matmul_igathered_idx,
+                  k1.ternary_matmul_gathered_idx):
+            w.launches_floor = 0
+        k7.decode_attention.launches_wide = 0
 
     def counts():
         """Every wrapper's launches; K1's bf16 and int8 tensor-core launches
@@ -833,7 +882,9 @@ def main() -> None:
         "onehot_gather_idx") as "ternary_matmul_gathered_idx_dec" and
         "onehot_gather_idx_rows"; K2's ungated launches (any path) as
         "ternary_mlp_ungated". K2's decode path's down launch is K2's, not
-        one of K1's."""
+        one of K1's. The floor probe's launches of K1, K3, K6, K1s, K3s and
+        K6s (also in their wrappers' counts) as "<wrapper>_floor"; K7's at hd
+        384 and 512 (also in "decode_attention") as "decode_attention_wide"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -854,6 +905,11 @@ def main() -> None:
         c["ternary_matmul_gathered_idx_dec"] = k1.ternary_matmul_gathered_idx.launches_dec
         c["onehot_gather_idx_rows"] = k4.onehot_gather_idx.launches_rows
         c["ternary_mlp_ungated"] = k1.ternary_mlp.launches_ungated
+        for name in ("ternary_matmul", "ternary_matmul_igathered", "ternary_matmul_gathered",
+                     "ternary_matmul_idx", "ternary_matmul_igathered_idx",
+                     "ternary_matmul_gathered_idx"):
+            c[f"{name}_floor"] = wrappers[name].launches_floor
+        c["decode_attention_wide"] = k7.decode_attention.launches_wide
         return c
 
     run_totals = dict.fromkeys(counts(), 0)  # launches over every run counted exactly
@@ -2227,6 +2283,8 @@ def main() -> None:
     import pt2tpu_torch.ops.ternary_matmul as ttm
 
     def k1_plain(x, p, a, m, bs=128, a8=False):
+        if a8 == k1.FLOOR:
+            return k1.ternary_matmul_floor_plain(x, p, a, m, bs)
         return (k1.ternary_matmul_plain_a8 if a8 else k1.ternary_matmul_plain)(x, p, a, m, bs)
 
     # (wrapper's name in the routing modules, its plain version, tolerance)
@@ -2595,6 +2653,28 @@ def main() -> None:
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     none = dict.fromkeys(counts(), 0)
+    # the floor probe's routes (phases 23d and 24): (name, routing flags,
+    # K1_DEC_A8); P2 with K1_DEC_A8 puts K6's decode rows on its decode path
+    FLOOR_FLAG_SETS = (("defaults", None, False), ("K1_DEC_A8", None, True), ("P2", P2, False),
+                       ("P2 K1_DEC_A8", P2, True))
+    FLOOR_WRAPPERS = (("ternary_matmul", ("dec", "tc_a8")), ("ternary_matmul_igathered", ("dec", "tc")),
+                      ("ternary_matmul_gathered", ("dec", "tc")), ("ternary_matmul_idx", ("dec",)),
+                      ("ternary_matmul_igathered_idx", ("dec",)),
+                      ("ternary_matmul_gathered_idx", ("dec",)))
+
+    def floor_instances(c):
+        """A floor8 run's launches by FLOOR instance ("<wrapper>" its CUDA
+        cores, "<wrapper>_<path>" the others): every K1 / K3 / K6 / K1s /
+        K3s / K6s call of such a run is the floor's."""
+        out = {}
+        for w, paths in FLOOR_WRAPPERS:
+            rest = c[w]
+            for p_ in paths:
+                out[f"{w}_{p_}"] = c[f"{w}_{p_}"]
+                rest -= c[f"{w}_{p_}"]
+            out[w] = rest
+        return out
+
     def want_7b(impl, dec_on=None):
         """dec_on None: as routed outside k1_dec (bf16 decode rows on the
         decode kernel, W2A8 ones on the CUDA cores)."""
@@ -3415,7 +3495,8 @@ def main() -> None:
 
     stamp("10c")
     # ---- 10c. the same engine under W2A8 (impl "a8", bf16 KV, quantum 1)
-    # with K1's int8 tensor-core path on and off, in turns, then with K7 off;
+    # with K1's int8 tensor-core path on (the off turn of that settled A/B
+    # dropped for the run's time budget), then with K7 off;
     # every answer of each route held under the teacher-forced W2A8 route on
     # plain versions (each distinct set of answers once), to A8_TOLS' pick
     # gap, as the 2-layer W2A8 check holds it: over 32 layers the int8
@@ -3425,7 +3506,7 @@ def main() -> None:
     # route, which this slice leaves as it was, included
     eng_a8 = {"tc_a8": [], "cuda_core": []}
     held_a8 = []  # (answers, worst pick gap) already held
-    for on in TC_AB[:2]:
+    for on in TC_AB[:1]:
         with k1_tc(on):
             res, a8_out = run_engine(
                 f"llama-3-8b down W2A8 bf16 KV quantum 1, K1 "
@@ -3456,7 +3537,7 @@ def main() -> None:
           f"teacher-forced W2A8 plain-version max (<= {A8_TOLS[1]}); "
           f"{res['streams_equal_to_k7_on']}/16 streams equal to K7 on's")
     record["engine_a8_k7_off"] = res
-    for k, v in eng_a8.items():
+    for k, v in ((k_, v_) for k_, v_ in eng_a8.items() if v_):
         each = lambda key, scale=1.0: " / ".join(f"{scale * r[key]:.2f}" for r in v)  # noqa: E731
         print(f"engine W2A8 A/B, K1 {k}: t_admit_s {each('t_admit_s')} s of a wall of "
               f"{each('wall_s')} s (admission {each('admit_share', 100.0)} %), {each('tok_s')} "
@@ -3596,15 +3677,15 @@ def main() -> None:
     def answers_key(impl, answers_):
         return impl, tuple(tuple(a) for a in answers_)
 
-    held = {answers_key("a8", o): w for o, w in held_a8}  # held above already
-    held[answers_key("auto", outs[(False, 1)])] = record["engine_answers"]["bf16"]["worst_pick_gap"]
+    held_answers = {answers_key("a8", o): w for o, w in held_a8}  # held above already
+    held_answers[answers_key("auto", outs[(False, 1)])] = record["engine_answers"]["bf16"]["worst_pick_gap"]
 
     def held_once(label, answers_, impl):
         key = answers_key(impl, answers_)
-        if key not in held:
-            held[key], _ = answers_held(label, eng_prompts, answers_, False, impl=impl,
+        if key not in held_answers:
+            held_answers[key], _ = answers_held(label, eng_prompts, answers_, False, impl=impl,
                                         tol=TOKEN_TOL if impl == "auto" else A8_TOLS[1])
-        return held[key]
+        return held_answers[key]
 
     eng_dec = {}
     for impl in ("auto", "a8"):
@@ -4315,56 +4396,28 @@ def main() -> None:
     del params2
     torch.cuda.empty_cache()
 
-    # (b) gemma3-4b: two prompts over its window, six under it. At its full
-    # 34 layers every K7 call of the engine is held against its plain version
-    # on the engine's own activations and the answers, bf16 and int8 KV, to
-    # GEMMA3_DEEP_TOL (the random model's bf16 drift at that depth, printed
-    # below for one long request); on the same weights cut to
-    # GEMMA3_HELD_LAYERS layers every K1 and K7 call is held and the answers
-    # to TOKEN_TOL (the 2-layer copy after it holds K7 on windows)
-    cfg22, params22, build_s = build("gemma3-4b", "down", 24)
+    # (b) gemma3-4b cut to GEMMA3_HELD_LAYERS of its 34 layers (phase 26 runs
+    # it at full depth on ring caches, held to this flat route): two prompts
+    # over its window, six under it, bf16 and int8 KV, every K1 and K7 call
+    # held against its plain version and every answer to TOKEN_TOL; one
+    # engine decode step profiled for each (the 2-layer copy after it holds
+    # K7 on windows)
+    cfg22, params22, build_s = build("gemma3-4b", "down", 24, n_layers=GEMMA3_HELD_LAYERS)
     L22 = cfg22.n_layers
     lens = ints22(1100, 1400, 2) + ints22(64, 512, 6)
     g_prompts = make_prompts(cfg22, lens, g22)
     rec22["gemma3_build_s"] = build_s
-    cut = cfg22.with_(n_layers=GEMMA3_HELD_LAYERS)
     for kvq in (False, True):
         kv = "int8" if kvq else "bf16"
-        res, g_outs = family_engine(
-            "gemma3-4b", f"gemma3-4b down {kv} KV ({L22} layers, prompts {lens})", cfg22,
-            params22, g_prompts, 32, kvq=kvq, held=("decode_attention",), tol=GEMMA3_DEEP_TOL)
+        res, _ = family_engine(
+            "gemma3-4b", f"gemma3-4b down {kv} KV ({L22} of its 34 layers, prompts {lens})",
+            cfg22, params22, g_prompts, 32, kvq=kvq, held=("ternary_matmul", "decode_attention"),
+            tol=TOKEN_TOL)
         if res["launches"]["decode_attention_hd256"] == 0 or res["launches"]["ternary_mlp"]:
             fail(f"gemma3-4b engine: launches {res['launches']} (K7 at hd 256, no K2)")
-        rec22[f"gemma3_engine_{kv}"] = res
-        rec22[f"gemma3_engine_{kv}_cut"], _ = family_engine(
-            "gemma3-4b", f"gemma3-4b down {kv} KV ({cut.n_layers} of its {L22} layers)", cut,
-            params22, g_prompts, 32, kvq=kvq, held=("ternary_matmul", "decode_attention"),
-            tol=TOKEN_TOL)
-        rec22[f"gemma3_step_{kv}"] = family_step(f"gemma3-4b down engine, {kv} KV", cfg22,
-                                                 params22, g_prompts, kvq=kvq)
-        if not kvq:
-            noise = {}
-            for depth in (L22, cut.n_layers):
-                cd = cfg22.with_(n_layers=depth)
-                toks = torch.as_tensor(list(g_prompts[0]) + g_outs[0][:-1], device=dev)[None]
-                with torch.inference_mode():
-                    lb = tdec.forward(cd, params22, toks, impl="plain")[0, len(g_prompts[0]) - 1:]
-                    p32 = tdec._map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
-                                    params22)
-                    lf = tdec.forward(cd, p32, toks, impl="plain")[0, len(g_prompts[0]) - 1:]
-                    del p32
-                lb, lf = lb.float(), lf.float()
-                rel = ((lb - lf).norm() / lf.norm()).item()
-                gap = ((lf.max(1).values - lf.gather(1, lb.argmax(1)[:, None])[:, 0])
-                       / lf.abs().max(1).values).max().item()
-                noise[depth] = {"rel_l2_bf16_f32": rel, "pick_gap_bf16_vs_f32": gap}
-                del lb, lf
-            rec22["gemma3_bf16_noise"] = noise
-            print("22b gemma3-4b bf16 noise, one request of " + str(len(g_prompts[0])) + " ids + "
-                  "31 answer ids through the plain route, bf16 against f32: " + "; ".join(
-                      f"{d} layers rel L2 {v['rel_l2_bf16_f32']:.3f}, the bf16 picks trail the "
-                      f"f32 max by {v['pick_gap_bf16_vs_f32']:.3e} of max|logit|"
-                      for d, v in noise.items()) + f" on {record['smi']}")
+        rec22[f"gemma3_engine_{kv}_cut"] = res
+        rec22[f"gemma3_step_{kv}"] = family_step(f"gemma3-4b down engine ({L22} layers), {kv} KV",
+                                                 cfg22, params22, g_prompts, kvq=kvq)
     # the 2-layer cut of the same weights: both layers sliding (the pattern
     # starts with 5 local layers), every K1 / K7 call held, K7's on windows
     cfg2 = cfg22.with_(n_layers=2)
@@ -4387,12 +4440,12 @@ def main() -> None:
     for kvq in (False, True):
         kv = "int8" if kvq else "bf16"
         windowed[0] = 0
-        held = ("ternary_matmul", "decode_attention")
+        held_names = ("ternary_matmul", "decode_attention")
         eng = ServeEngine(cfg2, params22, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
         reqs = [eng.submit(p_, 16) for p_ in g_prompts[:4]]
         for k in per_call:
             per_call[k] = 0
-        with swapped(window_spy, held):
+        with swapped(window_spy, held_names):
             zero_counts()
             eng.run()
             torch.cuda.synchronize()
@@ -4401,7 +4454,7 @@ def main() -> None:
         want = family_launches("gemma3-4b", 2, [min(_bucket(len(p_)), ENGINE_M)
                                                  for p_ in g_prompts[:4]] + [8] * st_, st_)
         checked = {k: v for k, v in per_call.items() if v}
-        if got != want or checked != {k: got[k] for k in held}:
+        if got != want or checked != {k: got[k] for k in held_names}:
             fail(f"2-layer gemma3-4b engine {kv} KV: launches {got}, want {want}, held {checked}")
         tally(got)
         # every decode step's two K7 calls (both layers sliding) carry the long
@@ -4458,7 +4511,7 @@ def main() -> None:
     # f32 at this depth, one decode step profiled; the same weights cut to
     # 2 layers with every K1 / K1s call held, answers at TOKEN_TOL. (c) the
     # same model in a ServeEngine (8 slots, M 2048, 8 requests of 64-512
-    # ids, 32 new, bf16 KV; every pass runs all 8 experts): K1 and K7
+    # ids, 16 new, bf16 KV; every pass runs all 8 experts): K1 and K7
     # launches exact, every K7 call held, answers held under one batched
     # teacher-forced plain forward at MIXTRAL_DEEP_TOL; one decode step
     # profiled; the 2-layer cut's engine with K7 off (the reference's plain
@@ -4871,8 +4924,8 @@ def main() -> None:
     # (c) the engine
     lens23 = torch.randint(64, 513, (8,), generator=gh23).tolist()
     prompts23 = make_prompts(cfg23, lens23, g23)
-    rec23["engine"], _ = moe_engine(
-        f"23c mixtral-8x7b down bf16 KV ({L23} layers)", cfg23, params23, prompts23, 32,
+    rec23["engine"], _ = moe_engine(  # 16 new since phase 26 (the run's time budget)
+        f"23c mixtral-8x7b down bf16 KV ({L23} layers)", cfg23, params23, prompts23, 16,
         lambda passes_, st_: mixtral_launches(L23, passes_, k7_steps=st_),
         held=("decode_attention",), tol=MIXTRAL_DEEP_TOL)
     rec23["engine_step"] = family_step("mixtral-8x7b down engine, bf16 KV", cfg23, params23,
@@ -4982,6 +5035,37 @@ def main() -> None:
         torch.cuda.empty_cache()
         return res
 
+    def moe_floor_pairs(cfg_d, params_d):
+        """The 2-layer mixtral "ssr" cut under a8 and floor8, lockstep at
+        batch 1 (32 ids, 4 new: one-row decode through K3s and K1s, under P2
+        K6s), under the default flags, K1_DEC_A8, P2 and P2 with K1_DEC_A8:
+        every kernel launched equally by the two. Its own generator. Returns
+        each flag set's floor8 launches by FLOOR instance."""
+        gfl = torch.Generator(device=dev).manual_seed(2307)
+        pr_ = torch.randint(0, cfg_d.vocab_size, (1, 32), generator=gfl, device=dev)
+        floor_keys = [f"{w}_floor" for w, _ in FLOOR_WRAPPERS]
+        out = {}
+        for fname, flags, dec_a8 in FLOOR_FLAG_SETS:
+            k1.K1_DEC_A8 = dec_a8
+            pair = {}
+            with route_flags(flags) if flags else contextlib.nullcontext():
+                for impl in ("a8", "floor8"):
+                    zero_counts()
+                    greedy_generate(cfg_d, params_d, pr_, 4, impl=impl)
+                    torch.cuda.synchronize()
+                    pair[impl] = counts()
+            k1.K1_DEC_A8 = False
+            a8c, flc = pair["a8"], pair["floor8"]
+            if ({k_: v_ for k_, v_ in a8c.items() if k_ not in floor_keys}
+                    != {k_: v_ for k_, v_ in flc.items() if k_ not in floor_keys}
+                    or any(a8c[k_] for k_ in floor_keys)
+                    or any(flc[f"{w}_floor"] != flc[w] for w, _ in FLOOR_WRAPPERS)):
+                fail(f"23d mixtral ssr floor8 vs a8, {fname}: a8 launched {a8c}, floor8 {flc}")
+            out[fname] = floor_instances(flc)
+            print(f"23d 2-layer mixtral-8x7b ssr, {fname}: floor8 and a8 launch every kernel "
+                  f"equally (1 x 32 ids, 4 new): {out[fname]}")
+        return out
+
     stamp("23d")
     # (d) depth cuts: mixtral at 2 layers "ssr" (K3s), qwen3-30b-a3b at 4 "down"
     for name, layout, n_l, seed in (("mixtral-8x7b", "ssr", 2, 24),
@@ -5008,6 +5092,7 @@ def main() -> None:
         set_k7(True)
         if name == "mixtral-8x7b":
             rec23["routed"] = routed_decode(cfg_d, params_d, pr)
+            rec23["floor_pairs"] = moe_floor_pairs(cfg_d, params_d)
         del params_d
         torch.cuda.empty_cache()
     rec23["ungated_k2"] = ungated_k2_model()
@@ -5366,6 +5451,488 @@ def main() -> None:
         torch.cuda.empty_cache()
     rec23["timing"] = moe_timing
     record["moe"] = rec23
+
+    stamp("24")
+    # ---- 24. the floor probe (impl="floor8": W2A8 with the 2-bit unpack
+    # skipped in K1, K3 and K6, the raw packed bytes dotted; wrong by design,
+    # with the same bytes, grids and launches). (a) every FLOOR instance held
+    # against the floor's plain versions at llama-2-7b / llama-3-8b
+    # projections, B 1, 8, 16 and 64 (K1_DEC_A8 off and on at decode rows),
+    # and K1s / K3s / K6s at B 1 bit for bit the view route's; (b) the
+    # 2-layer llama-3-8b "ssr" model under a8 and floor8, lockstep at B 4
+    # (a 512-row prefill: the gather, then K1 on its int8 tensor cores) and
+    # B 1 (a 40-row prefill: K3 or K6 on its tensor-core path), under the
+    # default flags, K1_DEC_A8, P2 and P2 with K1_DEC_A8: the launches of
+    # every kernel equal between the two; (c) the floor A/B of
+    # scripts/torch_floor_ab.py, llama-2-7b "ssr" at full width and
+    # FLOOR_AB_LAYERS of its 32 layers: ms/step under auto, a8 and floor8
+    # (K1_DEC_A8 off: W2A8 decode rows on the CUDA cores), then a8 and floor8
+    # with K1_DEC_A8 (on the decode GEMV). Its own generator: later phases
+    # draw what they drew before.
+    rec24 = {}
+    gf = torch.Generator(device=dev).manual_seed(24)
+    # launches by FLOOR instance over every floor8 run (23d's and 24b's)
+    floor_launches = dict.fromkeys(floor_instances(none), 0)
+    for inst in record["moe"]["floor_pairs"].values():
+        for k_, v_ in inst.items():
+            floor_launches[k_] += v_
+    floor_err = dict.fromkeys(floor_launches, 0.0)
+    floor_abs = dict.fromkeys(floor_launches, 0.0)
+    checks24 = 0
+    paths_of = {"ternary_matmul": k1.k1_path, "ternary_matmul_igathered": k1.k3_path,
+                "ternary_matmul_gathered": k1.k6_path}
+    plains_of = {"ternary_matmul": k1.ternary_matmul_floor_plain,
+                 "ternary_matmul_igathered": k1.ternary_matmul_igathered_floor_plain,
+                 "ternary_matmul_gathered": k1.ternary_matmul_gathered_floor_plain}
+    for label, K, n in (("7b qkv", 4096, 12288), ("8b qkv", 4096, 6144), ("8b down", 14336, 4096)):
+        T = torch.randint(-1, 2, (n, K), generator=gf, device=dev, dtype=torch.int8)
+        packed = pack_ternary(T, 128)
+        del T
+        alpha = (0.05 + 0.01 * torch.rand((K // 128, n), generator=gf, device=dev)).bfloat16()
+        mu = (0.01 * torch.randn((K // 128, n), generator=gf, device=dev)).bfloat16()
+        perm = torch.randperm(K, generator=gf, device=dev).to(torch.int32)
+        gp = tgather.make_packed_gather(perm, K).packed
+        operands = {"ternary_matmul": (packed, alpha, mu),
+                    "ternary_matmul_igathered": (perm, packed, alpha, mu),
+                    "ternary_matmul_gathered": (gp, packed, alpha, mu)}
+        for B in (1, 8, 16, 64):
+            x = torch.randn((B, K), generator=gf, device=dev).bfloat16()
+            for dec_a8 in ((False, True) if B <= 8 else (False,)):
+                k1.K1_DEC_A8 = dec_a8
+                for w, fn in (("ternary_matmul", k1.ternary_matmul),
+                              ("ternary_matmul_igathered", k1.ternary_matmul_igathered),
+                              ("ternary_matmul_gathered", k1.ternary_matmul_gathered)):
+                    path = paths_of[w](B, n, 128, True)
+                    sub = None if path == "cuda_core" else path
+                    c0 = counts()
+                    got = fn(x, *operands[w], a8=k1.FLOOR)
+                    rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+                    want_rose = {w: 1, f"{w}_floor": 1, **({f"{w}_{sub}": 1} if sub else {})}
+                    if rose != want_rose:
+                        fail(f"24a {w} floor {label} B={B} K1_DEC_A8={dec_a8}: launches {rose}, "
+                             f"want {want_rose}")
+                    want = plains_of[w](x, *operands[w])
+                    err = ((got - want).abs().max() / want.abs().max()).item()
+                    if not err <= FLOOR_TOL:
+                        fail(f"24a {w} floor ({path}) {label} B={B}: max|err| {err:.3e} > "
+                             f"{FLOOR_TOL} x max|ref|")
+                    key = f"{w}_{sub}" if sub else w
+                    floor_err[key] = max(floor_err[key], err)
+                    floor_abs[key] = max(floor_abs[key], (got - want).abs().max().item())
+                    checks24 += 1
+            k1.K1_DEC_A8 = False
+        del packed, alpha, mu, perm, gp, operands
+        torch.cuda.empty_cache()
+    # K1s / K3s / K6s: slot 1 + 1 of 3-slot stacks at 8b qkv, B 1, on the
+    # decode kernel (K1_DEC_A8) and the CUDA cores, bit for bit the view
+    # route's (the same kernel on the host slot) and within FLOOR_TOL of the
+    # floor's plain version
+    K, n, S = 4096, 6144, 3
+    lay = [(pack_ternary(torch.randint(-1, 2, (n, K), generator=gf, device=dev,
+                                       dtype=torch.int8), 128),
+            (0.05 + 0.01 * torch.rand((K // 128, n), generator=gf, device=dev)).bfloat16(),
+            (0.01 * torch.randn((K // 128, n), generator=gf, device=dev)).bfloat16())
+           for _ in range(S)]
+    sp, sa, sm = (torch.stack([l_[j] for l_ in lay]).contiguous() for j in range(3))
+    sperm = torch.stack([torch.randperm(K, generator=gf, device=dev).to(torch.int32)
+                         for _ in range(S)]).contiguous()
+    sgp = torch.stack([tgather.make_packed_gather(sperm[s_], K).packed for s_ in range(S)])
+    sel24 = torch.tensor(1, dtype=torch.int32, device=dev)
+    x = torch.randn((1, K), generator=gf, device=dev).bfloat16()
+    for dec_a8 in (False, True):
+        k1.K1_DEC_A8 = dec_a8
+        for w, fn, extra, view_fn in (
+                ("ternary_matmul_idx", k1.ternary_matmul_idx, (), k1.ternary_matmul),
+                ("ternary_matmul_igathered_idx", k1.ternary_matmul_igathered_idx, (sperm,),
+                 k1.ternary_matmul_igathered),
+                ("ternary_matmul_gathered_idx", k1.ternary_matmul_gathered_idx, (sgp,),
+                 k1.ternary_matmul_gathered)):
+            c0 = counts()
+            got = fn(x, *extra, sp, sa, sm, sel24, 1, a8=k1.FLOOR)
+            rose = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+            want_rose = {w: 1, f"{w}_floor": 1, **({f"{w}_dec": 1} if dec_a8 else {})}
+            if rose != want_rose:
+                fail(f"24a {w} floor K1_DEC_A8={dec_a8}: launches {rose}, want {want_rose}")
+            view = view_fn(x, *(e_[2] for e_ in extra), sp[2], sa[2], sm[2], a8=k1.FLOOR)
+            plain = plains_of[w[:-4]](x, *(e_[2] for e_ in extra), sp[2], sa[2], sm[2])
+            err = ((got - plain).abs().max() / plain.abs().max()).item()
+            if not (torch.equal(got, view) and err <= FLOOR_TOL):
+                fail(f"24a {w} floor K1_DEC_A8={dec_a8}: not the view route bit for bit, or "
+                     f"max|err| {err:.3e} > {FLOOR_TOL}")
+            key = f"{w}_dec" if dec_a8 else w
+            floor_err[key] = max(floor_err[key], err)
+            floor_abs[key] = max(floor_abs[key], (got - plain).abs().max().item())
+            checks24 += 1
+    k1.K1_DEC_A8 = False
+    del lay, sp, sa, sm, sperm, sgp
+    torch.cuda.empty_cache()
+    rec24["per_call"] = {"checks": checks24, "max_rel_err": dict(floor_err),
+                         "max_abs_err": dict(floor_abs)}
+    print(f"24a the floor's FLOOR instances (K1 decode GEMV / int8 tensor cores / CUDA cores, K3 "
+          f"decode / tensor-core product / CUDA cores, K6 the same, K1s / K3s / K6s decode and "
+          f"CUDA cores) at llama-2-7b / llama-3-8b shapes, B 1 / 8 / 16 / 64: {checks24} calls "
+          f"within {FLOOR_TOL} x max|ref| of the floor's plain versions, max {floor_err}")
+
+    # (b) floor8 against a8 on the 2-layer llama-3-8b "ssr" model: equal launches
+    cfg24, params24, _ = build("llama-3-8b", "ssr", 3, n_layers=2)
+    prompts24 = {(4, 128): torch.randint(0, cfg24.vocab_size, (4, 128), generator=gf, device=dev),
+            (1, 40): torch.randint(0, cfg24.vocab_size, (1, 40), generator=gf, device=dev)}
+    floor_keys = [f"{w}_floor" for w, _ in FLOOR_WRAPPERS]
+    rec24["pairs"] = {}
+    for fname, flags, dec_a8 in FLOOR_FLAG_SETS:
+        k1.K1_DEC_A8 = dec_a8
+        pair = {}
+        with route_flags(flags) if flags else contextlib.nullcontext():
+            for impl in ("a8", "floor8"):
+                tot = dict(none)
+                for prompt_ in prompts24.values():
+                    zero_counts()
+                    greedy_generate(cfg24, params24, prompt_, 8, impl=impl)
+                    torch.cuda.synchronize()
+                    c = counts()
+                    tally(c)
+                    for k_, v_ in c.items():
+                        tot[k_] += v_
+                pair[impl] = tot
+        k1.K1_DEC_A8 = False
+        a8c, flc = pair["a8"], pair["floor8"]
+        same = {k_: v_ for k_, v_ in a8c.items() if k_ not in floor_keys} == {
+            k_: v_ for k_, v_ in flc.items() if k_ not in floor_keys}
+        if not same or any(a8c[k_] for k_ in floor_keys) or any(
+                flc[f"{w}_floor"] != flc[w] for w, _ in FLOOR_WRAPPERS):
+            fail(f"24b 2-layer llama-3-8b ssr {fname}: a8 launched {a8c}, floor8 {flc}")
+        inst = floor_instances(flc)
+        for k_, v_ in inst.items():
+            floor_launches[k_] += v_
+        rec24["pairs"][fname] = {"launches": flc, "floor_instances": inst}
+        print(f"24b 2-layer llama-3-8b ssr, {fname}: floor8 and a8 launch every kernel equally "
+              f"(B 4 x 128 and B 1 x 40 ids, 8 new each): {inst}")
+    del params24
+    torch.cuda.empty_cache()
+
+    # (c) the floor A/B at full width (scripts/torch_floor_ab.py's slopes)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_floor_ab", os.path.join(ROOT, "scripts", "torch_floor_ab.py"))
+    floor_ab_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(floor_ab_mod)
+    cfg_f, params_f, _ = build("llama-2-7b", "ssr", 2, n_layers=FLOOR_AB_LAYERS)
+    prompt_f = torch.randint(0, cfg_f.vocab_size, (1, 32), generator=gf, device=dev)
+    rec24["ab"] = floor_ab_mod.floor_ab(cfg_f, params_f, prompt_f, FLOOR_AB_NEW, FLOOR_AB_ROUNDS)
+    k1.K1_DEC_A8 = True
+    rec24["ab_dec_a8"] = floor_ab_mod.floor_ab(cfg_f, params_f, prompt_f, FLOOR_AB_NEW,
+                                               FLOOR_AB_ROUNDS, impls=("a8", "floor8"))
+    k1.K1_DEC_A8 = False
+    del params_f
+    torch.cuda.empty_cache()
+    for tag, r_ in (("K1_DEC_A8 off", rec24["ab"]), ("K1_DEC_A8 on", rec24["ab_dec_a8"])):
+        print(f"24c floor A/B, llama-2-7b ssr ({FLOOR_AB_LAYERS} of 32 layers, full width), B 1, "
+              f"{tag}: " + ", ".join(f"{i} {r_[i]['ms_step']:.3f} ms/step ({r_[i]['tok_s']:.1f} "
+                                     f"tok/s)" for i in ("auto", "a8", "floor8") if i in r_)
+              + f"; a8 - floor8 {r_['unpack_ms_step']:.3f} ms/step, floor8 / a8 "
+              f"{100 * r_['floor8_over_a8']:.1f} % on {record['smi']}")
+    rec24["launches"] = floor_launches
+    record["floor"] = rec24
+
+    stamp("25")
+    # ---- 25. K7 at the head widths above 256 that JAX's kernel takes (hd
+    # 384 and 512: 16 / 32-position tiles, two stages of the ring at hd
+    # 512). (a) both of its kernels at B 1 and 8, M 2048, bf16 and int8 KV,
+    # ragged lengths, 8 / 2 KV heads: the tensor-core kernel held as phase
+    # 2b holds it (the plain version, the split plain version on its plan,
+    # the same bits twice), the CUDA-core kernel against the plain version; (b) a
+    # 2-layer llama-3-8b with head_dim 384 and one with 512 (ModelConfig.with_,
+    # "down" layout) in the ServeEngine (8 slots, M 2048, 4 requests, 16 new),
+    # bf16 and int8 KV, and at hd 384 bf16 with K7_TC off: K7 launched
+    # layers x steps times (all of them at the wide width), every K7 call held
+    # against its plain version, every answer held to TOKEN_TOL under its
+    # teacher-forced plain reference. Its own generator.
+    rec25 = {}
+    gw = torch.Generator(device=dev).manual_seed(25)
+    errs["decode_attention_wide"] = errs["decode_attention_cc_wide"] = 0.0
+    errs["decode_attention_wide_split"] = 0.0
+    nchecks["decode_attention_wide"] = nchecks["decode_attention_cc_wide"] = 0
+
+    for hd in WIDE_HEAD_DIMS:
+        for B in (1, 8):
+            for quant in (False, True):
+                a = attn_inputs(B, ENGINE_M, 8, 2, quant, hd=hd, gen=gw)
+                label = f"25a K7 hd={hd} B={B} M={ENGINE_M} int8={quant}"
+                plain = k7.decode_attention_plain(*a[:4], hd ** -0.5, *a[4:])
+                c0 = (k7.decode_attention.launches, k7.decode_attention.launches_tc,
+                      k7.decode_attention.launches_wide)
+                got = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                again = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                k7.K7_TC = False
+                got_cc = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                k7.K7_TC = True
+                rose = (k7.decode_attention.launches - c0[0], k7.decode_attention.launches_tc - c0[1],
+                        k7.decode_attention.launches_wide - c0[2])
+                if rose != (3, 2, 3):
+                    fail(f"{label}: launches (all, tensor-core, wide) rose by {rose}, not (3, 2, 3)")
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"{label}: two runs differ")
+                held("decode_attention_wide", label, got, plain, ATTN_TOL)
+                held("decode_attention_cc_wide", f"{label} (CUDA-core kernel)", got_cc, plain,
+                     ATTN_TOL)
+                plan = k7.k7_plan(B, ENGINE_M, 2, 4, hd, quant)
+                want = k7.decode_attention_split_plain(*a[:4], hd ** -0.5, *a[4:], tile=plan.tile,
+                                                       splits=plan.splits).float()
+                step = torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                over = ((got.float() - want).abs() - step).max().item() / want.abs().max().item()
+                if not over <= K7_SPLIT_TOL:
+                    fail(f"{label}: {over:.3e} of max|ref| past one bf16 step of the split plain "
+                         "version")
+                errs["decode_attention_wide_split"] = max(errs["decode_attention_wide_split"], over)
+                del a, plain
+    rec25["per_call"] = {k_: {"checks": nchecks[k_], "max_abs_err": errs[k_]}
+                         for k_ in ("decode_attention_wide", "decode_attention_cc_wide")}
+    print(f"25a K7 at hd {WIDE_HEAD_DIMS}, B 1 / 8, M {ENGINE_M}, bf16 and int8: tensor-core "
+          f"kernel {nchecks['decode_attention_wide']} checks (max|err| "
+          f"{errs['decode_attention_wide']:.3e}, past one bf16 step of its split plain version by "
+          f"at most {errs.get('decode_attention_wide_split', 0.0):.3e} of max|ref|), the CUDA-core "
+          f"kernel "
+          f"{nchecks['decode_attention_cc_wide']} (max|err| {errs['decode_attention_cc_wide']:.3e}),"
+          f" each within {ATTN_TOL} x max|ref| of the plain version")
+
+    # (b) 2-layer models at head_dim 384 / 512 in the engine
+    wide_launches = {f"decode_attention{'' if tc_ else '_cc'}_hd{hd_}": 0
+                     for hd_ in WIDE_HEAD_DIMS for tc_ in (True, False)}
+    rec25["engines"] = {}
+    for hd, kvq, tc in ((384, False, True), (384, True, True), (384, False, False),
+                        (512, False, True), (512, True, False)):
+        cfg_w = get_config("llama-3-8b").with_(n_layers=2, head_dim=hd)
+        if cfg_w.hd != hd:
+            fail(f"25b a head_dim {hd} config has hd {cfg_w.hd}")
+        params_w = random_ternary_params(cfg_w, seed=hd, perm_mode="down", device=dev)
+        prompts_w = make_prompts(cfg_w, torch.randint(64, 513, (4,), generator=gw,
+                                                      device=dev).tolist(), gw)
+        k7.K7_TC = tc
+        eng = ServeEngine(cfg_w, params_w, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
+        reqs = [eng.submit(p_, 16) for p_ in prompts_w]
+        for k_ in per_call:
+            per_call[k_] = 0
+        with swapped(each_call_checked, ("decode_attention",)):
+            zero_counts()
+            eng.run()
+            torch.cuda.synchronize()
+            got = counts()
+        k7.K7_TC = True
+        st_ = eng.stats["steps"]
+        L_ = cfg_w.n_layers
+        want = {"decode_attention": L_ * st_, "decode_attention_wide": L_ * st_,
+                "decode_attention_tc": L_ * st_ if tc else 0,
+                "held": L_ * st_}
+        have = {"decode_attention": got["decode_attention"],
+                "decode_attention_wide": got["decode_attention_wide"],
+                "decode_attention_tc": got["decode_attention_tc"],
+                "held": per_call["decode_attention"]}
+        if have != want:
+            fail(f"25b 2-layer hd {hd} engine (int8 KV={kvq}, K7_TC={tc}): {have}, want {want}")
+        tally(got)
+        if not all(r.done and len(r.out) == 16 for r in reqs):
+            fail(f"25b 2-layer hd {hd} engine: a request did not finish")
+        worst = family_answers_held(f"25b 2-layer hd {hd} engine answers", cfg_w, params_w,
+                                    prompts_w, [r.out for r in reqs], kvq, TOKEN_TOL)
+        wide_launches[f"decode_attention{'' if tc else '_cc'}_hd{hd}"] += got["decode_attention_wide"]
+        tag = f"hd {hd} {'int8' if kvq else 'bf16'} KV{'' if tc else ', K7_TC off'}"
+        rec25["engines"][tag] = {"steps": st_, "launches": got, "worst_pick_gap": worst}
+        print(f"25b 2-layer llama-3-8b at head_dim {hd} ServeEngine ({tag}): {st_} decode steps, "
+              f"K7 launched {got['decode_attention']} = {L_} layers x {st_} steps, every call "
+              f"held against its plain version; every pick within {worst:.2e} of the teacher-"
+              f"forced plain max (<= {TOKEN_TOL})")
+        del eng, params_w
+        torch.cuda.empty_cache()
+    rec25["launches"] = wide_launches
+    record["k7_wide"] = rec25
+
+    stamp("26")
+    # ---- 26. ring KV caches (serve/ring.py): gemma3-4b at full width and
+    # its 34 layers (5 global, 29 sliding with a window of 1024), seeded as
+    # phase 22b's. (a) ring_generate at B 2 (1100 ids each, 8 new): launches
+    # exact (K7 at every layer of every decode step: the
+    # sliding layers on their 1024-slot rings), every answer held to
+    # GEMMA3_DEEP_TOL under its teacher-forced plain reference (the flat
+    # route); (b) the ServeEngine with make_ring_engine_fns (8 slots, M 2048;
+    # two requests over the window, six under it, 16 new): launches exact,
+    # every K7 call held against its plain version, every answer held to
+    # GEMMA3_DEEP_TOL; one decode step profiled (device time) and timed on
+    # the host clock; the KV bytes of ring and flat pools; (c) the same
+    # engine on the weights cut to GEMMA3_HELD_LAYERS layers, answers held to
+    # TOKEN_TOL; (d) cut to 2 layers (both sliding): every K1 and K7 call
+    # held against its plain version, K7's on 1024-slot rings; (e) a sampled
+    # generate pair (temperature 0.8, top-k 40, top-p 0.95) on the 6-layer
+    # cut, equal under one seed. Its own generators.
+    from pt2tpu_torch.serve import ring as tring
+    from pt2tpu_torch.serve.generate import generate as tgenerate
+    from pt2tpu_torch.serve.sampling import SamplingConfig as TSamplingConfig
+
+    rec26 = {}
+    gr = torch.Generator(device=dev).manual_seed(26)
+    ghr = torch.Generator().manual_seed(26)
+    cfg26, params26, rec26["build_s"] = build("gemma3-4b", "down", 24)
+    L26 = cfg26.n_layers
+    W26 = cfg26.sliding_window
+    gl26 = cfg26.globals_list()
+
+    # (a) the lockstep ring decode
+    prompt26 = torch.randint(0, cfg26.vocab_size, (2, 1100), generator=gr, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks26 = tring.ring_generate(cfg26, params26, prompt26, 8, max_len=ENGINE_M)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = family_launches("gemma3-4b", L26, [2 * 1100] + [2] * 7, 7)
+    if got != want:
+        fail(f"26a gemma3-4b ring_generate: launches {got}, want {want}")
+    tally(got)
+    worst = family_answers_held("26a gemma3-4b ring_generate answers", cfg26, params26,
+                                prompt26.tolist(), toks26.tolist(), False, GEMMA3_DEEP_TOL)
+    rec26["lockstep"] = {"wall_s": wall, "launches": got, "worst_pick_gap": worst}
+    print(f"26a gemma3-4b ring_generate ({L26} layers: {sum(gl26)} global, {L26 - sum(gl26)} "
+          f"sliding on {W26}-slot rings), 2 x 1100 ids + 8 new in {wall:.2f} s, launches exact "
+          f"{got}; every pick within {worst:.2e} of the teacher-forced plain (flat) max (<= "
+          f"{GEMMA3_DEEP_TOL}) on {record['smi']}")
+
+    def ring_engine(cfg_, params_):
+        pf, df, fac = tring.make_ring_engine_fns(cfg_, device=dev)
+        return ServeEngine(cfg_, params_, max_batch=8, max_len=ENGINE_M, prefill_fn=pf,
+                           decode_fn=df, cache_factory=fac)
+
+    lens26 = torch.randint(1100, 1401, (2,), generator=ghr).tolist() + torch.randint(
+        64, 513, (6,), generator=ghr).tolist()
+    prompts26 = make_prompts(cfg26, lens26, gr)
+
+    def ring_engine_run(label, cfg_, params_, new_, held, tol):
+        eng = ring_engine(cfg_, params_)
+        if not isinstance(eng.cache, tring.RingCaches) or eng.cache.window != W26:
+            fail(f"{label}: the pool is not the ring's")
+        reqs = [eng.submit(p_, new_) for p_ in prompts26]
+        for k_ in per_call:
+            per_call[k_] = 0
+        with swapped(each_call_checked, held):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall_ = time.perf_counter() - t0
+            got_ = counts()
+        st_ = eng.stats["steps"]
+        want_ = family_launches("gemma3-4b", cfg_.n_layers,
+                                [min(_bucket(len(p_)), ENGINE_M) for p_ in prompts26] + [8] * st_,
+                                st_)
+        checked = {k_: v_ for k_, v_ in per_call.items() if v_}
+        if got_ != want_ or checked != {k_: got_[k_] for k_ in held}:
+            fail(f"{label}: launches {got_}, want {want_}, held {checked}")
+        tally(got_)
+        if not all(r.done and len(r.out) == new_ for r in reqs):
+            fail(f"{label}: a request did not finish with max_new tokens")
+        worst_ = family_answers_held(f"{label} answers", cfg_, params_, prompts26,
+                                     [r.out for r in reqs], False, tol)
+        stt = dict(eng.stats)
+        res = {"wall_s": wall_, "steps": st_, "launches": got_, "calls_held": checked,
+               "worst_pick_gap": worst_, "decode_tok_s": stt["tokens"] / stt["t_decode_s"],
+               "t_admit_s": stt["t_admit_s"], "t_decode_s": stt["t_decode_s"],
+               "kv_bytes_ring": eng.cache.nbytes,
+               "kv_bytes_flat": 2 * cfg_.n_layers * 8 * ENGINE_M * cfg_.kv_heads * cfg_.hd * 2}
+        print(f"{label}: prompts {lens26}, {new_} new: {st_} decode steps in {wall_:.2f} s (decode "
+              f"{res['decode_tok_s']:.1f} tok/s, t_admit_s {stt['t_admit_s']:.2f} s), launches "
+              f"exact {got_}, every call of {sorted(held)} held {checked}; every pick within "
+              f"{worst_:.2e} of the teacher-forced plain (flat) max (<= {tol}); KV pool "
+              f"{res['kv_bytes_ring'] / 2**20:.1f} MiB against the flat pool's "
+              f"{res['kv_bytes_flat'] / 2**20:.1f} MiB on {record['smi']}")
+        return eng, res
+
+    # (b) 34 layers, every K7 call held
+    eng, rec26["engine"] = ring_engine_run(f"26b gemma3-4b ring engine ({L26} layers, bf16)",
+                                           cfg26, params26, 16, ("decode_attention",),
+                                           GEMMA3_DEEP_TOL)
+    del eng
+    eng = ring_engine(cfg26, params26)
+    for p_ in prompts26:
+        eng.submit(p_, 64)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        eng.step()
+    step_wall = (time.perf_counter() - t0) / 6 * 1e3
+    rec26["engine_step"] = dict(profile_engine_step(eng, "gemma3-4b ring engine, bf16 KV"),
+                                step_wall_ms=step_wall)
+    print(f"26b gemma3-4b ring engine step (8 busy slots): wall {step_wall:.2f} ms on the host "
+          f"clock, device {rec26['engine_step']['device_ms']:.2f} ms (profiler) on {record['smi']}")
+    del eng
+    torch.cuda.empty_cache()
+    # (c) the 6-layer cut and (d) the 2-layer cut of the same weights
+    cut26 = cfg26.with_(n_layers=GEMMA3_HELD_LAYERS)
+    eng, rec26["engine_cut"] = ring_engine_run(
+        f"26c gemma3-4b ring engine ({GEMMA3_HELD_LAYERS} of its {L26} layers)", cut26, params26,
+        16, ("ternary_matmul", "decode_attention"), TOKEN_TOL)
+    del eng
+    cfg2 = cfg26.with_(n_layers=2)
+    if any(cfg2.globals_list()):
+        fail("the 2-layer gemma3-4b copy has a global layer")
+    ring_shapes = []
+    held_attn = each_call_checked
+
+    def ring_spy(name, kernel, plain, tol):
+        call_ = held_attn(name, kernel, plain, tol)
+        if name != "decode_attention":
+            return call_
+
+        def spy(q_, k_, v_, *a_, **kw):
+            ring_shapes.append(k_.shape[1])
+            return call_(q_, k_, v_, *a_, **kw)
+        return spy
+
+    eng = ring_engine(cfg2, params26)
+    reqs = [eng.submit(p_, 16) for p_ in prompts26[:4]]
+    for k_ in per_call:
+        per_call[k_] = 0
+    with swapped(ring_spy, ("ternary_matmul", "decode_attention")):
+        zero_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        got = counts()
+    st_ = eng.stats["steps"]
+    want = family_launches("gemma3-4b", 2, [min(_bucket(len(p_)), ENGINE_M)
+                                             for p_ in prompts26[:4]] + [8] * st_, st_)
+    checked = {k_: v_ for k_, v_ in per_call.items() if v_}
+    if got != want or checked != {k_: got[k_] for k_ in ("ternary_matmul", "decode_attention")} \
+            or set(ring_shapes) != {W26}:
+        fail(f"26d 2-layer gemma3-4b ring engine: launches {got}, want {want}, held {checked}, "
+             f"K7 over {sorted(set(ring_shapes))} slots")
+    tally(got)
+    worst = family_answers_held("26d 2-layer gemma3-4b ring engine answers", cfg2, params26,
+                                prompts26[:4], [r.out for r in reqs], False, TOKEN_TOL)
+    rec26["engine_2layer"] = {"launches": got, "calls_held": checked, "worst_pick_gap": worst,
+                              "k7_slots": W26}
+    print(f"26d 2-layer gemma3-4b ring engine (both layers sliding): every K1 / K7 call held "
+          f"against its plain version {checked}, every K7 call over a {W26}-slot ring; "
+          f"launches exact; every pick within {worst:.2e} (<= {TOKEN_TOL})")
+    del eng
+    # (e) a sampled generate pair, one seed
+    sc26 = TSamplingConfig(temperature=0.8, top_k=40, top_p=0.95)
+    pair26 = []
+    for _ in range(2):
+        gen26 = torch.Generator(device=dev).manual_seed(2626)
+        pair26.append(tgenerate(cut26, params26, prompt26[:, :256], 8, sampling=sc26,
+                                generator=gen26).tolist())
+    if pair26[0] != pair26[1]:
+        fail("26e the sampled generate pair differs under one seed")
+    rec26["sampled_pair_equal"] = True
+    print(f"26e sampled generate ({GEMMA3_HELD_LAYERS}-layer gemma3-4b, 2 x 256 ids, 8 new, "
+          f"temperature 0.8, top-k 40, top-p 0.95), two runs under one seed: the same "
+          f"{len(pair26[0][0])} x 2 tokens")
+    del params26
+    torch.cuda.empty_cache()
+    record["ring"] = rec26
 
     record["paths_s"] = time.perf_counter() - t_start
 
@@ -6429,13 +6996,13 @@ def main() -> None:
     tc_lib = k7._tc_kernel_lib()
     record["k7_cc_timing"] = []
 
-    def k7_timing(H7, Hkv7, hd7, attn_scale, label, modes=("all", "engine")):
-        """K7 at B 8, M 2048 over valid slots by ``modes``: "all" every slot,
-        "engine" prefixes of 64-576 slots (the engine's lengths), "window"
-        gemma3's window of 1024 slots ending at 1100-2047 (rows whose slots
-        before the window are invalid)."""
-        B7, M7 = 8, ENGINE_M
-        chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7)
+    def k7_timing(H7, Hkv7, hd7, attn_scale, label, modes=("all", "engine"), M7=ENGINE_M):
+        """K7 at B 8, M ``M7`` (2048; a ring's 1024) over valid slots by
+        ``modes``: "all" every slot, "engine" prefixes of 64-576 slots (the
+        engine's lengths), "window" gemma3's window of 1024 slots ending at
+        1100-2047 (rows whose slots before the window are invalid)."""
+        B7 = 8
+        chunk = k7.chunk_len(B7, M7, Hkv7, H7 // Hkv7, hd7)
         nchunk = -(-M7 // chunk)
         part_acc = torch.empty((B7, H7, nchunk, hd7), dtype=torch.float32, device=dev)
         part_ml = torch.empty((B7, H7, nchunk, 2), dtype=torch.float32, device=dev)
@@ -6541,6 +7108,175 @@ def main() -> None:
     H3, Hkv3, hd3 = HEADS_GEMMA3
     record["k7_gemma3_window_timing"] = k7_timing(H3, Hkv3, hd3, 1.0 / math.sqrt(hd3),
                                                   "K7gemma3", modes=("window",))
+    # K7 at the wide heads (8 / 2 KV heads, hd 384 and 512), every slot
+    # valid, and on a gemma3-4b ring: 1024 slots (W), all valid, as every
+    # sliding layer's decode attends once past the window
+    for hd_w in WIDE_HEAD_DIMS:
+        record[f"k7_hd{hd_w}_timing"] = k7_timing(8, 2, hd_w, hd_w ** -0.5, f"K7hd{hd_w}",
+                                                  modes=("all",))
+    record["k7_gemma3_ring_timing"] = k7_timing(H3, Hkv3, hd3, 1.0 / math.sqrt(hd3), "K7gemma3ring",
+                                                modes=("all",), M7=RING_SLOTS)
+
+    # the floor's FLOOR instances through their C entries (a8 mode 2, K1's
+    # int8 tensor cores through pt2_ternary_matmul_tc_a8_floor) at
+    # llama-3-8b's qkv (4096 -> 6144), B 1 on the decode kernels and the CUDA
+    # cores, B 16 on the tensor-core paths, K1s / K3s / K6s on slot 1 of
+    # their stacks, each from a CUDA graph over copies larger than L2, beside
+    # the same kernel's W2A8 instance (the unpack's: the floor's yardstick;
+    # no library call computes the floor) and the floor's plain version. The
+    # bound: the bytes the call must move (codes, scales, x, out; K3 its
+    # perm, K6 its planes) against its operations at the tensor cores' peak
+    # (int8 for K1's int8 tensor cores, bf16 for the rest).
+    gft = torch.Generator(device=dev).manual_seed(2406)
+    Kf, nf, Sf = 4096, 6144, 3
+    wbytes = Kf * nf // 4 + 2 * 2 * (Kf // 128) * nf
+    copies_f = max(2, math.ceil(COLD_BYTES / (wbytes + Kf * Kf // 4)))
+    fl_layers = []
+    for _ in range(copies_f):
+        T = torch.randint(-1, 2, (nf, Kf), generator=gft, device=dev, dtype=torch.int8)
+        pf_ = torch.randperm(Kf, generator=gft, device=dev).to(torch.int32)
+        fl_layers.append((pack_ternary(T, 128),
+                          (0.05 + 0.01 * torch.rand((Kf // 128, nf), generator=gft,
+                                                    device=dev)).bfloat16(),
+                          (0.01 * torch.randn((Kf // 128, nf), generator=gft, device=dev)).bfloat16(),
+                          pf_, tgather.make_packed_gather(pf_, Kf).packed))
+        del T
+    st_f = [tuple(torch.stack([fl_layers[(c_ + s_) % copies_f][j] for s_ in range(Sf)]).contiguous()
+                  for j in range(5)) for c_ in range(0, copies_f, Sf)]
+    cnt_f = torch.zeros(1024, dtype=torch.int32, device=dev)
+    sel_f = torch.tensor(1, dtype=torch.int32, device=dev)
+    fdec, fcc, ftc, figtc = (k1._dec_kernel_lib(), k1._kernel_lib(), k1._tc_a8_kernel_lib(),
+                             k1._igtc_kernel_lib())
+    fgd, fgc, fgt = (k1._gathered_dec_kernel_lib(), k1._gathered_kernel_lib(),
+                     k1._gathered_tc_kernel_lib())
+    D4f = Kf // 4
+    floor_timing = []
+    for B in (1, 16):
+        x = torch.randn((B, Kf), generator=gft, device=dev).bfloat16()
+        xn = k1.normalize_rows_a8(x)[0].contiguous()
+        out = torch.empty((B, nf), dtype=torch.float32, device=dev)
+        dsp = k1.dec_splits(Kf, nf, 128, k1.dec_wave(dev))
+        isp = k1.igtc_splits(Kf, nf, 128, k1.igtc_wave(dev))
+        Bp = k1.igtc_rows_pad(B) if B >= 9 else B
+        part = torch.empty((max(dsp, isp, Kf // 128), B, nf), dtype=torch.float32, device=dev)
+        xg = torch.empty((Bp, Kf), dtype=torch.bfloat16, device=dev)
+        sums = torch.empty((Kf // 128, Bp), dtype=torch.float32, device=dev)
+        xq = torch.empty((B, Kf), dtype=torch.int8, device=dev)
+        isums = torch.empty((Kf // 128, 128), dtype=torch.int32, device=dev)
+        P = lambda t: t.data_ptr()  # noqa: E731
+
+        def w(i):
+            return fl_layers[i % copies_f]
+
+        def stk(i):
+            return st_f[i % len(st_f)]
+
+        kinds = ([("ternary_matmul_dec", "dec"), ("ternary_matmul", "cc"),
+                  ("ternary_matmul_igathered_dec", "dec"), ("ternary_matmul_igathered", "cc"),
+                  ("ternary_matmul_gathered_dec", "dec"), ("ternary_matmul_gathered", "cc"),
+                  ("ternary_matmul_idx_dec", "dec"), ("ternary_matmul_idx", "cc"),
+                  ("ternary_matmul_igathered_idx_dec", "dec"),
+                  ("ternary_matmul_igathered_idx", "cc"),
+                  ("ternary_matmul_gathered_idx_dec", "dec"), ("ternary_matmul_gathered_idx", "cc")]
+                 if B == 1 else
+                 [("ternary_matmul_tc_a8", "tc"), ("ternary_matmul_igathered_tc", "tc"),
+                  ("ternary_matmul_gathered_tc", "tc")])
+        for kname, path in kinds:
+            def call(i, mode, kname=kname):
+                pk, al, mu_, pm, gp = w(i)
+                if kname.endswith("_idx") or kname.endswith("_idx_dec"):
+                    pk, al, mu_, pm, gp = stk(i)
+                s_ = cur()
+                if kname == "ternary_matmul_dec":
+                    rc = fdec.pt2_ternary_matmul_dec(P(xn), P(pk), P(al), P(mu_), P(part), P(out),
+                                                     P(cnt_f), B, Kf, nf, 128, dsp, mode, dix, s_)
+                elif kname == "ternary_matmul":
+                    rc = fcc.pt2_ternary_matmul(P(xn), P(pk), P(al), P(mu_), P(out), B, Kf, nf,
+                                                128, mode, dix, s_)
+                elif kname == "ternary_matmul_tc_a8":
+                    fn_ = (ftc.pt2_ternary_matmul_tc_a8_floor if mode == 2
+                           else ftc.pt2_ternary_matmul_tc_a8)
+                    rc = fn_(P(xn), P(pk), P(al), P(mu_), P(xq), P(isums), P(out), B, 128, Kf, nf,
+                             128, dix, s_)
+                elif kname == "ternary_matmul_igathered_dec":
+                    rc = fdec.pt2_ternary_matmul_dec_igathered(
+                        P(xn), P(pm), P(pk), P(al), P(mu_), P(part), P(out), P(cnt_f), B, Kf, Kf,
+                        nf, 128, dsp, mode, dix, s_)
+                elif kname == "ternary_matmul_igathered":
+                    rc = fcc.pt2_ternary_matmul_igathered(P(xn), P(pm), P(pk), P(al), P(mu_),
+                                                          P(out), B, Kf, Kf, nf, 128, mode, dix, s_)
+                elif kname == "ternary_matmul_igathered_tc":
+                    rc = figtc.pt2_ternary_matmul_igathered_tc(
+                        P(xn), P(pm), P(pk), P(al), P(mu_), P(xg), P(sums), P(part), P(out),
+                        P(cnt_f), B, Kf, Kf, nf, 128, isp, mode, dix, s_)
+                elif kname == "ternary_matmul_gathered_dec":
+                    rc = fgd.pt2_ternary_matmul_gathered_dec(
+                        P(xn), P(gp), P(pk), P(al), P(mu_), P(xg), P(part), P(out), P(cnt_f), B,
+                        Kf, D4f, Kf, nf, dsp, mode, dix, s_)
+                elif kname == "ternary_matmul_gathered":
+                    rc = fgc.pt2_ternary_matmul_gathered(P(xn), P(gp), P(pk), P(al), P(mu_),
+                                                         P(part), P(out), B, Kf, D4f, Kf, nf, mode,
+                                                         dix, s_)
+                elif kname == "ternary_matmul_gathered_tc":
+                    rc = fgt.pt2_ternary_matmul_gathered_tc(
+                        P(xn), P(gp), P(pk), P(al), P(mu_), P(xg), P(sums), P(part), P(out),
+                        P(cnt_f), B, Kf, D4f, Kf, nf, isp, mode, dix, s_)
+                elif kname == "ternary_matmul_idx_dec":
+                    rc = fdec.pt2_ternary_matmul_dec_idx(
+                        P(xn), P(pk), P(al), P(mu_), P(part), P(out), P(cnt_f), P(sel_f), 0, Sf, B,
+                        Kf, nf, 128, dsp, mode, dix, s_)
+                elif kname == "ternary_matmul_idx":
+                    rc = fcc.pt2_ternary_matmul_idx(P(xn), P(pk), P(al), P(mu_), P(out), P(sel_f),
+                                                    0, Sf, B, Kf, nf, 128, mode, dix, s_)
+                elif kname == "ternary_matmul_igathered_idx_dec":
+                    rc = fdec.pt2_ternary_matmul_dec_igathered_idx(
+                        P(xn), P(pm), P(pk), P(al), P(mu_), P(part), P(out), P(cnt_f), P(sel_f), 0,
+                        Sf, B, Kf, Kf, nf, 128, dsp, mode, dix, s_)
+                elif kname == "ternary_matmul_igathered_idx":
+                    rc = fcc.pt2_ternary_matmul_igathered_idx(
+                        P(xn), P(pm), P(pk), P(al), P(mu_), P(out), P(sel_f), 0, Sf, B, Kf, Kf, nf,
+                        128, mode, dix, s_)
+                elif kname == "ternary_matmul_gathered_idx_dec":
+                    rc = fgd.pt2_ternary_matmul_gathered_dec_idx(
+                        P(xn), P(gp), P(pk), P(al), P(mu_), P(xg), P(part), P(out), P(cnt_f),
+                        P(sel_f), 0, Sf, B, Kf, D4f, Kf, nf, dsp, mode, dix, s_)
+                else:  # ternary_matmul_gathered_idx
+                    rc = fgc.pt2_ternary_matmul_gathered_idx(
+                        P(xn), P(gp), P(pk), P(al), P(mu_), P(part), P(out), P(sel_f), 0, Sf, B,
+                        Kf, D4f, Kf, nf, mode, dix, s_)
+                ok(rc, f"{kname} (a8 mode {mode})")
+
+            base_name = kname.replace("_dec", "").replace("_tc_a8", "").replace("_tc", "")
+            plain = {"ternary_matmul": k1.ternary_matmul_floor_plain,
+                     "ternary_matmul_idx": k1.ternary_matmul_floor_plain,
+                     "ternary_matmul_igathered": k1.ternary_matmul_igathered_floor_plain,
+                     "ternary_matmul_igathered_idx": k1.ternary_matmul_igathered_floor_plain,
+                     "ternary_matmul_gathered": k1.ternary_matmul_gathered_floor_plain,
+                     "ternary_matmul_gathered_idx": k1.ternary_matmul_gathered_floor_plain}[
+                base_name]
+            extra = (lambda l_: (l_[3],)) if "igathered" in kname else (
+                (lambda l_: (l_[4],)) if "gathered" in kname else (lambda l_: ()))
+            fl_ms = graph_ms(lambda i: call(i, 2))
+            a8_ms = graph_ms(lambda i: call(i, 1))
+            pl_ms = time_ms(lambda i: plain(x, *extra(w(i)), *w(i)[:3]), 3)
+            nbytes = (wbytes + 2 * B * Kf + 4 * B * nf + (4 * Kf if "igathered" in kname else 0)
+                      + (D4f * Kf if "gathered" in kname and "igathered" not in kname else 0))
+            ops = 2.0 * B * Kf * nf
+            b_ms, b_by = bound(nbytes, ops, int8_peak if kname == "ternary_matmul_tc_a8"
+                               else bf16_peak)
+            d = {"kernel": f"{kname}_floor", "shape": "llama-3-8b qkv", "B": B, "ms": fl_ms,
+                 "a8_ms": a8_ms, "plain_ms": pl_ms, "library_ms": None, "bytes": nbytes,
+                 "bound_ms": b_ms, "bound_by": b_by}
+            floor_timing.append(d)
+            print(f"floor {kname} B={B}: FLOOR instance {fl_ms * 1e3:.2f} us, its W2A8 (unpack) "
+                  f"instance {a8_ms * 1e3:.2f} us ({100 * (a8_ms - fl_ms) / a8_ms:.1f} % of it "
+                  f"the unpack's), plain {pl_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}; "
+                  f"{100 * b_ms / fl_ms:.1f} % of the floor's time) from CUDA graphs over "
+                  f"{copies_f} copies on {record['smi']}")
+        del x, xn, out, part, xg, sums, xq, isums
+    del fl_layers, st_f
+    torch.cuda.empty_cache()
+    record["floor_timing"] = floor_timing
 
     # ---- the record: per kernel, one layer of one step of its main path
     # (K1's tensor-core kernels at the 512-row prefill, 4 projections, the
@@ -6756,6 +7492,47 @@ def main() -> None:
                              [d for d in record["moe"]["timing"]
                               if d["kernel"] == kname and d["shape"] == "opt-1.3b"],
                              record["moe"]["per_call_ungated"]["max_rel_err"]))
+    # the floor probe's FLOOR instances (phase 24): each at llama-3-8b's qkv,
+    # B 1 (decode kernels, CUDA cores) or 16 (tensor-core paths); their
+    # launches: every floor8 run of 23d and 24b, counted exactly (equal to
+    # a8's); no library call computes the floor (its yardstick, the W2A8
+    # instance's time, is in record["floor_timing"])
+    floor_src = {"ternary_matmul_dec": "ternary_matmul_dec.cu", "ternary_matmul": "ternary_matmul.cu",
+                 "ternary_matmul_tc_a8": "ternary_matmul_tc_a8.cu",
+                 "ternary_matmul_igathered_dec": "ternary_matmul_dec.cu",
+                 "ternary_matmul_igathered": "ternary_matmul.cu",
+                 "ternary_matmul_igathered_tc": "ternary_matmul_igathered_tc.cu",
+                 "ternary_matmul_gathered_dec": "ternary_matmul_gathered_dec.cu",
+                 "ternary_matmul_gathered": "ternary_matmul_gathered.cu",
+                 "ternary_matmul_gathered_tc": "ternary_matmul_gathered_tc.cu",
+                 "ternary_matmul_idx_dec": "ternary_matmul_dec.cu",
+                 "ternary_matmul_idx": "ternary_matmul.cu",
+                 "ternary_matmul_igathered_idx_dec": "ternary_matmul_dec.cu",
+                 "ternary_matmul_igathered_idx": "ternary_matmul.cu",
+                 "ternary_matmul_gathered_idx_dec": "ternary_matmul_gathered_dec.cu",
+                 "ternary_matmul_gathered_idx": "ternary_matmul_gathered.cu"}
+    for d in record["floor_timing"]:
+        inst = d["kernel"][: -len("_floor")]
+        kernels.append({"name": d["kernel"], "route": "cuda",
+                        "source": f"pt2tpu_torch/csrc/{floor_src[inst]}",
+                        "replaces": "pt2tpu/ops/kernels/pallas_ternary.py:112",
+                        "launches": record["floor"]["launches"][inst],
+                        "max_abs_err": record["floor"]["per_call"]["max_abs_err"][inst],
+                        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                        "bound_by": d["bound_by"], "library_ms": None})
+    # K7 at hd 384 and 512 (phase 25), both kernels, at 8 / 2 KV heads, B 8,
+    # M 2048, bf16 cache; their launches: 25b's engine runs, counted exactly
+    main_launches.update(record["k7_wide"]["launches"])
+    for hd_w in WIDE_HEAD_DIMS:
+        kernels.append(entry(f"decode_attention_hd{hd_w}", "pt2tpu_torch/csrc/decode_attention_tc.cu",
+                             "pt2tpu/ops/kernels/pallas_attention.py:249",
+                             [d for d in record[f"k7_hd{hd_w}_timing"] if d["shape"] == "bf16"],
+                             errs["decode_attention_wide"]))
+        kernels.append(entry(f"decode_attention_cc_hd{hd_w}", "pt2tpu_torch/csrc/decode_attention.cu",
+                             "pt2tpu/ops/kernels/pallas_attention.py:249",
+                             [d for d in record["k7_cc_timing"]
+                              if d["kernel"].startswith(f"K7hd{hd_w} ") and d["shape"] == "bf16"],
+                             errs["decode_attention_cc_wide"]))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every run counted exactly: {run_totals}")

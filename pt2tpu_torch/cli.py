@@ -165,7 +165,10 @@ def cmd_eval(args):
 
 
 def cmd_generate(args):
-    from .serve.generate import greedy_generate
+    import torch
+
+    from .serve.generate import generate
+    from .serve.sampling import SamplingConfig
 
     tok = _load_tokenizer(args.tokenizer)
     if args.prompt_ids:
@@ -174,13 +177,32 @@ def cmd_generate(args):
         ids = tok(args.prompt)["input_ids"]
     else:
         raise SystemExit("need --prompt-ids, or --prompt with a local tokenizer")
+    if args.ring_kv:  # JAX's refusals, before anything is loaded
+        if args.temperature > 0:
+            raise SystemExit("--ring-kv is greedy-only for now")
+        if args.kv_int8:
+            raise SystemExit(
+                "--ring-kv caches are bf16; combine with --kv-int8 is not "
+                "supported (drop one of the flags)"
+            )
     cfg, params = _load(args)
-    out = greedy_generate(
-        cfg, params, [ids], max_new=args.max_new,
-        max_len=min(cfg.max_seq_len, len(ids) + args.max_new),
-        impl="a8" if args.a8 else "auto",
-        kv_quant=args.kv_int8,
-    )
+    max_len = min(cfg.max_seq_len, len(ids) + args.max_new)
+    impl = "a8" if args.a8 else "auto"
+    if args.ring_kv:
+        from .serve.ring import ring_generate
+
+        out = ring_generate(cfg, params, [ids], max_new=args.max_new, max_len=max_len,
+                            impl=impl)
+    else:
+        gen = torch.Generator(device=params["embed"].device)
+        gen.manual_seed(args.seed)
+        out = generate(
+            cfg, params, [ids], max_new=args.max_new, max_len=max_len, impl=impl,
+            kv_quant=args.kv_int8,
+            sampling=SamplingConfig(temperature=args.temperature, top_k=args.top_k,
+                                    top_p=args.top_p),
+            generator=gen,
+        )
     ids_out = out[0].tolist()
     print(tok.decode(ids_out) if tok else ",".join(map(str, ids_out)))
 
@@ -275,9 +297,10 @@ def build_parser():
     e.add_argument("--a8", action="store_true", help="through K1's W2A8 mode")
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(fn=cmd_eval)
-    g = sub.add_parser("generate", help="greedy decode")
+    g = sub.add_parser("generate", help="decode, greedy or sampled")
     g.add_argument("--model", required=True, help="artifact, HF checkpoint directory or registry config")
-    g.add_argument("--seed", type=int, default=42, help="a registry config's random weights")
+    g.add_argument("--seed", type=int, default=42,
+                   help="a registry config's random weights, and the sampler's generator")
     g.add_argument("--prompt", default=None, help="text, with a local tokenizer")
     g.add_argument("--prompt-ids", default=None)
     g.add_argument("--tokenizer", default=None)
@@ -285,6 +308,12 @@ def build_parser():
     g.add_argument("--a8", action="store_true",
                    help="W2A8: int8 activations in the K1 kernel")
     g.add_argument("--kv-int8", action="store_true", help="int8 KV cache")
+    g.add_argument("--ring-kv", action="store_true",
+                   help="window-sized ring KV caches on sliding layers "
+                        "(gemma2/3; greedy only, exact)")
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top_k", type=int, default=0)
+    g.add_argument("--top_p", type=float, default=1.0)
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=cmd_generate)
     sv = sub.add_parser("serve", help="HTTP serving front end")

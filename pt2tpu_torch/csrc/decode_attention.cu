@@ -56,6 +56,10 @@ constexpr int ROWS = 8;       // position rows of a block
 constexpr int LANES = 16;     // lanes per position: 16 x 8 dims = 128
 constexpr int UNROLL = 4;     // positions per thread in flight
 constexpr int CHUNK_MAX = 512;
+// The longest chunk at a head width: 256 above hd 256, so that the block's
+// static shared memory (q, its codes, the chunk's scores, the rows' sums)
+// stays within 48 KB at hd 512.
+__host__ __device__ constexpr int chunk_cap(int hd) { return hd > 256 ? 256 : CHUNK_MAX; }
 constexpr int MAX_HEADS = 8;  // query heads of one kv head per block
 constexpr float NEG = -0.7f * FLT_MAX;
 
@@ -114,7 +118,7 @@ decode_attention_chunk(const __nv_bfloat16* __restrict__ q,  // (B, H, HD)
   __shared__ __align__(16) float sq[RB][HD];       // q in f32
   __shared__ __align__(16) int8_t sq8[QUANT ? RB : 1][HD];  // int8: q quantised
   __shared__ float sqs[RB];                        // int8: q_scale * scale
-  __shared__ float ss[RB][CHUNK_MAX];              // scores, then rounded p
+  __shared__ float ss[RB][chunk_cap(HD)];          // scores, then rounded p
   __shared__ __align__(16) float red[ROWS][HD];    // the 8 rows' acc, summed
   __shared__ float sm[RB], sl[RB];
 
@@ -361,15 +365,17 @@ cudaError_t launch(int rb, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, co
 // q is bf16 (B, H, hd) (quantised to int8 in the kernel when quant); k/v
 // bf16 or (quant) int8 with k_scale/v_scale (B, M, Hkv) f32; valid (B, M)
 // bytes; part_acc (B, H, nchunk, hd) and part_ml (B, H, nchunk, 2) f32
-// scratch with nchunk = ceil(M / chunk); out (B, H, hd) bf16. hd is 128 or
-// 256; chunk a multiple of 8 up to 512. Returns the first launch error, or 0.
+// scratch with nchunk = ceil(M / chunk); out (B, H, hd) bf16. hd is 128,
+// 256, 384 or 512; chunk a multiple of 8 up to chunk_cap(hd) (512, 256 above
+// hd 256). Returns the first launch error, or 0.
 extern "C" int pt2_decode_attention(const void* q, const void* k, const void* v,
                                     const void* valid, const void* k_scale,
                                     const void* v_scale, void* part_acc, void* part_ml,
                                     void* out, float scale, int B, int M, int H, int Hkv,
                                     int hd, int chunk, int quant, int device, void* stream) {
-  if (B < 1 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv || (hd != 128 && hd != 256) ||
-      chunk < ROWS || chunk > CHUNK_MAX || chunk % ROWS ||
+  if (B < 1 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv ||
+      (hd != 128 && hd != 256 && hd != 384 && hd != 512) ||
+      chunk < ROWS || chunk > chunk_cap(hd) || chunk % ROWS ||
       (quant && (!k_scale || !v_scale)))
     return (int)cudaErrorInvalidValue;
   int cur = -1;
@@ -391,22 +397,22 @@ extern "C" int pt2_decode_attention(const void* q, const void* k, const void* v,
   const float* vs = static_cast<const float*>(v_scale);
   float* pa = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
-  cudaError_t e;
-  if (hd == 128)
-    e = quant ? launch<128, true>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H, Hkv,
-                                  chunk, nchunk, groups)
-              : launch<128, false>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H,
-                                   Hkv, chunk, nchunk, groups);
-  else
-    e = quant ? launch<256, true>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H, Hkv,
-                                  chunk, nchunk, groups)
-              : launch<256, false>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H,
-                                   Hkv, chunk, nchunk, groups);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaErrorInvalidValue;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (hd == 128)
-    decode_attention_combine<128><<<B * H, THREADS, 0, s>>>(pa, pml, o, nchunk);
-  else
-    decode_attention_combine<256><<<B * H, THREADS, 0, s>>>(pa, pml, o, nchunk);
+#define PT2_K7_HD(HD_)                                                                      \
+  if (hd == HD_) {                                                                          \
+    e = quant ? launch<HD_, true>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H,  \
+                                  Hkv, chunk, nchunk, groups)                               \
+              : launch<HD_, false>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H, \
+                                   Hkv, chunk, nchunk, groups);                             \
+    if (e != cudaSuccess) return (int)e;                                                    \
+    decode_attention_combine<HD_><<<B * H, THREADS, 0, s>>>(pa, pml, o, nchunk);            \
+  }
+  PT2_K7_HD(128)
+  PT2_K7_HD(256)
+  PT2_K7_HD(384)
+  PT2_K7_HD(512)
+#undef PT2_K7_HD
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,9 @@
 //      8)), so ldmatrix reads it without bank conflicts. Positions past M
 //      are filled with zeros; those past the row's last valid slot are
 //      masked. Each stage holds 32 KB of K and V (TILE = 64 positions at
-//      bf16 hd 128, 128 at int8 hd 128, 32 / 64 at hd 256).
+//      bf16 hd 128, 128 at int8 hd 128, 32 / 64 at hd 256), or as near as
+//      whole warps' tiles of 16 positions allow at the widths above 256
+//      (16 / 32 positions, 24 KB at hd 384, 32 KB at hd 512).
 //   2. CW = TILE / 16 consumer warps, 16 positions each, consume a tile in
 //      one pass: scores by mma.sync (bf16 m16n8k16 with f32 sums; int8
 //      m16n8k32 s8 x s8, exact in int32), positions as M and the group's
@@ -85,7 +87,7 @@ namespace cg = cooperative_groups;
 namespace {  // internal linkage: no other library's kernels of the same names interpose
 namespace k7tc {
 
-constexpr int STAGES = 3;             // tiles in the ring: two CTAs share an SM
+constexpr int STAGES = 3;             // the most tiles in the ring: two CTAs share an SM
 constexpr int HEADS = 8;              // query heads per CTA: the mma's N
 constexpr int MAX_SPLITS = 16;        // the largest cluster the card takes (non-portable above 8)
 constexpr int STAGE_DATA = 32768;     // bytes of K and V per stage
@@ -98,12 +100,17 @@ struct Cfg {
   static constexpr int EB = QUANT ? 1 : 2;
   static constexpr int ROW = HD * EB;              // bytes of one position of one kv head
   static constexpr int NBOX = ROW / BOX;           // tensor copies per operand and tile
-  static constexpr int TILE = STAGE_DATA / (2 * ROW);
+  // positions per tile: STAGE_DATA of K and V, in whole warps' rows of 16
+  static constexpr int TILE = STAGE_DATA / (2 * ROW) >= 16 ? STAGE_DATA / (2 * ROW) / 16 * 16 : 16;
   static constexpr int CW = TILE / 16;             // consumer warps
   static constexpr int THREADS = (CW + 1) * 32;    // + the producer warp
   static constexpr int HALF = NBOX * TILE * BOX;   // one operand's tile: NBOX boxes [TILE][BOX]
   static constexpr int STAGE_BYTES = 2 * HALF;    // K then V; stages start on 1 KB (the swizzle's period)
-  static constexpr int RING = STAGES * STAGE_BYTES;
+  // the ring's tiles: STAGES, or two above hd 256 where three would leave
+  // no room for a second CTA on the SM (the static partial buffers grow
+  // with HD; 227 KB an SM)
+  static constexpr int NST = (HD <= 256 || STAGES * STAGE_BYTES <= 73728) ? STAGES : 2;
+  static constexpr int RING = NST * STAGE_BYTES;
   static constexpr int KSTEPS = ROW / 32;          // 32-byte k steps of the score product
   static constexpr int DBLK = QUANT ? HD / 32 : HD / 16;  // P.V blocks of dims
   static constexpr int NACC = QUANT ? 2 * DBLK : DBLK;    // accumulator fragments
@@ -248,7 +255,7 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
   const int g = lane / 4, t = lane % 4;
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < C::NST; ++s) {
       mbar_init(&full[s], 1);  // the producer's arrival, with the copies' bytes
       mbar_init(&empty[s], C::CW);
     }
@@ -270,16 +277,22 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
       }
     }
   }
-  constexpr int CPH = HD / 16;  // int8: threads per head (8 or 16, inside one warp), 16 values each
+  // int8: threads per head (8 or 16 up to hd 256, 8 above, inside one
+  // warp), VPT values each (16, or 48 / 64 at hd 384 / 512)
+  constexpr int CPH = HD <= 256 ? HD / 16 : 8;
+  constexpr int VPT = HD / CPH;
   static_assert(!QUANT || (HEADS * CPH <= C::CW * 32 && 32 % CPH == 0), "whole consumer warps");
-  uint4 qraw[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  uint4 qraw[VPT / 8];
+#pragma unroll
+  for (int i = 0; i < VPT / 8; ++i) qraw[i] = make_uint4(0u, 0u, 0u, 0u);
   if constexpr (QUANT) {
     if (tid < HEADS * CPH) {
       const int h = tid / CPH;
       if (h < nh) {
         const uint4* src =
-            reinterpret_cast<const uint4*>(q + ((size_t)b * H + h0 + h) * HD + 16 * (tid % CPH));
-        qraw[0] = src[0], qraw[1] = src[1];
+            reinterpret_cast<const uint4*>(q + ((size_t)b * H + h0 + h) * HD + VPT * (tid % CPH));
+#pragma unroll
+        for (int i = 0; i < VPT / 8; ++i) qraw[i] = src[i];
       }
     }
   }
@@ -319,8 +332,8 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
     // ---- 1. the producer: a ring of tiles, NBOX tensor copies per operand
     if (lane == 0) {
       for (int i = 0; i < n; ++i) {
-        const int st = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[st], (uint32_t)((i / STAGES - 1) & 1));
+        const int st = i % C::NST;
+        if (i >= C::NST) mbar_wait(&empty[st], (uint32_t)((i / C::NST - 1) & 1));
         unsigned char* sk = ring + st * C::STAGE_BYTES;
         const int p0 = (t0 + i) * C::TILE;
         mbar_arrive_tx(&full[st], 2u * C::HALF);
@@ -347,28 +360,33 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
       // max|q| / 127 floored at 1e-20, codes rint(q / q_scale) clipped to
       // +-127 (quantize_query's), into shared memory
       if (tid < HEADS * CPH) {
-        const int h = tid / CPH, d0 = 16 * (tid % CPH);
-        const uint32_t w[8] = {qraw[0].x, qraw[0].y, qraw[0].z, qraw[0].w,
-                               qraw[1].x, qraw[1].y, qraw[1].z, qraw[1].w};
-        float x[16];
+        const int h = tid / CPH, d0 = VPT * (tid % CPH);
+        float x[VPT];
         float a = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          x[2 * i] = __uint_as_float(w[i] << 16);
-          x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        for (int i = 0; i < VPT / 2; ++i) {
+          const uint4& r = qraw[i / 4];
+          const uint32_t w = (i & 3) == 0 ? r.x : (i & 3) == 1 ? r.y : (i & 3) == 2 ? r.z : r.w;
+          x[2 * i] = __uint_as_float(w << 16);
+          x[2 * i + 1] = __uint_as_float(w & 0xffff0000u);
           a = fmaxf(a, fmaxf(fabsf(x[2 * i]), fabsf(x[2 * i + 1])));
         }
 #pragma unroll
         for (int off = CPH / 2; off > 0; off >>= 1)
           a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
         const float qs = fmaxf(a / 127.f, 1e-20f);
-        uint32_t c[4] = {0u, 0u, 0u, 0u};
+        uint32_t c[VPT / 4];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < VPT / 4; ++i) c[i] = 0u;
+#pragma unroll
+        for (int i = 0; i < VPT; ++i) {
           const int c8 = (int)fminf(fmaxf(rintf(x[i] / qs), -127.f), 127.f);
           c[i / 4] |= (uint32_t)(c8 & 0xff) << (8 * (i % 4));
         }
-        *reinterpret_cast<uint4*>(&sq8[h][d0]) = make_uint4(c[0], c[1], c[2], c[3]);
+#pragma unroll
+        for (int i = 0; i < VPT / 16; ++i)
+          *reinterpret_cast<uint4*>(&sq8[h][d0 + 16 * i]) =
+              make_uint4(c[4 * i], c[4 * i + 1], c[4 * i + 2], c[4 * i + 3]);
         if (tid % CPH == 0) sqs[h] = h < nh ? qs * scale : 0.f;
       }
       asm volatile("bar.sync 1, %0;\n" ::"r"(C::CW * 32) : "memory");
@@ -406,8 +424,8 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
     for (int i = 0; i < n; ++i) {
       float next_s[4] = {0.f, 0.f, 0.f, 0.f};
       if (i + 1 < n) scales(i + 1, next_s);
-      const int st = i % STAGES;
-      mbar_wait(&full[st], (uint32_t)((i / STAGES) & 1));
+      const int st = i % C::NST;
+      mbar_wait(&full[st], (uint32_t)((i / C::NST) & 1));
       const unsigned char* sk = ring + st * C::STAGE_BYTES;
       const unsigned char* sv = sk + C::HALF;
       const int p0 = (t0 + i) * C::TILE + r0;
@@ -708,7 +726,7 @@ int launch(const __nv_bfloat16* q, const void* k, const void* v, const uint8_t* 
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/attention.py).
 // q bf16 (B, H, hd); k/v bf16, or (quant) int8 with k_scale/v_scale (B, M,
-// Hkv) f32; valid (B, M) bytes; out (B, H, hd) bf16. hd 128 or 256; splits
+// Hkv) f32; valid (B, M) bytes; out (B, H, hd) bf16. hd 128, 256, 384 or 512; splits
 // 1..16 (the cluster size; attention.k7_plan); q, k and v 16-byte
 // aligned. One launch on `stream`; returns its CUDA error, or 0.
 extern "C" int pt2_decode_attention_tc(const void* q, const void* k, const void* v,
@@ -716,7 +734,8 @@ extern "C" int pt2_decode_attention_tc(const void* q, const void* k, const void*
                                        const void* v_scale, void* out, float scale, int B, int M,
                                        int H, int Hkv, int hd, int splits, int quant, int device,
                                        void* stream) {
-  if (B < 1 || B > 65535 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv || (hd != 128 && hd != 256) ||
+  if (B < 1 || B > 65535 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv ||
+      (hd != 128 && hd != 256 && hd != 384 && hd != 512) ||
       splits < 1 || splits > k7tc::MAX_SPLITS || !q || !k || !v || !valid || !out ||
       (quant && (!k_scale || !v_scale)))
     return (int)cudaErrorInvalidValue;
@@ -732,13 +751,16 @@ extern "C" int pt2_decode_attention_tc(const void* q, const void* k, const void*
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (hd == 128)
-    return quant ? k7tc::launch<128, true>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv, splits,
-                                           device, s)
-                 : k7tc::launch<128, false>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv, splits,
-                                            device, s);
-  return quant ? k7tc::launch<256, true>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv, splits,
-                                         device, s)
-               : k7tc::launch<256, false>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv, splits,
-                                          device, s);
+#define PT2_K7_HD(HD_)                                                                        \
+  if (hd == HD_)                                                                              \
+    return quant ? k7tc::launch<HD_, true>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv,      \
+                                           splits, device, s)                                 \
+                 : k7tc::launch<HD_, false>(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv,     \
+                                            splits, device, s);
+  PT2_K7_HD(128)
+  PT2_K7_HD(256)
+  PT2_K7_HD(384)
+  PT2_K7_HD(512)
+#undef PT2_K7_HD
+  return (int)cudaErrorInvalidValue;
 }

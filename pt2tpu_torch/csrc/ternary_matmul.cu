@@ -30,6 +30,13 @@
 // clips to [-127, 127], and the dot against u runs in int32. The wrapper
 // multiplies the output by the per-row scale.
 //
+// The floor probe (impl="floor8", mode 2 of the C entries' a8): W2A8 with
+// the 2-bit extraction (w >> 2p) & 3 replaced by the raw signed byte, so
+// every plane of a packed row reads the byte itself (the FLOOR instances).
+// It replaces pallas_ternary.py:_accumulate_step's "floor" mode: the same
+// bytes, grid and launches, the same offset and alpha terms, no unpack; its
+// outputs are wrong by design (ternary_matmul_floor_plain is its contract).
+//
 // What bounds it: at decode batch sizes the work is reading the weights,
 // 0.25 B/weight of packed codes plus 4 B per (block, column) of bf16 alpha
 // and mu, so the kernel is bound by device-memory bytes. This first design
@@ -56,10 +63,11 @@ constexpr int TN = TX * 4;         // output columns per thread block
 constexpr int CHUNK = 2048;        // x columns staged in shared memory per pass
 constexpr int MIN_BS = 16;         // smallest scale block the kernel takes
 
-template <bool A8> struct Acc { typedef float T; };
-template <> struct Acc<true> { typedef int T; };
+template <int A8> struct Acc { typedef int T; };
+template <> struct Acc<0> { typedef float T; };
 
-template <int TB, bool A8, bool GATHER, bool IDX>
+// A8: 0 bf16, 1 W2A8, 2 the floor probe (W2A8's rounding, raw bytes as codes)
+template <int TB, int A8, bool GATHER, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                       const int* __restrict__ perm,             // (K,) if GATHER
@@ -159,7 +167,8 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
         for (int p = 0; p < 4; ++p) {
           D u[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) u[j] = (D)((w >> (8 * j + 2 * p)) & 3u);
+          for (int j = 0; j < 4; ++j)
+            u[j] = A8 == 2 ? (D)(int8_t)(w >> (8 * j)) : (D)((w >> (8 * j + 2 * p)) & 3u);
           const __nv_bfloat16* xk = xs + blk * bs + p * bs4 + r;
 #pragma unroll
           for (int b = 0; b < TB; ++b) {
@@ -205,7 +214,7 @@ ternary_matmul_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
 }
 
 template <int TB, bool GATHER, bool IDX>
-void launch(bool a8, const void* x, const void* perm, const void* packed,
+void launch(int a8, const void* x, const void* perm, const void* packed,
             const void* alpha, const void* mu, void* out, int B, int m, int K,
             int n, int bs, const int* sel, int base, int S, cudaStream_t stream) {
   dim3 grid(n / TN, (B + TB - 1) / TB);
@@ -215,11 +224,14 @@ void launch(bool a8, const void* x, const void* perm, const void* packed,
   const __nv_bfloat16* ap = static_cast<const __nv_bfloat16*>(alpha);
   const __nv_bfloat16* mp = static_cast<const __nv_bfloat16*>(mu);
   float* op = static_cast<float*>(out);
-  if (a8)
-    ternary_matmul_kernel<TB, true, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
+  if (a8 == 2)
+    ternary_matmul_kernel<TB, 2, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
+        xp, ip, pp, ap, mp, op, B, m, K, n, bs, sel, base, S);
+  else if (a8)
+    ternary_matmul_kernel<TB, 1, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
         xp, ip, pp, ap, mp, op, B, m, K, n, bs, sel, base, S);
   else
-    ternary_matmul_kernel<TB, false, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
+    ternary_matmul_kernel<TB, 0, GATHER, IDX><<<grid, THREADS, 0, stream>>>(
         xp, ip, pp, ap, mp, op, B, m, K, n, bs, sel, base, S);
 }
 
@@ -229,7 +241,7 @@ int dispatch(const void* x, const void* perm, const void* packed,
              int n, int bs, int a8, int device, void* stream,
              const void* sel = nullptr, int base = 0, int S = 0) {
   if (B < 1 || m < 1 || bs < MIN_BS || bs > CHUNK || bs % 4 != 0 ||
-      K % bs != 0 || n % TN != 0)
+      K % bs != 0 || n % TN != 0 || a8 < 0 || a8 > 2)
     return (int)cudaErrorInvalidValue;
   if (IDX && (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1))
     return (int)cudaErrorInvalidValue;
@@ -241,7 +253,7 @@ int dispatch(const void* x, const void* perm, const void* packed,
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool q = a8 != 0;
+  const int q = a8;
   if (B == 1)
     launch<1, GATHER, IDX>(q, x, perm, packed, alpha, mu, out, B, m, K, n, bs, ix, base,
                              S, s);
@@ -260,6 +272,7 @@ int dispatch(const void* x, const void* perm, const void* packed,
 }  // namespace
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// a8: 0 bf16, 1 W2A8, 2 the floor probe (both on normalised rows).
 // Returns cudaGetLastError() after the launch; 0 means launched.
 extern "C" int pt2_ternary_matmul(const void* x, const void* packed,
                                   const void* alpha, const void* mu, void* out,

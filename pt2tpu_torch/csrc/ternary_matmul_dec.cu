@@ -23,6 +23,15 @@
 // weights (and perm) are whole stacks of S slots and each CTA reads its slot,
 // base + *sel, from device memory before its first load.
 //
+// The floor probe (impl="floor8": the FLOOR instances, mode 2 of the C
+// entries' a8) replaces pallas_ternary.py:_accumulate_step's "floor" mode at
+// these rows: W2A8, with the code of each plane the raw signed byte b of its
+// packed row in place of the 2-bit field, T = b - 1 (so the epilogue is the
+// same: alpha * x.(b - 1) + mu * S = alpha * x.b + (mu - alpha) * S). The
+// same bytes, grid, splits and launches; one conversion of a register pair
+// feeds all four planes, where the unpack makes one per plane. The block
+// dots are integers below 127 * 129 * bs <= 2^24 at bs <= 1024, exact in f32.
+//
 // Contract (K1's): with T in {-1,0,1} unpacked from the plane-interleaved
 // (K/4, n) int8 layout (byte [blk*bs/4 + r, j] holds lanes
 // blk*bs + p*bs/4 + r in bits 2p..2p+1, as u = T + 1),
@@ -121,6 +130,16 @@ __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w) {
   return r;
 }
 
+// The floor probe's codes of bytes 0 and 2 of w, each the raw signed byte b
+// as b - 1 in a bf16 pair: 2^23 + (b + 128) built as f32 bits, less
+// 2^23 + 129, is exact, and so is its bf16 (|b - 1| <= 129 needs 8 bits).
+__device__ __forceinline__ uint32_t raw_bf16x2(uint32_t w) {
+  const uint32_t u = w ^ 0x00800080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u)) - 8388737.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442u)) - 8388737.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
 // W2A8's rounding of a normalised value: half to even, clipped to +-127
 __device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f), -127.f), 127.f); }
 
@@ -133,7 +152,8 @@ __device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f),
 // With IDX, packed, alpha, mu (and perm) are stacks of S slots and the CTA
 // reads slot base + *sel from device memory (once, by thread 0; a slot
 // outside [0, S) traps), so a routed expert's index never goes to the host.
-template <bool A8, bool GATHER, bool IDX>
+// A8: 0 bf16, 1 W2A8, 2 the floor probe (W2A8's rounding, raw bytes as codes).
+template <int A8, bool GATHER, bool IDX>
 __global__ void __launch_bounds__(THREADS, 4)
 ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), or (B, m) if GATHER
                           const int* __restrict__ perm,             // (K,) if GATHER
@@ -320,12 +340,19 @@ ternary_matmul_dec_kernel(const __nv_bfloat16* __restrict__ x,      // (B, K), o
         const uint32_t wl = __byte_perm(word(v[q][0], j >> 2), word(v[q][1], j >> 2), sel);
         const uint32_t wh =
             __byte_perm(word(v[q][0], 2 + (j >> 2)), word(v[q][1], 2 + (j >> 2)), sel);
-        const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh), codes_bf16x2<1>(wl),
-                                 codes_bf16x2<1>(wh)};
-        mma_bf16(d[j], a01, b.x, b.y);
-        const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh), codes_bf16x2<3>(wl),
-                                 codes_bf16x2<3>(wh)};
-        mma_bf16(d[j], a23, b.z, b.w);
+        if constexpr (A8 == 2) {  // every plane reads the raw byte
+          const uint32_t rl = raw_bf16x2(wl), rh = raw_bf16x2(wh);
+          const uint32_t raw[4] = {rl, rh, rl, rh};
+          mma_bf16(d[j], raw, b.x, b.y);
+          mma_bf16(d[j], raw, b.z, b.w);
+        } else {
+          const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh),
+                                   codes_bf16x2<1>(wl), codes_bf16x2<1>(wh)};
+          mma_bf16(d[j], a01, b.x, b.y);
+          const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh),
+                                   codes_bf16x2<3>(wl), codes_bf16x2<3>(wh)};
+          mma_bf16(d[j], a23, b.z, b.w);
+        }
       }
     }
     if (s0 + 4 == ls) {  // the block is complete: acc += alpha * d + mu * S
@@ -404,7 +431,7 @@ int launch(const void* x, const void* perm, const void* packed, const void* alph
            int bs, int splits, int a8, int device, void* stream, const void* sel = nullptr,
            int base = 0, int S = 0) {
   if (B < 1 || B > MAX_ROWS || bs < 128 || bs % 128 != 0 || K < bs || K % bs != 0 || n < BN ||
-      n % BN != 0 || m < 1)
+      n % BN != 0 || m < 1 || a8 < 0 || a8 > 2 || (a8 == 2 && bs > 1024))
     return (int)cudaErrorInvalidValue;
   if (IDX && (sel == nullptr || reinterpret_cast<uintptr_t>(sel) % 4 != 0 || S < 1))
     return (int)cudaErrorInvalidValue;
@@ -441,11 +468,14 @@ int launch(const void* x, const void* perm, const void* packed, const void* alph
   float* op = static_cast<float*>(out);
   int* cp = static_cast<int*>(counters);
   const int* ip = static_cast<const int*>(sel);
-  if (a8)
-    ternary_matmul_dec_kernel<true, GATHER, IDX><<<grid, THREADS, smem, s>>>(
+  if (a8 == 2)
+    ternary_matmul_dec_kernel<2, GATHER, IDX><<<grid, THREADS, smem, s>>>(
+        xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc, ip, base, S);
+  else if (a8)
+    ternary_matmul_dec_kernel<1, GATHER, IDX><<<grid, THREADS, smem, s>>>(
         xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc, ip, base, S);
   else
-    ternary_matmul_dec_kernel<false, GATHER, IDX><<<grid, THREADS, smem, s>>>(
+    ternary_matmul_dec_kernel<0, GATHER, IDX><<<grid, THREADS, smem, s>>>(
         xp, pm, pp, ap, mp, part, op, cp, B, m, K, n, bs, bpc, ip, base, S);
   return (int)cudaGetLastError();
 }
@@ -453,6 +483,7 @@ int launch(const void* x, const void* perm, const void* packed, const void* alph
 }  // namespace
 
 // C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// a8: 0 bf16, 1 W2A8, 2 the floor probe (both on normalize_rows_a8's rows).
 // x is (B, K) bf16 (W2A8: normalize_rows_a8's output), partial scratch of
 // splits * B * n f32 (not read when splits is 1), out (B, n) f32, counters
 // n / 128 int32 that are 0 (each launch leaves them 0; launches that share

@@ -22,7 +22,12 @@
 //   alpha[blk, j] * (xg_blk . u_blk[:, j]) + (mu - alpha)[blk, j] * sum(xg_blk)
 //
 // in f32 (W2A8: the dot of integers <= 127 * 2 over 128 lanes is exact in
-// f32).
+// f32). The floor probe (impl="floor8", a8 mode 2; replaces
+// pallas_ternary.py:_accumulate_step's "floor" mode here) rounds xg as W2A8
+// does and takes the raw signed byte of a packed row as u for all four of
+// its planes (its dots, integers below 127 * 128 * 128, are exact in f32):
+// the same bytes and launches, no unpack, outputs wrong by design
+// (ternary_matmul_gathered_floor_plain is the contract).
 //
 // What bounds it: at decode batch sizes, bytes: the weights (0.25 B per
 // weight plus 4 B of scales per (block, column)), G (0.25 B per (feature,
@@ -68,7 +73,8 @@ size_t smem_bytes(int B) {
 // With IDX, g, packed, alpha and mu are stacks of S slots and thread 0 of
 // the block reads slot base + *sel (a slot outside [0, S) traps), so a
 // routed expert's index never goes to the host.
-template <int TB, bool A8, bool IDX>
+// A8: 0 bf16, 1 W2A8, 2 the floor probe (W2A8's rounding, raw bytes as codes).
+template <int TB, int A8, bool IDX>
 __global__ void __launch_bounds__(THREADS)
 gathered_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
                 const uint8_t* __restrict__ g,            // (D4, K)
@@ -204,7 +210,9 @@ gathered_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m)
           for (int p = 0; p < 4; ++p) {
             float u[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) u[j] = (float)((w[r] >> (8 * j + 2 * p)) & 3u);
+            for (int j = 0; j < 4; ++j)
+              u[j] = A8 == 2 ? (float)(int8_t)(w[r] >> (8 * j))
+                             : (float)((w[r] >> (8 * j + 2 * p)) & 3u);
             const float* xr = xg + row0 * CH + p * CH4 + r0 + r;
 #pragma unroll
             for (int b = 0; b < TB; ++b) {
@@ -255,7 +263,7 @@ struct Slot {
   int base, S;
 };
 
-template <int TB, bool A8, bool IDX>
+template <int TB, int A8, bool IDX>
 cudaError_t launch(const void* x, const void* g, const void* packed, const void* alpha,
                    const void* mu, void* partial, int B, int m, int D4, int K, int n,
                    dim3 grid, int tiles_per_group, cudaStream_t s, const Slot& slot) {
@@ -277,13 +285,15 @@ cudaError_t launch(const void* x, const void* g, const void* packed, const void*
 }
 
 template <int TB, bool IDX>
-cudaError_t launch_mode(bool a8, const void* x, const void* g, const void* packed,
+cudaError_t launch_mode(int a8, const void* x, const void* g, const void* packed,
                         const void* alpha, const void* mu, void* partial, int B, int m, int D4,
                         int K, int n, dim3 grid, int tpg, cudaStream_t s, const Slot& sl) {
-  return a8 ? launch<TB, true, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
-                                    s, sl)
-            : launch<TB, false, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
-                                     s, sl);
+  if (a8 == 2)
+    return launch<TB, 2, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s, sl);
+  return a8 ? launch<TB, 1, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
+                                 s, sl)
+            : launch<TB, 0, IDX>(x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg,
+                                 s, sl);
 }
 
 // The two launches of both C entries (arguments as they state).
@@ -292,7 +302,7 @@ int run(const void* x, const void* g, const void* packed, const void* alpha, con
         void* partial, void* out, int B, int m, int D4, int K, int n, int a8, int device,
         void* stream, const Slot& sl) {
   if (B < 1 || B > MAX_B || m < 1 || D4 < 32 || D4 % 32 != 0 || m > 4 * D4 || K < CH ||
-      K % CH != 0 || n < 128 || n % 128 != 0)
+      K % CH != 0 || n < 128 || n % 128 != 0 || a8 < 0 || a8 > 2)
     return (int)cudaErrorInvalidValue;
   if (IDX && (sl.sel == nullptr || reinterpret_cast<uintptr_t>(sl.sel) % 4 != 0 || sl.S < 1))
     return (int)cudaErrorInvalidValue;
@@ -313,7 +323,7 @@ int run(const void* x, const void* g, const void* packed, const void* alpha, con
   const int tpg = (tiles + want - 1) / want;
   dim3 grid(chunks, (tiles + tpg - 1) / tpg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool q = a8 != 0;
+  const int q = a8;
   if (B == 1)
     e = launch_mode<1, IDX>(q, x, g, packed, alpha, mu, partial, B, m, D4, K, n, grid, tpg, s,
                             sl);
@@ -337,7 +347,8 @@ int run(const void* x, const void* g, const void* packed, const void* alpha, con
 
 // C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
 // x (B, m) bf16, g (D4, K) int8, packed (K/4, n) int8, alpha / mu (K/128, n)
-// bf16, partial (K/128, B, n) f32 scratch, out (B, n) f32. Launches the
+// bf16, partial (K/128, B, n) f32 scratch, out (B, n) f32; a8 0 bf16, 1
+// W2A8, 2 the floor probe (both on normalised rows). Launches the
 // chunk kernel and the chunk sum; returns the first CUDA error, 0 if both
 // launched.
 extern "C" int pt2_ternary_matmul_gathered(const void* x, const void* g, const void* packed,

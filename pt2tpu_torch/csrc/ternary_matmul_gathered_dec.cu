@@ -16,7 +16,8 @@
 // Rows 9 to 64 run csrc/ternary_matmul_gathered_tc.cu, every other shape
 // csrc/ternary_matmul_gathered.cu (the CUDA-core K6, unchanged); the
 // wrapper picks by shape (k6_path in pt2tpu_torch/ops/kernels/ternary.py),
-// never after a failure.
+// never after a failure. The floor probe (impl="floor8", a8 mode 2): the
+// gather rounds as in W2A8, then the decode kernel's FLOOR instance.
 //
 // What bounds it: bytes, as K1's decode rows: the codes (0.25 B per
 // weight), the scales and the planes (0.25 B per (feature, lane)). The
@@ -28,7 +29,7 @@
 //   1. The plane gather (csrc/planes_gather.cuh) in lane order: xg (B, K)
 //      bf16 into a scratch that the wrapper keeps per stream.
 //   2. K1's split-K tensor-core decode GEMV (csrc/ternary_matmul_dec.cu,
-//      which this file includes), ternary_matmul_dec_kernel<false, false>
+//      which this file includes), ternary_matmul_dec_kernel<0, false, false>
 //      as it is, over xg: dec_splits K slices, their partials summed in
 //      slice order by the last CTA of each column tile (the stream's
 //      counters). W2A8's xg holds integers already, so the bf16 instance
@@ -72,7 +73,7 @@ extern "C" int pt2_ternary_matmul_gathered_dec(const void* x, const void* g, con
                                     static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return launch<false>(xg, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n, 128,
-                       splits, 0, device, stream);
+                       splits, a8 == 2 ? 2 : 0, device, stream);
 }
 
 // K6s at decode rows: as pt2_ternary_matmul_gathered_dec with g (S, D4, K),
@@ -97,5 +98,5 @@ extern "C" int pt2_ternary_matmul_gathered_dec_idx(const void* x, const void* g,
                                         static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return launch<false, true>(xg, nullptr, packed, alpha, mu, partial, out, counters, B, K, K, n,
-                             128, splits, 0, device, stream, sel, base, S);
+                             128, splits, a8 == 2 ? 2 : 0, device, stream, sel, base, S);
 }

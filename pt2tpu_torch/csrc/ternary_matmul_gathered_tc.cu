@@ -32,7 +32,9 @@
 //      which this file includes), launch_product<NT> as it is: igtc_splits
 //      K slices, their partials summed in slice order by the last CTA of
 //      each column tile (the stream's counters).
-// No float atomics: the same bits on every run.
+// No float atomics: the same bits on every run. The floor probe
+// (impl="floor8", a8 mode 2): the gather rounds as in W2A8, then K3's
+// product in its FLOOR instance (launch_rows).
 //
 // ptxas and times on an H100: PERF.md §6 (chip_smoke.py phases 17a-17c).
 
@@ -56,7 +58,7 @@ extern "C" int pt2_ternary_matmul_gathered_tc(const void* x, const void* g, cons
                                               void* sums, void* partial, void* out,
                                               void* counters, int B, int m, int D4, int K, int n,
                                               int splits, int a8, int device, void* stream) {
-  if (B < MIN_ROWS || B > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (B < MIN_ROWS || B > MAX_ROWS || a8 < 0 || a8 > 2) return (int)cudaErrorInvalidValue;
   const int Bp = rows_pad(B);
   int rc = planes_gather::check(x, g, xg, sums, B, Bp, m, D4, K, true);
   if (rc != 0) return rc;
@@ -79,12 +81,6 @@ extern "C" int pt2_ternary_matmul_gathered_tc(const void* x, const void* g, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rc = planes_gather::launch_gather(x, g, xg, sums, B, Bp, m, D4, K, true, a8 != 0, s);
   if (rc != 0) return rc;
-  if (Bp == 16)
-    return launch_product<2>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, KC,
-                             splits, bpc, s);
-  if (Bp == 32)
-    return launch_product<4>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, KC,
-                             splits, bpc, s);
-  return launch_product<8>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, KC,
-                           splits, bpc, s);
+  return launch_rows(a8, Bp, xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, KC,
+                     splits, bpc, s);
 }

@@ -64,6 +64,14 @@
 // The W2A8 products are integers below 127 * bs < 2^24 per block, exact in
 // f32, as in the decode kernel.
 //
+// The floor probe (impl="floor8", a8 mode 2; replaces
+// pallas_ternary.py:_accumulate_step's "floor" mode at these rows): the
+// gather rounds as in W2A8, and the product's FLOOR instance takes the raw
+// signed byte b of a packed row as the code of all four of its planes, as
+// T = b - 1 (the decode kernel's raw_bf16x2), so the epilogue stays
+// alpha * d + mu * S. The same bytes, grid and launches; outputs are wrong by
+// design (ternary_matmul_igathered_floor_plain is the contract).
+//
 // Why the decode kernel's swapped layout and not the prefill kernel's
 // (A = x rows): with A = codes, one converted fragment feeds every row tile,
 // and a warp's accumulators grow by 8 per row tile (acc and d, 4 each), so
@@ -145,6 +153,16 @@ __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w) {
   return r;
 }
 
+// The floor probe's codes of bytes 0 and 2 of w, each the raw signed byte b
+// as b - 1 in a bf16 pair: 2^23 + (b + 128) built as f32 bits, less
+// 2^23 + 129, is exact, and so is its bf16 (|b - 1| <= 129 needs 8 bits).
+__device__ __forceinline__ uint32_t raw_bf16x2(uint32_t w) {
+  const uint32_t u = w ^ 0x00800080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u)) - 8388737.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442u)) - 8388737.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
 // W2A8's rounding of a normalised value: half to even, clipped to +-127
 __device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f), -127.f), 127.f); }
 
@@ -203,7 +221,7 @@ gather_rows_kernel(const __nv_bfloat16* __restrict__ x,  // (B, m)
 // partial[sp, :B] (out when there is one slice); the last CTA of column
 // tile c to finish, found by counters[c], sums partial[0 .. splits-1] in
 // that order into out and sets counters[c] back to 0.
-template <int NT>
+template <int NT, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 2)
 igathered_tc_kernel(const __nv_bfloat16* __restrict__ xg,    // (Bp, K), fragment order
                     const float* __restrict__ sums,          // (nb, Bp)
@@ -297,10 +315,17 @@ igathered_tc_kernel(const __nv_bfloat16* __restrict__ xg,    // (Bp, K), fragmen
           *reinterpret_cast<const unsigned short*>(pc + (8 * q + 2 * t + 1) * PSTRIDE);
       const uint32_t wl = __byte_perm(h0, h1, 0x0400);  // column 2g: rows into bytes 0, 2
       const uint32_t wh = __byte_perm(h0, h1, 0x0501);  // column 2g + 1
-      const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh), codes_bf16x2<1>(wl),
-                               codes_bf16x2<1>(wh)};
-      const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh), codes_bf16x2<3>(wl),
-                               codes_bf16x2<3>(wh)};
+      uint32_t a01[4], a23[4];
+      if constexpr (FLOOR) {  // every plane reads the raw byte
+        const uint32_t rl = raw_bf16x2(wl), rh = raw_bf16x2(wh);
+        a01[0] = a23[0] = a01[2] = a23[2] = rl;
+        a01[1] = a23[1] = a01[3] = a23[3] = rh;
+      } else {
+        a01[0] = codes_bf16x2<0>(wl), a01[1] = codes_bf16x2<0>(wh);
+        a01[2] = codes_bf16x2<1>(wl), a01[3] = codes_bf16x2<1>(wh);
+        a23[0] = codes_bf16x2<2>(wl), a23[1] = codes_bf16x2<2>(wh);
+        a23[2] = codes_bf16x2<3>(wl), a23[3] = codes_bf16x2<3>(wh);
+      }
       const int chunk = (4 * q + t) ^ ((g & 1) << 2);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -400,19 +425,36 @@ int launch_gather(const void* x, const void* perm, void* xg, void* sums, int B, 
   return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, bool FLOOR = false>
 int launch_product(const void* xg, const void* sums, const void* packed, const void* alpha,
                    const void* mu, void* partial, void* out, void* counters, int B, int K, int n,
                    int bs, int splits, int bpc, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      igathered_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<NT>::SMEM);
+  const cudaError_t e = cudaFuncSetAttribute(igathered_tc_kernel<NT, FLOOR>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             Stage<NT>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  igathered_tc_kernel<NT><<<dim3(n / BN, splits), THREADS, Stage<NT>::SMEM, s>>>(
+  igathered_tc_kernel<NT, FLOOR><<<dim3(n / BN, splits), THREADS, Stage<NT>::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(xg), static_cast<const float*>(sums),
       static_cast<const int8_t*>(packed), static_cast<const __nv_bfloat16*>(alpha),
       static_cast<const __nv_bfloat16*>(mu), static_cast<float*>(partial),
       static_cast<float*>(out), static_cast<int*>(counters), B, K, n, bs, bpc);
   return (int)cudaGetLastError();
+}
+
+// The product for Bp = 16, 32 or 64 rows: the unpack's instance, or the
+// floor probe's (a8 mode 2).
+int launch_rows(int a8, int Bp, const void* xg, const void* sums, const void* packed,
+                const void* alpha, const void* mu, void* partial, void* out, void* counters,
+                int B, int K, int n, int bs, int splits, int bpc, cudaStream_t s) {
+#define PT2_IGTC_ROWS(NT_)                                                                      \
+  return a8 == 2 ? launch_product<NT_, true>(xg, sums, packed, alpha, mu, partial, out,        \
+                                             counters, B, K, n, bs, splits, bpc, s)            \
+                 : launch_product<NT_, false>(xg, sums, packed, alpha, mu, partial, out,       \
+                                              counters, B, K, n, bs, splits, bpc, s);
+  if (Bp == 16) PT2_IGTC_ROWS(2)
+  if (Bp == 32) PT2_IGTC_ROWS(4)
+  PT2_IGTC_ROWS(8)
+#undef PT2_IGTC_ROWS
 }
 
 }  // namespace
@@ -440,7 +482,8 @@ extern "C" int pt2_ternary_matmul_igathered_tc_gather(const void* x, const void*
 // (splits, B, n) f32 scratch (not read when splits is 1), with counters
 // n / 128 int32 that are 0 (each launch leaves them 0; launches that share
 // them must not run concurrently). packed, alpha, mu, partial and out are
-// 16-byte aligned, n a multiple of 128.
+// 16-byte aligned, n a multiple of 128. a8: 0 bf16, 1 W2A8, 2 the floor
+// probe (bs <= 1024: its block dots stay exact in f32).
 extern "C" int pt2_ternary_matmul_igathered_tc(const void* x, const void* perm, const void* packed,
                                                const void* alpha, const void* mu, void* xg,
                                                void* sums, void* partial, void* out,
@@ -449,6 +492,7 @@ extern "C" int pt2_ternary_matmul_igathered_tc(const void* x, const void* perm, 
   const int Bp = rows_pad(B);
   int rc = check_gather(x, perm, xg, sums, B, Bp, m, K, bs);
   if (rc != 0) return rc;
+  if (a8 < 0 || a8 > 2 || (a8 == 2 && bs > 1024)) return (int)cudaErrorInvalidValue;
   const int nb = K / bs;
   if (n < BN || n % BN != 0 || splits < 1 || splits > nb) return (int)cudaErrorInvalidValue;
   const int bpc = (nb + splits - 1) / splits;
@@ -467,12 +511,6 @@ extern "C" int pt2_ternary_matmul_igathered_tc(const void* x, const void* perm, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rc = launch_gather(x, perm, xg, sums, B, Bp, m, K, bs, a8, s);
   if (rc != 0) return rc;
-  if (Bp == 16)
-    return launch_product<2>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, bs,
-                             splits, bpc, s);
-  if (Bp == 32)
-    return launch_product<4>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, bs,
-                             splits, bpc, s);
-  return launch_product<8>(xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, bs,
-                           splits, bpc, s);
+  return launch_rows(a8, Bp, xg, sums, packed, alpha, mu, partial, out, counters, B, K, n, bs,
+                     splits, bpc, s);
 }

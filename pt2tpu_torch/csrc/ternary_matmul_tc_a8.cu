@@ -60,6 +60,15 @@
 //     the ring fills, with S split in three bf16 parts (exact: |S| < 2^24)
 //     and bf16 mu, so every operand is exact. The kernel differs from the
 //     plain version only in the order of its f32 sums.
+//
+// The floor probe (impl="floor8": the FLOOR instances, C entry
+// pt2_ternary_matmul_tc_a8_floor) replaces pallas_ternary.py:_accumulate_step's
+// "floor" mode at these rows: the B register of a column is its packed byte itself,
+// repeated in all four lanes (one prmt), in place of the masks and the
+// transpose, so the fragment ends at xq . b - S with b the raw signed byte.
+// |xq . b - S| <= 127 * 129 * bs stays below 2^22 (the float bias's span) up
+// to bs = 256, the most the floor takes. The same bytes, grid and launches;
+// outputs are wrong by design (ternary_matmul_floor_plain is the contract).
 // wgmma, TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
@@ -155,6 +164,15 @@ __device__ __forceinline__ void spread_codes(uint32_t w, uint32_t (&b)[4]) {
   b[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+// The floor probe's B registers: b[i] = byte i of w (column i's raw packed
+// byte) in all four of its bytes.
+__device__ __forceinline__ void spread_raw(uint32_t w, uint32_t (&b)[4]) {
+  b[0] = __byte_perm(w, 0u, 0x0000u);
+  b[1] = __byte_perm(w, 0u, 0x1111u);
+  b[2] = __byte_perm(w, 0u, 0x2222u);
+  b[3] = __byte_perm(w, 0u, 0x3333u);
+}
+
 // The prepass. One warp per (row, block) of Bp x nb: lane l handles packed
 // rows r = l, l + 32, ... of the block, reads xn at lanes p*bs/4 + r
 // (p = 0..3), rounds each half to even and clips it to [-127, 127], and
@@ -191,7 +209,7 @@ quantize_lanes_kernel(const __nv_bfloat16* __restrict__ xn, int8_t* __restrict__
   if (lane == 0) sums[w] = s;
 }
 
-template <int MT>
+template <int MT, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, MT == 4 ? 1 : 2)
 ternary_matmul_tc_a8_kernel(const int8_t* __restrict__ xq,           // (B, K), lane order
                             const int8_t* __restrict__ packed,       // (K/4, n)
@@ -359,8 +377,13 @@ ternary_matmul_tc_a8_kernel(const int8_t* __restrict__ xq,           // (B, K), 
       // row 8s + 4 + t; at this thread's 4 columns wn*32 + 4g .. +3
       const unsigned char* pr = ps + (8 * s + t) * PSTRIDE + wn * 32 + 4 * g;
       uint32_t lo[4], hi[4];
-      spread_codes(*reinterpret_cast<const uint32_t*>(pr), lo);
-      spread_codes(*reinterpret_cast<const uint32_t*>(pr + 4 * PSTRIDE), hi);
+      if constexpr (FLOOR) {
+        spread_raw(*reinterpret_cast<const uint32_t*>(pr), lo);
+        spread_raw(*reinterpret_cast<const uint32_t*>(pr + 4 * PSTRIDE), hi);
+      } else {
+        spread_codes(*reinterpret_cast<const uint32_t*>(pr), lo);
+        spread_codes(*reinterpret_cast<const uint32_t*>(pr + 4 * PSTRIDE), hi);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -402,34 +425,30 @@ ternary_matmul_tc_a8_kernel(const int8_t* __restrict__ xq,           // (B, K), 
   }
 }
 
-template <int MT>
+template <int MT, bool FLOOR>
 cudaError_t launch(const void* xq, const void* packed, const void* alpha, const void* mu,
                    const void* sums, void* out, int B, int Bp, int K, int n, int bs,
                    cudaStream_t stream) {
   typedef Tile<MT> T;
-  const cudaError_t e = cudaFuncSetAttribute(
-      ternary_matmul_tc_a8_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  const cudaError_t e = cudaFuncSetAttribute(ternary_matmul_tc_a8_kernel<MT, FLOOR>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             T::SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((B + T::BM - 1) / T::BM, n / BN);  // row tiles fastest: they share packed bytes
-  ternary_matmul_tc_a8_kernel<MT><<<grid, THREADS, T::SMEM, stream>>>(
+  ternary_matmul_tc_a8_kernel<MT, FLOOR><<<grid, THREADS, T::SMEM, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(packed),
       static_cast<const __nv_bfloat16*>(alpha), static_cast<const __nv_bfloat16*>(mu),
       static_cast<const int*>(sums), static_cast<float*>(out), B, Bp, K, n, bs);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-// xn is the (B, K) bf16 normalised input; xq is scratch of B * K int8 and
-// sums scratch of nb * Bp int32 (Bp = B rounded up to 128). Every pointer
-// is 16-byte aligned. Returns the first CUDA error of the two launches; 0
-// means both launched.
-extern "C" int pt2_ternary_matmul_tc_a8(const void* xn, const void* packed, const void* alpha,
-                                        const void* mu, void* xq, void* sums, void* out, int B,
-                                        int Bp, int K, int n, int bs, int device, void* stream) {
+// Both C entries' work: the prepass, then the product (the floor probe's
+// instances with floor_probe 1, bs <= 256).
+int run(const void* xn, const void* packed, const void* alpha, const void* mu, void* xq,
+        void* sums, void* out, int B, int Bp, int K, int n, int bs, bool floor_probe,
+        int device, void* stream) {
   if (B < 1 || bs < KC || bs % KC != 0 || K < bs || K % bs != 0 || n < BN || n % BN != 0 ||
-      Bp < B || Bp % ROW_PAD != 0)
+      Bp < B || Bp % ROW_PAD != 0 || (floor_probe && bs > 256))
     return (int)cudaErrorInvalidValue;
   const uintptr_t any = reinterpret_cast<uintptr_t>(xn) | reinterpret_cast<uintptr_t>(packed) |
                         reinterpret_cast<uintptr_t>(alpha) | reinterpret_cast<uintptr_t>(mu) |
@@ -452,11 +471,38 @@ extern "C" int pt2_ternary_matmul_tc_a8(const void* xn, const void* packed, cons
   if (e != cudaSuccess) return (int)e;
   // 128-row tiles only from 257 rows: below that they leave most SMs idle
   // at n = 4096 (on an H100, 64-row tiles were faster at 128 rows)
-  if (B <= 32)
-    e = launch<1>(xq, packed, alpha, mu, sums, out, B, Bp, K, n, bs, s);
-  else if (B <= 256)
-    e = launch<2>(xq, packed, alpha, mu, sums, out, B, Bp, K, n, bs, s);
-  else
-    e = launch<4>(xq, packed, alpha, mu, sums, out, B, Bp, K, n, bs, s);
+#define PT2_TC_A8_ROWS(MT_)                                                          \
+  e = floor_probe ? launch<MT_, true>(xq, packed, alpha, mu, sums, out, B, Bp, K, n, bs, s) \
+                  : launch<MT_, false>(xq, packed, alpha, mu, sums, out, B, Bp, K, n, bs, s);
+  if (B <= 32) {
+    PT2_TC_A8_ROWS(1)
+  } else if (B <= 256) {
+    PT2_TC_A8_ROWS(2)
+  } else {
+    PT2_TC_A8_ROWS(4)
+  }
+#undef PT2_TC_A8_ROWS
   return (int)e;
+}
+
+}  // namespace
+
+// C entry points bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// xn is the (B, K) bf16 normalised input; xq is scratch of B * K int8 and
+// sums scratch of nb * Bp int32 (Bp = B rounded up to 128). Every pointer
+// is 16-byte aligned. Returns the first CUDA error of the two launches; 0
+// means both launched.
+extern "C" int pt2_ternary_matmul_tc_a8(const void* xn, const void* packed, const void* alpha,
+                                        const void* mu, void* xq, void* sums, void* out, int B,
+                                        int Bp, int K, int n, int bs, int device, void* stream) {
+  return run(xn, packed, alpha, mu, xq, sums, out, B, Bp, K, n, bs, false, device, stream);
+}
+
+// The floor probe (impl="floor8"): as pt2_ternary_matmul_tc_a8, the raw
+// packed bytes as codes; bs <= 256.
+extern "C" int pt2_ternary_matmul_tc_a8_floor(const void* xn, const void* packed,
+                                              const void* alpha, const void* mu, void* xq,
+                                              void* sums, void* out, int B, int Bp, int K, int n,
+                                              int bs, int device, void* stream) {
+  return run(xn, packed, alpha, mu, xq, sums, out, B, Bp, K, n, bs, true, device, stream);
 }

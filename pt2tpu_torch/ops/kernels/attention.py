@@ -49,14 +49,16 @@ import torch
 from ...utils.device import quotient_f32
 from . import _build
 
-__all__ = ["NEG", "HEAD_DIMS", "K7_TC", "K7Plan", "k7_plan", "supported", "decode_attention",
-           "decode_attention_plain", "decode_attention_split_plain", "quantize_query"]
+__all__ = ["NEG", "HEAD_DIMS", "K7_TC", "K7Plan", "k7_plan", "k7_tile", "supported",
+           "decode_attention", "decode_attention_plain", "decode_attention_split_plain",
+           "quantize_query"]
 
 NEG = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIMS = (128, 256)  # the head widths the CUDA kernel is built for
+HEAD_DIMS = (128, 256, 384, 512)  # the head widths both CUDA kernels are built for
 MAX_HEADS_PER_BLOCK = 8  # query heads of one kv head handled by one block
 _TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 _CHUNK_STEP, _CHUNK_MAX = 64, 512
+_CHUNK_MAX_WIDE = 256  # the CUDA-core kernel above hd 256 (its chunk_cap: static shared memory)
 
 # The tensor-core kernel (csrc/decode_attention_tc.cu). K7_TC off sends every
 # K7 call to PR 3's kernel (the A/Bs' "off" turns); it is read at each call.
@@ -131,6 +133,14 @@ def decode_attention_plain(q, k, v, kv_valid, scale, k_scale=None, v_scale=None)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def k7_tile(hd: int, quant: bool) -> int:
+    """The tensor-core kernel's positions per tile (its Cfg::TILE): 32 KB of
+    K and V a stage, in whole warps' rows of 16 (at least 16: 24 KB at bf16
+    hd 384, 32 KB at hd 512)."""
+    t = _STAGE_DATA // (2 * hd * (1 if quant else 2))
+    return t // 16 * 16 if t >= 16 else 16
+
+
 def k7_plan(B: int, M: int, Hkv: int, rep: int, hd: int, quant: bool) -> K7Plan:
     """The tensor-core kernel's schedule for a shape: its tile (32 KB of K
     and V per stage) and the splits of each (row, kv head, group of <= 8
@@ -140,7 +150,7 @@ def k7_plan(B: int, M: int, Hkv: int, rep: int, hd: int, quant: bool) -> K7Plan:
     (192 CTAs; 4-CTA clusters would need two waves), gemma-2b's 8 in 16 (the
     largest cluster), and llama-2-7b's 256 not at all. A function of the
     shapes only."""
-    tile = _STAGE_DATA // (2 * hd * (1 if quant else 2))
+    tile = k7_tile(hd, quant)
     pairs = B * Hkv * -(-rep // MAX_HEADS_PER_BLOCK)
     tiles = -(-M // tile)
     fits = [s for s in range(1, min(MAX_SPLITS, tiles) + 1) if pairs <= MAX_ACTIVE_CLUSTERS[s]]
@@ -244,13 +254,14 @@ def _tc_kernel_lib():
     return _tc_lib
 
 
-def chunk_len(B: int, M: int, Hkv: int, rep: int) -> int:
+def chunk_len(B: int, M: int, Hkv: int, rep: int, hd: int) -> int:
     """Positions per block: enough blocks to fill the card (about two per
-    SM), in steps of 64, at most 512."""
+    SM), in steps of 64, at most 512 (256 above hd 256)."""
     groups = B * Hkv * -(-rep // MAX_HEADS_PER_BLOCK)
     n = -(-_TARGET_BLOCKS // groups)
     c = -(-M // n)
-    return min(_CHUNK_MAX, max(_CHUNK_STEP, -(-c // _CHUNK_STEP) * _CHUNK_STEP))
+    cap = _CHUNK_MAX if hd <= 256 else _CHUNK_MAX_WIDE
+    return min(cap, max(_CHUNK_STEP, -(-c // _CHUNK_STEP) * _CHUNK_STEP))
 
 
 def _check(q, k, v, kv_valid, k_scale, v_scale):
@@ -262,8 +273,9 @@ def _check(q, k, v, kv_valid, k_scale, v_scale):
     if Bk != B or hdk != hd or H % Hkv or hd % 128 or tuple(kv_valid.shape) != (B, M):
         raise ValueError(f"K7 shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"kv_valid {tuple(kv_valid.shape)} (hd a multiple of 128)")
-    if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"K7 is built for head widths {HEAD_DIMS}, not hd={hd}")
+    if hd not in HEAD_DIMS:  # JAX's kernel takes any multiple of 128
+        raise NotImplementedError(f"K7 is built for head widths {HEAD_DIMS}, not hd={hd}: "
+                                  "not ported")
     if q.dtype != torch.bfloat16 or kv_valid.dtype != torch.bool:
         raise TypeError(f"K7 takes bf16 q and bool kv_valid, got {q.dtype}, {kv_valid.dtype}")
     if (k_scale is None) != (v_scale is None):
@@ -296,7 +308,9 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     stream (counted in ``decode_attention.launches`` and
     ``decode_attention.launches_tc``); without, PR 3's chunk kernel and its
     combine (one count in ``launches``). Either counts in
-    ``decode_attention.launches_hd256`` at hd 256. CPU: the plain version."""
+    ``decode_attention.launches_hd256`` at hd 256 and in
+    ``decode_attention.launches_wide`` at hd 384 and 512. CPU: the plain
+    version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_valid, scale, k_scale, v_scale)
     if q.device.type != "cuda":
@@ -319,7 +333,7 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
             ptr(v_scale), out.data_ptr(), float(scale), B, M, H, Hkv, hd, plan.splits,
             int(quant), didx, stream)
     else:
-        chunk = chunk_len(B, M, Hkv, H // Hkv)
+        chunk = chunk_len(B, M, Hkv, H // Hkv, hd)
         nchunk = -(-M // chunk)
         part_acc = torch.empty((B, H, nchunk, hd), dtype=torch.float32, device=dev)
         part_ml = torch.empty((B, H, nchunk, 2), dtype=torch.float32, device=dev)
@@ -333,9 +347,11 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     decode_attention.launches += 1
     decode_attention.launches_tc += tc
     decode_attention.launches_hd256 += hd == 256
+    decode_attention.launches_wide += hd > 256
     return out
 
 
 decode_attention.launches = 0
 decode_attention.launches_tc = 0
 decode_attention.launches_hd256 = 0
+decode_attention.launches_wide = 0

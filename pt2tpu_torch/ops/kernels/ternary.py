@@ -51,6 +51,14 @@
     (up alone, :func:`_mlp_shapes`) takes each path's ungated instance, whose
     epilogue writes mid = act(up).
 
+The floor probe (``a8="floor"``, reached by ``impl="floor8"``; replaces
+the "floor" mode of ``pallas_ternary._accumulate_step``) runs K1, K3 and K6
+on W2A8's paths in the FLOOR instances of their kernels: each plane's code
+is the raw signed byte of its packed row in place of its 2-bit field, so the
+unpack is skipped and the result is wrong by design, with the same bytes,
+grids and launches (``ternary_matmul_floor_plain`` and its gathered forms
+state it).
+
 Each wrapper launches its hand-written kernel on a CUDA tensor or raises,
 and runs the plain version beside it on a CPU tensor. There is no fallback
 from a kernel to its plain version. The ``_stacked`` TPU variants at a host
@@ -89,6 +97,10 @@ __all__ = [
     "ternary_matmul",
     "ternary_matmul_plain",
     "ternary_matmul_plain_a8",
+    "FLOOR",
+    "ternary_matmul_floor_plain",
+    "ternary_matmul_igathered_floor_plain",
+    "ternary_matmul_gathered_floor_plain",
     "quantize_rows_a8_lanes_plain",
     "ternary_matmul_lanes_plain",
     "ternary_matmul_dec_plain",
@@ -218,7 +230,9 @@ def ternary_matmul_igathered_plain(
 ) -> torch.Tensor:
     """out = x[:, perm] @ dequant(packed) in f32. W2A8 normalises the rows
     before the gather, as ``ternary_matmul_pallas_igathered`` does (absmax
-    does not depend on the order of the columns)."""
+    does not depend on the order of the columns). ``a8`` "floor": :func:`ternary_matmul_igathered_floor_plain`."""
+    if _a8_mode(a8) == 2:
+        return ternary_matmul_igathered_floor_plain(x, perm, packed, alpha, mu, block_size)
     if not a8:
         return ternary_matmul_plain(onehot_gather_plain(x, perm), packed, alpha, mu, block_size)
     xn, sx = normalize_rows_a8(x)
@@ -239,13 +253,94 @@ def ternary_matmul_gathered_plain(
     ``ternary_matmul_pallas_gathered`` computes it: the gather is the f32
     product with G's raw fields (``onehot_matmul_plain``). W2A8 normalises
     the rows before the gather (absmax does not depend on the order of the
-    columns) and rounds the gathered values to int8."""
+    columns) and rounds the gathered values to int8. ``a8`` "floor":
+    :func:`ternary_matmul_gathered_floor_plain`."""
+    if _a8_mode(a8) == 2:
+        return ternary_matmul_gathered_floor_plain(x, gpacked, packed, alpha, mu, block_size)
     if not a8:
         return ternary_matmul_plain(onehot_matmul_plain(x.float(), gpacked), packed, alpha, mu,
                                     block_size)
     xn, sx = normalize_rows_a8(x)
     xq = torch.clamp(torch.round(onehot_matmul_plain(xn.float(), gpacked)), -127, 127)
     return ternary_matmul_plain(xq, packed, alpha, mu, block_size) * sx
+
+
+FLOOR = "floor"
+"""The ``a8`` value of the floor probe (``impl="floor8"``), as the JAX
+package's ``_a8_flag`` gives it: W2A8 with the 2-bit unpack skipped."""
+
+
+def _a8_mode(a8) -> int:
+    """The C entries' ``a8``: 0 bf16, 1 W2A8, 2 the floor probe."""
+    if isinstance(a8, str):
+        if a8 != FLOOR:
+            raise ValueError(f"a8 is a bool or {FLOOR!r}, got {a8!r}")
+        return 2
+    return int(bool(a8))
+
+
+def _floor_plain(xq: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor, mu: torch.Tensor,
+                 block_size: int) -> torch.Tensor:
+    """The floor's product on rounded rows xq (B, K): per scale block the
+    dot of xq with the raw signed bytes (lane r of block blk reads byte
+    packed[blk * bs/4 + r % (bs/4)]: the block's packed rows replicated four
+    times), times alpha, plus sum(xq_blk) * (mu - alpha); in f32, the dots
+    exact (integers below 2^24)."""
+    B, K = xq.shape
+    n, bs = packed.shape[1], block_size
+    nb = K // bs
+    raw = packed.float().reshape(nb, 1, bs // 4, n).expand(nb, 4, bs // 4, n)
+    xb = xq.float().reshape(B, nb, bs)
+    d = torch.einsum("bkc,kcn->bkn", xb, raw.reshape(nb, bs, n))
+    out = xb.sum(dim=2) @ (mu.float() - alpha.float())
+    return out + torch.einsum("bkn,kn->bn", d, alpha.float())
+
+
+def _rounded(xn: torch.Tensor) -> torch.Tensor:
+    """W2A8's rounding of normalised values: half to even, clipped to +-127."""
+    return torch.clamp(torch.round(xn.float()), -127, 127)
+
+
+def ternary_matmul_floor_plain(
+    x: torch.Tensor,  # (B, K) activations in visit-lane order
+    packed: torch.Tensor,  # (K//4, n) int8 planes
+    alpha: torch.Tensor,
+    mu: torch.Tensor,
+    block_size: int = 128,
+) -> torch.Tensor:
+    """The floor probe (``pallas_ternary._accumulate_step``'s "floor" mode,
+    reached by ``impl="floor8"``): W2A8's normalised and rounded rows dotted
+    with the raw packed bytes, the 2-bit unpack skipped, so the result is
+    wrong by design; the offset term and the alpha product are kept, and the
+    output is multiplied by the row scales. Returns (B, n) f32."""
+    xn, sx = normalize_rows_a8(x)
+    return _floor_plain(_rounded(xn), packed, alpha, mu, block_size) * sx
+
+
+def ternary_matmul_igathered_floor_plain(x, perm, packed, alpha, mu, block_size=128):
+    """The floor probe of K3 (``ternary_matmul_pallas_igathered`` with
+    ``a8="floor"``): the rows normalised, gathered through perm, rounded,
+    then :func:`ternary_matmul_floor_plain`'s product."""
+    xn, sx = normalize_rows_a8(x)
+    return _floor_plain(_rounded(onehot_gather_plain(xn, perm)), packed, alpha, mu,
+                        block_size) * sx
+
+
+def ternary_matmul_gathered_floor_plain(x, gpacked, packed, alpha, mu, block_size=128):
+    """The floor probe of K6 (``ternary_matmul_pallas_gathered`` with
+    ``a8="floor"``): the rows normalised, gathered by the product with G's
+    raw fields, rounded, then :func:`ternary_matmul_floor_plain`'s
+    product."""
+    xn, sx = normalize_rows_a8(x)
+    return _floor_plain(_rounded(onehot_matmul_plain(xn.float(), gpacked)), packed, alpha, mu,
+                        block_size) * sx
+
+
+def _check_floor(a8, block_size: int) -> None:
+    """The floor's kernels keep their block dots exact up to scale blocks of
+    256 (K1's int8 tensor cores sum them under a float bias of 1.5 * 2^23)."""
+    if _a8_mode(a8) == 2 and block_size > 256:
+        raise ValueError(f"the floor probe takes scale blocks of at most 256, got {block_size}")
 
 
 def _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha, intermediate, block_size):
@@ -1098,9 +1193,9 @@ def _tc_a8_kernel_lib():
     global _tc_a8_lib
     if _tc_a8_lib is None:
         lib = _build.load("ternary_matmul_tc_a8")
-        fn = lib.pt2_ternary_matmul_tc_a8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.pt2_ternary_matmul_tc_a8, lib.pt2_ternary_matmul_tc_a8_floor):
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _tc_a8_lib = lib
     return _tc_a8_lib
 
@@ -1244,15 +1339,20 @@ def ternary_matmul(
     ``ternary_matmul.launches`` (the decode path also in
     ``ternary_matmul.launches_dec``, the bf16 tensor-core path in
     ``ternary_matmul.launches_tc``, the int8 one in
-    ``ternary_matmul.launches_tc_a8``). CPU: the plain version, with x as
-    given (f32 compute, as JAX on the CPU).
+    ``ternary_matmul.launches_tc_a8``). ``a8`` "floor" (the floor probe,
+    :func:`ternary_matmul_floor_plain`) takes W2A8's path in its FLOOR
+    instance, counted also in ``ternary_matmul.launches_floor``. CPU: the
+    plain version, with x as given (f32 compute, as JAX on the CPU).
     """
+    mode = _a8_mode(a8)
     if x.device.type == "cpu":
-        fn = ternary_matmul_plain_a8 if a8 else ternary_matmul_plain
+        fn = (ternary_matmul_floor_plain if mode == 2
+              else ternary_matmul_plain_a8 if a8 else ternary_matmul_plain)
         return fn(x, packed, alpha, mu, block_size)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 for device {x.device}")
     _check(x, packed, alpha, mu, block_size)
+    _check_floor(a8, block_size)
     B, K = x.shape
     n = packed.shape[1]
     if a8:
@@ -1270,14 +1370,15 @@ def ternary_matmul(
     if path == "tc":
         return _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size)
     if path == "tc_a8":
-        return _ternary_matmul_tc_a8(xk, packed, alpha, mu, out, block_size) * sx
+        return _ternary_matmul_tc_a8(xk, packed, alpha, mu, out, block_size, mode == 2) * sx
     rc = _kernel_lib().pt2_ternary_matmul(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
-        out.data_ptr(), B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
+        out.data_ptr(), B, K, n, block_size, _a8_mode(a8), *_device_and_stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     ternary_matmul.launches += 1
+    ternary_matmul.launches_floor += mode == 2
     return out * sx if a8 else out
 
 
@@ -1285,6 +1386,7 @@ ternary_matmul.launches = 0
 ternary_matmul.launches_dec = 0
 ternary_matmul.launches_tc = 0
 ternary_matmul.launches_tc_a8 = 0
+ternary_matmul.launches_floor = 0
 
 
 _dec_counters: dict = {}
@@ -1343,13 +1445,14 @@ def _ternary_matmul_dec(xk, packed, alpha, mu, out, block_size, a8):
     device, stream, splits, partial, counters = _dec_scratch(xk, K, n, block_size, out, "K1")
     rc = _dec_kernel_lib().pt2_ternary_matmul_dec(
         xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), counters.data_ptr(), B, K, n, block_size, splits, int(bool(a8)), device,
+        out.data_ptr(), counters.data_ptr(), B, K, n, block_size, splits, _a8_mode(a8), device,
         stream,
     )
     if rc != 0:
         raise RuntimeError(f"K1 (decode, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul.launches += 1
     ternary_matmul.launches_dec += 1
+    ternary_matmul.launches_floor += _a8_mode(a8) == 2
     return out
 
 
@@ -1370,12 +1473,13 @@ def _ternary_matmul_igathered_dec(xk, perm, packed, alpha, mu, out, block_size, 
     rc = _dec_kernel_lib().pt2_ternary_matmul_dec_igathered(
         xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         partial.data_ptr(), out.data_ptr(), counters.data_ptr(), B, m, K, n, block_size, splits,
-        int(bool(a8)), device, stream,
+        _a8_mode(a8), device, stream,
     )
     if rc != 0:
         raise RuntimeError(f"K3 (decode, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul_igathered.launches += 1
     ternary_matmul_igathered.launches_dec += 1
+    ternary_matmul_igathered.launches_floor += _a8_mode(a8) == 2
     return out
 
 
@@ -1406,12 +1510,13 @@ def _ternary_matmul_igathered_tc(xk, perm, packed, alpha, mu, out, block_size, a
     rc = _igtc_kernel_lib().pt2_ternary_matmul_igathered_tc(
         xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
         xg.data_ptr(), sums.data_ptr(), partial.data_ptr(), out.data_ptr(), counters.data_ptr(),
-        B, m, K, n, block_size, splits, int(bool(a8)), device, stream,
+        B, m, K, n, block_size, splits, _a8_mode(a8), device, stream,
     )
     if rc != 0:
         raise RuntimeError(f"K3 (rows 9-64, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul_igathered.launches += 1
     ternary_matmul_igathered.launches_tc += 1
+    ternary_matmul_igathered.launches_floor += _a8_mode(a8) == 2
     return out
 
 
@@ -1444,16 +1549,19 @@ def _ternary_matmul_tc(xk, packed, alpha, mu, out, block_size):
     return out
 
 
-def _ternary_matmul_tc_a8(xn, packed, alpha, mu, out, block_size):
+def _ternary_matmul_tc_a8(xn, packed, alpha, mu, out, block_size, floor=False):
     """K1's W2A8 path on the int8 tensor cores: a prepass rounds the
     normalised rows xn to int8 (in the packed bytes' lane order) and writes
     their exact block sums, both into scratch allocated here; then the s8
-    mma.sync kernel. Returns out before the row scales."""
+    mma.sync kernel (``floor``: its FLOOR instance, the raw bytes as codes).
+    Returns out before the row scales."""
     B, K = xn.shape
     xn = _tc_operands(xn, packed, alpha, mu)
     xq = torch.empty((B, K), dtype=torch.int8, device=xn.device)
     sums = torch.empty((K // block_size, -(-B // 128) * 128), dtype=torch.int32, device=xn.device)
-    rc = _tc_a8_kernel_lib().pt2_ternary_matmul_tc_a8(
+    lib = _tc_a8_kernel_lib()
+    entry = lib.pt2_ternary_matmul_tc_a8_floor if floor else lib.pt2_ternary_matmul_tc_a8
+    rc = entry(
         xn.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), xq.data_ptr(),
         sums.data_ptr(), out.data_ptr(), B, sums.shape[1], K, packed.shape[1], block_size,
         *_device_and_stream(xn),
@@ -1462,6 +1570,7 @@ def _ternary_matmul_tc_a8(xn, packed, alpha, mu, out, block_size):
         raise RuntimeError(f"K1 (W2A8, integer tensor cores) launch failed: cudaError {rc}")
     ternary_matmul.launches += 1
     ternary_matmul.launches_tc_a8 += 1
+    ternary_matmul.launches_floor += floor
     return out
 
 
@@ -1484,7 +1593,10 @@ def ternary_matmul_igathered(
     CUDA-core kernel (the gathered x staged in shared memory only). Counts
     the call in ``ternary_matmul_igathered.launches`` (the decode path also
     in ``ternary_matmul_igathered.launches_dec``, the tensor-core path in
-    ``ternary_matmul_igathered.launches_tc``). CPU: the plain version."""
+    ``ternary_matmul_igathered.launches_tc``). ``a8`` "floor" (the floor
+    probe, :func:`ternary_matmul_igathered_floor_plain`) takes W2A8's path in
+    its FLOOR instance, counted also in
+    ``ternary_matmul_igathered.launches_floor``. CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_igathered_plain(x, perm, packed, alpha, mu, block_size, a8)
     if x.device.type != "cuda":
@@ -1493,6 +1605,7 @@ def ternary_matmul_igathered(
         raise ValueError(f"x must be (B, m), got {tuple(x.shape)}")
     B, m = x.shape
     _check(x, packed, alpha, mu, block_size, m=m)
+    _check_floor(a8, block_size)
     K, n = packed.shape[0] * 4, packed.shape[1]
     _check_perm(perm, x, K)
     if a8:
@@ -1512,17 +1625,19 @@ def ternary_matmul_igathered(
         return out * sx if a8 else out
     rc = _kernel_lib().pt2_ternary_matmul_igathered(
         xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
-        out.data_ptr(), B, m, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
+        out.data_ptr(), B, m, K, n, block_size, _a8_mode(a8), *_device_and_stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")
     ternary_matmul_igathered.launches += 1
+    ternary_matmul_igathered.launches_floor += _a8_mode(a8) == 2
     return out * sx if a8 else out
 
 
 ternary_matmul_igathered.launches = 0
 ternary_matmul_igathered.launches_dec = 0
 ternary_matmul_igathered.launches_tc = 0
+ternary_matmul_igathered.launches_floor = 0
 
 
 # ------------------------------------------------ device-index entries ----
@@ -1548,7 +1663,8 @@ def _slot_plain(sel: torch.Tensor, base: int, S: int) -> int:
 def ternary_matmul_idx_plain(x, packed, alpha, mu, sel, base=0, block_size=128, a8=False):
     """K1s's plain version: K1's on ``packed[base + sel]``."""
     i = _slot_plain(sel, base, packed.shape[0])
-    fn = ternary_matmul_plain_a8 if a8 else ternary_matmul_plain
+    fn = (ternary_matmul_floor_plain if _a8_mode(a8) == 2
+          else ternary_matmul_plain_a8 if a8 else ternary_matmul_plain)
     return fn(x, packed[i], alpha[i], mu[i], block_size)
 
 
@@ -1616,12 +1732,14 @@ def ternary_matmul_idx(
     ``pt2_ternary_matmul_idx``; the tensor-core paths (prefill rows) take no
     device index and raise. Counts the call in ``ternary_matmul_idx.launches``
     (the decode path also in ``ternary_matmul_idx.launches_dec``), not in
-    K1's counters. CPU: the plain version."""
+    K1's counters. ``a8`` "floor" runs the FLOOR instances (also in
+    ``ternary_matmul_idx.launches_floor``). CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_idx_plain(x, packed, alpha, mu, sel, base, block_size, a8)
     if x.device.type != "cuda":
         raise ValueError(f"no K1s for device {x.device}")
     S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel)
+    _check_floor(a8, block_size)
     B = x.shape[0]
     path = k1_path(B, n, block_size, a8)
     if path not in ("dec", "cuda_core"):
@@ -1637,22 +1755,24 @@ def ternary_matmul_idx(
         rc = _dec_kernel_lib().pt2_ternary_matmul_dec_idx(
             xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
             partial.data_ptr(), out.data_ptr(), counters.data_ptr(), sel.data_ptr(), base, S, B,
-            K, n, block_size, splits, int(bool(a8)), device, stream,
+            K, n, block_size, splits, _a8_mode(a8), device, stream,
         )
     else:
         rc = _kernel_lib().pt2_ternary_matmul_idx(
             xk.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(), out.data_ptr(),
-            sel.data_ptr(), base, S, B, K, n, block_size, int(bool(a8)), *_device_and_stream(x),
+            sel.data_ptr(), base, S, B, K, n, block_size, _a8_mode(a8), *_device_and_stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"K1s ({path}) launch failed: cudaError {rc}")
     ternary_matmul_idx.launches += 1
     ternary_matmul_idx.launches_dec += path == "dec"
+    ternary_matmul_idx.launches_floor += _a8_mode(a8) == 2
     return out * sx if a8 else out
 
 
 ternary_matmul_idx.launches = 0
 ternary_matmul_idx.launches_dec = 0
+ternary_matmul_idx.launches_floor = 0
 
 
 def ternary_matmul_igathered_idx(
@@ -1676,7 +1796,8 @@ def ternary_matmul_igathered_idx(
     takes no device index and raises. Counts the call in
     ``ternary_matmul_igathered_idx.launches`` (the decode path also in
     ``ternary_matmul_igathered_idx.launches_dec``), not in K3's counters.
-    CPU: the plain version."""
+    ``a8`` "floor" runs the FLOOR instances (also in
+    ``ternary_matmul_igathered_idx.launches_floor``). CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_igathered_idx_plain(x, perm, packed, alpha, mu, sel, base,
                                                   block_size, a8)
@@ -1686,6 +1807,7 @@ def ternary_matmul_igathered_idx(
         raise ValueError(f"x must be (B, m), got {tuple(x.shape)}")
     B, m = x.shape
     S, K, n = _check_stack(x, packed, alpha, mu, block_size, sel, m=m, perm=perm)
+    _check_floor(a8, block_size)
     path = k3_path(B, n, block_size, a8)
     if path not in ("dec", "cuda_core"):
         raise NotImplementedError(f"K3's {path} path takes no device index ({B} rows)")
@@ -1702,23 +1824,25 @@ def ternary_matmul_igathered_idx(
         rc = _dec_kernel_lib().pt2_ternary_matmul_dec_igathered_idx(
             xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
             partial.data_ptr(), out.data_ptr(), counters.data_ptr(), sel.data_ptr(), base, S, B,
-            m, K, n, block_size, splits, int(bool(a8)), device, stream,
+            m, K, n, block_size, splits, _a8_mode(a8), device, stream,
         )
     else:
         rc = _kernel_lib().pt2_ternary_matmul_igathered_idx(
             xk.data_ptr(), perm.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
-            out.data_ptr(), sel.data_ptr(), base, S, B, m, K, n, block_size, int(bool(a8)),
+            out.data_ptr(), sel.data_ptr(), base, S, B, m, K, n, block_size, _a8_mode(a8),
             *_device_and_stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"K3s ({path}) launch failed: cudaError {rc}")
     ternary_matmul_igathered_idx.launches += 1
     ternary_matmul_igathered_idx.launches_dec += path == "dec"
+    ternary_matmul_igathered_idx.launches_floor += _a8_mode(a8) == 2
     return out * sx if a8 else out
 
 
 ternary_matmul_igathered_idx.launches = 0
 ternary_matmul_igathered_idx.launches_dec = 0
+ternary_matmul_igathered_idx.launches_floor = 0
 
 
 def ternary_matmul_gathered(
@@ -1745,6 +1869,9 @@ def ternary_matmul_gathered(
     ``ternary_matmul_gathered.launches_tc``). The decode and tensor-core
     paths keep the gathered x in bf16, as the TPU kernel's scratch does:
     for permutation planes that is the CUDA-core path's f32 value exactly.
+    ``a8`` "floor" (the floor probe,
+    :func:`ternary_matmul_gathered_floor_plain`) takes W2A8's path in its
+    FLOOR instances, counted also in ``ternary_matmul_gathered.launches_floor``.
     CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_gathered_plain(x, gpacked, packed, alpha, mu, block_size, a8)
@@ -1777,12 +1904,13 @@ def ternary_matmul_gathered(
     partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
     rc = _gathered_kernel_lib().pt2_ternary_matmul_gathered(
         xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(), mu.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, m, gpacked.shape[0], K, n, int(bool(a8)),
+        partial.data_ptr(), out.data_ptr(), B, m, gpacked.shape[0], K, n, _a8_mode(a8),
         *_device_and_stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"K6 launch failed: cudaError {rc}")
     ternary_matmul_gathered.launches += 1
+    ternary_matmul_gathered.launches_floor += _a8_mode(a8) == 2
     return out * sx if a8 else out
 
 
@@ -1843,7 +1971,7 @@ def _ternary_matmul_gathered_split(xk, gpacked, packed, alpha, mu, out, path, a8
     head = (xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
             mu.data_ptr(), xg)
     tail = (out.data_ptr() if partial is None else partial, out.data_ptr(), counters, B, m,
-            gpacked.shape[0], K, n, splits, int(bool(a8)), device, stream)
+            gpacked.shape[0], K, n, splits, _a8_mode(a8), device, stream)
     if path == "dec":
         rc = _gathered_dec_kernel_lib().pt2_ternary_matmul_gathered_dec(*head, *tail)
     else:
@@ -1851,6 +1979,7 @@ def _ternary_matmul_gathered_split(xk, gpacked, packed, alpha, mu, out, path, a8
     if rc != 0:
         raise RuntimeError(f"K6 ({path!r} path, tensor cores) launch failed: cudaError {rc}")
     ternary_matmul_gathered.launches += 1
+    ternary_matmul_gathered.launches_floor += _a8_mode(a8) == 2
     if path == "dec":
         ternary_matmul_gathered.launches_dec += 1
     else:
@@ -1860,6 +1989,7 @@ def _ternary_matmul_gathered_split(xk, gpacked, packed, alpha, mu, out, path, a8
 ternary_matmul_gathered.launches = 0
 ternary_matmul_gathered.launches_dec = 0
 ternary_matmul_gathered.launches_tc = 0
+ternary_matmul_gathered.launches_floor = 0
 
 
 def ternary_matmul_gathered_idx_plain(x, gpacked, packed, alpha, mu, sel, base=0,
@@ -1896,7 +2026,8 @@ def ternary_matmul_gathered_idx(
     off); its tensor-core path (rows 9-64) takes no device index and
     raises. Counts the call in ``ternary_matmul_gathered_idx.launches`` (the
     decode path also in ``ternary_matmul_gathered_idx.launches_dec``), not
-    in K6's counters. CPU: the plain version."""
+    in K6's counters. ``a8`` "floor" runs the FLOOR instances (also in
+    ``ternary_matmul_gathered_idx.launches_floor``). CPU: the plain version."""
     if x.device.type == "cpu":
         return ternary_matmul_gathered_idx_plain(x, gpacked, packed, alpha, mu, sel, base,
                                                  block_size, a8)
@@ -1934,23 +2065,25 @@ def ternary_matmul_gathered_idx(
         rc = _gathered_dec_kernel_lib().pt2_ternary_matmul_gathered_dec_idx(
             xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
             mu.data_ptr(), xg, out.data_ptr() if partial is None else partial, out.data_ptr(),
-            counters, sel.data_ptr(), base, S, B, m, D4, K, n, splits, int(bool(a8)), device,
+            counters, sel.data_ptr(), base, S, B, m, D4, K, n, splits, _a8_mode(a8), device,
             stream)
     else:
         partial = torch.empty((K // 128, B, n), dtype=torch.float32, device=x.device)
         rc = _gathered_kernel_lib().pt2_ternary_matmul_gathered_idx(
             xk.data_ptr(), gpacked.data_ptr(), packed.data_ptr(), alpha.data_ptr(),
             mu.data_ptr(), partial.data_ptr(), out.data_ptr(), sel.data_ptr(), base, S, B, m, D4,
-            K, n, int(bool(a8)), device, stream)
+            K, n, _a8_mode(a8), device, stream)
     if rc != 0:
         raise RuntimeError(f"K6s ({path!r} path) launch failed: cudaError {rc}")
     ternary_matmul_gathered_idx.launches += 1
     ternary_matmul_gathered_idx.launches_dec += path == "dec"
+    ternary_matmul_gathered_idx.launches_floor += _a8_mode(a8) == 2
     return out * sx if a8 else out
 
 
 ternary_matmul_gathered_idx.launches = 0
 ternary_matmul_gathered_idx.launches_dec = 0
+ternary_matmul_gathered_idx.launches_floor = 0
 
 
 def ternary_mlp(

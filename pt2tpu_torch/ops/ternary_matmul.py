@@ -12,7 +12,13 @@ Counterpart of ``pt2tpu.ops.ternary_matmul``. The weights stay packed as
     versions on the CPU;
   * ``"a8"``   — the same in W2A8 mode (int8 activations);
   * ``"plain"``— the plain versions on any device: an explicit choice, the
-    counterpart of JAX's ``impl="xla"``, never a fallback.
+    counterpart of JAX's ``impl="xla"``, never a fallback;
+  * ``"floor8"`` — the floor probe, which ``"auto"`` never picks: on CUDA
+    the route of ``"a8"`` with the FLOOR instances of K1, K3 and K6 (the
+    2-bit unpack skipped, the raw bytes dotted: wrong by design, the same
+    bytes and launches, so a8 - floor8 is the unpack's share of a step);
+    on the CPU the exact route, as JAX's ``impl="floor8"`` takes XLA's
+    exact route off the TPU.
 
 On CUDA a layer with an SSR gather runs, at decode-size row counts
 (<= 64), K3 (the gather fused into the matmul) or K6 (the packed one-hot
@@ -39,6 +45,7 @@ from ..core.packing import pack_ternary
 from .gather import PackedGather, gather_apply, gather_kernel
 from .kernels.gather import onehot_gather_plain, slot_view
 from .kernels.ternary import (
+    FLOOR,
     normalize_rows_a8,
     FUSED_MAX_ROWS,
     ternary_matmul,
@@ -67,7 +74,7 @@ __all__ = [
     "IMPLS",
 ]
 
-IMPLS = ("auto", "a8", "plain")
+IMPLS = ("auto", "a8", "plain", "floor8")
 
 # The routing flags of ``pt2tpu.ops.ternary_matmul`` (same environment
 # variables and defaults), read at each call.
@@ -189,6 +196,16 @@ def pack_layer(q, in_features: int, bias: Optional[torch.Tensor] = None) -> Pack
     )
 
 
+def _a8_flag(impl: str, device) -> object:
+    """The kernels' ``a8`` for ``impl`` on ``device``: True (W2A8), False
+    (bf16), or "floor" for ``impl="floor8"`` on CUDA (JAX's ``_a8_flag``).
+    On the CPU floor8 is the exact route: JAX's takes ``ternary_matmul_xla``
+    off the TPU."""
+    if impl == "floor8":
+        return FLOOR if torch.device(device).type == "cuda" else False
+    return impl == "a8"
+
+
 def _input_lanes(p: PackedTernaryLinear, x2: torch.Tensor, K: int, impl: str) -> torch.Tensor:
     """Present activations in visit-lane order (B, K): fold / identity need
     only a zero pad to K; a PackedGather runs its gather kernel (K4 or K5 on
@@ -226,7 +243,8 @@ def linear_route(p: PackedTernaryLinear, rows: int, impl: str = "auto",
     (:func:`ternary_linear_apply_stacked`): every kernel of the route is
     then its device-index entry, "ternary_matmul_idx" (K1s),
     "ternary_matmul_igathered_idx" (K3s), "ternary_matmul_gathered_idx"
-    (K6s), "onehot_gather_idx" (K4s) or "onehot_matmul_idx" (K5s)."""
+    (K6s), "onehot_gather_idx" (K4s) or "onehot_matmul_idx" (K5s).
+    ``impl="floor8"`` routes as ``"a8"`` (its kernels' FLOOR instances)."""
     dev = torch.device(device)
     if impl == "plain" or dev.type == "cpu":
         return ()
@@ -262,7 +280,7 @@ def ternary_linear_apply(
     x2 = x.reshape(-1, m)
     K = p.packed.shape[-2] * 4
     bs = p.block_size
-    a8 = impl == "a8"
+    a8 = _a8_flag(impl, x2.device)
     route = linear_route(p, x2.shape[0], impl, x2.device)
     if route == ("ternary_matmul_igathered",):
         out = ternary_matmul_igathered(x2, p.perm, p.packed, p.alpha, p.mu, bs, a8=a8)
@@ -328,7 +346,7 @@ def _apply_device_index(p, x, sel, base, impl, out_dtype):
         return ternary_linear_apply(p.map_leaves(lambda t: slot_view(t, sel, base)), x,
                                     impl="plain", out_dtype=out_dtype)
     bs = p.block_size
-    a8 = impl == "a8"
+    a8 = _a8_flag(impl, x2.device)
     sel32 = sel.reshape(()) if sel.dtype == torch.int32 else sel.to(torch.int32).reshape(())
     if route == ("ternary_matmul_igathered_idx",):
         out = ternary_matmul_igathered_idx(x2, p.perm, p.packed, p.alpha, p.mu, sel32, base, bs,

@@ -1,9 +1,12 @@
-"""KV cache, greedy generation and the continuous-batching serving stack."""
+"""KV cache, lockstep generation (greedy or sampled, flat or ring caches) and
+the continuous-batching serving stack. The sampled lockstep decode is
+``serve.generate.generate`` (the name ``generate`` here is its module)."""
 
 from .engine import Request, ServeEngine, load_engine_state, save_engine_state
 from .generate import chunked_prefill, forward_cached, greedy_generate, prefill
 from .kvcache import KVCache, init_cache
-from .sampling import SamplingConfig, filtered_logits, sample_per_row
+from .ring import RingCaches, init_ring_caches, make_ring_engine_fns, ring_generate
+from .sampling import SamplingConfig, filtered_logits, sample, sample_per_row
 from .server import ServingServer
 
 __all__ = [
@@ -13,8 +16,13 @@ __all__ = [
     "prefill",
     "KVCache",
     "init_cache",
+    "RingCaches",
+    "init_ring_caches",
+    "make_ring_engine_fns",
+    "ring_generate",
     "SamplingConfig",
     "filtered_logits",
+    "sample",
     "sample_per_row",
     "Request",
     "ServeEngine",

@@ -26,9 +26,21 @@ cache writes once a stale position passes the end of the cache; here their
 positions are clamped to the last slot, which an active row never reaches
 before it retires, so active rows' results are unchanged.
 
+Strategy overrides (JAX's contracts): ``prefill_fn(cfg, params, prompt,
+true_len, cache, slot, impl[, samp]) -> (token, cache)``,
+``decode_fn(cfg, params, tokens, cache, positions, active, impl[, samp]) ->
+(tokens, cache)`` and ``cache_factory(cfg, max_batch, max_len)``, which
+replaces the pool: the engine threads the cache through the two fns as
+opaque state, and snapshots it through its ``leaves()``. The default fns
+take any pool that also has ``prefill_view`` and ``decode_views``
+(``serve.kvcache.KVCache``; ``serve.ring.RingCaches``, window-sized ring
+pools on sliding layers, which ``serve.ring.make_ring_engine_fns`` plugs
+in). ``samp`` is passed only when a row samples; the port's
+is host values (default prefill: (seed, uid, SamplingConfig); decode:
+(seed, uids, temps, top_ks, top_ps)).
+
 Not ported (they raise ``NotImplementedError``): speculative decoding
-(``draft``), strategy overrides (``prefill_fn``, ``decode_fn``,
-``cache_factory``), ``kv_heads`` and ``multihost``.
+(``draft``), ``kv_heads`` (head-sharded pools) and ``multihost``.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import torch
 
 from ..models import decoder as dec
 from ..models.common import alibi_slopes
-from .kvcache import KVCache, init_cache
+from .kvcache import init_cache
 from .sampling import SamplingConfig, sample_per_row
 
 __all__ = ["Request", "ServeEngine", "save_engine_state", "load_engine_state"]
@@ -77,10 +89,12 @@ def _rope(cfg, M: int, device):
     return dec.pos_tables(cfg, M, device=device)
 
 
-def _rows_forward(cfg, params, tokens, cache: KVCache, positions: torch.Tensor, impl="auto"):
+def _rows_forward(cfg, params, tokens, cache, positions: torch.Tensor, impl="auto"):
     """Per-row decode forward: ``tokens`` (B, 1) sit at ``positions`` (B,)
     (a long tensor on the device) of their rows. Writes their k/v into the
-    cache in place and returns (B, 1, V) logits."""
+    pool in place, each layer where the pool's ``decode_views`` puts it
+    (a KVCache, or ``serve.ring.RingCaches``), and returns (B, 1, V)
+    logits."""
     B, Lw = tokens.shape
     if Lw != 1:
         raise NotImplementedError(
@@ -94,7 +108,7 @@ def _rows_forward(cfg, params, tokens, cache: KVCache, positions: torch.Tensor, 
     cos_l = sin_l = None
     if cosl_all is not None:
         cos_l, sin_l = cosl_all[pos2], sinl_all[pos2]
-    kv_valid = torch.arange(M, device=dev)[None, :] <= positions[:, None]  # (B, M)
+    views = cache.decode_views(positions, B)  # li -> (cache, cache_pos, kv_valid)
     mask = None
     if cfg.pos == "alibi":
         rel = (torch.arange(M, dtype=torch.float32, device=dev)[None, None, :]
@@ -102,19 +116,20 @@ def _rows_forward(cfg, params, tokens, cache: KVCache, positions: torch.Tensor, 
         mask = alibi_slopes(cfg.n_heads, device=dev)[None, :, None, None] * rel[:, None]
     for li in range(cfg.n_layers):
         lp = dec.layer_view(params["layers"], li)
-        x = dec.layer_forward(cfg, lp, x, cos, sin, mask, cache=cache, cache_pos=positions,
+        view, cache_pos, kv_valid = views(li)
+        x = dec.layer_forward(cfg, lp, x, cos, sin, mask, cache=view, cache_pos=cache_pos,
                               kv_valid=kv_valid, impl=impl, layer_idx=li, cos_loc=cos_l,
                               sin_loc=sin_l)
     return dec.unembed(cfg, params, x)
 
 
-def _decode_step(cfg, params, tokens: torch.Tensor, cache: KVCache, positions: np.ndarray,
-                 active: np.ndarray, impl="auto", samp=None) -> torch.Tensor:
-    """One decode step for all slots. ``tokens`` (B,) on the device;
-    ``positions`` (B,) host ints, where each new token sits; ``active`` (B,)
-    host bools; ``samp`` None (greedy) or (seed, uids, temps, top_ks,
-    top_ps) host arrays. Returns the next tokens (B,) on the device, 0 for
-    inactive rows."""
+def _decode_step(cfg, params, tokens: torch.Tensor, cache, positions: np.ndarray,
+                 active: np.ndarray, impl="auto", samp=None):
+    """One decode step for all slots (the default ``decode_fn``). ``tokens``
+    (B,) on the device; ``positions`` (B,) host ints, where each new token
+    sits; ``active`` (B,) host bools; ``samp`` None (greedy) or (seed, uids,
+    temps, top_ks, top_ps) host arrays. Returns (the next tokens (B,) on the
+    device, 0 for inactive rows; the cache, written in place)."""
     dev = tokens.device
     pos = np.where(active, positions, np.minimum(positions, cache.max_len - 1))
     pos_t = torch.as_tensor(pos, dtype=torch.long).to(dev, non_blocking=True)
@@ -125,30 +140,38 @@ def _decode_step(cfg, params, tokens: torch.Tensor, cache: KVCache, positions: n
         seed, uids, temps, top_ks, top_ps = samp
         nxt = sample_per_row(logits, seed, uids, positions, temps, top_ks, top_ps)
     act = torch.as_tensor(active).to(dev, non_blocking=True)
-    return torch.where(act, nxt, torch.zeros_like(nxt))
+    return torch.where(act, nxt, torch.zeros_like(nxt)), cache
 
 
-def _decode_quantum(cfg, params, tokens, cache, positions, active, samp, q, impl):
-    """``q`` decode steps with the tokens kept on the device. Returns the
-    (B, q) tokens on the device: the caller fetches them once. Rows keep
-    decoding past an EOS emitted mid-quantum; the host truncates them."""
+def _decode_quantum(cfg, params, tokens, cache, positions, active, samp, q, impl,
+                    decode_fn=_decode_step):
+    """``q`` steps of ``decode_fn`` with the tokens kept on the device.
+    Returns ((B, q) tokens on the device: the caller fetches them once; the
+    cache). Rows keep decoding past an EOS emitted mid-quantum; the host
+    truncates them."""
     seq = []
     for j in range(q):
-        tokens = _decode_step(cfg, params, tokens, cache, positions + j, active, impl, samp)
+        if samp is None:
+            tokens, cache = decode_fn(cfg, params, tokens, cache, positions + j, active, impl)
+        else:
+            tokens, cache = decode_fn(cfg, params, tokens, cache, positions + j, active, impl,
+                                      samp)
         seq.append(tokens)
-    return torch.stack(seq, dim=1)
+    return torch.stack(seq, dim=1), cache
 
 
-def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache: KVCache,
-                       slot: int, impl="auto", samp=None) -> torch.Tensor:
+def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache, slot: int,
+                       impl="auto", samp=None) -> torch.Tensor:
     """Prefill one right-padded (1, Lb) prompt into row ``slot`` of the pool
-    (positions [0, Lb), written in place). The next token comes from the
-    hidden state at ``true_len - 1``. ``samp`` None (greedy) or (seed, uid,
-    SamplingConfig). Returns the token as a device scalar, not fetched."""
+    (positions [0, Lb), written in place through the pool's
+    ``prefill_view``; the default ``prefill_fn``). The
+    next token comes from the hidden state at ``true_len - 1``. ``samp``
+    None (greedy) or (seed, uid, SamplingConfig). Returns (the token as a
+    device scalar, not fetched; the cache)."""
     M = cache.max_len
     Lb = prompt.shape[1]
     dev = prompt.device
-    row = cache.rows(slot, slot + 1)
+    row = cache.prefill_view(slot, slot + 1, true_len)
     h = dec.embed_tokens(cfg, params, prompt)
     cos_all, sin_all, cosl_all, sinl_all = _rope(cfg, M, dev)
     cos_l = None if cosl_all is None else cosl_all[:Lb]
@@ -161,17 +184,14 @@ def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache: 
                               sin_loc=sin_l)
     logits = dec.unembed(cfg, params, h[:, true_len - 1 : true_len])[:, 0]  # (1, V)
     if samp is None:
-        return torch.argmax(logits[0])
+        return torch.argmax(logits[0]), cache
     seed, uid, sc = samp
     return sample_per_row(logits, seed, [uid], [true_len - 1], [sc.temperature], [sc.top_k],
-                          [sc.top_p])[0]
+                          [sc.top_p])[0], cache
 
 
 _NOT_PORTED = {
     "draft": "speculative decoding (serve/speculative.py)",
-    "prefill_fn": "strategy overrides (parallel/tp.py, serve/ring.py)",
-    "decode_fn": "strategy overrides (parallel/tp.py, serve/ring.py)",
-    "cache_factory": "custom cache pools (serve/ring.py, serve/paged.py)",
     "kv_heads": "head-sharded pools (parallel/tp.py)",
     "multihost": "the multi-process scheduler (parallel/)",
 }
@@ -203,9 +223,15 @@ class ServeEngine:
         > 1 runs up to that many decode steps per host fetch; the effective
         quantum is bounded by the smallest remaining budget among active
         rows, rounded down to a power of two, so no step is wasted past a
-        row's max_new. Outputs are token-identical to quantum 1."""
-        given = dict(draft=draft, prefill_fn=prefill_fn, decode_fn=decode_fn,
-                     cache_factory=cache_factory, kv_heads=kv_heads, multihost=multihost)
+        row's max_new. Outputs are token-identical to quantum 1.
+        ``prefill_fn`` / ``decode_fn`` / ``cache_factory`` replace the
+        default programs and pool (the module's contracts); the pool must
+        lie on the device that holds ``params``."""
+        if cache_factory is not None and (kv_quant or kv_heads is not None):
+            raise ValueError(
+                "cache_factory replaces the KV pool entirely; kv_quant/kv_heads would be "
+                "silently ignored — thread them into the factory instead")
+        given = dict(draft=draft, kv_heads=kv_heads, multihost=multihost)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
@@ -222,7 +248,17 @@ class ServeEngine:
         self.impl = impl
         self.seed = int(seed)
         self.decode_quantum = max(1, int(decode_quantum))
-        self.cache = init_cache(cfg, max_batch, max_len, quantized=kv_quant, device=self.device)
+        self._prefill_fn = prefill_fn or _prefill_into_slot
+        self._decode_fn = decode_fn or _decode_step
+        if cache_factory is not None:
+            self.cache = cache_factory(cfg, max_batch, max_len)
+            for t in self.cache.leaves():
+                if t.device != self.device:
+                    raise ValueError(f"cache_factory's pool lies on {t.device}, the params on "
+                                     f"{self.device}")
+        else:
+            self.cache = init_cache(cfg, max_batch, max_len, quantized=kv_quant,
+                                    device=self.device)
         self.temps = np.zeros(max_batch, np.float32)
         self.topks = np.zeros(max_batch, np.int32)
         self.topps = np.ones(max_batch, np.float32)
@@ -292,9 +328,12 @@ class ServeEngine:
         self.topks[slot] = sc.top_k if sc else 0
         self.topps[slot] = sc.top_p if sc else 1.0
         prompt = torch.as_tensor(padded[None, :]).to(self.device)
-        samp = None if sc is None else (self.seed, req.uid, sc)
-        return _prefill_into_slot(self.cfg, self.params, prompt, Lp, self.cache, slot,
-                                  self.impl, samp)
+        args = (self.cfg, self.params, prompt, Lp, self.cache, slot, self.impl)
+        if sc is None:
+            tok, self.cache = self._prefill_fn(*args)
+        else:
+            tok, self.cache = self._prefill_fn(*args, (self.seed, req.uid, sc))
+        return tok
 
     def _finalize_admission(self, slot: int, req: Request, first: int) -> None:
         req.out.append(first)
@@ -356,8 +395,9 @@ class ServeEngine:
                     self.topps.copy())
         q = self._quantum_q()
         td0 = time.perf_counter()
-        seq = _decode_quantum(self.cfg, self.params, self.tokens, self.cache,
-                              self.positions.copy(), active, samp, q, self.impl)
+        seq, self.cache = _decode_quantum(self.cfg, self.params, self.tokens, self.cache,
+                                          self.positions.copy(), active, samp, q, self.impl,
+                                          self._decode_fn)
         self.tokens = seq[:, q - 1].clone()
         seq = seq.cpu().numpy()  # the one fetch of the quantum
         self.stats["t_decode_s"] += time.perf_counter() - td0
@@ -391,17 +431,13 @@ class ServeEngine:
 # ----------------------------------------------------------------------
 # Snapshot / restore of the whole scheduler state: the KV pool, the per-slot
 # host arrays, and the queued and in-flight requests.
-def _cache_leaves(cache: KVCache):
-    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
-
-
 def save_engine_state(eng: ServeEngine, path: str) -> None:
     """Write the engine's state under ``path`` (cache.npz, host.pkl) so a
     new engine of the same geometry continues token for token. bf16 is
     stored as its uint16 bit pattern (npz has no bf16)."""
     os.makedirs(path, exist_ok=True)
     arrays = {}
-    for i, t in enumerate(_cache_leaves(eng.cache)):
+    for i, t in enumerate(eng.cache.leaves()):
         t = t.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             arrays[f"leaf{i}"] = t.view(torch.int16).numpy().view(np.uint16)
@@ -437,7 +473,7 @@ def load_engine_state(eng: ServeEngine, path: str) -> List[Request]:
     pool geometry). Returns the restored in-flight and queued requests."""
     with np.load(os.path.join(path, "cache.npz")) as z:
         with torch.inference_mode():
-            for i, cur in enumerate(_cache_leaves(eng.cache)):
+            for i, cur in enumerate(eng.cache.leaves()):
                 a = z[f"leaf{i}"]
                 if cur.dtype == torch.bfloat16:
                     t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)

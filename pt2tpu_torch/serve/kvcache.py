@@ -18,7 +18,7 @@ scores and the probabilities instead of materialising a bf16 copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -111,6 +111,33 @@ class KVCache:
         ks = None if self.k_scale is None else self.k_scale[li]
         vs = None if self.v_scale is None else self.v_scale[li]
         return self.k[li], self.v[li], ks, vs
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The pool's tensors, in the order a snapshot stores them."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
+    def prefill_view(self, start: int, stop: int, true_len: int) -> "KVCache":
+        """What a prefill of rows [start, stop) writes and attends through
+        (``true_len`` tokens, right pads past them): those rows, in place."""
+        return self.rows(start, stop)
+
+    def decode_views(self, positions, batch: int):
+        """The per-layer (cache, cache_pos, kv_valid) of a one-token decode
+        step whose rows sit at ``positions`` (an int for every row, or a (B,)
+        long tensor on the cache's device): every layer writes there and
+        attends the whole pool up to its row's position (a sliding layer
+        narrows that to its window, ``decoder.sliding_adjust``)."""
+        valid = valid_slots(self.max_len, positions, batch, self.k.device)
+        return lambda li: (self, positions, valid)
+
+
+def valid_slots(n: int, positions, batch: int, device) -> torch.Tensor:
+    """(batch, n) bool: slot j is valid where j <= its row's position (an
+    int for every row, or a (B,) tensor)."""
+    slots = torch.arange(n, device=device)[None, :]
+    if isinstance(positions, torch.Tensor):
+        return slots <= positions[:, None]
+    return (slots <= positions).expand(batch, n)
 
 
 def init_cache(cfg, batch: int, max_len: int, quantized: bool = False, device=None) -> KVCache:

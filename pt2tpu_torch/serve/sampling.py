@@ -1,6 +1,11 @@
-"""Per-row token sampling for the serving engine (counterpart of
-``pt2tpu.serve.sampling``): temperature, top-k and top-p with parameters per
-row; rows with temperature <= 0 take the exact argmax.
+"""Token sampling (counterpart of ``pt2tpu.serve.sampling``): temperature,
+top-k and top-p, with one configuration for a lockstep batch
+(:func:`sample`, the lockstep ``generate``'s) or parameters per row
+(:func:`sample_per_row`, the serving engine's); greedy takes the exact
+argmax.
+
+:func:`sample` draws from an explicit ``torch.Generator`` (JAX's from a
+threefry key): the same filtered distribution, other draws.
 
 JAX keys a sampled row by ``fold_in(fold_in(seed, uid), position)``
 (threefry). Here the row's noise comes from a ``torch.Generator`` seeded
@@ -14,11 +19,11 @@ on the host, so seeding needs no device sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["SamplingConfig", "filtered_logits", "sample_per_row", "row_seed"]
+__all__ = ["SamplingConfig", "filtered_logits", "sample", "sample_per_row", "row_seed"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -70,6 +75,39 @@ def filtered_logits(
     return torch.where((top_ps[:, None] < 1.0) & (lt < cutoff_val), float("-inf"), lt)
 
 
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniforms in [0, 1) (floored at the smallest normal
+    f32): argmax(logits + noise) is a draw from softmax(logits)."""
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def sample(
+    logits: torch.Tensor,  # (B, V)
+    generator: Optional[torch.Generator] = None,
+    cfg: SamplingConfig = SamplingConfig(),
+) -> torch.Tensor:
+    """(B,) int32 token ids, as ``pt2tpu.serve.sampling.sample``: the argmax
+    for a greedy ``cfg``; else one draw per row from the softmax of
+    :func:`filtered_logits` (temperature, then top-k, then top-p, one
+    configuration for every row), with the noise from ``generator``, which
+    must lie on the logits' device. A non-greedy ``cfg`` without a generator
+    raises, as JAX's does without a key."""
+    if cfg.greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        raise ValueError("non-greedy sampling requires a torch.Generator")
+    B, V = logits.shape
+    dev = logits.device
+    lt = filtered_logits(
+        logits,
+        torch.full((B,), cfg.temperature, dtype=torch.float32, device=dev),
+        torch.full((B,), cfg.top_k, dtype=torch.int64, device=dev),
+        torch.full((B,), cfg.top_p, dtype=torch.float32, device=dev),
+    )
+    noise = _gumbel(torch.rand((B, V), generator=generator, device=dev))
+    return torch.argmax(lt + noise, dim=-1).to(torch.int32)
+
+
 def sample_per_row(
     logits: torch.Tensor,  # (B, V)
     seed: int,
@@ -95,13 +133,11 @@ def sample_per_row(
         torch.tensor(list(top_ks), dtype=torch.int64, device=dev),
         torch.tensor(list(top_ps), dtype=torch.float32, device=dev),
     )
-    tiny = torch.finfo(torch.float32).tiny
     noise = torch.zeros((B, V), dtype=torch.float32, device=dev)
     for b in sampled_rows:
         g = torch.Generator(device=dev)
         g.manual_seed(row_seed(int(seed), int(uids[b]), int(positions[b])))
-        u = torch.rand(V, generator=g, device=dev).clamp_min(tiny)
-        noise[b] = -torch.log(-torch.log(u))
+        noise[b] = _gumbel(torch.rand(V, generator=g, device=dev))
     sampled = torch.argmax(lt + noise, dim=-1)
     is_sampled = torch.tensor([t > 0.0 for t in temps], device=dev)
     return torch.where(is_sampled, sampled, greedy)

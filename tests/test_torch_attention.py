@@ -160,8 +160,8 @@ def test_flags_default_on_and_cpu_never_routes(monkeypatch):
 def test_chunking_fills_the_card():
     # llama-3-8b heads at the engine point, llama-2-7b heads, a single row
     for B, M, Hkv, rep in ((8, 2048, 8, 4), (8, 2048, 32, 1), (1, 2048, 8, 4), (4, 256, 8, 4)):
-        c = k7.chunk_len(B, M, Hkv, rep)
+        c = k7.chunk_len(B, M, Hkv, rep, 128)
         n = -(-M // c)
         assert c % 64 == 0 and 64 <= c <= 512
         assert B * Hkv * n >= 256 or c == 64
-    assert k7.chunk_len(1, 16, 1, 16) == 64  # rep > 8: two head groups per kv head
+    assert k7.chunk_len(1, 16, 1, 16, 128) == 64  # rep > 8: two head groups per kv head

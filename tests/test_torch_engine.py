@@ -158,10 +158,36 @@ def test_snapshot_restore_continues_identically(model, tmp_path):
 @pytest.mark.parametrize("arg", ["draft", "prefill_fn", "decode_fn", "cache_factory",
                                  "kv_heads", "multihost"])
 def test_unported_arguments_raise(model, arg):
-    _, _, tparams, _, _, _ = model
-    value = {"draft": (None, None), "kv_heads": 1, "multihost": True}.get(arg, lambda *a: None)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(get_config(NAME), tparams, max_len=64, **{arg: value})
+    """``draft``, ``kv_heads`` and ``multihost`` are not ported and raise.
+    The strategy overrides are ported (JAX's contracts): the engine runs the
+    ``prefill_fn`` / ``decode_fn`` it is given and threads the pool that a
+    ``cache_factory`` makes, with the default engine's tokens, and refuses a
+    ``cache_factory`` beside ``kv_quant`` as JAX's does."""
+    _, _, tparams, prompts, _, _ = model
+    cfg = get_config(NAME)
+    if arg in ("draft", "kv_heads", "multihost"):
+        value = {"draft": (None, None), "kv_heads": 1, "multihost": True}[arg]
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ServeEngine(cfg, tparams, max_len=64, **{arg: value})
+        return
+    calls = []
+    default = {"prefill_fn": teng._prefill_into_slot, "decode_fn": teng._decode_step,
+               "cache_factory": lambda c, b, m: teng.init_cache(c, b, m, device="cpu")}[arg]
+
+    def recorded(*a):
+        calls.append(arg)
+        return default(*a)
+
+    def run(**kw):
+        eng = ServeEngine(cfg, tparams, max_batch=2, max_len=64, **kw)
+        reqs = [eng.submit(p, 4) for p in prompts[:3]]
+        eng.run()
+        return [r.out for r in reqs]
+
+    assert run(**{arg: recorded}) == run() and calls
+    if arg == "cache_factory":
+        with pytest.raises(ValueError, match="cache_factory replaces the KV pool"):
+            ServeEngine(cfg, tparams, max_len=64, kv_quant=True, cache_factory=recorded)
 
 
 def test_too_long_request_finishes_empty(model):

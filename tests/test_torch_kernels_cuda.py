@@ -1607,15 +1607,16 @@ def test_engine_decode_routes_through_k7(cuda_device, kv_quant, monkeypatch):
 @pytest.mark.cuda
 def test_attention_routes_only_head_widths_k7_takes(cuda_device):
     """``supported`` (the TPU kernel's predicate) admits any hd % 128 == 0
-    and the route sends all of them to K7: the widths it is built for launch
-    it, any other raises rather than run the plain route on the card."""
+    and the route sends all of them to K7: the widths it is built for (128,
+    256, 384, 512) launch it, any other (640) raises rather than run the
+    plain route on the card."""
     g = torch.Generator(device=cuda_device).manual_seed(10)
-    for hd in (128, 256, 384):
+    for hd in (128, 256, 384, 512, 640):
         q, k, v, valid, _, _ = _attn_inputs(g, cuda_device, 2, 256, 8, 2, hd, False)
         assert tka.supported(256, hd, False)
         before = tka.decode_attention.launches
-        if hd == 384:
-            with pytest.raises(NotImplementedError, match="hd=384"):
+        if hd == 640:
+            with pytest.raises(NotImplementedError, match="hd=640"):
                 tcommon.attention(q, k, v, None, valid, scale=hd ** -0.5)
             assert tka.decode_attention.launches == before
             continue
@@ -3358,3 +3359,242 @@ def test_fused_mlp_apply_routes_an_ungated_pair_to_k2(cuda_device):
     up = ttm.ternary_linear_apply(gu, x, out_dtype=torch.float32)
     want = ttm.ternary_linear_apply(dn, torch.relu(up).bfloat16(), out_dtype=torch.float32)
     assert _rel(got, want) <= MLP_TOL
+
+
+# ---- the floor probe (impl="floor8"): the FLOOR instances of K1, K3 and K6
+# (and of K1s / K3s / K6s) on W2A8's paths, held to the floor's plain
+# versions. Their integer dots are exact on both sides; the f32 epilogue
+# (alpha * d + mu * S, or (mu - alpha) * S) sums in another order: 1e-5 of
+# max|want|, the floor's outputs being far larger than a product's.
+FLOOR_TOL = 1e-5
+# llama-2-7b / llama-3-8b projections (K, n) and a ragged one (CUDA cores)
+FLOOR_SHAPES = [(4096, 12288), (4096, 6144), (14336, 4096), (4096, 1024)]
+
+
+def _floor_counts():
+    return (tk.ternary_matmul.launches, tk.ternary_matmul.launches_floor,
+            tk.ternary_matmul_igathered.launches, tk.ternary_matmul_igathered.launches_floor,
+            tk.ternary_matmul_gathered.launches, tk.ternary_matmul_gathered.launches_floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_a8", [False, True], ids=["cc", "dec"])
+@pytest.mark.parametrize("rows", [1, 8, 16, 64])
+@pytest.mark.parametrize("K,n", FLOOR_SHAPES)
+def test_floor_k1_k3_k6_match_plain(cuda_device, K, n, rows, dec_a8, monkeypatch):
+    """K1 (decode GEMV, int8 tensor cores, CUDA cores), K3 (decode GEMV,
+    tensor-core product, CUDA cores) and K6 (decode, tensor-core, CUDA-core
+    paths) in their FLOOR instances: each path the a8 route takes at these
+    rows, one launch each, held to the floor's plain versions."""
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    g = torch.Generator(device=cuda_device).manual_seed(K + n + rows)
+    packed, alpha, mu = _layer(g, cuda_device, K, n, 128)
+    x = torch.randn((rows, K), generator=g, device=cuda_device).bfloat16()
+    perm = _perm(g, cuda_device, K, K)
+    gp = _planes(perm, K)
+    c0 = _floor_counts()
+    got1 = tk.ternary_matmul(x, packed, alpha, mu, a8="floor")
+    got3 = tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8="floor")
+    got6 = tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8="floor")
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(c0, _floor_counts())) == (1, 1, 1, 1, 1, 1)
+    assert _rel(got1, tk.ternary_matmul_floor_plain(x, packed, alpha, mu)) <= FLOOR_TOL
+    assert _rel(got3, tk.ternary_matmul_igathered_floor_plain(x, perm, packed, alpha, mu)) \
+        <= FLOOR_TOL
+    assert _rel(got6, tk.ternary_matmul_gathered_floor_plain(x, gp, packed, alpha, mu)) \
+        <= FLOOR_TOL
+    # the same paths as W2A8, and not its answer
+    assert tk.k1_path(rows, n, 128, tk.FLOOR) == tk.k1_path(rows, n, 128, True)
+    assert _rel(got1, tk.ternary_matmul(x, packed, alpha, mu, a8=True)) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [17, 128, 512])
+def test_floor_k1_int8_tensor_cores_prefill_rows(cuda_device, rows):
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    packed, alpha, mu = _layer(g, cuda_device, 4096, 4096, 128)
+    x = torch.randn((rows, 4096), generator=g, device=cuda_device).bfloat16()
+    assert tk.k1_path(rows, 4096, 128, tk.FLOOR) == "tc_a8"
+    before = tk.ternary_matmul.launches_tc_a8
+    got = tk.ternary_matmul(x, packed, alpha, mu, a8="floor")
+    torch.cuda.synchronize()
+    assert tk.ternary_matmul.launches_tc_a8 == before + 1
+    assert _rel(got, tk.ternary_matmul_floor_plain(x, packed, alpha, mu)) <= FLOOR_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_a8", [False, True], ids=["cc", "dec"])
+def test_floor_device_index_entries_equal_view_route(cuda_device, dec_a8, monkeypatch):
+    """K1s, K3s and K6s in their FLOOR instances give the view route's bits."""
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    S, K, n = 3, 4096, 1024
+    layers = [_layer(g, cuda_device, K, n, 128) for _ in range(S)]
+    packed, alpha, mu = (torch.stack([l[j] for l in layers]).contiguous() for j in range(3))
+    perms = torch.stack([_perm(g, cuda_device, K, K) for _ in range(S)]).contiguous()
+    gps = torch.stack([_planes(perms[s], K) for s in range(S)]).contiguous()
+    x = torch.randn((1, K), generator=g, device=cuda_device).bfloat16()
+    sel = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    for fn, args in ((tk.ternary_matmul_idx, ()), (tk.ternary_matmul_igathered_idx, (perms,)),
+                     (tk.ternary_matmul_gathered_idx, (gps,))):
+        before = fn.launches_floor
+        got = fn(x, *args, packed, alpha, mu, sel, base=1, a8="floor")
+        assert fn.launches_floor == before + 1
+        view = {tk.ternary_matmul_idx: lambda: tk.ternary_matmul(
+                    x, packed[2], alpha[2], mu[2], a8="floor"),
+                tk.ternary_matmul_igathered_idx: lambda: tk.ternary_matmul_igathered(
+                    x, perms[2], packed[2], alpha[2], mu[2], a8="floor"),
+                tk.ternary_matmul_gathered_idx: lambda: tk.ternary_matmul_gathered(
+                    x, gps[2], packed[2], alpha[2], mu[2], a8="floor")}[fn]()
+        assert torch.equal(got, view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_a8", [False, True], ids=["cc", "dec"])
+@pytest.mark.parametrize("rows", [1, 16])
+def test_floor_build_failure_raises_and_counts_nothing(cuda_device, rows, dec_a8, monkeypatch):
+    """No fallback for the floor either: on each path of K1, K3 and K6 (the
+    CUDA cores or the decode GEMV at one row, the tensor cores at 16), a
+    FLOOR call whose kernel does not build raises, and counts no launch."""
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    g = torch.Generator(device=cuda_device).manual_seed(43 + rows)
+    packed, alpha, mu = _layer(g, cuda_device, 4096, 4096, 128)
+    x = torch.randn((rows, 4096), generator=g, device=cuda_device).bfloat16()
+    perm = _perm(g, cuda_device, 4096, 4096)
+    gp = _planes(perm, 4096)
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    for lib in ("_lib", "_dec_lib", "_igtc_lib", "_tc_a8_lib", "_gathered_lib",
+                "_gathered_dec_lib", "_gathered_tc_lib"):
+        monkeypatch.setattr(tk, lib, None)
+    monkeypatch.setattr(tk._build, "load", no_nvcc)
+
+    def counts():
+        return _floor_counts() + _dec_counts() + _k3_counts() + _k6_counts()
+
+    before = counts()
+    for call in (lambda: tk.ternary_matmul(x, packed, alpha, mu, a8="floor"),
+                 lambda: tk.ternary_matmul_igathered(x, perm, packed, alpha, mu, a8="floor"),
+                 lambda: tk.ternary_matmul_gathered(x, gp, packed, alpha, mu, a8="floor")):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [("iota", True, False), ("packed", True, False),
+                                   ("packed", False, True), ("packed", False, False)],
+                         ids=["defaults", "P1", "P2", "unfused"])
+@pytest.mark.parametrize("dec_a8", [False, True])
+def test_floor8_model_launches_equal_a8(cuda_device, flags, dec_a8, monkeypatch):
+    """A 2-layer llama-3-8b-shaped "ssr" model (narrow) decodes under floor8
+    and a8 with the same launches of every kernel counter, every flag set."""
+    _set_flags(monkeypatch, *flags)
+    monkeypatch.setattr(tk, "K1_DEC_A8", dec_a8)
+    cfg = get_config("tiny-llama-gqa").with_(n_layers=2)
+    params = random_ternary_params(cfg, seed=5, perm_mode="ssr", device=cuda_device)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda_device)
+    counts = {}
+    for impl in ("a8", "floor8"):
+        c0 = _floor_counts()[0::2] + _dec_counts() + _k3_counts() + _k6_counts()
+        greedy_generate(cfg, params, prompt, max_new=3, impl=impl)
+        torch.cuda.synchronize()
+        c1 = _floor_counts()[0::2] + _dec_counts() + _k3_counts() + _k6_counts()
+        counts[impl] = tuple(b - a for a, b in zip(c0, c1))
+    assert counts["a8"] == counts["floor8"] and sum(counts["a8"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc", [True, False], ids=["tc", "cuda_core"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("hd", [384, 512])
+def test_k7_wide_heads_match_plain(cuda_device, hd, B, quant, tc, monkeypatch):
+    """K7 at hd 384 and 512 on both kernels: the tensor-core kernel within a
+    bf16 step of its schedule (16 / 32-position tiles there) and within
+    K7's tolerance of the plain version; the CUDA-core kernel within K7's
+    tolerance."""
+    monkeypatch.setattr(tka, "K7_TC", tc)
+    M, H, Hkv = 2048, 8, 2
+    g = torch.Generator(device=cuda_device).manual_seed(hd + B + quant)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, "ragged")
+    before = tka.decode_attention.launches, tka.decode_attention.launches_wide
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert (tka.decode_attention.launches, tka.decode_attention.launches_wide) == (
+        before[0] + 1, before[1] + 1)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert got.shape == (B, 1, H, hd) and torch.isfinite(got).all()
+    assert _rel(got.float(), plain.float()) <= ATTN_TOL
+    if tc:
+        plan = tka.k7_plan(B, M, Hkv, H // Hkv, hd, quant)
+        split = tka.decode_attention_split_plain(q, k, v, valid, hd ** -0.5, ks, vs,
+                                                 tile=plan.tile, splits=plan.splits)
+        assert _within_a_bf16_step(got, split) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_k7_unbuilt_width_raises(cuda_device):
+    q = torch.zeros((1, 1, 2, 640), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((1, 128, 2, 640), dtype=torch.bfloat16, device=cuda_device)
+    valid = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="hd=640"):
+        tka.decode_attention(q, kv, kv, valid, 0.04)
+
+
+@pytest.mark.cuda
+def test_ring_engine_and_ring_generate_on_the_card(cuda_device, monkeypatch):
+    """gemma3-4b's width and heads, 2 layers (both sliding) with the window
+    cut to 128 slots so that it wraps: ring_generate and the ring engine
+    launch K7 once a layer and decode step, every call over the 128-slot
+    ring and within K7's tolerance of its plain version, and each answer's
+    picks lie within 2e-2 of max|logit| of the flat route's teacher-forced
+    plain logits."""
+    from pt2tpu_torch.serve import ring as tring
+    from pt2tpu_torch.serve.generate import forward_cached
+    from pt2tpu_torch.serve.kvcache import init_cache
+
+    cfg = get_config("gemma3-4b").with_(n_layers=2, sliding_window=128, vocab_size=2048)
+    assert not any(cfg.globals_list())
+    params = random_ternary_params(cfg, seed=11, perm_mode="down", device=cuda_device)
+    slots, errs = [], []
+    attn = tcommon.decode_attention
+
+    def held(q, k, v, valid, scale, *a, **kw):
+        slots.append(k.shape[1])
+        got = attn(q, k, v, valid, scale, *a, **kw)
+        want = tka.decode_attention_plain(q, k, v, valid, scale, *a, **kw)
+        errs.append(_rel(got.float(), want.float()))
+        return got
+
+    monkeypatch.setattr(tcommon, "decode_attention", held)
+
+    def pick_gaps(prompt, ids):
+        toks = torch.as_tensor(list(prompt) + list(ids[:-1]), device=cuda_device)[None]
+        with torch.inference_mode():
+            cache = init_cache(cfg, 1, toks.shape[1], device=cuda_device)
+            lf, _ = forward_cached(cfg, params, toks, cache, 0, "plain", all_logits=True)
+        lf = lf[0, len(prompt) - 1:].float()
+        picked = lf.gather(1, torch.as_tensor(ids, device=cuda_device)[:, None])[:, 0]
+        return ((lf.max(1).values - picked) / lf.abs().max(1).values).max().item()
+
+    prompt = torch.randint(0, cfg.vocab_size, (2, 150), device=cuda_device)
+    before = tka.decode_attention.launches
+    toks = tring.ring_generate(cfg, params, prompt, 12, max_len=256)
+    assert tka.decode_attention.launches - before == 2 * 11 and set(slots) == {128}
+    for b in range(2):
+        assert pick_gaps(prompt[b].tolist(), toks[b].tolist()) <= 2e-2
+    pf, df, fac = tring.make_ring_engine_fns(cfg, device=cuda_device)
+    eng = ServeEngine(cfg, params, max_batch=4, max_len=256, prefill_fn=pf, decode_fn=df,
+                      cache_factory=fac)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,)).numpy() for n in (200, 30, 129, 7)]
+    reqs = [eng.submit(p, 10) for p in prompts]
+    slots.clear()
+    before = tka.decode_attention.launches
+    eng.run()
+    assert tka.decode_attention.launches - before == 2 * eng.stats["steps"]
+    assert set(slots) == {128} and max(errs) <= ATTN_TOL
+    for p, r in zip(prompts, reqs):
+        assert r.done and pick_gaps(p.tolist(), r.out) <= 2e-2
