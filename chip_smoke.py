@@ -123,7 +123,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      engine's tensor-core A/Bs of phases 5b and 10c run in two turns;
  12. (the gemma slice) serves gemma-2b (dim 2048, 8 / 1 KV heads of 256, a
      GeGLU MLP of 16384, vocab 256000, norms by 1 + w, a scaled and tied
-     embedding) at full width and its full 18 layers, "down" layout: holds
+     embedding) at full width and its full 18 layers (the engine, the server
+     and the profiled engine step at 9 since phase 29), "down" layout: holds
      K1's four kernels at its four projections (qkv 2048 -> 2560, o, gateup
      2048 -> 32768, down 16384 -> 2048; rows 1/2/4/8 on the decode kernel,
      bf16 and W2A8, and on the CUDA cores, 16/64/512 on both tensor-core
@@ -346,7 +347,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      INT8_K7_OFF_TOKEN_TOL. Since phase 22 its dense weights start as a
      local HuggingFace checkpoint (22d, below).
  22. (every dense family of the JAX registry) serves (a) qwen3-8b
-     (qk-norm) at full width and its full 36 layers, "down" layout: the
+     (qk-norm) at full width and 12 of its 36 layers (36 until phase 29
+     was added), "down" layout: the
      lockstep path (4 x 128 ids, 16 new; K1 and K2 on every layer) and a
      ServeEngine (8 slots, max_len 2048, 8 requests of 64-512 ids, 32 new,
      bf16 KV; K7 at hd 128, 4 queries per KV head), launches exact (each
@@ -386,7 +388,8 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      plain forward (bf16 at MIXTRAL_DEEP_TOL beside the plain route's own
      bf16-vs-f32 drift, printed; W2A8 at A8_TOLS' gap), a profiled decode
      step, and the same weights cut to 2 layers with every K1 / K1s call
-     and answer held (TOKEN_TOL); (c) the same model in a ServeEngine (8
+     and answer held (TOKEN_TOL); (c) the same model at 8 of its 32 layers
+     (since phase 29) in a ServeEngine (8
      slots, M 2048, 8 requests of 64-512 ids, 16 new since phase 26, bf16
      KV; all 8 experts a pass), K1 / K7 launches exact, every K7 call held, the
      answers held under one batched teacher-forced plain forward at
@@ -456,6 +459,29 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      answers at TOKEN_TOL; (d) cut to 2 (both sliding), every K1 / K7 call
      held, each K7 over a 1024-slot ring; (e) a sampled generate pair equal
      under one seed; (6) times K7 on a 1024-slot ring from a CUDA graph.
+ 27. (K2's floor probe, fused_mlp_apply(impl="floor8"): x and mid rounded
+     to int8, the raw packed bytes as codes; wrong by design) (a) direct
+     calls at llama-3-8b's MLP ("ssr", with its gather) and gemma-2b's
+     GeGLU ("down"), layer 1 of a 2-layer stack, rows 1 / 4 / 8 (decode
+     path), 16 / 64 (tensor-core path), 1 / 8 on the CUDA-core kernel: each
+     call on its path's FLOOR instance (launches exact), within MLP_TOL of
+     ternary_mlp_floor_plain; (b) each instance timed through its C entry
+     at llama-3-8b's MLP beside the bf16 instance of its path, in turns.
+ 28. (the paged engine, serve/paged.py) llama-3-8b "down" at 32 layers, 5b's
+     16 requests, 8 slots, M 2048, pages of 64, 80 pages: bf16 KV quantum 1,
+     int8 KV quantum 1, bf16 KV quantum 8, each beside the flat engine:
+     tokens and finish order equal, every page back after the drain,
+     launches exact (K7 layers x steps on the gathered view); both pools'
+     bytes; a profiled and timed step of each.
+ 29. (speculative decoding, serve/speculative.py and the engine's draft)
+     llama-2-70b (80 layers) under a llama-2-7b draft (32), "down", full
+     width, bf16 KV, spec_k 4: (a) speculative_generate (128 ids + 32 new)
+     beside the 70b's greedy_generate, launches exact, answers at
+     TOKEN_TOL; the 70b's decode step against its bytes bound; (b) the
+     ServeEngine with the draft (4 slots, M 1024, 4 requests of 64-256 ids,
+     16 new) beside the plain engine, launches exact (verify rows on K1's and
+     K2's tensor-core paths), answers at TOKEN_TOL; (c) a perfect draft (the
+     7b cut to 2 layers as its own draft): the acceptance rate, not gated.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -465,6 +491,7 @@ written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -546,7 +573,7 @@ QUANT_CALIB = (32, 512)
 # agree and the two Hessian-weighted relative errors lie within 5 % of each other
 QUANT_TWIN_CODES = 0.99
 QUANT_TWIN_ERR = 0.05
-# phase 22: the full-depth qwen3-8b (36 layers) and gemma3-4b (34 layers)
+# phase 22: the qwen3-8b (12 of 36 layers) and gemma3-4b (6 of 34 layers)
 # engines' answers vs their teacher-forced plain forwards
 FAMILY_TOKEN_TOL = TOKEN_TOL
 # gemma3-4b's answers (phase 22b): with random weights its bf16 routes
@@ -591,7 +618,7 @@ MOE_CALIB = (16, 512)
 # drift from f32, printed; the same weights cut to 2 layers hold TOKEN_TOL
 # on routes whose every call is held (the engines there with K7 off: the
 # plain attention of the teacher-forced reference), and K7 is held per
-# call in the 32-layer engine
+# call in the 8-layer engine
 MIXTRAL_DEEP_TOL = 1.0
 # qwen3-30b-a3b (128 experts, 8 a token) in phase 23d's engine: its 8th and
 # 9th routing weights (each near 1/128) often lie within the f32-order noise
@@ -851,7 +878,7 @@ def main() -> None:
         k4.onehot_matmul.launches_rows = k4.onehot_gather.launches_rows = 0
         k1.ternary_matmul_idx.launches_dec = k1.ternary_matmul_igathered_idx.launches_dec = 0
         k1.ternary_matmul_gathered_idx.launches_dec = k4.onehot_gather_idx.launches_rows = 0
-        k1.ternary_mlp.launches_ungated = 0
+        k1.ternary_mlp.launches_ungated = k1.ternary_mlp.launches_floor = 0
         for w in (k1.ternary_matmul, k1.ternary_matmul_igathered, k1.ternary_matmul_gathered,
                   k1.ternary_matmul_idx, k1.ternary_matmul_igathered_idx,
                   k1.ternary_matmul_gathered_idx):
@@ -883,8 +910,9 @@ def main() -> None:
         "onehot_gather_idx_rows"; K2's ungated launches (any path) as
         "ternary_mlp_ungated". K2's decode path's down launch is K2's, not
         one of K1's. The floor probe's launches of K1, K3, K6, K1s, K3s and
-        K6s (also in their wrappers' counts) as "<wrapper>_floor"; K7's at hd
-        384 and 512 (also in "decode_attention") as "decode_attention_wide"."""
+        K6s (also in their wrappers' counts) as "<wrapper>_floor", K2's (any
+        path, also in "ternary_mlp") as "ternary_mlp_floor"; K7's at hd 384
+        and 512 (also in "decode_attention") as "decode_attention_wide"."""
         c = {name: w.launches for name, w in wrappers.items()}
         c["ternary_matmul_tc"] = k1.ternary_matmul.launches_tc
         c["ternary_matmul_tc_a8"] = k1.ternary_matmul.launches_tc_a8
@@ -905,6 +933,7 @@ def main() -> None:
         c["ternary_matmul_gathered_idx_dec"] = k1.ternary_matmul_gathered_idx.launches_dec
         c["onehot_gather_idx_rows"] = k4.onehot_gather_idx.launches_rows
         c["ternary_mlp_ungated"] = k1.ternary_mlp.launches_ungated
+        c["ternary_mlp_floor"] = k1.ternary_mlp.launches_floor
         for name in ("ternary_matmul", "ternary_matmul_igathered", "ternary_matmul_gathered",
                      "ternary_matmul_idx", "ternary_matmul_igathered_idx",
                      "ternary_matmul_gathered_idx"):
@@ -929,13 +958,19 @@ def main() -> None:
                "ternary_matmul_tc_a8", "ternary_matmul_dec", "ternary_matmul_igathered_tc",
                "ternary_mlp_tc", "ternary_mlp_dec", "ternary_matmul_gathered_dec",
                "ternary_matmul_gathered_tc", "onehot_matmul_rows", "decode_attention_tc",
-               "onehot_gather_rows"]
+               "onehot_gather_rows", "ternary_mlp_floor"]
     from concurrent.futures import ThreadPoolExecutor
 
+    def timed_build(src):
+        t_ = time.perf_counter()
+        return _build.build(src), time.perf_counter() - t_
+
     with ThreadPoolExecutor(len(sources)) as ex:
-        libs = list(ex.map(_build.build, sources))
+        libs, secs = zip(*ex.map(timed_build, sources))
     record["build_s"] = time.perf_counter() - t0
-    print(f"built {sources} in {record['build_s']:.1f} s")
+    record["build_s_by_source"] = dict(zip(sources, secs))
+    print(f"built {len(sources)} sources in parallel in {record['build_s']:.1f} s: "
+          + ", ".join(f"{src} {t_:.1f} s" for src, t_ in zip(sources, secs)))
     for src, so in zip(sources, libs):
         with open(so + ".log") as f:
             for line in f:
@@ -3860,6 +3895,9 @@ def main() -> None:
     # timed and profiled; then 8 concurrent POSTs through the ServingServer
     g_prompts = make_prompts(cfg, host_ints(64, 512, 16), ggem)
     g_news = host_ints(32, 64, 16)
+    # the engine, the server and the profiled step at 9 of the 18 layers (the
+    # same stacked weights; the run's time budget since phase 29)
+    cfg, L = cfg.with_(n_layers=9), 9
     record["engine_gemma"] = {}
     for kvq in (False, True):
         kv = "int8" if kvq else "bf16"
@@ -4201,7 +4239,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     stamp("22")
     # ---- 22. every dense family of the JAX registry: (a) qwen3-8b (qk-norm)
-    # at full width and its full 36 layers, "down" layout: the lockstep path
+    # at full width and 12 of its 36 layers, "down" layout: the lockstep path
     # (4 x 128 ids, 16 new) and a ServeEngine (8 slots, M 2048, 8 requests of
     # 64-512 ids, 32 new each, bf16 KV), launches exact, every answer held to
     # FAMILY_TOKEN_TOL under its teacher-forced plain reference; a 2-layer
@@ -4358,8 +4396,9 @@ def main() -> None:
         del eng
         return dict(prof, step_wall_ms=wall_ms)
 
-    # (a) qwen3-8b
-    cfg22, params22, build_s = build("qwen3-8b", "down", 22)
+    # (a) qwen3-8b at 12 of its 36 layers (the run's time budget since phase
+    # 29 was added)
+    cfg22, params22, build_s = build("qwen3-8b", "down", 22, n_layers=12)
     L22 = cfg22.n_layers
     prompts22 = torch.randint(0, cfg22.vocab_size, (B, Lp), generator=g22, device=dev)
     zero_counts()
@@ -4924,12 +4963,15 @@ def main() -> None:
     # (c) the engine
     lens23 = torch.randint(64, 513, (8,), generator=gh23).tolist()
     prompts23 = make_prompts(cfg23, lens23, g23)
-    rec23["engine"], _ = moe_engine(  # 16 new since phase 26 (the run's time budget)
-        f"23c mixtral-8x7b down bf16 KV ({L23} layers)", cfg23, params23, prompts23, 16,
-        lambda passes_, st_: mixtral_launches(L23, passes_, k7_steps=st_),
+    # the engine at 8 of the 32 layers (the same stacked weights; the run's
+    # time budget since phase 29 was added)
+    eng23, L23e = cfg23.with_(n_layers=8), 8
+    rec23["engine"], _ = moe_engine(
+        f"23c mixtral-8x7b down bf16 KV ({L23e} of its {L23} layers)", eng23, params23,
+        prompts23, 16, lambda passes_, st_: mixtral_launches(L23e, passes_, k7_steps=st_),
         held=("decode_attention",), tol=MIXTRAL_DEEP_TOL)
-    rec23["engine_step"] = family_step("mixtral-8x7b down engine, bf16 KV", cfg23, params23,
-                                       prompts23)
+    rec23["engine_step"] = family_step(f"mixtral-8x7b down engine ({L23e} layers), bf16 KV",
+                                       eng23, params23, prompts23)
     set_k7(False)  # the 2-layer engines: plain attention, as their reference's
     rec23["engine_2layer"], _ = moe_engine(
         "23c mixtral-8x7b, the same weights cut to 2 layers, K7 off", cut23, params23,
@@ -5933,6 +5975,497 @@ def main() -> None:
     del params26
     torch.cuda.empty_cache()
     record["ring"] = rec26
+
+    stamp("27")
+    # ---- 27. K2's floor probe (fused_mlp_apply(..., impl="floor8"): x and mid
+    # rounded and clipped to int8, every plane's code the raw packed byte;
+    # wrong by design, the bf16 K2's bytes, grids and launches). No route
+    # picks it (fused_mlp_ok answers False for floor8, as JAX's), so these
+    # direct calls are its main path. (a) llama-3-8b's MLP in the "ssr"
+    # layout (with its gather, silu) and gemma-2b's in the "down" layout (the
+    # identity perm, GeGLU), each a 2-layer stack called at layer 1: rows 1, 4
+    # and 8 (the decode path), 16 and 64 (the tensor-core path), then rows 1
+    # and 8 on the CUDA-core kernel with both other paths off; counts set to
+    # 0 before each call and read after, each call held to
+    # ternary_mlp_floor_plain within MLP_TOL (K2's own) and far from the bf16
+    # MLP; (b) each path's FLOOR instance timed through its C entry at
+    # llama-3-8b's MLP with its gather beside the bf16 instance of the same
+    # path (in turns floor, bf16, bf16, floor; weights rotated over
+    # COLD_BYTES): the unpack's share of K2
+    rec27 = {"calls": [], "launches": {}, "max_abs_err": {}, "max_rel_err": {}, "timing": []}
+    g27 = torch.Generator(device=dev).manual_seed(27)
+    path_key27 = {"dec": "ternary_mlp_dec_floor", "tc": "ternary_mlp_tc_floor",
+                  "cc": "ternary_mlp_floor"}
+    for key_ in path_key27.values():
+        rec27["launches"][key_] = 0
+        rec27["max_abs_err"][key_] = rec27["max_rel_err"][key_] = 0.0
+
+    def floor_rows27(rows, width):
+        """bf16 rows whose scales run geometrically from 8 down to 0.05 (one
+        row: 8): mid from the clip to small integers."""
+        scale = torch.logspace(math.log10(8.0), math.log10(0.05), rows, device=dev)[:, None]
+        return (torch.randn((rows, width), generator=g27, device=dev) * scale).bfloat16()
+
+    for name27, layout27, act27, seed27 in (("llama-3-8b", "ssr", "silu", 27),
+                                            ("gemma-2b", "down", "gelu", 28)):
+        cfg27, params27, _ = build(name27, layout27, seed27, n_layers=2)
+        gu27, dn27 = params27["layers"]["gateup"], params27["layers"]["down"]
+        if not ttm.fused_mlp_ok(gu27, dn27, "auto", 8, dev) or ttm.fused_mlp_ok(
+                gu27, dn27, "floor8", 8, dev):
+            fail(f"27a {name27}: fused_mlp_ok should take the bf16 MLP and refuse floor8")
+        gu1, dn1 = gu27.layer(1), dn27.layer(1)
+        perm1 = gu1.perm if layout27 == "ssr" else None
+        args1 = (perm1, gu1.packed, gu1.alpha, gu1.mu, dn1.packed, dn1.alpha, dn1.mu)
+        for path, rows_list in (("dec", (1, 4, 8)), ("tc", (16, 64)), ("cc", (1, 8))):
+            with k2_dec(path != "cc"), k2_tc(path != "cc"):
+                for rows in rows_list:
+                    x = floor_rows27(rows, cfg27.dim)
+                    zero_counts()
+                    with torch.inference_mode():
+                        got = ttm.fused_mlp_apply(gu27, dn27, x, act27, layer_idx=1,
+                                                  out_dtype=torch.float32, impl="floor8")
+                    torch.cuda.synchronize()
+                    c = counts()
+                    want_c = dict(none, ternary_mlp=1, ternary_mlp_floor=1,
+                                  ternary_mlp_dec=int(path == "dec"),
+                                  ternary_mlp_tc=int(path == "tc"),
+                                  ternary_mlp_gelu=int(act27 == "gelu"))
+                    if c != want_c:
+                        fail(f"27a {name27} floor8 at {rows} rows ({path}): launches {c}, "
+                             f"want {want_c}")
+                    rec27["launches"][path_key27[path]] += 1
+                    want = k1.ternary_mlp_floor_plain(x, *args1, intermediate=dn1.in_features,
+                                                      act=act27)
+                    bf16 = k1.ternary_mlp_plain(x, *args1, intermediate=dn1.in_features,
+                                                act=act27)
+                    top = want.abs().max().item()
+                    err = (got - want).abs().max().item()
+                    far = (bf16 - want).abs().max().item() / top
+                    if not err <= MLP_TOL * top or far < 0.1:
+                        fail(f"27a {name27} floor8 at {rows} rows ({path}): {err / top:.3e} of "
+                             f"max|plain| (> {MLP_TOL}), or the bf16 MLP within {far:.3e}")
+                    key_ = path_key27[path]
+                    rec27["max_abs_err"][key_] = max(rec27["max_abs_err"][key_], err)
+                    rec27["max_rel_err"][key_] = max(rec27["max_rel_err"][key_], err / top)
+                    rec27["calls"].append({"model": name27, "path": path, "rows": rows,
+                                           "rel_err": err / top, "bf16_far": far})
+        del params27, gu27, dn27, gu1, dn1, args1
+        torch.cuda.empty_cache()
+    print(f"27a K2's floor (fused_mlp_apply impl=floor8) at llama-3-8b's MLP (ssr, silu) and "
+          f"gemma-2b's (down, GeGLU), layer 1 of 2: {len(rec27['calls'])} calls, each on the "
+          f"path it was sent to, held within {MLP_TOL} x max|plain| of ternary_mlp_floor_plain "
+          f"(max {rec27['max_rel_err']}), far from the bf16 MLP; launches {rec27['launches']}")
+
+    stamp("27b")
+    # (b) the C entries of each path, FLOOR and bf16 instances in turns
+    mlp_dec_lib27, mlp_tc_lib27 = k1._mlp_dec_kernel_lib(), k1._mlp_tc_kernel_lib()
+    mlp_lib27, mlp_floor_lib27 = k1._mlp_kernel_lib(), k1._mlp_floor_kernel_lib()
+    stream27 = torch.cuda.current_stream().cuda_stream
+    dix27 = dev.index or 0
+    ctr27 = torch.zeros(1024, dtype=torch.int32, device=dev)
+    D, I, n = MLP_8B
+    wbytes = D * 2 * I // 4 + 4 * (D // 128) * 2 * I + I * n // 4 + 4 * (I // 128) * n
+    copies = max(1, math.ceil(COLD_BYTES / wbytes))
+    layers27 = [rand_layer(D, 2 * I, gen=g27) + rand_layer(I, n, gen=g27)
+                + (rand_perm(D, D, gen=g27),) for _ in range(copies)]
+    ev27 = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def time27(fn, iters):
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        s, e = ev27(), ev27()
+        s.record()
+        for i in range(iters):
+            fn(i)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    def ok27(rc, what):
+        if rc:
+            fail(f"27b {what} launch failed in timing: {rc}")
+
+    # (the CUDA-core FLOOR instance is built for 8-row tiles only: both at 8)
+    for path, B27 in (("dec", 1), ("tc", 16), ("cc", 8)):
+        x = floor_rows27(B27, D)
+        out = torch.empty((B27, n), dtype=torch.float32, device=dev)
+        if path == "dec":
+            wave = k1.dec_wave(dev)
+            gs, ds = k1.dec_splits(D, 2 * I, 128, wave), k1.dec_splits(I, n, 128, wave)
+            gpart = torch.empty((gs, B27, 2 * I), dtype=torch.float32, device=dev)
+            dpart = torch.empty((ds, B27, n), dtype=torch.float32, device=dev)
+            mid = torch.empty((B27, I), dtype=torch.bfloat16, device=dev)
+
+            def kern(i, floor):
+                gp, ga, gm, dp, da, dm, pm = layers27[i % copies]
+                fn = (mlp_dec_lib27.pt2_ternary_mlp_dec_floor if floor
+                      else mlp_dec_lib27.pt2_ternary_mlp_dec)
+                ok27(fn(x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
+                        dp.data_ptr(), da.data_ptr(), dm.data_ptr(), gpart.data_ptr(),
+                        dpart.data_ptr(), mid.data_ptr(), out.data_ptr(), ctr27.data_ptr(), B27,
+                        D, D, I, n, gs, ds, 0, dix27, stream27), "K2 dec")
+        elif path == "tc":
+            wave = k1.igtc_wave(dev)
+            gs, ds = k1.igtc_splits(D, 2 * I, 128, wave), k1.igtc_splits(I, n, 128, wave)
+            Bp = k1.igtc_rows_pad(B27)
+            xg = torch.empty((Bp, D), dtype=torch.bfloat16, device=dev)
+            S = torch.empty((D // 128, Bp), dtype=torch.float32, device=dev)
+            gpart = torch.empty((gs, Bp, 2 * I), dtype=torch.float32, device=dev)
+            mid = torch.empty((Bp, I), dtype=torch.bfloat16, device=dev)
+            msums = torch.empty((I // 64 + I // 128, Bp), dtype=torch.float32, device=dev)
+            dpart = torch.empty((ds, B27, n), dtype=torch.float32, device=dev)
+
+            def kern(i, floor):
+                gp, ga, gm, dp, da, dm, pm = layers27[i % copies]
+                fn = (mlp_tc_lib27.pt2_ternary_mlp_tc_floor if floor
+                      else mlp_tc_lib27.pt2_ternary_mlp_tc)
+                ok27(fn(x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
+                        dp.data_ptr(), da.data_ptr(), dm.data_ptr(), xg.data_ptr(), S.data_ptr(),
+                        gpart.data_ptr(), mid.data_ptr(), msums.data_ptr(), dpart.data_ptr(),
+                        out.data_ptr(), ctr27.data_ptr(), B27, D, D, I, n, gs, ds, 0, dix27,
+                        stream27), "K2 tc")
+        else:
+            partial = torch.empty((I // 128, B27, n), dtype=torch.float32, device=dev)
+
+            def kern(i, floor):
+                gp, ga, gm, dp, da, dm, pm = layers27[i % copies]
+                fn = (mlp_floor_lib27.pt2_ternary_mlp_floor if floor
+                      else mlp_lib27.pt2_ternary_mlp)
+                ok27(fn(x.data_ptr(), pm.data_ptr(), gp.data_ptr(), ga.data_ptr(), gm.data_ptr(),
+                        dp.data_ptr(), da.data_ptr(), dm.data_ptr(), partial.data_ptr(),
+                        out.data_ptr(), B27, D, D, 2 * I, I, I, n, 0, dix27, stream27), "K2")
+        iters = 50 if path != "cc" else 20
+        turns = [time27(lambda i: kern(i, True), iters), time27(lambda i: kern(i, False), iters),
+                 time27(lambda i: kern(i, False), iters), time27(lambda i: kern(i, True), iters)]
+        gp, ga, gm, dp, da, dm, pm = layers27[0]
+        plain_ms = time27(lambda i: k1.ternary_mlp_floor_plain(x, pm, gp, ga, gm, dp, da, dm, I),
+                          3)
+        nbytes = wbytes + 2 * B27 * D + 4 * B27 * n + 4 * D
+        ops = 2.0 * B27 * (D * 2 * I + I * n)
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / bf16_peak * 1e3
+        d27 = {"kernel": path_key27[path], "B": B27, "D": D, "I": I, "n": n,
+               "ms": min(turns[0], turns[3]), "bf16_ms": min(turns[1], turns[2]),
+               "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+        d27["unpack_share"] = 1.0 - d27["ms"] / d27["bf16_ms"]
+        rec27["timing"].append(d27)
+        print(f"27b K2 floor, {path} path, llama-3-8b MLP (gather, silu) at {B27} rows: "
+              f"{' / '.join(f'{t * 1e3:.1f}' for t in turns)} us in turns floor, bf16, bf16, "
+              f"floor (the unpack {100 * d27['unpack_share']:.1f} % of the bf16 instance) | plain "
+              f"{plain_ms * 1e3:.1f} us | bound {d27['bound_ms'] * 1e3:.2f} us "
+              f"({d27['bound_by']}) on {record['smi']}")
+    if ctr27.any():
+        fail("27b a K2 floor timing left a counter set")
+    del layers27
+    torch.cuda.empty_cache()
+    record["k2_floor"] = rec27
+
+    stamp("28")
+    # ---- 28. the paged engine (serve/paged.py) on llama-3-8b "down" at its
+    # 32 layers with phase 5b's requests (8 slots, M 2048, 16 greedy requests
+    # of 64-512 ids): page_size 64, kv_pages 80 (31 % of the flat pool's 256
+    # pages; 8 slots x 9 pages is the worst case of these requests). Runs:
+    # bf16 KV at quantum 1, int8 KV at quantum 1, bf16 KV at quantum 8, each
+    # beside the flat engine with the same settings: tokens and finish order
+    # equal, every page back on the free list after the drain, launches exact
+    # (K7 once a layer of every decode step, on the gathered view); both
+    # pools' bytes; one decode step of each engine profiled and timed on the
+    # host clock
+    from pt2tpu_torch.serve.paged import PagedServeEngine
+
+    rec28 = {"runs": {}}
+    cfg28, params28, rec28["build_s"] = build("llama-3-8b", "down", 5)
+    L28, PS28, PAGES28 = cfg28.n_layers, 64, 80
+
+    def llama_launches(L_, passes, k7_steps, k2):
+        """The launches of forward passes of ``passes`` rows each through
+        ``L_`` layers of a llama model in the "down" layout, routes written
+        out: K1 for qkv and o (decode kernel at <= 8 rows, tensor cores from
+        9); the MLP through K2 at <= 64 rows where ``k2`` (decode path <= 8,
+        tensor cores 9-64), else K1 for gateup and down; K7 once a layer for
+        each of ``k7_steps`` decode steps."""
+        c = dict(none)
+        for rows in passes:
+            n_k1 = 2 if k2 and rows <= 64 else 4
+            c["ternary_matmul"] += n_k1 * L_
+            c["ternary_matmul_dec" if rows <= 8 else "ternary_matmul_tc"] += n_k1 * L_
+            if n_k1 == 2:
+                c["ternary_mlp"] += L_
+                c["ternary_mlp_dec" if rows <= 8 else "ternary_mlp_tc"] += L_
+        c["decode_attention"] = c["decode_attention_tc"] = L_ * k7_steps
+        return c
+
+    def engine28(paged, kvq, quantum):
+        kw = dict(max_batch=8, max_len=ENGINE_M, kv_quant=kvq, decode_quantum=quantum)
+        if paged:
+            return PagedServeEngine(cfg28, params28, page_size=PS28, kv_pages=PAGES28, **kw)
+        return ServeEngine(cfg28, params28, **kw)
+
+    def run28(label, paged, kvq, quantum):
+        eng = engine28(paged, kvq, quantum)
+        reqs = [eng.submit(p_, m_) for p_, m_ in zip(eng_prompts, eng_news)]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        got_ = counts()
+        st_ = eng.stats["steps"]
+        buckets = [min(_bucket(len(p_), PS28 if paged else 16), ENGINE_M) for p_ in eng_prompts]
+        want_ = llama_launches(L28, buckets + [8] * st_, st_, True)
+        if got_ != want_:
+            fail(f"28 {label}: launches {got_}, want {want_}")
+        tally(got_)
+        if not all(r.done and len(r.out) == m_ for r, m_ in zip(reqs, eng_news)):
+            fail(f"28 {label}: a request did not finish with max_new tokens")
+        stt = dict(eng.stats)
+        res = {"wall_s": wall_, "steps": st_, "launches": got_,
+               "decode_tok_s": stt["tokens"] / stt["t_decode_s"], "t_admit_s": stt["t_admit_s"],
+               "t_decode_s": stt["t_decode_s"],
+               "kv_bytes": sum(t.numel() * t.element_size() for t in eng.cache.leaves())}
+        if paged:
+            if sorted(eng._free) != list(range(1, PAGES28 + 1)):
+                fail(f"28 {label}: pages {sorted(set(range(1, PAGES28 + 1)) - set(eng._free))} "
+                     f"not back on the free list after the drain")
+            res["free_after_drain"] = len(eng._free)
+        return eng, res, [r.out for r in reqs], [r.uid for r in eng.finished]
+
+    for kvq, quantum in ((False, 1), (True, 1), (False, 8)):
+        kv = "int8" if kvq else "bf16"
+        tag = f"{kv} KV quantum {quantum}"
+        eng_p, res_p, out_p, ord_p = run28(f"paged {tag}", True, kvq, quantum)
+        del eng_p
+        eng_f, res_f, out_f, ord_f = run28(f"flat {tag}", False, kvq, quantum)
+        del eng_f
+        if out_p != out_f or ord_p != ord_f:
+            fail(f"28 paged {tag}: {sum(a != b for a, b in zip(out_p, out_f))} streams or the "
+                 f"finish order differ from the flat engine's")
+        rec28["runs"][tag] = {"paged": res_p, "flat": res_f}
+        print(f"28 llama-3-8b down ({L28} layers) paged engine, {tag}: 16 requests, tokens and "
+              f"finish order equal to the flat engine's, every page back; {res_p['steps']} decode "
+              f"steps in {res_p['wall_s']:.2f} s (flat {res_f['wall_s']:.2f}), decode "
+              f"{res_p['decode_tok_s']:.1f} tok/s (flat {res_f['decode_tok_s']:.1f}); KV pool "
+              f"{res_p['kv_bytes'] / 2**20:.1f} MiB against {res_f['kv_bytes'] / 2**20:.1f} MiB; "
+              f"launches exact {res_p['launches']} on {record['smi']}")
+    stamp("28b")
+    for paged in (True, False):  # one decode step with 8 busy slots, each pool
+        eng = engine28(paged, False, 1)
+        for p_ in eng_prompts[:8]:
+            eng.submit(p_, 64)
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            eng.step()
+        step_wall = (time.perf_counter() - t0) / 6 * 1e3
+        name_ = "paged" if paged else "flat"
+        rec28[f"step_{name_}"] = dict(profile_engine_step(eng, f"llama-3-8b {name_} engine"),
+                                      step_wall_ms=step_wall)
+        print(f"28 llama-3-8b {name_} engine step (8 busy slots, {L28} layers): wall "
+              f"{step_wall:.2f} ms on the host clock, device "
+              f"{rec28[f'step_{name_}']['device_ms']:.2f} ms (profiler) on {record['smi']}")
+        del eng
+    del params28
+    torch.cuda.empty_cache()
+    record["paged"] = rec28
+
+    stamp("29")
+    # ---- 29. speculative decoding: llama-2-70b (the registry's largest dense
+    # model) as the target under a llama-2-7b draft, both "down" at full
+    # width and depth (80 and 32 layers; they share the 32000-token
+    # vocabulary), bf16 KV, spec_k 4. The 70b's K2 takes its MLP at <= 64
+    # rows (its gateup needs no pad blocks), the 7b's gateup is padded (no K2).
+    # (a) speculative_generate: one prompt of 128 ids, 32 new; launches
+    # exact (per round: k + 1 one-row draft forwards, one k + 1-row verify;
+    # M 165: no K7), every answer held to TOKEN_TOL under its teacher-forced
+    # plain reference, beside the 70b's greedy_generate on the card (equal
+    # tokens counted, not gated: a near-tie may break apart between the
+    # 1-row and the 5-row kernels); the 70b's first decode step profiled
+    # against its bytes bound. (b) the ServeEngine with the 7b as its draft
+    # (4 slots, M 1024, 4 greedy requests of 64-256 ids, 16 new): launches
+    # exact (each step k + 1 draft steps at 4 rows with K7, then a 20-row
+    # verify on K1's and K2's tensor-core paths), answers held to TOKEN_TOL,
+    # beside the non-speculative engine (held too). (c) a perfect draft
+    # (target = draft = the 7b cut to 2 layers), lockstep and engine: the
+    # acceptance rate, reported, not gated (a near-tie between the 1-row and
+    # 20-row kernels may flip a vote).
+    from pt2tpu_torch.serve.speculative import speculative_generate
+
+    rec29 = {}
+    K29, NEW29 = 4, 32
+    g29 = torch.Generator(device=dev).manual_seed(29)
+    gh29 = torch.Generator().manual_seed(29)
+    cfg70, p70, rec29["build_70b_s"] = build("llama-2-70b", "down", 70)
+    cfg7, p7, rec29["build_7b_s"] = build("llama-2-7b", "down", 7)
+    L70, L7 = cfg70.n_layers, cfg7.n_layers
+
+    def tree_bytes(t, skip=()):
+        """The bytes of every tensor in a parameter tree, less the dict keys
+        and dataclass fields named in ``skip``."""
+        if isinstance(t, torch.Tensor):
+            return t.numel() * t.element_size()
+        if isinstance(t, dict):
+            return sum(tree_bytes(v_, skip) for k_, v_ in t.items() if k_ not in skip)
+        if isinstance(t, (list, tuple)):
+            return sum(tree_bytes(v_, skip) for v_ in t)
+        if dataclasses.is_dataclass(t):
+            return sum(tree_bytes(getattr(t, f_.name), skip) for f_ in dataclasses.fields(t)
+                       if f_.name not in skip)
+        return 0
+
+    rec29["weights_gb"] = {name_: tree_bytes(p_) / 1e9
+                           for name_, p_ in (("llama-2-70b", p70), ("llama-2-7b", p7))}
+    print(f"29 llama-2-70b ({L70} layers) built in {rec29['build_70b_s']:.1f} s, llama-2-7b "
+          f"({L7}) in {rec29['build_7b_s']:.1f} s; weights {rec29['weights_gb']} GB")
+
+    def spec_launches(Lt, Ld, t_passes, d_passes, rounds_rows, d_k7_steps=0, t_k2=True):
+        """Launches of a speculative run: the target's passes (its admissions
+        or prefill) and the draft's, then per round k + 1 draft forwards of
+        ``rows`` rows (K7 in each where ``d_k7_steps``) and one target verify
+        of rows x (k + 1) rows."""
+        c = llama_launches(Lt, t_passes, 0, t_k2)
+        for k_, v_ in llama_launches(Ld, d_passes, 0, False).items():
+            c[k_] += v_
+        for rows in rounds_rows:
+            for k_, v_ in llama_launches(Ld, [rows] * (K29 + 1), 0, False).items():
+                c[k_] += v_
+            for k_, v_ in llama_launches(Lt, [rows * (K29 + 1)], 0, t_k2).items():
+                c[k_] += v_
+        c["decode_attention"] = c["decode_attention_tc"] = Ld * d_k7_steps
+        return c
+
+    # (a) lockstep
+    prompt29 = torch.randint(0, cfg70.vocab_size, (1, 128), generator=g29, device=dev)
+    with torch.inference_mode():
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks29, stats29 = speculative_generate(cfg70, p70, cfg7, p7, prompt29, NEW29, k=K29)
+        torch.cuda.synchronize()
+        wall_spec = time.perf_counter() - t0
+        got = counts()
+        want = spec_launches(L70, L7, [128], [128], [1] * stats29.rounds)
+        if got != want:
+            fail(f"29a speculative_generate: launches {got}, want {want}")
+        tally(got)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy29 = greedy_generate(cfg70, p70, prompt29, NEW29)
+        torch.cuda.synchronize()
+        wall_greedy = time.perf_counter() - t0
+        got_g = counts()
+        want_g = llama_launches(L70, [128] + [1] * (NEW29 - 1), 0, True)
+        if got_g != want_g:
+            fail(f"29a greedy_generate: launches {got_g}, want {want_g}")
+        tally(got_g)
+    worst_spec = family_answers_held("29a llama-2-70b speculative answers", cfg70, p70,
+                                     prompt29.tolist(), toks29.tolist(), False, TOKEN_TOL)
+    worst_greedy = family_answers_held("29a llama-2-70b greedy answers", cfg70, p70,
+                                       prompt29.tolist(), greedy29.tolist(), False, TOKEN_TOL)
+    same = int((toks29 == greedy29).all(dim=1).sum())
+    rec29["lockstep"] = {"stats": vars(stats29), "acceptance": stats29.acceptance_rate,
+                         "wall_s": wall_spec, "tok_s": NEW29 / wall_spec,
+                         "greedy_wall_s": wall_greedy, "greedy_tok_s": NEW29 / wall_greedy,
+                         "launches": got, "worst_pick_gap": worst_spec,
+                         "greedy_worst_pick_gap": worst_greedy, "equal_to_greedy": same,
+                         "round_launches": spec_launches(L70, L7, [], [], [1])}
+    print(f"29a speculative_generate llama-2-70b <- llama-2-7b (k {K29}), 128 ids + {NEW29} new: "
+          f"{stats29} in {wall_spec:.2f} s ({NEW29 / wall_spec:.2f} tok/s) against greedy "
+          f"{wall_greedy:.2f} s ({NEW29 / wall_greedy:.2f} tok/s); launches exact {got} (a round: "
+          f"{rec29['lockstep']['round_launches']}); picks within {worst_spec:.2e} (greedy "
+          f"{worst_greedy:.2e}) of the teacher-forced plain max (<= {TOKEN_TOL}); tokens equal to "
+          f"greedy_generate's: {bool(same)} on {record['smi']}")
+    # a decode step reads every layer's codes, scales and norms and the
+    # lm_head (one embedding row; the "down" layout reads no perm)
+    bytes70 = tree_bytes(p70, skip=("embed", "perm"))
+    rec29["step_70b"] = dict(profile_decode_step(cfg70, p70, prompt29, 128, 4, dev,
+                                                 "llama-2-70b down"),
+                             bound_ms=bytes70 / bw * 1e3, bound_bytes=bytes70)
+    print(f"29a llama-2-70b decode step (B 1): device "
+          f"{rec29['step_70b']['device_ms']:.2f} ms, wall {rec29['step_70b']['wall_ms']:.2f} ms, "
+          f"against its bytes bound {rec29['step_70b']['bound_ms']:.2f} ms ({bytes70 / 1e9:.2f} GB "
+          f"of weights read) on {record['smi']}")
+
+    stamp("29b")
+    # (b) the engines, 4 slots, M 1024
+    lens29 = torch.randint(64, 257, (4,), generator=gh29).tolist()
+    prompts29 = make_prompts(cfg70, lens29, g29)
+    M29 = 1024
+
+    def engine29(label, cfg_t, p_t, draft, want_fn):
+        eng = ServeEngine(cfg_t, p_t, max_batch=4, max_len=M29, draft=draft, spec_k=K29)
+        reqs = [eng.submit(p_, 16) for p_ in prompts29]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            eng.run()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        got_ = counts()
+        want_ = want_fn(eng)
+        if got_ != want_:
+            fail(f"29 {label}: launches {got_}, want {want_}")
+        tally(got_)
+        if not all(r.done and len(r.out) == 16 for r in reqs):
+            fail(f"29 {label}: a request did not finish with max_new tokens")
+        stt = dict(eng.stats)
+        n_tok = sum(len(r.out) for r in reqs)
+        res = {"wall_s": wall_, "tok_s": n_tok / wall_, "steps": stt["steps"],
+               "decode_tok_s": stt["tokens"] / stt["t_decode_s"], "t_admit_s": stt["t_admit_s"],
+               "t_decode_s": stt["t_decode_s"], "launches": got_,
+               "stats_spec": getattr(eng, "stats_spec", None)}
+        return res, [r.out for r in reqs]
+
+    buckets29 = [min(_bucket(n_), M29) for n_ in lens29]
+    res_plain, out_plain = engine29(
+        "llama-2-70b engine", cfg70, p70, None,
+        lambda e: llama_launches(L70, buckets29 + [4] * e.stats["steps"], e.stats["steps"], True))
+    res_spec, out_spec = engine29(
+        "llama-2-70b engine under a llama-2-7b draft", cfg70, p70, (cfg7, p7),
+        lambda e: spec_launches(L70, L7, buckets29, buckets29, [4] * e.stats["steps"],
+                                (K29 + 1) * e.stats["steps"]))
+    for label_, out_, res_ in (("speculative", out_spec, res_spec),
+                               ("plain", out_plain, res_plain)):
+        res_["worst_pick_gap"] = family_answers_held(
+            f"29b llama-2-70b {label_} engine answers", cfg70, p70, prompts29, out_, False,
+            TOKEN_TOL)
+    rec29["engine"] = {"speculative": res_spec, "plain": res_plain,
+                       "streams_equal": sum(a == b for a, b in zip(out_spec, out_plain))}
+    sp = res_spec["stats_spec"]
+    print(f"29b llama-2-70b engine (4 slots, M {M29}, prompts {lens29}, 16 new): speculative "
+          f"{res_spec['steps']} steps in {res_spec['wall_s']:.2f} s ({res_spec['tok_s']:.2f} "
+          f"tok/s; drafted {sp['drafted']}, accepted {sp['accepted']}), plain "
+          f"{res_plain['steps']} steps in {res_plain['wall_s']:.2f} s ({res_plain['tok_s']:.2f} "
+          f"tok/s); launches exact; picks within {res_spec['worst_pick_gap']:.2e} / "
+          f"{res_plain['worst_pick_gap']:.2e} (<= {TOKEN_TOL}); streams equal "
+          f"{rec29['engine']['streams_equal']} of 4 on {record['smi']}")
+    del p70
+    torch.cuda.empty_cache()
+
+    stamp("29c")
+    # (c) a perfect draft: the 7b cut to 2 layers as target and draft
+    cfg2 = cfg7.with_(n_layers=2)
+    with torch.inference_mode():
+        _, st_perfect = speculative_generate(cfg2, p7, cfg2, p7, prompt29, NEW29, k=K29)
+    res_perfect, _ = engine29(
+        "2-layer llama-2-7b engine, its own draft", cfg2, p7, (cfg2, p7),
+        lambda e: spec_launches(2, 2, buckets29, buckets29, [4] * e.stats["steps"],
+                                (K29 + 1) * e.stats["steps"], t_k2=False))
+    sp = res_perfect["stats_spec"]
+    rec29["perfect"] = {"lockstep": vars(st_perfect),
+                        "lockstep_acceptance": st_perfect.acceptance_rate,
+                        "engine": res_perfect, "engine_acceptance": sp["accepted"] / sp["drafted"]}
+    print(f"29c a perfect draft (2-layer llama-2-7b as its own draft): lockstep {st_perfect}, "
+          f"engine accepted {sp['accepted']} of {sp['drafted']} drafted "
+          f"({rec29['perfect']['engine_acceptance']:.3f}); not gated")
+    del p7
+    torch.cuda.empty_cache()
+    record["speculative"] = rec29
 
     record["paths_s"] = time.perf_counter() - t_start
 
@@ -7311,7 +7844,7 @@ def main() -> None:
     if sum(ung_launches.values()) != run_totals["ternary_mlp_ungated"]:
         fail(f"K2's ungated launches {ung_launches} are not all of "
              f"{run_totals['ternary_mlp_ungated']}")
-    # the CUDA-core K2's launches, silu and GeGLU: the 32- and 18-layer runs'
+    # the CUDA-core K2's launches, silu and GeGLU: the llama and gemma-2b runs'
     # K2 launches on neither its decode nor its tensor-core path (since
     # K2's decode rows took the decode path, only 16b's "off" turns)
     main_launches["ternary_mlp_gelu"] = run_totals["ternary_mlp_gelu"] - sum(gelu_paths.values())
@@ -7406,7 +7939,7 @@ def main() -> None:
                          [d for d in k2tc_detail if d["B"] == 16 and d["shape"] == "llama-3-8b"],
                          max(k2tc_err, errs["ternary_mlp_tc"])))
     # K2's decode path at B = 1, llama-3-8b's MLP with its gather; its
-    # launches: every 32- and 18-layer run counted exactly (GeGLU ones
+    # launches: every llama and gemma-2b run counted exactly (GeGLU ones
     # included)
     main_launches["ternary_mlp_dec"] = (run_totals["ternary_mlp_dec"]
                                         - ung_launches["ternary_mlp_dec_ungated"])
@@ -7518,6 +8051,21 @@ def main() -> None:
                         "replaces": "pt2tpu/ops/kernels/pallas_ternary.py:112",
                         "launches": record["floor"]["launches"][inst],
                         "max_abs_err": record["floor"]["per_call"]["max_abs_err"][inst],
+                        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                        "bound_by": d["bound_by"], "library_ms": None})
+    # K2's floor probe (phase 27): each path's FLOOR instance at llama-3-8b's
+    # MLP with its gather, B 1 (decode path), 16 (tensor-core path) or 8 (the
+    # CUDA cores, whose FLOOR instance has 8-row tiles only); its launches: 27a's direct fused_mlp_apply(impl="floor8") calls,
+    # counted exactly; no library call computes the floor (its yardstick, the
+    # bf16 instance of the same path, is in record["k2_floor"]["timing"])
+    k2_floor_src = {"ternary_mlp_dec_floor": "ternary_mlp_dec.cu",
+                    "ternary_mlp_tc_floor": "ternary_mlp_tc.cu", "ternary_mlp_floor": "ternary_mlp.cu"}
+    for d in record["k2_floor"]["timing"]:
+        kernels.append({"name": d["kernel"], "route": "cuda",
+                        "source": f"pt2tpu_torch/csrc/{k2_floor_src[d['kernel']]}",
+                        "replaces": "pt2tpu/ops/kernels/pallas_ternary.py:1106",
+                        "launches": record["k2_floor"]["launches"][d["kernel"]],
+                        "max_abs_err": record["k2_floor"]["max_abs_err"][d["kernel"]],
                         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                         "bound_by": d["bound_by"], "library_ms": None})
     # K7 at hd 384 and 512 (phase 25), both kernels, at 8 / 2 KV heads, B 8,

@@ -11,9 +11,11 @@
   generate — greedy decode from token ids (or ``--prompt`` text with a local
              tokenizer) with any of those models; prints the ids
              comma-separated, as ``python -m pt2tpu.cli generate`` does, or
-             the text.
+             the text; ``--draft`` decodes speculatively under a draft
+             model (greedy only), ``--ring-kv`` on ring caches.
   serve    — the HTTP front end over the continuous-batching engine
-             (POST /generate, GET /health).
+             (POST /generate, GET /health); ``--paged`` over a paged KV pool,
+             ``--draft`` with speculative decoding in the batcher.
   info     — print an artifact's manifest without its structure, or an HF
              directory's config.
 
@@ -89,6 +91,11 @@ def _load(args):
         params = _map(lambda t: t.to(dev), params)
     return cfg, params
 
+
+def _load_draft(args):
+    """The draft model of ``--draft``: an artifact, an HF directory or a
+    registry config (random weights from ``--seed``), on the target's device."""
+    return _load(argparse.Namespace(model=args.draft, device=args.device, seed=args.seed))
 
 
 def _load_tokenizer(path_or_none):
@@ -177,7 +184,9 @@ def cmd_generate(args):
         ids = tok(args.prompt)["input_ids"]
     else:
         raise SystemExit("need --prompt-ids, or --prompt with a local tokenizer")
-    if args.ring_kv:  # JAX's refusals, before anything is loaded
+    if args.draft and args.temperature > 0:  # JAX's refusals, before anything is loaded
+        raise SystemExit("--draft (speculative) is greedy-only")
+    if args.ring_kv and not args.draft:
         if args.temperature > 0:
             raise SystemExit("--ring-kv is greedy-only for now")
         if args.kv_int8:
@@ -188,7 +197,15 @@ def cmd_generate(args):
     cfg, params = _load(args)
     max_len = min(cfg.max_seq_len, len(ids) + args.max_new)
     impl = "a8" if args.a8 else "auto"
-    if args.ring_kv:
+    if args.draft:  # JAX's order: speculative decoding before the ring caches
+        from .serve.speculative import speculative_generate
+
+        cfg_d, params_d = _load_draft(args)
+        out, stats = speculative_generate(cfg, params, cfg_d, params_d, [ids],
+                                          max_new=args.max_new, k=args.spec_k, impl=impl,
+                                          kv_quant=args.kv_int8)
+        print(f"speculative: {stats}", file=sys.stderr)
+    elif args.ring_kv:
         from .serve.ring import ring_generate
 
         out = ring_generate(cfg, params, [ids], max_new=args.max_new, max_len=max_len,
@@ -210,18 +227,27 @@ def cmd_generate(args):
 def cmd_serve(args):
     from .serve.server import ServingServer
 
-    # each flag against its own default: True == 1, so one shared set of
-    # defaults would let --paged through
-    for flag, default, what in (("paged", False, "the paged KV pool (serve/paged.py)"),
-                                ("draft", None, "speculative decoding (serve/speculative.py)"),
-                                ("tp", 1, "tensor parallelism (parallel/tp.py)")):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag} needs {what}: not ported")
+    if args.tp != 1:
+        raise NotImplementedError("--tp needs tensor parallelism (parallel/tp.py): not ported")
     cfg, params = _load(args)
+    engine = None
+    if args.paged:  # JAX's order: the paged pool before speculative decoding
+        from .serve.paged import PagedServeEngine
+
+        engine = PagedServeEngine(
+            cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+            page_size=args.page_size, kv_pages=args.kv_pages, kv_quant=args.kv_int8,
+            decode_quantum=args.quantum, seed=args.seed,
+        )
+    elif args.draft:
+        from .serve.engine import ServeEngine
+
+        engine = ServeEngine(cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+                             draft=_load_draft(args), spec_k=args.spec_k, seed=args.seed)
     srv = ServingServer(
         cfg, params, host=args.host, port=args.port, max_batch=args.max_batch,
         max_len=args.max_len, kv_quant=args.kv_int8, decode_quantum=args.quantum,
-        seed=args.seed,
+        seed=args.seed, engine=engine,
     ).start()
     print(f"serving on http://{args.host}:{srv.port} (POST /generate, GET /health); "
           "ctrl-c to stop", flush=True)
@@ -314,6 +340,10 @@ def build_parser():
     g.add_argument("--temperature", type=float, default=0.0)
     g.add_argument("--top_k", type=int, default=0)
     g.add_argument("--top_p", type=float, default=1.0)
+    g.add_argument("--draft", default=None,
+                   help="draft model (artifact, HF directory or registry config) for "
+                        "speculative decoding (greedy only; exact vs plain greedy)")
+    g.add_argument("--spec-k", type=int, default=4, help="draft tokens per speculative round")
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=cmd_generate)
     sv = sub.add_parser("serve", help="HTTP serving front end")
@@ -327,8 +357,13 @@ def build_parser():
                     help="decode steps per host fetch (token-identical)")
     sv.add_argument("--seed", type=int, default=42, help="keys sampled requests")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    sv.add_argument("--paged", action="store_true", help="not ported")
-    sv.add_argument("--draft", default=None, help="not ported")
+    sv.add_argument("--paged", action="store_true", help="pooled paged KV cache (serve/paged.py)")
+    sv.add_argument("--page-size", type=int, default=64)
+    sv.add_argument("--kv-pages", type=int, default=None,
+                    help="total pages in the pool (default: the flat pool's positions)")
+    sv.add_argument("--draft", default=None,
+                    help="draft model: per-row speculative decoding inside the batcher")
+    sv.add_argument("--spec-k", type=int, default=4)
     sv.add_argument("--tp", type=int, default=1, help="not ported")
     sv.set_defaults(fn=cmd_serve)
     i = sub.add_parser("info", help="inspect an artifact or an HF checkpoint directory")

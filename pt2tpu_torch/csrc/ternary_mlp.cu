@@ -28,6 +28,21 @@
 // lanes of columns 0..31 (the gated kernel's layout, kept: this kernel
 // serves the rows the decode and tensor-core paths do not take).
 //
+// The floor probe (impl="floor8"; pallas_ternary.py:_make_mlp_kernel with
+// a8mode "floor": _accumulate_step's floor branch for gate, up and down) is
+// the FLOOR instance, C entry pt2_ternary_mlp_floor, instantiated at TB = 8
+// only (a probe, not a route: fewer rows leave tile rows empty) and built
+// from csrc/ternary_mlp_floor.cu, which includes this file with
+// PT2_MLP_FLOOR defined (its instances and this file's 48 then compile in
+// parallel; together they were the longest build, 94 s): x is rounded
+// half to even and clipped to +-127 as it is staged (no row normalisation,
+// as the TPU kernel's MLP wrapper has none), every plane of a packed row
+// reads its raw signed byte b in place of its 2-bit field (W = alpha * b +
+// (mu - alpha), the same arithmetic), and mid is rounded and clipped the
+// same way. Outputs are wrong by design (ternary_mlp_floor_plain is the
+// contract); every product and block sum is an integer below 2^24, exact in
+// f32.
+//
 // Design. The TPU kernel walks the nv = half / 128 blocks of the
 // intermediate dimension as sequential grid steps and carries the output in
 // VMEM. On Hopper blocks run in no order, so one thread block owns one
@@ -92,7 +107,18 @@ __device__ __forceinline__ float act_fn(float g) {
   return fmaxf(g, 0.f);
 }
 
-template <int TB, bool GATHER, int ACT, bool GATED>
+// The floor's rounding: half to even (rintf, as jnp.round), clipped to +-127
+__device__ __forceinline__ float rounded(float f) { return fminf(fmaxf(rintf(f), -127.f), 127.f); }
+
+// Code p of byte j of w as a float: the 2-bit field u, or (FLOOR) the raw
+// signed byte for every plane
+template <bool FLOOR>
+__device__ __forceinline__ float code(uint32_t w, int j, int p) {
+  if (FLOOR) return (float)(int8_t)(w >> (8 * j));
+  return (float)((w >> (8 * j + 2 * p)) & 3u);
+}
+
+template <int TB, bool GATHER, int ACT, bool GATED, bool FLOOR>
 __global__ void __launch_bounds__(THREADS)
 ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
                    const int* __restrict__ perm,                // (Kg,) if GATHER
@@ -147,7 +173,7 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
           v = __bfloat162float(xr[kk]);
         }
       }
-      xs[b][k] = __float2bfloat16(v);  // exact: v is a bf16 value or 0
+      xs[b][k] = __float2bfloat16(FLOOR ? rounded(v) : v);  // exact: a bf16 value or 0
     }
     __syncthreads();
     for (int s = warp; s < TB * nblk; s += THREADS / 32) {
@@ -190,12 +216,12 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
           const int r = ty + TY * i;
 #pragma unroll
           for (int p = 0; p < 4; ++p) {
-            // alpha * u is exact (u in {0, 1, 2}), so alpha folds into the
-            // codes and no per-block partial sum is kept
+            // alpha * u is exact (u in {0, 1, 2}; the floor's bytes need 8
+            // bits), so alpha folds into the codes and no per-block partial
+            // sum is kept
             float au[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              au[j] = a[g][j] * (float)((w[g][i] >> (8 * j + 2 * p)) & 3u);
+            for (int j = 0; j < 4; ++j) au[j] = a[g][j] * code<FLOOR>(w[g][i], j, p);
 #pragma unroll
             for (int b = 0; b < TB; ++b) {
               const float xv = __bfloat162float(xs[b][blk * BS + p * BS4 + r]);
@@ -232,7 +258,8 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
     const int b = i / BS;
     const int c = i - b * BS;
     const float a = act_fn<ACT>(gu[b][c]);
-    mid[b][c] = __float2bfloat16(GATED ? a * gu[b][BS + c] : a);
+    const float v = GATED ? a * gu[b][BS + c] : a;
+    mid[b][c] = __float2bfloat16(FLOOR ? rounded(v) : v);
   }
   __syncthreads();
   if (warp < TB) {
@@ -267,7 +294,7 @@ ternary_mlp_kernel(const __nv_bfloat16* __restrict__ x,         // (B, m)
         for (int p = 0; p < 4; ++p) {
           float u[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) u[j] = (float)((w[r] >> (8 * j + 2 * p)) & 3u);
+          for (int j = 0; j < 4; ++j) u[j] = code<FLOOR>(w[r], j, p);
 #pragma unroll
           for (int b = 0; b < TB; ++b) {
             const float mv = __bfloat162float(mid[b][p * BS4 + r0 + r]);
@@ -303,7 +330,7 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[i] = t;
 }
 
-template <int TB, int ACT, bool GATED>
+template <int TB, int ACT, bool GATED, bool FLOOR>
 void launch(bool gather, const void* x, const void* perm, const void* gp,
             const void* ga, const void* gm, const void* dp, const void* da,
             const void* dm, void* partial, int B, int m, int Kg, int gu_n,
@@ -319,63 +346,55 @@ void launch(bool gather, const void* x, const void* perm, const void* gp,
   const __nv_bfloat16* dmp = static_cast<const __nv_bfloat16*>(dm);
   float* pp = static_cast<float*>(partial);
   if (gather)
-    ternary_mlp_kernel<TB, true, ACT, GATED><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, true, ACT, GATED, FLOOR><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
   else
-    ternary_mlp_kernel<TB, false, ACT, GATED><<<grid, THREADS, 0, s>>>(
+    ternary_mlp_kernel<TB, false, ACT, GATED, FLOOR><<<grid, THREADS, 0, s>>>(
         xp, ip, gpp, gap, gmp, dpp, dap, dmp, pp, B, m, Kg, gu_n, half, n);
 }
 
-template <int ACT, bool GATED>
+template <int ACT, bool GATED, bool FLOOR>
 void launch_rows(bool gather, const void* x, const void* perm, const void* gp,
                  const void* ga, const void* gm, const void* dp, const void* da,
                  const void* dm, void* partial, int B, int m, int Kg, int gu_n,
                  int half, int n, cudaStream_t s) {
-  if (B == 1)
-    launch<1, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+#define PT2_MLP_TB(TB_)                                                                     \
+  launch<TB_, ACT, GATED, FLOOR>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, \
+                                 gu_n, half, n, s)
+  if constexpr (FLOOR)
+    PT2_MLP_TB(8);
+  else if (B == 1)
+    PT2_MLP_TB(1);
   else if (B == 2)
-    launch<2, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    PT2_MLP_TB(2);
   else if (B <= 4)
-    launch<4, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    PT2_MLP_TB(4);
   else
-    launch<8, ACT, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    PT2_MLP_TB(8);
+#undef PT2_MLP_TB
 }
 
-template <bool GATED>
+template <bool GATED, bool FLOOR>
 void launch_act(int act, bool gather, const void* x, const void* perm, const void* gp,
                 const void* ga, const void* gm, const void* dp, const void* da, const void* dm,
                 void* partial, int B, int m, int Kg, int gu_n, int half, int n, cudaStream_t s) {
   if (act == 0)
-    launch_rows<0, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    launch_rows<0, GATED, FLOOR>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg,
+                                 gu_n, half, n, s);
   else if (act == 1)
-    launch_rows<1, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    launch_rows<1, GATED, FLOOR>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg,
+                                 gu_n, half, n, s);
   else
-    launch_rows<2, GATED>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg, gu_n,
-                          half, n, s);
+    launch_rows<2, GATED, FLOOR>(gather, x, perm, gp, ga, gm, dp, da, dm, partial, B, m, Kg,
+                                 gu_n, half, n, s);
 }
 
-}  // namespace
-
-// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
-// perm is null for the path without a gather. gu_n is 2 * half (gated: gate
-// lanes [0, half), then up) or half (ungated: up alone). partial is an
-// (nv, B, n) f32 workspace, nv = half / 128; out is (B, n) f32; act is 0
-// (silu), 1 (gelu, tanh form) or 2 (relu). Launches the MLP kernel and
-// the fixed-order sum of its partials on the caller's stream; returns
-// cudaGetLastError() after the launches, 0 meaning launched.
-extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
-                               const void* gu_packed, const void* gu_alpha,
-                               const void* gu_mu, const void* dn_packed,
-                               const void* dn_alpha, const void* dn_mu,
-                               void* partial, void* out, int B, int m, int Kg,
-                               int gu_n, int half, int Kd, int n, int act,
-                               int device, void* stream) {
+// Both C entries: the MLP kernel and the fixed-order sum of its partials.
+template <bool FLOOR>
+int run(const void* x, const void* perm, const void* gu_packed, const void* gu_alpha,
+        const void* gu_mu, const void* dn_packed, const void* dn_alpha, const void* dn_mu,
+        void* partial, void* out, int B, int m, int Kg, int gu_n, int half, int Kd, int n,
+        int act, int device, void* stream) {
   const bool gather = perm != nullptr;
   if (B < 1 || B > 64 || m < 1 || Kg < BS || Kg % BS != 0 || half < BS ||
       half % BS != 0 || (gu_n != 2 * half && gu_n != half) || half > Kd || Kd % BS != 0 ||
@@ -388,11 +407,11 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gu_n == 2 * half)
-    launch_act<true>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                     dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+    launch_act<true, FLOOR>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed,
+                            dn_alpha, dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   else
-    launch_act<false>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                      dn_mu, partial, B, m, Kg, gu_n, half, n, s);
+    launch_act<false, FLOOR>(act, gather, x, perm, gu_packed, gu_alpha, gu_mu, dn_packed,
+                             dn_alpha, dn_mu, partial, B, m, Kg, gu_n, half, n, s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int total = B * n;
@@ -401,3 +420,39 @@ extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
       total);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// C entry point bound with ctypes (pt2tpu_torch/ops/kernels/ternary.py).
+// perm is null for the path without a gather. gu_n is 2 * half (gated: gate
+// lanes [0, half), then up) or half (ungated: up alone). partial is an
+// (nv, B, n) f32 workspace, nv = half / 128; out is (B, n) f32; act is 0
+// (silu), 1 (gelu, tanh form) or 2 (relu). Launches the MLP kernel and
+// the fixed-order sum of its partials on the caller's stream; returns
+// cudaGetLastError() after the launches, 0 meaning launched.
+#ifndef PT2_MLP_FLOOR
+extern "C" int pt2_ternary_mlp(const void* x, const void* perm,
+                               const void* gu_packed, const void* gu_alpha,
+                               const void* gu_mu, const void* dn_packed,
+                               const void* dn_alpha, const void* dn_mu,
+                               void* partial, void* out, int B, int m, int Kg,
+                               int gu_n, int half, int Kd, int n, int act,
+                               int device, void* stream) {
+  return run<false>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, partial,
+                    out, B, m, Kg, gu_n, half, Kd, n, act, device, stream);
+}
+
+#else
+// The floor probe's MLP (impl="floor8"): as pt2_ternary_mlp, with x and mid
+// rounded and clipped to +-127 and every plane's code the raw signed byte of
+// its packed row (the header).
+extern "C" int pt2_ternary_mlp_floor(const void* x, const void* perm, const void* gu_packed,
+                                     const void* gu_alpha, const void* gu_mu,
+                                     const void* dn_packed, const void* dn_alpha,
+                                     const void* dn_mu, void* partial, void* out, int B, int m,
+                                     int Kg, int gu_n, int half, int Kd, int n, int act,
+                                     int device, void* stream) {
+  return run<true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, partial, out,
+                   B, m, Kg, gu_n, half, Kd, n, act, device, stream);
+}
+#endif

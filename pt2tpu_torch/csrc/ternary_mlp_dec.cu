@@ -19,6 +19,20 @@
 // picks by rows (k2_path in pt2tpu_torch/ops/kernels/ternary.py), never
 // after a failure.
 //
+// The floor probe (impl="floor8"; pallas_ternary.py:_make_mlp_kernel with
+// a8mode "floor", whose _accumulate_step takes its floor branch for gate,
+// up and down alike) is the FLOOR instance, C entries
+// pt2_ternary_mlp_dec_floor and pt2_ternary_mlp_dec_floor_ungated: x is
+// rounded half to even and clipped to +-127 as it is staged (no row
+// normalisation: the TPU kernel's MLP wrapper has none), every plane of a
+// packed row reads its raw signed byte b as the code T = b - 1 (the decode
+// kernel's raw_bf16x2, so the epilogue stays alpha * d + mu * S), mid is
+// rounded and clipped the same way before it is stored (an integer, exact in
+// bf16), and down is the decode kernel's own FLOOR instance (a8 mode 2) over
+// it. The same bytes, grid, splits and launches; outputs are wrong by design
+// (ternary_mlp_floor_plain is the contract). The block dots are integers
+// below 127 * 129 * 128 < 2^24, exact in f32.
+//
 // What bounds it: at <= 8 rows the MLP reads 0.25 B per weight of codes
 // plus 4 B per (block, column) of alpha and mu, and does 2 * 8 operations
 // per weight: device-memory bytes. The CUDA-core K2 (csrc/ternary_mlp.cu)
@@ -75,7 +89,7 @@ __device__ __forceinline__ float mlp_act(float g) {
 // half / 128]) writes mid for the pair's 128 lanes. Ungated, the last of
 // tile c's splits CTAs (counters[c]) writes mid for the tile's 128 lanes.
 // Either sets its counter back to 0.
-template <int ACT, bool GATED>
+template <int ACT, bool GATED, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 4)
 mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), feature order
                       const int* __restrict__ perm,             // (Kg,)
@@ -155,6 +169,11 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
           const uint32_t hi =
               (unsigned)idx[2 * k + 1] < (unsigned)m ? __ldg(xr + idx[2 * k + 1]) : 0u;
           w[k] = lo | (hi << 16);
+          if constexpr (FLOOR) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+            const __nv_bfloat162 q = __floats2bfloat162_rn(rounded(f.x), rounded(f.y));
+            w[k] = *reinterpret_cast<const uint32_t*>(&q);  // exact: integers <= 127
+          }
         }
         dst[16 * row] = w[0];
         dst[16 * row + 4] = w[1];
@@ -196,12 +215,19 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
         const uint32_t wl = __byte_perm(word(v[q][0], j >> 2), word(v[q][1], j >> 2), sel);
         const uint32_t wh =
             __byte_perm(word(v[q][0], 2 + (j >> 2)), word(v[q][1], 2 + (j >> 2)), sel);
-        const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh), codes_bf16x2<1>(wl),
-                                 codes_bf16x2<1>(wh)};
-        mma_bf16(d[j], a01, b.x, b.y);
-        const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh), codes_bf16x2<3>(wl),
-                                 codes_bf16x2<3>(wh)};
-        mma_bf16(d[j], a23, b.z, b.w);
+        if constexpr (FLOOR) {  // every plane reads the raw byte
+          const uint32_t rl = raw_bf16x2(wl), rh = raw_bf16x2(wh);
+          const uint32_t raw[4] = {rl, rh, rl, rh};
+          mma_bf16(d[j], raw, b.x, b.y);
+          mma_bf16(d[j], raw, b.z, b.w);
+        } else {
+          const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh), codes_bf16x2<1>(wl),
+                                   codes_bf16x2<1>(wh)};
+          mma_bf16(d[j], a01, b.x, b.y);
+          const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh), codes_bf16x2<3>(wl),
+                                   codes_bf16x2<3>(wh)};
+          mma_bf16(d[j], a23, b.z, b.w);
+        }
       }
     }
     // the block is complete: acc += alpha * d + mu * S
@@ -283,6 +309,8 @@ mlp_dec_gateup_kernel(const __nv_bfloat16* __restrict__ x,      // (B, m), featu
       }
       v = make_float4(v.x * us.x, v.y * us.y, v.z * us.z, v.w * us.w);
     }
+    if constexpr (FLOOR)  // the floor's mid: rounded and clipped, exact in bf16
+      v = make_float4(rounded(v.x), rounded(v.y), rounded(v.z), rounded(v.w));
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
     uint2 w;
@@ -302,8 +330,8 @@ int dec_slice_blocks(int nb, int splits) {
   return (splits - 1) * bpc < nb && bpc * MBS <= MAX_SLICE ? bpc : 0;
 }
 
-// The two launches of both C entries (arguments as they state).
-template <bool GATED>
+// The two launches of the C entries (arguments as they state).
+template <bool GATED, bool FLOOR = false>
 int run(const void* x, const void* perm, const void* gu_packed, const void* gu_alpha,
         const void* gu_mu, const void* dn_packed, const void* dn_alpha, const void* dn_mu,
         void* gu_partial, void* dn_partial, void* mid, void* out, void* counters, int B, int m,
@@ -345,18 +373,18 @@ int run(const void* x, const void* perm, const void* gu_packed, const void* gu_a
   __nv_bfloat16* md = static_cast<__nv_bfloat16*>(mid);
   int* cp = static_cast<int*>(counters);
   if (act == 0)
-    mlp_dec_gateup_kernel<0, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
-                                                                B, m, Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<0, GATED, FLOOR><<<grid, THREADS, smem, s>>>(
+        xp, pm, gp, ga, gm, part, md, cp, B, m, Kg, half, gu_bpc);
   else if (act == 1)
-    mlp_dec_gateup_kernel<1, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
-                                                                B, m, Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<1, GATED, FLOOR><<<grid, THREADS, smem, s>>>(
+        xp, pm, gp, ga, gm, part, md, cp, B, m, Kg, half, gu_bpc);
   else
-    mlp_dec_gateup_kernel<2, GATED><<<grid, THREADS, smem, s>>>(xp, pm, gp, ga, gm, part, md, cp,
-                                                                B, m, Kg, half, gu_bpc);
+    mlp_dec_gateup_kernel<2, GATED, FLOOR><<<grid, THREADS, smem, s>>>(
+        xp, pm, gp, ga, gm, part, md, cp, B, m, Kg, half, gu_bpc);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch<false>(mid, nullptr, dn_packed, dn_alpha, dn_mu, dn_partial, out, counters, B,
-                       half, half, n, MBS, dn_splits, 0, device, stream);
+                       half, half, n, MBS, dn_splits, FLOOR ? 2 : 0, device, stream);
 }
 
 }  // namespace
@@ -403,4 +431,32 @@ extern "C" int pt2_ternary_mlp_dec_ungated(const void* x, const void* perm, cons
   return run<false>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, gu_partial,
                     dn_partial, mid, out, counters, B, m, Kg, half, n, gu_splits, dn_splits, act,
                     device, stream);
+}
+
+// The floor probe's MLP (impl="floor8"): as pt2_ternary_mlp_dec and
+// pt2_ternary_mlp_dec_ungated, with x and mid rounded and clipped to +-127
+// and every plane's code the raw signed byte of its packed row (the header).
+extern "C" int pt2_ternary_mlp_dec_floor(const void* x, const void* perm, const void* gu_packed,
+                                         const void* gu_alpha, const void* gu_mu,
+                                         const void* dn_packed, const void* dn_alpha,
+                                         const void* dn_mu, void* gu_partial, void* dn_partial,
+                                         void* mid, void* out, void* counters, int B, int m,
+                                         int Kg, int half, int n, int gu_splits, int dn_splits,
+                                         int act, int device, void* stream) {
+  return run<true, true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
+                         gu_partial, dn_partial, mid, out, counters, B, m, Kg, half, n, gu_splits,
+                         dn_splits, act, device, stream);
+}
+
+extern "C" int pt2_ternary_mlp_dec_floor_ungated(const void* x, const void* perm,
+                                                 const void* gu_packed, const void* gu_alpha,
+                                                 const void* gu_mu, const void* dn_packed,
+                                                 const void* dn_alpha, const void* dn_mu,
+                                                 void* gu_partial, void* dn_partial, void* mid,
+                                                 void* out, void* counters, int B, int m, int Kg,
+                                                 int half, int n, int gu_splits, int dn_splits,
+                                                 int act, int device, void* stream) {
+  return run<false, true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
+                          gu_partial, dn_partial, mid, out, counters, B, m, Kg, half, n,
+                          gu_splits, dn_splits, act, device, stream);
 }

@@ -18,6 +18,19 @@
 // instance of the gate/up product, C entry pt2_ternary_mlp_tc_ungated: one
 // up product whose epilogue applies the activation (below).
 //
+// The floor probe (impl="floor8"; pallas_ternary.py:_make_mlp_kernel with
+// a8mode "floor": _accumulate_step's floor branch for gate, up and down) is
+// the FLOOR instance, C entries pt2_ternary_mlp_tc_floor and
+// pt2_ternary_mlp_tc_floor_ungated: K3's gather rounds x half to even and
+// clips it to +-127 (its W2A8 mode; no row normalisation, as the TPU
+// kernel's MLP wrapper has none), the gate/up product reads the raw signed
+// byte b of a packed row as the code of all four of its planes (T = b - 1,
+// raw_bf16x2, so the epilogue stays alpha * d + mu * S), the epilogue rounds
+// and clips mid the same way (an integer, exact in bf16; its block sums are
+// exact), and down is K3's FLOOR product over it. The same bytes, grid and
+// launches; outputs are wrong by design (ternary_mlp_floor_plain is the
+// contract).
+//
 // What bounds it: at 64 rows a llama-3-8b MLP reads 49.6 MB of codes and
 // scales and does 22.5 GFLOP, 454 operations per byte, above the card's
 // bf16 line (295): the dots must run on the tensor cores. At 16 rows (114
@@ -103,7 +116,7 @@ __device__ __forceinline__ float mlp_act(float g) {
 // writes mid = bf16(act(up)) for them, msums[2c] and msums[2c + 1] the sums
 // of its two 64-lane halves and msums[half / 64 + c] their sum, with no
 // pair counter.
-template <int NT, int ACT, bool GATED>
+template <int NT, int ACT, bool GATED, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 2)
 mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragment order
                   const float* __restrict__ sums,           // (Kg / 128, Bp)
@@ -195,10 +208,17 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
       const unsigned char* r0 = pc + (8 * q + 2 * t) * PSTRIDE;
       const uint32_t wl = (uint32_t)r0[0] | ((uint32_t)r0[PSTRIDE] << 16);
       const uint32_t wh = (uint32_t)r0[MCOLS] | ((uint32_t)r0[PSTRIDE + MCOLS] << 16);
-      const uint32_t a01[4] = {codes_bf16x2<0>(wl), codes_bf16x2<0>(wh), codes_bf16x2<1>(wl),
-                               codes_bf16x2<1>(wh)};
-      const uint32_t a23[4] = {codes_bf16x2<2>(wl), codes_bf16x2<2>(wh), codes_bf16x2<3>(wl),
-                               codes_bf16x2<3>(wh)};
+      uint32_t a01[4], a23[4];
+      if constexpr (FLOOR) {  // every plane reads the raw byte
+        const uint32_t rl = raw_bf16x2(wl), rh = raw_bf16x2(wh);
+        a01[0] = a23[0] = a01[2] = a23[2] = rl;
+        a01[1] = a23[1] = a01[3] = a23[3] = rh;
+      } else {
+        a01[0] = codes_bf16x2<0>(wl), a01[1] = codes_bf16x2<0>(wh);
+        a01[2] = codes_bf16x2<1>(wl), a01[3] = codes_bf16x2<1>(wh);
+        a23[0] = codes_bf16x2<2>(wl), a23[1] = codes_bf16x2<2>(wh);
+        a23[2] = codes_bf16x2<3>(wl), a23[3] = codes_bf16x2<3>(wh);
+      }
       const int chunk = (4 * q + t) ^ ((g & 1) << 2);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -276,7 +296,8 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16 v = __float2bfloat16(mlp_act<ACT>(acc[nt][2 * h + i]));
+          const float a = mlp_act<ACT>(acc[nt][2 * h + i]);
+          const __nv_bfloat16 v = __float2bfloat16(FLOOR ? rounded(a) : a);
           mp[(size_t)(nt * 8 + 2 * t + i) * half] = v;
           rs[nt][i] = __bfloat162float(v);
         }
@@ -313,7 +334,8 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat16 v = __float2bfloat16(mlp_act<ACT>(acc[nt][i]) * acc[nt][2 + i]);
+      const float a = mlp_act<ACT>(acc[nt][i]) * acc[nt][2 + i];
+      const __nv_bfloat16 v = __float2bfloat16(FLOOR ? rounded(a) : a);
       mp[(size_t)(nt * 8 + 2 * t + i) * half] = v;
       rs[nt][i] = __bfloat162float(v);
     }
@@ -348,16 +370,16 @@ mlp_gateup_kernel(const __nv_bfloat16* __restrict__ xg,     // (Bp, Kg), fragmen
   if (tid == 0) counters[bc] = 0;
 }
 
-template <int NT, int ACT, bool GATED>
+template <int NT, int ACT, bool GATED, bool FLOOR>
 int launch_gateup(const void* xg, const void* sums, const void* packed, const void* alpha,
                   const void* mu, void* partial, void* mid, void* msums, void* counters, int Kg,
                   int half, int splits, int bpc, cudaStream_t s) {
   const cudaError_t e =
-      cudaFuncSetAttribute(mlp_gateup_kernel<NT, ACT, GATED>,
+      cudaFuncSetAttribute(mlp_gateup_kernel<NT, ACT, GATED, FLOOR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<NT>::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(GATED ? half / MCOLS : half / MBS, splits);
-  mlp_gateup_kernel<NT, ACT, GATED><<<grid, THREADS, Stage<NT>::SMEM, s>>>(
+  mlp_gateup_kernel<NT, ACT, GATED, FLOOR><<<grid, THREADS, Stage<NT>::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(xg), static_cast<const float*>(sums),
       static_cast<const int8_t*>(packed), static_cast<const __nv_bfloat16*>(alpha),
       static_cast<const __nv_bfloat16*>(mu), static_cast<float*>(partial),
@@ -366,18 +388,19 @@ int launch_gateup(const void* xg, const void* sums, const void* packed, const vo
   return (int)cudaGetLastError();
 }
 
-template <int NT, bool GATED>
+template <int NT, bool GATED, bool FLOOR>
 int launch_gateup_act(int act, const void* xg, const void* sums, const void* packed,
                       const void* alpha, const void* mu, void* partial, void* mid, void* msums,
                       void* counters, int Kg, int half, int splits, int bpc, cudaStream_t s) {
-  if (act == 0)
-    return launch_gateup<NT, 0, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums,
-                                       counters, Kg, half, splits, bpc, s);
-  if (act == 1)
-    return launch_gateup<NT, 1, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums,
-                                       counters, Kg, half, splits, bpc, s);
-  return launch_gateup<NT, 2, GATED>(xg, sums, packed, alpha, mu, partial, mid, msums, counters,
-                                     Kg, half, splits, bpc, s);
+#define PT2_MLP_TC_ACT(A_)                                                                      \
+  if (act == A_)                                                                                  \
+    return launch_gateup<NT, A_, GATED, FLOOR>(xg, sums, packed, alpha, mu, partial, mid, msums, \
+                                               counters, Kg, half, splits, bpc, s);
+  PT2_MLP_TC_ACT(0)
+  PT2_MLP_TC_ACT(1)
+  PT2_MLP_TC_ACT(2)
+#undef PT2_MLP_TC_ACT
+  return (int)cudaErrorInvalidValue;
 }
 
 // The blocks per slice for `splits` slices of nb blocks, or 0 where that
@@ -388,8 +411,8 @@ int slice_blocks(int nb, int splits) {
   return (splits - 1) * bpc < nb ? bpc : 0;
 }
 
-// The three launches of both C entries (arguments as they state).
-template <bool GATED>
+// The three launches of the C entries (arguments as they state).
+template <bool GATED, bool FLOOR = false>
 int run(const void* x, const void* perm, const void* gu_packed, const void* gu_alpha,
         const void* gu_mu, const void* dn_packed, const void* dn_alpha, const void* dn_mu,
         void* xg, void* sums, void* gu_partial, void* mid, void* mid_sums, void* dn_partial,
@@ -417,29 +440,25 @@ int run(const void* x, const void* perm, const void* gu_packed, const void* gu_a
   rc = set_device(device);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = launch_gather(x, perm, xg, sums, B, Bp, m, Kg, MBS, 0, s);
+  rc = launch_gather(x, perm, xg, sums, B, Bp, m, Kg, MBS, FLOOR ? 1 : 0, s);
   if (rc != 0) return rc;
   float* ms = static_cast<float*>(mid_sums);
   const float* block_sums = ms + (size_t)(half / MCOLS) * Bp;
+#define PT2_MLP_TC_ROWS(NT_)                                                                   \
+  rc = launch_gateup_act<NT_, GATED, FLOOR>(act, xg, sums, gu_packed, gu_alpha, gu_mu,           \
+                                            gu_partial, mid, ms, counters, Kg, half, gu_splits,  \
+                                            gu_bpc, s);                                          \
+  if (rc != 0) return rc;                                                                       \
+  return launch_product<NT_, FLOOR>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial,    \
+                                    out, counters, B, half, n, MBS, dn_splits, dn_bpc, s);
   if (Bp == 16) {
-    rc = launch_gateup_act<2, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid,
-                                     ms, counters, Kg, half, gu_splits, gu_bpc, s);
-    if (rc != 0) return rc;
-    return launch_product<2>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
-                             counters, B, half, n, MBS, dn_splits, dn_bpc, s);
+    PT2_MLP_TC_ROWS(2)
   }
   if (Bp == 32) {
-    rc = launch_gateup_act<4, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid,
-                                     ms, counters, Kg, half, gu_splits, gu_bpc, s);
-    if (rc != 0) return rc;
-    return launch_product<4>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
-                             counters, B, half, n, MBS, dn_splits, dn_bpc, s);
+    PT2_MLP_TC_ROWS(4)
   }
-  rc = launch_gateup_act<8, GATED>(act, xg, sums, gu_packed, gu_alpha, gu_mu, gu_partial, mid, ms,
-                                   counters, Kg, half, gu_splits, gu_bpc, s);
-  if (rc != 0) return rc;
-  return launch_product<8>(mid, block_sums, dn_packed, dn_alpha, dn_mu, dn_partial, out,
-                           counters, B, half, n, MBS, dn_splits, dn_bpc, s);
+  PT2_MLP_TC_ROWS(8)
+#undef PT2_MLP_TC_ROWS
 }
 
 }  // namespace
@@ -490,4 +509,34 @@ extern "C" int pt2_ternary_mlp_tc_ungated(const void* x, const void* perm, const
   return run<false>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, xg, sums,
                     gu_partial, mid, mid_sums, dn_partial, out, counters, B, m, Kg, half, n,
                     gu_splits, dn_splits, act, device, stream);
+}
+
+// The floor probe's MLP (impl="floor8"): as pt2_ternary_mlp_tc and
+// pt2_ternary_mlp_tc_ungated, with x and mid rounded and clipped to +-127
+// and every plane's code the raw signed byte of its packed row (the header).
+extern "C" int pt2_ternary_mlp_tc_floor(const void* x, const void* perm, const void* gu_packed,
+                                        const void* gu_alpha, const void* gu_mu,
+                                        const void* dn_packed, const void* dn_alpha,
+                                        const void* dn_mu, void* xg, void* sums,
+                                        void* gu_partial, void* mid, void* mid_sums,
+                                        void* dn_partial, void* out, void* counters, int B, int m,
+                                        int Kg, int half, int n, int gu_splits, int dn_splits,
+                                        int act, int device, void* stream) {
+  return run<true, true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, xg,
+                         sums, gu_partial, mid, mid_sums, dn_partial, out, counters, B, m, Kg,
+                         half, n, gu_splits, dn_splits, act, device, stream);
+}
+
+extern "C" int pt2_ternary_mlp_tc_floor_ungated(const void* x, const void* perm,
+                                                const void* gu_packed, const void* gu_alpha,
+                                                const void* gu_mu, const void* dn_packed,
+                                                const void* dn_alpha, const void* dn_mu, void* xg,
+                                                void* sums, void* gu_partial, void* mid,
+                                                void* mid_sums, void* dn_partial, void* out,
+                                                void* counters, int B, int m, int Kg, int half,
+                                                int n, int gu_splits, int dn_splits, int act,
+                                                int device, void* stream) {
+  return run<false, true>(x, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, xg,
+                          sums, gu_partial, mid, mid_sums, dn_partial, out, counters, B, m, Kg,
+                          half, n, gu_splits, dn_splits, act, device, stream);
 }

@@ -432,12 +432,7 @@ def ternary_mlp_plain(
     mlp_act_code(act)
     Kg, half, nv, _, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
                                          intermediate, block_size)
-    if gu_perm is not None:
-        xg = onehot_gather_plain(x, gu_perm)
-    else:
-        if x.shape[-1] > Kg:
-            raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
-        xg = F.pad(x, (0, Kg - x.shape[-1]))
+    xg = _mlp_input(x, gu_perm, Kg)
     bs = block_size
     if gated:
         gate = ternary_matmul_plain(xg, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half],
@@ -449,6 +444,54 @@ def ternary_mlp_plain(
         mid = mlp_activation(act, ternary_matmul_plain(xg, gu_packed, gu_alpha, gu_mu, bs)).to(
             x.dtype)
     return ternary_matmul_plain(mid, dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
+
+
+def _mlp_input(x: torch.Tensor, gu_perm: Optional[torch.Tensor], Kg: int) -> torch.Tensor:
+    """K2's gateup input: x gathered through ``gu_perm``, or zero-padded to
+    the Kg lanes of the layout without a gather."""
+    if gu_perm is not None:
+        return onehot_gather_plain(x, gu_perm)
+    if x.shape[-1] > Kg:
+        raise ValueError(f"x width {x.shape[-1]} exceeds lane count {Kg}")
+    return F.pad(x, (0, Kg - x.shape[-1]))
+
+
+def ternary_mlp_floor_plain(
+    x: torch.Tensor,  # (B, m) post-norm hidden, feature order
+    gu_perm: Optional[torch.Tensor],
+    gu_packed: torch.Tensor,
+    gu_alpha: torch.Tensor,
+    gu_mu: torch.Tensor,
+    dn_packed: torch.Tensor,
+    dn_alpha: torch.Tensor,
+    dn_mu: torch.Tensor,
+    intermediate: int,
+    block_size: int = 128,
+    act: str = "silu",
+) -> torch.Tensor:
+    """K2's floor probe (``ternary_mlp_pallas`` / ``_stacked`` with
+    ``a8="floor"``, reached by ``fused_mlp_apply(..., impl="floor8")``), (B,
+    m) -> (B, n) f32: the layout of :func:`ternary_mlp_plain`, with
+    ``_accumulate_step``'s floor branch for gate, up and down alike. The
+    gathered (or zero-padded) x is rounded half to even and clipped to +-127,
+    with no row normalisation (the TPU kernel's MLP wrapper has none); gate
+    and up are :func:`_floor_plain`'s products of it (the raw packed bytes
+    replicated to the block's depth, times alpha, plus the block sums times
+    mu - alpha); mid = act(gate) * up (ungated: act(up)) in f32 is rounded
+    and clipped the same way, and down takes the same product of it. Wrong
+    by design: the 2-bit unpack is skipped."""
+    mlp_act_code(act)
+    Kg, half, nv, _, gated = _mlp_shapes(gu_packed, gu_alpha, dn_packed, dn_alpha,
+                                         intermediate, block_size)
+    xq = _rounded(_mlp_input(x, gu_perm, Kg))
+    bs = block_size
+    if gated:
+        gate = _floor_plain(xq, gu_packed[:, :half], gu_alpha[:, :half], gu_mu[:, :half], bs)
+        up = _floor_plain(xq, gu_packed[:, half:], gu_alpha[:, half:], gu_mu[:, half:], bs)
+        mid = mlp_activation(act, gate) * up
+    else:
+        mid = mlp_activation(act, _floor_plain(xq, gu_packed, gu_alpha, gu_mu, bs))
+    return _floor_plain(_rounded(mid), dn_packed[: half // 4], dn_alpha[:nv], dn_mu[:nv], bs)
 
 
 K1_TC_MIN_ROWS = 9
@@ -1117,6 +1160,7 @@ _igtc_lib = None
 _tc_lib = None
 _tc_a8_lib = None
 _mlp_lib = None
+_mlp_floor_lib = None
 _mlp_tc_lib = None
 _mlp_dec_lib = None
 _gathered_lib = None
@@ -1211,11 +1255,23 @@ def _mlp_kernel_lib():
     return _mlp_lib
 
 
+def _mlp_floor_kernel_lib():
+    global _mlp_floor_lib
+    if _mlp_floor_lib is None:
+        lib = _build.load("ternary_mlp_floor")
+        fn = lib.pt2_ternary_mlp_floor
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _mlp_floor_lib = lib
+    return _mlp_floor_lib
+
+
 def _mlp_tc_kernel_lib():
     global _mlp_tc_lib
     if _mlp_tc_lib is None:
         lib = _build.load("ternary_mlp_tc")
-        for fn in (lib.pt2_ternary_mlp_tc, lib.pt2_ternary_mlp_tc_ungated):
+        for fn in (lib.pt2_ternary_mlp_tc, lib.pt2_ternary_mlp_tc_ungated,
+                   lib.pt2_ternary_mlp_tc_floor, lib.pt2_ternary_mlp_tc_floor_ungated):
             fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _mlp_tc_lib = lib
@@ -1226,7 +1282,8 @@ def _mlp_dec_kernel_lib():
     global _mlp_dec_lib
     if _mlp_dec_lib is None:
         lib = _build.load("ternary_mlp_dec")
-        for fn in (lib.pt2_ternary_mlp_dec, lib.pt2_ternary_mlp_dec_ungated):
+        for fn in (lib.pt2_ternary_mlp_dec, lib.pt2_ternary_mlp_dec_ungated,
+                   lib.pt2_ternary_mlp_dec_floor, lib.pt2_ternary_mlp_dec_floor_ungated):
             fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _mlp_dec_lib = lib
@@ -2098,6 +2155,7 @@ def ternary_mlp(
     intermediate: int,
     block_size: int = 128,
     act: str = "silu",
+    a8=False,
 ) -> torch.Tensor:
     """The whole MLP, (B, m) -> (B, n) f32, gated (gateup 2 x half wide) or
     ungated (gateup up alone, I or more wide; see :func:`_mlp_shapes`), with
@@ -2115,11 +2173,20 @@ def ternary_mlp(
     ``ternary_mlp.launches_tc``, GeGLU also in ``ternary_mlp.launches_gelu``,
     the ungated MLP also in ``ternary_mlp.launches_ungated``; the decode
     path's down launch is not one of ``ternary_matmul``'s). CPU: the plain
-    version."""
+    version.
+
+    ``a8`` False, or :data:`FLOOR` (``ternary_mlp_pallas``'s ``a8="floor"``,
+    the only W2A8 mode of the TPU kernel): the floor probe
+    (:func:`ternary_mlp_floor_plain`) in each path's FLOOR instance, also
+    counted in ``ternary_mlp.launches_floor``."""
     code = mlp_act_code(act)
+    if a8 is not False and a8 != FLOOR:
+        raise ValueError(f"K2's a8 is False or {FLOOR!r}, got {a8!r}")
+    floor = a8 == FLOOR
     if x.device.type == "cpu":
-        return ternary_mlp_plain(x, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha,
-                                 dn_mu, intermediate, block_size, act)
+        plain = ternary_mlp_floor_plain if floor else ternary_mlp_plain
+        return plain(x, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
+                     intermediate, block_size, act)
     if x.device.type != "cuda":
         raise ValueError(f"no K2 for device {x.device}")
     if x.dim() != 2 or not 1 <= x.shape[0] <= 64:
@@ -2153,15 +2220,16 @@ def ternary_mlp(
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     if path == "dec":
         _ternary_mlp_dec(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
-                         out, half, code, gated)
+                         out, half, code, gated, floor)
         ternary_mlp.launches_dec += 1
     elif path == "tc":
         _ternary_mlp_tc(xk, gu_perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu,
-                        out, half, code, gated)
+                        out, half, code, gated, floor)
         ternary_mlp.launches_tc += 1
     else:
         partial = torch.empty((nv, B, n), dtype=torch.float32, device=x.device)
-        rc = _mlp_kernel_lib().pt2_ternary_mlp(
+        rc = (_mlp_floor_kernel_lib().pt2_ternary_mlp_floor if floor
+              else _mlp_kernel_lib().pt2_ternary_mlp)(
             xk.data_ptr(), None if gu_perm is None else gu_perm.data_ptr(),
             gu_packed.data_ptr(), gu_alpha.data_ptr(), gu_mu.data_ptr(),
             dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
@@ -2173,10 +2241,12 @@ def ternary_mlp(
     ternary_mlp.launches += 1
     ternary_mlp.launches_gelu += act == "gelu"
     ternary_mlp.launches_ungated += not gated
+    ternary_mlp.launches_floor += floor
     return out
 
 
 ternary_mlp.launches = 0
+ternary_mlp.launches_floor = 0
 ternary_mlp.launches_dec = 0
 ternary_mlp.launches_tc = 0
 ternary_mlp.launches_gelu = 0
@@ -2198,7 +2268,7 @@ def _identity_perm(Kg: int, device) -> torch.Tensor:
 
 
 def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
-                    code, gated=True):
+                    code, gated=True, floor=False):
     """K2's tensor-core path (``pt2_ternary_mlp_tc``, ungated
     ``pt2_ternary_mlp_tc_ungated``): K3's gather into a (Bp, Kg) bf16
     scratch and its block sums (through the identity perm without a gather),
@@ -2208,8 +2278,9 @@ def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, d
     the card's wave with its (splits, ., .) f32 partials; all scratch is
     allocated here, the counters are the stream's (shared with K1's and
     K3's split-K paths). xk is bf16 x (B, m); perm is read as 8-byte vectors
-    (a copy if it is not 16-byte aligned). Writes out; a launch that fails
-    raises."""
+    (a copy if it is not 16-byte aligned). ``floor``: the FLOOR instances
+    (``pt2_ternary_mlp_tc_floor`` / ``_floor_ungated``). Writes out; a launch
+    that fails raises."""
     B, m = xk.shape
     Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
     gu_n = 2 * half if gated else half
@@ -2232,8 +2303,9 @@ def _ternary_mlp_tc(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, d
     dn_partial = torch.empty((dn_splits, B, n), **f32) if dn_splits > 1 else None
     counters = _dec_counter_buffer(xk.device, stream, max(half // 64 + half // 128, n // 128),
                                    "K2's tensor-core path")
-    lib = _mlp_tc_kernel_lib()
-    rc = (lib.pt2_ternary_mlp_tc if gated else lib.pt2_ternary_mlp_tc_ungated)(
+    entry = getattr(_mlp_tc_kernel_lib(), "pt2_ternary_mlp_tc" + ("_floor" if floor else "")
+                    + ("" if gated else "_ungated"))
+    rc = entry(
         xk.data_ptr(), perm.data_ptr(), gu_packed.data_ptr(), gu_alpha.data_ptr(),
         gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(), dn_mu.data_ptr(),
         xg.data_ptr(), sums.data_ptr(), None if gu_partial is None else gu_partial.data_ptr(),
@@ -2281,15 +2353,16 @@ def _mlp_dec_plan(xk, stream, device, Kg, half, n, gated=True):
 
 
 def _ternary_mlp_dec(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, dn_mu, out, half,
-                     code, gated=True):
+                     code, gated=True, floor=False):
     """K2's decode path (``pt2_ternary_mlp_dec``, ungated
     ``pt2_ternary_mlp_dec_ungated``): the decode GEMV over gateup with x
     staged through perm (the identity perm without a gather) and the gated
     epilogue (ungated: act(up)), then K1's decode kernel over mid, each over
     dec_splits K slices of the card's wave, with the stream's scratch and
     counters (:func:`_mlp_dec_plan`). xk is bf16 x (B, m); perm is read as
-    16-byte vectors (a copy if it is not aligned so). Writes out; a launch
-    that fails raises."""
+    16-byte vectors (a copy if it is not aligned so). ``floor``: the FLOOR
+    instances (``pt2_ternary_mlp_dec_floor`` / ``_floor_ungated``). Writes
+    out; a launch that fails raises."""
     B, m = xk.shape
     Kg, n = gu_packed.shape[0] * 4, dn_packed.shape[1]
     if perm is not None and perm.data_ptr() % 16:
@@ -2297,8 +2370,9 @@ def _ternary_mlp_dec(xk, perm, gu_packed, gu_alpha, gu_mu, dn_packed, dn_alpha, 
     device, stream = _device_and_stream(xk)
     gu_splits, dn_splits, gu_part, dn_part, mid, counters, ident, _ = _mlp_dec_plan(
         xk, stream, device, Kg, half, n, gated)
-    lib = _mlp_dec_kernel_lib()
-    rc = (lib.pt2_ternary_mlp_dec if gated else lib.pt2_ternary_mlp_dec_ungated)(
+    entry = getattr(_mlp_dec_kernel_lib(), "pt2_ternary_mlp_dec" + ("_floor" if floor else "")
+                    + ("" if gated else "_ungated"))
+    rc = entry(
         xk.data_ptr(), ident if perm is None else perm.data_ptr(), gu_packed.data_ptr(),
         gu_alpha.data_ptr(), gu_mu.data_ptr(), dn_packed.data_ptr(), dn_alpha.data_ptr(),
         dn_mu.data_ptr(), gu_part, dn_part, mid, out.data_ptr(), counters, B, m, Kg, half, n,

@@ -415,18 +415,24 @@ def fused_mlp_apply(
     act: str,
     layer_idx: Optional[int] = None,
     out_dtype=None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """One-call MLP: (..., m) -> (..., n) through K2 (its plain version on
     the CPU), with ``act`` silu, gelu (tanh form) or relu; an ungated
     gateup (up alone) goes through K2's ungated mode as it is. The caller
-    has checked :func:`fused_mlp_ok`."""
+    has checked :func:`fused_mlp_ok`. ``impl`` only tells the floor probe
+    apart, as JAX's: ``"floor8"`` runs K2's floor mode
+    (``kernels.ternary.ternary_mlp_floor_plain``; no route picks it, since
+    :func:`fused_mlp_ok` answers False for any impl but "auto"); every other
+    value computes the bf16 MLP."""
     if layer_idx is not None and gu.packed.dim() == 3:
         gu, dn = gu.layer(layer_idx), dn.layer(layer_idx)
     out_dtype = out_dtype or x.dtype
     x2 = x.reshape(-1, x.shape[-1])
     has_gather = not (gu.identity_perm or gu.input_folded)
+    floor = {"a8": FLOOR} if impl == "floor8" else {}  # the bf16 MLP's call unchanged
     out = ternary_mlp(
         x2, gu.perm if has_gather else None, gu.packed, gu.alpha, gu.mu,
-        dn.packed, dn.alpha, dn.mu, intermediate=dn.in_features, act=act,
+        dn.packed, dn.alpha, dn.mu, intermediate=dn.in_features, act=act, **floor,
     )
     return out.to(out_dtype).reshape(*x.shape[:-1], dn.out_features)

@@ -1,5 +1,6 @@
-"""KV cache, lockstep generation (greedy or sampled, flat or ring caches) and
-the continuous-batching serving stack. The sampled lockstep decode is
+"""KV cache, lockstep generation (greedy or sampled, flat or ring caches,
+speculative) and the continuous-batching serving stack (flat, ring or paged
+pools; a draft model). The sampled lockstep decode is
 ``serve.generate.generate`` (the name ``generate`` here is its module)."""
 
 from .engine import Request, ServeEngine, load_engine_state, save_engine_state
@@ -8,6 +9,7 @@ from .kvcache import KVCache, init_cache
 from .ring import RingCaches, init_ring_caches, make_ring_engine_fns, ring_generate
 from .sampling import SamplingConfig, filtered_logits, sample, sample_per_row
 from .server import ServingServer
+from .speculative import SpecStats, speculative_generate
 
 __all__ = [
     "chunked_prefill",
@@ -27,6 +29,8 @@ __all__ = [
     "Request",
     "ServeEngine",
     "ServingServer",
+    "SpecStats",
+    "speculative_generate",
     "save_engine_state",
     "load_engine_state",
 ]

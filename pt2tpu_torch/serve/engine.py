@@ -26,6 +26,12 @@ cache writes once a stale position passes the end of the cache; here their
 positions are clamped to the last slot, which an active row never reaches
 before it retires, so active rows' results are unchanged.
 
+Speculative decoding (``draft=(cfg_d, params_d)``, ``spec_k``): a draft pool
+of the target's geometry (bf16) mirrors the target's; each step drafts
+``spec_k`` tokens per row and verifies them in one (B, spec_k + 1) per-row
+target forward (:func:`_spec_decode_step`), so rows advance 1 .. spec_k + 1
+tokens each. Greedy rows are token-exact against the plain engine.
+
 Strategy overrides (JAX's contracts): ``prefill_fn(cfg, params, prompt,
 true_len, cache, slot, impl[, samp]) -> (token, cache)``,
 ``decode_fn(cfg, params, tokens, cache, positions, active, impl[, samp]) ->
@@ -35,12 +41,12 @@ opaque state, and snapshots it through its ``leaves()``. The default fns
 take any pool that also has ``prefill_view`` and ``decode_views``
 (``serve.kvcache.KVCache``; ``serve.ring.RingCaches``, window-sized ring
 pools on sliding layers, which ``serve.ring.make_ring_engine_fns`` plugs
-in). ``samp`` is passed only when a row samples; the port's
-is host values (default prefill: (seed, uid, SamplingConfig); decode:
-(seed, uids, temps, top_ks, top_ps)).
+in; ``serve.paged.PagedServeEngine`` plugs in a paged pool). ``samp`` is
+passed only when a row samples; the port's is host values (default prefill:
+(seed, uid, SamplingConfig); decode: (seed, uids, temps, top_ks, top_ps)).
 
-Not ported (they raise ``NotImplementedError``): speculative decoding
-(``draft``), ``kv_heads`` (head-sharded pools) and ``multihost``.
+Not ported (they raise ``NotImplementedError``): ``kv_heads`` (head-sharded
+pools) and ``multihost``, which wait for ``parallel/``.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ import torch
 from ..models import decoder as dec
 from ..models.common import alibi_slopes
 from .kvcache import init_cache
-from .sampling import SamplingConfig, sample_per_row
+from .sampling import (SamplingConfig, filtered_logits, sample_per_row, spec_accept_per_row,
+                       spec_draw)
 
 __all__ = ["Request", "ServeEngine", "save_engine_state", "load_engine_state"]
 
@@ -90,30 +97,42 @@ def _rope(cfg, M: int, device):
 
 
 def _rows_forward(cfg, params, tokens, cache, positions: torch.Tensor, impl="auto"):
-    """Per-row decode forward: ``tokens`` (B, 1) sit at ``positions`` (B,)
-    (a long tensor on the device) of their rows. Writes their k/v into the
-    pool in place, each layer where the pool's ``decode_views`` puts it
-    (a KVCache, or ``serve.ring.RingCaches``), and returns (B, 1, V)
-    logits."""
+    """Per-row windowed forward: ``tokens`` (B, Lw) sit at positions
+    ``positions[b] .. positions[b] + Lw - 1`` of their rows (``positions`` a
+    (B,) long tensor on the device). Writes the window's k/v into the pool in
+    place and returns (B, Lw, V) logits.
+
+    Lw == 1 is the continuous-batching decode step: each layer writes and
+    attends where the pool's ``decode_views`` puts it (a KVCache,
+    ``serve.ring.RingCaches`` or ``serve.paged.PagedKV``), validity a
+    per-row ``kv_valid`` (K7 on the card). Lw == k + 1 is the speculative
+    verify, on a KVCache: causality within the window and validity of the
+    cache prefix are one additive (B, 1, Lw, M) mask of 0 / -inf, ALiBi's
+    bias added on top, so attention takes the plain path (JAX's too runs
+    outside any Pallas kernel there)."""
     B, Lw = tokens.shape
-    if Lw != 1:
-        raise NotImplementedError(
-            "windows of more than one token per row (speculative verify) are not ported")
     M = cache.max_len
     dev = tokens.device
-    pos2 = positions[:, None]  # (B, 1)
+    pos2 = positions[:, None] + torch.arange(Lw, device=dev)[None, :]  # (B, Lw)
     x = dec.embed_tokens_per_row(cfg, params, tokens, pos2)
     cos_all, sin_all, cosl_all, sinl_all = _rope(cfg, M, dev)
-    cos, sin = cos_all[pos2], sin_all[pos2]  # (B, 1, hd/2)
+    cos, sin = cos_all[pos2], sin_all[pos2]  # (B, Lw, hd/2)
     cos_l = sin_l = None
     if cosl_all is not None:
         cos_l, sin_l = cosl_all[pos2], sinl_all[pos2]
-    views = cache.decode_views(positions, B)  # li -> (cache, cache_pos, kv_valid)
     mask = None
+    if Lw == 1:
+        views = cache.decode_views(positions, B)  # li -> (cache, cache_pos, kv_valid)
+    else:
+        ok = torch.arange(M, device=dev)[None, None, :] <= pos2[:, :, None]  # (B, Lw, M)
+        mask = torch.zeros(ok.shape, dtype=torch.float32, device=dev).masked_fill_(
+            ~ok, float("-inf"))[:, None]
+        views = lambda li: (cache, positions, None)  # noqa: E731
     if cfg.pos == "alibi":
         rel = (torch.arange(M, dtype=torch.float32, device=dev)[None, None, :]
-               - pos2.float()[:, :, None])  # (B, 1, M)
-        mask = alibi_slopes(cfg.n_heads, device=dev)[None, :, None, None] * rel[:, None]
+               - pos2.float()[:, :, None])  # (B, Lw, M)
+        bias = alibi_slopes(cfg.n_heads, device=dev)[None, :, None, None] * rel[:, None]
+        mask = bias if mask is None else bias + mask
     for li in range(cfg.n_layers):
         lp = dec.layer_view(params["layers"], li)
         view, cache_pos, kv_valid = views(li)
@@ -141,6 +160,67 @@ def _decode_step(cfg, params, tokens: torch.Tensor, cache, positions: np.ndarray
         nxt = sample_per_row(logits, seed, uids, positions, temps, top_ks, top_ps)
     act = torch.as_tensor(active).to(dev, non_blocking=True)
     return torch.where(act, nxt, torch.zeros_like(nxt)), cache
+
+
+def _spec_decode_step(cfg_t, params_t, cfg_d, params_d, tokens: torch.Tensor, t_cache, d_cache,
+                      positions: np.ndarray, active: np.ndarray, k: int, impl="auto",
+                      samp=None):
+    """One speculative step for all slots: k + 1 one-token draft steps per
+    row (the last writes the draft's k/v at position + k, so a fully
+    accepted round leaves no hole in the draft pool; its token is unused),
+    then ONE (B, k + 1) per-row target forward over [token, drafts).
+    ``positions`` (B,) and ``active`` (B,) are host arrays, ``samp`` None or
+    (seed, uids, temps, top_ks, top_ps) host arrays. Greedy rows (samp None,
+    or temperature <= 0) take argmax drafts and accept their longest prefix
+    equal to the target's argmax votes: the non-speculative engine's
+    tokens. Sampled rows draw their drafts from the draft's filtered
+    distribution and accept by Leviathan / Chen rejection
+    (:func:`sampling.spec_accept_per_row`), so their stream is distributed
+    as the target's sampling.
+
+    Returns (votes (B, k + 1), n_acc (B,)) on the device, 0 for inactive
+    rows: row b emits ``votes[b, :n_acc[b] + 1]`` and feeds
+    ``votes[b, n_acc[b]]`` next. Idle rows are clamped so that their window
+    stays inside the pools (JAX drops writes past the end)."""
+    dev = tokens.device
+    B = tokens.shape[0]
+    M = t_cache.max_len
+    pos = np.where(active, positions, np.minimum(positions, M - (k + 1)))
+    pos_t = torch.as_tensor(pos, dtype=torch.long).to(dev, non_blocking=True)
+    sampled = [] if samp is None else [b for b in range(B) if samp[2][b] > 0.0]
+    if sampled:
+        seed, uids, temps, top_ks, top_ps = samp
+        row_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt).to(dev)  # noqa: E731
+        temps_t, top_ks_t = row_t(temps, torch.float32), row_t(top_ks, torch.int64)
+        top_ps_t = row_t(top_ps, torch.float32)
+        is_s = row_t(np.asarray(temps) > 0.0, torch.bool)
+    tok, drafts, pds = tokens, [], []
+    for i in range(k + 1):
+        lg = _rows_forward(cfg_d, params_d, tok[:, None], d_cache, pos_t + i, impl)[:, 0]
+        tok = torch.argmax(lg, dim=-1)
+        if sampled:
+            pd_i = torch.softmax(filtered_logits(lg, temps_t, top_ks_t, top_ps_t), dim=-1)
+            tok = torch.where(is_s, spec_draw(pd_i, seed, uids, pos + i, 1, sampled), tok)
+            pds.append(pd_i)
+        drafts.append(tok)
+    drafts = torch.stack(drafts[:k], dim=1)  # (B, k)
+    toks = torch.cat([tokens[:, None], drafts], dim=1)  # (B, k + 1)
+    vlogits = _rows_forward(cfg_t, params_t, toks, t_cache, pos_t, impl)  # (B, k + 1, V)
+    votes = torch.argmax(vlogits, dim=-1)
+    n_acc = torch.cumprod((drafts == votes[:, :k]).long(), dim=1).sum(dim=1)  # leading matches
+    if sampled:
+        V = vlogits.shape[-1]
+        flt_t = filtered_logits(vlogits.reshape(B * (k + 1), V), temps_t.repeat_interleave(k + 1),
+                                top_ks_t.repeat_interleave(k + 1),
+                                top_ps_t.repeat_interleave(k + 1)).reshape(B, k + 1, V)
+        s_tok, s_nacc = spec_accept_per_row(seed, uids, pos, drafts,
+                                            torch.stack(pds[:k], dim=1),
+                                            torch.softmax(flt_t, dim=-1))
+        votes = torch.where(is_s[:, None], s_tok, votes)
+        n_acc = torch.where(is_s, s_nacc, n_acc)
+    act = torch.as_tensor(active).to(dev, non_blocking=True)
+    return (torch.where(act[:, None], votes, torch.zeros_like(votes)),
+            torch.where(act, n_acc, torch.zeros_like(n_acc)))
 
 
 def _decode_quantum(cfg, params, tokens, cache, positions, active, samp, q, impl,
@@ -191,7 +271,6 @@ def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache, 
 
 
 _NOT_PORTED = {
-    "draft": "speculative decoding (serve/speculative.py)",
     "kv_heads": "head-sharded pools (parallel/tp.py)",
     "multihost": "the multi-process scheduler (parallel/)",
 }
@@ -215,6 +294,7 @@ class ServeEngine:
         cache_factory=None,
         seed: int = 0,
         draft=None,
+        spec_k: int = 4,
         multihost: bool = False,
         decode_quantum: int = 1,
     ):
@@ -226,12 +306,28 @@ class ServeEngine:
         row's max_new. Outputs are token-identical to quantum 1.
         ``prefill_fn`` / ``decode_fn`` / ``cache_factory`` replace the
         default programs and pool (the module's contracts); the pool must
-        lie on the device that holds ``params``."""
+        lie on the device that holds ``params``. ``draft=(cfg_d, params_d)``
+        (params on the same device) turns on speculative decoding with
+        ``spec_k`` drafted tokens a step; it needs the default programs, no
+        sliding-window config and a shared vocabulary (JAX's refusals)."""
+        if draft is not None:
+            cfg_d, params_d = draft
+            if prefill_fn or decode_fn or cache_factory:
+                raise ValueError("speculative decoding requires the default engine programs "
+                                 "(no prefill_fn/decode_fn/cache_factory)")
+            if cfg.has_sliding or cfg_d.has_sliding:
+                raise ValueError("speculative engine does not support sliding-window configs "
+                                 "yet (per-row windowed verify vs window mask)")
+            if cfg_d.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if params_d["embed"].device != params["embed"].device:
+                raise ValueError(f"the draft's params lie on {params_d['embed'].device}, the "
+                                 f"target's on {params['embed'].device}")
         if cache_factory is not None and (kv_quant or kv_heads is not None):
             raise ValueError(
                 "cache_factory replaces the KV pool entirely; kv_quant/kv_heads would be "
                 "silently ignored — thread them into the factory instead")
-        given = dict(draft=draft, kv_heads=kv_heads, multihost=multihost)
+        given = dict(kv_heads=kv_heads, multihost=multihost)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
@@ -247,6 +343,8 @@ class ServeEngine:
         self.M = max_len
         self.impl = impl
         self.seed = int(seed)
+        self.draft = draft
+        self.spec_k = int(spec_k)
         self.decode_quantum = max(1, int(decode_quantum))
         self._prefill_fn = prefill_fn or _prefill_into_slot
         self._decode_fn = decode_fn or _decode_step
@@ -259,6 +357,9 @@ class ServeEngine:
         else:
             self.cache = init_cache(cfg, max_batch, max_len, quantized=kv_quant,
                                     device=self.device)
+        if draft is not None:  # the draft's pool: the target's geometry, bf16
+            self.d_cache = init_cache(draft[0], max_batch, max_len, device=self.device)
+            self.stats_spec = {"rounds": 0, "drafted": 0, "accepted": 0}
         self.temps = np.zeros(max_batch, np.float32)
         self.topks = np.zeros(max_batch, np.int32)
         self.topps = np.ones(max_batch, np.float32)
@@ -299,14 +400,17 @@ class ServeEngine:
     # ---------------------------------------------------- scheduling ----
     def _plan_admissions(self) -> List:
         """Pop the queue into free slots (no device work): [(slot, Request)].
-        A request too long for the pool finishes at once with no tokens."""
+        A request too long for the pool (with a draft, for its prompt,
+        max_new and one more verify window) finishes at once with no
+        tokens."""
         plans = []
+        budget = self.spec_k + 1 if self.draft is not None else 0
         for slot in range(self.B):
             if self.slots[slot] is not None:
                 continue
             while self.queue:
                 req = self.queue.pop(0)
-                if len(req.prompt) + req.max_new > self.M:
+                if len(req.prompt) + req.max_new + budget > self.M:
                     req.done = True
                     req.out = []
                     self.finished.append(req)
@@ -333,6 +437,10 @@ class ServeEngine:
             tok, self.cache = self._prefill_fn(*args)
         else:
             tok, self.cache = self._prefill_fn(*args, (self.seed, req.uid, sc))
+        if self.draft is not None:
+            cfg_d, params_d = self.draft
+            _, self.d_cache = _prefill_into_slot(cfg_d, params_d, prompt, Lp, self.d_cache, slot,
+                                                 self.impl)
         return tok
 
     def _finalize_admission(self, slot: int, req: Request, first: int) -> None:
@@ -379,21 +487,34 @@ class ServeEngine:
         return 1 << (q.bit_length() - 1)
 
     def step(self) -> bool:
-        """Admit, then advance every active slot by one quantum. False when
-        there is nothing left to do."""
+        """Admit, then advance every active slot by one quantum (with a
+        draft, by 1 .. spec_k + 1 tokens). False when there is nothing left
+        to do."""
         with torch.inference_mode():
             return self._step()
+
+    def _samp(self):
+        """The decode step's ``samp``: None while every active row is greedy."""
+        if any(r is not None and r.sampling is not None for r in self.slots):
+            return (self.seed, self.uids.copy(), self.temps.copy(), self.topks.copy(),
+                    self.topps.copy())
+        return None
+
+    def _before_decode(self, q: int) -> None:
+        """Called after admission, before the decode of a quantum of ``q``
+        steps: a pool that grows with its rows (the paged engine) reserves
+        what they will write. Nothing to do for the flat pool."""
 
     def _step(self) -> bool:
         self._admit()
         active = np.array([r is not None for r in self.slots])
         if not active.any():
             return bool(self.queue)
-        samp = None
-        if any(r is not None and r.sampling is not None for r in self.slots):
-            samp = (self.seed, self.uids.copy(), self.temps.copy(), self.topks.copy(),
-                    self.topps.copy())
+        if self.draft is not None:
+            return self._step_spec(active)
+        samp = self._samp()
         q = self._quantum_q()
+        self._before_decode(q)
         td0 = time.perf_counter()
         seq, self.cache = _decode_quantum(self.cfg, self.params, self.tokens, self.cache,
                                           self.positions.copy(), active, samp, q, self.impl,
@@ -421,6 +542,43 @@ class ServeEngine:
         self.stats["tokens_per_s"] = self.stats["tokens"] / elapsed
         return True
 
+    def _step_spec(self, active: np.ndarray) -> bool:
+        """One speculative step: every active row advances by its accepted
+        drafts and the verify's bonus token, 1 .. spec_k + 1 tokens."""
+        cfg_d, params_d = self.draft
+        td0 = time.perf_counter()
+        votes, n_acc = _spec_decode_step(self.cfg, self.params, cfg_d, params_d, self.tokens,
+                                         self.cache, self.d_cache, self.positions.copy(), active,
+                                         self.spec_k, self.impl, self._samp())
+        votes, n_acc = votes.cpu().numpy(), n_acc.cpu().numpy()  # the step's one fetch
+        self.stats["t_decode_s"] += time.perf_counter() - td0
+        self.stats["steps"] += 1
+        self.stats_spec["rounds"] += int(active.sum())
+        self.stats_spec["drafted"] += int(active.sum()) * self.spec_k
+        nxt = np.zeros(self.B, np.int64)
+        for slot in range(self.B):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            take = int(n_acc[slot]) + 1
+            self.stats_spec["accepted"] += int(n_acc[slot])
+            # the pools advanced take tokens whatever the host keeps of them
+            # (a request cut short retires and frees its slot)
+            self.positions[slot] += take
+            nxt[slot] = votes[slot, take - 1]
+            for j in range(take):
+                req.out.append(int(votes[slot, j]))
+                self.stats["tokens"] += 1
+                if len(req.out) >= req.max_new or (
+                    req.eos_id is not None and req.out[-1] == req.eos_id
+                ):
+                    break
+            self._maybe_finish(slot)
+        self.tokens = torch.as_tensor(nxt).to(self.device)
+        elapsed = max(time.perf_counter() - self._t0, 1e-9)
+        self.stats["tokens_per_s"] = self.stats["tokens"] / elapsed
+        return True
+
     def run(self, max_steps: int = 100000) -> None:
         """Drain the queue completely."""
         steps = 0
@@ -434,7 +592,8 @@ class ServeEngine:
 def save_engine_state(eng: ServeEngine, path: str) -> None:
     """Write the engine's state under ``path`` (cache.npz, host.pkl) so a
     new engine of the same geometry continues token for token. bf16 is
-    stored as its uint16 bit pattern (npz has no bf16)."""
+    stored as its uint16 bit pattern (npz has no bf16). A speculative
+    engine's draft pool is not stored, as JAX's snapshot leaves it out."""
     os.makedirs(path, exist_ok=True)
     arrays = {}
     for i, t in enumerate(eng.cache.leaves()):
@@ -463,6 +622,8 @@ def save_engine_state(eng: ServeEngine, path: str) -> None:
         "topps": eng.topps.copy(),
         "uid_counter": eng._uid,
         "stats": dict(eng.stats),
+        # an engine subclass's own state (the paged engine's page lists)
+        "extra": getattr(eng, "_snapshot_extra", lambda: None)(),
     }
     with open(os.path.join(path, "host.pkl"), "wb") as f:
         pickle.dump(host, f)
@@ -504,4 +665,6 @@ def load_engine_state(eng: ServeEngine, path: str) -> List[Request]:
     eng.topps[:] = host["topps"]
     eng._uid = host["uid_counter"]
     eng.stats.update(host["stats"])
+    if host.get("extra") is not None:
+        eng._restore_extra(host["extra"])
     return [r for r in eng.slots if r is not None] + list(eng.queue)

@@ -158,17 +158,29 @@ def test_snapshot_restore_continues_identically(model, tmp_path):
 @pytest.mark.parametrize("arg", ["draft", "prefill_fn", "decode_fn", "cache_factory",
                                  "kv_heads", "multihost"])
 def test_unported_arguments_raise(model, arg):
-    """``draft``, ``kv_heads`` and ``multihost`` are not ported and raise.
-    The strategy overrides are ported (JAX's contracts): the engine runs the
-    ``prefill_fn`` / ``decode_fn`` it is given and threads the pool that a
-    ``cache_factory`` makes, with the default engine's tokens, and refuses a
-    ``cache_factory`` beside ``kv_quant`` as JAX's does."""
-    _, _, tparams, prompts, _, _ = model
+    """``kv_heads`` and ``multihost`` are not ported and raise. ``draft`` is
+    ported (speculative decoding): the model as its own draft gives JAX's
+    speculative engine's tokens and counters, which are the default
+    engine's. The strategy overrides are ported (JAX's contracts): the
+    engine runs the ``prefill_fn`` / ``decode_fn`` it is given and threads
+    the pool that a ``cache_factory`` makes, with the default engine's
+    tokens, and refuses a ``cache_factory`` beside ``kv_quant`` as JAX's
+    does."""
+    jcfg, params, tparams, prompts, _, _ = model
     cfg = get_config(NAME)
-    if arg in ("draft", "kv_heads", "multihost"):
-        value = {"draft": (None, None), "kv_heads": 1, "multihost": True}[arg]
+    if arg in ("kv_heads", "multihost"):
+        value = {"kv_heads": 1, "multihost": True}[arg]
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(cfg, tparams, max_len=64, **{arg: value})
+        return
+    if arg == "draft":
+        jeng = JEngine(jcfg, params, max_batch=2, max_len=64, draft=(jcfg, params), spec_k=2)
+        want = _run(jeng, prompts[:3], [None] * 3)
+        eng = ServeEngine(cfg, tparams, max_batch=2, max_len=64, draft=(cfg, tparams), spec_k=2)
+        assert _run(eng, prompts[:3], [None] * 3) == want
+        assert eng.stats_spec == jeng.stats_spec
+        plain = ServeEngine(cfg, tparams, max_batch=2, max_len=64)
+        assert _run(plain, prompts[:3], [None] * 3)[0] == want[0]
         return
     calls = []
     default = {"prefill_fn": teng._prefill_into_slot, "decode_fn": teng._decode_step,

@@ -3598,3 +3598,146 @@ def test_ring_engine_and_ring_generate_on_the_card(cuda_device, monkeypatch):
     assert set(slots) == {128} and max(errs) <= ATTN_TOL
     for p, r in zip(prompts, reqs):
         assert r.done and pick_gaps(p.tolist(), r.out) <= 2e-2
+
+
+# ---- K2's floor probe (fused_mlp_apply(impl="floor8"), a8 = FLOOR): each
+# path's FLOOR instance (the decode path at rows 1-8, the tensor-core path
+# at 9-64, the CUDA-core kernel with both rebound away) against
+# ternary_mlp_floor_plain. Gate, up and down are integer block dots, exact
+# on both sides; their f32 epilogues sum in other orders, and a mid that
+# lands within an ulp of a half rounds apart, so K2's own MLP_TOL holds them.
+K2_FLOOR_CASES = [("dec", 1), ("dec", 4), ("dec", 8), ("tc", 9), ("tc", 16), ("tc", 33),
+                  ("tc", 64), ("cc", 1), ("cc", 5), ("cc", 12)]
+
+
+def _floor_rows(g, dev, rows, D):
+    """bf16 rows whose scales run geometrically from 8 down to 0.05 (one
+    row: 8): mid ranges from the clip to small integers."""
+    scale = torch.logspace(np.log10(8.0), np.log10(0.05), rows, device=dev)[:, None]
+    return (torch.randn((rows, D), generator=g, device=dev) * scale).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+@pytest.mark.parametrize("gather", [True, False], ids=["ssr", "down"])
+@pytest.mark.parametrize("path,rows", K2_FLOOR_CASES)
+def test_k2_floor_instances_match_floor_plain(cuda_device, path, rows, gather, gated, act,
+                                              monkeypatch):
+    if path == "cc":
+        monkeypatch.setattr(tk, "K2_DEC_MAX_ROWS", 0)
+        monkeypatch.setattr(tk, "K2_TC_MIN_ROWS", 1 << 30)
+    assert tk.k2_path(rows) == path
+    D, I, n = (2048, 8192, 2048) if gated else (2048, 4096, 2048)
+    g = torch.Generator(device=cuda_device).manual_seed(300 + rows + int(gather) + 2 * gated)
+    layer = _mlp_layer(g, cuda_device, D, I, n) if gated else _ungated_layer(
+        g, cuda_device, D, I, n)
+    perm = _perm(g, cuda_device, D, D) if gather else None
+    x = _floor_rows(g, cuda_device, rows, D)
+    m = tk.ternary_mlp
+    counts = lambda: (m.launches, m.launches_floor, m.launches_dec, m.launches_tc,  # noqa: E731
+                      m.launches_ungated, tk.ternary_matmul.launches)
+    before = counts()
+    got = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act, a8=tk.FLOOR)
+    again = tk.ternary_mlp(x, perm, *layer, intermediate=I, act=act, a8=tk.FLOOR)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counts())) == (
+        2, 2, 2 * (path == "dec"), 2 * (path == "tc"), 2 * (not gated), 0)
+    assert torch.equal(got, again)
+    want = tk.ternary_mlp_floor_plain(x, perm, *layer, intermediate=I, act=act)
+    assert got.shape == want.shape == (rows, n) and _rel(got, want) <= MLP_TOL
+    bf16 = tk.ternary_mlp_plain(x, perm, *layer, intermediate=I, act=act)
+    assert _rel(bf16, want) > 0.1  # wrong by design: the unpack is skipped
+
+
+@pytest.mark.cuda
+def test_fused_mlp_apply_floor8_launches_the_floor(cuda_device):
+    """fused_mlp_apply(impl="floor8") runs K2's floor on a stacked layer at
+    a layer index; fused_mlp_ok answers False for it (no route picks it)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    D, I, n = 1024, 2048, 1024
+    gp, ga, gm, dp, da, dm = _mlp_layer(g, cuda_device, D, I, n, L=2)
+    ident = torch.arange(D, dtype=torch.int32, device=cuda_device)
+    gu = ttm.PackedTernaryLinear(packed=gp, alpha=ga, mu=gm, perm=ident.expand(2, D), bias=None,
+                                 in_features=D, identity_perm=True)
+    dn = ttm.PackedTernaryLinear(packed=dp, alpha=da, mu=dm, perm=torch.arange(
+        dp.shape[1] * 4, dtype=torch.int32, device=cuda_device).expand(2, -1), bias=None,
+        in_features=I, input_folded=True)
+    x = _floor_rows(g, cuda_device, 4, D)
+    assert ttm.fused_mlp_ok(gu, dn, "auto", 4, cuda_device)
+    assert not ttm.fused_mlp_ok(gu, dn, "floor8", 4, cuda_device)
+    before = tk.ternary_mlp.launches_floor
+    got = ttm.fused_mlp_apply(gu, dn, x, "silu", layer_idx=1, out_dtype=torch.float32,
+                              impl="floor8")
+    assert tk.ternary_mlp.launches_floor == before + 1
+    want = tk.ternary_mlp_floor_plain(x, None, gp[1], ga[1], gm[1], dp[1], da[1], dm[1],
+                                      intermediate=I)
+    assert _rel(got, want) <= MLP_TOL
+
+
+# ---- the paged KV pool (serve/paged.py): its view gathers each row's
+# pages into logical order, and K7 runs on the gathered tensor as on a flat
+# pool that holds the same K / V (bit for bit)
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_view_feeds_k7_as_the_flat_pool(cuda_device, quant):
+    from pt2tpu_torch.serve import paged as tpaged
+    from pt2tpu_torch.serve.kvcache import init_cache
+
+    cfg = get_config("llama-3-8b").with_(n_layers=2)
+    B, ps, maxp, P = 4, 64, 8, 20
+    pool = tpaged.init_paged(cfg, P, ps, B, maxp, quantized=quant, device=cuda_device)
+    flat = init_cache(cfg, B, maxp * ps, quantized=quant, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    perm = torch.randperm(P - 1, generator=g, device=cuda_device)[: B * 4] + 1
+    pool.table[:, :4] = perm.view(B, 4).to(torch.int32)  # the rest: scratch page 0
+    for leaf in pool.leaves()[:-1]:
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda_device).mul(40).to(leaf.dtype)
+                   if leaf.dtype != torch.float32 else
+                   torch.rand(leaf.shape, generator=g, device=cuda_device) * 0.02)
+    view = tpaged._PagedView(pool)
+    for dst, src in zip(flat.leaves(), pool.leaves()[:-1]):
+        dst.copy_(src[:, pool.table.long()].reshape(dst.shape))
+    positions = torch.tensor([5, 130, 255, 70], device=cuda_device)
+    valid = positions[:, None] >= torch.arange(maxp * ps, device=cuda_device)[None, :]
+    q = torch.randn((B, 1, cfg.n_heads, cfg.hd), generator=g, device=cuda_device).bfloat16()
+    for li in range(2):
+        pk, pv, pks, pvs = view.read_raw(li)
+        fk, fv, fks, fvs = flat.read_raw(li)
+        assert torch.equal(pk, fk) and torch.equal(pv, fv)
+        before = tka.decode_attention.launches
+        got = tcommon.attention(q, pk, pv, None, valid, k_scale=pks, v_scale=pvs)
+        want = tcommon.attention(q, fk, fv, None, valid, k_scale=fks, v_scale=fvs)
+        assert tka.decode_attention.launches == before + 2
+        assert torch.equal(got, want)
+    if not quant:
+        assert torch.equal(view.read(0)[0], flat.read(0)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantum", [1, 4])
+def test_paged_engine_on_the_card_equals_the_flat_engine(cuda_device, quantum):
+    """A 2-layer llama-3-8b-shaped model (K7 on both pools: hd 128, M 512):
+    the paged engine's tokens are the flat engine's, K7 launched once per
+    layer and step on the gathered view, every page back after the drain."""
+    from pt2tpu_torch.serve.paged import PagedServeEngine
+
+    cfg = get_config("llama-3-8b").with_(n_layers=2)
+    params = random_ternary_params(cfg, seed=13, perm_mode="down", device=cuda_device)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (70, 200, 9, 130)]
+
+    def run(eng):
+        reqs = [eng.submit(p, 20) for p in prompts]
+        before = tka.decode_attention.launches
+        eng.run()
+        return [r.out for r in reqs], tka.decode_attention.launches - before
+
+    flat, _ = run(ServeEngine(cfg, params, max_batch=2, max_len=512, decode_quantum=quantum))
+    eng = PagedServeEngine(cfg, params, max_batch=2, max_len=512, page_size=64, kv_pages=10,
+                           decode_quantum=quantum)
+    paged, k7 = run(eng)
+    assert paged == flat
+    assert k7 == cfg.n_layers * eng.stats["steps"]
+    assert sorted(eng._free) == list(range(1, 11))

@@ -172,8 +172,9 @@ def test_ring_engine_plain_model(name):
 
 
 def test_engine_override_refusals():
-    """JAX's refusals: a cache_factory with kv_quant or kv_heads; kv_heads
-    and draft are not ported."""
+    """JAX's refusals: a cache_factory with kv_quant or kv_heads; a draft
+    beside the ring's strategy overrides or on a sliding-window config (the
+    speculative engine's); kv_heads is not ported."""
     tcfg = treg.get_config("tiny-gemma3")
     tparams = to_port(dense_params(configs("tiny-gemma3")[0], 7))
     pf, df, fac = tring.make_ring_engine_fns(tcfg, device="cpu")
@@ -183,7 +184,10 @@ def test_engine_override_refusals():
         TEngine(tcfg, tparams, kv_heads=1, prefill_fn=pf, decode_fn=df, cache_factory=fac)
     with pytest.raises(NotImplementedError, match="kv_heads"):
         TEngine(tcfg, tparams, kv_heads=1)
-    with pytest.raises(NotImplementedError, match="draft"):
+    with pytest.raises(ValueError, match="default engine programs"):
+        TEngine(tcfg, tparams, draft=(tcfg, tparams), prefill_fn=pf, decode_fn=df,
+                cache_factory=fac)
+    with pytest.raises(ValueError, match="sliding-window"):
         TEngine(tcfg, tparams, draft=(tcfg, tparams))
     # the pool must lie where the params do (no silent copy to the card)
     with pytest.raises(ValueError, match="pool lies on"):

@@ -113,7 +113,65 @@ def test_cli_generate_kv_int8_prints_jax_ids(tmp_path, capsys):
     assert got == want and len(got.split(",")) == 7
 
 
-@pytest.mark.parametrize("flag", [["--paged"], ["--draft", "x"], ["--tp", "2"]])
-def test_cli_serve_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(["serve", "--model", str(tmp_path), "--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", [["--paged", "--page-size", "16", "--kv-pages", "6"],
+                                  ["--draft", "DRAFT", "--spec-k", "3"], ["--tp", "2"]])
+def test_cli_serve_unported_flags_raise(tmp_path, flag, monkeypatch):
+    """``--tp`` is not ported and raises. ``--paged`` and ``--draft`` are:
+    ``cli serve`` builds the paged or the speculative engine and hands it to
+    the server, which answers POSTs on 127.0.0.1 with the tokens of JAX's
+    paged engine / of JAX's greedy decoding on the same artifacts."""
+    if flag[0] == "--tp":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tcli.main(["serve", "--model", str(tmp_path), "--device", "cpu"] + flag)
+        return
+    from pt2tpu.serve import greedy_generate as jgreedy
+    from pt2tpu.serve.paged import PagedServeEngine as JPaged
+    from pt2tpu_torch.serve import server as tserver
+
+    cfg = jreg.get_config("tiny-llama-gqa")
+    params = jrand.random_ternary_params(cfg, jax.random.PRNGKey(4), perm_mode="down")
+    jckpt.save_model(str(tmp_path / "t"), cfg, params)
+    dcfg = cfg.with_(n_layers=1)
+    jckpt.save_model(str(tmp_path / "d"), dcfg,
+                     jrand.random_ternary_params(dcfg, jax.random.PRNGKey(6), perm_mode="down"))
+    flag = [str(tmp_path / "d") if f == "DRAFT" else f for f in flag]
+    started = []
+    start = tserver.ServingServer.start
+    monkeypatch.setattr(tserver.ServingServer, "start",
+                        lambda self: started.append(self) or start(self))
+    exits = []
+
+    def serve():
+        try:
+            tcli.main(["serve", "--model", str(tmp_path / "t"), "--device", "cpu", "--port", "0",
+                       "--max-batch", "2", "--max-len", "64"] + flag)
+        except SystemExit as e:  # how cli serve ends once its engine has stopped
+            exits.append(str(e))
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    for _ in range(600):
+        if started and started[0].port:
+            break
+        th.join(timeout=0.1)
+    srv = started[0]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 12, 17)]
+    try:
+        got = [_post(srv.port, {"prompt_ids": p.tolist(), "max_new": 9}) for p in prompts]
+    finally:
+        srv.error = "stopped by the test"  # ends cli serve's wait loop, which stops the server
+        th.join(timeout=60)
+    assert not th.is_alive() and exits == ["the engine failed: stopped by the test"]
+    if flag[0] == "--paged":
+        assert type(srv.engine).__name__ == "PagedServeEngine" and srv.engine.ps == 16
+        jeng = JPaged(cfg, params, max_batch=2, max_len=64, page_size=16, kv_pages=6)
+        reqs = [jeng.submit(p, 9) for p in prompts]
+        jeng.run()
+        want = [r.out for r in reqs]
+    else:
+        assert srv.engine.draft is not None and srv.engine.spec_k == 3
+        want = [np.asarray(jgreedy(cfg, params, jax.numpy.asarray(p[None]), max_new=9,
+                                   max_len=64))[0].tolist() for p in prompts]
+    assert [code for code, _ in got] == [200] * 3
+    assert [body["ids"] for _, body in got] == want
