@@ -19,13 +19,13 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      W2A8 K3 + K1), both at full width, against their reference routes
      ("plain"; for W2A8 the same route with every kernel swapped for its
      plain version), and round-trips each through save_model / load_model;
-  4. drives the llama-2-7b main path of the first slice: 16 of its 32
-     layers (the run's time budget), "down" layout, 4 prompts of 128 ids,
-     greedy_generate with max_new 32, bf16 and W2A8; K1's launch count must
-     rise by exactly 4 * 16 * 32 per run; one
+  4. drives the llama-2-7b main path of the first slice: 8 of its 32
+     layers (the run's time budget; 16 before phase 31), "down" layout, 4
+     prompts of 128 ids, greedy_generate with max_new 32, bf16 and W2A8;
+     K1's launch count must rise by exactly 4 * 8 * 32 per run; one
      decode step is then timed and traced with torch.profiler;
-  5. drives this slice's main path: llama-3-8b, 16 of its 32 layers (the
-     run's time budget; the lockstep paths of 13b, 16b, 8, 17b, 18b and 20b
+  5. drives this slice's main path: llama-3-8b, 8 of its 32 layers (the
+     run's time budget, 16 before phase 31; the lockstep paths of 13b, 16b, 8, 17b, 18b and 20b
      and the engines of run E and 14b too), full-SSR layout,
      the same prompts and max_new, in bf16 ("auto") and W2A8; every kernel's
      launch count must rise by exactly what the routing implies; one decode
@@ -39,9 +39,9 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      hd 128, B 1/4/8, M 256 and 2048, ragged valid lengths, bf16 and int8
      KV; runs a 2-layer llama-3-8b ServeEngine ("down" layout, bf16 and int8
      KV) with every kernel call held against its plain version; drives the
-     llama-3-8b "down" ServeEngine at 8 of its 32 layers (the run's time
-     budget, 16 before phase 23; 10c, 11c, 16b's engine A/B and 5c's server
-     too) (8 slots,
+     llama-3-8b "down" ServeEngine at 4 of its 32 layers (the run's time
+     budget: 16 before phase 23, 8 before phase 31; 10c, 11c, 16b's engine
+     A/B and 5c's server too) (8 slots,
      max_len 2048, 16
      greedy requests with prompts of 64-512 ids and max_new 32-64) with bf16
      and int8 KV at quantum 1 and 8, where K7's launches must be exactly 32
@@ -60,7 +60,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      KERNEL_TOL at llama-3-8b qkv / o / gateup and a ragged shape, B
      1/2/4/8/16/64, bf16 and W2A8; runs the 2-layer llama-3-8b "ssr" model
      under the P2 flags with every K5 / K6 call held against its plain
-     version; drives the llama-3-8b "ssr" main path (16 layers) under the P1
+     version; drives the llama-3-8b "ssr" main path (8 layers) under the P1
      flags (GATHER_KERNEL "packed": prefill through K5, no K4; tokens equal
      to the default run's) and the P2 flags (also IGATHER_FUSED off,
      FUSED_GATHER on: decode through K6, no K3), bf16 and W2A8, with exact
@@ -90,7 +90,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      ternary_matmul.launches_tc_a8 counts (decode rows launch it never);
      every 32-layer W2A8 run above holds launches_tc_a8 to its prefill
      launches; A/Bs, in turns (on, off), the lockstep W2A8 prefill
-     (llama-2-7b, phase 4); runs the "down" engine under W2A8 at 8 of its 32
+     (llama-2-7b, phase 4); runs the "down" engine under W2A8 at 4 of its 32
      layers (10c: impl "a8", bf16 KV, quantum 1, its off turn dropped for the
      run's time budget, then once with K7 off; every answer held
      to A8_TOLS' pick gap under the teacher-forced W2A8 route on plain
@@ -114,7 +114,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      beside the held default ones); A/Bs, in turns (on, off; "on"
      sets K1_DEC_A8, "off" rebinds K1_DEC_MAX_ROWS to 0), the lockstep llama-2-7b
      decode (bf16 and W2A8: decode tok/s, step wall, profiled device time;
-     11b, in phase 4) and the "down" engine at 8 of its 32 layers, as 10c's
+     11b, in phase 4) and the "down" engine at 4 of its 32 layers, as 10c's
      runs (bf16 and W2A8, quantum 1:
      decode tok/s, t_decode_s, every answer held as in 5b / 10c, and one
      profiled decode step; 11c, in 5b); and times it through its C entry at
@@ -271,7 +271,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      (18a, in phase 2c); holds launches_rows exact in every P1 / P2 run (the
      512-row prefills, run E's admissions above 64 rows); in turns on, off
      ("off" rebinds K5_ROWS_MIN_ROWS to 1 << 30: K5's first kernel)
-     profiles one 512-row lockstep prefill of the llama-3-8b "ssr" (16 layers)
+     profiles one 512-row lockstep prefill of the llama-3-8b "ssr" (8 layers)
      model under the P1 flags: device time, K5's part and share, the wall
      (18b, after 17b); and times the rows path's C entry at 4096 -> 4096,
      rows 16/32/64/128/256/512, as calls replayed from a CUDA graph and as
@@ -308,7 +308,7 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      phase 2c); holds launches_rows exact in every "ssr" run that gathers
      with K4 (phase 5's prefills, 13b, 16b); in turns on, off ("off"
      rebinds K4_ROWS_MIN_ROWS to 1 << 30: K4's first kernel) profiles one
-     512-row lockstep prefill of the llama-3-8b "ssr" model (16 layers) under
+     512-row lockstep prefill of the llama-3-8b "ssr" model (8 layers) under
      the default flags: the same logits bit for bit every turn, device time,
      K4's part and share, the wall; and once more greedy_generate with K4
      off, its tokens the main run's (20b, after 18b); and times both
@@ -467,21 +467,41 @@ the port from pt2tpu_torch/csrc/ (one nvcc per source, in parallel) and then:
      call on its path's FLOOR instance (launches exact), within MLP_TOL of
      ternary_mlp_floor_plain; (b) each instance timed through its C entry
      at llama-3-8b's MLP beside the bf16 instance of its path, in turns.
- 28. (the paged engine, serve/paged.py) llama-3-8b "down" at 32 layers, 5b's
+ 28. (the paged engine, serve/paged.py) llama-3-8b "down" cut to 8 of its
+     32 layers (32 before phase 31, the run's time budget), 5b's
      16 requests, 8 slots, M 2048, pages of 64, 80 pages: bf16 KV quantum 1,
      int8 KV quantum 1, bf16 KV quantum 8, each beside the flat engine:
      tokens and finish order equal, every page back after the drain,
      launches exact (K7 layers x steps on the gathered view); both pools'
      bytes; a profiled and timed step of each.
  29. (speculative decoding, serve/speculative.py and the engine's draft)
-     llama-2-70b (80 layers) under a llama-2-7b draft (32), "down", full
-     width, bf16 KV, spec_k 4: (a) speculative_generate (128 ids + 32 new)
+     llama-2-70b (40 of its 80 layers since phase 31, the run's time budget)
+     under a llama-2-7b draft (32), "down", full
+     width, bf16 KV, spec_k 4: (a) speculative_generate (128 ids + 16 new;
+     32 before phase 31, the run's time budget)
      beside the 70b's greedy_generate, launches exact, answers at
      TOKEN_TOL; the 70b's decode step against its bytes bound; (b) the
-     ServeEngine with the draft (4 slots, M 1024, 4 requests of 64-256 ids,
-     16 new) beside the plain engine, launches exact (verify rows on K1's and
+     ServeEngine with the draft (4 slots, M 1024, 2 requests of 64-256 ids,
+     4 before phase 31; 16 new) beside the plain engine, launches exact (verify rows on K1's and
      K2's tensor-core paths), answers at TOKEN_TOL; (c) a perfect draft (the
      7b cut to 2 layers as its own draft): the acceptance rate, not gated.
+ 30. (K7's wide instance, hd > 512: the width at run time, 16-position
+     tiles, one CTA an SM) (a) both kernels per call at hd 640 / 768 / 1024,
+     B 1 / 8, M 2048, bf16 and int8 KV (the tensor-core kernel held to the
+     plain version, one bf16 step of its split plain version, its own bits
+     run to run); (b) 2-layer llama-3-8b-width models with head_dim 640 and
+     1024, 8 / 2 heads, in the ServeEngine (8 requests): K7 launched layers x
+     steps times on the wide instance, every call held, every answer at
+     TOKEN_TOL; (6) times both kernels at B 8, M 2048 beside SDPA.
+ 31. (tensor parallelism, parallel/tp.py) llama-3-8b at full width, "ssr",
+     cut to 8 of its 32 layers, at TP 2: two gloo ranks on the one card
+     (``chip_smoke.py --tp-rank``; the kernels built before they start, each
+     rank with a timeout): tp_generate (4 x 128 ids + 16 new) and the TP
+     engine (kv_heads, multihost, 4 slots, M 1024, 8 requests of 64-512 ids):
+     both ranks' tokens equal, K1 / K3 / K5 / K7 launches non-zero and equal,
+     a K5 call per rank bit for bit its plain version's, every answer at
+     TOKEN_TOL under the single-process port's teacher-forced plain
+     reference. A correctness run: gloo through the host gives no speed.
 
 Every phase that fails makes the script exit non-zero. The last two lines
 are the kernels' JSON record and the device JSON; the whole record is also
@@ -596,6 +616,14 @@ FLOOR_TOL = 1e-5
 FLOOR_AB_LAYERS, FLOOR_AB_NEW, FLOOR_AB_ROUNDS = 8, 32, 2
 # phase 25: the head widths above 256 that K7 is built for
 WIDE_HEAD_DIMS = (384, 512)
+# K7's wide instance (the width at run time, hd > 512): phase 30's widths
+WIDE_RT_HEAD_DIMS = (640, 768, 1024)
+# phase 31: llama-3-8b at full width, "ssr", cut to 8 of its 32 layers, on
+# two gloo ranks of one card (NCCL takes one rank a card); a rank that has
+# not answered within TP_RANK_TIMEOUT_S fails the phase
+TP_LAYERS = 8
+TP_SEED = 31
+TP_RANK_TIMEOUT_S = 300
 # phase 26: a gemma3-4b sliding layer's ring (its window)
 RING_SLOTS = 1024
 # phase 23: the experts' shapes held per call (name, out, in, perm layout):
@@ -817,6 +845,207 @@ def profile_engine_step(eng, label):
     if not rows:
         print("  torch.profiler saw no device time")
     return out
+
+
+def tp_prompts(cfg, dev):
+    """Phase 31's inputs, drawn alike by each rank and by the reference: 4 x
+    128 ids for tp_generate, then 8 engine prompts of 64-512 ids."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device=dev)
+    lens = torch.randint(64, 513, (8,), generator=gen, device=dev).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).cpu().numpy()
+               for n in lens]
+    return prompt, prompts
+
+
+def tp_rank_main(argv) -> None:
+    """One rank of phase 31 (``chip_smoke.py --tp-rank RANK PORT OUT``): a
+    gloo world of two ranks on cuda:0. Builds llama-3-8b at full width, "ssr",
+    TP_LAYERS layers, from TP_SEED, keeps its shard (prepare_tp_params,
+    shard_tp_params), then with every kernel count set to 0 just before and
+    read just after: tp_generate (4 x 128 ids + 16 new) and the TP engine
+    (kv_heads of the rank, multihost, 4 slots, M 1024, 8 requests submitted
+    on rank 0, 16 new). Its first K5 call is held bit for bit to K5's plain
+    version on the rank's own activations. Writes OUT/tp31_rank<RANK>.json."""
+    rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pt2tpu_torch.models.registry import get_config
+    from pt2tpu_torch.ops.kernels import attention as k7
+    from pt2tpu_torch.ops.kernels import gather as k4
+    from pt2tpu_torch.ops.kernels import ternary as k1
+    from pt2tpu_torch.parallel import mesh, tp
+    from pt2tpu_torch.serve.engine import ServeEngine
+    from pt2tpu_torch.utils.randmodel import random_ternary_params
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh.initialize_distributed(backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2, timeout_s=TP_RANK_TIMEOUT_S / 2)
+    axis = mesh.make_mesh({"data": 1, "model": 2})["model"]
+    cfg = get_config("llama-3-8b").with_(n_layers=TP_LAYERS)
+    full = random_ternary_params(cfg, seed=TP_SEED, perm_mode="ssr", device=dev)
+    shard = tp.shard_tp_params(tp.prepare_tp_params(cfg, full, axis.size), axis)
+    del full
+    torch.cuda.empty_cache()
+    wrappers = {"K1": k1.ternary_matmul, "K3": k1.ternary_matmul_igathered,
+                "K5": k4.onehot_matmul, "K7": k7.decode_attention, "K4": k4.onehot_gather,
+                "K2": k1.ternary_mlp}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+        tp.collective_stats.update(all_reduce=0, all_gather=0, seconds=0.0)
+
+    def read():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    k5_check = {}
+    k5 = tp.onehot_matmul
+
+    def k5_held(x, planes):
+        got = k5(x, planes)
+        if not k5_check:
+            want = k4.onehot_matmul_plain(x, planes)
+            torch.cuda.synchronize()
+            k5_check.update(rows=int(x.shape[0]), lanes=int(planes.shape[-1]),
+                            equal=bool(torch.equal(got, want)))
+        return got
+
+    tp.onehot_matmul = k5_held
+    prompt, prompts = tp_prompts(cfg, dev)
+    res = {"rank": rank, "backend": axis.backend, "world": 2}
+    with torch.inference_mode():
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = tp.tp_generate(cfg, axis, shard, prompt, 16, max_len=144)
+        torch.cuda.synchronize()
+        res["generate_s"] = time.perf_counter() - t0
+        res["generate_launches"] = read()
+        res["generate_collectives"] = dict(tp.collective_stats)
+        res["generate"] = toks.cpu().tolist()
+        pf, df = tp.make_tp_engine_fns(cfg, axis, shard)
+        eng = ServeEngine(cfg, shard, max_batch=4, max_len=1024,
+                          kv_heads=cfg.kv_heads // axis.size, prefill_fn=pf, decode_fn=df,
+                          multihost=True)
+        reqs = [eng.submit(p_, 16) for p_ in prompts] if rank == 0 else []
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        res["engine_s"] = time.perf_counter() - t0
+        res["engine_launches"] = read()
+        res["engine_collectives"] = dict(tp.collective_stats)
+        res["engine_stats"] = {k: float(v) for k, v in eng.stats.items()}
+        done = reqs if rank == 0 else sorted(eng.finished, key=lambda r: r.uid)
+        res["engine"] = [list(map(int, r.out)) for r in done]
+    res["k5_check"] = k5_check
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out, f"tp31_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def tp_phase(dev, get_config, random_ternary_params, answers_held):
+    """Phase 31: tensor parallelism at 2 ranks on the card. The kernels are
+    built already (by the parent's start-up); two ranks (``--tp-rank``) run
+    over gloo, both on cuda:0, each with TP_RANK_TIMEOUT_S to answer. Holds:
+    both ranks' tokens equal; every answer within TOKEN_TOL of the
+    single-process port's teacher-forced plain reference on the same weights;
+    each rank's K1 / K3 / K5 (and in the engine K7) launches non-zero and
+    equal between the ranks; each rank's first K5 call bit for bit its plain
+    version's. The gloo run checks correctness only: its times are no speed
+    figure of tensor parallelism. Returns the record."""
+    import socket
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    for r in (0, 1):
+        path = os.path.join(out, f"tp31_rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               str(port), out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=ROOT) for r in (0, 1)]
+    problems = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(timeout=max(1.0, TP_RANK_TIMEOUT_S
+                                                   - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                problems.append(f"rank {r} did not answer within {TP_RANK_TIMEOUT_S} s")
+                break
+            if p.returncode != 0:
+                problems.append(f"rank {r} exit {p.returncode}: {log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if problems:
+        fail("31 " + "; ".join(problems))
+    wall = time.perf_counter() - t0
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(out, f"tp31_rank{r}.json")) as f:
+            res.append(json.load(f))
+    for key in ("generate", "engine"):
+        if res[0][key] != res[1][key]:
+            fail(f"31 the ranks' {key} tokens differ")
+    for key, names in (("generate_launches", ("K1", "K3", "K5")),
+                       ("engine_launches", ("K1", "K3", "K5", "K7"))):
+        if res[0][key] != res[1][key]:
+            fail(f"31 the ranks' {key} differ: {res[0][key]} / {res[1][key]}")
+        idle = [k for k in names if not res[0][key][k]]
+        if idle:
+            fail(f"31 {key}: no launch of {idle}")
+    for r_ in res:
+        if not r_["k5_check"].get("equal"):
+            fail(f"31 rank {r_['rank']}: K5's call {r_['k5_check']} is not its plain version's bits")
+    cfg = get_config("llama-3-8b").with_(n_layers=TP_LAYERS)
+    params = random_ternary_params(cfg, seed=TP_SEED, perm_mode="ssr", device=dev)
+    prompt, prompts = tp_prompts(cfg, dev)
+    worst_g = answers_held("31 tp_generate answers", cfg, params, list(prompt.cpu().numpy()),
+                           res[0]["generate"], False, TOKEN_TOL)
+    worst_e = answers_held("31 TP engine answers", cfg, params, prompts, res[0]["engine"], False,
+                           TOKEN_TOL)
+    del params
+    torch.cuda.empty_cache()
+    steps = res[0]["engine_stats"]["steps"]
+    rec = {"wall_s": wall, "layers": TP_LAYERS, "backend": res[0]["backend"],
+           "worst_pick_gap": {"generate": worst_g, "engine": worst_e},
+           "collective_s_per_engine_step": res[0]["engine_collectives"]["seconds"] / max(steps, 1),
+           "ranks": [{k: v for k, v in r_.items() if k not in ("generate", "engine")}
+                     for r_ in res]}
+    for r_ in res:
+        print(f"31 rank {r_['rank']} ({r_['backend']}, both ranks on cuda:0): tp_generate 4 x 128 "
+              f"+ 16 in {r_['generate_s']:.2f} s, launches {r_['generate_launches']}, collectives "
+              f"{r_['generate_collectives']}; TP engine (kv_heads {cfg.kv_heads // 2}, multihost, "
+              f"4 slots, M 1024, 8 requests) {r_['engine_stats']['steps']:.0f} steps in "
+              f"{r_['engine_s']:.2f} s, launches {r_['engine_launches']}, collectives "
+              f"{r_['engine_collectives']}; K5 held bit for bit {r_['k5_check']}; peak "
+              f"{r_['max_memory_gb']:.2f} GB")
+    print(f"31 llama-3-8b \"ssr\" ({TP_LAYERS} of 32 layers) at TP 2: both ranks' tokens equal, "
+          f"launches equal; picks within {worst_g:.2e} (tp_generate) / {worst_e:.2e} (engine) of "
+          f"the single-process teacher-forced plain max (<= {TOKEN_TOL}); collectives "
+          f"{rec['collective_s_per_engine_step'] * 1e3:.2f} ms of host time an engine step (gloo "
+          f"through the host: a correctness run, no speed figure); phase wall {wall:.1f} s on "
+          f"{smi()}")
+    return rec
 
 
 def main() -> None:
@@ -2679,12 +2908,12 @@ def main() -> None:
         torch.cuda.synchronize()
         return cfg, params, time.perf_counter() - t0
 
-    # 4. llama-2-7b, "down" layout, 16 of its 32 layers (the run's time
-    # budget; 10b and 11b run the same model): K1 alone, 4 per layer at
+    # 4. llama-2-7b, "down" layout, 8 of its 32 layers (the run's time
+    # budget, 16 before phase 31; 10b and 11b run the same model): K1 alone, 4 per layer at
     # prefill and each step; the 512-row prefill on the tensor cores (bf16:
     # "tc", W2A8: "tc_a8"), decode (4 rows) on the decode kernel (bf16) or
     # the CUDA cores (W2A8)
-    cfg, params, record["model_build_s"] = build("llama-2-7b", "down", 2, n_layers=16)
+    cfg, params, record["model_build_s"] = build("llama-2-7b", "down", 2, n_layers=8)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     none = dict.fromkeys(counts(), 0)
@@ -2836,10 +3065,9 @@ def main() -> None:
     # gateup) + K1 (down) per layer (W2A8: the fused MLP takes "auto" only).
     # bf16 decode rows run K3's decode path, W2A8 ones its CUDA-core kernel
     # Every path on this model (the lockstep paths 5, 13b, 16b, 8, 17b, 18b,
-    # 20b and the engines of run E and 14b) runs 16 of its 32 layers (the
-    # run's time budget; the first 16 of its weights, drawn as the 32-layer
-    # model draws them)
-    cfg, params, record["model_build_8b_s"] = build("llama-3-8b", "ssr", 4, n_layers=16)
+    # 20b and the engines of run E and 14b) runs 8 of its 32 layers (the
+    # run's time budget, 16 before phase 31)
+    cfg, params, record["model_build_8b_s"] = build("llama-3-8b", "ssr", 4, n_layers=8)
     prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=g, device=dev)
     L = cfg.n_layers
     want_ssr = {  # bf16 decode: every K3 launch on its decode path; W2A8: none
@@ -3078,7 +3306,7 @@ def main() -> None:
 
     stamp("18b")
     # ---- 18b. one lockstep prefill (4 x 128 = 512 rows) of the same
-    # llama-3-8b "ssr" model (16 layers) under the P1 flags, K5's 512-row
+    # llama-3-8b "ssr" model (8 layers) under the P1 flags, K5's 512-row
     # gathers on its rows path (on) or on K5's first kernel (off:
     # k5_rows(False)), in turns on, off (cut from four: a settled A/B, the
     # run's time budget; phase 8 ran this prefill
@@ -3195,7 +3423,7 @@ def main() -> None:
     record["lockstep_ssr_prefill_k4_ab"] = k4_ab
     del ref_logits
 
-    # run E: the ServeEngine over the same "ssr" model (16 layers) under the
+    # run E: the ServeEngine over the same "ssr" model (8 layers) under the
     # P2 flags: 8 slots, max_len 2048, 16 greedy requests of 64-512 ids (one
     # of exactly 64, whose admission bucket runs K6 at 64 rows), bf16 KV,
     # quantum 1
@@ -3244,7 +3472,7 @@ def main() -> None:
           f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL}) on {record['smi']}")
 
     stamp("14b")
-    # ---- 14b. "engine ssr default": the same "ssr" model (16 layers) under the
+    # ---- 14b. "engine ssr default": the same "ssr" model (8 layers) under the
     # default flags, 8 slots, max_len 2048, bf16 KV, quantum 1, 16 greedy
     # requests of 9-64 ids (buckets 16, 32 and 64 each at least once), 16-32
     # new tokens. Every admission (<= 64 rows): K3 x2 (qkv, o) on its
@@ -3374,12 +3602,12 @@ def main() -> None:
 
     stamp("5b")
     # ---- 5b. the serving slice's main path: the ServeEngine over the same
-    # llama-3-8b "down" model at 8 of its 32 layers (the run's time budget:
-    # 16 until phase 23 was added), 8 slots, max_len 2048, 16 greedy
-    # requests. 5b's runs and held answers, 10c, 11c, 16b's engine A/B, the
-    # server (5c) and 19b's steps run these 8 layers (the first 8 of its
-    # stacked weights: every loop runs over cfg.n_layers)
-    cfg, L = cfg.with_(n_layers=8), 8
+    # llama-3-8b "down" model at 4 of its 32 layers (the run's time budget:
+    # 16 until phase 23 was added, 8 until phase 31), 8 slots, max_len 2048,
+    # 16 greedy requests. 5b's runs and held answers, 10c, 11c, 16b's engine
+    # A/B, the server (5c) and 19b's steps run these 4 layers (the first 4
+    # of its stacked weights: every loop runs over cfg.n_layers)
+    cfg, L = cfg.with_(n_layers=4), 4
     eng_prompts = make_prompts(cfg, host_ints(64, 512, 16))
     eng_news = host_ints(32, 64, 16)
 
@@ -6086,6 +6314,19 @@ def main() -> None:
         if rc:
             fail(f"27b {what} launch failed in timing: {rc}")
 
+    # the library yardstick: torch._int_mm of int8 rows (24: it takes > 16
+    # rows in multiples of 8) by the dense int8 gateup codes, then of int8
+    # mid by the dense down codes (each past L2 on its own)
+    g8_27 = torch.randint(-1, 2, (2 * I, D), generator=g27, device=dev, dtype=torch.int8).t()
+    d8_27 = torch.randint(-1, 2, (n, I), generator=g27, device=dev, dtype=torch.int8).t()
+    xq27 = torch.randint(-127, 128, (24, D), generator=g27, device=dev, dtype=torch.int8)
+    mq27 = torch.randint(-127, 128, (24, I), generator=g27, device=dev, dtype=torch.int8)
+    try:
+        torch._int_mm(xq27, g8_27), torch._int_mm(mq27, d8_27)
+    except RuntimeError:
+        g8_27, d8_27 = g8_27.contiguous(), d8_27.contiguous()
+    int_mm27 = time27(lambda i: (torch._int_mm(xq27, g8_27), torch._int_mm(mq27, d8_27)), 20)
+    del g8_27, d8_27
     # (the CUDA-core FLOOR instance is built for 8-row tiles only: both at 8)
     for path, B27 in (("dec", 1), ("tc", 16), ("cc", 8)):
         x = floor_rows27(B27, D)
@@ -6147,13 +6388,15 @@ def main() -> None:
         d27 = {"kernel": path_key27[path], "B": B27, "D": D, "I": I, "n": n,
                "ms": min(turns[0], turns[3]), "bf16_ms": min(turns[1], turns[2]),
                "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": int_mm27}
         d27["unpack_share"] = 1.0 - d27["ms"] / d27["bf16_ms"]
         rec27["timing"].append(d27)
         print(f"27b K2 floor, {path} path, llama-3-8b MLP (gather, silu) at {B27} rows: "
               f"{' / '.join(f'{t * 1e3:.1f}' for t in turns)} us in turns floor, bf16, bf16, "
               f"floor (the unpack {100 * d27['unpack_share']:.1f} % of the bf16 instance) | plain "
-              f"{plain_ms * 1e3:.1f} us | bound {d27['bound_ms'] * 1e3:.2f} us "
+              f"{plain_ms * 1e3:.1f} us | torch._int_mm x2 (24 rows) {int_mm27 * 1e3:.1f} us | "
+              f"bound {d27['bound_ms'] * 1e3:.2f} us "
               f"({d27['bound_by']}) on {record['smi']}")
     if ctr27.any():
         fail("27b a K2 floor timing left a counter set")
@@ -6162,8 +6405,9 @@ def main() -> None:
     record["k2_floor"] = rec27
 
     stamp("28")
-    # ---- 28. the paged engine (serve/paged.py) on llama-3-8b "down" at its
-    # 32 layers with phase 5b's requests (8 slots, M 2048, 16 greedy requests
+    # ---- 28. the paged engine (serve/paged.py) on llama-3-8b "down", cut to
+    # 8 of its 32 layers (the run's time budget since phase 31), with phase
+    # 5b's requests (8 slots, M 2048, 16 greedy requests
     # of 64-512 ids): page_size 64, kv_pages 80 (31 % of the flat pool's 256
     # pages; 8 slots x 9 pages is the worst case of these requests). Runs:
     # bf16 KV at quantum 1, int8 KV at quantum 1, bf16 KV at quantum 8, each
@@ -6175,7 +6419,7 @@ def main() -> None:
     from pt2tpu_torch.serve.paged import PagedServeEngine
 
     rec28 = {"runs": {}}
-    cfg28, params28, rec28["build_s"] = build("llama-3-8b", "down", 5)
+    cfg28, params28, rec28["build_s"] = build("llama-3-8b", "down", 5, n_layers=8)
     L28, PS28, PAGES28 = cfg28.n_layers, 64, 80
 
     def llama_launches(L_, passes, k7_steps, k2):
@@ -6275,17 +6519,20 @@ def main() -> None:
     stamp("29")
     # ---- 29. speculative decoding: llama-2-70b (the registry's largest dense
     # model) as the target under a llama-2-7b draft, both "down" at full
-    # width and depth (80 and 32 layers; they share the 32000-token
+    # width, the 70b cut to 40 of its 80 layers (the run's time budget since
+    # phase 31), the 7b at its 32 (they share the 32000-token
     # vocabulary), bf16 KV, spec_k 4. The 70b's K2 takes its MLP at <= 64
     # rows (its gateup needs no pad blocks), the 7b's gateup is padded (no K2).
-    # (a) speculative_generate: one prompt of 128 ids, 32 new; launches
+    # (a) speculative_generate: one prompt of 128 ids, 16 new (32 before
+    # phase 31, the run's time budget); launches
     # exact (per round: k + 1 one-row draft forwards, one k + 1-row verify;
     # M 165: no K7), every answer held to TOKEN_TOL under its teacher-forced
     # plain reference, beside the 70b's greedy_generate on the card (equal
     # tokens counted, not gated: a near-tie may break apart between the
     # 1-row and the 5-row kernels); the 70b's first decode step profiled
     # against its bytes bound. (b) the ServeEngine with the 7b as its draft
-    # (4 slots, M 1024, 4 greedy requests of 64-256 ids, 16 new): launches
+    # (4 slots, M 1024, 2 greedy requests of 64-256 ids (4 before phase 31,
+    # the run's time budget), 16 new): launches
     # exact (each step k + 1 draft steps at 4 rows with K7, then a 20-row
     # verify on K1's and K2's tensor-core paths), answers held to TOKEN_TOL,
     # beside the non-speculative engine (held too). (c) a perfect draft
@@ -6295,10 +6542,10 @@ def main() -> None:
     from pt2tpu_torch.serve.speculative import speculative_generate
 
     rec29 = {}
-    K29, NEW29 = 4, 32
+    K29, NEW29 = 4, 16
     g29 = torch.Generator(device=dev).manual_seed(29)
     gh29 = torch.Generator().manual_seed(29)
-    cfg70, p70, rec29["build_70b_s"] = build("llama-2-70b", "down", 70)
+    cfg70, p70, rec29["build_70b_s"] = build("llama-2-70b", "down", 70, n_layers=40)
     cfg7, p7, rec29["build_7b_s"] = build("llama-2-7b", "down", 7)
     L70, L7 = cfg70.n_layers, cfg7.n_layers
 
@@ -6392,7 +6639,7 @@ def main() -> None:
 
     stamp("29b")
     # (b) the engines, 4 slots, M 1024
-    lens29 = torch.randint(64, 257, (4,), generator=gh29).tolist()
+    lens29 = torch.randint(64, 257, (2,), generator=gh29).tolist()
     prompts29 = make_prompts(cfg70, lens29, g29)
     M29 = 1024
 
@@ -6468,6 +6715,123 @@ def main() -> None:
     record["speculative"] = rec29
 
     record["paths_s"] = time.perf_counter() - t_start
+
+    stamp("30")
+    # ---- 30. K7's wide instance (hd > 512, the width at run time: 16-position
+    # tiles, one CTA an SM, each warp streaming its own 128-lane chunks of K
+    # and V). (a) both kernels at hd 640 / 768 / 1024, B 1 and 8, M 2048,
+    # bf16 and int8 KV, ragged lengths, 8 / 2 KV heads: the tensor-core
+    # kernel held to the plain version, to one bf16 step of its split plain
+    # version on its plan and to its own bits run to run, the CUDA-core
+    # kernel to the plain version; (b) 2-layer llama-3-8b-width models with
+    # head_dim 640 and 1024, cut to 8 / 2 heads ("down" layout), in the
+    # ServeEngine (8 slots, M 2048, 8 requests of 64-512 ids, 16 new): hd 640
+    # bf16 KV, hd 1024 int8 KV, hd 1024 bf16 with K7_TC off; K7 launched
+    # layers x steps times, all on the wide instance, every call held against
+    # its plain version, every answer held to TOKEN_TOL under its
+    # teacher-forced plain reference. Timed in phase 6. Its own generator.
+    rec30 = {}
+    g30 = torch.Generator(device=dev).manual_seed(30)
+    errs["decode_attention_wide_rt"] = errs["decode_attention_cc_wide_rt"] = 0.0
+    errs["decode_attention_wide_rt_split"] = 0.0
+    nchecks["decode_attention_wide_rt"] = nchecks["decode_attention_cc_wide_rt"] = 0
+    for hd in WIDE_RT_HEAD_DIMS:
+        for B in (1, 8):
+            for quant in (False, True):
+                a = attn_inputs(B, ENGINE_M, 8, 2, quant, hd=hd, gen=g30)
+                label = f"30a K7 hd={hd} B={B} M={ENGINE_M} int8={quant}"
+                plain = k7.decode_attention_plain(*a[:4], hd ** -0.5, *a[4:])
+                d7 = k7.decode_attention
+                c0 = (d7.launches, d7.launches_tc, d7.launches_wide_rt)
+                got = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                again = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                k7.K7_TC = False
+                got_cc = k7.decode_attention(*a[:4], hd ** -0.5, *a[4:])
+                k7.K7_TC = True
+                rose = (d7.launches - c0[0], d7.launches_tc - c0[1], d7.launches_wide_rt - c0[2])
+                if rose != (3, 2, 3):
+                    fail(f"{label}: launches (all, tensor-core, wide) rose by {rose}, not (3, 2, 3)")
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"{label}: two runs differ")
+                held("decode_attention_wide_rt", label, got, plain, ATTN_TOL)
+                held("decode_attention_cc_wide_rt", f"{label} (CUDA-core kernel)", got_cc, plain,
+                     ATTN_TOL)
+                plan = k7.k7_plan(B, ENGINE_M, 2, 4, hd, quant)
+                want = k7.decode_attention_split_plain(*a[:4], hd ** -0.5, *a[4:], tile=plan.tile,
+                                                       splits=plan.splits).float()
+                step = torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                over = ((got.float() - want).abs() - step).max().item() / want.abs().max().item()
+                if not over <= K7_SPLIT_TOL:
+                    fail(f"{label}: {over:.3e} of max|ref| past one bf16 step of the split plain "
+                         "version")
+                errs["decode_attention_wide_rt_split"] = max(
+                    errs["decode_attention_wide_rt_split"], over)
+                del a, plain
+    rec30["per_call"] = {k_: {"checks": nchecks[k_], "max_abs_err": errs[k_]}
+                         for k_ in ("decode_attention_wide_rt", "decode_attention_cc_wide_rt")}
+    rec30["occupancy"] = {hd_: k7.wide_max_active_clusters(ENGINE_M, hd_, False, 8)
+                          for hd_ in WIDE_RT_HEAD_DIMS}
+    print(f"30a K7's wide instance at hd {WIDE_RT_HEAD_DIMS}, B 1 / 8, M {ENGINE_M}, bf16 and "
+          f"int8: tensor-core kernel {nchecks['decode_attention_wide_rt']} checks (max|err| "
+          f"{errs['decode_attention_wide_rt']:.3e}, past one bf16 step of its split plain version "
+          f"by at most {errs['decode_attention_wide_rt_split']:.3e} of max|ref|), the CUDA-core "
+          f"kernel {nchecks['decode_attention_cc_wide_rt']} (max|err| "
+          f"{errs['decode_attention_cc_wide_rt']:.3e}), each within {ATTN_TOL} x max|ref| of the "
+          f"plain version; 8-CTA clusters resident at once {rec30['occupancy']}")
+
+    wide_rt_launches = {"decode_attention_wide_rt_hd640": 0, "decode_attention_wide_rt_hd1024": 0,
+                        "decode_attention_cc_wide_rt_hd1024": 0}
+    rec30["engines"] = {}
+    for hd, kvq, tc in ((640, False, True), (1024, True, True), (1024, False, False)):
+        cfg_w = get_config("llama-3-8b").with_(n_layers=2, head_dim=hd, n_heads=8, n_kv_heads=2)
+        if cfg_w.hd != hd:
+            fail(f"30b a head_dim {hd} config has hd {cfg_w.hd}")
+        params_w = random_ternary_params(cfg_w, seed=hd + 30, perm_mode="down", device=dev)
+        prompts_w = make_prompts(cfg_w, torch.randint(64, 513, (8,), generator=g30,
+                                                      device=dev).tolist(), g30)
+        k7.K7_TC = tc
+        eng = ServeEngine(cfg_w, params_w, max_batch=8, max_len=ENGINE_M, kv_quant=kvq)
+        reqs = [eng.submit(p_, 16) for p_ in prompts_w]
+        for k_ in per_call:
+            per_call[k_] = 0
+        with swapped(each_call_checked, ("decode_attention",)):
+            zero_counts()
+            k7.decode_attention.launches_wide_rt = 0
+            eng.run()
+            torch.cuda.synchronize()
+            got = counts()
+            wide_rt = k7.decode_attention.launches_wide_rt
+        k7.K7_TC = True
+        st_ = eng.stats["steps"]
+        L_ = cfg_w.n_layers
+        want = {"decode_attention": L_ * st_, "decode_attention_wide_rt": L_ * st_,
+                "decode_attention_tc": L_ * st_ if tc else 0, "held": L_ * st_}
+        have = {"decode_attention": got["decode_attention"], "decode_attention_wide_rt": wide_rt,
+                "decode_attention_tc": got["decode_attention_tc"],
+                "held": per_call["decode_attention"]}
+        if have != want:
+            fail(f"30b 2-layer hd {hd} engine (int8 KV={kvq}, K7_TC={tc}): {have}, want {want}")
+        tally(got)
+        if not all(r.done and len(r.out) == 16 for r in reqs):
+            fail(f"30b 2-layer hd {hd} engine: a request did not finish")
+        worst = family_answers_held(f"30b 2-layer hd {hd} engine answers", cfg_w, params_w,
+                                    prompts_w, [r.out for r in reqs], kvq, TOKEN_TOL)
+        wide_rt_launches[f"decode_attention{'' if tc else '_cc'}_wide_rt_hd{hd}"] += wide_rt
+        tag = f"hd {hd} {'int8' if kvq else 'bf16'} KV{'' if tc else ', K7_TC off'}"
+        rec30["engines"][tag] = {"steps": st_, "launches": got, "wide_rt": wide_rt,
+                                 "worst_pick_gap": worst}
+        print(f"30b 2-layer llama-3-8b width, head_dim {hd}, 8 / 2 heads, ServeEngine ({tag}): "
+              f"{st_} decode steps, K7 launched {wide_rt} = {L_} layers x {st_} steps on the wide "
+              f"instance, every call held against its plain version; every pick within "
+              f"{worst:.2e} of the teacher-forced plain max (<= {TOKEN_TOL})")
+        del eng, params_w
+        torch.cuda.empty_cache()
+    rec30["launches"] = wide_rt_launches
+    record["k7_wide_rt"] = rec30
+
+    stamp("31")
+    record["tp"] = tp_phase(dev, get_config, random_ternary_params, family_answers_held)
 
     stamp("6")
     # ---- 6. timings (cold weights: rotate > L2), CUDA events over back-to-back
@@ -7649,6 +8013,11 @@ def main() -> None:
                                                   modes=("all",))
     record["k7_gemma3_ring_timing"] = k7_timing(H3, Hkv3, hd3, 1.0 / math.sqrt(hd3), "K7gemma3ring",
                                                 modes=("all",), M7=RING_SLOTS)
+    # K7's wide instance (phase 30) at 8 / 2 KV heads, hd 640 / 768 / 1024,
+    # every slot valid
+    for hd_w in WIDE_RT_HEAD_DIMS:
+        record[f"k7_hd{hd_w}_timing"] = k7_timing(8, 2, hd_w, hd_w ** -0.5, f"K7hd{hd_w}",
+                                                  modes=("all",))
 
     # the floor's FLOOR instances through their C entries (a8 mode 2, K1's
     # int8 tensor cores through pt2_ternary_matmul_tc_a8_floor) at
@@ -7697,6 +8066,20 @@ def main() -> None:
         xq = torch.empty((B, Kf), dtype=torch.int8, device=dev)
         isums = torch.empty((Kf // 128, 128), dtype=torch.int32, device=dev)
         P = lambda t: t.data_ptr()  # noqa: E731
+        # the library yardstick: torch._int_mm of int8 rows (24 below 17: it
+        # takes > 16 rows in multiples of 8) by the dense int8 codes, over
+        # copies past L2, from CUDA events, as phase 6 times the W2A8 rows
+        xq_f = torch.randint(-127, 128, (B if B > 16 else 24, Kf), generator=gft, device=dev,
+                             dtype=torch.int8)
+        dn8_f = [torch.randint(-1, 2, (nf, Kf), generator=gft, device=dev, dtype=torch.int8).t()
+                 for _ in range(max(1, math.ceil(COLD_BYTES / (Kf * nf))))]
+        try:
+            torch._int_mm(xq_f, dn8_f[0])
+        except RuntimeError:
+            dn8_f = [t_.contiguous() for t_ in dn8_f]
+        int_mm_f = time_ms(lambda i: torch._int_mm(xq_f, dn8_f[i % len(dn8_f)]), 50)
+        print(f"floor library yardstick B={B}: torch._int_mm ({xq_f.shape[0]} rows) at llama-3-8b "
+              f"qkv {int_mm_f * 1e3:.2f} us on {record['smi']}")
 
         def w(i):
             return fl_layers[i % copies_f]
@@ -7798,7 +8181,7 @@ def main() -> None:
             b_ms, b_by = bound(nbytes, ops, int8_peak if kname == "ternary_matmul_tc_a8"
                                else bf16_peak)
             d = {"kernel": f"{kname}_floor", "shape": "llama-3-8b qkv", "B": B, "ms": fl_ms,
-                 "a8_ms": a8_ms, "plain_ms": pl_ms, "library_ms": None, "bytes": nbytes,
+                 "a8_ms": a8_ms, "plain_ms": pl_ms, "library_ms": int_mm_f, "bytes": nbytes,
                  "bound_ms": b_ms, "bound_by": b_by}
             floor_timing.append(d)
             print(f"floor {kname} B={B}: FLOOR instance {fl_ms * 1e3:.2f} us, its W2A8 (unpack) "
@@ -8052,7 +8435,7 @@ def main() -> None:
                         "launches": record["floor"]["launches"][inst],
                         "max_abs_err": record["floor"]["per_call"]["max_abs_err"][inst],
                         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-                        "bound_by": d["bound_by"], "library_ms": None})
+                        "bound_by": d["bound_by"], "library_ms": d["library_ms"]})
     # K2's floor probe (phase 27): each path's FLOOR instance at llama-3-8b's
     # MLP with its gather, B 1 (decode path), 16 (tensor-core path) or 8 (the
     # CUDA cores, whose FLOOR instance has 8-row tiles only); its launches: 27a's direct fused_mlp_apply(impl="floor8") calls,
@@ -8067,7 +8450,7 @@ def main() -> None:
                         "launches": record["k2_floor"]["launches"][d["kernel"]],
                         "max_abs_err": record["k2_floor"]["max_abs_err"][d["kernel"]],
                         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-                        "bound_by": d["bound_by"], "library_ms": None})
+                        "bound_by": d["bound_by"], "library_ms": d["library_ms"]})
     # K7 at hd 384 and 512 (phase 25), both kernels, at 8 / 2 KV heads, B 8,
     # M 2048, bf16 cache; their launches: 25b's engine runs, counted exactly
     main_launches.update(record["k7_wide"]["launches"])
@@ -8081,6 +8464,19 @@ def main() -> None:
                              [d for d in record["k7_cc_timing"]
                               if d["kernel"].startswith(f"K7hd{hd_w} ") and d["shape"] == "bf16"],
                              errs["decode_attention_cc_wide"]))
+    # K7's wide instance (phase 30), both kernels, at 8 / 2 KV heads, B 8,
+    # M 2048, bf16 cache; their launches: 30b's engine runs, counted exactly
+    main_launches.update(record["k7_wide_rt"]["launches"])
+    for hd_w, cc in ((640, False), (1024, False), (1024, True)):
+        kernels.append(entry(f"decode_attention{'_cc' if cc else ''}_wide_rt_hd{hd_w}",
+                             "pt2tpu_torch/csrc/decode_attention.cu" if cc
+                             else "pt2tpu_torch/csrc/decode_attention_tc.cu",
+                             "pt2tpu/ops/kernels/pallas_attention.py:249",
+                             [d for d in (record["k7_cc_timing"] if cc
+                                          else record[f"k7_hd{hd_w}_timing"])
+                              if d["kernel"].startswith(f"K7hd{hd_w}") and d["shape"] == "bf16"],
+                             errs["decode_attention_cc_wide_rt" if cc
+                                  else "decode_attention_wide_rt"]))
     record["kernels"] = kernels
     record["launches_all_runs"] = run_totals
     print(f"launches over every run counted exactly: {run_totals}")
@@ -8100,4 +8496,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-rank":
+        tp_rank_main(sys.argv[2:])
+    else:
+        main()

@@ -359,6 +359,237 @@ cudaError_t launch(int rb, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, co
   return cudaGetLastError();
 }
 
+
+// The widths above 512 (hd a multiple of 128 up to 2048), the width taken at
+// run time: the same schedule and the same order of every sum, with q, its
+// codes, the chunk's scores and the rows' sums in dynamic shared memory, and
+// P.V one 128-dim piece at a time (a thread's accumulators RB x 8, whatever
+// hd), each piece reading its 256 bytes of every V row of the chunk.
+template <bool QUANT, int RB>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_chunk_wide(const __nv_bfloat16* __restrict__ q,  // (B, H, hd)
+                            const void* __restrict__ k,        // (B, M, Hkv, hd)
+                            const void* __restrict__ v,
+                            const uint8_t* __restrict__ valid, // (B, M)
+                            const float* __restrict__ k_scale, // int8: (B, M, Hkv)
+                            const float* __restrict__ v_scale,
+                            float* __restrict__ part_acc,      // (B, H, nchunk, hd)
+                            float* __restrict__ part_ml,       // (B, H, nchunk, 2)
+                            float scale, int M, int H, int Hkv, int chunk, int nchunk, int groups,
+                            int hd) {
+  constexpr int EB = QUANT ? 1 : 2;
+  extern __shared__ __align__(16) float wsm[];
+  float* sq = wsm;                                           // [RB][hd] q in f32
+  float* ss = sq + RB * hd;                                  // [RB][chunk] scores, then p
+  float* red = ss + RB * chunk;                              // [ROWS][128] a piece's rows
+  int8_t* sq8 = reinterpret_cast<int8_t*>(red + ROWS * 128);  // int8: [RB][hd] q quantised
+  __shared__ float sqs[RB], sm[RB], sl[RB];
+
+  const int c = blockIdx.x;
+  const int hkv = blockIdx.y / groups, g = blockIdx.y % groups;
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int h0 = hkv * rep + g * MAX_HEADS;
+  const int nh = min(RB, rep - g * MAX_HEADS);
+  const int c0 = c * chunk, clen = min(chunk, M - c0);
+  const int tid = threadIdx.x, lane = tid % LANES, row = tid / LANES;
+  const int pieces = hd / 128;
+
+  for (int i = tid; i < RB * hd; i += THREADS) {
+    const int r = i / hd, d = i % hd;
+    sq[i] = r < nh ? __bfloat162float(q[((size_t)b * H + h0 + r) * hd + d]) : 0.f;
+  }
+  __syncthreads();
+  const int warp = tid / 32, wl = tid % 32;
+  if constexpr (QUANT) {
+    for (int r = warp; r < RB; r += THREADS / 32) {
+      float a = 0.f;
+      for (int d = wl; d < hd; d += 32) a = fmaxf(a, fabsf(sq[r * hd + d]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+      const float qs = fmaxf(a / 127.f, 1e-20f);
+      for (int d = wl; d < hd; d += 32)
+        sq8[r * hd + d] = static_cast<int8_t>(fminf(fmaxf(rintf(sq[r * hd + d] / qs), -127.f), 127.f));
+      if (wl == 0) sqs[r] = r < nh ? qs * scale : 0.f;
+    }
+    __syncthreads();
+  }
+
+  const size_t rs = (size_t)Hkv * hd;
+  const size_t base = ((size_t)b * M + c0) * rs + (size_t)hkv * hd + lane * 8;
+  const char* kb = static_cast<const char*>(k) + base * EB;
+  const char* vb = static_cast<const char*>(v) + base * EB;
+
+  // ---- 1. scores, a position's pieces in order
+  for (int p = row; p - row < clen; p += ROWS) {
+    float s[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) s[r] = 0.f;
+    if (p < clen) {
+      for (int pc = 0; pc < pieces; ++pc) {
+        const Raw<QUANT> raw = load_raw<QUANT>(kb + ((size_t)p * rs + pc * 128) * EB);
+        const int d0 = pc * 128 + lane * 8;
+        if constexpr (QUANT) {
+          const int kw0 = static_cast<int>(raw.u.x), kw1 = static_cast<int>(raw.u.y);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const int2 qw = *reinterpret_cast<const int2*>(&sq8[r * hd + d0]);
+            int acc = __dp4a(kw0, qw.x, 0);
+            acc = __dp4a(kw1, qw.y, acc);
+            s[r] += static_cast<float>(acc);
+          }
+        } else {
+          float kf[8];
+          to_float(raw, kf);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float4 qa = *reinterpret_cast<const float4*>(&sq[r * hd + d0]);
+            const float4 qb = *reinterpret_cast<const float4*>(&sq[r * hd + d0 + 4]);
+            float a = s[r];
+            a = fmaf(kf[0], qa.x, a); a = fmaf(kf[1], qa.y, a);
+            a = fmaf(kf[2], qa.z, a); a = fmaf(kf[3], qa.w, a);
+            a = fmaf(kf[4], qb.x, a); a = fmaf(kf[5], qb.y, a);
+            a = fmaf(kf[6], qb.z, a); a = fmaf(kf[7], qb.w, a);
+            s[r] = a;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+    if (p < clen && lane == 0) {
+      const size_t pos = (size_t)b * M + c0 + p;
+      const bool ok = valid[pos] != 0;
+      if constexpr (QUANT) {
+        const float ksp = k_scale[pos * Hkv + hkv];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float ks = ok ? ksp * sqs[r] : 0.f;
+          ss[r * chunk + p] = ks > 0.f ? s[r] * ks : -INFINITY;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) ss[r * chunk + p] = ok ? s[r] * scale : -INFINITY;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. the chunk's softmax statistics, p rounded to bf16 in place
+  for (int r = warp; r < RB; r += THREADS / 32) {
+    float m = NEG;
+    for (int p = wl; p < clen; p += 32) m = fmaxf(m, ss[r * chunk + p]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float l = 0.f;
+    for (int p = wl; p < clen; p += 32) {
+      const float e = expf(ss[r * chunk + p] - m);
+      l += e;
+      float pv = e;
+      if constexpr (QUANT) pv = e * v_scale[((size_t)b * M + c0 + p) * Hkv + hkv];
+      ss[r * chunk + p] = bf16_round(pv);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (wl == 0) {
+      sm[r] = m;
+      sl[r] = l;
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. P.V a piece at a time; the rows summed in order 0..7
+  const size_t out0 = ((size_t)b * H + h0) * nchunk + c;
+  for (int pc = 0; pc < pieces; ++pc) {
+    float acc[RB][8];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+    for (int p = row; p < clen; p += ROWS) {
+      float vf[8];
+      to_float(load_raw<QUANT>(vb + ((size_t)p * rs + pc * 128) * EB), vf);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float pr = ss[r * chunk + p];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(pr, vf[j], acc[r][j]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[row * 128 + lane * 8 + j] = acc[r][j];
+      __syncthreads();
+      if (r < nh) {
+        for (int d = tid; d < 128; d += THREADS) {
+          float t = 0.f;
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) t += red[i * 128 + d];
+          part_acc[(out0 + (size_t)r * nchunk) * hd + pc * 128 + d] = t;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (tid < nh) {
+    part_ml[(out0 + (size_t)tid * nchunk) * 2] = sm[tid];
+    part_ml[(out0 + (size_t)tid * nchunk) * 2 + 1] = sl[tid];
+  }
+}
+
+// The combine at a width taken at run time.
+__global__ void __launch_bounds__(THREADS)
+decode_attention_combine_wide(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                              __nv_bfloat16* __restrict__ out, int nchunk, int hd) {
+  const size_t bh = blockIdx.x;
+  const float* ml = part_ml + bh * nchunk * 2;
+  float mx = NEG;
+  for (int c = 0; c < nchunk; ++c) mx = fmaxf(mx, ml[2 * c]);
+  float l = 0.f;
+  for (int c = 0; c < nchunk; ++c) l += expf(ml[2 * c] - mx) * ml[2 * c + 1];
+  const float den = fmaxf(l, 1e-30f);
+  for (int d = threadIdx.x; d < hd; d += THREADS) {
+    float a = 0.f;
+    for (int c = 0; c < nchunk; ++c) a += expf(ml[2 * c] - mx) * part_acc[(bh * nchunk + c) * hd + d];
+    out[bh * hd + d] = __float2bfloat16_rn(a / den);
+  }
+}
+
+template <bool QUANT>
+cudaError_t launch_wide(int rb, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const void* k,
+                        const void* v, const uint8_t* valid, const float* ks, const float* vs,
+                        float* pa, float* pml, float scale, int M, int H, int Hkv, int chunk,
+                        int nchunk, int groups, int hd, int device) {
+  const size_t smem = (size_t)(rb * hd + rb * chunk + ROWS * 128) * 4 + (QUANT ? (size_t)rb * hd : 0);
+  static size_t raised[4][64] = {};
+  const int ri = rb <= 1 ? 0 : rb <= 2 ? 1 : rb <= 4 ? 2 : 3;
+#define PT2_K7W_CASE(RB_)                                                                     \
+  case RB_: {                                                                                 \
+    auto kern = decode_attention_chunk_wide<QUANT, RB_>;                                      \
+    if (device < 0 || device >= 64 || raised[ri][device] < smem) {                            \
+      const cudaError_t e =                                                                   \
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
+      if (e != cudaSuccess) return e;                                                         \
+      if (device >= 0 && device < 64) raised[ri][device] = smem;                              \
+    }                                                                                         \
+    kern<<<grid, THREADS, smem, s>>>(q, k, v, valid, ks, vs, pa, pml, scale, M, H, Hkv, chunk, \
+                                     nchunk, groups, hd);                                     \
+    break;                                                                                    \
+  }
+  switch (rb) {
+    PT2_K7W_CASE(1)
+    PT2_K7W_CASE(2)
+    PT2_K7W_CASE(4)
+    PT2_K7W_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT2_K7W_CASE
+  return cudaGetLastError();
+}
 }  // namespace
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/attention.py).
@@ -366,15 +597,16 @@ cudaError_t launch(int rb, dim3 grid, cudaStream_t s, const __nv_bfloat16* q, co
 // bf16 or (quant) int8 with k_scale/v_scale (B, M, Hkv) f32; valid (B, M)
 // bytes; part_acc (B, H, nchunk, hd) and part_ml (B, H, nchunk, 2) f32
 // scratch with nchunk = ceil(M / chunk); out (B, H, hd) bf16. hd is 128,
-// 256, 384 or 512; chunk a multiple of 8 up to chunk_cap(hd) (512, 256 above
-// hd 256). Returns the first launch error, or 0.
+// 256, 384 or 512, or a multiple of 128 from 640 to 2048 (the wide
+// instance); chunk a multiple of 8 up to chunk_cap(hd) (512, 256 above hd
+// 256). Returns the first launch error, or 0.
 extern "C" int pt2_decode_attention(const void* q, const void* k, const void* v,
                                     const void* valid, const void* k_scale,
                                     const void* v_scale, void* part_acc, void* part_ml,
                                     void* out, float scale, int B, int M, int H, int Hkv,
                                     int hd, int chunk, int quant, int device, void* stream) {
   if (B < 1 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv ||
-      (hd != 128 && hd != 256 && hd != 384 && hd != 512) ||
+      hd < 128 || hd % 128 || hd > 2048 ||
       chunk < ROWS || chunk > chunk_cap(hd) || chunk % ROWS ||
       (quant && (!k_scale || !v_scale)))
     return (int)cudaErrorInvalidValue;
@@ -413,6 +645,14 @@ extern "C" int pt2_decode_attention(const void* q, const void* k, const void* v,
   PT2_K7_HD(384)
   PT2_K7_HD(512)
 #undef PT2_K7_HD
+  if (hd > 512) {
+    e = quant ? launch_wide<true>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H, Hkv,
+                                  chunk, nchunk, groups, hd, device)
+              : launch_wide<false>(rb, grid, s, qb, k, v, vd, ks, vs, pa, pml, scale, M, H, Hkv,
+                                   chunk, nchunk, groups, hd, device);
+    if (e != cudaSuccess) return (int)e;
+    decode_attention_combine_wide<<<B * H, THREADS, 0, s>>>(pa, pml, o, nchunk, hd);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -634,6 +634,468 @@ decode_attention_tc(const __grid_constant__ CUtensorMap tk, const __grid_constan
   }
 }
 
+
+// ---- The wide instance: hd above 512, any multiple of 128 up to
+// WIDE_MAX_HD, the width taken at run time as nc = hd / 128 lane chunks.
+//
+// At these widths a tile of the narrow design no longer fits: at bf16 hd 640
+// a CTA takes ~103 KB, from hd 768 only one fits an SM, and P.V's
+// accumulators would pass 255 registers a thread. So here:
+//   - tiles of WT = 16 positions, one CTA an SM (its dynamic shared memory
+//     is padded past half an SM's, so the occupancy table of the plan,
+//     attention.py:MAX_ACTIVE_CLUSTERS_WIDE, holds for every width);
+//   - NW = ceil(nc / CPW) warps, warp w owning lane chunks w, w + NW (CPW of
+//     them, 1 up to hd 1024, 2 up to 2048). Each warp streams its own chunks
+//     of K and V (16 positions x 128 lanes, 4 KB at bf16) by cp.async into a
+//     ring of its own (NS slots: K of tile i, V of tile i, K of tile i + 1,
+//     ...); no producer warp, no mbarrier;
+//   - q.k is accumulated over the warp's chunks (mma.sync as the narrow
+//     instance: positions as M, heads as N, the query fragments in
+//     registers), the warps' partial scores summed through shared memory in
+//     warp order (one barrier a tile), so every warp holds the whole tile's
+//     scores and runs the same online softmax;
+//   - P.V writes only the warp's own output lanes: each thread holds CPW x 8
+//     fragments (32 or 64 floats), whatever hd;
+//   - the splits of a (row, kv head) combine in their cluster as in the
+//     narrow instance, the partials pushed into the ring's memory once every
+//     CTA of the cluster has left its loop.
+constexpr int WT = 16;                       // positions per tile
+constexpr int WMAX_WARPS = 8;
+constexpr int WIDE_MAX_HD = 2048;            // CPW 2 x 8 warps x 128 lanes
+constexpr int WIDE_MIN_SMEM = 116 * 1024;    // past half an SM's shared memory: one CTA an SM
+
+template <bool QUANT, int CPW>
+struct WideCfg {
+  static constexpr int EB = QUANT ? 1 : 2;
+  static constexpr int CHUNK = WT * 128 * EB;  // bytes of a tile's 128-lane chunk of K or V
+  static constexpr int UPR = 128 * EB / 16;    // 16-byte units of a position's chunk
+  static constexpr int KS = 128 * EB / 32;     // 32-byte k steps of a chunk's scores
+  static constexpr int DB = QUANT ? 4 : 8;     // P.V blocks of dims of a chunk (8 fragments)
+  static constexpr int NS = CPW == 1 ? 4 : 3;  // ring slots of a warp (each CPW chunks)
+};
+
+// dynamic shared memory: the ring (the combine's receive buffer in its
+// place), then the valid bits, then (int8) q's codes; before the padding
+__host__ __device__ inline size_t wide_ring_bytes(int nw, int cpw, int ns, int chunk, int hd) {
+  const size_t ring = (size_t)nw * ns * cpw * chunk;
+  const size_t recv = ((size_t)HEADS * hd + 4 * MAX_SPLITS) * 4;
+  return ring > recv ? ring : recv;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Grid (S, Hkv * groups, B), cluster (S, 1, 1), 32 * NW threads; k / v
+// (B, M, Hkv, hd) bytes; nc = hd / 128.
+template <bool QUANT, int CPW>
+__global__ void __launch_bounds__(WMAX_WARPS * 32, 1)
+decode_attention_wide(const __nv_bfloat16* __restrict__ q,   // (B, H, hd)
+                      const unsigned char* __restrict__ k,    // (B, M, Hkv, hd)
+                      const unsigned char* __restrict__ v,
+                      const uint8_t* __restrict__ valid,      // (B, M)
+                      const float* __restrict__ k_scale,      // int8: (B, M, Hkv)
+                      const float* __restrict__ v_scale,
+                      __nv_bfloat16* __restrict__ out,        // (B, H, hd)
+                      float scale, int M, int H, int Hkv, int groups, int nc) {
+  using W = WideCfg<QUANT, CPW>;
+  constexpr int NS = W::NS;
+  extern __shared__ __align__(128) unsigned char wsmem_raw[];
+  unsigned char* ring = wsmem_raw + ((128 - smem_addr(wsmem_raw) % 128) % 128);
+  const int nw = blockDim.x / 32;
+  const int hd = nc * 128;
+  const int words = (M + 31) / 32;
+  const size_t region = wide_ring_bytes(nw, CPW, NS, W::CHUNK, hd);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(ring + region);
+  int8_t* sq8 = reinterpret_cast<int8_t*>(ring + region + ((size_t)words * 4 + 15) / 16 * 16);
+  float* recv = reinterpret_cast<float*>(ring);  // the combine's, once the ring is done
+  __shared__ __align__(16) float red[2][WMAX_WARPS][128];  // the warps' partial scores
+  __shared__ float recv_ml[MAX_SPLITS][HEADS][2];
+  __shared__ float sw[MAX_SPLITS][HEADS], sden[HEADS], sqs[HEADS];
+  __shared__ int s_last;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int hkv = blockIdx.y / groups, grp = blockIdx.y % groups;
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int h0 = hkv * rep + grp * HEADS;
+  const int nh = min(HEADS, rep - grp * HEADS);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  if (tid == 0) s_last = -1;
+
+  if constexpr (QUANT) {
+    // q quantised once for the CTA, a warp per head, as quantize_query:
+    // q_scale = max|q| / 127 floored at 1e-20, codes rint(q / q_scale)
+    // clipped to +-127; heads past the group's count get zeros
+    for (int h = warp; h < HEADS; h += nw) {
+      const __nv_bfloat16* qrow = q + ((size_t)b * H + h0 + min(h, nh - 1)) * hd;
+      float a = 0.f;
+      for (int d = lane; d < hd; d += 32) a = fmaxf(a, fabsf(__bfloat162float(qrow[d])));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+      const float qs = fmaxf(a / 127.f, 1e-20f);
+      for (int d = lane; d < hd; d += 32)
+        sq8[h * hd + d] = h < nh ? static_cast<int8_t>(fminf(
+                                       fmaxf(rintf(__bfloat162float(qrow[d]) / qs), -127.f), 127.f))
+                                 : static_cast<int8_t>(0);
+      if (lane == 0) sqs[h] = h < nh ? qs * scale : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- 0. the row's valid slots as bits, and the last of them
+  const uint8_t* vrow = valid + (size_t)b * M;
+  const bool vec = reinterpret_cast<uintptr_t>(vrow) % 16 == 0;
+  int last = -1;
+  for (int w = tid; w < words; w += blockDim.x) {
+    uint32_t word = 0;
+    if (vec && 32 * w + 32 <= M) {
+      const uint4* p = reinterpret_cast<const uint4*>(vrow + 32 * w);
+      const uint4 a = __ldg(p), c = __ldg(p + 1);
+      const uint32_t x[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t nz = __vcmpne4(x[i], 0u);
+        word |= ((nz & 1u) | ((nz >> 7) & 2u) | ((nz >> 14) & 4u) | ((nz >> 21) & 8u)) << (4 * i);
+      }
+    } else {
+      for (int i = 0; i < 32 && 32 * w + i < M; ++i) word |= (vrow[32 * w + i] != 0 ? 1u : 0u) << i;
+    }
+    bits[w] = word;
+    if (word) last = 32 * w + 31 - __clz(word);
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0 && last >= 0) atomicMax(&s_last, last);
+  __syncthreads();
+  const int end = s_last + 1;
+  const int ntiles = (end + WT - 1) / WT;
+  const int t0 = split * ntiles / S, t1 = (split + 1) * ntiles / S;
+  const int n = t1 - t0;
+
+  // the query fragments of this warp's chunks: the scores' B operand (k x head g)
+  uint32_t qf[CPW][W::KS][2];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    const int c = warp + nw * j;
+#pragma unroll
+    for (int ks = 0; ks < W::KS; ++ks) {
+      qf[j][ks][0] = qf[j][ks][1] = 0u;
+      if (c < nc) {
+        if constexpr (!QUANT) {
+          if (g < nh) {
+            const __nv_bfloat16* qrow = q + ((size_t)b * H + h0 + g) * hd + c * 128;
+            qf[j][ks][0] = *reinterpret_cast<const uint32_t*>(qrow + ks * 16 + 2 * t);
+            qf[j][ks][1] = *reinterpret_cast<const uint32_t*>(qrow + ks * 16 + 8 + 2 * t);
+          }
+        } else {
+          const int8_t* qr = sq8 + g * hd + c * 128;
+          qf[j][ks][0] = *reinterpret_cast<const uint32_t*>(qr + ks * 32 + 4 * t);
+          qf[j][ks][1] = *reinterpret_cast<const uint32_t*>(qr + ks * 32 + 16 + 4 * t);
+        }
+      }
+    }
+  }
+  float qsc[2] = {scale, scale};
+  if constexpr (QUANT) qsc[0] = sqs[2 * t], qsc[1] = sqs[2 * t + 1];
+
+  // ---- 1. this warp's ring: slot j of its sequence holds K (j even) or V
+  // (j odd) of tile j / 2, its chunks swizzled as the narrow instance's boxes
+  // (16-byte unit u of position r at (u ^ (r % 8)) within each 128 bytes);
+  // positions past the row's last valid slot are filled with zeros
+  unsigned char* wring = ring + (size_t)warp * NS * CPW * W::CHUNK;
+  const size_t row_bytes = (size_t)hd * W::EB;
+  auto issue = [&](int j) {
+    if (j < 2 * n) {
+      const unsigned char* src0 = (j & 1) ? v : k;
+      unsigned char* dst0 = wring + (size_t)(j % NS) * CPW * W::CHUNK;
+      const int p0 = (t0 + (j >> 1)) * WT;
+#pragma unroll
+      for (int jc = 0; jc < CPW; ++jc) {
+        const int c = warp + nw * jc;
+        if (c < nc) {
+#pragma unroll
+          for (int it = 0; it < WT * W::UPR / 32; ++it) {
+            const int u = lane + 32 * it;
+            const int r = u / W::UPR, cu = u % W::UPR;
+            const int p = p0 + r;
+            const bool in = p < end;
+            const unsigned char* src = src0 + (((size_t)b * M + (in ? p : 0)) * Hkv + hkv) * row_bytes +
+                                       (size_t)c * 128 * W::EB + cu * 16;
+            cp_async16(dst0 + jc * W::CHUNK + (cu / 8) * (WT * 128) + swz(r, cu % 8), src,
+                       in ? 16 : 0);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) issue(j);
+
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+  float acc[CPW][8][4];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][f][e] = 0.f;
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix's row of the scores' A
+  const int j8 = lane >> 3, r8 = lane & 7;
+  const int vrow8 = r8 + (j8 >> 1) * 8;                // and of P.V's V^T
+
+  for (int i = 0; i < n; ++i) {
+    const int p0 = (t0 + i) * WT;
+    const int pg = p0 + g, pg8 = pg + 8;
+    float kv_s[4] = {0.f, 0.f, 0.f, 0.f};  // int8: k and v scales of positions g, g + 8
+    if constexpr (QUANT) {
+      const size_t sg = ((size_t)b * M + min(pg, end - 1)) * Hkv + hkv;
+      const size_t sg8 = ((size_t)b * M + min(pg8, end - 1)) * Hkv + hkv;
+      kv_s[0] = __ldg(k_scale + sg), kv_s[1] = __ldg(k_scale + sg8);
+      kv_s[2] = __ldg(v_scale + sg), kv_s[3] = __ldg(v_scale + sg8);
+    }
+
+    // scores over this warp's chunks of the tile's K
+    cp_async_wait<NS - 1>();
+    __syncwarp();
+    {
+      const unsigned char* sk = wring + (size_t)((2 * i) % NS) * CPW * W::CHUNK;
+      float4 part;
+      if constexpr (!QUANT) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jc = 0; jc < CPW; ++jc) {
+          if (warp + nw * jc < nc) {
+#pragma unroll
+            for (int ks = 0; ks < W::KS; ++ks) {
+              uint32_t a[4];
+              ldsm_x4(a, sk + jc * W::CHUNK + (ks / 4) * (WT * 128) +
+                             swz(arow, 2 * (ks % 4) + (lane >> 4)));
+              mma_bf16(c, a, qf[jc][ks][0], qf[jc][ks][1]);
+            }
+          }
+        }
+        part = make_float4(c[0], c[1], c[2], c[3]);
+      } else {
+        int c[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int jc = 0; jc < CPW; ++jc) {
+          if (warp + nw * jc < nc) {
+#pragma unroll
+            for (int ks = 0; ks < W::KS; ++ks) {
+              uint32_t a[4];
+              ldsm_x4(a, sk + jc * W::CHUNK + (ks / 4) * (WT * 128) +
+                             swz(arow, 2 * (ks % 4) + (lane >> 4)));
+              mma_s8(c, a, qf[jc][ks][0], qf[jc][ks][1]);
+            }
+          }
+        }
+        part = make_float4(__int_as_float(c[0]), __int_as_float(c[1]), __int_as_float(c[2]),
+                           __int_as_float(c[3]));
+      }
+      *reinterpret_cast<float4*>(&red[i & 1][warp][4 * lane]) = part;
+    }
+    __syncwarp();
+    issue(2 * i + NS);  // the K slot just read takes a later slot's copies
+    __syncthreads();    // every warp's partial scores
+
+    // the tile's scores, summed in warp order (the same in every warp)
+    float s[4];
+    bool ok[4];
+    const bool vg = pg < end && ((bits[pg >> 5] >> (pg & 31)) & 1u);
+    const bool vg8 = pg8 < end && ((bits[pg8 >> 5] >> (pg8 & 31)) & 1u);
+    if constexpr (!QUANT) {
+      float4 c = *reinterpret_cast<const float4*>(&red[i & 1][0][4 * lane]);
+      for (int w = 1; w < nw; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(&red[i & 1][w][4 * lane]);
+        c.x += x.x, c.y += x.y, c.z += x.z, c.w += x.w;
+      }
+      const float cv[4] = {c.x, c.y, c.z, c.w};
+      ok[0] = ok[1] = vg;
+      ok[2] = ok[3] = vg8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = ok[j] ? cv[j] * scale : NEG;
+    } else {
+      int c[4] = {0, 0, 0, 0};
+      for (int w = 0; w < nw; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(&red[i & 1][w][4 * lane]);
+        c[0] += __float_as_int(x.x), c[1] += __float_as_int(x.y);
+        c[2] += __float_as_int(x.z), c[3] += __float_as_int(x.w);
+      }
+      const float kg = vg ? kv_s[0] : 0.f, kg8 = vg8 ? kv_s[1] : 0.f;
+      const float kq[4] = {kg * qsc[0], kg * qsc[1], kg8 * qsc[0], kg8 * qsc[1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ok[j] = kq[j] > 0.f;  // a zero factor marks an invalid slot
+        s[j] = ok[j] ? static_cast<float>(c[j]) * kq[j] : NEG;
+      }
+    }
+
+    // the online softmax: every warp holds the tile's 16 positions
+    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn[2] = {fmaxf(m_run[0], mx0), fmaxf(m_run[1], mx1)};
+    const float corr[2] = {expf(m_run[0] - mn[0]), expf(m_run[1] - mn[1])};
+    m_run[0] = mn[0];
+    m_run[1] = mn[1];
+    float p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = ok[j] ? expf(s[j] - mn[j & 1]) : 0.f;
+    l_run[0] = l_run[0] * corr[0] + (p[0] + p[2]);
+    l_run[1] = l_run[1] * corr[1] + (p[1] + p[3]);
+    if constexpr (QUANT) p[0] *= kv_s[2], p[1] *= kv_s[2], p[2] *= kv_s[3], p[3] *= kv_s[3];
+    const uint32_t pb0 = movmatrix_t(pack_bf16(p[0], p[1]));
+    const uint32_t pb1 = movmatrix_t(pack_bf16(p[2], p[3]));
+#pragma unroll
+    for (int jc = 0; jc < CPW; ++jc)
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        acc[jc][f][0] *= corr[0], acc[jc][f][1] *= corr[1];
+        acc[jc][f][2] *= corr[0], acc[jc][f][3] *= corr[1];
+      }
+
+    // out^T (this warp's dims x heads) += V^T P over its chunks of the tile's V
+    cp_async_wait<NS - 1>();
+    __syncwarp();
+    {
+      const unsigned char* sv = wring + (size_t)((2 * i + 1) % NS) * CPW * W::CHUNK;
+#pragma unroll
+      for (int jc = 0; jc < CPW; ++jc) {
+        if (warp + nw * jc < nc) {
+#pragma unroll
+          for (int db = 0; db < W::DB; ++db) {
+            uint32_t r[4];
+            ldsm_x4_t(r, sv + jc * W::CHUNK + (db / 4) * (WT * 128) +
+                             swz(vrow8, 2 * (db % 4) + (j8 & 1)));
+            if constexpr (!QUANT) {
+              mma_bf16(acc[jc][db], r, pb0, pb1);
+            } else {
+              const uint32_t ae[4] = {s8pair_to_bf16x2(r[0], 0), s8pair_to_bf16x2(r[1], 0),
+                                      s8pair_to_bf16x2(r[2], 0), s8pair_to_bf16x2(r[3], 0)};
+              const uint32_t ao[4] = {s8pair_to_bf16x2(r[0], 1), s8pair_to_bf16x2(r[1], 1),
+                                      s8pair_to_bf16x2(r[2], 1), s8pair_to_bf16x2(r[3], 1)};
+              mma_bf16(acc[jc][2 * db], ae, pb0, pb1);
+              mma_bf16(acc[jc][2 * db + 1], ao, pb0, pb1);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+    issue(2 * i + 1 + NS);
+  }
+  cp_async_wait<0>();
+
+  // ---- 2. l over the warp's 16 positions (every warp holds the same)
+  float l0 = l_run[0], l1 = l_run[1];
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // fragment f of chunk c: dims d0 (values 0, 1: heads 2t, 2t + 1) and d8 (values 2, 3)
+  auto dims = [&](int c, int f, int& d0, int& d8) {
+    if constexpr (!QUANT) {
+      d0 = c * 128 + 16 * f + g, d8 = d0 + 8;
+    } else {
+      d0 = c * 128 + 32 * (f / 2) + 2 * g + (f & 1), d8 = d0 + 16;
+    }
+  };
+  __nv_bfloat16* obase = out + ((size_t)b * H + h0) * hd;
+  if (S == 1) {  // one split: out = acc / max(l, 1e-30)
+    const float den[2] = {fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f)};
+#pragma unroll
+    for (int jc = 0; jc < CPW; ++jc) {
+      const int c = warp + nw * jc;
+      if (c >= nc) continue;
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        int d0, d8;
+        dims(c, f, d0, d8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = 2 * t + (e & 1);
+          if (h < nh) obase[h * hd + (e < 2 ? d0 : d8)] = __float2bfloat16_rn(acc[jc][f][e] / den[e & 1]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- 3. the splits: once every CTA of the cluster has left its loop (its
+  // ring read), each sends every other its slice of (acc, m, l) through
+  // distributed shared memory; then each sums its slice in split order
+  const int total = nh * hd;
+  const int per = ((total + S - 1) / S + 3) / 4 * 4;
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int jc = 0; jc < CPW; ++jc) {
+    const int c = warp + nw * jc;
+    if (c >= nc) continue;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      int d0, d8;
+      dims(c, f, d0, d8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = 2 * t + (e & 1);
+        if (h < nh) {
+          const int el = h * hd + (e < 2 ? d0 : d8);
+          const int r = el / per;
+          *(cluster.map_shared_rank(recv, r) + split * per + (el - r * per)) = acc[jc][f][e];
+        }
+      }
+    }
+  }
+  if (warp == 0 && g == 0) {
+    for (int r = 0; r < S; ++r) {
+      float* d0 = cluster.map_shared_rank(&recv_ml[split][2 * t][0], r);
+      float* d1 = cluster.map_shared_rank(&recv_ml[split][2 * t + 1][0], r);
+      d0[0] = m_run[0], d0[1] = l0;
+      d1[0] = m_run[1], d1[1] = l1;
+    }
+  }
+  cluster.sync();  // every slice has arrived
+  if (tid < nh) {
+    float mx = NEG;
+    for (int s2 = 0; s2 < S; ++s2) mx = fmaxf(mx, recv_ml[s2][tid][0]);
+    float den = 0.f;
+    for (int s2 = 0; s2 < S; ++s2) {
+      const float w = expf(recv_ml[s2][tid][0] - mx);
+      sw[s2][tid] = w;
+      den += w * recv_ml[s2][tid][1];
+    }
+    sden[tid] = fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  const int e0 = split * per, e1 = min(total, e0 + per);
+  for (int e = e0 + tid; e < e1; e += blockDim.x) {
+    const int h = e / hd;
+    float num = 0.f;
+    for (int s2 = 0; s2 < S; ++s2) num += sw[s2][h] * recv[s2 * per + (e - e0)];
+    obase[e] = __float2bfloat16_rn(num / sden[h]);
+  }
+}
+
 inline int use_device(int device) {
   int cur = -1;
   if (cudaGetDevice(&cur) != cudaSuccess || cur != device) return (int)cudaSetDevice(device);
@@ -721,21 +1183,86 @@ int launch(const __nv_bfloat16* q, const void* k, const void* v, const uint8_t* 
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+
+// The wide instance's launch (or, with `clusters`, its occupancy at this
+// shape instead: cudaOccupancyMaxActiveClusters for clusters of `splits`)
+template <bool QUANT, int CPW>
+int launch_wide(const __nv_bfloat16* q, const void* k, const void* v, const uint8_t* valid,
+                const float* ks, const float* vs, __nv_bfloat16* out, float scale, int B, int M,
+                int H, int Hkv, int hd, int splits, int device, cudaStream_t s, int* clusters) {
+  using W = WideCfg<QUANT, CPW>;
+  const int nc = hd / 128;
+  const int nw = (nc + CPW - 1) / CPW;
+  size_t smem = 128 + wide_ring_bytes(nw, CPW, W::NS, W::CHUNK, hd) +
+                ((size_t)((M + 31) / 32) * 4 + 15) / 16 * 16 + (QUANT ? (size_t)HEADS * hd : 0);
+  if (smem < (size_t)WIDE_MIN_SMEM) smem = WIDE_MIN_SMEM;
+  auto kern = decode_attention_wide<QUANT, CPW>;
+  static size_t raised[64] = {};
+  if (device < 0 || device >= 64 || raised[device] < smem) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    if (device >= 0 && device < 64) raised[device] = smem;
+  }
+  const int rep = H / Hkv;
+  const int groups = (rep + HEADS - 1) / HEADS;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv * groups, B);
+  cfg.blockDim = dim3(32 * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+  const unsigned char* kb = static_cast<const unsigned char*>(k);
+  const unsigned char* vb = static_cast<const unsigned char*>(v);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kern, q, kb, vb, valid, ks, vs, out, scale, M, H, Hkv, groups, nc);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+inline int wide_dispatch(const __nv_bfloat16* q, const void* k, const void* v,
+                         const uint8_t* valid, const float* ks, const float* vs,
+                         __nv_bfloat16* out, float scale, int B, int M, int H, int Hkv, int hd,
+                         int splits, int quant, int device, cudaStream_t s, int* clusters) {
+  const bool two = hd > 1024;  // CPW: one chunk a warp up to hd 1024, two up to 2048
+  if (quant)
+    return two ? launch_wide<true, 2>(q, k, v, valid, ks, vs, out, scale, B, M, H, Hkv, hd,
+                                      splits, device, s, clusters)
+               : launch_wide<true, 1>(q, k, v, valid, ks, vs, out, scale, B, M, H, Hkv, hd,
+                                      splits, device, s, clusters);
+  return two ? launch_wide<false, 2>(q, k, v, valid, ks, vs, out, scale, B, M, H, Hkv, hd, splits,
+                                     device, s, clusters)
+             : launch_wide<false, 1>(q, k, v, valid, ks, vs, out, scale, B, M, H, Hkv, hd, splits,
+                                     device, s, clusters);
+}
+
 }  // namespace k7tc
 }  // namespace
 
 // C entry point bound with ctypes (pt2tpu_torch/ops/kernels/attention.py).
 // q bf16 (B, H, hd); k/v bf16, or (quant) int8 with k_scale/v_scale (B, M,
-// Hkv) f32; valid (B, M) bytes; out (B, H, hd) bf16. hd 128, 256, 384 or 512; splits
-// 1..16 (the cluster size; attention.k7_plan); q, k and v 16-byte
-// aligned. One launch on `stream`; returns its CUDA error, or 0.
+// Hkv) f32; valid (B, M) bytes; out (B, H, hd) bf16. hd 128, 256, 384 or 512
+// (the narrow instances), or a multiple of 128 from 640 to 2048 (the wide
+// one); splits 1..16 (the cluster size; attention.k7_plan); q, k and v
+// 16-byte aligned. One launch on `stream`; returns its CUDA error, or 0.
 extern "C" int pt2_decode_attention_tc(const void* q, const void* k, const void* v,
                                        const void* valid, const void* k_scale,
                                        const void* v_scale, void* out, float scale, int B, int M,
                                        int H, int Hkv, int hd, int splits, int quant, int device,
                                        void* stream) {
   if (B < 1 || B > 65535 || M < 1 || Hkv < 1 || H < Hkv || H % Hkv ||
-      (hd != 128 && hd != 256 && hd != 384 && hd != 512) ||
+      hd < 128 || hd % 128 || hd > k7tc::WIDE_MAX_HD ||
       splits < 1 || splits > k7tc::MAX_SPLITS || !q || !k || !v || !valid || !out ||
       (quant && (!k_scale || !v_scale)))
     return (int)cudaErrorInvalidValue;
@@ -762,5 +1289,21 @@ extern "C" int pt2_decode_attention_tc(const void* q, const void* k, const void*
   PT2_K7_HD(384)
   PT2_K7_HD(512)
 #undef PT2_K7_HD
-  return (int)cudaErrorInvalidValue;
+  return k7tc::wide_dispatch(qb, k, v, vd, ks, vs, o, scale, B, M, H, Hkv, hd, splits, quant,
+                             device, s, nullptr);
+}
+
+// The wide instance's occupancy (hd 640..2048): into *clusters, the clusters
+// of `splits` CTAs that the card holds at once at this shape
+// (cudaOccupancyMaxActiveClusters); attention.MAX_ACTIVE_CLUSTERS_WIDE is
+// this table, measured. Returns a CUDA error, or 0.
+extern "C" int pt2_decode_attention_tc_wide_clusters(int M, int hd, int quant, int splits,
+                                                     int device, int* clusters) {
+  if (hd <= 512 || hd % 128 || hd > k7tc::WIDE_MAX_HD || splits < 1 ||
+      splits > k7tc::MAX_SPLITS || M < 1 || !clusters)
+    return (int)cudaErrorInvalidValue;
+  const int rc = k7tc::use_device(device);
+  if (rc != 0) return rc;
+  return k7tc::wide_dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1.f, 1,
+                             M, 8, 1, hd, splits, quant, device, nullptr, clusters);
 }

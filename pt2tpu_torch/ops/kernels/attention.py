@@ -13,6 +13,15 @@ splits of a row (``k7_plan``) combined in a thread-block cluster. With it
 off, ``csrc/decode_attention.cu``, the first port (all of M, the CUDA cores,
 a chunk kernel and a combine): kept for A/Bs.
 
+Each kernel has compile-time instances for the head widths ``HEAD_DIMS``
+(128-512) and one wide instance for every other multiple of 128 up to
+``WIDE_MAX_HD`` (2048), which takes the width at run time: in the
+tensor-core kernel, tiles of 16 positions, one CTA an SM, each warp
+streaming its own 128-lane chunks of K and V, the warps' partial scores
+summed in warp order and P.V writing only the warp's own output lanes
+(``MAX_ACTIVE_CLUSTERS_WIDE``); in the CUDA-core kernel, P.V one 128-dim
+piece at a time.
+
 The function (the TPU kernel's semantics): one query token per row,
 q (B, 1, H, hd) against the cache k/v (B, M, Hkv, hd), grouped heads
 (query head h reads kv head h // (H / Hkv)), slots with ``kv_valid`` false
@@ -49,12 +58,16 @@ import torch
 from ...utils.device import quotient_f32
 from . import _build
 
-__all__ = ["NEG", "HEAD_DIMS", "K7_TC", "K7Plan", "k7_plan", "k7_tile", "supported",
-           "decode_attention", "decode_attention_plain", "decode_attention_split_plain",
-           "quantize_query"]
+__all__ = ["NEG", "HEAD_DIMS", "WIDE_MAX_HD", "K7_TC", "K7Plan", "k7_plan", "k7_tile",
+           "supported", "decode_attention", "decode_attention_plain",
+           "decode_attention_split_plain", "quantize_query", "wide_max_active_clusters"]
 
 NEG = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIMS = (128, 256, 384, 512)  # the head widths both CUDA kernels are built for
+HEAD_DIMS = (128, 256, 384, 512)  # the head widths both CUDA kernels have an instance for
+# The wide instances take every other multiple of 128 up to this width: a
+# CTA's 8 heads x 2048 lanes of accumulators (64 floats a thread in the
+# tensor-core kernel) are what one SM's registers hold.
+WIDE_MAX_HD = 2048
 MAX_HEADS_PER_BLOCK = 8  # query heads of one kv head handled by one block
 _TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 _CHUNK_STEP, _CHUNK_MAX = 64, 512
@@ -70,6 +83,12 @@ MAX_SPLITS = 16  # the largest thread-block cluster the card takes (non-portable
 # SMs sit in GPCs of unequal size, so 4-CTA clusters reach 62, not 66.
 MAX_ACTIVE_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30, 9: 23, 10: 21,
                        11: 16, 12: 16, 13: 14, 14: 14, 15: 14, 16: 14}
+# The same for the wide instance (hd > 512; one CTA an SM: its shared memory
+# is padded past half an SM's), from cudaOccupancyMaxActiveClusters on the
+# H100 SXM (wide_max_active_clusters; the card tests hold this table to it).
+MAX_ACTIVE_CLUSTERS_WIDE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+                            10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+WIDE_TILE = 16  # the wide instance's positions per tile
 _STAGE_DATA = 32768  # bytes of K and V per stage of the kernel's ring (its STAGE_DATA)
 
 
@@ -115,7 +134,8 @@ def decode_attention_plain(q, k, v, kv_valid, scale, k_scale=None, v_scale=None)
         ok = valid.expand_as(s)
     else:
         q8, qs = quantize_query(q)
-        # s8 x s8 products summed in f32 are exact integers at hd <= 1024
+        # s8 x s8 products summed in f32: exact integers at hd <= 1024 (the
+        # kernels' int32 sums, rounded once to f32, agree to an ulp above)
         s32 = torch.einsum("bhrd,bmhd->bhrm", q8.float().reshape(B, Hkv, rep, hd), k.float())
         ks = torch.where(kv_valid[:, :, None], k_scale[..., 0].float(), 0.0)  # (B, M, Hkv)
         ks = ks.permute(0, 2, 1)[:, :, None, :] * (qs * scale).reshape(B, Hkv, rep, 1)
@@ -136,7 +156,9 @@ def decode_attention_plain(q, k, v, kv_valid, scale, k_scale=None, v_scale=None)
 def k7_tile(hd: int, quant: bool) -> int:
     """The tensor-core kernel's positions per tile (its Cfg::TILE): 32 KB of
     K and V a stage, in whole warps' rows of 16 (at least 16: 24 KB at bf16
-    hd 384, 32 KB at hd 512)."""
+    hd 384, 32 KB at hd 512); above hd 512 the wide instance's 16."""
+    if hd > max(HEAD_DIMS):
+        return WIDE_TILE
     t = _STAGE_DATA // (2 * hd * (1 if quant else 2))
     return t // 16 * 16 if t >= 16 else 16
 
@@ -148,12 +170,13 @@ def k7_plan(B: int, M: int, Hkv: int, rep: int, hd: int, quant: bool) -> K7Plan:
     resident clusters (``MAX_ACTIVE_CLUSTERS``), ``MAX_SPLITS`` and the
     tiles of M. So llama-3-8b's 64 (b, kv head) pairs at B 8 split in 3
     (192 CTAs; 4-CTA clusters would need two waves), gemma-2b's 8 in 16 (the
-    largest cluster), and llama-2-7b's 256 not at all. A function of the
-    shapes only."""
+    largest cluster), and llama-2-7b's 256 not at all. Above hd 512 the
+    wide instance's table (one CTA an SM). A function of the shapes only."""
     tile = k7_tile(hd, quant)
     pairs = B * Hkv * -(-rep // MAX_HEADS_PER_BLOCK)
     tiles = -(-M // tile)
-    fits = [s for s in range(1, min(MAX_SPLITS, tiles) + 1) if pairs <= MAX_ACTIVE_CLUSTERS[s]]
+    table = MAX_ACTIVE_CLUSTERS_WIDE if hd > max(HEAD_DIMS) else MAX_ACTIVE_CLUSTERS
+    fits = [s for s in range(1, min(MAX_SPLITS, tiles) + 1) if pairs <= table[s]]
     return K7Plan(tile, min(max(fits, default=1), max(1, -(-SMS // pairs))))
 
 
@@ -250,6 +273,9 @@ def _tc_kernel_lib():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.pt2_decode_attention_tc_wide_clusters
+        occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        occ.restype = ctypes.c_int
         _tc_lib = lib
     return _tc_lib
 
@@ -273,9 +299,9 @@ def _check(q, k, v, kv_valid, k_scale, v_scale):
     if Bk != B or hdk != hd or H % Hkv or hd % 128 or tuple(kv_valid.shape) != (B, M):
         raise ValueError(f"K7 shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"kv_valid {tuple(kv_valid.shape)} (hd a multiple of 128)")
-    if hd not in HEAD_DIMS:  # JAX's kernel takes any multiple of 128
-        raise NotImplementedError(f"K7 is built for head widths {HEAD_DIMS}, not hd={hd}: "
-                                  "not ported")
+    if hd > WIDE_MAX_HD:  # JAX's kernel takes any multiple of 128
+        raise ValueError(f"K7 takes head widths up to {WIDE_MAX_HD}, not hd={hd}: a CTA's 8 "
+                         "heads of accumulators would not fit one SM")
     if q.dtype != torch.bfloat16 or kv_valid.dtype != torch.bool:
         raise TypeError(f"K7 takes bf16 q and bool kv_valid, got {q.dtype}, {kv_valid.dtype}")
     if (k_scale is None) != (v_scale is None):
@@ -308,9 +334,10 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     stream (counted in ``decode_attention.launches`` and
     ``decode_attention.launches_tc``); without, PR 3's chunk kernel and its
     combine (one count in ``launches``). Either counts in
-    ``decode_attention.launches_hd256`` at hd 256 and in
-    ``decode_attention.launches_wide`` at hd 384 and 512. CPU: the plain
-    version."""
+    ``decode_attention.launches_hd256`` at hd 256, in
+    ``decode_attention.launches_wide`` above hd 256, and in
+    ``decode_attention.launches_wide_rt`` above hd 512 (the wide instances,
+    the width at run time). CPU: the plain version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_valid, scale, k_scale, v_scale)
     if q.device.type != "cuda":
@@ -348,6 +375,7 @@ def decode_attention(q, k, v, kv_valid, scale, k_scale=None, v_scale=None):
     decode_attention.launches_tc += tc
     decode_attention.launches_hd256 += hd == 256
     decode_attention.launches_wide += hd > 256
+    decode_attention.launches_wide_rt += hd > max(HEAD_DIMS)
     return out
 
 
@@ -355,3 +383,18 @@ decode_attention.launches = 0
 decode_attention.launches_tc = 0
 decode_attention.launches_hd256 = 0
 decode_attention.launches_wide = 0
+decode_attention.launches_wide_rt = 0
+
+
+def wide_max_active_clusters(M: int, hd: int, quant: bool, splits: int, device=None) -> int:
+    """cudaOccupancyMaxActiveClusters of the tensor-core kernel's wide
+    instance (hd > 512) for clusters of ``splits`` CTAs at this shape: what
+    ``MAX_ACTIVE_CLUSTERS_WIDE`` records. Needs the card."""
+    dev = torch.device("cuda" if device is None else device)
+    didx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = ctypes.c_int(0)
+    rc = _tc_kernel_lib().pt2_decode_attention_tc_wide_clusters(
+        M, hd, int(quant), splits, didx, ctypes.addressof(n))
+    if rc != 0:
+        raise RuntimeError(f"K7 wide occupancy query failed: cudaError {rc}")
+    return n.value

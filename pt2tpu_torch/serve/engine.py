@@ -45,8 +45,13 @@ in; ``serve.paged.PagedServeEngine`` plugs in a paged pool). ``samp`` is
 passed only when a row samples; the port's is host values (default prefill:
 (seed, uid, SamplingConfig); decode: (seed, uids, temps, top_ks, top_ps)).
 
-Not ported (they raise ``NotImplementedError``): ``kv_heads`` (head-sharded
-pools) and ``multihost``, which wait for ``parallel/``.
+``kv_heads`` builds the pool with that many KV heads (a tensor-parallel
+rank's local heads: ``parallel.tp.make_tp_engine_fns``). ``multihost=True``
+across the ranks of a ``torch.distributed`` world (on only where the world
+has more than one process, as JAX's ``process_count() > 1``): rank 0 plans
+every admission and broadcasts the plan (the requests' ids, prompts, budgets
+and sampling, and whether its queue holds more), and every rank runs the
+same prefills and decode steps; submit on rank 0 only.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import decoder as dec
 from ..models.common import alibi_slopes
@@ -270,12 +276,6 @@ def _prefill_into_slot(cfg, params, prompt: torch.Tensor, true_len: int, cache, 
                           [sc.top_p])[0], cache
 
 
-_NOT_PORTED = {
-    "kv_heads": "head-sharded pools (parallel/tp.py)",
-    "multihost": "the multi-process scheduler (parallel/)",
-}
-
-
 class ServeEngine:
     """Host-side scheduler over the per-row prefill and decode steps, on the
     device that holds ``params``."""
@@ -327,11 +327,6 @@ class ServeEngine:
             raise ValueError(
                 "cache_factory replaces the KV pool entirely; kv_quant/kv_heads would be "
                 "silently ignored — thread them into the factory instead")
-        given = dict(kv_heads=kv_heads, multihost=multihost)
-        for name, value in given.items():
-            if value:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) needs {_NOT_PORTED[name]}: not ported")
         dec.check_supported(cfg)
         if cfg.pos == "learned" and max_len > params["pos_embed"].shape[0] - cfg.pos_offset:
             raise ValueError(f"max_len {max_len} exceeds the {cfg.family} model's "
@@ -355,8 +350,14 @@ class ServeEngine:
                     raise ValueError(f"cache_factory's pool lies on {t.device}, the params on "
                                      f"{self.device}")
         else:
-            self.cache = init_cache(cfg, max_batch, max_len, quantized=kv_quant,
+            cache_cfg = cfg if kv_heads is None else cfg.with_(n_kv_heads=kv_heads)
+            self.cache = init_cache(cache_cfg, max_batch, max_len, quantized=kv_quant,
                                     device=self.device)
+        # the multi-process scheduler: on only in a world of several processes
+        self._mh = bool(multihost) and dist.is_available() and dist.is_initialized() and (
+            dist.get_world_size() > 1)
+        self._proc0 = not self._mh or dist.get_rank() == 0
+        self._mh_has_queue = False
         if draft is not None:  # the draft's pool: the target's geometry, bf16
             self.d_cache = init_cache(draft[0], max_batch, max_len, device=self.device)
             self.stats_spec = {"rounds": 0, "drafted": 0, "accepted": 0}
@@ -453,15 +454,38 @@ class ServeEngine:
 
     def _admit(self) -> None:
         """Dispatch every planned prefill, then fetch all first tokens at
-        once: one host round trip per wave of admissions."""
+        once: one host round trip per wave of admissions. Across processes
+        (``multihost``) rank 0's plan is every rank's."""
         t0 = time.perf_counter()
-        pend = [(slot, req, self._dispatch_admission(slot, req))
-                for slot, req in self._plan_admissions()]
+        plans = self._mh_plans() if self._mh else self._plan_admissions()
+        pend = [(slot, req, self._dispatch_admission(slot, req)) for slot, req in plans]
         if pend:
             firsts = torch.stack([t for _, _, t in pend]).tolist()
             for (slot, req, _), first in zip(pend, firsts):
                 self._finalize_admission(slot, req, int(first))
         self.stats["t_admit_s"] += time.perf_counter() - t0
+
+    def _mh_plans(self) -> List:
+        """Rank 0 plans this wave's admissions and broadcasts them with
+        whether its queue holds more (JAX's record: slot, uid, prompt,
+        max_new, eos and sampling of each); the other ranks rebuild the
+        requests from it."""
+        rec = [None]
+        if self._proc0:
+            plans = self._plan_admissions()
+            rec[0] = {
+                "has_queue": bool(self.queue),
+                "plans": [(slot, r.uid, np.asarray(r.prompt, np.int32), r.max_new, r.eos_id,
+                           None if r.sampling is None else dataclasses.asdict(r.sampling))
+                          for slot, r in plans],
+            }
+        dist.broadcast_object_list(rec, src=0)
+        self._mh_has_queue = rec[0]["has_queue"]
+        if self._proc0:
+            return plans
+        return [(slot, Request(uid=uid, prompt=prompt, max_new=max_new, eos_id=eos,
+                               sampling=None if sc is None else SamplingConfig(**sc)))
+                for slot, uid, prompt, max_new, eos, sc in rec[0]["plans"]]
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.slots[slot]
@@ -509,6 +533,8 @@ class ServeEngine:
         self._admit()
         active = np.array([r is not None for r in self.slots])
         if not active.any():
+            if not self._proc0:
+                return self._mh_has_queue
             return bool(self.queue)
         if self.draft is not None:
             return self._step_spec(active)

@@ -158,7 +158,10 @@ def test_snapshot_restore_continues_identically(model, tmp_path):
 @pytest.mark.parametrize("arg", ["draft", "prefill_fn", "decode_fn", "cache_factory",
                                  "kv_heads", "multihost"])
 def test_unported_arguments_raise(model, arg):
-    """``kv_heads`` and ``multihost`` are not ported and raise. ``draft`` is
+    """``kv_heads`` builds JAX's pool shape (that many KV heads: a
+    tensor-parallel rank's), and ``multihost`` in one process (no
+    ``torch.distributed`` world) is off, as JAX's with one process, so the
+    engine gives the default engine's tokens. ``draft`` is
     ported (speculative decoding): the model as its own draft gives JAX's
     speculative engine's tokens and counters, which are the default
     engine's. The strategy overrides are ported (JAX's contracts): the
@@ -168,10 +171,16 @@ def test_unported_arguments_raise(model, arg):
     does."""
     jcfg, params, tparams, prompts, _, _ = model
     cfg = get_config(NAME)
-    if arg in ("kv_heads", "multihost"):
-        value = {"kv_heads": 1, "multihost": True}[arg]
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(cfg, tparams, max_len=64, **{arg: value})
+    if arg == "kv_heads":
+        jeng = JEngine(jcfg, params, max_batch=2, max_len=64, kv_heads=1)
+        eng = ServeEngine(cfg, tparams, max_batch=2, max_len=64, kv_heads=1)
+        assert tuple(eng.cache.k.shape) == tuple(jeng.cache.k.shape)
+        assert eng.cache.k.shape[-2] == 1 != cfg.kv_heads
+        return
+    if arg == "multihost":
+        want = _run(ServeEngine(cfg, tparams, max_batch=2, max_len=64), prompts[:3], [None] * 3)
+        eng = ServeEngine(cfg, tparams, max_batch=2, max_len=64, multihost=True)
+        assert not eng._mh and _run(eng, prompts[:3], [None] * 3) == want
         return
     if arg == "draft":
         jeng = JEngine(jcfg, params, max_batch=2, max_len=64, draft=(jcfg, params), spec_k=2)

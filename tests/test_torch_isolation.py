@@ -1,5 +1,6 @@
-"""The port stands alone: no module of pt2tpu_torch/ and no line of
-chip_smoke.py imports JAX or the JAX package, and the package imports on a
+"""The port stands alone: no module of pt2tpu_torch/, no line of
+chip_smoke.py and no line of tests/torch_tp_worker.py (what each rank of the
+tensor-parallel tests runs) imports JAX or the JAX package, and the package imports on a
 machine without CUDA, nvcc or triton.
 
 The check is an AST scan, not a look at sys.modules: the test process (and
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "pt2tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    # chip_smoke.py and the helper each rank of the tensor-parallel tests runs
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_tp_worker.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "pt2tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -69,6 +71,7 @@ def test_import_needs_no_cuda_or_triton():
         "import sys, torch\n"
         "import pt2tpu_torch, pt2tpu_torch.cli, pt2tpu_torch.ops.kernels.ternary\n"
         "import pt2tpu_torch.serve, pt2tpu_torch.ops.kernels.attention\n"
+        "import pt2tpu_torch.parallel, pt2tpu_torch.utils.profiling, pt2tpu_torch.utils.debug\n"
         "assert 'triton' not in sys.modules\n"
         "assert not torch.cuda.is_initialized()\n"
         "print('ok')\n"

@@ -1,5 +1,5 @@
-"""K7 at the head widths above 256 that JAX's kernel takes (hd 384 and 512),
-against the JAX package on the CPU.
+"""K7 at the head widths above 256 that JAX's kernel takes (hd 384 and 512,
+and the wide instance's 640 and 1024), against the JAX package on the CPU.
 
 - The plain version against ``decode_attention_pallas`` in interpret mode,
   bf16 and int8, at JAX's own tolerance (2e-2: the two round the
@@ -10,7 +10,9 @@ against the JAX package on the CPU.
   its tiles are 16 or 32 positions there.
 - A 2-layer config with ``head_dim`` 384, built with ``ModelConfig.with_``:
   the port's engine gives JAX's engine's greedy tokens.
-- A width the kernels are not built for raises ``NotImplementedError``.
+- Every multiple of 128 up to ``WIDE_MAX_HD`` passes ``_check`` (640 and
+  1152 get the wide instance's plan: 16-position tiles, its own occupancy
+  table); a width past it raises ``ValueError``.
 """
 
 import jax
@@ -32,6 +34,7 @@ from test_torch_attention import _bf16, _mk
 from test_torch_packed_gather import to_port
 
 WIDE = (384, 512)
+WIDE_RT = (640, 1024)  # the wide instance (the width at run time)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,7 +54,7 @@ def _torch_inputs(q, k, v, valid, ks, vs, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("hd", WIDE)
+@pytest.mark.parametrize("hd", WIDE + WIDE_RT)
 def test_plain_matches_tpu_kernel_interpret(hd, quant):
     B, M, H, Hkv = 2, 256, 4, 2
     q, k, v, valid, ks, vs = _mk(B, M, H, Hkv, hd, quant, seed=hd + quant)
@@ -97,15 +100,62 @@ def test_tiles_and_chunks_of_the_narrow_widths_stay():
 
 
 def test_unbuilt_width_raises():
-    """JAX takes any multiple of 128; the kernels are built for HEAD_DIMS,
-    and another width raises rather than fall back."""
-    B, M, H, hd = 1, 128, 2, 640
+    """JAX takes any multiple of 128: widths without a compile-time instance
+    (640, 1152) pass ``_check`` and get the wide instance's plan; only a
+    width past WIDE_MAX_HD (what one SM holds) raises."""
+    B, M, H = 1, 128, 2
+    valid = torch.ones((B, M), dtype=torch.bool)
+    for hd in (640, 1152):
+        q = torch.zeros((B, 1, H, hd), dtype=torch.bfloat16)
+        kv = torch.zeros((B, M, H, hd), dtype=torch.bfloat16)
+        assert k7.supported(M, hd, False) and hd not in k7.HEAD_DIMS
+        k7._check(q, kv, kv, valid, None, None)
+        assert k7.k7_plan(B, M, H, 1, hd, False).tile == 16
+    hd = k7.WIDE_MAX_HD + 128
     q = torch.zeros((B, 1, H, hd), dtype=torch.bfloat16)
     kv = torch.zeros((B, M, H, hd), dtype=torch.bfloat16)
-    valid = torch.ones((B, M), dtype=torch.bool)
-    assert k7.supported(M, hd, False)
-    with pytest.raises(NotImplementedError, match="hd=640"):
+    with pytest.raises(ValueError, match=f"hd={hd}"):
         k7._check(q, kv, kv, valid, None, None)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hd", [640, 768, 1024, 1152, 2048])
+def test_wide_instance_plan(hd, quant):
+    """The wide instance's plan: 16-position tiles at every width and
+    dtype, splits from its own occupancy table (one CTA an SM): the fewest
+    that give every SM a CTA, within one wave of resident clusters."""
+    t = k7.MAX_ACTIVE_CLUSTERS_WIDE
+    for B, Hkv, rep, M in ((8, 2, 4, 2048), (1, 2, 4, 256), (1, 8, 1, 2048), (64, 8, 4, 2048)):
+        plan = k7.k7_plan(B, M, Hkv, rep, hd, quant)
+        assert plan.tile == k7.k7_tile(hd, quant) == 16
+        pairs = B * Hkv
+        assert 1 <= plan.splits <= min(k7.MAX_SPLITS, M // 16)
+        assert plan.splits == 1 or pairs <= t[plan.splits]
+        assert plan.splits == 1 or plan.splits <= -(-k7.SMS // pairs)
+    assert k7.k7_plan(64, 2048, 8, 4, hd, quant).splits == 1  # 512 pairs: no split
+    # the narrow widths keep their table
+    assert k7.k7_plan(8, 2048, 8, 4, 128, quant) == k7.k7_plan(8, 2048, 8, 4, 128, quant)
+    assert t[1] == k7.SMS
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("hd", WIDE_RT)
+def test_wide_instance_schedule_against_plain(hd, B, quant):
+    """The wide instance's schedule (16-position tiles, its plan's splits) in
+    PyTorch against the plain version, on a windowed kv_valid too."""
+    M, H, Hkv = 512, 8, 2
+    plan = k7.k7_plan(B, M, Hkv, H // Hkv, hd, quant)
+    q, k, v, valid, ks, vs = _mk(B, M, H, Hkv, hd, quant, seed=B + hd + 1)
+    t = _torch_inputs(q, k, v, valid, ks, vs, quant)
+    scale = hd ** -0.5
+    pos = torch.arange(M)[None, :]
+    for kv_valid in (t[3], (pos < 400) & (pos > 400 - 128)):
+        kv_valid = kv_valid.expand(B, M).contiguous()
+        want = k7.decode_attention_plain(t[0], t[1], t[2], kv_valid, scale, t[4], t[5]).float()
+        got = k7.decode_attention_split_plain(t[0], t[1], t[2], kv_valid, scale, t[4], t[5],
+                                              tile=plan.tile, splits=plan.splits).float()
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-2
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])

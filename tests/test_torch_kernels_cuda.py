@@ -1607,19 +1607,14 @@ def test_engine_decode_routes_through_k7(cuda_device, kv_quant, monkeypatch):
 @pytest.mark.cuda
 def test_attention_routes_only_head_widths_k7_takes(cuda_device):
     """``supported`` (the TPU kernel's predicate) admits any hd % 128 == 0
-    and the route sends all of them to K7: the widths it is built for (128,
-    256, 384, 512) launch it, any other (640) raises rather than run the
-    plain route on the card."""
+    and the route sends all of them to K7: the compile-time widths (128,
+    256, 384, 512) and the wide instance's (640) launch it, each held to
+    the plain version."""
     g = torch.Generator(device=cuda_device).manual_seed(10)
     for hd in (128, 256, 384, 512, 640):
         q, k, v, valid, _, _ = _attn_inputs(g, cuda_device, 2, 256, 8, 2, hd, False)
         assert tka.supported(256, hd, False)
         before = tka.decode_attention.launches
-        if hd == 640:
-            with pytest.raises(NotImplementedError, match="hd=640"):
-                tcommon.attention(q, k, v, None, valid, scale=hd ** -0.5)
-            assert tka.decode_attention.launches == before
-            continue
         out = tcommon.attention(q, k, v, None, valid, scale=hd ** -0.5)
         assert tka.decode_attention.launches - before == 1
         want = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5)
@@ -3537,11 +3532,145 @@ def test_k7_wide_heads_match_plain(cuda_device, hd, B, quant, tc, monkeypatch):
 
 @pytest.mark.cuda
 def test_k7_unbuilt_width_raises(cuda_device):
+    """hd 640 (no compile-time instance) launches the wide instance on
+    either kernel; only a width past WIDE_MAX_HD raises, and launches
+    nothing."""
+    valid = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
     q = torch.zeros((1, 1, 2, 640), dtype=torch.bfloat16, device=cuda_device)
     kv = torch.zeros((1, 128, 2, 640), dtype=torch.bfloat16, device=cuda_device)
-    valid = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="hd=640"):
+    d = tka.decode_attention
+    before = d.launches_wide_rt
+    out = tka.decode_attention(q, kv, kv, valid, 0.04)
+    torch.cuda.synchronize()
+    assert d.launches_wide_rt == before + 1 and out.abs().max().item() == 0.0
+    hd = tka.WIDE_MAX_HD + 128
+    q = torch.zeros((1, 1, 2, hd), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((1, 128, 2, hd), dtype=torch.bfloat16, device=cuda_device)
+    before = d.launches
+    with pytest.raises(ValueError, match=f"hd={hd}"):
         tka.decode_attention(q, kv, kv, valid, 0.04)
+    assert d.launches == before
+
+
+# The wide instance (hd > 512, the width at run time): hd 640 / 768 / 1024 /
+# 1152 x bf16 / int8 x rep 1 / 2 / 4 x B 1 / 8 x M 256 / 2048.
+K7_WIDE_RT = (640, 768, 1024, 1152)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [256, 2048])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hd", K7_WIDE_RT)
+def test_k7_wide_rt_matches_split_plain_and_plain(cuda_device, hd, quant, rep, B, M):
+    """The tensor-core kernel's wide instance follows its schedule (16-position
+    tiles, k7_plan's splits): within one bf16 step plus 1e-3 of the split
+    plain version, within K7's 1e-2 of the plain version, and the same bits
+    from run to run."""
+    Hkv = 2
+    H = rep * Hkv
+    g = torch.Generator(device=cuda_device).manual_seed(hd + 10 * rep + B + M + quant)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, "ragged")
+    plan = tka.k7_plan(B, M, Hkv, rep, hd, quant)
+    assert plan.tile == 16
+    d = tka.decode_attention
+    before = d.launches_tc, d.launches_wide_rt
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert (d.launches_tc, d.launches_wide_rt) == (before[0] + 1, before[1] + 1)
+    split = tka.decode_attention_split_plain(q, k, v, valid, hd ** -0.5, ks, vs, tile=plan.tile,
+                                             splits=plan.splits)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert got.shape == (B, 1, H, hd) and torch.isfinite(got).all()
+    assert _within_a_bf16_step(got, split) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= ATTN_TOL
+    assert torch.equal(got, tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("mask", K7_MASKS + ["window"])
+@pytest.mark.parametrize("hd", [640, 2048])
+def test_k7_wide_rt_masks(cuda_device, hd, mask, quant):
+    """Every mask of the narrow instances' tests, and a sliding window's
+    kv_valid (slots (p - 300, p] of each row), at the narrowest and the
+    widest width of the wide instance (two chunks a warp at 2048)."""
+    B, M, H, Hkv = 3, 1024, 8, 2
+    g = torch.Generator(device=cuda_device).manual_seed(hd + len(mask))
+    if mask == "window":
+        q, k, v, _, ks, vs = _attn_inputs(g, cuda_device, B, M, H, Hkv, hd, quant)
+        pos = torch.arange(M, device=cuda_device)[None, :]
+        p = torch.tensor([400, 777, 1023], device=cuda_device)[:, None]
+        valid = (pos <= p) & (pos > p - 300)
+    else:
+        q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, mask)
+    plan = tka.k7_plan(B, M, Hkv, H // Hkv, hd, quant)
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    split = tka.decode_attention_split_plain(q, k, v, valid, hd ** -0.5, ks, vs, tile=plan.tile,
+                                             splits=plan.splits)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert torch.isfinite(got).all()
+    assert _within_a_bf16_step(got, split) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= ATTN_TOL
+    if mask == "empty_row":
+        assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,M", [(1, 256), (8, 2048)])
+@pytest.mark.parametrize("hd", K7_WIDE_RT)
+def test_k7_wide_rt_cuda_core_kernel(cuda_device, monkeypatch, hd, B, M, quant):
+    """K7_TC off: the CUDA-core kernel's wide instance (P.V a 128-dim piece at a
+    time), within K7's tolerance of the plain version."""
+    monkeypatch.setattr(tka, "K7_TC", False)
+    H, Hkv = 8, 2
+    g = torch.Generator(device=cuda_device).manual_seed(hd + B + quant)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, "ragged")
+    d = tka.decode_attention
+    before = d.launches, d.launches_tc, d.launches_wide_rt
+    got = tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert (d.launches, d.launches_tc, d.launches_wide_rt) == (before[0] + 1, before[1],
+                                                               before[2] + 1)
+    plain = tka.decode_attention_plain(q, k, v, valid, hd ** -0.5, ks, vs)
+    assert torch.isfinite(got).all() and _rel(got.float(), plain.float()) <= ATTN_TOL
+    assert torch.equal(got, tka.decode_attention(q, k, v, valid, hd ** -0.5, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hd", [640, 1024, 2048])
+def test_k7_wide_rt_occupancy_table(cuda_device, hd, quant):
+    """MAX_ACTIVE_CLUSTERS_WIDE is the card's cudaOccupancyMaxActiveClusters
+    for the wide instance at every cluster size (one CTA an SM, whatever
+    the width)."""
+    got = {s: tka.wide_max_active_clusters(2048, hd, quant, s) for s in range(1, 17)}
+    assert got == tka.MAX_ACTIVE_CLUSTERS_WIDE, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_k7_wide_rt_from_a_cuda_graph(cuda_device, quant):
+    """The wide instance reads nothing back on the host: a captured call
+    replays the same bits, also after the lengths change in place."""
+    B, M, H, Hkv, hd = 8, 2048, 8, 2, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(77 + quant)
+    q, k, v, valid, ks, vs = _attn_masked(g, cuda_device, B, M, H, Hkv, hd, quant, "ragged")
+    one = tka.decode_attention(q, k, v, valid, 0.03, ks, vs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tka.decode_attention(q, k, v, valid, 0.03, ks, vs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, one)
+    valid.copy_(torch.arange(M, device=cuda_device)[None, :] < torch.randint(
+        1, M + 1, (B, 1), generator=g, device=cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, tka.decode_attention(q, k, v, valid, 0.03, ks, vs))
 
 
 @pytest.mark.cuda
@@ -3741,3 +3870,82 @@ def test_paged_engine_on_the_card_equals_the_flat_engine(cuda_device, quantum):
     assert paged == flat
     assert k7 == cfg.n_layers * eng.stats["steps"]
     assert sorted(eng._free) == list(range(1, 11))
+
+
+# ------------------------------------------------ tensor parallelism ----
+@pytest.mark.cuda
+def test_tp_world_of_one_over_nccl_equals_the_single_process_port(cuda_device):
+    """A one-rank NCCL world: the TP engine (its fns, ``kv_heads``,
+    ``multihost``) gives the default engine's tokens, and ``tp_layer_forward``
+    the single-process layer's hidden, bit for bit, on a "down" model whose
+    MLP the default route does not fuse (the same kernels on both)."""
+    import torch.distributed as dist
+
+    from pt2tpu_torch.parallel import mesh as tmesh
+    from pt2tpu_torch.parallel import tp as ttp
+
+    from torch_tp_worker import _free_port
+
+    cfg = get_config("tiny-llama").with_(dim=256, n_heads=2, n_kv_heads=1, intermediate=1024)
+    params = random_ternary_params(cfg, seed=6, perm_mode="down", device=cuda_device)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,)).numpy() for n in (5, 40, 17, 3)]
+    eng = ServeEngine(cfg, params, max_batch=3, max_len=128)
+    want = [eng.submit(p, 9) for p in prompts]
+    eng.run()
+    assert tmesh.initialize_distributed(backend="nccl",
+                                        init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                        world_size=1, timeout_s=60) is False  # one process
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        axis = tmesh.make_mesh({"data": 1, "model": 1})["model"]
+        shard = ttp.shard_tp_params(ttp.prepare_tp_params(cfg, params, 1), axis)
+        pf, df = ttp.make_tp_engine_fns(cfg, axis, shard)
+        teng = ServeEngine(cfg, shard, max_batch=3, max_len=128, kv_heads=cfg.kv_heads,
+                           prefill_fn=pf, decode_fn=df, multihost=True)
+        got = [teng.submit(p, 9) for p in prompts]
+        teng.run()
+        assert [r.out for r in got] == [r.out for r in want]
+        x = torch.randn((2, 8, cfg.dim), device=cuda_device).bfloat16()
+        cos, sin, _, _ = tdec.pos_tables(cfg, 8, device=cuda_device)
+        mask = tdec.build_mask(cfg, 8, 8, device=cuda_device)
+        lp = tdec.layer_view(params["layers"], 0)
+        lt = tdec.layer_view(shard["layers"], 0)
+        with torch.inference_mode():
+            a = tdec.layer_forward(cfg, lp, x, cos, sin, mask, layer_idx=0)
+            b = ttp.tp_layer_forward(cfg, lt, x, cos, sin, mask, axis=axis, layer_idx=0)
+        assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_two_gloo_ranks_on_one_card_layer(cuda_device, tmp_path):
+    """Two gloo ranks, both on cuda:0 (NCCL takes one rank a card), run
+    ``tp_layer_forward`` on llama-3-8b's width ("ssr": K3 for qkv / gateup,
+    K5's rows path for o's gather, K1 on the tensor cores, 16 rows): both
+    ranks return the same hidden, within 1e-2 of the single-process plain
+    route."""
+    from torch_tp_worker import run_world
+
+    from pt2tpu_torch.parallel.tp import _whole
+
+    cfg = get_config("llama-3-8b").with_(n_layers=1, vocab_size=1024)
+    params = random_ternary_params(cfg, seed=3, perm_mode="ssr", device="cpu")
+    layer = tdec.layer_slice(params["layers"], 0)
+    x = torch.randn((2, 8, cfg.dim)).bfloat16() * 0.5
+    lp, xd = _whole(layer, cuda_device), x.to(cuda_device)
+    cos, sin, _, _ = tdec.pos_tables(cfg, 8, device=cuda_device)
+    mask = tdec.build_mask(cfg, 8, 8, device=cuda_device)
+    with torch.inference_mode():
+        # build the kernels here, once, before the ranks load them
+        tdec.layer_forward(cfg, lp, xd, cos, sin, mask)
+        tkg.onehot_matmul(torch.zeros((16, cfg.dim), dtype=torch.bfloat16, device=cuda_device),
+                          lp["o"].gather.packed)
+        want = tdec.layer_forward(cfg, lp, xd, cos, sin, mask, impl="plain")
+    case = dict(name="layer", kind="layer", cfg=cfg, ways=2, layer=layer, x=x, device="cuda:0")
+    res = run_world([case], 2, str(tmp_path), timeout_s=300)
+    a, b = res[0]["layer"], res[1]["layer"]
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert _rel(a.float(), want.float().cpu()) <= ATTN_TOL

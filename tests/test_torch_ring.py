@@ -174,7 +174,8 @@ def test_ring_engine_plain_model(name):
 def test_engine_override_refusals():
     """JAX's refusals: a cache_factory with kv_quant or kv_heads; a draft
     beside the ring's strategy overrides or on a sliding-window config (the
-    speculative engine's); kv_heads is not ported."""
+    speculative engine's). Without a cache_factory, kv_heads sets the flat
+    pool's KV heads, as JAX's does."""
     tcfg = treg.get_config("tiny-gemma3")
     tparams = to_port(dense_params(configs("tiny-gemma3")[0], 7))
     pf, df, fac = tring.make_ring_engine_fns(tcfg, device="cpu")
@@ -182,8 +183,7 @@ def test_engine_override_refusals():
         TEngine(tcfg, tparams, kv_quant=True, prefill_fn=pf, decode_fn=df, cache_factory=fac)
     with pytest.raises(ValueError, match="cache_factory replaces the KV pool"):
         TEngine(tcfg, tparams, kv_heads=1, prefill_fn=pf, decode_fn=df, cache_factory=fac)
-    with pytest.raises(NotImplementedError, match="kv_heads"):
-        TEngine(tcfg, tparams, kv_heads=1)
+    assert TEngine(tcfg, tparams, max_len=64, kv_heads=1).cache.k.shape[-2] == 1 != tcfg.kv_heads
     with pytest.raises(ValueError, match="default engine programs"):
         TEngine(tcfg, tparams, draft=(tcfg, tparams), prefill_fn=pf, decode_fn=df,
                 cache_factory=fac)

@@ -165,9 +165,12 @@ def test_spec_engine_refusals(setup):
         ServeEngine(gcfg, {"embed": torch.zeros(1)}, max_len=64, draft=(gcfg, None))
     with pytest.raises(ValueError, match="share a vocabulary"):
         ServeEngine(cfg, tparams, max_len=64, draft=(cfg.with_(vocab_size=7), tparams))
-    for arg, value in (("kv_heads", 1), ("multihost", True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(cfg, tparams, max_len=64, draft=d, **{arg: value})
+    # kv_heads and multihost sit beside a draft as in JAX's engine: the
+    # target pool takes kv_heads (the draft's keeps its own geometry), and
+    # multihost is off in one process
+    eng = ServeEngine(cfg, tparams, max_len=64, draft=d, kv_heads=1)
+    assert eng.cache.k.shape[-2] == 1 and eng.d_cache.k.shape[-2] == cfg.kv_heads
+    assert not ServeEngine(cfg, tparams, max_len=64, draft=d, multihost=True)._mh
 
 
 def test_spec_engine_budget_leaves_room_for_the_window(setup):
